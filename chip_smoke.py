@@ -8,22 +8,44 @@ BFV at n = 16384, q = {60,40,40,40,40,60}, t = PlainModulus.batching(n, 20)
 failure raises and the script exits non-zero without a result line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
-2. build the CUDA kernels from troy_tpu_torch/csrc with nvcc (sm_90a);
-3. each kernel (A NTT, B dyadic MAC, C base conversion, D RNS elementwise)
-   against its plain PyTorch version on the card, at the main path's
-   shapes, word for word, with both times (CUDA events, median of 20);
+2. build the CUDA kernels from troy_tpu_torch/csrc with nvcc (sm_90a), one
+   nvcc per source, all at once;
+3. each kernel (A NTT, B dyadic MAC, C base conversion, D RNS elementwise,
+   E BEHZ lift/tail/decrypt rounding, F key-switch digits and divide-round,
+   K mod-switch divide-round, G plain embedding, M Galois gather) against
+   its plain PyTorch version on the card, at the main path's shapes, word
+   for word (tolerance 0), with both times (CUDA events around one call,
+   median of 20: at these sizes mostly the host's launch cost), the least
+   time the card could take (bound) and, where one PyTorch call computes
+   the same function, that call's time;
 4. the n = 16384 fixture chain from troy's C++ code, word for word:
-   keygen (sk, relin key row 0), encrypt, multiply, relinearize, decrypt;
-5. round trips on fresh random slot vectors, each decrypting to a*b mod t,
-   and the median multiply+relinearize time (CUDA events);
-6. every kernel was launched by phases 4-5 (launch counters).
+   keygen (sk, relin key row 0, Galois key row 0), encrypt, multiply,
+   relinearize, rotate_rows(1), mod_switch_to_next, decrypt, and the
+   invariant noise budget;
+5. round trips on fresh random slot vectors: each decrypts to a*b mod t,
+   and its rotations (rows by 1, rows by 3 through the NAF as 4 - 1, the
+   column swap) and its mod switch decrypt to the expected slots; then the
+   median times of multiply+relinearize, rotate_rows(1) and
+   mod_switch_to_next (CUDA events);
+6. every kernel was launched by phases 4-5 (launch counters); no plain
+   version and no u64ops arithmetic ran on a CUDA tensor in phases 4-5
+   (call counters); per op (mult+relin, rotate_rows(1), mod switch,
+   encrypt, decrypt), the device kernels and the device time of each from
+   the torch profiler, one trace per op.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
+
+Bounds: the larger of the bytes each call must move (every input, tables
+and constants included, read once and every output written once) over
+3.35 TB/s, and its 64-bit multiplies, each taken as four 32-bit operations,
+over the 67 T/s float32 rate of the H100's data sheet (the card has no
+faster path for 64-bit integer products).
 """
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -34,7 +56,7 @@ import torch
 
 import troy_tpu_torch as P
 from troy_tpu_torch import _kernels, prng as rnd, to_numpy, to_torch
-from troy_tpu_torch.ops import ntt, poly, rns
+from troy_tpu_torch.ops import galois, keyswitch, ntt, poly, rns
 
 N = 16384
 Q_BITS = [60, 40, 40, 40, 40, 60]
@@ -43,6 +65,10 @@ FIXTURE = (pathlib.Path(__file__).resolve().parent / "tests" / "data"
            / "ref_bfv_n16384_headline.bin")
 REQUESTS = 3
 TIMING_REPS = 20
+ROTATION_STEPS = [1, -1, 4, 0]       # 0: the column swap, element 2n - 1
+MEM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
+OPS_PER_S = 67e12                    # H100 SXM float32, non-tensor
+OPS_PER_MUL64 = 4
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -53,6 +79,15 @@ KERNELS = {
                        "troy_tpu/ops/rns.py:44"),
     "D_rns_elementwise": ("troy_tpu_torch/csrc/rns_elementwise.cu",
                           "troy_tpu/ops/poly.py:36"),
+    "E_behz": ("troy_tpu_torch/csrc/behz.cu", "troy_tpu/ops/rns.py:111"),
+    "F_keyswitch": ("troy_tpu_torch/csrc/keyswitch.cu",
+                    "troy_tpu/evaluator.py:179"),
+    "K_divide_round": ("troy_tpu_torch/csrc/keyswitch.cu",
+                       "troy_tpu/ops/rns.py:194"),
+    "G_plain_embed": ("troy_tpu_torch/csrc/plain_embed.cu",
+                      "troy_tpu/ops/poly.py:98"),
+    "M_galois": ("troy_tpu_torch/csrc/galois.cu",
+                 "troy_tpu/evaluator.py:785"),
 }
 
 
@@ -117,19 +152,34 @@ def _full(rng, shape, device) -> torch.Tensor:
                     device)
 
 
+def _bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes: int, mul64: int):
+    """(bound_ms, bound_by): the larger of the memory and the compute
+    bound (module docstring)."""
+    mem = nbytes / MEM_BYTES_PER_S * 1e3
+    ops = mul64 * OPS_PER_MUL64 / OPS_PER_S * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
 def phase_kernels(ctx) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     rng = np.random.default_rng(SEED)
     dev = ctx.device
     key, data = ctx.key_context_data, ctx.first_context_data
     q6, q5, t1 = key.ntt, data.ntt, ctx.plain_ntt.rns
-    used = q6.select(list(range(data.limbs)) + [key.limbs - 1])
+    used = q6.select(keyswitch.used_limbs(data.limbs, key.limbs))
     v6, v5 = used.values, q5.values
     tool = data.rns
-    bsk_vals = data.bsk_ntt.values
+    k, nb = tool.k, tool.nb
+    qb = tool.q_bsk
+    lg = N.bit_length() - 1
 
     x_dec = _uniform(rng, [4 * q for q in v6], (5, 6, N), dev)
     x_inv = _uniform(rng, [2 * q for q in v6], (5, 6, N), dev)
+    x_qb = _uniform(rng, [4 * q for q in qb.values], (4, k + nb, N), dev)
     x_t = _uniform(rng, [4 * t1.values[0]], (1, 1, N), dev)
     x_ti = _uniform(rng, [2 * t1.values[0]], (1, 1, N), dev)
     lazy5 = [4 * q for q in v5]
@@ -141,65 +191,155 @@ def phase_kernels(ctx) -> dict:
     ra, rb = (_uniform(rng, v5, (3, 5, N), dev) for _ in range(2))
     xs = _full(rng, (3, 5, N), dev)
     w, wq = q5.scalar_operand([int(data.plain_modulus)] * 5)
+    # E: lift (4, 5, n), tail (3, 5 + 6, n), decrypt rounding (5, n)
+    e_lift = _uniform(rng, v5, (4, 5, N), dev)
+    e_tail = _uniform(rng, qb.values, (3, k + nb, N), dev)
+    e_dec = _uniform(rng, v5, (5, N), dev)
+    e_tg = _uniform(rng, [tool.host.t, tool.host.gamma], (2, N), dev)
+    # F: digits (5, n) -> (5, 6, n); divide-round (2, 6, n) onto (c0, c1);
+    # K: (2, 5, n) -> (2, 4, n)
+    f_target = _uniform(rng, v5, (5, N), dev)
+    f_x = _uniform(rng, v6, (2, 6, N), dev)
+    f_acc = _uniform(rng, v5, (2, 5, N), dev)
+    f_consts = keyswitch.divide_round_consts(q5, v6[-1])
+    k_x = _uniform(rng, v5, (2, 5, N), dev)
+    k_consts = keyswitch.divide_round_consts(q5.slice(0, 4), v5[-1])
+    # G: m (n) mod t onto c0 (5, n)
+    t_plain = int(data.plain_modulus)
+    g_m = to_torch(rng.integers(0, t_plain, N, dtype=np.uint64), dev)
+    g_c0 = _uniform(rng, v5, (5, N), dev)
+    g_args = (t_plain, data.coeff_modulus_mod_plain_modulus,
+              data.coeff_div_plain_modulus, q5)
+    g_consts = poly._plain_embed_consts(*g_args)
+    # M: (2, 5, n), the rotation by one step, both forms
+    elt = 3
+    src, keep = galois.coeff_permutation(N, elt, dev)
+    perm = galois.ntt_permutation(N, elt, dev)
+    m_x = _uniform(rng, v5, (2, 5, N), dev)
 
+    def ntt_work(x, t):
+        rows = x.numel() // N
+        return (_bytes(x, x, t.root_powers, t.root_powers_shoup),
+                rows * (N // 2) * lg * 3 + rows * N * 3)
+
+    conv_mul = lambda c, rows: rows * N * (c.k_in * 3 + c.k_in * c.k_out * 2
+                                           + c.k_out * 5)
     checks = [
-        # (kernel, variant, kernel call, plain call); first of each kernel
-        # is the one whose time stands in the JSON line
+        # (kernel, variant, kernel call, plain call, (bytes, mul64),
+        #  library call or None); the first of each kernel is the one whose
+        # numbers stand in the JSON line
         ("A_ntt", "forward k=6 (5,6,n)",
          lambda: ntt.rns_ntt_forward(x_dec, used),
-         lambda: ntt.ntt_forward_plain(x_dec, used)),
+         lambda: ntt.ntt_forward_plain(x_dec, used), ntt_work(x_dec, used),
+         None),
         ("A_ntt", "forward k=6 (5,6,n) lazy",
          lambda: ntt.rns_ntt_forward(x_dec, used, lazy=True),
-         lambda: ntt.ntt_forward_plain(x_dec, used, lazy=True)),
+         lambda: ntt.ntt_forward_plain(x_dec, used, lazy=True), None, None),
+        ("A_ntt", "forward q u Bsk k=11 (4,11,n) lazy",
+         lambda: ntt.rns_ntt_forward(x_qb, qb, lazy=True),
+         lambda: ntt.ntt_forward_plain(x_qb, qb, lazy=True), None, None),
         ("A_ntt", "inverse k=6 (5,6,n)",
          lambda: ntt.rns_ntt_inverse(x_inv, used),
-         lambda: ntt.ntt_inverse_plain(x_inv, used)),
+         lambda: ntt.ntt_inverse_plain(x_inv, used), None, None),
         ("A_ntt", "inverse k=6 (5,6,n) lazy",
          lambda: ntt.rns_ntt_inverse(x_inv, used, lazy=True),
-         lambda: ntt.ntt_inverse_plain(x_inv, used, lazy=True)),
+         lambda: ntt.ntt_inverse_plain(x_inv, used, lazy=True), None, None),
         ("A_ntt", "forward k=1 mod t", lambda: ntt.rns_ntt_forward(x_t, t1),
-         lambda: ntt.ntt_forward_plain(x_t, t1)),
+         lambda: ntt.ntt_forward_plain(x_t, t1), None, None),
         ("A_ntt", "forward k=1 mod t lazy",
          lambda: ntt.rns_ntt_forward(x_t, t1, lazy=True),
-         lambda: ntt.ntt_forward_plain(x_t, t1, lazy=True)),
+         lambda: ntt.ntt_forward_plain(x_t, t1, lazy=True), None, None),
         ("A_ntt", "inverse k=1 mod t", lambda: ntt.rns_ntt_inverse(x_ti, t1),
-         lambda: ntt.ntt_inverse_plain(x_ti, t1)),
+         lambda: ntt.ntt_inverse_plain(x_ti, t1), None, None),
         ("A_ntt", "inverse k=1 mod t lazy",
          lambda: ntt.rns_ntt_inverse(x_ti, t1, lazy=True),
-         lambda: ntt.ntt_inverse_plain(x_ti, t1, lazy=True)),
+         lambda: ntt.ntt_inverse_plain(x_ti, t1, lazy=True), None, None),
         ("B_dyadic_mac", "J=5 key switch (5,6,n)x(5,2,6,n)",
          lambda: ntt.dyadic_mac(a5, b5, used),
-         lambda: ntt.dyadic_mac_plain(a5.unsqueeze(1), b5, used)),
+         lambda: ntt.dyadic_mac_plain(a5.unsqueeze(1), b5, used),
+         (_bytes(a5, b5) + 2 * 6 * N * 8, 2 * 6 * N * (5 * 2 + 5)), None),
         ("B_dyadic_mac", "J=1 lazy (2,5,n)",
          lambda: ntt.dyadic_mac(a1, b1, q5),
-         lambda: ntt.dyadic_mac_plain(a1, b1, q5)),
-        ("C_base_convert", f"q->Bsk (4,5,n)->(4,{len(bsk_vals)},n)",
+         lambda: ntt.dyadic_mac_plain(a1, b1, q5), None, None),
+        ("C_base_convert", f"q->Bsk (4,5,n)->(4,{nb},n)",
          lambda: rns.fast_convert(xq, tool.q_to_bsk),
-         lambda: rns.fast_convert_plain(xq, tool.q_to_bsk)),
+         lambda: rns.fast_convert_plain(xq, tool.q_to_bsk),
+         (_bytes(xq, tool.q_to_bsk.consts) + 4 * nb * N * 8,
+          conv_mul(tool.q_to_bsk, 4)), None),
         ("C_base_convert", "q->Bsk+m~ (4,5,n)",
          lambda: rns.fast_convert(xq, tool.q_to_bsk_m_tilde),
-         lambda: rns.fast_convert_plain(xq, tool.q_to_bsk_m_tilde)),
+         lambda: rns.fast_convert_plain(xq, tool.q_to_bsk_m_tilde),
+         None, None),
         ("C_base_convert", "B->q+m_sk (3,|B|,n)",
          lambda: rns.fast_convert(xb, tool.b_to_q_m_sk),
-         lambda: rns.fast_convert_plain(xb, tool.b_to_q_m_sk)),
+         lambda: rns.fast_convert_plain(xb, tool.b_to_q_m_sk), None, None),
         ("C_base_convert", "q->{t,gamma} (3,5,n)",
          lambda: rns.fast_convert(xq[:3], tool.q_to_t_gamma),
-         lambda: rns.fast_convert_plain(xq[:3], tool.q_to_t_gamma)),
+         lambda: rns.fast_convert_plain(xq[:3], tool.q_to_t_gamma),
+         None, None),
+        ("C_base_convert", "q->{t,gamma} times t gamma, decrypt (5,n)",
+         lambda: rns.fast_convert(e_dec, tool.q_to_t_gamma_scaled),
+         lambda: rns.fast_convert_plain(e_dec, tool.q_to_t_gamma_scaled),
+         None, None),
         ("D_rns_elementwise", "scalar_mul (3,5,n)",
          lambda: poly._elementwise(poly.SCALAR_MUL, xs, None, q5, w, wq),
          lambda: poly.rns_elementwise_plain(poly.SCALAR_MUL, xs, None, q5,
-                                            w, wq)),
+                                            w, wq),
+         (_bytes(xs, xs), xs.numel() * 3), None),
         ("D_rns_elementwise", "add (3,5,n)",
          lambda: poly.rns_add(ra, rb, q5),
-         lambda: poly.rns_elementwise_plain(poly.ADD, ra, rb, q5)),
+         lambda: poly.rns_elementwise_plain(poly.ADD, ra, rb, q5), None,
+         None),
         ("D_rns_elementwise", "sub (3,5,n)",
          lambda: poly.rns_sub(ra, rb, q5),
-         lambda: poly.rns_elementwise_plain(poly.SUB, ra, rb, q5)),
+         lambda: poly.rns_elementwise_plain(poly.SUB, ra, rb, q5), None,
+         None),
         ("D_rns_elementwise", "neg (3,5,n)", lambda: poly.rns_neg(ra, q5),
-         lambda: poly.rns_elementwise_plain(poly.NEG, ra, None, q5)),
+         lambda: poly.rns_elementwise_plain(poly.NEG, ra, None, q5), None,
+         None),
+        ("E_behz", f"tail (3,{k}+{nb},n)->(3,{k},n)",
+         lambda: rns.behz_tail(e_tail, tool),
+         lambda: rns.behz_tail_plain(e_tail, tool),
+         (_bytes(e_tail, tool.tail_consts) + 3 * k * N * 8,
+          3 * N * (k * 6 + nb * (2 * k + 11) + (nb - 1) * 3
+                   + (k + 1) * (2 * (nb - 1) + 5) + 3 + k * 3)), None),
+        ("E_behz", f"lift (4,{k},n)->(4,{nb},n)",
+         lambda: rns.behz_lift(e_lift, tool),
+         lambda: rns.behz_lift_plain(e_lift, tool), None, None),
+        ("E_behz", "decrypt rounding (2,n)->(n)",
+         lambda: rns.behz_decrypt_round(e_tg, tool),
+         lambda: rns.behz_decrypt_round_plain(e_tg, tool), None, None),
+        ("E_behz", f"decrypt C + E ({k},n)->(n)",
+         lambda: rns.decrypt_scale_and_round(e_dec, tool),
+         lambda: rns.decrypt_scale_and_round_plain(e_dec, tool), None,
+         None),
+        ("F_keyswitch", "divide-round (2,6,n) onto (c0,c1) -> (2,5,n)",
+         lambda: keyswitch.divide_round_last(f_x, f_consts, f_acc),
+         lambda: keyswitch.divide_round_last_plain(f_x, f_consts, f_acc),
+         (_bytes(f_x, f_acc, f_acc), 2 * N * 5 * 5), None),
+        ("F_keyswitch", "digits (5,n)->(5,6,n)",
+         lambda: keyswitch.keyswitch_digits(f_target, used),
+         lambda: keyswitch.keyswitch_digits_plain(f_target, used),
+         None, None),
+        ("K_divide_round", "mod switch (2,5,n)->(2,4,n)",
+         lambda: keyswitch.divide_and_round_q_last(k_x, q5),
+         lambda: keyswitch.divide_round_last_plain(k_x, k_consts),
+         (_bytes(k_x) + 2 * 4 * N * 8, 2 * N * 4 * 5), None),
+        ("G_plain_embed", "m (n) onto c0 (5,n)",
+         lambda: poly.bfv_plain_embed(g_m, g_c0, *g_args),
+         lambda: poly.bfv_multiply_add_plain(g_m, g_c0, *g_args),
+         (_bytes(g_m, g_c0, g_c0, g_consts), N * (8 + 5 * 5)), None),
+        ("M_galois", "signed gather (2,5,n), elt 3",
+         lambda: galois.apply_permutation_signed(m_x, src, keep, q5),
+         lambda: galois.apply_permutation_signed_plain(m_x, src, keep, q5),
+         (_bytes(m_x, m_x, src, keep), 0),
+         lambda: m_x.index_select(-1, perm)),
+        ("M_galois", "NTT-form gather (2,5,n), elt 3",
+         lambda: galois.apply_permutation(m_x, perm),
+         lambda: galois.apply_permutation_plain(m_x, perm), None, None),
     ]
     results = {}
-    for kernel, variant, run, plain in checks:
+    for kernel, variant, run, plain, work, library in checks:
         got, want = run(), plain()
         torch.cuda.synchronize()
         if got.shape != want.shape:
@@ -212,10 +352,20 @@ def phase_kernels(ctx) -> dict:
                                  f"{int((got != want).sum())} words differ "
                                  f"from the plain version (max |diff| {err})")
         ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-        log(f"[3] {kernel:18s} {variant:34s} word-equal; kernel {ms:.4f} ms,"
-            f" plain {plain_ms:.4f} ms")
-        entry = results.setdefault(kernel, {"max_abs_err": 0, "ms": ms,
-                                            "plain_ms": plain_ms})
+        line = (f"[3] {kernel:18s} {variant:44s} word-equal; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if kernel not in results:
+            bound_ms, bound_by = bound(*work)
+            library_ms = cuda_ms(library) if library else None
+            results[kernel] = {"max_abs_err": 0, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by,
+                               "library_ms": library_ms}
+            line += f", bound {bound_ms:.6f} ms ({bound_by})"
+            if library_ms is not None:
+                line += f", library {library_ms:.4f} ms"
+        log(line)
+        entry = results[kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
     return results
 
@@ -228,6 +378,49 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     g = to_numpy(got[bad]).astype(object)
     w = to_numpy(want[bad]).astype(object)
     return int(max(abs(a - b) for a, b in zip(g, w)))
+
+
+class PlainCallCounter:
+    """Counts calls of the u64ops arithmetic and of every ``*_plain``
+    function that get a CUDA tensor: on the main path on the card there
+    must be none. Installed by replacing each function in every module of
+    the package that holds it, so calls through any name are seen."""
+
+    U64_HOST_HELPERS = {"s64", "u64", "shoup_quotient"}
+
+    def __init__(self):
+        self.calls = {}
+        pkg = [m for name, m in list(sys.modules.items())
+               if name.startswith("troy_tpu_torch") and m is not None]
+        u64ops = sys.modules["troy_tpu_torch.ops.u64ops"]
+        targets = {}
+        for module in pkg:
+            for name, fn in vars(module).items():
+                if not callable(fn) or getattr(fn, "__module__", None) \
+                        != module.__name__:
+                    continue
+                if name.endswith("_plain") or (
+                        module is u64ops and not name.startswith("_")
+                        and name not in self.U64_HOST_HELPERS
+                        and not isinstance(fn, type)):
+                    targets[fn] = f"{module.__name__}.{name}"
+        wrapped = {fn: self._wrap(fn, label) for fn, label in targets.items()}
+        for module in pkg:
+            for name, fn in list(vars(module).items()):
+                if callable(fn) and fn in wrapped:
+                    setattr(module, name, wrapped[fn])
+        self.wrapped = len(wrapped)
+
+    @staticmethod
+    def counts(arg) -> bool:
+        return isinstance(arg, torch.Tensor) and arg.is_cuda
+
+    def _wrap(self, fn, label):
+        def counted(*args, **kwargs):
+            if any(self.counts(a) for a in (*args, *kwargs.values())):
+                self.calls[label] = self.calls.get(label, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
 
 
 def phase_fixture(ctx) -> tuple:
@@ -249,6 +442,11 @@ def phase_fixture(ctx) -> tuple:
         f"{time.perf_counter() - t0:.1f} s")
     same(kg.secret_key.data, "sk")
     same(rlk.keys[2][0], "rlk_0")
+    t0 = time.perf_counter()
+    gk = kg.create_galois_keys(steps=[1])
+    log(f"[4] host keygen (Galois key, step 1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    same(gk.keys[3][0], "gk_0")
     be = P.BatchEncoder(ctx)
     t = int(raw["t"][0])
     v1 = np.array([(i * i + 3 * i + 1) % t for i in range(N)], np.uint64)
@@ -264,35 +462,99 @@ def phase_fixture(ctx) -> tuple:
     same(prod.data, "prod")
     rel = ev.relinearize(prod, rlk)
     same(rel.data, "rel")
+    same(ev.rotate_rows(rel, 1, gk).data, "rot")
+    same(ev.mod_switch_to_next(rel).data, "ms")
     dec = P.Decryptor(ctx, kg.secret_key)
     got = be.decode(dec.decrypt(rel))
     if not np.array_equal(got, raw["dec_rel"]):
         raise AssertionError("decode(decrypt(rel)) differs from dec_rel")
     log("[4] dec_rel: word-equal to troy's C++ vectors")
-    return kg, rlk, be, ev, dec
+    budget = dec.invariant_noise_budget(rel)
+    if budget != int(raw["rel_budget"][0]):
+        raise AssertionError(f"noise budget {budget} != rel_budget "
+                             f"{int(raw['rel_budget'][0])}")
+    log(f"[4] rel_budget: {budget} bits, equal to troy's")
+    return kg, rlk, gk, be, ev, dec
 
 
-def phase_requests(ctx, kg, rlk, be, ev, dec) -> float:
+def phase_requests(ctx, kg, rlk, gk, be, ev, dec) -> dict:
+    t0 = time.perf_counter()
+    more = kg.create_galois_keys(steps=[s for s in ROTATION_STEPS if s != 1])
+    gk = P.GaloisKeys(keys={**gk.keys, **more.keys})
+    log(f"[5] host keygen (Galois keys, steps -1, 4 and the column swap): "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED + 1)
     t = be.plain_modulus
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
                       seed=rnd.seed_from_uint64(SEED + 1), host_sampling=True)
+    decode = lambda ct: be.decode(dec.decrypt(ct))
     for r in range(REQUESTS):
         a = rng.integers(0, t, N, dtype=np.uint64)
         b = rng.integers(0, t, N, dtype=np.uint64)
         ca = enc.encrypt_symmetric(be.encode(a))
         cb = enc.encrypt_symmetric(be.encode(b))
         rel = ev.relinearize(ev.multiply(ca, cb), rlk)
-        got = be.decode(dec.decrypt(rel))
         want = (a.astype(object) * b.astype(object) % t).astype(np.uint64)
-        if not np.array_equal(got, want):
-            raise AssertionError(f"request {r}: decrypt != a*b mod t")
-        log(f"[5] request {r}: encrypt -> multiply -> relinearize -> "
-            f"decrypt -> decode == a*b mod t")
-    ms = cuda_ms(lambda: ev.relinearize(ev.multiply(ca, cb), rlk))
-    log(f"[5] multiply+relinearize: median {ms:.4f} ms over {TIMING_REPS} "
-        f"runs (CUDA events)")
-    return ms
+        rows = want.reshape(2, N // 2)
+        expected = {
+            "decrypt": (rel, want),
+            "rotate_rows(1)": (ev.rotate_rows(rel, 1, gk),
+                               np.roll(rows, -1, axis=1).reshape(-1)),
+            "rotate_rows(3)": (ev.rotate_rows(rel, 3, gk),
+                               np.roll(rows, -3, axis=1).reshape(-1)),
+            "rotate_columns": (ev.rotate_columns(rel, gk),
+                               rows[::-1].reshape(-1)),
+            "mod_switch_to_next": (ev.mod_switch_to_next(rel), want),
+        }
+        for what, (ct, slots) in expected.items():
+            if not np.array_equal(decode(ct), slots):
+                raise AssertionError(f"request {r}: {what} decrypts to the "
+                                     "wrong slots")
+        log(f"[5] request {r}: a*b mod t, its rotations (rows by 1 and by "
+            f"3 = 4 - 1, columns) and its mod switch decrypt to the "
+            f"expected slots")
+    times = {
+        "mult_relin_ms": cuda_ms(
+            lambda: ev.relinearize(ev.multiply(ca, cb), rlk)),
+        "rotate_rows_ms": cuda_ms(lambda: ev.rotate_rows(rel, 1, gk)),
+        "mod_switch_ms": cuda_ms(lambda: ev.mod_switch_to_next(rel)),
+    }
+    log(f"[5] medians over {TIMING_REPS} runs (CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return {"gk": gk, "ca": ca, "cb": cb, "rel": rel, **times}
+
+
+def _short(key: str) -> str:
+    """A device kernel's function name without its namespace, template
+    and arguments; a copy keeps the profiler's name."""
+    found = re.search(r"::(\w+)[<(]", key)
+    return found.group(1) if found else key[:40]
+
+
+def device_kernels_per_op(fn, reps: int = 5) -> tuple:
+    """(device kernels and copies, device ms, {kernel: [launches, us per
+    launch]}) per call of fn, from a torch.profiler trace of reps calls
+    after warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = lambda e: getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0))
+    count = sum(e.count for e in events) / reps
+    us = sum(device_us(e) for e in events) / reps
+    each = {}
+    for e in events:
+        launches, total = each.get(_short(e.key), (0, 0.0))
+        each[_short(e.key)] = (launches + e.count, total + device_us(e))
+    each = {k: [c / reps, t / c] for k, (c, t) in each.items() if c}
+    return count, us / 1e3, each
 
 
 def main() -> None:
@@ -302,12 +564,15 @@ def main() -> None:
         scheme=P.SchemeType.bfv, poly_modulus_degree=N,
         coeff_modulus=tuple(P.CoeffModulus.create(N, Q_BITS)),
         plain_modulus=P.PlainModulus.batching(N, 20))
-    ctx = P.HeContext(parms, device="cuda")
+    ctx = P.HeContext(parms)
+    if ctx.device.type != "cuda":
+        raise AssertionError(f"HeContext defaulted to {ctx.device}")
     kernel_results = phase_kernels(ctx)
 
+    counter = PlainCallCounter()
     _kernels.reset_launch_counts()
     state = phase_fixture(ctx)
-    mult_relin_ms = phase_requests(ctx, *state)
+    req = phase_requests(ctx, *state)
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
 
@@ -316,15 +581,47 @@ def main() -> None:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    log(f"[6] plain-version and u64ops calls on CUDA tensors in phases 4-5 "
+        f"({counter.wrapped} functions watched): {counter.calls or 0}")
+    if counter.calls:
+        raise AssertionError(f"plain torch ran on the card's main path: "
+                             f"{counter.calls}")
+    kg, rlk, _, be, ev, dec = state
+    ca, cb, rel, gk = req["ca"], req["cb"], req["rel"], req["gk"]
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=rnd.seed_from_uint64(SEED + 2), host_sampling=True)
+    pt = be.encode(np.arange(N, dtype=np.uint64) % be.plain_modulus)
+    profile = {
+        "mult_relin": lambda: ev.relinearize(ev.multiply(ca, cb), rlk),
+        "rotate_rows": lambda: ev.rotate_rows(rel, 1, gk),
+        "mod_switch": lambda: ev.mod_switch_to_next(rel),
+        "encrypt": lambda: enc.encrypt_symmetric(pt),
+        "decrypt": lambda: dec.decrypt(rel),
+    }
+    per_op = {}
+    for op, fn in profile.items():
+        count, device_ms, each = device_kernels_per_op(fn)
+        per_op[op] = {"device_kernels": count, "device_ms": device_ms,
+                      "each": each}
+        log(f"[6] {op}: {count:g} device kernels and copies per op, "
+            f"{device_ms:.4f} ms of device time (torch.profiler): "
+            + "; ".join(f"{k} x{c:g} at {us:.1f} us"
+                        for k, (c, us) in each.items()))
+
     entries = []
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
         entries.append({"name": kernel, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[kernel],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": entries,
-                    "mult_relin_ms": mult_relin_ms}))
+                    "mult_relin_ms": req["mult_relin_ms"],
+                    "rotate_rows_ms": req["rotate_rows_ms"],
+                    "mod_switch_ms": req["mod_switch_ms"],
+                    "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

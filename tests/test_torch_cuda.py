@@ -17,7 +17,7 @@ import torch
 
 import troy_tpu_torch as P
 from troy_tpu_torch import _kernels, interop, prng
-from troy_tpu_torch.ops import ntt, poly, rns
+from troy_tpu_torch.ops import galois, keyswitch, ntt, poly, rns
 from troy_tpu_torch.utils.rns import make_rns_tool
 
 pytestmark = pytest.mark.cuda
@@ -84,7 +84,8 @@ def tool(dev):
 
 
 @pytest.mark.parametrize("conv", ["q_to_bsk", "q_to_bsk_m_tilde",
-                                  "b_to_q_m_sk", "q_to_t_gamma"])
+                                  "b_to_q_m_sk", "q_to_t_gamma",
+                                  "q_to_t_gamma_scaled"])
 def test_base_convert_kernel(dev, tool, conv):
     n, dt = tool
     c = getattr(dt, conv)
@@ -109,6 +110,88 @@ def test_rns_elementwise_kernel(dev, tool):
           poly.rns_elementwise_plain(poly.SCALAR_MUL, x, None, t, w, wq))
 
 
+def _words(rng, shape, dev):
+    return interop.to_torch(rng.integers(0, 1 << 64, size=shape,
+                                         dtype=np.uint64), dev)
+
+
+def test_behz_kernels(dev, tool):
+    """Kernel E's lift, tail and decrypt rounding at the BFV multiply's
+    and decryption's shapes."""
+    n, dt = tool
+    rng = np.random.default_rng(4)
+    x = _uniform(rng, dt.q.values, (4,), n, dev)
+    _same(rns.behz_lift(x, dt), rns.behz_lift_plain(x, dt))
+    y = _uniform(rng, dt.q_bsk.values, (3,), n, dev)
+    _same(rns.behz_tail(y, dt), rns.behz_tail_plain(y, dt))
+    z = _words(rng, (3, dt.k + dt.nb, n), dev)         # any u64 words
+    _same(rns.behz_tail(z, dt), rns.behz_tail_plain(z, dt))
+    p = _uniform(rng, dt.q.values, (5,), n, dev)
+    _same(rns.decrypt_scale_and_round(p, dt),
+          rns.decrypt_scale_and_round_plain(p, dt))
+    tg = _uniform(rng, [dt.host.t, dt.host.gamma], (5,), n, dev)
+    _same(rns.behz_decrypt_round(tg, dt), rns.behz_decrypt_round_plain(tg, dt))
+
+
+def test_keyswitch_kernels(dev, tool):
+    """Kernel F's digits and divide-round, with every accumulator width,
+    and kernel K's mod switch."""
+    n, dt = tool
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    key = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    used = key.select(keyswitch.used_limbs(5, 6))
+    rng = np.random.default_rng(5)
+    target = _uniform(rng, moduli[:5], (), n, dev)
+    _same(keyswitch.keyswitch_digits(target, used),
+          keyswitch.keyswitch_digits_plain(target, used))
+    x = _uniform(rng, used.values, (2,), n, dev)
+    consts = keyswitch.divide_round_consts(key.slice(0, 5), moduli[-1])
+    for comps in (0, 1, 2):
+        acc = _uniform(rng, moduli[:5], (comps,), n, dev) if comps else None
+        _same(keyswitch.divide_round_last(x, consts, acc),
+              keyswitch.divide_round_last_plain(x, consts, acc))
+    level = key.slice(0, 5)
+    y = _uniform(rng, level.values, (2,), n, dev)
+    consts = keyswitch.divide_round_consts(key.slice(0, 4), moduli[4])
+    _kernels.reset_launch_counts()
+    got = keyswitch.divide_and_round_q_last(y, level)
+    assert _kernels.launch_counts()["K_divide_round"] == 1
+    _same(got, keyswitch.divide_round_last_plain(y, consts))
+
+
+@pytest.mark.parametrize("t", [786433, 6 * 65537, 1 << 41])
+@pytest.mark.parametrize("subtract", [False, True])
+def test_plain_embed_kernel(dev, tool, t, subtract):
+    """Kernel G with a prime t, a composite even t and a power of two."""
+    n, dt = tool
+    Q = 1
+    for v in dt.q.values:
+        Q *= v
+    coeff_div = tuple((Q // t) % v for v in dt.q.values)
+    rng = np.random.default_rng(t % 1000)
+    m = interop.to_torch(rng.integers(0, t, size=(2, n), dtype=np.uint64),
+                         dev)
+    c0 = _uniform(rng, dt.q.values, (2,), n, dev)
+    args = (t, Q % t, coeff_div, dt.q, subtract)
+    _same(poly.bfv_plain_embed(m, c0, *args),
+          poly.bfv_multiply_add_plain(m, c0, *args))
+
+
+@pytest.mark.parametrize("elt", [3, 2047, 5 ** 3 % 2048])
+def test_galois_kernel(dev, tool, elt):
+    """Kernel M, signed (with words 0 and q - 1) and unsigned."""
+    n, dt = tool
+    rng = np.random.default_rng(elt)
+    x = _uniform(rng, dt.q.values, (2,), n, dev)
+    x[:, :, ::5] = 0
+    src, keep = galois.coeff_permutation(n, elt, dev)
+    _same(galois.apply_permutation_signed(x, src, keep, dt.q),
+          galois.apply_permutation_signed_plain(x, src, keep, dt.q))
+    perm = galois.ntt_permutation(n, elt, dev)
+    _same(galois.apply_permutation(x, perm),
+          galois.apply_permutation_plain(x, perm))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     n = 64
     moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
@@ -124,8 +207,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 def _slice(device):
-    """keygen -> encrypt x2 -> multiply -> relinearize -> decrypt at
-    n = 1024, as numpy words per stage."""
+    """keygen -> encrypt x2 -> multiply -> relinearize -> rotate_rows,
+    rotate_columns, mod_switch_to_next -> decrypt at n = 1024, as numpy
+    words per stage."""
     n = 1024
     parms = P.EncryptionParameters(
         scheme=P.SchemeType.bfv, poly_modulus_degree=n,
@@ -134,6 +218,7 @@ def _slice(device):
     ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=device)
     kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(5), host_sampling=True)
     rlk = kg.create_relin_keys()
+    gk = kg.create_galois_keys(steps=[1, 0])
     be = P.BatchEncoder(ctx)
     rng = np.random.default_rng(5)
     cts = []
@@ -146,17 +231,25 @@ def _slice(device):
     ev = P.Evaluator(ctx)
     prod = ev.multiply(*cts)
     rel = ev.relinearize(prod, rlk)
-    plain = P.Decryptor(ctx, kg.secret_key).decrypt(rel)
+    dec = P.Decryptor(ctx, kg.secret_key)
+    rot = ev.rotate_rows(rel, 1, gk)
+    ms = ev.mod_switch_to_next(rel)
     return {"c1": interop.words(cts[0]), "c2": interop.words(cts[1]),
             "add": interop.words(ev.add(*cts)),
             "prod": interop.words(prod), "rel": interop.words(rel),
-            "decode": be.decode(plain)}
+            "rot": interop.words(rot),
+            "col": interop.words(ev.rotate_columns(rel, gk)),
+            "ms": interop.words(ms),
+            "decode": be.decode(dec.decrypt(rel)),
+            "decode_ms": be.decode(dec.decrypt(ms)),
+            "budget": np.array([dec.invariant_noise_budget(rel)])}
 
 
 def test_slice_on_the_card_gives_the_cpu_words(dev):
     _kernels.reset_launch_counts()
     on_card = _slice(dev)
     counts = _kernels.launch_counts()
+    assert set(counts) == set(_kernels.KERNELS.values())
     assert all(c > 0 for c in counts.values()), counts
     on_host = _slice("cpu")
     for stage, want in on_host.items():

@@ -1,10 +1,11 @@
 """The headline chain of troy_tpu_torch against troy's C++ vectors, on the CPU.
 
 BFV n = 16384, q = {60,40,40,40,40,60}, t = PlainModulus.batching(n, 20):
-seeded host-sampling keygen and encryption, then multiply, relinearize and
-decrypt, each stage compared word for word with the records of
-tests/data/ref_bfv_n16384_headline.bin (the chain chip_smoke.py checks on
-the card). No JAX: the reference here is troy's own output.
+seeded host-sampling keygen (secret, relin and Galois keys) and encryption,
+then multiply, relinearize, rotate_rows(1), mod_switch_to_next, decrypt and
+the invariant noise budget, each stage compared word for word with the
+records of tests/data/ref_bfv_n16384_headline.bin (the chain chip_smoke.py
+checks on the card). No JAX: the reference here is troy's own output.
 """
 
 import pathlib
@@ -34,7 +35,7 @@ def env():
         plain_modulus=P.PlainModulus.batching(N, 20))
     assert list(parms.coeff_values) == [int(x) for x in raw["q"]]
     assert int(parms.plain_modulus) == int(raw["t"][0])
-    return raw, P.HeContext(parms)
+    return raw, P.HeContext(parms, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +50,7 @@ def _ct(raw, ctx, name):
     """A fixture ciphertext, with its size and NTT flag from '<name>_meta'."""
     size, is_ntt = int(raw[name + "_meta"][0]), bool(raw[name + "_meta"][1])
     return interop.ciphertext(raw[name].reshape(size, -1, N),
-                              ctx.first_level, is_ntt)
+                              ctx.first_level, is_ntt, "cpu")
 
 
 def test_secret_key_and_relin_key_row0(env, keys):
@@ -97,3 +98,38 @@ def test_decrypt_and_decode(env, keys):
     plain = P.Decryptor(ctx, kg.secret_key).decrypt(_ct(raw, ctx, "rel"))
     np.testing.assert_array_equal(P.BatchEncoder(ctx).decode(plain),
                                   raw["dec_rel"])
+
+
+@pytest.fixture(scope="module")
+def galois_keys(keys):
+    """The key of rotation step 1, whose rows replay the seed stream."""
+    kg, _ = keys
+    return kg.create_galois_keys(steps=[1])
+
+
+def test_galois_key_row0(env, galois_keys):
+    raw, _ = env
+    assert list(galois_keys.keys) == [3]        # 3^1 mod 2n
+    np.testing.assert_array_equal(
+        interop.words(galois_keys)[3][0].reshape(-1), raw["gk_0"])
+
+
+def test_rotate_rows(env, galois_keys):
+    raw, ctx = env
+    rot = P.Evaluator(ctx).rotate_rows(_ct(raw, ctx, "rel"), 1, galois_keys)
+    np.testing.assert_array_equal(interop.words(rot).reshape(-1), raw["rot"])
+
+
+def test_mod_switch_to_next(env):
+    raw, ctx = env
+    ms = P.Evaluator(ctx).mod_switch_to_next(_ct(raw, ctx, "rel"))
+    assert ms.level == ctx.first_level + 1
+    np.testing.assert_array_equal(interop.words(ms).reshape(-1), raw["ms"])
+
+
+def test_invariant_noise_budget(env, keys):
+    raw, ctx = env
+    kg, _ = keys
+    dec = P.Decryptor(ctx, kg.secret_key)
+    assert dec.invariant_noise_budget(_ct(raw, ctx, "rel")) == \
+        int(raw["rel_budget"][0])

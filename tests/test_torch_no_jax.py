@@ -6,6 +6,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +40,7 @@ FLOW = textwrap.dedent("""
         scheme=P.SchemeType.bfv, poly_modulus_degree=n,
         coeff_modulus=tuple(P.CoeffModulus.create(n, [40, 40, 40])),
         plain_modulus=P.PlainModulus.batching(n, 17))
-    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none)
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
     kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(1), host_sampling=True)
     be = P.BatchEncoder(ctx)
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
@@ -50,8 +51,15 @@ FLOW = textwrap.dedent("""
     ct = ev.relinearize(ev.multiply(enc.encrypt_symmetric(be.encode(a)),
                                     enc.encrypt_symmetric(be.encode(a))),
                         kg.create_relin_keys())
-    got = be.decode(P.Decryptor(ctx, kg.secret_key).decrypt(ct))
+    dec = P.Decryptor(ctx, kg.secret_key)
+    got = be.decode(dec.decrypt(ct))
     assert (got == (a * a) % t).all(), "wrong product"
+    rot = ev.rotate_rows(ct, 1, kg.create_galois_keys(steps=[1]))
+    want = np.concatenate([np.roll(got[:n // 2], -1), np.roll(got[n // 2:], -1)])
+    assert (be.decode(dec.decrypt(rot)) == want).all(), "wrong rotation"
+    ms = ev.mod_switch_to_next(ct)
+    assert (be.decode(dec.decrypt(ms)) == got).all(), "wrong mod switch"
+    assert dec.invariant_noise_budget(ms) > 0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert not loaded, loaded
@@ -77,22 +85,55 @@ def test_cuda_context_raises_without_a_card():
         P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cuda")
 
 
+def test_context_defaults_to_the_card():
+    """With no device named, the context is made on the card, and without
+    one it raises rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=64,
+        coeff_modulus=tuple(P.CoeffModulus.create(64, [40, 40])),
+        plain_modulus=P.PlainModulus.batching(64, 17))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.HeContext(parms, sec_level=P.SecurityLevel.none)
+    with pytest.raises((RuntimeError, AssertionError)):
+        P.interop.secret_key(np.zeros((2, 64), dtype=np.uint64))
+
+
 def test_wrappers_run_the_plain_version_only_on_the_cpu():
     """A tensor that is not on the CPU never takes the plain path: the
     wrapper launches the kernel or raises."""
-    from troy_tpu_torch.ops import ntt, poly, rns
+    from troy_tpu_torch.ops import galois, keyswitch, ntt, poly, rns
     from troy_tpu_torch.utils.rns import make_rns_tool
 
     n = 64
     q = tuple(int(m) for m in P.CoeffModulus.create(n, [40, 40]))
+    t = int(P.PlainModulus.batching(n, 17))
     tables = ntt.RnsNttTables.from_moduli(n, q, "cpu")
-    tool = make_rns_tool(n, q, int(P.PlainModulus.batching(n, 17)))
+    tool = make_rns_tool(n, q, t)
     conv = rns.DeviceConverter.build(tool.conv_q_to_Bsk, "cpu")
-    x = torch.zeros((2, n), dtype=torch.int64, device="meta")
+    dtool = rns.DeviceRnsTool.build(tool, tables, ntt.RnsNttTables.from_moduli(
+        n, tool.base_Bsk.values, "cpu"))
+    src, keep = galois.coeff_permutation(n, 3, "cpu")
+    consts = keyswitch.divide_round_consts(tables.slice(0, 1), q[-1])
+    meta = lambda *shape: torch.zeros(shape, dtype=torch.int64,
+                                      device="meta")
+    x = meta(2, n)
     for call in (lambda: ntt.rns_ntt_forward(x, tables),
                  lambda: ntt.rns_ntt_inverse(x, tables),
                  lambda: ntt.rns_dyadic_mul(x, x, tables),
                  lambda: poly.rns_add(x, x, tables),
-                 lambda: rns.fast_convert(x, conv)):
+                 lambda: rns.fast_convert(x, conv),
+                 lambda: rns.behz_lift(x, dtool),
+                 lambda: rns.behz_tail(meta(2 + dtool.nb, n), dtool),
+                 lambda: rns.decrypt_scale_and_round(x, dtool),
+                 lambda: keyswitch.keyswitch_digits(meta(n), tables),
+                 lambda: keyswitch.divide_round_last(meta(1, 2, n), consts),
+                 lambda: keyswitch.divide_and_round_q_last(meta(1, 2, n),
+                                                           tables),
+                 lambda: poly.bfv_plain_embed(meta(n), x, t, 1, (1, 1),
+                                              tables),
+                 lambda: galois.apply_permutation_signed(x, src, keep, tables),
+                 lambda: galois.apply_permutation(x, src)):
         with pytest.raises(ValueError, match="expected all on the CPU"):
             call()

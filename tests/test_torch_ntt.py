@@ -14,11 +14,17 @@ import jax.numpy as jnp
 from troy_tpu.ops import ntt as jntt
 from troy_tpu.modulus import CoeffModulus as JCoeffModulus
 
-from troy_tpu_torch.interop import to_numpy, to_torch
+from troy_tpu_torch import interop
+from troy_tpu_torch.interop import to_numpy
 from troy_tpu_torch.ops import ntt as tntt
 from troy_tpu_torch.ops import u64ops as tu
 
 torch.set_num_threads(1)
+
+
+def to_torch(words):
+    """Words on the CPU, where the wrappers run the plain versions."""
+    return interop.to_torch(words, "cpu")
 
 BITS = {1: [50], 6: [60, 40, 40, 40, 40, 60]}
 

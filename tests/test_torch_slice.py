@@ -39,7 +39,8 @@ def _run(mod, prng, name, vals):
     decrypt -> decode, returning every intermediate as numpy words."""
     sec = mod.SecurityLevel.none if name == "n1024" \
         else mod.SecurityLevel.tc128
-    ctx = mod.HeContext(_parms(mod, name), sec_level=sec)
+    on_cpu = {"device": "cpu"} if mod is P else {}
+    ctx = mod.HeContext(_parms(mod, name), sec_level=sec, **on_cpu)
     kg = mod.KeyGenerator(ctx, seed=prng.seed_from_uint64(SEED),
                           host_sampling=True)
     rlk = kg.create_relin_keys()
@@ -101,10 +102,10 @@ def test_jax_state_through_interop(runs):
     """The JAX package's key and ciphertext words, fed into the port."""
     _, _, _, jax_out, _, ctx = runs
     level = ctx.first_level
-    sk = interop.secret_key(jax_out["sk"])
-    rlk = interop.relin_keys({2: jax_out["rlk"]})
-    c1 = interop.ciphertext(jax_out["c1"], level, False)
-    c2 = interop.ciphertext(jax_out["c2"], level, False)
+    sk = interop.secret_key(jax_out["sk"], "cpu")
+    rlk = interop.relin_keys({2: jax_out["rlk"]}, "cpu")
+    c1 = interop.ciphertext(jax_out["c1"], level, False, "cpu")
+    c2 = interop.ciphertext(jax_out["c2"], level, False, "cpu")
     ev = P.Evaluator(ctx)
     prod = ev.multiply(c1, c2)
     np.testing.assert_array_equal(interop.words(prod), jax_out["prod"])
@@ -113,6 +114,6 @@ def test_jax_state_through_interop(runs):
     plain = P.Decryptor(ctx, sk).decrypt(rel)
     np.testing.assert_array_equal(interop.words(plain), jax_out["plain"])
     be = P.BatchEncoder(ctx)
-    pt = interop.plaintext(jax_out["plain"])
+    pt = interop.plaintext(jax_out["plain"], "cpu")
     np.testing.assert_array_equal(be.decode(pt), jax_out["decode"])
     np.testing.assert_array_equal(interop.words(rlk)[2], jax_out["rlk"])

@@ -12,10 +12,16 @@ import torch
 import jax.numpy as jnp
 from troy_tpu.ops import u64ops as ju
 
-from troy_tpu_torch.interop import to_numpy, to_torch
+from troy_tpu_torch import interop
+from troy_tpu_torch.interop import to_numpy
 from troy_tpu_torch.ops import u64ops as tu
 
 torch.set_num_threads(1)
+
+
+def to_torch(words):
+    """Words on the CPU, where the wrappers run the plain versions."""
+    return interop.to_torch(words, "cpu")
 
 M64 = (1 << 64) - 1
 SIZE = 4096

@@ -14,7 +14,8 @@ reference it is tested against, not a dependency.
 from .modulus import Modulus, CoeffModulus, PlainModulus, SecurityLevel
 from .params import EncryptionParameters, SchemeType, ParmsID, PARMS_ID_ZERO
 from .context import HeContext, ContextData
-from .he_types import Plaintext, Ciphertext, SecretKey, KSwitchKeys, RelinKeys
+from .he_types import (Plaintext, Ciphertext, SecretKey, KSwitchKeys,
+                       RelinKeys, GaloisKeys)
 from .keygen import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
@@ -29,6 +30,7 @@ __all__ = [
     "EncryptionParameters", "SchemeType", "ParmsID", "PARMS_ID_ZERO",
     "HeContext", "ContextData",
     "Plaintext", "Ciphertext", "SecretKey", "KSwitchKeys", "RelinKeys",
+    "GaloisKeys",
     "KeyGenerator", "Encryptor", "Decryptor", "BatchEncoder", "Evaluator",
     "to_numpy", "to_torch",
 ]

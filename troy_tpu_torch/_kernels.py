@@ -1,14 +1,16 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, kept under
+``sm_90a``, one ``nvcc`` per source, all started together, then linked into
+one shared library with a plain C interface, kept under
 ``build/troy_tpu_torch/`` beside the package and named by a hash of the
-sources, then loaded with ``ctypes``. Nothing here runs at import: the CPU
+sources, and loaded with ``ctypes``. Nothing here runs at import: the CPU
 tests import every module on machines with no ``nvcc`` and no card.
 
 Every C entry point launches on the caller's stream, allocates nothing and
 returns ``cudaGetLastError()``; ``launch`` raises when that is not 0 and
 counts the launch. The counts show which kernels a run went through.
+There is no fallback: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
-SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu")
+SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
+           "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu")
 HEADERS = ("u64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,14 +43,31 @@ _SIGNATURES = {
     "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "troy_base_convert": (_P, _P, _L, _I, _I, _I, _P, _P),
     "troy_rns_elementwise": (_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P),
+    "troy_behz_lift": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
+    "troy_behz_tail": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
+    "troy_behz_decrypt_round": (_P, _P, _L, _I, _P, _I, _P),
+    "troy_keyswitch_digits": (_P, _P, _L, _I, _I, _P, _P, _P),
+    "troy_keyswitch_divide_round": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_mod_switch_divide_round": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_bfv_plain_embed": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_galois_permute": (_P, _P, _P, _P, _L, _I, _I, _P, _P),
 }
 
-# The kernel each entry point belongs to (A-D of the port's kernel list).
+# The kernel each entry point belongs to (the letters of the port's kernel
+# list, PERF.md section 6).
 KERNELS = {
     "troy_ntt": "A_ntt",
     "troy_dyadic_mac": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",
     "troy_rns_elementwise": "D_rns_elementwise",
+    "troy_behz_lift": "E_behz",
+    "troy_behz_tail": "E_behz",
+    "troy_behz_decrypt_round": "E_behz",
+    "troy_keyswitch_digits": "F_keyswitch",
+    "troy_keyswitch_divide_round": "F_keyswitch",
+    "troy_mod_switch_divide_round": "K_divide_round",
+    "troy_bfv_plain_embed": "G_plain_embed",
+    "troy_galois_permute": "M_galois",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}
@@ -86,23 +106,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtroy_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; their joined output, or raise with it
+    if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    return log
+
+
 def build() -> Path:
-    """Compile the kernels unless a library of these sources exists."""
+    """Compile the kernels unless a library of these sources exists: one
+    nvcc per source, all at once, then one link."""
     global build_log, build_seconds
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, path)
+    try:
+        build_log = _run_all(
+            [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+              str(CSRC / s)] for s, o in zip(SOURCES, objs)])
+        tmp = path.with_suffix(f".{tag}.so")
+        build_log += _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+                                *(str(o) for o in objs)]])
+        os.replace(tmp, path)
+    finally:
+        build_seconds = time.perf_counter() - t0
+        for o in objs:
+            o.unlink(missing_ok=True)
     return path
 
 

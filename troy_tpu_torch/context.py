@@ -20,6 +20,7 @@ from .params import (
     EncryptionParameters, EncryptionParameterQualifiers, SchemeType,
     validate,
 )
+from .interop import DEFAULT_DEVICE
 from .utils.rns import make_rns_tool
 from .ops.ntt import NttTables, RnsNttTables
 from .ops.rns import DeviceRnsTool
@@ -98,14 +99,16 @@ class HeContext:
     """The validated parameter chain (context.h SEALContext analogue).
 
     ``chain[0]`` is the key level (full modulus); ``chain[1:]`` are data
-    levels, each dropping one prime. Every table is made on ``device``;
-    a CUDA device needs a card."""
+    levels, each dropping one prime. Every table is made on ``device``,
+    the card unless the caller names another (``device="cpu"`` runs the
+    plain versions of the kernels); a CUDA device needs a card, and
+    without one this raises rather than fall back to the CPU."""
 
     def __init__(self, parms: EncryptionParameters,
                  expand_mod_chain: bool = True,
                  sec_level: SecurityLevel = SecurityLevel.tc128,
-                 device="cpu"):
-        device = torch.device(device)
+                 device=None):
+        device = torch.device(DEFAULT_DEVICE if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"HeContext: device {device} requested but "
                                "CUDA is not available")
@@ -151,6 +154,10 @@ class HeContext:
     @property
     def first_level(self) -> int:
         return 1 if self._using_keyswitching else 0
+
+    @property
+    def last_level(self) -> int:
+        return len(self.chain) - 1
 
     def get_context_data(self, level: int) -> ContextData:
         return self.chain[level]

@@ -1,0 +1,156 @@
+// Kernels F and K: the key switch's per-coefficient glue and the BFV
+// divide-and-round by the last prime.
+//
+// F replaces the word arithmetic of troy_tpu/evaluator.py:179
+// _switch_key_decompose (each RNS digit Barrett-reduced into every prime of
+// the working base, before kernel A's NTT) and of :290 _switch_key_contract
+// (the rounding divide by the special prime p after kernel B's inner product
+// and kernel A's inverse NTT). K replaces troy_tpu/ops/rns.py:194
+// divide_and_round_q_last, the BFV mod switch, which is the same divide with
+// p = the level's last prime. F and K call one device function through two
+// entry points, so each keeps its own launch count.
+//
+//   digits:        out[r, j, i] = x[r, i] mod p_j        (Barrett-64)
+//   divide-round:  last  = x[c, k, i] + floor(p/2) mod p
+//                  out[c, j, i] = (x[c, j, i] - (last mod q_j - floor(p/2)
+//                                 mod q_j)) * p^-1 mod q_j   (+ acc[c, j, i])
+//
+// with an optional accumulator added onto the first acc_comps components:
+// (c0, c1) for relinearization, c0 alone for a Galois automorphism.
+//
+// What bounds it on the H100: at n = 16384 the launch (under 5 MB of words,
+// a handful of 64-bit products per word). Design: one thread per
+// coefficient of one component, which reads the special row once for all k
+// limbs; coalesced across the warp; the constants (5k + 2 words) in shared
+// memory.
+
+#include "u64.cuh"
+
+using namespace troy;
+
+namespace {
+
+constexpr int MAX_LIMBS = 64;
+
+__global__ void keyswitch_digits_kernel(uint64_t *__restrict__ out,
+                                        const uint64_t *__restrict__ in,
+                                        int64_t rows, int used, int log_n,
+                                        const uint64_t *__restrict__ moduli,
+                                        const uint64_t *__restrict__ cr_hi) {
+    __shared__ uint64_t p[MAX_LIMBS], ratio[MAX_LIMBS];
+    for (int j = threadIdx.x; j < used; j += blockDim.x) {
+        p[j] = moduli[j];
+        ratio[j] = cr_hi[j];
+    }
+    __syncthreads();
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = rows << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t r = idx >> log_n;
+        const int64_t i = idx & (n - 1);
+        const uint64_t x = in[idx];
+        uint64_t *dst = out + ((r * used) << log_n) + i;
+        for (int j = 0; j < used; ++j) {
+            dst[static_cast<int64_t>(j) << log_n] =
+                barrett_reduce_64(x, p[j], ratio[j]);
+        }
+    }
+}
+
+// consts: q (k), cr_hi (k), floor(p/2) mod q (k), p^-1 mod q (k) and its
+// Shoup words (k), then p and floor(p/2).
+__global__ void divide_round_kernel(uint64_t *__restrict__ out,
+                                    const uint64_t *__restrict__ x,
+                                    const uint64_t *__restrict__ acc,
+                                    int64_t comps, int acc_comps, int k,
+                                    int log_n,
+                                    const uint64_t *__restrict__ consts) {
+    __shared__ uint64_t c[5 * MAX_LIMBS + 2];
+    for (int j = threadIdx.x; j < 5 * k + 2; j += blockDim.x) c[j] = consts[j];
+    __syncthreads();
+    const uint64_t *q = c, *ratio = c + k, *half_mod = c + 2 * k;
+    const uint64_t *inv = c + 3 * k, *inv_shoup = c + 4 * k;
+    const uint64_t p = c[5 * k], half = c[5 * k + 1];
+
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = comps << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t comp = idx >> log_n;
+        const int64_t i = idx & (n - 1);
+        const uint64_t *src = x + ((comp * (k + 1)) << log_n) + i;
+        const int64_t base = ((comp * k) << log_n) + i;
+        const uint64_t last =
+            add_mod(src[static_cast<int64_t>(k) << log_n], half, p);
+        for (int j = 0; j < k; ++j) {
+            const int64_t at = base + (static_cast<int64_t>(j) << log_n);
+            const uint64_t temp =
+                sub_mod(barrett_reduce_64(last, q[j], ratio[j]), half_mod[j],
+                        q[j]);
+            const uint64_t diff =
+                sub_mod(src[static_cast<int64_t>(j) << log_n], temp, q[j]);
+            uint64_t r = mul_mod_shoup(diff, inv[j], inv_shoup[j], q[j]);
+            if (comp < acc_comps) r = add_mod(acc[at], r, q[j]);
+            out[at] = r;
+        }
+    }
+}
+
+int divide_round(void *out, const void *x, const void *acc, long long comps,
+                 int acc_comps, int k, int log_n, const void *consts,
+                 void *stream) {
+    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int threads = 256;
+    divide_round_kernel<<<grid_blocks(comps << log_n, threads), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
+        static_cast<const uint64_t *>(acc), comps, acc_comps, k, log_n,
+        static_cast<const uint64_t *>(consts));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+}  // namespace
+
+// in: (rows, 2^log_n), out: (rows, used, 2^log_n); moduli, cr_hi: (used,).
+extern "C" int troy_keyswitch_digits(void *out, const void *in,
+                                     long long rows, int used, int log_n,
+                                     const void *moduli, const void *cr_hi,
+                                     void *stream) {
+    if (used < 1 || used > MAX_LIMBS) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int threads = 256;
+    keyswitch_digits_kernel<<<grid_blocks(rows << log_n, threads), threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(in), rows,
+        used, log_n, static_cast<const uint64_t *>(moduli),
+        static_cast<const uint64_t *>(cr_hi));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+// x: (comps, k + 1, 2^log_n) in the coefficient domain, row k the one to
+// divide by; out: (comps, k, 2^log_n); acc: (acc_comps, k, 2^log_n) or NULL
+// with acc_comps = 0; consts: 5k + 2 words (above).
+extern "C" int troy_keyswitch_divide_round(void *out, const void *x,
+                                           const void *acc, long long comps,
+                                           int acc_comps, int k, int log_n,
+                                           const void *consts, void *stream) {
+    return divide_round(out, x, acc, comps, acc_comps, k, log_n, consts,
+                        stream);
+}
+
+// The same divide for the BFV mod switch: p is the level's last prime.
+extern "C" int troy_mod_switch_divide_round(void *out, const void *x,
+                                            const void *acc, long long comps,
+                                            int acc_comps, int k, int log_n,
+                                            const void *consts, void *stream) {
+    return divide_round(out, x, acc, comps, acc_comps, k, log_n, consts,
+                        stream);
+}

@@ -95,6 +95,15 @@ __device__ __forceinline__ uint64_t reduce_4q(uint64_t x, uint64_t q) {
     return x >= q ? x - q : x;
 }
 
+// Blocks of a grid-stride launch over `total` items: enough to cover them,
+// at most 32 per SM of the H100's 132, at least one.
+inline unsigned grid_blocks(long long total, int threads) {
+    const long long blocks = (total + threads - 1) / threads;
+    return static_cast<unsigned>(blocks > 132 * 32 ? 132 * 32
+                                 : blocks < 1     ? 1
+                                                  : blocks);
+}
+
 }  // namespace troy
 
 // Every C entry point returns this: the launch status, as an int.

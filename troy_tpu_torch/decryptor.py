@@ -1,19 +1,23 @@
-"""Decryptor: the phase <ct, (1, s, s^2, ...)> and BFV scale-and-round.
+"""Decryptor: the phase <ct, (1, s, s^2, ...)>, BFV scale-and-round and the
+invariant noise budget.
 
 The port of troy_tpu/decryptor.py (BFV). The phase accumulates in the NTT
 domain against cached secret-key powers: every component's forward NTT is
 one kernel-A launch, the sum of products one kernel-B launch, then the
-inverse NTT and the t/Q rounding (decrypt_scale_and_round).
+inverse NTT and the t/Q rounding (decrypt_scale_and_round, kernel E). The
+noise budget reads the phase back and measures it with host integers.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .context import ContextData, HeContext
 from .he_types import Ciphertext, Plaintext, SecretKey
+from .interop import to_numpy
 from .params import SchemeType
 from .ops import ntt as dntt
 from .ops import poly as dpoly
@@ -31,12 +35,18 @@ def _phase_ntt_core(data: torch.Tensor, sk_powers: torch.Tensor,
     return dpoly.rns_add(comps[0], dntt.dyadic_mac(comps[1:], powers, t), t)
 
 
+def _phase_core(data: torch.Tensor, sk_powers: torch.Tensor,
+                cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
+    """The phase in the coefficient domain, (k, n)."""
+    return dntt.rns_ntt_inverse(
+        _phase_ntt_core(data, sk_powers, cd, is_ntt_form), cd.ntt)
+
+
 def _decrypt_core(data: torch.Tensor, sk_powers: torch.Tensor,
                   cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
     """BFV decrypt to plaintext words mod t, (n,)."""
-    phase = dntt.rns_ntt_inverse(
-        _phase_ntt_core(data, sk_powers, cd, is_ntt_form), cd.ntt)
-    return drns.decrypt_scale_and_round(phase, cd.rns)
+    return drns.decrypt_scale_and_round(
+        _phase_core(data, sk_powers, cd, is_ntt_form), cd.rns)
 
 
 class Decryptor:
@@ -55,12 +65,35 @@ class Decryptor:
                 self._sk_power(p - 1), self._sk.data, cd.ntt)
         return self._sk_powers[p]
 
-    def decrypt(self, ct: Ciphertext) -> Plaintext:
+    def _powers(self, ct: Ciphertext) -> torch.Tensor:
         if self.context.scheme != SchemeType.bfv:
             raise NotImplementedError(
                 f"{self.context.scheme.name} decryption is not ported yet "
                 "(ROADMAP.md, queue 2)")
+        return torch.stack([self._sk_power(p) for p in range(1, ct.size)])
+
+    def decrypt(self, ct: Ciphertext) -> Plaintext:
         cd = self.context.get_context_data(ct.level)
-        powers = torch.stack([self._sk_power(p) for p in range(1, ct.size)])
-        return Plaintext(data=_decrypt_core(ct.data, powers, cd,
+        return Plaintext(data=_decrypt_core(ct.data, self._powers(ct), cd,
                                             ct.is_ntt_form))
+
+    def invariant_noise_budget(self, ct: Ciphertext) -> int:
+        """Bits of noise budget left: log2(Q/2) - log2(2 ||t/Q phase - m||)
+        (decryptor.cpp invariantNoiseBudget). The phase comes from the
+        device (kernels A, B); the norm is taken in host integers, as a
+        diagnostic off the hot path."""
+        cd = self.context.get_context_data(ct.level)
+        phase = to_numpy(_phase_core(ct.data, self._powers(ct), cd,
+                                     ct.is_ntt_form))
+        base = cd.rns.host.base_q
+        Q = base.base_prod
+        # compose each coefficient, times t, centered mod Q
+        acc = np.zeros(cd.n, dtype=object)
+        for i, qi in enumerate(base.values):
+            acc += (phase[i].astype(object) * base.inv_punctured(i) % qi
+                    * base.punctured_prod(i))
+        v = acc * int(cd.plain_modulus) % Q
+        norm = int(np.minimum(v, Q - v).max())
+        # bits(Q) - bits(norm) - 1; the -1 scales the invariant noise by 2
+        # (decryptor.cpp:439-441)
+        return max(Q.bit_length() - norm.bit_length() - 1, 0)

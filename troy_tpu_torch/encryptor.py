@@ -27,7 +27,7 @@ _LATER = ("is not ported yet (ROADMAP.md, queue 2: device sampling, "
 def _embed_plain_c0(m: torch.Tensor, c0: torch.Tensor,
                     cd: ContextData) -> torch.Tensor:
     """BFV: c0 += round(Q/t * m) (multiplyAddPlainWithScalingVariant)."""
-    return dpoly.bfv_multiply_add_plain(
+    return dpoly.bfv_plain_embed(
         m, c0, int(cd.plain_modulus), cd.coeff_modulus_mod_plain_modulus,
         cd.coeff_div_plain_modulus, cd.ntt)
 

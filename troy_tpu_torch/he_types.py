@@ -69,7 +69,15 @@ class KSwitchKeys:
 
     keys: Dict[int, torch.Tensor]
 
+    def has_key(self, idx: int) -> bool:
+        return idx in self.keys
+
 
 @dataclass(frozen=True)
 class RelinKeys(KSwitchKeys):
     """Relinearization keys: keys[p] switches s^p -> s for p >= 2."""
+
+
+@dataclass(frozen=True)
+class GaloisKeys(KSwitchKeys):
+    """Galois keys: keys[elt] switches s(x^elt) -> s (galoiskeys.h:36)."""

@@ -5,7 +5,8 @@ as uint64. ``to_torch`` and ``to_numpy`` reinterpret the bits (no value
 changes), and the object builders below make the port's keys, ciphertexts
 and plaintexts from numpy words plus their metadata, so state made
 elsewhere (another implementation, a file, a test fixture) can be fed in,
-and read back out as numpy words.
+and read back out as numpy words. Tensors go to the card unless the caller
+names another device, as ``HeContext`` does.
 """
 
 from __future__ import annotations
@@ -16,10 +17,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .he_types import Ciphertext, Plaintext, RelinKeys, SecretKey
+from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, Plaintext,
+                       RelinKeys, SecretKey)
+
+# The device of every entry point that is not told another.
+DEFAULT_DEVICE = "cuda"
 
 
-def to_torch(words: np.ndarray, device=None) -> torch.Tensor:
+def to_torch(words: np.ndarray, device=DEFAULT_DEVICE) -> torch.Tensor:
     """u64 words (any integer array) -> int64 tensor of the same bits."""
     arr = np.array(words, dtype=np.uint64, copy=True)
     return torch.from_numpy(arr.view(np.int64)).to(device)
@@ -30,30 +35,39 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu").numpy().view(np.uint64).copy()
 
 
-def secret_key(words: np.ndarray, device=None) -> SecretKey:
+def secret_key(words: np.ndarray, device=DEFAULT_DEVICE) -> SecretKey:
     """SecretKey from its (key_limbs, n) NTT-form words."""
     return SecretKey(data=to_torch(words, device))
 
 
-def relin_keys(keys: Dict[int, np.ndarray], device=None) -> RelinKeys:
+def relin_keys(keys: Dict[int, np.ndarray],
+               device=DEFAULT_DEVICE) -> RelinKeys:
     """RelinKeys from {power: (decomp, 2, key_limbs, n) words}."""
     return RelinKeys(keys={int(p): to_torch(w, device)
                            for p, w in keys.items()})
 
 
 def ciphertext(words: np.ndarray, level: int, is_ntt_form: bool,
-               device=None) -> Ciphertext:
+               device=DEFAULT_DEVICE) -> Ciphertext:
     """Ciphertext from (size, limbs, n) words at a chain level."""
     return Ciphertext(data=to_torch(words, device), level=int(level),
                       is_ntt_form=bool(is_ntt_form))
 
 
-def plaintext(words: np.ndarray, device=None, level: Optional[int] = None,
+def plaintext(words: np.ndarray, device=DEFAULT_DEVICE,
+              level: Optional[int] = None,
               is_ntt_form: bool = False) -> Plaintext:
     """Plaintext from (n,) mod-t words (or (limbs, n) NTT-form words at a
     level)."""
     return Plaintext(data=to_torch(words, device), level=level,
                      is_ntt_form=is_ntt_form)
+
+
+def galois_keys(keys: Dict[int, np.ndarray],
+                device=DEFAULT_DEVICE) -> GaloisKeys:
+    """GaloisKeys from {Galois element: (decomp, 2, key_limbs, n) words}."""
+    return GaloisKeys(keys={int(e): to_torch(w, device)
+                            for e, w in keys.items()})
 
 
 def load_records(path) -> Dict[str, np.ndarray]:
@@ -70,8 +84,8 @@ def load_records(path) -> Dict[str, np.ndarray]:
 
 
 def words(obj):
-    """The numpy u64 words of a port object's data; for RelinKeys a dict
-    {power: words}."""
-    if isinstance(obj, RelinKeys):
+    """The numpy u64 words of a port object's data; for switching keys
+    (RelinKeys, GaloisKeys) a dict {power or Galois element: words}."""
+    if isinstance(obj, KSwitchKeys):
         return {p: to_numpy(w) for p, w in obj.keys.items()}
     return to_numpy(obj.data)

@@ -1,4 +1,4 @@
-"""Key generation: the secret key and relinearization keys, on the host.
+"""Key generation: the secret key, relinearization and Galois keys on the host.
 
 The port of troy_tpu/keygen.py, host path only: like the reference
 (keygenerator_cuda.cuh:51-85 wraps a host key generator), every key is
@@ -14,16 +14,17 @@ only (keygenerator.cpp:294-338).
 from __future__ import annotations
 
 import secrets
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .context import HeContext
-from .he_types import RelinKeys, SecretKey
+from .he_types import GaloisKeys, RelinKeys, SecretKey
 from .interop import to_torch
 from . import prng as rnd
 from . import rlwe
+from .utils import galois as galois_util
 from .utils import host_ntt as hntt
 from .utils.ntt_tables import make_ntt_tables
 
@@ -105,3 +106,26 @@ class KeyGenerator:
             raise ValueError("invalid count")
         return RelinKeys(keys={p: self._kswitch_key_host(self._sk_power_np(p))
                                for p in range(2, count + 2)})
+
+    def create_galois_keys(self, steps: Optional[Sequence[int]] = None,
+                           elts: Optional[Sequence[int]] = None
+                           ) -> GaloisKeys:
+        """Keys switching s(x^elt) -> s for each Galois element: ``elts``,
+        or the elements of rotation ``steps`` (0 = the row swap), or by
+        default every power-of-two step both ways and the row swap
+        (keygenerator.cpp:162; galois.cpp:125-150). The rotated secret is
+        a permutation of the NTT-form key words.
+
+        Each key is one switching key made on the host; with this package's
+        pure-Python host fallbacks the default set (2 log2(n) - 1 keys, 27 at
+        n = 16384) takes minutes."""
+        n = self.context.n
+        if elts is None:
+            elts = (galois_util.get_elts_all(n) if steps is None
+                    else galois_util.get_elts_from_steps(n, steps))
+        keys = {}
+        for elt in elts:
+            perm = galois_util.ntt_permutation(n, elt)
+            keys[int(elt)] = self._kswitch_key_host(
+                np.take(self._sk_np, perm, axis=-1))
+        return GaloisKeys(keys=keys)

@@ -1,0 +1,163 @@
+"""The key switch's word arithmetic and the BFV divide-and-round (kernels F, K).
+
+The port of the glue of troy_tpu/evaluator.py ``_switch_key_decompose`` and
+``_switch_key_contract`` and of troy_tpu/ops/rns.py
+``divide_and_round_q_last``, on csrc/keyswitch.cu:
+
+  * ``keyswitch_digits``: every coefficient of the target reduced into each
+    prime of the key switch's working base (Barrett-64), before kernel A's
+    NTT;
+  * ``divide_round_last``: x (s, k+1, n) in the coefficient domain -> the
+    rounded quotient of rows 0..k-1 by the prime of row k, optionally
+    added onto an accumulator (the key switch's last step, and with it the
+    fold onto (c0, c1));
+  * ``divide_and_round_q_last``: the BFV mod switch, the same divide by the
+    level's last prime on its own entry point (kernel K).
+
+Each wrapper launches its kernel for tensors on CUDA and runs its plain
+version, written on the int64 u64ops twin, for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import u64ops as u
+from .. import _kernels
+from ..interop import to_torch
+from .ntt import RnsNttTables
+
+# The kernels keep per-limb constants in a fixed shared-memory block.
+MAX_KERNEL_LIMBS = 64
+
+
+def divide_round_consts(t: RnsNttTables, p: int) -> torch.Tensor:
+    """The constants of a divide by p with rounding into the limbs of t, as
+    csrc/keyswitch.cu reads them: q (k), the high Barrett words (k),
+    floor(p/2) mod q (k), p^-1 mod q (k) and its Shoup words (k), then p and
+    floor(p/2). Made once per (tables, p)."""
+    key = ("divide_round", p)
+    if key not in t._memo:
+        half = p >> 1
+        qv = t.values
+        inv = [pow(p % q, -1, q) for q in qv]
+        words = (list(qv) + [((1 << 128) // q) >> 64 for q in qv]
+                 + [half % q for q in qv] + inv
+                 + [u.shoup_quotient(w, q) for w, q in zip(inv, qv)]
+                 + [p, half])
+        t._memo[key] = to_torch(np.array(words, dtype=np.uint64), t.device)
+    return t._memo[key]
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def keyswitch_digits_plain(x: torch.Tensor, used: RnsNttTables
+                           ) -> torch.Tensor:
+    """(..., n) words -> (..., used, n): each word mod every used prime."""
+    return u.barrett_reduce_64(x.unsqueeze(-2), used.q.reshape(-1, 1),
+                               used.cr_hi.reshape(-1, 1))
+
+
+def divide_round_last_plain(x: torch.Tensor, consts: torch.Tensor,
+                            acc: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """(s, k+1, n) -> (s, k, n): rows 0..k-1 minus the centred row k, times
+    p^-1 (troy_tpu/ops/rns.py divide_and_round_q_last and the tail of
+    evaluator._switch_key_contract), plus acc on its first components."""
+    k = x.shape[-2] - 1
+    q, ratio, half_mod, inv, inv_shoup = (
+        consts[i * k:(i + 1) * k].reshape(-1, 1) for i in range(5))
+    p, half = (int(v) & u.M64 for v in consts[5 * k:].tolist())
+    last = u.add_mod(x[..., k:, :], half, p)               # (s, 1, n)
+    temp = u.sub_mod(u.barrett_reduce_64(last, q, ratio), half_mod, q)
+    out = u.mul_mod_shoup(u.sub_mod(x[..., :k, :], temp, q), inv, inv_shoup,
+                          q)
+    if acc is not None:
+        s = acc.shape[0]
+        out = torch.cat([u.add_mod(acc, out[:s], q), out[s:]])
+    return out
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+def keyswitch_digits(x: torch.Tensor, used: RnsNttTables) -> torch.Tensor:
+    """The RNS digits of a coefficient-form target reduced into each prime
+    of the working base ``used`` (kernel F): (..., n) -> (..., used, n)."""
+    if x.shape[-1] != used.n:
+        raise ValueError(f"keyswitch_digits: expected (..., {used.n}), got "
+                         f"{tuple(x.shape)}")
+    if not _kernels.on_cuda(x, used.q):
+        return keyswitch_digits_plain(x, used)
+    if used.k > MAX_KERNEL_LIMBS:
+        raise ValueError(f"keyswitch_digits: {used.k} primes; the kernel "
+                         f"takes at most {MAX_KERNEL_LIMBS}")
+    x = x.contiguous()
+    _kernels.check_operand(x, "keyswitch_digits input")
+    out = torch.empty(x.shape[:-1] + (used.k, used.n), dtype=torch.int64,
+                      device=x.device)
+    _kernels.launch("troy_keyswitch_digits", out, x, x.numel() // used.n,
+                    used.k, used.log_n, used.q, used.cr_hi)
+    return out
+
+
+def _divide_round(entry: str, x: torch.Tensor, consts: torch.Tensor,
+                  acc: Optional[torch.Tensor]) -> torch.Tensor:
+    if x.dim() != 3 or x.shape[1] < 2:
+        raise ValueError(f"{entry}: expected (s, k+1, n), got "
+                         f"{tuple(x.shape)}")
+    s, k, n = x.shape[0], x.shape[1] - 1, x.shape[2]
+    if consts.numel() != 5 * k + 2:
+        raise ValueError(f"{entry}: constants for {(consts.numel() - 2) // 5}"
+                         f" limbs, data has {k}")
+    if acc is not None and (acc.dim() != 3 or acc.shape[0] > s
+                            or acc.shape[1:] != (k, n)):
+        raise ValueError(f"{entry}: accumulator {tuple(acc.shape)} does not "
+                         f"fit ({s}, {k}, {n})")
+    operands = [x, consts] + ([acc] if acc is not None else [])
+    if not _kernels.on_cuda(*operands):
+        return divide_round_last_plain(x, consts, acc)
+    if k > MAX_KERNEL_LIMBS or n & (n - 1):
+        raise ValueError(f"{entry}: k = {k}, n = {n} not supported")
+    x = x.contiguous()
+    _kernels.check_operand(x, f"{entry} input")
+    if acc is not None:
+        acc = acc.contiguous()
+        _kernels.check_operand(acc, f"{entry} accumulator")
+    out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
+    _kernels.launch(entry, out, x, acc, s, 0 if acc is None else acc.shape[0],
+                    k, n.bit_length() - 1, consts)
+    return out
+
+
+def divide_round_last(x: torch.Tensor, consts: torch.Tensor,
+                      acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The key switch's divide by the special prime with rounding (kernel
+    F): x (s, k+1, n) coefficient form, row k the special row; consts from
+    ``divide_round_consts``; the result (s, k, n), with acc (a, k, n),
+    a <= s, added onto its first a components."""
+    return _divide_round("troy_keyswitch_divide_round", x, consts, acc)
+
+
+def divide_and_round_q_last(x: torch.Tensor,
+                            t: RnsNttTables) -> torch.Tensor:
+    """BFV mod switch: divide by the last prime of the level's base t with
+    rounding, coefficient domain (rns.cpp:805-829; kernel K):
+    (s, k, n) -> (s, k-1, n)."""
+    if x.dim() != 3 or x.shape[1] != t.k or t.k < 2:
+        raise ValueError(f"divide_and_round_q_last: expected (s, {t.k}, n) "
+                         f"with at least two limbs, got {tuple(x.shape)}")
+    consts = divide_round_consts(t.slice(0, t.k - 1), t.values[-1])
+    return _divide_round("troy_mod_switch_divide_round", x, consts, None)
+
+
+def used_limbs(k: int, key_limbs: int) -> Sequence[int]:
+    """The key switch's working base at a level of k limbs: the data limbs
+    and the special prime (troy_tpu/evaluator.py:193)."""
+    return list(range(k)) + [key_limbs - 1]

@@ -77,6 +77,17 @@ class RnsNttTables:
             inv_degree_shoup=vec(lambda h: h.inv_degree_shoup),
             n=n, log_n=n.bit_length() - 1, values=values)
 
+    @classmethod
+    def concat(cls, a: "RnsNttTables", b: "RnsNttTables") -> "RnsNttTables":
+        """The tables of a's limbs then b's, as one base (the same words
+        as tables made from both moduli lists)."""
+        cat = lambda name: torch.cat([getattr(a, name), getattr(b, name)])
+        names = ("root_powers", "root_powers_shoup", "inv_root_powers",
+                 "inv_root_powers_shoup", "q", "cr_hi", "cr_lo", "inv_degree",
+                 "inv_degree_shoup")
+        return cls(**{name: cat(name) for name in names}, n=a.n,
+                   log_n=a.log_n, values=a.values + b.values)
+
     @property
     def k(self) -> int:
         return len(self.values)

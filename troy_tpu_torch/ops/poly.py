@@ -3,18 +3,22 @@
 The port of troy_tpu/ops/poly.py (BFV subset). Arrays are (..., k, n)
 int64 tensors of u64 words, limb-major, with per-limb moduli from the
 base's RnsNttTables. ``rns_add``, ``rns_sub``, ``rns_neg`` and
-``rns_scalar_mul`` run on kernel D (csrc/rns_elementwise.cu) for tensors
-on CUDA and on their plain versions for tensors on the CPU.
+``rns_scalar_mul`` run on kernel D (csrc/rns_elementwise.cu) and
+``bfv_plain_embed`` on kernel G (csrc/plain_embed.cu) for tensors on CUDA,
+and on their plain versions for tensors on the CPU (for G,
+``bfv_multiply_add_plain``, the JAX package's function).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import u64ops as u
 from .. import _kernels
+from ..interop import to_torch
 from .ntt import RnsNttTables, _check_rows, _col
 
 ADD, SUB, NEG, SCALAR_MUL = 0, 1, 2, 3
@@ -90,14 +94,15 @@ def bfv_multiply_add_plain(m: torch.Tensor, c0: torch.Tensor,
                            coeff_div_plain: Tuple[int, ...],
                            t: RnsNttTables, subtract: bool = False
                            ) -> torch.Tensor:
-    """BFV plain embedding: c0 +/- round(Q/t * m) per limb
-    (scalingvariant.cpp multiplyAddPlainWithScalingVariant).
+    """BFV plain embedding c0 +/- round(Q/t * m) per limb, the plain
+    version of kernel G (scalingvariant.cpp
+    multiplyAddPlainWithScalingVariant).
 
     round(Q*m/t) = m*floor(Q/t) + fix, fix = floor((m*(Q mod t) + (t+1)/2)/t).
     The 128/64 exact division subtracts the Barrett remainder, shifts out
     the power-of-two part of t, then multiplies by the inverse of the odd
     part mod 2^64: the quotient is below 2^64, so the wrapping int64
-    product is exact. m: (..., n) mod t; c0: (..., k, n). Plain torch."""
+    product is exact. m: (..., n) mod t; c0: (..., k, n)."""
     tt = plain_modulus
     half = (tt + 1) >> 1
     ratio = (1 << 128) // tt
@@ -121,3 +126,44 @@ def bfv_multiply_add_plain(m: torch.Tensor, c0: torch.Tensor,
     term = u.barrett_reduce_64(scaled + fix.unsqueeze(-2), q,
                                _col(t.cr_hi, L, 1))
     return u.sub_mod(c0, term, q) if subtract else u.add_mod(c0, term, q)
+
+
+def _plain_embed_consts(plain_modulus: int, q_mod_t: int,
+                        coeff_div_plain: Tuple[int, ...],
+                        t: RnsNttTables) -> torch.Tensor:
+    """Kernel G's constants (csrc/plain_embed.cu), once per tables and
+    scalars."""
+    key = ("plain_embed", plain_modulus, q_mod_t, tuple(coeff_div_plain))
+    if key not in t._memo:
+        tt = plain_modulus
+        ratio = (1 << 128) // tt
+        s = (tt & -tt).bit_length() - 1
+        d = [c % q for c, q in zip(coeff_div_plain, t.values)]
+        words = ([tt, (tt + 1) >> 1, ratio & u.M64, ratio >> 64, s,
+                  pow(tt >> s, -1, 1 << 64), q_mod_t] + list(t.values)
+                 + [((1 << 128) // q) >> 64 for q in t.values] + d
+                 + [u.shoup_quotient(w, q) for w, q in zip(d, t.values)])
+        t._memo[key] = to_torch(np.array(words, dtype=np.uint64), t.device)
+    return t._memo[key]
+
+
+def bfv_plain_embed(m: torch.Tensor, c0: torch.Tensor, plain_modulus: int,
+                    q_mod_t: int, coeff_div_plain: Tuple[int, ...],
+                    t: RnsNttTables, subtract: bool = False) -> torch.Tensor:
+    """BFV plain embedding c0 +/- round(Q/t * m) per limb (kernel G).
+    m: (..., n) mod t; c0: (..., k, n) with the same leading axes."""
+    _check_rows(c0, t, "bfv_plain_embed")
+    if m.shape != c0.shape[:-2] + c0.shape[-1:]:
+        raise ValueError(f"bfv_plain_embed: m {tuple(m.shape)} does not "
+                         f"match c0 {tuple(c0.shape)}")
+    consts = _plain_embed_consts(plain_modulus, q_mod_t, coeff_div_plain, t)
+    if not _kernels.on_cuda(m, c0, consts):
+        return bfv_multiply_add_plain(m, c0, plain_modulus, q_mod_t,
+                                      coeff_div_plain, t, subtract)
+    m, c0 = m.contiguous(), c0.contiguous()
+    _kernels.check_operand(m, "bfv_plain_embed m")
+    _kernels.check_operand(c0, "bfv_plain_embed c0")
+    out = torch.empty_like(c0)
+    _kernels.launch("troy_bfv_plain_embed", out, m, c0, m.numel() // t.n,
+                    t.k, t.log_n, int(subtract), consts)
+    return out
