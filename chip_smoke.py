@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Drive troy_tpu_torch's main path once on one NVIDIA GPU and check it.
+"""Drive troy_tpu_torch's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-BFV at n = 16384, q = {60,40,40,40,40,60}, t = PlainModulus.batching(n, 20)
-(troy's own timing configuration, 128-bit security). Phases, in order; any
-failure raises and the script exits non-zero without a result line:
+Two configurations of troy's own timing test (test/timetest.cu), 128-bit
+security, n = 16384, q = {60,40,40,40,40,60}: BFV with
+t = PlainModulus.batching(n, 20), and CKKS at scale 2^40. Phases, in
+order; any failure raises and the script exits non-zero without a result
+line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
 2. build the CUDA kernels from troy_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc per source, all at once;
-3. each kernel (A NTT, B dyadic MAC, C base conversion, D RNS elementwise,
-   E BEHZ lift/tail/decrypt rounding, F key-switch digits and divide-round,
-   K mod-switch divide-round, G plain embedding, M Galois gather) against
-   its plain PyTorch version on the card, at the main path's shapes, word
-   for word (tolerance 0), with both times (CUDA events around one call,
-   median of 20: at these sizes mostly the host's launch cost), the least
-   time the card could take (bound) and, where one PyTorch call computes
-   the same function, that call's time;
-4. the n = 16384 fixture chain from troy's C++ code, word for word:
+3. each BFV-path kernel (A NTT, B dyadic MAC, C base conversion, D RNS
+   elementwise, E BEHZ lift/tail/decrypt rounding, F key-switch digits and
+   divide-round, K mod-switch divide-round, G plain embedding, M Galois
+   gather, and M as the batch encoder's slot gather) against its plain
+   PyTorch version on the card, at the main path's shapes, word for word
+   (tolerance 0), with both times (CUDA events around one call, median of
+   20: at these sizes mostly the host's launch cost), the least time the
+   card could take (bound) and, where one PyTorch call computes the same
+   function, that call's time;
+4. the BFV n = 16384 fixture chain from troy's C++ code, word for word:
    keygen (sk, relin key row 0, Galois key row 0), encrypt, multiply,
    relinearize, rotate_rows(1), mod_switch_to_next, decrypt, and the
    invariant noise budget;
@@ -27,26 +30,52 @@ failure raises and the script exits non-zero without a result line:
    column swap) and its mod switch decrypt to the expected slots; then the
    median times of multiply+relinearize, rotate_rows(1) and
    mod_switch_to_next (CUDA events);
-6. every kernel was launched by phases 4-5 (launch counters); no plain
-   version and no u64ops arithmetic ran on a CUDA tensor in phases 4-5
-   (call counters); per op (mult+relin, rotate_rows(1), mod switch,
-   encrypt, decrypt), the device kernels and the device time of each from
-   the torch profiler, one trace per op.
+6. every BFV-path kernel was launched by phases 4-5 (launch counters); no
+   plain version and no u64ops arithmetic ran on a CUDA tensor in phases
+   4-5 (call counters); per op (mult+relin, rotate_rows(1), mod switch,
+   encrypt, decrypt, encode, decode), the device kernels and the device
+   time of each from the torch profiler, one trace per op;
+7. the CKKS kernels (O1 the FP64 embedding transform, both directions; O2
+   the exact rounding into RNS; O3 the CRT composition; K' the NTT-domain
+   divide by the last prime, for the rescale and for the key switch)
+   against their plain versions at the CKKS shapes: O1 within
+   2^-44 max|x| (two FP64 summation orders), O2 and K' word for word, O3
+   bit for bit; the same times, bounds and library times as phase 3;
+8. the CKKS n = 16384 records chain from troy's C++ code
+   (tests/data/ref_ckks_n16384_headline.bin): keygen (sk, relin key row 0,
+   Galois key row 0), encode within the tie bound (|diff| <= 1 at <= 4
+   coefficients), encrypt of the records' own plaintexts, multiply,
+   relinearize, rescale_to_next (and its scale), rotate_vector(1) word for
+   word, and decrypt + decode of the relinearized product to v1 v2;
+9. three requests on fresh random complex slot vectors: mult, relin and
+   rescale decode to a b, its rotate_vector(1) to the rotated slots, its
+   complex_conjugate to the conjugates; then the medians of mult+relin,
+   rescale_to_next, rotate_vector(1), complex_conjugate, encode and decode;
+10. every CKKS-path kernel was launched by phases 8-9, no plain version or
+   u64ops arithmetic ran on a CUDA tensor there, and the per-op device
+   kernels and device time from the profiler.
 
-The line before last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}.
+The line before last is a JSON object with one entry per kernel (its
+launches: phases 4-5 plus phases 8-9, each counted from 0, also given
+apart); the last line is {"ok": true, "device": {...}}.
 
-Bounds: the larger of the bytes each call must move (every input, tables
-and constants included, read once and every output written once) over
-3.35 TB/s, and its 64-bit multiplies, each taken as four 32-bit operations,
-over the 67 T/s float32 rate of the H100's data sheet (the card has no
-faster path for 64-bit integer products).
+Bounds: the larger of the bytes each call must move (every data input read
+once and every output written once, with the NTT's twiddles and the small
+per-limb constants of C-G; not what the function could compute on the
+fly, such as O1's twiddles and slot map, O2's untwist and the permutations
+of H and M, nor what passes between its own launches, such as K' temps)
+over 3.35 TB/s, and its operations over the H100's data-sheet rate for their
+type: 64-bit multiplies, each taken as four 32-bit operations, over the
+67 T/s float32 rate (the card has no faster path for 64-bit integer
+products); for O1, the 5 n log2 n f64 operations of an FFT over the
+67 TFLOP/s FP64 tensor-core peak.
 """
 
 import json
 import pathlib
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -55,20 +84,25 @@ import numpy as np
 import torch
 
 import troy_tpu_torch as P
-from troy_tpu_torch import _kernels, prng as rnd, to_numpy, to_torch
-from troy_tpu_torch.ops import galois, keyswitch, ntt, poly, rns
+from troy_tpu_torch import _kernels, interop, prng as rnd, to_numpy, to_torch
+from troy_tpu_torch.ops import embedding, galois, keyswitch, ntt, poly, rns
 
 N = 16384
 Q_BITS = [60, 40, 40, 40, 40, 60]
 SEED = 2024
-FIXTURE = (pathlib.Path(__file__).resolve().parent / "tests" / "data"
-           / "ref_bfv_n16384_headline.bin")
+DATA = pathlib.Path(__file__).resolve().parent / "tests" / "data"
+FIXTURE = DATA / "ref_bfv_n16384_headline.bin"
+CKKS_FIXTURE = DATA / "ref_ckks_n16384_headline.bin"
+CKKS_SEED = 2025                     # the seed of troy's CKKS records
+CKKS_SCALE = 2.0 ** 40
 REQUESTS = 3
 TIMING_REPS = 20
 ROTATION_STEPS = [1, -1, 4, 0]       # 0: the column swap, element 2n - 1
 MEM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 OPS_PER_S = 67e12                    # H100 SXM float32, non-tensor
 OPS_PER_MUL64 = 4
+F64_OPS_PER_S = 67e12                # H100 SXM FP64 tensor-core peak
+O1_TOLERANCE = 2.0 ** -44            # times max|x|
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -88,7 +122,24 @@ KERNELS = {
                       "troy_tpu/ops/poly.py:98"),
     "M_galois": ("troy_tpu_torch/csrc/galois.cu",
                  "troy_tpu/evaluator.py:785"),
+    "O1_ckks_fft": ("troy_tpu_torch/csrc/embedding.cu",
+                    "troy_tpu/ops/embedding.py:257"),
+    "O2_ckks_round": ("troy_tpu_torch/csrc/embedding.cu",
+                      "troy_tpu/ops/embedding.py:425"),
+    "O3_ckks_compose": ("troy_tpu_torch/csrc/embedding.cu",
+                        "troy_tpu/ops/embedding.py:550"),
+    "Kp_rescale_ntt": ("troy_tpu_torch/csrc/divide_round_ntt.cu",
+                       "troy_tpu/ops/rns.py:213"),
+    "Kp_keyswitch_ntt": ("troy_tpu_torch/csrc/divide_round_ntt.cu",
+                         "troy_tpu/evaluator.py:337"),
 }
+# the kernels each path must launch
+BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
+            "E_behz", "F_keyswitch", "K_divide_round", "G_plain_embed",
+            "M_galois")
+CKKS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
+             "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
+             "Kp_rescale_ntt", "Kp_keyswitch_ntt")
 
 
 def log(msg: str) -> None:
@@ -156,12 +207,67 @@ def _bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes: int, mul64: int):
+def bound(nbytes: int, mul64: int, f64_ops: int = 0):
     """(bound_ms, bound_by): the larger of the memory and the compute
     bound (module docstring)."""
     mem = nbytes / MEM_BYTES_PER_S * 1e3
-    ops = mul64 * OPS_PER_MUL64 / OPS_PER_S * 1e3
+    ops = (mul64 * OPS_PER_MUL64 / OPS_PER_S
+           + f64_ops / F64_OPS_PER_S) * 1e3
     return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
+def compare(kind: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The error of a kernel against its plain version, or raise: "words"
+    tolerance 0 on u64 words, "bits" bit-equal f64, "close" (O1) within
+    O1_TOLERANCE max|want|."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != plain "
+                             f"{tuple(want.shape)}")
+    if kind == "words":
+        err = max_abs_diff(got, want)
+        if err:
+            raise AssertionError(f"{int((got != want).sum())} words differ "
+                                 f"from the plain version (max |diff| {err})")
+        return err
+    err = float((got - want).abs().max())
+    if kind == "bits" and not torch.equal(got, want):
+        raise AssertionError(f"not bit-equal to the plain version (max "
+                             f"|diff| {err})")
+    if kind == "close" and err > O1_TOLERANCE * float(want.abs().max()):
+        raise AssertionError(f"max |diff| {err} over {O1_TOLERANCE} "
+                             f"max|x| of the plain version")
+    return err
+
+
+def run_checks(tag: str, checks) -> dict:
+    """Each (kernel, variant, kind, kernel call, plain call, work or None,
+    library call or None) checked and timed; the first of each kernel is
+    the one whose numbers stand in the JSON line."""
+    results = {}
+    for kernel, variant, kind, run, plain, work, library in checks:
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        try:
+            err = compare(kind, got, want)
+        except AssertionError as exc:
+            raise AssertionError(f"{kernel} {variant}: {exc}") from None
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        line = (f"[{tag}] {kernel:18s} {variant:44s} max |diff| {err:g}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if kernel not in results:
+            bound_ms, bound_by = bound(*work)
+            library_ms = cuda_ms(library) if library else None
+            results[kernel] = {"max_abs_err": 0, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by,
+                               "library_ms": library_ms}
+            line += f", bound {bound_ms:.6f} ms ({bound_by})"
+            if library_ms is not None:
+                line += f", library {library_ms:.4f} ms"
+        log(line)
+        entry = results[kernel]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return results
 
 
 def phase_kernels(ctx) -> dict:
@@ -332,41 +438,25 @@ def phase_kernels(ctx) -> dict:
         ("M_galois", "signed gather (2,5,n), elt 3",
          lambda: galois.apply_permutation_signed(m_x, src, keep, q5),
          lambda: galois.apply_permutation_signed_plain(m_x, src, keep, q5),
-         (_bytes(m_x, m_x, src, keep), 0),
+         (_bytes(m_x, m_x), 0),            # src and keep follow from elt
          lambda: m_x.index_select(-1, perm)),
         ("M_galois", "NTT-form gather (2,5,n), elt 3",
          lambda: galois.apply_permutation(m_x, perm),
          lambda: galois.apply_permutation_plain(m_x, perm), None, None),
     ]
-    results = {}
-    for kernel, variant, run, plain, work, library in checks:
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        if got.shape != want.shape:
-            raise AssertionError(f"{kernel} {variant}: shape {got.shape} "
-                                 f"!= plain {want.shape}")
-        # words as unsigned values; tolerance 0, they are integers
-        err = max_abs_diff(got, want)
-        if err:
-            raise AssertionError(f"{kernel} {variant}: "
-                                 f"{int((got != want).sum())} words differ "
-                                 f"from the plain version (max |diff| {err})")
-        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-        line = (f"[3] {kernel:18s} {variant:44s} word-equal; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if kernel not in results:
-            bound_ms, bound_by = bound(*work)
-            library_ms = cuda_ms(library) if library else None
-            results[kernel] = {"max_abs_err": 0, "ms": ms,
-                               "plain_ms": plain_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by,
-                               "library_ms": library_ms}
-            line += f", bound {bound_ms:.6f} ms ({bound_by})"
-            if library_ms is not None:
-                line += f", library {library_ms:.4f} ms"
-        log(line)
-        entry = results[kernel]
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    results = run_checks("3", [(c[0], c[1], "words") + c[2:]
+                               for c in checks])
+    # H: the batch encoder's slot scatter and gather are kernel M's
+    # unsigned gather over one (n,) row mod t
+    be = P.BatchEncoder(ctx)
+    slots = to_torch(rng.integers(0, t1.values[0], N, dtype=np.uint64), dev)
+    h = run_checks("3", [
+        ("H_batch_slots", "M gather (n,) by the slot index map", "words",
+         lambda: galois.apply_permutation(slots, be._index_map),
+         lambda: galois.apply_permutation_plain(slots, be._index_map),
+         (_bytes(slots, slots), 0),        # the map is computable from n
+         lambda: slots.index_select(-1, be._index_map))])
+    results["H_batch_slots"] = h["H_batch_slots"]
     return results
 
 
@@ -524,6 +614,237 @@ def phase_requests(ctx, kg, rlk, gk, be, ev, dec) -> dict:
     return {"gk": gk, "ca": ca, "cb": cb, "rel": rel, **times}
 
 
+# --------------------------------------------------------------------------
+# CKKS
+# --------------------------------------------------------------------------
+
+def ckks_values():
+    """The slot vectors troy's generator encoded into p1 and p2."""
+    i = np.arange(N // 2)
+    return 0.001 * (i % 2000) - 1.0, 0.0005 * (i % 3000) + 0.25
+
+
+def phase_ckks_kernels(ctx) -> dict:
+    """O1-O3 and K' against their plain versions at the CKKS shapes."""
+    rng = np.random.default_rng(SEED + 7)
+    dev = ctx.device
+    key, data = ctx.key_context_data, ctx.first_context_data
+    q5 = data.ntt
+    k = q5.k
+    t = embedding.make_embed_tables(N, dev)
+    rt = embedding.make_rns_round_tables(q5)
+    cplx = lambda m: torch.from_numpy(rng.uniform(-1, 1, m)
+                                      + 1j * rng.uniform(-1, 1, m)).to(dev)
+    slots = cplx(N // 2)
+    spectrum = embedding.scatter_slots(slots, t)         # the library's input
+    coeffs = torch.from_numpy(rng.uniform(-1, 1, N)).to(dev)
+    twisted = coeffs * t.twist
+    u = cplx(N) * 2.0 ** -7                  # |FFT(V)/n| for |v| <= 1
+    res = _uniform(rng, q5.values, (k, N), dev)
+    # K': the rescale of a (2, 5, n) ciphertext; the key switch's divide of
+    # (2, 6, n) products onto (c0, c1)
+    x_rs = _uniform(rng, q5.values, (2, k, N), dev)
+    used = key.ntt.select(keyswitch.used_limbs(k, key.limbs))
+    ks_consts = keyswitch.divide_round_consts(q5, used.values[-1])
+    x_ks = _uniform(rng, used.values, (2, k + 1, N), dev)
+    acc_ks = _uniform(rng, q5.values, (2, k, N), dev)
+    entries = {}
+    for name, x, consts, acc in (("rs", x_rs, data.rescale_consts, None),
+                                 ("ks", x_ks, ks_consts, acc_ks)):
+        kk = x.shape[1] - 1
+        last = _uniform(rng, [int(consts[5 * kk])], (2, 1, N), dev)[:, 0]
+        entries[name] = (x, last, consts, acc, kk)
+    fft_ops = 5 * N * (N.bit_length() - 1)
+    W = rt.words
+
+    def kprime(name, plain):
+        x, last, consts, acc, kk = entries[name]
+        ent = rns.RESCALE if name == "rs" else rns.KEYSWITCH
+        if plain:
+            return lambda: rns.divide_round_ntt_finish_plain(
+                x, rns.divide_round_ntt_temps_plain(last, consts), consts,
+                acc)
+        return lambda: rns._ntt_finish(
+            ent[1], x, rns._ntt_temps(ent[0], last, consts), consts, acc)
+
+    def kprime_work(name):
+        # the function's own data: x's kk rows and the last row in (with
+        # the accumulator), kk rows out; not the temps between its launches
+        x, last, consts, acc, kk = entries[name]
+        rows = 2 * kk * N * 8
+        return (_bytes(last) + rows * (2 if acc is None else 3),
+                2 * N * kk * 4)
+
+    checks = [
+        ("O1_ckks_fft", "encode (n/2,) slots -> (n,)", "close",
+         lambda: embedding.embed_inverse_fft(slots, t),
+         lambda: embedding.embed_inverse_fft_plain(slots, t),
+         (_bytes(slots) + N * 16, 0, fft_ops),      # slots in, u out
+         lambda: torch.fft.fft(spectrum)),
+        ("O1_ckks_fft", "decode (n,) coefficients -> (n/2,) slots", "close",
+         lambda: embedding.embed_forward(coeffs, t),
+         lambda: embedding.embed_forward_plain(coeffs, t),
+         None, lambda: torch.fft.ifft(twisted)),
+        ("O2_ckks_round", f"(n,) -> ({k},n) at scale 2^40", "words",
+         lambda: embedding.untwist_round_to_rns(u, CKKS_SCALE, t, rt),
+         lambda: embedding.untwist_round_to_rns_plain(u, t.untwist,
+                                                      CKKS_SCALE, rt),
+         (_bytes(u) + k * N * 8, N * k * 4),
+         None),
+        ("O2_ckks_round", f"(n,) -> ({k},n) at scale 2^100", "words",
+         lambda: embedding.untwist_round_to_rns(u, 2.0 ** 100, t, rt),
+         lambda: embedding.untwist_round_to_rns_plain(u, t.untwist,
+                                                      2.0 ** 100, rt),
+         None, None),
+        ("O3_ckks_compose", f"({k},n) -> (n,) times 2^-40", "bits",
+         lambda: embedding.compose_centered(res, rt, 2.0 ** -40),
+         lambda: embedding.compose_centered_plain(res, rt, 2.0 ** -40),
+         (_bytes(res) + N * 8, N * k * (2 + 2 * W)),
+         None),
+        ("Kp_rescale_ntt", f"temps + finish (2,{k},n) -> (2,{k - 1},n)",
+         "words", kprime("rs", False), kprime("rs", True), kprime_work("rs"),
+         None),
+        ("Kp_rescale_ntt", f"with A: rescale (2,{k},n) -> (2,{k - 1},n)",
+         "words",
+         lambda: rns.divide_and_round_q_last_ntt(x_rs, q5,
+                                                 data.rescale_consts),
+         lambda: rns.divide_and_round_q_last_ntt_plain(x_rs, q5,
+                                                       data.rescale_consts),
+         None, None),
+        ("Kp_keyswitch_ntt", f"temps + finish (2,{k + 1},n) onto (c0,c1)",
+         "words", kprime("ks", False), kprime("ks", True), kprime_work("ks"),
+         None),
+    ]
+    return run_checks("7", checks)
+
+
+def tie_diffs(ctx, got: torch.Tensor, want_words: np.ndarray):
+    """(max |diff|, positions that differ in limb 0) of two NTT-form
+    plaintexts of the first data level, in the coefficient domain,
+    centred."""
+    cd = ctx.first_context_data
+    want = to_torch(want_words.reshape(cd.limbs, N), ctx.device)
+    a, b = (to_numpy(ntt.rns_ntt_inverse(x, cd.ntt)).astype(object)
+            for x in (got, want))
+    q = np.array(cd.coeff_values, dtype=object).reshape(-1, 1)
+    d = (a - b) % q
+    d = np.where(d > q // 2, d - q, d)
+    return int(np.max(np.abs(d))), int(np.sum(d[0] != 0))
+
+
+def phase_ckks_records(ctx) -> tuple:
+    raw = interop.load_records(CKKS_FIXTURE)
+    if list(ctx.key_context_data.coeff_values) != [int(x) for x in raw["q"]]:
+        raise AssertionError("moduli differ from the CKKS records'")
+
+    def same(tensor, name):
+        if not np.array_equal(to_numpy(tensor).reshape(-1), raw[name]):
+            raise AssertionError(f"CKKS record {name!r} differs")
+        log(f"[8] {name}: word-equal to troy's C++ vectors")
+
+    t0 = time.perf_counter()
+    kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(CKKS_SEED),
+                        host_sampling=True)
+    rlk = kg.create_relin_keys()
+    gk = kg.create_galois_keys(steps=[1])
+    log(f"[8] host keygen (sk + relin key + Galois key, step 1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    same(kg.secret_key.data, "sk")
+    same(rlk.keys[2][0], "rlk_0")
+    same(gk.keys[3][0], "gk_0")
+    ce = P.CKKSEncoder(ctx)
+    v1, v2 = ckks_values()
+    for vals, tag in ((v1, "p1"), (v2, "p2")):
+        worst, count = tie_diffs(ctx, ce.encode(vals, CKKS_SCALE).data,
+                                 raw[tag])
+        if worst > 1 or count > 4:
+            raise AssertionError(f"encode {tag}: |diff| {worst} at {count} "
+                                 "coefficients, over the tie bound")
+        log(f"[8] encode {tag}: within the tie bound (|diff| {worst} at "
+            f"{count} coefficients)")
+    level = ctx.first_level
+    cts = []
+    for tag, ctag in (("p1", "c1"), ("p2", "c2")):
+        plain = interop.plaintext(raw[tag].reshape(-1, N), ctx.device, level,
+                                  True, CKKS_SCALE)
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=rnd.seed_from_uint64(CKKS_SEED),
+                          host_sampling=True)
+        cts.append(enc.encrypt_symmetric(plain))
+        same(cts[-1].data, ctag)
+    ev = P.Evaluator(ctx)
+    prod = ev.multiply(*cts)
+    same(prod.data, "prod")
+    rel = ev.relinearize(prod, rlk)
+    same(rel.data, "rel")
+    rs = ev.rescale_to_next(rel)
+    same(rs.data, "rs")
+    want_scale = struct.unpack("<d", int(raw["rs_meta"][2])
+                               .to_bytes(8, "little"))[0]
+    if abs(rs.scale - want_scale) > abs(want_scale) * 1e-12:
+        raise AssertionError(f"rescaled scale {rs.scale} != {want_scale}")
+    same(ev.rotate_vector(rel, 1, gk).data, "rot")
+    dec = P.Decryptor(ctx, kg.secret_key)
+    err = float(np.abs(np.real(ce.decode(dec.decrypt(rel))) - v1 * v2).max())
+    if err > 1e-6:
+        raise AssertionError(f"decode(decrypt(rel)) is {err} from v1 v2")
+    log(f"[8] decode(decrypt(rel)): within {err:.3g} of v1 v2 (bound 1e-6)")
+    return kg, rlk, gk, ce, ev, dec
+
+
+def phase_ckks_requests(ctx, kg, rlk, gk, ce, ev, dec) -> dict:
+    t0 = time.perf_counter()
+    conj = kg.create_galois_keys(elts=[2 * N - 1])
+    gk = P.GaloisKeys(keys={**gk.keys, **conj.keys})
+    log(f"[9] host keygen (Galois key, conjugation): "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 9)
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=rnd.seed_from_uint64(CKKS_SEED + 1),
+                      host_sampling=True)
+    decode = lambda ct: ce.decode(dec.decrypt(ct))
+    slots = lambda: (rng.uniform(-1, 1, N // 2)
+                     + 1j * rng.uniform(-1, 1, N // 2))
+    worst = 0.0
+    for r in range(REQUESTS):
+        a, b = slots(), slots()
+        ca = enc.encrypt_symmetric(ce.encode(a, CKKS_SCALE))
+        cb = enc.encrypt_symmetric(ce.encode(b, CKKS_SCALE))
+        rel = ev.relinearize(ev.multiply(ca, cb), rlk)
+        rs = ev.rescale_to_next(rel)
+        expected = {
+            "mult, relin, rescale": (rs, a * b),
+            "rotate_vector(1)": (ev.rotate_vector(rs, 1, gk),
+                                 np.roll(a * b, -1)),
+            "complex_conjugate": (ev.complex_conjugate(rs, gk),
+                                  np.conj(a * b)),
+        }
+        for what, (ct, want) in expected.items():
+            err = float(np.abs(decode(ct) - want).max())
+            worst = max(worst, err)
+            if err > 1e-4:
+                raise AssertionError(f"request {r}: {what} decodes {err} "
+                                     "from the expected slots")
+        log(f"[9] request {r}: a b, its rotate_vector(1) and its "
+            f"complex_conjugate decode to the expected slots (max error "
+            f"{worst:.3g}, bound 1e-4)")
+    pt = dec.decrypt(rs)
+    times = {
+        "ckks_mult_relin_ms": cuda_ms(
+            lambda: ev.relinearize(ev.multiply(ca, cb), rlk)),
+        "ckks_rescale_ms": cuda_ms(lambda: ev.rescale_to_next(rel)),
+        "ckks_rotate_vector_ms": cuda_ms(lambda: ev.rotate_vector(rel, 1,
+                                                                  gk)),
+        "ckks_conjugate_ms": cuda_ms(lambda: ev.complex_conjugate(rel, gk)),
+        "ckks_encode_ms": cuda_ms(lambda: ce.encode(a, CKKS_SCALE)),
+        "ckks_decode_ms": cuda_ms(lambda: ce.decode(pt)),
+    }
+    log(f"[9] medians over {TIMING_REPS} runs (CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return {"gk": gk, "ca": ca, "cb": cb, "rel": rel, "rs": rs, "pt": pt,
+            "a": a, "enc": enc, "max_error": worst, **times}
+
+
 def _short(key: str) -> str:
     """A device kernel's function name without its namespace, template
     and arguments; a copy keeps the profiler's name."""
@@ -531,18 +852,19 @@ def _short(key: str) -> str:
     return found.group(1) if found else key[:40]
 
 
-def device_kernels_per_op(fn, reps: int = 5) -> tuple:
+def device_kernels_per_op(fn, reps: int = 5, warmup: int = 3) -> tuple:
     """(device kernels and copies, device ms, {kernel: [launches, us per
-    launch]}) per call of fn, from a torch.profiler trace of reps calls
-    after warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    launch]}) per call of fn, from a torch.profiler trace of reps calls.
+    The profiler's schedule traces ``warmup`` calls first and drops them:
+    a trace started cold loses the events of its first call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=reps,
+                                   repeat=1)) as prof:
+        for _ in range(warmup + reps):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = lambda e: getattr(e, "self_device_time_total",
@@ -557,6 +879,35 @@ def device_kernels_per_op(fn, reps: int = 5) -> tuple:
     return count, us / 1e3, each
 
 
+def check_path(tag: str, phases: str, path, counts: dict,
+               counter: "PlainCallCounter") -> None:
+    """Every kernel of the path launched, and no plain torch on the card."""
+    log(f"[{tag}] kernel launches in phases {phases}: {counts}")
+    missing = [k for k in path if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path in "
+                             f"phases {phases}: {missing}")
+    log(f"[{tag}] plain-version and u64ops calls on CUDA tensors in phases "
+        f"{phases} ({counter.wrapped} functions watched): "
+        f"{counter.calls or 0}")
+    if counter.calls:
+        raise AssertionError(f"plain torch ran on the card's main path: "
+                             f"{counter.calls}")
+
+
+def profile_ops(tag: str, ops: dict) -> dict:
+    per_op = {}
+    for op, fn in ops.items():
+        count, device_ms, each = device_kernels_per_op(fn)
+        per_op[op] = {"device_kernels": count, "device_ms": device_ms,
+                      "each": each}
+        log(f"[{tag}] {op}: {count:g} device kernels and copies per op, "
+            f"{device_ms:.4f} ms of device time (torch.profiler): "
+            + "; ".join(f"{k} x{c:g} at {us:.1f} us"
+                        for k, (c, us) in each.items()))
+    return per_op
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -569,58 +920,75 @@ def main() -> None:
         raise AssertionError(f"HeContext defaulted to {ctx.device}")
     kernel_results = phase_kernels(ctx)
 
+    # ---- BFV: phases 4-6 ----
     counter = PlainCallCounter()
     _kernels.reset_launch_counts()
     state = phase_fixture(ctx)
     req = phase_requests(ctx, *state)
     torch.cuda.synchronize()
-    counts = _kernels.launch_counts()
-
-    log(f"[6] kernel launches in phases 4-5: {counts}")
-    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    log(f"[6] plain-version and u64ops calls on CUDA tensors in phases 4-5 "
-        f"({counter.wrapped} functions watched): {counter.calls or 0}")
-    if counter.calls:
-        raise AssertionError(f"plain torch ran on the card's main path: "
-                             f"{counter.calls}")
+    bfv_counts = _kernels.launch_counts()
+    check_path("6", "4-5", BFV_PATH, bfv_counts, counter)
     kg, rlk, _, be, ev, dec = state
     ca, cb, rel, gk = req["ca"], req["cb"], req["rel"], req["gk"]
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
                       seed=rnd.seed_from_uint64(SEED + 2), host_sampling=True)
-    pt = be.encode(np.arange(N, dtype=np.uint64) % be.plain_modulus)
-    profile = {
+    slots = np.arange(N, dtype=np.uint64) % be.plain_modulus
+    pt = be.encode(slots)
+    per_op = profile_ops("6", {
         "mult_relin": lambda: ev.relinearize(ev.multiply(ca, cb), rlk),
         "rotate_rows": lambda: ev.rotate_rows(rel, 1, gk),
         "mod_switch": lambda: ev.mod_switch_to_next(rel),
         "encrypt": lambda: enc.encrypt_symmetric(pt),
         "decrypt": lambda: dec.decrypt(rel),
-    }
-    per_op = {}
-    for op, fn in profile.items():
-        count, device_ms, each = device_kernels_per_op(fn)
-        per_op[op] = {"device_kernels": count, "device_ms": device_ms,
-                      "each": each}
-        log(f"[6] {op}: {count:g} device kernels and copies per op, "
-            f"{device_ms:.4f} ms of device time (torch.profiler): "
-            + "; ".join(f"{k} x{c:g} at {us:.1f} us"
-                        for k, (c, us) in each.items()))
+        "encode": lambda: be.encode(slots),
+        "decode": lambda: be.decode(pt),
+    })
+
+    # ---- CKKS: phases 7-10 ----
+    ckks_ctx = P.HeContext(P.EncryptionParameters(
+        scheme=P.SchemeType.ckks, poly_modulus_degree=N,
+        coeff_modulus=tuple(P.CoeffModulus.create(N, Q_BITS))))
+    kernel_results.update(phase_ckks_kernels(ckks_ctx))
+    counter.calls.clear()
+    _kernels.reset_launch_counts()
+    cstate = phase_ckks_records(ckks_ctx)
+    creq = phase_ckks_requests(ckks_ctx, *cstate)
+    torch.cuda.synchronize()
+    ckks_counts = _kernels.launch_counts()
+    check_path("10", "8-9", CKKS_PATH, ckks_counts, counter)
+    _, rlk, _, ce, ev, dec = cstate
+    ca, cb, rel, gk = creq["ca"], creq["cb"], creq["rel"], creq["gk"]
+    per_op.update(profile_ops("10", {
+        "ckks_mult_relin": lambda: ev.relinearize(ev.multiply(ca, cb), rlk),
+        "ckks_rescale": lambda: ev.rescale_to_next(rel),
+        "ckks_rotate_vector": lambda: ev.rotate_vector(rel, 1, gk),
+        "ckks_conjugate": lambda: ev.complex_conjugate(rel, gk),
+        "ckks_encode": lambda: ce.encode(creq["a"], CKKS_SCALE),
+        "ckks_decode": lambda: ce.decode(creq["pt"]),
+        "ckks_decrypt": lambda: dec.decrypt(creq["rs"]),
+    }))
 
     entries = []
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
+        launches = (bfv_counts.get(kernel, 0), ckks_counts.get(kernel, 0))
         entries.append({"name": kernel, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[kernel],
+                        "replaces": replaces, "launches": sum(launches),
+                        "launches_bfv": launches[0],
+                        "launches_ckks": launches[1],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    ops = ("mult_relin_ms", "rotate_rows_ms", "mod_switch_ms")
+    ckks_ops = ("ckks_mult_relin_ms", "ckks_rescale_ms",
+                "ckks_rotate_vector_ms", "ckks_conjugate_ms",
+                "ckks_encode_ms", "ckks_decode_ms")
     log(json.dumps({"kernels": entries,
-                    "mult_relin_ms": req["mult_relin_ms"],
-                    "rotate_rows_ms": req["rotate_rows_ms"],
-                    "mod_switch_ms": req["mod_switch_ms"],
+                    "H_batch_slots": kernel_results["H_batch_slots"],
+                    **{op: req[op] for op in ops},
+                    **{op: creq[op] for op in ckks_ops},
+                    "ckks_max_error": creq["max_error"],
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

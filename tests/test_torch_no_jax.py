@@ -60,6 +60,32 @@ FLOW = textwrap.dedent("""
     ms = ev.mod_switch_to_next(ct)
     assert (be.decode(dec.decrypt(ms)) == got).all(), "wrong mod switch"
     assert dec.invariant_noise_budget(ms) > 0
+
+    # CKKS: encode, encrypt, multiply, relinearize, rescale, rotate_vector,
+    # complex_conjugate, decrypt, decode
+    cparms = P.EncryptionParameters(
+        scheme=P.SchemeType.ckks, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [50, 40, 50])))
+    cctx = P.HeContext(cparms, sec_level=P.SecurityLevel.none, device="cpu")
+    ckg = P.KeyGenerator(cctx, seed=prng.seed_from_uint64(3),
+                         host_sampling=True)
+    ce = P.CKKSEncoder(cctx)
+    cenc = P.Encryptor(cctx, secret_key=ckg.secret_key,
+                       seed=prng.seed_from_uint64(4), host_sampling=True)
+    v = np.linspace(-1, 1, n // 2) + 0.5j
+    cv = cenc.encrypt_symmetric(ce.encode(v, 2.0 ** 30))
+    cev = P.Evaluator(cctx)
+    cdec = P.Decryptor(cctx, ckg.secret_key)
+    sq = cev.rescale_to_next(cev.relinearize(cev.multiply(cv, cv),
+                                             ckg.create_relin_keys()))
+    assert np.abs(ce.decode(cdec.decrypt(sq)) - v * v).max() < 1e-3
+    cgk = ckg.create_galois_keys(steps=[1, 0])
+    assert np.abs(ce.decode(cdec.decrypt(cev.rotate_vector(cv, 1, cgk)))
+                  - np.roll(v, -1)).max() < 1e-3
+    assert np.abs(ce.decode(cdec.decrypt(cev.complex_conjugate(cv, cgk)))
+                  - np.conj(v)).max() < 1e-3
+    for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding"):
+        assert mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert not loaded, loaded
@@ -100,10 +126,24 @@ def test_context_defaults_to_the_card():
         P.interop.secret_key(np.zeros((2, 64), dtype=np.uint64))
 
 
+def test_ckks_context_defaults_to_the_card():
+    """A CKKS context, too, is made on the card unless told otherwise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.ckks, poly_modulus_degree=64,
+        coeff_modulus=tuple(P.CoeffModulus.create(64, [50, 40, 50])))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.HeContext(parms, sec_level=P.SecurityLevel.none)
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
+    assert P.CKKSEncoder(ctx)._emb.device.type == "cpu"
+
+
 def test_wrappers_run_the_plain_version_only_on_the_cpu():
     """A tensor that is not on the CPU never takes the plain path: the
     wrapper launches the kernel or raises."""
-    from troy_tpu_torch.ops import galois, keyswitch, ntt, poly, rns
+    from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly,
+                                    rns)
     from troy_tpu_torch.utils.rns import make_rns_tool
 
     n = 64
@@ -116,9 +156,11 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
         n, tool.base_Bsk.values, "cpu"))
     src, keep = galois.coeff_permutation(n, 3, "cpu")
     consts = keyswitch.divide_round_consts(tables.slice(0, 1), q[-1])
-    meta = lambda *shape: torch.zeros(shape, dtype=torch.int64,
-                                      device="meta")
+    meta = lambda *shape, dtype=torch.int64: torch.zeros(shape, dtype=dtype,
+                                                         device="meta")
     x = meta(2, n)
+    emb = embedding.make_embed_tables(n, "cpu")
+    rt = embedding.make_rns_round_tables(tables)
     for call in (lambda: ntt.rns_ntt_forward(x, tables),
                  lambda: ntt.rns_ntt_inverse(x, tables),
                  lambda: ntt.rns_dyadic_mul(x, x, tables),
@@ -134,6 +176,18 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                  lambda: poly.bfv_plain_embed(meta(n), x, t, 1, (1, 1),
                                               tables),
                  lambda: galois.apply_permutation_signed(x, src, keep, tables),
-                 lambda: galois.apply_permutation(x, src)):
+                 lambda: galois.apply_permutation(x, src),
+                 lambda: embedding.embed_inverse_fft(
+                     meta(n // 2, dtype=torch.complex128), emb),
+                 lambda: embedding.embed_forward(
+                     meta(n, dtype=torch.float64), emb),
+                 lambda: embedding.untwist_round_to_rns(
+                     meta(n, dtype=torch.complex128), 1.0, emb, rt),
+                 lambda: embedding.compose_centered(x, rt),
+                 lambda: rns.divide_and_round_q_last_ntt(
+                     meta(1, 2, n), tables, consts),
+                 lambda: rns.divide_round_last_ntt(
+                     meta(1, 2, n), tables.slice(0, 1), tables.slice(1, 2),
+                     consts)):
         with pytest.raises(ValueError, match="expected all on the CPU"):
             call()

@@ -1,11 +1,13 @@
 """troy_tpu_torch — the PyTorch and CUDA port of troy_tpu.
 
-BFV homomorphic encryption with SEAL semantics (modelled on
+BFV and CKKS homomorphic encryption with SEAL semantics (modelled on
 lightbulb128/troy) on PyTorch tensors, with hand-written CUDA kernels for
 Hopper (sm_90a) on the hot path: the NTT, the 128-bit dyadic
-multiply-accumulate, the BEHZ base conversion and per-limb modular
-arithmetic (``csrc/``, built with nvcc at first use). On the CPU every
-kernel's plain PyTorch version runs instead; results are the same words.
+multiply-accumulate, the BEHZ base conversion, per-limb modular
+arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64
+and the NTT-domain rescale (``csrc/``, built with nvcc at first use). On
+the CPU every kernel's plain PyTorch version runs instead; results are the
+same words (for the FP64 transform, the same values to rounding).
 
 This package imports torch and numpy, never JAX: ``troy_tpu`` is the
 reference it is tested against, not a dependency.
@@ -20,6 +22,7 @@ from .keygen import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
 from .encoder import BatchEncoder
+from .ckks import CKKSEncoder
 from .evaluator import Evaluator
 from .interop import to_numpy, to_torch
 
@@ -31,6 +34,7 @@ __all__ = [
     "HeContext", "ContextData",
     "Plaintext", "Ciphertext", "SecretKey", "KSwitchKeys", "RelinKeys",
     "GaloisKeys",
-    "KeyGenerator", "Encryptor", "Decryptor", "BatchEncoder", "Evaluator",
+    "KeyGenerator", "Encryptor", "Decryptor", "BatchEncoder", "CKKSEncoder",
+    "Evaluator",
     "to_numpy", "to_torch",
 ]

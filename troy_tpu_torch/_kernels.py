@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
 SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
-           "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu")
+           "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu",
+           "embedding.cu", "divide_round_ntt.cu")
 HEADERS = ("u64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures: (argtypes) of each entry point; all return int.
 _SIGNATURES = {
     "troy_ntt": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -51,6 +53,14 @@ _SIGNATURES = {
     "troy_mod_switch_divide_round": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
     "troy_bfv_plain_embed": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
     "troy_galois_permute": (_P, _P, _P, _P, _L, _I, _I, _P, _P),
+    "troy_ckks_fft_encode": (_P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _D, _P),
+    "troy_ckks_fft_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "troy_ckks_round": (_P, _P, _P, _D, _I, _I, _P, _I, _P),
+    "troy_ckks_compose": (_P, _P, _I, _I, _I, _P, _D, _P),
+    "troy_rescale_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
+    "troy_rescale_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_keyswitch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
+    "troy_keyswitch_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
 }
 
 # The kernel each entry point belongs to (the letters of the port's kernel
@@ -68,6 +78,14 @@ KERNELS = {
     "troy_mod_switch_divide_round": "K_divide_round",
     "troy_bfv_plain_embed": "G_plain_embed",
     "troy_galois_permute": "M_galois",
+    "troy_ckks_fft_encode": "O1_ckks_fft",
+    "troy_ckks_fft_decode": "O1_ckks_fft",
+    "troy_ckks_round": "O2_ckks_round",
+    "troy_ckks_compose": "O3_ckks_compose",
+    "troy_rescale_ntt_temps": "Kp_rescale_ntt",
+    "troy_rescale_ntt_finish": "Kp_rescale_ntt",
+    "troy_keyswitch_ntt_temps": "Kp_keyswitch_ntt",
+    "troy_keyswitch_ntt_finish": "Kp_keyswitch_ntt",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}
@@ -171,10 +189,13 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
                      "expected all on the CPU or all on one CUDA device")
 
 
-def check_operand(t: torch.Tensor, name: str) -> None:
-    """What every kernel takes: contiguous int64 (u64 words) on CUDA."""
-    if t.dtype != torch.int64:
-        raise TypeError(f"{name}: expected int64 u64 words, got {t.dtype}")
+def check_operand(t: torch.Tensor, name: str,
+                  dtype: torch.dtype = torch.int64) -> None:
+    """What every kernel takes: a contiguous CUDA tensor of ``dtype``, by
+    default int64 (u64 words)."""
+    if t.dtype != dtype:
+        what = "int64 u64 words" if dtype == torch.int64 else str(dtype)
+        raise TypeError(f"{name}: expected {what}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if not t.is_cuda:

@@ -1,0 +1,167 @@
+"""CKKSEncoder: canonical-embedding encoding of complex vectors.
+
+The port of troy_tpu/ckks.py. The n/2 complex slots map onto the odd powers
+of the 2n-th root of unity zeta through the 3^i orbit (so slot rotations
+are the Galois automorphisms of the batch encoder), conjugate symmetry
+makes the inverse embedding real, and the coefficients are scaled, rounded
+exactly and decomposed into RNS.
+
+On the context's device, encode is kernel O1 (the FP64 transform with the
+slot scatter fused in), O2 (untwist, scale, round, reduce into every prime)
+and A (the NTT); decode is A (inverse NTT), O3 (the centred CRT composition
+times 1/scale) and O1 (the transform with the twist and the slot gather
+fused in). ``host=True`` keeps the JAX package's independent host oracle:
+numpy's FFT, exact host rounding and composition, and the port's numpy NTT
+(utils/host_ntt.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .context import ContextData, HeContext
+from .he_types import Plaintext
+from .interop import to_numpy, to_torch
+from .params import SchemeType
+from .ops import embedding as emb
+from .ops import ntt as dntt
+from .utils import host_ntt as hntt
+
+
+def _round_to_rns(coeffs: np.ndarray, cd: ContextData) -> np.ndarray:
+    """Host oracle: round scaled float coefficients and decompose into RNS
+    (troy_tpu/ckks.py:37-54): int64 below 2^62 (f64 is exact there up to its
+    53-bit mantissa), exact Python integers beyond."""
+    n = coeffs.shape[0]
+    rns = np.zeros((cd.limbs, n), dtype=np.uint64)
+    if np.max(np.abs(coeffs), initial=0.0) < 2.0 ** 62:
+        ints = np.rint(coeffs).astype(np.int64)
+        for i, q in enumerate(cd.coeff_values):
+            rns[i] = (ints % np.int64(q)).astype(np.uint64)
+        return rns
+    exact = [int(round(float(c))) for c in coeffs]
+    for i, q in enumerate(cd.coeff_values):
+        rns[i] = np.array([c % q for c in exact], dtype=np.uint64)
+    return rns
+
+
+class CKKSEncoder:
+    """(ckks.h:97)"""
+
+    def __init__(self, context: HeContext, host: bool = False):
+        if context.scheme != SchemeType.ckks:
+            raise ValueError("CKKSEncoder requires a CKKS context")
+        self.context = context
+        self.n = context.n
+        self.slots = self.n // 2
+        self.host = host
+        self._slot_index, self._twist, self._untwist = (
+            emb.host_embed_tables(self.n))
+        self._emb = None if host else emb.make_embed_tables(self.n,
+                                                            context.device)
+
+    @property
+    def slot_count(self) -> int:
+        return self.slots
+
+    def _level(self, level: Optional[int]) -> int:
+        return self.context.first_level if level is None else level
+
+    def _coeffs_host(self, values: np.ndarray, scale: float) -> np.ndarray:
+        """The scaled real coefficients by numpy's FFT (the oracle)."""
+        n = self.n
+        v = np.zeros(n, dtype=np.complex128)
+        j = self._slot_index[:len(values)]
+        v[j] = values
+        v[n - 1 - j] = np.conj(values)
+        u = np.fft.fft(v) / n
+        return (u * self._untwist).real * scale
+
+    def encode(self, values: Union[Sequence[complex], np.ndarray],
+               scale: float, level: Optional[int] = None) -> Plaintext:
+        """Slot values (at most n/2) -> NTT-form plaintext at ``level``
+        (default: the first data level) with ``scale``."""
+        level = self._level(level)
+        cd = self.context.get_context_data(level)
+        values = np.asarray(values, dtype=np.complex128)
+        if values.ndim != 1 or len(values) > self.slots:
+            raise ValueError("too many slot values")
+        if self.host:
+            return self._encode_host(values, scale, level, cd)
+        # the host bound of troy_tpu/ckks.py:134-145: |coeffs| <= scale *
+        # max|values|; only where that bound fails is the exact magnitude
+        # computed, on the host
+        half_q = cd.total_coeff_modulus / 2
+        bound = float(scale) * float(np.max(np.abs(values), initial=0.0))
+        if bound >= half_q and np.max(np.abs(self._coeffs_host(
+                values, scale)), initial=0.0) >= half_q:
+            raise ValueError("encoded values are too large for the "
+                             "coefficient modulus at this level")
+        u = emb.embed_inverse_fft(torch.from_numpy(values).to(cd.device),
+                                  self._emb)
+        rns = emb.untwist_round_to_rns(u, scale, self._emb,
+                                       emb.make_rns_round_tables(cd.ntt))
+        return Plaintext(data=dntt.rns_ntt_forward(rns, cd.ntt), level=level,
+                         is_ntt_form=True, scale=scale)
+
+    def _encode_host(self, values: np.ndarray, scale: float, level: int,
+                     cd: ContextData) -> Plaintext:
+        coeffs = self._coeffs_host(values, scale)
+        if np.max(np.abs(coeffs), initial=0.0) >= cd.total_coeff_modulus / 2:
+            raise ValueError("encoded values are too large for the "
+                             "coefficient modulus at this level")
+        rns = hntt.rns_ntt_forward_np(_round_to_rns(coeffs, cd), self.n,
+                                      cd.coeff_values)
+        return Plaintext(data=to_torch(rns, cd.device), level=level,
+                         is_ntt_form=True, scale=scale)
+
+    def encode_constant(self, value: Union[float, complex], scale: float,
+                        level: Optional[int] = None) -> Plaintext:
+        """One number in every slot: the constant polynomial round(value *
+        scale), transformed (troy_tpu/ckks.py:242)."""
+        if isinstance(value, complex) and value.imag != 0:
+            return self.encode(np.full(self.slots, value), scale, level)
+        level = self._level(level)
+        cd = self.context.get_context_data(level)
+        v = int(round(float(value.real if isinstance(value, complex)
+                            else value) * scale))
+        if abs(v) >= cd.total_coeff_modulus / 2:
+            raise ValueError("value too large")
+        rns = np.zeros((cd.limbs, self.n), dtype=np.uint64)
+        rns[:, 0] = [v % q for q in cd.coeff_values]
+        return Plaintext(
+            data=dntt.rns_ntt_forward(to_torch(rns, cd.device), cd.ntt),
+            level=level, is_ntt_form=True, scale=scale)
+
+    def decode(self, plain: Plaintext) -> np.ndarray:
+        """Slot values (n/2,) complex128, read back to the host."""
+        if not plain.is_ntt_form or plain.level is None:
+            raise ValueError("CKKS decode expects an NTT-form plaintext")
+        cd = self.context.get_context_data(plain.level)
+        if self.host:
+            coeffs = self._compose_centered_host(plain, cd) / plain.scale
+            v = np.fft.ifft(coeffs * self._twist) * self.n
+            return v[self._slot_index]
+        residues = dntt.rns_ntt_inverse(plain.data, cd.ntt)
+        coeffs = emb.compose_centered(residues,
+                                      emb.make_rns_round_tables(cd.ntt),
+                                      1.0 / plain.scale)
+        return emb.embed_forward(coeffs, self._emb).cpu().numpy()
+
+    def _compose_centered_host(self, plain: Plaintext,
+                               cd: ContextData) -> np.ndarray:
+        """RNS -> centred coefficients as f64, in host integers (the
+        oracle of troy_tpu/ckks.py:297-326)."""
+        res = hntt.rns_ntt_inverse_np(to_numpy(plain.data), self.n,
+                                      cd.coeff_values)
+        Q = cd.total_coeff_modulus
+        acc = np.zeros(self.n, dtype=object)
+        for i, q in enumerate(cd.coeff_values):
+            punct = Q // q
+            acc += res[i].astype(object) * pow(punct % q, -1, q) % q * punct
+        acc %= Q
+        acc = np.where(acc > Q // 2, acc - Q, acc)
+        return acc.astype(np.float64)

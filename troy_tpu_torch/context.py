@@ -3,7 +3,8 @@
 The port of troy_tpu/context.py. One ``ContextData`` per chain level: level
 0 holds the full modulus (the key level), each later level drops the last
 prime. Each level carries its NTT tables, the BEHZ tool with its device
-constants (BFV) and the BFV plain-embedding scalars; the batching tables
+constants and the plain-embedding scalars (BFV), or the constants of the
+NTT-domain divide by its last prime (CKKS rescale); the batching tables
 mod t belong to the context and serve every level. Every table lives on
 the context's device; levels are referred to by their chain index.
 """
@@ -22,6 +23,7 @@ from .params import (
 )
 from .interop import DEFAULT_DEVICE
 from .utils.rns import make_rns_tool
+from .ops.keyswitch import divide_round_consts
 from .ops.ntt import NttTables, RnsNttTables
 from .ops.rns import DeviceRnsTool
 
@@ -38,6 +40,9 @@ class ContextData:
     qualifiers: EncryptionParameterQualifiers
     coeff_div_plain_modulus: Tuple[int, ...]    # floor(Q/t) mod q_i
     coeff_modulus_mod_plain_modulus: int        # Q mod t
+    # CKKS: q_0..q_{k-2}, floor(q_last/2) mod q_i, q_last^-1 mod q_i and its
+    # Shoup words (ops/keyswitch.divide_round_consts), for the rescale
+    rescale_consts: Optional[torch.Tensor] = None
 
     @property
     def scheme(self) -> SchemeType:
@@ -60,6 +65,13 @@ class ContextData:
         return len(self.parms.coeff_modulus)
 
     @property
+    def total_coeff_modulus(self) -> int:
+        Q = 1
+        for v in self.coeff_values:
+            Q *= v
+        return Q
+
+    @property
     def plain_modulus(self) -> Modulus:
         return self.parms.plain_modulus
 
@@ -76,12 +88,15 @@ def _build_context_data(parms: EncryptionParameters, chain_index: int,
     t = int(parms.plain_modulus)
 
     ntt = RnsNttTables.from_moduli(n, values, device)
-    bsk_ntt = rns = None
+    bsk_ntt = rns = rescale = None
     if parms.scheme == SchemeType.bfv:
         rns_tool = make_rns_tool(n, values, t, INTERNAL_MOD_BIT_COUNT)
         bsk_ntt = RnsNttTables.from_moduli(n, rns_tool.base_Bsk.values,
                                            device)
         rns = DeviceRnsTool.build(rns_tool, ntt, bsk_ntt)
+    elif parms.scheme == SchemeType.ckks and len(values) > 1:
+        rescale = divide_round_consts(ntt.slice(0, len(values) - 1),
+                                      values[-1])
 
     Q = 1
     for v in values:
@@ -92,6 +107,7 @@ def _build_context_data(parms: EncryptionParameters, chain_index: int,
         coeff_div_plain_modulus=tuple((Q // t) % v for v in values) if t
         else (),
         coeff_modulus_mod_plain_modulus=Q % t if t else 0,
+        rescale_consts=rescale,
     )
 
 

@@ -1,0 +1,152 @@
+// Kernel K': the divide by the last prime with rounding, in the NTT domain.
+//
+// Replaces troy_tpu/ops/rns.py:213 divide_and_round_q_last_ntt (the CKKS
+// rescale) and the NTT-form branch of troy_tpu/evaluator.py:337-351 (the key
+// switch's divide by the special prime for CKKS, is_ntt_scheme). Both
+// divide x (NTT form over q_0..q_{k-1} plus the prime p in row k) by p:
+//
+//   temps:   last = INTT_p(x[c, k]) (kernel A, before this launch)
+//            temp[c, j, i] = ((last + floor(p/2)) mod p) mod q_j + q_j
+//                            - (floor(p/2) mod q_j)          (< 2 q_j)
+//   (kernel A: the forward NTT of temp over q_0..q_{k-1}, lazy, < 4 q_j)
+//   finish:  out[c, j, i] = (x[c, j, i] + 4 q_j - temp[c, j, i]) p^-1 mod q_j
+//                           (+ acc[c, j, i] on the first acc_comps
+//                           components: (c0, c1) for relinearization, c0
+//                           for a Galois automorphism)
+//
+// These are the words of the JAX package's fully reduced chain (subtract,
+// NTT, subtract, multiply), since the final Shoup product reduces fully.
+// The rescale and the key switch call the same device functions through
+// their own entry points, so each keeps its own launch count (as F and K
+// do).
+//
+// What bounds it on the H100: at n = 16384 the launches (under 3 MB of
+// words). Design: one thread per coefficient of one component for the
+// temps (one read of the special row for all k limbs), one per output word
+// for the finish; coalesced; the constants (5k + 2 words, the layout of
+// ops/keyswitch.py divide_round_consts) in shared memory.
+
+#include "u64.cuh"
+
+using namespace troy;
+
+namespace {
+
+constexpr int MAX_LIMBS = 64;
+constexpr int THREADS = 256;
+
+// last: (comps, n) coefficient form below p; out: (comps, k, n).
+__global__ void temps_kernel(uint64_t *__restrict__ out,
+                             const uint64_t *__restrict__ last, int64_t comps,
+                             int k, int log_n,
+                             const uint64_t *__restrict__ consts) {
+    __shared__ uint64_t c[5 * MAX_LIMBS + 2];
+    for (int j = threadIdx.x; j < 5 * k + 2; j += blockDim.x) c[j] = consts[j];
+    __syncthreads();
+    const uint64_t *q = c, *ratio = c + k, *half_mod = c + 2 * k;
+    const uint64_t p = c[5 * k], half = c[5 * k + 1];
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = comps << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t comp = idx >> log_n;
+        const int64_t i = idx & (n - 1);
+        const uint64_t l = add_mod(last[idx], half, p);
+        uint64_t *dst = out + ((comp * k) << log_n) + i;
+        for (int j = 0; j < k; ++j) {
+            dst[static_cast<int64_t>(j) << log_n] =
+                barrett_reduce_64(l, q[j], ratio[j]) + q[j] - half_mod[j];
+        }
+    }
+}
+
+// x: (comps, k + 1, n), rows 0..k-1 read; temps, out: (comps, k, n); acc:
+// (acc_comps, k, n) or NULL.
+__global__ void finish_kernel(uint64_t *__restrict__ out,
+                              const uint64_t *__restrict__ x,
+                              const uint64_t *__restrict__ temps,
+                              const uint64_t *__restrict__ acc,
+                              int64_t comps, int acc_comps, int k, int log_n,
+                              const uint64_t *__restrict__ consts) {
+    __shared__ uint64_t c[5 * MAX_LIMBS + 2];
+    for (int j = threadIdx.x; j < 5 * k + 2; j += blockDim.x) c[j] = consts[j];
+    __syncthreads();
+    const uint64_t *q = c, *inv = c + 3 * k, *inv_shoup = c + 4 * k;
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = (comps * k) << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t row = idx >> log_n;
+        const int64_t comp = row / k;
+        const int j = static_cast<int>(row - comp * k);
+        const int64_t i = idx & (n - 1);
+        const uint64_t xv = x[((row + comp) << log_n) + i];  // row j of k+1
+        uint64_t r = mul_mod_shoup(xv + 4 * q[j] - temps[idx], inv[j],
+                                   inv_shoup[j], q[j]);
+        if (comp < acc_comps) r = add_mod(acc[idx], r, q[j]);
+        out[idx] = r;
+    }
+}
+
+int temps(void *out, const void *last, long long comps, int k, int log_n,
+          const void *consts, void *stream) {
+    if (k < 1 || k > MAX_LIMBS) return static_cast<int>(cudaErrorInvalidValue);
+    temps_kernel<<<grid_blocks(comps << log_n, THREADS), THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(last),
+        comps, k, log_n, static_cast<const uint64_t *>(consts));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+int finish(void *out, const void *x, const void *temps_in, const void *acc,
+           long long comps, int acc_comps, int k, int log_n,
+           const void *consts, void *stream) {
+    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    finish_kernel<<<grid_blocks((comps * k) << log_n, THREADS), THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
+        static_cast<const uint64_t *>(temps_in),
+        static_cast<const uint64_t *>(acc), comps, acc_comps, k, log_n,
+        static_cast<const uint64_t *>(consts));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+}  // namespace
+
+// The CKKS rescale: p = the level's last prime, no accumulator.
+extern "C" int troy_rescale_ntt_temps(void *out, const void *last,
+                                      long long comps, int k, int log_n,
+                                      const void *consts, void *stream) {
+    return temps(out, last, comps, k, log_n, consts, stream);
+}
+
+extern "C" int troy_rescale_ntt_finish(void *out, const void *x,
+                                       const void *temps_in, const void *acc,
+                                       long long comps, int acc_comps, int k,
+                                       int log_n, const void *consts,
+                                       void *stream) {
+    return finish(out, x, temps_in, acc, comps, acc_comps, k, log_n, consts,
+                  stream);
+}
+
+// The NTT-form key switch: p = the special prime, accumulator (c0, c1) or c0.
+extern "C" int troy_keyswitch_ntt_temps(void *out, const void *last,
+                                        long long comps, int k, int log_n,
+                                        const void *consts, void *stream) {
+    return temps(out, last, comps, k, log_n, consts, stream);
+}
+
+extern "C" int troy_keyswitch_ntt_finish(void *out, const void *x,
+                                         const void *temps_in,
+                                         const void *acc, long long comps,
+                                         int acc_comps, int k, int log_n,
+                                         const void *consts, void *stream) {
+    return finish(out, x, temps_in, acc, comps, acc_comps, k, log_n, consts,
+                  stream);
+}

@@ -1,11 +1,13 @@
 """Decryptor: the phase <ct, (1, s, s^2, ...)>, BFV scale-and-round and the
 invariant noise budget.
 
-The port of troy_tpu/decryptor.py (BFV). The phase accumulates in the NTT
-domain against cached secret-key powers: every component's forward NTT is
-one kernel-A launch, the sum of products one kernel-B launch, then the
-inverse NTT and the t/Q rounding (decrypt_scale_and_round, kernel E). The
-noise budget reads the phase back and measures it with host integers.
+The port of troy_tpu/decryptor.py (BFV and CKKS). The phase accumulates in
+the NTT domain against cached secret-key powers: every component's forward
+NTT is one kernel-A launch (none for an NTT-form CKKS ciphertext), the sum
+of products one kernel-B launch and the add of c0 one kernel-D launch.
+CKKS returns that NTT-form phase as the plaintext; BFV takes the inverse
+NTT and the t/Q rounding (decrypt_scale_and_round, kernel E). The noise
+budget reads the phase back and measures it with host integers.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class Decryptor:
         return self._sk_powers[p]
 
     def _powers(self, ct: Ciphertext) -> torch.Tensor:
-        if self.context.scheme != SchemeType.bfv:
+        if self.context.scheme not in (SchemeType.bfv, SchemeType.ckks):
             raise NotImplementedError(
                 f"{self.context.scheme.name} decryption is not ported yet "
                 "(ROADMAP.md, queue 2)")
@@ -74,14 +76,23 @@ class Decryptor:
 
     def decrypt(self, ct: Ciphertext) -> Plaintext:
         cd = self.context.get_context_data(ct.level)
-        return Plaintext(data=_decrypt_core(ct.data, self._powers(ct), cd,
+        powers = self._powers(ct)
+        if self.context.scheme == SchemeType.ckks:
+            # the NTT-form phase, at the ciphertext's level and scale
+            return Plaintext(data=_phase_ntt_core(ct.data, powers, cd,
+                                                  ct.is_ntt_form),
+                             level=ct.level, is_ntt_form=True,
+                             scale=ct.scale)
+        return Plaintext(data=_decrypt_core(ct.data, powers, cd,
                                             ct.is_ntt_form))
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """Bits of noise budget left: log2(Q/2) - log2(2 ||t/Q phase - m||)
         (decryptor.cpp invariantNoiseBudget). The phase comes from the
         device (kernels A, B); the norm is taken in host integers, as a
-        diagnostic off the hot path."""
+        diagnostic off the hot path. BFV only."""
+        if self.context.scheme != SchemeType.bfv:
+            raise ValueError("the invariant noise budget is BFV-only")
         cd = self.context.get_context_data(ct.level)
         phase = to_numpy(_phase_core(ct.data, self._powers(ct), cd,
                                      ct.is_ntt_form))

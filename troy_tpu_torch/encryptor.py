@@ -1,10 +1,12 @@
-"""Encryptor: symmetric (secret-key) BFV encryption with host sampling.
+"""Encryptor: symmetric (secret-key) BFV and CKKS encryption with host
+sampling.
 
-The port of troy_tpu/encryptor.py, BFV symmetric path with
+The port of troy_tpu/encryptor.py, symmetric path with
 ``host_sampling=True``: the zero encryption draws its randomness on the
 host exactly as the reference's host path does (so seeded ciphertexts are
 word-equal to troy's and to ``troy_tpu``'s), then the plaintext is embedded
-into c0 as c0 + round(Q/t * m).
+into c0: BFV as c0 + round(Q/t * m) in the coefficient domain (kernel G),
+CKKS as c0 + m in the NTT domain at the plaintext's level (kernel D).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from . import rlwe
 from .ops import poly as dpoly
 
 _LATER = ("is not ported yet (ROADMAP.md, queue 2: device sampling, "
-          "asymmetric encryption, BGV and CKKS)")
+          "asymmetric encryption and BGV)")
 
 
 def _embed_plain_c0(m: torch.Tensor, c0: torch.Tensor,
@@ -46,11 +48,13 @@ class Encryptor:
         self._prng = rnd.RandomGeneratorFactory.default_factory().create(seed)
 
     def encrypt_symmetric(self, plain: Plaintext) -> Ciphertext:
-        if self.context.scheme != SchemeType.bfv:
-            raise NotImplementedError(
-                f"{self.context.scheme.name} encryption {_LATER}")
+        scheme = self.context.scheme
+        if scheme not in (SchemeType.bfv, SchemeType.ckks):
+            raise NotImplementedError(f"{scheme.name} encryption {_LATER}")
         if self._sk is None:
             raise ValueError("no secret key set")
+        if scheme == SchemeType.ckks:
+            return self._encrypt_ckks(plain)
         if plain.is_ntt_form:
             raise ValueError("BFV plaintext must be in coefficient form")
         cd = self.context.first_context_data
@@ -63,3 +67,16 @@ class Encryptor:
                                                      is_ntt_form=False)
         c0 = _embed_plain_c0(m, zero.data[0], cd)
         return zero.replace(data=torch.stack([c0, zero.data[1]]))
+
+    def _encrypt_ckks(self, plain: Plaintext) -> Ciphertext:
+        """An NTT-form zero encryption at the plaintext's level, then
+        c0 += m (troy_tpu/encryptor.py:38-39); the result carries the
+        plaintext's scale."""
+        if not plain.is_ntt_form or plain.level is None:
+            raise ValueError("CKKS plaintext must be NTT form at a level")
+        cd = self.context.get_context_data(plain.level)
+        zero = rlwe.encrypt_zero_symmetric_reference(cd, self._sk, self._prng,
+                                                     is_ntt_form=True)
+        c0 = dpoly.rns_add(zero.data[0], plain.data, cd.ntt)
+        return zero.replace(data=torch.stack([c0, zero.data[1]]),
+                            scale=plain.scale)

@@ -1,8 +1,9 @@
 """HE object model: plaintexts, ciphertexts and keys as dataclasses of tensors.
 
-The port of troy_tpu/he_types.py (BFV slice). Data lives in int64 tensors
-of u64 words on the context's device: ``Ciphertext.data`` is
-(size, limbs, n); metadata (chain level, NTT flag) are plain fields.
+The port of troy_tpu/he_types.py (BFV and CKKS). Data lives in int64
+tensors of u64 words on the context's device: ``Ciphertext.data`` is
+(size, limbs, n); metadata (chain level, NTT flag, the CKKS scale) are
+plain fields.
 Key-switching keys keep the dense (decomp, 2, key_limbs, n) layout of the
 JAX package, which the key-switch inner product reads directly.
 """
@@ -19,11 +20,12 @@ import torch
 @dataclass(frozen=True)
 class Plaintext:
     """A plaintext polynomial: mod-t coefficients (n,) with level None, or
-    mod-q NTT form (limbs, n) at a chain level."""
+    mod-q NTT form (limbs, n) at a chain level (CKKS, with its scale)."""
 
     data: torch.Tensor
     level: Optional[int] = None
     is_ntt_form: bool = False
+    scale: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -33,6 +35,7 @@ class Ciphertext:
     data: torch.Tensor                # (size, limbs, n) u64 words
     level: int = 1
     is_ntt_form: bool = False
+    scale: float = 1.0                # CKKS: the encoding scale
 
     @property
     def size(self) -> int:

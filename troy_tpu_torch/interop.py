@@ -48,19 +48,20 @@ def relin_keys(keys: Dict[int, np.ndarray],
 
 
 def ciphertext(words: np.ndarray, level: int, is_ntt_form: bool,
-               device=DEFAULT_DEVICE) -> Ciphertext:
-    """Ciphertext from (size, limbs, n) words at a chain level."""
+               device=DEFAULT_DEVICE, scale: float = 1.0) -> Ciphertext:
+    """Ciphertext from (size, limbs, n) words at a chain level (CKKS: with
+    its scale)."""
     return Ciphertext(data=to_torch(words, device), level=int(level),
-                      is_ntt_form=bool(is_ntt_form))
+                      is_ntt_form=bool(is_ntt_form), scale=float(scale))
 
 
 def plaintext(words: np.ndarray, device=DEFAULT_DEVICE,
               level: Optional[int] = None,
-              is_ntt_form: bool = False) -> Plaintext:
+              is_ntt_form: bool = False, scale: float = 1.0) -> Plaintext:
     """Plaintext from (n,) mod-t words (or (limbs, n) NTT-form words at a
-    level)."""
+    level, CKKS with its scale)."""
     return Plaintext(data=to_torch(words, device), level=level,
-                     is_ntt_form=is_ntt_form)
+                     is_ntt_form=is_ntt_form, scale=float(scale))
 
 
 def galois_keys(keys: Dict[int, np.ndarray],

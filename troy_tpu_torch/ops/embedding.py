@@ -1,0 +1,415 @@
+"""The CKKS canonical embedding in FP64 and the exact f64 <-> RNS conversions.
+
+The port of troy_tpu/ops/embedding.py on kernels O1-O3 (csrc/embedding.cu):
+
+  * ``embed_inverse_fft`` (O1, encode): slot values (m <= n/2,) complex ->
+    u = FFT(V)/n (n,) complex, V the conjugate-symmetric evaluation vector
+    (``scatter_slots``);
+  * ``embed_forward`` (O1, decode): real coefficients (n,) -> slot values
+    (n/2,) complex, conj-FFT(c * twist) at the slot orbit;
+  * ``untwist_round_to_rns`` (O2): round(Re(u * untwist) * scale) mod every
+    q_i, (n,) complex -> (k, n) words, exact at any magnitude;
+  * ``compose_centered`` (O3): (k, n) residues -> the centred CRT value as
+    f64, times 1/scale.
+
+The untwist moved from the transform into the rounding kernel, so the JAX
+package's ``embed_inverse`` (which returns Re(untwist * FFT(V)/n)) and
+``round_to_rns_device`` (which rounds real coefficients) become
+``embed_inverse_fft`` and ``untwist_round_to_rns`` here; ``scatter_slots``,
+``embed_forward`` and ``compose_centered`` keep their meaning.
+
+The transform is the JAX package's 4-step split n = A x B
+(out[p2*A + p1] = sum_b [sum_a x[a, b] w1[p1, a]] tw[p1, b] w2[b, p2]) in
+native FP64: the TPU's int8 digit planes (troy_tpu/ops/embedding.py:56-255),
+radix-2^32 peeling (:371-436, :443-488) and host scale split (:491) existed
+only for its float32-pair f64 emulation and are not ported. Each wrapper
+launches its kernel for tensors on CUDA and runs its plain version for
+tensors on the CPU: O1's plain version is the same 4-step schedule in
+torch.complex128 matrix products, O2's and O3's are the kernels' steps on
+the int64 u64ops twin and float64 tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import u64ops as u
+from .. import _kernels
+from ..interop import to_torch
+from .ntt import RnsNttTables
+
+C128 = torch.complex128
+F64 = torch.float64
+# csrc/embedding.cu keeps O3's accumulator in registers and O2's and O3's
+# per-limb constants in shared memory
+MAX_KERNEL_WORDS = 16
+MAX_KERNEL_LIMBS = 64
+
+
+def _split_factors(n: int) -> Tuple[int, int]:
+    """n = A * B with A, B as close to square as possible (A >= B)
+    (troy_tpu/ops/ntt_mxu.py:67)."""
+    log_n = n.bit_length() - 1
+    a = 1 << ((log_n + 1) // 2)
+    return a, n // a
+
+
+def slot_index(n: int) -> np.ndarray:
+    """Slot i <-> evaluation point zeta^(3^i): natural index (3^i - 1) / 2
+    of the length-n transform, (n/2,) int64."""
+    idx = np.zeros(n // 2, dtype=np.int64)
+    pos = 1
+    for i in range(n // 2):
+        idx[i] = (pos - 1) >> 1
+        pos = (pos * 3) % (2 * n)
+    return idx
+
+
+@lru_cache(maxsize=None)
+def host_embed_tables(n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(slot_index(n), twist, untwist) as numpy: twist[j] = zeta^j =
+    exp(i pi j / n), untwist its conjugate. The one source of the slot orbit
+    and the twist, for ``make_embed_tables`` and the encoder's host
+    oracle."""
+    j = np.arange(n)
+    return (slot_index(n), np.exp(1j * np.pi * j / n),
+            np.exp(-1j * np.pi * j / n))
+
+
+@dataclass(eq=False)
+class EmbedTables:
+    """The constant tables of one degree n = A x B on one device.
+
+    Encode direction (numpy's FFT sign): w1e[p1, a] = w^(B p1 a),
+    twe[p1, b] = w^(p1 b), w2e[b, p2] = w^(A b p2), w = exp(-2 pi i / n);
+    decode direction: their conjugates. twist[j] = zeta^j = exp(i pi j / n),
+    untwist its conjugate. ``scatter[j]`` is i where V[j] = v_i and ~i where
+    V[j] = conj(v_i); ``slot_of[j]`` is i where j = (3^i - 1) / 2, else -1.
+    """
+
+    n: int
+    a: int
+    b: int
+    w1e: torch.Tensor           # (A, A) complex128
+    twe: torch.Tensor           # (A, B)
+    w2e: torch.Tensor           # (B, B)
+    w1d: torch.Tensor
+    twd: torch.Tensor
+    w2d: torch.Tensor
+    twist: torch.Tensor         # (n,) complex128
+    untwist: torch.Tensor
+    slot_index: torch.Tensor    # (n/2,) int64
+    scatter: torch.Tensor       # (n,) int32
+    slot_of: torch.Tensor       # (n,) int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.twist.device
+
+
+@lru_cache(maxsize=None)
+def make_embed_tables(n: int, device) -> EmbedTables:
+    A, B = _split_factors(n)
+
+    # exponents reduced mod n before exponentiation, as the JAX package
+    # does: w**k for k ~ n A would lose angle accuracy
+    def omk(k):
+        return np.exp(-2j * np.pi * (k % n) / n)
+
+    a_idx, b_idx = np.arange(A), np.arange(B)
+    w1 = omk(B * np.outer(a_idx, a_idx))
+    tw = omk(np.outer(a_idx, b_idx))
+    w2 = omk(A * np.outer(b_idx, b_idx))
+    idx, twist, untwist = host_embed_tables(n)
+    scatter = np.zeros(n, dtype=np.int32)
+    scatter[idx] = np.arange(n // 2)
+    scatter[n - 1 - idx] = ~np.arange(n // 2)
+    slot_of = np.full(n, -1, dtype=np.int32)
+    slot_of[idx] = np.arange(n // 2)
+    dev = lambda m: torch.from_numpy(np.array(m)).to(device)
+    return EmbedTables(
+        n=n, a=A, b=B, w1e=dev(w1), twe=dev(tw), w2e=dev(w2),
+        w1d=dev(np.conj(w1)), twd=dev(np.conj(tw)), w2d=dev(np.conj(w2)),
+        twist=dev(twist), untwist=dev(untwist), slot_index=dev(idx),
+        scatter=dev(scatter), slot_of=dev(slot_of))
+
+
+@dataclass(eq=False)
+class RnsRoundTables:
+    """Per-level constants of O2 and O3, as csrc/embedding.cu reads them.
+
+    ``round_consts``: q (k), the high Barrett words (k), 2^e mod q_i
+    (k x E) and their Shoup words (k x E), e < E = max(1, bits(Q) - 52):
+    a rounded coefficient |v| < 2^bits(Q) is m 2^e with m < 2^53.
+    ``compose_consts``: q (k), invp_i = (Q/q_i)^-1 mod q_i (k), their Shoup
+    words (k), the punctured products Q/q_i (k x W words), Q (W words) and
+    (Q + 1)/2 (W words), words little-endian, W = words(Q) + 1 (one for
+    carries)."""
+
+    q_values: Tuple[int, ...]
+    round_consts: torch.Tensor
+    exponents: int              # E
+    compose_consts: torch.Tensor
+    words: int                  # W
+    punct: Tuple[int, ...]
+    total: int                  # Q
+
+
+def _to_words(v: int, count: int) -> list:
+    return [(v >> (64 * i)) & u.M64 for i in range(count)]
+
+
+def make_rns_round_tables(t: RnsNttTables) -> RnsRoundTables:
+    """The tables of the base of t, made once per tables object."""
+    key = ("ckks_round",)
+    if key not in t._memo:
+        qv = t.values
+        k = len(qv)
+        Q = 1
+        for q in qv:
+            Q *= q
+        E = max(1, Q.bit_length() - 52)
+        W = (Q.bit_length() + 63) // 64 + 1
+        pow2 = [pow(2, e, q) for q in qv for e in range(E)]
+        pow2_shoup = [u.shoup_quotient(w, q)
+                      for w, q in zip(pow2, [q for q in qv for _ in range(E)])]
+        ratio = [((1 << 128) // q) >> 64 for q in qv]
+        punct = tuple(Q // q for q in qv)
+        invp = [pow(p % q, -1, q) for p, q in zip(punct, qv)]
+        words = lambda w: to_torch(np.array(w, dtype=np.uint64), t.device)
+        compose = (list(qv) + invp
+                   + [u.shoup_quotient(w, q) for w, q in zip(invp, qv)]
+                   + [x for p in punct for x in _to_words(p, W)]
+                   + _to_words(Q, W) + _to_words((Q + 1) // 2, W))
+        t._memo[key] = RnsRoundTables(
+            q_values=qv,
+            round_consts=words(list(qv) + ratio + pow2 + pow2_shoup),
+            exponents=E, compose_consts=words(compose), words=W,
+            punct=punct, total=Q)
+    return t._memo[key]
+
+
+# --------------------------------------------------------------------------
+# plain versions (the CPU path; on the card, the kernels' comparison)
+# --------------------------------------------------------------------------
+
+def scatter_slots(values: torch.Tensor, t: EmbedTables) -> torch.Tensor:
+    """Slot values (m <= n/2,) -> the conjugate-symmetric evaluation vector
+    (n,): V[idx_i] = v_i, V[n-1-idx_i] = conj(v_i), 0 elsewhere."""
+    m = values.shape[0]
+    idx = t.slot_index[:m]
+    v = torch.zeros(t.n, dtype=C128, device=values.device)
+    v[idx] = values
+    v[t.n - 1 - idx] = values.conj()
+    return v
+
+
+def _four_step_plain(x: torch.Tensor, w1: torch.Tensor, tw: torch.Tensor,
+                     w2: torch.Tensor, t: EmbedTables) -> torch.Tensor:
+    """out[p2*A + p1] = sum_b [sum_a w1[p1, a] x[a, b]] tw[p1, b] w2[b, p2]."""
+    s = (w1 @ x.reshape(t.a, t.b)) * tw
+    return (s @ w2).T.reshape(t.n)
+
+
+def embed_inverse_fft_plain(values: torch.Tensor,
+                            t: EmbedTables) -> torch.Tensor:
+    """The plain version of O1's encode direction: FFT(V)/n."""
+    return _four_step_plain(scatter_slots(values, t), t.w1e, t.twe, t.w2e,
+                            t) * (1.0 / t.n)
+
+
+def embed_forward_plain(coeffs: torch.Tensor, t: EmbedTables) -> torch.Tensor:
+    """The plain version of O1's decode direction: conj-FFT(c twist) at the
+    slot orbit."""
+    v = _four_step_plain(coeffs * t.twist, t.w1d, t.twd, t.w2d, t)
+    return v[t.slot_index]
+
+
+def _pow2_neg(e: torch.Tensor) -> torch.Tensor:
+    """2^-e as float64 for integer 0 <= e < 1023, built from its bits."""
+    return ((1023 - e) << 52).view(F64)
+
+
+def untwist_round_to_rns_plain(u_: torch.Tensor, untwist: torch.Tensor,
+                               scale: float,
+                               rt: RnsRoundTables) -> torch.Tensor:
+    """The plain version of O2: (n,) complex -> (k, n) words."""
+    k, E = len(rt.q_values), rt.exponents
+    c = rt.round_consts
+    q = c[:k].reshape(k, 1)
+    ratio = c[k:2 * k].reshape(k, 1)
+    pow2 = c[2 * k:2 * k + k * E].reshape(k, E)
+    pow2_shoup = c[2 * k + k * E:].reshape(k, E)
+    re = u_.real * untwist.real - u_.imag * untwist.imag
+    v = torch.round(re * scale)                   # half to even
+    neg = v < 0
+    a = v.abs()
+    _, ex = torch.frexp(a)
+    e = (ex.to(torch.int64) - 53).clamp(0, E - 1)
+    m = (a * _pow2_neg(e)).to(torch.int64)        # exact, < 2^53
+    r = u.barrett_reduce_64(m, q, ratio)
+    r = u.mul_mod_shoup(r, pow2[:, e], pow2_shoup[:, e], q)
+    return torch.where(neg, u.neg_mod(r, q), r)
+
+
+def compose_centered_plain(residues: torch.Tensor, rt: RnsRoundTables,
+                           inv_scale: float = 1.0) -> torch.Tensor:
+    """The plain version of O3 (troy_tpu/ops/embedding.py:550
+    compose_centered_device, times inv_scale): v = sum_i (r_i invp_i mod q_i)
+    P_i in W u64 words, reduced mod Q, centred, converted top-down to f64."""
+    k, W = len(rt.q_values), rt.words
+    c = rt.compose_consts
+    q, invp, invp_shoup = (c[i * k:(i + 1) * k].reshape(k, 1)
+                           for i in range(3))
+    q_words = _to_words(rt.total, W)
+    qhalf_words = _to_words((rt.total + 1) // 2, W)
+    ult = lambda a, b: u.ult(a, b).to(torch.int64)
+    x_all = u.mul_mod_shoup(residues, invp, invp_shoup, q)
+    zero = torch.zeros_like(residues[0])
+    acc = [zero] * W
+    for i in range(k):
+        x = x_all[i]
+        carry = zero
+        out = []
+        for w, pw in enumerate(_to_words(rt.punct[i], W)):
+            lo, hi = u.mul128(x, pw)
+            s1 = acc[w] + lo
+            c1 = ult(s1, lo)
+            s2 = s1 + carry
+            c2 = ult(s2, carry)
+            out.append(s2)
+            carry = hi + c1 + c2
+        acc = out
+    for _ in range(k - 1):
+        borrow = zero
+        diff = []
+        for w, cw in enumerate(q_words):
+            cw = u.s64(cw)
+            d1 = acc[w] - cw
+            b1 = ult(acc[w], cw)
+            diff.append(d1 - borrow)
+            borrow = b1 + ult(d1, borrow)
+        keep = borrow != 0
+        acc = [torch.where(keep, a, d) for a, d in zip(acc, diff)]
+    borrow = zero
+    for w, cw in enumerate(qhalf_words):
+        cw = u.s64(cw)
+        d1 = acc[w] - cw
+        borrow = ult(acc[w], cw) + ult(d1, borrow)
+    neg = borrow == 0
+    borrow = zero
+    mag = []
+    for w, cw in enumerate(q_words):
+        cw = u.s64(cw)
+        d1 = cw - acc[w]
+        b1 = ult(cw, acc[w])
+        mag.append(d1 - borrow)
+        borrow = b1 + ult(d1, borrow)
+    vals = [torch.where(neg, m, a) for m, a in zip(mag, acc)]
+    f = torch.zeros(residues.shape[1:], dtype=F64, device=residues.device)
+    for w in reversed(range(W)):
+        hi = u.shr(vals[w], 32).to(F64)
+        lo = (vals[w] & 0xFFFFFFFF).to(F64)
+        f = f * (2.0 ** 64) + hi * (2.0 ** 32) + lo
+    return torch.where(neg, -f, f) * inv_scale
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+def embed_inverse_fft(values: torch.Tensor, t: EmbedTables) -> torch.Tensor:
+    """O1, encode: slot values (m <= n/2,) complex128 -> FFT(V)/n, (n,)
+    complex128 (the untwist follows in O2)."""
+    if values.dim() != 1 or values.shape[0] > t.n // 2:
+        raise ValueError(f"embed_inverse_fft: expected at most {t.n // 2} "
+                         f"slot values, got {tuple(values.shape)}")
+    if values.dtype != C128:
+        raise TypeError(f"embed_inverse_fft: expected complex128, got "
+                        f"{values.dtype}")
+    if not _kernels.on_cuda(values, t.twist):
+        return embed_inverse_fft_plain(values, t)
+    values = values.contiguous()
+    _kernels.check_operand(values, "embed_inverse_fft values", C128)
+    out = torch.empty(t.n, dtype=C128, device=values.device)
+    scratch = torch.empty_like(out)
+    _kernels.launch("troy_ckks_fft_encode", out, values, scratch, t.scatter,
+                    values.shape[0], t.w1e, t.twe, t.w2e, t.a, t.b,
+                    1.0 / t.n)
+    return out
+
+
+def embed_forward(coeffs: torch.Tensor, t: EmbedTables) -> torch.Tensor:
+    """O1, decode: real coefficients (n,) float64 -> slot values (n/2,)
+    complex128."""
+    if coeffs.shape != (t.n,):
+        raise ValueError(f"embed_forward: expected ({t.n},), got "
+                         f"{tuple(coeffs.shape)}")
+    if coeffs.dtype != F64:
+        raise TypeError(f"embed_forward: expected float64, got "
+                        f"{coeffs.dtype}")
+    if not _kernels.on_cuda(coeffs, t.twist):
+        return embed_forward_plain(coeffs, t)
+    coeffs = coeffs.contiguous()
+    _kernels.check_operand(coeffs, "embed_forward coeffs", F64)
+    out = torch.empty(t.n // 2, dtype=C128, device=coeffs.device)
+    scratch = torch.empty(t.n, dtype=C128, device=coeffs.device)
+    _kernels.launch("troy_ckks_fft_decode", out, coeffs, scratch, t.slot_of,
+                    t.twist, t.w1d, t.twd, t.w2d, t.a, t.b)
+    return out
+
+
+def untwist_round_to_rns(u_: torch.Tensor, scale: float, t: EmbedTables,
+                         rt: RnsRoundTables) -> torch.Tensor:
+    """O2: u (n,) complex128 -> round(Re(u * untwist) * scale) mod q_i,
+    (k, n) words, round half to even, exact while |round(...)| <
+    2^bits(Q) (the encoder checks the magnitude first)."""
+    if u_.shape != (t.n,):
+        raise ValueError(f"untwist_round_to_rns: expected ({t.n},), got "
+                         f"{tuple(u_.shape)}")
+    if u_.dtype != C128:
+        raise TypeError(f"untwist_round_to_rns: expected complex128, got "
+                        f"{u_.dtype}")
+    if not _kernels.on_cuda(u_, rt.round_consts, t.untwist):
+        return untwist_round_to_rns_plain(u_, t.untwist, scale, rt)
+    k = len(rt.q_values)
+    if k > MAX_KERNEL_LIMBS:
+        raise ValueError(f"untwist_round_to_rns: {k} limbs; the kernel "
+                         f"takes at most {MAX_KERNEL_LIMBS}")
+    u_ = u_.contiguous()
+    _kernels.check_operand(u_, "untwist_round_to_rns input", C128)
+    out = torch.empty((k, t.n), dtype=torch.int64, device=u_.device)
+    _kernels.launch("troy_ckks_round", out, u_, t.untwist, float(scale), k,
+                    t.n.bit_length() - 1, rt.round_consts, rt.exponents)
+    return out
+
+
+def compose_centered(residues: torch.Tensor, rt: RnsRoundTables,
+                     inv_scale: float = 1.0) -> torch.Tensor:
+    """O3: (k, n) residues -> the centred CRT value times inv_scale, (n,)
+    float64."""
+    k = len(rt.q_values)
+    if residues.dim() != 2 or residues.shape[0] != k:
+        raise ValueError(f"compose_centered: expected ({k}, n), got "
+                         f"{tuple(residues.shape)}")
+    if not _kernels.on_cuda(residues, rt.compose_consts):
+        return compose_centered_plain(residues, rt, inv_scale)
+    n = residues.shape[1]
+    if n & (n - 1) or k > MAX_KERNEL_LIMBS or rt.words > MAX_KERNEL_WORDS:
+        raise ValueError(f"compose_centered: n = {n}, k = {k}, "
+                         f"{rt.words} words: the kernel takes a power-of-two "
+                         f"n, at most {MAX_KERNEL_LIMBS} limbs and "
+                         f"{MAX_KERNEL_WORDS} words (Q < 2^"
+                         f"{64 * (MAX_KERNEL_WORDS - 1)})")
+    residues = residues.contiguous()
+    _kernels.check_operand(residues, "compose_centered residues")
+    out = torch.empty(n, dtype=F64, device=residues.device)
+    _kernels.launch("troy_ckks_compose", out, residues, k,
+                    n.bit_length() - 1, rt.words, rt.compose_consts,
+                    float(inv_scale))
+    return out

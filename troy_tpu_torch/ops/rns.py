@@ -2,10 +2,13 @@
 
 The port of troy_tpu/ops/rns.py: ``fast_convert`` (kernel C,
 csrc/base_convert.cu), the BFV multiply's lift and tail (kernel E,
-csrc/behz.cu: ``behz_lift``, ``behz_tail``) and the BFV decrypt rounding
+csrc/behz.cu: ``behz_lift``, ``behz_tail``), the BFV decrypt rounding
 ``decrypt_scale_and_round`` (kernel C's conversion q -> {t, gamma}, with
 the t gamma premultiply folded into its constants, then kernel E's gamma
-correction ``behz_decrypt_round``). An RNS polynomial is a (..., k, n) int64
+correction ``behz_decrypt_round``), and the NTT-domain divide by the last
+prime of the CKKS rescale and key switch (kernel K',
+csrc/divide_round_ntt.cu: ``divide_and_round_q_last_ntt``,
+``divide_round_last_ntt``). An RNS polynomial is a (..., k, n) int64
 tensor of u64 words; every function here also takes leading batch axes, so
 the components of a ciphertext go through in one call.
 
@@ -24,14 +27,17 @@ context's device once per context level.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
+from . import ntt as dntt
 from . import u64ops as u
 from .. import _kernels
 from ..interop import to_torch
 from ..utils.rns import BaseConverter, RnsBase, RnsTool
+from .keyswitch import MAX_KERNEL_LIMBS as KEYSWITCH_MAX_LIMBS
 from .ntt import RnsNttTables
 from .poly import ADD, SCALAR_MUL, rns_elementwise_plain
 
@@ -402,3 +408,134 @@ def decrypt_scale_and_round(phase: torch.Tensor,
         return decrypt_scale_and_round_plain(phase, tool)
     return behz_decrypt_round(fast_convert(phase, tool.q_to_t_gamma_scaled),
                               tool)
+
+
+# --------------------------------------------------------------------------
+# kernel K': the divide by the last prime with rounding, NTT domain
+# --------------------------------------------------------------------------
+#
+# x (s, k+1, n) holds NTT-form rows over q_0..q_{k-1} and, in row k, the
+# prime p to divide by (the level's last prime for the CKKS rescale, the
+# special prime for the key switch). Kernel A inverse-transforms row k,
+# K' turns it into per-limb lazy temps, A forward-transforms those, and K'
+# finishes (x - temp) * p^-1 with an optional accumulator
+# (csrc/divide_round_ntt.cu). Constants: ops/keyswitch.divide_round_consts.
+
+RESCALE = ("troy_rescale_ntt_temps", "troy_rescale_ntt_finish")
+KEYSWITCH = ("troy_keyswitch_ntt_temps", "troy_keyswitch_ntt_finish")
+
+
+def _divide_consts(consts: torch.Tensor):
+    k = (consts.numel() - 2) // 5
+    cols = [consts[i * k:(i + 1) * k].reshape(-1, 1) for i in range(5)]
+    p, half = (int(v) & u.M64 for v in consts[5 * k:].tolist())
+    return k, cols, p, half
+
+
+def divide_round_ntt_temps_plain(last: torch.Tensor,
+                                 consts: torch.Tensor) -> torch.Tensor:
+    """The plain version of K''s temps: last (s, n) coefficient form below
+    p -> ((last + floor(p/2)) mod p) mod q_j + q_j - floor(p/2) mod q_j,
+    (s, k, n), below 2 q_j (troy_tpu/ops/rns.py:224-234)."""
+    _, (q, ratio, half_mod, _, _), p, half = _divide_consts(consts)
+    lst = u.add_mod(last.unsqueeze(-2), half, p)
+    return u.barrett_reduce_64(lst, q, ratio) + (q - half_mod)
+
+
+def divide_round_ntt_finish_plain(x: torch.Tensor, temps: torch.Tensor,
+                                  consts: torch.Tensor,
+                                  acc: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """The plain version of K''s finish: (x_j + 4 q_j - temp_j) p^-1 mod
+    q_j for rows j < k of x (s, k+1, n), temps (s, k, n) below 4 q_j, plus
+    acc (a, k, n) on the first a components (troy_tpu/ops/rns.py:238-243)."""
+    k, (q, _, _, inv, inv_shoup), _, _ = _divide_consts(consts)
+    out = u.mul_mod_shoup(x[:, :k] + (4 * q - temps), inv, inv_shoup, q)
+    if acc is not None:
+        a = acc.shape[0]
+        out = torch.cat([u.add_mod(acc, out[:a], q), out[a:]])
+    return out
+
+
+def _ntt_temps(entry: str, last: torch.Tensor,
+               consts: torch.Tensor) -> torch.Tensor:
+    if last.dim() != 2:
+        raise ValueError(f"{entry}: expected (s, n), got {tuple(last.shape)}")
+    if not _kernels.on_cuda(last, consts):
+        return divide_round_ntt_temps_plain(last, consts)
+    s, n = last.shape
+    k = (consts.numel() - 2) // 5
+    if k > KEYSWITCH_MAX_LIMBS or n & (n - 1):
+        raise ValueError(f"{entry}: k = {k}, n = {n} not supported")
+    last = last.contiguous()
+    _kernels.check_operand(last, f"{entry} input")
+    out = torch.empty((s, k, n), dtype=torch.int64, device=last.device)
+    _kernels.launch(entry, out, last, s, k, n.bit_length() - 1, consts)
+    return out
+
+
+def _ntt_finish(entry: str, x: torch.Tensor, temps: torch.Tensor,
+                consts: torch.Tensor,
+                acc: Optional[torch.Tensor]) -> torch.Tensor:
+    s, k, n = temps.shape
+    if x.shape != (s, k + 1, n) or consts.numel() != 5 * k + 2:
+        raise ValueError(f"{entry}: x {tuple(x.shape)}, temps "
+                         f"{tuple(temps.shape)} and {consts.numel()} "
+                         "constants do not fit")
+    if acc is not None and (acc.dim() != 3 or acc.shape[0] > s
+                            or acc.shape[1:] != (k, n)):
+        raise ValueError(f"{entry}: accumulator {tuple(acc.shape)} does not "
+                         f"fit ({s}, {k}, {n})")
+    operands = [x, temps, consts] + ([acc] if acc is not None else [])
+    if not _kernels.on_cuda(*operands):
+        return divide_round_ntt_finish_plain(x, temps, consts, acc)
+    x, temps = x.contiguous(), temps.contiguous()
+    _kernels.check_operand(x, f"{entry} x")
+    _kernels.check_operand(temps, f"{entry} temps")
+    if acc is not None:
+        acc = acc.contiguous()
+        _kernels.check_operand(acc, f"{entry} accumulator")
+    out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
+    _kernels.launch(entry, out, x, temps, acc, s,
+                    0 if acc is None else acc.shape[0], k,
+                    n.bit_length() - 1, consts)
+    return out
+
+
+def divide_round_last_ntt(x: torch.Tensor, tables: RnsNttTables,
+                          last_tables: RnsNttTables, consts: torch.Tensor,
+                          acc: Optional[torch.Tensor] = None,
+                          entries=KEYSWITCH) -> torch.Tensor:
+    """x (s, k+1, n) NTT form -> (s, k, n) NTT form: rows 0..k-1 (over
+    ``tables``) minus the rounded row k (over ``last_tables``, the prime p
+    of ``consts``), times p^-1, plus acc (a, k, n) on the first a
+    components. Kernels A, K', A, K'; ``entries`` names K''s entry points
+    (and with them its launch count)."""
+    k = x.shape[1] - 1
+    last = dntt.rns_ntt_inverse(x[:, k:], last_tables)[:, 0]
+    temps = dntt.rns_ntt_forward(_ntt_temps(entries[0], last, consts),
+                                 tables, lazy=True)
+    return _ntt_finish(entries[1], x, temps, consts, acc)
+
+
+def divide_and_round_q_last_ntt(x: torch.Tensor, t: RnsNttTables,
+                                consts: torch.Tensor) -> torch.Tensor:
+    """The CKKS rescale (rns.cpp:831-877): x (s, k, n) NTT form over the
+    level's base t -> (s, k-1, n), divided by its last prime with rounding;
+    consts = divide_round_consts(t.slice(0, k-1), that prime)."""
+    if x.dim() != 3 or x.shape[1] != t.k or t.k < 2:
+        raise ValueError(f"divide_and_round_q_last_ntt: expected (s, {t.k}, "
+                         f"n) with at least two limbs, got {tuple(x.shape)}")
+    return divide_round_last_ntt(x, t.slice(0, t.k - 1),
+                                 t.slice(t.k - 1, t.k), consts, None,
+                                 RESCALE)
+
+
+def divide_and_round_q_last_ntt_plain(x: torch.Tensor, t: RnsNttTables,
+                                      consts: torch.Tensor) -> torch.Tensor:
+    """The rescale on the plain versions of A and K' alone."""
+    k = t.k - 1
+    last = dntt.ntt_inverse_plain(x[:, k:], t.slice(k, k + 1))[:, 0]
+    temps = dntt.ntt_forward_plain(divide_round_ntt_temps_plain(last, consts),
+                                   t.slice(0, k), lazy=True)
+    return divide_round_ntt_finish_plain(x, temps, consts)
