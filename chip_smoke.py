@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Two configurations of troy's own timing test (test/timetest.cu), 128-bit
-security, n = 16384, q = {60,40,40,40,40,60}: BFV with
-t = PlainModulus.batching(n, 20), and CKKS at scale 2^40. Phases, in
-order; any failure raises and the script exits non-zero without a result
-line:
+Three configurations of troy's own timing test (test/timetest.cu),
+128-bit security, n = 16384, q = {60,40,40,40,40,60}: BFV with
+t = PlainModulus.batching(n, 20), CKKS at scale 2^40, and BGV with the
+same t. Phases, in order; any failure raises and the script exits non-zero
+without a result line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
 2. build the CUDA kernels from troy_tpu_torch/csrc with nvcc (sm_90a), one
@@ -53,11 +53,42 @@ line:
    rescale_to_next, rotate_vector(1), complex_conjugate, encode and decode;
 10. every CKKS-path kernel was launched by phases 8-9, no plain version or
    u64ops arithmetic ran on a CUDA tensor there, and the per-op device
-   kernels and device time from the profiler.
+   kernels and device time from the profiler;
+11. the BGV kernels (X the exact conversion q -> t with the inverse
+   correction factor 1 and another; K'-BGV the t-corrected NTT-domain
+   divides, the mod switch's temps and finish and the key switch's temps;
+   G' the plain lift with threshold (t+1)/2, with threshold t and times a
+   correction factor) against their plain versions at the BGV shapes, word
+   for word, with the times and bounds of phase 3;
+12. the BGV n = 16384 records chain from troy's C++ code
+   (tests/data/ref_bgv_n16384_headline.bin, seed 2027): keygen (sk, relin
+   key row 0, Galois key row 0), the encryptions of the records' slot
+   vectors, multiply, relinearize, mod_switch_to_next (and its correction
+   factor), rotate_rows(1), and decrypt + decode of the switched product,
+   word for word (the records are in coefficient form: transform_to_ntt /
+   transform_from_ntt at the boundary);
+13. three BGV requests on fresh random slot vectors a, b, c: mult + relin
+   and its mod switch (correction factor != 1) decrypt to a b, its
+   rotate_rows(1) and rotate_columns to the rotated slots, the product of
+   two switched ciphertexts (cf^2) plus a switched c (cf) to a b + c, and
+   multiply_plain, add_plain and sub_plain at cf != 1 to a b c, a b + c
+   and a b - c; the medians of BGV mult+relin, mod_switch_to_next,
+   rotate_rows(1), multiply_plain, encrypt (over 3 runs: its host
+   sampling takes seconds) and decrypt;
+14. every BGV-path kernel was launched by phases 12-13, no plain version or
+   u64ops arithmetic ran on a CUDA tensor there, and the per-op device
+   kernels and device time from the profiler; then, with the counts from 0
+   again, one plain-op request on each of the BFV and CKKS paths
+   (multiply_plain then add_plain, decrypting to a b + c, CKKS within
+   1e-4), the same checks for their kernels, and the medians of their
+   multiply_plain.
 
 The line before last is a JSON object with one entry per kernel (its
-launches: phases 4-5 plus phases 8-9, each counted from 0, also given
-apart); the last line is {"ok": true, "device": {...}}.
+launches: phases 4-5, phases 8-9, phases 12-13 and the plain-op requests of
+phase 14, each counted from 0, also given apart) and the bounds of the
+composite ops (M' the NTT-form rotation, L the plain products); a line
+before it gives the whole run's wall seconds; the last line is
+{"ok": true, "device": {...}}.
 
 Bounds: the larger of the bytes each call must move (every data input read
 once and every output written once, with the NTT's twiddles and the small
@@ -95,8 +126,11 @@ FIXTURE = DATA / "ref_bfv_n16384_headline.bin"
 CKKS_FIXTURE = DATA / "ref_ckks_n16384_headline.bin"
 CKKS_SEED = 2025                     # the seed of troy's CKKS records
 CKKS_SCALE = 2.0 ** 40
+BGV_FIXTURE = DATA / "ref_bgv_n16384_headline.bin"
+BGV_SEED = 2027                      # the seed of troy's BGV records
 REQUESTS = 3
 TIMING_REPS = 20
+SLOW_REPS = 3                        # host-sampled encryption: seconds each
 ROTATION_STEPS = [1, -1, 4, 0]       # 0: the column swap, element 2n - 1
 MEM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 OPS_PER_S = 67e12                    # H100 SXM float32, non-tensor
@@ -132,6 +166,12 @@ KERNELS = {
                        "troy_tpu/ops/rns.py:213"),
     "Kp_keyswitch_ntt": ("troy_tpu_torch/csrc/divide_round_ntt.cu",
                          "troy_tpu/evaluator.py:337"),
+    "X_exact_convert": ("troy_tpu_torch/csrc/exact_convert.cu",
+                        "troy_tpu/ops/rns.py:67"),
+    "Kp_bgv_ntt": ("troy_tpu_torch/csrc/divide_round_ntt.cu",
+                   "troy_tpu/ops/rns.py:246"),
+    "Gp_plain_lift": ("troy_tpu_torch/csrc/plain_embed.cu",
+                      "troy_tpu/ops/poly.py:71"),
 }
 # the kernels each path must launch
 BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
@@ -140,6 +180,11 @@ BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
 CKKS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
              "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
              "Kp_rescale_ntt", "Kp_keyswitch_ntt")
+BGV_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
+            "M_galois", "Kp_keyswitch_ntt", "Kp_bgv_ntt", "X_exact_convert",
+            "Gp_plain_lift")
+PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
+                  "G_plain_embed", "Gp_plain_lift")
 
 
 def log(msg: str) -> None:
@@ -845,6 +890,259 @@ def phase_ckks_requests(ctx, kg, rlk, gk, ce, ev, dec) -> dict:
             "a": a, "enc": enc, "max_error": worst, **times}
 
 
+# --------------------------------------------------------------------------
+# BGV and the plaintext-operand ops
+# --------------------------------------------------------------------------
+
+def phase_bgv_kernels(ctx) -> dict:
+    """X, K'-BGV and G' against their plain versions at the BGV shapes."""
+    rng = np.random.default_rng(SEED + 11)
+    dev = ctx.device
+    key, data = ctx.key_context_data, ctx.first_context_data
+    q5 = data.ntt
+    k = q5.k
+    t = int(data.plain_modulus)
+    Q = data.total_coeff_modulus
+    conv = data.exact_to_t
+    x_dec = _uniform(rng, q5.values, (k, N), dev)         # one phase
+    inv_cf = pow(int(rng.integers(2, t)), -1, t)
+    # K'-BGV: the mod switch of a (2, 5, n) ciphertext; the key switch's
+    # divide of (2, 6, n) products onto (c0, c1)
+    ms = data.bgv_mod_switch_consts
+    x_ms = _uniform(rng, q5.values, (2, k, N), dev)
+    last_ms = _uniform(rng, [q5.values[-1]], (2, 1, N), dev)[:, 0]
+    used = key.ntt.select(keyswitch.used_limbs(k, key.limbs))
+    ks = data.bgv_keyswitch_consts
+    x_ks = _uniform(rng, used.values, (2, k + 1, N), dev)
+    last_ks = _uniform(rng, [used.values[-1]], (2, 1, N), dev)[:, 0]
+    acc_ks = _uniform(rng, q5.values, (2, k, N), dev)
+    # G': m (n) mod t -> (5, n)
+    m = to_torch(rng.integers(0, t, N, dtype=np.uint64), dev)
+    half = data.plain_upper_half_threshold
+    cf = int(rng.integers(2, t))
+
+    def bgv_divide(x, last, consts, acc, entries, plain):
+        kk = x.shape[1] - 1
+        if plain:
+            return lambda: rns.divide_round_ntt_finish_plain(
+                x, rns.bgv_divide_ntt_temps_plain(last, consts),
+                consts[:5 * kk + 2], acc)
+        return lambda: rns._ntt_finish(
+            entries[1], x, rns._ntt_temps(entries[0], last, consts),
+            consts[:5 * kk + 2], acc)
+
+    def bgv_divide_work(x, last, acc):
+        # the function's own data: x's kk rows and the last row in (with
+        # the accumulator), kk rows out; per coefficient 3 + 4 kk products
+        # for the temps and 2 per output word for the finish
+        kk = x.shape[1] - 1
+        rows = 2 * kk * N * 8
+        return (_bytes(last) + rows * (2 if acc is None else 3),
+                2 * N * (3 + 4 * kk + 2 * kk))
+
+    checks = [
+        ("X_exact_convert", f"decrypt ({k},n) -> (n), cf^-1 = 1", "words",
+         lambda: rns.exact_convert(x_dec, conv),
+         lambda: rns.exact_convert_plain(x_dec, conv),
+         (_bytes(x_dec) + N * 8, N * (7 * k + 9)), None),
+        ("X_exact_convert", f"decrypt ({k},n) -> (n), cf^-1 != 1", "words",
+         lambda: rns.exact_convert(x_dec, conv, inv_cf),
+         lambda: rns.exact_convert_plain(x_dec, conv, inv_cf), None, None),
+        ("Kp_bgv_ntt", f"mod switch temps + finish (2,{k},n) -> "
+         f"(2,{k - 1},n)", "words",
+         bgv_divide(x_ms, last_ms, ms, None, rns.BGV_MOD_SWITCH, False),
+         bgv_divide(x_ms, last_ms, ms, None, rns.BGV_MOD_SWITCH, True),
+         bgv_divide_work(x_ms, last_ms, None), None),
+        ("Kp_bgv_ntt", f"with A: mod switch (2,{k},n) -> (2,{k - 1},n)",
+         "words", lambda: rns.mod_t_and_divide_q_last_ntt(x_ms, q5, ms),
+         lambda: rns.mod_t_and_divide_q_last_ntt_plain(x_ms, q5, ms),
+         None, None),
+        ("Kp_bgv_ntt", f"key switch temps + K' finish (2,{k + 1},n) onto "
+         "(c0,c1)", "words",
+         bgv_divide(x_ks, last_ks, ks, acc_ks, rns.BGV_KEYSWITCH, False),
+         bgv_divide(x_ks, last_ks, ks, acc_ks, rns.BGV_KEYSWITCH, True),
+         None, None),
+        ("Gp_plain_lift", f"(n) -> ({k},n), threshold (t+1)/2", "words",
+         lambda: poly.plain_lift(m, q5, t, half, Q),
+         lambda: poly.plain_lift_plain(m, q5, t, half, Q),
+         (_bytes(m) + k * N * 8, N * (2 + k)), None),
+        ("Gp_plain_lift", f"(n) -> ({k},n), threshold t (encrypt)", "words",
+         lambda: poly.plain_lift(m, q5, t, t, Q),
+         lambda: poly.plain_lift_plain(m, q5, t, t, Q), None, None),
+        ("Gp_plain_lift", f"(n) -> ({k},n), times cf mod t", "words",
+         lambda: poly.plain_lift(m, q5, t, half, Q, cf),
+         lambda: poly.plain_lift_plain(m, q5, t, half, Q, cf), None, None),
+    ]
+    return run_checks("11", checks)
+
+
+def bgv_values(t: int):
+    """The slot vectors troy's generator encrypted into c1 and c2."""
+    i = np.arange(N, dtype=object)
+    return [((3 * i + 11) % t).astype(np.uint64),
+            ((i * i + 7) % t).astype(np.uint64)]
+
+
+def phase_bgv_records(ctx) -> tuple:
+    raw = interop.load_records(BGV_FIXTURE)
+    if (list(ctx.key_context_data.coeff_values) != [int(x) for x in raw["q"]]
+            or int(ctx.key_context_data.plain_modulus) != int(raw["t"][0])):
+        raise AssertionError("moduli differ from the BGV records'")
+    ev = P.Evaluator(ctx)
+
+    def load(tag):
+        size, is_ntt, cf = (int(v) for v in raw[tag + "_meta"][:3])
+        ct = interop.ciphertext(raw[tag].reshape(size, -1, N),
+                                ctx.first_level, bool(is_ntt), ctx.device,
+                                correction_factor=cf)
+        return ct if ct.is_ntt_form else ev.transform_to_ntt(ct)
+
+    def same(obj, name, ntt_ct=False):
+        if ntt_ct:
+            if obj.correction_factor != int(raw[name + "_meta"][2]):
+                raise AssertionError(f"BGV record {name!r}: correction "
+                                     f"factor {obj.correction_factor}")
+            obj = ev.transform_from_ntt(obj).data
+        if not np.array_equal(to_numpy(obj).reshape(-1), raw[name]):
+            raise AssertionError(f"BGV record {name!r} differs")
+        log(f"[12] {name}: word-equal to troy's C++ vectors")
+
+    t0 = time.perf_counter()
+    kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(BGV_SEED),
+                        host_sampling=True)
+    rlk = kg.create_relin_keys()
+    gk = kg.create_galois_keys(steps=[1])
+    log(f"[12] host keygen (sk + relin key + Galois key, step 1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    same(kg.secret_key.data, "sk")
+    same(rlk.keys[2][0], "rlk_0")
+    same(gk.keys[3][0], "gk_0")
+    be = P.BatchEncoder(ctx)
+    t = be.plain_modulus
+    for vals, tag in zip(bgv_values(t), ("c1", "c2")):
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=rnd.seed_from_uint64(BGV_SEED),
+                          host_sampling=True)
+        same(enc.encrypt_symmetric(be.encode(vals)), tag, True)
+    prod = ev.multiply(load("c1"), load("c2"))
+    same(prod, "prod", True)
+    rel = ev.relinearize(load("prod"), rlk)
+    same(rel, "rel", True)
+    ms = ev.mod_switch_to_next(load("rel"))
+    same(ms, "ms", True)
+    log(f"[12] ms: correction factor {ms.correction_factor}, equal to "
+        "troy's")
+    same(ev.rotate_rows(load("rel"), 1, gk), "rot", True)
+    dec = P.Decryptor(ctx, kg.secret_key)
+    got = be.decode(dec.decrypt(ms))
+    if not np.array_equal(got, raw["dec_ms"]):
+        raise AssertionError("decode(decrypt(ms)) differs from dec_ms")
+    log("[12] dec_ms: word-equal to troy's C++ vectors")
+    return kg, rlk, gk, be, ev, dec
+
+
+def phase_bgv_requests(ctx, kg, rlk, gk, be, ev, dec) -> dict:
+    t0 = time.perf_counter()
+    gk = P.GaloisKeys(keys={**gk.keys,
+                            **kg.create_galois_keys(steps=[0]).keys})
+    log(f"[13] host keygen (Galois key, the column swap): "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 13)
+    t = be.plain_modulus
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=rnd.seed_from_uint64(BGV_SEED + 1),
+                      host_sampling=True)
+    decode = lambda ct: be.decode(dec.decrypt(ct))
+    for r in range(REQUESTS):
+        a, b, c = (rng.integers(0, t, N, dtype=np.uint64) for _ in range(3))
+        ca, cb, cc = (enc.encrypt_symmetric(be.encode(v)) for v in (a, b, c))
+        rel = ev.relinearize(ev.multiply(ca, cb), rlk)
+        ms = ev.mod_switch_to_next(rel)
+        if ms.correction_factor == 1:
+            raise AssertionError("the mod switch left the correction factor "
+                                 "at 1")
+        ms_a, ms_b, ms_c = (ev.mod_switch_to_next(x) for x in (ca, cb, cc))
+        two = ev.relinearize(ev.multiply(ms_a, ms_b), rlk)      # cf^2
+        pc = be.encode(c)
+        ab = a.astype(object) * b.astype(object) % t
+        co = c.astype(object)
+        rows = ab.astype(np.uint64).reshape(2, N // 2)
+        expected = {
+            "mult + relin": (rel, ab),
+            "mod_switch_to_next": (ms, ab),
+            "rotate_rows(1)": (ev.rotate_rows(rel, 1, gk),
+                               np.roll(rows, -1, axis=1).reshape(-1)),
+            "rotate_columns": (ev.rotate_columns(rel, gk),
+                               rows[::-1].reshape(-1)),
+            "switched a b (cf^2) + switched c (cf)": (ev.add(two, ms_c),
+                                                      (ab + co) % t),
+            "multiply_plain (cf != 1)": (ev.multiply_plain(ms, pc),
+                                         ab * co % t),
+            "add_plain (cf != 1)": (ev.add_plain(ms, pc), (ab + co) % t),
+            "sub_plain (cf != 1)": (ev.sub_plain(ms, pc), (ab - co) % t),
+        }
+        for what, (ct, slots) in expected.items():
+            if not np.array_equal(decode(ct),
+                                  np.asarray(slots).astype(np.uint64)):
+                raise AssertionError(f"request {r}: {what} decrypts to the "
+                                     "wrong slots")
+        log(f"[13] request {r}: a b mod t, its mod switch (cf "
+            f"{ms.correction_factor}), rotations, a b + c from unequal "
+            f"correction factors and the plain ops decrypt to the expected "
+            f"slots")
+    pt = be.encode(a)
+    times = {
+        "bgv_mult_relin_ms": cuda_ms(
+            lambda: ev.relinearize(ev.multiply(ca, cb), rlk)),
+        "bgv_mod_switch_ms": cuda_ms(lambda: ev.mod_switch_to_next(rel)),
+        "bgv_rotate_rows_ms": cuda_ms(lambda: ev.rotate_rows(rel, 1, gk)),
+        "bgv_multiply_plain_ms": cuda_ms(lambda: ev.multiply_plain(ms, pc)),
+        # the host's BLAKE2Xb sampling takes seconds: fewer runs
+        "bgv_encrypt_ms": cuda_ms(lambda: enc.encrypt_symmetric(pt),
+                                  reps=SLOW_REPS, warmup=1),
+        "bgv_decrypt_ms": cuda_ms(lambda: dec.decrypt(ms)),
+    }
+    log(f"[13] medians over {TIMING_REPS} runs (CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return {"gk": gk, "ca": ca, "cb": cb, "rel": rel, "ms": ms, "pc": pc,
+            "pt": pt, "enc": enc, **times}
+
+
+def phase_plain_op_requests(bfv, ckks) -> dict:
+    """One request on each of the BFV and CKKS paths: multiply_plain, then
+    add_plain; the medians of their multiply_plain."""
+    ctx, be, ev, dec, ca, rng = bfv
+    t = be.plain_modulus
+    b, c = (rng.integers(0, t, N, dtype=np.uint64) for _ in range(2))
+    a = be.decode(dec.decrypt(ca))
+    pb = be.encode(b)
+    got = be.decode(dec.decrypt(ev.add_plain(ev.multiply_plain(ca, pb),
+                                             be.encode(c))))
+    want = (a.astype(object) * b.astype(object) + c) % t
+    if not np.array_equal(got, want.astype(np.uint64)):
+        raise AssertionError("BFV multiply_plain + add_plain decrypts to "
+                             "the wrong slots")
+    log("[14] BFV request: multiply_plain then add_plain decrypt to a b + c")
+    cctx, ce, cev, cdec, cca, ca_slots = ckks
+    cb, cc = (rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
+              for _ in range(2))
+    cpb = ce.encode(cb, CKKS_SCALE)
+    prod = cev.rescale_to_next(cev.multiply_plain(cca, cpb))
+    out = cev.add_plain(prod, ce.encode(cc, prod.scale, prod.level))
+    err = float(np.abs(ce.decode(cdec.decrypt(out))
+                       - (ca_slots * cb + cc)).max())
+    if err > 1e-4:
+        raise AssertionError(f"CKKS multiply_plain + add_plain decodes {err} "
+                             "from a b + c")
+    log(f"[14] CKKS request: multiply_plain, rescale, add_plain decode to "
+        f"a b + c within {err:.3g} (bound 1e-4)")
+    return {"bfv_multiply_plain_ms": cuda_ms(
+        lambda: ev.multiply_plain(ca, pb)),
+        "ckks_multiply_plain_ms": cuda_ms(
+            lambda: cev.multiply_plain(cca, cpb)),
+        "ckks_plain_max_error": err}
+
+
 def _short(key: str) -> str:
     """A device kernel's function name without its namespace, template
     and arguments; a copy keeps the profiler's name."""
@@ -895,10 +1193,14 @@ def check_path(tag: str, phases: str, path, counts: dict,
                              f"{counter.calls}")
 
 
-def profile_ops(tag: str, ops: dict) -> dict:
+def profile_ops(tag: str, ops: dict, slow=()) -> dict:
+    """The per-op device kernels and time; the ops named in ``slow`` (host
+    sampling, seconds per call) over 2 traced calls after 2 warm-ups."""
     per_op = {}
     for op, fn in ops.items():
-        count, device_ms, each = device_kernels_per_op(fn)
+        count, device_ms, each = (device_kernels_per_op(fn, 2, 2)
+                                  if op in slow
+                                  else device_kernels_per_op(fn))
         per_op[op] = {"device_kernels": count, "device_ms": device_ms,
                       "each": each}
         log(f"[{tag}] {op}: {count:g} device kernels and copies per op, "
@@ -908,7 +1210,38 @@ def profile_ops(tag: str, ops: dict) -> dict:
     return per_op
 
 
+def ntt_rows_mul64(rows: int) -> int:
+    """64-bit products of kernel A over ``rows`` rows of n (the phase-3
+    count: 3 per butterfly and 3 per word)."""
+    return rows * ((N // 2) * (N.bit_length() - 1) * 3 + N * 3)
+
+
+def composite_bounds(k: int) -> dict:
+    """The least times of the composite ops, from their own data: M' (the
+    NTT-form rotation of a (2, k, n) ciphertext: both components in and
+    out, the Galois key's used rows, k x 2 x (k + 1), read once; A over
+    k + k (k + 1) + 2 + 2 k rows, B's 2 (k + 1) rows of k-term sums, M, K')
+    and L (multiply_plain of a (2, k, n) ciphertext by a mod-t plaintext:
+    the ciphertext and the plaintext in, the product out; G', A over k
+    rows, B over 2 k rows; BFV's adds A over 4 k rows)."""
+    ct = 2 * k * N * 8
+    key_rows = k * 2 * (k + 1) * N * 8
+    rot_mul = (ntt_rows_mul64(k + k * (k + 1) + 2 + 2 * k)
+               + 2 * (k + 1) * N * (2 * k + 5) + 2 * N * (3 + 6 * k))
+    plain_mul = N * (2 + k) + ntt_rows_mul64(k) + 2 * k * N * 7
+    out = {}
+    for op, nbytes, mul64 in (
+            ("Mp_rotation_ntt", 2 * ct + key_rows, rot_mul),
+            ("L_multiply_plain_bgv_ckks", 2 * ct + N * 8, plain_mul),
+            ("L_multiply_plain_bfv", 2 * ct + N * 8,
+             plain_mul + ntt_rows_mul64(4 * k))):
+        ms, by = bound(nbytes, mul64)
+        out[op] = {"bound_ms": ms, "bound_by": by}
+    return out
+
+
 def main() -> None:
+    wall0 = time.perf_counter()
     name = phase_device()
     phase_build()
     parms = P.EncryptionParameters(
@@ -942,7 +1275,7 @@ def main() -> None:
         "decrypt": lambda: dec.decrypt(rel),
         "encode": lambda: be.encode(slots),
         "decode": lambda: be.decode(pt),
-    })
+    }, slow=("encrypt",))
 
     # ---- CKKS: phases 7-10 ----
     ckks_ctx = P.HeContext(P.EncryptionParameters(
@@ -967,28 +1300,92 @@ def main() -> None:
         "ckks_decode": lambda: ce.decode(creq["pt"]),
         "ckks_decrypt": lambda: dec.decrypt(creq["rs"]),
     }))
+    ckks_parts = (ckks_ctx, ce, ev, dec, ca, creq["a"])
+
+    # ---- BGV: phases 11-14 ----
+    bgv_ctx = P.HeContext(P.EncryptionParameters(
+        scheme=P.SchemeType.bgv, poly_modulus_degree=N,
+        coeff_modulus=tuple(P.CoeffModulus.create(N, Q_BITS)),
+        plain_modulus=P.PlainModulus.batching(N, 20)))
+    kernel_results.update(phase_bgv_kernels(bgv_ctx))
+    counter.calls.clear()
+    _kernels.reset_launch_counts()
+    bstate = phase_bgv_records(bgv_ctx)
+    breq = phase_bgv_requests(bgv_ctx, *bstate)
+    torch.cuda.synchronize()
+    bgv_counts = _kernels.launch_counts()
+    check_path("14", "12-13", BGV_PATH, bgv_counts, counter)
+    _, rlk, _, be, ev, dec = bstate
+    ca, cb, rel, ms, gk = (breq[k] for k in ("ca", "cb", "rel", "ms", "gk"))
+    per_op.update(profile_ops("14", {
+        "bgv_mult_relin": lambda: ev.relinearize(ev.multiply(ca, cb), rlk),
+        "bgv_mod_switch": lambda: ev.mod_switch_to_next(rel),
+        "bgv_rotate_rows": lambda: ev.rotate_rows(rel, 1, gk),
+        "bgv_multiply_plain": lambda: ev.multiply_plain(ms, breq["pc"]),
+        "bgv_add_plain": lambda: ev.add_plain(ms, breq["pc"]),
+        "bgv_encrypt": lambda: breq["enc"].encrypt_symmetric(breq["pt"]),
+        "bgv_decrypt": lambda: dec.decrypt(ms),
+    }, slow=("bgv_encrypt",)))
+    counter.calls.clear()
+    _kernels.reset_launch_counts()
+    plain = phase_plain_op_requests(
+        (ctx, state[3], state[4], state[5], req["ca"],
+         np.random.default_rng(SEED + 14)), ckks_parts)
+    torch.cuda.synchronize()
+    plain_counts = _kernels.launch_counts()
+    check_path("14", "14 (plain-op requests)", PLAIN_OPS_PATH, plain_counts,
+               counter)
+    log(f"[14] medians over {TIMING_REPS} runs (CUDA events): "
+        f"bfv_multiply_plain_ms {plain['bfv_multiply_plain_ms']:.4f}, "
+        f"ckks_multiply_plain_ms {plain['ckks_multiply_plain_ms']:.4f}")
 
     entries = []
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
-        launches = (bfv_counts.get(kernel, 0), ckks_counts.get(kernel, 0))
+        launches = [c.get(kernel, 0) for c in (bfv_counts, ckks_counts,
+                                               bgv_counts, plain_counts)]
         entries.append({"name": kernel, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(launches),
                         "launches_bfv": launches[0],
                         "launches_ckks": launches[1],
+                        "launches_bgv": launches[2],
+                        "launches_plain_ops": launches[3],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    composites = composite_bounds(ckks_ctx.first_context_data.limbs)
+    composites["Mp_rotation_ntt"].update(
+        ms=creq["ckks_rotate_vector_ms"],
+        device_ms=per_op["ckks_rotate_vector"]["device_ms"],
+        bgv_ms=breq["bgv_rotate_rows_ms"],
+        bgv_device_ms=per_op["bgv_rotate_rows"]["device_ms"])
+    composites["L_multiply_plain_bgv_ckks"].update(
+        ms=breq["bgv_multiply_plain_ms"],
+        device_ms=per_op["bgv_multiply_plain"]["device_ms"],
+        ckks_ms=plain["ckks_multiply_plain_ms"])
+    composites["L_multiply_plain_bfv"].update(
+        ms=plain["bfv_multiply_plain_ms"])
+    for op, c in composites.items():
+        log(f"[14] {op}: {c}")
     ops = ("mult_relin_ms", "rotate_rows_ms", "mod_switch_ms")
     ckks_ops = ("ckks_mult_relin_ms", "ckks_rescale_ms",
                 "ckks_rotate_vector_ms", "ckks_conjugate_ms",
                 "ckks_encode_ms", "ckks_decode_ms")
+    bgv_ops = ("bgv_mult_relin_ms", "bgv_mod_switch_ms",
+               "bgv_rotate_rows_ms", "bgv_multiply_plain_ms",
+               "bgv_encrypt_ms", "bgv_decrypt_ms")
+    log(f"wall seconds of the whole run: {time.perf_counter() - wall0:.1f}")
     log(json.dumps({"kernels": entries,
                     "H_batch_slots": kernel_results["H_batch_slots"],
+                    "composites": composites,
                     **{op: req[op] for op in ops},
                     **{op: creq[op] for op in ckks_ops},
+                    **{op: breq[op] for op in bgv_ops},
+                    "bfv_multiply_plain_ms": plain["bfv_multiply_plain_ms"],
+                    "ckks_multiply_plain_ms": plain["ckks_multiply_plain_ms"],
                     "ckks_max_error": creq["max_error"],
+                    "ckks_plain_max_error": plain["ckks_plain_max_error"],
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,8 +8,8 @@ every test here skips. On a machine with an NVIDIA Hopper GPU and nvcc:
 Each kernel must give the same words as its plain PyTorch version on the
 same inputs (tolerance 0: the values are integers; the FP64 transform O1
 within 2^-44 max|x|, two orders of summation), at small and at the
-headline sizes, and the whole BFV and CKKS slices on the card must give the
-CPU run's words. The kernels' build happens at the first launch.
+headline sizes, and the whole BFV, CKKS and BGV slices on the card must
+give the CPU run's words. The kernels' build happens at the first launch.
 """
 
 import numpy as np
@@ -30,6 +30,9 @@ BFV_KERNELS = {"A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
 CKKS_KERNELS = {"A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
                 "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                 "Kp_rescale_ntt", "Kp_keyswitch_ntt"}
+BGV_KERNELS = {"A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
+               "M_galois", "Kp_keyswitch_ntt", "Kp_bgv_ntt",
+               "X_exact_convert", "Gp_plain_lift"}
 
 
 @pytest.fixture(scope="module")
@@ -395,3 +398,132 @@ def test_ckks_slice_on_the_card_gives_the_cpu_words(dev):
     d = np.where(d > q // 2, d - q, d)
     assert int(np.max(np.abs(d))) <= 1
     assert int(np.sum(d != 0, axis=1).max()) <= 4
+
+
+@pytest.mark.parametrize("n", [1024, 16384])
+@pytest.mark.parametrize("t_bits", [20, 59])
+def test_exact_convert_kernel(dev, n, t_bits):
+    """Kernel X (q -> t, Q.64 alpha) with the inverse correction factor 1
+    and another, t below and above the 40-bit primes."""
+    q = tuple(int(m) for m in P.CoeffModulus.create(n, [60, 40, 40, 40, 40]))
+    t = int(P.PlainModulus.batching(n, t_bits))
+    conv = rns.ExactConverter.build(make_rns_tool(n, q, t).conv_q_to_t, dev)
+    rng = np.random.default_rng(n + t_bits)
+    x = _uniform(rng, q, (2,), n, dev)
+    for inv_cf in (1, 12345 % t, t - 1):
+        _same(rns.exact_convert(x, conv, inv_cf),
+              rns.exact_convert_plain(x, conv, inv_cf))
+    _same(rns.decrypt_mod_t(x[0], conv, 7), rns.exact_convert_plain(
+        x[0], conv, 7)[0])
+
+
+@pytest.mark.parametrize("t_bits", [20, 59])
+def test_bgv_divide_kernels(dev, t_bits):
+    """K'-BGV: the mod switch's temps and own finish (with A between, and
+    alone), the key switch's temps with K''s finish at every accumulator
+    width, each entry on its launch count."""
+    n = 16384
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    t = int(P.PlainModulus.batching(n, t_bits))
+    key = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    data = key.slice(0, 5)
+    rng = np.random.default_rng(t_bits)
+    x = _uniform(rng, data.values, (2,), n, dev)
+    ms = keyswitch.bgv_divide_consts(data.slice(0, 4), moduli[4], t)
+    _kernels.reset_launch_counts()
+    got = rns.mod_t_and_divide_q_last_ntt(x, data, ms)
+    counts = _kernels.launch_counts()
+    assert counts["Kp_bgv_ntt"] == 2 and counts["Kp_rescale_ntt"] == 0
+    _same(got, rns.mod_t_and_divide_q_last_ntt_plain(x, data, ms))
+    last = _uniform(rng, [moduli[4]], (2,), n, dev)[:, 0]
+    _same(rns._ntt_temps(rns.BGV_MOD_SWITCH[0], last, ms),
+          rns.bgv_divide_ntt_temps_plain(last, ms))
+    temps = _uniform(rng, [4 * q for q in moduli[:4]], (2,), n, dev)
+    _same(rns._ntt_finish(rns.BGV_MOD_SWITCH[1], x, temps, ms[:22], None),
+          rns.divide_round_ntt_finish_plain(x, temps, ms[:22]))
+    used = key.select(keyswitch.used_limbs(5, 6))
+    ks = keyswitch.bgv_divide_consts(data, moduli[-1], t)
+    sp = _uniform(rng, [moduli[-1]], (2,), n, dev)[:, 0]
+    _same(rns._ntt_temps(rns.BGV_KEYSWITCH[0], sp, ks),
+          rns.bgv_divide_ntt_temps_plain(sp, ks))
+    y = _uniform(rng, used.values, (2,), n, dev)
+    for comps in (0, 1, 2):
+        acc = _uniform(rng, data.values, (comps,), n, dev) if comps else None
+        _kernels.reset_launch_counts()
+        got = rns.divide_round_last_ntt(y, data, used.slice(5, 6), ks, acc,
+                                        rns.BGV_KEYSWITCH)
+        counts = _kernels.launch_counts()
+        assert counts["Kp_bgv_ntt"] == 1 and counts["Kp_keyswitch_ntt"] == 1
+        k = 5
+        lst = ntt.ntt_inverse_plain(y[:, k:], used.slice(5, 6))[:, 0]
+        tp = ntt.ntt_forward_plain(rns.bgv_divide_ntt_temps_plain(lst, ks),
+                                   data, lazy=True)
+        _same(got, rns.divide_round_ntt_finish_plain(y, tp, ks[:5 * k + 2],
+                                                     acc))
+
+
+@pytest.mark.parametrize("t_bits", [20, 59])
+def test_plain_lift_kernel(dev, t_bits):
+    """Kernel G' with the centred threshold, with threshold t (the BGV
+    encrypt's raw residues) and with a correction factor."""
+    n = 16384
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])][:5]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    t = int(P.PlainModulus.batching(n, t_bits))
+    Q = 1
+    for v in moduli:
+        Q *= v
+    rng = np.random.default_rng(t_bits + 1)
+    m = interop.to_torch(rng.integers(0, t, size=(2, n), dtype=np.uint64),
+                         dev)
+    for threshold, cf in (((t + 1) >> 1, 1), (t, 1), ((t + 1) >> 1, 4321)):
+        _same(poly.plain_lift(m, tables, t, threshold, Q, cf),
+              poly.plain_lift_plain(m, tables, t, threshold, Q, cf))
+
+
+def _bgv_slice(device):
+    """keygen -> encrypt x2 -> multiply -> relinearize -> mod switch,
+    rotate_rows, rotate_columns, add with unequal correction factors, the
+    plain ops -> decrypt at n = 1024, as numpy words per stage."""
+    n = 1024
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bgv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])),
+        plain_modulus=P.PlainModulus.batching(n, 20))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=device)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(7), host_sampling=True)
+    rlk = kg.create_relin_keys()
+    gk = kg.create_galois_keys(steps=[1, 0])
+    be = P.BatchEncoder(ctx)
+    rng = np.random.default_rng(7)
+    vals = [rng.integers(0, be.plain_modulus, n, dtype=np.uint64)
+            for _ in range(3)]
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=prng.seed_from_uint64(8), host_sampling=True)
+    cts = [enc.encrypt_symmetric(be.encode(v)) for v in vals[:2]]
+    ev = P.Evaluator(ctx)
+    rel = ev.relinearize(ev.multiply(*cts), rlk)
+    ms = ev.mod_switch_to_next(rel)
+    c3 = ev.mod_switch_to_next(cts[0])
+    pt = be.encode(vals[2])
+    dec = P.Decryptor(ctx, kg.secret_key)
+    out = {"c1": cts[0], "rel": rel, "ms": ms,
+           "rot": ev.rotate_rows(rel, 1, gk),
+           "col": ev.rotate_columns(ms, gk),
+           "sum": ev.add(ms, c3),
+           "mulp": ev.multiply_plain(ms, pt),
+           "addp": ev.add_plain(ms, pt), "subp": ev.sub_plain(c3, pt)}
+    words = {k: interop.words(v) for k, v in out.items()}
+    words["decode"] = be.decode(dec.decrypt(out["sum"]))
+    words["budget"] = np.array([dec.invariant_noise_budget(ms)])
+    return words
+
+
+def test_bgv_slice_on_the_card_gives_the_cpu_words(dev):
+    _kernels.reset_launch_counts()
+    on_card = _bgv_slice(dev)
+    counts = _kernels.launch_counts()
+    assert all(counts[k] > 0 for k in BGV_KERNELS), counts
+    on_host = _bgv_slice("cpu")
+    for stage, words in on_host.items():
+        np.testing.assert_array_equal(on_card[stage], words, err_msg=stage)

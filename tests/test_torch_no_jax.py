@@ -84,6 +84,38 @@ FLOW = textwrap.dedent("""
                   - np.roll(v, -1)).max() < 1e-3
     assert np.abs(ce.decode(cdec.decrypt(cev.complex_conjugate(cv, cgk)))
                   - np.conj(v)).max() < 1e-3
+    assert np.abs(ce.decode(cdec.decrypt(cev.add_plain(
+        cv, ce.encode(v, 2.0 ** 30)))) - 2 * v).max() < 1e-3
+
+    # BGV: encrypt, multiply, relinearize, mod switch (correction factor),
+    # rotate_rows, add with unequal factors, plain ops, decrypt, budget
+    bparms = P.EncryptionParameters(
+        scheme=P.SchemeType.bgv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [40, 40, 40])),
+        plain_modulus=P.PlainModulus.batching(n, 17))
+    bctx = P.HeContext(bparms, sec_level=P.SecurityLevel.none, device="cpu")
+    bkg = P.KeyGenerator(bctx, seed=prng.seed_from_uint64(5),
+                         host_sampling=True)
+    bbe = P.BatchEncoder(bctx)
+    benc = P.Encryptor(bctx, secret_key=bkg.secret_key,
+                       seed=prng.seed_from_uint64(6), host_sampling=True)
+    bev = P.Evaluator(bctx)
+    bdec = P.Decryptor(bctx, bkg.secret_key)
+    bt = bbe.plain_modulus
+    ba = benc.encrypt_symmetric(bbe.encode(a))
+    bms = bev.mod_switch_to_next(bev.relinearize(bev.multiply(ba, ba),
+                                                 bkg.create_relin_keys()))
+    assert bms.correction_factor != 1
+    sq = (a * a) % bt
+    assert (bbe.decode(bdec.decrypt(bms)) == sq).all(), "wrong BGV product"
+    bsum = bev.add(bms, bev.mod_switch_to_next(ba))
+    assert (bbe.decode(bdec.decrypt(bsum)) == (sq + a) % bt).all()
+    bmp = bev.multiply_plain(ba, bbe.encode(a))
+    assert (bbe.decode(bdec.decrypt(bmp)) == sq).all()
+    brot = bev.rotate_rows(ba, 1, bkg.create_galois_keys(steps=[1]))
+    want = np.concatenate([np.roll(a[:n // 2], -1), np.roll(a[n // 2:], -1)])
+    assert (bbe.decode(bdec.decrypt(brot)) == want).all(), "wrong rotation"
+    assert bdec.invariant_noise_budget(bms) > 0
     for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding"):
         assert mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules
@@ -139,6 +171,20 @@ def test_ckks_context_defaults_to_the_card():
     assert P.CKKSEncoder(ctx)._emb.device.type == "cpu"
 
 
+def test_bgv_context_defaults_to_the_card():
+    """A BGV context, too, is made on the card unless told otherwise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bgv, poly_modulus_degree=64,
+        coeff_modulus=tuple(P.CoeffModulus.create(64, [40, 40])),
+        plain_modulus=P.PlainModulus.batching(64, 17))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.HeContext(parms, sec_level=P.SecurityLevel.none)
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
+    assert ctx.first_context_data.exact_to_t.consts.device.type == "cpu"
+
+
 def test_wrappers_run_the_plain_version_only_on_the_cpu():
     """A tensor that is not on the CPU never takes the plain path: the
     wrapper launches the kernel or raises."""
@@ -156,6 +202,8 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
         n, tool.base_Bsk.values, "cpu"))
     src, keep = galois.coeff_permutation(n, 3, "cpu")
     consts = keyswitch.divide_round_consts(tables.slice(0, 1), q[-1])
+    bgv = keyswitch.bgv_divide_consts(tables.slice(0, 1), q[-1], t)
+    exact = rns.ExactConverter.build(tool.conv_q_to_t, "cpu")
     meta = lambda *shape, dtype=torch.int64: torch.zeros(shape, dtype=dtype,
                                                          device="meta")
     x = meta(2, n)
@@ -188,6 +236,15 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                      meta(1, 2, n), tables, consts),
                  lambda: rns.divide_round_last_ntt(
                      meta(1, 2, n), tables.slice(0, 1), tables.slice(1, 2),
-                     consts)):
+                     consts),
+                 lambda: rns.divide_round_last_ntt(
+                     meta(1, 2, n), tables.slice(0, 1), tables.slice(1, 2),
+                     bgv, None, rns.BGV_KEYSWITCH),
+                 lambda: rns.mod_t_and_divide_q_last_ntt(meta(1, 2, n),
+                                                         tables, bgv),
+                 lambda: rns.exact_convert(x, exact),
+                 lambda: rns.decrypt_mod_t(x, exact, 3),
+                 lambda: poly.plain_lift(meta(n), tables, t, (t + 1) // 2,
+                                         q[0] * q[1], 5)):
         with pytest.raises(ValueError, match="expected all on the CPU"):
             call()

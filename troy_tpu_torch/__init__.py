@@ -1,11 +1,12 @@
 """troy_tpu_torch — the PyTorch and CUDA port of troy_tpu.
 
-BFV and CKKS homomorphic encryption with SEAL semantics (modelled on
+BFV, CKKS and BGV homomorphic encryption with SEAL semantics (modelled on
 lightbulb128/troy) on PyTorch tensors, with hand-written CUDA kernels for
 Hopper (sm_90a) on the hot path: the NTT, the 128-bit dyadic
 multiply-accumulate, the BEHZ base conversion, per-limb modular
-arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64
-and the NTT-domain rescale (``csrc/``, built with nvcc at first use). On
+arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64,
+the NTT-domain rescale and BGV divides, the plain lift and the exact
+conversion to t (``csrc/``, built with nvcc at first use). On
 the CPU every kernel's plain PyTorch version runs instead; results are the
 same words (for the FP64 transform, the same values to rounding).
 

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
 SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu",
-           "embedding.cu", "divide_round_ntt.cu")
+           "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu")
 HEADERS = ("u64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 _D = ctypes.c_double
 # C signatures: (argtypes) of each entry point; all return int.
 _SIGNATURES = {
@@ -61,6 +62,12 @@ _SIGNATURES = {
     "troy_rescale_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
     "troy_keyswitch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
     "troy_keyswitch_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_bgv_mod_switch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
+    "troy_bgv_mod_switch_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P,
+                                       _P),
+    "troy_bgv_keyswitch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
+    "troy_exact_convert": (_P, _P, _L, _I, _I, _P, _U, _U, _P),
+    "troy_plain_lift": (_P, _P, _L, _I, _I, _U, _U, _U, _P, _P),
 }
 
 # The kernel each entry point belongs to (the letters of the port's kernel
@@ -86,6 +93,11 @@ KERNELS = {
     "troy_rescale_ntt_finish": "Kp_rescale_ntt",
     "troy_keyswitch_ntt_temps": "Kp_keyswitch_ntt",
     "troy_keyswitch_ntt_finish": "Kp_keyswitch_ntt",
+    "troy_bgv_mod_switch_ntt_temps": "Kp_bgv_ntt",
+    "troy_bgv_mod_switch_ntt_finish": "Kp_bgv_ntt",
+    "troy_bgv_keyswitch_ntt_temps": "Kp_bgv_ntt",
+    "troy_exact_convert": "X_exact_convert",
+    "troy_plain_lift": "Gp_plain_lift",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}

@@ -2,11 +2,15 @@
 
 The port of troy_tpu/context.py. One ``ContextData`` per chain level: level
 0 holds the full modulus (the key level), each later level drops the last
-prime. Each level carries its NTT tables, the BEHZ tool with its device
-constants and the plain-embedding scalars (BFV), or the constants of the
-NTT-domain divide by its last prime (CKKS rescale); the batching tables
-mod t belong to the context and serve every level. Every table lives on
-the context's device; levels are referred to by their chain index.
+prime. Each level carries its NTT tables; BFV and BGV levels their host RNS
+tool and the plain lift's scalars and constants (kernel G'); BFV levels the
+BEHZ tool with its device constants and the plain-embedding scalars; BGV
+levels the constants of the exact conversion to t (kernel X) and of the
+t-corrected NTT-domain divides by the last prime (mod switch) and by the
+special prime (key switch, kernel K'-BGV); CKKS levels those of the
+NTT-domain divide by the last prime (rescale). The batching tables mod t
+belong to the context and serve every level. Every table lives on the
+context's device; levels are referred to by their chain index.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ from .params import (
     validate,
 )
 from .interop import DEFAULT_DEVICE
-from .utils.rns import make_rns_tool
-from .ops.keyswitch import divide_round_consts
+from .utils.rns import RnsTool, make_rns_tool
+from .ops.keyswitch import bgv_divide_consts, divide_round_consts
 from .ops.ntt import NttTables, RnsNttTables
-from .ops.rns import DeviceRnsTool
+from .ops.poly import plain_lift_consts
+from .ops.rns import DeviceRnsTool, ExactConverter
 
 
 @dataclass(eq=False)
@@ -43,6 +48,19 @@ class ContextData:
     # CKKS: q_0..q_{k-2}, floor(q_last/2) mod q_i, q_last^-1 mod q_i and its
     # Shoup words (ops/keyswitch.divide_round_consts), for the rescale
     rescale_consts: Optional[torch.Tensor] = None
+    # BFV and BGV: the host RNS tool; the centred plain lift's threshold
+    # (t+1)/2 and increments (Q - t) mod q_i (context.cpp
+    # plain_upper_half_threshold/increment; kernel G''s constants hold them)
+    rns_tool: Optional[RnsTool] = None
+    plain_upper_half_threshold: int = 0
+    plain_upper_half_increment: Tuple[int, ...] = ()
+    # BGV: kernel X's converter q -> t (decrypt); kernel K'-BGV's constants
+    # for the mod switch (p = q_last over q_0..q_{k-2}) and for the key
+    # switch (p = the special prime over this level's q; its p^-1 mod t is
+    # the key level's inv_q_last_mod_t)
+    exact_to_t: Optional[ExactConverter] = None
+    bgv_mod_switch_consts: Optional[torch.Tensor] = None
+    bgv_keyswitch_consts: Optional[torch.Tensor] = None
 
     @property
     def scheme(self) -> SchemeType:
@@ -82,32 +100,47 @@ class ContextData:
 
 def _build_context_data(parms: EncryptionParameters, chain_index: int,
                         qualifiers: EncryptionParameterQualifiers,
-                        device: torch.device) -> ContextData:
+                        device: torch.device,
+                        special_prime: int) -> ContextData:
     n = parms.poly_modulus_degree
     values = parms.coeff_values
+    k = len(values)
     t = int(parms.plain_modulus)
-
-    ntt = RnsNttTables.from_moduli(n, values, device)
-    bsk_ntt = rns = rescale = None
-    if parms.scheme == SchemeType.bfv:
-        rns_tool = make_rns_tool(n, values, t, INTERNAL_MOD_BIT_COUNT)
-        bsk_ntt = RnsNttTables.from_moduli(n, rns_tool.base_Bsk.values,
-                                           device)
-        rns = DeviceRnsTool.build(rns_tool, ntt, bsk_ntt)
-    elif parms.scheme == SchemeType.ckks and len(values) > 1:
-        rescale = divide_round_consts(ntt.slice(0, len(values) - 1),
-                                      values[-1])
-
     Q = 1
     for v in values:
         Q *= v
+
+    ntt = RnsNttTables.from_moduli(n, values, device)
+    bsk_ntt = rns = rescale = rns_tool = exact = None
+    bgv_ms = bgv_ks = None
+    if parms.scheme in (SchemeType.bfv, SchemeType.bgv):
+        rns_tool = make_rns_tool(n, values, t, INTERNAL_MOD_BIT_COUNT)
+        plain_lift_consts(ntt, t, Q)                  # uploaded once
+    if parms.scheme == SchemeType.bfv:
+        bsk_ntt = RnsNttTables.from_moduli(n, rns_tool.base_Bsk.values,
+                                           device)
+        rns = DeviceRnsTool.build(rns_tool, ntt, bsk_ntt)
+    elif parms.scheme == SchemeType.bgv:
+        exact = ExactConverter.build(rns_tool.conv_q_to_t, device)
+        if k > 1:
+            bgv_ms = bgv_divide_consts(ntt.slice(0, k - 1), values[-1], t)
+        if chain_index > 0:
+            bgv_ks = bgv_divide_consts(ntt, special_prime, t)
+    elif parms.scheme == SchemeType.ckks and k > 1:
+        rescale = divide_round_consts(ntt.slice(0, k - 1), values[-1])
+
     return ContextData(
         ntt=ntt, bsk_ntt=bsk_ntt, rns=rns, parms=parms,
         chain_index=chain_index, qualifiers=qualifiers,
         coeff_div_plain_modulus=tuple((Q // t) % v for v in values) if t
         else (),
         coeff_modulus_mod_plain_modulus=Q % t if t else 0,
-        rescale_consts=rescale,
+        rescale_consts=rescale, rns_tool=rns_tool,
+        plain_upper_half_threshold=(t + 1) >> 1 if t else 0,
+        plain_upper_half_increment=tuple((Q - t) % v for v in values) if t
+        else (),
+        exact_to_t=exact, bgv_mod_switch_consts=bgv_ms,
+        bgv_keyswitch_consts=bgv_ks,
     )
 
 
@@ -134,8 +167,9 @@ class HeContext:
                              f"{qualifiers.error_message}")
         self.sec_level = sec_level
         self.device = device
+        special = parms.coeff_values[-1]
         chain: List[ContextData] = [
-            _build_context_data(parms, 0, qualifiers, device)]
+            _build_context_data(parms, 0, qualifiers, device, special)]
 
         self._using_keyswitching = len(parms.coeff_modulus) > 1
         if self._using_keyswitching:
@@ -146,7 +180,8 @@ class HeContext:
                 if not q.parameters_set:
                     raise ValueError(f"invalid parameters at chain level "
                                      f"{idx}: {q.error_message}")
-                chain.append(_build_context_data(level_parms, idx, q, device))
+                chain.append(_build_context_data(level_parms, idx, q, device,
+                                                 special))
                 if not expand_mod_chain or len(level_parms.coeff_modulus) == 1:
                     break
                 level_parms = level_parms.drop_last()

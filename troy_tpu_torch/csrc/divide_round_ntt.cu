@@ -20,6 +20,21 @@
 // their own entry points, so each keeps its own launch count (as F and K
 // do).
 //
+// K'-BGV, the BGV members (troy_tpu/ops/rns.py:246
+// mod_t_and_divide_q_last_ntt and the BGV branch of
+// troy_tpu/evaluator.py:320-336), subtract from x a multiple of the plain
+// modulus tt that makes row k divisible by p, then divide; only the temps
+// differ:
+//
+//   bgv temps: neg_k = (-(last mod tt)) p^-1 mod tt          (0 stays 0)
+//              temp[c, j, i] = (neg_k mod q_j)(p mod q_j) + (last mod q_j)
+//                              mod q_j                       (< q_j)
+//
+// and the finish is K''s. The JAX package reduces fully between these
+// steps; so does the finish, so the words agree. The BGV mod switch has its
+// own finish entry (its launches count apart, as the rescale's do); the
+// BGV key switch shares K''s key-switch finish.
+//
 // What bounds it on the H100: at n = 16384 the launches (under 3 MB of
 // words). Design: one thread per coefficient of one component for the
 // temps (one read of the special row for all k limbs), one per output word
@@ -62,6 +77,42 @@ __global__ void temps_kernel(uint64_t *__restrict__ out,
     }
 }
 
+// The BGV temps. consts: K''s 5k + 2 words (q at 0, the high Barrett words
+// at k), then tt, tt's high Barrett word, p^-1 mod tt, its Shoup word, p mod
+// q_j (k) and their Shoup words (k) (ops/keyswitch.py bgv_divide_consts).
+__global__ void bgv_temps_kernel(uint64_t *__restrict__ out,
+                                 const uint64_t *__restrict__ last,
+                                 int64_t comps, int k, int log_n,
+                                 const uint64_t *__restrict__ consts) {
+    __shared__ uint64_t c[7 * MAX_LIMBS + 6];
+    for (int j = threadIdx.x; j < 7 * k + 6; j += blockDim.x) c[j] = consts[j];
+    __syncthreads();
+    const uint64_t *q = c, *ratio = c + k;
+    const uint64_t *e = c + 5 * k + 2;
+    const uint64_t tt = e[0], tt_hi = e[1], inv = e[2], inv_shoup = e[3];
+    const uint64_t *pm = e + 4, *pm_shoup = e + 4 + k;
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = comps << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t comp = idx >> log_n;
+        const int64_t i = idx & (n - 1);
+        const uint64_t l = last[idx];
+        const uint64_t neg_k = mul_mod_shoup(
+            neg_mod(barrett_reduce_64(l, tt, tt_hi), tt), inv, inv_shoup, tt);
+        uint64_t *dst = out + ((comp * k) << log_n) + i;
+        for (int j = 0; j < k; ++j) {
+            const uint64_t delta = mul_mod_shoup(
+                barrett_reduce_64(neg_k, q[j], ratio[j]), pm[j], pm_shoup[j],
+                q[j]);
+            dst[static_cast<int64_t>(j) << log_n] =
+                add_mod(delta, barrett_reduce_64(l, q[j], ratio[j]), q[j]);
+        }
+    }
+}
+
 // x: (comps, k + 1, n), rows 0..k-1 read; temps, out: (comps, k, n); acc:
 // (acc_comps, k, n) or NULL.
 __global__ void finish_kernel(uint64_t *__restrict__ out,
@@ -97,6 +148,16 @@ int temps(void *out, const void *last, long long comps, int k, int log_n,
     if (k < 1 || k > MAX_LIMBS) return static_cast<int>(cudaErrorInvalidValue);
     temps_kernel<<<grid_blocks(comps << log_n, THREADS), THREADS, 0,
                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(last),
+        comps, k, log_n, static_cast<const uint64_t *>(consts));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+int bgv_temps(void *out, const void *last, long long comps, int k, int log_n,
+              const void *consts, void *stream) {
+    if (k < 1 || k > MAX_LIMBS) return static_cast<int>(cudaErrorInvalidValue);
+    bgv_temps_kernel<<<grid_blocks(comps << log_n, THREADS), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t *>(out), static_cast<const uint64_t *>(last),
         comps, k, log_n, static_cast<const uint64_t *>(consts));
     TROY_RETURN_LAUNCH_STATUS();
@@ -149,4 +210,31 @@ extern "C" int troy_keyswitch_ntt_finish(void *out, const void *x,
                                          const void *consts, void *stream) {
     return finish(out, x, temps_in, acc, comps, acc_comps, k, log_n, consts,
                   stream);
+}
+
+// The BGV mod switch: p = the level's last prime, no accumulator.
+extern "C" int troy_bgv_mod_switch_ntt_temps(void *out, const void *last,
+                                             long long comps, int k,
+                                             int log_n, const void *consts,
+                                             void *stream) {
+    return bgv_temps(out, last, comps, k, log_n, consts, stream);
+}
+
+extern "C" int troy_bgv_mod_switch_ntt_finish(void *out, const void *x,
+                                              const void *temps_in,
+                                              const void *acc,
+                                              long long comps, int acc_comps,
+                                              int k, int log_n,
+                                              const void *consts,
+                                              void *stream) {
+    return finish(out, x, temps_in, acc, comps, acc_comps, k, log_n, consts,
+                  stream);
+}
+
+// The BGV key switch: p = the special prime; its finish is
+// troy_keyswitch_ntt_finish.
+extern "C" int troy_bgv_keyswitch_ntt_temps(void *out, const void *last,
+                                            long long comps, int k, int log_n,
+                                            const void *consts, void *stream) {
+    return bgv_temps(out, last, comps, k, log_n, consts, stream);
 }

@@ -12,6 +12,19 @@
 // What bounds it on the H100: at n = 16384 the launch (1.4 MB of words).
 // Design: one thread per coefficient computes fix once and writes all k
 // limbs; the constants (7 + 4k words) in shared memory.
+//
+// Kernel G': the plain lift mod t -> RNS, troy_plain_lift below.
+// Replaces troy_tpu/ops/poly.py:71 plain_lift (called by the BFV and BGV
+// multiply_plain, troy_tpu/evaluator.py:708, the BGV add_plain, :761, with
+// its m * cf mod t, :767-768, and the BGV encrypt, troy_tpu/encryptor.py:47).
+// Per coefficient m < t: m <- m cf mod t (Shoup; skipped for cf = 1), then
+// per limb m_j = m mod q_j (Barrett when t > q_j, else m) and
+// out_j = m >= threshold ? (m_j + (Q - t) mod q_j) mod q_j : m_j.
+// The threshold is (t+1)/2 for the centred lift of the plain ops and t
+// (never reached) for the BGV encrypt's raw residues. Output below q_j,
+// ready for kernel A. Bound: the launch (k + 1 rows of words); one thread
+// per coefficient writes its k limbs (coalesced across the warp); the
+// 1 + 3k constants in shared memory.
 
 #include "u64.cuh"
 
@@ -69,6 +82,39 @@ __global__ void plain_embed_kernel(uint64_t *__restrict__ out,
     }
 }
 
+// consts: t, then q (k), the high Barrett words (k), (Q - t) mod q (k).
+__global__ void plain_lift_kernel(uint64_t *__restrict__ out,
+                                  const uint64_t *__restrict__ m,
+                                  int64_t batch, int k, int log_n,
+                                  uint64_t threshold, uint64_t cf,
+                                  uint64_t cf_shoup,
+                                  const uint64_t *__restrict__ consts) {
+    __shared__ uint64_t c[1 + 3 * MAX_LIMBS];
+    for (int j = threadIdx.x; j < 1 + 3 * k; j += blockDim.x) c[j] = consts[j];
+    __syncthreads();
+    const uint64_t t = c[0];
+    const uint64_t *q = c + 1, *cr_hi = q + k, *inc = cr_hi + k;
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = batch << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t poly = idx >> log_n;
+        const int64_t i = idx & (n - 1);
+        uint64_t mv = m[idx];
+        if (cf != 1) mv = mul_mod_shoup(mv, cf, cf_shoup, t);
+        const bool upper = mv >= threshold;
+        const int64_t base = ((poly * k) << log_n) + i;
+        for (int j = 0; j < k; ++j) {
+            const uint64_t mj =
+                t <= q[j] ? mv : barrett_reduce_64(mv, q[j], cr_hi[j]);
+            out[base + (static_cast<int64_t>(j) << log_n)] =
+                upper ? add_mod(mj, inc[j], q[j]) : mj;
+        }
+    }
+}
+
 }  // namespace
 
 // m: (batch, 2^log_n) mod t; c0, out: (batch, k, 2^log_n); consts: above.
@@ -82,6 +128,22 @@ extern "C" int troy_bfv_plain_embed(void *out, const void *m, const void *c0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t *>(out), static_cast<const uint64_t *>(m),
         static_cast<const uint64_t *>(c0), batch, k, log_n, subtract,
+        static_cast<const uint64_t *>(consts));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+// m: (batch, 2^log_n) mod t; out: (batch, k, 2^log_n); consts: above.
+extern "C" int troy_plain_lift(void *out, const void *m, long long batch,
+                               int k, int log_n, unsigned long long threshold,
+                               unsigned long long cf,
+                               unsigned long long cf_shoup,
+                               const void *consts, void *stream) {
+    if (k < 1 || k > MAX_LIMBS) return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 256;
+    plain_lift_kernel<<<grid_blocks(batch << log_n, threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(m), batch,
+        k, log_n, threshold, cf, cf_shoup,
         static_cast<const uint64_t *>(consts));
     TROY_RETURN_LAUNCH_STATUS();
 }

@@ -1,13 +1,15 @@
-"""Decryptor: the phase <ct, (1, s, s^2, ...)>, BFV scale-and-round and the
-invariant noise budget.
+"""Decryptor: the phase <ct, (1, s, s^2, ...)>, BFV scale-and-round, BGV
+reduction mod t, and the invariant noise budget.
 
-The port of troy_tpu/decryptor.py (BFV and CKKS). The phase accumulates in
-the NTT domain against cached secret-key powers: every component's forward
-NTT is one kernel-A launch (none for an NTT-form CKKS ciphertext), the sum
-of products one kernel-B launch and the add of c0 one kernel-D launch.
-CKKS returns that NTT-form phase as the plaintext; BFV takes the inverse
-NTT and the t/Q rounding (decrypt_scale_and_round, kernel E). The noise
-budget reads the phase back and measures it with host integers.
+The port of troy_tpu/decryptor.py. The phase accumulates in the NTT domain
+against cached secret-key powers: every component's forward NTT is one
+kernel-A launch (none for an NTT-form CKKS or BGV ciphertext), the sum of
+products one kernel-B launch and the add of c0 one kernel-D launch. CKKS
+returns that NTT-form phase as the plaintext; BFV takes the inverse NTT
+and the t/Q rounding (decrypt_scale_and_round, kernels C and E); BGV the
+inverse NTT and the exact conversion to t with the inverse correction
+factor fused in (decrypt_mod_t, kernel X). The noise budget (BFV, BGV)
+reads the phase back and measures it with host integers.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from .context import ContextData, HeContext
 from .he_types import Ciphertext, Plaintext, SecretKey
 from .interop import to_numpy
 from .params import SchemeType
+from .utils import numth
 from .ops import ntt as dntt
 from .ops import poly as dpoly
 from .ops import rns as drns
@@ -45,10 +48,14 @@ def _phase_core(data: torch.Tensor, sk_powers: torch.Tensor,
 
 
 def _decrypt_core(data: torch.Tensor, sk_powers: torch.Tensor,
-                  cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
-    """BFV decrypt to plaintext words mod t, (n,)."""
-    return drns.decrypt_scale_and_round(
-        _phase_core(data, sk_powers, cd, is_ntt_form), cd.rns)
+                  cd: ContextData, is_ntt_form: bool,
+                  inv_cf: int = 1) -> torch.Tensor:
+    """BFV or BGV decrypt to plaintext words mod t, (n,); BGV's times the
+    inverse correction factor inv_cf."""
+    phase = _phase_core(data, sk_powers, cd, is_ntt_form)
+    if cd.scheme == SchemeType.bgv:
+        return drns.decrypt_mod_t(phase, cd.exact_to_t, inv_cf)
+    return drns.decrypt_scale_and_round(phase, cd.rns)
 
 
 class Decryptor:
@@ -68,10 +75,6 @@ class Decryptor:
         return self._sk_powers[p]
 
     def _powers(self, ct: Ciphertext) -> torch.Tensor:
-        if self.context.scheme not in (SchemeType.bfv, SchemeType.ckks):
-            raise NotImplementedError(
-                f"{self.context.scheme.name} decryption is not ported yet "
-                "(ROADMAP.md, queue 2)")
         return torch.stack([self._sk_power(p) for p in range(1, ct.size)])
 
     def decrypt(self, ct: Ciphertext) -> Plaintext:
@@ -83,20 +86,24 @@ class Decryptor:
                                                   ct.is_ntt_form),
                              level=ct.level, is_ntt_form=True,
                              scale=ct.scale)
+        inv_cf = 1
+        if self.context.scheme == SchemeType.bgv and ct.correction_factor != 1:
+            t = int(cd.plain_modulus)
+            inv_cf = numth.invert_mod(ct.correction_factor % t, t)
         return Plaintext(data=_decrypt_core(ct.data, powers, cd,
-                                            ct.is_ntt_form))
+                                            ct.is_ntt_form, inv_cf))
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """Bits of noise budget left: log2(Q/2) - log2(2 ||t/Q phase - m||)
         (decryptor.cpp invariantNoiseBudget). The phase comes from the
         device (kernels A, B); the norm is taken in host integers, as a
-        diagnostic off the hot path. BFV only."""
-        if self.context.scheme != SchemeType.bfv:
-            raise ValueError("the invariant noise budget is BFV-only")
+        diagnostic off the hot path. BFV and BGV."""
+        if self.context.scheme == SchemeType.ckks:
+            raise ValueError("the invariant noise budget is BFV/BGV-only")
         cd = self.context.get_context_data(ct.level)
         phase = to_numpy(_phase_core(ct.data, self._powers(ct), cd,
                                      ct.is_ntt_form))
-        base = cd.rns.host.base_q
+        base = cd.rns_tool.base_q
         Q = base.base_prod
         # compose each coefficient, times t, centered mod Q
         acc = np.zeros(cd.n, dtype=object)

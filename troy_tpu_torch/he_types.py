@@ -1,9 +1,9 @@
 """HE object model: plaintexts, ciphertexts and keys as dataclasses of tensors.
 
-The port of troy_tpu/he_types.py (BFV and CKKS). Data lives in int64
+The port of troy_tpu/he_types.py (BFV, CKKS and BGV). Data lives in int64
 tensors of u64 words on the context's device: ``Ciphertext.data`` is
-(size, limbs, n); metadata (chain level, NTT flag, the CKKS scale) are
-plain fields.
+(size, limbs, n); metadata (chain level, NTT flag, the CKKS scale, the BGV
+correction factor) are plain fields.
 Key-switching keys keep the dense (decomp, 2, key_limbs, n) layout of the
 JAX package, which the key-switch inner product reads directly.
 """
@@ -36,6 +36,7 @@ class Ciphertext:
     level: int = 1
     is_ntt_form: bool = False
     scale: float = 1.0                # CKKS: the encoding scale
+    correction_factor: int = 1        # BGV: the message is cf * m mod t
 
     @property
     def size(self) -> int:

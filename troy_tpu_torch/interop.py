@@ -48,11 +48,13 @@ def relin_keys(keys: Dict[int, np.ndarray],
 
 
 def ciphertext(words: np.ndarray, level: int, is_ntt_form: bool,
-               device=DEFAULT_DEVICE, scale: float = 1.0) -> Ciphertext:
+               device=DEFAULT_DEVICE, scale: float = 1.0,
+               correction_factor: int = 1) -> Ciphertext:
     """Ciphertext from (size, limbs, n) words at a chain level (CKKS: with
-    its scale)."""
+    its scale; BGV: with its correction factor)."""
     return Ciphertext(data=to_torch(words, device), level=int(level),
-                      is_ntt_form=bool(is_ntt_form), scale=float(scale))
+                      is_ntt_form=bool(is_ntt_form), scale=float(scale),
+                      correction_factor=int(correction_factor))
 
 
 def plaintext(words: np.ndarray, device=DEFAULT_DEVICE,

@@ -52,6 +52,26 @@ def divide_round_consts(t: RnsNttTables, p: int) -> torch.Tensor:
     return t._memo[key]
 
 
+def bgv_divide_consts(t: RnsNttTables, p: int,
+                      plain_modulus: int) -> torch.Tensor:
+    """The constants of the BGV divide by p in the NTT domain (kernel
+    K'-BGV, csrc/divide_round_ntt.cu): ``divide_round_consts(t, p)`` (the
+    5k + 2 words K''s finish reads), then the plain modulus tt, the high
+    word of floor(2^128 / tt), p^-1 mod tt and its Shoup word, p mod q (k)
+    and their Shoup words (k). Made once per (tables, p, tt)."""
+    key = ("bgv_divide", p, plain_modulus)
+    if key not in t._memo:
+        tt = plain_modulus
+        inv = pow(p % tt, -1, tt)
+        pm = [p % q for q in t.values]
+        words = ([tt, ((1 << 128) // tt) >> 64, inv,
+                  u.shoup_quotient(inv, tt)] + pm
+                 + [u.shoup_quotient(w, q) for w, q in zip(pm, t.values)])
+        t._memo[key] = torch.cat([divide_round_consts(t, p), to_torch(
+            np.array(words, dtype=np.uint64), t.device)])
+    return t._memo[key]
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""Elementwise RNS polynomial arithmetic and the BFV plain embedding.
+"""Elementwise RNS polynomial arithmetic, the BFV plain embedding and the
+plain lift.
 
-The port of troy_tpu/ops/poly.py (BFV subset). Arrays are (..., k, n)
-int64 tensors of u64 words, limb-major, with per-limb moduli from the
-base's RnsNttTables. ``rns_add``, ``rns_sub``, ``rns_neg`` and
-``rns_scalar_mul`` run on kernel D (csrc/rns_elementwise.cu) and
-``bfv_plain_embed`` on kernel G (csrc/plain_embed.cu) for tensors on CUDA,
-and on their plain versions for tensors on the CPU (for G,
+The port of troy_tpu/ops/poly.py. Arrays are (..., k, n) int64 tensors of
+u64 words, limb-major, with per-limb moduli from the base's RnsNttTables.
+``rns_add``, ``rns_sub``, ``rns_neg`` and ``rns_scalar_mul`` run on kernel
+D (csrc/rns_elementwise.cu), ``bfv_plain_embed`` on kernel G and
+``plain_lift`` on kernel G' (both csrc/plain_embed.cu) for tensors on
+CUDA, and on their plain versions for tensors on the CPU (for G,
 ``bfv_multiply_add_plain``, the JAX package's function).
 """
 
@@ -166,4 +167,74 @@ def bfv_plain_embed(m: torch.Tensor, c0: torch.Tensor, plain_modulus: int,
     out = torch.empty_like(c0)
     _kernels.launch("troy_bfv_plain_embed", out, m, c0, m.numel() // t.n,
                     t.k, t.log_n, int(subtract), consts)
+    return out
+
+
+# --------------------------------------------------------------------------
+# kernel G': the plain lift mod t -> RNS
+# --------------------------------------------------------------------------
+
+def plain_lift_consts(t: RnsNttTables, plain_modulus: int,
+                      total_q: int) -> torch.Tensor:
+    """Kernel G''s constants (csrc/plain_embed.cu): tt, then q (k), the
+    high Barrett words (k) and (Q - tt) mod q (k). Made once per tables and
+    plain modulus."""
+    key = ("plain_lift", plain_modulus, total_q)
+    if key not in t._memo:
+        tt = plain_modulus
+        words = ([tt] + list(t.values)
+                 + [((1 << 128) // q) >> 64 for q in t.values]
+                 + [(total_q - tt) % q for q in t.values])
+        t._memo[key] = to_torch(np.array(words, dtype=np.uint64), t.device)
+    return t._memo[key]
+
+
+def plain_lift_plain(m: torch.Tensor, t: RnsNttTables, plain_modulus: int,
+                     plain_upper_half_threshold: int, total_q: int,
+                     correction_factor: int = 1) -> torch.Tensor:
+    """The plain version of kernel G' (troy_tpu/ops/poly.py:71 plain_lift,
+    after the BGV add_plain's m * cf mod t, troy_tpu/evaluator.py:767-768):
+    m (..., n) mod t -> (..., k, n); coefficients at or above the threshold
+    map to (m - t) mod q_i = (m mod q_i + (Q - t) mod q_i) mod q_i."""
+    tt = plain_modulus
+    if correction_factor % tt != 1:
+        cf = correction_factor % tt
+        m = u.mul_mod_shoup(m, cf, u.shoup_quotient(cf, tt), tt)
+    outs = []
+    for q in t.values:
+        mi = m if tt <= q else u.barrett_reduce_64(m, q,
+                                                   ((1 << 128) // q) >> 64)
+        lifted = u.add_mod(mi, (total_q - tt) % q, q)
+        outs.append(torch.where(m >= plain_upper_half_threshold, lifted, mi))
+    return torch.stack(outs, dim=-2)
+
+
+def plain_lift(m: torch.Tensor, t: RnsNttTables, plain_modulus: int,
+               plain_upper_half_threshold: int, total_q: int,
+               correction_factor: int = 1) -> torch.Tensor:
+    """Lift a mod-t plaintext (..., n) to RNS residues (..., k, n) below q_i,
+    centred: coefficients at or above the threshold ((t+1)/2 for the plain
+    ops; t, which no coefficient reaches, for the BGV encrypt's raw
+    residues) stand for m - t. With a correction factor cf the lift is of
+    m * cf mod t (BGV add_plain). One kernel-G' launch."""
+    if m.shape[-1] != t.n:
+        raise ValueError(f"plain_lift: expected (..., {t.n}), got "
+                         f"{tuple(m.shape)}")
+    consts = plain_lift_consts(t, plain_modulus, total_q)
+    if not _kernels.on_cuda(m, consts):
+        return plain_lift_plain(m, t, plain_modulus,
+                                plain_upper_half_threshold, total_q,
+                                correction_factor)
+    if t.k > 64:
+        raise ValueError(f"plain_lift: {t.k} limbs; the kernel takes at "
+                         "most 64")
+    tt = plain_modulus
+    cf = correction_factor % tt
+    m = m.contiguous()
+    _kernels.check_operand(m, "plain_lift m")
+    out = torch.empty(m.shape[:-1] + (t.k, t.n), dtype=torch.int64,
+                      device=m.device)
+    _kernels.launch("troy_plain_lift", out, m, m.numel() // t.n, t.k,
+                    t.log_n, plain_upper_half_threshold, cf,
+                    u.shoup_quotient(cf, tt), consts)
     return out

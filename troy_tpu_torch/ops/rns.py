@@ -8,7 +8,12 @@ the t gamma premultiply folded into its constants, then kernel E's gamma
 correction ``behz_decrypt_round``), and the NTT-domain divide by the last
 prime of the CKKS rescale and key switch (kernel K',
 csrc/divide_round_ntt.cu: ``divide_and_round_q_last_ntt``,
-``divide_round_last_ntt``). An RNS polynomial is a (..., k, n) int64
+``divide_round_last_ntt``), its BGV members, which first subtract a
+multiple of t that makes the divided row divisible by the prime
+(``mod_t_and_divide_q_last_ntt`` and the BGV key switch's divide, kernel
+K'-BGV), and the BGV decrypt's exact conversion q -> t
+(``exact_convert``, ``decrypt_mod_t``, kernel X, csrc/exact_convert.cu).
+An RNS polynomial is a (..., k, n) int64
 tensor of u64 words; every function here also takes leading batch axes, so
 the components of a ciphertext go through in one call.
 
@@ -423,6 +428,11 @@ def decrypt_scale_and_round(phase: torch.Tensor,
 
 RESCALE = ("troy_rescale_ntt_temps", "troy_rescale_ntt_finish")
 KEYSWITCH = ("troy_keyswitch_ntt_temps", "troy_keyswitch_ntt_finish")
+# K'-BGV: the t-corrected temps; the mod switch has its own finish entry,
+# the key switch shares K''s
+BGV_MOD_SWITCH = ("troy_bgv_mod_switch_ntt_temps",
+                  "troy_bgv_mod_switch_ntt_finish")
+BGV_KEYSWITCH = ("troy_bgv_keyswitch_ntt_temps", "troy_keyswitch_ntt_finish")
 
 
 def _divide_consts(consts: torch.Tensor):
@@ -457,14 +467,44 @@ def divide_round_ntt_finish_plain(x: torch.Tensor, temps: torch.Tensor,
     return out
 
 
+def _bgv_divide_consts(consts: torch.Tensor):
+    """(k, (q, ratio, p mod q, its Shoup words) as (k, 1) columns,
+    (tt, tt's high Barrett word, p^-1 mod tt, its Shoup word)) of
+    ops/keyswitch.bgv_divide_consts."""
+    k = (consts.numel() - 6) // 7
+    col = lambda start: consts[start:start + k].reshape(-1, 1)
+    scalars = tuple(int(v) & u.M64 for v in consts[5 * k + 2:5 * k + 6]
+                    .tolist())
+    return k, (col(0), col(k), col(5 * k + 6), col(6 * k + 6)), scalars
+
+
+def bgv_divide_ntt_temps_plain(last: torch.Tensor,
+                               consts: torch.Tensor) -> torch.Tensor:
+    """The plain version of K'-BGV's temps: last (s, n) coefficient form
+    below p -> neg_k = -(last mod tt) p^-1 mod tt, then
+    (neg_k mod q_j) (p mod q_j) + (last mod q_j) mod q_j, (s, k, n), below
+    q_j (troy_tpu/ops/rns.py:246-266 and evaluator.py:320-336)."""
+    _, (q, ratio, pm, pm_shoup), (tt, tt_hi, inv, inv_shoup) = \
+        _bgv_divide_consts(consts)
+    neg_k = u.neg_mod(u.barrett_reduce_64(last, tt, tt_hi), tt)
+    neg_k = u.mul_mod_shoup(neg_k, inv, inv_shoup, tt).unsqueeze(-2)
+    delta = u.mul_mod_shoup(u.barrett_reduce_64(neg_k, q, ratio), pm,
+                            pm_shoup, q)
+    return u.add_mod(delta, u.barrett_reduce_64(last.unsqueeze(-2), q, ratio),
+                     q)
+
+
 def _ntt_temps(entry: str, last: torch.Tensor,
                consts: torch.Tensor) -> torch.Tensor:
     if last.dim() != 2:
         raise ValueError(f"{entry}: expected (s, n), got {tuple(last.shape)}")
+    bgv = entry in (BGV_MOD_SWITCH[0], BGV_KEYSWITCH[0])
     if not _kernels.on_cuda(last, consts):
-        return divide_round_ntt_temps_plain(last, consts)
+        plain = (bgv_divide_ntt_temps_plain if bgv
+                 else divide_round_ntt_temps_plain)
+        return plain(last, consts)
     s, n = last.shape
-    k = (consts.numel() - 2) // 5
+    k = (consts.numel() - 6) // 7 if bgv else (consts.numel() - 2) // 5
     if k > KEYSWITCH_MAX_LIMBS or n & (n - 1):
         raise ValueError(f"{entry}: k = {k}, n = {n} not supported")
     last = last.contiguous()
@@ -510,12 +550,14 @@ def divide_round_last_ntt(x: torch.Tensor, tables: RnsNttTables,
     ``tables``) minus the rounded row k (over ``last_tables``, the prime p
     of ``consts``), times p^-1, plus acc (a, k, n) on the first a
     components. Kernels A, K', A, K'; ``entries`` names K''s entry points
-    (and with them its launch count)."""
+    (and with them its launch count); with the BGV entries, consts are
+    ops/keyswitch.bgv_divide_consts, whose first 5k + 2 words the finish
+    reads."""
     k = x.shape[1] - 1
     last = dntt.rns_ntt_inverse(x[:, k:], last_tables)[:, 0]
     temps = dntt.rns_ntt_forward(_ntt_temps(entries[0], last, consts),
                                  tables, lazy=True)
-    return _ntt_finish(entries[1], x, temps, consts, acc)
+    return _ntt_finish(entries[1], x, temps, consts[:5 * k + 2], acc)
 
 
 def divide_and_round_q_last_ntt(x: torch.Tensor, t: RnsNttTables,
@@ -539,3 +581,125 @@ def divide_and_round_q_last_ntt_plain(x: torch.Tensor, t: RnsNttTables,
     temps = dntt.ntt_forward_plain(divide_round_ntt_temps_plain(last, consts),
                                    t.slice(0, k), lazy=True)
     return divide_round_ntt_finish_plain(x, temps, consts)
+
+
+def mod_t_and_divide_q_last_ntt(x: torch.Tensor, t: RnsNttTables,
+                                consts: torch.Tensor) -> torch.Tensor:
+    """The BGV mod switch (rns.cpp modTAndDivideqLastNttInplace): x
+    (s, k, n) NTT form over the level's base t -> (s, k-1, n), minus a
+    multiple of the plain modulus that makes the last row divisible by the
+    last prime, divided by it; consts = bgv_divide_consts(t.slice(0, k-1),
+    that prime, tt). Kernels A, K'-BGV, A, K'-BGV."""
+    if x.dim() != 3 or x.shape[1] != t.k or t.k < 2:
+        raise ValueError(f"mod_t_and_divide_q_last_ntt: expected (s, {t.k}, "
+                         f"n) with at least two limbs, got {tuple(x.shape)}")
+    return divide_round_last_ntt(x, t.slice(0, t.k - 1),
+                                 t.slice(t.k - 1, t.k), consts, None,
+                                 BGV_MOD_SWITCH)
+
+
+def mod_t_and_divide_q_last_ntt_plain(x: torch.Tensor, t: RnsNttTables,
+                                      consts: torch.Tensor) -> torch.Tensor:
+    """The BGV mod switch on the plain versions of A and K'-BGV alone."""
+    k = t.k - 1
+    last = dntt.ntt_inverse_plain(x[:, k:], t.slice(k, k + 1))[:, 0]
+    temps = dntt.ntt_forward_plain(bgv_divide_ntt_temps_plain(last, consts),
+                                   t.slice(0, k), lazy=True)
+    return divide_round_ntt_finish_plain(x, temps, consts[:5 * k + 2])
+
+
+# --------------------------------------------------------------------------
+# kernel X: the exact conversion q -> t (BGV decrypt)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class ExactConverter:
+    """Kernel X's constants for a converter q -> {tt}, as
+    csrc/exact_convert.cu reads them: q_i, (Q/q_i)^-1 mod q_i, its Shoup
+    word, the low and the high word of floor(2^128 / q_i), (Q/q_i) mod tt
+    (k each); then tt, the low and the high word of floor(2^128 / tt),
+    Q mod tt and its Shoup word."""
+
+    consts: torch.Tensor
+    k: int
+    t: int
+
+    @classmethod
+    def build(cls, conv: BaseConverter, device) -> "ExactConverter":
+        ib, ob = conv.ibase, conv.obase
+        if ob.size != 1:
+            raise ValueError("exact_convert requires a single output modulus")
+        tt = ob.values[0]
+        q_mod = ib.base_prod % tt
+        words = (list(ib.values) + list(conv.inv_punctured)
+                 + list(conv.inv_punctured_shoup)
+                 + [m.const_ratio[0] for m in ib.moduli]
+                 + [m.const_ratio[1] for m in ib.moduli]
+                 + list(conv.matrix[0])
+                 + [tt, *ob.moduli[0].const_ratio[:2], q_mod,
+                    u.shoup_quotient(q_mod, tt)])
+        return cls(_words(words, device), ib.size, tt)
+
+
+def exact_convert_plain(x: torch.Tensor, conv: ExactConverter,
+                        inv_cf: int = 1) -> torch.Tensor:
+    """The plain version of kernel X (troy_tpu/ops/rns.py:67-108, then the
+    decrypt's multiply by the inverse correction factor,
+    troy_tpu/decryptor.py:64-66): (..., k, n) -> (..., 1, n) mod tt.
+    alpha = round(sum_i temp_i / q_i) in Q.64 fixed point, each term
+    mulhi(temp_i, w_lo) + temp_i w_hi with w = floor(2^128 / q_i)."""
+    k, consts = conv.k, conv.consts
+    q, invp, invp_shoup, w_lo, w_hi, mat = (
+        consts[i * k:(i + 1) * k] for i in range(6))
+    tt, cr_lo, cr_hi, q_mod, q_mod_shoup = (
+        int(v) & u.M64 for v in consts[6 * k:].tolist())
+    temp = u.mul_mod_shoup(x, invp.reshape(-1, 1), invp_shoup.reshape(-1, 1),
+                           q.reshape(-1, 1))
+    zero = torch.zeros_like(temp[..., 0, :])
+    frac_lo = frac_hi = acc_lo = acc_hi = zero
+    for i in range(k):
+        ti = temp[..., i, :]
+        m_lo, m_hi = u.mul128(ti, w_hi[i])
+        term = u.add_u128(u.mulhi64(ti, w_lo[i]), zero, m_lo, m_hi)
+        frac_lo, frac_hi = u.add_u128(frac_lo, frac_hi, *term)
+        acc_lo, acc_hi = u.add_u128(acc_lo, acc_hi, *u.mul128(ti, mat[i]))
+    alpha = frac_hi + u.shr(frac_lo, 63)             # round half up
+    total = u.barrett_reduce_128(acc_lo, acc_hi, tt, cr_lo, cr_hi)
+    alpha_q = u.mul_mod_shoup(u.barrett_reduce_64(alpha, tt, cr_hi), q_mod,
+                              q_mod_shoup, tt)
+    out = u.sub_mod(total, alpha_q, tt)
+    if inv_cf % tt != 1:
+        out = smul(out, inv_cf, tt)
+    return out.unsqueeze(-2)
+
+
+def exact_convert(x: torch.Tensor, conv: ExactConverter,
+                  inv_cf: int = 1) -> torch.Tensor:
+    """Exact CRT conversion to one modulus tt (rns.cpp exactConvertArray,
+    with the JAX package's Q.64 fixed-point alpha instead of doubles), the
+    result times inv_cf mod tt, in one kernel-X launch: (..., k, n) ->
+    (..., 1, n)."""
+    k = conv.k
+    _check_limbs(x, k, "exact_convert")
+    if not _kernels.on_cuda(x, conv.consts):
+        return exact_convert_plain(x, conv, inv_cf)
+    n = x.shape[-1]
+    if k > KEYSWITCH_MAX_LIMBS or n & (n - 1):
+        raise ValueError(f"exact_convert: k = {k}, n = {n} not supported")
+    inv_cf %= conv.t
+    x = x.contiguous()
+    _kernels.check_operand(x, "exact_convert input")
+    out = torch.empty(x.shape[:-2] + (1, n), dtype=torch.int64,
+                      device=x.device)
+    _kernels.launch("troy_exact_convert", out, x, x.numel() // (k * n), k,
+                    n.bit_length() - 1, conv.consts, inv_cf,
+                    u.shoup_quotient(inv_cf, conv.t))
+    return out
+
+
+def decrypt_mod_t(phase: torch.Tensor, conv: ExactConverter,
+                  inv_cf: int = 1) -> torch.Tensor:
+    """BGV decrypt: the coefficient-form phase (..., k, n) to its words
+    mod t times the inverse correction factor, (..., n) (rns.cpp:1142-1146,
+    kernel X)."""
+    return exact_convert(phase, conv, inv_cf)[..., 0, :]
