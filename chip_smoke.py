@@ -25,7 +25,8 @@ without a result line:
    keygen (sk, relin key row 0, Galois key row 0), encrypt, multiply,
    relinearize, rotate_rows(1), mod_switch_to_next, decrypt, and the
    invariant noise budget;
-5. round trips on fresh random slot vectors: each decrypts to a*b mod t,
+5. round trips on fresh random slot vectors, encrypted by the default
+   path (device sampling, kernel I): each decrypts to a*b mod t,
    and its rotations (rows by 1, rows by 3 through the NAF as 4 - 1, the
    column swap) and its mod switch decrypt to the expected slots; then the
    median times of multiply+relinearize, rotate_rows(1) and
@@ -47,7 +48,8 @@ without a result line:
    coefficients), encrypt of the records' own plaintexts, multiply,
    relinearize, rescale_to_next (and its scale), rotate_vector(1) word for
    word, and decrypt + decode of the relinearized product to v1 v2;
-9. three requests on fresh random complex slot vectors: mult, relin and
+9. three requests on fresh random complex slot vectors, encrypted by the
+   default path: mult, relin and
    rescale decode to a b, its rotate_vector(1) to the rotated slots, its
    complex_conjugate to the conjugates; then the medians of mult+relin,
    rescale_to_next, rotate_vector(1), complex_conjugate, encode and decode;
@@ -67,27 +69,44 @@ without a result line:
    factor), rotate_rows(1), and decrypt + decode of the switched product,
    word for word (the records are in coefficient form: transform_to_ntt /
    transform_from_ntt at the boundary);
-13. three BGV requests on fresh random slot vectors a, b, c: mult + relin
+13. three BGV requests on fresh random slot vectors a, b, c, encrypted by
+   the default path: mult + relin
    and its mod switch (correction factor != 1) decrypt to a b, its
    rotate_rows(1) and rotate_columns to the rotated slots, the product of
    two switched ciphertexts (cf^2) plus a switched c (cf) to a b + c, and
    multiply_plain, add_plain and sub_plain at cf != 1 to a b c, a b + c
    and a b - c; the medians of BGV mult+relin, mod_switch_to_next,
-   rotate_rows(1), multiply_plain, encrypt (over 3 runs: its host
-   sampling takes seconds) and decrypt;
+   rotate_rows(1), multiply_plain, encrypt (and, for comparison, the
+   host-sampled encrypt over 3 runs: seconds each) and decrypt;
 14. every BGV-path kernel was launched by phases 12-13, no plain version or
    u64ops arithmetic ran on a CUDA tensor there, and the per-op device
    kernels and device time from the profiler; then, with the counts from 0
    again, one plain-op request on each of the BFV and CKKS paths
    (multiply_plain then add_plain, decrypting to a b + c, CKKS within
    1e-4), the same checks for their kernels, and the medians of their
-   multiply_plain.
+   multiply_plain;
+15. kernel I (device sampling: I1 uniform residues, I2 CBD noise, also
+   times t, I3 ternary, from threefry streams) against its plain versions
+   at the default path's shapes (6 and 5 limbs, one seed and device arrays
+   of 8 and of 5 seeds), word for word, with the times and bounds of
+   phase 3;
+16. the default encryption path of each scheme at n = 16384, in a count
+   window of its own that must launch I, A, B, D, G and G' and run no
+   plain torch on the card: keygen, the public key with its seed, encrypt,
+   encrypt_symmetric, save_seed and expand_seed, encrypt_symmetric_many(8),
+   and an external secret key's public key, relin key and key-switching
+   key made on the device (kernel Q); every result word-equal to the
+   port's own CPU run from the same seeds and plaintext words, every
+   ciphertext decrypting to its slots, the public key's seed regenerating
+   its c1, the device keys relinearizing and switching right
+   (apply_keyswitching); the medians and the profile of each op.
 
 The line before last is a JSON object with one entry per kernel (its
-launches: phases 4-5, phases 8-9, phases 12-13 and the plain-op requests of
-phase 14, each counted from 0, also given apart) and the bounds of the
-composite ops (M' the NTT-form rotation, L the plain products); a line
-before it gives the whole run's wall seconds; the last line is
+launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
+phase 14 and the default path of phase 16, each counted from 0, also given
+apart) and the bounds of the composite ops (M' the NTT-form rotation, L
+the plain products, Q a device switching key); a line before it gives the
+whole run's wall seconds; the last line is
 {"ok": true, "device": {...}}.
 
 Bounds: the larger of the bytes each call must move (every data input read
@@ -96,7 +115,8 @@ per-limb constants of C-G; not what the function could compute on the
 fly, such as O1's twiddles and slot map, O2's untwist and the permutations
 of H and M, nor what passes between its own launches, such as K' temps)
 over 3.35 TB/s, and its operations over the H100's data-sheet rate for their
-type: 64-bit multiplies, each taken as four 32-bit operations, over the
+type: 64-bit multiplies, each taken as four 32-bit operations, and I's
+32-bit additions, rotations and xors (80 per threefry block), over the
 67 T/s float32 rate (the card has no faster path for 64-bit integer
 products); for O1, the 5 n log2 n f64 operations of an FFT over the
 67 TFLOP/s FP64 tensor-core peak.
@@ -115,8 +135,10 @@ import numpy as np
 import torch
 
 import troy_tpu_torch as P
-from troy_tpu_torch import _kernels, interop, prng as rnd, to_numpy, to_torch
-from troy_tpu_torch.ops import embedding, galois, keyswitch, ntt, poly, rns
+from troy_tpu_torch import (_kernels, interop, prng as rnd, rlwe, to_numpy,
+                            to_torch)
+from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly, rns,
+                                sampling)
 
 N = 16384
 Q_BITS = [60, 40, 40, 40, 40, 60]
@@ -137,6 +159,9 @@ OPS_PER_S = 67e12                    # H100 SXM float32, non-tensor
 OPS_PER_MUL64 = 4
 F64_OPS_PER_S = 67e12                # H100 SXM FP64 tensor-core peak
 O1_TOLERANCE = 2.0 ** -44            # times max|x|
+THREEFRY_OPS = 80                    # 32-bit operations of one block
+DEFAULT_SEED = 2030                  # the default-path phase's seeds
+MANY = 8                             # encrypt_symmetric_many's batch
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -172,19 +197,23 @@ KERNELS = {
                    "troy_tpu/ops/rns.py:246"),
     "Gp_plain_lift": ("troy_tpu_torch/csrc/plain_embed.cu",
                       "troy_tpu/ops/poly.py:71"),
+    "I_sampling": ("troy_tpu_torch/csrc/sampling.cu",
+                   "troy_tpu/rlwe.py:57"),
 }
 # the kernels each path must launch
 BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
             "E_behz", "F_keyswitch", "K_divide_round", "G_plain_embed",
-            "M_galois")
+            "M_galois", "I_sampling")
 CKKS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
              "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
-             "Kp_rescale_ntt", "Kp_keyswitch_ntt")
+             "Kp_rescale_ntt", "Kp_keyswitch_ntt", "I_sampling")
 BGV_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
             "M_galois", "Kp_keyswitch_ntt", "Kp_bgv_ntt", "X_exact_convert",
-            "Gp_plain_lift")
+            "Gp_plain_lift", "I_sampling")
 PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                   "G_plain_embed", "Gp_plain_lift")
+DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
+                "G_plain_embed", "Gp_plain_lift")
 
 
 def log(msg: str) -> None:
@@ -252,11 +281,11 @@ def _bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes: int, mul64: int, f64_ops: int = 0):
+def bound(nbytes: int, mul64: int, f64_ops: int = 0, int32_ops: int = 0):
     """(bound_ms, bound_by): the larger of the memory and the compute
     bound (module docstring)."""
     mem = nbytes / MEM_BYTES_PER_S * 1e3
-    ops = (mul64 * OPS_PER_MUL64 / OPS_PER_S
+    ops = ((mul64 * OPS_PER_MUL64 + int32_ops) / OPS_PER_S
            + f64_ops / F64_OPS_PER_S) * 1e3
     return (mem, "bytes") if mem >= ops else (ops, "operations")
 
@@ -621,7 +650,7 @@ def phase_requests(ctx, kg, rlk, gk, be, ev, dec) -> dict:
     rng = np.random.default_rng(SEED + 1)
     t = be.plain_modulus
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
-                      seed=rnd.seed_from_uint64(SEED + 1), host_sampling=True)
+                      seed=rnd.seed_from_uint64(SEED + 1))
     decode = lambda ct: be.decode(dec.decrypt(ct))
     for r in range(REQUESTS):
         a = rng.integers(0, t, N, dtype=np.uint64)
@@ -845,8 +874,7 @@ def phase_ckks_requests(ctx, kg, rlk, gk, ce, ev, dec) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED + 9)
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
-                      seed=rnd.seed_from_uint64(CKKS_SEED + 1),
-                      host_sampling=True)
+                      seed=rnd.seed_from_uint64(CKKS_SEED + 1))
     decode = lambda ct: ce.decode(dec.decrypt(ct))
     slots = lambda: (rng.uniform(-1, 1, N // 2)
                      + 1j * rng.uniform(-1, 1, N // 2))
@@ -1050,8 +1078,10 @@ def phase_bgv_requests(ctx, kg, rlk, gk, be, ev, dec) -> dict:
     rng = np.random.default_rng(SEED + 13)
     t = be.plain_modulus
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
-                      seed=rnd.seed_from_uint64(BGV_SEED + 1),
-                      host_sampling=True)
+                      seed=rnd.seed_from_uint64(BGV_SEED + 1))
+    host_enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                           seed=rnd.seed_from_uint64(BGV_SEED + 2),
+                           host_sampling=True)
     decode = lambda ct: be.decode(dec.decrypt(ct))
     for r in range(REQUESTS):
         a, b, c = (rng.integers(0, t, N, dtype=np.uint64) for _ in range(3))
@@ -1097,9 +1127,11 @@ def phase_bgv_requests(ctx, kg, rlk, gk, be, ev, dec) -> dict:
         "bgv_mod_switch_ms": cuda_ms(lambda: ev.mod_switch_to_next(rel)),
         "bgv_rotate_rows_ms": cuda_ms(lambda: ev.rotate_rows(rel, 1, gk)),
         "bgv_multiply_plain_ms": cuda_ms(lambda: ev.multiply_plain(ms, pc)),
-        # the host's BLAKE2Xb sampling takes seconds: fewer runs
-        "bgv_encrypt_ms": cuda_ms(lambda: enc.encrypt_symmetric(pt),
-                                  reps=SLOW_REPS, warmup=1),
+        "bgv_encrypt_ms": cuda_ms(lambda: enc.encrypt_symmetric(pt)),
+        # host sampling, for comparison: the host's BLAKE2Xb sampling takes
+        # seconds, so fewer runs
+        "bgv_encrypt_host_ms": cuda_ms(lambda: host_enc.encrypt_symmetric(pt),
+                                       reps=SLOW_REPS, warmup=1),
         "bgv_decrypt_ms": cuda_ms(lambda: dec.decrypt(ms)),
     }
     log(f"[13] medians over {TIMING_REPS} runs (CUDA events): "
@@ -1141,6 +1173,232 @@ def phase_plain_op_requests(bfv, ckks) -> dict:
         "ckks_multiply_plain_ms": cuda_ms(
             lambda: cev.multiply_plain(cca, cpb)),
         "ckks_plain_max_error": err}
+
+
+# --------------------------------------------------------------------------
+# device sampling and the default encryption path
+# --------------------------------------------------------------------------
+
+def sampling_work(k: int, batch: int, kind: str) -> tuple:
+    """bound() arguments of one kernel-I launch: batch k n words written
+    and the seeds read; uniform: two threefry blocks and a Barrett-128 (5
+    64-bit products) per word; CBD and ternary: one block per coefficient
+    and a few operations per word (CBD times t: one Shoup product)."""
+    words = batch * k * N
+    nbytes = words * 8 + batch * 8
+    if kind == "uniform":
+        return nbytes, words * 5, 0, words * 2 * THREEFRY_OPS
+    return (nbytes, words * 2 if kind == "cbd_t" else 0, 0,
+            batch * N * THREEFRY_OPS + words * 4)
+
+
+def phase_sampling_kernels(ctx, t: int) -> dict:
+    """I1-I3 against their plain versions at the default path's shapes: the
+    key base (6 limbs: public and switching keys) and the first data level
+    (5: encryption), for one seed and for device arrays of seeds (MANY for
+    encrypt_symmetric_many, decomp for a switching key); the CBD noise
+    also times t (BGV)."""
+    rng = np.random.default_rng(SEED + 15)
+    dev = ctx.device
+    key, data = ctx.key_context_data.ntt, ctx.first_context_data.ntt
+    seed = int(rng.integers(0, 2 ** 64, dtype=np.uint64))
+    draw = lambda count: to_torch(rng.integers(0, 2 ** 64, count,
+                                               dtype=np.uint64), dev)
+    many, rows = draw(MANY), draw(key.k - 1)
+    samplers = {
+        "uniform": (sampling.sample_uniform_rns,
+                    sampling.sample_uniform_rns_plain, ()),
+        "cbd": (sampling.sample_cbd_rns, sampling.sample_cbd_rns_plain, ()),
+        "cbd_t": (sampling.sample_cbd_rns, sampling.sample_cbd_rns_plain,
+                  (t,)),
+        "ternary": (sampling.sample_ternary_rns,
+                    sampling.sample_ternary_rns_plain, ()),
+    }
+    cases = [("uniform", seed, key), ("uniform", seed, data),
+             ("uniform", many, data), ("uniform", rows, key),
+             ("cbd", seed, data), ("cbd_t", seed, data),
+             ("cbd_t", many, data), ("cbd", rows, key), ("cbd_t", rows, key),
+             ("ternary", seed, data), ("ternary", seed, key)]
+    checks = []
+    for kind, seeds, tab in cases:
+        run, plain, extra = samplers[kind]
+        batch = 1 if isinstance(seeds, int) else seeds.numel()
+        lead = "" if isinstance(seeds, int) else f"{batch},"
+        checks.append((
+            "I_sampling", f"{kind} ({lead}{tab.k},n), "
+            + ("one seed" if isinstance(seeds, int) else f"{batch} seeds"),
+            "words",
+            lambda run=run, seeds=seeds, tab=tab, extra=extra:
+                run(seeds, tab, *extra),
+            lambda plain=plain, seeds=seeds, tab=tab, extra=extra:
+                plain(seeds, tab, *extra),
+            sampling_work(tab.k, batch, kind), None))
+    return run_checks("15", checks)
+
+
+def encode_requests(ctx) -> tuple:
+    """(encoder, MANY slot vectors, their plaintexts) of a context's
+    scheme, made on its device."""
+    rng = np.random.default_rng(DEFAULT_SEED)
+    if ctx.scheme == P.SchemeType.ckks:
+        encoder = P.CKKSEncoder(ctx)
+        values = [rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
+                  for _ in range(MANY)]
+        return encoder, values, [encoder.encode(v, CKKS_SCALE)
+                                 for v in values]
+    encoder = P.BatchEncoder(ctx)
+    values = [rng.integers(0, encoder.plain_modulus, N, dtype=np.uint64)
+              for _ in range(MANY)]
+    return encoder, values, [encoder.encode(v) for v in values]
+
+
+def default_path(ctx, plains) -> dict:
+    """The default encryption path on ctx's device, from fixed seeds:
+    keygen (a generated key, and an external secret key whose keys are made
+    on the device), the public key with its seed, encrypt,
+    encrypt_symmetric, save_seed and expand_seed, encrypt_symmetric_many,
+    the external key's public key, relin key and key-switching key from
+    the first key (kernel Q). Returns the objects and the ops to time."""
+    seed = lambda i: rnd.seed_from_uint64(DEFAULT_SEED + i)
+    kg = P.KeyGenerator(ctx, seed=seed(0))
+    other = P.KeyGenerator(ctx, seed=seed(1))
+    ext = P.KeyGenerator(ctx, other.secret_key, seed(2))
+    pk = kg.create_public_key(save_seed=True)
+    enc = P.Encryptor(ctx, pk, kg.secret_key, seed(3))
+    ss = enc.encrypt_symmetric(plains[0], save_seed=True)
+    dropped = ss.replace(data=torch.stack([ss.data[0],
+                                           torch.zeros_like(ss.data[1])]),
+                         seed=ss.seed)
+    cd = ctx.first_context_data
+    out = {"public_key": pk, "external_public_key": ext.create_public_key(),
+           "encrypt": enc.encrypt(plains[0]),
+           "encrypt_symmetric": enc.encrypt_symmetric(plains[0]),
+           "save_seed": ss, "expand_seed": rlwe.expand_seed(dropped, cd),
+           "many": enc.encrypt_symmetric_many(plains),
+           "relin_key": ext.create_relin_keys(),
+           "keyswitch_key": ext.create_keyswitch_key(kg.secret_key)}
+    ops = {"public_key": lambda: kg.create_public_key(save_seed=True),
+           "encrypt": lambda: enc.encrypt(plains[0]),
+           "encrypt_symmetric": lambda: enc.encrypt_symmetric(plains[0]),
+           "expand_seed": lambda: rlwe.expand_seed(dropped, cd),
+           f"encrypt_symmetric_many{MANY}":
+               lambda: enc.encrypt_symmetric_many(plains),
+           "relin_key_q": lambda: ext.create_relin_keys(),
+           "keyswitch_key_q": lambda: ext.create_keyswitch_key(
+               kg.secret_key)}
+    return {"kg": kg, "other": other, "out": out, "ops": ops}
+
+
+def path_words(out: dict) -> dict:
+    """The words (and seeds) of each result of default_path."""
+    words = {}
+    for name, obj in out.items():
+        items = obj if isinstance(obj, list) else [obj]
+        for i, o in enumerate(items):
+            w = interop.words(o)
+            tag = name if len(items) == 1 else f"{name}[{i}]"
+            if isinstance(w, dict):
+                words.update({f"{tag}[{k}]": v for k, v in w.items()})
+            else:
+                words[tag] = w
+                words[tag + ".seed"] = np.array([o.seed], dtype=np.uint64)
+    return words
+
+
+def check_default_path(ctx, encoder, values, plains, run) -> None:
+    """Every result of the default path decrypts right on the card."""
+    scheme = ctx.scheme.name
+    out, kg, other = run["out"], run["kg"], run["other"]
+    ev = P.Evaluator(ctx)
+
+    def decode(ct, sk):
+        return encoder.decode(P.Decryptor(ctx, sk).decrypt(ct))
+
+    def same(got, want, what, tol=1e-4):
+        if ctx.scheme == P.SchemeType.ckks:
+            err = float(np.abs(got - want).max())
+            if err > tol:
+                raise AssertionError(f"{scheme} {what}: decodes {err} from "
+                                     "its slots")
+        elif not np.array_equal(got, np.asarray(want).astype(np.uint64)):
+            raise AssertionError(f"{scheme} {what}: decrypts to the wrong "
+                                 "slots")
+
+    for what in ("encrypt", "encrypt_symmetric", "save_seed", "expand_seed"):
+        same(decode(out[what], kg.secret_key), values[0], what)
+    for i, ct in enumerate(out["many"]):
+        same(decode(ct, kg.secret_key), values[i], f"many[{i}]")
+    pk = out["public_key"]
+    if pk.seed == 0 or not torch.equal(rlwe._expand_seed_core(
+            pk.data, pk.seed, ctx.key_context_data, True), pk.data):
+        raise AssertionError(f"{scheme} public key: its seed does not "
+                             "regenerate c1")
+    ext_enc = P.Encryptor(ctx, out["external_public_key"], other.secret_key,
+                          rnd.seed_from_uint64(DEFAULT_SEED + 4))
+    same(decode(ext_enc.encrypt(plains[2]), other.secret_key), values[2],
+         "the external key's public-key encryption")
+    ct = ext_enc.encrypt_symmetric(plains[1])
+    prod = ev.relinearize(ev.multiply(ct, ct), out["relin_key"])
+    if ctx.scheme == P.SchemeType.ckks:
+        want = values[1] * values[1]
+        prod = ev.rescale_to_next(prod)
+    else:
+        t = encoder.plain_modulus
+        want = values[1].astype(object) ** 2 % t
+    same(decode(prod, other.secret_key), want,
+         "a product relinearized by the device relin key", 1e-3)
+    switched = ev.apply_keyswitching(out["encrypt_symmetric"],
+                                     out["keyswitch_key"])
+    same(decode(switched, other.secret_key), values[0],
+         "a ciphertext switched by the device key-switching key")
+    log(f"[16] {scheme}: encrypt, encrypt_symmetric, save_seed and "
+        f"expand_seed, encrypt_symmetric_many({MANY}) decrypt to their "
+        "slots; the public key's seed regenerates its c1; the external "
+        "key's public key, relin key and key-switching key (kernel Q) "
+        "encrypt, relinearize and switch to slots that decrypt right")
+
+
+def phase_default(ctxs: dict, counter) -> tuple:
+    """Phase 16: the default encryption path of each scheme on the card,
+    in a count window of its own; then each against the port's CPU run
+    from the same seeds and plaintext words, the decrypt checks, the
+    medians and the profile."""
+    counter.calls.clear()
+    _kernels.reset_launch_counts()
+    runs = {}
+    for name, ctx in ctxs.items():
+        encoder, values, plains = encode_requests(ctx)
+        runs[name] = (encoder, values, plains, default_path(ctx, plains))
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    check_path("16", "16 (default path)", DEFAULT_PATH, counts, counter)
+    times, per_op = {}, {}
+    for name, ctx in ctxs.items():
+        encoder, values, plains, run = runs[name]
+        t0 = time.perf_counter()
+        cpu_ctx = P.HeContext(ctx.key_context_data.parms, device="cpu")
+        cpu_plains = [interop.plaintext(to_numpy(p.data), "cpu", p.level,
+                                        p.is_ntt_form, p.scale)
+                      for p in plains]
+        want = path_words(default_path(cpu_ctx, cpu_plains)["out"])
+        got = path_words(run["out"])
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{name}: results {sorted(got)} against "
+                                 f"{sorted(want)}")
+        differ = [k for k in want if not np.array_equal(got[k], want[k])]
+        if differ:
+            raise AssertionError(f"{name} default path: {differ} differ "
+                                 "from the CPU run's words")
+        log(f"[16] {name}: {len(want)} results word-equal to the port's "
+            f"CPU run from the same seeds (CPU run "
+            f"{time.perf_counter() - t0:.1f} s)")
+        check_default_path(ctx, encoder, values, plains, run)
+        times[name] = {op: cuda_ms(fn) for op, fn in run["ops"].items()}
+        log(f"[16] {name} medians over {TIMING_REPS} runs (CUDA events): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times[name].items()))
+        per_op.update(profile_ops("16", {f"{name}_{op}": fn
+                                         for op, fn in run["ops"].items()}))
+    return counts, times, per_op
 
 
 def _short(key: str) -> str:
@@ -1193,14 +1451,11 @@ def check_path(tag: str, phases: str, path, counts: dict,
                              f"{counter.calls}")
 
 
-def profile_ops(tag: str, ops: dict, slow=()) -> dict:
-    """The per-op device kernels and time; the ops named in ``slow`` (host
-    sampling, seconds per call) over 2 traced calls after 2 warm-ups."""
+def profile_ops(tag: str, ops: dict) -> dict:
+    """The per-op device kernels and time."""
     per_op = {}
     for op, fn in ops.items():
-        count, device_ms, each = (device_kernels_per_op(fn, 2, 2)
-                                  if op in slow
-                                  else device_kernels_per_op(fn))
+        count, device_ms, each = device_kernels_per_op(fn)
         per_op[op] = {"device_kernels": count, "device_ms": device_ms,
                       "each": each}
         log(f"[{tag}] {op}: {count:g} device kernels and copies per op, "
@@ -1220,22 +1475,33 @@ def composite_bounds(k: int) -> dict:
     """The least times of the composite ops, from their own data: M' (the
     NTT-form rotation of a (2, k, n) ciphertext: both components in and
     out, the Galois key's used rows, k x 2 x (k + 1), read once; A over
-    k + k (k + 1) + 2 + 2 k rows, B's 2 (k + 1) rows of k-term sums, M, K')
-    and L (multiply_plain of a (2, k, n) ciphertext by a mod-t plaintext:
+    k + k (k + 1) + 2 + 2 k rows, B's 2 (k + 1) rows of k-term sums, M, K'),
+    L (multiply_plain of a (2, k, n) ciphertext by a mod-t plaintext:
     the ciphertext and the plaintext in, the product out; G', A over k
-    rows, B over 2 k rows; BFV's adds A over 4 k rows)."""
+    rows, B over 2 k rows; BFV's adds A over 4 k rows) and Q (a device
+    switching key of k rows over k + 1 limbs)."""
     ct = 2 * k * N * 8
     key_rows = k * 2 * (k + 1) * N * 8
     rot_mul = (ntt_rows_mul64(k + k * (k + 1) + 2 + 2 * k)
                + 2 * (k + 1) * N * (2 * k + 5) + 2 * N * (3 + 6 * k))
     plain_mul = N * (2 + k) + ntt_rows_mul64(k) + 2 * k * N * 7
+    # Q: decomp = k rows over the k + 1 key limbs; the secret key and the
+    # target in, the key out; I1 and I2 (its threefry block once per
+    # coefficient), A over decomp (k + 1) rows, B's product and Barrett
+    # (6 products a word), the P w_j terms
+    kf = k + 1
+    key_words = k * kf * N
+    q_bytes = (kf * N + k * N) * 8 + 2 * key_words * 8
+    q_mul = ntt_rows_mul64(k * kf) + key_words * 6 + k * N * 2
+    q_int32 = key_words * (2 * THREEFRY_OPS + 4) + k * N * THREEFRY_OPS
     out = {}
-    for op, nbytes, mul64 in (
-            ("Mp_rotation_ntt", 2 * ct + key_rows, rot_mul),
-            ("L_multiply_plain_bgv_ckks", 2 * ct + N * 8, plain_mul),
+    for op, nbytes, mul64, int32 in (
+            ("Mp_rotation_ntt", 2 * ct + key_rows, rot_mul, 0),
+            ("L_multiply_plain_bgv_ckks", 2 * ct + N * 8, plain_mul, 0),
             ("L_multiply_plain_bfv", 2 * ct + N * 8,
-             plain_mul + ntt_rows_mul64(4 * k))):
-        ms, by = bound(nbytes, mul64)
+             plain_mul + ntt_rows_mul64(4 * k), 0),
+            ("Q_kswitch_key", q_bytes, q_mul, q_int32)):
+        ms, by = bound(nbytes, mul64, int32_ops=int32)
         out[op] = {"bound_ms": ms, "bound_by": by}
     return out
 
@@ -1264,7 +1530,7 @@ def main() -> None:
     kg, rlk, _, be, ev, dec = state
     ca, cb, rel, gk = req["ca"], req["cb"], req["rel"], req["gk"]
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
-                      seed=rnd.seed_from_uint64(SEED + 2), host_sampling=True)
+                      seed=rnd.seed_from_uint64(SEED + 2))
     slots = np.arange(N, dtype=np.uint64) % be.plain_modulus
     pt = be.encode(slots)
     per_op = profile_ops("6", {
@@ -1275,7 +1541,7 @@ def main() -> None:
         "decrypt": lambda: dec.decrypt(rel),
         "encode": lambda: be.encode(slots),
         "decode": lambda: be.decode(pt),
-    }, slow=("encrypt",))
+    })
 
     # ---- CKKS: phases 7-10 ----
     ckks_ctx = P.HeContext(P.EncryptionParameters(
@@ -1325,7 +1591,7 @@ def main() -> None:
         "bgv_add_plain": lambda: ev.add_plain(ms, breq["pc"]),
         "bgv_encrypt": lambda: breq["enc"].encrypt_symmetric(breq["pt"]),
         "bgv_decrypt": lambda: dec.decrypt(ms),
-    }, slow=("bgv_encrypt",)))
+    }))
     counter.calls.clear()
     _kernels.reset_launch_counts()
     plain = phase_plain_op_requests(
@@ -1339,17 +1605,26 @@ def main() -> None:
         f"bfv_multiply_plain_ms {plain['bfv_multiply_plain_ms']:.4f}, "
         f"ckks_multiply_plain_ms {plain['ckks_multiply_plain_ms']:.4f}")
 
+    # ---- device sampling and the default encryption path: 15-16 ----
+    kernel_results.update(phase_sampling_kernels(
+        ctx, int(bgv_ctx.first_context_data.plain_modulus)))
+    default_counts, default_times, default_per_op = phase_default(
+        {"bfv": ctx, "ckks": ckks_ctx, "bgv": bgv_ctx}, counter)
+    per_op.update(default_per_op)
+
     entries = []
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
         launches = [c.get(kernel, 0) for c in (bfv_counts, ckks_counts,
-                                               bgv_counts, plain_counts)]
+                                               bgv_counts, plain_counts,
+                                               default_counts)]
         entries.append({"name": kernel, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(launches),
                         "launches_bfv": launches[0],
                         "launches_ckks": launches[1],
                         "launches_bgv": launches[2],
                         "launches_plain_ops": launches[3],
+                        "launches_default": launches[4],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -1366,6 +1641,10 @@ def main() -> None:
         ckks_ms=plain["ckks_multiply_plain_ms"])
     composites["L_multiply_plain_bfv"].update(
         ms=plain["bfv_multiply_plain_ms"])
+    composites["Q_kswitch_key"].update(
+        ms=default_times["bfv"]["relin_key_q"],
+        device_ms=per_op["bfv_relin_key_q"]["device_ms"],
+        bgv_ms=default_times["bgv"]["relin_key_q"])
     for op, c in composites.items():
         log(f"[14] {op}: {c}")
     ops = ("mult_relin_ms", "rotate_rows_ms", "mod_switch_ms")
@@ -1374,7 +1653,7 @@ def main() -> None:
                 "ckks_encode_ms", "ckks_decode_ms")
     bgv_ops = ("bgv_mult_relin_ms", "bgv_mod_switch_ms",
                "bgv_rotate_rows_ms", "bgv_multiply_plain_ms",
-               "bgv_encrypt_ms", "bgv_decrypt_ms")
+               "bgv_encrypt_ms", "bgv_encrypt_host_ms", "bgv_decrypt_ms")
     log(f"wall seconds of the whole run: {time.perf_counter() - wall0:.1f}")
     log(json.dumps({"kernels": entries,
                     "H_batch_slots": kernel_results["H_batch_slots"],
@@ -1386,6 +1665,7 @@ def main() -> None:
                     "ckks_multiply_plain_ms": plain["ckks_multiply_plain_ms"],
                     "ckks_max_error": creq["max_error"],
                     "ckks_plain_max_error": plain["ckks_plain_max_error"],
+                    "default_path_ms": default_times,
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

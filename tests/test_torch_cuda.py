@@ -17,8 +17,9 @@ import pytest
 import torch
 
 import troy_tpu_torch as P
-from troy_tpu_torch import _kernels, interop, prng
-from troy_tpu_torch.ops import embedding, galois, keyswitch, ntt, poly, rns
+from troy_tpu_torch import _kernels, interop, prng, rlwe
+from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly, rns,
+                                sampling)
 from troy_tpu_torch.utils.rns import make_rns_tool
 
 pytestmark = pytest.mark.cuda
@@ -525,5 +526,85 @@ def test_bgv_slice_on_the_card_gives_the_cpu_words(dev):
     counts = _kernels.launch_counts()
     assert all(counts[k] > 0 for k in BGV_KERNELS), counts
     on_host = _bgv_slice("cpu")
+    for stage, words in on_host.items():
+        np.testing.assert_array_equal(on_card[stage], words, err_msg=stage)
+
+
+@pytest.mark.parametrize("limbs", [6, 5])
+@pytest.mark.parametrize("batch", [None, 5])
+@pytest.mark.parametrize("kind", ["uniform", "cbd", "cbd_t", "ternary"])
+def test_sampling_kernel(dev, limbs, batch, kind):
+    """Kernel I at n = 16384 over the key base (6 limbs) and the first data
+    level (5), for one seed and for a device array of seeds."""
+    n = 16384
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])][:limbs]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    seeds = (2 ** 64 - 3 if batch is None else interop.to_torch(
+        np.random.default_rng(limbs).integers(0, 2 ** 64, batch,
+                                              dtype=np.uint64), dev))
+    t = 786433
+    if kind == "uniform":
+        got = sampling.sample_uniform_rns(seeds, tables)
+        want = sampling.sample_uniform_rns_plain(seeds, tables)
+    elif kind == "ternary":
+        got = sampling.sample_ternary_rns(seeds, tables)
+        want = sampling.sample_ternary_rns_plain(seeds, tables)
+    else:
+        scale = t if kind == "cbd_t" else None
+        got = sampling.sample_cbd_rns(seeds, tables, scale)
+        want = sampling.sample_cbd_rns_plain(seeds, tables, scale)
+    assert got.shape == ((limbs, n) if batch is None else (batch, limbs, n))
+    _same(got, want)
+
+
+def _default_path(device, scheme):
+    """Default (device-sampled) encryption at n = 1024: the public key in
+    both forms, encrypt, encrypt_symmetric, save_seed and expand_seed,
+    encrypt_symmetric_many, encrypt_zero, the relin key of an external
+    secret key and a key-switching key; numpy words per stage."""
+    n = 1024
+    extra = {} if scheme == "ckks" else {
+        "plain_modulus": P.PlainModulus.batching(n, 20)}
+    parms = P.EncryptionParameters(
+        scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])),
+        **extra)
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=device)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(17))
+    pk = kg.create_public_key()
+    enc = P.Encryptor(ctx, pk, kg.secret_key, seed=prng.seed_from_uint64(18))
+    rng = np.random.default_rng(17)
+    if scheme == "ckks":
+        pt = P.CKKSEncoder(ctx).encode(rng.uniform(-1, 1, n // 2), 2.0 ** 40)
+    else:
+        pt = P.BatchEncoder(ctx).encode(
+            rng.integers(0, int(parms.plain_modulus), n, dtype=np.uint64))
+    ss = enc.encrypt_symmetric(pt, save_seed=True)
+    dropped = ss.replace(data=torch.stack([ss.data[0], ss.data[1] * 0]),
+                         seed=ss.seed)
+    ext = P.KeyGenerator(ctx, kg.secret_key, prng.seed_from_uint64(19))
+    out = {"pk": pk, "pk_seed": kg.create_public_key(save_seed=True),
+           "encrypt": enc.encrypt(pt), "sym": enc.encrypt_symmetric(pt),
+           "ss": ss,
+           "expand": rlwe.expand_seed(dropped, ctx.first_context_data),
+           "zero": enc.encrypt_zero(),
+           "zero_sym": enc.encrypt_zero(asymmetric=False),
+           "rlk": ext.create_relin_keys(),
+           "ksk": P.KeyGenerator(ctx, seed=prng.seed_from_uint64(20))
+           .create_keyswitch_key(kg.secret_key)}
+    words = {k: interop.words(v) for k, v in out.items()}
+    for i, ct in enumerate(enc.encrypt_symmetric_many([pt] * 3)):
+        words[f"many{i}"] = interop.words(ct)
+    words["rlk"] = words["rlk"][2]
+    words["ksk"] = words["ksk"][1]
+    return words
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "ckks", "bgv"])
+def test_default_encryption_on_the_card_gives_the_cpu_words(dev, scheme):
+    _kernels.reset_launch_counts()
+    on_card = _default_path(dev, scheme)
+    assert _kernels.launch_counts()["I_sampling"] > 0
+    on_host = _default_path("cpu", scheme)
     for stage, words in on_host.items():
         np.testing.assert_array_equal(on_card[stage], words, err_msg=stage)

@@ -32,6 +32,7 @@ FLOW = textwrap.dedent("""
     sys.meta_path.insert(0, _NoJax())
 
     import numpy as np
+    import torch
     import troy_tpu_torch as P
     from troy_tpu_torch import prng
 
@@ -60,6 +61,23 @@ FLOW = textwrap.dedent("""
     ms = ev.mod_switch_to_next(ct)
     assert (be.decode(dec.decrypt(ms)) == got).all(), "wrong mod switch"
     assert dec.invariant_noise_budget(ms) > 0
+
+    # the default path: device sampling, the public key, seed compression,
+    # batched encryption, a switching key of an external secret key
+    from troy_tpu_torch import rlwe
+    pk = kg.create_public_key()
+    denc = P.Encryptor(ctx, pk, kg.secret_key, prng.seed_from_uint64(8))
+    pa = be.encode(a)
+    ss = denc.encrypt_symmetric(pa, save_seed=True)
+    dropped = ss.replace(data=torch.stack([ss.data[0], ss.data[1] * 0]),
+                         seed=ss.seed)
+    for c in (denc.encrypt(pa), denc.encrypt_symmetric(pa),
+              rlwe.expand_seed(dropped, ctx.first_context_data),
+              *denc.encrypt_symmetric_many([pa, pa])):
+        assert (be.decode(dec.decrypt(c)) == a).all(), "wrong encryption"
+    ext = P.KeyGenerator(ctx, kg.secret_key, prng.seed_from_uint64(9))
+    sq = ev.relinearize(ev.multiply(ss, ss), ext.create_relin_keys())
+    assert (be.decode(dec.decrypt(sq)) == (a * a) % t).all(), "wrong key"
 
     # CKKS: encode, encrypt, multiply, relinearize, rescale, rotate_vector,
     # complex_conjugate, decrypt, decode
@@ -116,7 +134,8 @@ FLOW = textwrap.dedent("""
     want = np.concatenate([np.roll(a[:n // 2], -1), np.roll(a[n // 2:], -1)])
     assert (bbe.decode(bdec.decrypt(brot)) == want).all(), "wrong rotation"
     assert bdec.invariant_noise_budget(bms) > 0
-    for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding"):
+    for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding",
+                "troy_tpu_torch.ops.sampling"):
         assert mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -189,7 +208,7 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
     """A tensor that is not on the CPU never takes the plain path: the
     wrapper launches the kernel or raises."""
     from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly,
-                                    rns)
+                                    rns, sampling)
     from troy_tpu_torch.utils.rns import make_rns_tool
 
     n = 64
@@ -245,6 +264,57 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                  lambda: rns.exact_convert(x, exact),
                  lambda: rns.decrypt_mod_t(x, exact, 3),
                  lambda: poly.plain_lift(meta(n), tables, t, (t + 1) // 2,
-                                         q[0] * q[1], 5)):
+                                         q[0] * q[1], 5),
+                 lambda: sampling.sample_uniform_rns(meta(3), tables),
+                 lambda: sampling.sample_cbd_rns(meta(3), tables, t),
+                 lambda: sampling.sample_ternary_rns(meta(3), tables)):
         with pytest.raises(ValueError, match="expected all on the CPU"):
             call()
+
+
+def test_constructors_take_the_reference_argument_order():
+    """Encryptor(context, public_key, secret_key, seed, host_sampling) and
+    KeyGenerator(context, secret_key, seed, host_sampling), in troy_tpu's
+    order (troy_tpu/encryptor.py:83-87, troy_tpu/keygen.py:71-74), so that
+    positional callers are read as they mean."""
+    import inspect
+    assert list(inspect.signature(P.Encryptor).parameters) == [
+        "context", "public_key", "secret_key", "seed", "host_sampling"]
+    assert list(inspect.signature(P.KeyGenerator).parameters) == [
+        "context", "secret_key", "seed", "host_sampling"]
+    n = 64
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [40, 40, 40])),
+        plain_modulus=P.PlainModulus.batching(n, 17))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
+    kg = P.KeyGenerator(ctx, None, P.prng.seed_from_uint64(1))
+    other = P.KeyGenerator(ctx, kg.secret_key)
+    assert other.secret_key is kg.secret_key
+    pk = kg.create_public_key()
+    enc = P.Encryptor(ctx, pk)
+    be = P.BatchEncoder(ctx)
+    a = np.arange(n, dtype=np.uint64)
+    got = be.decode(P.Decryptor(ctx, kg.secret_key).decrypt(
+        enc.encrypt(be.encode(a))))
+    np.testing.assert_array_equal(got, a)
+    with pytest.raises(ValueError, match="no secret key"):
+        enc.encrypt_symmetric(be.encode(a))
+    with pytest.raises(ValueError, match="no public key"):
+        P.Encryptor(ctx, None, kg.secret_key).encrypt(be.encode(a))
+
+
+def test_save_seed_with_host_sampling_raises():
+    """host_sampling is a path the caller asks for, and it has no
+    seed-compressed form: asking for one raises."""
+    n = 64
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [40, 40])),
+        plain_modulus=P.PlainModulus.batching(n, 17))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
+    kg = P.KeyGenerator(ctx, seed=P.prng.seed_from_uint64(1))
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key, host_sampling=True)
+    plain = P.BatchEncoder(ctx).encode(np.zeros(n, dtype=np.uint64))
+    with pytest.raises(ValueError, match="save_seed"):
+        enc.encrypt_symmetric(plain, save_seed=True)

@@ -5,8 +5,9 @@ lightbulb128/troy) on PyTorch tensors, with hand-written CUDA kernels for
 Hopper (sm_90a) on the hot path: the NTT, the 128-bit dyadic
 multiply-accumulate, the BEHZ base conversion, per-limb modular
 arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64,
-the NTT-domain rescale and BGV divides, the plain lift and the exact
-conversion to t (``csrc/``, built with nvcc at first use). On
+the NTT-domain rescale and BGV divides, the plain lift, the exact
+conversion to t and device sampling from threefry streams (``csrc/``,
+built with nvcc at first use). On
 the CPU every kernel's plain PyTorch version runs instead; results are the
 same words (for the FP64 transform, the same values to rounding).
 
@@ -17,8 +18,8 @@ reference it is tested against, not a dependency.
 from .modulus import Modulus, CoeffModulus, PlainModulus, SecurityLevel
 from .params import EncryptionParameters, SchemeType, ParmsID, PARMS_ID_ZERO
 from .context import HeContext, ContextData
-from .he_types import (Plaintext, Ciphertext, SecretKey, KSwitchKeys,
-                       RelinKeys, GaloisKeys)
+from .he_types import (Plaintext, Ciphertext, SecretKey, PublicKey,
+                       KSwitchKeys, RelinKeys, GaloisKeys)
 from .keygen import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
@@ -33,8 +34,8 @@ __all__ = [
     "Modulus", "CoeffModulus", "PlainModulus", "SecurityLevel",
     "EncryptionParameters", "SchemeType", "ParmsID", "PARMS_ID_ZERO",
     "HeContext", "ContextData",
-    "Plaintext", "Ciphertext", "SecretKey", "KSwitchKeys", "RelinKeys",
-    "GaloisKeys",
+    "Plaintext", "Ciphertext", "SecretKey", "PublicKey", "KSwitchKeys",
+    "RelinKeys", "GaloisKeys",
     "KeyGenerator", "Encryptor", "Decryptor", "BatchEncoder", "CKKSEncoder",
     "Evaluator",
     "to_numpy", "to_torch",

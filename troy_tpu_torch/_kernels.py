@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
 SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu",
-           "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu")
+           "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
+           "sampling.cu")
 HEADERS = ("u64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -68,6 +69,9 @@ _SIGNATURES = {
     "troy_bgv_keyswitch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
     "troy_exact_convert": (_P, _P, _L, _I, _I, _P, _U, _U, _P),
     "troy_plain_lift": (_P, _P, _L, _I, _I, _U, _U, _U, _P, _P),
+    "troy_sample_uniform_rns": (_P, _P, _U, _L, _I, _I, _P, _P, _P, _P),
+    "troy_sample_cbd_rns": (_P, _P, _U, _L, _I, _I, _P, _P, _P, _P),
+    "troy_sample_ternary_rns": (_P, _P, _U, _L, _I, _I, _P, _P),
 }
 
 # The kernel each entry point belongs to (the letters of the port's kernel
@@ -98,6 +102,9 @@ KERNELS = {
     "troy_bgv_keyswitch_ntt_temps": "Kp_bgv_ntt",
     "troy_exact_convert": "X_exact_convert",
     "troy_plain_lift": "Gp_plain_lift",
+    "troy_sample_uniform_rns": "I_sampling",
+    "troy_sample_cbd_rns": "I_sampling",
+    "troy_sample_ternary_rns": "I_sampling",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}

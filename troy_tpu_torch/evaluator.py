@@ -13,10 +13,11 @@ kernel launch over the whole batch of polynomials and limbs it touches:
     (E); CKKS and BGV ciphertexts are in NTT form, so their multiply and
     square are the convolution alone (B), BGV's with the product of the
     correction factors;
-  * a key switch (relinearize, Galois) reduces the target into RNS digits
-    (kernel F; an NTT-form target is first inverse-transformed by A),
-    transforms them (one A launch over k x (k+1) limbs), takes the 128-bit
-    inner product with the key (one B launch for both key components) and
+  * a key switch (relinearize, Galois, apply_keyswitching) reduces the
+    target into RNS digits (kernel F; an NTT-form target is first
+    inverse-transformed by A), transforms them (one A launch over
+    k x (k+1) limbs), takes the 128-bit inner product with the key (one B
+    launch for both key components) and
     divides by the special prime with rounding, adding the result onto the
     ciphertext: in the coefficient domain after an inverse A (F), or in the
     NTT domain (A on the special row, K', A, K'; for BGV the t-corrected
@@ -45,7 +46,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .context import ContextData, HeContext
-from .he_types import Ciphertext, GaloisKeys, Plaintext, RelinKeys
+from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, Plaintext,
+                       RelinKeys)
 from .params import SchemeType
 from .ops import galois as dgalois
 from .ops import keyswitch as dks
@@ -349,6 +351,19 @@ class Evaluator:
         if power < 1:
             raise ValueError("power must be >= 1")
         return self.multiply_many([ct] * power, relin_keys)
+
+    def apply_keyswitching(self, ct: Ciphertext,
+                           kswitch_keys: KSwitchKeys) -> Ciphertext:
+        """Switch a size-2 ciphertext to the key of ``kswitch_keys.keys[1]``
+        (evaluator_cuda.cuh applyKeySwitching): c1 key-switched, the result
+        added onto c0."""
+        if ct.size != 2:
+            raise ValueError("key switching expects size-2 ciphertexts")
+        cd = self._ntt_scheme(ct, "apply_keyswitching")
+        data = _switch_key_core(ct.data[1], kswitch_keys.keys[1], cd,
+                                self.context.key_context_data,
+                                acc=ct.data[:1], ntt_form=ct.is_ntt_form)
+        return ct.replace(data=data)
 
     def relinearize(self, ct: Ciphertext,
                     relin_keys: RelinKeys) -> Ciphertext:

@@ -3,7 +3,7 @@
 The port of troy_tpu/he_types.py (BFV, CKKS and BGV). Data lives in int64
 tensors of u64 words on the context's device: ``Ciphertext.data`` is
 (size, limbs, n); metadata (chain level, NTT flag, the CKKS scale, the BGV
-correction factor) are plain fields.
+correction factor, the seed of a seed-compressed c1) are plain fields.
 Key-switching keys keep the dense (decomp, 2, key_limbs, n) layout of the
 JAX package, which the key-switch inner product reads directly.
 """
@@ -30,13 +30,18 @@ class Plaintext:
 
 @dataclass(frozen=True)
 class Ciphertext:
-    """An RLWE ciphertext: data[j] is the j-th polynomial, RNS limb-major."""
+    """An RLWE ciphertext: data[j] is the j-th polynomial, RNS limb-major.
+
+    seed: the 64-bit seed that regenerates c1 of a symmetric ciphertext
+    (``rlwe.expand_seed``); 0 means none. ``replace`` with new data drops
+    it unless given, so every op that rewrites the ciphertext resets it."""
 
     data: torch.Tensor                # (size, limbs, n) u64 words
     level: int = 1
     is_ntt_form: bool = False
     scale: float = 1.0                # CKKS: the encoding scale
     correction_factor: int = 1        # BGV: the message is cf * m mod t
+    seed: int = 0
 
     @property
     def size(self) -> int:
@@ -51,6 +56,8 @@ class Ciphertext:
         return self.data.shape[2]
 
     def replace(self, **changes) -> "Ciphertext":
+        if "data" in changes:
+            changes.setdefault("seed", 0)
         return dataclasses.replace(self, **changes)
 
 
@@ -63,6 +70,19 @@ class SecretKey:
     @property
     def limbs(self) -> int:
         return self.data.shape[0]
+
+
+@dataclass(frozen=True)
+class PublicKey:
+    """Public key: an encryption of zero at the key level, NTT form,
+    (2, key_limbs, n); seed regenerates its c1 if not 0."""
+
+    data: torch.Tensor
+    seed: int = 0
+
+    @property
+    def as_ciphertext(self) -> Ciphertext:
+        return Ciphertext(data=self.data, level=0, is_ntt_form=True)
 
 
 @dataclass(frozen=True)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, Plaintext,
-                       RelinKeys, SecretKey)
+                       PublicKey, RelinKeys, SecretKey)
 
 # The device of every entry point that is not told another.
 DEFAULT_DEVICE = "cuda"
@@ -38,6 +38,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def secret_key(words: np.ndarray, device=DEFAULT_DEVICE) -> SecretKey:
     """SecretKey from its (key_limbs, n) NTT-form words."""
     return SecretKey(data=to_torch(words, device))
+
+
+def public_key(words: np.ndarray, seed: int = 0,
+               device=DEFAULT_DEVICE) -> PublicKey:
+    """PublicKey from its (2, key_limbs, n) NTT-form words and the seed of
+    its c1 (0 for none)."""
+    return PublicKey(data=to_torch(words, device), seed=int(seed))
 
 
 def relin_keys(keys: Dict[int, np.ndarray],
@@ -87,8 +94,9 @@ def load_records(path) -> Dict[str, np.ndarray]:
 
 
 def words(obj):
-    """The numpy u64 words of a port object's data; for switching keys
-    (RelinKeys, GaloisKeys) a dict {power or Galois element: words}."""
+    """The numpy u64 words of a port object's data (a ciphertext, plaintext,
+    secret or public key); for switching keys (KSwitchKeys, RelinKeys,
+    GaloisKeys) a dict {power or Galois element: words}."""
     if isinstance(obj, KSwitchKeys):
         return {p: to_numpy(w) for p, w in obj.keys.items()}
     return to_numpy(obj.data)

@@ -42,28 +42,39 @@ def rns_elementwise_plain(op: int, a: torch.Tensor, b: Optional[torch.Tensor],
 
 def _elementwise(op: int, a: torch.Tensor, b: Optional[torch.Tensor],
                  t: RnsNttTables, w: Optional[torch.Tensor] = None,
-                 wq: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 wq: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel D; into ``out`` (a contiguous tensor of a's shape that
+    overlaps no input) if given, else into a new tensor."""
     _check_rows(a, t, "rns_elementwise")
     if b is not None and b.shape != a.shape:
         raise ValueError(f"rns_elementwise: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} differ")
-    operands = [x for x in (a, b, t.q, w, wq) if x is not None]
+    if out is not None and out.shape != a.shape:
+        raise ValueError(f"rns_elementwise: out {tuple(out.shape)} is not "
+                         f"{tuple(a.shape)}")
+    operands = [x for x in (a, b, t.q, w, wq, out) if x is not None]
     if not _kernels.on_cuda(*operands):
-        return rns_elementwise_plain(op, a, b, t, w, wq)
+        res = rns_elementwise_plain(op, a, b, t, w, wq)
+        return res if out is None else out.copy_(res)
     a = a.contiguous()
     _kernels.check_operand(a, "rns_elementwise a")
     if b is not None:
         b = b.contiguous()
         _kernels.check_operand(b, "rns_elementwise b")
-    out = torch.empty_like(a)
+    if out is None:
+        out = torch.empty_like(a)
+    _kernels.check_operand(out, "rns_elementwise out")
     _kernels.launch("troy_rns_elementwise", out, a, b, op, a.numel() // t.n,
                     t.log_n, t.k, t.q, w, wq)
     return out
 
 
-def rns_add(a: torch.Tensor, b: torch.Tensor, t: RnsNttTables) -> torch.Tensor:
-    """(a + b) mod q_i per limb, inputs in [0, q_i)."""
-    return _elementwise(ADD, a, b, t)
+def rns_add(a: torch.Tensor, b: torch.Tensor, t: RnsNttTables,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(a + b) mod q_i per limb, inputs in [0, q_i); into ``out`` if given
+    (contiguous, overlapping neither input)."""
+    return _elementwise(ADD, a, b, t, out=out)
 
 
 def rns_sub(a: torch.Tensor, b: torch.Tensor, t: RnsNttTables) -> torch.Tensor:

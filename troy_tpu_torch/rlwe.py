@@ -1,26 +1,181 @@
-"""RLWE symmetric zero encryptions: the shared core of keygen and encryption.
+"""RLWE zero encryptions: the shared core of keygen and the encryptor.
 
-The port of troy_tpu/rlwe.py, host-sampling paths only: c = (-(a*s + e), a)
-with a and e drawn on the host from the seeded BLAKE2Xb streams of
-``prng.py`` in the reference's exact draw order, so seeded results are
-word-equal to troy's C++ host path and to ``troy_tpu``. Device sampling
-(the JAX package's threefry streams) is not ported yet.
+The port of troy_tpu/rlwe.py:
+  * symmetric: c = (-(a*s + e), a), a expandable from a stored 64-bit seed;
+  * asymmetric: c_j = pk_j * u + e_j with ternary u;
+  * BGV noise is scaled by the plain modulus t.
+
+Two ways to draw the randomness. By default every polynomial is drawn on
+the device from a threefry stream keyed by a 64-bit seed (kernel I,
+ops/sampling.py), word-equal to the JAX package's ``jax.random`` draws, so
+one encryption passes two host integers to the card and nothing else, and
+a seed-compressed ciphertext expands to the same c1 in either package.
+The host-sampling paths draw a and e on the host from the seeded BLAKE2Xb
+streams of ``prng.py`` in the reference's exact draw order, so seeded
+results are word-equal to troy's C++ host path and to ``troy_tpu``'s.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .context import ContextData
-from .he_types import Ciphertext, SecretKey
+from .he_types import Ciphertext, PublicKey, SecretKey
 from .interop import to_torch
 from .params import SchemeType
 from . import prng as rnd
 from .ops import ntt as dntt
 from .ops import poly as dpoly
+from .ops import sampling
+from .ops.sampling import Seeds
 from .utils import host_ntt as hntt
 from .utils.ntt_tables import make_ntt_tables
+
+
+# --------------------------------------------------------------------------
+# device samplers (kernel I; a seed is a u64 host integer, or a device
+# tensor of seeds for the batched cores)
+# --------------------------------------------------------------------------
+
+def sample_uniform_rns_dev(seeds: Seeds, cd: ContextData) -> torch.Tensor:
+    """(k, n) uniform residues over this level's base (NTT order), or
+    (B, k, n) for B seeds (troy_tpu/rlwe.py:57)."""
+    return sampling.sample_uniform_rns(seeds, cd.ntt)
+
+
+def sample_cbd_dev(seeds: Seeds, cd: ContextData) -> torch.Tensor:
+    """Centred binomial noise lifted into this level's base, (k, n) or
+    (B, k, n); times t for BGV (troy_tpu/rlwe.py:71, :90, :121-122)."""
+    scale = int(cd.plain_modulus) if cd.scheme == SchemeType.bgv else None
+    return sampling.sample_cbd_rns(seeds, cd.ntt, scale)
+
+
+def sample_ternary_dev(seeds: Seeds, cd: ContextData) -> torch.Tensor:
+    """Uniform ternary lifted into this level's base (troy_tpu/rlwe.py:83,
+    :90)."""
+    return sampling.sample_ternary_rns(seeds, cd.ntt)
+
+
+# --------------------------------------------------------------------------
+# symmetric zero encryption
+# --------------------------------------------------------------------------
+
+def _zero_sym_parts(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
+                    cd: ContextData, is_ntt_form: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c0, c1) = (-(a*s + e), a) with a and e drawn on the device: (k, n)
+    each for one seed pair, (B, k, n) for device arrays of B seeds, one
+    launch per step for the whole batch, the same words as B single draws
+    (troy_tpu/rlwe.py:260 _zero_sym_batch_core). The coefficient form takes
+    both inverse transforms in one launch."""
+    t = cd.ntt
+    a = sample_uniform_rns_dev(a_seeds, cd)                  # NTT order
+    e = sample_cbd_dev(e_seeds, cd)
+    as_ntt = dntt.dyadic_mac(sk_data[:cd.limbs].unsqueeze(0), a.unsqueeze(0),
+                             t)
+    if is_ntt_form:
+        return dpoly.rns_neg(dpoly.rns_add(as_ntt, dntt.rns_ntt_forward(e, t),
+                                           t), t), a
+    both = dntt.rns_ntt_inverse(torch.stack([as_ntt, a]), t)
+    return dpoly.rns_neg(dpoly.rns_add(both[0], e, t), t), both[1]
+
+
+def _zero_sym_core(a_seed: Seeds, e_seed: Seeds, sk_data: torch.Tensor,
+                   cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
+    """Symmetric zero encryption sampled on the device, (2, k, n)
+    (troy_tpu/rlwe.py:111)."""
+    return torch.stack(_zero_sym_parts(a_seed, e_seed, sk_data, cd,
+                                       is_ntt_form), dim=-3)
+
+
+def encrypt_zero_symmetric(cd: ContextData, sk: SecretKey,
+                           generator: rnd.UniformRandomGenerator,
+                           is_ntt_form: bool,
+                           save_seed: bool = False) -> Ciphertext:
+    """Symmetric encryption of zero at level cd (troy_tpu/rlwe.py:233):
+    c0 + c1 s = -e (-t e for BGV). With save_seed the ciphertext's
+    ``seed`` regenerates c1."""
+    a_seed = generator.next_uint64() | 1     # nonzero marker
+    e_seed = generator.next_uint64()
+    data = _zero_sym_core(a_seed, e_seed, sk.data, cd, is_ntt_form)
+    return Ciphertext(data=data, level=cd.chain_index,
+                      is_ntt_form=is_ntt_form,
+                      seed=a_seed if save_seed else 0)
+
+
+def sample_zero_sym_batch(cd: ContextData,
+                          generator: rnd.UniformRandomGenerator,
+                          count: int) -> Tuple[List[int], torch.Tensor,
+                                               torch.Tensor]:
+    """Host side of a batched symmetric encryption (troy_tpu/rlwe.py:272):
+    the a-seeds as integers, then the a- and e-seeds on the device (every
+    a-seed is drawn before any e-seed), uploaded together."""
+    a_seeds = [generator.next_uint64() | 1 for _ in range(count)]
+    e_seeds = [generator.next_uint64() for _ in range(count)]
+    both = to_torch(np.array(a_seeds + e_seeds, dtype=np.uint64), cd.device)
+    return a_seeds, both[:count], both[count:]
+
+
+def _expand_seed_core(data: torch.Tensor, a_seed: int, cd: ContextData,
+                      is_ntt_form: bool) -> torch.Tensor:
+    """data with c1 regenerated from its seed (troy_tpu/rlwe.py:284)."""
+    a = sample_uniform_rns_dev(a_seed, cd)
+    if not is_ntt_form:
+        a = dntt.rns_ntt_inverse(a, cd.ntt)
+    return torch.cat([data[:1], a.unsqueeze(0), data[2:]])
+
+
+def expand_seed(ct: Ciphertext, cd: ContextData) -> Ciphertext:
+    """Regenerate c1 of a seed-compressed symmetric ciphertext
+    (troy_tpu/rlwe.py:292): the same threefry draw as the encryption."""
+    if ct.seed == 0:
+        return ct
+    data = _expand_seed_core(ct.data, ct.seed, cd, ct.is_ntt_form)
+    return ct.replace(data=data, seed=0)
+
+
+# --------------------------------------------------------------------------
+# asymmetric zero encryption
+# --------------------------------------------------------------------------
+
+def _zero_asym_core(u_seed: int, e_seeds: Sequence[int],
+                    pk_data: torch.Tensor, cd: ContextData,
+                    is_ntt_form: bool) -> torch.Tensor:
+    """c_j = pk_j u + e_j, j < len(e_seeds), with ternary u and CBD e_j
+    drawn on the device (troy_tpu/rlwe.py:307): (size, k, n). BFV takes
+    the products out of the NTT domain before adding e_j; CKKS and BGV
+    keep NTT form and add NTT(e_j). pk_data: the key's components over at
+    least this level's k limbs."""
+    t = cd.ntt
+    k = cd.limbs
+    u_ntt = dntt.rns_ntt_forward(sample_ternary_dev(u_seed, cd), t)
+    pk = pk_data[:len(e_seeds), :k]
+    prods = dntt.dyadic_mac(u_ntt.unsqueeze(0), pk.unsqueeze(0), t)
+    e = torch.stack([sample_cbd_dev(s, cd) for s in e_seeds])
+    if is_ntt_form:
+        return dpoly.rns_add(prods, dntt.rns_ntt_forward(e, t), t)
+    return dpoly.rns_add(dntt.rns_ntt_inverse(prods, t), e, t)
+
+
+def encrypt_zero_asymmetric(cd: ContextData, pk: PublicKey,
+                            generator: rnd.UniformRandomGenerator,
+                            is_ntt_form: bool) -> Ciphertext:
+    """Asymmetric encryption of zero at level cd (troy_tpu/rlwe.py:332):
+    the seeds are u's, then one e-seed per component."""
+    size = pk.data.shape[0]
+    u_seed = generator.next_uint64()
+    e_seeds = [generator.next_uint64() for _ in range(size)]
+    data = _zero_asym_core(u_seed, e_seeds, pk.data, cd, is_ntt_form)
+    return Ciphertext(data=data, level=cd.chain_index,
+                      is_ntt_form=is_ntt_form)
+
+
+# --------------------------------------------------------------------------
+# host sampling (the reference's BLAKE2Xb draw order)
+# --------------------------------------------------------------------------
 
 
 def _zero_sym_reference_core(c1_ntt: torch.Tensor, noise: torch.Tensor,
