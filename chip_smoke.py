@@ -99,13 +99,40 @@ without a result line:
    port's own CPU run from the same seeds and plaintext words, every
    ciphertext decrypting to its slots, the public key's seed regenerating
    its c1, the device keys relinearizing and switching right
-   (apply_keyswitching); the medians and the profile of each op.
+   (apply_keyswitching); the medians and the profile of each op;
+17. kernel N1 (the negacyclic shift by one amount and by one per row, the
+   LWE extract of 256 terms, the assemble times n^-1), N2 (the pack-tree
+   prepare), kernel M's batched gathers (16 tables, signed and unsigned;
+   one table written component-major), kernel B's batched key-switch
+   product and K'' (the coefficient-domain BGV divide by the special
+   prime onto an accumulator, and by q_last) against their plain versions
+   at the shapes of phase 18, word for word, with the times and bounds of
+   phase 3 (library: torch.gather for the unsigned batched gather);
+18. on each scheme, 21 Galois keys made on the card from a secret key
+   (kernel Q: the elements 2^i + 1, eight rotation steps and 2n - 1),
+   then: rotate_many over [1, 2, 3, 4, 8, 16, -1, -2] (one hoist) and each
+   sequential rotation decode to the rotated slots; apply_galois_many over
+   four elements (BGV: also in coefficient form, with rotate_rows(1)
+   there) decodes as apply_galois; negacyclic_shift by 1, n - 1, n + 5
+   decrypts to x^s m; extract_lwe_many of 256 terms and
+   pack_lwe_ciphertexts decrypt to the terms at stride n/256 and 0
+   elsewhere (BFV, BGV exactly; CKKS coefficients within 2^-16 scale);
+   field_trace(logn=0) to n m_0 and 0 elsewhere; one hoisted call (m = 4)
+   and one pack of 8 word-equal to the port's own CPU run on the same
+   words; the medians of the hoisted path (forced at every m) against m
+   sequential apply_galois calls at m = 1, 2, 4, 8, 16, of
+   extract_lwe_many(256), packs of 16 and 256, field_trace and
+   negacyclic_shift;
+19. phase 18's checks in a count window of their own: N1, N2, K'', M, A,
+   B, D and F launched, no plain version or u64ops on a CUDA tensor; and
+   the per-op device kernels and time from the profiler.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
-phase 14 and the default path of phase 16, each counted from 0, also given
-apart) and the bounds of the composite ops (M' the NTT-form rotation, L
-the plain products, Q a device switching key); a line before it gives the
+phase 14, the default path of phase 16 and the LWE path of phase 18, each
+counted from 0, also given apart) and the bounds of the composite ops (M'
+the NTT-form rotation and the hoisted path over 8 elements, L the plain
+products, Q a device switching key); a line before it gives the
 whole run's wall seconds; the last line is
 {"ok": true, "device": {...}}.
 
@@ -130,6 +157,7 @@ import struct
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -139,6 +167,7 @@ from troy_tpu_torch import (_kernels, interop, prng as rnd, rlwe, to_numpy,
                             to_torch)
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly, rns,
                                 sampling)
+from troy_tpu_torch.utils import galois as galois_util
 
 N = 16384
 Q_BITS = [60, 40, 40, 40, 40, 60]
@@ -162,6 +191,15 @@ O1_TOLERANCE = 2.0 ** -44            # times max|x|
 THREEFRY_OPS = 80                    # 32-bit operations of one block
 DEFAULT_SEED = 2030                  # the default-path phase's seeds
 MANY = 8                             # encrypt_symmetric_many's batch
+LWE_SEED = 2031                      # phase 18's keys and messages
+LWE_TERMS = 256                      # extract_lwe_many and the big pack
+ROTATE_STEPS = [1, 2, 3, 4, 8, 16, -1, -2]
+HOIST_MS = (1, 2, 4, 8, 16)          # apply_galois_many against sequential
+# CKKS packing and trace: the key switches' noise, doubled by every later
+# layer and trace step (up to n times in all), reaches 2^22 at n = 16384
+# (4.5e6 on the H100 for a pack of 256); the port is word-equal to
+# troy_tpu on the CPU, so this is the algorithm's, not the port's
+CKKS_LWE_BOUND = 2.0 ** -16 * CKKS_SCALE
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -199,6 +237,12 @@ KERNELS = {
                       "troy_tpu/ops/poly.py:71"),
     "I_sampling": ("troy_tpu_torch/csrc/sampling.cu",
                    "troy_tpu/rlwe.py:57"),
+    "N1_negacyclic": ("troy_tpu_torch/csrc/negacyclic.cu",
+                      "troy_tpu/ops/poly.py:146"),
+    "N2_pack_prepare": ("troy_tpu_torch/csrc/negacyclic.cu",
+                        "troy_tpu/evaluator.py:573"),
+    "Kpp_bgv_coeff": ("troy_tpu_torch/csrc/keyswitch.cu",
+                      "troy_tpu/ops/rns.py:281"),
 }
 # the kernels each path must launch
 BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
@@ -214,6 +258,8 @@ PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                   "G_plain_embed", "Gp_plain_lift")
 DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                 "G_plain_embed", "Gp_plain_lift")
+LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
+            "A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch")
 
 
 def log(msg: str) -> None:
@@ -293,7 +339,13 @@ def bound(nbytes: int, mul64: int, f64_ops: int = 0, int32_ops: int = 0):
 def compare(kind: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """The error of a kernel against its plain version, or raise: "words"
     tolerance 0 on u64 words, "bits" bit-equal f64, "close" (O1) within
-    O1_TOLERANCE max|want|."""
+    O1_TOLERANCE max|want|. A tuple of results compares member by
+    member."""
+    if isinstance(want, tuple):
+        if not isinstance(got, tuple) or len(got) != len(want):
+            raise AssertionError("results differ in number from the plain "
+                                 "version's")
+        return max(compare(kind, g, w) for g, w in zip(got, want))
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != plain "
                              f"{tuple(want.shape)}")
@@ -1401,6 +1453,374 @@ def phase_default(ctxs: dict, counter) -> tuple:
     return counts, times, per_op
 
 
+# --------------------------------------------------------------------------
+# hoisted Galois, the negacyclic shift and LWE: phases 17-19
+# --------------------------------------------------------------------------
+
+def lwe_work(words_in: int, words_out: int, mul64: int = 0) -> tuple:
+    """bound() arguments: every input word read once, every output word
+    written once."""
+    return (words_in + words_out) * 8, mul64
+
+
+def phase_lwe_kernels(ctx) -> dict:
+    """Phase 17: N1 (the shift, the extract, the assemble), N2, kernel M's
+    batched gather, kernel B's batched product and K'' (divisor P and
+    divisor q_last) against their plain versions at the shapes of phase 18
+    on the BGV context, word for word."""
+    rng = np.random.default_rng(SEED + 17)
+    dev = ctx.device
+    key, data = ctx.key_context_data, ctx.first_context_data
+    q5 = data.ntt
+    k = q5.k
+    used = key.ntt.select(keyswitch.used_limbs(k, key.limbs))
+    half = LWE_TERMS // 2                        # the first layer's folds
+    ct = _uniform(rng, q5.values, (2, k, N), dev)
+    terms = np.sort(rng.choice(N, LWE_TERMS, replace=False))
+    shifts = to_torch(np.where(terms == 0, 0, 2 * N - terms), dev)
+    c1s = _uniform(rng, q5.values, (LWE_TERMS, k, N), dev)
+    c0s = _uniform(rng, q5.values, (LWE_TERMS, k, 1), dev)[..., 0]
+    inv_n = [pow(N, -1, q) for q in q5.values]
+    cur = _uniform(rng, q5.values, (LWE_TERMS, 2, k, N), dev)
+    elts = [galois_util.get_elt_from_step(N, s) for s in range(1, 17)]
+    srcs, keeps = galois.batched_tables(N, tuple(elts), dev, True)
+    perms, _ = galois.batched_tables(N, tuple(elts), dev, False)
+    one_src, one_keep = galois.batched_tables(N, (5,), dev, True)
+    hoist_x = _uniform(rng, q5.values, (16, 2, k, N), dev)
+    fold_x = _uniform(rng, q5.values, (half, 2, k, N), dev)
+    b_key = _uniform(rng, used.values, (k, 2, k + 1, N), dev)
+    b_targets = _uniform(rng, used.values, (half, k, k + 1, N), dev)
+    kpp_x = _uniform(rng, used.values, (2 * half, k + 1, N), dev)
+    kpp_acc = _uniform(rng, q5.values, (half, 1, k, N), dev)
+    kq_x = _uniform(rng, q5.values, (2, k, N), dev)
+    ks_consts, ms_consts = data.bgv_keyswitch_consts, data.bgv_mod_switch_consts
+    words = lambda *ts: sum(x.numel() for x in ts)
+    gather_perms = perms.reshape(16, 1, 1, N).expand(hoist_x.shape)
+    checks = [
+        ("N1_negacyclic", f"shift (2,{k},n) by n+5",
+         lambda: poly.negacyclic_shift(ct, N + 5, q5),
+         lambda: poly.negacyclic_shift_plain(ct, N + 5, q5),
+         lwe_work(words(ct), words(ct)), None),
+        ("N1_negacyclic", f"extract {LWE_TERMS} terms of (2,{k},n)",
+         lambda: poly.extract_lwe_many(ct, shifts, q5),
+         lambda: poly.extract_lwe_many_plain(ct, shifts, q5), None, None),
+        ("N1_negacyclic", f"assemble ({LWE_TERMS},{k},n) at 0, times n^-1",
+         lambda: poly.assemble_lwe(c1s, c0s, 0, q5, inv_n),
+         lambda: poly.assemble_lwe_plain(c1s, c0s, 0, q5, inv_n), None,
+         None),
+        ("N1_negacyclic", f"shift ({LWE_TERMS},{k},n), a shift per row",
+         lambda: poly.negacyclic_shift(c1s, shifts, q5),
+         lambda: poly.negacyclic_shift_plain(c1s, shifts, q5), None, None),
+        ("N2_pack_prepare", f"({LWE_TERMS},2,{k},n) by n/2",
+         lambda: poly.pack_fold_prepare(cur, N // 2, q5),
+         lambda: poly.pack_fold_prepare_plain(cur, N // 2, q5),
+         lwe_work(words(cur), 2 * words(cur[:half])), None),
+        ("M_galois", f"batched unsigned, 16 tables (16,2,{k},n)",
+         lambda: galois.permute_batched(hoist_x, perms, None, q5),
+         lambda: galois.permute_batched_plain(hoist_x, perms, None, q5),
+         lwe_work(words(hoist_x), words(hoist_x)),
+         lambda: hoist_x.gather(-1, gather_perms)),
+        ("M_galois", f"batched signed, 16 tables (16,2,{k},n)",
+         lambda: galois.permute_batched(hoist_x, srcs, keeps, q5),
+         lambda: galois.permute_batched_plain(hoist_x, srcs, keeps, q5),
+         None, None),
+        ("M_galois", f"one table, component-major ({half},2,{k},n)",
+         lambda: galois.permute_batched(fold_x, one_src, one_keep, q5,
+                                        comps_first=True),
+         lambda: galois.permute_batched_plain(
+             fold_x, one_src.expand(half, N), one_keep.expand(half, N), q5,
+             comps_first=True), None, None),
+        ("B_dyadic_mac", f"batched key switch ({half},{k},{k + 1},n) x "
+         f"({k},2,{k + 1},n)",
+         lambda: ntt.dyadic_mac_batched(b_key, b_targets, used),
+         lambda: ntt.dyadic_mac_plain(b_targets.transpose(0, 1).unsqueeze(2),
+                                      b_key.unsqueeze(1), used),
+         lwe_work(words(b_key, b_targets), half * 2 * (k + 1) * N,
+                  half * 2 * (k + 1) * N * (2 * k + 5)), None),
+        ("Kpp_bgv_coeff", f"divisor P ({2 * half},{k + 1},n) onto "
+         f"({half},1,{k},n)",
+         lambda: keyswitch.bgv_divide_last(kpp_x, ks_consts, kpp_acc, 2),
+         lambda: keyswitch.bgv_divide_last_plain(kpp_x, ks_consts, kpp_acc,
+                                                 2),
+         lwe_work(words(kpp_x, kpp_acc), 2 * half * k * N,
+                  2 * half * N * (k * 10 + 5)), None),
+        ("Kpp_bgv_coeff", f"divisor q_last (2,{k},n)",
+         lambda: rns.mod_t_and_divide_q_last(kq_x, q5, ms_consts),
+         lambda: keyswitch.bgv_divide_last_plain(kq_x, ms_consts), None,
+         None),
+    ]
+    return run_checks("17", [(c[0], c[1], "words") + c[2:] for c in checks])
+
+
+def negashift(v: np.ndarray, s: int, t: Optional[int]) -> np.ndarray:
+    """Coefficients v (n,) times x^s mod x^n + 1, mod t (or as floats)."""
+    s %= 2 * N
+    p = np.arange(N)
+    e = p + s
+    out = np.zeros_like(v)
+    neg = (e // N) % 2 == 1
+    vals = np.where(neg, (t - v) % t if t else -v, v)
+    out[e % N] = vals
+    return out
+
+
+class LweScheme:
+    """One scheme's phase-18 state on the card: keys made on the device
+    from a secret key, its encoder, evaluator and decryptor, and the two
+    ciphertexts the ops start from (slots for the rotations, coefficients
+    for the shift and LWE ops; CKKS takes one for both)."""
+
+    def __init__(self, name: str, ctx, seed: int):
+        self.name, self.ctx = name, ctx
+        self.ckks = ctx.scheme == P.SchemeType.ckks
+        kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(seed))
+        dk = P.KeyGenerator(ctx, kg.secret_key, rnd.seed_from_uint64(seed + 1))
+        self.rot_elts = galois_util.get_elts_from_steps(N, ROTATE_STEPS)
+        self.auto_elts = [(1 << i) + 1 for i in range(1, N.bit_length())]
+        elts = sorted(set(self.rot_elts + self.auto_elts + [2 * N - 1]))
+        t0 = time.perf_counter()
+        self.gk = dk.create_galois_keys(elts=elts)
+        torch.cuda.synchronize()
+        self.keygen_s = time.perf_counter() - t0
+        self.elts = elts
+        self.sk = kg.secret_key
+        self.ev = P.Evaluator(ctx)
+        self.dec = P.Decryptor(ctx, kg.secret_key)
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=rnd.seed_from_uint64(seed + 2))
+        rng = np.random.default_rng(seed)
+        self.cd = ctx.first_context_data
+        if self.ckks:
+            self.encoder = P.CKKSEncoder(ctx)
+            self.t = None
+            self.slots = (rng.uniform(-1, 1, N // 2)
+                          + 1j * rng.uniform(-1, 1, N // 2))
+            self.ct_slots = enc.encrypt_symmetric(
+                self.encoder.encode(self.slots, CKKS_SCALE))
+            self.ct_coeffs = self.ct_slots
+            self.coeffs = self.coefficients(self.ct_slots)
+        else:
+            self.encoder = P.BatchEncoder(ctx)
+            self.t = self.encoder.plain_modulus
+            self.slots = rng.integers(0, self.t, N, dtype=np.uint64)
+            self.coeffs = rng.integers(0, self.t, N, dtype=np.uint64)
+            self.ct_slots = enc.encrypt_symmetric(
+                self.encoder.encode(self.slots))
+            self.ct_coeffs = enc.encrypt_symmetric(
+                self.encoder.encode_polynomial(self.coeffs))
+        self.terms = np.sort(rng.choice(np.arange(2, N - 1), LWE_TERMS - 3,
+                                        replace=False))
+        self.terms = np.concatenate([[0, 1], self.terms, [N - 1]])
+        self.worst = 0.0                 # CKKS: largest coefficient error
+
+    def coefficients(self, ct) -> np.ndarray:
+        """The decrypted coefficients: mod t (BFV, BGV) or centred, as
+        floats, unscaled (CKKS)."""
+        plain = self.dec.decrypt(ct)
+        if self.ckks:
+            return self.encoder._compose_centered_host(
+                plain, self.ctx.get_context_data(plain.level))
+        return self.encoder.decode_polynomial(plain)
+
+    def slots_of(self, ct) -> np.ndarray:
+        return (self.encoder.decode(self.dec.decrypt(ct)))
+
+    def rotated(self, step: int) -> np.ndarray:
+        if self.ckks:
+            return np.roll(self.slots, -step)
+        rows = self.slots.reshape(2, N // 2)
+        return np.roll(rows, -step, axis=1).reshape(-1)
+
+    def same_slots(self, got, want, what: str) -> None:
+        if self.ckks:
+            err = float(np.abs(got - want).max())
+            if err > 1e-4:
+                raise AssertionError(f"{self.name} {what}: decodes {err} "
+                                     "from the expected slots")
+        elif not np.array_equal(got, want):
+            raise AssertionError(f"{self.name} {what}: decrypts to the "
+                                 "wrong slots")
+
+    def same_coeffs(self, got, want, what: str) -> None:
+        if self.ckks:
+            err = float(np.abs(got - want).max())
+            self.worst = max(self.worst, err)
+            if err > CKKS_LWE_BOUND:
+                raise AssertionError(f"{self.name} {what}: coefficients "
+                                     f"{err} from the expected, over "
+                                     f"{CKKS_LWE_BOUND}")
+        elif not np.array_equal(got, np.asarray(want).astype(np.uint64)):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{self.name} {what}: {bad} coefficients "
+                                 "decrypt wrong")
+
+    def coeff_form(self, ct):
+        return self.ev.transform_from_ntt(ct) if ct.is_ntt_form else ct
+
+
+def lwe_requests(s: LweScheme) -> dict:
+    """Phase 18's ops on one scheme, checked by decryption; returns the
+    results the CPU comparison and the timings reuse."""
+    ev, n = s.ev, N
+    sequential = (ev.rotate_vector if s.ckks else ev.rotate_rows)
+    for step, ct in zip(ROTATE_STEPS, ev.rotate_many(s.ct_slots,
+                                                     ROTATE_STEPS, s.gk)):
+        want = s.rotated(step)
+        s.same_slots(s.slots_of(ct), want, f"rotate_many step {step}")
+        s.same_slots(s.slots_of(sequential(s.ct_slots, step, s.gk)), want,
+                     f"sequential rotation {step}")
+    elts4 = [galois_util.get_elt_from_step(n, 1),
+             galois_util.get_elt_from_step(n, -1), 2 * n - 1,
+             galois_util.get_elt_from_step(n, 4)]
+    hoisted4 = ev.apply_galois_many(s.ct_slots, elts4, s.gk)
+    for elt, ct in zip(elts4, hoisted4):
+        s.same_slots(s.slots_of(ct), s.slots_of(
+            ev.apply_galois(s.ct_slots, elt, s.gk)),
+            f"apply_galois_many element {elt}")
+    if s.ctx.scheme == P.SchemeType.bgv:
+        # coefficient form: the key switch divides there (K'')
+        coeff_slots = s.coeff_form(s.ct_slots)
+        for elt, ct in zip(elts4, ev.apply_galois_many(coeff_slots, elts4,
+                                                       s.gk)):
+            s.same_slots(s.slots_of(ct), s.slots_of(hoisted4[elts4.index(
+                elt)]), f"coefficient-form apply_galois_many element {elt}")
+        s.same_slots(s.slots_of(ev.rotate_rows(coeff_slots, 1, s.gk)),
+                     s.rotated(1), "coefficient-form rotate_rows(1)")
+    coeff_ct = s.coeff_form(s.ct_coeffs)
+    for shift in (1, n - 1, n + 5):
+        s.same_coeffs(s.coefficients(ev.negacyclic_shift(coeff_ct, shift)),
+                      negashift(s.coeffs, shift, s.t),
+                      f"negacyclic_shift {shift}")
+    lwes = ev.extract_lwe_many(s.ct_coeffs, [int(x) for x in s.terms])
+    packed = ev.pack_lwe_ciphertexts(lwes, s.gk)
+    want = np.zeros_like(s.coeffs)
+    stride = n // LWE_TERMS
+    want[::stride] = s.coeffs[s.terms]
+    s.same_coeffs(s.coefficients(packed), want,
+                  f"pack_lwe_ciphertexts of {LWE_TERMS} extracted terms")
+    trace = ev.field_trace(s.ct_coeffs, s.gk, 0)
+    want = np.zeros_like(s.coeffs)
+    want[0] = (int(s.coeffs[0]) * n % s.t) if s.t else s.coeffs[0] * n
+    s.same_coeffs(s.coefficients(trace), want, "field_trace(logn=0)")
+    log(f"[18] {s.name}: rotate_many over {ROTATE_STEPS} (one hoist) and "
+        f"the sequential rotations, apply_galois_many over {elts4} and "
+        "apply_galois"
+        + (" (also in coefficient form, and rotate_rows(1) there)"
+           if s.ctx.scheme == P.SchemeType.bgv else "")
+        + ", negacyclic_shift by 1, n-1, n+5, "
+        f"extract_lwe_many({LWE_TERMS}) + pack_lwe_ciphertexts and "
+        "field_trace(logn=0) decrypt as expected"
+        + (f" (CKKS coefficients within {s.worst:.4g} of the expected, "
+           f"bound {CKKS_LWE_BOUND:g} = 2^-16 scale)" if s.ckks else ""))
+    return {"elts4": elts4, "hoisted4": hoisted4, "lwes": lwes,
+            "coeff_ct": coeff_ct}
+
+
+def lwe_cpu_check(s: LweScheme, out: dict) -> None:
+    """One hoisted call (m = 4) and one pack of 8 against the port's own
+    CPU run on the same input words."""
+    t0 = time.perf_counter()
+    cpu_ctx = P.HeContext(s.ctx.key_context_data.parms, device="cpu")
+    ev = P.Evaluator(cpu_ctx)
+    ct = s.ct_slots
+    cpu_ct = interop.ciphertext(to_numpy(ct.data), ct.level, ct.is_ntt_form,
+                                "cpu", ct.scale, ct.correction_factor)
+    need = set(out["elts4"]) | set(s.auto_elts)
+    gk = P.GaloisKeys(keys={e: s.gk.keys[e].cpu() for e in need})
+    got = [to_numpy(c.data) for c in out["hoisted4"]]
+    want = [to_numpy(c.data) for c in ev.apply_galois_many(
+        cpu_ct, out["elts4"], gk)]
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{s.name}: apply_galois_many(m = 4) differs "
+                             "from the CPU run's words")
+    lwes = out["lwes"][:8]
+    packed = s.ev.pack_lwe_ciphertexts(lwes, s.gk)
+    cpu_lwes = [P.LWECiphertext(c1=l.c1.cpu(), c0=l.c0.cpu(), level=l.level,
+                                scale=l.scale,
+                                correction_factor=l.correction_factor)
+                for l in lwes]
+    want = to_numpy(ev.pack_lwe_ciphertexts(cpu_lwes, gk).data)
+    if not np.array_equal(to_numpy(packed.data), want):
+        raise AssertionError(f"{s.name}: pack_lwe_ciphertexts of 8 differs "
+                             "from the CPU run's words")
+    log(f"[18] {s.name}: apply_galois_many(m = 4) and a pack of 8 are "
+        "word-equal to the port's CPU run on the same words (CPU run "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def lwe_timings(s: LweScheme, out: dict) -> dict:
+    """Medians (CUDA events) of the hoisted path (forced down to m = 1,
+    below the evaluator's HOIST_MIN_M) against m sequential apply_galois
+    calls, and of the LWE ops."""
+    ev, ct = s.ev, s.ct_slots
+    elts = s.elts[:max(HOIST_MS)]
+    times = {}
+    ev.HOIST_MIN_M = 1
+    for m in HOIST_MS:
+        times[f"hoisted{m}"] = cuda_ms(
+            lambda m=m: ev.apply_galois_many(ct, elts[:m], s.gk))
+        times[f"sequential{m}"] = cuda_ms(
+            lambda m=m: [ev.apply_galois(ct, e, s.gk) for e in elts[:m]])
+    del ev.HOIST_MIN_M
+    lwes = out["lwes"]
+    terms = [int(x) for x in s.terms]
+    times.update({
+        f"extract_lwe_many{LWE_TERMS}": cuda_ms(
+            lambda: ev.extract_lwe_many(s.ct_coeffs, terms)),
+        "pack_lwe16": cuda_ms(lambda: ev.pack_lwe_ciphertexts(lwes[:16],
+                                                               s.gk)),
+        f"pack_lwe{LWE_TERMS}": cuda_ms(
+            lambda: ev.pack_lwe_ciphertexts(lwes, s.gk), reps=SLOW_REPS * 2),
+        "field_trace": cuda_ms(lambda: ev.field_trace(s.ct_coeffs, s.gk, 0)),
+        "negacyclic_shift": cuda_ms(
+            lambda: ev.negacyclic_shift(out["coeff_ct"], N + 5)),
+    })
+    log(f"[18] {s.name} medians (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    log(f"[18] {s.name} hoisted / sequential (HOIST_MIN_M = "
+        f"{ev.HOIST_MIN_M}): " + ", ".join(
+            f"m={m} {times[f'hoisted{m}'] / times[f'sequential{m}']:.3f}"
+            for m in HOIST_MS))
+    return times
+
+
+def phase_lwe(ctxs: dict, counter) -> tuple:
+    """Phases 18-19: the hoisted Galois path, the negacyclic shift and the
+    LWE ops of each scheme on the card, in a count window of their own
+    (phase 19), then the CPU comparison, the medians and the profile."""
+    schemes = {}
+    for i, (name, ctx) in enumerate(ctxs.items()):
+        schemes[name] = LweScheme(name, ctx, LWE_SEED + 10 * i)
+        log(f"[18] {name}: {len(schemes[name].elts)} Galois keys made on the "
+            f"card in {schemes[name].keygen_s:.2f} s (kernel Q)")
+    counter.calls.clear()
+    _kernels.reset_launch_counts()
+    outs = {name: lwe_requests(s) for name, s in schemes.items()}
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    check_path("19", "18 (hoisted Galois and LWE)", LWE_PATH, counts,
+               counter)
+    times, per_op, worst = {}, {}, {}
+    for name, s in schemes.items():
+        lwe_cpu_check(s, outs[name])
+        times[name] = lwe_timings(s, outs[name])
+        worst[name] = s.worst
+        ev, ct, gk, lwes = s.ev, s.ct_slots, s.gk, outs[name]["lwes"]
+        elts8 = s.elts[:8]
+        per_op.update(profile_ops("19", {
+            f"{name}_apply_galois_many8":
+                lambda: ev.apply_galois_many(ct, elts8, gk),
+            f"{name}_extract_lwe_many{LWE_TERMS}":
+                lambda: ev.extract_lwe_many(s.ct_coeffs,
+                                            [int(x) for x in s.terms]),
+            f"{name}_pack_lwe16": lambda: ev.pack_lwe_ciphertexts(lwes[:16],
+                                                                  gk),
+            f"{name}_field_trace":
+                lambda: ev.field_trace(s.ct_coeffs, gk, 0),
+        }))
+    return counts, times, per_op, worst
+
+
 def _short(key: str) -> str:
     """A device kernel's function name without its namespace, template
     and arguments; a copy keeps the profiler's name."""
@@ -1479,7 +1899,8 @@ def composite_bounds(k: int) -> dict:
     L (multiply_plain of a (2, k, n) ciphertext by a mod-t plaintext:
     the ciphertext and the plaintext in, the product out; G', A over k
     rows, B over 2 k rows; BFV's adds A over 4 k rows) and Q (a device
-    switching key of k rows over k + 1 limbs)."""
+    switching key of k rows over k + 1 limbs); and M' hoisted over 8
+    elements, NTT form."""
     ct = 2 * k * N * 8
     key_rows = k * 2 * (k + 1) * N * 8
     rot_mul = (ntt_rows_mul64(k + k * (k + 1) + 2 + 2 * k)
@@ -1494,9 +1915,17 @@ def composite_bounds(k: int) -> dict:
     q_bytes = (kf * N + k * N) * 8 + 2 * key_words * 8
     q_mul = ntt_rows_mul64(k * kf) + key_words * 6 + k * N * 2
     q_int32 = key_words * (2 * THREEFRY_OPS + 4) + k * N * THREEFRY_OPS
+    # M' hoisted over m = 8 elements, NTT form: one decompose (A over
+    # k + k (k + 1) rows), then per element the pre-permuted key's rows,
+    # B, the divide (A over 2 + 2 k rows, K') and M
+    m = 8
+    hoist_mul = (ntt_rows_mul64(k + k * (k + 1) + m * (2 + 2 * k))
+                 + m * (2 * (k + 1) * N * (2 * k + 5) + 2 * N * (3 + 6 * k)))
     out = {}
     for op, nbytes, mul64, int32 in (
             ("Mp_rotation_ntt", 2 * ct + key_rows, rot_mul, 0),
+            ("Mp_hoisted_ntt_m8", (1 + m) * ct + m * key_rows, hoist_mul,
+             0),
             ("L_multiply_plain_bgv_ckks", 2 * ct + N * 8, plain_mul, 0),
             ("L_multiply_plain_bfv", 2 * ct + N * 8,
              plain_mul + ntt_rows_mul64(4 * k), 0),
@@ -1612,12 +2041,20 @@ def main() -> None:
         {"bfv": ctx, "ckks": ckks_ctx, "bgv": bgv_ctx}, counter)
     per_op.update(default_per_op)
 
+    # ---- hoisted Galois, the negacyclic shift and LWE: 17-19 ----
+    lwe_kernels = phase_lwe_kernels(bgv_ctx)
+    for kernel in ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff"):
+        kernel_results[kernel] = lwe_kernels[kernel]
+    lwe_counts, lwe_times, lwe_per_op, lwe_worst = phase_lwe(
+        {"bfv": ctx, "ckks": ckks_ctx, "bgv": bgv_ctx}, counter)
+    per_op.update(lwe_per_op)
+
     entries = []
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
         launches = [c.get(kernel, 0) for c in (bfv_counts, ckks_counts,
                                                bgv_counts, plain_counts,
-                                               default_counts)]
+                                               default_counts, lwe_counts)]
         entries.append({"name": kernel, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(launches),
                         "launches_bfv": launches[0],
@@ -1625,6 +2062,7 @@ def main() -> None:
                         "launches_bgv": launches[2],
                         "launches_plain_ops": launches[3],
                         "launches_default": launches[4],
+                        "launches_lwe": launches[5],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -1641,6 +2079,12 @@ def main() -> None:
         ckks_ms=plain["ckks_multiply_plain_ms"])
     composites["L_multiply_plain_bfv"].update(
         ms=plain["bfv_multiply_plain_ms"])
+    composites["Mp_hoisted_ntt_m8"].update(
+        ms=lwe_times["ckks"]["hoisted8"],
+        device_ms=per_op["ckks_apply_galois_many8"]["device_ms"],
+        sequential_ms=lwe_times["ckks"]["sequential8"],
+        bgv_ms=lwe_times["bgv"]["hoisted8"],
+        bgv_device_ms=per_op["bgv_apply_galois_many8"]["device_ms"])
     composites["Q_kswitch_key"].update(
         ms=default_times["bfv"]["relin_key_q"],
         device_ms=per_op["bfv_relin_key_q"]["device_ms"],
@@ -1657,6 +2101,9 @@ def main() -> None:
     log(f"wall seconds of the whole run: {time.perf_counter() - wall0:.1f}")
     log(json.dumps({"kernels": entries,
                     "H_batch_slots": kernel_results["H_batch_slots"],
+                    "batched": {k: lwe_kernels[k]
+                                for k in ("M_galois", "B_dyadic_mac")},
+                    "lwe_ms": lwe_times, "ckks_lwe_max_error": lwe_worst,
                     "composites": composites,
                     **{op: req[op] for op in ops},
                     **{op: creq[op] for op in ckks_ops},

@@ -608,3 +608,153 @@ def test_default_encryption_on_the_card_gives_the_cpu_words(dev, scheme):
     on_host = _default_path("cpu", scheme)
     for stage, words in on_host.items():
         np.testing.assert_array_equal(on_card[stage], words, err_msg=stage)
+
+
+# --------------------------------------------------------------------------
+# N1, N2, the batched forms of M and B, K'' and the LWE slice
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [64, 16384])
+def test_negacyclic_kernels(dev, n):
+    """Kernel N1: one shift, a shift per row, the extract at terms 0, 1, n-1 and shift exactly n, the assemble; then
+    N2 at the pack tree's shifts."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])][:5]
+    q = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(n + 21)
+    x = _uniform(rng, moduli, (2,), n, dev)
+    x[:, :, ::7] = 0
+    for s in (0, 1, n - 1, n, n + 3, 2 * n - 1, 5 * n + 2, -3):
+        _same(poly.negacyclic_shift(x, s, q),
+              poly.negacyclic_shift_plain(x, s, q))
+    rows = interop.to_torch(np.array([0, 1, n - 1, n, n + 3, 2 * n - 1]),
+                            dev)
+    xs = _uniform(rng, moduli, (6,), n, dev)
+    _same(poly.negacyclic_shift(xs, rows, q),
+          poly.negacyclic_shift_plain(xs, rows, q))
+    terms = np.array([0, 1, n - 1, n // 2, 5])
+    shifts = interop.to_torch(np.where(terms == 0, 0, 2 * n - terms), dev)
+    for got, want in zip(poly.extract_lwe_many(x, shifts, q),
+                         poly.extract_lwe_many_plain(x, shifts, q)):
+        _same(got, want)
+    c0s = _uniform(rng, moduli, (6,), 1, dev)[..., 0]
+    inv_n = [pow(n, -1, m) for m in moduli]
+    _same(poly.assemble_lwe(xs, c0s, 0, q, inv_n),
+          poly.assemble_lwe_plain(xs, c0s, 0, q, inv_n))
+    t6 = interop.to_torch(np.array([0, 1, 2, n - 1, 9, 3]), dev)
+    _same(poly.assemble_lwe(xs, c0s, t6, q),
+          poly.assemble_lwe_plain(xs, c0s, t6, q))
+    cur = _uniform(rng, moduli, (8, 2), n, dev)
+    for s in (n // 2, n // 4, n // 8):
+        for got, want in zip(poly.pack_fold_prepare(cur, s, q),
+                             poly.pack_fold_prepare_plain(cur, s, q)):
+            _same(got, want)
+
+
+def test_batched_galois_and_dyadic_kernels(dev, tool):
+    """Kernel M with one table per element, signed and unsigned, and one
+    table written component-major; kernel B's batched key-switch
+    product."""
+    n, dt = tool
+    rng = np.random.default_rng(22)
+    x = _uniform(rng, dt.q.values, (6, 2), n, dev)
+    x[..., ::5] = 0
+    elts = (3, 9, 2 * n - 1, 27, 81, 5)
+    for signed in (True, False):
+        srcs, keeps = galois.batched_tables(n, elts, dev, signed)
+        _same(galois.permute_batched(x, srcs, keeps, dt.q),
+              galois.permute_batched_plain(x, srcs, keeps, dt.q))
+        one, one_keep = galois.batched_tables(n, (5,), dev, signed)
+        _same(galois.permute_batched(x, one, one_keep, dt.q, True),
+              galois.permute_batched_plain(
+                  x, one.expand(6, n),
+                  None if one_keep is None else one_keep.expand(6, n), dt.q,
+                  True))
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    used = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    key = _uniform(rng, moduli, (5, 2), n, dev)
+    targets = _uniform(rng, moduli, (7, 5), n, dev)
+    _same(ntt.dyadic_mac_batched(key, targets, used),
+          ntt.dyadic_mac_plain(targets.transpose(0, 1).unsqueeze(2),
+                               key.unsqueeze(1), used))
+
+
+@pytest.mark.parametrize("t_bits", [20, 59])
+def test_bgv_coeff_divide_kernel(dev, t_bits):
+    """Kernel K'': divisor the special prime, with every accumulator
+    layout, and divisor q_last (mod_t_and_divide_q_last), words 0 and
+    q - 1 included."""
+    n = 1024
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    key = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    t = int(P.PlainModulus.batching(n, t_bits))
+    level = key.slice(0, 5)
+    ks = keyswitch.bgv_divide_consts(level, moduli[-1], t)
+    rng = np.random.default_rng(t_bits)
+    x = _uniform(rng, moduli, (8,), n, dev)
+    x[0, :, :3] = 0
+    x[1, :, :3] = interop.to_torch(np.array(moduli, dtype=np.uint64)[:, None]
+                                   - 1, dev)
+    accs = [(None, None), (_uniform(rng, moduli[:5], (2,), n, dev), None),
+            (_uniform(rng, moduli[:5], (4, 1), n, dev), 2),
+            (_uniform(rng, moduli[:5], (1, 1), n, dev), 2)]
+    for acc, group in accs:
+        _same(keyswitch.bgv_divide_last(x, ks, acc, group),
+              keyswitch.bgv_divide_last_plain(x, ks, acc, group))
+    ms = keyswitch.bgv_divide_consts(level.slice(0, 4), moduli[4], t)
+    y = _uniform(rng, moduli[:5], (3,), n, dev)
+    _kernels.reset_launch_counts()
+    got = rns.mod_t_and_divide_q_last(y, level, ms)
+    assert _kernels.launch_counts()["Kpp_bgv_coeff"] == 1
+    _same(got, keyswitch.bgv_divide_last_plain(y, ms))
+
+
+def _lwe_slice(device, scheme):
+    """Hoisted Galois, the shift, extract, pack and trace at n = 1024 on
+    one device, as numpy words per stage."""
+    n = 1024
+    extra = {} if scheme == "ckks" else {
+        "plain_modulus": P.PlainModulus.batching(n, 20)}
+    parms = P.EncryptionParameters(
+        scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [40, 40, 40, 40])),
+        **extra)
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=device)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(23),
+                        host_sampling=True)
+    gk = kg.create_galois_keys(
+        elts=sorted({(1 << i) + 1 for i in range(1, 11)} | {2 * n - 1}))
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=prng.seed_from_uint64(24), host_sampling=True)
+    rng = np.random.default_rng(23)
+    if scheme == "ckks":
+        pt = P.CKKSEncoder(ctx).encode(rng.uniform(-1, 1, n // 2), 2.0 ** 30)
+    else:
+        pt = P.BatchEncoder(ctx).encode(
+            rng.integers(0, int(parms.plain_modulus), n, dtype=np.uint64))
+    ct = enc.encrypt_symmetric(pt)
+    ev = P.Evaluator(ctx)
+    coeff = ev.transform_from_ntt(ct) if ct.is_ntt_form else ct
+    lwes = ev.extract_lwe_many(ct, [0, 1, 7, n - 1, 300])
+    out = {"hoist": [interop.words(c) for c in ev.apply_galois_many(
+               ct, [3, 5, 9, 2 * n - 1], gk)],
+           "shift": interop.words(ev.negacyclic_shift(coeff, n + 5)),
+           "pack": interop.words(ev.pack_lwe_ciphertexts(lwes, gk)),
+           "trace": interop.words(ev.field_trace(ct, gk, 1))}
+    if scheme == "bgv":
+        out["coeff_hoist"] = [interop.words(c) for c in ev.apply_galois_many(
+            coeff, [3, 5], gk)]
+    return out
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "ckks", "bgv"])
+def test_lwe_slice_on_the_card_gives_the_cpu_words(dev, scheme):
+    _kernels.reset_launch_counts()
+    on_card = _lwe_slice(dev, scheme)
+    counts = _kernels.launch_counts()
+    assert counts["N1_negacyclic"] > 0 and counts["N2_pack_prepare"] > 0
+    if scheme == "bgv":
+        assert counts["Kpp_bgv_coeff"] > 0
+    on_host = _lwe_slice("cpu", scheme)
+    for stage, words in on_host.items():
+        np.testing.assert_array_equal(np.asarray(on_card[stage]),
+                                      np.asarray(words), err_msg=stage)

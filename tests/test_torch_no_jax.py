@@ -134,6 +134,28 @@ FLOW = textwrap.dedent("""
     want = np.concatenate([np.roll(a[:n // 2], -1), np.roll(a[n // 2:], -1)])
     assert (bbe.decode(bdec.decrypt(brot)) == want).all(), "wrong rotation"
     assert bdec.invariant_noise_budget(bms) > 0
+
+    # hoisted Galois, the negacyclic shift, LWE extract, pack and trace,
+    # BFV and BGV (coefficient form too)
+    for c, k, e, d, enc_ in ((ct, kg, ev, dec, be), (ba, bkg, bev, bdec, bbe)):
+        pa = enc_.encode_polynomial(a)
+        fresh = (benc if k is bkg else enc).encrypt_symmetric(pa)
+        ak = k.create_automorphism_keys()
+        packed = e.pack_lwe_ciphertexts(e.extract_lwe_many(fresh, [0, 3, 9]),
+                                        ak)
+        out = enc_.decode_polynomial(d.decrypt(packed))
+        assert list(out[::16][:3]) == [a[0], a[3], a[9]], "wrong pack"
+        coeff = e.transform_from_ntt(fresh) if fresh.is_ntt_form else fresh
+        shifted = enc_.decode_polynomial(d.decrypt(e.negacyclic_shift(coeff,
+                                                                      1)))
+        assert shifted[1] == a[0] and shifted[0] == (-int(a[-1])) % t
+        gk2 = k.create_galois_keys(steps=[1, 2])
+        for src in (c, coeff):
+            ms = e.rotate_many(src, [1, 2], gk2)
+            want1 = np.concatenate([np.roll(enc_.decode(d.decrypt(src))[
+                :n // 2], -1), np.roll(enc_.decode(d.decrypt(src))[n // 2:],
+                                       -1)])
+            assert (enc_.decode(d.decrypt(ms[0])) == want1).all(), "hoist"
     for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding",
                 "troy_tpu_torch.ops.sampling"):
         assert mod in sys.modules, mod
@@ -267,7 +289,23 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                                          q[0] * q[1], 5),
                  lambda: sampling.sample_uniform_rns(meta(3), tables),
                  lambda: sampling.sample_cbd_rns(meta(3), tables, t),
-                 lambda: sampling.sample_ternary_rns(meta(3), tables)):
+                 lambda: sampling.sample_ternary_rns(meta(3), tables),
+                 lambda: poly.negacyclic_shift(x, 3, tables),
+                 lambda: poly.negacyclic_shift(x, meta(2), tables),
+                 lambda: poly.extract_lwe_many(meta(2, 2, n), meta(3),
+                                               tables),
+                 lambda: poly.assemble_lwe(meta(1, 2, n), meta(1, 2), 0,
+                                           tables),
+                 lambda: poly.pack_fold_prepare(meta(2, 2, 2, n), 8, tables),
+                 lambda: galois.permute_batched(
+                     meta(2, 2, 2, n), *galois.batched_tables(n, (3, 5),
+                                                              "cpu", True),
+                     tables),
+                 lambda: ntt.dyadic_mac_batched(meta(2, 2, 2, n),
+                                                meta(3, 2, 2, n), tables),
+                 lambda: keyswitch.bgv_divide_last(meta(1, 2, n), bgv),
+                 lambda: rns.mod_t_and_divide_q_last(meta(1, 2, n), tables,
+                                                     bgv)):
         with pytest.raises(ValueError, match="expected all on the CPU"):
             call()
 
@@ -318,3 +356,44 @@ def test_save_seed_with_host_sampling_raises():
     plain = P.BatchEncoder(ctx).encode(np.zeros(n, dtype=np.uint64))
     with pytest.raises(ValueError, match="save_seed"):
         enc.encrypt_symmetric(plain, save_seed=True)
+
+
+def test_slice_six_names_and_signatures():
+    """The names this package exports for the hoisted Galois path and LWE,
+    and their parameters in troy_tpu's order (troy_tpu/evaluator.py
+    :1199-1500, troy_tpu/encoder.py:85-118, troy_tpu/ckks.py:263)."""
+    import inspect
+    for name in ("LWECiphertext", "EncodeStats"):
+        assert name in P.__all__ and hasattr(P, name)
+    params = lambda f: list(inspect.signature(f).parameters)
+    ev = P.Evaluator
+    assert params(ev.apply_galois_many) == ["self", "ct", "elts",
+                                            "galois_keys"]
+    assert params(ev.rotate_many) == ["self", "ct", "steps", "galois_keys"]
+    assert params(ev.negacyclic_shift) == ["self", "ct", "shift"]
+    assert params(ev.extract_lwe) == ["self", "ct", "term"]
+    assert params(ev.extract_lwe_many) == ["self", "ct", "terms"]
+    assert params(ev.assemble_lwe) == ["self", "lwe", "term"]
+    assert params(ev.divide_by_poly_modulus_degree) == ["self", "ct", "mul"]
+    assert params(ev.field_trace) == ["self", "ct", "automorphism_keys",
+                                      "logn"]
+    assert params(ev.pack_lwe_ciphertexts) == ["self", "lwes",
+                                               "automorphism_keys"]
+    be = P.BatchEncoder
+    assert params(be.encode_signed) == ["self", "values"]
+    assert params(be.decode_signed) == ["self", "plain"]
+    assert params(be.encode_polynomial) == ["self", "values"]
+    assert params(be.decode_polynomial) == ["self", "plain", "count"]
+    assert params(P.CKKSEncoder.encode_int64) == ["self", "value", "level"]
+    assert "internal_prime_bits" in params(P.HeContext)
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=64,
+        coeff_modulus=tuple(P.CoeffModulus.create(64, [40, 40, 40])),
+        plain_modulus=P.PlainModulus.batching(64, 17))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
+    assert ctx.last_context_data is ctx.chain[-1]
+    assert ctx.get_context_data_by_parms_id(ctx.chain[1].parms_id) \
+        is ctx.chain[1]
+    assert ctx.plain_ntt.rns.k == 1
+    assert list(P.LWECiphertext.__dataclass_fields__) == [
+        "c1", "c0", "level", "scale", "correction_factor"]

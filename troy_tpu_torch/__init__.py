@@ -6,7 +6,9 @@ Hopper (sm_90a) on the hot path: the NTT, the 128-bit dyadic
 multiply-accumulate, the BEHZ base conversion, per-limb modular
 arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64,
 the NTT-domain rescale and BGV divides, the plain lift, the exact
-conversion to t and device sampling from threefry streams (``csrc/``,
+conversion to t, device sampling from threefry streams, the negacyclic
+shift with the LWE extract and assemble, the pack tree's shift and fold,
+and the coefficient-domain BGV divide (``csrc/``,
 built with nvcc at first use). On
 the CPU every kernel's plain PyTorch version runs instead; results are the
 same words (for the FP64 transform, the same values to rounding).
@@ -18,13 +20,13 @@ reference it is tested against, not a dependency.
 from .modulus import Modulus, CoeffModulus, PlainModulus, SecurityLevel
 from .params import EncryptionParameters, SchemeType, ParmsID, PARMS_ID_ZERO
 from .context import HeContext, ContextData
-from .he_types import (Plaintext, Ciphertext, SecretKey, PublicKey,
-                       KSwitchKeys, RelinKeys, GaloisKeys)
+from .he_types import (Plaintext, Ciphertext, LWECiphertext, SecretKey,
+                       PublicKey, KSwitchKeys, RelinKeys, GaloisKeys)
 from .keygen import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
 from .encoder import BatchEncoder
-from .ckks import CKKSEncoder
+from .ckks import CKKSEncoder, EncodeStats
 from .evaluator import Evaluator
 from .interop import to_numpy, to_torch
 
@@ -34,9 +36,10 @@ __all__ = [
     "Modulus", "CoeffModulus", "PlainModulus", "SecurityLevel",
     "EncryptionParameters", "SchemeType", "ParmsID", "PARMS_ID_ZERO",
     "HeContext", "ContextData",
-    "Plaintext", "Ciphertext", "SecretKey", "PublicKey", "KSwitchKeys",
+    "Plaintext", "Ciphertext", "LWECiphertext", "SecretKey", "PublicKey", "KSwitchKeys",
     "RelinKeys", "GaloisKeys",
     "KeyGenerator", "Encryptor", "Decryptor", "BatchEncoder", "CKKSEncoder",
+    "EncodeStats",
     "Evaluator",
     "to_numpy", "to_torch",
 ]

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
 SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu",
            "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
-           "sampling.cu")
+           "sampling.cu", "negacyclic.cu")
 HEADERS = ("u64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,33 +45,46 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "troy_ntt": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
+    "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
+                                _P, _P),
     "troy_base_convert": (_P, _P, _L, _I, _I, _I, _P, _P),
     "troy_rns_elementwise": (_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P),
     "troy_behz_lift": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
     "troy_behz_tail": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
     "troy_behz_decrypt_round": (_P, _P, _L, _I, _P, _I, _P),
     "troy_keyswitch_digits": (_P, _P, _L, _I, _I, _P, _P, _P),
-    "troy_keyswitch_divide_round": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
-    "troy_mod_switch_divide_round": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_keyswitch_divide_round": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _P,
+                                    _P),
+    "troy_mod_switch_divide_round": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _P,
+                                     _P),
+    "troy_bgv_divide_coeff": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P),
     "troy_bfv_plain_embed": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
     "troy_galois_permute": (_P, _P, _P, _P, _L, _I, _I, _P, _P),
+    "troy_galois_permute_batched": (_P, _P, _P, _P, _L, _I, _I, _P, _L, _I,
+                                    _P),
     "troy_ckks_fft_encode": (_P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _D, _P),
     "troy_ckks_fft_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "troy_ckks_round": (_P, _P, _P, _D, _I, _I, _P, _I, _P),
     "troy_ckks_compose": (_P, _P, _I, _I, _I, _P, _D, _P),
     "troy_rescale_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
-    "troy_rescale_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_rescale_ntt_finish": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P,
+                               _P),
     "troy_keyswitch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
-    "troy_keyswitch_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_keyswitch_ntt_finish": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P,
+                                 _P),
     "troy_bgv_mod_switch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
-    "troy_bgv_mod_switch_ntt_finish": (_P, _P, _P, _P, _L, _I, _I, _I, _P,
-                                       _P),
+    "troy_bgv_mod_switch_ntt_finish": (_P, _P, _P, _P, _L, _I, _L, _L, _I,
+                                       _I, _P, _P),
     "troy_bgv_keyswitch_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
     "troy_exact_convert": (_P, _P, _L, _I, _I, _P, _U, _U, _P),
     "troy_plain_lift": (_P, _P, _L, _I, _I, _U, _U, _U, _P, _P),
     "troy_sample_uniform_rns": (_P, _P, _U, _L, _I, _I, _P, _P, _P, _P),
     "troy_sample_cbd_rns": (_P, _P, _U, _L, _I, _I, _P, _P, _P, _P),
     "troy_sample_ternary_rns": (_P, _P, _U, _L, _I, _I, _P, _P),
+    "troy_negacyclic_shift": (_P, _P, _P, _L, _L, _I, _I, _I, _P, _P),
+    "troy_extract_lwe": (_P, _P, _P, _P, _L, _I, _I, _P, _P),
+    "troy_assemble_lwe": (_P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P, _P),
+    "troy_pack_fold_prepare": (_P, _P, _P, _L, _L, _I, _I, _P, _P),
 }
 
 # The kernel each entry point belongs to (the letters of the port's kernel
@@ -79,6 +92,7 @@ _SIGNATURES = {
 KERNELS = {
     "troy_ntt": "A_ntt",
     "troy_dyadic_mac": "B_dyadic_mac",
+    "troy_dyadic_mac_batched": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",
     "troy_rns_elementwise": "D_rns_elementwise",
     "troy_behz_lift": "E_behz",
@@ -89,6 +103,7 @@ KERNELS = {
     "troy_mod_switch_divide_round": "K_divide_round",
     "troy_bfv_plain_embed": "G_plain_embed",
     "troy_galois_permute": "M_galois",
+    "troy_galois_permute_batched": "M_galois",
     "troy_ckks_fft_encode": "O1_ckks_fft",
     "troy_ckks_fft_decode": "O1_ckks_fft",
     "troy_ckks_round": "O2_ckks_round",
@@ -105,6 +120,11 @@ KERNELS = {
     "troy_sample_uniform_rns": "I_sampling",
     "troy_sample_cbd_rns": "I_sampling",
     "troy_sample_ternary_rns": "I_sampling",
+    "troy_negacyclic_shift": "N1_negacyclic",
+    "troy_extract_lwe": "N1_negacyclic",
+    "troy_assemble_lwe": "N1_negacyclic",
+    "troy_pack_fold_prepare": "N2_pack_prepare",
+    "troy_bgv_divide_coeff": "Kpp_bgv_coeff",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}

@@ -17,7 +17,9 @@ numpy's FFT, exact host rounding and composition, and the port's numpy NTT
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,6 +48,28 @@ def _round_to_rns(coeffs: np.ndarray, cd: ContextData) -> np.ndarray:
     for i, q in enumerate(cd.coeff_values):
         rns[i] = np.array([c % q for c in exact], dtype=np.uint64)
     return rns
+
+
+@dataclass(frozen=True)
+class EncodeStats:
+    """The largest |coefficient| of an encode, as troy's gMaxReal
+    (ckks_cuda.cu:178-209, :386-407) and the JAX package's EncodeStats
+    (troy_tpu/ckks.py:58): max_abs_small times 2^exponent."""
+
+    max_abs_small: float
+    exponent: int
+
+    @property
+    def max_coeff_bit_count(self) -> int:
+        """ceil(log2(max|coeff|)) + 1 (ckks_cuda.cu:404)."""
+        m = self.max_abs_small
+        bits = math.ceil(math.log2(m)) if m > 1.0 else 0
+        return bits + self.exponent + 1
+
+    @property
+    def max_coeff_log2(self) -> float:
+        m = self.max_abs_small
+        return (math.log2(m) if m > 0 else 0.0) + self.exponent
 
 
 class CKKSEncoder:
@@ -135,6 +159,26 @@ class CKKSEncoder:
         return Plaintext(
             data=dntt.rns_ntt_forward(to_torch(rns, cd.device), cd.ntt),
             level=level, is_ntt_form=True, scale=scale)
+
+    def encode_int64(self, value: int,
+                     level: Optional[int] = None) -> Plaintext:
+        """An integer constant at scale 1 (troy_tpu/ckks.py:263)."""
+        return self.encode_constant(float(value), 1.0, level)
+
+    def encode_with_stats(self, values: Union[Sequence[complex], np.ndarray],
+                          scale: float, level: Optional[int] = None
+                          ) -> Tuple[Plaintext, EncodeStats]:
+        """``encode`` and the largest |coefficient| it rounded. The
+        statistic comes from the host oracle's coefficients (numpy's FFT),
+        split as the JAX package's host path splits it
+        (troy_tpu/ckks.py:201-207); the device statistic of troy_tpu's
+        encode_stats_pipeline is not ported."""
+        plain = self.encode(values, scale, level)
+        coeffs = self._coeffs_host(np.asarray(values, dtype=np.complex128),
+                                   scale)
+        m = float(np.max(np.abs(np.rint(coeffs)), initial=0.0))
+        e = max(0, int(m).bit_length() - 40)
+        return plain, EncodeStats(max_abs_small=m * 2.0 ** -e, exponent=e)
 
     def decode(self, plain: Plaintext) -> np.ndarray:
         """Slot values (n/2,) complex128, read back to the host."""

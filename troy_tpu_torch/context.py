@@ -22,7 +22,7 @@ import torch
 
 from .modulus import INTERNAL_MOD_BIT_COUNT, Modulus, SecurityLevel
 from .params import (
-    EncryptionParameters, EncryptionParameterQualifiers, SchemeType,
+    EncryptionParameters, EncryptionParameterQualifiers, ParmsID, SchemeType,
     validate,
 )
 from .interop import DEFAULT_DEVICE
@@ -94,14 +94,18 @@ class ContextData:
         return self.parms.plain_modulus
 
     @property
+    def parms_id(self) -> ParmsID:
+        return self.parms.parms_id
+
+    @property
     def device(self) -> torch.device:
         return self.ntt.device
 
 
 def _build_context_data(parms: EncryptionParameters, chain_index: int,
                         qualifiers: EncryptionParameterQualifiers,
-                        device: torch.device,
-                        special_prime: int) -> ContextData:
+                        device: torch.device, special_prime: int,
+                        internal_prime_bits: int) -> ContextData:
     n = parms.poly_modulus_degree
     values = parms.coeff_values
     k = len(values)
@@ -114,7 +118,7 @@ def _build_context_data(parms: EncryptionParameters, chain_index: int,
     bsk_ntt = rns = rescale = rns_tool = exact = None
     bgv_ms = bgv_ks = None
     if parms.scheme in (SchemeType.bfv, SchemeType.bgv):
-        rns_tool = make_rns_tool(n, values, t, INTERNAL_MOD_BIT_COUNT)
+        rns_tool = make_rns_tool(n, values, t, internal_prime_bits)
         plain_lift_consts(ntt, t, Q)                  # uploaded once
     if parms.scheme == SchemeType.bfv:
         bsk_ntt = RnsNttTables.from_moduli(n, rns_tool.base_Bsk.values,
@@ -151,12 +155,16 @@ class HeContext:
     levels, each dropping one prime. Every table is made on ``device``,
     the card unless the caller names another (``device="cpu"`` runs the
     plain versions of the kernels); a CUDA device needs a card, and
-    without one this raises rather than fall back to the CPU."""
+    without one this raises rather than fall back to the CPU.
+
+    ``internal_prime_bits``: the width of the BFV BEHZ auxiliary-base
+    primes; None or 61 is troy's choice (rns.cpp getPrimes(61, ...)), 34-60
+    narrower primes (utils/rns.RnsTool)."""
 
     def __init__(self, parms: EncryptionParameters,
                  expand_mod_chain: bool = True,
                  sec_level: SecurityLevel = SecurityLevel.tc128,
-                 device=None):
+                 device=None, internal_prime_bits: Optional[int] = None):
         device = torch.device(DEFAULT_DEVICE if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"HeContext: device {device} requested but "
@@ -167,9 +175,11 @@ class HeContext:
                              f"{qualifiers.error_message}")
         self.sec_level = sec_level
         self.device = device
+        self.internal_prime_bits = internal_prime_bits
+        bits = internal_prime_bits or INTERNAL_MOD_BIT_COUNT
         special = parms.coeff_values[-1]
         chain: List[ContextData] = [
-            _build_context_data(parms, 0, qualifiers, device, special)]
+            _build_context_data(parms, 0, qualifiers, device, special, bits)]
 
         self._using_keyswitching = len(parms.coeff_modulus) > 1
         if self._using_keyswitching:
@@ -181,13 +191,14 @@ class HeContext:
                     raise ValueError(f"invalid parameters at chain level "
                                      f"{idx}: {q.error_message}")
                 chain.append(_build_context_data(level_parms, idx, q, device,
-                                                 special))
+                                                 special, bits))
                 if not expand_mod_chain or len(level_parms.coeff_modulus) == 1:
                     break
                 level_parms = level_parms.drop_last()
                 idx += 1
 
         self.chain: Tuple[ContextData, ...] = tuple(chain)
+        self._by_parms_id = {cd.parms_id: cd for cd in chain}
         # batching tables mod t, shared by every level (kernel A, k = 1)
         self.plain_ntt: Optional[NttTables] = None
         if qualifiers.using_batching:
@@ -203,6 +214,10 @@ class HeContext:
         return self.chain[1] if self._using_keyswitching else self.chain[0]
 
     @property
+    def last_context_data(self) -> ContextData:
+        return self.chain[-1]
+
+    @property
     def first_level(self) -> int:
         return 1 if self._using_keyswitching else 0
 
@@ -212,6 +227,10 @@ class HeContext:
 
     def get_context_data(self, level: int) -> ContextData:
         return self.chain[level]
+
+    def get_context_data_by_parms_id(self, pid: ParmsID
+                                     ) -> Optional[ContextData]:
+        return self._by_parms_id.get(pid)
 
     @property
     def using_keyswitching(self) -> bool:

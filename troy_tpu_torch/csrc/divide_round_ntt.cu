@@ -10,9 +10,10 @@
 //                            - (floor(p/2) mod q_j)          (< 2 q_j)
 //   (kernel A: the forward NTT of temp over q_0..q_{k-1}, lazy, < 4 q_j)
 //   finish:  out[c, j, i] = (x[c, j, i] + 4 q_j - temp[c, j, i]) p^-1 mod q_j
-//                           (+ acc[c, j, i] on the first acc_comps
-//                           components: (c0, c1) for relinearization, c0
-//                           for a Galois automorphism)
+//                           (+ acc on the first acc_comps components of
+//                           each group: (c0, c1) for relinearization, c0
+//                           for a Galois automorphism, c0 of each
+//                           ciphertext of a batch)
 //
 // These are the words of the JAX package's fully reduced chain (subtract,
 // NTT, subtract, multiply), since the final Shoup product reduces fully.
@@ -114,12 +115,15 @@ __global__ void bgv_temps_kernel(uint64_t *__restrict__ out,
 }
 
 // x: (comps, k + 1, n), rows 0..k-1 read; temps, out: (comps, k, n); acc:
-// (acc_comps, k, n) or NULL.
+// (acc_groups, acc_comps, k, n) or NULL: acc[g % acc_groups, h] is added
+// onto component h < acc_comps of each group g of `group` components (the
+// layout of csrc/keyswitch.cu's divide).
 __global__ void finish_kernel(uint64_t *__restrict__ out,
                               const uint64_t *__restrict__ x,
                               const uint64_t *__restrict__ temps,
                               const uint64_t *__restrict__ acc,
-                              int64_t comps, int acc_comps, int k, int log_n,
+                              int64_t comps, int acc_comps, int64_t group,
+                              int64_t acc_groups, int k, int log_n,
                               const uint64_t *__restrict__ consts) {
     __shared__ uint64_t c[5 * MAX_LIMBS + 2];
     for (int j = threadIdx.x; j < 5 * k + 2; j += blockDim.x) c[j] = consts[j];
@@ -138,7 +142,11 @@ __global__ void finish_kernel(uint64_t *__restrict__ out,
         const uint64_t xv = x[((row + comp) << log_n) + i];  // row j of k+1
         uint64_t r = mul_mod_shoup(xv + 4 * q[j] - temps[idx], inv[j],
                                    inv_shoup[j], q[j]);
-        if (comp < acc_comps) r = add_mod(acc[idx], r, q[j]);
+        const int64_t g = comp / group, h = comp - g * group;
+        if (h < acc_comps) {
+            const int64_t arow = (g % acc_groups) * acc_comps + h;
+            r = add_mod(acc[((arow * k + j) << log_n) + i], r, q[j]);
+        }
         out[idx] = r;
     }
 }
@@ -164,17 +172,19 @@ int bgv_temps(void *out, const void *last, long long comps, int k, int log_n,
 }
 
 int finish(void *out, const void *x, const void *temps_in, const void *acc,
-           long long comps, int acc_comps, int k, int log_n,
-           const void *consts, void *stream) {
-    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr)) {
+           long long comps, int acc_comps, long long group,
+           long long acc_groups, int k, int log_n, const void *consts,
+           void *stream) {
+    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr) ||
+        group < 1 || acc_groups < 1 || acc_comps > group) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     finish_kernel<<<grid_blocks((comps * k) << log_n, THREADS), THREADS, 0,
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
         static_cast<const uint64_t *>(temps_in),
-        static_cast<const uint64_t *>(acc), comps, acc_comps, k, log_n,
-        static_cast<const uint64_t *>(consts));
+        static_cast<const uint64_t *>(acc), comps, acc_comps, group,
+        acc_groups, k, log_n, static_cast<const uint64_t *>(consts));
     TROY_RETURN_LAUNCH_STATUS();
 }
 
@@ -188,12 +198,11 @@ extern "C" int troy_rescale_ntt_temps(void *out, const void *last,
 }
 
 extern "C" int troy_rescale_ntt_finish(void *out, const void *x,
-                                       const void *temps_in, const void *acc,
-                                       long long comps, int acc_comps, int k,
-                                       int log_n, const void *consts,
-                                       void *stream) {
-    return finish(out, x, temps_in, acc, comps, acc_comps, k, log_n, consts,
-                  stream);
+        const void *temps_in, const void *acc, long long comps,
+        int acc_comps, long long group, long long acc_groups, int k,
+        int log_n, const void *consts, void *stream) {
+    return finish(out, x, temps_in, acc, comps, acc_comps, group, acc_groups,
+                  k, log_n, consts, stream);
 }
 
 // The NTT-form key switch: p = the special prime, accumulator (c0, c1) or c0.
@@ -204,12 +213,11 @@ extern "C" int troy_keyswitch_ntt_temps(void *out, const void *last,
 }
 
 extern "C" int troy_keyswitch_ntt_finish(void *out, const void *x,
-                                         const void *temps_in,
-                                         const void *acc, long long comps,
-                                         int acc_comps, int k, int log_n,
-                                         const void *consts, void *stream) {
-    return finish(out, x, temps_in, acc, comps, acc_comps, k, log_n, consts,
-                  stream);
+        const void *temps_in, const void *acc, long long comps,
+        int acc_comps, long long group, long long acc_groups, int k,
+        int log_n, const void *consts, void *stream) {
+    return finish(out, x, temps_in, acc, comps, acc_comps, group, acc_groups,
+                  k, log_n, consts, stream);
 }
 
 // The BGV mod switch: p = the level's last prime, no accumulator.
@@ -221,14 +229,11 @@ extern "C" int troy_bgv_mod_switch_ntt_temps(void *out, const void *last,
 }
 
 extern "C" int troy_bgv_mod_switch_ntt_finish(void *out, const void *x,
-                                              const void *temps_in,
-                                              const void *acc,
-                                              long long comps, int acc_comps,
-                                              int k, int log_n,
-                                              const void *consts,
-                                              void *stream) {
-    return finish(out, x, temps_in, acc, comps, acc_comps, k, log_n, consts,
-                  stream);
+        const void *temps_in, const void *acc, long long comps,
+        int acc_comps, long long group, long long acc_groups, int k,
+        int log_n, const void *consts, void *stream) {
+    return finish(out, x, temps_in, acc, comps, acc_comps, group, acc_groups,
+                  k, log_n, consts, stream);
 }
 
 // The BGV key switch: p = the special prime; its finish is

@@ -15,8 +15,29 @@
 //                  out[c, j, i] = (x[c, j, i] - (last mod q_j - floor(p/2)
 //                                 mod q_j)) * p^-1 mod q_j   (+ acc[c, j, i])
 //
-// with an optional accumulator added onto the first acc_comps components:
-// (c0, c1) for relinearization, c0 alone for a Galois automorphism.
+// with an optional accumulator: the components come in groups of `group`,
+// and acc[g % acc_groups, h] is added onto component h < acc_comps of
+// group g: (c0, c1) for relinearization (one group), c0 alone for a Galois
+// automorphism, the permuted c0 of each ciphertext for the batched fold
+// (groups of 2, one acc row each) and the one c0 of the hoisted Galois path
+// (groups of 2, one acc row for all).
+//
+// K'' replaces troy_tpu/ops/rns.py:281 mod_t_and_divide_q_last, the BGV
+// divide in the coefficient domain: it subtracts from x a multiple of the
+// plain modulus tt that makes row k divisible by its prime p, then divides
+// (rns.cpp:1097-1140):
+//
+//   neg_k        = (-(last mod tt)) p^-1 mod tt               (0 stays 0)
+//   out[c, j, i] = (x[c, j, i] + 2 q_j - (last mod q_j)
+//                   - (neg_k mod q_j)(p mod q_j)) p^-1 mod q_j (+ acc)
+//
+// with last = x[c, k, i]. The lazy sum stays below 3 q_j < 2^63 (every
+// modulus is below 2^61), where the Shoup product is exact. With p the
+// level's last prime it is the BGV mod switch in the coefficient domain;
+// with p the special prime, the BGV key switch of a coefficient-form
+// ciphertext (the JAX package divides in the NTT domain there whatever the
+// ciphertext's form). Its constants are K'-BGV's
+// (ops/keyswitch.py bgv_divide_consts).
 //
 // What bounds it on the H100: at n = 16384 the launch (under 5 MB of words,
 // a handful of 64-bit products per word). Design: one thread per
@@ -60,12 +81,21 @@ __global__ void keyswitch_digits_kernel(uint64_t *__restrict__ out,
     }
 }
 
+// The accumulator row of component comp, or -1 (the layout above).
+__device__ __forceinline__ int64_t acc_row(int64_t comp, int acc_comps,
+                                           int64_t group,
+                                           int64_t acc_groups) {
+    const int64_t g = comp / group, h = comp - g * group;
+    return h < acc_comps ? (g % acc_groups) * acc_comps + h : -1;
+}
+
 // consts: q (k), cr_hi (k), floor(p/2) mod q (k), p^-1 mod q (k) and its
 // Shoup words (k), then p and floor(p/2).
 __global__ void divide_round_kernel(uint64_t *__restrict__ out,
                                     const uint64_t *__restrict__ x,
                                     const uint64_t *__restrict__ acc,
-                                    int64_t comps, int acc_comps, int k,
+                                    int64_t comps, int acc_comps,
+                                    int64_t group, int64_t acc_groups, int k,
                                     int log_n,
                                     const uint64_t *__restrict__ consts) {
     __shared__ uint64_t c[5 * MAX_LIMBS + 2];
@@ -85,6 +115,7 @@ __global__ void divide_round_kernel(uint64_t *__restrict__ out,
         const int64_t i = idx & (n - 1);
         const uint64_t *src = x + ((comp * (k + 1)) << log_n) + i;
         const int64_t base = ((comp * k) << log_n) + i;
+        const int64_t arow = acc_row(comp, acc_comps, group, acc_groups);
         const uint64_t last =
             add_mod(src[static_cast<int64_t>(k) << log_n], half, p);
         for (int j = 0; j < k; ++j) {
@@ -95,24 +126,89 @@ __global__ void divide_round_kernel(uint64_t *__restrict__ out,
             const uint64_t diff =
                 sub_mod(src[static_cast<int64_t>(j) << log_n], temp, q[j]);
             uint64_t r = mul_mod_shoup(diff, inv[j], inv_shoup[j], q[j]);
-            if (comp < acc_comps) r = add_mod(acc[at], r, q[j]);
+            if (arow >= 0) {
+                r = add_mod(acc[((arow * k + j) << log_n) + i], r, q[j]);
+            }
             out[at] = r;
         }
     }
 }
 
-int divide_round(void *out, const void *x, const void *acc, long long comps,
-                 int acc_comps, int k, int log_n, const void *consts,
-                 void *stream) {
-    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr)) {
+// K''. consts: K'-BGV's 7k + 6 words (ops/keyswitch.py bgv_divide_consts):
+// q (k), cr_hi (k), two unused runs (k each), p^-1 mod q (k) and its Shoup
+// words (k), p, floor(p/2); tt, tt's high Barrett word, p^-1 mod tt, its
+// Shoup word; p mod q (k) and its Shoup words (k).
+__global__ void bgv_divide_kernel(uint64_t *__restrict__ out,
+                                  const uint64_t *__restrict__ x,
+                                  const uint64_t *__restrict__ acc,
+                                  int64_t comps, int acc_comps, int64_t group,
+                                  int64_t acc_groups, int k, int log_n,
+                                  const uint64_t *__restrict__ consts) {
+    __shared__ uint64_t c[7 * MAX_LIMBS + 6];
+    for (int j = threadIdx.x; j < 7 * k + 6; j += blockDim.x) c[j] = consts[j];
+    __syncthreads();
+    const uint64_t *q = c, *ratio = c + k;
+    const uint64_t *inv = c + 3 * k, *inv_shoup = c + 4 * k;
+    const uint64_t *e = c + 5 * k + 2;
+    const uint64_t tt = e[0], tt_hi = e[1], inv_t = e[2], inv_t_shoup = e[3];
+    const uint64_t *pm = e + 4, *pm_shoup = e + 4 + k;
+
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = comps << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t comp = idx >> log_n;
+        const int64_t i = idx & (n - 1);
+        const uint64_t *src = x + ((comp * (k + 1)) << log_n) + i;
+        const int64_t base = ((comp * k) << log_n) + i;
+        const int64_t arow = acc_row(comp, acc_comps, group, acc_groups);
+        const uint64_t last = src[static_cast<int64_t>(k) << log_n];
+        const uint64_t neg_k = mul_mod_shoup(
+            neg_mod(barrett_reduce_64(last, tt, tt_hi), tt), inv_t,
+            inv_t_shoup, tt);
+        for (int j = 0; j < k; ++j) {
+            const int64_t at = base + (static_cast<int64_t>(j) << log_n);
+            const uint64_t delta = mul_mod_shoup(
+                barrett_reduce_64(neg_k, q[j], ratio[j]), pm[j], pm_shoup[j],
+                q[j]);
+            // below 3 q_j < 2^63: x < q_j, and both subtrahends below q_j
+            const uint64_t lazy = src[static_cast<int64_t>(j) << log_n] +
+                                  (2 * q[j] -
+                                   barrett_reduce_64(last, q[j], ratio[j]) -
+                                   delta);
+            uint64_t r = mul_mod_shoup(lazy, inv[j], inv_shoup[j], q[j]);
+            if (arow >= 0) {
+                r = add_mod(acc[((arow * k + j) << log_n) + i], r, q[j]);
+            }
+            out[at] = r;
+        }
+    }
+}
+
+int divide(bool bgv, void *out, const void *x, const void *acc,
+           long long comps, int acc_comps, long long group,
+           long long acc_groups, int k, int log_n, const void *consts,
+           void *stream) {
+    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr) ||
+        group < 1 || acc_groups < 1 || acc_comps > group) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int threads = 256;
-    divide_round_kernel<<<grid_blocks(comps << log_n, threads), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
-        static_cast<const uint64_t *>(acc), comps, acc_comps, k, log_n,
-        static_cast<const uint64_t *>(consts));
+    const unsigned blocks = grid_blocks(comps << log_n, threads);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (bgv) {
+        bgv_divide_kernel<<<blocks, threads, 0, s>>>(
+            static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
+            static_cast<const uint64_t *>(acc), comps, acc_comps, group,
+            acc_groups, k, log_n, static_cast<const uint64_t *>(consts));
+    } else {
+        divide_round_kernel<<<blocks, threads, 0, s>>>(
+            static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
+            static_cast<const uint64_t *>(acc), comps, acc_comps, group,
+            acc_groups, k, log_n, static_cast<const uint64_t *>(consts));
+    }
     TROY_RETURN_LAUNCH_STATUS();
 }
 
@@ -136,21 +232,37 @@ extern "C" int troy_keyswitch_digits(void *out, const void *in,
 }
 
 // x: (comps, k + 1, 2^log_n) in the coefficient domain, row k the one to
-// divide by; out: (comps, k, 2^log_n); acc: (acc_comps, k, 2^log_n) or NULL
-// with acc_comps = 0; consts: 5k + 2 words (above).
+// divide by; out: (comps, k, 2^log_n); acc: (acc_groups, acc_comps, k,
+// 2^log_n) or NULL with acc_comps = 0, added onto components h <
+// acc_comps of each group of `group` (above); consts: 5k + 2 words.
 extern "C" int troy_keyswitch_divide_round(void *out, const void *x,
                                            const void *acc, long long comps,
-                                           int acc_comps, int k, int log_n,
-                                           const void *consts, void *stream) {
-    return divide_round(out, x, acc, comps, acc_comps, k, log_n, consts,
-                        stream);
+                                           int acc_comps, long long group,
+                                           long long acc_groups, int k,
+                                           int log_n, const void *consts,
+                                           void *stream) {
+    return divide(false, out, x, acc, comps, acc_comps, group, acc_groups, k,
+                  log_n, consts, stream);
 }
 
 // The same divide for the BFV mod switch: p is the level's last prime.
 extern "C" int troy_mod_switch_divide_round(void *out, const void *x,
                                             const void *acc, long long comps,
-                                            int acc_comps, int k, int log_n,
-                                            const void *consts, void *stream) {
-    return divide_round(out, x, acc, comps, acc_comps, k, log_n, consts,
-                        stream);
+                                            int acc_comps, long long group,
+                                            long long acc_groups, int k,
+                                            int log_n, const void *consts,
+                                            void *stream) {
+    return divide(false, out, x, acc, comps, acc_comps, group, acc_groups, k,
+                  log_n, consts, stream);
+}
+
+// K'': the t-corrected divide, coefficient domain; the layout of
+// troy_keyswitch_divide_round, consts of 7k + 6 words.
+extern "C" int troy_bgv_divide_coeff(void *out, const void *x,
+                                     const void *acc, long long comps,
+                                     int acc_comps, long long group,
+                                     long long acc_groups, int k, int log_n,
+                                     const void *consts, void *stream) {
+    return divide(true, out, x, acc, comps, acc_comps, group, acc_groups, k,
+                  log_n, consts, stream);
 }

@@ -1,16 +1,19 @@
 """BatchEncoder: BFV SIMD slot encoding.
 
-The port of troy_tpu/encoder.py (batching path). The 2 x (n/2) slot matrix
+The port of troy_tpu/encoder.py. The 2 x (n/2) slot matrix
 maps onto NTT evaluation points through the bit-reversed 3^i orbit index
 map (batchencoder.cpp:67-82); encode scatters the slots and runs the
 inverse NTT mod t, decode runs the forward NTT mod t and gathers. Both
 transforms are kernel A with one limb; the scatter and the gather are
 kernel M's unsigned gather (the scatter gathers by the inverse map).
+``encode_polynomial`` and ``decode_polynomial`` carry the raw coefficients
+mod t (batchencoder_cuda.cuh:65-75), what the LWE ops and the app layer
+encode with; they need no batching modulus.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,13 +31,13 @@ class BatchEncoder:
 
     def __init__(self, context: HeContext):
         cd = context.first_context_data
-        if not cd.qualifiers.using_batching:
-            raise ValueError("SIMD batching requires plain_modulus = 1 "
-                             "mod 2N")
         self.context = context
         self.n = cd.n
         self.plain_modulus = int(cd.plain_modulus)
+        self._batching = cd.qualifiers.using_batching
         self._tables = context.plain_ntt
+        if not self._batching:
+            return
         n = self.n
         log_n = numth.get_power_of_two(n)
         m = 2 * n
@@ -55,8 +58,14 @@ class BatchEncoder:
     def slot_count(self) -> int:
         return self.n
 
+    def _require_batching(self) -> None:
+        if not self._batching:
+            raise ValueError("SIMD batching requires plain_modulus = 1 "
+                             "mod 2N; use encode_polynomial instead")
+
     def encode(self, values: Union[Sequence[int], np.ndarray]) -> Plaintext:
         """Unsigned slot values (mod t) -> coefficient plaintext."""
+        self._require_batching()
         values = np.asarray(values, dtype=np.uint64)
         if values.ndim != 1 or len(values) > self.n:
             raise ValueError("too many slot values")
@@ -67,14 +76,48 @@ class BatchEncoder:
             to_torch(values, self.context.device), self._inverse_map,
             self._tables))
 
+    def encode_signed(self, values: Union[Sequence[int], np.ndarray]
+                      ) -> Plaintext:
+        """Signed slot values, taken mod t."""
+        values = np.asarray(values, dtype=np.int64)
+        return self.encode((values % self.plain_modulus).astype(np.uint64))
+
     def decode(self, plain: Plaintext) -> np.ndarray:
         """Coefficient plaintext -> unsigned slot values (numpy u64)."""
         if plain.is_ntt_form:
             raise ValueError("cannot decode an NTT-form plaintext")
+        self._require_batching()
         data = plain.data
         if data.shape[-1] < self.n:
             data = torch.nn.functional.pad(data, (0, self.n - data.shape[-1]))
         return to_numpy(_decode_core(data, self._index_map, self._tables))
+
+    def decode_signed(self, plain: Plaintext) -> np.ndarray:
+        """Slot values centred mod t: those at or above (t + 1) / 2 as
+        value - t (int64)."""
+        vals = self.decode(plain).astype(np.int64)
+        t = self.plain_modulus
+        return np.where(vals >= (t + 1) // 2, vals - t, vals)
+
+    def encode_polynomial(self, values: Union[Sequence[int], np.ndarray]
+                          ) -> Plaintext:
+        """Coefficients (mod t, at most n) -> coefficient plaintext."""
+        values = np.asarray(values, dtype=np.uint64) % np.uint64(
+            self.plain_modulus)
+        if values.ndim != 1 or len(values) > self.n:
+            raise ValueError("too many coefficients")
+        data = np.zeros(self.n, dtype=np.uint64)
+        data[:len(values)] = values
+        return Plaintext(data=to_torch(data, self.context.device))
+
+    def decode_polynomial(self, plain: Plaintext,
+                          count: Optional[int] = None) -> np.ndarray:
+        """A coefficient plaintext's words mod t (numpy u64), the first
+        ``count`` if given."""
+        if plain.is_ntt_form:
+            raise ValueError("cannot decode an NTT-form plaintext")
+        out = to_numpy(plain.data)
+        return out if count is None else out[:count]
 
 
 def _encode_core(values: torch.Tensor, inverse_map: torch.Tensor,

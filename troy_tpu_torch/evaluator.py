@@ -24,7 +24,15 @@ kernel launch over the whole batch of polynomials and limbs it touches:
     temps of K'-BGV);
   * ``apply_galois`` permutes both components (kernel M: signed in the
     coefficient domain, a plain gather in the NTT domain) before the key
-    switch of c1; BFV's ``mod_switch_to_next`` divides by the level's last
+    switch of c1; a coefficient-form BGV key switch divides by the special
+    prime in the coefficient domain with the t-corrected K''; the hoisted
+    ``apply_galois_many`` decomposes c1 once and contracts it with every
+    element's pre-permuted key in one B launch, then lands each
+    automorphism with one batched M gather; the LWE ops shift, extract and
+    assemble on kernel N1, and the pack tree folds pairs on N2 and then
+    key-switches every pair in one batched fold (M, F, A, B, A, the divide)
+    per layer, as does each step of the field trace;
+    BFV's ``mod_switch_to_next`` divides by the level's last
     prime (kernel K), CKKS's drops it, BGV's subtracts a multiple of t and
     divides in the NTT domain (A, K'-BGV) and carries the correction factor
     times q_last^-1 mod t, and ``rescale_to_next`` divides by it in the NTT
@@ -41,13 +49,14 @@ The ops run on the CPU too, on the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .context import ContextData, HeContext
-from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, Plaintext,
-                       RelinKeys)
+from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, LWECiphertext,
+                       Plaintext, RelinKeys)
 from .params import SchemeType
 from .ops import galois as dgalois
 from .ops import keyswitch as dks
@@ -96,41 +105,99 @@ def _bfv_multiply(d1: torch.Tensor, d2: Optional[torch.Tensor],
     return drns.behz_tail(dntt.rns_ntt_inverse(prod, tool.q_bsk), tool)
 
 
+def _used_tables(cd: ContextData, key_cd: ContextData) -> dntt.RnsNttTables:
+    """The key switch's working base: the level's primes and the special
+    prime."""
+    return key_cd.ntt.select(dks.used_limbs(cd.limbs, key_cd.limbs))
+
+
+def _key_rows(key: torch.Tensor, k: int, kf: int) -> torch.Tensor:
+    """A switching key (decomp, ..., kf, n) restricted to the digits and
+    limbs of a level of k limbs; at the first level, the whole key."""
+    if k == kf - 1:
+        return key[:k]
+    return torch.cat([key[:k, ..., :k, :], key[:k, ..., -1:, :]], dim=-2)
+
+
+def _switch_key_decompose(target: torch.Tensor, cd: ContextData,
+                          key_cd: ContextData,
+                          ntt_form: bool) -> torch.Tensor:
+    """Stage 1 of the key switch (troy_tpu/evaluator.py:179): the RNS digits
+    of targets (..., k, n) in every used prime, transformed: (..., k, used,
+    n), fully reduced; one launch each of F and A for the whole batch.
+
+    An NTT-form target's digits are its inverse transform (A) reduced into
+    every used prime and transformed again, k x (k+1) rows: the JAX
+    package's diagonal shortcut (which reuses the k diagonal rows) gives the
+    same words and is not taken."""
+    used = _used_tables(cd, key_cd)
+    if ntt_form:
+        target = dntt.rns_ntt_inverse(target, cd.ntt)
+    return dntt.rns_ntt_forward(dks.keyswitch_digits(target, used), used)
+
+
+def _switch_key_contract(t_hat: torch.Tensor, key: torch.Tensor,
+                         cd: ContextData, key_cd: ContextData,
+                         ntt_form: bool,
+                         acc: Optional[torch.Tensor] = None,
+                         group: Optional[int] = None) -> torch.Tensor:
+    """Stage 2 (troy_tpu/evaluator.py:290): the 128-bit inner product with
+    the key (one B launch) and the divide by the special prime, the result
+    in the TARGET's domain (``ntt_form``), with acc added in the layout of
+    ops/keyswitch.py. Three shapes:
+
+      * t_hat (k, used, n), key (decomp, 2, kf, n) -> (2, k, n);
+      * t_hat (k, used, n), keys (k, m, 2, used, n), stacked and
+        restricted to the level (the hoisted path) -> (m, 2, k, n);
+      * t_hat (m, k, used, n), key (decomp, 2, kf, n) (the batched fold)
+        -> (m, 2, k, n).
+
+    The divide: CKKS and BGV in the NTT domain, A on the special row, K'
+    (BGV: the t-corrected temps of K'-BGV), A, K'; in the coefficient
+    domain, an inverse A of the products, then F's rounding divide (BFV) or
+    the t-corrected one of K'' (BGV). The JAX package picks the domain by
+    scheme, which is wrong for an NTT-form BFV or a coefficient-form BGV
+    target."""
+    k, kf = cd.limbs, key_cd.limbs
+    used = _used_tables(cd, key_cd)
+    if t_hat.dim() == 4:
+        prods = dntt.dyadic_mac_batched(_key_rows(key, k, kf), t_hat, used)
+    else:
+        keys = key if key.dim() == 5 else _key_rows(key, k, kf)
+        prods = dntt.dyadic_mac(t_hat, keys, used)
+    lead = prods.shape[:-2]
+    prods = prods.reshape((-1,) + prods.shape[-2:])   # (s, used, n)
+    bgv = cd.scheme == SchemeType.bgv
+    if ntt_form:
+        if bgv:
+            consts, entries = cd.bgv_keyswitch_consts, drns.BGV_KEYSWITCH
+        else:
+            consts = dks.divide_round_consts(cd.ntt, key_cd.coeff_values[-1])
+            entries = drns.KEYSWITCH
+        out = drns.divide_round_last_ntt(prods, cd.ntt, used.slice(k, k + 1),
+                                         consts, acc, entries, group)
+    else:
+        coeff = dntt.rns_ntt_inverse(prods, used)
+        if bgv:
+            out = dks.bgv_divide_last(coeff, cd.bgv_keyswitch_consts, acc,
+                                      group)
+        else:
+            out = dks.divide_round_last(coeff, dks.divide_round_consts(
+                cd.ntt, key_cd.coeff_values[-1]), acc, group)
+    return out.reshape(lead + out.shape[-2:])
+
+
 def _switch_key_core(target: torch.Tensor, key: torch.Tensor,
                      cd: ContextData, key_cd: ContextData,
                      acc: Optional[torch.Tensor] = None,
                      ntt_form: bool = False) -> torch.Tensor:
     """The key switch (evaluator_cuda.cu:1163-1362) of a target (k, n) under
     key (decomp, 2, key_limbs, n), NTT form: (2, k, n) in the target's
-    domain, with acc (a, k, n), a <= 2, added onto its first a components.
-
-    An NTT-form target's digits are its inverse transform reduced into
-    every used prime and transformed again, k x (k+1) rows: the JAX
-    package's diagonal shortcut (troy_tpu/evaluator.py:197-224, which
-    reuses the k diagonal rows) gives the same words and is not taken."""
-    k = cd.limbs
-    kf = key_cd.limbs
-    used = key_cd.ntt.select(dks.used_limbs(k, kf))
-    if ntt_form:
-        target = dntt.rns_ntt_inverse(target, cd.ntt)
-    # RNS digits of the target in every used prime, NTT'd: (k, used, n)
-    t_hat = dntt.rns_ntt_forward(dks.keyswitch_digits(target, used), used)
-    # the key's rows over the working base; at the first level that is the
-    # whole key
-    key_used = key[:k] if k == kf - 1 else torch.cat(
-        [key[:k, :, :k], key[:k, :, -1:]], dim=2)
-    prods = dntt.dyadic_mac(t_hat, key_used, used)        # (2, used, n)
-    if cd.scheme == SchemeType.bgv:
-        # the t-corrected divide (troy_tpu/evaluator.py:320-336)
-        return drns.divide_round_last_ntt(
-            prods, cd.ntt, used.slice(k, k + 1), cd.bgv_keyswitch_consts, acc,
-            drns.BGV_KEYSWITCH)
-    consts = dks.divide_round_consts(cd.ntt, key_cd.coeff_values[-1])
-    if ntt_form:
-        return drns.divide_round_last_ntt(prods, cd.ntt, used.slice(k, k + 1),
-                                          consts, acc)
-    return dks.divide_round_last(dntt.rns_ntt_inverse(prods, used), consts,
-                                 acc)
+    domain, with acc (a, k, n), a <= 2, added onto its first a
+    components."""
+    return _switch_key_contract(
+        _switch_key_decompose(target, cd, key_cd, ntt_form), key, cd, key_cd,
+        ntt_form, acc)
 
 
 def _relinearize_core(data: torch.Tensor, keys, cd: ContextData,
@@ -144,27 +211,63 @@ def _relinearize_core(data: torch.Tensor, keys, cd: ContextData,
     return c01
 
 
-def _apply_galois_coeff_core(data: torch.Tensor, elt: int, key: torch.Tensor,
-                             cd: ContextData,
-                             key_cd: ContextData) -> torch.Tensor:
-    """Coefficient-domain Galois (troy_tpu/evaluator.py:430): both
-    components permuted in one launch, then c1 key-switched and the result
-    added onto the permuted c0."""
-    src, keep = dgalois.coeff_permutation(cd.n, elt, cd.device)
-    permuted = dgalois.apply_permutation_signed(data, src, keep, cd.ntt)
-    return _switch_key_core(permuted[1], key, cd, key_cd, acc=permuted[:1])
-
-
-def _apply_galois_ntt_core(data: torch.Tensor, elt: int, key: torch.Tensor,
-                           cd: ContextData,
-                           key_cd: ContextData) -> torch.Tensor:
-    """NTT-domain Galois (troy_tpu/evaluator.py:417): both components
-    gathered in one launch (kernel M, unsigned), then c1 key-switched in
-    the NTT domain and the result added onto the permuted c0."""
-    perm = dgalois.ntt_permutation(cd.n, elt, cd.device)
-    permuted = dgalois.apply_permutation(data, perm)
+def _apply_galois_core(data: torch.Tensor, elt: int, key: torch.Tensor,
+                       cd: ContextData, key_cd: ContextData,
+                       ntt_form: bool) -> torch.Tensor:
+    """Galois of one ciphertext (troy_tpu/evaluator.py:417, :430): both
+    components permuted in one launch of kernel M (signed in the
+    coefficient domain, a plain gather in the NTT domain), then c1
+    key-switched in that domain and the result added onto the permuted
+    c0."""
+    if ntt_form:
+        permuted = dgalois.apply_permutation(
+            data, dgalois.ntt_permutation(cd.n, elt, cd.device))
+    else:
+        src, keep = dgalois.coeff_permutation(cd.n, elt, cd.device)
+        permuted = dgalois.apply_permutation_signed(data, src, keep, cd.ntt)
     return _switch_key_core(permuted[1], key, cd, key_cd, acc=permuted[:1],
-                            ntt_form=True)
+                            ntt_form=ntt_form)
+
+
+def _batched_galois_fold(data: torch.Tensor, elt: int, key: torch.Tensor,
+                         cd: ContextData, key_cd: ContextData,
+                         ntt_form: bool) -> torch.Tensor:
+    """One automorphism and key switch over a batch of size-2 ciphertexts
+    (troy_tpu/evaluator.py:442): data (m, 2, k, n) -> (m, 2, k, n). One M
+    launch permutes every component and writes the c0s and the c1s as two
+    stacks; the key switch of the m c1s is one launch each of F, A, B, A
+    and the divide (F or K'' in the coefficient domain; K' twice and A in
+    the NTT domain), which adds the permuted c0s."""
+    srcs, keeps = dgalois.batched_tables(cd.n, (elt,), cd.device,
+                                         not ntt_form)
+    permuted = dgalois.permute_batched(data, srcs, keeps, cd.ntt,
+                                       comps_first=True)      # (2, m, k, n)
+    t_hat = _switch_key_decompose(permuted[1], cd, key_cd, ntt_form)
+    return _switch_key_contract(t_hat, key, cd, key_cd, ntt_form,
+                                acc=permuted[0].unsqueeze(1), group=2)
+
+
+def _hoisted_galois_core(data: torch.Tensor, elts: Sequence[int],
+                         keys_pp: torch.Tensor, cd: ContextData,
+                         key_cd: ContextData,
+                         ntt_form: bool) -> torch.Tensor:
+    """Hoisted multi-automorphism of one ciphertext (troy_tpu/evaluator.py
+    :463 _hoisted_galois_core): the digits of c1 decomposed and transformed
+    once (F, A); the keys, pre-permuted by each element's inverse
+    automorphism and stacked (k, m, 2, used, n), contracted in one B
+    launch; one divide over the m x 2 components that adds the un-permuted
+    c0 onto each; one batched M gather that lands every element's
+    automorphism. Valid because the inner product is elementwise in the
+    evaluation index and the divide commutes with the automorphism up to
+    rounding representatives: NOT word-equal to the sequential path (the
+    words of the JAX package's hoisted path instead); decryption agrees.
+    data (2, k, n) -> (m, 2, k, n)."""
+    t_hat = _switch_key_decompose(data[1], cd, key_cd, ntt_form)
+    out = _switch_key_contract(t_hat, keys_pp, cd, key_cd, ntt_form,
+                               acc=data[:1].unsqueeze(0), group=2)
+    srcs, keeps = dgalois.batched_tables(cd.n, tuple(elts), cd.device,
+                                         not ntt_form)
+    return dgalois.permute_batched(out, srcs, keeps, cd.ntt)
 
 
 def _balance_correction_factors(f1: int, f2: int, t: int
@@ -230,10 +333,27 @@ def _pad(m: torch.Tensor, n: int) -> torch.Tensor:
 class Evaluator:
     """(evaluator.h:72): BFV (coefficient-form ciphertexts), CKKS
     (NTT-form ciphertexts with a scale) and BGV (NTT-form ciphertexts with
-    a correction factor)."""
+    a correction factor; the Galois ops, the negacyclic shift and the LWE
+    ops also take BGV in coefficient form)."""
+
+    # Bound on cached pre-permuted switching keys: each entry holds one
+    # key's worth of device memory (7.9 MB at n = 16384 and 6 primes).
+    PP_KEY_CACHE_MAX = 32
+    # apply_galois_many hoists from this many elements; below, it runs
+    # apply_galois per element. Measured on an H100 80GB HBM3 at 700 W
+    # (n = 16384, q = {60,40,40,40,40,60}, chip_smoke.py phase 18), hoisted
+    # over sequential at m = 1, 2, 4, 8, 16: BFV 1.225, 0.633, 0.351,
+    # 0.185, 0.103; CKKS 1.222, 0.571, 0.277, 0.165, 0.091; BGV 1.037,
+    # 0.321, 0.316, 0.205, 0.102.
+    HOIST_MIN_M = 2
+    # Bound on cached stacks of them, one per (keys, elements, level) of
+    # an apply_galois_many call; a stack of m keys is m keys' worth.
+    PP_STACK_CACHE_MAX = 4
 
     def __init__(self, context: HeContext):
         self.context = context
+        self._pp_keys: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._pp_stacks: "OrderedDict[tuple, tuple]" = OrderedDict()
 
     def _cd(self, ct: Ciphertext) -> ContextData:
         return self.context.get_context_data(ct.level)
@@ -244,6 +364,15 @@ class Evaluator:
         cd = self._cd(ct)
         if cd.scheme != SchemeType.bfv and not ct.is_ntt_form:
             raise ValueError(f"{cd.scheme.name} {what} expects NTT form")
+        return cd
+
+    def _galois_level(self, ct: Ciphertext, what: str) -> ContextData:
+        """The level of a ciphertext for a Galois or LWE op: BFV and BGV in
+        either form (the key switch divides in the ciphertext's domain),
+        CKKS in NTT form."""
+        cd = self._cd(ct)
+        if cd.scheme == SchemeType.ckks and not ct.is_ntt_form:
+            raise ValueError(f"CKKS {what} expects NTT form")
         return cd
 
     def _ckks(self, what: str) -> None:
@@ -539,14 +668,105 @@ class Evaluator:
         if ct.size != 2:
             raise ValueError("apply_galois expects size-2 ciphertexts "
                              "(relinearize first)")
-        cd = self._ntt_scheme(ct, "apply_galois")
+        cd = self._galois_level(ct, "apply_galois")
         if not galois_keys.has_key(elt):
             raise ValueError(f"Galois key for element {elt} not present")
-        core = (_apply_galois_ntt_core if ct.is_ntt_form
-                else _apply_galois_coeff_core)
-        data = core(ct.data, elt, galois_keys.keys[elt], cd,
-                    self.context.key_context_data)
+        data = _apply_galois_core(ct.data, elt, galois_keys.keys[elt], cd,
+                                  self.context.key_context_data,
+                                  ct.is_ntt_form)
         return ct.replace(data=data)
+
+    def _prepermuted_key(self, galois_keys: GaloisKeys,
+                         elt: int) -> torch.Tensor:
+        """The switching key of ``elt`` permuted by the inverse automorphism
+        along the evaluation axis (one kernel-M gather), LRU-cached per
+        (key object, elt) and identity-checked on every hit, so distinct
+        GaloisKeys sharing an element each get their own entry and a
+        regenerated key never serves a stale permutation
+        (troy_tpu/evaluator.py:1175)."""
+        src = galois_keys.keys[elt]
+        cache_key = (id(src), elt)
+        hit = self._pp_keys.get(cache_key)
+        if hit is not None and hit[0] is src:
+            self._pp_keys.move_to_end(cache_key)
+            return hit[1]
+        pp = dgalois.apply_permutation(src, dgalois.ntt_inverse_permutation(
+            self.context.n, elt, src.device))
+        self._pp_keys[cache_key] = (src, pp)
+        while len(self._pp_keys) > self.PP_KEY_CACHE_MAX:
+            self._pp_keys.popitem(last=False)
+        return pp
+
+    def _prepermuted_stack(self, galois_keys: GaloisKeys,
+                           elts: Sequence[int], cd: ContextData
+                           ) -> torch.Tensor:
+        """The pre-permuted keys of ``elts`` restricted to the level and
+        stacked (k, m, 2, used, n) for one B launch; made once per (key
+        objects, elements, level) and identity-checked like the keys."""
+        srcs = tuple(galois_keys.keys[e] for e in elts)
+        cache_key = (tuple(id(s) for s in srcs), tuple(elts), cd.limbs)
+        hit = self._pp_stacks.get(cache_key)
+        if hit is not None and all(a is b for a, b in zip(hit[0], srcs)):
+            self._pp_stacks.move_to_end(cache_key)
+            return hit[1]
+        kf = self.context.key_context_data.limbs
+        stack = torch.stack([_key_rows(self._prepermuted_key(galois_keys, e),
+                                       cd.limbs, kf) for e in elts], dim=1)
+        self._pp_stacks[cache_key] = (srcs, stack)
+        while len(self._pp_stacks) > self.PP_STACK_CACHE_MAX:
+            self._pp_stacks.popitem(last=False)
+        return stack
+
+    def apply_galois_many(self, ct: Ciphertext, elts: Sequence[int],
+                          galois_keys: GaloisKeys) -> List[Ciphertext]:
+        """Hoisted multi-automorphism (troy_tpu/evaluator.py:1199): c1's
+        digits decomposed and transformed once and shared by every
+        element's key switch, against keys pre-permuted by the inverse
+        automorphism; one launch each of F, A, B, the divide and M for all
+        the elements (``_hoisted_galois_core``). Not word-equal to m
+        apply_galois calls; decrypts the same. Below HOIST_MIN_M elements
+        it is those calls (the JAX package's dispatch schedule does the
+        same below its own crossover, troy_tpu/evaluator.py:1221-1230)."""
+        if ct.size != 2:
+            raise ValueError("apply_galois_many expects size-2 ciphertexts "
+                             "(relinearize first)")
+        if not elts:
+            return []
+        for elt in elts:
+            if not galois_keys.has_key(elt):
+                raise ValueError(f"Galois key for element {elt} not present")
+        cd = self._galois_level(ct, "apply_galois_many")
+        if len(elts) < self.HOIST_MIN_M:
+            return [self.apply_galois(ct, e, galois_keys) for e in elts]
+        out = _hoisted_galois_core(
+            ct.data, list(elts), self._prepermuted_stack(galois_keys, elts,
+                                                         cd),
+            cd, self.context.key_context_data, ct.is_ntt_form)
+        return [ct.replace(data=out[i]) for i in range(len(elts))]
+
+    def rotate_many(self, ct: Ciphertext, steps: Sequence[int],
+                    galois_keys: GaloisKeys) -> List[Ciphertext]:
+        """Rotations of one ciphertext by several steps (rows for BFV and
+        BGV, the vector for CKKS): the steps whose Galois key is present
+        share one hoisted decomposition (``apply_galois_many``); the rest
+        go through the NAF one by one; step 0 gives a fresh object
+        (troy_tpu/evaluator.py:1264)."""
+        n = self.context.n
+        direct = [(i, galois_util.get_elt_from_step(n, s))
+                  for i, s in enumerate(steps)
+                  if s != 0 and galois_keys.has_key(
+                      galois_util.get_elt_from_step(n, s))]
+        results: List[Optional[Ciphertext]] = [None] * len(steps)
+        if direct:
+            rotated = self.apply_galois_many(
+                ct, [elt for _, elt in direct], galois_keys)
+            for (i, _), r in zip(direct, rotated):
+                results[i] = r
+        for i, s in enumerate(steps):
+            if results[i] is None:
+                results[i] = ct.replace() if s == 0 else \
+                    self._rotate_internal(ct, s, galois_keys)
+        return results
 
     def _rotate_internal(self, ct: Ciphertext, steps: int,
                          galois_keys: GaloisKeys) -> Ciphertext:
@@ -589,3 +809,153 @@ class Evaluator:
         """CKKS: conjugate every slot (element 2n - 1)."""
         self._ckks("complex_conjugate")
         return self.apply_galois(ct, 2 * self.context.n - 1, galois_keys)
+
+    # ---- the negacyclic shift and LWE (evaluator_cuda.cu:2185-2341) ----
+    def negacyclic_shift(self, ct: Ciphertext, shift: int) -> Ciphertext:
+        """The ciphertext times x^shift mod x^n + 1, coefficient form
+        (kernel N1)."""
+        if ct.is_ntt_form:
+            raise ValueError("negacyclic shift expects coefficient form")
+        cd = self._cd(ct)
+        return ct.replace(data=dpoly.negacyclic_shift(ct.data, shift,
+                                                      cd.ntt))
+
+    def extract_lwe(self, ct: Ciphertext, term: int) -> LWECiphertext:
+        """Coefficient ``term`` as an LWE sample (evaluator_cuda.cu:
+        2216-2249)."""
+        return self.extract_lwe_many(ct, [term])[0]
+
+    def extract_lwe_many(self, ct: Ciphertext,
+                         terms: Sequence[int]) -> List[LWECiphertext]:
+        """The LWE samples of several coefficients in one kernel-N1 launch,
+        which reads c1 once (troy_tpu/evaluator.py:1351); an NTT-form
+        ciphertext is transformed back first. Terms must lie in [0, n)."""
+        if ct.size != 2:
+            raise ValueError("extract_lwe expects size-2 ciphertexts")
+        cd = self._cd(ct)
+        if ct.is_ntt_form:
+            ct = self.transform_from_ntt(ct)
+        n = cd.n
+        bad = [t for t in terms if not 0 <= t < n]
+        if bad:
+            raise ValueError(f"extract_lwe_many terms out of [0, {n}): "
+                             f"{bad[:4]}")
+        shifts = torch.tensor([0 if t == 0 else 2 * n - t for t in terms],
+                              dtype=torch.int64).to(cd.device)
+        c1s, c0s = dpoly.extract_lwe_many(ct.data, shifts, cd.ntt)
+        return [LWECiphertext(c1=c1s[i], c0=c0s[i], level=ct.level,
+                              scale=ct.scale,
+                              correction_factor=ct.correction_factor)
+                for i in range(len(terms))]
+
+    def assemble_lwe(self, lwe: LWECiphertext, term: int = 0) -> Ciphertext:
+        """An LWE sample as a coefficient-form ciphertext whose coefficient
+        ``term`` carries the value (evaluator_cuda.cu:2185-2207; kernel
+        N1)."""
+        cd = self.context.get_context_data(lwe.level)
+        if not 0 <= term < cd.n:
+            raise ValueError(f"assemble_lwe term {term} out of [0, {cd.n})")
+        data = dpoly.assemble_lwe(lwe.c1.unsqueeze(0), lwe.c0.unsqueeze(0),
+                                  term, cd.ntt)[0]
+        return Ciphertext(data=data, level=lwe.level, is_ntt_form=False,
+                          scale=lwe.scale,
+                          correction_factor=lwe.correction_factor)
+
+    def divide_by_poly_modulus_degree(self, ct: Ciphertext,
+                                      mul: int = 1) -> Ciphertext:
+        """Every coefficient times n^-1 (times mul), one kernel-D launch
+        (evaluator_cuda.cu:2266-2276)."""
+        cd = self._cd(ct)
+        scalars = [numth.invert_mod(cd.n, q) * mul % q
+                   for q in cd.coeff_values]
+        return ct.replace(data=dpoly.rns_scalar_mul(ct.data, scalars,
+                                                    cd.ntt))
+
+    def _field_trace_steps(self, automorphism_keys: GaloisKeys,
+                           logn: int) -> List[Tuple[int, torch.Tensor]]:
+        """(element, key) of each trace step x -> x^(d + 1), d = n, n/2,
+        ..., 2^(logn+1): outermost first."""
+        steps = []
+        degree = self.context.n
+        while degree > (1 << logn):
+            elt = degree + 1
+            if not automorphism_keys.has_key(elt):
+                raise ValueError(f"Galois key for element {elt} not present")
+            steps.append((elt, automorphism_keys.keys[elt]))
+            degree >>= 1
+        return steps
+
+    def field_trace(self, ct: Ciphertext, automorphism_keys: GaloisKeys,
+                    logn: int = 0) -> Ciphertext:
+        """The trace down to the subfield of degree 2^logn: each step adds
+        the ciphertext's image under x -> x^(d + 1) (one batched fold and
+        one D add), in the ciphertext's domain (evaluator_cuda.cu:
+        2251-2261). Keeps the coefficients at multiples of n / 2^logn,
+        times n / 2^logn, and annihilates the rest."""
+        if ct.size != 2:
+            raise ValueError("field_trace expects size-2 ciphertexts")
+        cd = self._galois_level(ct, "field_trace")
+        steps = self._field_trace_steps(automorphism_keys, logn)
+        data = self._trace(ct.data.unsqueeze(0), steps, cd, ct.is_ntt_form)
+        return ct.replace(data=data[0]) if steps else ct
+
+    def _trace(self, data: torch.Tensor, steps, cd: ContextData,
+               ntt_form: bool) -> torch.Tensor:
+        key_cd = self.context.key_context_data
+        for elt, key in steps:
+            data = dpoly.rns_add(data, _batched_galois_fold(
+                data, elt, key, cd, key_cd, ntt_form), cd.ntt)
+        return data
+
+    def pack_lwe_ciphertexts(self, lwes: Sequence[LWECiphertext],
+                             automorphism_keys: GaloisKeys) -> Ciphertext:
+        """Up to n LWE samples packed into one ciphertext, sample i at
+        coefficient i n / 2^l (2^l the count rounded up to a power of two):
+        the samples assembled at term 0 and times n^-1 in one N1 launch, in
+        bit-reversed order; one tree layer per bit, each an N2 shift and
+        fold of all the pairs, one batched fold and one D add; then the
+        field trace down to degree 2^l (evaluator_cuda.cu:2278-2341). BFV
+        and BGV fold in the coefficient domain, CKKS in the NTT domain, as
+        troy_tpu does; the BGV key switch divides in the coefficient domain
+        there (kernel K''), where troy_tpu's result is wrong."""
+        count = len(lwes)
+        if count == 0:
+            raise ValueError("no LWE ciphertexts to pack")
+        n = self.context.n
+        if count > n:
+            raise ValueError("too many LWE ciphertexts")
+        cd = self.context.get_context_data(lwes[0].level)
+        key_cd = self.context.key_context_data
+        is_ckks = cd.scheme == SchemeType.ckks
+        l = max(count - 1, 0).bit_length()
+        zero_c1 = torch.zeros_like(lwes[0].c1)
+        zero_c0 = torch.zeros_like(lwes[0].c0)
+        order = [numth.reverse_bits(i, l) for i in range(1 << l)]
+        c1s = torch.stack([lwes[i].c1 if i < count else zero_c1
+                           for i in order])
+        c0s = torch.stack([lwes[i].c0 if i < count else zero_c0
+                           for i in order])
+        inv_n = [numth.invert_mod(n, q) for q in cd.coeff_values]
+        cur = dpoly.assemble_lwe(c1s, c0s, 0, cd.ntt, inv_n)
+        for layer in range(l):
+            elt = (1 << (layer + 1)) + 1
+            if not automorphism_keys.has_key(elt):
+                raise ValueError(f"Galois key for element {elt} not present")
+            key = automorphism_keys.keys[elt]
+            even, folded = dpoly.pack_fold_prepare(cur, n >> (layer + 1),
+                                                   cd.ntt)
+            if is_ckks:
+                rotated = dntt.rns_ntt_inverse(_batched_galois_fold(
+                    dntt.rns_ntt_forward(folded, cd.ntt), elt, key, cd,
+                    key_cd, True), cd.ntt)
+            else:
+                rotated = _batched_galois_fold(folded, elt, key, cd, key_cd,
+                                               False)
+            cur = dpoly.rns_add(even, rotated, cd.ntt)
+        template = lwes[0]
+        ret = Ciphertext(data=cur[0], level=template.level,
+                         is_ntt_form=False, scale=template.scale,
+                         correction_factor=template.correction_factor)
+        if is_ckks:
+            ret = self.transform_to_ntt(ret)
+        return self.field_trace(ret, automorphism_keys, l)

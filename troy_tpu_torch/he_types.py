@@ -27,6 +27,10 @@ class Plaintext:
     is_ntt_form: bool = False
     scale: float = 1.0
 
+    @property
+    def coeff_count(self) -> int:
+        return self.data.shape[-1]
+
 
 @dataclass(frozen=True)
 class Ciphertext:
@@ -59,6 +63,18 @@ class Ciphertext:
         if "data" in changes:
             changes.setdefault("seed", 0)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class LWECiphertext:
+    """An extracted LWE sample per RNS limb (ciphertext_cuda.cuh:270-310):
+    it decrypts to <c1, s's coefficients> + c0."""
+
+    c1: torch.Tensor                  # (limbs, n) u64 words
+    c0: torch.Tensor                  # (limbs,)
+    level: int = 1
+    scale: float = 1.0
+    correction_factor: int = 1
 
 
 @dataclass(frozen=True)

@@ -17,8 +17,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, Plaintext,
-                       PublicKey, RelinKeys, SecretKey)
+from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, LWECiphertext,
+                       Plaintext, PublicKey, RelinKeys, SecretKey)
 
 # The device of every entry point that is not told another.
 DEFAULT_DEVICE = "cuda"
@@ -64,6 +64,16 @@ def ciphertext(words: np.ndarray, level: int, is_ntt_form: bool,
                       correction_factor=int(correction_factor))
 
 
+def lwe_ciphertext(c1: np.ndarray, c0: np.ndarray, level: int,
+                   device=DEFAULT_DEVICE, scale: float = 1.0,
+                   correction_factor: int = 1) -> LWECiphertext:
+    """LWECiphertext from its (limbs, n) c1 words and (limbs,) c0 words at a
+    chain level (CKKS: with its scale; BGV: with its correction factor)."""
+    return LWECiphertext(c1=to_torch(c1, device), c0=to_torch(c0, device),
+                         level=int(level), scale=float(scale),
+                         correction_factor=int(correction_factor))
+
+
 def plaintext(words: np.ndarray, device=DEFAULT_DEVICE,
               level: Optional[int] = None,
               is_ntt_form: bool = False, scale: float = 1.0) -> Plaintext:
@@ -96,7 +106,10 @@ def load_records(path) -> Dict[str, np.ndarray]:
 def words(obj):
     """The numpy u64 words of a port object's data (a ciphertext, plaintext,
     secret or public key); for switching keys (KSwitchKeys, RelinKeys,
-    GaloisKeys) a dict {power or Galois element: words}."""
+    GaloisKeys) a dict {power or Galois element: words}; for an LWE sample
+    the pair (c1 words, c0 words)."""
     if isinstance(obj, KSwitchKeys):
         return {p: to_numpy(w) for p, w in obj.keys.items()}
+    if isinstance(obj, LWECiphertext):
+        return to_numpy(obj.c1), to_numpy(obj.c0)
     return to_numpy(obj.data)

@@ -6,6 +6,11 @@ wrapped past x^n = -1, 0 staying 0) and ``_apply_permutation`` (the NTT
 domain: a plain gather). Data is (..., k, n); one launch covers every row.
 The index tables come from utils/galois.py and live on the device once per
 (n, elt, device).
+
+``permute_batched`` takes one table per leading batch index, (m, n), for
+data (m, ..., k, n), and can write component-major: the hoisted Galois
+path's output permutation and the batched fold's gather
+(troy_tpu/evaluator.py:442-535), one launch each.
 """
 
 from __future__ import annotations
@@ -37,6 +42,16 @@ def ntt_permutation(n: int, elt: int, device) -> torch.Tensor:
     """The NTT-domain permutation (int64) on ``device``."""
     perm = galois_util.ntt_permutation(n, elt)
     return torch.from_numpy(perm.astype(np.int64)).to(device)
+
+
+@lru_cache(maxsize=None)
+def ntt_inverse_permutation(n: int, elt: int, device) -> torch.Tensor:
+    """The inverse of the NTT-domain permutation of ``elt`` (int64) on
+    ``device``: gathering by it undoes the automorphism's gather."""
+    perm = galois_util.ntt_permutation(n, elt)
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n, dtype=np.int64)
+    return torch.from_numpy(inv).to(device)
 
 
 def apply_permutation_signed_plain(x: torch.Tensor, src: torch.Tensor,
@@ -96,3 +111,73 @@ def apply_permutation(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """NTT-domain automorphism (kernel M, unsigned): out[..., j] =
     x[..., perm[j]]."""
     return _permute(x, perm, None, None)
+
+
+@lru_cache(maxsize=256)
+def batched_tables(n: int, elts: Tuple[int, ...], device, signed: bool
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(srcs (m, n) int64, keeps (m, n) bool or None) of the elements, one
+    row each, on ``device`` once per (n, elts, device, form): the
+    coefficient-domain tables if ``signed``, else the NTT-domain
+    permutations."""
+    if signed:
+        pairs = [coeff_permutation(n, e, device) for e in elts]
+        return (torch.stack([p[0] for p in pairs]),
+                torch.stack([p[1] for p in pairs]))
+    return torch.stack([ntt_permutation(n, e, device) for e in elts]), None
+
+
+def permute_batched_plain(x: torch.Tensor, srcs: torch.Tensor,
+                          keeps: Optional[torch.Tensor],
+                          t: Optional[RnsNttTables],
+                          comps_first: bool = False) -> torch.Tensor:
+    """The plain version of kernel M's batched gather."""
+    m, n = srcs.shape
+    lead = (m,) + (1,) * (x.dim() - 2) + (n,)
+    index = srcs.reshape(lead).expand(x.shape[:-1] + (n,))
+    out = x.gather(-1, index)
+    if keeps is not None:
+        q = t.q.reshape((1,) * (x.dim() - 2) + (t.k, 1))
+        out = torch.where(keeps.reshape(lead), out, u.neg_mod(out, q))
+    return out.transpose(0, 1).contiguous() if comps_first else out
+
+
+def permute_batched(x: torch.Tensor, srcs: torch.Tensor,
+                    keeps: Optional[torch.Tensor], t: RnsNttTables,
+                    comps_first: bool = False) -> torch.Tensor:
+    """Kernel M with one table per leading batch index: x (m, ..., k, n),
+    srcs (m, n) int64 (or (1, n), one table for all), keeps (m, n) bool for
+    the signed coefficient-domain gather (moduli from t) or None for the
+    NTT-domain one. comps_first: x (m, c, k, n) is written as (c, m, k,
+    n)."""
+    if x.dim() < 3 or x.shape[-2] != t.k or x.shape[-1] != t.n:
+        raise ValueError(f"permute_batched: expected (m, ..., {t.k}, "
+                         f"{t.n}), got {tuple(x.shape)}")
+    m, n = x.shape[0], t.n
+    if srcs.dim() != 2 or srcs.shape[1] != n or srcs.shape[0] not in (1, m) \
+            or (keeps is not None and keeps.shape != srcs.shape):
+        raise ValueError(f"permute_batched: tables {tuple(srcs.shape)} for "
+                         f"data {tuple(x.shape)}")
+    if srcs.dtype != torch.int64 or (keeps is not None
+                                     and keeps.dtype != torch.bool):
+        raise TypeError("permute_batched: src must be int64, keep bool")
+    if comps_first and x.dim() != 4:
+        raise ValueError("permute_batched: comps_first takes (m, c, k, n)")
+    operands = [x, srcs, t.q] + ([keeps] if keeps is not None else [])
+    if not _kernels.on_cuda(*operands):
+        if srcs.shape[0] != m:
+            srcs = srcs.expand(m, n)
+            keeps = None if keeps is None else keeps.expand(m, n)
+        return permute_batched_plain(x, srcs, keeps, t, comps_first)
+    x = x.contiguous()
+    _kernels.check_operand(x, "permute_batched input")
+    rows = x.numel() // n
+    shape = ((x.shape[1], m) + x.shape[2:]) if comps_first else x.shape
+    out = torch.empty(shape, dtype=torch.int64, device=x.device)
+    _kernels.launch("troy_galois_permute_batched", out, x,
+                    srcs.contiguous(),
+                    None if keeps is None else keeps.contiguous(), rows, t.k,
+                    n.bit_length() - 1, t.q,
+                    rows // m if srcs.shape[0] == m else 0,
+                    x.shape[1] if comps_first else 0)
+    return out

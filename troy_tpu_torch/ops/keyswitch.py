@@ -12,7 +12,18 @@ The port of the glue of troy_tpu/evaluator.py ``_switch_key_decompose`` and
     added onto an accumulator (the key switch's last step, and with it the
     fold onto (c0, c1));
   * ``divide_and_round_q_last``: the BFV mod switch, the same divide by the
-    level's last prime on its own entry point (kernel K).
+    level's last prime on its own entry point (kernel K);
+  * ``bgv_divide_last``: the BGV divide in the coefficient domain (kernel
+    K''), which first subtracts a multiple of the plain modulus that makes
+    row k divisible by its prime: the key switch of a coefficient-form BGV
+    ciphertext (divisor the special prime) and, in ops/rns.py,
+    ``mod_t_and_divide_q_last`` (divisor the level's last prime).
+
+An accumulator is added onto the result's components in one of two
+layouts: (a, k, n), onto the first a components, or (g, a, k, n) with a
+``group`` size, onto the first a components of every group of ``group``
+components, group i taking row i mod g (c0 of each ciphertext of a batch,
+or one c0 for all of them).
 
 Each wrapper launches its kernel for tensors on CUDA and runs its plain
 version, written on the int64 u64ops twin, for tensors on the CPU.
@@ -83,12 +94,27 @@ def keyswitch_digits_plain(x: torch.Tensor, used: RnsNttTables
                                used.cr_hi.reshape(-1, 1))
 
 
+def add_accumulator_plain(out: torch.Tensor, acc: Optional[torch.Tensor],
+                          q: torch.Tensor,
+                          group: Optional[int] = None) -> torch.Tensor:
+    """out (s, k, n) with acc added in its layout (module docstring); q the
+    (k, 1) moduli."""
+    if acc is None:
+        return out
+    s, k, n = out.shape
+    acc4, group = (acc.unsqueeze(0), s) if acc.dim() == 3 else (acc, group)
+    a = acc4.shape[1]
+    grouped = out.reshape(s // group, group, k, n)
+    head = u.add_mod(acc4, grouped[:, :a], q).expand(s // group, a, k, n)
+    return torch.cat([head, grouped[:, a:]], dim=1).reshape(s, k, n)
+
+
 def divide_round_last_plain(x: torch.Tensor, consts: torch.Tensor,
-                            acc: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            acc: Optional[torch.Tensor] = None,
+                            group: Optional[int] = None) -> torch.Tensor:
     """(s, k+1, n) -> (s, k, n): rows 0..k-1 minus the centred row k, times
     p^-1 (troy_tpu/ops/rns.py divide_and_round_q_last and the tail of
-    evaluator._switch_key_contract), plus acc on its first components."""
+    evaluator._switch_key_contract), plus acc in its layout."""
     k = x.shape[-2] - 1
     q, ratio, half_mod, inv, inv_shoup = (
         consts[i * k:(i + 1) * k].reshape(-1, 1) for i in range(5))
@@ -97,10 +123,33 @@ def divide_round_last_plain(x: torch.Tensor, consts: torch.Tensor,
     temp = u.sub_mod(u.barrett_reduce_64(last, q, ratio), half_mod, q)
     out = u.mul_mod_shoup(u.sub_mod(x[..., :k, :], temp, q), inv, inv_shoup,
                           q)
-    if acc is not None:
-        s = acc.shape[0]
-        out = torch.cat([u.add_mod(acc, out[:s], q), out[s:]])
-    return out
+    return add_accumulator_plain(out, acc, q, group)
+
+
+def bgv_divide_last_plain(x: torch.Tensor, consts: torch.Tensor,
+                          acc: Optional[torch.Tensor] = None,
+                          group: Optional[int] = None) -> torch.Tensor:
+    """The plain version of kernel K'': (s, k+1, n) coefficient form ->
+    (s, k, n), (x_j + 2 q_j - (last mod q_j) - (neg_k mod q_j)(p mod q_j))
+    p^-1 mod q_j with neg_k = -(last mod tt) p^-1 mod tt and last row k
+    (troy_tpu/ops/rns.py:281-304), plus acc in its layout; consts from
+    ``bgv_divide_consts``."""
+    k = x.shape[-2] - 1
+    col = lambda start: consts[start:start + k].reshape(-1, 1)
+    q, ratio, inv, inv_shoup = col(0), col(k), col(3 * k), col(4 * k)
+    pm, pm_shoup = col(5 * k + 6), col(6 * k + 6)
+    tt, tt_hi, inv_t, inv_t_shoup = (
+        int(v) & u.M64 for v in consts[5 * k + 2:5 * k + 6].tolist())
+    last = x[..., k:, :]                                   # (s, 1, n)
+    neg_k = u.mul_mod_shoup(u.neg_mod(u.barrett_reduce_64(last, tt, tt_hi),
+                                      tt), inv_t, inv_t_shoup, tt)
+    delta = u.mul_mod_shoup(u.barrett_reduce_64(neg_k, q, ratio), pm,
+                            pm_shoup, q)
+    # below 3 q < 2^63: x < q, and both subtrahends below q
+    lazy = x[..., :k, :] + (2 * q - u.barrett_reduce_64(last, q, ratio)
+                            - delta)
+    out = u.mul_mod_shoup(lazy, inv, inv_shoup, q)
+    return add_accumulator_plain(out, acc, q, group)
 
 
 # --------------------------------------------------------------------------
@@ -127,42 +176,71 @@ def keyswitch_digits(x: torch.Tensor, used: RnsNttTables) -> torch.Tensor:
     return out
 
 
-def _divide_round(entry: str, x: torch.Tensor, consts: torch.Tensor,
-                  acc: Optional[torch.Tensor]) -> torch.Tensor:
+def accumulator_layout(acc: Optional[torch.Tensor], s: int, k: int, n: int,
+                       group: Optional[int], entry: str):
+    """(acc as a contiguous (g, a, k, n) tensor or None, a, group, g) for a
+    kernel's accumulator arguments; raises if acc does not fit s
+    components of (k, n)."""
+    if acc is None:
+        return None, 0, 1, 1
+    if acc.dim() == 3:
+        acc, group = acc.unsqueeze(0), s
+    if acc.dim() != 4 or group is None or group < 1 or s % group \
+            or acc.shape[1] > group or acc.shape[2:] != (k, n) \
+            or acc.shape[0] not in (1, s // group):
+        raise ValueError(f"{entry}: accumulator {tuple(acc.shape)} with "
+                         f"group {group} does not fit ({s}, {k}, {n})")
+    return acc.contiguous(), acc.shape[1], group, acc.shape[0]
+
+
+def _divide(entry: str, x: torch.Tensor, consts: torch.Tensor,
+            acc: Optional[torch.Tensor], group: Optional[int]
+            ) -> torch.Tensor:
+    bgv = entry == "troy_bgv_divide_coeff"
     if x.dim() != 3 or x.shape[1] < 2:
         raise ValueError(f"{entry}: expected (s, k+1, n), got "
                          f"{tuple(x.shape)}")
     s, k, n = x.shape[0], x.shape[1] - 1, x.shape[2]
-    if consts.numel() != 5 * k + 2:
-        raise ValueError(f"{entry}: constants for {(consts.numel() - 2) // 5}"
-                         f" limbs, data has {k}")
-    if acc is not None and (acc.dim() != 3 or acc.shape[0] > s
-                            or acc.shape[1:] != (k, n)):
-        raise ValueError(f"{entry}: accumulator {tuple(acc.shape)} does not "
-                         f"fit ({s}, {k}, {n})")
+    if consts.numel() != (7 * k + 6 if bgv else 5 * k + 2):
+        raise ValueError(f"{entry}: {consts.numel()} constants for data of "
+                         f"{k} limbs")
     operands = [x, consts] + ([acc] if acc is not None else [])
     if not _kernels.on_cuda(*operands):
-        return divide_round_last_plain(x, consts, acc)
+        accumulator_layout(acc, s, k, n, group, entry)       # the checks
+        plain = bgv_divide_last_plain if bgv else divide_round_last_plain
+        return plain(x, consts, acc, group)
     if k > MAX_KERNEL_LIMBS or n & (n - 1):
         raise ValueError(f"{entry}: k = {k}, n = {n} not supported")
     x = x.contiguous()
     _kernels.check_operand(x, f"{entry} input")
+    acc, a, group, groups = accumulator_layout(acc, s, k, n, group, entry)
     if acc is not None:
-        acc = acc.contiguous()
         _kernels.check_operand(acc, f"{entry} accumulator")
     out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
-    _kernels.launch(entry, out, x, acc, s, 0 if acc is None else acc.shape[0],
-                    k, n.bit_length() - 1, consts)
+    _kernels.launch(entry, out, x, acc, s, a, group, groups, k,
+                    n.bit_length() - 1, consts)
     return out
 
 
 def divide_round_last(x: torch.Tensor, consts: torch.Tensor,
-                      acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      acc: Optional[torch.Tensor] = None,
+                      group: Optional[int] = None) -> torch.Tensor:
     """The key switch's divide by the special prime with rounding (kernel
     F): x (s, k+1, n) coefficient form, row k the special row; consts from
-    ``divide_round_consts``; the result (s, k, n), with acc (a, k, n),
-    a <= s, added onto its first a components."""
-    return _divide_round("troy_keyswitch_divide_round", x, consts, acc)
+    ``divide_round_consts``; the result (s, k, n), with acc added in its
+    layout (module docstring)."""
+    return _divide("troy_keyswitch_divide_round", x, consts, acc, group)
+
+
+def bgv_divide_last(x: torch.Tensor, consts: torch.Tensor,
+                    acc: Optional[torch.Tensor] = None,
+                    group: Optional[int] = None) -> torch.Tensor:
+    """The BGV divide by the prime of row k in the coefficient domain
+    (kernel K''): x (s, k+1, n) minus a multiple of the plain modulus that
+    makes row k divisible by the prime, divided by it; consts from
+    ``bgv_divide_consts``; the result (s, k, n), with acc added in its
+    layout (module docstring)."""
+    return _divide("troy_bgv_divide_coeff", x, consts, acc, group)
 
 
 def divide_and_round_q_last(x: torch.Tensor,
@@ -174,7 +252,7 @@ def divide_and_round_q_last(x: torch.Tensor,
         raise ValueError(f"divide_and_round_q_last: expected (s, {t.k}, n) "
                          f"with at least two limbs, got {tuple(x.shape)}")
     consts = divide_round_consts(t.slice(0, t.k - 1), t.values[-1])
-    return _divide_round("troy_mod_switch_divide_round", x, consts, None)
+    return _divide("troy_mod_switch_divide_round", x, consts, None, None)
 
 
 def used_limbs(k: int, key_limbs: int) -> Sequence[int]:

@@ -343,6 +343,36 @@ def dyadic_mac(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def dyadic_mac_batched(key: torch.Tensor, targets: torch.Tensor,
+                       t: RnsNttTables) -> torch.Tensor:
+    """The key switch's inner product of m targets under one key (kernel
+    B, one launch): out[i, c] = sum_j targets[i, j] * key[j, c] mod q per
+    limb. key: (J, C, k, n), targets: (m, J, k, n), both below 4q with
+    J <= 4, or reduced; out (m, C, k, n), fully reduced. The key is read
+    once for the whole batch and each target once per component."""
+    if key.dim() != 4 or targets.dim() != 4 \
+            or key.shape[0] != targets.shape[1] \
+            or key.shape[2:] != targets.shape[2:]:
+        raise ValueError(f"dyadic_mac_batched: key {tuple(key.shape)} and "
+                         f"targets {tuple(targets.shape)} do not fit")
+    _check_rows(key, t, "dyadic_mac_batched key")
+    _check_rows(targets, t, "dyadic_mac_batched targets")
+    if not _kernels.on_cuda(key, targets, t.q):
+        return dyadic_mac_plain(targets.transpose(0, 1).unsqueeze(2),
+                                key.unsqueeze(1), t)
+    key, targets = key.contiguous(), targets.contiguous()
+    _kernels.check_operand(key, "dyadic_mac_batched key")
+    _kernels.check_operand(targets, "dyadic_mac_batched targets")
+    m, terms = targets.shape[:2]
+    comps = key.shape[1]
+    out = torch.empty((m, comps, t.k, t.n), dtype=torch.int64,
+                      device=key.device)
+    _kernels.launch("troy_dyadic_mac_batched", out, key, targets, terms,
+                    comps * t.k, m * comps * t.k, t.k, t.log_n, t.k, t.q,
+                    t.cr_lo, t.cr_hi)
+    return out
+
+
 def rns_dyadic_mul(a: torch.Tensor, b: torch.Tensor,
                    t: RnsNttTables) -> torch.Tensor:
     """Pointwise product mod per-limb q: inputs (..., k, n) (kernel B with

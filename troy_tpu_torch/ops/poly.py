@@ -5,14 +5,17 @@ The port of troy_tpu/ops/poly.py. Arrays are (..., k, n) int64 tensors of
 u64 words, limb-major, with per-limb moduli from the base's RnsNttTables.
 ``rns_add``, ``rns_sub``, ``rns_neg`` and ``rns_scalar_mul`` run on kernel
 D (csrc/rns_elementwise.cu), ``bfv_plain_embed`` on kernel G and
-``plain_lift`` on kernel G' (both csrc/plain_embed.cu) for tensors on
-CUDA, and on their plain versions for tensors on the CPU (for G,
+``plain_lift`` on kernel G' (both csrc/plain_embed.cu), the negacyclic
+shift family ``negacyclic_shift``, ``extract_lwe_many`` and
+``assemble_lwe`` on kernel N1 and the pack-tree prepare
+``pack_fold_prepare`` on kernel N2 (both csrc/negacyclic.cu) for tensors
+on CUDA, and on their plain versions for tensors on the CPU (for G,
 ``bfv_multiply_add_plain``, the JAX package's function).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -249,3 +252,196 @@ def plain_lift(m: torch.Tensor, t: RnsNttTables, plain_modulus: int,
                     t.log_n, plain_upper_half_threshold, cf,
                     u.shoup_quotient(cf, tt), consts)
     return out
+
+
+# --------------------------------------------------------------------------
+# kernels N1 and N2: the negacyclic shift family and the pack-tree prepare
+# --------------------------------------------------------------------------
+#
+# x^s mod x^n + 1 moves coefficient p to (p + s) mod n, negated where
+# p + s (mod 2n) lies in [n, 2n); 0 stays 0 (troy_tpu/ops/poly.py:146). A
+# shift is one int for every row or a device int64 array with one per
+# leading batch index, any integer taken mod 2n.
+
+Shift = Union[int, torch.Tensor]
+
+
+def _shift_sources(shifts: torch.Tensor, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(src, neg), each (B, n): output j of row b is +-x[src[b, j]]."""
+    s = (shifts & (2 * n - 1)).unsqueeze(-1)
+    src = (torch.arange(n, device=shifts.device) - s) & (n - 1)
+    return src, ((src + s) >> (n.bit_length() - 1)) & 1 == 1
+
+
+def _shift_tensor(shift: Shift, device) -> torch.Tensor:
+    if isinstance(shift, torch.Tensor):
+        return shift
+    return torch.tensor([int(shift)], dtype=torch.int64, device=device)
+
+
+def negacyclic_shift_plain(x: torch.Tensor, shift: Shift, t: RnsNttTables,
+                           scalars: Optional[Sequence[int]] = None
+                           ) -> torch.Tensor:
+    """The plain version of kernel N1's shift: x (B, ..., k, n) times x^s_b
+    (or x (..., k, n) times x^shift), then times scalars_i mod q_i."""
+    src, neg = _shift_sources(_shift_tensor(shift, x.device), t.n)
+    lead = (src.shape[0],) + (1,) * (x.dim() - 2) + (t.n,)
+    src, neg = src.reshape(lead), neg.reshape(lead)
+    q = _col(t.q, x.dim() - 2, 1)
+    out = x.gather(-1, src.expand(x.shape))
+    out = torch.where(neg, u.neg_mod(out, q), out)
+    if scalars is not None:
+        w, wq = t.scalar_operand(scalars)
+        L = x.dim() - 2
+        out = u.mul_mod_shoup(out, _col(w, L, 1), _col(wq, L, 1), q)
+    return out
+
+
+def extract_lwe_many_plain(data: torch.Tensor, shifts: torch.Tensor,
+                           t: RnsNttTables
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel N1's extract (troy_tpu/evaluator.py:647
+    _extract_lwe_many_core)."""
+    c1s = negacyclic_shift_plain(data[1].expand((shifts.shape[0],)
+                                                + data.shape[1:]),
+                                 shifts, t)
+    terms = (2 * t.n - shifts) & (2 * t.n - 1)
+    return c1s, data[0].index_select(-1, terms).transpose(0, 1)
+
+
+def assemble_lwe_plain(c1s: torch.Tensor, c0s: torch.Tensor, terms: Shift,
+                       t: RnsNttTables,
+                       scalars: Optional[Sequence[int]] = None
+                       ) -> torch.Tensor:
+    """The plain version of kernel N1's assemble (troy_tpu/evaluator.py:674
+    _pack_assemble_core, and :1374 assemble_lwe)."""
+    b, k, n = c1s.shape
+    terms = _shift_tensor(terms, c1s.device).expand(b)
+    c1 = negacyclic_shift_plain(c1s, terms, t, scalars)
+    c0 = torch.zeros_like(c1s)
+    c0.scatter_(-1, terms.reshape(b, 1, 1).expand(b, k, 1),
+                c0s.unsqueeze(-1))
+    if scalars is not None:
+        c0 = rns_elementwise_plain(SCALAR_MUL, c0, None, t,
+                                   *t.scalar_operand(scalars))
+    return torch.stack([c0, c1], dim=1)
+
+
+def pack_fold_prepare_plain(cur: torch.Tensor, shift: int, t: RnsNttTables
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel N2 (troy_tpu/evaluator.py:573
+    _pack_fold_prepare, coefficient domain)."""
+    even = cur[0::2]
+    temp = negacyclic_shift_plain(cur[1::2], shift, t)
+    q = _col(t.q, cur.dim() - 2, 1)
+    return u.add_mod(even, temp, q), u.sub_mod(even, temp, q)
+
+
+def _shift_args(shift: Shift, batch: int, device):
+    """(shifts tensor or None, scalar shift) for an N1 launch."""
+    if isinstance(shift, torch.Tensor):
+        if shift.shape != (batch,) or shift.dtype != torch.int64:
+            raise ValueError(f"negacyclic shift: shifts {tuple(shift.shape)} "
+                             f"{shift.dtype} for a batch of {batch}")
+        return shift.contiguous(), 0
+    return None, int(shift)
+
+
+def negacyclic_shift(x: torch.Tensor, shift: Shift,
+                     t: RnsNttTables) -> torch.Tensor:
+    """x (..., k, n) times x^shift mod x^n + 1, or x (B, ..., k, n) with a
+    device int64 array of B shifts, one per leading index (kernel N1, one
+    launch). Words below q."""
+    _check_rows(x, t, "negacyclic_shift")
+    operands = [x, t.q] + ([shift] if isinstance(shift, torch.Tensor)
+                           else [])
+    if not _kernels.on_cuda(*operands):
+        return negacyclic_shift_plain(x, shift, t)
+    batch = x.shape[0] if isinstance(shift, torch.Tensor) else 1
+    shifts, scalar = _shift_args(shift, batch, x.device)
+    x = x.contiguous()
+    _kernels.check_operand(x, "negacyclic_shift input")
+    out = torch.empty_like(x)
+    _kernels.launch("troy_negacyclic_shift", out, x, shifts, scalar, batch,
+                    x.numel() // (batch * t.n), t.k, t.log_n, t.q)
+    return out
+
+
+def extract_lwe_many(data: torch.Tensor, shifts: torch.Tensor,
+                     t: RnsNttTables) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LWE samples of a coefficient-form ciphertext (2, k, n) at the
+    terms whose shifts 2n - term (0 for term 0) a device int64 array
+    (B,) holds: (c1s (B, k, n), c1 times x^shift_b; c0s (B, k), the column
+    term_b of c0) (kernel N1, one launch, c1 read once)."""
+    _check_rows(data, t, "extract_lwe_many")
+    if data.dim() != 3 or data.shape[0] != 2:
+        raise ValueError(f"extract_lwe_many: expected (2, {t.k}, {t.n}), "
+                         f"got {tuple(data.shape)}")
+    if not _kernels.on_cuda(data, shifts, t.q):
+        return extract_lwe_many_plain(data, shifts, t)
+    batch = shifts.shape[0]
+    shifts, _ = _shift_args(shifts, batch, data.device)
+    data = data.contiguous()
+    _kernels.check_operand(data, "extract_lwe_many data")
+    c1s = torch.empty((batch, t.k, t.n), dtype=torch.int64,
+                      device=data.device)
+    c0s = torch.empty((batch, t.k), dtype=torch.int64, device=data.device)
+    _kernels.launch("troy_extract_lwe", c1s, c0s, data, shifts, batch, t.k,
+                    t.log_n, t.q)
+    return c1s, c0s
+
+
+def assemble_lwe(c1s: torch.Tensor, c0s: torch.Tensor, terms: Shift,
+                 t: RnsNttTables, scalars: Optional[Sequence[int]] = None
+                 ) -> torch.Tensor:
+    """LWE samples (c1s (B, k, n), c0s (B, k)) back to coefficient-form
+    ciphertexts (B, 2, k, n) whose coefficient term_b carries the value: c1
+    times x^term_b, c0 at that column and 0 elsewhere; both times
+    scalars_i mod q_i if given (kernel N1, one launch). terms: one int, or
+    a device int64 array (B,) in [0, n)."""
+    _check_rows(c1s, t, "assemble_lwe")
+    if c1s.dim() != 3 or c0s.shape != c1s.shape[:2]:
+        raise ValueError(f"assemble_lwe: c1s {tuple(c1s.shape)} and c0s "
+                         f"{tuple(c0s.shape)} do not fit")
+    operands = [c1s, c0s, t.q] + ([terms] if isinstance(terms, torch.Tensor)
+                                  else [])
+    if not _kernels.on_cuda(*operands):
+        return assemble_lwe_plain(c1s, c0s, terms, t, scalars)
+    batch = c1s.shape[0]
+    shifts, scalar = _shift_args(terms, batch, c1s.device)
+    c1s, c0s = c1s.contiguous(), c0s.contiguous()
+    _kernels.check_operand(c1s, "assemble_lwe c1s")
+    _kernels.check_operand(c0s, "assemble_lwe c0s")
+    out = torch.empty((batch, 2, t.k, t.n), dtype=torch.int64,
+                      device=c1s.device)
+    w, wq = (None, None) if scalars is None else t.scalar_operand(scalars)
+    _kernels.launch("troy_assemble_lwe", out, c1s, c0s, shifts, scalar,
+                    batch, t.k, t.log_n, t.q, w, wq)
+    return out
+
+
+def pack_fold_prepare(cur: torch.Tensor, shift: int, t: RnsNttTables
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pack-tree layer's shift and fold, coefficient domain: cur
+    (2m, 2, k, n) -> (even + x^shift odd, even - x^shift odd), each
+    (m, 2, k, n), even and odd the ciphertexts at even and odd indices
+    (kernel N2, one launch)."""
+    _check_rows(cur, t, "pack_fold_prepare")
+    if cur.dim() != 4 or cur.shape[1] != 2 or cur.shape[0] % 2:
+        raise ValueError(f"pack_fold_prepare: expected (2m, 2, {t.k}, "
+                         f"{t.n}), got {tuple(cur.shape)}")
+    if not _kernels.on_cuda(cur, t.q):
+        return pack_fold_prepare_plain(cur, shift, t)
+    if t.k > 64:
+        raise ValueError(f"pack_fold_prepare: {t.k} limbs; the kernel takes "
+                         "at most 64")
+    cur = cur.contiguous()
+    _kernels.check_operand(cur, "pack_fold_prepare input")
+    pairs = cur.shape[0] // 2
+    even = torch.empty((pairs,) + cur.shape[1:], dtype=torch.int64,
+                       device=cur.device)
+    folded = torch.empty_like(even)
+    _kernels.launch("troy_pack_fold_prepare", even, folded, cur, int(shift),
+                    pairs, t.k, t.log_n, t.q)
+    return even, folded

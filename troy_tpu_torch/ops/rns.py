@@ -11,7 +11,9 @@ csrc/divide_round_ntt.cu: ``divide_and_round_q_last_ntt``,
 ``divide_round_last_ntt``), its BGV members, which first subtract a
 multiple of t that makes the divided row divisible by the prime
 (``mod_t_and_divide_q_last_ntt`` and the BGV key switch's divide, kernel
-K'-BGV), and the BGV decrypt's exact conversion q -> t
+K'-BGV), the same BGV divide in the coefficient domain
+(``mod_t_and_divide_q_last``, kernel K'', csrc/keyswitch.cu), and the BGV
+decrypt's exact conversion q -> t
 (``exact_convert``, ``decrypt_mod_t``, kernel X, csrc/exact_convert.cu).
 An RNS polynomial is a (..., k, n) int64
 tensor of u64 words; every function here also takes leading batch axes, so
@@ -42,6 +44,7 @@ from . import u64ops as u
 from .. import _kernels
 from ..interop import to_torch
 from ..utils.rns import BaseConverter, RnsBase, RnsTool
+from . import keyswitch as dks
 from .keyswitch import MAX_KERNEL_LIMBS as KEYSWITCH_MAX_LIMBS
 from .ntt import RnsNttTables
 from .poly import ADD, SCALAR_MUL, rns_elementwise_plain
@@ -454,17 +457,15 @@ def divide_round_ntt_temps_plain(last: torch.Tensor,
 
 def divide_round_ntt_finish_plain(x: torch.Tensor, temps: torch.Tensor,
                                   consts: torch.Tensor,
-                                  acc: Optional[torch.Tensor] = None
+                                  acc: Optional[torch.Tensor] = None,
+                                  group: Optional[int] = None
                                   ) -> torch.Tensor:
     """The plain version of K''s finish: (x_j + 4 q_j - temp_j) p^-1 mod
     q_j for rows j < k of x (s, k+1, n), temps (s, k, n) below 4 q_j, plus
-    acc (a, k, n) on the first a components (troy_tpu/ops/rns.py:238-243)."""
+    acc in the layout of ops/keyswitch.py (troy_tpu/ops/rns.py:238-243)."""
     k, (q, _, _, inv, inv_shoup), _, _ = _divide_consts(consts)
     out = u.mul_mod_shoup(x[:, :k] + (4 * q - temps), inv, inv_shoup, q)
-    if acc is not None:
-        a = acc.shape[0]
-        out = torch.cat([u.add_mod(acc, out[:a], q), out[a:]])
-    return out
+    return dks.add_accumulator_plain(out, acc, q, group)
 
 
 def _bgv_divide_consts(consts: torch.Tensor):
@@ -515,29 +516,25 @@ def _ntt_temps(entry: str, last: torch.Tensor,
 
 
 def _ntt_finish(entry: str, x: torch.Tensor, temps: torch.Tensor,
-                consts: torch.Tensor,
-                acc: Optional[torch.Tensor]) -> torch.Tensor:
+                consts: torch.Tensor, acc: Optional[torch.Tensor],
+                group: Optional[int] = None) -> torch.Tensor:
     s, k, n = temps.shape
     if x.shape != (s, k + 1, n) or consts.numel() != 5 * k + 2:
         raise ValueError(f"{entry}: x {tuple(x.shape)}, temps "
                          f"{tuple(temps.shape)} and {consts.numel()} "
                          "constants do not fit")
-    if acc is not None and (acc.dim() != 3 or acc.shape[0] > s
-                            or acc.shape[1:] != (k, n)):
-        raise ValueError(f"{entry}: accumulator {tuple(acc.shape)} does not "
-                         f"fit ({s}, {k}, {n})")
+    layout = dks.accumulator_layout(acc, s, k, n, group, entry)
     operands = [x, temps, consts] + ([acc] if acc is not None else [])
     if not _kernels.on_cuda(*operands):
-        return divide_round_ntt_finish_plain(x, temps, consts, acc)
+        return divide_round_ntt_finish_plain(x, temps, consts, acc, group)
     x, temps = x.contiguous(), temps.contiguous()
     _kernels.check_operand(x, f"{entry} x")
     _kernels.check_operand(temps, f"{entry} temps")
+    acc, a, group, groups = layout
     if acc is not None:
-        acc = acc.contiguous()
         _kernels.check_operand(acc, f"{entry} accumulator")
     out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
-    _kernels.launch(entry, out, x, temps, acc, s,
-                    0 if acc is None else acc.shape[0], k,
+    _kernels.launch(entry, out, x, temps, acc, s, a, group, groups, k,
                     n.bit_length() - 1, consts)
     return out
 
@@ -545,11 +542,12 @@ def _ntt_finish(entry: str, x: torch.Tensor, temps: torch.Tensor,
 def divide_round_last_ntt(x: torch.Tensor, tables: RnsNttTables,
                           last_tables: RnsNttTables, consts: torch.Tensor,
                           acc: Optional[torch.Tensor] = None,
-                          entries=KEYSWITCH) -> torch.Tensor:
+                          entries=KEYSWITCH,
+                          group: Optional[int] = None) -> torch.Tensor:
     """x (s, k+1, n) NTT form -> (s, k, n) NTT form: rows 0..k-1 (over
     ``tables``) minus the rounded row k (over ``last_tables``, the prime p
-    of ``consts``), times p^-1, plus acc (a, k, n) on the first a
-    components. Kernels A, K', A, K'; ``entries`` names K''s entry points
+    of ``consts``), times p^-1, plus acc in the layout of ops/keyswitch.py.
+    Kernels A, K', A, K'; ``entries`` names K''s entry points
     (and with them its launch count); with the BGV entries, consts are
     ops/keyswitch.bgv_divide_consts, whose first 5k + 2 words the finish
     reads."""
@@ -557,7 +555,7 @@ def divide_round_last_ntt(x: torch.Tensor, tables: RnsNttTables,
     last = dntt.rns_ntt_inverse(x[:, k:], last_tables)[:, 0]
     temps = dntt.rns_ntt_forward(_ntt_temps(entries[0], last, consts),
                                  tables, lazy=True)
-    return _ntt_finish(entries[1], x, temps, consts[:5 * k + 2], acc)
+    return _ntt_finish(entries[1], x, temps, consts[:5 * k + 2], acc, group)
 
 
 def divide_and_round_q_last_ntt(x: torch.Tensor, t: RnsNttTables,
@@ -596,6 +594,20 @@ def mod_t_and_divide_q_last_ntt(x: torch.Tensor, t: RnsNttTables,
     return divide_round_last_ntt(x, t.slice(0, t.k - 1),
                                  t.slice(t.k - 1, t.k), consts, None,
                                  BGV_MOD_SWITCH)
+
+
+def mod_t_and_divide_q_last(x: torch.Tensor, t: RnsNttTables,
+                            consts: torch.Tensor) -> torch.Tensor:
+    """The BGV mod switch in the coefficient domain (rns.cpp:1097-1140;
+    troy_tpu/ops/rns.py:281): x (s, k, n) over the level's base t ->
+    (s, k-1, n), minus a multiple of the plain modulus that makes the last
+    row divisible by the last prime, divided by it; consts =
+    bgv_divide_consts(t.slice(0, k-1), that prime, tt). One kernel-K''
+    launch."""
+    if x.dim() != 3 or x.shape[1] != t.k or t.k < 2:
+        raise ValueError(f"mod_t_and_divide_q_last: expected (s, {t.k}, n) "
+                         f"with at least two limbs, got {tuple(x.shape)}")
+    return dks.bgv_divide_last(x, consts)
 
 
 def mod_t_and_divide_q_last_ntt_plain(x: torch.Tensor, t: RnsNttTables,
