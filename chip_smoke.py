@@ -6,8 +6,9 @@
 Three configurations of troy's own timing test (test/timetest.cu),
 128-bit security, n = 16384, q = {60,40,40,40,40,60}: BFV with
 t = PlainModulus.batching(n, 20), CKKS at scale 2^40, and BGV with the
-same t. Phases, in order; any failure raises and the script exits non-zero
-without a result line:
+same t; and troy's app benchmark (test/app/linear.cu:575-584), BFV and BGV
+at n = 16384, q = {60,60,60}, t = 2^41. Phases, in order; any failure
+raises and the script exits non-zero without a result line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
 2. build the CUDA kernels from troy_tpu_torch/csrc with nvcc (sm_90a), one
@@ -125,14 +126,42 @@ without a result line:
    negacyclic_shift;
 19. phase 18's checks in a count window of their own: N1, N2, K'', M, A,
    B, D and F launched, no plain version or u64ops on a CUDA tensor; and
-   the per-op device kernels and time from the profiler.
+   the per-op device kernels and time from the profiler;
+20. the app layer's kernels (P1 the ct x pt tile contraction at conv2d's
+   (1,64,2,2,n) x (64,52,2,n) and matmul's (1,8,2,2,n) x (8,16,2,n); P2
+   the ciphertext pair grid at X = 1, Yc = 16 over q u Bsk with lazy words
+   and over q; P3 the group fold at m = 16 and a ragged m = 20, P = 16)
+   against their plain versions, word for word, with the times and bounds
+   of phase 3 (no PyTorch call computes them: no library time);
+21. troy's app protocol at full width (test/app/linear.cu:575-584, as
+   benchmarks/linear_bench.py sets it up: BFV, n = 16384, q = {60,60,60},
+   t = 2^41; inputs and weights below 2^8 from a seed; the relin key and
+   the pack's automorphism keys made on the card from a seeded secret
+   key): matmul 64x128x256 with pack_lwe through pack, serialize,
+   deserialize and decrypt; the same with encrypted weights, relinearized
+   and packed; matmul 128x500x1001 with saveTerms; conv2d 1x64x256 56x56
+   3x3; each decrypts exactly to the integer oracle mod t, each ciphertext
+   grid round-trips Cipher2d.save/load; a packed BGV matmul 64x128x256
+   (t = 2^41, the inputs in coefficient form) exactly, and a CKKS matmul
+   64x128x256 (the CKKS configuration above, scale 2^40) within
+   CKKS_APP_BOUND; then the medians of each protocol phase in
+   linear_bench.py's order, the BIG matmul's and the conv2d's (CUDA
+   events, APP_REPS runs after a warm-up; the host's encode loops and the
+   decryption apart from the output gathers);
+22. phase 21's checks in a count window of their own: P1, P2, P3, A, B,
+   C, D, E, F, G', I, M, N1, K'', X, O2 and O3 launched, no plain version
+   or u64ops on a CUDA tensor; and the device kernels and time of matmul,
+   matmul_cipher, pack_outputs, conv2d, decrypt_many of the conv's 52
+   outputs and fetch_ciphertexts_host(to_coeff=True) from the profiler.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
-phase 14, the default path of phase 16 and the LWE path of phase 18, each
-counted from 0, also given apart) and the bounds of the composite ops (M'
-the NTT-form rotation and the hoisted path over 8 elements, L the plain
-products, Q a device switching key); a line before it gives the
+phase 14, the default path of phase 16, the LWE path of phase 18 and the
+app protocol of phase 21, each counted from 0, also given apart) and the
+bounds of the composite ops (M' the NTT-form rotation and the hoisted path
+over 8 elements, L the plain products, Q a device switching key; N the
+pack of 16 and the trace, the batched decrypt of 52 outputs, O's
+polynomial encode and decode); a line before it gives the
 whole run's wall seconds; the last line is
 {"ok": true, "device": {...}}.
 
@@ -163,10 +192,11 @@ import numpy as np
 import torch
 
 import troy_tpu_torch as P
-from troy_tpu_torch import (_kernels, interop, prng as rnd, rlwe, to_numpy,
-                            to_torch)
+from troy_tpu_torch import (_kernels, interop, prng as rnd, rlwe,
+                            serialization, to_numpy, to_torch)
+from troy_tpu_torch.app import linear
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly, rns,
-                                sampling)
+                                sampling, tiles)
 from troy_tpu_torch.utils import galois as galois_util
 
 N = 16384
@@ -200,6 +230,14 @@ HOIST_MS = (1, 2, 4, 8, 16)          # apply_galois_many against sequential
 # (4.5e6 on the H100 for a pack of 256); the port is word-equal to
 # troy_tpu on the CPU, so this is the algorithm's, not the port's
 CKKS_LWE_BOUND = 2.0 ** -16 * CKKS_SCALE
+APP_Q_BITS = [60, 60, 60]            # troy's app benchmark,
+APP_T = 1 << 41                      # test/app/linear.cu:575-584
+APP_SEED = 2032                      # phases 21-22's keys and inputs
+APP_INPUT_BOUND = 1 << 8             # inputs and weights below 2^8
+APP_REPS = 5                         # protocol-phase medians
+# CKKS matmul 64 x 128 x 256 at scale 2^40: |decrypted - x w|; the
+# encryption noise over scale^2 and the encodes' rounding are near 2^-30
+CKKS_APP_BOUND = 1e-6
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -243,6 +281,12 @@ KERNELS = {
                         "troy_tpu/evaluator.py:573"),
     "Kpp_bgv_coeff": ("troy_tpu_torch/csrc/keyswitch.cu",
                       "troy_tpu/ops/rns.py:281"),
+    "P1_tile_contract": ("troy_tpu_torch/csrc/tiles.cu",
+                         "troy_tpu/app/linear.py:43"),
+    "P2_pair_convolve": ("troy_tpu_torch/csrc/tiles.cu",
+                         "troy_tpu/app/linear.py:133"),
+    "P3_group_fold": ("troy_tpu_torch/csrc/tiles.cu",
+                      "troy_tpu/app/linear.py:237"),
 }
 # the kernels each path must launch
 BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
@@ -260,6 +304,11 @@ DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                 "G_plain_embed", "Gp_plain_lift")
 LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
             "A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch")
+APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
+            "B_dyadic_mac", "C_base_convert", "D_rns_elementwise", "E_behz",
+            "F_keyswitch", "Gp_plain_lift", "I_sampling", "M_galois",
+            "N1_negacyclic", "Kpp_bgv_coeff", "X_exact_convert",
+            "O2_ckks_round", "O3_ckks_compose")
 
 
 def log(msg: str) -> None:
@@ -1821,6 +1870,367 @@ def phase_lwe(ctxs: dict, counter) -> tuple:
     return counts, times, per_op, worst
 
 
+# --------------------------------------------------------------------------
+# troy's app layer: phases 20-22
+# --------------------------------------------------------------------------
+
+def tile_work(a: torch.Tensor, w: torch.Tensor, out_words: int,
+              mul64: int) -> tuple:
+    """bound() arguments of a tile kernel: its inputs read once, its output
+    written once, its 64-bit products."""
+    return (a.numel() + w.numel() + out_words) * 8, mul64
+
+
+def phase_app_kernels(ctx) -> dict:
+    """Phase 20: P1, P2 and P3 against their plain versions on the card at
+    the app protocol's full-width shapes, word for word (tolerance 0). No
+    PyTorch call computes a modular tile contraction on u64 words: no
+    library time."""
+    rng = np.random.default_rng(SEED + 20)
+    dev = ctx.device
+    cd = ctx.first_context_data
+    q, qb = cd.ntt, cd.rns.q_bsk
+    k = q.k
+    conv_a = _uniform(rng, q.values, (1, 64, 2, k, N), dev)
+    conv_w = _uniform(rng, q.values, (64, 52, k, N), dev)
+    mm_a = _uniform(rng, q.values, (1, 8, 2, k, N), dev)
+    mm_w = _uniform(rng, q.values, (8, 16, k, N), dev)
+    lazy = [4 * v for v in qb.values]
+    bfv_a = _uniform(rng, lazy, (1, 2, qb.k, N), dev)
+    bfv_w = _uniform(rng, lazy, (16, 2, qb.k, N), dev)
+    ntt_a = _uniform(rng, q.values, (1, 2, k, N), dev)
+    ntt_w = _uniform(rng, q.values, (16, 2, k, N), dev)
+    fold16 = _uniform(rng, q.values, (16, 2, k, N), dev)
+    fold20 = _uniform(rng, q.values, (20, 2, k, N), dev)
+    # P1: per output word 2 I products' words and a Barrett-128 (7) per 63
+    # terms; P2: 4 products and 3 Barretts per (x, y, row, coefficient)
+    p1_out = 52 * 2 * k * N
+    checks = [
+        ("P1_tile_contract", f"conv (1,64,2,{k},n) x (64,52,{k},n)",
+         lambda: tiles.tile_contract(conv_a, conv_w, q),
+         lambda: tiles.tile_contract_plain(conv_a, conv_w, q),
+         tile_work(conv_a, conv_w, p1_out, p1_out * (2 * 64 + 7 * 2)),
+         None),
+        ("P1_tile_contract", f"matmul (1,8,2,{k},n) x (8,16,{k},n)",
+         lambda: tiles.tile_contract(mm_a, mm_w, q),
+         lambda: tiles.tile_contract_plain(mm_a, mm_w, q), None, None),
+        ("P2_pair_convolve", f"BFV X=1 Yc=16 over q u Bsk ({qb.k} rows), "
+         "lazy",
+         lambda: tiles.tile_pair_convolve(bfv_a, bfv_w, qb),
+         lambda: tiles.tile_pair_convolve_plain(bfv_a, bfv_w, qb),
+         tile_work(bfv_a, bfv_w, 16 * 3 * qb.k * N,
+                   16 * qb.k * N * (4 * 2 + 3 * 7)), None),
+        ("P2_pair_convolve", f"X=1 Yc=16 over q ({k} rows)",
+         lambda: tiles.tile_pair_convolve(ntt_a, ntt_w, q),
+         lambda: tiles.tile_pair_convolve_plain(ntt_a, ntt_w, q), None,
+         None),
+        ("P3_group_fold", f"m=16 P=16 (16,2,{k},n)",
+         lambda: tiles.pack_group_fold(fold16, 16, q),
+         lambda: tiles.pack_group_fold_plain(fold16, 16, q),
+         tile_work(fold16, fold16[:0], 2 * k * N, 0), None),
+        ("P3_group_fold", f"ragged m=20 P=16 (20,2,{k},n)",
+         lambda: tiles.pack_group_fold(fold20, 16, q),
+         lambda: tiles.pack_group_fold_plain(fold20, 16, q), None, None),
+    ]
+    return run_checks("20", [(c[0], c[1], "words") + c[2:] for c in checks])
+
+
+def app_context(scheme) -> "P.HeContext":
+    """troy's app benchmark configuration (test/app/linear.cu:575-584, as
+    benchmarks/linear_bench.py sets it up): n = 16384, q = {60,60,60},
+    t = 2^41."""
+    return P.HeContext(P.EncryptionParameters(
+        scheme=scheme, poly_modulus_degree=N,
+        coeff_modulus=tuple(P.CoeffModulus.create(N, APP_Q_BITS)),
+        plain_modulus=P.Modulus(APP_T)))
+
+
+class AppScheme:
+    """One scheme's app state on the card: a secret key from the seed, the
+    relin key and the pack's automorphism keys made on the device from it
+    (kernel Q), the encryptor, decryptor, evaluator and polynomial
+    encoder."""
+
+    def __init__(self, name: str, ctx, seed: int):
+        self.name, self.ctx = name, ctx
+        self.ckks = ctx.scheme == P.SchemeType.ckks
+        kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(seed))
+        dk = P.KeyGenerator(ctx, kg.secret_key, rnd.seed_from_uint64(seed + 1))
+        t0 = time.perf_counter()
+        self.rlk = dk.create_relin_keys()
+        # the trace of a pack of 16: elements n + 1, n/2 + 1, n/4 + 1, n/8 + 1
+        self.gk = dk.create_galois_keys(elts=[(N >> i) + 1 for i in range(4)])
+        torch.cuda.synchronize()
+        self.keygen_s = time.perf_counter() - t0
+        self.enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                               seed=rnd.seed_from_uint64(seed + 2))
+        self.dec = P.Decryptor(ctx, kg.secret_key)
+        self.ev = P.Evaluator(ctx)
+        self.rng = np.random.default_rng(seed)
+        if self.ckks:
+            ce = P.CKKSEncoder(ctx)
+            self.ep = lambda v: ce.encode_polynomial(v, CKKS_SCALE)
+            self.dp = ce.decode_polynomial
+            self.t = None
+        else:
+            be = P.BatchEncoder(ctx)
+            self.ep, self.dp = be.encode_polynomial, be.decode_polynomial
+            self.t = be.plain_modulus
+
+    def ints(self, shape) -> np.ndarray:
+        return self.rng.integers(0, APP_INPUT_BOUND, shape, dtype=np.uint64)
+
+
+def same_grids(a: "linear.Cipher2d", b: "linear.Cipher2d", what: str):
+    for ra, rb in zip(a.data, b.data):
+        for ca, cb in zip(ra, rb):
+            if not torch.equal(ca.data, cb.data) or ca.level != cb.level:
+                raise AssertionError(f"{what}: Cipher2d.save/load changed "
+                                     "the words")
+
+
+def roundtrip(grid, ctx, what: str) -> "linear.Cipher2d":
+    """The grid through Cipher2d.save and load, checked word for word."""
+    back = linear.Cipher2d.load(grid.save(ctx), ctx)
+    same_grids(grid, back, what)
+    return back
+
+
+def exact(got: np.ndarray, want: np.ndarray, t: int, what: str) -> None:
+    got = got.astype(object) % t
+    if got.shape != want.shape or not np.array_equal(got, want % t):
+        bad = int((got != want % t).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{what}: {bad} outputs differ from the "
+                             "integer oracle mod t")
+
+
+def matmul_oracle(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """x w exactly: entries below 2^8 and at most 500 terms stay below
+    2^53, so float64 products and sums are exact."""
+    return (x.astype(np.float64) @ w.astype(np.float64)).astype(
+        np.int64).astype(object)
+
+
+def conv_oracle(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """The valid 2-D convolution (cross-correlation, as the app layer
+    computes it) by im2col, exact in float64 (below 2^53)."""
+    B, CI, H, W = x.shape
+    CO, _, KH, KW = w.shape
+    oh, ow = H - KH + 1, W - KW + 1
+    cols = np.stack([x[:, :, i:i + oh, j:j + ow] for i in range(KH)
+                     for j in range(KW)], axis=2)      # (B, CI, KH KW, oh, ow)
+    cols = cols.reshape(B, CI * KH * KW, oh * ow).astype(np.float64)
+    out = np.einsum("ok,bkp->bop", w.reshape(CO, -1).astype(np.float64), cols)
+    return out.reshape(B, CO, oh, ow).astype(np.int64).astype(object)
+
+
+def app_requests(bfv: AppScheme, bgv: AppScheme, ckks: AppScheme) -> dict:
+    """Phase 21's runs, checked: the packed ct x pt and ct x ct matmuls of
+    troy's benchmark, the BIG matmul with saveTerms, the full conv2d, and
+    a packed BGV and an unpacked CKKS matmul; returns what the timings and
+    the profile reuse."""
+    s, ctx, ev = bfv, bfv.ctx, bfv.ev
+    out = {"bytes": {}}
+    # 1: 64 x 128 x 256, pack_lwe (blocks (64, 16, 16))
+    h = linear.MatmulHelper(64, 128, 256, N, objective=0, pack_lwe=True)
+    x, w = s.ints((64, 128)), s.ints((128, 256))
+    want = matmul_oracle(x, w)
+    w_pt = h.encode_weights(s.ep, w)
+    x_ct = roundtrip(h.encrypt_inputs(s.enc, s.ep, x), ctx, "matmul inputs")
+    y = h.matmul(ev, x_ct, w_pt)
+    roundtrip(y, ctx, "matmul outputs")
+    packed = h.pack_outputs(ev, s.gk, y)
+    blob = h.serialize_outputs(ev, ctx, packed)
+    back = h.deserialize_outputs(ev, ctx, blob)
+    exact(h.decrypt_outputs(s.dp, s.dec, back), want, s.t,
+          "matmul 64x128x256 packed")
+    out["bytes"]["matmul_packed"] = len(blob)
+    # 2: the same with encrypted weights, relinearized, then packed
+    w_ct = roundtrip(h.encode_weights(s.ep, w).encrypt_symmetric(s.enc), ctx,
+                     "ct x ct weights")
+    yc = h.matmul_cipher(ev, x_ct, w_ct)
+    rel = yc.relinearize(ev, s.rlk)
+    packed_c = h.pack_outputs(ev, s.gk, rel)
+    blob_c = h.serialize_outputs(ev, ctx, packed_c)
+    exact(h.decrypt_outputs(s.dp, s.dec, h.deserialize_outputs(ev, ctx,
+                                                               blob_c)),
+          want, s.t, "ct x ct matmul 64x128x256 packed")
+    # 3: BIG 128 x 500 x 1001, saveTerms
+    hb = linear.MatmulHelper(128, 500, 1001, N, objective=0, pack_lwe=False)
+    xb, wb = s.ints((128, 500)), s.ints((500, 1001))
+    wb_pt = hb.encode_weights(s.ep, wb)
+    xb_ct = roundtrip(hb.encrypt_inputs(s.enc, s.ep, xb), ctx,
+                      "BIG matmul inputs")
+    yb = hb.matmul(ev, xb_ct, wb_pt)
+    blob_b = hb.serialize_outputs(ev, ctx, yb)
+    back_b = hb.deserialize_outputs(ev, ctx, blob_b)
+    exact(hb.decrypt_outputs(s.dp, s.dec, back_b), matmul_oracle(xb, wb),
+          s.t, "BIG matmul 128x500x1001 saveTerms")
+    out["bytes"]["big_save_terms"] = len(blob_b)
+    # 4: conv2d 1 x 64 x 256, 56 x 56, 3 x 3 (blocks (1, 56, 56, 1, 5))
+    hc = linear.Conv2dHelper(1, 56, 56, 3, 3, 64, 256, N, objective=0)
+    blocks = (hc.block_batch, hc.block_height, hc.block_width,
+              hc.block_in_channels, hc.block_out_channels)
+    if blocks != (1, 56, 56, 1, 5):
+        raise AssertionError(f"conv2d blocks {blocks}")
+    xv, wv = s.ints((1, 64, 56, 56)), s.ints((256, 64, 3, 3))
+    wv_pt = hc.encode_weights(s.ep, wv)
+    xv_ct = roundtrip(hc.encrypt_inputs(s.enc, s.ep, xv), ctx,
+                      "conv2d inputs")
+    yv = hc.conv2d(ev, xv_ct, wv_pt)
+    blob_v = hc.serialize_outputs(ev, ctx, yv)
+    back_v = hc.deserialize_outputs(ev, ctx, blob_v)
+    exact(hc.decrypt_outputs(s.dp, s.dec, back_v), conv_oracle(xv, wv), s.t,
+          "conv2d 1x64x256 56x56 3x3")
+    out["bytes"]["conv_save_terms"] = len(blob_v)
+    conv_flat = [c for row in yv.data for c in row]
+    # BGV: 64 x 128 x 256 packed, the inputs in coefficient form
+    g = bgv
+    xg, wg = g.ints((64, 128)), g.ints((128, 256))
+    xg_ct = h.encrypt_inputs(g.enc, g.ep, xg)
+    xg_ct = linear.Cipher2d([[g.ev.transform_from_ntt(c) for c in row]
+                             for row in xg_ct.data])
+    yg = h.pack_outputs(g.ev, g.gk, h.matmul(g.ev, xg_ct,
+                                             h.encode_weights(g.ep, wg)))
+    back_g = h.deserialize_outputs(g.ev, g.ctx,
+                                   h.serialize_outputs(g.ev, g.ctx, yg))
+    exact(h.decrypt_outputs(g.dp, g.dec, back_g), matmul_oracle(xg, wg), g.t,
+          "BGV matmul 64x128x256 packed")
+    # CKKS: 64 x 128 x 256, no packing, scale 2^40
+    c = ckks
+    hk = linear.MatmulHelper(64, 128, 256, N, objective=0, pack_lwe=False)
+    xk, wk = c.rng.uniform(-1, 1, (64, 128)), c.rng.uniform(-1, 1, (128, 256))
+    yk = hk.matmul(c.ev, hk.encrypt_inputs(c.enc, c.ep, xk),
+                   hk.encode_weights(c.ep, wk))
+    back_k = hk.deserialize_outputs(c.ev, c.ctx,
+                                    hk.serialize_outputs(c.ev, c.ctx, yk))
+    err = float(np.abs(hk.decrypt_outputs(c.dp, c.dec, back_k).astype(
+        np.float64) - xk @ wk).max())
+    if err > CKKS_APP_BOUND:
+        raise AssertionError(f"CKKS matmul: max error {err} over "
+                             f"{CKKS_APP_BOUND}")
+    out["ckks_max_error"] = err
+    log(f"[21] BFV n = {N}, q = {APP_Q_BITS}, t = 2^41: matmul 64x128x256 "
+        "packed (ct x pt and ct x ct relinearized), matmul 128x500x1001 "
+        "saveTerms, conv2d 1x64x256 56x56 3x3 decrypt exactly to the "
+        "integer oracle mod t; so does the packed BGV matmul (t = 2^41); "
+        f"the CKKS matmul is within {err:.3g} (bound {CKKS_APP_BOUND:g}); "
+        "every grid round-trips Cipher2d.save/load; output bytes "
+        f"{out['bytes']}")
+    out.update(h=h, x=x, w=w, w_pt=w_pt, x_ct=x_ct, y=y, packed=packed,
+               blob=blob, back=back, w_ct=w_ct, yc=yc, hb=hb, xb=xb, wb=wb,
+               wb_pt=wb_pt, xb_ct=xb_ct, yb=yb, blob_b=blob_b, back_b=back_b,
+               hc=hc, xv=xv, wv=wv, wv_pt=wv_pt, xv_ct=xv_ct, yv=yv,
+               blob_v=blob_v, back_v=back_v, conv_flat=conv_flat)
+    return out
+
+
+def app_timings(s: AppScheme, r: dict) -> dict:
+    """Phase 21's medians (CUDA events, APP_REPS runs after one warm-up)
+    of each protocol phase, in benchmarks/linear_bench.py's order, then
+    the BIG matmul's and the conv2d's; the host's encode loops and the
+    output gathers are phases of their own."""
+    ev, ctx = s.ev, s.ctx
+    ms = lambda fn: cuda_ms(fn, reps=APP_REPS, warmup=1)
+    h, hb, hc = r["h"], r["hb"], r["hc"]
+    times = {
+        "encode_weights": ms(lambda: h.encode_weights(s.ep, r["w"])),
+        "encode_inputs_host": ms(lambda: h.encode_inputs(s.ep, r["x"])),
+        "encode_encrypt_inputs": ms(lambda: h.encrypt_inputs(s.enc, s.ep,
+                                                             r["x"])),
+        "matmul": ms(lambda: h.matmul(ev, r["x_ct"], r["w_pt"])),
+        "pack_outputs": ms(lambda: h.pack_outputs(ev, s.gk, r["y"])),
+        "matmul_cipher": ms(lambda: h.matmul_cipher(ev, r["x_ct"],
+                                                    r["w_ct"])),
+        "relinearize_16": ms(lambda: r["yc"].relinearize(ev, s.rlk)),
+        "serialize": ms(lambda: h.serialize_outputs(ev, ctx, r["packed"])),
+        "deserialize": ms(lambda: h.deserialize_outputs(ev, ctx, r["blob"])),
+        "decrypt_many": ms(lambda: s.dec.decrypt_many(r["back"][0])),
+        "decrypt_decode": ms(lambda: h.decrypt_outputs(s.dp, s.dec,
+                                                       r["back"])),
+        "big_encode_weights": ms(lambda: hb.encode_weights(s.ep, r["wb"])),
+        "big_encode_encrypt_inputs": ms(lambda: hb.encrypt_inputs(
+            s.enc, s.ep, r["xb"])),
+        "big_matmul": ms(lambda: hb.matmul(ev, r["xb_ct"], r["wb_pt"])),
+        "big_serialize": ms(lambda: hb.serialize_outputs(ev, ctx, r["yb"])),
+        "big_deserialize": ms(lambda: hb.deserialize_outputs(ev, ctx,
+                                                             r["blob_b"])),
+        "big_decrypt_decode": ms(lambda: hb.decrypt_outputs(s.dp, s.dec,
+                                                            r["back_b"])),
+        "conv_encode_weights": ms(lambda: hc.encode_weights(s.ep, r["wv"])),
+        "conv_encode_inputs_host": ms(lambda: hc.encode_inputs(s.ep,
+                                                               r["xv"])),
+        "conv_encode_encrypt_inputs": ms(lambda: hc.encrypt_inputs(
+            s.enc, s.ep, r["xv"])),
+        "conv2d": ms(lambda: hc.conv2d(ev, r["xv_ct"], r["wv_pt"])),
+        "conv_serialize": ms(lambda: hc.serialize_outputs(ev, ctx, r["yv"])),
+        "conv_deserialize": ms(lambda: hc.deserialize_outputs(
+            ev, ctx, r["blob_v"])),
+        "conv_decrypt_many": ms(lambda: s.dec.decrypt_many(r["conv_flat"])),
+        "conv_decrypt_decode": ms(lambda: hc.decrypt_outputs(
+            s.dp, s.dec, r["back_v"])),
+    }
+    log("[21] medians over %d runs (CUDA events), ms: " % APP_REPS
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return times
+
+
+def phase_app(bfv_ctx, bgv_ctx, ckks_ctx, counter) -> tuple:
+    """Phases 21-22: troy's app protocol at full width, its checks in a
+    count window of their own (phase 22), then the medians (phase 21) and
+    the profile (phase 22)."""
+    schemes = {}
+    for i, (name, ctx) in enumerate((("bfv", bfv_ctx), ("bgv", bgv_ctx),
+                                     ("ckks", ckks_ctx))):
+        schemes[name] = AppScheme(name, ctx, APP_SEED + 10 * i)
+        log(f"[21] {name}: relin key and 4 automorphism keys made on the "
+            f"card in {schemes[name].keygen_s:.2f} s (kernel Q)")
+    counter.calls.clear()
+    _kernels.reset_launch_counts()
+    r = app_requests(schemes["bfv"], schemes["bgv"], schemes["ckks"])
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    check_path("22", "21 (the app protocol)", APP_PATH, counts, counter)
+    s = schemes["bfv"]
+    times = app_timings(s, r)
+    c = schemes["ckks"]
+    coeffs = c.rng.uniform(-1, 1, N)
+    plain = c.ep(coeffs)
+    encode_poly = lambda: c.ep(coeffs)
+    decode_poly = lambda: c.dp(plain)
+    times["ckks_encode_polynomial"] = cuda_ms(encode_poly)
+    times["ckks_decode_polynomial"] = cuda_ms(decode_poly)
+    log(f"[21] CKKS encode_polynomial {times['ckks_encode_polynomial']:.4f}"
+        f" ms, decode_polynomial {times['ckks_decode_polynomial']:.4f} ms "
+        f"(medians of {TIMING_REPS}, CUDA events)")
+    h, hc, ev, ctx = r["h"], r["hc"], s.ev, s.ctx
+    per_op = profile_ops("22", {
+        "app_encode_weights": lambda: h.encode_weights(s.ep, r["w"]),
+        "app_encode_encrypt_inputs": lambda: h.encrypt_inputs(s.enc, s.ep,
+                                                              r["x"]),
+        "app_matmul": lambda: h.matmul(ev, r["x_ct"], r["w_pt"]),
+        "app_matmul_cipher": lambda: h.matmul_cipher(ev, r["x_ct"],
+                                                     r["w_ct"]),
+        "app_pack_outputs": lambda: h.pack_outputs(ev, s.gk, r["y"]),
+        "app_conv2d": lambda: hc.conv2d(ev, r["xv_ct"], r["wv_pt"]),
+        "app_decrypt_many_conv52": lambda: s.dec.decrypt_many(
+            r["conv_flat"]),
+        "app_serialize": lambda: h.serialize_outputs(ev, ctx, r["packed"]),
+        "app_deserialize": lambda: h.deserialize_outputs(ev, ctx, r["blob"]),
+        "app_decrypt_decode": lambda: h.decrypt_outputs(s.dp, s.dec,
+                                                        r["back"]),
+        "app_conv_encode_weights": lambda: hc.encode_weights(s.ep, r["wv"]),
+        "app_conv_decrypt_decode": lambda: hc.decrypt_outputs(
+            s.dp, s.dec, r["back_v"]),
+        "app_fetch_to_coeff_conv52": lambda: serialization.
+            fetch_ciphertexts_host(r["conv_flat"], ctx, to_coeff=True),
+        "ckks_encode_polynomial": encode_poly,
+        "ckks_decode_polynomial": decode_poly,
+    })
+    return counts, times, per_op, {"bytes": r["bytes"],
+                                   "ckks_max_error": r["ckks_max_error"]}
+
+
 def _short(key: str) -> str:
     """A device kernel's function name without its namespace, template
     and arguments; a copy keeps the profiler's name."""
@@ -1931,6 +2341,47 @@ def composite_bounds(k: int) -> dict:
              plain_mul + ntt_rows_mul64(4 * k), 0),
             ("Q_kswitch_key", q_bytes, q_mul, q_int32)):
         ms, by = bound(nbytes, mul64, int32_ops=int32)
+        out[op] = {"bound_ms": ms, "bound_by": by}
+    return out
+
+
+def fold_mul64(m: int, k: int) -> int:
+    """64-bit products of one batched fold of m coefficient-form
+    ciphertexts: A over the m k (k + 1) digit rows, B's k-term sums and
+    Barrett over m 2 (k + 1) rows, the inverse A over those rows and the
+    divide's rounding over the m 2 k output rows."""
+    return (ntt_rows_mul64(m * k * (k + 1)) + ntt_rows_mul64(m * 2 * (k + 1))
+            + m * 2 * (k + 1) * N * (2 * k + 7) + m * 2 * k * N * 6)
+
+
+def slice7_bounds(k: int, k_app: int) -> dict:
+    """The least times of the app layer's composite rows of the kernel table:
+    N, the pack of 16 LWE samples (the samples in, the 14 folds' used key
+    rows read once, the packed ciphertext out; folds over 8, 4, 2, 1 pairs
+    then 10 trace steps) and the trace down to degree 1 (one ciphertext in
+    and out, 14 keys' rows), k data limbs; the batched decrypt of 52
+    size-2 conv2d outputs (A forward over their rows, B and D, the inverse
+    A, C and E's rounding to t) at the app configuration's k_app limbs;
+    O's polynomial encode (n f64 in, k rows out: O2 and A) and decode."""
+    key_words = 14 * k * 2 * (k + 1) * N
+    ct = 2 * k * N
+    pack_mul = sum(fold_mul64(m, k) for m in (8, 4, 2, 1) + (1,) * 10)
+    dec_rows = 52 * 2 * k_app
+    dec_mul = (ntt_rows_mul64(dec_rows + 52 * k_app)
+               + 52 * k_app * N * 9 + 52 * N * (4 * k_app + 12))
+    out = {}
+    for op, nbytes, mul64 in (
+            ("N_pack_lwe16", (16 * (k * N + k) + key_words + ct) * 8,
+             pack_mul + 16 * ct * 2),
+            ("N_field_trace", (2 * ct + key_words) * 8,
+             sum(fold_mul64(1, k) for _ in range(14))),
+            ("batched_decrypt_conv52",
+             (52 * 2 * k_app * N + k_app * N + 52 * N) * 8, dec_mul),
+            ("O_encode_polynomial", (N + k * N) * 8,
+             ntt_rows_mul64(k) + k * N * 4),
+            ("O_decode_polynomial", (k * N + N) * 8,
+             ntt_rows_mul64(k) + N * k * 8)):
+        ms, by = bound(nbytes, mul64)
         out[op] = {"bound_ms": ms, "bound_by": by}
     return out
 
@@ -2049,12 +2500,20 @@ def main() -> None:
         {"bfv": ctx, "ckks": ckks_ctx, "bgv": bgv_ctx}, counter)
     per_op.update(lwe_per_op)
 
+    # ---- troy's app layer: 20-22 ----
+    app_ctx = app_context(P.SchemeType.bfv)
+    kernel_results.update(phase_app_kernels(app_ctx))
+    app_counts, app_times, app_per_op, app_checks = phase_app(
+        app_ctx, app_context(P.SchemeType.bgv), ckks_ctx, counter)
+    per_op.update(app_per_op)
+
     entries = []
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
         launches = [c.get(kernel, 0) for c in (bfv_counts, ckks_counts,
                                                bgv_counts, plain_counts,
-                                               default_counts, lwe_counts)]
+                                               default_counts, lwe_counts,
+                                               app_counts)]
         entries.append({"name": kernel, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(launches),
                         "launches_bfv": launches[0],
@@ -2063,6 +2522,7 @@ def main() -> None:
                         "launches_plain_ops": launches[3],
                         "launches_default": launches[4],
                         "launches_lwe": launches[5],
+                        "launches_app": launches[6],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -2089,6 +2549,25 @@ def main() -> None:
         ms=default_times["bfv"]["relin_key_q"],
         device_ms=per_op["bfv_relin_key_q"]["device_ms"],
         bgv_ms=default_times["bgv"]["relin_key_q"])
+    slice7 = slice7_bounds(ckks_ctx.first_context_data.limbs,
+                           app_ctx.first_context_data.limbs)
+    for scheme in ("bfv", "ckks", "bgv"):
+        slice7["N_pack_lwe16"][f"{scheme}_ms"] = lwe_times[scheme][
+            "pack_lwe16"]
+        slice7["N_pack_lwe16"][f"{scheme}_device_ms"] = per_op[
+            f"{scheme}_pack_lwe16"]["device_ms"]
+        slice7["N_field_trace"][f"{scheme}_ms"] = lwe_times[scheme][
+            "field_trace"]
+        slice7["N_field_trace"][f"{scheme}_device_ms"] = per_op[
+            f"{scheme}_field_trace"]["device_ms"]
+    slice7["batched_decrypt_conv52"].update(
+        ms=app_times["conv_decrypt_many"],
+        device_ms=per_op["app_decrypt_many_conv52"]["device_ms"])
+    for op in ("O_encode_polynomial", "O_decode_polynomial"):
+        key = "ckks_" + op[2:]
+        slice7[op].update(ms=app_times[key],
+                          device_ms=per_op[key]["device_ms"])
+    composites.update(slice7)
     for op, c in composites.items():
         log(f"[14] {op}: {c}")
     ops = ("mult_relin_ms", "rotate_rows_ms", "mod_switch_ms")
@@ -2113,6 +2592,7 @@ def main() -> None:
                     "ckks_max_error": creq["max_error"],
                     "ckks_plain_max_error": plain["ckks_plain_max_error"],
                     "default_path_ms": default_times,
+                    "app_ms": app_times, "app": app_checks,
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

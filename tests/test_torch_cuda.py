@@ -19,7 +19,7 @@ import torch
 import troy_tpu_torch as P
 from troy_tpu_torch import _kernels, interop, prng, rlwe
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly, rns,
-                                sampling)
+                                sampling, tiles)
 from troy_tpu_torch.utils.rns import make_rns_tool
 
 pytestmark = pytest.mark.cuda
@@ -758,3 +758,160 @@ def test_lwe_slice_on_the_card_gives_the_cpu_words(dev, scheme):
     for stage, words in on_host.items():
         np.testing.assert_array_equal(np.asarray(on_card[stage]),
                                       np.asarray(words), err_msg=stage)
+
+
+@pytest.mark.parametrize("n", [64, 16384])
+def test_tile_kernels(dev, n):
+    """P1 (I = 70: past the 64-term reduction; and the matmul's 8 x 16),
+    P2 over q u Bsk with lazy inputs (sizes 2 x 2 and 3 x 2) and over q,
+    P3 at m = 16 and a ragged m = 20 with P = 16, and P = 1."""
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 60, 60])),
+        plain_modulus=P.Modulus(1 << 41))
+    cd = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                     device=dev).first_context_data
+    q, bsk = cd.ntt, cd.rns.q_bsk
+    moduli = q.values
+    rng = np.random.default_rng(n + 7)
+    for X, I, Y in ((1, 70, 3), (1, 8, 16)):
+        a = _uniform(rng, moduli, (X, I, 2), n, dev)
+        w = _uniform(rng, moduli, (I, Y), n, dev)
+        _kernels.reset_launch_counts()
+        got = tiles.tile_contract(a, w, q)
+        assert _kernels.launch_counts()["P1_tile_contract"] == 1
+        _same(got, tiles.tile_contract_plain(a, w, q))
+    for tables in (bsk, q):
+        lazy = [4 * v for v in tables.values]
+        for s1 in (2, 3):
+            a = _uniform(rng, lazy, (2, s1), n, dev)
+            w = _uniform(rng, lazy, (5, 2), n, dev)
+            _same(tiles.tile_pair_convolve(a, w, tables),
+                  tiles.tile_pair_convolve_plain(a, w, tables))
+    for m, slots in ((16, 16), (20, 16), (3, 1)):
+        d = _uniform(rng, moduli, (m, 2), n, dev)
+        _same(tiles.pack_group_fold(d, slots, q),
+              tiles.pack_group_fold_plain(d, slots, q))
+
+
+def test_decrypt_many_launches_do_not_grow_with_the_batch(dev):
+    """One launch per step for 2 or 8 ciphertexts, and the CPU's words."""
+    n = 1024
+    counts, words = {}, {}
+    for device in (dev, "cpu"):
+        parms = P.EncryptionParameters(
+            scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+            coeff_modulus=tuple(P.CoeffModulus.create(n, [40, 40, 40])),
+            plain_modulus=P.PlainModulus.batching(n, 20))
+        ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                          device=device)
+        kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(31),
+                            host_sampling=True)
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=prng.seed_from_uint64(32))
+        be = P.BatchEncoder(ctx)
+        cts = enc.encrypt_symmetric_many(
+            [be.encode(np.arange(n, dtype=np.uint64) * i % be.plain_modulus)
+             for i in range(8)])
+        dec = P.Decryptor(ctx, kg.secret_key)
+        for b in (2, 8):
+            _kernels.reset_launch_counts()
+            out = dec.decrypt_many(cts[:b])
+            counts[(str(device), b)] = _kernels.launch_counts()
+            words[(str(device), b)] = [interop.words(p) for p in out]
+    assert counts[(str(dev), 2)] == counts[(str(dev), 8)]
+    assert sum(counts[(str(dev), 8)].values()) == 6   # A, B, D, A, C, E
+    for b in (2, 8):
+        np.testing.assert_array_equal(np.asarray(words[(str(dev), b)]),
+                                      np.asarray(words[("cpu", b)]))
+
+
+def _app_slice(device, scheme):
+    """The app protocol at n = 4096 on one device: words, bytes and the
+    decrypted results per stage."""
+    from troy_tpu_torch.app.linear import Cipher2d, Conv2dHelper, MatmulHelper
+    n = 4096
+    bits = [60, 40, 40, 60] if scheme == "ckks" else [60, 60, 60]
+    extra = {} if scheme == "ckks" else {"plain_modulus": P.Modulus(1 << 41)}
+    parms = P.EncryptionParameters(
+        scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, bits)), **extra)
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=device)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(41))
+    dk = P.KeyGenerator(ctx, kg.secret_key, prng.seed_from_uint64(42))
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=prng.seed_from_uint64(43))
+    dec, ev = P.Decryptor(ctx, kg.secret_key), P.Evaluator(ctx)
+    rng = np.random.default_rng(41)
+    out = {}
+    grid = lambda g: [interop.words(c) for row in g.data for c in row]
+    if scheme == "ckks":
+        ce = P.CKKSEncoder(ctx)
+        ep = lambda v: ce.encode_polynomial(v, 2.0 ** 40)
+        x, w = rng.uniform(-1, 1, (8, 24)), rng.uniform(-1, 1, (24, 40))
+        h = MatmulHelper(8, 24, 40, n, objective=0, pack_lwe=False)
+        y = h.matmul(ev, h.encrypt_inputs(enc, ep, x), h.encode_weights(ep, w))
+        out["matmul"] = grid(y)
+        out["blob"] = h.serialize_outputs(ev, ctx, y)
+        got = h.decrypt_outputs(ce.decode_polynomial, dec,
+                                h.deserialize_outputs(ev, ctx, out["blob"]))
+        assert np.abs(got.astype(np.float64) - x @ w).max() < 1e-6
+        return out
+    be = P.BatchEncoder(ctx)
+    t = be.plain_modulus
+    ep, dp = be.encode_polynomial, be.decode_polynomial
+    x = rng.integers(0, 256, (16, 24), dtype=np.uint64)
+    w = rng.integers(0, 256, (24, 40), dtype=np.uint64)
+    want = (x.astype(object) @ w.astype(object)) % t
+    h = MatmulHelper(16, 24, 40, n, objective=0, pack_lwe=True)
+    logn = (n // h.input_block).bit_length() - 1
+    steps = n.bit_length() - 1 - logn            # the trace's folds
+    gk = dk.create_galois_keys(elts=[(n >> i) + 1 for i in range(steps)])
+    xc = h.encrypt_inputs(enc, ep, x)
+    if scheme == "bgv":
+        xc = Cipher2d([[ev.transform_from_ntt(c) for c in row]
+                       for row in xc.data])
+    y = h.matmul(ev, xc, h.encode_weights(ep, w))
+    out["matmul"] = grid(y)
+    packed = h.pack_outputs(ev, gk, y)
+    out["packed"] = grid(packed)
+    out["blob"] = h.serialize_outputs(ev, ctx, packed)
+    got = h.decrypt_outputs(dp, dec, h.deserialize_outputs(ev, ctx,
+                                                           out["blob"]))
+    np.testing.assert_array_equal(got.astype(object) % t, want)
+    if scheme == "bgv":
+        return out
+    hc = MatmulHelper(16, 24, 40, n, objective=0, pack_lwe=False)
+    yc = hc.matmul_cipher(ev, hc.encrypt_inputs(enc, ep, x),
+                          hc.encode_weights(ep, w).encrypt_symmetric(enc))
+    out["cipher"] = grid(yc)
+    yc = yc.relinearize(ev, dk.create_relin_keys())
+    got = hc.decrypt_outputs(dp, dec, yc)
+    np.testing.assert_array_equal(got.astype(object) % t, want)
+    img = rng.integers(0, 256, (1, 4, 10, 10), dtype=np.uint64)
+    ker = rng.integers(0, 256, (6, 4, 3, 3), dtype=np.uint64)
+    ch = Conv2dHelper(1, 10, 10, 3, 3, 4, 6, n, objective=0)
+    yv = ch.conv2d(ev, ch.encrypt_inputs(enc, ep, img),
+                   ch.encode_weights(ep, ker))
+    out["conv"] = grid(yv)
+    out["conv_blob"] = ch.serialize_outputs(ev, ctx, yv)
+    return out
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "ckks", "bgv"])
+def test_app_slice_on_the_card_gives_the_cpu_words(dev, scheme):
+    _kernels.reset_launch_counts()
+    on_card = _app_slice(dev, scheme)
+    counts = _kernels.launch_counts()
+    assert counts["P1_tile_contract"] > 0
+    if scheme != "ckks":
+        assert counts["P3_group_fold"] > 0
+    if scheme == "bfv":
+        assert counts["P2_pair_convolve"] > 0
+    on_host = _app_slice("cpu", scheme)
+    for stage, words in on_host.items():
+        if isinstance(words, bytes):
+            assert on_card[stage] == words, stage
+        else:
+            np.testing.assert_array_equal(np.asarray(on_card[stage]),
+                                          np.asarray(words), err_msg=stage)

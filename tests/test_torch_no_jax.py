@@ -156,8 +156,43 @@ FLOW = textwrap.dedent("""
                 :n // 2], -1), np.roll(enc_.decode(d.decrypt(src))[n // 2:],
                                        -1)])
             assert (enc_.decode(d.decrypt(ms[0])) == want1).all(), "hoist"
+    # the app layer: a packed ct x pt matmul, a ct x ct conv2d and a CKKS
+    # matmul through the wire and the batched decryption
+    from troy_tpu_torch.app.linear import (Cipher2d, Conv2dHelper,
+                                           MatmulHelper)
+    x = np.arange(6 * 8, dtype=np.uint64).reshape(6, 8) % 7
+    w = np.arange(8 * 40, dtype=np.uint64).reshape(8, 40) % 5
+    h = MatmulHelper(6, 8, 40, n, objective=0, pack_lwe=True)
+    y = h.pack_outputs(ev, kg.create_automorphism_keys(), h.matmul(
+        ev, h.encrypt_inputs(denc, be.encode_polynomial, x),
+        h.encode_weights(be.encode_polynomial, w)))
+    y = h.deserialize_outputs(ev, ctx, h.serialize_outputs(ev, ctx, y))
+    got = h.decrypt_outputs(be.decode_polynomial, dec, y)
+    assert (got.astype(np.uint64) == (x @ w) % t).all(), "wrong matmul"
+    img = np.arange(2 * 16, dtype=np.uint64).reshape(1, 2, 4, 4) % 5
+    ker = np.arange(2 * 2 * 4, dtype=np.uint64).reshape(2, 2, 2, 2) % 3
+    ch = Conv2dHelper(1, 4, 4, 2, 2, 2, 2, n)
+    xc = Cipher2d.load(ch.encrypt_inputs(denc, be.encode_polynomial,
+                                         img).save(ctx), ctx)
+    yc = ch.conv2d_cipher(ev, xc, ch.encode_weights(
+        be.encode_polynomial, ker).encrypt_symmetric(denc))
+    conv = ch.decrypt_outputs(be.decode_polynomial, dec, yc)
+    assert conv[0, 1, 2, 0] == sum(int(img[0, c, 2 + i, j] * ker[1, c, i, j])
+                                   for c in range(2) for i in range(2)
+                                   for j in range(2)) % t, "wrong conv"
+    cenc2 = P.Encryptor(cctx, secret_key=ckg.secret_key,
+                        seed=prng.seed_from_uint64(5))
+    ep = lambda c: ce.encode_polynomial(c, 2.0 ** 30)
+    cm = MatmulHelper(2, 3, 4, n, objective=0, pack_lwe=False)
+    xf, wf = np.linspace(-1, 1, 6).reshape(2, 3), np.linspace(0, 1, 12)
+    wf = wf.reshape(3, 4)
+    cy = cm.matmul(cev, cm.encrypt_inputs(cenc2, ep, xf),
+                   cm.encode_weights(ep, wf))
+    cgot = cm.decrypt_outputs(ce.decode_polynomial, cdec, cy)
+    assert np.abs(cgot.astype(np.float64) - xf @ wf).max() < 1e-3
     for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding",
-                "troy_tpu_torch.ops.sampling"):
+                "troy_tpu_torch.ops.sampling", "troy_tpu_torch.app.linear",
+                "troy_tpu_torch.serialization", "troy_tpu_torch.ops.tiles"):
         assert mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -230,7 +265,7 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
     """A tensor that is not on the CPU never takes the plain path: the
     wrapper launches the kernel or raises."""
     from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly,
-                                    rns, sampling)
+                                    rns, sampling, tiles)
     from troy_tpu_torch.utils.rns import make_rns_tool
 
     n = 64
@@ -305,7 +340,15 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                                                 meta(3, 2, 2, n), tables),
                  lambda: keyswitch.bgv_divide_last(meta(1, 2, n), bgv),
                  lambda: rns.mod_t_and_divide_q_last(meta(1, 2, n), tables,
-                                                     bgv)):
+                                                     bgv),
+                 lambda: embedding.round_to_rns(meta(n, dtype=torch.float64),
+                                                1.0, rt),
+                 lambda: tiles.tile_contract(meta(1, 3, 2, 2, n),
+                                             meta(3, 4, 2, n), tables),
+                 lambda: tiles.tile_pair_convolve(meta(1, 2, 2, n),
+                                                  meta(4, 2, 2, n), tables),
+                 lambda: tiles.pack_group_fold(meta(5, 2, 2, n), 4,
+                                               tables)):
         with pytest.raises(ValueError, match="expected all on the CPU"):
             call()
 
@@ -397,3 +440,39 @@ def test_slice_six_names_and_signatures():
     assert ctx.plain_ntt.rns.k == 1
     assert list(P.LWECiphertext.__dataclass_fields__) == [
         "c1", "c0", "level", "scale", "correction_factor"]
+
+
+def test_slice_seven_names_and_signatures():
+    """The app layer, the wire format and the batched decryption, with
+    troy_tpu's parameter order (troy_tpu/app/linear.py,
+    troy_tpu/serialization.py, troy_tpu/decryptor.py:124,
+    troy_tpu/ckks.py:269/383)."""
+    import inspect
+    from troy_tpu_torch import serialization
+    from troy_tpu_torch.app import linear
+    params = lambda f: list(inspect.signature(f).parameters)
+    assert params(P.Decryptor.decrypt_many) == ["self", "cts"]
+    assert params(P.CKKSEncoder.encode_polynomial) == ["self", "coeffs",
+                                                       "scale", "level"]
+    assert params(P.CKKSEncoder.decode_polynomial) == ["self", "plain",
+                                                       "count"]
+    assert params(linear.MatmulHelper) == [
+        "batch_size", "input_dims", "output_dims", "slot_count", "objective",
+        "pack_lwe"]
+    assert params(linear.Conv2dHelper) == [
+        "batch_size", "image_height", "image_width", "kernel_height",
+        "kernel_width", "input_channels", "output_channels", "slot_count",
+        "objective"]
+    for name in ("save_ciphertext", "load_ciphertext", "save_terms",
+                 "load_terms", "save_plaintext", "load_plaintext",
+                 "save_public_key", "load_public_key", "save_secret_key",
+                 "load_secret_key", "save_relin_keys", "load_relin_keys",
+                 "save_galois_keys", "load_galois_keys", "save_kswitch_keys",
+                 "load_kswitch_keys", "save_parms", "load_parms",
+                 "fetch_ciphertexts_host"):
+        assert callable(getattr(serialization, name)), name
+    # loads without a context put their tensors on the card by default
+    for load in (serialization.load_plaintext, serialization.load_secret_key,
+                 serialization.load_galois_keys,
+                 linear.MatmulHelper.deserialize_encoded_weights):
+        assert inspect.signature(load).parameters["device"].default == "cuda"

@@ -8,10 +8,12 @@ arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64,
 the NTT-domain rescale and BGV divides, the plain lift, the exact
 conversion to t, device sampling from threefry streams, the negacyclic
 shift with the LWE extract and assemble, the pack tree's shift and fold,
-and the coefficient-domain BGV divide (``csrc/``,
-built with nvcc at first use). On
-the CPU every kernel's plain PyTorch version runs instead; results are the
-same words (for the FP64 transform, the same values to rounding).
+the coefficient-domain BGV divide, and the app layer's tile contraction,
+ciphertext pair convolution and group fold (``csrc/``, built with nvcc at
+first use). On the CPU every kernel's plain PyTorch version runs instead;
+results are the same words (for the FP64 transform, the same values to
+rounding). ``app.linear`` holds the private matmul and conv2d helpers,
+``serialization`` the wire formats.
 
 This package imports torch and numpy, never JAX: ``troy_tpu`` is the
 reference it is tested against, not a dependency.

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
 SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu",
            "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
-           "sampling.cu", "negacyclic.cu")
+           "sampling.cu", "negacyclic.cu", "tiles.cu")
 HEADERS = ("u64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -85,6 +85,11 @@ _SIGNATURES = {
     "troy_extract_lwe": (_P, _P, _P, _P, _L, _I, _I, _P, _P),
     "troy_assemble_lwe": (_P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P, _P),
     "troy_pack_fold_prepare": (_P, _P, _P, _L, _L, _I, _I, _P, _P),
+    "troy_tile_contract": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _P, _P, _P,
+                           _P),
+    "troy_tile_pair_convolve": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P, _P,
+                                _P, _P),
+    "troy_pack_group_fold": (_P, _P, _L, _I, _I, _I, _I, _P, _P),
 }
 
 # The kernel each entry point belongs to (the letters of the port's kernel
@@ -125,6 +130,9 @@ KERNELS = {
     "troy_assemble_lwe": "N1_negacyclic",
     "troy_pack_fold_prepare": "N2_pack_prepare",
     "troy_bgv_divide_coeff": "Kpp_bgv_coeff",
+    "troy_tile_contract": "P1_tile_contract",
+    "troy_tile_pair_convolve": "P2_pair_convolve",
+    "troy_pack_group_fold": "P3_group_fold",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}

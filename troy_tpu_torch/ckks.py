@@ -10,7 +10,9 @@ On the context's device, encode is kernel O1 (the FP64 transform with the
 slot scatter fused in), O2 (untwist, scale, round, reduce into every prime)
 and A (the NTT); decode is A (inverse NTT), O3 (the centred CRT composition
 times 1/scale) and O1 (the transform with the twist and the slot gather
-fused in). ``host=True`` keeps the JAX package's independent host oracle:
+fused in). ``encode_polynomial`` and ``decode_polynomial`` take real
+coefficients straight through O2 and A, and A and O3 (no embedding).
+``host=True`` keeps the JAX package's independent host oracle:
 numpy's FFT, exact host rounding and composition, and the port's numpy NTT
 (utils/host_ntt.py).
 """
@@ -180,6 +182,37 @@ class CKKSEncoder:
         e = max(0, int(m).bit_length() - 40)
         return plain, EncodeStats(max_abs_small=m * 2.0 ** -e, exponent=e)
 
+    def encode_polynomial(self, coeffs: Union[Sequence[float], np.ndarray],
+                          scale: float, level: Optional[int] = None
+                          ) -> Plaintext:
+        """Real coefficients (at most n) times ``scale``, rounded half to
+        even into every prime and transformed: an NTT-form plaintext at
+        ``level`` (troy_tpu/ckks.py:269, ckks_cuda.cu:455). On the device
+        kernel O2 (with a unit untwist) and A (troy_tpu/ops/embedding.py:601
+        encode_polynomial_pipeline); O2 rounds exactly at any magnitude,
+        where the JAX package's device encode splits the scale above 2^44
+        (ROADMAP queue 3)."""
+        level = self._level(level)
+        cd = self.context.get_context_data(level)
+        coeffs = np.asarray(coeffs, dtype=np.float64)
+        if coeffs.ndim != 1 or len(coeffs) > self.n:
+            raise ValueError("too many coefficients")
+        scaled = np.zeros(self.n, dtype=np.float64)
+        scaled[:len(coeffs)] = coeffs
+        if np.max(np.abs(scaled), initial=0.0) * float(scale) \
+                >= cd.total_coeff_modulus / 2:
+            raise ValueError("encoded values are too large for the "
+                             "coefficient modulus at this level")
+        if self.host:
+            rns = hntt.rns_ntt_forward_np(_round_to_rns(scaled * scale, cd),
+                                          self.n, cd.coeff_values)
+            return Plaintext(data=to_torch(rns, cd.device), level=level,
+                             is_ntt_form=True, scale=scale)
+        rns = emb.round_to_rns(torch.from_numpy(scaled).to(cd.device), scale,
+                               emb.make_rns_round_tables(cd.ntt))
+        return Plaintext(data=dntt.rns_ntt_forward(rns, cd.ntt), level=level,
+                         is_ntt_form=True, scale=scale)
+
     def decode(self, plain: Plaintext) -> np.ndarray:
         """Slot values (n/2,) complex128, read back to the host."""
         if not plain.is_ntt_form or plain.level is None:
@@ -194,6 +227,26 @@ class CKKSEncoder:
                                       emb.make_rns_round_tables(cd.ntt),
                                       1.0 / plain.scale)
         return emb.embed_forward(coeffs, self._emb).cpu().numpy()
+
+    def decode_polynomial(self, plain: Plaintext,
+                          count: Optional[int] = None) -> np.ndarray:
+        """The plaintext's centred coefficients times 1/scale, (n,) float64
+        on the host, the first ``count`` if given (troy_tpu/ckks.py:383): on
+        the device the inverse A and O3 (troy_tpu/ops/embedding.py:664
+        decode_polynomial_pipeline). A plaintext held on the host (as
+        ``Decryptor.decrypt_many`` returns them) is moved to the context's
+        device first."""
+        if not plain.is_ntt_form or plain.level is None:
+            raise ValueError("CKKS decode expects an NTT-form plaintext")
+        cd = self.context.get_context_data(plain.level)
+        if self.host:
+            coeffs = self._compose_centered_host(plain, cd) / plain.scale
+        else:
+            residues = dntt.rns_ntt_inverse(plain.data.to(cd.device), cd.ntt)
+            coeffs = emb.compose_centered(
+                residues, emb.make_rns_round_tables(cd.ntt),
+                1.0 / plain.scale).cpu().numpy()
+        return coeffs if count is None else coeffs[:count]
 
     def _compose_centered_host(self, plain: Plaintext,
                                cd: ContextData) -> np.ndarray:

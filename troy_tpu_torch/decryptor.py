@@ -8,13 +8,15 @@ products one kernel-B launch and the add of c0 one kernel-D launch. CKKS
 returns that NTT-form phase as the plaintext; BFV takes the inverse NTT
 and the t/Q rounding (decrypt_scale_and_round, kernels C and E); BGV the
 inverse NTT and the exact conversion to t with the inverse correction
-factor fused in (decrypt_mod_t, kernel X). The noise budget (BFV, BGV)
-reads the phase back and measures it with host integers.
+factor fused in (decrypt_mod_t, kernel X). ``decrypt_many`` does each of
+those steps once for a whole batch of ciphertexts, so its launch count does
+not grow with the batch, and copies the results to the host once. The noise
+budget (BFV, BGV) reads the phase back and measures it with host integers.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +40,19 @@ def _phase_ntt_core(data: torch.Tensor, sk_powers: torch.Tensor,
     comps = data if is_ntt_form else dntt.rns_ntt_forward(data, t)
     powers = sk_powers[:, :cd.limbs].contiguous()
     return dpoly.rns_add(comps[0], dntt.dyadic_mac(comps[1:], powers, t), t)
+
+
+def _phase_ntt_many(data: torch.Tensor, sk_powers: torch.Tensor,
+                    cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
+    """The NTT-form phases of a batch (B, size, k, n) -> (B, k, n)
+    (troy_tpu/decryptor.py:71): one A launch over every component (none in
+    NTT form), one B launch for c1 s + c2 s^2 + ... of every ciphertext
+    (the powers read once for the batch) and one D add of the c0s."""
+    t = cd.ntt
+    comps = data if is_ntt_form else dntt.rns_ntt_forward(data, t)
+    powers = sk_powers[:, :cd.limbs].unsqueeze(1)       # (size - 1, 1, k, n)
+    prods = dntt.dyadic_mac_batched(powers, comps[:, 1:], t)[:, 0]
+    return dpoly.rns_add(comps[:, 0], prods, t)
 
 
 def _phase_core(data: torch.Tensor, sk_powers: torch.Tensor,
@@ -92,6 +107,48 @@ class Decryptor:
             inv_cf = numth.invert_mod(ct.correction_factor % t, t)
         return Plaintext(data=_decrypt_core(ct.data, powers, cd,
                                             ct.is_ntt_form, inv_cf))
+
+    def decrypt_many(self, cts: Sequence[Ciphertext]) -> List[Plaintext]:
+        """Batched decryption (troy_tpu/decryptor.py:124): the ciphertexts,
+        which must share size, level, NTT form and (BGV) correction factor,
+        go through each step of ``decrypt`` together, one launch per step
+        whatever their number (``_phase_ntt_many``, then one inverse A and
+        one C + E rounding for BFV or one X for BGV), and come to the host
+        in one copy: the plaintexts hold CPU tensors. CKKS returns each
+        NTT-form phase with its ciphertext's level and scale. One
+        ciphertext goes to ``decrypt``."""
+        cts = list(cts)
+        if not cts:
+            return []
+        if len(cts) == 1:
+            return [self.decrypt(cts[0])]
+        first = cts[0]
+        for c in cts[1:]:
+            if (c.size != first.size or c.level != first.level
+                    or c.is_ntt_form != first.is_ntt_form
+                    or c.correction_factor != first.correction_factor):
+                raise ValueError("decrypt_many needs uniform ciphertexts")
+        cd = self.context.get_context_data(first.level)
+        scheme = self.context.scheme
+        stacked = torch.stack([c.data for c in cts])
+        phase = _phase_ntt_many(stacked, self._powers(first), cd,
+                                first.is_ntt_form)
+        if scheme == SchemeType.ckks:
+            host = phase.cpu()
+            return [Plaintext(data=host[i], level=first.level,
+                              is_ntt_form=True, scale=c.scale)
+                    for i, c in enumerate(cts)]
+        phase = dntt.rns_ntt_inverse(phase, cd.ntt)
+        if scheme == SchemeType.bgv:
+            inv_cf = 1
+            if first.correction_factor != 1:
+                t = int(cd.plain_modulus)
+                inv_cf = numth.invert_mod(first.correction_factor % t, t)
+            m = drns.decrypt_mod_t(phase, cd.exact_to_t, inv_cf)
+        else:
+            m = drns.decrypt_scale_and_round(phase, cd.rns)
+        host = m.cpu()
+        return [Plaintext(data=host[i]) for i in range(len(cts))]
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """Bits of noise budget left: log2(Q/2) - log2(2 ||t/Q phase - m||)

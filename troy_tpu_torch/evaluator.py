@@ -63,6 +63,7 @@ from .ops import keyswitch as dks
 from .ops import ntt as dntt
 from .ops import poly as dpoly
 from .ops import rns as drns
+from .ops import tiles as dtiles
 from .utils import galois as galois_util
 from .utils import numth
 
@@ -98,10 +99,36 @@ def _bfv_multiply(d1: torch.Tensor, d2: Optional[torch.Tensor],
     tool = cd.rns
     s1 = d1.shape[0]
     both = d1 if d2 is None else torch.cat([d1, d2])    # every component
-    rows = torch.cat([both, drns.behz_lift(both, tool)], dim=-2)  # q u Bsk
-    rows_ntt = dntt.rns_ntt_forward(rows, tool.q_bsk, lazy=True)
+    rows_ntt = _bfv_lift_ntt(both, cd)
     b = rows_ntt if d2 is None else rows_ntt[s1:]
     prod = _dyadic_convolution(rows_ntt[:s1], b, tool.q_bsk)
+    return drns.behz_tail(dntt.rns_ntt_inverse(prod, tool.q_bsk), tool)
+
+
+def _bfv_lift_ntt(d: torch.Tensor, cd: ContextData) -> torch.Tensor:
+    """The first half of the BFV multiply for any batch of coefficient-form
+    components (..., k, n): the BEHZ lift to Bsk (one E launch) and the lazy
+    forward transform of the rows in q u Bsk (one A launch), (..., k +
+    |Bsk|, n)."""
+    rows = torch.cat([d, drns.behz_lift(d, cd.rns)], dim=-2)
+    return dntt.rns_ntt_forward(rows, cd.rns.q_bsk, lazy=True)
+
+
+def _pair_grid_multiply(a: torch.Tensor, w: torch.Tensor,
+                        cd: ContextData) -> torch.Tensor:
+    """The products of every pair of an X x Yc ciphertext grid, as the JAX
+    package vmaps ``_bfv_multiply`` or ``_ntt_form_multiply`` over it
+    (troy_tpu/app/linear.py:133): a (X, s1, R, n), w (Yc, s2, R, n) ->
+    (X, Yc, s1 + s2 - 1, k, n). CKKS and BGV: NTT-form tiles over q, the
+    convolution alone (kernel P2). BFV: tiles already through
+    ``_bfv_lift_ntt`` (R = k + |Bsk|), so each tile is lifted and
+    transformed once for the whole grid, not once per pair; then P2, one
+    inverse A over every product and one E tail: the tail runs per product,
+    so the words are ``_bfv_multiply``'s."""
+    if cd.scheme != SchemeType.bfv:
+        return dtiles.tile_pair_convolve(a, w, cd.ntt)
+    tool = cd.rns
+    prod = dtiles.tile_pair_convolve(a, w, tool.q_bsk)
     return drns.behz_tail(dntt.rns_ntt_inverse(prod, tool.q_bsk), tool)
 
 

@@ -372,20 +372,43 @@ def untwist_round_to_rns(u_: torch.Tensor, scale: float, t: EmbedTables,
     if u_.shape != (t.n,):
         raise ValueError(f"untwist_round_to_rns: expected ({t.n},), got "
                          f"{tuple(u_.shape)}")
+    return _round(u_, t.untwist, scale, rt, "untwist_round_to_rns")
+
+
+@lru_cache(maxsize=None)
+def _unit_untwist(n: int, device) -> torch.Tensor:
+    return torch.ones(n, dtype=C128, device=device)
+
+
+def round_to_rns(coeffs: torch.Tensor, scale: float,
+                 rt: RnsRoundTables) -> torch.Tensor:
+    """O2 on real coefficients (n,) float64: round(c * scale) mod q_i, (k,
+    n) words, with a unit untwist (Re(c * 1) = c exactly): the rounding of
+    troy_tpu/ops/embedding.py:601 encode_polynomial_pipeline, exact at any
+    magnitude below 2^bits(Q)."""
+    if coeffs.dim() != 1 or coeffs.dtype != F64:
+        raise ValueError(f"round_to_rns: expected (n,) float64, got "
+                         f"{tuple(coeffs.shape)} {coeffs.dtype}")
+    u_ = coeffs.to(C128)
+    return _round(u_, _unit_untwist(coeffs.shape[0], coeffs.device), scale,
+                  rt, "round_to_rns")
+
+
+def _round(u_: torch.Tensor, untwist: torch.Tensor, scale: float,
+           rt: RnsRoundTables, name: str) -> torch.Tensor:
     if u_.dtype != C128:
-        raise TypeError(f"untwist_round_to_rns: expected complex128, got "
-                        f"{u_.dtype}")
-    if not _kernels.on_cuda(u_, rt.round_consts, t.untwist):
-        return untwist_round_to_rns_plain(u_, t.untwist, scale, rt)
-    k = len(rt.q_values)
+        raise TypeError(f"{name}: expected complex128, got {u_.dtype}")
+    if not _kernels.on_cuda(u_, rt.round_consts, untwist):
+        return untwist_round_to_rns_plain(u_, untwist, scale, rt)
+    k, n = len(rt.q_values), u_.shape[0]
     if k > MAX_KERNEL_LIMBS:
-        raise ValueError(f"untwist_round_to_rns: {k} limbs; the kernel "
-                         f"takes at most {MAX_KERNEL_LIMBS}")
+        raise ValueError(f"{name}: {k} limbs; the kernel takes at most "
+                         f"{MAX_KERNEL_LIMBS}")
     u_ = u_.contiguous()
-    _kernels.check_operand(u_, "untwist_round_to_rns input", C128)
-    out = torch.empty((k, t.n), dtype=torch.int64, device=u_.device)
-    _kernels.launch("troy_ckks_round", out, u_, t.untwist, float(scale), k,
-                    t.n.bit_length() - 1, rt.round_consts, rt.exponents)
+    _kernels.check_operand(u_, f"{name} input", C128)
+    out = torch.empty((k, n), dtype=torch.int64, device=u_.device)
+    _kernels.launch("troy_ckks_round", out, u_, untwist, float(scale), k,
+                    n.bit_length() - 1, rt.round_consts, rt.exponents)
     return out
 
 
