@@ -18,8 +18,8 @@ import torch
 
 import troy_tpu_torch as P
 from troy_tpu_torch import _kernels, interop, prng, rlwe
-from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, poly, rns,
-                                sampling, tiles)
+from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
+                                poly, rns, sampling, tiles)
 from troy_tpu_torch.utils.rns import make_rns_tool
 
 pytestmark = pytest.mark.cuda
@@ -915,3 +915,100 @@ def test_app_slice_on_the_card_gives_the_cpu_words(dev, scheme):
         else:
             np.testing.assert_array_equal(np.asarray(on_card[stage]),
                                           np.asarray(words), err_msg=stage)
+
+
+# --------------------------------------------------------------------------
+# kernel J (the int8 tensor-core 4-step NTT) and the large-ring caps
+# --------------------------------------------------------------------------
+
+MXU_SHAPES = {"n2048": (2048, [60, 40, 30]),
+              "n16384": (16384, [60, 40, 40, 40, 40, 60]),
+              "n32768": (32768, [60, 55]),
+              "n262144": (262144, [55])}
+
+
+@pytest.mark.parametrize("shape", sorted(MXU_SHAPES))
+def test_ntt_mxu_kernel(dev, shape):
+    """J against its plain version, forward (also with a 40-bit X bound)
+    and inverse, on any u64 words."""
+    n, bits = MXU_SHAPES[shape]
+    moduli = [int(m) for m in P.CoeffModulus.create(n, bits)]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=True)
+    rng = np.random.default_rng(n)
+    x = _words(rng, (2, len(moduli), n), dev)
+    _kernels.reset_launch_counts()
+    _same(ntt.rns_ntt_forward(x, tables),
+          ntt_mxu.rns_ntt_mxu_plain(x, tables.mxu, False))
+    _same(ntt.rns_ntt_inverse(x, tables),
+          ntt_mxu.rns_ntt_mxu_plain(x, tables.mxu, True))
+    small = _words(rng, (2, len(moduli), n), dev) & ((1 << 40) - 1)
+    _same(ntt.rns_ntt_forward(small, tables, x_bound_bits=40),
+          ntt_mxu.rns_ntt_mxu_plain(small, tables.mxu, False, 5))
+    assert _kernels.launch_counts()["J_ntt_mxu"] == 6
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_ntt_mxu_gives_the_words_of_a(dev, n):
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    a = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+    j = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=True)
+    rng = np.random.default_rng(n + 1)
+    x = _uniform(rng, [4 * q for q in moduli], (3,), n, dev)
+    _same(ntt.rns_ntt_forward(x, j), ntt.rns_ntt_forward(x, a))
+    y = _uniform(rng, [2 * q for q in moduli], (3,), n, dev)
+    _same(ntt.rns_ntt_inverse(y, j), ntt.rns_ntt_inverse(y, a))
+
+
+@pytest.mark.parametrize("k", [16, 17])
+def test_base_convert_and_behz_at_the_limb_caps(dev, k):
+    """Kernels C and E at SEAL's n = 32768 bases: k primes of q, |Bsk| =
+    k + 1 and m~ (here at n = 1024)."""
+    n = 1024
+    q = tuple(int(m) for m in P.CoeffModulus.create(n, [60] + [40] * (k - 1)))
+    t = int(P.PlainModulus.batching(n, 20))
+    host = make_rns_tool(n, q, t)
+    dt = rns.DeviceRnsTool.build(host, ntt.RnsNttTables.from_moduli(n, q, dev),
+                                 ntt.RnsNttTables.from_moduli(
+                                     n, host.base_Bsk.values, dev))
+    assert dt.nb + 1 == k + 2 <= rns.MAX_KERNEL_LIMBS
+    rng = np.random.default_rng(k)
+    for conv in (dt.q_to_bsk_m_tilde, dt.b_to_q_m_sk, dt.q_to_t_gamma):
+        x = _words(rng, (2, conv.k_in, n), dev)
+        _same(rns.fast_convert(x, conv), rns.fast_convert_plain(x, conv))
+    x = _uniform(rng, dt.q.values, (2,), n, dev)
+    _same(rns.behz_lift(x, dt), rns.behz_lift_plain(x, dt))
+    y = _uniform(rng, dt.q_bsk.values, (2,), n, dev)
+    _same(rns.behz_tail(y, dt), rns.behz_tail_plain(y, dt))
+    _same(rns.decrypt_scale_and_round(x, dt),
+          rns.decrypt_scale_and_round_plain(x, dt))
+
+
+def test_mxu_context_on_the_card_gives_the_cpu_words(dev):
+    """BFV at n = 4096 on J (use_mxu=True): the card's words are the CPU
+    run's, and J ran."""
+    def run(device):
+        n = 4096
+        parms = P.EncryptionParameters(
+            scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+            coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])),
+            plain_modulus=P.PlainModulus.batching(n, 20))
+        ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                          device=device, use_mxu=True)
+        kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(9),
+                            host_sampling=True)
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=prng.seed_from_uint64(10), host_sampling=True)
+        be = P.BatchEncoder(ctx)
+        ev = P.Evaluator(ctx)
+        a = np.arange(n, dtype=np.uint64) % be.plain_modulus
+        c = enc.encrypt_symmetric(be.encode(a))
+        rel = ev.relinearize(ev.multiply(c, c), kg.create_relin_keys())
+        rot = ev.rotate_rows(rel, 1, kg.create_galois_keys(steps=[1]))
+        return [interop.words(x) for x in (rel, rot,
+                                           ev.mod_switch_to_next(rot))]
+    _kernels.reset_launch_counts()
+    got = run(dev)
+    assert _kernels.launch_counts()["J_ntt_mxu"] > 0
+    assert _kernels.launch_counts()["A_ntt"] == 0
+    for g, w in zip(got, run("cpu")):
+        np.testing.assert_array_equal(g, w)

@@ -190,9 +190,33 @@ FLOW = textwrap.dedent("""
                    cm.encode_weights(ep, wf))
     cgot = cm.decrypt_outputs(ce.decode_polynomial, cdec, cy)
     assert np.abs(cgot.astype(np.float64) - xf @ wf).max() < 1e-3
+    # kernel J and the native runtime: a context on J (use_mxu=True) at
+    # n = 2048, host keygen through the native XOF
+    from troy_tpu_torch import native
+    assert native.available(), native.build_error
+    jparms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=2048,
+        coeff_modulus=tuple(P.CoeffModulus.create(2048, [50, 40, 50])),
+        plain_modulus=P.PlainModulus.batching(2048, 20))
+    jctx = P.HeContext(jparms, sec_level=P.SecurityLevel.none, device="cpu",
+                       use_mxu=True)
+    assert jctx.first_context_data.ntt.mxu is not None
+    jkg = P.KeyGenerator(jctx, seed=prng.seed_from_uint64(11),
+                         host_sampling=True)
+    jbe = P.BatchEncoder(jctx)
+    jenc = P.Encryptor(jctx, secret_key=jkg.secret_key,
+                       seed=prng.seed_from_uint64(12))
+    ja = np.arange(2048, dtype=np.uint64) % jbe.plain_modulus
+    jev = P.Evaluator(jctx)
+    jc = jenc.encrypt_symmetric(jbe.encode(ja))
+    jsq = jev.relinearize(jev.multiply(jc, jc), jkg.create_relin_keys())
+    jdec = P.Decryptor(jctx, jkg.secret_key)
+    assert (jbe.decode(jdec.decrypt(jev.mod_switch_to_next(jsq)))
+            == (ja * ja) % jbe.plain_modulus).all(), "wrong product on J"
     for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding",
                 "troy_tpu_torch.ops.sampling", "troy_tpu_torch.app.linear",
-                "troy_tpu_torch.serialization", "troy_tpu_torch.ops.tiles"):
+                "troy_tpu_torch.serialization", "troy_tpu_torch.ops.tiles",
+                "troy_tpu_torch.ops.ntt_mxu", "troy_tpu_torch.native"):
         assert mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -284,8 +308,13 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                                                          device="meta")
     x = meta(2, n)
     emb = embedding.make_embed_tables(n, "cpu")
+    on_j = ntt.RnsNttTables.from_moduli(
+        2048, [int(m) for m in P.CoeffModulus.create(2048, [40, 40])], "cpu",
+        use_mxu=True)
     rt = embedding.make_rns_round_tables(tables)
-    for call in (lambda: ntt.rns_ntt_forward(x, tables),
+    for call in (lambda: ntt.rns_ntt_forward(meta(2, 2048), on_j),
+                 lambda: ntt.rns_ntt_inverse(meta(2, 2048), on_j),
+                 lambda: ntt.rns_ntt_forward(x, tables),
                  lambda: ntt.rns_ntt_inverse(x, tables),
                  lambda: ntt.rns_dyadic_mul(x, x, tables),
                  lambda: poly.rns_add(x, x, tables),

@@ -2,7 +2,9 @@
 
 BFV, CKKS and BGV homomorphic encryption with SEAL semantics (modelled on
 lightbulb128/troy) on PyTorch tensors, with hand-written CUDA kernels for
-Hopper (sm_90a) on the hot path: the NTT, the 128-bit dyadic
+Hopper (sm_90a) on the hot path: the NTT (one row per block up to
+n = 16384, and as two exact int8 tensor-core matrix products at any
+n >= 2048, the only route above 16384), the 128-bit dyadic
 multiply-accumulate, the BEHZ base conversion, per-limb modular
 arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64,
 the NTT-domain rescale and BGV divides, the plain lift, the exact
@@ -13,7 +15,9 @@ ciphertext pair convolution and group fold (``csrc/``, built with nvcc at
 first use). On the CPU every kernel's plain PyTorch version runs instead;
 results are the same words (for the FP64 transform, the same values to
 rounding). ``app.linear`` holds the private matmul and conv2d helpers,
-``serialization`` the wire formats.
+``serialization`` the wire formats, ``native`` the C++ host runtime
+(host keygen's BLAKE2Xb stream and the table precompute), built with g++
+at first use.
 
 This package imports torch and numpy, never JAX: ``troy_tpu`` is the
 reference it is tested against, not a dependency.

@@ -26,12 +26,14 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import native
 from .context import ContextData, HeContext
 from .he_types import Plaintext
 from .interop import to_numpy, to_torch
 from .params import SchemeType
 from .ops import embedding as emb
 from .ops import ntt as dntt
+from .ops import u64ops as u
 from .utils import host_ntt as hntt
 
 
@@ -251,14 +253,25 @@ class CKKSEncoder:
     def _compose_centered_host(self, plain: Plaintext,
                                cd: ContextData) -> np.ndarray:
         """RNS -> centred coefficients as f64, in host integers (the
-        oracle of troy_tpu/ckks.py:297-326)."""
+        oracle of troy_tpu/ckks.py:297-326): the native runtime's
+        multiword composition when it loads, else Python integers."""
         res = hntt.rns_ntt_inverse_np(to_numpy(plain.data), self.n,
                                       cd.coeff_values)
         Q = cd.total_coeff_modulus
+        qs = cd.coeff_values
+        punct = [Q // q for q in qs]
+        invp = [pow(p % q, -1, q) for p, q in zip(punct, qs)]
+        w = (Q.bit_length() + 63) // 64
+        words = lambda v: [(v >> (64 * i)) & u.M64 for i in range(w)]
+        out = native.crt_compose_centered_double(
+            res, qs, invp, [u.shoup_quotient(x, q) for x, q in zip(invp, qs)],
+            np.array([words(p) for p in punct], dtype=np.uint64),
+            np.array(words(Q), dtype=np.uint64), 1.0)
+        if out is not None:
+            return out
         acc = np.zeros(self.n, dtype=object)
-        for i, q in enumerate(cd.coeff_values):
-            punct = Q // q
-            acc += res[i].astype(object) * pow(punct % q, -1, q) % q * punct
+        for r, q, p, inv in zip(res, qs, punct, invp):
+            acc += r.astype(object) * inv % q * p
         acc %= Q
         acc = np.where(acc > Q // 2, acc - Q, acc)
         return acc.astype(np.float64)

@@ -105,7 +105,8 @@ class ContextData:
 def _build_context_data(parms: EncryptionParameters, chain_index: int,
                         qualifiers: EncryptionParameterQualifiers,
                         device: torch.device, special_prime: int,
-                        internal_prime_bits: int) -> ContextData:
+                        internal_prime_bits: int,
+                        use_mxu: Optional[bool]) -> ContextData:
     n = parms.poly_modulus_degree
     values = parms.coeff_values
     k = len(values)
@@ -114,7 +115,7 @@ def _build_context_data(parms: EncryptionParameters, chain_index: int,
     for v in values:
         Q *= v
 
-    ntt = RnsNttTables.from_moduli(n, values, device)
+    ntt = RnsNttTables.from_moduli(n, values, device, use_mxu)
     bsk_ntt = rns = rescale = rns_tool = exact = None
     bgv_ms = bgv_ks = None
     if parms.scheme in (SchemeType.bfv, SchemeType.bgv):
@@ -122,7 +123,7 @@ def _build_context_data(parms: EncryptionParameters, chain_index: int,
         plain_lift_consts(ntt, t, Q)                  # uploaded once
     if parms.scheme == SchemeType.bfv:
         bsk_ntt = RnsNttTables.from_moduli(n, rns_tool.base_Bsk.values,
-                                           device)
+                                           device, use_mxu)
         rns = DeviceRnsTool.build(rns_tool, ntt, bsk_ntt)
     elif parms.scheme == SchemeType.bgv:
         exact = ExactConverter.build(rns_tool.conv_q_to_t, device)
@@ -159,12 +160,19 @@ class HeContext:
 
     ``internal_prime_bits``: the width of the BFV BEHZ auxiliary-base
     primes; None or 61 is troy's choice (rns.cpp getPrimes(61, ...)), 34-60
-    narrower primes (utils/rns.RnsTool)."""
+    narrower primes (utils/rns.RnsTool).
+
+    ``use_mxu``: which kernel runs the NTTs of every level's q and Bsk
+    tables and of the batching tables mod t (ops/ntt.py): True, kernel J
+    (the int8 tensor-core 4-step transform) at any n >= 2048; False,
+    kernel A, which takes n <= 16384 on the card; None, A where it runs
+    and J above n = 16384. Both give the same words."""
 
     def __init__(self, parms: EncryptionParameters,
                  expand_mod_chain: bool = True,
                  sec_level: SecurityLevel = SecurityLevel.tc128,
-                 device=None, internal_prime_bits: Optional[int] = None):
+                 device=None, internal_prime_bits: Optional[int] = None,
+                 use_mxu: Optional[bool] = None):
         device = torch.device(DEFAULT_DEVICE if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"HeContext: device {device} requested but "
@@ -176,10 +184,12 @@ class HeContext:
         self.sec_level = sec_level
         self.device = device
         self.internal_prime_bits = internal_prime_bits
+        self.use_mxu = use_mxu
         bits = internal_prime_bits or INTERNAL_MOD_BIT_COUNT
         special = parms.coeff_values[-1]
         chain: List[ContextData] = [
-            _build_context_data(parms, 0, qualifiers, device, special, bits)]
+            _build_context_data(parms, 0, qualifiers, device, special, bits,
+                                use_mxu)]
 
         self._using_keyswitching = len(parms.coeff_modulus) > 1
         if self._using_keyswitching:
@@ -191,7 +201,7 @@ class HeContext:
                     raise ValueError(f"invalid parameters at chain level "
                                      f"{idx}: {q.error_message}")
                 chain.append(_build_context_data(level_parms, idx, q, device,
-                                                 special, bits))
+                                                 special, bits, use_mxu))
                 if not expand_mod_chain or len(level_parms.coeff_modulus) == 1:
                     break
                 level_parms = level_parms.drop_last()
@@ -199,11 +209,12 @@ class HeContext:
 
         self.chain: Tuple[ContextData, ...] = tuple(chain)
         self._by_parms_id = {cd.parms_id: cd for cd in chain}
-        # batching tables mod t, shared by every level (kernel A, k = 1)
+        # batching tables mod t, shared by every level (k = 1)
         self.plain_ntt: Optional[NttTables] = None
         if qualifiers.using_batching:
             self.plain_ntt = NttTables.from_modulus(
-                parms.poly_modulus_degree, int(parms.plain_modulus), device)
+                parms.poly_modulus_degree, int(parms.plain_modulus), device,
+                use_mxu)
 
     @property
     def key_context_data(self) -> ContextData:

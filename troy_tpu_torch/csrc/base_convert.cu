@@ -25,8 +25,10 @@ using namespace troy;
 
 namespace {
 
-constexpr int MAX_IN = 16;
-constexpr int MAX_OUT = 16;
+// 20 covers every base of SEAL's n = 32768 chain (bfv_default(32768): 16
+// primes of q; Bsk and the m~ extension 18 at the key level)
+constexpr int MAX_IN = 20;
+constexpr int MAX_OUT = 20;
 constexpr int MAX_CONSTS = 3 * MAX_IN + 3 * MAX_OUT + MAX_IN * MAX_OUT;
 
 __global__ void base_convert_kernel(uint64_t *__restrict__ out,
@@ -81,7 +83,7 @@ __global__ void base_convert_kernel(uint64_t *__restrict__ out,
 }  // namespace
 
 // in: (batch, k_in, 2^log_n), out: (batch, k_out, 2^log_n); k_in, k_out
-// at most 16.
+// at most 20.
 extern "C" int troy_base_convert(void *out, const void *in, long long batch,
                                  int k_in, int k_out, int log_n,
                                  const void *consts, void *stream) {

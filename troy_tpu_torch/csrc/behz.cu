@@ -41,7 +41,7 @@ using namespace troy;
 
 namespace {
 
-constexpr int MAX_LIMBS = 16;   // per base, as kernel C
+constexpr int MAX_LIMBS = 20;   // per base, m~ included, as kernel C
 
 // Reads consecutive runs of constants out of shared memory.
 struct Cursor {

@@ -156,11 +156,30 @@ def _switch_key_decompose(target: torch.Tensor, cd: ContextData,
     An NTT-form target's digits are its inverse transform (A) reduced into
     every used prime and transformed again, k x (k+1) rows: the JAX
     package's diagonal shortcut (which reuses the k diagonal rows) gives the
-    same words and is not taken."""
+    same words and is not taken.
+
+    On kernel J the digit rows go through the transform grouped by the
+    width of their data prime, with that width as the words' bound
+    (troy_tpu/evaluator.py:242-257): row j's words are below q_j, so a
+    40-bit row lifted into a 60-bit key prime runs 8 x 5 plane pairs, not
+    8 x 8. The words do not change."""
     used = _used_tables(cd, key_cd)
     if ntt_form:
         target = dntt.rns_ntt_inverse(target, cd.ntt)
-    return dntt.rns_ntt_forward(dks.keyswitch_digits(target, used), used)
+    digits = dks.keyswitch_digits(target, used)
+    if used.mxu is None:
+        return dntt.rns_ntt_forward(digits, used)
+    groups = {}
+    for j, q in enumerate(cd.coeff_values):
+        groups.setdefault(q.bit_length(), []).append(j)
+    if len(groups) == 1:
+        return dntt.rns_ntt_forward(digits, used, x_bound_bits=next(
+            iter(groups)))
+    out = torch.empty_like(digits)
+    for bits, rows in sorted(groups.items()):
+        out[..., rows, :, :] = dntt.rns_ntt_forward(
+            digits[..., rows, :, :], used, x_bound_bits=bits)
+    return out
 
 
 def _switch_key_contract(t_hat: torch.Tensor, key: torch.Tensor,

@@ -217,8 +217,10 @@ class KeyGenerator:
         for an external key).
 
         Each key from a generated secret is one switching key made on the
-        host; with this package's pure-Python host fallbacks the default
-        set (2 log2(n) - 1 keys, 27 at n = 16384) takes minutes."""
+        host: with the native runtime about 0.2 s at n = 16384 and 3 s at
+        32768 on an H100 machine's host (PERF.md); without it, through the
+        pure-Python BLAKE2Xb, about 10 s at n = 16384, so the default set
+        (2 log2(n) - 1 keys, 27 at n = 16384) takes minutes."""
         n = self.context.n
         if elts is None:
             elts = (galois_util.get_elts_all(n) if steps is None

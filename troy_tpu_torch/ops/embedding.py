@@ -42,6 +42,7 @@ from . import u64ops as u
 from .. import _kernels
 from ..interop import to_torch
 from .ntt import RnsNttTables
+from .ntt_mxu import _split_factors
 
 C128 = torch.complex128
 F64 = torch.float64
@@ -49,14 +50,6 @@ F64 = torch.float64
 # per-limb constants in shared memory
 MAX_KERNEL_WORDS = 16
 MAX_KERNEL_LIMBS = 64
-
-
-def _split_factors(n: int) -> Tuple[int, int]:
-    """n = A * B with A, B as close to square as possible (A >= B)
-    (troy_tpu/ops/ntt_mxu.py:67)."""
-    log_n = n.bit_length() - 1
-    a = 1 << ((log_n + 1) // 2)
-    return a, n // a
 
 
 def slot_index(n: int) -> np.ndarray:

@@ -11,22 +11,29 @@ kernel A (csrc/ntt.cu) for the transforms and kernel B (csrc/dyadic_mac.cu)
 for the dyadic products. A wrapper runs the plain version for tensors on
 the CPU and launches the kernel for tensors on CUDA.
 
+Tables made with J's factor matrices (``use_mxu``) run every transform on
+kernel J instead (ops/ntt_mxu.py, the int8 tensor-core 4-step transform,
+the JAX package's NTT at n >= 2048). ``use_mxu``: True, J at any
+n >= 2048; False, A (which takes n <= 16384 on the card); None, the
+default, A where it runs and J above n = 16384, where it does not.
+
 Ordering contract (shared with the encoder): forward output index j holds
 the evaluation at psi^(2*brv(j) + 1); the forward transform takes natural
 order to bit-reversed order and the inverse undoes it, n^-1 included.
-Lazy outputs: forward in [0, 4q), inverse in [0, 2q). (The JAX package's
-MXU path at n >= 2048 returns reduced words even when lazy; every caller
-reduces afterwards, so end results are the same words.)
+Lazy outputs: forward in [0, 4q), inverse in [0, 2q) on A; J returns
+reduced words even when lazy, as the JAX package's MXU path does, and every
+caller reduces afterwards, so end results are the same words.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import ntt_mxu
 from . import u64ops as u
 from .. import _kernels
 from ..interop import to_torch
@@ -52,14 +59,22 @@ class RnsNttTables:
     n: int
     log_n: int
     values: Tuple[int, ...]
+    # kernel J's tables, one per limb, when the transforms run on J
+    mxu: Optional[Tuple[ntt_mxu.MxuNttTables, ...]] = None
     # sub-bases and scalar operands made from these tables, by key
     _memo: Dict[tuple, object] = field(default_factory=dict, repr=False)
 
     @classmethod
-    def from_moduli(cls, n: int, moduli: Sequence[int],
-                    device) -> "RnsNttTables":
+    def from_moduli(cls, n: int, moduli: Sequence[int], device,
+                    use_mxu: Optional[bool] = None) -> "RnsNttTables":
+        """The tables of a base on ``device``; with J's tables when
+        ``use_mxu`` asks for them (module docstring)."""
         n = int(n)
         values = tuple(int(q) for q in moduli)
+        if use_mxu is None:
+            use_mxu = n > MAX_KERNEL_N
+        mxu = tuple(ntt_mxu.make_mxu_tables(n, q, device)
+                    for q in values) if use_mxu else None
         hosts = [make_ntt_tables(n, q) for q in values]
         stack = lambda get: to_torch(np.stack([get(h) for h in hosts]),
                                      device)
@@ -75,18 +90,21 @@ class RnsNttTables:
             cr_lo=vec(lambda h: h.const_ratio[0]),
             inv_degree=vec(lambda h: h.inv_degree),
             inv_degree_shoup=vec(lambda h: h.inv_degree_shoup),
-            n=n, log_n=n.bit_length() - 1, values=values)
+            n=n, log_n=n.bit_length() - 1, values=values, mxu=mxu)
 
     @classmethod
     def concat(cls, a: "RnsNttTables", b: "RnsNttTables") -> "RnsNttTables":
         """The tables of a's limbs then b's, as one base (the same words
-        as tables made from both moduli lists)."""
+        as tables made from both moduli lists); on J if both are."""
         cat = lambda name: torch.cat([getattr(a, name), getattr(b, name)])
+        if (a.mxu is None) != (b.mxu is None):
+            raise ValueError("concat: one base runs on J and the other not")
         names = ("root_powers", "root_powers_shoup", "inv_root_powers",
                  "inv_root_powers_shoup", "q", "cr_hi", "cr_lo", "inv_degree",
                  "inv_degree_shoup")
         return cls(**{name: cat(name) for name in names}, n=a.n,
-                   log_n=a.log_n, values=a.values + b.values)
+                   log_n=a.log_n, values=a.values + b.values,
+                   mxu=None if a.mxu is None else a.mxu + b.mxu)
 
     @property
     def k(self) -> int:
@@ -96,9 +114,20 @@ class RnsNttTables:
     def device(self) -> torch.device:
         return self.q.device
 
+    @property
+    def mxu_pointers(self) -> torch.Tensor:
+        """J's pointer table of these limbs (ops/ntt_mxu.pointer_table),
+        made once."""
+        if "mxu_pointers" not in self._memo:
+            self._memo["mxu_pointers"] = ntt_mxu.pointer_table(self.mxu,
+                                                               self.device)
+        return self._memo["mxu_pointers"]
+
     def _sub(self, key: tuple, index) -> "RnsNttTables":
         if key not in self._memo:
             take = lambda a: a[index].contiguous()
+            limbs = list(range(self.k))[index] if isinstance(index, slice) \
+                else index
             self._memo[key] = RnsNttTables(
                 root_powers=take(self.root_powers),
                 root_powers_shoup=take(self.root_powers_shoup),
@@ -108,7 +137,9 @@ class RnsNttTables:
                 inv_degree=take(self.inv_degree),
                 inv_degree_shoup=take(self.inv_degree_shoup),
                 n=self.n, log_n=self.log_n,
-                values=tuple(np.array(self.values, dtype=object)[index]))
+                values=tuple(self.values[i] for i in limbs),
+                mxu=None if self.mxu is None
+                else tuple(self.mxu[i] for i in limbs))
         return self._memo[key]
 
     def select(self, indices: Sequence[int]) -> "RnsNttTables":
@@ -149,8 +180,9 @@ class NttTables:
     rns: RnsNttTables
 
     @classmethod
-    def from_modulus(cls, n: int, modulus: int, device) -> "NttTables":
-        return cls(RnsNttTables.from_moduli(n, (modulus,), device))
+    def from_modulus(cls, n: int, modulus: int, device,
+                     use_mxu: Optional[bool] = None) -> "NttTables":
+        return cls(RnsNttTables.from_moduli(n, (modulus,), device, use_mxu))
 
     @property
     def n(self) -> int:
@@ -250,9 +282,13 @@ def _check_rows(x: torch.Tensor, t: RnsNttTables, name: str) -> None:
         raise TypeError(f"{name}: expected int64 u64 words, got {x.dtype}")
 
 
-def _ntt(x: torch.Tensor, t: RnsNttTables, inverse: bool,
-         lazy: bool) -> torch.Tensor:
+def _ntt(x: torch.Tensor, t: RnsNttTables, inverse: bool, lazy: bool,
+         x_bound_bits: Optional[int] = None) -> torch.Tensor:
     _check_rows(x, t, "ntt")
+    if t.mxu is not None:
+        planes = 0 if x_bound_bits is None \
+            else ntt_mxu._ndigits_value((1 << x_bound_bits) - 1)
+        return ntt_mxu.rns_ntt_mxu(x, t, inverse, planes)
     if not _kernels.on_cuda(x, t.q):
         plain = ntt_inverse_plain if inverse else ntt_forward_plain
         return plain(x, t, lazy)
@@ -272,11 +308,16 @@ def _ntt(x: torch.Tensor, t: RnsNttTables, inverse: bool,
     return out
 
 
-def rns_ntt_forward(x: torch.Tensor, t: RnsNttTables,
-                    lazy: bool = False) -> torch.Tensor:
+def rns_ntt_forward(x: torch.Tensor, t: RnsNttTables, lazy: bool = False,
+                    x_bound_bits: Optional[int] = None) -> torch.Tensor:
     """Forward NTT of every limb: (..., k, n) -> (..., k, n). Input words
-    below 4q; output in [0, q), or [0, 4q) if lazy."""
-    return _ntt(x, t, inverse=False, lazy=lazy)
+    below 4q; output in [0, q), or [0, 4q) if lazy (A only).
+
+    x_bound_bits: the caller's bound, every input word below
+    2^x_bound_bits (any representative of its residue). On J a limb whose
+    modulus is at least that wide then takes the words as they are, with
+    fewer X planes (troy_tpu/ops/ntt.py:318-343); A ignores it."""
+    return _ntt(x, t, inverse=False, lazy=lazy, x_bound_bits=x_bound_bits)
 
 
 def rns_ntt_inverse(x: torch.Tensor, t: RnsNttTables,
@@ -288,13 +329,15 @@ def rns_ntt_inverse(x: torch.Tensor, t: RnsNttTables,
 
 def ntt_forward(x: torch.Tensor, t: NttTables,
                 lazy: bool = False) -> torch.Tensor:
-    """Single-modulus forward NTT over the last axis (kernel A, k = 1)."""
+    """Single-modulus forward NTT over the last axis (kernel A or J,
+    k = 1)."""
     return rns_ntt_forward(x.unsqueeze(-2), t.rns, lazy).squeeze(-2)
 
 
 def ntt_inverse(x: torch.Tensor, t: NttTables,
                 lazy: bool = False) -> torch.Tensor:
-    """Single-modulus inverse NTT over the last axis (kernel A, k = 1)."""
+    """Single-modulus inverse NTT over the last axis (kernel A or J,
+    k = 1)."""
     return rns_ntt_inverse(x.unsqueeze(-2), t.rns, lazy).squeeze(-2)
 
 

@@ -50,8 +50,9 @@ from .ntt import RnsNttTables
 from .poly import ADD, SCALAR_MUL, rns_elementwise_plain
 
 # Kernels C and E keep a converter's limbs in registers and its constants
-# in shared memory: at most this many limbs per base.
-MAX_KERNEL_LIMBS = 16
+# in shared memory: at most this many limbs per base, which covers SEAL's
+# n = 32768 chain (16 primes of q; |Bsk| = 17 and m~ at the key level).
+MAX_KERNEL_LIMBS = 20
 
 
 def _words(words, device) -> torch.Tensor:

@@ -23,6 +23,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import native
+
 PRNG_SEED_BYTES = 64          # 512-bit seeds (randomgen.h prng_seed_uint64_count=8)
 _BUFFER_SIZE = 4096
 
@@ -40,7 +42,8 @@ class PrngType(enum.IntEnum):
 # (fanout=1/depth=1 with xof_length packed into node_offset's high word);
 # the expansion blocks use BLAKE2X's fanout=0/depth=0 leaf parameters,
 # which hashlib rejects, so they run through a single-shot pure-Python
-# blake2b compression.
+# blake2b compression, or through the native runtime's xof_fill
+# (native/src/troy_native.cpp), which gives the same bytes.
 # --------------------------------------------------------------------------
 
 _B2B_IV = (
@@ -159,11 +162,30 @@ class UniformRandomGenerator:
                 self._seed + _struct.pack("<Q", counter)).digest(_BUFFER_SIZE)
         raise ValueError("unknown PRNG type")
 
+    def _blocks(self, count: int) -> bytes:
+        """``count`` refills from the current counter on: BLAKE2Xb through
+        the native runtime's ``xof_fill`` in one call when it loads (the
+        same bytes), else block by block."""
+        if self._type == PrngType.blake2xb:
+            chunk = native.xof_fill(self._seed, self._counter,
+                                    count * _BUFFER_SIZE)
+            if chunk is not None:
+                return chunk
+        return b"".join(self._refill_block(self._counter + i)
+                        for i in range(count))
+
     def generate(self, byte_count: int) -> bytes:
         out = bytearray()
         while byte_count > 0:
             if self._offset >= len(self._buffer):
-                self._buffer = self._refill_block(self._counter)
+                whole = byte_count // _BUFFER_SIZE
+                if whole:
+                    # whole blocks go straight out, in one native call
+                    out += self._blocks(whole)
+                    self._counter += whole
+                    byte_count -= whole * _BUFFER_SIZE
+                    continue
+                self._buffer = self._blocks(1)
                 self._counter += 1
                 self._offset = 0
             take = min(byte_count, len(self._buffer) - self._offset)

@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 
 from . import numth
+from .. import native
 
 
 def _np_u64(values) -> np.ndarray:
@@ -58,21 +59,26 @@ def make_ntt_tables(n: int, modulus: int) -> NttTablesHost:
     shoup = lambda w: (w << 64) // q
     inv_degree = numth.invert_mod(n, q)
 
-    # powers of root scattered to bit-reversed positions; inverses by
-    # powering inv_root (one inversion total)
-    powers = [0] * n
-    inv_powers = [0] * n
-    acc = inv_acc = 1
-    for k in range(n):
-        b = numth.reverse_bits(k, log_n)
-        powers[b] = acc
-        inv_powers[b] = inv_acc
-        acc = (acc * root) % q
-        inv_acc = (inv_acc * inv_root) % q
-    powers_np = _np_u64(powers)
-    powers_shoup_np = _np_u64([shoup(p) for p in powers])
-    inv_powers_np = _np_u64(inv_powers)
-    inv_powers_shoup_np = _np_u64([shoup(p) for p in inv_powers])
+    filled = native.ntt_tables_fill(n, q, root, inv_root)
+    if filled is not None:
+        powers_np, powers_shoup_np, inv_powers_np, inv_powers_shoup_np = \
+            filled
+    else:
+        # pure-Python path: powers of root scattered to bit-reversed
+        # positions; inverses by powering inv_root (one inversion total)
+        powers = [0] * n
+        inv_powers = [0] * n
+        acc = inv_acc = 1
+        for k in range(n):
+            b = numth.reverse_bits(k, log_n)
+            powers[b] = acc
+            inv_powers[b] = inv_acc
+            acc = (acc * root) % q
+            inv_acc = (inv_acc * inv_root) % q
+        powers_np = _np_u64(powers)
+        powers_shoup_np = _np_u64([shoup(p) for p in powers])
+        inv_powers_np = _np_u64(inv_powers)
+        inv_powers_shoup_np = _np_u64([shoup(p) for p in inv_powers])
 
     return NttTablesHost(
         n=n,
