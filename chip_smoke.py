@@ -9,7 +9,9 @@ t = PlainModulus.batching(n, 20), CKKS at scale 2^40, and BGV with the
 same t; troy's app benchmark (test/app/linear.cu:575-584), BFV and BGV
 at n = 16384, q = {60,60,60}, t = 2^41; and the large rings on kernel J:
 SEAL's n = 32768 BFV chain, a 16-prime CKKS chain at n = 32768, and BFV
-at n = 131072 and 262144. Phases, in order; any failure
+at n = 131072 and 262144; troy's own Python entry point, its pybind11
+binder's scripts (binder/test.py, binder/timetest.py) through the port's
+binder API, with its raw wire. Phases, in order; any failure
 raises and the script exits non-zero without a result line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
@@ -190,14 +192,45 @@ raises and the script exits non-zero without a result line:
    multiply, relinearize and decrypt, exact to the product mod t; host
    keygen seconds and the medians, in a count window of its own;
 28. the device kernels and time of phases 25-27's ops from the profiler,
-   J's share of each op's device time, and no plain torch on the card.
+   J's share of each op's device time, and no plain torch on the card;
+29. the CKKS statistics against their plain versions at n = 16384 (q =
+   {60,40,40,40,40,60}, scales 2^40 and 2^55) and n = 32768 (the 16-prime
+   chain, 2^40), at the first data level: O4 (the encode statistic, max
+   |rint(c s)|) writes O2's words and a statistic bit-equal to the plain
+   version's; O5 (the decode residual, max(|Re V[j] - Re V[n-1-j]|, |Im
+   V[j] + Im V[n-1-j]|)) writes O1's slots bit for bit, both residuals in
+   [0, 1e-8] and the kernel's within 2^-44 max|v| of the plain version's;
+   with phase 3's times, device us a launch and bound, and torch.fft.fft's
+   time as the transform's yardstick;
+30. troy's binder scripts through troy_tpu_torch.compat (``import
+   troy_tpu_torch.compat as pytroy``) on the card, in a count window of
+   their own: binder/test.py's Alice/Bob protocol (CKKS n = 16384, six
+   40-bit primes, keys and ciphertexts as save() bytes) decoding to
+   [0.5, 1.2, 2.1, 3.2] within 1e-3; binder/timetest.py's op surface,
+   repeat = 2, BFV and BGV at (8192, t = 2^41, (60,50,60)) and CKKS at
+   (8192, (60,40,40,60), 2^40), every result decrypted and checked; a
+   borderline CKKS encode at scale 2^45 (one slot at 4Q/scale: accepted by
+   the exact check on O4's statistic) and one too large (raises); and
+   decode_max_error (O5) of a fresh product; the window must launch O1-O5,
+   A-G, G', I, K, K', K'-BGV, M and X, with no plain torch on the card;
+   the shim ops' device kernels and time from the profiler;
+31. troy's raw-struct wire (refwire.py) at n = 16384 (BFV): the bytes of
+   seeded keys, a public-key ciphertext, a seed-compressed one (saved
+   expanded) and a product equal to the port's CPU run from the same
+   seeds; saveTerms/loadTerms round trip; each stream loads and decrypts;
+32. medians (CUDA events) of encode, encode_with_stats, encode_device,
+   decode, decode_device and decode_device_with_stats at n = 16384 and
+   32768, and of mult+relin through the shim against Evaluator, in 8
+   alternating rounds: the shim's cost per op beside the spread.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
 phase 14, the default path of phase 16, the LWE path of phase 18, the
-app protocol of phase 21, the J route of phase 24 and phases 25, 26 and
-27, each counted from 0, also given apart; J's numbers are those of its
-n = 16384 shape, every shape under "J_shapes") and the
+app protocol of phase 21, the J route of phase 24, phases 25, 26 and
+27 and the binder window of phase 30, each counted from 0, also given
+apart; J's numbers are those of its n = 16384 shape, every shape under
+"J_shapes"; O4's and O5's those of n = 16384 at 2^40, every shape under
+"stats_shapes") and the
 bounds of the composite ops (M' the NTT-form rotation and the hoisted path
 over 8 elements, L the plain products, Q a device switching key; N the
 pack of 16 and the trace, the batched decrypt of 52 outputs, O's
@@ -233,7 +266,9 @@ import numpy as np
 import torch
 
 import troy_tpu_torch as P
-from troy_tpu_torch import (_kernels, interop, native, prng as rnd, rlwe,
+import troy_tpu_torch.compat as pytroy
+from troy_tpu_torch import (_kernels, interop, native, prng as rnd, refwire,
+                            rlwe,
                             serialization, to_numpy, to_torch)
 from troy_tpu_torch.app import linear
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
@@ -299,6 +334,32 @@ CKKS_ROTATION_BOUND = 1e-4
 CEILING_NS = (131072, 262144)        # troy's ceiling, the JAX package's
 CEILING_Q_BITS = [55, 55, 60]        # single-chip ring
 CEILING_T_BITS = 30                  # (benchmarks/nceiling_tpu.py:31-32)
+# phase 29's shapes: (tag, n, q bits, scale); O4 and O5 at the first data
+# level
+STATS_SHAPES = (("n16384_2^40", 16384, Q_BITS, 2.0 ** 40),
+                ("n16384_2^55", 16384, Q_BITS, 2.0 ** 55),
+                ("n32768_2^40", 32768, CKKS_LARGE_BITS, 2.0 ** 40))
+RESIDUAL_BOUND = 1e-8                # O5's residual in slot units
+O5_INPUTS = 4                        # coefficient vectors O5 is held on
+# phase 30: troy's binder/test.py and binder/timetest.py main()
+BINDER_N = 16384
+BINDER_BITS = [40] * 6
+BINDER_SCALE = 2.0 ** 40
+BINDER_WANT = np.array([0.5, 1.2, 2.1, 3.2])
+BINDER_BOUND = 1e-3                  # as tests/test_binder_parity.py:120
+BORDER_SCALE = 2.0 ** 45             # tests/test_ckks_stats.py:72-97
+TIMETEST_N = 8192
+TIMETEST_T_BITS = 41
+TIMETEST_BFV_Q = [60, 50, 60]
+TIMETEST_CKKS_Q = [60, 40, 40, 60]
+TIMETEST_DELTA = 2.0 ** 40
+DATA_BOUND = 1 << 6                  # timetest.py's dataBound
+# the CKKS ops' error over the larger of 1 and the slots' magnitude (up to
+# 64^2 for a product at scale 2^40)
+TIMETEST_CKKS_BOUND = 1e-5
+WIRE_SEED = 2034                     # phase 31's keys and encryptions
+WIRE_TERMS = [0, 3, 17, 40, 1000, 8191, 16383]
+SHIM_ROUNDS = 8                      # phase 32: rounds of 4 alternating medians
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -350,6 +411,10 @@ KERNELS = {
                       "troy_tpu/app/linear.py:237"),
     "J_ntt_mxu": ("troy_tpu_torch/csrc/ntt_mxu.cu",
                   "troy_tpu/ops/ntt_mxu.py:263"),
+    "O4_ckks_encode_stats": ("troy_tpu_torch/csrc/embedding.cu",
+                             "troy_tpu/ops/embedding.py:611"),
+    "O5_ckks_decode_stats": ("troy_tpu_torch/csrc/embedding.cu",
+                             "troy_tpu/ops/embedding.py:637"),
 }
 # the kernels each path must launch
 BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
@@ -382,6 +447,13 @@ LARGE_CKKS_PATH = ("J_ntt_mxu", "B_dyadic_mac", "D_rns_elementwise",
 CEILING_PATH = ("J_ntt_mxu", "B_dyadic_mac", "C_base_convert",
                 "D_rns_elementwise", "E_behz", "F_keyswitch", "G_plain_embed",
                 "I_sampling")
+BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
+               "O4_ckks_encode_stats", "O5_ckks_decode_stats", "A_ntt",
+               "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
+               "E_behz", "F_keyswitch", "G_plain_embed", "Gp_plain_lift",
+               "I_sampling", "K_divide_round", "Kp_rescale_ntt",
+               "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois",
+               "X_exact_convert")
 
 
 def log(msg: str) -> None:
@@ -2901,6 +2973,589 @@ def slice7_bounds(k: int, k_app: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the CKKS statistics, troy's binder API and troy's wire: 29-32
+# --------------------------------------------------------------------------
+
+def phase_stats_kernels(dev) -> tuple:
+    """Phase 29: O4 and O5 against their plain versions at every
+    STATS_SHAPES shape: O4's words equal to O2's and its statistic
+    bit-equal to the plain version's on the same u; O5, on O5_INPUTS
+    coefficient vectors (so that a reduction over part of the slots
+    shows): its slots bit-equal to O1's (embed_forward) on the same
+    coefficients, slots and partners within O1_TOLERANCE of the plain
+    version's, its statistic bit-equal to the residual of its own slots
+    and partners (a maximum is exact), both residuals in (0,
+    RESIDUAL_BOUND] and the kernel's within O1_TOLERANCE max|v| of the
+    plain version's; the times, device time per launch, bound, plain time
+    and torch.fft.fft's time (the transform's yardstick: no PyTorch call
+    computes either statistic)."""
+    rng = np.random.default_rng(SEED + 29)
+    shapes, results = {}, {}
+    for tag, n, bits, scale in STATS_SHAPES:
+        moduli = _moduli(n, bits)
+        k = len(moduli) - 1                         # the first data level
+        t = embedding.make_embed_tables(n, dev)
+        rt = embedding.make_rns_round_tables(
+            ntt.RnsNttTables.from_moduli(n, moduli[:k], dev))
+        vals = torch.from_numpy(rng.uniform(-1, 1, n // 2)
+                                + 1j * rng.uniform(-1, 1, n // 2)).to(dev)
+        u = embedding.embed_inverse_fft(vals, t)
+        # a decode's input in slot units: the real coefficients of vals
+        coeffs = (u * t.untwist).real.contiguous()
+        o4 = lambda: embedding.untwist_round_to_rns_stats(u, scale, t, rt)
+        o4_plain = lambda: (
+            embedding.untwist_round_to_rns_plain(u, t.untwist, scale, rt),
+            embedding.round_stats_plain(u, t.untwist, scale))
+        o5 = lambda: embedding.embed_forward_stats(coeffs, t)
+        o5_plain = lambda: embedding.embed_forward_stats_plain(coeffs, t)
+        (words, stat), (pwords, pstat) = o4(), o4_plain()
+        o2 = embedding.untwist_round_to_rns(u, scale, t, rt)
+        torch.cuda.synchronize()
+        try:
+            compare("words", words, o2)
+            compare("words", words, pwords)
+            compare("bits", stat, pstat)
+            # the first input is timed below; the others are raw
+            # coefficients in (-1, 1)
+            o5_checks = [check_o5(c, t) for c in [coeffs] + [
+                torch.from_numpy(rng.uniform(-1, 1, n)).to(dev)
+                for _ in range(O5_INPUTS - 1)]]
+        except AssertionError as exc:
+            raise AssertionError(f"O4/O5 {tag}: {exc}") from None
+        _, e, pe = o5_checks[0]
+        slot_err = max(c[0] for c in o5_checks)
+        library_ms = cuda_ms(lambda: torch.fft.fft(u))
+        fft_ops = 5 * n * (n.bit_length() - 1)
+        r = {"n": n, "limbs": k, "scale_log2": int(np.log2(scale)),
+             "statistic": float(stat), "residual": e, "plain_residual": pe,
+             "library_ms": library_ms}
+        for name, run, plain, work, err_ in (
+                ("O4_ckks_encode_stats", o4, o4_plain,
+                 (_bytes(u) + k * n * 8 + 8, n * k * 4), 0),
+                ("O5_ckks_decode_stats", o5, o5_plain,
+                 (_bytes(coeffs) + 2 * (n // 2 * 16) + 8, 0,
+                  fft_ops + 3 * (n // 2)),
+                 max(max(c[0], abs(c[1] - c[2])) for c in o5_checks))):
+            ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+            # each device op once a launch: the sum of their times, which
+            # a trace that drops some events does not lower
+            each = device_kernels_per_op(run)[2]
+            device_us = sum(us for _, us in each.values())
+            bound_ms, bound_by = bound(*work)
+            r[name] = {"ms": ms, "device_us_per_launch": device_us,
+                       "device_kernels": each, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "plain_ms": plain_ms,
+                       "max_abs_err": err_}
+            log(f"[29] {name} {tag} ({k} limbs): kernel {ms:.4f} ms, "
+                f"device {device_us:.1f} us a launch ("
+                + "; ".join(f"{kk} x{c:g} at {us:.1f} us"
+                            for kk, (c, us) in each.items())
+                + f"), bound {bound_ms:.6f} ms ({bound_by}), plain "
+                f"{plain_ms:.4f} ms, torch.fft.fft {library_ms:.4f} ms")
+            if name not in results:
+                results[name] = {"max_abs_err": err_, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by,
+                                 "library_ms": library_ms}
+            else:
+                results[name]["max_abs_err"] = max(
+                    results[name]["max_abs_err"], err_)
+        log(f"[29] {tag}: O4 words equal to O2's and the plain version's, "
+            f"statistic {float(stat):.17g} bit-equal; O5 on {O5_INPUTS} "
+            f"inputs: slots bit-equal to O1's, slots and partners within "
+            f"{slot_err:.3g} of the plain version's, statistic bit-equal to "
+            f"the residual of its own slots and partners; residuals "
+            + ", ".join(f"{c[1]:.3g} (plain {c[2]:.3g})" for c in o5_checks))
+        shapes[tag] = r
+    return results, shapes
+
+
+def check_o5(coeffs: torch.Tensor, t) -> tuple:
+    """O5 on one coefficient vector against O1 and its plain version (see
+    phase_stats_kernels): (max error of slots and partners, residual,
+    plain residual), or raise."""
+    slots, partners, err = embedding.embed_forward_stats(coeffs, t)
+    pslots, ppartners, perr = embedding.embed_forward_stats_plain(coeffs, t)
+    o1 = embedding.embed_forward(coeffs, t)
+    torch.cuda.synchronize()
+    compare("bits", slots, o1)
+    slot_err = max(compare("close", slots, pslots),
+                   compare("close", partners, ppartners))
+    # a maximum of values each rounded once is exact: the kernel's
+    # reduction bit-equal to the residual of its own slots and partners
+    compare("bits", err, embedding.conj_residual(slots, partners))
+    tol = O1_TOLERANCE * float(pslots.abs().max())
+    e, pe = float(err), float(perr)
+    if not (0 < e <= RESIDUAL_BOUND and 0 < pe <= RESIDUAL_BOUND
+            and abs(e - pe) <= tol):
+        raise AssertionError(f"O5: residuals {e} (kernel) and {pe} (plain): "
+                             f"not both in (0, {RESIDUAL_BOUND}] within "
+                             f"{tol} of each other")
+    return slot_err, e, pe
+
+
+class BinderAlice:
+    """troy's binder/test.py:9-78 Alice, against troy_tpu_torch.compat (the
+    prints of the script become checks)."""
+
+    def __init__(self):
+        parameters = pytroy.EncryptionParameters(pytroy.SchemeType.ckks)
+        parameters.set_poly_modulus_degree(BINDER_N)
+        parameters.set_coeff_modulus(pytroy.CoeffModulus.create(
+            BINDER_N, BINDER_BITS))
+        self.context = pytroy.SEALContext(parameters)
+        self.encoder = pytroy.CKKSEncoder(self.context)
+        self.keygen = pytroy.KeyGenerator(self.context)
+        self.public_key = self.keygen.create_public_key()
+        self.encryptor = pytroy.Encryptor(self.context, self.public_key)
+        self.decryptor = pytroy.Decryptor(self.context,
+                                          self.keygen.secret_key())
+        self.evaluator = pytroy.Evaluator(self.context)
+
+    def get_public_key(self):
+        relin_keys = self.keygen.create_relin_keys()
+        galois_keys = self.keygen.create_galois_keys()
+        relin_keys.load(relin_keys.save())
+        self.relin_keys = relin_keys
+        return (self.public_key.save(), relin_keys.save(),
+                galois_keys.save())
+
+    def get_ciphers(self):
+        p1, p2 = pytroy.Plaintext(), pytroy.Plaintext()
+        self.encoder.encode([1, 2, 3, 4], 1 << 40, p1)
+        self.encoder.encode([0.5, 0.6, 0.7, 0.8], 1 << 40, p2)
+        c1, c2 = pytroy.Ciphertext(), pytroy.Ciphertext()
+        self.encryptor.encrypt(p1, c1)
+        self.encryptor.encrypt(p2, c2)
+        ret = (c1.save(), c2.save())
+        self.c1, self.c2 = c1.copy(), c2.copy()
+        self.evaluator.multiply_inplace(c1, c2)
+        self.evaluator.relinearize_inplace(c1, self.relin_keys)
+        self.product = c1
+        got = np.real(self.decrypt(c1.save())[:4])
+        if np.abs(got - BINDER_WANT).max() > BINDER_BOUND:
+            raise AssertionError(f"Alice's own product decodes to {got}")
+        return ret
+
+    def decrypt(self, c_s):
+        c = pytroy.Ciphertext()
+        c.load(c_s)
+        p = pytroy.Plaintext()
+        self.decryptor.decrypt(c, p)
+        return self.encoder.decode(p)
+
+
+class BinderBob:
+    """binder/test.py Bob: his own context, Alice's keys from bytes."""
+
+    def __init__(self):
+        parameters = pytroy.EncryptionParameters(pytroy.SchemeType.ckks)
+        parameters.set_poly_modulus_degree(BINDER_N)
+        parameters.set_coeff_modulus(pytroy.CoeffModulus.create(
+            BINDER_N, BINDER_BITS))
+        self.context = pytroy.SEALContext(parameters)
+        self.encoder = pytroy.CKKSEncoder(self.context)
+
+    def receive_public_key(self, keys):
+        s_public_key, s_relin_keys, s_galois_keys = keys
+        self.public_key = pytroy.PublicKey()
+        self.public_key.load(s_public_key)
+        self.encryptor = pytroy.Encryptor(self.context, self.public_key)
+        self.evaluator = pytroy.Evaluator(self.context)
+        self.relin_keys = pytroy.RelinKeys()
+        self.relin_keys.load(s_relin_keys)
+        self.galois_keys = pytroy.GaloisKeys()
+        self.galois_keys.load(s_galois_keys)
+
+    def evaluate(self, c1_s, c2_s):
+        c1, c2 = pytroy.Ciphertext(), pytroy.Ciphertext()
+        c1.load(c1_s)
+        c2.load(c2_s)
+        self.evaluator.multiply_inplace(c1, c2)
+        self.evaluator.relinearize_inplace(c1, self.relin_keys)
+        self.evaluator.rescale_to_next_inplace(c1)
+        return c1.save()
+
+
+def negacyclic(a: np.ndarray, b: np.ndarray, t: int) -> np.ndarray:
+    """a b mod (x^n + 1, t) for int64 coefficient vectors whose products
+    and sums stay below 2^63."""
+    n = len(a)
+    full = np.convolve(a.astype(np.int64), b.astype(np.int64))
+    res = full[:n].copy()
+    res[:n - 1] -= full[n:]
+    return res % t
+
+
+class TimeTest:
+    """binder/timetest.py's TimeTestCKKS and TimeTestBFVBGV (:53-372) at its
+    main() configurations, repeat = 2, through troy_tpu_torch.compat, with
+    every op's result decrypted and checked (timing scaffolding removed)."""
+
+    def __init__(self, scheme, seed):
+        self.scheme, self.rng = scheme, np.random.default_rng(seed)
+        n = TIMETEST_N
+        parms = pytroy.EncryptionParameters(scheme)
+        parms.set_poly_modulus_degree(n)
+        self.ckks = scheme == pytroy.SchemeType.ckks
+        if self.ckks:
+            parms.set_coeff_modulus(pytroy.CoeffModulus.create(
+                n, TIMETEST_CKKS_Q))
+            self.count = n // 2
+        else:
+            parms.set_plain_modulus(1 << TIMETEST_T_BITS)
+            parms.set_coeff_modulus(pytroy.CoeffModulus.create(
+                n, TIMETEST_BFV_Q))
+            self.count = n
+        context = pytroy.SEALContext(parms)
+        keygen = pytroy.KeyGenerator(context)
+        self.pk, self.rlk = pytroy.PublicKey(), pytroy.RelinKeys()
+        keygen.create_public_key(self.pk)
+        keygen.create_relin_keys(self.rlk)
+        if self.ckks:
+            self.gk = pytroy.GaloisKeys()
+            keygen.create_galois_keys(self.gk)
+            self.encoder = pytroy.CKKSEncoder(context)
+        else:
+            self.encoder = pytroy.BatchEncoder(context)
+        self.encryptor = pytroy.Encryptor(context, self.pk)
+        self.decryptor = pytroy.Decryptor(context, keygen.secret_key())
+        self.evaluator = pytroy.Evaluator(context)
+        self.worst = 0.0
+
+    def vector(self):
+        if self.ckks:
+            return self.rng.uniform(-DATA_BOUND, DATA_BOUND, self.count)
+        return self.rng.integers(0, DATA_BOUND, self.count, dtype=np.int64)
+
+    def plaintext(self, v):
+        if self.ckks:
+            ret = pytroy.Plaintext()
+            self.encoder.encode(v, TIMETEST_DELTA, ret)
+            return ret
+        return self.encoder.encode_polynomial(v.astype(np.uint64))
+
+    def ciphertext(self, v):
+        ret = pytroy.Ciphertext()
+        self.encryptor.encrypt(self.plaintext(v), ret)
+        return ret
+
+    def mul(self, a, b):
+        return a * b if self.ckks else negacyclic(a, b, 1 << TIMETEST_T_BITS)
+
+    def check(self, what, c, want):
+        p = self.decryptor.decrypt(c)
+        if self.ckks:
+            got = np.real(self.encoder.decode(p))
+            err = float(np.abs(got - want).max())
+            self.worst = max(self.worst, err / max(1.0, np.abs(want).max()))
+            if err > TIMETEST_CKKS_BOUND * max(1.0, np.abs(want).max()):
+                raise AssertionError(f"timetest {what}: {err} from the "
+                                     "expected slots")
+        else:
+            got = self.encoder.decode_polynomial(p).astype(np.int64)
+            if not np.array_equal(got, np.asarray(want) % (
+                    1 << TIMETEST_T_BITS)):
+                raise AssertionError(f"timetest {self.scheme.name} {what} "
+                                     "decrypts wrong")
+
+    def run(self, repeat=2):
+        ev = self.evaluator
+        a, b = self.vector(), self.vector()
+        c1, c2 = self.ciphertext(a), self.ciphertext(b)
+        p2 = self.plaintext(b)
+        c3 = pytroy.Ciphertext()
+        for _ in range(repeat):                       # testAdd
+            ev.add(c1, c2, c3)
+            ev.add_inplace(c3, c1)
+            c4 = ev.add(c1, c3)
+        self.check("add", c4, 3 * a + b)
+        for _ in range(repeat):                       # testAddPlain
+            ev.add_plain(c1, p2, c3)
+            ev.add_plain_inplace(c3, p2)
+            c4 = ev.add_plain(c3, p2)
+        self.check("add_plain", c4, a + 3 * b)
+        for _ in range(repeat):                       # testMultiplyPlain
+            ev.multiply_plain(c1, p2, c3)
+            ev.multiply_plain_inplace(c3, p2)
+            c4 = ev.multiply_plain(c1, p2)
+        self.check("multiply_plain", c4, self.mul(a, b))
+        if not self.ckks:
+            self.check("multiply_plain twice", c3,
+                       self.mul(self.mul(a, b), b))
+        c5 = None
+        for _ in range(repeat):           # testMultiplyRescale / ModSwitch
+            ev.multiply(c1, c2, c3)
+            if self.ckks:
+                ev.rescale_to_next(c3, c4)
+            else:
+                ev.mod_switch_to_next(c3, c4)
+            c5 = c1.copy()
+            ev.multiply_inplace(c5, c2)
+            if self.ckks:
+                ev.rescale_to_next_inplace(c5)
+            else:
+                ev.mod_switch_to_next_inplace(c5)
+        if c4.size() != 3 or c5.size() != 3:
+            raise AssertionError("the product is not of size 3")
+        self.check("multiply, rescale or mod switch", c4, self.mul(a, b))
+        self.check("multiply_inplace", c5, self.mul(a, b))
+        for _ in range(repeat):                       # testSquare
+            ev.square(c1, c2)
+            c3 = c1.copy()
+            ev.square_inplace(c3)
+            c4 = ev.square(c1)
+        self.check("square", c4, self.mul(a, a))
+        self.check("square_inplace", c3, self.mul(a, a))
+        self.check("relinearize", ev.relinearize(c4, self.rlk),
+                   self.mul(a, a))
+        if self.ckks:                                 # testRotateVector
+            c6, c7 = pytroy.Ciphertext(), c1.copy()
+            for _ in range(repeat):
+                ev.rotate_vector(c7, 1, self.gk, c6)
+                ev.rotate_vector_inplace(c7, 1, self.gk)
+            self.check("rotate_vector", c6, np.roll(a, -repeat))
+        for _ in range(repeat):                       # testMemoryPool
+            c8 = pytroy.Ciphertext()
+            ev.square(c1, c8)
+        self.check("memory pool square", c8, self.mul(a, a))
+
+
+def phase_binder(counter) -> tuple:
+    """Phase 30: troy's binder scripts through troy_tpu_torch.compat on the
+    card at full width, in a count window of their own: binder/test.py's
+    Alice/Bob protocol (CKKS n = 16384, six 40-bit primes, keys and
+    ciphertexts exchanged as save() bytes), binder/timetest.py's op surface
+    (BFV and BGV at (8192, t = 2^41, (60,50,60)), CKKS at (8192,
+    (60,40,40,60), 2^40)), a borderline CKKS encode (kernel O4 and the
+    exact check) and one too large, and decode_max_error (O5) on a fresh
+    product; then the shim ops' device kernels from the profiler."""
+    counter.calls.clear()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pytroy.initialize_kernel()
+    alice = BinderAlice()
+    keys = alice.get_public_key()
+    bob = BinderBob()
+    bob.receive_public_key(keys)
+    keygen_s = time.perf_counter() - t0
+    c3_s = bob.evaluate(*alice.get_ciphers())
+    got = np.real(alice.decrypt(c3_s)[:4])
+    err = float(np.abs(got - BINDER_WANT).max())
+    if err > BINDER_BOUND:
+        raise AssertionError(f"binder/test.py decodes to {got}, {err} from "
+                             f"{BINDER_WANT.tolist()}")
+    log(f"[30] binder/test.py (CKKS n = {BINDER_N}, six 40-bit primes): "
+        f"decodes to {got.tolist()}, within {err:.3g} of "
+        f"{BINDER_WANT.tolist()} (bound {BINDER_BOUND}); keys and contexts "
+        f"{keygen_s:.1f} s, {len(keys[2])} bytes of Galois keys")
+    worst = {}
+    for scheme, seed in ((pytroy.SchemeType.bfv, 7),
+                         (pytroy.SchemeType.bgv, 13),
+                         (pytroy.SchemeType.ckks, 11)):
+        tt = TimeTest(scheme, SEED + 30 + seed)
+        tt.run()
+        worst[scheme.name] = tt.worst
+        log(f"[30] binder/timetest.py {scheme.name} (n = {TIMETEST_N}): "
+            f"add, add_plain, multiply_plain, multiply with "
+            f"{'rescale' if tt.ckks else 'mod switch'}, square, "
+            f"relinearize{', rotate_vector' if tt.ckks else ''} and the "
+            f"memory-pool squares decrypt right"
+            + (f" (max relative error {tt.worst:.3g})" if tt.ckks else ""))
+    # the exact magnitude check (troy's gMaxReal path) and a too-large one
+    enc = alice.encoder
+    Q = alice.context._inner.first_context_data.total_coeff_modulus
+    one = np.zeros(BINDER_N // 2)
+    one[0] = 4.0 * Q / BORDER_SCALE
+    border = enc.encode(one, BORDER_SCALE)
+    back = float(np.real(enc.decode(border)[0]))
+    if abs(back - one[0]) > 1e-9 * one[0]:
+        raise AssertionError(f"the borderline encode decodes to {back}, not "
+                             f"{one[0]}")
+    try:
+        enc.encode(np.full(BINDER_N // 2, Q / BORDER_SCALE), BORDER_SCALE)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a CKKS encode above Q/2 did not raise")
+    plain = alice.decryptor.decrypt(alice.product)
+    max_err = alice.encoder._inner.decode_max_error(plain._inner)
+    if not 0 <= max_err <= RESIDUAL_BOUND:
+        raise AssertionError(f"decode_max_error {max_err} outside [0, "
+                             f"{RESIDUAL_BOUND}]")
+    log(f"[30] borderline encode (one slot at 4 Q / 2^45) accepted by the "
+        f"exact check, decoding within {abs(back - one[0]) / one[0]:.3g} "
+        f"(relative); every slot at Q / 2^45 raises; decode_max_error of "
+        f"the product {max_err:.3g}")
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    check_path("30", "30", BINDER_PATH, counts, counter)
+    ev, rlk = alice.evaluator, alice.relin_keys
+    c1, c2 = alice.c1, alice.c2
+    tmp = pytroy.Ciphertext()
+    values = np.linspace(-1, 1, BINDER_N // 2)
+    per_op = profile_ops("30", {
+        "shim_ckks_mult_relin": lambda: (ev.multiply(c1, c2, tmp),
+                                         ev.relinearize_inplace(tmp, rlk)),
+        "shim_ckks_encode": lambda: enc.encode(values, BINDER_SCALE),
+        "shim_ckks_encode_borderline": lambda: enc.encode(one, BORDER_SCALE),
+        "shim_ckks_decode_max_error": lambda: enc._inner.decode_max_error(
+            plain._inner),
+        "shim_ckks_save_load": lambda: pytroy.Ciphertext().load(
+            c1.save(), alice.context)})
+    if counter.calls:
+        raise AssertionError(f"plain torch ran on the card in phase 30's "
+                             f"profile: {counter.calls}")
+    return counts, {"binder_max_error": err, "timetest_ckks_max_rel_error":
+                    worst["ckks"], "decode_max_error": max_err,
+                    "border_decode": back}, per_op, alice
+
+
+def phase_wire(dev) -> dict:
+    """Phase 31: troy's raw-struct wire (refwire.py) on the card at
+    n = 16384 (BFV, q = {60,40,40,40,40,60}): the bytes of seeded keys, a
+    public-key ciphertext, a seed-compressed one (saved expanded) and a
+    product equal to the port's own CPU run from the same seeds; saveTerms
+    and loadTerms round trip; every stream loads back and decrypts right;
+    save and load times of a ciphertext."""
+    out = {}
+    for where in (dev, "cpu"):
+        ctx = P.HeContext(P.EncryptionParameters(
+            scheme=P.SchemeType.bfv, poly_modulus_degree=N,
+            coeff_modulus=tuple(P.CoeffModulus.create(N, Q_BITS)),
+            plain_modulus=P.PlainModulus.batching(N, 20)), device=where)
+        kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(WIRE_SEED))
+        pk = kg.create_public_key()
+        rlk = kg.create_relin_keys()
+        gk = kg.create_galois_keys(steps=[1])
+        enc = P.Encryptor(ctx, pk, kg.secret_key,
+                          rnd.seed_from_uint64(WIRE_SEED + 1))
+        be = P.BatchEncoder(ctx)
+        ev = P.Evaluator(ctx)
+        t = be.plain_modulus
+        a = np.arange(N, dtype=np.uint64) % t
+        ct = enc.encrypt(be.encode(a))
+        seeded = enc.encrypt_symmetric(be.encode(a), save_seed=True)
+        if seeded.seed == 0:
+            raise AssertionError("encrypt_symmetric(save_seed=True) kept no "
+                                 "seed")
+        prod = ev.relinearize(ev.multiply(ct, seeded), rlk)
+        blobs = {"sk": refwire.save_secret_key_ref(kg.secret_key, ctx),
+                 "pk": refwire.save_public_key_ref(pk, ctx),
+                 "rlk": refwire.save_relin_keys_ref(rlk, ctx),
+                 "gk": refwire.save_galois_keys_ref(gk, ctx),
+                 "ct": refwire.save_ciphertext_ref(ct, ctx),
+                 "seeded": refwire.save_ciphertext_ref(seeded, ctx),
+                 "prod": refwire.save_ciphertext_ref(prod, ctx),
+                 "terms": refwire.save_terms_ref(prod, ctx, WIRE_TERMS)}
+        out[str(where)] = blobs
+        if where != "cpu":
+            card = (ctx, kg, be, ev, a, prod, seeded, rlk)
+    differ = [k for k in out["cpu"] if out[str(dev)][k] != out["cpu"][k]]
+    if differ:
+        raise AssertionError(f"troy-wire bytes on the card differ from the "
+                             f"CPU run's: {differ}")
+    ctx, kg, be, ev, a, prod, seeded, rlk = card
+    blobs = out[str(dev)]
+    dec = P.Decryptor(ctx, refwire.load_secret_key_ref(blobs["sk"], ctx))
+    t = be.plain_modulus
+    square = (a.astype(object) * a.astype(object) % t).astype(np.uint64)
+    checks = {"ct": a, "seeded": a, "prod": square}
+    for name, want in checks.items():
+        back = refwire.load_ciphertext_ref(blobs[name], ctx)
+        if not np.array_equal(be.decode(dec.decrypt(back)), want):
+            raise AssertionError(f"troy-wire {name} decrypts wrong")
+    expanded = rlwe.expand_seed(seeded, ctx.first_context_data)
+    if refwire.load_ciphertext_ref(blobs["seeded"], ctx).data.ne(
+            expanded.data).any():
+        raise AssertionError("the seed-compressed ciphertext did not save "
+                             "expanded")
+    part = refwire.load_terms_ref(blobs["terms"], ctx, WIRE_TERMS)
+    if not (torch.equal(part.data[0][:, WIRE_TERMS],
+                        prod.data[0][:, WIRE_TERMS])
+            and torch.equal(part.data[1], prod.data[1])):
+        raise AssertionError("saveTerms/loadTerms lost words")
+    if refwire.save_terms_ref(part, ctx, WIRE_TERMS) != blobs["terms"]:
+        raise AssertionError("loadTerms -> saveTerms changed the bytes")
+    keys = refwire.load_relin_keys_ref(blobs["rlk"], ctx)
+    if not torch.equal(keys.keys[2], rlk.keys[2]):
+        raise AssertionError("the relin key did not round trip")
+    times = {"save_ciphertext_ms": cuda_ms(
+        lambda: refwire.save_ciphertext_ref(prod, ctx), reps=10),
+        "load_ciphertext_ms": cuda_ms(
+        lambda: refwire.load_ciphertext_ref(blobs["prod"], ctx), reps=10),
+        "save_terms_ms": cuda_ms(
+        lambda: refwire.save_terms_ref(prod, ctx, WIRE_TERMS), reps=10)}
+    log(f"[31] troy wire at n = {N}: the bytes of sk, pk, relin key, Galois "
+        f"key, a public-key ciphertext, a seed-compressed one (saved "
+        f"expanded) and a product equal the CPU run's; each decrypts right "
+        f"after load; saveTerms/loadTerms of {len(WIRE_TERMS)} terms round "
+        f"trips; " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; {len(blobs['prod'])} bytes a product")
+    return {**times, "bytes": {k: len(v) for k, v in blobs.items()}}
+
+
+def phase_stats_medians(ckks_ctx, alice) -> dict:
+    """Phase 32: the medians (CUDA events) of encode, encode_with_stats,
+    encode_device, decode, decode_device and decode_device_with_stats at
+    n = 16384 and 32768, and of mult+relin through the shim against the
+    same op through Evaluator, alternately in SHIM_ROUNDS rounds (the
+    shim's cost per op, beside the Evaluator's own spread)."""
+    out = {}
+    large = P.HeContext(P.EncryptionParameters(
+        scheme=P.SchemeType.ckks, poly_modulus_degree=32768,
+        coeff_modulus=tuple(P.CoeffModulus.create(32768, CKKS_LARGE_BITS))))
+    rng = np.random.default_rng(SEED + 32)
+    for tag, ctx in (("n16384", ckks_ctx), ("n32768", large)):
+        ce = P.CKKSEncoder(ctx)
+        n = ctx.n
+        vals = rng.uniform(-1, 1, n // 2) + 1j * rng.uniform(-1, 1, n // 2)
+        re = torch.from_numpy(vals.real.copy()).to(ctx.device)
+        im = torch.from_numpy(vals.imag.copy()).to(ctx.device)
+        plain = ce.encode(vals, CKKS_SCALE)
+        times = {
+            "encode": cuda_ms(lambda: ce.encode(vals, CKKS_SCALE)),
+            "encode_with_stats": cuda_ms(
+                lambda: ce.encode_with_stats(vals, CKKS_SCALE)),
+            "encode_device": cuda_ms(
+                lambda: ce.encode_device(re, im, CKKS_SCALE, 1.5)),
+            "decode": cuda_ms(lambda: ce.decode(plain)),
+            "decode_device": cuda_ms(lambda: ce.decode_device(plain)),
+            "decode_device_with_stats": cuda_ms(
+                lambda: ce.decode_device_with_stats(plain))}
+        out[tag] = times
+        log(f"[32] CKKS {tag} medians over {TIMING_REPS} runs (ms, CUDA "
+            f"events): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    ev, rlk, c1, c2 = alice.evaluator, alice.relin_keys, alice.c1, alice.c2
+    tmp = pytroy.Ciphertext()
+    inner = ev._inner
+    shim = lambda: (ev.multiply(c1, c2, tmp), ev.relinearize_inplace(tmp,
+                                                                    rlk))
+    direct = lambda: inner.relinearize(inner.multiply(c1._inner, c2._inner),
+                                       rlk._inner)
+    runs = {"shim": [], "evaluator": []}
+    for _ in range(SHIM_ROUNDS):
+        for which in ("shim", "evaluator", "evaluator", "shim"):
+            runs[which].append(cuda_ms(shim if which == "shim" else direct))
+    shim_ms = statistics.median(runs["shim"])
+    direct_ms = statistics.median(runs["evaluator"])
+    q1, _, q3 = statistics.quantiles(runs["evaluator"], n=4)
+    wins = sum(a < b for a, b in zip(runs["evaluator"], runs["shim"]))
+    out["mult_relin"] = {"shim_ms": runs["shim"],
+                         "evaluator_ms": runs["evaluator"],
+                         "shim_cost_ms": shim_ms - direct_ms,
+                         "evaluator_iqr_ms": q3 - q1,
+                         "evaluator_faster_pairs": wins}
+    log(f"[32] CKKS n = {BINDER_N} mult+relin, {SHIM_ROUNDS} rounds of "
+        f"shim, Evaluator, Evaluator, shim: medians shim {shim_ms:.4f}, "
+        f"Evaluator {direct_ms:.4f} ms; the shim's cost per op "
+        f"{shim_ms - direct_ms:.4f} ms against the Evaluator's own "
+        f"interquartile spread {q3 - q1:.4f} ms; Evaluator faster in {wins} "
+        f"of {len(runs['shim'])} pairs")
+    return out
+
+
 def main() -> None:
     wall0 = time.perf_counter()
     name = phase_device()
@@ -3043,10 +3698,18 @@ def main() -> None:
                       if k.endswith("mult_relin")})
     per_op.update(phase_large_profiles(large_ops, counter))
 
+    # ---- the CKKS statistics, troy's binder API and wire: 29-32 ----
+    stats_results, stats_shapes = phase_stats_kernels(ctx.device)
+    kernel_results.update(stats_results)
+    binder_counts, binder, binder_per_op, alice = phase_binder(counter)
+    per_op.update(binder_per_op)
+    wire = phase_wire(ctx.device)
+    stats_ms = phase_stats_medians(ckks_ctx, alice)
+
     entries = []
     windows = (bfv_counts, ckks_counts, bgv_counts, plain_counts,
                default_counts, lwe_counts, app_counts, mxu16_counts,
-               seal_counts, ckks32_counts, ceiling_counts)
+               seal_counts, ckks32_counts, ceiling_counts, binder_counts)
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
         launches = [c.get(kernel, 0) for c in windows]
@@ -3063,6 +3726,7 @@ def main() -> None:
                         "launches_seal32768": launches[8],
                         "launches_ckks32768": launches[9],
                         "launches_ceiling": launches[10],
+                        "launches_binder": launches[11],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -3136,6 +3800,8 @@ def main() -> None:
                     "J_shapes": mxu_shapes, "mxu_headline": mxu_headline,
                     "seal32768": seal, "ckks32768": ckks32,
                     "ceiling": ceiling,
+                    "stats_shapes": stats_shapes, "binder": binder,
+                    "wire": wire, "stats_ms": stats_ms,
                     "native_build_s": native.build_seconds,
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {

@@ -376,6 +376,100 @@ def _ckks_slice(device):
             "moduli": ctx.first_context_data.coeff_values}
 
 
+@pytest.mark.parametrize("n", [64, 1024, 16384, 32768])
+def test_ckks_statistics_kernels(dev, n):
+    """O4: O2's words and the statistic bit-equal to the plain version's,
+    at scales 2^40 and 2^55 and at magnitudes up to 2^100; O5: the slots
+    bit-equal to O1's (embed_forward), slots and partners within 2^-44
+    max|v| of the plain version's, the statistic bit-equal to the residual
+    of its own slots and partners (a maximum is exact), nonzero and within
+    2^-44 max|v| of the plain version's, on four inputs (so that a
+    reduction over part of the slots shows), and in (0, 1e-8] for slots
+    below 1."""
+    rng = np.random.default_rng(n + 1)
+    t = embedding.make_embed_tables(n, dev)
+    bits = [60] + [40] * 14 + [60] if n == 32768 else [60, 40, 40, 40, 40,
+                                                       60]
+    moduli = [int(m) for m in P.CoeffModulus.create(n, bits)]
+    rt = embedding.make_rns_round_tables(
+        ntt.RnsNttTables.from_moduli(n, moduli[:-1], dev))
+    vals = torch.from_numpy(rng.uniform(-1, 1, n // 2)
+                            + 1j * rng.uniform(-1, 1, n // 2)).to(dev)
+    u = embedding.embed_inverse_fft(vals, t)
+    for scale in (2.0 ** 40, 2.0 ** 55, 2.0 ** 100 if n == 64 else 1.0):
+        words, stat = embedding.untwist_round_to_rns_stats(u, scale, t, rt)
+        _same(words, embedding.untwist_round_to_rns(u, scale, t, rt))
+        _same(words, embedding.untwist_round_to_rns_plain(u, t.untwist,
+                                                          scale, rt))
+        assert stat.dim() == 0 and stat.device.type == "cuda"
+        assert float(stat) == float(embedding.round_stats_plain(
+            u, t.untwist, scale))
+    for coeffs in [torch.from_numpy(rng.uniform(-1, 1, n)).to(dev)
+                   for _ in range(3)] + [
+            torch.from_numpy(rng.uniform(-1, 1, n) * 2.0 ** 30).to(dev)]:
+        slots, partners, err = embedding.embed_forward_stats(coeffs, t)
+        torch.cuda.synchronize()
+        assert torch.equal(slots, embedding.embed_forward(coeffs, t))
+        assert torch.equal(err, embedding.conj_residual(slots, partners))
+        pslots, ppartners, perr = embedding.embed_forward_stats_plain(
+            coeffs, t)
+        bound = 2.0 ** -44 * float(pslots.abs().max())
+        assert float((slots - pslots).abs().max()) <= bound
+        assert float((partners - ppartners).abs().max()) <= bound
+        assert float(err) > 0 and float(perr) > 0
+        assert abs(float(err) - float(perr)) <= bound
+    # a decode's residual, in slot units: the real coefficients of the
+    # slots' encoding
+    slots, _, err = embedding.embed_forward_stats((u * t.untwist).real, t)
+    assert float((slots - vals).abs().max()) <= 1e-12
+    assert 0.0 < float(err) <= 1e-8
+
+
+def test_ckks_device_surface_on_the_card(dev):
+    """encode_with_stats, the borderline encode, encode_device,
+    decode_device_with_stats and decode_max_error on the card: O4 and O5
+    launched; on each device encode_with_stats and encode_device give
+    encode's words; across devices the statistic's bit count and the
+    decoded values agree (O1's two summation orders can move a tie, so the
+    words are not compared across devices)."""
+    out = {}
+    for where in (dev, "cpu"):
+        n = 1024
+        parms = P.EncryptionParameters(
+            scheme=P.SchemeType.ckks, poly_modulus_degree=n,
+            coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])))
+        ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                          device=where)
+        ce = P.CKKSEncoder(ctx)
+        rng = np.random.default_rng(9)
+        vals = rng.uniform(-1, 1, n // 2) + 1j * rng.uniform(-1, 1, n // 2)
+        _kernels.reset_launch_counts()
+        plain, stats = ce.encode_with_stats(vals, 2.0 ** 40)
+        dplain = ce.encode_device(torch.from_numpy(vals.real).to(ctx.device),
+                                  torch.from_numpy(vals.imag).to(ctx.device),
+                                  2.0 ** 40, 1.5)
+        Q = ctx.first_context_data.total_coeff_modulus
+        one = np.zeros(n // 2, dtype=np.complex128)
+        one[0] = 4.0 * Q / 2.0 ** 45
+        border = ce.encode(one, 2.0 ** 45)
+        re, im, err = ce.decode_device_with_stats(plain)
+        counts = _kernels.launch_counts()
+        if where is dev:
+            assert counts["O4_ckks_encode_stats"] == 2, counts
+            assert counts["O5_ckks_decode_stats"] == 1, counts
+        assert ce.decode_max_error(plain) == float(err) <= 1e-8
+        words = interop.words(ce.encode(vals, 2.0 ** 40))
+        np.testing.assert_array_equal(interop.words(plain), words)
+        np.testing.assert_array_equal(interop.words(dplain), words)
+        np.testing.assert_allclose(ce.decode(border)[0].real, one[0].real,
+                                   rtol=1e-10)
+        out[str(where)] = (stats.max_coeff_bit_count,
+                           (re.cpu() + 1j * im.cpu()).numpy())
+    card, host = out[str(dev)], out["cpu"]
+    assert card[0] == host[0]
+    np.testing.assert_allclose(card[1], host[1], rtol=0, atol=1e-9)
+
+
 def test_ckks_slice_on_the_card_gives_the_cpu_words(dev):
     """Word for word after encode; the encode itself within the tie bound
     of the records test (|diff| <= 1 at <= 4 coefficients), the decode to

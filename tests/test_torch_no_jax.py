@@ -213,10 +213,49 @@ FLOW = textwrap.dedent("""
     jdec = P.Decryptor(jctx, jkg.secret_key)
     assert (jbe.decode(jdec.decrypt(jev.mod_switch_to_next(jsq)))
             == (ja * ja) % jbe.plain_modulus).all(), "wrong product on J"
+    # troy's binder API on the port: a two-party CKKS exchange in both
+    # wires, the device statistics, and the host modules
+    import troy_tpu_torch.compat as pytroy
+    from troy_tpu_torch import functional, hexpoly, refwire, valcheck
+    from troy_tpu_torch.utils import profiling
+    sp = pytroy.EncryptionParameters(pytroy.SchemeType.ckks)
+    sp.set_poly_modulus_degree(n)
+    sp.set_coeff_modulus(pytroy.CoeffModulus.create(n, [50, 40, 50]))
+    sctx = pytroy.SEALContext(sp, True, pytroy.SecurityLevel.none,
+                              device="cpu")
+    skg = pytroy.KeyGenerator(sctx)
+    sce = pytroy.CKKSEncoder(sctx)
+    senc = pytroy.Encryptor(sctx, skg.create_public_key())
+    sev = pytroy.Evaluator(sctx)
+    sc = pytroy.Ciphertext()
+    sc.load(senc.encrypt(sce.encode([1.0, 2.0], 2.0 ** 30)).save(sctx,
+                                                                 wire="troy"),
+            sctx)
+    sev.square_inplace(sc)
+    sev.relinearize_inplace(sc, skg.create_relin_keys())
+    sback = pytroy.Ciphertext()
+    sback.load(sc.save())
+    sout = sce.decode(pytroy.Decryptor(sctx, skg.secret_key()).decrypt(sback))
+    assert np.abs(sout[:2] - [1.0, 4.0]).max() < 1e-3, "wrong shim flow"
+    plain, stats = ce.encode_with_stats(v, 2.0 ** 30)
+    assert stats.max_coeff_bit_count > 1
+    assert 0 <= ce.decode_max_error(plain) < 1e-8
+    assert valcheck.is_valid_for(cv, cctx)
+    assert hexpoly.poly_to_hex_string([1, 0, 3]) == "3x^2 + 1"
+    assert refwire.load_ciphertext_ref(refwire.save_ciphertext_ref(cv, cctx),
+                                       cctx).data.equal(cv.data)
+    fsq = functional.multiply(cv, cv, cctx.first_context_data)
+    assert fsq.data.equal(cev.multiply(cv, cv).data)
+    timer = profiling.Timer()
+    with timer.measure("op"):
+        pass
     for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding",
                 "troy_tpu_torch.ops.sampling", "troy_tpu_torch.app.linear",
                 "troy_tpu_torch.serialization", "troy_tpu_torch.ops.tiles",
-                "troy_tpu_torch.ops.ntt_mxu", "troy_tpu_torch.native"):
+                "troy_tpu_torch.ops.ntt_mxu", "troy_tpu_torch.native",
+                "troy_tpu_torch.compat", "troy_tpu_torch.refwire",
+                "troy_tpu_torch.functional", "troy_tpu_torch.valcheck",
+                "troy_tpu_torch.hexpoly", "troy_tpu_torch.utils.profiling"):
         assert mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -336,6 +375,10 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                      meta(n, dtype=torch.float64), emb),
                  lambda: embedding.untwist_round_to_rns(
                      meta(n, dtype=torch.complex128), 1.0, emb, rt),
+                 lambda: embedding.untwist_round_to_rns_stats(
+                     meta(n, dtype=torch.complex128), 1.0, emb, rt),
+                 lambda: embedding.embed_forward_stats(
+                     meta(n, dtype=torch.float64), emb),
                  lambda: embedding.compose_centered(x, rt),
                  lambda: rns.divide_and_round_q_last_ntt(
                      meta(1, 2, n), tables, consts),

@@ -6,8 +6,9 @@ Hopper (sm_90a) on the hot path: the NTT (one row per block up to
 n = 16384, and as two exact int8 tensor-core matrix products at any
 n >= 2048, the only route above 16384), the 128-bit dyadic
 multiply-accumulate, the BEHZ base conversion, per-limb modular
-arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64,
-the NTT-domain rescale and BGV divides, the plain lift, the exact
+arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64
+with the statistics of troy's device encode and decode, the NTT-domain
+rescale and BGV divides, the plain lift, the exact
 conversion to t, device sampling from threefry streams, the negacyclic
 shift with the LWE extract and assemble, the pack tree's shift and fold,
 the coefficient-domain BGV divide, and the app layer's tile contraction,
@@ -15,9 +16,13 @@ ciphertext pair convolution and group fold (``csrc/``, built with nvcc at
 first use). On the CPU every kernel's plain PyTorch version runs instead;
 results are the same words (for the FP64 transform, the same values to
 rounding). ``app.linear`` holds the private matmul and conv2d helpers,
-``serialization`` the wire formats, ``native`` the C++ host runtime
-(host keygen's BLAKE2Xb stream and the table precompute), built with g++
-at first use.
+``serialization`` the wire formats and ``refwire`` troy's raw-struct
+bytes, ``compat`` troy's pybind11 binder API (``import
+troy_tpu_torch.compat as pytroy``), ``functional`` the explicit-argument
+evaluator API, ``valcheck`` and ``hexpoly`` troy's validity checks and
+hex-poly strings, ``utils.profiling`` a Timer and a torch.profiler trace,
+``native`` the C++ host runtime (host keygen's BLAKE2Xb stream and the
+table precompute), built with g++ at first use.
 
 This package imports torch and numpy, never JAX: ``troy_tpu`` is the
 reference it is tested against, not a dependency.

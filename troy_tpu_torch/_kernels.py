@@ -65,6 +65,9 @@ _SIGNATURES = {
     "troy_ckks_fft_encode": (_P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _D, _P),
     "troy_ckks_fft_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "troy_ckks_round": (_P, _P, _P, _D, _I, _I, _P, _I, _P),
+    "troy_ckks_round_stats": (_P, _P, _P, _P, _D, _I, _I, _P, _I, _P),
+    "troy_ckks_fft_decode_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _P),
     "troy_ckks_compose": (_P, _P, _I, _I, _I, _P, _D, _P),
     "troy_rescale_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
     "troy_rescale_ntt_finish": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P,
@@ -114,6 +117,8 @@ KERNELS = {
     "troy_ckks_fft_decode": "O1_ckks_fft",
     "troy_ckks_round": "O2_ckks_round",
     "troy_ckks_compose": "O3_ckks_compose",
+    "troy_ckks_round_stats": "O4_ckks_encode_stats",
+    "troy_ckks_fft_decode_stats": "O5_ckks_decode_stats",
     "troy_rescale_ntt_temps": "Kp_rescale_ntt",
     "troy_rescale_ntt_finish": "Kp_rescale_ntt",
     "troy_keyswitch_ntt_temps": "Kp_keyswitch_ntt",

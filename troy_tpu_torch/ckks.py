@@ -10,7 +10,13 @@ On the context's device, encode is kernel O1 (the FP64 transform with the
 slot scatter fused in), O2 (untwist, scale, round, reduce into every prime)
 and A (the NTT); decode is A (inverse NTT), O3 (the centred CRT composition
 times 1/scale) and O1 (the transform with the twist and the slot gather
-fused in). ``encode_polynomial`` and ``decode_polynomial`` take real
+fused in). ``encode_with_stats`` runs O4 in O2's place, which also reduces
+the largest rounded coefficient (troy's gMaxReal) to a device scalar; an
+``encode`` whose host bound scale * max|v| reaches Q/2 runs it and reads it
+back, troy's exact magnitude check. ``decode_device_with_stats`` runs O5 in
+O1's place, which also reduces the conjugate-symmetry residual of the
+transform. ``encode_device`` and ``decode_device`` take and give device
+tensors. ``encode_polynomial`` and ``decode_polynomial`` take real
 coefficients straight through O2 and A, and A and O3 (no embedding).
 ``host=True`` keeps the JAX package's independent host oracle:
 numpy's FFT, exact host rounding and composition, and the port's numpy NTT
@@ -58,21 +64,26 @@ def _round_to_rns(coeffs: np.ndarray, cd: ContextData) -> np.ndarray:
 class EncodeStats:
     """The largest |coefficient| of an encode, as troy's gMaxReal
     (ckks_cuda.cu:178-209, :386-407) and the JAX package's EncodeStats
-    (troy_tpu/ckks.py:58): max_abs_small times 2^exponent."""
+    (troy_tpu/ckks.py:58): max_abs_small times 2^exponent.
 
-    max_abs_small: float
-    exponent: int
+    ``max_abs_small`` is a 0-d float64 tensor on the context's device (or a
+    float); the properties read it back. The port rounds at the full scale
+    (kernel O4), so its exponent is 0 where the JAX package splits the
+    scale."""
+
+    max_abs_small: object
+    exponent: int = 0
 
     @property
     def max_coeff_bit_count(self) -> int:
         """ceil(log2(max|coeff|)) + 1 (ckks_cuda.cu:404)."""
-        m = self.max_abs_small
+        m = float(self.max_abs_small)
         bits = math.ceil(math.log2(m)) if m > 1.0 else 0
         return bits + self.exponent + 1
 
     @property
     def max_coeff_log2(self) -> float:
-        m = self.max_abs_small
+        m = float(self.max_abs_small)
         return (math.log2(m) if m > 0 else 0.0) + self.exponent
 
 
@@ -119,21 +130,59 @@ class CKKSEncoder:
             raise ValueError("too many slot values")
         if self.host:
             return self._encode_host(values, scale, level, cd)
-        # the host bound of troy_tpu/ckks.py:134-145: |coeffs| <= scale *
-        # max|values|; only where that bound fails is the exact magnitude
-        # computed, on the host
-        half_q = cd.total_coeff_modulus / 2
+        # the host bound of troy_tpu/ckks.py:134-149: |coeffs| <= scale *
+        # max|values|, with no readback; only where it fails does the exact
+        # check run: the statistic of O4, read back
         bound = float(scale) * float(np.max(np.abs(values), initial=0.0))
-        if bound >= half_q and np.max(np.abs(self._coeffs_host(
-                values, scale)), initial=0.0) >= half_q:
+        if bound >= cd.total_coeff_modulus / 2:
+            plain, stats = self.encode_with_stats(values, scale, level)
+            if stats.max_coeff_bit_count >= \
+                    cd.total_coeff_modulus.bit_length():
+                raise ValueError("encoded values are too large for the "
+                                 "coefficient modulus at this level")
+            return plain
+        return self._encode_device(torch.from_numpy(values).to(cd.device),
+                                   scale, level, cd)
+
+    def _encode_device(self, values: torch.Tensor, scale: float, level: int,
+                       cd: ContextData, stats: bool = False):
+        """O1, O2 (with ``stats`` O4) and A on complex slot values on the
+        device: the plaintext, or (plaintext, EncodeStats)."""
+        u = emb.embed_inverse_fft(values, self._emb)
+        rt = emb.make_rns_round_tables(cd.ntt)
+        if stats:
+            rns, largest = emb.untwist_round_to_rns_stats(u, scale,
+                                                          self._emb, rt)
+        else:
+            rns = emb.untwist_round_to_rns(u, scale, self._emb, rt)
+        plain = Plaintext(data=dntt.rns_ntt_forward(rns, cd.ntt), level=level,
+                          is_ntt_form=True, scale=scale)
+        return (plain, EncodeStats(max_abs_small=largest)) if stats \
+            else plain
+
+    def encode_device(self, values_re: torch.Tensor,
+                      values_im: torch.Tensor, scale: float, max_abs: float,
+                      level: Optional[int] = None) -> Plaintext:
+        """Slot values already on the device as float64 (re, im) tensors
+        (troy_tpu/ckks.py:153): no upload and no readback. ``max_abs`` is a
+        host bound on max|values|; this raises where scale * max_abs reaches
+        Q/2, as the JAX package does (the exact check would read the
+        statistic back)."""
+        if self.host:
+            raise ValueError("encode_device requires the device encoder")
+        level = self._level(level)
+        cd = self.context.get_context_data(level)
+        if values_re.dim() != 1 or values_re.shape != values_im.shape or \
+                values_re.shape[0] > self.slots:
+            raise ValueError(f"encode_device: expected two (m <= "
+                             f"{self.slots},) tensors, got "
+                             f"{tuple(values_re.shape)} and "
+                             f"{tuple(values_im.shape)}")
+        if float(scale) * float(max_abs) >= cd.total_coeff_modulus / 2:
             raise ValueError("encoded values are too large for the "
                              "coefficient modulus at this level")
-        u = emb.embed_inverse_fft(torch.from_numpy(values).to(cd.device),
-                                  self._emb)
-        rns = emb.untwist_round_to_rns(u, scale, self._emb,
-                                       emb.make_rns_round_tables(cd.ntt))
-        return Plaintext(data=dntt.rns_ntt_forward(rns, cd.ntt), level=level,
-                         is_ntt_form=True, scale=scale)
+        return self._encode_device(torch.complex(values_re, values_im),
+                                   scale, level, cd)
 
     def _encode_host(self, values: np.ndarray, scale: float, level: int,
                      cd: ContextData) -> Plaintext:
@@ -172,17 +221,24 @@ class CKKSEncoder:
     def encode_with_stats(self, values: Union[Sequence[complex], np.ndarray],
                           scale: float, level: Optional[int] = None
                           ) -> Tuple[Plaintext, EncodeStats]:
-        """``encode`` and the largest |coefficient| it rounded. The
-        statistic comes from the host oracle's coefficients (numpy's FFT),
-        split as the JAX package's host path splits it
-        (troy_tpu/ckks.py:201-207); the device statistic of troy_tpu's
-        encode_stats_pipeline is not ported."""
-        plain = self.encode(values, scale, level)
-        coeffs = self._coeffs_host(np.asarray(values, dtype=np.complex128),
-                                   scale)
-        m = float(np.max(np.abs(np.rint(coeffs)), initial=0.0))
-        e = max(0, int(m).bit_length() - 40)
-        return plain, EncodeStats(max_abs_small=m * 2.0 ** -e, exponent=e)
+        """``encode`` and the largest |coefficient| it rounded
+        (troy_tpu/ckks.py:187): O1, O4 and A, the statistic a device scalar
+        that stays there until a property of the EncodeStats reads it. No
+        magnitude check: this is what the check reads. ``host=True``: the
+        host oracle's coefficients."""
+        level = self._level(level)
+        cd = self.context.get_context_data(level)
+        values = np.asarray(values, dtype=np.complex128)
+        if values.ndim != 1 or len(values) > self.slots:
+            raise ValueError("too many slot values")
+        if self.host:
+            plain = self._encode_host(values, scale, level, cd)
+            m = float(np.max(np.abs(np.rint(self._coeffs_host(values,
+                                                               scale))),
+                             initial=0.0))
+            return plain, EncodeStats(max_abs_small=m)
+        return self._encode_device(torch.from_numpy(values).to(cd.device),
+                                   scale, level, cd, stats=True)
 
     def encode_polynomial(self, coeffs: Union[Sequence[float], np.ndarray],
                           scale: float, level: Optional[int] = None
@@ -224,11 +280,55 @@ class CKKSEncoder:
             coeffs = self._compose_centered_host(plain, cd) / plain.scale
             v = np.fft.ifft(coeffs * self._twist) * self.n
             return v[self._slot_index]
+        return emb.embed_forward(self._decode_coeffs(plain, cd),
+                                 self._emb).cpu().numpy()
+
+    def _decode_coeffs(self, plain: Plaintext,
+                       cd: ContextData) -> torch.Tensor:
+        """A (inverse) and O3: the centred coefficients times 1/scale, (n,)
+        float64 on the device."""
         residues = dntt.rns_ntt_inverse(plain.data, cd.ntt)
-        coeffs = emb.compose_centered(residues,
-                                      emb.make_rns_round_tables(cd.ntt),
-                                      1.0 / plain.scale)
-        return emb.embed_forward(coeffs, self._emb).cpu().numpy()
+        return emb.compose_centered(residues,
+                                    emb.make_rns_round_tables(cd.ntt),
+                                    1.0 / plain.scale)
+
+    def _device_cd(self, plain: Plaintext, what: str) -> ContextData:
+        if self.host:
+            raise ValueError(f"{what} requires the device encoder")
+        if not plain.is_ntt_form or plain.level is None:
+            raise ValueError("CKKS decode expects an NTT-form plaintext")
+        return self.context.get_context_data(plain.level)
+
+    def decode_device(self, plain: Plaintext
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Slot values as (re, im) float64 tensors (n/2,) on the device, no
+        readback (troy_tpu/ckks.py:329): A, O3 and O1."""
+        cd = self._device_cd(plain, "decode_device")
+        v = emb.embed_forward(self._decode_coeffs(plain, cd), self._emb)
+        return v.real, v.imag
+
+    def decode_device_with_stats(self, plain: Plaintext):
+        """``decode_device`` and the conjugate-symmetry residual of the
+        transform, a 0-d float64 tensor on the device: (re, im, max_err),
+        no readback (troy_tpu/ckks.py:339). A, O3 and O5; the slots are
+        ``decode_device``'s bit for bit."""
+        cd = self._device_cd(plain, "decode_device_with_stats")
+        v, _, err = emb.embed_forward_stats(self._decode_coeffs(plain, cd),
+                                            self._emb)
+        return v.real, v.imag, err
+
+    def decode_max_error(self, plain: Plaintext) -> float:
+        """The decode's rounding-error estimate in slot units, read back
+        (troy_tpu/ckks.py:353): O5's residual; ``host=True``, the residual
+        of numpy's inverse FFT on the host oracle's coefficients."""
+        if not self.host:
+            return float(self.decode_device_with_stats(plain)[2])
+        cd = self.context.get_context_data(plain.level)
+        coeffs = self._compose_centered_host(plain, cd) / plain.scale
+        v = np.fft.ifft(coeffs * self._twist) * self.n
+        idx = self._slot_index
+        conj = np.conj(v[self.n - 1 - idx])
+        return float(np.max(np.abs(v[idx] - conj), initial=0.0))
 
     def decode_polynomial(self, plain: Plaintext,
                           count: Optional[int] = None) -> np.ndarray:

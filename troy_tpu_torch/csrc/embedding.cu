@@ -1,12 +1,16 @@
-// Kernels O1-O3: the CKKS canonical embedding in FP64 and the exact
-// conversions between its f64 coefficients and RNS words.
+// Kernels O1-O5: the CKKS canonical embedding in FP64, the exact
+// conversions between its f64 coefficients and RNS words, and the two
+// statistics of troy's device encode and decode.
 //
 // O1 replaces troy_tpu/ops/embedding.py:257 _four_step with its callers
 // :278 embed_inverse, :286 embed_forward and :296 scatter_slots (the TPU
 // runs the length-n complex transform as int8 digit-plane matmuls on the
 // MXU; the H100 has native FP64). O2 replaces :425 round_to_rns_device and
 // :443 round_to_rns_scaled (exact rounding at any magnitude), O3 :550
-// compose_centered_device (CRT composition to the centred value).
+// compose_centered_device (CRT composition to the centred value). O4
+// replaces :611 encode_stats_pipeline's statistic max |rint(c s)| (troy's
+// gMaxReal, ckks_cuda.cu:178-209, read at :386-407 for the exact magnitude
+// check), O5 :637 decode_stats_pipeline's conjugate-symmetry residual.
 //
 //   O1 encode: u = FFT(V) / n, with V the conjugate-symmetric vector of the
 //              slots (V[idx_i] = v_i, V[n-1-idx_i] = conj(v_i), 0 past the
@@ -15,7 +19,22 @@
 //              fused into the loads and the slot gather into the stores;
 //   O2:        round(Re(u * untwist) * scale) mod q_i for every limb;
 //   O3:        the centred CRT composition of (k, n) residues, as f64, times
-//              1/scale.
+//              1/scale;
+//   O4:        O2, and max |rint(Re(u * untwist) * scale)| over the n
+//              coefficients into one f64 word;
+//   O5:        O1 decode, and max(|Re V[j] - Re V[n-1-j]|, |Im V[j] +
+//              Im V[n-1-j]|) over the slots j into one f64 word: the
+//              partners n-1-idx_i are exactly the positions that are not
+//              slots, so the rows pass stores them to a second buffer, and
+//              one small launch over n/2 reduces the residual.
+//
+// Both statistics are maxima of values >= 0, reduced in a block (warp
+// shuffles, then shared memory) and across blocks by atomicMax on the u64
+// bit pattern of the double, which orders non-negative doubles as their
+// values: the result does not depend on the order of the blocks. The word
+// is zeroed on the launch's stream (cudaMemsetAsync) just before. O4 adds
+// no launch to O2 and no pass over memory; O5 adds the n/2 partner values
+// (stored and read once) and the reduction launch to O1's two passes.
 //
 // O1 is the 4-step transform of the JAX package: n = A x B, x[a*B + b],
 //   s[p1, b]        = tw[p1, b] * sum_a w1[p1, a] x[a, b]   (pass 1)
@@ -54,6 +73,28 @@ constexpr int MAX_LIMBS = 64;
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
     return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// max over the block of v >= 0, atomically into the u64 bit pattern at
+// word. Every thread of the block calls it.
+__device__ void block_max_to(double v, unsigned long long *word) {
+    __shared__ double warp_max[THREADS / 32];
+    for (int off = 16; off > 0; off >>= 1) {
+        v = fmax(v, __shfl_down_sync(0xffffffffu, v, off));
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) warp_max[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        v = lane < static_cast<int>(blockDim.x >> 5) ? warp_max[lane] : 0.0;
+        for (int off = 16; off > 0; off >>= 1) {
+            v = fmax(v, __shfl_down_sync(0xffffffffu, v, off));
+        }
+        if (lane == 0) {
+            atomicMax(word, static_cast<unsigned long long>(
+                                __double_as_longlong(v)));
+        }
+    }
 }
 
 // Pass 1 over columns b0 .. b0+cols-1. kEncode: x[j] is the slot scatter of
@@ -108,13 +149,16 @@ __global__ void fft_cols_kernel(double2 *__restrict__ s,
 }
 
 // Pass 2 over rows p1_0 .. p1_0+rows-1. kEncode: out[k] = sum * out_scale
-// (complex, n); otherwise out[slot_of[k]] = sum where slot_of[k] >= 0.
-template <bool kEncode>
+// (complex, n); otherwise out[scatter[k]] = sum where scatter[k] >= 0 (the
+// slots, scatter[idx_i] = i) and, with kPartners, partner[~scatter[k]] =
+// sum elsewhere (their partners, scatter[n-1-idx_i] = ~i).
+template <bool kEncode, bool kPartners = false>
 __global__ void fft_rows_kernel(double2 *__restrict__ out,
                                 const double2 *__restrict__ s,
-                                const int *__restrict__ slot_of,
+                                const int *__restrict__ scatter,
                                 const double2 *__restrict__ w2, int A, int B,
-                                int rows, double out_scale) {
+                                int rows, double out_scale,
+                                double2 *__restrict__ partner = nullptr) {
     extern __shared__ double2 tile[];                  // (rows, B + 1)
     const int p1_0 = blockIdx.x * rows;
     const int stride = B + 1;                          // no bank conflicts
@@ -138,17 +182,22 @@ __global__ void fft_rows_kernel(double2 *__restrict__ out,
         if (kEncode) {
             out[k] = make_double2(acc.x * out_scale, acc.y * out_scale);
         } else {
-            const int slot = slot_of[k];
-            if (slot >= 0) out[slot] = acc;
+            const int slot = scatter[k];
+            if (slot >= 0) {
+                out[slot] = acc;
+            } else if (kPartners) {
+                partner[~slot] = acc;
+            }
         }
     }
 }
 
-template <bool kEncode>
+template <bool kEncode, bool kPartners = false>
 int fft(double2 *out, const void *in, double2 *scratch, const int *index,
         long long count, const double2 *twist, const double2 *w1,
         const double2 *tw, const double2 *w2, int A, int B,
-        double out_scale, cudaStream_t stream) {
+        double out_scale, cudaStream_t stream,
+        double2 *partner = nullptr) {
     if (A < 1 || B < 1 || (A & (A - 1)) || (B & (B - 1))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -163,17 +212,39 @@ int fft(double2 *out, const void *in, double2 *scratch, const int *index,
         scratch, in, index, count, twist, w1, tw, A, B, cols);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    fft_rows_kernel<kEncode><<<A / rows, THREADS, smem2, stream>>>(
-        out, scratch, index, w2, A, B, rows, out_scale);
+    fft_rows_kernel<kEncode, kPartners><<<A / rows, THREADS, smem2,
+                                          stream>>>(
+        out, scratch, index, w2, A, B, rows, out_scale, partner);
     TROY_RETURN_LAUNCH_STATUS();
 }
 
+// O5's reduction: max over j < half of max(|Re v_j - Re p_j|, |Im v_j +
+// Im p_j|), v the slots and p their conjugate partners.
+__global__ void conj_residual_kernel(const double2 *__restrict__ slots,
+                                     const double2 *__restrict__ partner,
+                                     int64_t half,
+                                     unsigned long long *__restrict__ err) {
+    double m = 0.0;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+         j < half; j += stride) {
+        const double2 v = slots[j];
+        const double2 p = partner[j];
+        m = fmax(m, fmax(fabs(v.x - p.x), fabs(v.y + p.y)));
+    }
+    block_max_to(m, err);
+}
+
 // consts: q (k), cr_hi (k), 2^e mod q (k x E), their Shoup words (k x E).
+// kStats (O4): also max |rint(...)| into the bit pattern at stat.
+template <bool kStats>
 __global__ void round_kernel(uint64_t *__restrict__ out,
                              const double2 *__restrict__ u,
                              const double2 *__restrict__ untwist,
                              double scale, int k, int log_n,
-                             const uint64_t *__restrict__ consts, int E) {
+                             const uint64_t *__restrict__ consts, int E,
+                             unsigned long long *__restrict__ stat) {
     __shared__ uint64_t q[MAX_LIMBS], ratio[MAX_LIMBS];
     for (int j = threadIdx.x; j < k; j += blockDim.x) {
         q[j] = consts[j];
@@ -184,6 +255,7 @@ __global__ void round_kernel(uint64_t *__restrict__ out,
     const uint64_t *pow2_shoup = pow2 + static_cast<int64_t>(k) * E;
     const int64_t n = int64_t(1) << log_n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    double largest = 0.0;
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
          i < n; i += stride) {
@@ -193,6 +265,7 @@ __global__ void round_kernel(uint64_t *__restrict__ out,
         const double v = rint(__dmul_rn(re, scale));
         const bool neg = v < 0.0;
         const double a = fabs(v);
+        if (kStats) largest = fmax(largest, a);
         // a = m * 2^e with m < 2^53 an integer: exact at any magnitude
         int ex;
         frexp(a, &ex);
@@ -207,6 +280,7 @@ __global__ void round_kernel(uint64_t *__restrict__ out,
                 neg ? neg_mod(r, q[j]) : r;
         }
     }
+    if (kStats) block_max_to(largest, stat);
 }
 
 // consts: q (k), invp (k), invp Shoup (k), punctured products (k x W
@@ -333,16 +407,16 @@ extern "C" int troy_ckks_fft_encode(void *out, const void *values,
 }
 
 // O1, decode: coeffs (n,) f64 -> slots (n/2,) complex = conj-FFT(c twist)
-// at the slot positions. slot_of (n,) int32 (-1 off the slots); twist (n,)
-// complex; the tables are the conjugate direction's.
+// at the slot positions. scatter (n,) int32 (i at slot i, ~i at its
+// partner); twist (n,) complex; the tables are the conjugate direction's.
 extern "C" int troy_ckks_fft_decode(void *out, const void *coeffs,
-                                    void *scratch, const void *slot_of,
+                                    void *scratch, const void *scatter,
                                     const void *twist, const void *w1,
                                     const void *tw, const void *w2, int A,
                                     int B, void *stream) {
     return fft<false>(static_cast<double2 *>(out), coeffs,
                       static_cast<double2 *>(scratch),
-                      static_cast<const int *>(slot_of), 0,
+                      static_cast<const int *>(scatter), 0,
                       static_cast<const double2 *>(twist),
                       static_cast<const double2 *>(w1),
                       static_cast<const double2 *>(tw),
@@ -350,19 +424,69 @@ extern "C" int troy_ckks_fft_decode(void *out, const void *coeffs,
                       static_cast<cudaStream_t>(stream));
 }
 
+// O5, decode with the residual: O1 decode into out (n/2,) complex, the
+// partners into partner (n/2,) complex, the residual into err (one f64
+// word); scratch (n,) complex.
+extern "C" int troy_ckks_fft_decode_stats(void *out, void *partner, void *err,
+                                          const void *coeffs, void *scratch,
+                                          const void *scatter,
+                                          const void *twist, const void *w1,
+                                          const void *tw, const void *w2,
+                                          int A, int B, void *stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e = cudaMemsetAsync(err, 0, sizeof(uint64_t), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int status = fft<false, true>(
+        static_cast<double2 *>(out), coeffs, static_cast<double2 *>(scratch),
+        static_cast<const int *>(scatter), 0,
+        static_cast<const double2 *>(twist),
+        static_cast<const double2 *>(w1), static_cast<const double2 *>(tw),
+        static_cast<const double2 *>(w2), A, B, 1.0, st,
+        static_cast<double2 *>(partner));
+    if (status != 0) return status;
+    const int64_t half = static_cast<int64_t>(A) * B / 2;
+    conj_residual_kernel<<<grid_blocks(half, THREADS), THREADS, 0, st>>>(
+        static_cast<const double2 *>(out),
+        static_cast<const double2 *>(partner), half,
+        static_cast<unsigned long long *>(err));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+template <bool kStats>
+static int round_launch(void *out, const void *u, const void *untwist,
+                        double scale, int k, int log_n, const void *consts,
+                        int E, void *stat, cudaStream_t stream) {
+    if (k < 1 || k > MAX_LIMBS || E < 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (kStats) {
+        cudaError_t e = cudaMemsetAsync(stat, 0, sizeof(uint64_t), stream);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    round_kernel<kStats><<<grid_blocks(1LL << log_n, THREADS), THREADS, 0,
+                           stream>>>(
+        static_cast<uint64_t *>(out), static_cast<const double2 *>(u),
+        static_cast<const double2 *>(untwist), scale, k, log_n,
+        static_cast<const uint64_t *>(consts), E,
+        static_cast<unsigned long long *>(stat));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
 // O2: u (n,) complex, untwist (n,) complex -> out (k, n) words.
 extern "C" int troy_ckks_round(void *out, const void *u, const void *untwist,
                                double scale, int k, int log_n,
                                const void *consts, int E, void *stream) {
-    if (k < 1 || k > MAX_LIMBS || E < 1) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    round_kernel<<<grid_blocks(1LL << log_n, THREADS), THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint64_t *>(out), static_cast<const double2 *>(u),
-        static_cast<const double2 *>(untwist), scale, k, log_n,
-        static_cast<const uint64_t *>(consts), E);
-    TROY_RETURN_LAUNCH_STATUS();
+    return round_launch<false>(out, u, untwist, scale, k, log_n, consts, E,
+                               nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// O4: O2 and max |rint(Re(u * untwist) * scale)| into stat (one f64 word).
+extern "C" int troy_ckks_round_stats(void *out, void *stat, const void *u,
+                                     const void *untwist, double scale,
+                                     int k, int log_n, const void *consts,
+                                     int E, void *stream) {
+    return round_launch<true>(out, u, untwist, scale, k, log_n, consts, E,
+                              stat, static_cast<cudaStream_t>(stream));
 }
 
 // O3: residues (k, n) words -> out (n,) f64.

@@ -1,6 +1,7 @@
-"""The CKKS canonical embedding in FP64 and the exact f64 <-> RNS conversions.
+"""The CKKS canonical embedding in FP64, the exact f64 <-> RNS conversions
+and the statistics of the device encode and decode.
 
-The port of troy_tpu/ops/embedding.py on kernels O1-O3 (csrc/embedding.cu):
+The port of troy_tpu/ops/embedding.py on kernels O1-O5 (csrc/embedding.cu):
 
   * ``embed_inverse_fft`` (O1, encode): slot values (m <= n/2,) complex ->
     u = FFT(V)/n (n,) complex, V the conjugate-symmetric evaluation vector
@@ -10,7 +11,16 @@ The port of troy_tpu/ops/embedding.py on kernels O1-O3 (csrc/embedding.cu):
   * ``untwist_round_to_rns`` (O2): round(Re(u * untwist) * scale) mod every
     q_i, (n,) complex -> (k, n) words, exact at any magnitude;
   * ``compose_centered`` (O3): (k, n) residues -> the centred CRT value as
-    f64, times 1/scale.
+    f64, times 1/scale;
+  * ``untwist_round_to_rns_stats`` (O4): O2's words and max |rint(Re(u *
+    untwist) * scale)|, the largest rounded coefficient, as a device f64
+    scalar (troy_tpu/ops/embedding.py:611 encode_stats_pipeline, troy's
+    gMaxReal);
+  * ``embed_forward_stats`` (O5): O1 decode's slots, their conjugate
+    partners V[n-1-j] and the conjugate-symmetry residual
+    max(|Re V[j] - Re V[n-1-j]|, |Im V[j] + Im V[n-1-j]|) over the slots
+    (``conj_residual`` of the two), a device f64 scalar
+    (troy_tpu/ops/embedding.py:637 decode_stats_pipeline).
 
 The untwist moved from the transform into the rounding kernel, so the JAX
 package's ``embed_inverse`` (which returns Re(untwist * FFT(V)/n)) and
@@ -81,8 +91,11 @@ class EmbedTables:
     Encode direction (numpy's FFT sign): w1e[p1, a] = w^(B p1 a),
     twe[p1, b] = w^(p1 b), w2e[b, p2] = w^(A b p2), w = exp(-2 pi i / n);
     decode direction: their conjugates. twist[j] = zeta^j = exp(i pi j / n),
-    untwist its conjugate. ``scatter[j]`` is i where V[j] = v_i and ~i where
-    V[j] = conj(v_i); ``slot_of[j]`` is i where j = (3^i - 1) / 2, else -1.
+    untwist its conjugate. ``scatter[j]`` is i where V[j] = v_i, that is
+    j = (3^i - 1) / 2, and ~i where V[j] = conj(v_i), j = n - 1 - (3^i - 1)
+    / 2 (the slots and their partners are the n positions): the encode
+    scatters through it, the decode stores its slots (and O5 their
+    partners) through it.
     """
 
     n: int
@@ -98,7 +111,6 @@ class EmbedTables:
     untwist: torch.Tensor
     slot_index: torch.Tensor    # (n/2,) int64
     scatter: torch.Tensor       # (n,) int32
-    slot_of: torch.Tensor       # (n,) int32
 
     @property
     def device(self) -> torch.device:
@@ -122,14 +134,12 @@ def make_embed_tables(n: int, device) -> EmbedTables:
     scatter = np.zeros(n, dtype=np.int32)
     scatter[idx] = np.arange(n // 2)
     scatter[n - 1 - idx] = ~np.arange(n // 2)
-    slot_of = np.full(n, -1, dtype=np.int32)
-    slot_of[idx] = np.arange(n // 2)
     dev = lambda m: torch.from_numpy(np.array(m)).to(device)
     return EmbedTables(
         n=n, a=A, b=B, w1e=dev(w1), twe=dev(tw), w2e=dev(w2),
         w1d=dev(np.conj(w1)), twd=dev(np.conj(tw)), w2d=dev(np.conj(w2)),
         twist=dev(twist), untwist=dev(untwist), slot_index=dev(idx),
-        scatter=dev(scatter), slot_of=dev(slot_of))
+        scatter=dev(scatter))
 
 
 @dataclass(eq=False)
@@ -223,6 +233,23 @@ def embed_forward_plain(coeffs: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     return v[t.slot_index]
 
 
+def conj_residual(slots: torch.Tensor,
+                  partners: torch.Tensor) -> torch.Tensor:
+    """max(|Re v_j - Re p_j|, |Im v_j + Im p_j|) over j, v the slots and p
+    their conjugate partners V[n-1-idx_j], as a 0-d float64 tensor: O5's
+    statistic (exact: a maximum of differences rounded once)."""
+    return torch.maximum((slots.real - partners.real).abs().max(),
+                         (slots.imag + partners.imag).abs().max())
+
+
+def embed_forward_stats_plain(coeffs: torch.Tensor, t: EmbedTables):
+    """The plain version of O5: (slots (n/2,) complex128, their partners
+    (n/2,) complex128, the residual as a 0-d float64 tensor)."""
+    v = _four_step_plain(coeffs * t.twist, t.w1d, t.twd, t.w2d, t)
+    slots, partners = v[t.slot_index], v[t.n - 1 - t.slot_index]
+    return slots, partners, conj_residual(slots, partners)
+
+
 def _pow2_neg(e: torch.Tensor) -> torch.Tensor:
     """2^-e as float64 for integer 0 <= e < 1023, built from its bits."""
     return ((1023 - e) << 52).view(F64)
@@ -248,6 +275,14 @@ def untwist_round_to_rns_plain(u_: torch.Tensor, untwist: torch.Tensor,
     r = u.barrett_reduce_64(m, q, ratio)
     r = u.mul_mod_shoup(r, pow2[:, e], pow2_shoup[:, e], q)
     return torch.where(neg, u.neg_mod(r, q), r)
+
+
+def round_stats_plain(u_: torch.Tensor, untwist: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """The statistic of O4 in plain PyTorch: max |rint(Re(u * untwist) *
+    scale)| as a 0-d float64 tensor, from O2's own rounded values."""
+    re = u_.real * untwist.real - u_.imag * untwist.imag
+    return torch.round(re * scale).abs().max()
 
 
 def compose_centered_plain(residues: torch.Tensor, rt: RnsRoundTables,
@@ -337,24 +372,49 @@ def embed_inverse_fft(values: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     return out
 
 
+def _check_coeffs(coeffs: torch.Tensor, t: EmbedTables, name: str) -> None:
+    if coeffs.shape != (t.n,):
+        raise ValueError(f"{name}: expected ({t.n},), got "
+                         f"{tuple(coeffs.shape)}")
+    if coeffs.dtype != F64:
+        raise TypeError(f"{name}: expected float64, got {coeffs.dtype}")
+
+
 def embed_forward(coeffs: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     """O1, decode: real coefficients (n,) float64 -> slot values (n/2,)
     complex128."""
-    if coeffs.shape != (t.n,):
-        raise ValueError(f"embed_forward: expected ({t.n},), got "
-                         f"{tuple(coeffs.shape)}")
-    if coeffs.dtype != F64:
-        raise TypeError(f"embed_forward: expected float64, got "
-                        f"{coeffs.dtype}")
+    _check_coeffs(coeffs, t, "embed_forward")
     if not _kernels.on_cuda(coeffs, t.twist):
         return embed_forward_plain(coeffs, t)
     coeffs = coeffs.contiguous()
     _kernels.check_operand(coeffs, "embed_forward coeffs", F64)
     out = torch.empty(t.n // 2, dtype=C128, device=coeffs.device)
     scratch = torch.empty(t.n, dtype=C128, device=coeffs.device)
-    _kernels.launch("troy_ckks_fft_decode", out, coeffs, scratch, t.slot_of,
+    _kernels.launch("troy_ckks_fft_decode", out, coeffs, scratch, t.scatter,
                     t.twist, t.w1d, t.twd, t.w2d, t.a, t.b)
     return out
+
+
+def embed_forward_stats(coeffs: torch.Tensor, t: EmbedTables):
+    """O5: ``embed_forward``'s slot values (bit for bit), their conjugate
+    partners V[n-1-idx_j] and the conjugate-symmetry residual of the two
+    (``conj_residual``), a 0-d float64 tensor on the coefficients' device.
+    The coefficients are real, so V[n-1-j] = conj(V[j]) in exact
+    arithmetic: the residual measures the transform's rounding in slot
+    units."""
+    _check_coeffs(coeffs, t, "embed_forward_stats")
+    if not _kernels.on_cuda(coeffs, t.twist):
+        return embed_forward_stats_plain(coeffs, t)
+    coeffs = coeffs.contiguous()
+    _kernels.check_operand(coeffs, "embed_forward_stats coeffs", F64)
+    out = torch.empty(t.n // 2, dtype=C128, device=coeffs.device)
+    partner = torch.empty_like(out)
+    err = torch.empty((), dtype=F64, device=coeffs.device)
+    scratch = torch.empty(t.n, dtype=C128, device=coeffs.device)
+    _kernels.launch("troy_ckks_fft_decode_stats", out, partner, err, coeffs,
+                    scratch, t.scatter, t.twist, t.w1d, t.twd, t.w2d, t.a,
+                    t.b)
+    return out, partner, err
 
 
 def untwist_round_to_rns(u_: torch.Tensor, scale: float, t: EmbedTables,
@@ -366,6 +426,21 @@ def untwist_round_to_rns(u_: torch.Tensor, scale: float, t: EmbedTables,
         raise ValueError(f"untwist_round_to_rns: expected ({t.n},), got "
                          f"{tuple(u_.shape)}")
     return _round(u_, t.untwist, scale, rt, "untwist_round_to_rns")
+
+
+def untwist_round_to_rns_stats(u_: torch.Tensor, scale: float,
+                               t: EmbedTables, rt: RnsRoundTables):
+    """O4: O2's words, and the largest |rounded coefficient| max
+    |rint(Re(u * untwist) * scale)| as a 0-d float64 tensor on u's device,
+    in the same launch. rint is odd and monotone, so this is the JAX
+    package's max |rint(c s)| with the scale unsplit (its exponent is 0
+    here): troy's gMaxReal, which the encoder's exact magnitude check
+    reads."""
+    if u_.shape != (t.n,):
+        raise ValueError(f"untwist_round_to_rns_stats: expected ({t.n},), "
+                         f"got {tuple(u_.shape)}")
+    return _round(u_, t.untwist, scale, rt, "untwist_round_to_rns_stats",
+                  stats=True)
 
 
 @lru_cache(maxsize=None)
@@ -388,11 +463,14 @@ def round_to_rns(coeffs: torch.Tensor, scale: float,
 
 
 def _round(u_: torch.Tensor, untwist: torch.Tensor, scale: float,
-           rt: RnsRoundTables, name: str) -> torch.Tensor:
+           rt: RnsRoundTables, name: str, stats: bool = False):
+    """O2, or with ``stats`` O4: (words, statistic)."""
     if u_.dtype != C128:
         raise TypeError(f"{name}: expected complex128, got {u_.dtype}")
     if not _kernels.on_cuda(u_, rt.round_consts, untwist):
-        return untwist_round_to_rns_plain(u_, untwist, scale, rt)
+        words = untwist_round_to_rns_plain(u_, untwist, scale, rt)
+        return (words, round_stats_plain(u_, untwist, scale)) if stats \
+            else words
     k, n = len(rt.q_values), u_.shape[0]
     if k > MAX_KERNEL_LIMBS:
         raise ValueError(f"{name}: {k} limbs; the kernel takes at most "
@@ -400,9 +478,14 @@ def _round(u_: torch.Tensor, untwist: torch.Tensor, scale: float,
     u_ = u_.contiguous()
     _kernels.check_operand(u_, f"{name} input", C128)
     out = torch.empty((k, n), dtype=torch.int64, device=u_.device)
-    _kernels.launch("troy_ckks_round", out, u_, untwist, float(scale), k,
-                    n.bit_length() - 1, rt.round_consts, rt.exponents)
-    return out
+    args = (u_, untwist, float(scale), k, n.bit_length() - 1,
+            rt.round_consts, rt.exponents)
+    if not stats:
+        _kernels.launch("troy_ckks_round", out, *args)
+        return out
+    stat = torch.empty((), dtype=F64, device=u_.device)
+    _kernels.launch("troy_ckks_round_stats", out, stat, *args)
+    return out, stat
 
 
 def compose_centered(residues: torch.Tensor, rt: RnsRoundTables,
