@@ -11,8 +11,9 @@ at n = 16384, q = {60,60,60}, t = 2^41; and the large rings on kernel J:
 SEAL's n = 32768 BFV chain, a 16-prime CKKS chain at n = 32768, and BFV
 at n = 131072 and 262144; troy's own Python entry point, its pybind11
 binder's scripts (binder/test.py, binder/timetest.py) through the port's
-binder API, with its raw wire. Phases, in order; any failure
-raises and the script exits non-zero without a result line:
+binder API, with its raw wire; and the multi-device regimes on
+torch.distributed in ranks sharing the card. Phases, in order; any
+failure raises and the script exits non-zero without a result line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
 2. build the native host runtime (troy_tpu_torch/native, g++; the run
@@ -221,16 +222,38 @@ raises and the script exits non-zero without a result line:
 32. medians (CUDA events) of encode, encode_with_stats, encode_device,
    decode, decode_device and decode_device_with_stats at n = 16384 and
    32768, and of mult+relin through the shim against Evaluator, in 8
-   alternating rounds: the shim's cost per op beside the spread.
+   alternating rounds: the shim's cost per op beside the spread;
+33. kernel R1 (csrc/sharding.cu, the cross-shard modular sum of the
+   limb-sharded key switch's partials) against its plain version at
+   phase 34's shapes, word for word, with phase 3's times, its device us
+   a launch and its bound; kernel J's four stages on per-shard tables
+   (ops/ntt_mxu.make_shard_tables) against their plain version at
+   n = 16384 over 2 and 4 ranks and n = 131072 over 2;
+34. every regime of troy_tpu_torch.parallel.sharding on the card, in
+   spawned ranks that share it (gloo in 2 and 4 ranks, its collectives
+   staged through host memory; NCCL in one rank): data parallel, limb-
+   and coefficient-sharded mult+relin, the limb-sharded rotation and mod
+   switch of BFV, CKKS and BGV at n = 16384, the (2, 2) mesh's mult+relin
+   and rotation chained into the mod switch, the coefficient regime at
+   troy's ceiling n = 131072 and the app matmul over the batch-block
+   rows; every gathered output word-equal to the port's unsharded op on
+   the card and decrypting right; per rank the medians (CUDA events), the
+   collectives' calls and bytes and its shards' bytes; no plain torch on
+   the card in any rank, and every kernel of the sharded path launched in
+   the window of every rank of every run. These numbers are ranks sharing
+   one H100 over gloo's host staging, not multi-card scaling.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
 phase 14, the default path of phase 16, the LWE path of phase 18, the
 app protocol of phase 21, the J route of phase 24, phases 25, 26 and
-27 and the binder window of phase 30, each counted from 0, also given
+27, the binder window of phase 30 and the sharded window of phase 34
+(summed over its ranks and runs), each counted from 0, also given
 apart; J's numbers are those of its n = 16384 shape, every shape under
-"J_shapes"; O4's and O5's those of n = 16384 at 2^40, every shape under
-"stats_shapes") and the
+"J_shapes" and its per-shard stages under "J_shard_shapes"; O4's and
+O5's those of n = 16384 at 2^40, every shape under "stats_shapes"; R1's
+those of its (4, 1, 2, 6, n) shape; phase 34's regimes under "sharded")
+and the
 bounds of the composite ops (M' the NTT-form rotation and the hoisted path
 over 8 elements, L the plain products, Q a device switching key; N the
 pack of 16 and the trace, the batched decrypt of 52 outputs, O's
@@ -249,7 +272,10 @@ type: 64-bit multiplies, each taken as four 32-bit operations, and I's
 67 T/s float32 rate (the card has no faster path for 64-bit integer
 products); for O1, the 5 n log2 n f64 operations of an FFT over the
 67 TFLOP/s FP64 tensor-core peak; for J, its int8 plane products,
-2 M N K D Dx per stage, over the 1979 TOPS int8 tensor-core peak.
+2 M N K D Dx per stage, over the 1979 TOPS int8 tensor-core peak; for
+R1, its w - 1 modular adds a word, each taken as four 32-bit operations.
+Phase 34's per-rank bound counts the bytes of a rank's own shards (its
+inputs, the key rows it holds, its output) only.
 """
 
 import json
@@ -273,7 +299,8 @@ from troy_tpu_torch import (_kernels, interop, native, prng as rnd, refwire,
 from troy_tpu_torch.app import linear
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
                                 poly, rns,
-                                sampling, tiles)
+                                sampling, shard, tiles)
+from troy_tpu_torch.parallel import sharding, spmd
 from troy_tpu_torch.utils import galois as galois_util
 
 N = 16384
@@ -360,6 +387,15 @@ TIMETEST_CKKS_BOUND = 1e-5
 WIRE_SEED = 2034                     # phase 31's keys and encryptions
 WIRE_TERMS = [0, 3, 17, 40, 1000, 8191, 16383]
 SHIM_ROUNDS = 8                      # phase 32: rounds of 4 alternating medians
+SHARD_SEED = 2035                    # phase 34's keys and encryptions
+SHARD_REPS = 10                      # phase 34's medians, per rank
+SHARD_TIMEOUT_S = 400.0              # each spawned run of phase 34
+SHARD_BATCH = 8                      # the data-parallel batch of pairs
+SHARD_BATCH_2D = 4                   # the (2, 2) mesh's batch
+# the spawned runs of phase 34: (backend, ranks), every rank on cuda:0
+SHARD_RUNS = (("gloo", 2), ("gloo", 4), ("nccl", 1))
+SHARD_WORLDS = (2, 4)                # R1's and J's per-shard checks
+APP_SHARD_DIMS = ((64, 128, 256), (16384, 16, 16))   # 1 and 2 batch blocks
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -415,6 +451,8 @@ KERNELS = {
                              "troy_tpu/ops/embedding.py:611"),
     "O5_ckks_decode_stats": ("troy_tpu_torch/csrc/embedding.cu",
                              "troy_tpu/ops/embedding.py:637"),
+    "R1_shard_modsum": ("troy_tpu_torch/csrc/sharding.cu",
+                        "troy_tpu/parallel/sharding.py:153"),
 }
 # the kernels each path must launch
 BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
@@ -454,6 +492,10 @@ BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                "I_sampling", "K_divide_round", "Kp_rescale_ntt",
                "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois",
                "X_exact_convert")
+SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "B_dyadic_mac", "E_behz",
+                "F_keyswitch", "K_divide_round", "Kp_rescale_ntt",
+                "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois", "J_ntt_mxu",
+                "P1_tile_contract", "Gp_plain_lift")
 
 
 def log(msg: str) -> None:
@@ -3556,6 +3598,389 @@ def phase_stats_medians(ckks_ctx, alice) -> dict:
     return out
 
 
+def phase_shard_kernels(dev) -> tuple:
+    """Phase 33: kernel R1 against its plain version at the key switch's
+    partials of phase 34, (w, m, 2, 6, n) at n = 16384 (w = 4 and 2 ranks,
+    one ciphertext; the (2, 2) mesh's tp pair with a batch of 2), word for
+    word, with its times, device us a launch and bound; kernel J's stages
+    on per-shard tables (ops/ntt_mxu.make_shard_tables: a rank's column
+    and row blocks with its twiddle blocks) against their plain version at
+    n = 16384 over 2 and 4 ranks and n = 131072 over 2, the first and the
+    last rank's tables, every stage."""
+    rng = np.random.default_rng(SEED + 33)
+    moduli = _moduli(N, Q_BITS)
+    t = ntt.RnsNttTables.from_moduli(N, moduli, dev)
+    checks = []
+    for w, m in ((4, 1), (2, 1), (2, 2)):
+        parts = _uniform(rng, moduli, (w, m, 2, len(moduli), N), dev)
+        words = m * 2 * len(moduli) * N
+        work = (_bytes(parts) + words * 8, 0, 0, 4 * (w - 1) * words)
+        checks.append(("R1_shard_modsum", f"({w}, {m}, 2, 6, n)", "words",
+                       lambda p=parts: shard.shard_modsum(p, t),
+                       lambda p=parts: shard.shard_modsum_plain(p, t), work,
+                       None))
+    results = run_checks("33", checks)
+    first = _uniform(rng, moduli, (4, 1, 2, len(moduli), N), dev)
+    _, device_ms, each = device_kernels_per_op(
+        lambda: shard.shard_modsum(first, t))
+    launches, us = each.get("shard_modsum_kernel", (0, 0.0))
+    results["R1_shard_modsum"]["device_us_per_launch"] = us
+    log(f"[33] R1_shard_modsum (4, 1, 2, 6, n): {launches:g} launch at "
+        f"{us:.1f} us of device time")
+    jshapes = {}
+    for n, bits, w in ((N, Q_BITS, 2), (N, Q_BITS, 4),
+                       (CEILING_NS[0], CEILING_Q_BITS, 2)):
+        moduli = _moduli(n, bits)
+        for i in sorted({0, w - 1}):
+            mxu = [ntt_mxu.make_shard_tables(n, q, dev, w, i)
+                   for q in moduli]
+            ptrs = ntt_mxu.pointer_table(mxu, dev)
+            a, b = mxu[0].a, mxu[0].b
+            col_any = _full(rng, (2, len(moduli), a, b // w), dev)
+            row_any = _full(rng, (2, len(moduli), a // w, b), dev)
+            col_red = _uniform(rng, moduli, (2, len(moduli), a * b // w),
+                               dev).reshape(2, len(moduli), a, b // w)
+            row_red = _uniform(rng, moduli, (2, len(moduli), a * b // w),
+                               dev).reshape(2, len(moduli), a // w, b)
+            tag = f"n{n}_w{w}_rank{i}"
+            shape = {}
+            for stage, x in (("forward_left", col_any),
+                             ("forward_right", row_red),
+                             ("inverse_right", row_any),
+                             ("inverse_left", col_red)):
+                got = ntt_mxu.rns_mxu_stage(x, mxu, ptrs, stage)
+                want = ntt_mxu.mxu_stage_plain(x, mxu, stage)
+                torch.cuda.synchronize()
+                try:
+                    compare("words", got, want)
+                except AssertionError as exc:
+                    raise AssertionError(f"J_ntt_mxu shard {tag} {stage}: "
+                                         f"{exc}") from None
+                shape[f"{stage}_ms"] = cuda_ms(
+                    lambda x=x, stage=stage: ntt_mxu.rns_mxu_stage(
+                        x, mxu, ptrs, stage))
+            jshapes[tag] = shape
+            log(f"[33] J_ntt_mxu on rank {i}'s tables of {w} at n = {n} "
+                f"({len(moduli)} limbs, blocks ({a}, {b // w}) and "
+                f"({a // w}, {b})): every stage word-equal to the plain "
+                "version; "
+                + ", ".join(f"{k} {v:.4f}" for k, v in shape.items()))
+    return results, jshapes
+
+
+class ShardScheme:
+    """One configuration's state for phase 34 on the card: keys made from
+    a seed, the encoder, the evaluator, the decryptor, and fresh
+    encryptions of seeded values."""
+
+    def __init__(self, ctx, seed: int):
+        self.ctx = ctx
+        self.ckks = ctx.scheme == P.SchemeType.ckks
+        kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(seed))
+        self.rlk = kg.create_relin_keys()
+        self.gk = kg.create_galois_keys(steps=[1])
+        self.enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                               seed=rnd.seed_from_uint64(seed + 1))
+        self.dec = P.Decryptor(ctx, kg.secret_key)
+        self.ev = P.Evaluator(ctx)
+        self.rng = np.random.default_rng(seed)
+        if self.ckks:
+            self.encoder, self.t = P.CKKSEncoder(ctx), None
+        else:
+            self.encoder = P.BatchEncoder(ctx)
+            self.t = self.encoder.plain_modulus
+
+    def spec(self) -> dict:
+        cd = self.ctx.key_context_data
+        return {"scheme": self.ctx.scheme.name, "n": self.ctx.n,
+                "q": list(cd.coeff_values), "t": self.t or 0}
+
+    def fresh(self):
+        """(values, ciphertext) of seeded values."""
+        if self.ckks:
+            v = self.rng.uniform(-1, 1, self.ctx.n // 2)
+            return v, self.enc.encrypt_symmetric(self.encoder.encode(
+                v, CKKS_SCALE))
+        v = self.rng.integers(0, self.t, self.ctx.n, dtype=np.uint64)
+        return v, self.enc.encrypt_symmetric(self.encoder.encode(v))
+
+    def check(self, ct, want: np.ndarray, what: str) -> float:
+        """Decrypt and decode ct against the expected slots: exact for BFV
+        and BGV, within CKKS_ROTATION_BOUND for CKKS; the CKKS error."""
+        got = self.encoder.decode(self.dec.decrypt(ct))
+        if self.ckks:
+            err = float(np.abs(got - want).max())
+            if err > CKKS_ROTATION_BOUND:
+                raise AssertionError(f"{what}: decodes {err:g} from the "
+                                     "expected slots")
+            return err
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: does not decrypt to the expected "
+                                 "slots")
+        return 0.0
+
+    def product(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        return a * b if self.ckks else (a.astype(object) * b % self.t) \
+            .astype(np.uint64)
+
+    def rotated(self, v: np.ndarray) -> np.ndarray:
+        if self.ckks:
+            return np.roll(v, -1)
+        h = len(v) // 2
+        return np.concatenate([np.roll(v[:h], -1), np.roll(v[h:], -1)])
+
+
+def sharded_rank(spec: dict) -> dict:
+    """Phase 34 in one spawned rank: spmd.run_jobs with every plain-torch
+    call on a CUDA tensor counted (there must be none)."""
+    counter = PlainCallCounter()
+    out = spmd.run_jobs(spec)
+    out["plain_calls"] = dict(counter.calls)
+    return out
+
+
+def shard_jobs(schemes: dict, ceiling: "ShardScheme",
+               app: "ShardScheme") -> tuple:
+    """Phase 34's jobs (parallel/spmd.py) and, for each, the port's
+    unsharded result on the card (the words to equal), a check of that
+    result's decryption and the unsharded op to time."""
+    jobs, refs = [], {}
+    w = interop.words
+
+    def add(job, want, check, op):
+        jobs.append(job)
+        refs[job["name"]] = (want, check, op)
+
+    for name, s in schemes.items():
+        (va, ca), (vb, cb) = s.fresh(), s.fresh()
+        ev, rlk, gk = s.ev, s.rlk, s.gk
+        rel = ev.relinearize(ev.multiply(ca, cb), rlk)
+        mr = (lambda ev=ev, ca=ca, cb=cb, rlk=rlk:
+              ev.relinearize(ev.multiply(ca, cb), rlk))
+        prod = s.product(va, vb)
+        chk = (lambda ct, s=s, p=prod, n=name: s.check(ct, p, n))
+        for regime in ("limb", "coeff"):
+            add({"name": f"{regime}_{name}", "context": name,
+                 "regime": f"{regime}_multiply_relin", "key": f"{name}_rlk",
+                 "inputs": [w(ca), w(cb)]}, rel, chk, mr)
+        rotate = ev.rotate_vector if s.ckks else ev.rotate_rows
+        add({"name": f"rotate_{name}", "context": name,
+             "regime": "limb_rotate", "key": f"{name}_gk", "steps": 1,
+             "inputs": [w(ca)]}, rotate(ca, 1, gk),
+            lambda ct, s=s, v=s.rotated(va), n=name: s.check(ct, v, n),
+            lambda rotate=rotate, ca=ca, gk=gk: rotate(ca, 1, gk))
+        switch = ev.rescale_to_next if s.ckks else ev.mod_switch_to_next
+        add({"name": f"mod_switch_{name}", "context": name,
+             "regime": "limb_mod_switch", "inputs": [w(rel)]}, switch(rel),
+            chk, lambda switch=switch, rel=rel: switch(rel))
+        if name == "bfv":
+            # one level down: the ranks hold the first level's cut less
+            # the dropped limb (4 limbs: 3/1 and 2/2/0/0)
+            low = switch(rel)
+            add({"name": "mod_switch_next_bfv", "context": name,
+                 "regime": "limb_mod_switch", "level": low.level,
+                 "inputs": [w(low)]}, switch(low), chk,
+                lambda switch=switch, low=low: switch(low))
+    s = schemes["bfv"]
+    pairs = [(s.fresh(), s.fresh()) for _ in range(SHARD_BATCH)]
+    rels = [s.ev.relinearize(s.ev.multiply(a[1], b[1]), s.rlk)
+            for a, b in pairs]
+
+    def batch_check(prods):
+        def check(cts):
+            for i, (ct, p) in enumerate(zip(cts, prods)):
+                s.check(ct, p, f"batch element {i}")
+        return check
+
+    prods = [s.product(a[0], b[0]) for a, b in pairs]
+    add({"name": "dp_bfv", "context": "bfv", "regime": "dp_multiply_relin",
+         "key": "bfv_rlk",
+         "inputs": [np.stack([w(a[1]) for a, _ in pairs]),
+                    np.stack([w(b[1]) for _, b in pairs])]},
+        rels, batch_check(prods),
+        lambda: [s.ev.relinearize(s.ev.multiply(a[1], b[1]), s.rlk)
+                 for a, b in pairs])
+    sub = pairs[:SHARD_BATCH_2D]
+    add({"name": "dp_limb_bfv", "context": "bfv",
+         "regime": "dp_limb_multiply_relin", "key": "bfv_rlk", "mesh": None,
+         "inputs": [np.stack([w(a[1]) for a, _ in sub]),
+                    np.stack([w(b[1]) for _, b in sub])]},
+        rels[:SHARD_BATCH_2D], batch_check(prods[:SHARD_BATCH_2D]),
+        lambda: [s.ev.relinearize(s.ev.multiply(a[1], b[1]), s.rlk)
+                 for a, b in sub])
+    chain = [s.ev.mod_switch_to_next(s.ev.rotate_rows(a[1], 1, s.gk))
+             for a, _ in sub]
+    add({"name": "dp_limb_rotate_mod_switch_bfv", "context": "bfv",
+         "regime": "dp_limb_rotate_mod_switch", "key": "bfv_gk",
+         "mesh": None, "steps": 1,
+         "inputs": [np.stack([w(a[1]) for a, _ in sub])]},
+        chain, batch_check([s.rotated(a[0]) for a, _ in sub]),
+        lambda: [s.ev.mod_switch_to_next(s.ev.rotate_rows(a[1], 1, s.gk))
+                 for a, _ in sub])
+    c = ceiling
+    (va, ca), (vb, cb) = c.fresh(), c.fresh()
+    add({"name": "coeff_bfv131072", "context": "bfv131072",
+         "regime": "coeff_multiply_relin", "key": "bfv131072_rlk",
+         "inputs": [w(ca), w(cb)]},
+        c.ev.relinearize(c.ev.multiply(ca, cb), c.rlk),
+        lambda ct: c.check(ct, c.product(va, vb), "n = 131072"),
+        lambda: c.ev.relinearize(c.ev.multiply(ca, cb), c.rlk))
+    be = app.encoder
+    for dims in APP_SHARD_DIMS:
+        h = linear.MatmulHelper(*dims, N, objective=0, pack_lwe=False)
+        x = app.rng.integers(0, APP_INPUT_BOUND, dims[:2], dtype=np.uint64)
+        wt = app.rng.integers(0, APP_INPUT_BOUND, dims[1:], dtype=np.uint64)
+        x_ct = h.encrypt_inputs(app.enc, be.encode_polynomial, x)
+        w_pt = h.encode_weights(be.encode_polynomial, wt)
+        tag = "app_" + "x".join(map(str, dims))
+        add({"name": tag, "context": "app", "regime": "app_matmul",
+             "inputs": [np.stack([np.stack([w(ct) for ct in row])
+                                  for row in x_ct.data]),
+                        np.stack([np.stack([w(p) for p in row])
+                                  for row in w_pt.data])],
+             "level": x_ct.data[0][0].level, "ntt_form": False},
+            h.matmul(app.ev, x_ct, w_pt),
+            lambda grid, h=h, x=x, wt=wt, tag=tag: exact(
+                h.decrypt_outputs(be.decode_polynomial, app.dec, grid),
+                matmul_oracle(x, wt), app.t, tag),
+            lambda h=h, x_ct=x_ct, w_pt=w_pt: h.matmul(app.ev, x_ct, w_pt))
+    return jobs, refs
+
+
+def _as_words(want) -> np.ndarray:
+    """The words of an unsharded result: a ciphertext, a batch of them or
+    a Cipher2d."""
+    if isinstance(want, linear.Cipher2d):
+        return np.stack([np.stack([interop.words(c) for c in row])
+                         for row in want.data])
+    if isinstance(want, list):
+        return np.stack([interop.words(c) for c in want])
+    return interop.words(want)
+
+
+def _rebuild(want, words: np.ndarray, dev):
+    """The gathered words in the unsharded result's objects."""
+    if isinstance(want, linear.Cipher2d):
+        return linear.Cipher2d([[c.replace(data=to_torch(words[i, j], dev))
+                                 for j, c in enumerate(row)]
+                                for i, row in enumerate(want.data)])
+    if isinstance(want, list):
+        return [c.replace(data=to_torch(x, dev)) for c, x in zip(want, words)]
+    return want.replace(data=to_torch(words, dev))
+
+
+def phase_sharded(ctxs: dict, app_ctx) -> tuple:
+    """Phase 34: every regime of parallel/sharding.py on the card, in
+    spawned ranks sharing it (SHARD_RUNS: gloo in 2 and 4 ranks, with the
+    collectives staged through host memory, and NCCL in one rank): data
+    parallel (8 BFV pairs), limb-sharded mult+relin, rotation by one step
+    and mod switch (CKKS: rescale) of BFV, CKKS and BGV at n = 16384
+    (5 limbs: 3/2, 2/2/1/0 and 5) and BFV's mod switch one level down (4
+    limbs on the first level's cut: 3/1, 2/2/0/0 and 4), the (2, 2) mesh's mult+relin of 4 pairs
+    and rotation chained into the mod switch (the 4-rank run; (1, 1) at one
+    rank), coefficient-sharded mult+relin of all three and of BFV at troy's
+    ceiling n = 131072 (not in the 4-rank run), and the app matmul over the
+    batch-block rows of 64x128x256 (one block) and 16384x16x16 (two); every
+    gathered output word-equal to the port's unsharded op on the card and
+    decrypting right; per rank, the median of SHARD_REPS runs (CUDA
+    events), the collectives' calls and bytes, the bytes of its shards and
+    no plain torch on the card; the launches of every rank and run summed
+    into one count window, which must launch SHARDED_PATH; the unsharded
+    ops' medians beside them."""
+    dev = app_ctx.device
+    t0 = time.perf_counter()
+    schemes = {name: ShardScheme(ctx, SHARD_SEED + 10 * i)
+               for i, (name, ctx) in enumerate(ctxs.items())}
+    ceiling = ShardScheme(P.HeContext(P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=CEILING_NS[0],
+        coeff_modulus=tuple(P.CoeffModulus.create(CEILING_NS[0],
+                                                  CEILING_Q_BITS)),
+        plain_modulus=P.PlainModulus.batching(CEILING_NS[0],
+                                              CEILING_T_BITS)),
+        sec_level=P.SecurityLevel.none, device=dev), SHARD_SEED + 40)
+    app = ShardScheme(app_ctx, SHARD_SEED + 50)
+    jobs, refs = shard_jobs(schemes, ceiling, app)
+    keys = {}
+    for name, s in (*schemes.items(), ("bfv131072", ceiling)):
+        keys[f"{name}_rlk"] = interop.words(s.rlk)
+        keys[f"{name}_gk"] = interop.words(s.gk)
+    contexts = {name: s.spec() for name, s in (*schemes.items(),
+                                                ("bfv131072", ceiling),
+                                                ("app", app))}
+    log(f"[34] set-up (keys, inputs, unsharded results): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (want, check, _) in refs.items():
+        check(want)
+    unsharded_ms = {name: cuda_ms(op, reps=SHARD_REPS)
+                    for name, (_, _, op) in refs.items()}
+    counts, out = {}, {}
+    for backend, world in SHARD_RUNS:
+        run_jobs = []
+        for job in jobs:
+            if job.get("mesh", False) is None:
+                if world not in (1, 4):
+                    continue
+                job = dict(job, mesh=[world // 2 or 1, 2 if world == 4
+                                      else 1])
+            if world == 4 and (job["name"] == "coeff_bfv131072"
+                               or job["regime"] == "app_matmul"):
+                continue
+            run_jobs.append(job)
+        t0 = time.perf_counter()
+        ranks = sharding.spawn(
+            sharded_rank, world, backend, str(dev),
+            ({"contexts": contexts, "keys": keys, "jobs": run_jobs,
+              "reps": SHARD_REPS},), timeout_s=SHARD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        tag = f"{backend}{world}"
+        for r, rank in enumerate(ranks):
+            if rank["plain_calls"]:
+                raise AssertionError(f"[34] {tag} rank {r}: plain torch on "
+                                     f"the card: {rank['plain_calls']}")
+            if rank["jax_loaded"]:
+                raise AssertionError(f"[34] {tag} rank {r} imported JAX")
+            for k, v in rank["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        for job in run_jobs:
+            name = job["name"]
+            want, check, _ = refs[name]
+            res = [rank["results"][name] for rank in ranks]
+            got = res[0]["out"]
+            if not np.array_equal(got, _as_words(want)):
+                raise AssertionError(f"[34] {tag} {name}: the gathered words "
+                                     "differ from the unsharded op's")
+            check(_rebuild(want, got, dev))
+            entry = {
+                "ms": max(x["ms"] for x in res),
+                "rank_ms": [x["ms"] for x in res],
+                "unsharded_ms": unsharded_ms[name],
+                "collective_calls": [x["collectives"]["calls"] for x in res],
+                "collective_bytes": [sum(x["collectives"]["bytes"].values())
+                                     for x in res],
+                "shard_bytes": [x["shard_bytes"] for x in res],
+                "bound_ms_per_rank": max(x["shard_bytes"] for x in res)
+                / MEM_BYTES_PER_S * 1e3,
+                "shard_shapes": [x["shard_shape"] for x in res]}
+            out.setdefault(name, {})[tag] = entry
+            log(f"[34] {tag} {name}: word-equal to the unsharded op, "
+                f"decrypts right; median {entry['ms']:.4f} ms (ranks "
+                + ", ".join(f"{m:.4f}" for m in entry["rank_ms"])
+                + f"; unsharded {entry['unsharded_ms']:.4f} ms); "
+                f"collectives {entry['collective_calls'][0]}, "
+                f"{entry['collective_bytes']} bytes received per rank; "
+                f"shards {entry['shard_shapes']}; per-rank byte bound "
+                f"{entry['bound_ms_per_rank']:.6f} ms")
+        log(f"[34] {tag}: {len(run_jobs)} jobs in {wall:.1f} s (spawn, "
+            "contexts, runs, checks)")
+    log(f"[34] kernel launches of every rank of every run: {counts}")
+    missing = [k for k in SHARDED_PATH if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 34: {missing}")
+    log("[34] plain-version and u64ops calls on CUDA tensors in every rank: "
+        "0")
+    return counts, out
+
+
 def main() -> None:
     wall0 = time.perf_counter()
     name = phase_device()
@@ -3706,10 +4131,17 @@ def main() -> None:
     wire = phase_wire(ctx.device)
     stats_ms = phase_stats_medians(ckks_ctx, alice)
 
+    # ---- multi-device (R): 33-34 ----
+    shard_results, j_shards = phase_shard_kernels(ctx.device)
+    kernel_results.update(shard_results)
+    sharded_counts, sharded = phase_sharded(
+        {"bfv": ctx, "ckks": ckks_ctx, "bgv": bgv_ctx}, app_ctx)
+
     entries = []
     windows = (bfv_counts, ckks_counts, bgv_counts, plain_counts,
                default_counts, lwe_counts, app_counts, mxu16_counts,
-               seal_counts, ckks32_counts, ceiling_counts, binder_counts)
+               seal_counts, ckks32_counts, ceiling_counts, binder_counts,
+               sharded_counts)
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
         launches = [c.get(kernel, 0) for c in windows]
@@ -3727,6 +4159,7 @@ def main() -> None:
                         "launches_ckks32768": launches[9],
                         "launches_ceiling": launches[10],
                         "launches_binder": launches[11],
+                        "launches_sharded": launches[12],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -3802,6 +4235,7 @@ def main() -> None:
                     "ceiling": ceiling,
                     "stats_shapes": stats_shapes, "binder": binder,
                     "wire": wire, "stats_ms": stats_ms,
+                    "sharded": sharded, "J_shard_shapes": j_shards,
                     "native_build_s": native.build_seconds,
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {

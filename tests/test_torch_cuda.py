@@ -19,7 +19,7 @@ import torch
 import troy_tpu_torch as P
 from troy_tpu_torch import _kernels, interop, prng, rlwe
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
-                                poly, rns, sampling, tiles)
+                                poly, rns, sampling, shard, tiles)
 from troy_tpu_torch.utils.rns import make_rns_tool
 
 pytestmark = pytest.mark.cuda
@@ -1106,3 +1106,75 @@ def test_mxu_context_on_the_card_gives_the_cpu_words(dev):
     assert _kernels.launch_counts()["A_ntt"] == 0
     for g, w in zip(got, run("cpu")):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_shard_modsum_kernel(dev, w):
+    """Kernel R1 (the cross-shard modular sum) against its plain version
+    at the key switch's partials of n = 16384, and on a coefficient
+    shard's rows."""
+    rng = np.random.default_rng(w)
+    for n in (16384, 4096):
+        t = ntt.RnsNttTables.from_moduli(16384, [int(m) for m in (
+            P.CoeffModulus.create(16384, BITS[6]))], dev)
+        parts = _uniform(rng, t.values, (w, 2, 2), n, dev)
+        _same(shard.shard_modsum(parts, t), shard.shard_modsum_plain(parts,
+                                                                    t))
+
+
+@pytest.mark.parametrize("n,w", [(16384, 2), (16384, 4), (131072, 2)])
+def test_mxu_shard_stages_on_the_card(dev, n, w):
+    """Kernel J's stages on a rank's per-shard tables (column blocks
+    (A, B/w) and row blocks (A/w, B)) against their plain version."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [55, 60])]
+    rng = np.random.default_rng(n + w)
+    for i in range(w):
+        mxu = [ntt_mxu.make_shard_tables(n, q, dev, w, i) for q in moduli]
+        ptrs = ntt_mxu.pointer_table(mxu, dev)
+        a, b = mxu[0].a, mxu[0].b
+        for stage, shape in (("forward_left", (a, b // w)),
+                             ("forward_right", (a // w, b)),
+                             ("inverse_right", (a // w, b)),
+                             ("inverse_left", (a, b // w))):
+            x = _uniform(rng, moduli, (1,), shape[0] * shape[1], dev) \
+                .reshape((1, len(moduli)) + shape)
+            _same(ntt_mxu.rns_mxu_stage(x, mxu, ptrs, stage),
+                  ntt_mxu.mxu_stage_plain(x, mxu, stage))
+
+
+def test_sharded_regimes_on_the_card(dev):
+    """The limb- and coefficient-sharded BFV mult+relin at n = 4096 in two
+    gloo ranks sharing the card (parallel/sharding.py): the gathered words
+    are the CPU evaluator's, and R1 and J ran."""
+    from troy_tpu_torch.parallel import sharding, spmd
+    n = 4096
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])),
+        plain_modulus=P.PlainModulus.batching(n, 20))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(13),
+                        host_sampling=True)
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=prng.seed_from_uint64(14), host_sampling=True)
+    be = P.BatchEncoder(ctx)
+    c = enc.encrypt_symmetric(be.encode(np.arange(n, dtype=np.uint64)
+                                        % be.plain_modulus))
+    rlk = kg.create_relin_keys()
+    ev = P.Evaluator(ctx)
+    want = interop.words(ev.relinearize(ev.multiply(c, c), rlk))
+    spec = {"contexts": {"bfv": {"scheme": "bfv", "n": n,
+                                 "q": list(ctx.key_context_data.coeff_values),
+                                 "t": int(be.plain_modulus)}},
+            "keys": {"rlk": interop.words(rlk)},
+            "jobs": [{"name": regime, "regime": f"{regime}_multiply_relin",
+                      "context": "bfv", "key": "rlk",
+                      "inputs": [interop.words(c)] * 2}
+                     for regime in ("limb", "coeff")]}
+    ranks = sharding.spawn(spmd.run_jobs, 2, "gloo", "cuda", (spec,),
+                           timeout_s=300)
+    for regime in ("limb", "coeff"):
+        np.testing.assert_array_equal(ranks[0]["results"][regime]["out"],
+                                      want)
+    assert all(r["launches"]["R1_shard_modsum"] > 0 for r in ranks)
+    assert all(r["launches"]["J_ntt_mxu"] > 0 for r in ranks)

@@ -249,13 +249,32 @@ FLOW = textwrap.dedent("""
     timer = profiling.Timer()
     with timer.measure("op"):
         pass
+    # multi-device: the limb-sharded mult+relin in two spawned gloo ranks,
+    # which import no JAX either
+    from troy_tpu_torch.parallel import sharding, spmd
+    c_in = enc.encrypt_symmetric(be.encode(a))
+    rlk = kg.create_relin_keys()
+    spec = {"contexts": {"bfv": {
+                "scheme": "bfv", "n": n, "t": int(t),
+                "q": list(ctx.key_context_data.coeff_values)}},
+            "keys": {"rlk": P.interop.words(rlk)},
+            "jobs": [{"name": "limb", "regime": "limb_multiply_relin",
+                      "context": "bfv", "key": "rlk",
+                      "inputs": [P.interop.words(c_in)] * 2}]}
+    ranks = sharding.spawn(spmd.run_jobs, 2, "gloo", "cpu", (spec,),
+                           timeout_s=120)
+    assert not any(r["jax_loaded"] for r in ranks), "a rank imported JAX"
+    want = P.interop.words(ev.relinearize(ev.multiply(c_in, c_in), rlk))
+    assert (ranks[0]["results"]["limb"]["out"] == want).all(), "sharded"
     for mod in ("troy_tpu_torch.ckks", "troy_tpu_torch.ops.embedding",
                 "troy_tpu_torch.ops.sampling", "troy_tpu_torch.app.linear",
                 "troy_tpu_torch.serialization", "troy_tpu_torch.ops.tiles",
                 "troy_tpu_torch.ops.ntt_mxu", "troy_tpu_torch.native",
                 "troy_tpu_torch.compat", "troy_tpu_torch.refwire",
                 "troy_tpu_torch.functional", "troy_tpu_torch.valcheck",
-                "troy_tpu_torch.hexpoly", "troy_tpu_torch.utils.profiling"):
+                "troy_tpu_torch.hexpoly", "troy_tpu_torch.utils.profiling",
+                "troy_tpu_torch.parallel.sharding",
+                "troy_tpu_torch.parallel.spmd", "troy_tpu_torch.ops.shard"):
         assert mod in sys.modules, mod
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))

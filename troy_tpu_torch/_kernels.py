@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
 SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "behz.cu", "keyswitch.cu", "plain_embed.cu", "galois.cu",
            "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
-           "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu")
+           "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu",
+           "sharding.cu")
 HEADERS = ("u64.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -94,6 +95,7 @@ _SIGNATURES = {
                                 _P, _P),
     "troy_pack_group_fold": (_P, _P, _L, _I, _I, _I, _I, _P, _P),
     "troy_ntt_mxu": (_P, _P, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P),
+    "troy_shard_modsum": (_P, _P, _I, _L, _I, _I, _P, _P),
 }
 
 # The kernel each entry point belongs to (the letters of the port's kernel
@@ -140,6 +142,7 @@ KERNELS = {
     "troy_tile_pair_convolve": "P2_pair_convolve",
     "troy_pack_group_fold": "P3_group_fold",
     "troy_ntt_mxu": "J_ntt_mxu",
+    "troy_shard_modsum": "R1_shard_modsum",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}

@@ -134,15 +134,22 @@ def _run_cipher_contraction(ev: Evaluator, a2d: "Cipher2d", w2d: "Cipher2d",
 
 def _run_tile_contraction(ev: Evaluator, ct2d: "Cipher2d", pt2d: "Plain2d",
                           transpose_ct: bool, transpose_pt: bool,
-                          transpose_out: bool) -> "Cipher2d":
+                          transpose_out: bool,
+                          rows: Optional[range] = None) -> "Cipher2d":
     """Stack a ciphertext grid and a plaintext grid, contract on the device
     and unpack (troy_tpu/app/linear.py:196). The outputs take the plain's
-    scale only when it is in NTT form."""
+    scale only when it is in NTT form. ``rows``: contract only these rows
+    of the untransposed ciphertext grid, the batch-block tiles of one rank
+    (parallel/sharding.py sharded_app_matmul, the JAX package's
+    ``ct_sharding``); the result holds their output rows."""
+    if rows is not None and transpose_ct:
+        raise ValueError("rows of a transposed ciphertext grid")
     template, pt0 = ct2d.data[0][0], pt2d.data[0][0]
     if pt0.is_ntt_form and pt0.level != template.level:
         raise ValueError("NTT-form plaintext level mismatch")
     cd = ev.context.get_context_data(template.level)
-    out = _matmul_tiles_core(_stack_grid(ct2d.data, transpose_ct),
+    grid = ct2d.data if rows is None else ct2d.data[rows.start:rows.stop]
+    out = _matmul_tiles_core(_stack_grid(grid, transpose_ct),
                              _stack_grid(pt2d.data, transpose_pt), cd,
                              not template.is_ntt_form, not pt0.is_ntt_form)
     if transpose_out:

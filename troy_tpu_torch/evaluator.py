@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -76,8 +76,10 @@ def _dyadic_convolution(a: torch.Tensor, b: torch.Tensor,
     """Ciphertext-degree convolution of NTT-domain components
     (kernelutils.cu:89-115): out[m] = sum_{i+j=m} a[i] * b[j], each output
     component one kernel-B launch with its terms summed in 128 bits.
-    a: (s1, k, n), b: (s2, k, n), inputs lazy below 4q."""
-    s1, s2 = a.shape[0], b.shape[0]
+    a: (..., s1, k, n), b: (..., s2, k, n) with the same leading (batch)
+    axes, inputs lazy below 4q."""
+    s1, s2 = a.shape[-3], b.shape[-3]
+    a, b = a.movedim(-3, 0), b.movedim(-3, 0)        # components first
     outs = []
     for m in range(s1 + s2 - 1):
         lo, hi = max(0, m - s2 + 1), min(s1, m + 1)      # i in [lo, hi)
@@ -85,7 +87,7 @@ def _dyadic_convolution(a: torch.Tensor, b: torch.Tensor,
         # list goes to the device
         outs.append(dntt.dyadic_mac(a[lo:hi], b[m - hi + 1:m - lo + 1]
                                     .flip(0), tables))
-    return torch.stack(outs)
+    return torch.stack(outs, dim=-3)
 
 
 def _bfv_multiply(d1: torch.Tensor, d2: Optional[torch.Tensor],
@@ -147,11 +149,13 @@ def _key_rows(key: torch.Tensor, k: int, kf: int) -> torch.Tensor:
 
 
 def _switch_key_decompose(target: torch.Tensor, cd: ContextData,
-                          key_cd: ContextData,
-                          ntt_form: bool) -> torch.Tensor:
+                          key_cd: ContextData, ntt_form: bool,
+                          limbs: Optional[range] = None) -> torch.Tensor:
     """Stage 1 of the key switch (troy_tpu/evaluator.py:179): the RNS digits
     of targets (..., k, n) in every used prime, transformed: (..., k, used,
     n), fully reduced; one launch each of F and A for the whole batch.
+    ``limbs``: the target holds only these limbs of the level (a shard of
+    the limb axis, parallel/sharding.py), and only their digits are made.
 
     An NTT-form target's digits are its inverse transform (A) reduced into
     every used prime and transformed again, k x (k+1) rows: the JAX
@@ -164,13 +168,15 @@ def _switch_key_decompose(target: torch.Tensor, cd: ContextData,
     40-bit row lifted into a 60-bit key prime runs 8 x 5 plane pairs, not
     8 x 8. The words do not change."""
     used = _used_tables(cd, key_cd)
+    own = cd.ntt if limbs is None else cd.ntt.slice(limbs.start, limbs.stop)
+    limbs = range(cd.limbs) if limbs is None else limbs
     if ntt_form:
-        target = dntt.rns_ntt_inverse(target, cd.ntt)
+        target = dntt.rns_ntt_inverse(target, own)
     digits = dks.keyswitch_digits(target, used)
     if used.mxu is None:
         return dntt.rns_ntt_forward(digits, used)
     groups = {}
-    for j, q in enumerate(cd.coeff_values):
+    for j, q in enumerate(cd.coeff_values[limbs.start:limbs.stop]):
         groups.setdefault(q.bit_length(), []).append(j)
     if len(groups) == 1:
         return dntt.rns_ntt_forward(digits, used, x_bound_bits=next(
@@ -198,12 +204,9 @@ def _switch_key_contract(t_hat: torch.Tensor, key: torch.Tensor,
       * t_hat (m, k, used, n), key (decomp, 2, kf, n) (the batched fold)
         -> (m, 2, k, n).
 
-    The divide: CKKS and BGV in the NTT domain, A on the special row, K'
-    (BGV: the t-corrected temps of K'-BGV), A, K'; in the coefficient
-    domain, an inverse A of the products, then F's rounding divide (BFV) or
-    the t-corrected one of K'' (BGV). The JAX package picks the domain by
-    scheme, which is wrong for an NTT-form BFV or a coefficient-form BGV
-    target."""
+    The divide is ``_divide_by_special``'s, in the target's domain. The
+    JAX package picks the domain by scheme, which is wrong for an NTT-form
+    BFV or a coefficient-form BGV target."""
     k, kf = cd.limbs, key_cd.limbs
     used = _used_tables(cd, key_cd)
     if t_hat.dim() == 4:
@@ -212,25 +215,52 @@ def _switch_key_contract(t_hat: torch.Tensor, key: torch.Tensor,
         keys = key if key.dim() == 5 else _key_rows(key, k, kf)
         prods = dntt.dyadic_mac(t_hat, keys, used)
     lead = prods.shape[:-2]
-    prods = prods.reshape((-1,) + prods.shape[-2:])   # (s, used, n)
-    bgv = cd.scheme == SchemeType.bgv
-    if ntt_form:
-        if bgv:
-            consts, entries = cd.bgv_keyswitch_consts, drns.BGV_KEYSWITCH
-        else:
-            consts = dks.divide_round_consts(cd.ntt, key_cd.coeff_values[-1])
-            entries = drns.KEYSWITCH
-        out = drns.divide_round_last_ntt(prods, cd.ntt, used.slice(k, k + 1),
-                                         consts, acc, entries, group)
-    else:
-        coeff = dntt.rns_ntt_inverse(prods, used)
-        if bgv:
-            out = dks.bgv_divide_last(coeff, cd.bgv_keyswitch_consts, acc,
-                                      group)
-        else:
-            out = dks.divide_round_last(coeff, dks.divide_round_consts(
-                cd.ntt, key_cd.coeff_values[-1]), acc, group)
+    out = _divide_by_special(prods.reshape((-1,) + prods.shape[-2:]), cd,
+                             key_cd, ntt_form, acc, group)
     return out.reshape(lead + out.shape[-2:])
+
+
+def _divide_by_special(prods: torch.Tensor, cd: ContextData,
+                       key_cd: ContextData, ntt_form: bool,
+                       acc: Optional[torch.Tensor] = None,
+                       group: Optional[int] = None,
+                       limbs: Optional[range] = None,
+                       forward: Callable = dntt.rns_ntt_forward,
+                       inverse: Callable = dntt.rns_ntt_inverse
+                       ) -> torch.Tensor:
+    """The end of stage 2: the inner products prods (s, k_o + 1, n), NTT
+    form, rows over the output limbs then the special prime, divided by the
+    special prime -> (s, k_o, n) in the TARGET's domain (``ntt_form``),
+    with acc added in the layout of ops/keyswitch.py. CKKS and BGV in the
+    NTT domain: A on the special row, K' (BGV: the t-corrected temps of
+    K'-BGV), A, K'; in the coefficient domain, an inverse A of the
+    products, then F's rounding divide (BFV) or the t-corrected one of K''
+    (BGV). ``limbs``: the output limbs, a run of the level's (a shard of the
+    limb axis, parallel/sharding.py), all of them by default. ``forward``
+    and ``inverse``: the transforms, called as A's; a coefficient-sharded
+    mesh passes kernel J's (parallel/sharding.py)."""
+    k = cd.limbs
+    used = _used_tables(cd, key_cd)
+    p = key_cd.coeff_values[-1]
+    bgv = cd.scheme == SchemeType.bgv
+    if limbs is None:
+        tables, rows = cd.ntt, used
+    else:
+        tables = cd.ntt.slice(limbs.start, limbs.stop)
+        rows = used.select(list(limbs) + [k])
+    if not bgv:
+        consts = dks.divide_round_consts(tables, p)
+    elif limbs is None:
+        consts = cd.bgv_keyswitch_consts
+    else:
+        consts = dks.bgv_divide_consts(tables, p, int(cd.plain_modulus))
+    if ntt_form:
+        return drns.divide_round_last_ntt(
+            prods, tables, used.slice(k, k + 1), consts, acc,
+            drns.BGV_KEYSWITCH if bgv else drns.KEYSWITCH, group, forward,
+            inverse)
+    divide = dks.bgv_divide_last if bgv else dks.divide_round_last
+    return divide(inverse(prods, rows), consts, acc, group)
 
 
 def _switch_key_core(target: torch.Tensor, key: torch.Tensor,

@@ -90,6 +90,14 @@ def galois_keys(keys: Dict[int, np.ndarray],
                             for e, w in keys.items()})
 
 
+def shard_range(size: int, parts: int, index: int) -> range:
+    """The run of an axis of ``size`` that part ``index`` of ``parts``
+    holds, cut as GSPMD cuts a sharded axis: ceil(size / parts) items each,
+    the last parts fewer or none."""
+    step = -(-size // parts)
+    return range(min(index * step, size), min((index + 1) * step, size))
+
+
 def load_records(path) -> Dict[str, np.ndarray]:
     """Reference-vector records (the ``tests/data/ref_*.bin`` files): each is
     a text line 'name count' then count little-endian u64 words."""

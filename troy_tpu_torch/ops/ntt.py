@@ -152,6 +152,23 @@ class RnsNttTables:
         """Sub-base over limbs [start, stop)."""
         return self._sub(("slice", start, stop), slice(start, stop))
 
+    def pointwise(self, n: int) -> "RnsNttTables":
+        """This base for the pointwise kernels (B, D, F, R1) over rows of
+        n words, a coefficient shard of the ring: the moduli and their
+        constants without the transform's tables, so a transform of it
+        raises. Made once per n."""
+        key = ("pointwise", n)
+        if key not in self._memo:
+            none = self.root_powers[:, :0]
+            self._memo[key] = RnsNttTables(
+                root_powers=none, root_powers_shoup=none,
+                inv_root_powers=none, inv_root_powers_shoup=none, q=self.q,
+                cr_hi=self.cr_hi, cr_lo=self.cr_lo,
+                inv_degree=self.inv_degree,
+                inv_degree_shoup=self.inv_degree_shoup, n=n,
+                log_n=n.bit_length() - 1, values=self.values)
+        return self._memo[key]
+
     def limb(self, i: int) -> "NttTables":
         """Single-modulus view of limb i."""
         key = ("limb", i)
@@ -285,6 +302,9 @@ def _check_rows(x: torch.Tensor, t: RnsNttTables, name: str) -> None:
 def _ntt(x: torch.Tensor, t: RnsNttTables, inverse: bool, lazy: bool,
          x_bound_bits: Optional[int] = None) -> torch.Tensor:
     _check_rows(x, t, "ntt")
+    if t.root_powers.shape[-1] != t.n:
+        raise ValueError("ntt: these tables hold no transform (a pointwise "
+                         "view of a base)")
     if t.mxu is not None:
         planes = 0 if x_bound_bits is None \
             else ntt_mxu._ndigits_value((1 << x_bound_bits) - 1)

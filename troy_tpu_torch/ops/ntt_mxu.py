@@ -35,6 +35,7 @@ troy_tpu's words.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Sequence, Tuple
@@ -279,6 +280,22 @@ def limb_planes(t: MxuNttTables, x_planes: int) -> int:
     return x_planes if 0 < x_planes <= t.planes else 0
 
 
+# matrices and twiddle grids in csrc/ntt_mxu.cu's pointer table
+_W1, _W2T, _V1, _V2T = 0, 1, 2, 3
+_NO_TWIDDLE, _TW, _ITW = -1, 0, 1
+# the stages of kernel J: (contracts the block's rows, matrix, twiddle grid,
+# reduces its input words first); the forward transform is W1 with the
+# twiddles, then W2, the inverse V2 with the inverse twiddles, then V1
+STAGES = {
+    "forward_left": (1, _W1, _TW, 1),
+    "forward_right": (0, _W2T, _NO_TWIDDLE, 0),
+    "inverse_right": (0, _V2T, _ITW, 1),
+    "inverse_left": (1, _V1, _NO_TWIDDLE, 0),
+}
+FORWARD = ("forward_left", "forward_right")
+INVERSE = ("inverse_right", "inverse_left")
+
+
 # --------------------------------------------------------------------------
 # plain versions (the CPU path; on the card, the kernel's comparison)
 # --------------------------------------------------------------------------
@@ -333,33 +350,54 @@ def _mod_matmul_plain(w_digits: torch.Tensor, w_sums: torch.Tensor,
     return out
 
 
+def mxu_stage_plain(x: torch.Tensor, mxu: Sequence[MxuNttTables],
+                    stage: str, x_planes: int = 0) -> torch.Tensor:
+    """One stage of the transform (``STAGES``) over every limb of x
+    (..., k, R, C), each limb's (R, C) block as the stage reads it: the
+    left stages contract its R rows (R = A), the right stages its C columns
+    (C = B); the twiddle grid of the stage has the block's shape (a shard's
+    block, ``shard_tables``). Fully reduced."""
+    left, mat, tsel, reduce_in = STAGES[stage]
+    rows = []
+    for i, t in enumerate(mxu):
+        q = t.modulus
+        xi = x[..., i, :, :]
+        planes = limb_planes(t, x_planes) if stage == "forward_left" else 0
+        if reduce_in and not planes:
+            xi = u.barrett_reduce_64(xi, q, ((1 << 128) // q) >> 64)
+        digits, sums = {
+            _W1: (t.w1_digits, t.w1_sums), _W2T: (t.w2_digits, t.w2_sums),
+            _V1: (t.iw1_digits, t.iw1_sums),
+            _V2T: (t.iw2_digits, t.iw2_sums)}[mat]
+        y = _mod_matmul_plain(digits, sums, xi, q, bool(left), planes)
+        if tsel == _TW:
+            y = u.mul_mod_shoup(y, t.tw, t.tw_shoup, q)
+        elif tsel == _ITW:
+            y = u.mul_mod_shoup(y, t.itw, t.itw_shoup, q)
+        rows.append(y)
+    return torch.stack(rows, dim=-3)
+
+
 def ntt_forward_mxu_plain(x: torch.Tensor, t: MxuNttTables,
                           x_planes: int = 0) -> torch.Tensor:
     """Forward NTT over the last axis (troy_tpu/ops/ntt_mxu.py:377): the
     butterfly's words, fully reduced. With x_planes, inputs below
     2^(8 x_planes) go in without the entry Barrett reduction."""
-    q = t.modulus
     lead = x.shape[:-1]
-    if not x_planes:
-        x = u.barrett_reduce_64(x, q, ((1 << 128) // q) >> 64)
-    c = x.reshape(lead + (t.a, t.b))
-    y = _mod_matmul_plain(t.w1_digits, t.w1_sums, c, q, True, x_planes)
-    y = u.mul_mod_shoup(y, t.tw, t.tw_shoup, q)
-    z = _mod_matmul_plain(t.w2_digits, t.w2_sums, y, q, False)
-    return z.reshape(lead + (t.n,))
+    y = x.reshape(lead + (1, t.a, t.b))
+    for stage in FORWARD:
+        y = mxu_stage_plain(y, (t,), stage, x_planes)
+    return y.reshape(lead + (t.n,))
 
 
 def ntt_inverse_mxu_plain(x: torch.Tensor, t: MxuNttTables) -> torch.Tensor:
     """Inverse NTT over the last axis, n^-1 included
     (troy_tpu/ops/ntt_mxu.py:404), fully reduced."""
-    q = t.modulus
     lead = x.shape[:-1]
-    x = u.barrett_reduce_64(x, q, ((1 << 128) // q) >> 64)
-    z = x.reshape(lead + (t.a, t.b))
-    y = _mod_matmul_plain(t.iw2_digits, t.iw2_sums, z, q, False)
-    y = u.mul_mod_shoup(y, t.itw, t.itw_shoup, q)
-    c = _mod_matmul_plain(t.iw1_digits, t.iw1_sums, y, q, True)
-    return c.reshape(lead + (t.n,))
+    y = x.reshape(lead + (1, t.a, t.b))
+    for stage in INVERSE:
+        y = mxu_stage_plain(y, (t,), stage)
+    return y.reshape(lead + (t.n,))
 
 
 def rns_ntt_mxu_plain(x: torch.Tensor, mxu: Sequence[MxuNttTables],
@@ -369,8 +407,7 @@ def rns_ntt_mxu_plain(x: torch.Tensor, mxu: Sequence[MxuNttTables],
         rows = [ntt_inverse_mxu_plain(x[..., i, :], t)
                 for i, t in enumerate(mxu)]
     else:
-        rows = [ntt_forward_mxu_plain(x[..., i, :], t, limb_planes(t,
-                                                                   x_planes))
+        rows = [ntt_forward_mxu_plain(x[..., i, :], t, x_planes)
                 for i, t in enumerate(mxu)]
     return torch.stack(rows, dim=-2)
 
@@ -379,16 +416,41 @@ def rns_ntt_mxu_plain(x: torch.Tensor, mxu: Sequence[MxuNttTables],
 # kernel wrapper
 # --------------------------------------------------------------------------
 
-# matrices and twiddle grids in csrc/ntt_mxu.cu's pointer table
-_W1, _W2T, _V1, _V2T = 0, 1, 2, 3
-_NO_TWIDDLE, _TW, _ITW = -1, 0, 1
-
-
 def pointer_table(mxu: Sequence[MxuNttTables], device) -> torch.Tensor:
     """(k, 16) words: each limb's table addresses, for one launch over
     every limb."""
     return u.u64([p for t in mxu for p in t.pointers()],
                  device).reshape(len(mxu), 16)
+
+
+def rns_mxu_stage(x: torch.Tensor, mxu: Sequence[MxuNttTables],
+                  pointers: torch.Tensor, stage: str,
+                  x_planes: int = 0) -> torch.Tensor:
+    """One launch of kernel J: ``stage`` over every limb and leading row of
+    x (..., k, R, C) (``mxu_stage_plain`` says what it computes), with
+    ``pointers`` the limbs' ``pointer_table``; x_planes bounds the words of
+    the forward transform's first stage. Words fully reduced."""
+    left, mat, tsel, reduce_in = STAGES[stage]
+    R, C = x.shape[-2:]
+    t0 = mxu[0]
+    if x.dim() < 3 or x.shape[-3] != len(mxu) \
+            or (R != t0.a if left else C != t0.b):
+        raise ValueError(f"ntt_mxu {stage}: blocks {tuple(x.shape)} for "
+                         f"{len(mxu)} limbs of ({t0.a}, {t0.b})")
+    grid = {_TW: t0.tw, _ITW: t0.itw}.get(tsel)
+    if grid is not None and grid.shape != (R, C):
+        raise ValueError(f"ntt_mxu {stage}: twiddle grid "
+                         f"{tuple(grid.shape)} for blocks of ({R}, {C})")
+    if not _kernels.on_cuda(x, pointers):
+        return mxu_stage_plain(x, mxu, stage, x_planes)
+    x = x.contiguous()
+    _kernels.check_operand(x, "ntt_mxu input")
+    out = torch.empty_like(x)
+    _kernels.launch("troy_ntt_mxu", out, x, x.numel() // (R * C), len(mxu),
+                    R.bit_length() - 1, C.bit_length() - 1, pointers, left,
+                    mat, tsel, reduce_in,
+                    x_planes if stage == "forward_left" else 0)
+    return out
 
 
 def rns_ntt_mxu(x: torch.Tensor, t, inverse: bool,
@@ -401,19 +463,50 @@ def rns_ntt_mxu(x: torch.Tensor, t, inverse: bool,
     modulus is narrower take the Barrett path). Output fully reduced."""
     if not _kernels.on_cuda(x, t.q):
         return rns_ntt_mxu_plain(x, t.mxu, inverse, x_planes)
-    x = x.contiguous()
-    _kernels.check_operand(x, "ntt_mxu input")
     t0 = t.mxu[0]
-    rows = x.numel() // t0.n
-    log_a, log_b = t0.a.bit_length() - 1, t0.b.bit_length() - 1
-    mid = torch.empty_like(x)
-    out = torch.empty_like(x)
-    if inverse:
-        stages = ((0, _V2T, _ITW, 1, 0), (1, _V1, _NO_TWIDDLE, 0, 0))
-    else:
-        stages = ((1, _W1, _TW, 1, x_planes), (0, _W2T, _NO_TWIDDLE, 0, 0))
-    for (left, mat, tw, reduce_in, planes), (src, dst) in zip(
-            stages, ((x, mid), (mid, out))):
-        _kernels.launch("troy_ntt_mxu", dst, src, rows, t.k, log_a, log_b,
-                        t.mxu_pointers, left, mat, tw, reduce_in, planes)
-    return out
+    y = x.reshape(x.shape[:-1] + (t0.a, t0.b))
+    for stage in INVERSE if inverse else FORWARD:
+        y = rns_mxu_stage(y, t.mxu, t.mxu_pointers, stage, x_planes)
+    return y.reshape(x.shape)
+
+
+# --------------------------------------------------------------------------
+# a shard of the transform (the coefficient-sharded regime)
+# --------------------------------------------------------------------------
+
+def shard_tables(t: MxuNttTables, parts: int, index: int) -> MxuNttTables:
+    """The tables of shard ``index`` of ``parts`` of the 4-step transform:
+    the forward twiddles' column block (A, B/parts), which the forward
+    left stage multiplies into a column block of C, and the inverse
+    twiddles' row block (A/parts, B), which the inverse right stage
+    multiplies into a row block (a contiguous run of n/parts words); the
+    factor matrices whole (troy_tpu/ops/ntt_mxu.py:68 _split_factors,
+    troy_tpu/parallel/sharding.py:203)."""
+    if t.a % parts or t.b % parts:
+        raise ValueError(f"4-step factors ({t.a}, {t.b}) do not split "
+                         f"{parts} ways")
+    cb, rb = t.b // parts, t.a // parts
+    cols = slice(index * cb, (index + 1) * cb)
+    rows = slice(index * rb, (index + 1) * rb)
+    return dataclasses.replace(
+        t, tw=t.tw[:, cols].contiguous(),
+        tw_shoup=t.tw_shoup[:, cols].contiguous(),
+        itw=t.itw[rows].contiguous(), itw_shoup=t.itw_shoup[rows].contiguous())
+
+
+def make_shard_tables(n: int, q: int, device, parts: int,
+                      index: int) -> MxuNttTables:
+    """``shard_tables`` of J's tables of (n, q) on ``device``. The plain
+    version takes any n; kernel J's 32 x 32 tiles need every block it
+    contracts at least 32 on each side, so on a card A / parts and
+    B / parts must be at least 32 (n = 16384 over up to 4 ranks, n = 131072
+    over up to 8)."""
+    A, B = _split_factors(n)
+    device = torch.device(device)
+    if A > MAX_FACTOR or (device.type == "cuda"
+                          and min(A, B) // parts < 32):
+        raise ValueError(f"J's shard of n = {n} over {parts} ranks: blocks "
+                         f"of ({A // parts}, {B // parts}) are below the "
+                         "kernel's 32 x 32 tiles")
+    return shard_tables(_make_mxu_tables(int(n), int(q), str(device)), parts,
+                        index)

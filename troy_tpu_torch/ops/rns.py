@@ -34,7 +34,7 @@ context's device once per context level.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -544,18 +544,22 @@ def divide_round_last_ntt(x: torch.Tensor, tables: RnsNttTables,
                           last_tables: RnsNttTables, consts: torch.Tensor,
                           acc: Optional[torch.Tensor] = None,
                           entries=KEYSWITCH,
-                          group: Optional[int] = None) -> torch.Tensor:
+                          group: Optional[int] = None,
+                          forward: Callable = dntt.rns_ntt_forward,
+                          inverse: Callable = dntt.rns_ntt_inverse
+                          ) -> torch.Tensor:
     """x (s, k+1, n) NTT form -> (s, k, n) NTT form: rows 0..k-1 (over
     ``tables``) minus the rounded row k (over ``last_tables``, the prime p
     of ``consts``), times p^-1, plus acc in the layout of ops/keyswitch.py.
     Kernels A, K', A, K'; ``entries`` names K''s entry points
     (and with them its launch count); with the BGV entries, consts are
     ops/keyswitch.bgv_divide_consts, whose first 5k + 2 words the finish
-    reads."""
+    reads. ``forward`` and ``inverse`` are the transforms, called as A's
+    (x, tables[, lazy]); a coefficient-sharded mesh passes kernel J's
+    (parallel/sharding.py)."""
     k = x.shape[1] - 1
-    last = dntt.rns_ntt_inverse(x[:, k:], last_tables)[:, 0]
-    temps = dntt.rns_ntt_forward(_ntt_temps(entries[0], last, consts),
-                                 tables, lazy=True)
+    last = inverse(x[:, k:], last_tables)[:, 0]
+    temps = forward(_ntt_temps(entries[0], last, consts), tables, lazy=True)
     return _ntt_finish(entries[1], x, temps, consts[:5 * k + 2], acc, group)
 
 
