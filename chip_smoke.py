@@ -12,23 +12,24 @@ SEAL's n = 32768 BFV chain, a 16-prime CKKS chain at n = 32768, and BFV
 at n = 131072 and 262144; troy's own Python entry point, its pybind11
 binder's scripts (binder/test.py, binder/timetest.py) through the port's
 binder API, with its raw wire; and the multi-device regimes on
-torch.distributed in ranks sharing the card. Phases, in order; any
-failure raises and the script exits non-zero without a result line:
+torch.distributed in ranks sharing the card. Phases, in order (35 runs
+between 32 and 33); any failure raises and the script exits non-zero without a result line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
 2. build the native host runtime (troy_tpu_torch/native, g++; the run
    fails if it does not load) and the CUDA kernels from
    troy_tpu_torch/csrc with nvcc (sm_90a), one nvcc per source, all at
-   once, and print the build seconds;
+   once, and print the build seconds and each kernel's registers and
+   spills (-Xptxas -v);
 3. each BFV-path kernel (A NTT, B dyadic MAC, C base conversion, D RNS
    elementwise, E BEHZ lift/tail/decrypt rounding, F key-switch digits and
    divide-round, K mod-switch divide-round, G plain embedding, M Galois
-   gather, and M as the batch encoder's slot gather) against its plain
-   PyTorch version on the card, at the main path's shapes, word for word
-   (tolerance 0), with both times (CUDA events around one call, median of
-   20: at these sizes mostly the host's launch cost), the least time the
-   card could take (bound) and, where one PyTorch call computes the same
-   function, that call's time;
+   gather on its packed tables, signed and unsigned, and M as the batch
+   encoder's slot gather) against its plain PyTorch version on the card,
+   at the main path's shapes, word for word (tolerance 0), with both times
+   (CUDA events around one call, median of 20: at these sizes mostly the
+   host's launch cost), the least time the card could take (bound) and,
+   where one PyTorch call computes the same function, that call's time;
 4. the BFV n = 16384 fixture chain from troy's C++ code, word for word:
    keygen (sk, relin key row 0, Galois key row 0), encrypt, multiply,
    relinearize, rotate_rows(1), mod_switch_to_next, decrypt, and the
@@ -43,7 +44,8 @@ failure raises and the script exits non-zero without a result line:
    plain version and no u64ops arithmetic ran on a CUDA tensor in phases
    4-5 (call counters); per op (mult+relin, rotate_rows(1), mod switch,
    encrypt, decrypt, encode, decode), the device kernels and the device
-   time of each from the torch profiler, one trace per op;
+   time of each from the torch profiler, one trace per op, and kernel A's
+   share of mult+relin's device time;
 7. the CKKS kernels (O1 the FP64 embedding transform, both directions; O2
    the exact rounding into RNS; O3 the CRT composition; K' the NTT-domain
    divide by the last prime, for the rescale and for the key switch)
@@ -241,7 +243,21 @@ failure raises and the script exits non-zero without a result line:
    collectives' calls and bytes and its shards' bytes; no plain torch on
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
-   one H100 over gloo's host staging, not multi-card scaling.
+   one H100 over gloo's host staging, not multi-card scaling;
+35. kernels A and M as redesigned for the H100: A against its plain
+   version, word for word, at n = 256 to 16384 (one pass below 1024, two
+   from it up) and a row mod t, three rows mod t, (5, 6, n) and (4, 11,
+   n), forward and inverse, lazy and not; A's device us a call and a
+   launch and its blocks per launch at those rows (n = 16384) and at
+   (5, 6, n) at every n, and A at n = 32768 word-equal to J and timed
+   beside it; M's wrapper ms signed, unsigned
+   and batched beside
+   index_select / gather, timed in turns in this process, and its device
+   us a launch and a call beside the library call's; the host us to
+   enqueue one call of D, M, A and index_select (the launch path). Device
+   us a call come from CUDA events around a CUDA graph of 20 calls (the
+   host's enqueue is longer than these kernels), a launch from the
+   profiler.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
@@ -252,7 +268,9 @@ app protocol of phase 21, the J route of phase 24, phases 25, 26 and
 apart; J's numbers are those of its n = 16384 shape, every shape under
 "J_shapes" and its per-shard stages under "J_shard_shapes"; O4's and
 O5's those of n = 16384 at 2^40, every shape under "stats_shapes"; R1's
-those of its (4, 1, 2, 6, n) shape; phase 34's regimes under "sharded")
+those of its (4, 1, 2, 6, n) shape; phase 34's regimes under "sharded";
+phase 35's under "redesign", A's share of mult+relin under
+"mult_relin_a")
 and the
 bounds of the composite ops (M' the NTT-form rotation and the hoisted path
 over 8 elements, L the plain products, Q a device switching key; N the
@@ -395,6 +413,11 @@ SHARD_BATCH_2D = 4                   # the (2, 2) mesh's batch
 # the spawned runs of phase 34: (backend, ranks), every rank on cuda:0
 SHARD_RUNS = (("gloo", 2), ("gloo", 4), ("nccl", 1))
 SHARD_WORLDS = (2, 4)                # R1's and J's per-shard checks
+# phase 35: kernel A's rings and rows (k limbs, leading count): a row and
+# three rows mod t, the headline's (5, 6, n), q u Bsk's (4, 11, n)
+REDESIGN_NS = (256, 512, 1024, 2048, 4096, 8192, 16384)
+REDESIGN_ROWS = {"1 row mod t": (1, 1), "3 rows mod t": (1, 3),
+                 "(5,6,n)": (6, 5), "q u Bsk (4,11,n)": (11, 4)}
 APP_SHARD_DIMS = ((64, 128, 256), (16384, 16, 16))   # 1 and 2 batch blocks
 
 # name -> (source, the TPU function it replaces)
@@ -548,9 +571,25 @@ def phase_build() -> None:
     _kernels.library()
     log(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_kernels.build_seconds:.2f} s): {path.name}")
+    kernel = ""
     for line in _kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[2]   {line.strip()}")
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            kernel = _demangled(found.group(1))
+        elif "registers" in line or "spill" in line or "error" in line:
+            log(f"[2]   {kernel}: {line.strip()}")
+
+
+def _demangled(symbol: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol
+    (c++filt where the toolkit's machine has it)."""
+    try:
+        text = subprocess.run(["c++filt", symbol], capture_output=True,
+                              text=True, timeout=10).stdout
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    found = re.search(r"::(\w+(?:<[\w, ]+>)?)\(", text)
+    return found.group(1) if found else symbol
 
 
 def _uniform(rng, bounds, shape, device) -> torch.Tensor:
@@ -634,6 +673,8 @@ def run_checks(tag: str, checks) -> dict:
             line += f", bound {bound_ms:.6f} ms ({bound_by})"
             if library_ms is not None:
                 line += f", library {library_ms:.4f} ms"
+        elif library:
+            line += f", library {cuda_ms(library):.4f} ms"
         log(line)
         entry = results[kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -691,6 +732,8 @@ def phase_kernels(ctx) -> dict:
     elt = 3
     src, keep = galois.coeff_permutation(N, elt, dev)
     perm = galois.ntt_permutation(N, elt, dev)
+    c_table, n_table = galois.coeff_table(N, elt, dev), galois.ntt_table(
+        N, elt, dev)
     m_x = _uniform(rng, v5, (2, 5, N), dev)
 
     def ntt_work(x, t):
@@ -806,13 +849,14 @@ def phase_kernels(ctx) -> dict:
          lambda: poly.bfv_multiply_add_plain(g_m, g_c0, *g_args),
          (_bytes(g_m, g_c0, g_c0, g_consts), N * (8 + 5 * 5)), None),
         ("M_galois", "signed gather (2,5,n), elt 3",
-         lambda: galois.apply_permutation_signed(m_x, src, keep, q5),
+         lambda: galois.permute(m_x, c_table, q5),
          lambda: galois.apply_permutation_signed_plain(m_x, src, keep, q5),
          (_bytes(m_x, m_x), 0),            # src and keep follow from elt
          lambda: m_x.index_select(-1, perm)),
         ("M_galois", "NTT-form gather (2,5,n), elt 3",
-         lambda: galois.apply_permutation(m_x, perm),
-         lambda: galois.apply_permutation_plain(m_x, perm), None, None),
+         lambda: galois.permute(m_x, n_table),
+         lambda: galois.apply_permutation_plain(m_x, perm), None,
+         lambda: m_x.index_select(-1, perm)),
     ]
     results = run_checks("3", [(c[0], c[1], "words") + c[2:]
                                for c in checks])
@@ -820,12 +864,13 @@ def phase_kernels(ctx) -> dict:
     # unsigned gather over one (n,) row mod t
     be = P.BatchEncoder(ctx)
     slots = to_torch(rng.integers(0, t1.values[0], N, dtype=np.uint64), dev)
+    index_map = be._index_map.long()      # the packed table's indices
     h = run_checks("3", [
         ("H_batch_slots", "M gather (n,) by the slot index map", "words",
-         lambda: galois.apply_permutation(slots, be._index_map),
-         lambda: galois.apply_permutation_plain(slots, be._index_map),
+         lambda: galois.permute(slots, be._index_map),
+         lambda: galois.apply_permutation_plain(slots, index_map),
          (_bytes(slots, slots), 0),        # the map is computable from n
-         lambda: slots.index_select(-1, be._index_map))])
+         lambda: slots.index_select(-1, index_map))])
     results["H_batch_slots"] = h["H_batch_slots"]
     return results
 
@@ -1727,9 +1772,12 @@ def phase_lwe_kernels(ctx) -> dict:
     inv_n = [pow(N, -1, q) for q in q5.values]
     cur = _uniform(rng, q5.values, (LWE_TERMS, 2, k, N), dev)
     elts = [galois_util.get_elt_from_step(N, s) for s in range(1, 17)]
-    srcs, keeps = galois.batched_tables(N, tuple(elts), dev, True)
-    perms, _ = galois.batched_tables(N, tuple(elts), dev, False)
-    one_src, one_keep = galois.batched_tables(N, (5,), dev, True)
+    signed = galois.batched_tables(N, tuple(elts), dev, True)
+    srcs, keeps = galois.unpack_table(signed)
+    unsigned = galois.batched_tables(N, tuple(elts), dev, False)
+    perms, _ = galois.unpack_table(unsigned)
+    one = galois.batched_tables(N, (5,), dev, True)
+    one_src, one_keep = galois.unpack_table(one.expand(half, N))
     hoist_x = _uniform(rng, q5.values, (16, 2, k, N), dev)
     fold_x = _uniform(rng, q5.values, (half, 2, k, N), dev)
     b_key = _uniform(rng, used.values, (k, 2, k + 1, N), dev)
@@ -1760,20 +1808,18 @@ def phase_lwe_kernels(ctx) -> dict:
          lambda: poly.pack_fold_prepare_plain(cur, N // 2, q5),
          lwe_work(words(cur), 2 * words(cur[:half])), None),
         ("M_galois", f"batched unsigned, 16 tables (16,2,{k},n)",
-         lambda: galois.permute_batched(hoist_x, perms, None, q5),
+         lambda: galois.permute_batched(hoist_x, unsigned, q5),
          lambda: galois.permute_batched_plain(hoist_x, perms, None, q5),
          lwe_work(words(hoist_x), words(hoist_x)),
          lambda: hoist_x.gather(-1, gather_perms)),
         ("M_galois", f"batched signed, 16 tables (16,2,{k},n)",
-         lambda: galois.permute_batched(hoist_x, srcs, keeps, q5),
+         lambda: galois.permute_batched(hoist_x, signed, q5),
          lambda: galois.permute_batched_plain(hoist_x, srcs, keeps, q5),
          None, None),
         ("M_galois", f"one table, component-major ({half},2,{k},n)",
-         lambda: galois.permute_batched(fold_x, one_src, one_keep, q5,
-                                        comps_first=True),
-         lambda: galois.permute_batched_plain(
-             fold_x, one_src.expand(half, N), one_keep.expand(half, N), q5,
-             comps_first=True), None, None),
+         lambda: galois.permute_batched(fold_x, one, q5, comps_first=True),
+         lambda: galois.permute_batched_plain(fold_x, one_src, one_keep, q5,
+                                              comps_first=True), None, None),
         ("B_dyadic_mac", f"batched key switch ({half},{k},{k + 1},n) x "
          f"({k},2,{k + 1},n)",
          lambda: ntt.dyadic_mac_batched(b_key, b_targets, used),
@@ -2528,8 +2574,9 @@ def phase_mxu_kernels(dev) -> dict:
             a_device_ms = device_kernels_per_op(
                 lambda: ntt.rns_ntt_forward(xr, ta))[1]
         _, device_ms, each = device_kernels_per_op(
-            lambda: ntt.rns_ntt_forward(x, tj))
-        launches, us = each.get("ntt_mxu_kernel", (0, 0.0))
+            lambda: ntt.rns_ntt_forward(x, tj),
+            expect={"ntt_mxu_kernel": None})
+        launches, us = each["ntt_mxu_kernel"]
         nbytes, ops = mxu_work(tj, 2)
         bound_ms, bound_by = bound(nbytes, 0, int8_ops=ops)
         r = {"n": n, "limbs": len(moduli), "rows": 2, "ms": ms,
@@ -2867,31 +2914,100 @@ def _short(key: str) -> str:
     return found.group(1) if found else key[:40]
 
 
-def device_kernels_per_op(fn, reps: int = 5, warmup: int = 3) -> tuple:
-    """(device kernels and copies, device ms, {kernel: [launches, us per
-    launch]}) per call of fn, from a torch.profiler trace of reps calls.
-    The profiler's schedule traces ``warmup`` calls first and drops them:
-    a trace started cold loses the events of its first call."""
+# Each edge of a trace's window gets idle seconds and spin kernels: the
+# profiler drops device events that it places at the edges of its window
+# (a whole call, late in a long run), so the first and last traced calls
+# keep clear of them, and what an edge loses is a spin kernel, which is
+# not counted.
+TRACE_PAD_S = 0.02
+TRACE_EDGE_SPINS = 4
+TRACE_SPIN = "spin_kernel"
+TRACE_ATTEMPTS = 6
+
+
+def _trace_edge() -> None:
+    time.sleep(TRACE_PAD_S)
+    for _ in range(TRACE_EDGE_SPINS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(TRACE_PAD_S)
+
+
+def _trace(fn, reps: int, warmup: int) -> tuple:
+    """({kernel: [launches, device us]} of reps calls of fn in one
+    torch.profiler trace, the edges' spin kernels seen). The profiler's
+    schedule traces ``warmup`` calls first and drops them: a trace started
+    cold loses the events of its first call."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=warmup, active=reps,
                                    repeat=1)) as prof:
-        for _ in range(warmup + reps):
+        for i in range(warmup + reps):
+            if i == warmup:
+                _trace_edge()
             fn()
             torch.cuda.synchronize()
+            if i == warmup + reps - 1:
+                _trace_edge()
             prof.step()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = lambda e: getattr(e, "self_device_time_total",
                                   getattr(e, "self_cuda_time_total", 0))
-    count = sum(e.count for e in events) / reps
-    us = sum(device_us(e) for e in events) / reps
-    each = {}
-    for e in events:
+    each, spins = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.count:
+            continue
+        if TRACE_SPIN in e.key:
+            spins += e.count
+            continue
         launches, total = each.get(_short(e.key), (0, 0.0))
-        each[_short(e.key)] = (launches + e.count, total + device_us(e))
-    each = {k: [c / reps, t / c] for k, (c, t) in each.items() if c}
-    return count, us / 1e3, each
+        each[_short(e.key)] = [launches + e.count, total + device_us(e)]
+    return each, spins
+
+
+def _trace_faults(each: dict, reps: int, expect: dict, whole: bool) -> list:
+    """What makes a trace of reps calls not whole: no device event; a
+    kernel of ``expect`` not seen its launches a call (None: some whole
+    number of launches a call); with ``whole``, any kernel seen a number of
+    times that is no multiple of reps (every call launches the same)."""
+    if not each:
+        return ["no device event"]
+    faults = []
+    for name, per_call in expect.items():
+        seen = each.get(name, [0, 0.0])[0]
+        if seen == 0 or seen % reps or (per_call is not None
+                                        and seen != per_call * reps):
+            faults.append(f"{name} seen {seen} times in {reps} calls, "
+                          f"expected {per_call or 'a multiple'}")
+    if whole:
+        faults += [f"{name} seen {c} times in {reps} calls"
+                   for name, (c, _) in each.items() if c % reps]
+    return faults
+
+
+def device_kernels_per_op(fn, reps: int = 5, warmup: int = 3,
+                          expect: Optional[dict] = None,
+                          whole: bool = False) -> tuple:
+    """(device kernels and copies, device ms, {kernel: [launches, us per
+    launch]}) per call of fn, from a torch.profiler trace of reps calls.
+    A trace that is not whole (``_trace_faults``: ``expect`` maps kernels
+    to their launches a call) is taken again, TRACE_ATTEMPTS times at
+    most; then the op fails: no time is read off a trace that lost it."""
+    expect = expect or {}
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        each, spins = _trace(fn, reps, warmup)
+        faults = _trace_faults(each, reps, expect, whole)
+        if not faults:
+            break
+        log(f"[trace] attempt {attempt} of {TRACE_ATTEMPTS} not whole: "
+            + "; ".join(faults) + f" ({spins} of {2 * TRACE_EDGE_SPINS} "
+            "edge spin kernels seen)")
+    else:
+        raise AssertionError(f"the profiler lost events in "
+                             f"{TRACE_ATTEMPTS} traces: {'; '.join(faults)}")
+    count = sum(c for c, _ in each.values()) / reps
+    us = sum(t for _, t in each.values()) / reps
+    return count, us / 1e3, {k: [c / reps, t / c]
+                             for k, (c, t) in each.items()}
 
 
 def check_path(tag: str, phases: str, path, counts: dict,
@@ -2910,11 +3026,15 @@ def check_path(tag: str, phases: str, path, counts: dict,
                              f"{counter.calls}")
 
 
-def profile_ops(tag: str, ops: dict) -> dict:
-    """The per-op device kernels and time."""
+def profile_ops(tag: str, ops: dict, expect: Optional[dict] = None) -> dict:
+    """The per-op device kernels and time; ``expect``: {op: the kernels its
+    trace must hold whole (device_kernels_per_op)}, and every op's trace
+    holds some device event."""
     per_op = {}
     for op, fn in ops.items():
-        count, device_ms, each = device_kernels_per_op(fn)
+        want = (expect or {}).get(op)
+        count, device_ms, each = device_kernels_per_op(
+            fn, expect=want, whole=want is not None)
         per_op[op] = {"device_kernels": count, "device_ms": device_ms,
                       "each": each}
         log(f"[{tag}] {op}: {count:g} device kernels and copies per op, "
@@ -3622,8 +3742,9 @@ def phase_shard_kernels(dev) -> tuple:
     results = run_checks("33", checks)
     first = _uniform(rng, moduli, (4, 1, 2, len(moduli), N), dev)
     _, device_ms, each = device_kernels_per_op(
-        lambda: shard.shard_modsum(first, t))
-    launches, us = each.get("shard_modsum_kernel", (0, 0.0))
+        lambda: shard.shard_modsum(first, t),
+        expect={"shard_modsum_kernel": 1})
+    launches, us = each["shard_modsum_kernel"]
     results["R1_shard_modsum"]["device_us_per_launch"] = us
     log(f"[33] R1_shard_modsum (4, 1, 2, 6, n): {launches:g} launch at "
         f"{us:.1f} us of device time")
@@ -3981,6 +4102,225 @@ def phase_sharded(ctxs: dict, app_ctx) -> tuple:
     return counts, out
 
 
+# --------------------------------------------------------------------------
+# kernels A and M redesigned for the H100: phase 35
+# --------------------------------------------------------------------------
+
+def _ntt_rows(n: int, shape: str, dev) -> "ntt.RnsNttTables":
+    """Kernel A's tables for one of REDESIGN_ROWS' shapes at n: the batching
+    prime of t for the row mod t, six 60-bit primes for (5, 6, n), eleven for
+    q u Bsk's (4, 11, n); A's tables (no J) at every n."""
+    k = REDESIGN_ROWS[shape][0]
+    if k == 1:
+        moduli = [int(P.PlainModulus.batching(n, 20))]
+    else:
+        moduli = [int(m) for m in P.CoeffModulus.create(n, [60] * k)]
+    return ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+
+
+def host_us(fn, reps: int = 500) -> float:
+    """Host microseconds to enqueue one call of fn, the device idle: what a
+    wrapper and its launch cost the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def graph_us(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device us of one call of fn: calls back to back in a CUDA graph,
+    replayed under CUDA events (the median of reps), so the host's
+    enqueue time, longer than these kernels, does not count."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / calls)
+    return statistics.median(times)
+
+
+def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
+    """Median CUDA-event ms of each call, timed in turns (a, b, b, a, ...)
+    in this process: wrapper medians move up to 2 times between
+    processes."""
+    times = {name: [] for name in pairs}
+    names = list(pairs)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            times[name].append(cuda_ms(pairs[name]))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def phase_redesign(dev) -> dict:
+    """Phase 35: kernels A and M as redesigned for the H100. A against its
+    plain version, word for word, at every n of REDESIGN_NS (one pass over
+    whole rows below 1024, two passes from it up) and the shapes of
+    REDESIGN_ROWS, forward and inverse, lazy and not, and at n = 32768
+    beside J; A's device us per launch and blocks per launch; M's
+    wrapper ms in every form beside index_select / gather timed in turns in
+    this process, its device us; and the host's enqueue us of a launch."""
+    rng = np.random.default_rng(SEED + 35)
+    checks = 0
+    for n in REDESIGN_NS:
+        for shape, (k, lead) in REDESIGN_ROWS.items():
+            t = _ntt_rows(n, shape, dev)
+            x = _uniform(rng, [4 * q for q in t.values], (lead, k, n), dev)
+            y = _uniform(rng, [2 * q for q in t.values], (lead, k, n), dev)
+            for lazy in (False, True):
+                for fn, plain, v in ((ntt.rns_ntt_forward,
+                                      ntt.ntt_forward_plain, x),
+                                     (ntt.rns_ntt_inverse,
+                                      ntt.ntt_inverse_plain, y)):
+                    try:
+                        compare("words", fn(v, t, lazy), plain(v, t, lazy))
+                    except AssertionError as exc:
+                        raise AssertionError(f"A at n = {n}, {shape}, lazy "
+                                             f"{lazy}: {exc}") from None
+                    checks += 1
+    log(f"[35] A word-equal to its plain version in {checks} checks: n = "
+        f"{list(REDESIGN_NS)}, rows {list(REDESIGN_ROWS)}, forward and "
+        "inverse, lazy and not")
+
+    def a_profile(t, x, inverse=False):
+        """Device us a call (graph replay) and a launch (profiler, every
+        pass of every traced call seen)."""
+        fn = ntt.rns_ntt_inverse if inverse else ntt.rns_ntt_forward
+        passes = len(ntt.launch_blocks(x.numel() // t.n, t.n, inverse))
+        _, _, each = device_kernels_per_op(
+            lambda: fn(x, t), reps=10, expect={"ntt_pass_kernel": passes},
+            whole=True)
+        return {"device_us": graph_us(lambda: fn(x, t)), "launches": passes,
+                "us_per_launch": each["ntt_pass_kernel"][1]}
+
+    per_shape = {}
+    for shape, (k, lead) in REDESIGN_ROWS.items():
+        t = _ntt_rows(N, shape, dev)
+        x = _uniform(rng, [4 * q for q in t.values], (lead, k, N), dev)
+        fwd, inv = a_profile(t, x), a_profile(t, x, True)
+        per_shape[shape] = {
+            "forward": fwd, "inverse": inv,
+            "blocks": ntt.launch_blocks(lead * k, N),
+            "wrapper_ms": cuda_ms(lambda: ntt.rns_ntt_forward(x, t))}
+        log(f"[35] A at ({lead},{k},n) {shape}: forward {fwd['device_us']:.1f}"
+            f" us of device time a call ({fwd['us_per_launch']:.1f} us a "
+            f"launch, {fwd['launches']} launches a call), inverse "
+            f"{inv['device_us']:.1f} us; blocks per launch "
+            f"{per_shape[shape]['blocks']}; wrapper "
+            f"{per_shape[shape]['wrapper_ms']:.4f} ms")
+    # the plan on either side of its crossover: (5, 6, n) at every n
+    per_n = {}
+    for n in REDESIGN_NS:
+        t = _ntt_rows(n, "(5,6,n)", dev)
+        x = _uniform(rng, [4 * q for q in t.values], (5, 6, n), dev)
+        per_n[str(n)] = a_profile(t, x)
+    log("[35] A at (5,6,n) forward, device us a call (launches): " + ", ".join(
+        f"n = {n} {r['device_us']:.1f} ({r['launches']})"
+        for n, r in per_n.items()))
+    # n = 32768: A (two passes) beside J on the same words
+    n = 2 * N
+    t_a = _ntt_rows(n, "(5,6,n)", dev)
+    t_j = ntt.RnsNttTables.from_moduli(n, t_a.values, dev, use_mxu=True)
+    x = _uniform(rng, t_a.values, (5, 6, n), dev)
+    compare("words", ntt.rns_ntt_forward(x, t_a), ntt.rns_ntt_forward(x, t_j))
+    compare("words", ntt.rns_ntt_forward(x, t_a),
+            ntt.ntt_forward_plain(x, t_a))
+    large = {"a": a_profile(t_a, x),
+             "j_device_us": graph_us(lambda: ntt.rns_ntt_forward(x, t_j)),
+             **alternating_ms({
+                 "a_ms": lambda: ntt.rns_ntt_forward(x, t_a),
+                 "j_ms": lambda: ntt.rns_ntt_forward(x, t_j)})}
+    log(f"[35] n = 32768 (5,6,n) forward, A word-equal to J and to the plain "
+        f"version: A {large['a']['device_us']:.1f} us of device time, "
+        f"{large['a_ms']:.4f} ms wrapper; J {large['j_device_us']:.1f} us, "
+        f"{large['j_ms']:.4f} ms")
+
+    # M, every form, beside the one PyTorch call of the same gather
+    q5 = ntt.RnsNttTables.from_moduli(
+        N, [int(m) for m in P.CoeffModulus.create(N, Q_BITS[:5])], dev)
+    m_x = _uniform(rng, q5.values, (2, 5, N), dev)
+    perm = galois.ntt_permutation(N, 3, dev)
+    c_table, n_table = galois.coeff_table(N, 3, dev), galois.ntt_table(
+        N, 3, dev)
+    elts = tuple(galois_util.get_elt_from_step(N, s) for s in range(1, 17))
+    hoist_x = _uniform(rng, q5.values, (16, 2, 5, N), dev)
+    unsigned = galois.batched_tables(N, elts, dev, False)
+    signed = galois.batched_tables(N, elts, dev, True)
+    index = galois.unpack_table(unsigned)[0].reshape(16, 1, 1, N).expand(
+        hoist_x.shape)
+    forms = {
+        "signed (2,5,n)": (lambda: galois.permute(m_x, c_table, q5),
+                           lambda: m_x.index_select(-1, perm)),
+        "unsigned (2,5,n)": (lambda: galois.permute(m_x, n_table),
+                             lambda: m_x.index_select(-1, perm)),
+        "batched unsigned (16,2,5,n)": (
+            lambda: galois.permute_batched(hoist_x, unsigned, q5),
+            lambda: hoist_x.gather(-1, index)),
+        "batched signed (16,2,5,n)": (
+            lambda: galois.permute_batched(hoist_x, signed, q5),
+            lambda: hoist_x.gather(-1, index)),
+    }
+    m_forms = {}
+    for form, (kernel, library) in forms.items():
+        _, _, each = device_kernels_per_op(
+            kernel, reps=20, expect={"galois_permute_kernel": 1}, whole=True)
+        us = each["galois_permute_kernel"][1]
+        ms = alternating_ms({"ms": kernel, "library_ms": library})
+        m_forms[form] = {**ms, "device_us_per_launch": us,
+                         "device_us": graph_us(kernel),
+                         "library_device_us": graph_us(library)}
+        log(f"[35] M {form}: wrapper {ms['ms']:.4f} ms, library "
+            f"{ms['library_ms']:.4f} ms (in turns, this process); device "
+            f"{m_forms[form]['device_us']:.2f} us a call (graph; profiler "
+            f"{us:.2f} us a launch), library "
+            f"{m_forms[form]['library_device_us']:.2f} us")
+
+    # the launch path: host us to enqueue one call
+    tiny = ntt.RnsNttTables.from_moduli(
+        64, [int(P.CoeffModulus.create(64, [40])[0])], dev)
+    a64 = _uniform(rng, tiny.values, (1, 1, 64), dev)
+    t6 = _ntt_rows(N, "(5,6,n)", dev)
+    x6 = _uniform(rng, [4 * q for q in t6.values], (5, 6, N), dev)
+    host = {"D add (1,1,64)": host_us(lambda: poly.rns_add(a64, a64, tiny)),
+            "M unsigned (2,5,n)": host_us(lambda: galois.permute(m_x,
+                                                                 n_table)),
+            "A forward (5,6,n)": host_us(
+                lambda: ntt.rns_ntt_forward(x6, t6)),
+            "index_select (2,5,n)": host_us(
+                lambda: m_x.index_select(-1, perm))}
+    log("[35] host us to enqueue one call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in host.items()))
+    return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
+            "a_n32768": large, "m_forms": m_forms, "host_enqueue_us": host}
+
+
+def a_share(per_op: dict, op: str) -> dict:
+    """Kernel A's share of one profiled op's device time (its trace held
+    whole, A's launches in it: profile_ops' expect)."""
+    launches, us = per_op[op]["each"]["ntt_pass_kernel"]
+    a_ms = launches * us / 1e3
+    return {"a_ms": a_ms, "device_ms": per_op[op]["device_ms"],
+            "share": a_ms / per_op[op]["device_ms"]}
+
+
 def main() -> None:
     wall0 = time.perf_counter()
     name = phase_device()
@@ -4016,7 +4356,11 @@ def main() -> None:
         "decrypt": lambda: dec.decrypt(rel),
         "encode": lambda: be.encode(slots),
         "decode": lambda: be.decode(pt),
-    })
+    }, expect={"mult_relin": {"ntt_pass_kernel": None}})
+    mult_relin_a = a_share(per_op, "mult_relin")
+    log(f"[6] A's share of mult_relin's device time: "
+        f"{mult_relin_a['a_ms']:.4f} of {mult_relin_a['device_ms']:.4f} ms "
+        f"({100 * mult_relin_a['share']:.1f} %)")
 
     # ---- CKKS: phases 7-10 ----
     ckks_ctx = P.HeContext(P.EncryptionParameters(
@@ -4131,6 +4475,11 @@ def main() -> None:
     wire = phase_wire(ctx.device)
     stats_ms = phase_stats_medians(ckks_ctx, alice)
 
+    # ---- kernels A and M redesigned: 35, before phase 34 spawns its
+    # ranks on the card (after it, the profiler lost the same share of
+    # every trace in this process) ----
+    redesign = phase_redesign(ctx.device)
+
     # ---- multi-device (R): 33-34 ----
     shard_results, j_shards = phase_shard_kernels(ctx.device)
     kernel_results.update(shard_results)
@@ -4237,6 +4586,7 @@ def main() -> None:
                     "wire": wire, "stats_ms": stats_ms,
                     "sharded": sharded, "J_shard_shapes": j_shards,
                     "native_build_s": native.build_seconds,
+                    "redesign": redesign, "mult_relin_a": mult_relin_a,
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

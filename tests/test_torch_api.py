@@ -174,3 +174,88 @@ def test_lwe_sample_through_interop():
     np.testing.assert_array_equal(
         P.to_numpy(pev.assemble_lwe(port_lwe, 5).data),
         np.asarray(jev.assemble_lwe(lwe, 5).data))
+
+
+def test_context_takes_the_reference_argument_order():
+    """HeContext's first five parameters are troy_tpu's, in its order
+    (troy_tpu/context.py:160-164), with ``device`` after them: a positional
+    call means in the port what it means in the reference."""
+    import inspect
+    want = list(inspect.signature(J.HeContext).parameters)
+    got = list(inspect.signature(P.HeContext).parameters)
+    assert want == ["parms", "expand_mod_chain", "sec_level", "use_mxu",
+                    "internal_prime_bits"]
+    assert got == want + ["device"]
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=N,
+        coeff_modulus=tuple(P.CoeffModulus.create(N, [40, 40, 40])),
+        plain_modulus=P.PlainModulus.batching(N, 20))
+    ctx = P.HeContext(parms, True, P.SecurityLevel.none, False, None,
+                      device="cpu")
+    assert ctx.use_mxu is False and ctx.internal_prime_bits is None
+    assert len(ctx.chain) == 3 and ctx.device.type == "cpu"
+
+
+def test_package_level_hexpoly_names():
+    """The names troy_tpu/__init__.py exports beside its types."""
+    from troy_tpu_torch import (hex_string_to_poly, plaintext_from_string,
+                                plaintext_to_string, poly_to_hex_string,
+                                valcheck)
+    assert valcheck is P.valcheck
+    for name in ("valcheck", "poly_to_hex_string", "hex_string_to_poly",
+                 "plaintext_to_string", "plaintext_from_string"):
+        assert name in P.__all__ and name in J.__all__
+    pt = plaintext_from_string("3x^2 + 1Fx^1 + 5", device="cpu")
+    assert plaintext_to_string(pt) == "3x^2 + 1Fx^1 + 5"
+    words = hex_string_to_poly("3x^2 + 1Fx^1 + 5", 4)
+    assert poly_to_hex_string(words) == "3x^2 + 1Fx^1 + 5"
+
+
+def test_replace_on_every_type():
+    """``replace(**changes)`` on every type that has it in troy_tpu (flax
+    PyTreeNodes there): a copy of the same type with the changes, the
+    original untouched."""
+    ctx = _context(P, "bfv")
+    kg = P.KeyGenerator(ctx, seed=tprng.seed_from_uint64(SEED),
+                        host_sampling=True)
+    z = torch.zeros(3, dtype=torch.int64)
+    rlk = kg.create_relin_keys()
+    gk = kg.create_galois_keys([3])
+    objects = [
+        (P.Plaintext(data=z), {"scale": 2.0}),
+        (kg.secret_key, {"data": z}),
+        (kg.create_public_key(), {"seed": 7}),
+        (P.KSwitchKeys(keys={1: z}), {"keys": {2: z}}),
+        (rlk, {"keys": {}}),
+        (gk, {"keys": {}}),
+        (ctx.first_context_data, {"chain_index": 9}),
+    ]
+    for obj, changes in objects:
+        out = obj.replace(**changes)
+        assert type(out) is type(obj) and out is not obj
+        for name, value in changes.items():
+            assert getattr(out, name) is value or getattr(out, name) == value
+            assert getattr(obj, name) is not value
+    cd = ctx.first_context_data
+    assert cd.replace(chain_index=9).ntt is cd.ntt
+
+
+def test_square_takes_a():
+    """Evaluator.square(a), as troy_tpu/evaluator.py:930 names it."""
+    import inspect
+    assert list(inspect.signature(P.Evaluator.square).parameters) == \
+        list(inspect.signature(J.Evaluator.square).parameters) == ["self", "a"]
+    ctx = _context(P, "bfv")
+    kg = P.KeyGenerator(ctx, seed=tprng.seed_from_uint64(SEED),
+                        host_sampling=True)
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=tprng.seed_from_uint64(SEED + 1),
+                      host_sampling=True)
+    be = P.BatchEncoder(ctx)
+    vals = np.arange(N, dtype=np.uint64)
+    ct = enc.encrypt_symmetric(be.encode(vals))
+    sq = P.Evaluator(ctx).square(a=ct)
+    t = int(ctx.first_context_data.plain_modulus)
+    np.testing.assert_array_equal(
+        be.decode(P.Decryptor(ctx, kg.secret_key).decrypt(sq)),
+        vals * vals % t)

@@ -20,6 +20,7 @@ import troy_tpu_torch as P
 from troy_tpu_torch import _kernels, interop, prng, rlwe
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
                                 poly, rns, sampling, shard, tiles)
+from troy_tpu_torch.utils import galois as galois_util
 from troy_tpu_torch.utils.rns import make_rns_tool
 
 pytestmark = pytest.mark.cuda
@@ -201,6 +202,115 @@ def test_galois_kernel(dev, tool, elt):
     perm = galois.ntt_permutation(n, elt, dev)
     _same(galois.apply_permutation(x, perm),
           galois.apply_permutation_plain(x, perm))
+
+
+NTT_ROWS = {"1 mod t": (1, 1), "3 mod t": (1, 3), "(5, 6)": (6, 5),
+            "q u Bsk (4, 11)": (11, 4)}
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(6, 15)])
+@pytest.mark.parametrize("rows", sorted(NTT_ROWS))
+def test_ntt_kernel_every_shape(dev, n, rows):
+    """Kernel A against its plain version, word for word, forward and
+    inverse, lazy and not, at every n it runs by default and at the row
+    counts of the paths (one and three rows mod t, the headline's (5, 6, n)
+    and q u Bsk's (4, 11, n)): one pass over whole rows below n = 1024, the
+    two passes (strided, contiguous) from it up."""
+    k, lead = NTT_ROWS[rows]
+    if k == 1:
+        moduli = [int(P.PlainModulus.batching(n, 20))]
+    else:
+        moduli = [int(m) for m in P.CoeffModulus.create(n, [60] * k)]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(n * 7 + k)
+    x = _uniform(rng, [4 * q for q in moduli], (lead,), n, dev)
+    y = _uniform(rng, [2 * q for q in moduli], (lead,), n, dev)
+    for lazy in (False, True):
+        _same(ntt.rns_ntt_forward(x, tables, lazy),
+              ntt.ntt_forward_plain(x, tables, lazy))
+        _same(ntt.rns_ntt_inverse(y, tables, lazy),
+              ntt.ntt_inverse_plain(y, tables, lazy))
+    assert len(ntt.launch_blocks(lead * k, n)) == (1 if n < 1024 else 2)
+
+
+@pytest.mark.parametrize("n", [64, 4096, 16384])
+def test_galois_packed_tables(dev, n):
+    """Kernel M on its packed tables at every element of the default Galois
+    set and conjugation: signed and unsigned, one table and batched, and
+    component-major, word for word against the plain versions on the
+    index tables; the batch encoder's slot gather."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [60, 40, 40, 40, 40])]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(n)
+    x = _uniform(rng, moduli, (2,), n, dev)
+    x[..., ::7] = 0
+    elts = tuple(galois_util.get_elts_all(n))
+    for elt in elts:
+        src, keep = galois.coeff_permutation(n, elt, dev)
+        _same(galois.permute(x, galois.coeff_table(n, elt, dev), t),
+              galois.apply_permutation_signed_plain(x, src, keep, t))
+        perm = galois.ntt_permutation(n, elt, dev)
+        _same(galois.permute(x, galois.ntt_table(n, elt, dev)),
+              galois.apply_permutation_plain(x, perm))
+    batch = _uniform(rng, moduli, (len(elts), 2), n, dev)
+    for signed in (True, False):
+        tables = galois.batched_tables(n, elts, dev, signed)
+        srcs, keeps = galois.unpack_table(tables)
+        _same(galois.permute_batched(batch, tables, t),
+              galois.permute_batched_plain(batch, srcs, keeps, t))
+        one = tables[:1]
+        srcs, keeps = galois.unpack_table(one.expand(len(elts), n))
+        _same(galois.permute_batched(batch, one, t, comps_first=True),
+              galois.permute_batched_plain(batch, srcs, keeps, t, True))
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [40, 40])),
+        plain_modulus=P.PlainModulus.batching(n, 20))
+    be = P.BatchEncoder(P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                                    device=dev))
+    slots = interop.to_torch(rng.integers(0, be.plain_modulus, n,
+                                          dtype=np.uint64), dev)
+    _same(galois.permute(slots, be._index_map),
+          slots.index_select(-1, be._index_map.long()))
+
+
+def test_galois_refuses_a_strided_table(dev):
+    """Kernel M reads a table as dense words: a table of the right shape
+    and dtype that is not contiguous (one row expanded over the batch, a
+    strided slice) is refused, not read past its rows."""
+    n, m = 64, 4
+    moduli = [int(q) for q in P.CoeffModulus.create(n, BITS[6])]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    x = torch.zeros((m, 2, 6, n), dtype=torch.int64, device=dev)
+    tables = galois.batched_tables(n, (3, 5, 7, 9), dev, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        galois.permute_batched(x, tables[:1].expand(m, n), t)
+    with pytest.raises(ValueError, match="contiguous"):
+        galois.permute(x[0], torch.cat([tables[0], tables[0]])[::2])
+
+
+def test_launches_go_to_the_current_stream(dev):
+    """A and M launch on the caller's current stream: queued behind a long
+    sleep and a fill on a side stream, they read the filled words, and the
+    default stream stays idle meanwhile."""
+    n = 16384
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    x = torch.zeros((2, 6, n), dtype=torch.int64, device=dev)
+    table = galois.ntt_table(n, 3, dev)
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        x.fill_(12345)
+        permuted = galois.permute(x, table)
+        forward = ntt.rns_ntt_forward(x, t)
+        assert not side.query()
+        assert torch.cuda.default_stream(dev).query()
+    side.synchronize()
+    want = torch.full_like(x, 12345)
+    _same(permuted, want)
+    _same(forward, ntt.ntt_forward_plain(want, t))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -754,15 +864,16 @@ def test_batched_galois_and_dyadic_kernels(dev, tool):
     x[..., ::5] = 0
     elts = (3, 9, 2 * n - 1, 27, 81, 5)
     for signed in (True, False):
-        srcs, keeps = galois.batched_tables(n, elts, dev, signed)
-        _same(galois.permute_batched(x, srcs, keeps, dt.q),
-              galois.permute_batched_plain(x, srcs, keeps, dt.q))
-        one, one_keep = galois.batched_tables(n, (5,), dev, signed)
-        _same(galois.permute_batched(x, one, one_keep, dt.q, True),
-              galois.permute_batched_plain(
-                  x, one.expand(6, n),
-                  None if one_keep is None else one_keep.expand(6, n), dt.q,
-                  True))
+        tables = galois.batched_tables(n, elts, dev, signed)
+        srcs, keeps = galois.unpack_table(tables)
+        _same(galois.permute_batched(x, tables, dt.q),
+              galois.permute_batched_plain(x, srcs, keeps if signed else None,
+                                           dt.q))
+        one = galois.batched_tables(n, (5,), dev, signed)
+        src, keep = galois.unpack_table(one.expand(6, n))
+        _same(galois.permute_batched(x, one, dt.q, True),
+              galois.permute_batched_plain(x, src, keep if signed else None,
+                                           dt.q, True))
     moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
     used = ntt.RnsNttTables.from_moduli(n, moduli, dev)
     key = _uniform(rng, moduli, (5, 2), n, dev)

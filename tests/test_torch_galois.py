@@ -23,6 +23,7 @@ import troy_tpu_torch as P
 from troy_tpu_torch import interop
 from troy_tpu_torch import prng as tprng
 from troy_tpu_torch.ops import galois as tgalois
+from troy_tpu_torch.ops import ntt as tntt
 from troy_tpu_torch.utils import galois as tgalois_util
 
 torch.set_num_threads(1)
@@ -48,6 +49,62 @@ def test_galois_tables(n):
         tgalois_util.get_elt_from_step(n, n // 2)
     with pytest.raises(ValueError):
         tgalois_util.coeff_permutation(n, 4)
+
+
+@pytest.mark.parametrize("n", [64, 256, 1024, 4096])
+def test_packed_tables_hold_the_index_tables(n):
+    """Kernel M's packed int32 tables (ops/galois.pack_table: the source
+    index in bits 0-30, bit 31 where the word is negated) unpack to the
+    JAX package's coefficient and NTT-domain tables, word for word, for
+    every element of the default Galois set and conjugation; the inverse
+    NTT-domain table undoes the gather."""
+    cpu = torch.device("cpu")
+    elts = jgalois.get_elts_all(n)
+    assert 2 * n - 1 in elts
+    for elt in elts:
+        src, keep = jgalois.coeff_permutation(n, elt)
+        table = tgalois.coeff_table(n, elt, cpu)
+        assert table.dtype == torch.int32 and table.shape == (n,)
+        words = table.numpy()
+        np.testing.assert_array_equal(words & 0x7FFFFFFF, src)
+        np.testing.assert_array_equal(words < 0, ~keep)
+        got_src, got_keep = tgalois.unpack_table(table)
+        np.testing.assert_array_equal(got_src.numpy(), src)
+        np.testing.assert_array_equal(got_keep.numpy(), keep)
+        perm = jgalois.ntt_permutation(n, elt)
+        words = tgalois.ntt_table(n, elt, cpu).numpy()
+        np.testing.assert_array_equal(words, perm)
+        inverse = tgalois.ntt_inverse_table(n, elt, cpu).numpy()
+        np.testing.assert_array_equal(perm[inverse], np.arange(n))
+    both = tgalois.batched_tables(n, tuple(elts[:3]), cpu, True)
+    np.testing.assert_array_equal(
+        both.numpy(), np.stack([tgalois.coeff_table(n, e, cpu).numpy()
+                                for e in elts[:3]]))
+
+
+def test_index_tables_packed_once():
+    """apply_permutation(_signed) pack an index table once and keep it
+    while neither it nor its sign table changes; the wrappers refuse a
+    table that is not dense (the kernel reads it as dense words)."""
+    n, cpu = 64, torch.device("cpu")
+    src, keep = tgalois.coeff_permutation(n, 3, cpu)
+    first = tgalois.packed(src, keep)
+    assert tgalois.packed(src, keep) is first
+    assert torch.equal(first, tgalois.coeff_table(n, 3, cpu))
+    assert tgalois.packed(src, keep.clone()) is not first
+    perm = tgalois.ntt_permutation(n, 3, cpu).clone()
+    table = tgalois.packed(perm)
+    assert tgalois.packed(perm) is table
+    perm[0], perm[1] = perm[1].item(), perm[0].item()
+    moved = tgalois.packed(perm)
+    assert moved is not table and moved[0] == table[1]
+    x = torch.arange(2 * n, dtype=torch.int64).reshape(2, 1, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgalois.permute(x, torch.cat([table, table])[::2])
+    tables = tgalois.batched_tables(n, (3, 5), cpu, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgalois.permute_batched(x, tables[:1].expand(2, n), tntt.RnsNttTables
+                                .from_moduli(n, [257], cpu))
 
 
 def _parms(mod, name):

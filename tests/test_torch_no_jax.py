@@ -424,8 +424,8 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                                            tables),
                  lambda: poly.pack_fold_prepare(meta(2, 2, 2, n), 8, tables),
                  lambda: galois.permute_batched(
-                     meta(2, 2, 2, n), *galois.batched_tables(n, (3, 5),
-                                                              "cpu", True),
+                     meta(2, 2, 2, n), galois.batched_tables(n, (3, 5),
+                                                             "cpu", True),
                      tables),
                  lambda: ntt.dyadic_mac_batched(meta(2, 2, 2, n),
                                                 meta(3, 2, 2, n), tables),

@@ -2,9 +2,10 @@
 
 BFV, CKKS and BGV homomorphic encryption with SEAL semantics (modelled on
 lightbulb128/troy) on PyTorch tensors, with hand-written CUDA kernels for
-Hopper (sm_90a) on the hot path: the NTT (one row per block up to
-n = 16384, and as two exact int8 tensor-core matrix products at any
-n >= 2048, the only route above 16384), the 128-bit dyadic
+Hopper (sm_90a) on the hot path: the NTT (butterflies in a strided and
+a contiguous pass over every SM, the default up to n = 16384, and as two
+exact int8 tensor-core matrix products at any n >= 2048, the default
+above), the 128-bit dyadic
 multiply-accumulate, the BEHZ base conversion, per-limb modular
 arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64
 with the statistics of troy's device encode and decode, the NTT-domain
@@ -40,6 +41,9 @@ from .encoder import BatchEncoder
 from .ckks import CKKSEncoder, EncodeStats
 from .evaluator import Evaluator
 from .interop import to_numpy, to_torch
+from . import valcheck
+from .hexpoly import (poly_to_hex_string, hex_string_to_poly,
+                      plaintext_to_string, plaintext_from_string)
 
 __version__ = "0.1.0"
 
@@ -53,4 +57,6 @@ __all__ = [
     "EncodeStats",
     "Evaluator",
     "to_numpy", "to_torch",
+    "valcheck", "poly_to_hex_string", "hex_string_to_poly",
+    "plaintext_to_string", "plaintext_from_string",
 ]

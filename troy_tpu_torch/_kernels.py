@@ -11,6 +11,13 @@ Every C entry point launches on the caller's stream, allocates nothing and
 returns ``cudaGetLastError()``; ``launch`` raises when that is not 0 and
 counts the launch. The counts show which kernels a run went through.
 There is no fallback: a failed build or launch raises.
+
+A launch is on the host path of every kernel call, so it does only what a
+call needs: the entry point's ctypes function is bound once (when the
+library loads), the current stream is read as a raw integer
+(``torch._C._cuda_getCurrentRawStream``, no ``Stream`` object), and the
+wrapper names the device index instead of ``launch`` searching the
+arguments for it.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ _D = ctypes.c_double
 # C signatures: (argtypes) of each entry point; all return int.
 _SIGNATURES = {
     "troy_ntt": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    "troy_ntt_blocks": (_L, _I, _I, _P),                # no launch: a query
     "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
                                 _P, _P),
@@ -60,9 +68,8 @@ _SIGNATURES = {
                                      _P),
     "troy_bgv_divide_coeff": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P),
     "troy_bfv_plain_embed": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
-    "troy_galois_permute": (_P, _P, _P, _P, _L, _I, _I, _P, _P),
-    "troy_galois_permute_batched": (_P, _P, _P, _P, _L, _I, _I, _P, _L, _I,
-                                    _P),
+    "troy_galois_permute": (_P, _P, _P, _L, _I, _I, _P, _P),
+    "troy_galois_permute_batched": (_P, _P, _P, _L, _I, _I, _P, _L, _I, _P),
     "troy_ckks_fft_encode": (_P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _D, _P),
     "troy_ckks_fft_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "troy_ckks_round": (_P, _P, _P, _D, _I, _I, _P, _I, _P),
@@ -147,6 +154,10 @@ KERNELS = {
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}
 _lib: Optional[ctypes.CDLL] = None
+# each entry point's bound ctypes function, and the raw current-stream
+# reader of torch's CUDA build, set when the library loads
+_entries: Dict[str, ctypes._CFuncPtr] = {}
+_raw_stream = None
 build_log = ""
 build_seconds = 0.0
 
@@ -222,28 +233,31 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+    """The loaded kernel library, built on first use; binds every entry
+    point into ``_entries``."""
+    global _lib, _raw_stream
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+            _entries[name] = fn
+        _raw_stream = torch._C._cuda_getCurrentRawStream
         _lib = lib
     return _lib
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True if every tensor lies on a CUDA device, False if every one lies
+    """True if every tensor lies on one CUDA device, False if every one lies
     on the CPU (where the plain version runs); raises otherwise."""
-    types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
-        return False
-    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
-    raise ValueError(f"tensors on devices {sorted(str(t.device) for t in tensors)}: "
-                     "expected all on the CPU or all on one CUDA device")
+    index = tensors[0].get_device()        # -1 on the CPU
+    for t in tensors:
+        if t.get_device() != index or not (t.is_cuda or t.is_cpu):
+            raise ValueError(
+                f"tensors on devices {sorted(str(t.device) for t in tensors)}"
+                ": expected all on the CPU or all on one CUDA device")
+    return index >= 0
 
 
 def check_operand(t: torch.Tensor, name: str,
@@ -259,14 +273,15 @@ def check_operand(t: torch.Tensor, name: str,
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
 
 
-def launch(entry: str, *args) -> None:
-    """Call one C entry point on the current stream and count the launch.
-    Tensors in ``args`` pass as their data pointers, None as NULL."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args]
-    status = getattr(library(), entry)(*c_args, stream)
+def launch(entry: str, device: int, *args) -> None:
+    """Call one C entry point on the current stream of CUDA device index
+    ``device`` and count the launch. Tensors in ``args`` pass as their data
+    pointers, None as NULL."""
+    if _lib is None:
+        library()
+    status = _entries[entry](
+        *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+        _raw_stream(device))
     if status != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {status}")
     _launches[KERNELS[entry]] += 1

@@ -15,6 +15,7 @@ context's device; levels are referred to by their chain index.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -101,6 +102,9 @@ class ContextData:
     def device(self) -> torch.device:
         return self.ntt.device
 
+    def replace(self, **changes) -> "ContextData":
+        return dataclasses.replace(self, **changes)
+
 
 def _build_context_data(parms: EncryptionParameters, chain_index: int,
                         qualifiers: EncryptionParameterQualifiers,
@@ -165,14 +169,14 @@ class HeContext:
     ``use_mxu``: which kernel runs the NTTs of every level's q and Bsk
     tables and of the batching tables mod t (ops/ntt.py): True, kernel J
     (the int8 tensor-core 4-step transform) at any n >= 2048; False,
-    kernel A, which takes n <= 16384 on the card; None, A where it runs
-    and J above n = 16384. Both give the same words."""
+    kernel A at any n; None, A up to n = 16384 and J above. Both give the
+    same words."""
 
     def __init__(self, parms: EncryptionParameters,
                  expand_mod_chain: bool = True,
                  sec_level: SecurityLevel = SecurityLevel.tc128,
-                 device=None, internal_prime_bits: Optional[int] = None,
-                 use_mxu: Optional[bool] = None):
+                 use_mxu: Optional[bool] = None,
+                 internal_prime_bits: Optional[int] = None, device=None):
         device = torch.device(DEFAULT_DEVICE if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"HeContext: device {device} requested but "

@@ -10,19 +10,49 @@
 // in [0, 2q), as in the butterfly path of the JAX package.
 //
 // Input (rows, n) u64 words, row r uses table row (r % k): the leading axes
-// of a (..., k, n) tensor flatten into rows, so one launch covers every
+// of a (..., k, n) tensor flatten into rows, so one call covers every
 // polynomial and limb. Round r of the forward transform reads its twiddles
 // as root_powers[m : 2m] with their Shoup words (ops/ntt.py:353-361).
 //
-// What bounds it on the H100: latency, not bandwidth. A whole mult+relin
-// works on a few MB that stay in the 50 MB L2, and one 16384-point row is
-// 14 dependent rounds of 8192 butterflies. Design: one thread block per
-// row keeps the whole row (128 KiB at n = 16384) in dynamic shared memory
-// through all log2(n) rounds, so device memory is read and written once
-// per row and rounds are separated only by __syncthreads(). This is the
-// simple form: with few rows a launch fills few of the 132 SMs; splitting a
-// row over several blocks (and n >= 32768, which does not fit) is later
-// work.
+// What bounds it on the H100: the instructions of the 64-bit butterflies
+// (three 64-bit products each, emulated in 32-bit multiply-adds) and the
+// index arithmetic around them, not the bytes: a mult+relin's few MB stay
+// in the 50 MB L2. One 16384-point row is 14 rounds of 8192 butterflies.
+//
+// Design: every round's butterflies join words whose indices differ in one
+// bit, so the log2(n) = a + b rounds split into two passes, each a set of
+// independent short transforms ("lines") that fill the card whatever the
+// row count:
+//  - the strided pass: the a rounds whose gaps are >= 2^b (the forward's
+//    first, the inverse's last), on the columns c of the row seen as a
+//    (2^a, 2^b) matrix: line c holds words c + 2^b i, a 2^a-point transform
+//    whose round-r twiddle is root_powers[2^r + (i >> (a - r))], the first
+//    2^a entries of the table; a block takes 2^log_lines consecutive
+//    columns, so its loads and stores are coalesced;
+//  - the contiguous pass: the b rounds with gaps < 2^b, on the chunks j of
+//    2^b consecutive words: chunk j is a 2^b-point transform whose round-r
+//    twiddle is root_powers[(2^a + j) 2^r + blk], several chunks a block.
+// At n = 16384, a = b = 7 and 1024-word tiles: 16 blocks a row a pass, 480
+// at the headline's (5, 6, n) where one block a row gave 30. Rings below
+// 2^kSplitLogN keep one pass over whole rows ("rows" mode), 2^log_lines
+// rows a block; the crossover was measured on the H100 (PERF.md).
+// A block first copies its lines' twiddles into shared memory beside its
+// words (one table for all columns of the strided pass: root_powers[1 :
+// 2^a]), so no round waits on a global load; words and twiddles take at
+// most 96 KiB (n = 2^24).
+// Inside a block the line's rounds run in stages of up to three: a thread
+// loads the 8 (4, 2) words that three (two, one) consecutive rounds join
+// from shared memory into registers, runs those rounds there, and writes
+// them back; stages are separated by __syncthreads(). Every butterfly is
+// the one-row-per-block kernel's, word for word (the same `a >= 2q`
+// correction and Shoup product, reduce_4q / n^-1 and reduce_2q only at the
+// end), so the split changes no word. Shared memory of the contiguous
+// layouts is XOR-swizzled in 16-word groups, so the stages' 8-word strides
+// do not meet in one bank.
+// The two passes of 1024-word tiles (n = 2048-65536) run kernels compiled
+// for their geometry (line and tile sizes and thread count as constants),
+// so the index arithmetic folds away; other plans run one kernel that
+// reads its geometry at run time.
 
 #include "u64.cuh"
 
@@ -30,78 +60,333 @@ using namespace troy;
 
 namespace {
 
+// How a pass maps lines onto a row.
+enum Mode { kRows = 0, kCols = 1, kChunks = 2 };
+
+constexpr int kLogTile = 10;    // the words a block of the two-pass form
+constexpr int kSplitLogN = 10;  // the least log2(n) that takes two passes
+
+struct Pass {
+    int mode;
+    int log_line;   // words of a line: 2^log_line
+    int log_lines;  // lines a block: 2^log_lines
+    int finish;     // the last pass: reduce (forward) or n^-1 (inverse)
+    unsigned blocks;
+};
+
+// A block's geometry: constants in a kernel compiled for it.
+struct Geo {
+    int mode, log_line, log_lines, threads;
+};
+
+// The block's row, first line and limb in the strided and contiguous
+// passes (one row a block), from blockIdx once.
+struct Block {
+    int64_t row_base;
+    int first;
+    int limb;
+};
+
+// Where line l of this block lies: its first word, the stride between its
+// words, its twiddle offset o (round r, block b reads root_powers[o 2^r +
+// b]) and its row's limb (< 0: past the last row).
+struct Line {
+    int64_t base;
+    int stride;
+    int o;
+    int limb;
+};
+
+__device__ __forceinline__ Block block_of(const Geo &g, int log_n, int k) {
+    Block b = {0, 0, 0};
+    if (g.mode != kRows) {
+        const int log_per_row = log_n - g.log_line - g.log_lines;
+        const int row = blockIdx.x >> log_per_row;
+        b.row_base = static_cast<int64_t>(row) << log_n;
+        b.first = (blockIdx.x & ((1 << log_per_row) - 1)) << g.log_lines;
+        b.limb = row % k;
+    }
+    return b;
+}
+
+__device__ __forceinline__ Line line_of(const Geo &g, const Block &b, int l,
+                                        int log_n, int rows, int k) {
+    Line ln;
+    if (g.mode == kRows) {
+        const int row = (blockIdx.x << g.log_lines) + l;
+        ln.base = static_cast<int64_t>(row) << log_n;
+        ln.stride = 1;
+        ln.o = 1;
+        ln.limb = row < rows ? row % k : -1;
+    } else if (g.mode == kCols) {
+        ln.base = b.row_base + b.first + l;
+        ln.stride = 1 << (log_n - g.log_line);
+        ln.o = 1;
+        ln.limb = b.limb;
+    } else {
+        ln.base = b.row_base + (static_cast<int64_t>(b.first + l)
+                                << g.log_line);
+        ln.stride = 1;
+        ln.o = (1 << (log_n - g.log_line)) + b.first + l;
+        ln.limb = b.limb;
+    }
+    return ln;
+}
+
+// Shared-memory position of word i of local line l: column-major for the
+// strided pass (consecutive columns side by side), else line-major with
+// the low 4 bits of i XORed by the next 4 (a bijection within each line).
+__device__ __forceinline__ int smem_pos(const Geo &g, int l, int i) {
+    if (g.mode == kCols) return (i << g.log_lines) + l;
+    return (l << g.log_line) + (i ^ ((i >> 4) & 15));
+}
+
+// Rounds rho0 .. rho0 + R - 1 of every line of the tile (forward in that
+// order, inverse in the reverse), R in registers per thread. Twiddles from
+// tw_s: each line's own table of 2^log_line words and Shoup words, indexed
+// as a table of one line-sized transform; one table for all columns.
+template <int R, bool kInverse>
+__device__ __forceinline__ void stage(uint64_t *v_s, const uint64_t *tw_s,
+                                      const Geo &geo, const Block &blk_info,
+                                      int log_n, int rows, int k, int rho0,
+                                      const uint64_t *__restrict__ moduli) {
+    constexpr int W = 1 << R;
+    const int log_line = geo.log_line, log_lines = geo.log_lines;
+    const int log_groups = log_line - R;              // groups a line
+    const int log_h = log_line - rho0 - R;            // the stage's least gap
+    const int items = 1 << (log_groups + log_lines);
+    for (int it = threadIdx.x; it < items; it += geo.threads) {
+        int l, g;
+        if (geo.mode == kCols) {
+            l = it & ((1 << log_lines) - 1);
+            g = it >> log_lines;
+        } else {
+            g = it & ((1 << log_groups) - 1);
+            l = it >> log_groups;
+        }
+        const Line ln = line_of(geo, blk_info, l, log_n, rows, k);
+        if (ln.limb < 0) continue;
+        const uint64_t q = moduli[ln.limb];
+        const uint64_t q2 = 2 * q;
+        const uint64_t *w_tab =
+            tw_s + ((geo.mode == kCols ? 0 : 2 * l) << log_line);
+        const uint64_t *wq_tab = w_tab + (1 << log_line);
+        const int base = ((g >> log_h) << (log_line - rho0)) |
+                         (g & ((1 << log_h) - 1));
+        uint64_t v[W];
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+            v[j] = v_s[smem_pos(geo, l, base + (j << log_h))];
+        }
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+            const int t = kInverse ? R - 1 - s : s;
+            const int rho = rho0 + t;
+            const int d = 1 << (R - 1 - t);
+#pragma unroll
+            for (int j = 0; j < W; ++j) {
+                if (j & d) continue;
+                const int blk = (base + (j << log_h)) >> (log_line - rho);
+                const int idx = (1 << rho) + blk;
+                const uint64_t w = w_tab[idx];
+                const uint64_t wq = wq_tab[idx];
+                if (!kInverse) {
+                    uint64_t a = v[j];
+                    a = a >= q2 ? a - q2 : a;
+                    const uint64_t bw = mul_mod_shoup_lazy(v[j + d], w, wq, q);
+                    v[j] = a + bw;
+                    v[j + d] = a - bw + q2;
+                } else {
+                    const uint64_t a = v[j];
+                    const uint64_t c = v[j + d];
+                    uint64_t sum = a + c;
+                    sum = sum >= q2 ? sum - q2 : sum;
+                    v[j] = sum;
+                    v[j + d] = mul_mod_shoup_lazy(a - c + q2, w, wq, q);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+            v_s[smem_pos(geo, l, base + (j << log_h))] = v[j];
+        }
+    }
+}
+
+// Stage s of the pass's ceil(log_line / 3) (in reverse for the inverse):
+// its rounds as even as they go, three at most.
 template <bool kInverse>
-__global__ void ntt_rows_kernel(uint64_t *__restrict__ out,
-                                const uint64_t *__restrict__ in, int log_n,
-                                int k, const uint64_t *__restrict__ roots,
+__device__ __forceinline__ void run_stage(int s, uint64_t *v_s,
+                                          const uint64_t *tw_s,
+                                          const Geo &geo, const Block &blk,
+                                          int log_n, int rows, int k,
+                                          const uint64_t *moduli) {
+    const int log_line = geo.log_line;
+    const int stages = (log_line + 2) / 3;
+    const int si = kInverse ? stages - 1 - s : s;
+    const int small = log_line / stages, extra = log_line % stages;
+    const int R = small + (si < extra ? 1 : 0);
+    const int rho0 = si * small + (si < extra ? si : extra);
+    if (R == 3) {
+        stage<3, kInverse>(v_s, tw_s, geo, blk, log_n, rows, k, rho0,
+                           moduli);
+    } else if (R == 2) {
+        stage<2, kInverse>(v_s, tw_s, geo, blk, log_n, rows, k, rho0,
+                           moduli);
+    } else {
+        stage<1, kInverse>(v_s, tw_s, geo, blk, log_n, rows, k, rho0,
+                           moduli);
+    }
+    __syncthreads();
+}
+
+// One pass. kLogLine > 0: compiled for a strided or contiguous pass of
+// 2^kLogLine-word lines, 2^(kLogTile - kLogLine) a block, a thread per 8
+// words; kLogLine = 0: the geometry of `pass`. The second pass runs in
+// place (in == out): each block reads its whole tile before it writes.
+template <bool kInverse, int kMode, int kLogLine>
+__global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
+                                int rows, int log_n, int k,
+                                const uint64_t *__restrict__ roots,
                                 const uint64_t *__restrict__ roots_shoup,
                                 const uint64_t *__restrict__ moduli,
                                 const uint64_t *__restrict__ inv_degree,
                                 const uint64_t *__restrict__ inv_degree_shoup,
-                                int lazy) {
-    extern __shared__ uint64_t v[];
-    const int n = 1 << log_n;
-    const int half = n >> 1;
-    const int64_t row = blockIdx.x;
-    const int limb = static_cast<int>(row % k);
-    const uint64_t q = moduli[limb];
-    const uint64_t q2 = 2 * q;
-    const uint64_t *w_tab = roots + static_cast<int64_t>(limb) * n;
-    const uint64_t *wq_tab = roots_shoup + static_cast<int64_t>(limb) * n;
-    const uint64_t *src = in + row * n;
-    uint64_t *dst = out + row * n;
+                                Pass pass, int lazy) {
+    extern __shared__ uint64_t v_s[];
+    const Geo geo = kLogLine > 0
+        ? Geo{kMode, kLogLine, kLogTile - kLogLine, 1 << (kLogTile - 3)}
+        : Geo{pass.mode, pass.log_line, pass.log_lines,
+              static_cast<int>(blockDim.x)};
+    const int log_line = geo.log_line, log_lines = geo.log_lines;
+    const int words = 1 << (log_line + log_lines);
+    const int line_mask = (1 << log_line) - 1;
+    const Block blk = block_of(geo, log_n, k);
 
-    for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = src[i];
+    // each line's twiddles (entry e = 2^r + b of its round-r table: the
+    // global root_powers[o 2^r + b]), copied beside the data
+    uint64_t *tw_s = v_s + words;
+    const int tables = geo.mode == kCols ? 1 : 1 << log_lines;
+    for (int f = threadIdx.x; f < tables << log_line; f += geo.threads) {
+        const int l = f >> log_line, e = f & line_mask;
+        const Line ln = line_of(geo, blk, l, log_n, rows, k);
+        if (e == 0 || ln.limb < 0) continue;
+        const int r = 31 - __clz(e);
+        const int64_t g = (static_cast<int64_t>(ln.limb) << log_n) +
+                          (ln.o << r) + (e - (1 << r));
+        tw_s[(2 * l << log_line) + e] = __ldg(roots + g);
+        tw_s[((2 * l + 1) << log_line) + e] = __ldg(roots_shoup + g);
+    }
+    for (int f = threadIdx.x; f < words; f += geo.threads) {
+        const int l = geo.mode == kCols ? f & ((1 << log_lines) - 1)
+                                        : f >> log_line;
+        const int i = geo.mode == kCols ? f >> log_lines : f & line_mask;
+        const Line ln = line_of(geo, blk, l, log_n, rows, k);
+        if (ln.limb < 0) continue;
+        v_s[smem_pos(geo, l, i)] =
+            in[ln.base + static_cast<int64_t>(i) * ln.stride];
+    }
     __syncthreads();
 
-    if (!kInverse) {
-        for (int r = 0; r < log_n; ++r) {
-            const int m = 1 << r;
-            const int log_gap = log_n - r - 1;
-            const int gap_mask = (1 << log_gap) - 1;
-            for (int b = threadIdx.x; b < half; b += blockDim.x) {
-                const int blk = b >> log_gap;
-                const int x = (blk << (log_gap + 1)) + (b & gap_mask);
-                const int y = x + (1 << log_gap);
-                uint64_t a = v[x];
-                a = a >= q2 ? a - q2 : a;
-                const uint64_t bw = mul_mod_shoup_lazy(v[y], w_tab[m + blk],
-                                                       wq_tab[m + blk], q);
-                v[x] = a + bw;
-                v[y] = a - bw + q2;
-            }
-            __syncthreads();
-        }
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const uint64_t x = v[i];
-            dst[i] = lazy ? x : reduce_4q(x, q);
+    if (kLogLine > 0) {
+#pragma unroll
+        for (int s = 0; s < (kLogLine + 2) / 3; ++s) {
+            run_stage<kInverse>(s, v_s, tw_s, geo, blk, log_n, rows, k,
+                                moduli);
         }
     } else {
-        for (int r = log_n - 1; r >= 0; --r) {
-            const int m = 1 << r;
-            const int log_gap = log_n - r - 1;
-            const int gap_mask = (1 << log_gap) - 1;
-            for (int b = threadIdx.x; b < half; b += blockDim.x) {
-                const int blk = b >> log_gap;
-                const int x = (blk << (log_gap + 1)) + (b & gap_mask);
-                const int y = x + (1 << log_gap);
-                const uint64_t a = v[x];
-                const uint64_t c = v[y];
-                uint64_t s = a + c;
-                s = s >= q2 ? s - q2 : s;
-                v[x] = s;
-                v[y] = mul_mod_shoup_lazy(a - c + q2, w_tab[m + blk],
-                                          wq_tab[m + blk], q);
-            }
-            __syncthreads();
-        }
-        const uint64_t iv = inv_degree[limb];
-        const uint64_t ivs = inv_degree_shoup[limb];
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const uint64_t x = mul_mod_shoup_lazy(v[i], iv, ivs, q);
-            dst[i] = lazy ? x : reduce_2q(x, q);
+        for (int s = 0; s < (log_line + 2) / 3; ++s) {
+            run_stage<kInverse>(s, v_s, tw_s, geo, blk, log_n, rows, k,
+                                moduli);
         }
     }
+
+    for (int f = threadIdx.x; f < words; f += geo.threads) {
+        const int l = geo.mode == kCols ? f & ((1 << log_lines) - 1)
+                                        : f >> log_line;
+        const int i = geo.mode == kCols ? f >> log_lines : f & line_mask;
+        const Line ln = line_of(geo, blk, l, log_n, rows, k);
+        if (ln.limb < 0) continue;
+        uint64_t x = v_s[smem_pos(geo, l, i)];
+        if (pass.finish) {
+            const uint64_t q = moduli[ln.limb];
+            if (!kInverse) {
+                x = lazy ? x : reduce_4q(x, q);
+            } else {
+                x = mul_mod_shoup_lazy(x, inv_degree[ln.limb],
+                                       inv_degree_shoup[ln.limb], q);
+                x = lazy ? x : reduce_2q(x, q);
+            }
+        }
+        out[ln.base + static_cast<int64_t>(i) * ln.stride] = x;
+    }
+}
+
+typedef void (*PassKernel)(uint64_t *, const uint64_t *, int, int, int,
+                           const uint64_t *, const uint64_t *,
+                           const uint64_t *, const uint64_t *,
+                           const uint64_t *, Pass, int);
+
+// The kernel of a pass: compiled for its geometry where one is, else the
+// run-time one.
+template <bool kInverse>
+PassKernel kernel_for(const Pass &p) {
+    if (p.mode != kRows && p.log_line + p.log_lines == kLogTile) {
+        const bool cols = p.mode == kCols;
+        switch (p.log_line) {
+        case 5: return cols ? ntt_pass_kernel<kInverse, kCols, 5>
+                            : ntt_pass_kernel<kInverse, kChunks, 5>;
+        case 6: return cols ? ntt_pass_kernel<kInverse, kCols, 6>
+                            : ntt_pass_kernel<kInverse, kChunks, 6>;
+        case 7: return cols ? ntt_pass_kernel<kInverse, kCols, 7>
+                            : ntt_pass_kernel<kInverse, kChunks, 7>;
+        case 8: return cols ? ntt_pass_kernel<kInverse, kCols, 8>
+                            : ntt_pass_kernel<kInverse, kChunks, 8>;
+        default: break;
+        }
+    }
+    return ntt_pass_kernel<kInverse, kRows, 0>;
+}
+
+// Shared memory of a pass: its words and twiddles (one table of the
+// columns; one a line otherwise).
+size_t smem_bytes(const Pass &p) {
+    const int tables = p.mode == kCols ? 1 : 1 << p.log_lines;
+    return sizeof(uint64_t) * ((size_t(1) << (p.log_line + p.log_lines)) +
+                               (size_t(2 * tables) << p.log_line));
+}
+
+// The passes of one transform: one over whole rows below 2^kSplitLogN,
+// 2^(kLogTile - log_n) rows a block, else the strided and the contiguous
+// pass (in that order forward, the reverse inverse), each block holding
+// 2^kLogTile words where the lines allow it.
+int plan(long long rows, int log_n, int inverse, Pass *passes) {
+    if (log_n < kSplitLogN) {
+        const int lines = kLogTile - log_n;
+        passes[0] = {kRows, log_n, lines, 1,
+                     static_cast<unsigned>((rows + (1LL << lines) - 1) >>
+                                           lines)};
+        return 1;
+    }
+    const int a = log_n / 2, b = log_n - a;
+    auto clamp = [](int x, int hi) { return x < 0 ? 0 : x > hi ? hi : x; };
+    const int cols = clamp(kLogTile - a, b);
+    const int chunks = clamp(kLogTile - b, a);
+    const Pass strided = {kCols, a, cols, 0,
+                          static_cast<unsigned>(rows << (b - cols))};
+    const Pass contiguous = {kChunks, b, chunks, 0,
+                             static_cast<unsigned>(rows << (a - chunks))};
+    passes[0] = inverse ? contiguous : strided;
+    passes[1] = inverse ? strided : contiguous;
+    passes[1].finish = 1;
+    return 2;
+}
+
+// A thread per eight words (one three-round group), at least a warp and
+// at most 512: the compiled geometries' 128.
+int threads_for(const Pass &p) {
+    const int t = (1 << (p.log_line + p.log_lines)) / 8;
+    return t < 32 ? 32 : t > 512 ? 512 : t;
 }
 
 }  // namespace
@@ -113,22 +398,46 @@ extern "C" int troy_ntt(void *out, const void *in, long long rows, int log_n,
                         const void *moduli, const void *inv_degree,
                         const void *inv_degree_shoup, int inverse, int lazy,
                         void *stream) {
-    const int n = 1 << log_n;
-    const size_t smem = static_cast<size_t>(n) * sizeof(uint64_t);
-    int threads = n / 2 < 1024 ? n / 2 : 1024;
-    threads = threads < 32 ? 32 : threads;
-    auto kernel = inverse ? ntt_rows_kernel<true> : ntt_rows_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(rows), threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(in),
-        log_n, k, static_cast<const uint64_t *>(roots),
-        static_cast<const uint64_t *>(roots_shoup),
-        static_cast<const uint64_t *>(moduli),
-        static_cast<const uint64_t *>(inv_degree),
-        static_cast<const uint64_t *>(inv_degree_shoup), lazy);
-    TROY_RETURN_LAUNCH_STATUS();
+    if (rows < 1 || rows > (1LL << 30) || k < 1 || log_n < 1 || log_n > 24) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    Pass passes[2];
+    const int count = plan(rows, log_n, inverse, passes);
+    const void *src = in;
+    for (int p = 0; p < count; ++p) {
+        const PassKernel kernel = inverse ? kernel_for<true>(passes[p])
+                                          : kernel_for<false>(passes[p]);
+        // above the default 48 KiB (n >= 2^23, the run-time kernel): the
+        // limit is raised on the current device at each such call
+        const size_t smem = smem_bytes(passes[p]);
+        if (smem > (48 << 10)) {
+            const cudaError_t err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (err != cudaSuccess) return static_cast<int>(err);
+        }
+        kernel<<<passes[p].blocks, threads_for(passes[p]), smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+            static_cast<uint64_t *>(out), static_cast<const uint64_t *>(src),
+            static_cast<int>(rows), log_n, k,
+            static_cast<const uint64_t *>(roots),
+            static_cast<const uint64_t *>(roots_shoup),
+            static_cast<const uint64_t *>(moduli),
+            static_cast<const uint64_t *>(inv_degree),
+            static_cast<const uint64_t *>(inv_degree_shoup), passes[p], lazy);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        src = out;
+    }
+    return 0;
+}
+
+// The blocks of each launch of one troy_ntt call (0 for a pass it does not
+// make): what the profiler's kernels per call are measured against.
+extern "C" int troy_ntt_blocks(long long rows, int log_n, int inverse,
+                               long long *blocks) {
+    Pass passes[2];
+    const int count = plan(rows, log_n, inverse, passes);
+    for (int p = 0; p < 2; ++p) blocks[p] = p < count ? passes[p].blocks : 0;
+    return count;
 }

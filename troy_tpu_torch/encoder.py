@@ -51,8 +51,11 @@ class BatchEncoder:
         # the map is a permutation of [0, n): encode gathers by its inverse
         inverse = np.empty_like(index_map)
         inverse[index_map] = np.arange(n)
-        self._index_map = torch.from_numpy(index_map).to(context.device)
-        self._inverse_map = torch.from_numpy(inverse).to(context.device)
+        # kernel M's packed tables (ops/galois.pack_table: no flags)
+        self._index_map = torch.from_numpy(
+            index_map.astype(np.int32)).to(context.device)
+        self._inverse_map = torch.from_numpy(
+            inverse.astype(np.int32)).to(context.device)
 
     @property
     def slot_count(self) -> int:
@@ -124,13 +127,11 @@ def _encode_core(values: torch.Tensor, inverse_map: torch.Tensor,
                  tables: dntt.NttTables) -> torch.Tensor:
     """Slot scatter (evals[index_map] = values, as a gather by the inverse
     map, kernel M) + inverse NTT mod t (batchencoder_cuda.cu:42-73)."""
-    return dntt.ntt_inverse(dgalois.apply_permutation(values, inverse_map),
-                            tables)
+    return dntt.ntt_inverse(dgalois.permute(values, inverse_map), tables)
 
 
 def _decode_core(data: torch.Tensor, index_map: torch.Tensor,
                  tables: dntt.NttTables) -> torch.Tensor:
     """Forward NTT mod t + slot gather (kernel M)
     (batchencoder_cuda.cu:75-118)."""
-    return dgalois.apply_permutation(dntt.ntt_forward(data, tables),
-                                     index_map)
+    return dgalois.permute(dntt.ntt_forward(data, tables), index_map)

@@ -296,11 +296,11 @@ def _apply_galois_core(data: torch.Tensor, elt: int, key: torch.Tensor,
     key-switched in that domain and the result added onto the permuted
     c0."""
     if ntt_form:
-        permuted = dgalois.apply_permutation(
-            data, dgalois.ntt_permutation(cd.n, elt, cd.device))
+        permuted = dgalois.permute(
+            data, dgalois.ntt_table(cd.n, elt, cd.device))
     else:
-        src, keep = dgalois.coeff_permutation(cd.n, elt, cd.device)
-        permuted = dgalois.apply_permutation_signed(data, src, keep, cd.ntt)
+        permuted = dgalois.permute(
+            data, dgalois.coeff_table(cd.n, elt, cd.device), cd.ntt)
     return _switch_key_core(permuted[1], key, cd, key_cd, acc=permuted[:1],
                             ntt_form=ntt_form)
 
@@ -314,9 +314,8 @@ def _batched_galois_fold(data: torch.Tensor, elt: int, key: torch.Tensor,
     stacks; the key switch of the m c1s is one launch each of F, A, B, A
     and the divide (F or K'' in the coefficient domain; K' twice and A in
     the NTT domain), which adds the permuted c0s."""
-    srcs, keeps = dgalois.batched_tables(cd.n, (elt,), cd.device,
-                                         not ntt_form)
-    permuted = dgalois.permute_batched(data, srcs, keeps, cd.ntt,
+    tables = dgalois.batched_tables(cd.n, (elt,), cd.device, not ntt_form)
+    permuted = dgalois.permute_batched(data, tables, cd.ntt,
                                        comps_first=True)      # (2, m, k, n)
     t_hat = _switch_key_decompose(permuted[1], cd, key_cd, ntt_form)
     return _switch_key_contract(t_hat, key, cd, key_cd, ntt_form,
@@ -341,9 +340,9 @@ def _hoisted_galois_core(data: torch.Tensor, elts: Sequence[int],
     t_hat = _switch_key_decompose(data[1], cd, key_cd, ntt_form)
     out = _switch_key_contract(t_hat, keys_pp, cd, key_cd, ntt_form,
                                acc=data[:1].unsqueeze(0), group=2)
-    srcs, keeps = dgalois.batched_tables(cd.n, tuple(elts), cd.device,
-                                         not ntt_form)
-    return dgalois.permute_batched(out, srcs, keeps, cd.ntt)
+    tables = dgalois.batched_tables(cd.n, tuple(elts), cd.device,
+                                    not ntt_form)
+    return dgalois.permute_batched(out, tables, cd.ntt)
 
 
 def _balance_correction_factors(f1: int, f2: int, t: int
@@ -529,13 +528,13 @@ class Evaluator:
             a.correction_factor * b.correction_factor
             % int(cd.plain_modulus)))
 
-    def square(self, ct: Ciphertext) -> Ciphertext:
-        """BFV: the dedicated square, one BEHZ lift of ct's components
-        (multiply(ct, ct) lifts them twice). CKKS and BGV: the convolution
-        of ct with itself, whose cross term a0 a1 + a1 a0 is one two-term
+    def square(self, a: Ciphertext) -> Ciphertext:
+        """BFV: the dedicated square, one BEHZ lift of a's components
+        (multiply(a, a) lifts them twice). CKKS and BGV: the convolution
+        of a with itself, whose cross term a0 a1 + a1 a0 is one two-term
         kernel-B launch (the same fully reduced words as the JAX package's
         doubled product)."""
-        return self._multiply(ct, None)
+        return self._multiply(a, None)
 
     def multiply_many(self, cts: Sequence[Ciphertext],
                       relin_keys: RelinKeys) -> Ciphertext:
@@ -766,7 +765,7 @@ class Evaluator:
         if hit is not None and hit[0] is src:
             self._pp_keys.move_to_end(cache_key)
             return hit[1]
-        pp = dgalois.apply_permutation(src, dgalois.ntt_inverse_permutation(
+        pp = dgalois.permute(src, dgalois.ntt_inverse_table(
             self.context.n, elt, src.device))
         self._pp_keys[cache_key] = (src, pp)
         while len(self._pp_keys) > self.PP_KEY_CACHE_MAX:

@@ -17,8 +17,16 @@ from typing import Dict, Optional
 import torch
 
 
+class _Replaceable:
+    """``replace(**changes)``: a copy with some fields changed, as on the
+    JAX package's types (flax PyTreeNodes)."""
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+
 @dataclass(frozen=True)
-class Plaintext:
+class Plaintext(_Replaceable):
     """A plaintext polynomial: mod-t coefficients (n,) with level None, or
     mod-q NTT form (limbs, n) at a chain level (CKKS, with its scale)."""
 
@@ -66,7 +74,7 @@ class Ciphertext:
 
 
 @dataclass(frozen=True)
-class LWECiphertext:
+class LWECiphertext(_Replaceable):
     """An extracted LWE sample per RNS limb (ciphertext_cuda.cuh:270-310):
     it decrypts to <c1, s's coefficients> + c0."""
 
@@ -78,7 +86,7 @@ class LWECiphertext:
 
 
 @dataclass(frozen=True)
-class SecretKey:
+class SecretKey(_Replaceable):
     """Secret key: NTT form over the key-level modulus, (key_limbs, n)."""
 
     data: torch.Tensor
@@ -89,7 +97,7 @@ class SecretKey:
 
 
 @dataclass(frozen=True)
-class PublicKey:
+class PublicKey(_Replaceable):
     """Public key: an encryption of zero at the key level, NTT form,
     (2, key_limbs, n); seed regenerates its c1 if not 0."""
 
@@ -102,7 +110,7 @@ class PublicKey:
 
 
 @dataclass(frozen=True)
-class KSwitchKeys:
+class KSwitchKeys(_Replaceable):
     """Key-switching keys: keys[idx] is (decomp, 2, key_limbs, n), NTT form;
     keys[idx][j, c] is the c-th component of the j-th decomposition
     ciphertext over the full key-level base."""

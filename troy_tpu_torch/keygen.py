@@ -231,9 +231,9 @@ class KeyGenerator:
                 perm = galois_util.ntt_permutation(n, elt)
                 rotated = np.take(self._sk_np, perm, axis=-1)
             else:
-                perm = dgalois.ntt_permutation(n, elt, self.context.device)
-                rotated = dgalois.apply_permutation(self._secret_key.data,
-                                                    perm)
+                rotated = dgalois.permute(self._secret_key.data,
+                                          dgalois.ntt_table(
+                                              n, elt, self.context.device))
             keys[int(elt)] = self._generate_one_kswitch_key(rotated)
         return GaloisKeys(keys=keys)
 

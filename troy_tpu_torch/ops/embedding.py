@@ -366,9 +366,9 @@ def embed_inverse_fft(values: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     _kernels.check_operand(values, "embed_inverse_fft values", C128)
     out = torch.empty(t.n, dtype=C128, device=values.device)
     scratch = torch.empty_like(out)
-    _kernels.launch("troy_ckks_fft_encode", out, values, scratch, t.scatter,
-                    values.shape[0], t.w1e, t.twe, t.w2e, t.a, t.b,
-                    1.0 / t.n)
+    _kernels.launch("troy_ckks_fft_encode", out.get_device(), out, values,
+                    scratch, t.scatter, values.shape[0], t.w1e, t.twe, t.w2e,
+                    t.a, t.b, 1.0 / t.n)
     return out
 
 
@@ -390,8 +390,8 @@ def embed_forward(coeffs: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     _kernels.check_operand(coeffs, "embed_forward coeffs", F64)
     out = torch.empty(t.n // 2, dtype=C128, device=coeffs.device)
     scratch = torch.empty(t.n, dtype=C128, device=coeffs.device)
-    _kernels.launch("troy_ckks_fft_decode", out, coeffs, scratch, t.scatter,
-                    t.twist, t.w1d, t.twd, t.w2d, t.a, t.b)
+    _kernels.launch("troy_ckks_fft_decode", out.get_device(), out, coeffs,
+                    scratch, t.scatter, t.twist, t.w1d, t.twd, t.w2d, t.a, t.b)
     return out
 
 
@@ -411,9 +411,9 @@ def embed_forward_stats(coeffs: torch.Tensor, t: EmbedTables):
     partner = torch.empty_like(out)
     err = torch.empty((), dtype=F64, device=coeffs.device)
     scratch = torch.empty(t.n, dtype=C128, device=coeffs.device)
-    _kernels.launch("troy_ckks_fft_decode_stats", out, partner, err, coeffs,
-                    scratch, t.scatter, t.twist, t.w1d, t.twd, t.w2d, t.a,
-                    t.b)
+    _kernels.launch("troy_ckks_fft_decode_stats", out.get_device(), out,
+                    partner, err, coeffs, scratch, t.scatter, t.twist, t.w1d,
+                    t.twd, t.w2d, t.a, t.b)
     return out, partner, err
 
 
@@ -481,10 +481,11 @@ def _round(u_: torch.Tensor, untwist: torch.Tensor, scale: float,
     args = (u_, untwist, float(scale), k, n.bit_length() - 1,
             rt.round_consts, rt.exponents)
     if not stats:
-        _kernels.launch("troy_ckks_round", out, *args)
+        _kernels.launch("troy_ckks_round", out.get_device(), out, *args)
         return out
     stat = torch.empty((), dtype=F64, device=u_.device)
-    _kernels.launch("troy_ckks_round_stats", out, stat, *args)
+    _kernels.launch("troy_ckks_round_stats", out.get_device(), out, stat,
+                    *args)
     return out, stat
 
 
@@ -508,7 +509,7 @@ def compose_centered(residues: torch.Tensor, rt: RnsRoundTables,
     residues = residues.contiguous()
     _kernels.check_operand(residues, "compose_centered residues")
     out = torch.empty(n, dtype=F64, device=residues.device)
-    _kernels.launch("troy_ckks_compose", out, residues, k,
+    _kernels.launch("troy_ckks_compose", out.get_device(), out, residues, k,
                     n.bit_length() - 1, rt.words, rt.compose_consts,
                     float(inv_scale))
     return out

@@ -171,8 +171,9 @@ def keyswitch_digits(x: torch.Tensor, used: RnsNttTables) -> torch.Tensor:
     _kernels.check_operand(x, "keyswitch_digits input")
     out = torch.empty(x.shape[:-1] + (used.k, used.n), dtype=torch.int64,
                       device=x.device)
-    _kernels.launch("troy_keyswitch_digits", out, x, x.numel() // used.n,
-                    used.k, used.log_n, used.q, used.cr_hi)
+    _kernels.launch("troy_keyswitch_digits", out.get_device(), out, x,
+                    x.numel() // used.n, used.k, used.log_n, used.q,
+                    used.cr_hi)
     return out
 
 
@@ -217,8 +218,8 @@ def _divide(entry: str, x: torch.Tensor, consts: torch.Tensor,
     if acc is not None:
         _kernels.check_operand(acc, f"{entry} accumulator")
     out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
-    _kernels.launch(entry, out, x, acc, s, a, group, groups, k,
-                    n.bit_length() - 1, consts)
+    _kernels.launch(entry, out.get_device(), out, x, acc, s, a, group, groups,
+                    k, n.bit_length() - 1, consts)
     return out
 
 

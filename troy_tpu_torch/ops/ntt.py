@@ -14,8 +14,12 @@ the CPU and launches the kernel for tensors on CUDA.
 Tables made with J's factor matrices (``use_mxu``) run every transform on
 kernel J instead (ops/ntt_mxu.py, the int8 tensor-core 4-step transform,
 the JAX package's NTT at n >= 2048). ``use_mxu``: True, J at any
-n >= 2048; False, A (which takes n <= 16384 on the card); None, the
-default, A where it runs and J above n = 16384, where it does not.
+n >= 2048; False, A at any n; None, the default, A up to n = 16384 and J
+above.
+
+A runs one pass over whole rows below n = 1024 and two passes from it up
+(a strided and a contiguous one, csrc/ntt.cu); the crossover was measured
+on the H100 (PERF.md).
 
 Ordering contract (shared with the encoder): forward output index j holds
 the evaluation at psi^(2*brv(j) + 1); the forward transform takes natural
@@ -27,6 +31,7 @@ caller reduces afterwards, so end results are the same words.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -39,7 +44,7 @@ from .. import _kernels
 from ..interop import to_torch
 from ..utils.ntt_tables import make_ntt_tables
 
-# One row of n u64 words must fit in a block's shared memory (227 KB).
+# The largest n the default (use_mxu=None) runs on A; J above.
 MAX_KERNEL_N = 16384
 
 
@@ -312,20 +317,29 @@ def _ntt(x: torch.Tensor, t: RnsNttTables, inverse: bool, lazy: bool,
     if not _kernels.on_cuda(x, t.q):
         plain = ntt_inverse_plain if inverse else ntt_forward_plain
         return plain(x, t, lazy)
-    if t.n > MAX_KERNEL_N:
-        raise ValueError(f"ntt: n = {t.n} does not fit one block's shared "
-                         f"memory (at most {MAX_KERNEL_N})")
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     _kernels.check_operand(x, "ntt input")
     out = torch.empty_like(x)
     if inverse:
         roots, shoup = t.inv_root_powers, t.inv_root_powers_shoup
     else:
         roots, shoup = t.root_powers, t.root_powers_shoup
-    _kernels.launch("troy_ntt", out, x, x.numel() // t.n, t.log_n, t.k,
-                    roots, shoup, t.q, t.inv_degree, t.inv_degree_shoup,
-                    int(inverse), int(lazy))
+    _kernels.launch("troy_ntt", out.get_device(), out, x, x.numel() // t.n,
+                    t.log_n, t.k, roots, shoup, t.q, t.inv_degree,
+                    t.inv_degree_shoup, int(inverse), int(lazy))
     return out
+
+
+def launch_blocks(rows: int, n: int, inverse: bool = False
+                  ) -> Tuple[int, ...]:
+    """The blocks of each of A's launches for one transform of ``rows``
+    rows of n words (the card's library)."""
+    blocks = (ctypes.c_longlong * 2)()
+    _kernels.library()
+    count = _kernels._entries["troy_ntt_blocks"](
+        rows, n.bit_length() - 1, int(inverse), ctypes.addressof(blocks))
+    return tuple(blocks[:count])
 
 
 def rns_ntt_forward(x: torch.Tensor, t: RnsNttTables, lazy: bool = False,
@@ -401,8 +415,8 @@ def dyadic_mac(a: torch.Tensor, b: torch.Tensor,
     ra = a[0].numel() // t.n
     rb = b[0].numel() // t.n
     out = torch.empty(b.shape[1:], dtype=torch.int64, device=b.device)
-    _kernels.launch("troy_dyadic_mac", out, a, b, terms, ra, rb, t.log_n,
-                    t.k, t.q, t.cr_lo, t.cr_hi)
+    _kernels.launch("troy_dyadic_mac", out.get_device(), out, a, b, terms, ra,
+                    rb, t.log_n, t.k, t.q, t.cr_lo, t.cr_hi)
     return out
 
 
@@ -430,9 +444,9 @@ def dyadic_mac_batched(key: torch.Tensor, targets: torch.Tensor,
     comps = key.shape[1]
     out = torch.empty((m, comps, t.k, t.n), dtype=torch.int64,
                       device=key.device)
-    _kernels.launch("troy_dyadic_mac_batched", out, key, targets, terms,
-                    comps * t.k, m * comps * t.k, t.k, t.log_n, t.k, t.q,
-                    t.cr_lo, t.cr_hi)
+    _kernels.launch("troy_dyadic_mac_batched", out.get_device(), out, key,
+                    targets, terms, comps * t.k, m * comps * t.k, t.k, t.log_n,
+                    t.k, t.q, t.cr_lo, t.cr_hi)
     return out
 
 

@@ -446,9 +446,9 @@ def rns_mxu_stage(x: torch.Tensor, mxu: Sequence[MxuNttTables],
     x = x.contiguous()
     _kernels.check_operand(x, "ntt_mxu input")
     out = torch.empty_like(x)
-    _kernels.launch("troy_ntt_mxu", out, x, x.numel() // (R * C), len(mxu),
-                    R.bit_length() - 1, C.bit_length() - 1, pointers, left,
-                    mat, tsel, reduce_in,
+    _kernels.launch("troy_ntt_mxu", out.get_device(), out, x,
+                    x.numel() // (R * C), len(mxu), R.bit_length() - 1,
+                    C.bit_length() - 1, pointers, left, mat, tsel, reduce_in,
                     x_planes if stage == "forward_left" else 0)
     return out
 

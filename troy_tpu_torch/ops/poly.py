@@ -68,8 +68,8 @@ def _elementwise(op: int, a: torch.Tensor, b: Optional[torch.Tensor],
     if out is None:
         out = torch.empty_like(a)
     _kernels.check_operand(out, "rns_elementwise out")
-    _kernels.launch("troy_rns_elementwise", out, a, b, op, a.numel() // t.n,
-                    t.log_n, t.k, t.q, w, wq)
+    _kernels.launch("troy_rns_elementwise", out.get_device(), out, a, b, op,
+                    a.numel() // t.n, t.log_n, t.k, t.q, w, wq)
     return out
 
 
@@ -179,8 +179,8 @@ def bfv_plain_embed(m: torch.Tensor, c0: torch.Tensor, plain_modulus: int,
     _kernels.check_operand(m, "bfv_plain_embed m")
     _kernels.check_operand(c0, "bfv_plain_embed c0")
     out = torch.empty_like(c0)
-    _kernels.launch("troy_bfv_plain_embed", out, m, c0, m.numel() // t.n,
-                    t.k, t.log_n, int(subtract), consts)
+    _kernels.launch("troy_bfv_plain_embed", out.get_device(), out, m, c0,
+                    m.numel() // t.n, t.k, t.log_n, int(subtract), consts)
     return out
 
 
@@ -248,9 +248,9 @@ def plain_lift(m: torch.Tensor, t: RnsNttTables, plain_modulus: int,
     _kernels.check_operand(m, "plain_lift m")
     out = torch.empty(m.shape[:-1] + (t.k, t.n), dtype=torch.int64,
                       device=m.device)
-    _kernels.launch("troy_plain_lift", out, m, m.numel() // t.n, t.k,
-                    t.log_n, plain_upper_half_threshold, cf,
-                    u.shoup_quotient(cf, tt), consts)
+    _kernels.launch("troy_plain_lift", out.get_device(), out, m,
+                    m.numel() // t.n, t.k, t.log_n, plain_upper_half_threshold,
+                    cf, u.shoup_quotient(cf, tt), consts)
     return out
 
 
@@ -363,8 +363,9 @@ def negacyclic_shift(x: torch.Tensor, shift: Shift,
     x = x.contiguous()
     _kernels.check_operand(x, "negacyclic_shift input")
     out = torch.empty_like(x)
-    _kernels.launch("troy_negacyclic_shift", out, x, shifts, scalar, batch,
-                    x.numel() // (batch * t.n), t.k, t.log_n, t.q)
+    _kernels.launch("troy_negacyclic_shift", out.get_device(), out, x, shifts,
+                    scalar, batch, x.numel() // (batch * t.n), t.k, t.log_n,
+                    t.q)
     return out
 
 
@@ -387,8 +388,8 @@ def extract_lwe_many(data: torch.Tensor, shifts: torch.Tensor,
     c1s = torch.empty((batch, t.k, t.n), dtype=torch.int64,
                       device=data.device)
     c0s = torch.empty((batch, t.k), dtype=torch.int64, device=data.device)
-    _kernels.launch("troy_extract_lwe", c1s, c0s, data, shifts, batch, t.k,
-                    t.log_n, t.q)
+    _kernels.launch("troy_extract_lwe", c1s.get_device(), c1s, c0s, data,
+                    shifts, batch, t.k, t.log_n, t.q)
     return c1s, c0s
 
 
@@ -416,8 +417,8 @@ def assemble_lwe(c1s: torch.Tensor, c0s: torch.Tensor, terms: Shift,
     out = torch.empty((batch, 2, t.k, t.n), dtype=torch.int64,
                       device=c1s.device)
     w, wq = (None, None) if scalars is None else t.scalar_operand(scalars)
-    _kernels.launch("troy_assemble_lwe", out, c1s, c0s, shifts, scalar,
-                    batch, t.k, t.log_n, t.q, w, wq)
+    _kernels.launch("troy_assemble_lwe", out.get_device(), out, c1s, c0s,
+                    shifts, scalar, batch, t.k, t.log_n, t.q, w, wq)
     return out
 
 
@@ -442,6 +443,6 @@ def pack_fold_prepare(cur: torch.Tensor, shift: int, t: RnsNttTables
     even = torch.empty((pairs,) + cur.shape[1:], dtype=torch.int64,
                        device=cur.device)
     folded = torch.empty_like(even)
-    _kernels.launch("troy_pack_fold_prepare", even, folded, cur, int(shift),
-                    pairs, t.k, t.log_n, t.q)
+    _kernels.launch("troy_pack_fold_prepare", even.get_device(), even, folded,
+                    cur, int(shift), pairs, t.k, t.log_n, t.q)
     return even, folded

@@ -144,8 +144,9 @@ def fast_convert(x: torch.Tensor, conv: DeviceConverter) -> torch.Tensor:
     _kernels.check_operand(x, "fast_convert input")
     out = torch.empty(x.shape[:-2] + (conv.k_out, n), dtype=torch.int64,
                       device=x.device)
-    _kernels.launch("troy_base_convert", out, x, x.numel() // (conv.k_in * n),
-                    conv.k_in, conv.k_out, n.bit_length() - 1, conv.consts)
+    _kernels.launch("troy_base_convert", out.get_device(), out, x,
+                    x.numel() // (conv.k_in * n), conv.k_in, conv.k_out,
+                    n.bit_length() - 1, conv.consts)
     return out
 
 
@@ -363,8 +364,9 @@ def _behz_launch(entry: str, x: torch.Tensor, rows_in: int, rows_out,
     lead = x.shape[:-2]
     shape = lead + ((n,) if rows_out is None else (rows_out, n))
     out = torch.empty(shape, dtype=torch.int64, device=x.device)
-    _kernels.launch(entry, out, x, x.numel() // (rows_in * n), *limbs,
-                    n.bit_length() - 1, consts, consts.numel())
+    _kernels.launch(entry, out.get_device(), out, x,
+                    x.numel() // (rows_in * n), *limbs, n.bit_length() - 1,
+                    consts, consts.numel())
     return out
 
 
@@ -512,7 +514,8 @@ def _ntt_temps(entry: str, last: torch.Tensor,
     last = last.contiguous()
     _kernels.check_operand(last, f"{entry} input")
     out = torch.empty((s, k, n), dtype=torch.int64, device=last.device)
-    _kernels.launch(entry, out, last, s, k, n.bit_length() - 1, consts)
+    _kernels.launch(entry, out.get_device(), out, last, s, k,
+                    n.bit_length() - 1, consts)
     return out
 
 
@@ -535,8 +538,8 @@ def _ntt_finish(entry: str, x: torch.Tensor, temps: torch.Tensor,
     if acc is not None:
         _kernels.check_operand(acc, f"{entry} accumulator")
     out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
-    _kernels.launch(entry, out, x, temps, acc, s, a, group, groups, k,
-                    n.bit_length() - 1, consts)
+    _kernels.launch(entry, out.get_device(), out, x, temps, acc, s, a, group,
+                    groups, k, n.bit_length() - 1, consts)
     return out
 
 
@@ -708,9 +711,9 @@ def exact_convert(x: torch.Tensor, conv: ExactConverter,
     _kernels.check_operand(x, "exact_convert input")
     out = torch.empty(x.shape[:-2] + (1, n), dtype=torch.int64,
                       device=x.device)
-    _kernels.launch("troy_exact_convert", out, x, x.numel() // (k * n), k,
-                    n.bit_length() - 1, conv.consts, inv_cf,
-                    u.shoup_quotient(inv_cf, conv.t))
+    _kernels.launch("troy_exact_convert", out.get_device(), out, x,
+                    x.numel() // (k * n), k, n.bit_length() - 1, conv.consts,
+                    inv_cf, u.shoup_quotient(inv_cf, conv.t))
     return out
 
 

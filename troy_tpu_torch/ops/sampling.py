@@ -162,7 +162,8 @@ def _launch(entry: str, seeds: Seeds, t: RnsNttTables, *consts
         ptr, seed, batch = seeds, 0, seeds.numel()
     out = torch.empty(_draw_shape(seeds, t, t.k), dtype=torch.int64,
                       device=t.device)
-    _kernels.launch(entry, out, ptr, seed, batch, t.k, t.log_n, t.q, *consts)
+    _kernels.launch(entry, out.get_device(), out, ptr, seed, batch, t.k,
+                    t.log_n, t.q, *consts)
     return out
 
 

@@ -49,6 +49,7 @@ def shard_modsum(parts: torch.Tensor, t: RnsNttTables) -> torch.Tensor:
     _kernels.check_operand(parts, "shard_modsum parts")
     out = torch.empty(parts.shape[1:], dtype=torch.int64, device=parts.device)
     if out.numel():
-        _kernels.launch("troy_shard_modsum", out, parts, parts.shape[0],
-                        out.numel(), n.bit_length() - 1, t.k, t.q)
+        _kernels.launch("troy_shard_modsum", out.get_device(), out, parts,
+                        parts.shape[0], out.numel(), n.bit_length() - 1, t.k,
+                        t.q)
     return out

@@ -78,8 +78,8 @@ def tile_contract(a: torch.Tensor, w: torch.Tensor,
     _kernels.check_operand(a, "tile_contract a")
     _kernels.check_operand(w, "tile_contract w")
     out = torch.empty((X, Y, C, t.k, t.n), dtype=torch.int64, device=a.device)
-    _kernels.launch("troy_tile_contract", out, a, w, X, I, Y, C, t.k,
-                    t.log_n, t.q, t.cr_lo, t.cr_hi)
+    _kernels.launch("troy_tile_contract", out.get_device(), out, a, w, X, I, Y,
+                    C, t.k, t.log_n, t.q, t.cr_lo, t.cr_hi)
     return out
 
 
@@ -123,8 +123,8 @@ def tile_pair_convolve(a: torch.Tensor, w: torch.Tensor,
     _kernels.check_operand(w, "tile_pair_convolve w")
     out = torch.empty((X, Y, s1 + s2 - 1, t.k, t.n), dtype=torch.int64,
                       device=a.device)
-    _kernels.launch("troy_tile_pair_convolve", out, a, w, X, Y, s1, s2, t.k,
-                    t.log_n, t.q, t.cr_lo, t.cr_hi)
+    _kernels.launch("troy_tile_pair_convolve", out.get_device(), out, a, w, X,
+                    Y, s1, s2, t.k, t.log_n, t.q, t.cr_lo, t.cr_hi)
     return out
 
 
@@ -162,6 +162,6 @@ def pack_group_fold(data: torch.Tensor, pack_slots: int,
     _kernels.check_operand(data, "pack_group_fold data")
     out = torch.empty((-(-m // pack_slots), C, t.k, t.n), dtype=torch.int64,
                       device=data.device)
-    _kernels.launch("troy_pack_group_fold", out, data, m, pack_slots, C, t.k,
-                    t.log_n, t.q)
+    _kernels.launch("troy_pack_group_fold", out.get_device(), out, data, m,
+                    pack_slots, C, t.k, t.log_n, t.q)
     return out

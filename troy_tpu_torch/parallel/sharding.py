@@ -445,18 +445,15 @@ def _limb_mult_relin(d1: torch.Tensor, d2: torch.Tensor, key: torch.Tensor,
                             limbs.cd.scheme != SchemeType.bfv, prod[:, :2])
 
 
-def _limb_galois(data: torch.Tensor, tables: tuple, key: torch.Tensor,
+def _limb_galois(data: torch.Tensor, table: torch.Tensor, key: torch.Tensor,
                  limbs: _Limbs, mesh: Mesh, axis: str,
                  ntt_form: bool) -> torch.Tensor:
-    """Galois of (m, 2, k_r, n) shards: each limb permuted (M), c1
-    key-switched and added onto the permuted c0 (troy_tpu/parallel/
-    sharding.py:90 _galois_step)."""
+    """Galois of (m, 2, k_r, n) shards: each limb permuted (M, by kernel
+    M's packed table), c1 key-switched and added onto the permuted c0
+    (troy_tpu/parallel/sharding.py:90 _galois_step)."""
     if len(limbs.own):
-        if ntt_form:
-            data = dgalois.apply_permutation(data, tables[0])
-        else:
-            data = dgalois.apply_permutation_signed(data, *tables,
-                                                    limbs.tables)
+        data = dgalois.permute(data, table,
+                               None if ntt_form else limbs.tables)
     return _limb_switch_key(data[:, 1], key, limbs, mesh, axis, ntt_form,
                             data[:, :1])
 
@@ -686,11 +683,12 @@ def coeff_sharded_multiply_relin(context: HeContext, relin_keys: RelinKeys,
 # Galois / rotation regimes
 # --------------------------------------------------------------------------
 
-def _galois_tables(context: HeContext, elt: int, is_ntt: bool) -> tuple:
+def _galois_table(context: HeContext, elt: int, is_ntt: bool
+                  ) -> torch.Tensor:
     n, device = context.n, context.device
     if is_ntt:
-        return (dgalois.ntt_permutation(n, elt, device),)
-    return dgalois.coeff_permutation(n, elt, device)        # (src, keep)
+        return dgalois.ntt_table(n, elt, device)
+    return dgalois.coeff_table(n, elt, device)
 
 
 def limb_sharded_galois(context: HeContext, galois_keys: GaloisKeys,
@@ -701,10 +699,10 @@ def limb_sharded_galois(context: HeContext, galois_keys: GaloisKeys,
     is_ntt = context.scheme in (SchemeType.ckks, SchemeType.bgv)
     limbs = _Limbs.of(context, context.first_level, mesh, axis_name)
     key = _own_key(galois_keys.keys[elt], limbs)
-    tables = _galois_tables(context, elt, is_ntt)
+    table = _galois_table(context, elt, is_ntt)
 
     def run(data: torch.Tensor) -> torch.Tensor:
-        return _limb_galois(data[None], tables, key, limbs, mesh, axis_name,
+        return _limb_galois(data[None], table, key, limbs, mesh, axis_name,
                             is_ntt)[0]
 
     return _runner(run, (key,))
@@ -719,10 +717,10 @@ def dp_limb_sharded_galois(context: HeContext, galois_keys: GaloisKeys,
     is_ntt = context.scheme in (SchemeType.ckks, SchemeType.bgv)
     limbs = _Limbs.of(context, context.first_level, mesh, tp_axis)
     key = _own_key(galois_keys.keys[elt], limbs)
-    tables = _galois_tables(context, elt, is_ntt)
+    table = _galois_table(context, elt, is_ntt)
 
     def run(data: torch.Tensor) -> torch.Tensor:
-        return _limb_galois(data, tables, key, limbs, mesh, tp_axis, is_ntt)
+        return _limb_galois(data, table, key, limbs, mesh, tp_axis, is_ntt)
 
     return _runner(run, (key,))
 
