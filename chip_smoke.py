@@ -7,8 +7,9 @@ Three configurations of troy's own timing test (test/timetest.cu),
 128-bit security, n = 16384, q = {60,40,40,40,40,60}: BFV with
 t = PlainModulus.batching(n, 20), CKKS at scale 2^40, and BGV with the
 same t; troy's app benchmark (test/app/linear.cu:575-584), BFV and BGV
-at n = 16384, q = {60,60,60}, t = 2^41; and the large rings on kernel J:
-SEAL's n = 32768 BFV chain, a 16-prime CKKS chain at n = 32768, and BFV
+at n = 16384, q = {60,60,60}, t = 2^41; and the large rings (kernel A up
+to n = 131072, kernel J above, ops/ntt.py MAX_KERNEL_N): SEAL's n = 32768
+BFV chain, a 16-prime CKKS chain at n = 32768, and BFV
 at n = 131072 and 262144; troy's own Python entry point, its pybind11
 binder's scripts (binder/test.py, binder/timetest.py) through the port's
 binder API, with its raw wire; and the multi-device regimes on
@@ -162,25 +163,27 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    or u64ops on a CUDA tensor; and the device kernels and time of matmul,
    matmul_cipher, pack_outputs, conv2d, decrypt_many of the conv's 52
    outputs and fetch_ciphertexts_host(to_coeff=True) from the profiler.
-23. kernel J (the int8 tensor-core 4-step NTT, csrc/ntt_mxu.cu) against
-   its plain version, forward and inverse, word for word, on a (2, k, n)
+23. kernel J (the 4-step NTT's stages as butterflies in shared memory,
+   csrc/ntt_mxu.cu) against its plain version (the exact int8 matrix
+   algebra), forward and inverse, word for word, on a (2, k, n)
    batch of any u64 words at n = 4096 and 16384 with q =
    {60,40,40,40,40,60}, n = 32768 with SEAL's bfv_default(32768), and
    n = 65536, 131072 and 262144 with q = {55,55,60}; at n = 16384 also with
-   a 40-bit X-plane bound (5 planes on the 60-bit primes); where A runs
-   (n <= 16384), J against A on reduced words; at each shape J's time,
+   a 40-bit X-plane bound (5 planes on the 60-bit primes); J against A on
+   reduced words at every n; at each shape J's time,
    device time per launch, bound, plain time, the torch._int_mm time of
-   its plane products alone (the library yardstick, never used by the
-   port) and A's time: the card's crossover between A and J;
+   the plain version's plane products alone (the library yardstick, never
+   used by the port) and A's time;
 24. troy's timetest BFV mult+relin and CKKS mult+relin+rescale at
    n = 16384 with use_mxu=True, word-equal to the A route on the same
    ciphertexts and keys, in a count window that must launch J and not A;
    both routes timed, alternately;
 25. SEAL's 128-bit n = 32768 BFV chain at full width (bfv_default(32768):
    16 primes, 881 bits; t = PlainModulus.batching(32768, 20)), every NTT
-   on J: native host keygen (secret, public, relin, the Galois keys of
-   rotate_rows(1) and rotate_columns; seconds per key), encode, encrypt
-   and encrypt_symmetric on the default device path, multiply,
+   on the default route (A): native host keygen (secret, public, relin,
+   the Galois keys of rotate_rows(1) and rotate_columns; seconds per
+   key), encode, encrypt and encrypt_symmetric on the default device
+   path, multiply,
    relinearize, rotate_rows(1), rotate_columns, mod_switch_to_next,
    decrypt with the noise budget (positive) and decode, exact to the
    numpy oracle mod t; medians per op (CUDA events, LARGE_REPS runs) and
@@ -195,7 +198,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    multiply, relinearize and decrypt, exact to the product mod t; host
    keygen seconds and the medians, in a count window of its own;
 28. the device kernels and time of phases 25-27's ops from the profiler,
-   J's share of each op's device time, and no plain torch on the card;
+   the NTT kernels' (A's and J's) share of each op's device time, and no
+   plain torch on the card;
 29. the CKKS statistics against their plain versions at n = 16384 (q =
    {60,40,40,40,40,60}, scales 2^40 and 2^55) and n = 32768 (the 16-prime
    chain, 2^40), at the first data level: O4 (the encode statistic, max
@@ -244,20 +248,26 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A and M as redesigned for the H100: A against its plain
+35. kernels A, M, J and E as redesigned for the H100: A against its plain
    version, word for word, at n = 256 to 16384 (one pass below 1024, two
    from it up) and a row mod t, three rows mod t, (5, 6, n) and (4, 11,
    n), forward and inverse, lazy and not; A's device us a call and a
    launch and its blocks per launch at those rows (n = 16384) and at
-   (5, 6, n) at every n, and A at n = 32768 word-equal to J and timed
-   beside it; M's wrapper ms signed, unsigned
-   and batched beside
-   index_select / gather, timed in turns in this process, and its device
-   us a launch and a call beside the library call's; the host us to
-   enqueue one call of D, M, A and index_select (the launch path). Device
-   us a call come from CUDA events around a CUDA graph of 20 calls (the
-   host's enqueue is longer than these kernels), a launch from the
-   profiler.
+   (5, 6, n) at every n; M's wrapper ms signed, unsigned and batched
+   beside index_select / gather, timed in turns in this process, and its
+   device us a launch and a call beside the library call's; the host us to
+   enqueue one call of D, M, A and index_select (the launch path); J's
+   four stages and both transforms at (2,6,16384), SEAL's (2,16,32768)
+   and (2,3,n) for n = 65536, 131072 and 262144, word-equal to its plain
+   version and to A, its device us a launch beside its bound, and A and
+   J in turns at each n (the n up to which A was the faster); J on the
+   shard blocks of n = 16384 over 2 and 4 ranks, every rank's stages
+   against the plain version and the sharded transforms against A; E's
+   lift and tail at the headline's and SEAL's first data levels against
+   their plain versions, with device us a launch and a call and the
+   bound. Device us a call come from CUDA events around a CUDA graph of
+   20 calls (the host's enqueue is longer than these kernels), a launch
+   from the profiler.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
@@ -289,9 +299,10 @@ type: 64-bit multiplies, each taken as four 32-bit operations, and I's
 32-bit additions, rotations and xors (80 per threefry block), over the
 67 T/s float32 rate (the card has no faster path for 64-bit integer
 products); for O1, the 5 n log2 n f64 operations of an FFT over the
-67 TFLOP/s FP64 tensor-core peak; for J, its int8 plane products,
-2 M N K D Dx per stage, over the 1979 TOPS int8 tensor-core peak; for
-R1, its w - 1 modular adds a word, each taken as four 32-bit operations.
+67 TFLOP/s FP64 tensor-core peak; for J, as for A, its butterflies' 64-bit
+products (3 each), with the entry reduction and the grid product (5 a
+word); for R1, its w - 1 modular adds a word, each taken as four 32-bit
+operations.
 Phase 34's per-rank bound counts the bytes of a rank's own shards (its
 inputs, the key rows it holds, its output) only.
 """
@@ -320,6 +331,7 @@ from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
                                 sampling, shard, tiles)
 from troy_tpu_torch.parallel import sharding, spmd
 from troy_tpu_torch.utils import galois as galois_util
+from troy_tpu_torch.utils import rns as rns_util
 
 N = 16384
 Q_BITS = [60, 40, 40, 40, 40, 60]
@@ -360,7 +372,6 @@ APP_REPS = 5                         # protocol-phase medians
 # CKKS matmul 64 x 128 x 256 at scale 2^40: |decrypted - x w|; the
 # encryption noise over scale^2 and the encodes' rounding are near 2^-30
 CKKS_APP_BOUND = 1e-6
-INT8_OPS_PER_S = 1979e12             # H100 SXM int8 tensor-core peak
 # phase 23's shapes: (tag, n, q bits or SEAL's default chain)
 MXU_SHAPES = (("n4096", 4096, Q_BITS), ("n16384", 16384, Q_BITS),
               ("n32768", 32768, "bfv_default"),
@@ -419,6 +430,20 @@ REDESIGN_NS = (256, 512, 1024, 2048, 4096, 8192, 16384)
 REDESIGN_ROWS = {"1 row mod t": (1, 1), "3 rows mod t": (1, 3),
                  "(5,6,n)": (6, 5), "q u Bsk (4,11,n)": (11, 4)}
 APP_SHARD_DIMS = ((64, 128, 256), (16384, 16, 16))   # 1 and 2 batch blocks
+# phase 35 (J and E redesigned): J's transforms (tag, n, q bits or SEAL's
+# default chain, rows a limb), A and J in turns at each; the headline's
+# own rows at n = 16384 decide that n; J's shard blocks of n = 16384, E's
+# lift and tail at two data levels (tag, n, q bits)
+REDESIGN_J_SHAPES = (("(2,6,16384)", 16384, Q_BITS, 2),
+                     ("(5,6,16384)", 16384, Q_BITS, 5),
+                     ("(2,16,32768)", 32768, "bfv_default", 2),
+                     ("(2,3,65536)", 65536, CEILING_Q_BITS, 2),
+                     ("(2,3,131072)", 131072, CEILING_Q_BITS, 2),
+                     ("(2,3,262144)", 262144, CEILING_Q_BITS, 2))
+REDESIGN_J_SHARDS = (2, 4)
+# (the first data level: the chain less its special prime, t =
+# batching(n, 20); the multiply lifts two ciphertexts and tails three rows)
+REDESIGN_E_SHAPES = (("headline", N, Q_BITS), ("SEAL", 32768, "bfv_default"))
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -498,14 +523,14 @@ APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
             "F_keyswitch", "Gp_plain_lift", "I_sampling", "M_galois",
             "N1_negacyclic", "Kpp_bgv_coeff", "X_exact_convert",
             "O2_ckks_round", "O3_ckks_compose")
-LARGE_BFV_PATH = ("J_ntt_mxu", "B_dyadic_mac", "C_base_convert",
+LARGE_BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert",
                   "D_rns_elementwise", "E_behz", "F_keyswitch",
                   "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
-LARGE_CKKS_PATH = ("J_ntt_mxu", "B_dyadic_mac", "D_rns_elementwise",
+LARGE_CKKS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                    "F_keyswitch", "M_galois", "O1_ckks_fft", "O2_ckks_round",
                    "O3_ckks_compose", "Kp_rescale_ntt", "Kp_keyswitch_ntt",
                    "I_sampling")
-CEILING_PATH = ("J_ntt_mxu", "B_dyadic_mac", "C_base_convert",
+CEILING_PATH = ("A_ntt", "J_ntt_mxu", "B_dyadic_mac", "C_base_convert",
                 "D_rns_elementwise", "E_behz", "F_keyswitch", "G_plain_embed",
                 "I_sampling")
 BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
@@ -609,13 +634,12 @@ def _bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes: int, mul64: int, f64_ops: int = 0, int32_ops: int = 0,
-          int8_ops: int = 0):
+def bound(nbytes: int, mul64: int, f64_ops: int = 0, int32_ops: int = 0):
     """(bound_ms, bound_by): the larger of the memory and the compute
     bound (module docstring)."""
     mem = nbytes / MEM_BYTES_PER_S * 1e3
     ops = ((mul64 * OPS_PER_MUL64 + int32_ops) / OPS_PER_S
-           + f64_ops / F64_OPS_PER_S + int8_ops / INT8_OPS_PER_S) * 1e3
+           + f64_ops / F64_OPS_PER_S) * 1e3
     return (mem, "bytes") if mem >= ops else (ops, "operations")
 
 
@@ -819,9 +843,7 @@ def phase_kernels(ctx) -> dict:
         ("E_behz", f"tail (3,{k}+{nb},n)->(3,{k},n)",
          lambda: rns.behz_tail(e_tail, tool),
          lambda: rns.behz_tail_plain(e_tail, tool),
-         (_bytes(e_tail, tool.tail_consts) + 3 * k * N * 8,
-          3 * N * (k * 6 + nb * (2 * k + 11) + (nb - 1) * 3
-                   + (k + 1) * (2 * (nb - 1) + 5) + 3 + k * 3)), None),
+         behz_work(tool, 3, True), None),
         ("E_behz", f"lift (4,{k},n)->(4,{nb},n)",
          lambda: rns.behz_lift(e_lift, tool),
          lambda: rns.behz_lift_plain(e_lift, tool), None, None),
@@ -2482,23 +2504,6 @@ def _moduli(n: int, spec) -> list:
     return [int(m) for m in coeff]
 
 
-def mxu_work(t, rows: int, x_bits: Optional[int] = None) -> tuple:
-    """(bytes, int8 operations) of one forward transform of ``rows`` rows
-    per limb on J: the words in and out, each limb's W1 and W2 planes with
-    their sums and its twiddles and Shoup words read once; 2 M N K D Dx
-    operations per stage (the X planes: D, or the bound's)."""
-    nbytes = 2 * rows * t.k * t.n * 8
-    ops = 0
-    for m in t.mxu:
-        d = m.planes
-        dx = ntt_mxu.limb_planes(m, (x_bits + 7) // 8 if x_bits else 0) or d
-        nbytes += d * (m.a * m.a + m.b * m.b) + 4 * d * (m.a + m.b) \
-            + 2 * m.n * 8
-        ops += rows * (2 * m.a * m.b * m.a * d * dx + 2 * m.a * m.b * m.b * d
-                       * d)
-    return nbytes, ops
-
-
 def int_mm_products(t, x: torch.Tensor):
     """The library yardstick of J: the plane products of one forward
     transform alone, as ``torch._int_mm`` on the same stacked int8 planes
@@ -2525,9 +2530,9 @@ def int_mm_products(t, x: torch.Tensor):
 
 
 def phase_mxu_kernels(dev) -> dict:
-    """Phase 23: J against its plain version (forward and inverse) and,
-    where A runs, against A, at every MXU_SHAPES shape and with an X-plane
-    bound; the times, the bound, the library yardstick and A's time."""
+    """Phase 23: J against its plain version (forward and inverse) and
+    against A, at every MXU_SHAPES shape and with an X-plane bound; the
+    times, the bound, the library yardstick and A's time."""
     rng = np.random.default_rng(SEED + 23)
     shapes = {}
     worst = 0
@@ -2539,15 +2544,13 @@ def phase_mxu_kernels(dev) -> dict:
                    lambda: ntt_mxu.rns_ntt_mxu_plain(x, tj.mxu, False)),
                   ("inverse", lambda: ntt.rns_ntt_inverse(x, tj),
                    lambda: ntt_mxu.rns_ntt_mxu_plain(x, tj.mxu, True))]
-        ta = None
-        if n <= ntt.MAX_KERNEL_N:
-            # A takes words below 4q (forward) and 2q (inverse)
-            ta = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
-            xr = _uniform(rng, moduli, (2, len(moduli), n), dev)
-            checks += [("forward = A", lambda: ntt.rns_ntt_forward(xr, tj),
-                        lambda: ntt.rns_ntt_forward(xr, ta)),
-                       ("inverse = A", lambda: ntt.rns_ntt_inverse(xr, tj),
-                        lambda: ntt.rns_ntt_inverse(xr, ta))]
+        # A takes words below 4q (forward) and 2q (inverse)
+        ta = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+        xr = _uniform(rng, moduli, (2, len(moduli), n), dev)
+        checks += [("forward = A", lambda: ntt.rns_ntt_forward(xr, tj),
+                    lambda: ntt.rns_ntt_forward(xr, ta)),
+                   ("inverse = A", lambda: ntt.rns_ntt_inverse(xr, tj),
+                    lambda: ntt.rns_ntt_inverse(xr, ta))]
         xb = x & ((1 << MXU_X_BITS) - 1)
         if tag == "n16384":
             checks.append((f"forward, words < 2^{MXU_X_BITS}",
@@ -2568,38 +2571,33 @@ def phase_mxu_kernels(dev) -> dict:
         plain_ms = cuda_ms(lambda: ntt_mxu.rns_ntt_mxu_plain(x, tj.mxu,
                                                              False), reps=5)
         library_ms = cuda_ms(int_mm_products(tj, x))
-        a_ms = a_device_ms = None
-        if ta:
-            a_ms = cuda_ms(lambda: ntt.rns_ntt_forward(xr, ta))
-            a_device_ms = device_kernels_per_op(
-                lambda: ntt.rns_ntt_forward(xr, ta))[1]
+        a_ms = cuda_ms(lambda: ntt.rns_ntt_forward(xr, ta))
+        a_device_ms = device_kernels_per_op(
+            lambda: ntt.rns_ntt_forward(xr, ta))[1]
         _, device_ms, each = device_kernels_per_op(
             lambda: ntt.rns_ntt_forward(x, tj),
             expect={"ntt_mxu_kernel": None})
         launches, us = each["ntt_mxu_kernel"]
-        nbytes, ops = mxu_work(tj, 2)
-        bound_ms, bound_by = bound(nbytes, 0, int8_ops=ops)
+        nbytes, mul64 = j_work(tj, 2)
+        bound_ms, bound_by = bound(nbytes, mul64)
         r = {"n": n, "limbs": len(moduli), "rows": 2, "ms": ms,
              "inverse_ms": inv_ms, "device_ms": device_ms,
              "device_us_per_launch": us, "launches_per_transform": launches,
              "bound_ms": bound_ms, "bound_by": bound_by,
-             "int8_ops": ops, "bytes": nbytes, "plain_ms": plain_ms,
+             "mul64": mul64, "bytes": nbytes, "plain_ms": plain_ms,
              "library_ms": library_ms, "a_ms": a_ms,
              "a_device_ms": a_device_ms}
         if tag == "n16384":
-            xn, xo = mxu_work(tj, 2, MXU_X_BITS)
             r["bounded_ms"] = cuda_ms(lambda: ntt.rns_ntt_forward(
                 xb, tj, x_bound_bits=MXU_X_BITS))
-            r["bounded_bound_ms"] = bound(xn, 0, int8_ops=xo)[0]
         shapes[tag] = r
         log(f"[23] J_ntt_mxu {tag} ({len(moduli)} limbs, 2 rows): word-equal"
-            f"{' to A and' if ta else ''} to the plain version; forward "
+            f" to A and to the plain version; forward "
             f"{ms:.4f} ms (device {device_ms:.4f} ms, {launches:g} launches "
             f"at {us:.1f} us), inverse {inv_ms:.4f} ms, bound "
             f"{bound_ms:.6f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-            f"torch._int_mm {library_ms:.4f} ms"
-            + (f", A {a_ms:.4f} ms (device {a_device_ms:.4f} ms)"
-               if a_ms is not None else ""))
+            f"torch._int_mm {library_ms:.4f} ms, A {a_ms:.4f} ms (device "
+            f"{a_device_ms:.4f} ms)")
     head = shapes["n16384"]
     return {"J_ntt_mxu": {"max_abs_err": worst, "ms": head["ms"],
                           "plain_ms": head["plain_ms"],
@@ -2665,7 +2663,7 @@ def _op_times(ops: dict, reps: int) -> dict:
 def phase_seal32768(counter, n: int = 32768) -> tuple:
     """Phase 25: SEAL's 128-bit n = 32768 BFV chain at full width
     (bfv_default(32768), 16 primes, 881 bits; t = batching(32768, 20)),
-    every NTT on J: host keygen through the native runtime, encode,
+    every NTT on A: host keygen through the native runtime, encode,
     encrypt and encrypt_symmetric (the default device path), multiply,
     relinearize, rotate_rows(1), rotate_columns, mod_switch_to_next,
     decrypt with the noise budget and decode, exact to the numpy oracle mod
@@ -2760,7 +2758,7 @@ def phase_seal32768(counter, n: int = 32768) -> tuple:
 
 def phase_ckks32768(counter, n: int = 32768) -> tuple:
     """Phase 26: deep CKKS at n = 32768, q = {60, 40 x 14, 60}, scale
-    2^40, on J: encode, encrypt (public key) and encrypt_symmetric,
+    2^40, on A: encode, encrypt (public key) and encrypt_symmetric,
     multiply, relinearize, rescale_to_next, rotate_vector(1); the rescaled
     product decodes within CKKS_LARGE_BOUND of the numpy product, its
     rotation within CKKS_ROTATION_BOUND of the rotated product; in a count
@@ -2890,15 +2888,18 @@ def phase_ceiling(counter) -> tuple:
 
 def phase_large_profiles(ops: dict, counter) -> dict:
     """Phase 28: the device kernels and time of phases 25-27's ops from the
-    profiler, J's share of each op's device time, and no plain torch on
-    the card while they ran."""
+    profiler, A's and J's shares of each op's device time, and no plain
+    torch on the card while they ran."""
     counter.calls.clear()
     per_op = profile_ops("28", ops)
     for op, r in per_op.items():
-        j_us = sum(c * us for k, (c, us) in r["each"].items()
-                   if k == "ntt_mxu_kernel")
-        r["j_share"] = j_us / 1e3 / r["device_ms"] if r["device_ms"] else 0
-        log(f"[28] {op}: J {r['j_share']:.1%} of the device time")
+        for name, kernel in (("a", "ntt_pass_kernel"),
+                             ("j", "ntt_mxu_kernel")):
+            c, us = r["each"].get(kernel, (0, 0.0))
+            r[f"{name}_share"] = c * us / 1e3 / r["device_ms"] \
+                if r["device_ms"] else 0
+        log(f"[28] {op}: A {r['a_share']:.1%}, J {r['j_share']:.1%} of the "
+            "device time")
     if counter.calls:
         raise AssertionError(f"plain torch ran on the card in phase 28: "
                              f"{counter.calls}")
@@ -4170,7 +4171,7 @@ def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def phase_redesign(dev) -> dict:
+def phase_redesign(dev, bfv_ops: dict) -> dict:
     """Phase 35: kernels A and M as redesigned for the H100. A against its
     plain version, word for word, at every n of REDESIGN_NS (one pass over
     whole rows below 1024, two passes from it up) and the shapes of
@@ -4235,24 +4236,6 @@ def phase_redesign(dev) -> dict:
     log("[35] A at (5,6,n) forward, device us a call (launches): " + ", ".join(
         f"n = {n} {r['device_us']:.1f} ({r['launches']})"
         for n, r in per_n.items()))
-    # n = 32768: A (two passes) beside J on the same words
-    n = 2 * N
-    t_a = _ntt_rows(n, "(5,6,n)", dev)
-    t_j = ntt.RnsNttTables.from_moduli(n, t_a.values, dev, use_mxu=True)
-    x = _uniform(rng, t_a.values, (5, 6, n), dev)
-    compare("words", ntt.rns_ntt_forward(x, t_a), ntt.rns_ntt_forward(x, t_j))
-    compare("words", ntt.rns_ntt_forward(x, t_a),
-            ntt.ntt_forward_plain(x, t_a))
-    large = {"a": a_profile(t_a, x),
-             "j_device_us": graph_us(lambda: ntt.rns_ntt_forward(x, t_j)),
-             **alternating_ms({
-                 "a_ms": lambda: ntt.rns_ntt_forward(x, t_a),
-                 "j_ms": lambda: ntt.rns_ntt_forward(x, t_j)})}
-    log(f"[35] n = 32768 (5,6,n) forward, A word-equal to J and to the plain "
-        f"version: A {large['a']['device_us']:.1f} us of device time, "
-        f"{large['a_ms']:.4f} ms wrapper; J {large['j_device_us']:.1f} us, "
-        f"{large['j_ms']:.4f} ms")
-
     # M, every form, beside the one PyTorch call of the same gather
     q5 = ntt.RnsNttTables.from_moduli(
         N, [int(m) for m in P.CoeffModulus.create(N, Q_BITS[:5])], dev)
@@ -4308,8 +4291,300 @@ def phase_redesign(dev) -> dict:
                 lambda: m_x.index_select(-1, perm))}
     log("[35] host us to enqueue one call: " + ", ".join(
         f"{k} {v:.1f}" for k, v in host.items()))
+    j = redesign_j(dev, rng)
+    e = redesign_e(dev, rng)
+    b = redesign_b(bfv_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
-            "a_n32768": large, "m_forms": m_forms, "host_enqueue_us": host}
+            "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
+            "b": b}
+
+
+def redesign_b(ops: dict) -> dict:
+    """Phase 35, kernel B at the main path's shapes: every B call of one
+    run of each op (the BFV headline's mult+relin, rotate_rows(1) and
+    decrypt) recorded with its operands, then each distinct shape's device
+    us a launch (profiler) beside its bound: both operands read once (a
+    broadcast operand once), the output written once, two products a term
+    and a Barrett-128 reduction (5) a word."""
+    calls = {}
+    wrapped = {"dyadic_mac": ntt.dyadic_mac,
+               "dyadic_mac_batched": ntt.dyadic_mac_batched}
+
+    def recorder(name):
+        def record(*args):
+            shapes = tuple(tuple(a.shape) for a in args[:2])
+            calls.setdefault((name, shapes), (args, []))[1].append(op_name)
+            return wrapped[name](*args)
+        return record
+
+    try:
+        for name in wrapped:
+            setattr(ntt, name, recorder(name))
+        for op_name, fn in ops.items():
+            fn()
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ntt, name, fn)
+    torch.cuda.synchronize()
+    out = {}
+    for (name, shapes), (args, in_ops) in calls.items():
+        fn = wrapped[name]
+        a, b, t = args
+        _, _, each = device_kernels_per_op(lambda: fn(a, b, t), reps=10,
+                                           expect={"dyadic_mac_kernel": 1},
+                                           whole=True)
+        us = each["dyadic_mac_kernel"][1]
+        if name == "dyadic_mac":
+            terms, words_out = a.shape[0], b[0].numel()
+        else:
+            terms = a.shape[0]
+            words_out = b.shape[0] * a.shape[1] * a.shape[2] * a.shape[3]
+        bound_ms, bound_by = bound(_bytes(a, b) + words_out * 8,
+                                   words_out * (2 * terms + 5))
+        tag = f"{name} {shapes[0]} x {shapes[1]}"
+        out[tag] = {"ops": sorted(set(in_ops)), "calls": len(in_ops),
+                    "us_per_launch": us, "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "half_of_bound": us <= 2 * bound_ms * 1e3}
+        log(f"[35] B {tag} ({', '.join(sorted(set(in_ops)))}): {us:.2f} us "
+            f"a launch, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
+            f"{'within' if out[tag]['half_of_bound'] else 'beyond'} twice "
+            "its bound")
+    return out
+
+
+def j_work(t, rows: int) -> tuple:
+    """(bytes, 64-bit products) of one transform of ``rows`` rows per limb
+    on J: the words in and out once, each limb's butterfly tables and its
+    twiddle grid with their Shoup words once; per row (n/2) log2 n
+    butterflies of 3 products, the entry reduction (2) and the grid
+    product (3) a word."""
+    n = t.n
+    nbytes = 2 * rows * t.k * n * 8 + t.k * (2 * n + 2 * (t.mxu[0].a
+                                                          + t.mxu[0].b)) * 8
+    return nbytes, rows * t.k * (n // 2 * (n.bit_length() - 1) * 3 + 5 * n)
+
+
+def sharded_transform(x: torch.Tensor, mxus: list, ptrs: list, a: int,
+                      b: int, inverse: bool) -> torch.Tensor:
+    """J's transform of x (..., k, n) as the coefficient regime runs it
+    over len(mxus) ranks, the all-to-alls done in this process: each
+    rank's stages on its own blocks and tables (parallel/sharding.py
+    _CoeffNtt)."""
+    w = len(mxus)
+    y = x.reshape(x.shape[:-1] + (a, b))
+    cols = lambda v, i: v[..., :, i * b // w:(i + 1) * b // w].contiguous()
+    rows = lambda v, i: v[..., i * a // w:(i + 1) * a // w, :].contiguous()
+    run = lambda v, i, stage: ntt_mxu.rns_mxu_stage(v, mxus[i], ptrs[i],
+                                                    stage)
+    if inverse:
+        y = torch.cat([run(rows(y, i), i, "inverse_right")
+                       for i in range(w)], dim=-2)
+        y = torch.cat([run(cols(y, i), i, "inverse_left")
+                       for i in range(w)], dim=-1)
+    else:
+        y = torch.cat([run(cols(y, i), i, "forward_left")
+                       for i in range(w)], dim=-1)
+        y = torch.cat([run(rows(y, i), i, "forward_right")
+                       for i in range(w)], dim=-2)
+    return y.reshape(x.shape)
+
+
+def redesign_j(dev, rng) -> dict:
+    """Phase 35, kernel J: at every REDESIGN_J_SHAPES shape each stage and
+    both transforms against J's plain version (any u64 words into the
+    stages that reduce first, reduced words into the others) and against A
+    (reduced words); J's device us a launch (profiler, both launches of
+    every traced call seen) beside its bound; A and J in turns at each n
+    (device us a call from CUDA graphs, then the wrappers), and the
+    largest n at which A was the faster in this run (at n = 16384 at the
+    headline's (5, 6, n), the last shape of an n deciding it); the shard
+    blocks of n = 16384
+    over 2 and 4 ranks, every rank's stages against the plain version and
+    the sharded transforms against A."""
+    out, order = {}, {}
+    for tag, n, spec, lead in REDESIGN_J_SHAPES:
+        moduli = _moduli(n, spec)
+        k = len(moduli)
+        tj = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=True)
+        ta = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+        a, b = tj.mxu[0].a, tj.mxu[0].b
+        x = _full(rng, (lead, k, n), dev)
+        xr = _uniform(rng, moduli, (lead, k, n), dev)
+        checks = [("forward", lambda: ntt.rns_ntt_forward(x, tj),
+                   lambda: ntt_mxu.rns_ntt_mxu_plain(x, tj.mxu, False)),
+                  ("inverse", lambda: ntt.rns_ntt_inverse(x, tj),
+                   lambda: ntt_mxu.rns_ntt_mxu_plain(x, tj.mxu, True)),
+                  ("forward = A", lambda: ntt.rns_ntt_forward(xr, tj),
+                   lambda: ntt.rns_ntt_forward(xr, ta)),
+                  ("inverse = A", lambda: ntt.rns_ntt_inverse(xr, tj),
+                   lambda: ntt.rns_ntt_inverse(xr, ta))]
+        for stage, (_, _, _, reduce_in) in ntt_mxu.STAGES.items():
+            v = (x if reduce_in else xr).reshape(lead, k, a, b)
+            checks.append((stage, lambda v=v, stage=stage:
+                           ntt_mxu.rns_mxu_stage(v, tj.mxu, tj.mxu_pointers,
+                                                 stage),
+                           lambda v=v, stage=stage:
+                           ntt_mxu.mxu_stage_plain(v, tj.mxu, stage)))
+        for variant, run, want in checks:
+            try:
+                compare("words", run(), want())
+            except AssertionError as exc:
+                raise AssertionError(f"J {tag} {variant}: {exc}") from None
+        each = {}
+        for inverse in (False, True):
+            fn = ntt.rns_ntt_inverse if inverse else ntt.rns_ntt_forward
+            _, device_ms, kernels = device_kernels_per_op(
+                lambda: fn(x, tj), reps=10, expect={"ntt_mxu_kernel": 2},
+                whole=True)
+            each["inverse" if inverse else "forward"] = {
+                "device_ms": device_ms,
+                "us_per_launch": kernels["ntt_mxu_kernel"][1]}
+        bound_ms, bound_by = bound(*j_work(tj, lead))
+        # A and J in turns: device us a call (graph), then the wrappers
+        turns = {"a_device_us": [], "j_device_us": []}
+        for r in range(4):
+            for name in (("a", "j") if r % 2 == 0 else ("j", "a")):
+                t = ta if name == "a" else tj
+                turns[f"{name}_device_us"].append(graph_us(
+                    lambda t=t: ntt.rns_ntt_forward(xr, t)))
+        timed = {key: statistics.median(v) for key, v in turns.items()}
+        timed.update(alternating_ms({
+            "a_ms": lambda: ntt.rns_ntt_forward(xr, ta),
+            "j_ms": lambda: ntt.rns_ntt_forward(xr, tj)}))
+        out[tag] = {"n": n, "limbs": k, "a": a, "b": b, **each,
+                    "bound_ms": bound_ms, "bound_by": bound_by, **timed,
+                    "device_us_turns": turns}
+        order[n] = timed["a_device_us"] <= timed["j_device_us"]
+        log(f"[35] J {tag} (A, B) = ({a}, {b}): every stage and both "
+            f"transforms word-equal to the plain version and to A; forward "
+            f"{each['forward']['device_ms'] * 1e3:.1f} us of device time "
+            f"(2 launches of {each['forward']['us_per_launch']:.1f} us), "
+            f"inverse {each['inverse']['device_ms'] * 1e3:.1f} us; bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by}); in turns, device us a "
+            f"call: A {timed['a_device_us']:.1f}, J "
+            f"{timed['j_device_us']:.1f}; wrappers A {timed['a_ms']:.4f} "
+            f"ms, J {timed['j_ms']:.4f} ms")
+    crossover = max((n for n, a_faster in order.items() if a_faster),
+                    default=0)
+    log(f"[35] A was the faster at n = "
+        f"{[n for n, f in order.items() if f]}, J at "
+        f"{[n for n, f in order.items() if not f]}: the largest n at which "
+        f"A was the faster is {crossover or 'none'} (ops/ntt.py "
+        f"MAX_KERNEL_N = {ntt.MAX_KERNEL_N})")
+    shards = {}
+    moduli = _moduli(N, Q_BITS)
+    ta = ntt.RnsNttTables.from_moduli(N, moduli, dev, use_mxu=False)
+    for w in REDESIGN_J_SHARDS:
+        mxus = [[ntt_mxu.make_shard_tables(N, q, dev, w, i) for q in moduli]
+                for i in range(w)]
+        ptrs = [ntt_mxu.pointer_table(m, dev) for m in mxus]
+        a, b = mxus[0][0].a, mxus[0][0].b
+        for i in range(w):
+            for stage, (left, _, _, reduce_in) in ntt_mxu.STAGES.items():
+                shape = (2, len(moduli)) + ((a, b // w) if left
+                                            else (a // w, b))
+                v = _full(rng, shape, dev) if reduce_in else _uniform(
+                    rng, moduli, shape[:2] + (shape[2] * shape[3],),
+                    dev).reshape(shape)
+                try:
+                    compare("words",
+                            ntt_mxu.rns_mxu_stage(v, mxus[i], ptrs[i], stage),
+                            ntt_mxu.mxu_stage_plain(v, mxus[i], stage))
+                except AssertionError as exc:
+                    raise AssertionError(f"J shard {i} of {w} {stage}: "
+                                         f"{exc}") from None
+        xr = _uniform(rng, moduli, (2, len(moduli), N), dev)
+        for inverse in (False, True):
+            want = (ntt.rns_ntt_inverse if inverse else ntt.rns_ntt_forward)(
+                xr, ta)
+            try:
+                compare("words", sharded_transform(xr, mxus, ptrs, a, b,
+                                                   inverse), want)
+            except AssertionError as exc:
+                raise AssertionError(f"J sharded over {w}, inverse "
+                                     f"{inverse}: {exc}") from None
+        v = _full(rng, (2, len(moduli), a, b // w), dev)
+        _, _, kernels = device_kernels_per_op(
+            lambda: ntt_mxu.rns_mxu_stage(v, mxus[0], ptrs[0],
+                                          "forward_left"),
+            reps=10, expect={"ntt_mxu_kernel": 1}, whole=True)
+        shards[f"w{w}"] = {"forward_left_us_per_launch":
+                           kernels["ntt_mxu_kernel"][1]}
+        log(f"[35] J on the shard blocks of n = {N} over {w} ranks: every "
+            f"rank's stages word-equal to the plain version, the sharded "
+            f"transforms to A; forward_left on ({a}, {b // w}) blocks "
+            f"{kernels['ntt_mxu_kernel'][1]:.1f} us a launch")
+    return {"shapes": out, "a_faster_up_to": crossover, "shards": shards}
+
+
+def behz_work(tool, lead: int, tail: bool) -> tuple:
+    """(bytes, 64-bit products) of E's tail over (lead, k + nb, n) or its
+    lift over (lead, k, n): the words in and out and the constants once;
+    the products as phase 3 counts them (Shoup 3, a conversion's terms 2
+    and its Barrett-128 5)."""
+    k, nb, n = tool.k, tool.nb, tool.q.n
+    if tail:
+        nbytes = (lead * (k + nb + k) * n + tool.tail_consts.numel()) * 8
+        mul = lead * n * (k * 6 + nb * (2 * k + 11) + (nb - 1) * 3
+                          + (k + 1) * (2 * (nb - 1) + 5) + 3 + k * 3)
+    else:
+        nbytes = (lead * (k + nb) * n + tool.lift_consts.numel()) * 8
+        mul = lead * n * (k * 6 + (nb + 1) * (2 * k + 5) + 3 + nb * 9)
+    return nbytes, mul
+
+
+def redesign_e(dev, rng) -> dict:
+    """Phase 35, kernel E: the lift over (4, k, n) and the tail over (3,
+    k + |Bsk|, n) at each REDESIGN_E_SHAPES data level, against their
+    plain versions (reduced words, and any u64 words into the tail), with
+    the device us a launch (profiler), a call (graph) and the bound."""
+    out = {}
+    for tag, n, spec in REDESIGN_E_SHAPES:
+        q = tuple(_moduli(n, spec)[:-1])
+        host = rns_util.make_rns_tool(n, q, int(P.PlainModulus.batching(n,
+                                                                        20)))
+        tool = rns.DeviceRnsTool.build(
+            host, ntt.RnsNttTables.from_moduli(n, q, dev, use_mxu=False),
+            ntt.RnsNttTables.from_moduli(n, host.base_Bsk.values, dev,
+                                         use_mxu=False))
+        k, nb = tool.k, tool.nb
+        lift_x = _uniform(rng, q, (4, k, n), dev)
+        tail_x = _uniform(rng, tool.q_bsk.values, (3, k + nb, n), dev)
+        tail_any = _full(rng, (3, k + nb, n), dev)
+        for what, run, want in (
+                ("lift", lambda: rns.behz_lift(lift_x, tool),
+                 lambda: rns.behz_lift_plain(lift_x, tool)),
+                ("tail", lambda: rns.behz_tail(tail_x, tool),
+                 lambda: rns.behz_tail_plain(tail_x, tool)),
+                ("tail, any words", lambda: rns.behz_tail(tail_any, tool),
+                 lambda: rns.behz_tail_plain(tail_any, tool))):
+            try:
+                compare("words", run(), want())
+            except AssertionError as exc:
+                raise AssertionError(f"E {tag} {what}: {exc}") from None
+        r = {"n": n, "k": k, "nb": nb}
+        for what, fn, kernel, work in (
+                ("lift", lambda: rns.behz_lift(lift_x, tool),
+                 "behz_lift_kernel", behz_work(tool, 4, False)),
+                ("tail", lambda: rns.behz_tail(tail_x, tool),
+                 "behz_tail_kernel", behz_work(tool, 3, True))):
+            _, _, kernels = device_kernels_per_op(
+                fn, reps=10, expect={kernel: 1}, whole=True)
+            bound_ms, bound_by = bound(*work)
+            r[what] = {"us_per_launch": kernels[kernel][1],
+                       "device_us": graph_us(fn), "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+        out[tag] = r
+        log(f"[35] E {tag} (n = {n}, k = {k}, |Bsk| = {nb}): lift and tail "
+            f"word-equal to their plain versions; lift (4,{k},n) "
+            f"{r['lift']['us_per_launch']:.1f} us a launch (bound "
+            f"{r['lift']['bound_ms'] * 1e3:.2f} us, "
+            f"{r['lift']['bound_by']}), tail (3,{k}+{nb},n) "
+            f"{r['tail']['us_per_launch']:.1f} us (bound "
+            f"{r['tail']['bound_ms'] * 1e3:.2f} us, "
+            f"{r['tail']['bound_by']})")
+    return out
 
 
 def a_share(per_op: dict, op: str) -> dict:
@@ -4344,6 +4619,9 @@ def main() -> None:
     check_path("6", "4-5", BFV_PATH, bfv_counts, counter)
     kg, rlk, _, be, ev, dec = state
     ca, cb, rel, gk = req["ca"], req["cb"], req["rel"], req["gk"]
+    bfv_ops = {"mult_relin": lambda: ev.relinearize(ev.multiply(ca, cb), rlk),
+               "rotate_rows": lambda: ev.rotate_rows(rel, 1, gk),
+               "decrypt": lambda: dec.decrypt(rel)}
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
                       seed=rnd.seed_from_uint64(SEED + 2))
     slots = np.arange(N, dtype=np.uint64) % be.plain_modulus
@@ -4446,7 +4724,7 @@ def main() -> None:
         app_ctx, app_context(P.SchemeType.bgv), ckks_ctx, counter)
     per_op.update(app_per_op)
 
-    # ---- large rings on J: 23-28 ----
+    # ---- kernel J and the large rings: 23-28 ----
     mxu_results, mxu_shapes = phase_mxu_kernels(ctx.device)
     kernel_results.update(mxu_results)
     mxu_headline, mxu16_counts = phase_mxu_headline(
@@ -4478,7 +4756,7 @@ def main() -> None:
     # ---- kernels A and M redesigned: 35, before phase 34 spawns its
     # ranks on the card (after it, the profiler lost the same share of
     # every trace in this process) ----
-    redesign = phase_redesign(ctx.device)
+    redesign = phase_redesign(ctx.device, bfv_ops)
 
     # ---- multi-device (R): 33-34 ----
     shard_results, j_shards = phase_shard_kernels(ctx.device)

@@ -1188,6 +1188,51 @@ def test_base_convert_and_behz_at_the_limb_caps(dev, k):
           rns.decrypt_scale_and_round_plain(x, dt))
 
 
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_behz_tiles(dev, k, batch):
+    """Kernel E's limb-tiled lift and tail against their plain versions
+    at k = 1, 5 and 16 primes of q (|Bsk| = k + 1), n = 4096 (64 tiles a
+    polynomial) and at n = 32 (one tile narrower than 64)."""
+    bits = [50] if k == 1 else [60] + [40] * (k - 1)
+    rng = np.random.default_rng(100 * k + batch)
+    for n in (4096, 32):
+        q = tuple(int(m) for m in P.CoeffModulus.create(
+            max(n, 1024), bits))
+        host = make_rns_tool(n, q, int(P.PlainModulus.batching(
+            max(n, 1024), 20)))
+        dt = rns.DeviceRnsTool.build(
+            host, ntt.RnsNttTables.from_moduli(n, q, dev),
+            ntt.RnsNttTables.from_moduli(n, host.base_Bsk.values, dev))
+        x = _uniform(rng, dt.q.values, (batch,), n, dev)
+        _same(rns.behz_lift(x, dt), rns.behz_lift_plain(x, dt))
+        y = _uniform(rng, dt.q_bsk.values, (batch,), n, dev)
+        _same(rns.behz_tail(y, dt), rns.behz_tail_plain(y, dt))
+        z = _words(rng, (batch, dt.k + dt.nb, n), dev)     # any u64 words
+        _same(rns.behz_tail(z, dt), rns.behz_tail_plain(z, dt))
+
+
+def test_ntt_mxu_one_limb_at_n65536(dev):
+    """J's butterfly stages at A = B = 256 on one 60-bit limb: every stage
+    and both transforms against the plain version, and A's words."""
+    n = 65536
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [60])]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=True)
+    t0 = tables.mxu[0]
+    rng = np.random.default_rng(n + 7)
+    x = _words(rng, (1, 1, t0.a, t0.b), dev)
+    r = _uniform(rng, moduli, (1,), n, dev).reshape(1, 1, t0.a, t0.b)
+    for stage in ntt_mxu.STAGES:
+        v = x if ntt_mxu.STAGES[stage][3] else r
+        _same(ntt_mxu.rns_mxu_stage(v, tables.mxu, tables.mxu_pointers,
+                                    stage),
+              ntt_mxu.mxu_stage_plain(v, tables.mxu, stage))
+    flat = r.reshape(1, 1, n)
+    a = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+    _same(ntt.rns_ntt_forward(flat, tables), ntt.rns_ntt_forward(flat, a))
+    _same(ntt.rns_ntt_inverse(flat, tables), ntt.rns_ntt_inverse(flat, a))
+
+
 def test_mxu_context_on_the_card_gives_the_cpu_words(dev):
     """BFV at n = 4096 on J (use_mxu=True): the card's words are the CPU
     run's, and J ran."""
@@ -1233,10 +1278,13 @@ def test_shard_modsum_kernel(dev, w):
                                                                     t))
 
 
-@pytest.mark.parametrize("n,w", [(16384, 2), (16384, 4), (131072, 2)])
+@pytest.mark.parametrize("n,w", [(4096, 2), (16384, 2), (16384, 4),
+                                 (131072, 2), (262144, 8)])
 def test_mxu_shard_stages_on_the_card(dev, n, w):
     """Kernel J's stages on a rank's per-shard tables (column blocks
-    (A, B/w) and row blocks (A/w, B)) against their plain version."""
+    (A, B/w) and row blocks (A/w, B)) against their plain version, down
+    to the smallest blocks its tiles take (32 a side: n = 4096 over 2,
+    16384 over 4); any words into the stages that reduce them."""
     moduli = [int(m) for m in P.CoeffModulus.create(n, [55, 60])]
     rng = np.random.default_rng(n + w)
     for i in range(w):
@@ -1247,8 +1295,11 @@ def test_mxu_shard_stages_on_the_card(dev, n, w):
                              ("forward_right", (a // w, b)),
                              ("inverse_right", (a // w, b)),
                              ("inverse_left", (a, b // w))):
-            x = _uniform(rng, moduli, (1,), shape[0] * shape[1], dev) \
-                .reshape((1, len(moduli)) + shape)
+            if ntt_mxu.STAGES[stage][3]:
+                x = _words(rng, (1, len(moduli)) + shape, dev)
+            else:
+                x = _uniform(rng, moduli, (1,), shape[0] * shape[1], dev) \
+                    .reshape((1, len(moduli)) + shape)
             _same(ntt_mxu.rns_mxu_stage(x, mxu, ptrs, stage),
                   ntt_mxu.mxu_stage_plain(x, mxu, stage))
 

@@ -8,8 +8,9 @@ the limb caps, against troy_tpu.
   transform (as tests/test_bfv_mxu_path.py drives it).
 * The key switch's decompose on J groups the digit rows by the width of
   their data prime (x_bound_bits) and gives the ungrouped words.
-* A context at SEAL's bfv_default(32768) builds, on J by default, with
-  every base inside the kernels' limb caps; kernels C and E's plain
+* A context at SEAL's bfv_default(32768) builds, on A by default (J
+  above ops/ntt.py's MAX_KERNEL_N), with every base inside the kernels'
+  limb caps; kernels C and E's plain
   versions at 16 and 17 limbs give troy_tpu's fast_convert and BEHZ
   words.
 """
@@ -163,7 +164,7 @@ def test_grouped_decompose_keeps_the_words(ntt_form, lead):
 
 def test_seal_n32768_context_builds_within_the_caps():
     """bfv_default(32768): 16 primes, 881 bits. Every level's NTTs run on
-    J (n > 16384), and every base fits kernels C, E, F and O3."""
+    A (n <= MAX_KERNEL_N), and every base fits kernels C, E, F and O3."""
     n = 32768
     parms = P.EncryptionParameters(
         scheme=P.SchemeType.bfv, poly_modulus_degree=n,
@@ -172,9 +173,9 @@ def test_seal_n32768_context_builds_within_the_caps():
     ctx = P.HeContext(parms, device="cpu")
     key = ctx.key_context_data
     assert key.limbs == 16 and key.total_coeff_modulus.bit_length() == 881
-    assert ctx.plain_ntt.rns.mxu is not None
+    assert n <= ntt.MAX_KERNEL_N and ctx.plain_ntt.rns.mxu is None
     for cd in ctx.chain:
-        assert cd.ntt.mxu is not None and cd.bsk_ntt.mxu is not None
+        assert cd.ntt.mxu is None and cd.bsk_ntt.mxu is None
         tool = cd.rns
         assert max(tool.k, tool.nb + 1) <= rns.MAX_KERNEL_LIMBS
         assert len(keyswitch.used_limbs(cd.limbs, key.limbs)) <= \

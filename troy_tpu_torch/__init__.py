@@ -3,9 +3,9 @@
 BFV, CKKS and BGV homomorphic encryption with SEAL semantics (modelled on
 lightbulb128/troy) on PyTorch tensors, with hand-written CUDA kernels for
 Hopper (sm_90a) on the hot path: the NTT (butterflies in a strided and
-a contiguous pass over every SM, the default up to n = 16384, and as two
-exact int8 tensor-core matrix products at any n >= 2048, the default
-above), the 128-bit dyadic
+a contiguous pass over every SM, the default up to n = 131072, and as
+the 4-step transform's stages, each a set of short butterfly transforms
+in shared memory, at any n >= 2048, the default above), the 128-bit dyadic
 multiply-accumulate, the BEHZ base conversion, per-limb modular
 arithmetic, the key switch, the Galois gather, the CKKS embedding in FP64
 with the statistics of troy's device encode and decode, the NTT-domain

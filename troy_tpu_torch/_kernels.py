@@ -40,7 +40,7 @@ SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
            "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu",
            "sharding.cu")
-HEADERS = ("u64.cuh",)
+HEADERS = ("u64.cuh", "butterfly.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -101,7 +101,7 @@ _SIGNATURES = {
     "troy_tile_pair_convolve": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P, _P,
                                 _P, _P),
     "troy_pack_group_fold": (_P, _P, _L, _I, _I, _I, _I, _P, _P),
-    "troy_ntt_mxu": (_P, _P, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P),
+    "troy_ntt_mxu": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
     "troy_shard_modsum": (_P, _P, _I, _L, _I, _I, _P, _P),
 }
 

@@ -168,9 +168,9 @@ class HeContext:
 
     ``use_mxu``: which kernel runs the NTTs of every level's q and Bsk
     tables and of the batching tables mod t (ops/ntt.py): True, kernel J
-    (the int8 tensor-core 4-step transform) at any n >= 2048; False,
-    kernel A at any n; None, A up to n = 16384 and J above. Both give the
-    same words."""
+    (the 4-step transform's stages as butterflies) at any n >= 2048;
+    False, kernel A at any n; None, A up to ops/ntt.py's MAX_KERNEL_N
+    (131072) and J above. Both give the same words."""
 
     def __init__(self, parms: EncryptionParameters,
                  expand_mod_chain: bool = True,

@@ -42,8 +42,9 @@
 // most 96 KiB (n = 2^24).
 // Inside a block the line's rounds run in stages of up to three: a thread
 // loads the 8 (4, 2) words that three (two, one) consecutive rounds join
-// from shared memory into registers, runs those rounds there, and writes
-// them back; stages are separated by __syncthreads(). Every butterfly is
+// from shared memory into registers, runs those rounds there
+// (butterfly.cuh, shared with kernel J), and writes them back; stages are
+// separated by __syncthreads(). Every butterfly is
 // the one-row-per-block kernel's, word for word (the same `a >= 2q`
 // correction and Shoup product, reduce_4q / n^-1 and reduce_2q only at the
 // end), so the split changes no word. Shared memory of the contiguous
@@ -54,7 +55,7 @@
 // so the index arithmetic folds away; other plans run one kernel that
 // reads its geometry at run time.
 
-#include "u64.cuh"
+#include "butterfly.cuh"
 
 using namespace troy;
 
@@ -167,7 +168,6 @@ __device__ __forceinline__ void stage(uint64_t *v_s, const uint64_t *tw_s,
         const Line ln = line_of(geo, blk_info, l, log_n, rows, k);
         if (ln.limb < 0) continue;
         const uint64_t q = moduli[ln.limb];
-        const uint64_t q2 = 2 * q;
         const uint64_t *w_tab =
             tw_s + ((geo.mode == kCols ? 0 : 2 * l) << log_line);
         const uint64_t *wq_tab = w_tab + (1 << log_line);
@@ -178,34 +178,8 @@ __device__ __forceinline__ void stage(uint64_t *v_s, const uint64_t *tw_s,
         for (int j = 0; j < W; ++j) {
             v[j] = v_s[smem_pos(geo, l, base + (j << log_h))];
         }
-#pragma unroll
-        for (int s = 0; s < R; ++s) {
-            const int t = kInverse ? R - 1 - s : s;
-            const int rho = rho0 + t;
-            const int d = 1 << (R - 1 - t);
-#pragma unroll
-            for (int j = 0; j < W; ++j) {
-                if (j & d) continue;
-                const int blk = (base + (j << log_h)) >> (log_line - rho);
-                const int idx = (1 << rho) + blk;
-                const uint64_t w = w_tab[idx];
-                const uint64_t wq = wq_tab[idx];
-                if (!kInverse) {
-                    uint64_t a = v[j];
-                    a = a >= q2 ? a - q2 : a;
-                    const uint64_t bw = mul_mod_shoup_lazy(v[j + d], w, wq, q);
-                    v[j] = a + bw;
-                    v[j + d] = a - bw + q2;
-                } else {
-                    const uint64_t a = v[j];
-                    const uint64_t c = v[j + d];
-                    uint64_t sum = a + c;
-                    sum = sum >= q2 ? sum - q2 : sum;
-                    v[j] = sum;
-                    v[j + d] = mul_mod_shoup_lazy(a - c + q2, w, wq, q);
-                }
-            }
-        }
+        butterfly_rounds<R, kInverse>(v, w_tab, wq_tab, base, log_h, rho0,
+                                      log_line, q);
 #pragma unroll
         for (int j = 0; j < W; ++j) {
             v_s[smem_pos(geo, l, base + (j << log_h))] = v[j];
@@ -221,12 +195,8 @@ __device__ __forceinline__ void run_stage(int s, uint64_t *v_s,
                                           const Geo &geo, const Block &blk,
                                           int log_n, int rows, int k,
                                           const uint64_t *moduli) {
-    const int log_line = geo.log_line;
-    const int stages = (log_line + 2) / 3;
-    const int si = kInverse ? stages - 1 - s : s;
-    const int small = log_line / stages, extra = log_line % stages;
-    const int R = small + (si < extra ? 1 : 0);
-    const int rho0 = si * small + (si < extra ? si : extra);
+    int R, rho0;
+    stage_plan(s, geo.log_line, kInverse, R, rho0);
     if (R == 3) {
         stage<3, kInverse>(v_s, tw_s, geo, blk, log_n, rows, k, rho0,
                            moduli);

@@ -12,10 +12,10 @@ for the dyadic products. A wrapper runs the plain version for tensors on
 the CPU and launches the kernel for tensors on CUDA.
 
 Tables made with J's factor matrices (``use_mxu``) run every transform on
-kernel J instead (ops/ntt_mxu.py, the int8 tensor-core 4-step transform,
-the JAX package's NTT at n >= 2048). ``use_mxu``: True, J at any
-n >= 2048; False, A at any n; None, the default, A up to n = 16384 and J
-above.
+kernel J instead (ops/ntt_mxu.py: the JAX package's 4-step transform at
+n >= 2048, its stages as butterflies in shared memory). ``use_mxu``:
+True, J at any n >= 2048; False, A at any n; None, the default, A up to
+``MAX_KERNEL_N`` and J above.
 
 A runs one pass over whole rows below n = 1024 and two passes from it up
 (a strided and a contiguous one, csrc/ntt.cu); the crossover was measured
@@ -44,8 +44,13 @@ from .. import _kernels
 from ..interop import to_torch
 from ..utils.ntt_tables import make_ntt_tables
 
-# The largest n the default (use_mxu=None) runs on A; J above.
-MAX_KERNEL_N = 16384
+# The largest n the default (use_mxu=None) runs on A; J above. Measured on
+# the H100 (chip_smoke.py phase 35, A and J in turns, device time a
+# forward call): A the faster at n = 32768, 65536 and 131072 by 3-8 %, J
+# at 262144 by 17-19 %; at 16384 J's edge (1-5 % at the headline's rows)
+# is inside the spread and its wrapper's host time is 1.4-1.7 times A's,
+# so the smaller rings stay on A (PERF.md section 7).
+MAX_KERNEL_N = 131072
 
 
 @dataclass(eq=False)

@@ -20,12 +20,19 @@ the bias terms fold in, the sums regroup in radix 2^32 with a static
 offset that makes them nonnegative, and a Shoup fold by 2^(32g) mod q
 brings each group back to [0, q).
 
-Kernel J (csrc/ntt_mxu.cu) runs each product on the H100's int8 tensor
-cores; its plain version here runs the same algebra with the plane
-products as float64 ``torch.matmul`` (exact: each plane-pair sum is at
-most 2^14 K <= 2^23 in magnitude, far below 2^53), which also runs on
-CUDA tensors for the card's comparisons. A wrapper runs the plain version
-for tensors on the CPU and launches the kernel for tensors on CUDA.
+Kernel J (csrc/ntt_mxu.cu) computes each stage's product as the short
+transform the factor matrix is, with butterflies in shared memory: W1 is
+the negacyclic A-point NTT with root psi^B (bit-reversed output), W2 the
+cyclic B-point NTT with root omega^A, whose butterfly network is the
+negacyclic one with round r's twiddles 2^r + i read from entry i of the
+length-B table of psi^A (``b_roots`` holds them so); V1 and V2 are their
+inverses, V2's 1/B folded into the inverse grid (``itw_b``). The words
+are exact residues, so they equal the matrix products'. Its plain version
+here runs the matrix algebra with the plane products as float64
+``torch.matmul`` (exact: each plane-pair sum is at most 2^14 K <= 2^23 in
+magnitude, far below 2^53), which also runs on CUDA tensors for the
+card's comparisons. A wrapper runs the plain version for tensors on the
+CPU and launches the kernel for tensors on CUDA.
 
 The tables of one (n, q) are made once per device (``make_mxu_tables``,
 cached) through the native runtime's ``mxu_tables_fill`` when it loads,
@@ -49,9 +56,11 @@ from ..interop import to_torch
 from ..utils import numth
 
 DIGITS = 8            # byte planes of the widest residue (61-bit moduli)
-# The smallest ring J takes: both factors at least 32 (one mma K step).
+# The smallest ring J takes: both factors at least 32 (the kernel's
+# shortest line), a row at least one 2048-word tile.
 MXU_MIN_N = 2048
-# The kernel's exactness bound: |acc| <= min(D, Dx) 4 128^2 K < 2^31.
+# The largest factor: the plain version's int32 bound (|acc| <= min(D, Dx)
+# 4 128^2 K < 2^31, as troy_tpu's) and the kernel's longest line.
 MAX_FACTOR = 512
 
 
@@ -125,9 +134,13 @@ def _m_off(q: int, d: int, dx: int, k: int) -> int:
 class MxuNttTables:
     """The factor matrices of one (n, q) on one device: biased byte planes
     of W1, W2, V1, V2 with their plane sums over the contraction axis, the
-    twiddle grids with their Shoup words; W2 and V2 also transposed (the
-    kernel reads every matrix with its contraction axis last), and the
-    per-modulus constants the kernel reads (``consts``)."""
+    twiddle grids with their Shoup words and W2 and V2 transposed (the
+    plain version's and troy_tpu's); the butterfly tables kernel J reads
+    (``a_roots``: psi^B's powers at bit-reversed positions, the A-point
+    table of kernel A's layout; ``b_roots``: the cyclic B-point table,
+    entry 2^r + i = (psi^A)^brv(i); their inverses and Shoup words; the
+    inverse grid over B, ``itw_b``), and the per-modulus constants
+    (``consts``)."""
 
     w1_digits: torch.Tensor      # (D, A, A) int8
     w1_sums: torch.Tensor        # (D, A) int32
@@ -144,8 +157,19 @@ class MxuNttTables:
     w2t_digits: torch.Tensor     # (D, B, B) int8, W2 transposed
     iw2t_digits: torch.Tensor    # (D, B, B) int8, V2 transposed
     # [q, Barrett ratio high word, D, m_off at K = A, m_off at K = B,
-    #  2^(32 g) mod q for g < 4, their Shoup words, 3 unused]
+    #  2^(32 g) mod q for g < 4, their Shoup words, 1/A mod q, its Shoup
+    #  word, 1 unused]
     consts: torch.Tensor         # (16,) u64 words
+    a_roots: torch.Tensor        # (A,) the A-point table, Shoup words,
+    a_roots_shoup: torch.Tensor  #   inverse roots and theirs
+    a_inv_roots: torch.Tensor
+    a_inv_roots_shoup: torch.Tensor
+    b_roots: torch.Tensor        # (B,) the cyclic B-point table, and so on
+    b_roots_shoup: torch.Tensor
+    b_inv_roots: torch.Tensor
+    b_inv_roots_shoup: torch.Tensor
+    itw_b: torch.Tensor          # (A, B) iTw / B
+    itw_b_shoup: torch.Tensor
     n: int
     a: int
     b: int
@@ -159,10 +183,10 @@ class MxuNttTables:
         """The device addresses the kernel reads for this modulus, in the
         order of csrc/ntt_mxu.cu's pointer table."""
         return [t.data_ptr() for t in (
-            self.w1_digits, self.w1_sums, self.w2t_digits, self.w2_sums,
-            self.iw1_digits, self.iw1_sums, self.iw2t_digits, self.iw2_sums,
-            self.tw, self.tw_shoup, self.itw, self.itw_shoup,
-            self.consts)] + [0, 0, 0]
+            self.a_roots, self.a_roots_shoup, self.a_inv_roots,
+            self.a_inv_roots_shoup, self.b_roots, self.b_roots_shoup,
+            self.b_inv_roots, self.b_inv_roots_shoup, self.tw, self.tw_shoup,
+            self.itw_b, self.itw_b_shoup, self.consts)] + [0, 0, 0]
 
 
 @lru_cache(maxsize=None)
@@ -229,6 +253,30 @@ def _host_matrices(n: int, q: int):
             as_u64(itw), as_u64(v2), shoup(tw), shoup(itw))
 
 
+def butterfly_tables_host(n: int, q: int):
+    """Kernel J's butterfly tables of (n, q) in Python integers: (a_roots,
+    a_inv_roots, b_roots, b_inv_roots) as lists. a_roots[j] =
+    (psi^B)^brv(j) (log2 A bits): the A-point negacyclic table of
+    ops/ntt.py's layout, W1's transform. b_roots[2^r + i] =
+    (psi^A)^brv(i) (log2 B bits), entry 0 = 1: the cyclic B-point table,
+    W2's transform. The inverses are elementwise."""
+    A, B = _split_factors(n)
+    psi = numth.minimal_primitive_root(2 * n, q)
+    root_a, root_b = pow(psi, B, q), pow(psi, A, q)
+
+    def negacyclic(root, length):
+        bits = length.bit_length() - 1
+        return [pow(root, numth.reverse_bits(j, bits), q)
+                for j in range(length)]
+
+    neg_b = negacyclic(root_b, B)
+    cyclic = [1] + [neg_b[j - (1 << (j.bit_length() - 1))]
+                    for j in range(1, B)]
+    a_roots = negacyclic(root_a, A)
+    inverse = lambda t: [numth.invert_mod(x, q) for x in t]
+    return a_roots, inverse(a_roots), cyclic, inverse(cyclic)
+
+
 @lru_cache(maxsize=None)
 def _make_mxu_tables(n: int, q: int, device: str) -> MxuNttTables:
     A, B, w1, tw, w2, v1, itw, v2, tws, itws = _host_matrices(n, q)
@@ -243,14 +291,24 @@ def _make_mxu_tables(n: int, q: int, device: str) -> MxuNttTables:
         return (torch.from_numpy(pl).to(dev),
                 torch.from_numpy(_plane_sums(pl, 1 + axis)).to(dev))
 
+    def with_shoup(values):
+        """A table of words < q and its Shoup words, on the device."""
+        return (u.u64(values, dev),
+                u.u64([u.shoup_quotient(int(v), q) for v in values], dev))
+
     w1_d, w1_s = planes_and_sums(w1, 1)
     w2_d, w2_s = planes_and_sums(w2, 0)
     v1_d, v1_s = planes_and_sums(v1, 1)
     v2_d, v2_s = planes_and_sums(v2, 0)
     scales = [pow(2, 32 * g, q) for g in range(4)]
+    inv_a, inv_b = numth.invert_mod(A, q), numth.invert_mod(B, q)
     consts = ([q, (((1 << 128) // q) >> 64), nd, _m_off(q, nd, nd, A),
                _m_off(q, nd, nd, B)] + scales
-              + [u.shoup_quotient(s, q) for s in scales] + [0, 0, 0])
+              + [u.shoup_quotient(s, q) for s in scales]
+              + [inv_a, u.shoup_quotient(inv_a, q), 0])
+    roots = [with_shoup(t) for t in butterfly_tables_host(n, q)]
+    itw_b = [int(x) * inv_b % q for x in itw.reshape(-1)]
+    itw_b, itw_b_shoup = (t.reshape(A, B) for t in with_shoup(itw_b))
     return MxuNttTables(
         w1_digits=w1_d, w1_sums=w1_s, w2_digits=w2_d, w2_sums=w2_s,
         tw=to_torch(tw, dev), tw_shoup=to_torch(tws, dev),
@@ -258,7 +316,12 @@ def _make_mxu_tables(n: int, q: int, device: str) -> MxuNttTables:
         itw=to_torch(itw, dev), itw_shoup=to_torch(itws, dev),
         w2t_digits=w2_d.transpose(1, 2).contiguous(),
         iw2t_digits=v2_d.transpose(1, 2).contiguous(),
-        consts=u.u64(consts, dev), n=n, a=A, b=B, modulus=q)
+        consts=u.u64(consts, dev),
+        a_roots=roots[0][0], a_roots_shoup=roots[0][1],
+        a_inv_roots=roots[1][0], a_inv_roots_shoup=roots[1][1],
+        b_roots=roots[2][0], b_roots_shoup=roots[2][1],
+        b_inv_roots=roots[3][0], b_inv_roots_shoup=roots[3][1],
+        itw_b=itw_b, itw_b_shoup=itw_b_shoup, n=n, a=A, b=B, modulus=q)
 
 
 def make_mxu_tables(n: int, q: int, device) -> MxuNttTables:
@@ -294,6 +357,8 @@ STAGES = {
 }
 FORWARD = ("forward_left", "forward_right")
 INVERSE = ("inverse_right", "inverse_left")
+# the stage argument of csrc/ntt_mxu.cu's entry point: STAGES' order
+_STAGE_INDEX = {name: i for i, name in enumerate(STAGES)}
 
 
 # --------------------------------------------------------------------------
@@ -429,8 +494,9 @@ def rns_mxu_stage(x: torch.Tensor, mxu: Sequence[MxuNttTables],
     """One launch of kernel J: ``stage`` over every limb and leading row of
     x (..., k, R, C) (``mxu_stage_plain`` says what it computes), with
     ``pointers`` the limbs' ``pointer_table``; x_planes bounds the words of
-    the forward transform's first stage. Words fully reduced."""
-    left, mat, tsel, reduce_in = STAGES[stage]
+    the forward transform's first stage (the plain version's planes; the
+    kernel reduces every word it reads). Words fully reduced."""
+    left, _, tsel, _ = STAGES[stage]
     R, C = x.shape[-2:]
     t0 = mxu[0]
     if x.dim() < 3 or x.shape[-3] != len(mxu) \
@@ -448,8 +514,7 @@ def rns_mxu_stage(x: torch.Tensor, mxu: Sequence[MxuNttTables],
     out = torch.empty_like(x)
     _kernels.launch("troy_ntt_mxu", out.get_device(), out, x,
                     x.numel() // (R * C), len(mxu), R.bit_length() - 1,
-                    C.bit_length() - 1, pointers, left, mat, tsel, reduce_in,
-                    x_planes if stage == "forward_left" else 0)
+                    C.bit_length() - 1, pointers, _STAGE_INDEX[stage])
     return out
 
 
@@ -479,8 +544,9 @@ def shard_tables(t: MxuNttTables, parts: int, index: int) -> MxuNttTables:
     the forward twiddles' column block (A, B/parts), which the forward
     left stage multiplies into a column block of C, and the inverse
     twiddles' row block (A/parts, B), which the inverse right stage
-    multiplies into a row block (a contiguous run of n/parts words); the
-    factor matrices whole (troy_tpu/ops/ntt_mxu.py:68 _split_factors,
+    multiplies into a row block (a contiguous run of n/parts words), with
+    the kernel's inverse grid over B; the factor matrices and butterfly
+    tables whole (troy_tpu/ops/ntt_mxu.py:68 _split_factors,
     troy_tpu/parallel/sharding.py:203)."""
     if t.a % parts or t.b % parts:
         raise ValueError(f"4-step factors ({t.a}, {t.b}) do not split "
@@ -491,22 +557,24 @@ def shard_tables(t: MxuNttTables, parts: int, index: int) -> MxuNttTables:
     return dataclasses.replace(
         t, tw=t.tw[:, cols].contiguous(),
         tw_shoup=t.tw_shoup[:, cols].contiguous(),
-        itw=t.itw[rows].contiguous(), itw_shoup=t.itw_shoup[rows].contiguous())
+        itw=t.itw[rows].contiguous(), itw_shoup=t.itw_shoup[rows].contiguous(),
+        itw_b=t.itw_b[rows].contiguous(),
+        itw_b_shoup=t.itw_b_shoup[rows].contiguous())
 
 
 def make_shard_tables(n: int, q: int, device, parts: int,
                       index: int) -> MxuNttTables:
     """``shard_tables`` of J's tables of (n, q) on ``device``. The plain
-    version takes any n; kernel J's 32 x 32 tiles need every block it
-    contracts at least 32 on each side, so on a card A / parts and
-    B / parts must be at least 32 (n = 16384 over up to 4 ranks, n = 131072
-    over up to 8)."""
+    version takes any n; kernel J's tiles need the blocks at least 32 on
+    each side (a left tile is up to 32 columns wide, a right tile 2048 / B
+    rows high), so on a card A / parts and B / parts must be at least 32
+    (n = 16384 over up to 4 ranks, n = 131072 over up to 8)."""
     A, B = _split_factors(n)
     device = torch.device(device)
     if A > MAX_FACTOR or (device.type == "cuda"
                           and min(A, B) // parts < 32):
         raise ValueError(f"J's shard of n = {n} over {parts} ranks: blocks "
                          f"of ({A // parts}, {B // parts}) are below the "
-                         "kernel's 32 x 32 tiles")
+                         "kernel's 32-line tiles")
     return shard_tables(_make_mxu_tables(int(n), int(q), str(device)), parts,
                         index)

@@ -49,9 +49,10 @@ from .keyswitch import MAX_KERNEL_LIMBS as KEYSWITCH_MAX_LIMBS
 from .ntt import RnsNttTables
 from .poly import ADD, SCALAR_MUL, rns_elementwise_plain
 
-# Kernels C and E keep a converter's limbs in registers and its constants
-# in shared memory: at most this many limbs per base, which covers SEAL's
-# n = 32768 chain (16 primes of q; |Bsk| = 17 and m~ at the key level).
+# Kernel C keeps a converter's limbs in registers, kernel E a tile's limbs
+# in shared memory, both the constants in shared memory: at most this many
+# limbs per base, which covers SEAL's n = 32768 chain (16 primes of q;
+# |Bsk| = 17 and m~ at the key level).
 MAX_KERNEL_LIMBS = 20
 
 
