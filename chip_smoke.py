@@ -52,7 +52,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    divide by the last prime, for the rescale and for the key switch)
    against their plain versions at the CKKS shapes: O1 within
    2^-44 max|x| (two FP64 summation orders), O2 and K' word for word, O3
-   bit for bit; the same times, bounds and library times as phase 3;
+   bit for bit; the same times, bounds and library times as phase 3, and
+   the library call's device time (profiler);
 8. the CKKS n = 16384 records chain from troy's C++ code
    (tests/data/ref_ckks_n16384_headline.bin): keygen (sk, relin key row 0,
    Galois key row 0), encode within the tie bound (|diff| <= 1 at <= 4
@@ -208,7 +209,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    V[j] + Im V[n-1-j]|)) writes O1's slots bit for bit, both residuals in
    [0, 1e-8] and the kernel's within 2^-44 max|v| of the plain version's;
    with phase 3's times, device us a launch and bound, and torch.fft.fft's
-   time as the transform's yardstick;
+   time (CUDA events) and device time (profiler) as the transform's
+   yardstick;
 30. troy's binder scripts through troy_tpu_torch.compat (``import
    troy_tpu_torch.compat as pytroy``) on the card, in a count window of
    their own: binder/test.py's Alice/Bob protocol (CKKS n = 16384, six
@@ -248,10 +250,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A, M, J and E as redesigned for the H100: A against its plain
-   version, word for word, at n = 256 to 16384 (one pass below 1024, two
-   from it up) and a row mod t, three rows mod t, (5, 6, n) and (4, 11,
-   n), forward and inverse, lazy and not; A's device us a call and a
+35. kernels A, M, J, E, O1 and O5 as redesigned for the H100: A against
+   its plain version, word for word, at n = 256 to 16384 (one pass below
+   1024, two from it up) and a row mod t, three rows mod t, (5, 6, n) and
+   (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
    launch and its blocks per launch at those rows (n = 16384) and at
    (5, 6, n) at every n; M's wrapper ms signed, unsigned and batched
    beside index_select / gather, timed in turns in this process, and its
@@ -265,9 +267,14 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    against the plain version and the sharded transforms against A; E's
    lift and tail at the headline's and SEAL's first data levels against
    their plain versions, with device us a launch and a call and the
-   bound. Device us a call come from CUDA events around a CUDA graph of
-   20 calls (the host's enqueue is longer than these kernels), a launch
-   from the profiler.
+   bound; O1 (both directions) and O5 as shared-memory FFTs at n = 1024
+   to 262144 within 2^-44 max|x| of their plain versions (O5 as phase 29
+   holds it), with their device us a call in turns with torch.fft.fft and
+   torch.fft.ifft of the same vectors, a launch, their blocks and threads a
+   launch and the bound, and the device time of phase 10's CKKS encode
+   and decode with O1's part of it. Device us a call come from CUDA events
+   around a CUDA graph of 20 calls (the host's enqueue is longer than
+   these kernels), a launch from the profiler.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
@@ -444,6 +451,11 @@ REDESIGN_J_SHARDS = (2, 4)
 # (the first data level: the chain less its special prime, t =
 # batching(n, 20); the multiply lifts two ciphertexts and tails three rows)
 REDESIGN_E_SHAPES = (("headline", N, Q_BITS), ("SEAL", 32768, "bfv_default"))
+# phase 35 (O1 and O5 redesigned): the rings they are held and timed at,
+# in turns with torch.fft.fft / ifft of the same vectors
+REDESIGN_O1_NS = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072,
+                  262144)
+O1_KERNELS = ("fft_cols_kernel", "fft_rows_kernel")
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -674,8 +686,9 @@ def compare(kind: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 def run_checks(tag: str, checks) -> dict:
     """Each (kernel, variant, kind, kernel call, plain call, work or None,
-    library call or None) checked and timed; the first of each kernel is
-    the one whose numbers stand in the JSON line."""
+    library call or None) checked and timed (a library call also its
+    device time, from the profiler); the first of each kernel is the one
+    whose numbers stand in the JSON line."""
     results = {}
     for kernel, variant, kind, run, plain, work, library in checks:
         got, want = run(), plain()
@@ -699,6 +712,10 @@ def run_checks(tag: str, checks) -> dict:
                 line += f", library {library_ms:.4f} ms"
         elif library:
             line += f", library {cuda_ms(library):.4f} ms"
+        if library:
+            # the library call's device time beside its CUDA-event time
+            line += (f" ({device_kernels_per_op(library)[1] * 1e3:.2f} us "
+                     "of device time, profiler)")
         log(line)
         entry = results[kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -3151,8 +3168,8 @@ def phase_stats_kernels(dev) -> tuple:
     and partners (a maximum is exact), both residuals in (0,
     RESIDUAL_BOUND] and the kernel's within O1_TOLERANCE max|v| of the
     plain version's; the times, device time per launch, bound, plain time
-    and torch.fft.fft's time (the transform's yardstick: no PyTorch call
-    computes either statistic)."""
+    and torch.fft.fft's time and device time (the transform's yardstick: no
+    PyTorch call computes either statistic)."""
     rng = np.random.default_rng(SEED + 29)
     shapes, results = {}, {}
     for tag, n, bits, scale in STATS_SHAPES:
@@ -3189,10 +3206,13 @@ def phase_stats_kernels(dev) -> tuple:
         _, e, pe = o5_checks[0]
         slot_err = max(c[0] for c in o5_checks)
         library_ms = cuda_ms(lambda: torch.fft.fft(u))
+        library_device_us = device_kernels_per_op(
+            lambda: torch.fft.fft(u))[1] * 1e3
         fft_ops = 5 * n * (n.bit_length() - 1)
         r = {"n": n, "limbs": k, "scale_log2": int(np.log2(scale)),
              "statistic": float(stat), "residual": e, "plain_residual": pe,
-             "library_ms": library_ms}
+             "library_ms": library_ms,
+             "library_device_us": library_device_us}
         for name, run, plain, work, err_ in (
                 ("O4_ckks_encode_stats", o4, o4_plain,
                  (_bytes(u) + k * n * 8 + 8, n * k * 4), 0),
@@ -3215,7 +3235,8 @@ def phase_stats_kernels(dev) -> tuple:
                 + "; ".join(f"{kk} x{c:g} at {us:.1f} us"
                             for kk, (c, us) in each.items())
                 + f"), bound {bound_ms:.6f} ms ({bound_by}), plain "
-                f"{plain_ms:.4f} ms, torch.fft.fft {library_ms:.4f} ms")
+                f"{plain_ms:.4f} ms, torch.fft.fft {library_ms:.4f} ms "
+                f"({library_device_us:.2f} us of device time, profiler)")
             if name not in results:
                 results[name] = {"max_abs_err": err_, "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -4171,10 +4192,12 @@ def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def phase_redesign(dev, bfv_ops: dict) -> dict:
-    """Phase 35: kernels A and M as redesigned for the H100. A against its
-    plain version, word for word, at every n of REDESIGN_NS (one pass over
-    whole rows below 1024, two passes from it up) and the shapes of
+def phase_redesign(dev, bfv_ops: dict, per_op: dict) -> dict:
+    """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5:
+    redesign_j, redesign_e, redesign_b, redesign_o1) as redesigned for the
+    H100. A against its plain version, word for word, at every n of
+    REDESIGN_NS (one pass over whole rows below 1024, two passes from it
+    up) and the shapes of
     REDESIGN_ROWS, forward and inverse, lazy and not, and at n = 32768
     beside J; A's device us per launch and blocks per launch; M's
     wrapper ms in every form beside index_select / gather timed in turns in
@@ -4294,9 +4317,10 @@ def phase_redesign(dev, bfv_ops: dict) -> dict:
     j = redesign_j(dev, rng)
     e = redesign_e(dev, rng)
     b = redesign_b(bfv_ops)
+    o1 = redesign_o1(dev, rng, per_op)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
-            "b": b}
+            "b": b, "o1": o1}
 
 
 def redesign_b(ops: dict) -> dict:
@@ -4587,6 +4611,105 @@ def redesign_e(dev, rng) -> dict:
     return out
 
 
+def o1_work(n: int, what: str) -> tuple:
+    """(bytes, 64-bit products, f64 operations) of one O1 or O5 call at n,
+    as phases 7 and 29 count them: the slots in and u out (encode), the
+    coefficients in and the slots out (decode; O5 also its partners and
+    the residual word), 5 n log2 n f64 operations of an FFT (O5: 3 more a
+    slot)."""
+    ops = 5 * n * (n.bit_length() - 1)
+    if what == "encode":
+        return n // 2 * 16 + n * 16, 0, ops
+    if what == "decode":
+        return n * 8 + n // 2 * 16, 0, ops
+    return n * 8 + 2 * (n // 2 * 16) + 8, 0, ops + 3 * (n // 2)
+
+
+def redesign_o1(dev, rng, per_op: dict) -> dict:
+    """Phase 35, kernels O1 and O5 (the FFT passes in shared memory): at
+    every REDESIGN_O1_NS ring O1's encode (all slots and 3) and decode
+    (an encoding's coefficients and raw ones) within O1_TOLERANCE of their
+    plain versions, O5 held as phase 29 holds it (check_o5); each one's
+    device us a call (CUDA graphs) in turns with torch.fft.fft and
+    torch.fft.ifft of the same (n,) complex128 vectors, its device us a
+    launch (profiler, both launches of every traced call seen) and the
+    library's device us a call from the profiler, its blocks and threads a
+    launch and its bound; and the device time of phase 10's CKKS encode and
+    decode with O1's part of it."""
+    out = {}
+    for n in REDESIGN_O1_NS:
+        t = embedding.make_embed_tables(n, dev)
+        vals = torch.from_numpy(rng.uniform(-1, 1, n // 2)
+                                + 1j * rng.uniform(-1, 1, n // 2)).to(dev)
+        few = vals[:3]
+        coeffs = (embedding.embed_inverse_fft(vals, t) * t.untwist
+                  ).real.contiguous()
+        raw = torch.from_numpy(rng.uniform(-1, 1, n) * 2.0 ** 30).to(dev)
+        try:
+            err = max(
+                compare("close", embedding.embed_inverse_fft(v, t),
+                        embedding.embed_inverse_fft_plain(v, t))
+                for v in (vals, few))
+            err = max([err] + [
+                compare("close", embedding.embed_forward(c, t),
+                        embedding.embed_forward_plain(c, t))
+                for c in (coeffs, raw)])
+            o5_err, residual, _ = check_o5(coeffs, t)
+        except AssertionError as exc:
+            raise AssertionError(f"O1/O5 at n = {n}: {exc}") from None
+        spectrum = embedding.scatter_slots(vals, t)
+        twisted = coeffs * t.twist
+        calls = {"encode": lambda: embedding.embed_inverse_fft(vals, t),
+                 "decode": lambda: embedding.embed_forward(coeffs, t),
+                 "o5": lambda: embedding.embed_forward_stats(coeffs, t),
+                 "fft": lambda: torch.fft.fft(spectrum),
+                 "ifft": lambda: torch.fft.ifft(twisted)}
+        turns = {name: [] for name in calls}
+        for r in range(4):
+            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                turns[name].append(graph_us(calls[name]))
+        r = {"n": n, "a": t.a, "b": t.b, "max_abs_err": max(err, o5_err),
+             "residual": residual,
+             "blocks_threads": embedding.launch_geometry(t),
+             "device_us_turns": turns}
+        for name, fn in calls.items():
+            library = name in ("fft", "ifft")
+            _, device_ms, each = device_kernels_per_op(
+                fn, reps=10, expect=None if library else {
+                    k: 1 for k in O1_KERNELS}, whole=not library)
+            r[name] = {"device_us": statistics.median(turns[name]),
+                       "profiler_us": device_ms * 1e3}
+            if not library:
+                bound_ms, bound_by = bound(*o1_work(n, name))
+                r[name].update(us_per_launch={k: each[k][1]
+                                              for k in O1_KERNELS},
+                               bound_ms=bound_ms, bound_by=bound_by)
+        out[str(n)] = r
+        log(f"[35] O1/O5 n = {n} (A, B) = ({t.a}, {t.b}), (blocks, threads) "
+            f"a launch {r['blocks_threads']}: within {r['max_abs_err']:.3g} "
+            f"of the plain versions, residual {residual:.3g}; device us a "
+            f"call in turns (graph): encode {r['encode']['device_us']:.2f}, "
+            f"decode {r['decode']['device_us']:.2f}, O5 "
+            f"{r['o5']['device_us']:.2f}, torch.fft.fft "
+            f"{r['fft']['device_us']:.2f}, ifft {r['ifft']['device_us']:.2f}"
+            f" (profiler: {r['fft']['profiler_us']:.2f}, "
+            f"{r['ifft']['profiler_us']:.2f}); a launch (profiler): "
+            + "; ".join(f"{name} " + ", ".join(
+                f"{us:.2f}" for us in r[name]["us_per_launch"].values())
+                        for name in ("encode", "decode", "o5"))
+            + f"; bound {r['encode']['bound_ms'] * 1e3:.3f} us (encode, "
+            f"{r['encode']['bound_by']})")
+    ops = {}
+    for op in ("ckks_encode", "ckks_decode"):
+        each = per_op[op]["each"]
+        o1_ms = sum(c * us for k, (c, us) in each.items()
+                    if k in O1_KERNELS) / 1e3
+        ops[op] = {"device_ms": per_op[op]["device_ms"], "o1_ms": o1_ms}
+        log(f"[35] phase 10's {op}: {per_op[op]['device_ms'] * 1e3:.2f} us "
+            f"of device time, O1's launches {o1_ms * 1e3:.2f} us of it")
+    return {"rings": out, "ckks_ops": ops}
+
+
 def a_share(per_op: dict, op: str) -> dict:
     """Kernel A's share of one profiled op's device time (its trace held
     whole, A's launches in it: profile_ops' expect)."""
@@ -4756,7 +4879,7 @@ def main() -> None:
     # ---- kernels A and M redesigned: 35, before phase 34 spawns its
     # ranks on the card (after it, the profiler lost the same share of
     # every trace in this process) ----
-    redesign = phase_redesign(ctx.device, bfv_ops)
+    redesign = phase_redesign(ctx.device, bfv_ops, per_op)
 
     # ---- multi-device (R): 33-34 ----
     shard_results, j_shards = phase_shard_kernels(ctx.device)

@@ -377,16 +377,17 @@ def test_slice_on_the_card_gives_the_cpu_words(dev):
         np.testing.assert_array_equal(on_card[stage], want, err_msg=stage)
 
 
-@pytest.mark.parametrize("n", [64, 1024, 16384])
+@pytest.mark.parametrize("n", [2, 8, 64, 1024, 2048, 16384, 32768, 262144])
 def test_embedding_kernels(dev, n):
-    """O1 (both directions, every slot count), O2 (magnitudes up to
-    2^200, ties) and O3 (every level's width) against their plain
-    versions."""
+    """O1 (both directions, every slot count; every geometry of its FFT
+    passes: lines of 1-512 words, one and two columns a block, A = B and
+    A = 2B), O2 (magnitudes up to 2^200, ties) and O3 (every level's
+    width) against their plain versions."""
     rng = np.random.default_rng(n)
     t = embedding.make_embed_tables(n, dev)
     close = lambda got, want: float((got - want).abs().max()) <= \
         2.0 ** -44 * float(want.abs().max())
-    for count in (n // 2, 3):
+    for count in (n // 2, min(3, n // 2)):
         vals = torch.from_numpy(rng.uniform(-1, 1, count)
                                 + 1j * rng.uniform(-1, 1, count)).to(dev)
         got = embedding.embed_inverse_fft(vals, t)
@@ -403,7 +404,8 @@ def test_embedding_kernels(dev, n):
         u = torch.from_numpy((rng.uniform(-1, 1, n)
                               + 1j * rng.uniform(-1, 1, n))
                              * 2.0 ** log_mag).to(dev)
-        u[:4] = torch.tensor([0.5, -2.5, 3.5, 0.0], dtype=torch.complex128)
+        u[:4] = torch.tensor([0.5, -2.5, 3.5, 0.0],
+                             dtype=torch.complex128)[:min(4, n)]
         for scale in (1.0, 2.0 ** 7):
             _same(embedding.untwist_round_to_rns(u, scale, t, rt),
                   embedding.untwist_round_to_rns_plain(u, t.untwist, scale,
@@ -416,6 +418,22 @@ def test_embedding_kernels(dev, n):
         want = embedding.compose_centered_plain(res, srt, 2.0 ** -40)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def test_embedding_refuses_rings_past_its_lines(dev):
+    """O1 and O5 take lines of up to 512 words (n <= 2^18): at n = 2^19
+    (A = 1024) each entry point refuses the launch (cudaErrorInvalidValue)
+    and the wrapper raises."""
+    n = 2 ** 19
+    t = embedding.make_embed_tables(n, dev)
+    assert embedding.launch_geometry(t) == ()
+    vals = torch.zeros(n // 2, dtype=torch.complex128, device=dev)
+    coeffs = torch.zeros(n, dtype=torch.float64, device=dev)
+    for call in (lambda: embedding.embed_inverse_fft(vals, t),
+                 lambda: embedding.embed_forward(coeffs, t),
+                 lambda: embedding.embed_forward_stats(coeffs, t)):
+        with pytest.raises(RuntimeError, match="failed with error 1$"):
+            call()
 
 
 def test_kprime_kernels(dev):
@@ -486,7 +504,7 @@ def _ckks_slice(device):
             "moduli": ctx.first_context_data.coeff_values}
 
 
-@pytest.mark.parametrize("n", [64, 1024, 16384, 32768])
+@pytest.mark.parametrize("n", [64, 1024, 2048, 16384, 32768, 131072])
 def test_ckks_statistics_kernels(dev, n):
     """O4: O2's words and the statistic bit-equal to the plain version's,
     at scales 2^40 and 2^55 and at magnitudes up to 2^100; O5: the slots

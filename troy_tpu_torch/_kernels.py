@@ -77,6 +77,7 @@ _SIGNATURES = {
     "troy_ckks_fft_decode_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _P),
     "troy_ckks_compose": (_P, _P, _I, _I, _I, _P, _D, _P),
+    "troy_ckks_fft_geometry": (_I, _I, _P),             # no launch: a query
     "troy_rescale_ntt_temps": (_P, _P, _L, _I, _I, _P, _P),
     "troy_rescale_ntt_finish": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P,
                                _P),

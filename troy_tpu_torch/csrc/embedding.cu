@@ -25,39 +25,57 @@
 //   O5:        O1 decode, and max(|Re V[j] - Re V[n-1-j]|, |Im V[j] +
 //              Im V[n-1-j]|) over the slots j into one f64 word: the
 //              partners n-1-idx_i are exactly the positions that are not
-//              slots, so the rows pass stores them to a second buffer, and
-//              one small launch over n/2 reduces the residual.
+//              slots, so the rows pass stores them to a second buffer and
+//              reduces the residual of the slots it holds.
 //
 // Both statistics are maxima of values >= 0, reduced in a block (warp
 // shuffles, then shared memory) and across blocks by atomicMax on the u64
 // bit pattern of the double, which orders non-negative doubles as their
-// values: the result does not depend on the order of the blocks. The word
-// is zeroed on the launch's stream (cudaMemsetAsync) just before. O4 adds
-// no launch to O2 and no pass over memory; O5 adds the n/2 partner values
-// (stored and read once) and the reduction launch to O1's two passes.
+// values: the result does not depend on the order of the blocks. O4's word
+// is zeroed on the launch's stream (cudaMemsetAsync) just before; O5's by
+// the first block of O1's columns pass, which runs before its rows pass on
+// the same stream. O4 adds no launch to O2 and no pass over memory; O5 adds
+// the n/2 partner values (stored once) to O1's two passes, and no launch.
 //
 // O1 is the 4-step transform of the JAX package: n = A x B, x[a*B + b],
-//   s[p1, b]        = tw[p1, b] * sum_a w1[p1, a] x[a, b]   (pass 1)
-//   out[p2*A + p1]  = sum_b s[p1, b] w2[b, p2]              (pass 2)
-// with the (A, A), (A, B) and (B, B) complex tables of ops/embedding.py.
-// A row of 16384 complex doubles (256 KiB) does not fit a block's shared
-// memory (227 KB), so each pass stages a few columns (pass 1) or rows
-// (pass 2) of 128 entries in shared memory and runs direct length-A or
-// length-B sums over them; the (n,) intermediate goes through device memory
-// (L2) between the two launches.
+//   s[p1, b]        = tw[p1, b] * sum_a w^(B p1 a) x[a, b]     (pass 1)
+//   out[p2*A + p1]  = sum_b w^(A b p2) s[p1, b]                (pass 2)
+// (w = exp(-2 pi i / n) for the encode, its conjugate for the decode), so
+// pass 1 is a length-A DFT of every column and pass 2 a length-B DFT of
+// every row. Each pass runs them as radix-2 decimation-in-frequency FFTs in
+// shared memory: a block copies its lines (COLS columns in pass 1; in pass
+// 2 the rows p1 and A-1-p1, which hold every slot's partner: n-1-(p2 A +
+// p1) = (B-1-p2) A + (A-1-p1)) into a line-major tile padded by one word
+// in eight against bank conflicts, and copies the line length's root table
+// (round r's L/2^(r+1) roots W^(j 2^r) one after another, W = w^B or w^A,
+// made on the host with the angle reduced mod n: ops/embedding.py
+// line_roots). The log2(L) rounds run in stages of up to LOG_RADIX in
+// registers (a thread takes 2^R words of one line), a barrier between
+// stages; round r joins the words L/2^(r+1) apart and multiplies their
+// difference by root j 2^r, j the index mod L/2^(r+1). Word i of a line
+// then holds output brv(i): pass 1 stores it times the tw grid, pass 2
+// times 1/n (encode) or through the slot scatter (decode), and O5's
+// residual is read off the two rows of the block before it reduces. The
+// (n,) intermediate goes through device memory (L2) between the launches.
+// tests/test_torch_embedding_fft.py emulates both passes in plain PyTorch.
 //
-// What bounds them on the H100: at n = 16384 O1 moves about 1.3 MB
-// (tables included) for 33.5 MFLOP of direct sums (1.15 MFLOP for an FFT):
-// the launch and the few blocks (n / (A * COLS) per pass) bound it, not
-// bandwidth; a radix-2 pass per block and more rows per block are later
-// work. O2 and O3 are one thread per coefficient with k limbs (O3: W
-// 64-bit words of accumulator in registers), bound by their k*n words.
+// What bounds them on the H100: at n = 16384 an FFT is 1.15 MFLOP and the
+// function moves about 0.4 MB (0.117 us at 3.35 TB/s): far below a launch,
+// so latency bounds O1 (two launches, each an L2 round trip and
+// log2(L) / LOG_RADIX barriers; about 2.5 us a launch there, 64 blocks of
+// 64 threads). Radix 4 with two columns a block ran the fastest of radix
+// 2, 4 and 8 with one, two and four columns at n = 4096-131072 on the
+// H100. The direct sums this replaces did 33.5 MFLOP over
+// dense (A, A) and (B, B) matrices in 32 blocks a pass. O2 and
+// O3 are one thread per coefficient with k limbs (O3: W 64-bit words of
+// accumulator in registers), bound by their k*n words.
 //
 // Floating point: O2 and O3 must give the plain PyTorch versions' bits, so
 // every f64 step that feeds a rounding is written with __dmul_rn /
 // __dadd_rn / __dsub_rn, which nvcc never contracts into a fused
 // multiply-add (it does contract a*b + c by default). O1 is held to
-// 2^-44 max|x| of its plain version and lets nvcc contract.
+// 2^-44 max|x| of its plain version and lets nvcc contract; O5 runs O1's
+// decode passes themselves, so its slots are O1's bits.
 
 #include "u64.cuh"
 
@@ -65,8 +83,9 @@ using namespace troy;
 
 namespace {
 
-constexpr int COLS = 4;          // columns per block, pass 1
-constexpr int ROWS = 4;          // rows per block, pass 2
+constexpr int LOG_RADIX = 2;     // FFT rounds a stage keeps in registers
+constexpr int COLS = 2;          // columns a block, pass 1 (A >= 4)
+constexpr int MAX_LOG_LINE = 9;  // lines of up to 512 words (n <= 2^18)
 constexpr int THREADS = 256;
 constexpr int MAX_WORDS = 16;    // O3 accumulator words (Q < 2^960)
 constexpr int MAX_LIMBS = 64;
@@ -76,9 +95,9 @@ __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
 }
 
 // max over the block of v >= 0, atomically into the u64 bit pattern at
-// word. Every thread of the block calls it.
+// word. Every thread of the block calls it; blockDim.x is a multiple of 32.
 __device__ void block_max_to(double v, unsigned long long *word) {
-    __shared__ double warp_max[THREADS / 32];
+    __shared__ double warp_max[32];
     for (int off = 16; off > 0; off >>= 1) {
         v = fmax(v, __shfl_down_sync(0xffffffffu, v, off));
     }
@@ -97,25 +116,162 @@ __device__ void block_max_to(double v, unsigned long long *word) {
     }
 }
 
-// Pass 1 over columns b0 .. b0+cols-1. kEncode: x[j] is the slot scatter of
-// `in` (complex, `count` values) by `index` (i, or ~i for the conjugate);
-// otherwise x[j] = in[j] (real) * twist[j].
-template <bool kEncode>
-__global__ void fft_cols_kernel(double2 *__restrict__ s,
-                                const void *__restrict__ in,
-                                const int *__restrict__ index,
-                                long long count,
-                                const double2 *__restrict__ twist,
-                                const double2 *__restrict__ w1,
-                                const double2 *__restrict__ tw, int A, int B,
-                                int cols) {
-    extern __shared__ double2 tile[];                  // (A, cols)
-    const int b0 = blockIdx.x * cols;
-    for (int idx = threadIdx.x; idx < A * cols; idx += blockDim.x) {
-        const int a = idx / cols;
-        const int j = a * B + b0 + idx % cols;
+// Columns a block of pass 1 (lines of 2^log_a words).
+__host__ __device__ constexpr int cols_of(int log_a) {
+    return log_a >= 2 ? COLS : 1;
+}
+
+// Threads of a block of `lines` lines of 2^log_line words: one a group of
+// 2^LOG_RADIX words, whole warps.
+__host__ __device__ constexpr int threads_of(int log_line, int lines) {
+    return ((lines << log_line) >> (log_line < LOG_RADIX ? log_line
+                                                          : LOG_RADIX)) < 32
+               ? 32
+               : (lines << log_line) >> LOG_RADIX;
+}
+
+// Shared-memory position of word f of a line-major tile: one pad word in
+// eight, so that words 2^R apart (R <= 3) fall in different banks.
+__device__ __forceinline__ int spos(int f) { return f + (f >> 3); }
+
+__device__ __forceinline__ int bit_reverse(int i, int log_line) {
+    return log_line ? static_cast<int>(__brev(static_cast<unsigned>(i)) >>
+                                       (32 - log_line))
+                    : 0;
+}
+
+// Stage s of a line's ceil(log_line / LOG_RADIX) stages: R rounds from
+// round rho0, as even as they go.
+__device__ __forceinline__ void fft_stage_plan(int s, int log_line, int &R,
+                                               int &rho0) {
+    const int stages = (log_line + LOG_RADIX - 1) / LOG_RADIX;
+    const int small = log_line / stages, extra = log_line % stages;
+    R = small + (s < extra ? 1 : 0);
+    rho0 = s * small + (s < extra ? s : extra);
+}
+
+// Rounds rho0 .. rho0 + R - 1 on the 2^R words v[m] = line[base + (m <<
+// log_h)] of one line of 2^kLogLine words; roots: the round-major table.
+template <int R, int kLogLine>
+__device__ __forceinline__ void fft_rounds(double2 (&v)[1 << R],
+                                           const double2 *roots, int base,
+                                           int log_h, int rho0) {
+    const int low = base & ((1 << log_h) - 1);
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+        const int rho = rho0 + t;
+        const int d = 1 << (R - 1 - t);
+        // round rho's roots start at L - L / 2^rho
+        const double2 *run = roots + ((1 << kLogLine) -
+                                      ((1 << kLogLine) >> rho));
+#pragma unroll
+        for (int m = 0; m < (1 << R); ++m) {
+            if (m & d) continue;
+            // the index mod L / 2^(rho+1): base's low bits, m's below d
+            const double2 w = run[low | ((m & (d - 1)) << log_h)];
+            const double2 a = v[m], b = v[m + d];
+            v[m] = make_double2(a.x + b.x, a.y + b.y);
+            v[m + d] = cmul(make_double2(a.x - b.x, a.y - b.y), w);
+        }
+    }
+}
+
+// The stages with R rounds from rho0 on every line of a line-major tile.
+template <int R, int kLogLine, int kLines, int kThreads>
+__device__ __forceinline__ void fft_stage(double2 *x_s,
+                                          const double2 *roots, int rho0) {
+    constexpr int log_groups = kLogLine - R;           // groups a line
+    constexpr int items = kLines << log_groups;
+    const int log_h = kLogLine - rho0 - R;             // the stage's gap
+#pragma unroll
+    for (int rep = 0; rep < (items + kThreads - 1) / kThreads; ++rep) {
+        const int it = threadIdx.x + rep * kThreads;
+        if (items % kThreads != 0 && it >= items) break;
+        const int l = it >> log_groups;
+        const int g = it & ((1 << log_groups) - 1);
+        const int base = (l << kLogLine) |
+                         ((g >> log_h) << (kLogLine - rho0)) |
+                         (g & ((1 << log_h) - 1));
+        double2 v[1 << R];
+#pragma unroll
+        for (int m = 0; m < (1 << R); ++m) {
+            v[m] = x_s[spos(base + (m << log_h))];
+        }
+        fft_rounds<R, kLogLine>(v, roots, base, log_h, rho0);
+#pragma unroll
+        for (int m = 0; m < (1 << R); ++m) {
+            x_s[spos(base + (m << log_h))] = v[m];
+        }
+    }
+}
+
+// Every line of the tile transformed in place (word i holds output
+// brv(i)); the tile and the roots are loaded, and the caller syncs after.
+template <int kLogLine, int kLines, int kThreads>
+__device__ __forceinline__ void fft_lines(double2 *x_s,
+                                          const double2 *roots) {
+#pragma unroll
+    for (int s = 0; s < (kLogLine + LOG_RADIX - 1) / LOG_RADIX; ++s) {
+        int R, rho0;
+        fft_stage_plan(s, kLogLine, R, rho0);
+        if (R == 3) {
+            if constexpr (LOG_RADIX >= 3 && kLogLine >= 3) {
+                fft_stage<3, kLogLine, kLines, kThreads>(x_s, roots, rho0);
+            }
+        } else if (R == 2) {
+            if constexpr (LOG_RADIX >= 2 && kLogLine >= 2) {
+                fft_stage<2, kLogLine, kLines, kThreads>(x_s, roots, rho0);
+            }
+        } else {
+            if constexpr (kLogLine >= 1) {
+                fft_stage<1, kLogLine, kLines, kThreads>(x_s, roots, rho0);
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Pass 1 over columns b0 .. b0 + COLS - 1 (lines of A = 2^kLogA words):
+// s[p1, b] = tw[p1, b] * FFT(x[., b])[p1]. Encode: x[j] is the slot
+// scatter of `in` (complex, `count` values) by `index` (i, or ~i for the
+// conjugate); decode: x[j] = in[j] (real) * twist[j]. The first block
+// zeroes *err where it is given (O5's residual word).
+template <int kLogA>
+__global__ void __launch_bounds__(threads_of(kLogA, cols_of(kLogA)))
+fft_cols_kernel(double2 *__restrict__ s, const void *__restrict__ in,
+                const int *__restrict__ index, long long count,
+                const double2 *__restrict__ twist,
+                const double2 *__restrict__ roots,
+                const double2 *__restrict__ tw, int log_b, bool encode,
+                unsigned long long *__restrict__ err) {
+    constexpr int L = 1 << kLogA, C = cols_of(kLogA), W = L * C;
+    constexpr int T = threads_of(kLogA, C), PER = (W + T - 1) / T;
+    __shared__ __align__(16) double2 x_s[W + W / 8];
+    __shared__ __align__(16) double2 r_s[L];
+    const int b0 = blockIdx.x * C;
+    if (err != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *err = 0;
+    // word f = rep T + thread of the tile stores output brv(f / C) of
+    // column f % C: its grid entry, read while the tile loads
+    auto out_at = [&](int f) {
+        return (static_cast<int64_t>(bit_reverse(f / C, kLogA)) << log_b) +
+               b0 + (f & (C - 1));
+    };
+    double2 tw_r[PER];
+#pragma unroll
+    for (int rep = 0; rep < PER; ++rep) {
+        const int f = threadIdx.x + rep * T;
+        if (W % T == 0 || f < W) tw_r[rep] = tw[out_at(f)];
+    }
+    for (int f = threadIdx.x; f < L - 1; f += T) r_s[f] = roots[f];
+    // consecutive threads, consecutive columns of a row
+#pragma unroll
+    for (int rep = 0; rep < PER; ++rep) {
+        const int f = threadIdx.x + rep * T;
+        if (W % T != 0 && f >= W) break;
+        const int l = f & (C - 1), a = f / C;
+        const int64_t j = (static_cast<int64_t>(a) << log_b) + b0 + l;
         double2 v;
-        if (kEncode) {
+        if (encode) {
             const int src = index[j];
             const int i = src >= 0 ? src : ~src;
             if (i < count) {
@@ -129,111 +285,141 @@ __global__ void fft_cols_kernel(double2 *__restrict__ s,
             const double2 t = twist[j];
             v = make_double2(c * t.x, c * t.y);
         }
-        tile[idx] = v;
+        x_s[spos(l * L + a)] = v;
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < A * cols; idx += blockDim.x) {
-        const int p1 = idx / cols;
-        const int c = idx % cols;
-        const double2 *row = w1 + static_cast<int64_t>(p1) * A;
-        double2 acc = make_double2(0.0, 0.0);
-        for (int a = 0; a < A; ++a) {
-            const double2 w = row[a];
-            const double2 x = tile[a * cols + c];
-            acc.x += w.x * x.x - w.y * x.y;
-            acc.y += w.x * x.y + w.y * x.x;
+    fft_lines<kLogA, C, T>(x_s, r_s);
+#pragma unroll
+    for (int rep = 0; rep < PER; ++rep) {
+        const int f = threadIdx.x + rep * T;
+        if (W % T == 0 || f < W) {
+            s[out_at(f)] =
+                cmul(x_s[spos((f & (C - 1)) * L + f / C)], tw_r[rep]);
         }
-        const int64_t at = static_cast<int64_t>(p1) * B + b0 + c;
-        s[at] = cmul(acc, tw[at]);
     }
 }
 
-// Pass 2 over rows p1_0 .. p1_0+rows-1. kEncode: out[k] = sum * out_scale
-// (complex, n); otherwise out[scatter[k]] = sum where scatter[k] >= 0 (the
-// slots, scatter[idx_i] = i) and, with kPartners, partner[~scatter[k]] =
-// sum elsewhere (their partners, scatter[n-1-idx_i] = ~i).
-template <bool kEncode, bool kPartners = false>
-__global__ void fft_rows_kernel(double2 *__restrict__ out,
-                                const double2 *__restrict__ s,
-                                const int *__restrict__ scatter,
-                                const double2 *__restrict__ w2, int A, int B,
-                                int rows, double out_scale,
-                                double2 *__restrict__ partner = nullptr) {
-    extern __shared__ double2 tile[];                  // (rows, B + 1)
-    const int p1_0 = blockIdx.x * rows;
-    const int stride = B + 1;                          // no bank conflicts
-    for (int idx = threadIdx.x; idx < rows * B; idx += blockDim.x) {
-        tile[(idx / B) * stride + idx % B] =
-            s[static_cast<int64_t>(p1_0) * B + idx];
+// Pass 2 over rows p1 = blockIdx.x and A-1-p1 (lines of B = 2^kLogB
+// words): out[p2*A + p1] = FFT(s[p1, .])[p2]. Encode: out[k] = that times
+// out_scale (complex, n); decode: out[scatter[k]] = it where scatter[k] >=
+// 0 (the slots, scatter[idx_i] = i) and, with partner, partner[~scatter[k]]
+// = it elsewhere (their partners, scatter[n-1-idx_i] = ~i), and the
+// block's residual max(|Re v - Re p|, |Im v + Im p|) over its slots v and
+// their partners p (the other row's word at B-1-p2) into *err.
+template <int kLogB>
+__global__ void __launch_bounds__(threads_of(kLogB, 2))
+fft_rows_kernel(double2 *__restrict__ out, const double2 *__restrict__ s,
+                const int *__restrict__ scatter,
+                const double2 *__restrict__ roots, int log_a,
+                double out_scale, bool encode,
+                double2 *__restrict__ partner,
+                unsigned long long *__restrict__ err) {
+    constexpr int L = 1 << kLogB, W = 2 * L;
+    constexpr int T = threads_of(kLogB, 2), PER = (W + T - 1) / T;
+    __shared__ __align__(16) double2 x_s[W + W / 8];
+    __shared__ __align__(16) double2 r_s[L];
+    // line l holds row p1_of(l); word f = rep T + thread of the tile stores
+    // output k = out_at(f), through the scatter entry read while the tile
+    // loads (decode)
+    const int p1 = blockIdx.x, p1_pair = (1 << log_a) - 1 - p1;
+    auto p1_of = [&](int l) { return l ? p1_pair : p1; };
+    auto out_at = [&](int f) {
+        return (static_cast<int64_t>(bit_reverse(f & (L - 1), kLogB))
+                << log_a) + p1_of(f >> kLogB);
+    };
+    int slot_r[PER];
+#pragma unroll
+    for (int rep = 0; rep < PER; ++rep) {
+        const int f = threadIdx.x + rep * T;
+        if (!encode && (W % T == 0 || f < W)) {
+            slot_r[rep] = scatter[out_at(f)];
+        }
+    }
+    for (int f = threadIdx.x; f < L - 1; f += T) r_s[f] = roots[f];
+#pragma unroll
+    for (int rep = 0; rep < PER; ++rep) {
+        const int f = threadIdx.x + rep * T;
+        if (W % T != 0 && f >= W) break;
+        x_s[spos(f)] =
+            s[(static_cast<int64_t>(p1_of(f >> kLogB)) << kLogB) +
+              (f & (L - 1))];
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < rows * B; idx += blockDim.x) {
-        const int r = idx % rows;
-        const int p2 = idx / rows;
-        const double2 *row = tile + r * stride;
-        double2 acc = make_double2(0.0, 0.0);
-        for (int b = 0; b < B; ++b) {
-            const double2 w = w2[static_cast<int64_t>(b) * B + p2];
-            const double2 x = row[b];
-            acc.x += x.x * w.x - x.y * w.y;
-            acc.y += x.x * w.y + x.y * w.x;
-        }
-        const int64_t k = static_cast<int64_t>(p2) * A + p1_0 + r;
-        if (kEncode) {
-            out[k] = make_double2(acc.x * out_scale, acc.y * out_scale);
-        } else {
-            const int slot = scatter[k];
-            if (slot >= 0) {
-                out[slot] = acc;
-            } else if (kPartners) {
-                partner[~slot] = acc;
-            }
-        }
-    }
-}
-
-template <bool kEncode, bool kPartners = false>
-int fft(double2 *out, const void *in, double2 *scratch, const int *index,
-        long long count, const double2 *twist, const double2 *w1,
-        const double2 *tw, const double2 *w2, int A, int B,
-        double out_scale, cudaStream_t stream,
-        double2 *partner = nullptr) {
-    if (A < 1 || B < 1 || (A & (A - 1)) || (B & (B - 1))) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const int cols = B < COLS ? B : COLS;
-    const int rows = A < ROWS ? A : ROWS;
-    const size_t smem1 = static_cast<size_t>(A) * cols * sizeof(double2);
-    const size_t smem2 = static_cast<size_t>(rows) * (B + 1) * sizeof(double2);
-    if (smem1 > 48 * 1024 || smem2 > 48 * 1024) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    fft_cols_kernel<kEncode><<<B / cols, THREADS, smem1, stream>>>(
-        scratch, in, index, count, twist, w1, tw, A, B, cols);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fft_rows_kernel<kEncode, kPartners><<<A / rows, THREADS, smem2,
-                                          stream>>>(
-        out, scratch, index, w2, A, B, rows, out_scale, partner);
-    TROY_RETURN_LAUNCH_STATUS();
-}
-
-// O5's reduction: max over j < half of max(|Re v_j - Re p_j|, |Im v_j +
-// Im p_j|), v the slots and p their conjugate partners.
-__global__ void conj_residual_kernel(const double2 *__restrict__ slots,
-                                     const double2 *__restrict__ partner,
-                                     int64_t half,
-                                     unsigned long long *__restrict__ err) {
+    fft_lines<kLogB, 2, T>(x_s, r_s);
     double m = 0.0;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-         j < half; j += stride) {
-        const double2 v = slots[j];
-        const double2 p = partner[j];
-        m = fmax(m, fmax(fabs(v.x - p.x), fabs(v.y + p.y)));
+#pragma unroll
+    for (int rep = 0; rep < PER; ++rep) {
+        const int f = threadIdx.x + rep * T;
+        if (W % T != 0 && f >= W) break;
+        const int l = f >> kLogB, i = f & (L - 1);
+        const double2 v = x_s[spos(f)];
+        if (encode) {
+            out[out_at(f)] = make_double2(v.x * out_scale, v.y * out_scale);
+            continue;
+        }
+        const int slot = slot_r[rep];
+        if (slot >= 0) {
+            out[slot] = v;
+            if (partner != nullptr) {
+                // n-1-k: row A-1-p1 (the other line), word B-1-p2
+                const double2 p = x_s[spos(((l ^ 1) << kLogB) + (L - 1 - i))];
+                m = fmax(m, fmax(fabs(v.x - p.x), fabs(v.y + p.y)));
+            }
+        } else if (partner != nullptr) {
+            partner[~slot] = v;
+        }
     }
-    block_max_to(m, err);
+    if (err != nullptr) block_max_to(m, err);
+}
+
+typedef void (*ColsKernel)(double2 *, const void *, const int *, long long,
+                           const double2 *, const double2 *,
+                           const double2 *, int, bool, unsigned long long *);
+typedef void (*RowsKernel)(double2 *, const double2 *, const int *,
+                           const double2 *, int, double, bool, double2 *,
+                           unsigned long long *);
+
+template <int kLog>
+void kernels_for(int log_a, int log_b, ColsKernel &cols, RowsKernel &rows) {
+    if constexpr (kLog >= 1) {
+        if (log_a == kLog) cols = fft_cols_kernel<kLog>;
+    }
+    if (log_b == kLog) rows = fft_rows_kernel<kLog>;
+    if constexpr (kLog < MAX_LOG_LINE) {
+        kernels_for<kLog + 1>(log_a, log_b, cols, rows);
+    }
+}
+
+int log2_of(int v) { return 31 - __builtin_clz(static_cast<unsigned>(v)); }
+
+// The split O1 takes: A = 2^1 .. 2^9 and B = 2^0 .. 2^9, with B >=
+// cols_of(log2 A).
+bool takes(int A, int B) {
+    return A >= 2 && B >= 1 && !(A & (A - 1)) && !(B & (B - 1)) &&
+           A <= (1 << MAX_LOG_LINE) && B <= (1 << MAX_LOG_LINE) &&
+           B >= cols_of(log2_of(A));
+}
+
+// O1 (and O5 with partner and err); a split it does not take is refused.
+int fft(double2 *out, const void *in, double2 *scratch, const int *index,
+        long long count, const double2 *twist, const double2 *roots_a,
+        const double2 *tw, const double2 *roots_b, int A, int B,
+        double out_scale, bool encode, cudaStream_t stream,
+        double2 *partner = nullptr, unsigned long long *err = nullptr) {
+    if (!takes(A, B)) return static_cast<int>(cudaErrorInvalidValue);
+    const int log_a = log2_of(A), log_b = log2_of(B);
+    const int cols = cols_of(log_a);
+    ColsKernel cols_kernel = nullptr;
+    RowsKernel rows_kernel = nullptr;
+    kernels_for<0>(log_a, log_b, cols_kernel, rows_kernel);
+    cols_kernel<<<B / cols, threads_of(log_a, cols), 0, stream>>>(
+        scratch, in, index, count, twist, roots_a, tw, log_b, encode, err);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rows_kernel<<<A / 2, threads_of(log_b, 2), 0, stream>>>(
+        out, scratch, index, roots_b, log_a, out_scale, encode, partner,
+        err);
+    TROY_RETURN_LAUNCH_STATUS();
 }
 
 // consts: q (k), cr_hi (k), 2^e mod q (k x E), their Shoup words (k x E).
@@ -390,20 +576,22 @@ __global__ void compose_kernel(double *__restrict__ out,
 }  // namespace
 
 // O1, encode: values (count,) complex -> u (n,) complex = FFT(V) / n.
-// scratch (n,) complex; scatter (n,) int32; w1 (A, A), tw (A, B),
-// w2 (B, B) complex, row-major.
+// scratch (n,) complex; scatter (n,) int32; roots_a (A - 1) and roots_b
+// (B - 1) the line lengths' round-major root tables, tw (A, B) the grid,
+// complex, of the encode direction.
 extern "C" int troy_ckks_fft_encode(void *out, const void *values,
                                     void *scratch, const void *scatter,
-                                    long long count, const void *w1,
-                                    const void *tw, const void *w2, int A,
-                                    int B, double inv_n, void *stream) {
-    return fft<true>(static_cast<double2 *>(out), values,
-                     static_cast<double2 *>(scratch),
-                     static_cast<const int *>(scatter), count, nullptr,
-                     static_cast<const double2 *>(w1),
-                     static_cast<const double2 *>(tw),
-                     static_cast<const double2 *>(w2), A, B, inv_n,
-                     static_cast<cudaStream_t>(stream));
+                                    long long count, const void *roots_a,
+                                    const void *tw, const void *roots_b,
+                                    int A, int B, double inv_n,
+                                    void *stream) {
+    return fft(static_cast<double2 *>(out), values,
+               static_cast<double2 *>(scratch),
+               static_cast<const int *>(scatter), count, nullptr,
+               static_cast<const double2 *>(roots_a),
+               static_cast<const double2 *>(tw),
+               static_cast<const double2 *>(roots_b), A, B, inv_n, true,
+               static_cast<cudaStream_t>(stream));
 }
 
 // O1, decode: coeffs (n,) f64 -> slots (n/2,) complex = conj-FFT(c twist)
@@ -411,45 +599,53 @@ extern "C" int troy_ckks_fft_encode(void *out, const void *values,
 // partner); twist (n,) complex; the tables are the conjugate direction's.
 extern "C" int troy_ckks_fft_decode(void *out, const void *coeffs,
                                     void *scratch, const void *scatter,
-                                    const void *twist, const void *w1,
-                                    const void *tw, const void *w2, int A,
-                                    int B, void *stream) {
-    return fft<false>(static_cast<double2 *>(out), coeffs,
-                      static_cast<double2 *>(scratch),
-                      static_cast<const int *>(scatter), 0,
-                      static_cast<const double2 *>(twist),
-                      static_cast<const double2 *>(w1),
-                      static_cast<const double2 *>(tw),
-                      static_cast<const double2 *>(w2), A, B, 1.0,
-                      static_cast<cudaStream_t>(stream));
+                                    const void *twist, const void *roots_a,
+                                    const void *tw, const void *roots_b,
+                                    int A, int B, void *stream) {
+    return fft(static_cast<double2 *>(out), coeffs,
+               static_cast<double2 *>(scratch),
+               static_cast<const int *>(scatter), 0,
+               static_cast<const double2 *>(twist),
+               static_cast<const double2 *>(roots_a),
+               static_cast<const double2 *>(tw),
+               static_cast<const double2 *>(roots_b), A, B, 1.0, false,
+               static_cast<cudaStream_t>(stream));
 }
 
 // O5, decode with the residual: O1 decode into out (n/2,) complex, the
 // partners into partner (n/2,) complex, the residual into err (one f64
-// word); scratch (n,) complex.
+// word, zeroed by the columns pass); scratch (n,) complex.
 extern "C" int troy_ckks_fft_decode_stats(void *out, void *partner, void *err,
                                           const void *coeffs, void *scratch,
                                           const void *scatter,
-                                          const void *twist, const void *w1,
-                                          const void *tw, const void *w2,
-                                          int A, int B, void *stream) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t e = cudaMemsetAsync(err, 0, sizeof(uint64_t), st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int status = fft<false, true>(
-        static_cast<double2 *>(out), coeffs, static_cast<double2 *>(scratch),
-        static_cast<const int *>(scatter), 0,
-        static_cast<const double2 *>(twist),
-        static_cast<const double2 *>(w1), static_cast<const double2 *>(tw),
-        static_cast<const double2 *>(w2), A, B, 1.0, st,
-        static_cast<double2 *>(partner));
-    if (status != 0) return status;
-    const int64_t half = static_cast<int64_t>(A) * B / 2;
-    conj_residual_kernel<<<grid_blocks(half, THREADS), THREADS, 0, st>>>(
-        static_cast<const double2 *>(out),
-        static_cast<const double2 *>(partner), half,
-        static_cast<unsigned long long *>(err));
-    TROY_RETURN_LAUNCH_STATUS();
+                                          const void *twist,
+                                          const void *roots_a,
+                                          const void *tw,
+                                          const void *roots_b, int A, int B,
+                                          void *stream) {
+    return fft(static_cast<double2 *>(out), coeffs,
+               static_cast<double2 *>(scratch),
+               static_cast<const int *>(scatter), 0,
+               static_cast<const double2 *>(twist),
+               static_cast<const double2 *>(roots_a),
+               static_cast<const double2 *>(tw),
+               static_cast<const double2 *>(roots_b), A, B, 1.0, false,
+               static_cast<cudaStream_t>(stream),
+               static_cast<double2 *>(partner),
+               static_cast<unsigned long long *>(err));
+}
+
+// The blocks and threads of O1's two launches at (A, B), columns then
+// rows, into geometry[0..3]: 2, or 0 for a split the kernel refuses. No
+// launch: what the profiler's kernels are measured against.
+extern "C" int troy_ckks_fft_geometry(int A, int B, long long *geometry) {
+    if (!takes(A, B)) return 0;
+    const int log_a = log2_of(A), log_b = log2_of(B);
+    geometry[0] = B / cols_of(log_a);
+    geometry[1] = threads_of(log_a, cols_of(log_a));
+    geometry[2] = A / 2;
+    geometry[3] = threads_of(log_b, 2);
+    return 2;
 }
 
 template <bool kStats>

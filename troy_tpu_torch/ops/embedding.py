@@ -32,15 +32,18 @@ The transform is the JAX package's 4-step split n = A x B
 (out[p2*A + p1] = sum_b [sum_a x[a, b] w1[p1, a]] tw[p1, b] w2[b, p2]) in
 native FP64: the TPU's int8 digit planes (troy_tpu/ops/embedding.py:56-255),
 radix-2^32 peeling (:371-436, :443-488) and host scale split (:491) existed
-only for its float32-pair f64 emulation and are not ported. Each wrapper
-launches its kernel for tensors on CUDA and runs its plain version for
-tensors on the CPU: O1's plain version is the same 4-step schedule in
-torch.complex128 matrix products, O2's and O3's are the kernels' steps on
-the int64 u64ops twin and float64 tensors.
+only for its float32-pair f64 emulation and are not ported. The kernel runs
+each factor as short FFTs in shared memory (length-A over columns, length-B
+over rows) on the tables of ``line_roots``. Each wrapper launches its
+kernel for tensors on CUDA and runs its plain version for tensors on the
+CPU: O1's plain version is the 4-step schedule in torch.complex128 matrix
+products, O2's and O3's are the kernels' steps on the int64 u64ops twin
+and float64 tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Tuple
@@ -89,7 +92,9 @@ class EmbedTables:
     """The constant tables of one degree n = A x B on one device.
 
     Encode direction (numpy's FFT sign): w1e[p1, a] = w^(B p1 a),
-    twe[p1, b] = w^(p1 b), w2e[b, p2] = w^(A b p2), w = exp(-2 pi i / n);
+    twe[p1, b] = w^(p1 b), w2e[b, p2] = w^(A b p2), w = exp(-2 pi i / n),
+    and the kernel's round-major root tables of the length-A and length-B
+    FFTs, roots_ae = line_roots(A, B, n) and roots_be = line_roots(B, A, n);
     decode direction: their conjugates. twist[j] = zeta^j = exp(i pi j / n),
     untwist its conjugate. ``scatter[j]`` is i where V[j] = v_i, that is
     j = (3^i - 1) / 2, and ~i where V[j] = conj(v_i), j = n - 1 - (3^i - 1)
@@ -107,6 +112,10 @@ class EmbedTables:
     w1d: torch.Tensor
     twd: torch.Tensor
     w2d: torch.Tensor
+    roots_ae: torch.Tensor      # (max(A - 1, 1),) complex128
+    roots_be: torch.Tensor      # (max(B - 1, 1),)
+    roots_ad: torch.Tensor
+    roots_bd: torch.Tensor
     twist: torch.Tensor         # (n,) complex128
     untwist: torch.Tensor
     slot_index: torch.Tensor    # (n/2,) int64
@@ -117,15 +126,30 @@ class EmbedTables:
         return self.twist.device
 
 
+def _omk(k, n: int) -> np.ndarray:
+    """w^k, w = exp(-2 pi i / n), the exponent reduced mod n before
+    exponentiation, as the JAX package does: w**k for k ~ n A would lose
+    angle accuracy."""
+    return np.exp(-2j * np.pi * (np.asarray(k) % n) / n)
+
+
+def line_roots(length: int, stride: int, n: int) -> np.ndarray:
+    """The roots of the kernel's radix-2 decimation-in-frequency FFTs of
+    ``length`` words with root W = w^stride (length * stride = n), round
+    by round: round r's length / 2^(r+1) roots W^(j 2^r) from entry
+    length - length / 2^r, (max(length - 1, 1),) complex128 (round r joins
+    the words length / 2^(r+1) apart and multiplies their difference by
+    root j of its run, j the index mod length / 2^(r+1))."""
+    log = length.bit_length() - 1
+    e = [(j << r) * stride for r in range(log)
+         for j in range(length >> (r + 1))]
+    return _omk(e, n) if e else np.ones(1, dtype=np.complex128)
+
+
 @lru_cache(maxsize=None)
 def make_embed_tables(n: int, device) -> EmbedTables:
     A, B = _split_factors(n)
-
-    # exponents reduced mod n before exponentiation, as the JAX package
-    # does: w**k for k ~ n A would lose angle accuracy
-    def omk(k):
-        return np.exp(-2j * np.pi * (k % n) / n)
-
+    omk = lambda k: _omk(k, n)
     a_idx, b_idx = np.arange(A), np.arange(B)
     w1 = omk(B * np.outer(a_idx, a_idx))
     tw = omk(np.outer(a_idx, b_idx))
@@ -134,12 +158,14 @@ def make_embed_tables(n: int, device) -> EmbedTables:
     scatter = np.zeros(n, dtype=np.int32)
     scatter[idx] = np.arange(n // 2)
     scatter[n - 1 - idx] = ~np.arange(n // 2)
+    ra, rb = line_roots(A, B, n), line_roots(B, A, n)
     dev = lambda m: torch.from_numpy(np.array(m)).to(device)
     return EmbedTables(
         n=n, a=A, b=B, w1e=dev(w1), twe=dev(tw), w2e=dev(w2),
         w1d=dev(np.conj(w1)), twd=dev(np.conj(tw)), w2d=dev(np.conj(w2)),
-        twist=dev(twist), untwist=dev(untwist), slot_index=dev(idx),
-        scatter=dev(scatter))
+        roots_ae=dev(ra), roots_be=dev(rb), roots_ad=dev(np.conj(ra)),
+        roots_bd=dev(np.conj(rb)), twist=dev(twist), untwist=dev(untwist),
+        slot_index=dev(idx), scatter=dev(scatter))
 
 
 @dataclass(eq=False)
@@ -351,6 +377,18 @@ def compose_centered_plain(residues: torch.Tensor, rt: RnsRoundTables,
 # kernel wrappers
 # --------------------------------------------------------------------------
 
+def launch_geometry(t: EmbedTables) -> Tuple[Tuple[int, int], ...]:
+    """(blocks, threads) of each of O1's two launches at t's split, the
+    columns pass then the rows pass (the card's library); () for a split
+    the kernel refuses."""
+    geometry = (ctypes.c_longlong * 4)()
+    _kernels.library()
+    count = _kernels._entries["troy_ckks_fft_geometry"](
+        t.a, t.b, ctypes.addressof(geometry))
+    return tuple((geometry[2 * i], geometry[2 * i + 1])
+                 for i in range(count))
+
+
 def embed_inverse_fft(values: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     """O1, encode: slot values (m <= n/2,) complex128 -> FFT(V)/n, (n,)
     complex128 (the untwist follows in O2)."""
@@ -367,8 +405,8 @@ def embed_inverse_fft(values: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     out = torch.empty(t.n, dtype=C128, device=values.device)
     scratch = torch.empty_like(out)
     _kernels.launch("troy_ckks_fft_encode", out.get_device(), out, values,
-                    scratch, t.scatter, values.shape[0], t.w1e, t.twe, t.w2e,
-                    t.a, t.b, 1.0 / t.n)
+                    scratch, t.scatter, values.shape[0], t.roots_ae, t.twe,
+                    t.roots_be, t.a, t.b, 1.0 / t.n)
     return out
 
 
@@ -391,7 +429,8 @@ def embed_forward(coeffs: torch.Tensor, t: EmbedTables) -> torch.Tensor:
     out = torch.empty(t.n // 2, dtype=C128, device=coeffs.device)
     scratch = torch.empty(t.n, dtype=C128, device=coeffs.device)
     _kernels.launch("troy_ckks_fft_decode", out.get_device(), out, coeffs,
-                    scratch, t.scatter, t.twist, t.w1d, t.twd, t.w2d, t.a, t.b)
+                    scratch, t.scatter, t.twist, t.roots_ad, t.twd,
+                    t.roots_bd, t.a, t.b)
     return out
 
 
@@ -412,8 +451,8 @@ def embed_forward_stats(coeffs: torch.Tensor, t: EmbedTables):
     err = torch.empty((), dtype=F64, device=coeffs.device)
     scratch = torch.empty(t.n, dtype=C128, device=coeffs.device)
     _kernels.launch("troy_ckks_fft_decode_stats", out.get_device(), out,
-                    partner, err, coeffs, scratch, t.scatter, t.twist, t.w1d,
-                    t.twd, t.w2d, t.a, t.b)
+                    partner, err, coeffs, scratch, t.scatter, t.twist,
+                    t.roots_ad, t.twd, t.roots_bd, t.a, t.b)
     return out, partner, err
 
 
