@@ -24,7 +24,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    spills (-Xptxas -v);
 3. each BFV-path kernel (A NTT, B dyadic MAC, C base conversion, D RNS
    elementwise, E BEHZ lift/tail/decrypt rounding, F key-switch digits and
-   divide-round, K mod-switch divide-round, G plain embedding, M Galois
+   divide-round, AF the digits folded into A's first pass (A's route runs
+   it where F's digits and A ran), K mod-switch divide-round, G plain
+   embedding, M Galois
    gather on its packed tables, signed and unsigned, and M as the batch
    encoder's slot gather) against its plain PyTorch version on the card,
    at the main path's shapes, word for word (tolerance 0), with both times
@@ -41,7 +43,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    column swap) and its mod switch decrypt to the expected slots; then the
    median times of multiply+relinearize, rotate_rows(1) and
    mod_switch_to_next (CUDA events);
-6. every BFV-path kernel was launched by phases 4-5 (launch counters); no
+6. every BFV-path kernel was launched by phases 4-5 (launch counters), and
+   F's separate digits entry (troy_keyswitch_digits) never: on A's route
+   AF does their work (so in every window on A's route below); no
    plain version and no u64ops arithmetic ran on a CUDA tensor in phases
    4-5 (call counters); per op (mult+relin, rotate_rows(1), mod switch,
    encrypt, decrypt, encode, decode), the device kernels and the device
@@ -139,7 +143,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    B, D and F launched, no plain version or u64ops on a CUDA tensor; and
    the per-op device kernels and time from the profiler;
 20. the app layer's kernels (P1 the ct x pt tile contraction at conv2d's
-   (1,64,2,2,n) x (64,52,2,n) and matmul's (1,8,2,2,n) x (8,16,2,n); P2
+   (1,64,2,2,n) x (64,52,2,n), matmul's (1,8,2,2,n) x (8,16,2,n), the BIG
+   matmul's (1,32,2,2,n) x (32,126,2,n) and a ragged (3,5,2,2,n) x
+   (5,13,2,n); P2
    the ciphertext pair grid at X = 1, Yc = 16 over q u Bsk with lazy words
    and over q; P3 the group fold at m = 16 and a ragged m = 20, P = 16)
    against their plain versions, word for word, with the times and bounds
@@ -250,8 +256,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A, M, J, E, O1 and O5 as redesigned for the H100: A against
-   its plain version, word for word, at n = 256 to 16384 (one pass below
+35. kernels A, M, J, E, O1, O5, P1 and F as redesigned for the H100: A
+   against its plain version, word for word, at n = 256 to 16384 (one pass below
    1024, two from it up) and a row mod t, three rows mod t, (5, 6, n) and
    (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
    launch and its blocks per launch at those rows (n = 16384) and at
@@ -272,7 +278,14 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    holds it), with their device us a call in turns with torch.fft.fft and
    torch.fft.ifft of the same vectors, a launch, their blocks and threads a
    launch and the bound, and the device time of phase 10's CKKS encode
-   and decode with O1's part of it. Device us a call come from CUDA events
+   and decode with O1's part of it; P1 at the conv2d, BIG matmul and
+   matmul shapes, its device us a launch and a call beside its bound; AF
+   (F's digits in A's first pass) word-equal to F's digits + A at
+   (5,6,16384), (15,16,32768) and (2,3,131072), both timed
+   in turns, and F's divide (its own kernel still) at every shape of the
+   BFV headline's mult+relin, rotate_rows(1) and apply_galois_many and at
+   the batched fold's, its device us a launch beside its bound. Device us
+   a call come from CUDA events
    around a CUDA graph of 20 calls (the host's enqueue is longer than
    these kernels), a launch from the profiler.
 
@@ -456,10 +469,24 @@ REDESIGN_E_SHAPES = (("headline", N, Q_BITS), ("SEAL", 32768, "bfv_default"))
 REDESIGN_O1_NS = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072,
                   262144)
 O1_KERNELS = ("fft_cols_kernel", "fft_rows_kernel")
+# phase 35 (P1 and F redesigned): P1 at the app protocol's three shapes
+# (tag, X, I, Y; two components, n = 16384, q = {60,60,60}); the fused
+# digits forward against F's digits + A (tag, n, q bits or SEAL's default
+# chain, source rows: the data limbs of the first level); F's divide at the
+# batched fold's shapes (ciphertexts a fold: a pack layer of 8, the first
+# layer of a pack of 256)
+REDESIGN_P1_SHAPES = (("conv", 1, 64, 52), ("BIG", 1, 32, 126),
+                      ("matmul", 1, 8, 16))
+REDESIGN_F_SHAPES = (("(5,6,16384)", 16384, Q_BITS, 5),
+                     ("(15,16,32768)", 32768, "bfv_default", 15),
+                     ("(2,3,131072)", 131072, CEILING_Q_BITS, 2))
+REDESIGN_FOLD_MS = (8, 128)
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
     "A_ntt": ("troy_tpu_torch/csrc/ntt.cu", "troy_tpu/ops/ntt.py:318"),
+    "AF_ntt_digits": ("troy_tpu_torch/csrc/ntt.cu",
+                      "troy_tpu/evaluator.py:179"),
     "B_dyadic_mac": ("troy_tpu_torch/csrc/dyadic_mac.cu",
                      "troy_tpu/ops/ntt.py:428"),
     "C_base_convert": ("troy_tpu_torch/csrc/base_convert.cu",
@@ -514,14 +541,15 @@ KERNELS = {
     "R1_shard_modsum": ("troy_tpu_torch/csrc/sharding.cu",
                         "troy_tpu/parallel/sharding.py:153"),
 }
-# the kernels each path must launch
-BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
-            "E_behz", "F_keyswitch", "K_divide_round", "G_plain_embed",
-            "M_galois", "I_sampling")
-CKKS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
+# the kernels each path must launch; on A's route the key switch's digits
+# run in A's first pass (AF), F only for BFV's divide
+BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
+            "D_rns_elementwise", "E_behz", "F_keyswitch", "K_divide_round",
+            "G_plain_embed", "M_galois", "I_sampling")
+CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
              "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
              "Kp_rescale_ntt", "Kp_keyswitch_ntt", "I_sampling")
-BGV_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
+BGV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
             "M_galois", "Kp_keyswitch_ntt", "Kp_bgv_ntt", "X_exact_convert",
             "Gp_plain_lift", "I_sampling")
 PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
@@ -529,34 +557,40 @@ PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
 DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                 "G_plain_embed", "Gp_plain_lift")
 LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
-            "A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch")
+            "A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
+            "F_keyswitch")
 APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
-            "B_dyadic_mac", "C_base_convert", "D_rns_elementwise", "E_behz",
-            "F_keyswitch", "Gp_plain_lift", "I_sampling", "M_galois",
-            "N1_negacyclic", "Kpp_bgv_coeff", "X_exact_convert",
-            "O2_ckks_round", "O3_ckks_compose")
-LARGE_BFV_PATH = ("A_ntt", "B_dyadic_mac", "C_base_convert",
+            "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
+            "D_rns_elementwise", "E_behz", "F_keyswitch", "Gp_plain_lift",
+            "I_sampling", "M_galois", "N1_negacyclic", "Kpp_bgv_coeff",
+            "X_exact_convert", "O2_ckks_round", "O3_ckks_compose")
+LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
                   "D_rns_elementwise", "E_behz", "F_keyswitch",
                   "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
-LARGE_CKKS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
-                   "F_keyswitch", "M_galois", "O1_ckks_fft", "O2_ckks_round",
-                   "O3_ckks_compose", "Kp_rescale_ntt", "Kp_keyswitch_ntt",
-                   "I_sampling")
-CEILING_PATH = ("A_ntt", "J_ntt_mxu", "B_dyadic_mac", "C_base_convert",
-                "D_rns_elementwise", "E_behz", "F_keyswitch", "G_plain_embed",
-                "I_sampling")
+LARGE_CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
+                   "D_rns_elementwise", "M_galois", "O1_ckks_fft",
+                   "O2_ckks_round", "O3_ckks_compose", "Kp_rescale_ntt",
+                   "Kp_keyswitch_ntt", "I_sampling")
+# n = 131072 on A (AF), 262144 on J (F's digits)
+CEILING_PATH = ("A_ntt", "AF_ntt_digits", "J_ntt_mxu", "B_dyadic_mac",
+                "C_base_convert", "D_rns_elementwise", "E_behz",
+                "F_keyswitch", "G_plain_embed", "I_sampling")
 BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                "O4_ckks_encode_stats", "O5_ckks_decode_stats", "A_ntt",
-               "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
-               "E_behz", "F_keyswitch", "G_plain_embed", "Gp_plain_lift",
-               "I_sampling", "K_divide_round", "Kp_rescale_ntt",
-               "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois",
+               "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
+               "D_rns_elementwise", "E_behz", "F_keyswitch", "G_plain_embed",
+               "Gp_plain_lift", "I_sampling", "K_divide_round",
+               "Kp_rescale_ntt", "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois",
                "X_exact_convert")
-SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "B_dyadic_mac", "E_behz",
-                "F_keyswitch", "K_divide_round", "Kp_rescale_ntt",
+# the limb-sharded key switch on A (AF), the coefficient-sharded one on J
+# (F's digits)
+SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits", "B_dyadic_mac",
+                "E_behz", "F_keyswitch", "K_divide_round", "Kp_rescale_ntt",
                 "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois", "J_ntt_mxu",
                 "P1_tile_contract", "Gp_plain_lift")
-
+# the entry points a window on A's route must not launch: F's separate
+# digits (their work is in AF)
+A_ROUTE_ABSENT = ("troy_keyswitch_digits",)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -879,6 +913,17 @@ def phase_kernels(ctx) -> dict:
          lambda: keyswitch.keyswitch_digits(f_target, used),
          lambda: keyswitch.keyswitch_digits_plain(f_target, used),
          None, None),
+        # F's digits in A's first pass: the target in once, the transformed
+        # digits out once, the twiddles; A's products over 30 rows and a
+        # Barrett-64 (2) a digit word
+        ("AF_ntt_digits", "digits + forward (5,n)->(5,6,n)",
+         lambda: ntt.rns_ntt_forward_digits(f_target, used),
+         lambda: ntt.ntt_forward_digits_plain(f_target, used),
+         (_bytes(f_target, x_dec, used.root_powers, used.root_powers_shoup),
+          ntt_rows_mul64(30) + 30 * N * 2), None),
+        ("AF_ntt_digits", "digits + forward (2,5,n)->(2,5,6,n), any words",
+         lambda: ntt.rns_ntt_forward_digits(xq[:2], used),
+         lambda: ntt.ntt_forward_digits_plain(xq[:2], used), None, None),
         ("K_divide_round", "mod switch (2,5,n)->(2,4,n)",
          lambda: keyswitch.divide_and_round_q_last(k_x, q5),
          lambda: keyswitch.divide_round_last_plain(k_x, k_consts),
@@ -2175,6 +2220,10 @@ def phase_app_kernels(ctx) -> dict:
     conv_w = _uniform(rng, q.values, (64, 52, k, N), dev)
     mm_a = _uniform(rng, q.values, (1, 8, 2, k, N), dev)
     mm_w = _uniform(rng, q.values, (8, 16, k, N), dev)
+    big_a = _uniform(rng, q.values, (1, 32, 2, k, N), dev)
+    big_w = _uniform(rng, q.values, (32, 126, k, N), dev)
+    rag_a = _uniform(rng, q.values, (3, 5, 2, k, N), dev)
+    rag_w = _uniform(rng, q.values, (5, 13, k, N), dev)
     lazy = [4 * v for v in qb.values]
     bfv_a = _uniform(rng, lazy, (1, 2, qb.k, N), dev)
     bfv_w = _uniform(rng, lazy, (16, 2, qb.k, N), dev)
@@ -2194,6 +2243,12 @@ def phase_app_kernels(ctx) -> dict:
         ("P1_tile_contract", f"matmul (1,8,2,{k},n) x (8,16,{k},n)",
          lambda: tiles.tile_contract(mm_a, mm_w, q),
          lambda: tiles.tile_contract_plain(mm_a, mm_w, q), None, None),
+        ("P1_tile_contract", f"BIG (1,32,2,{k},n) x (32,126,{k},n)",
+         lambda: tiles.tile_contract(big_a, big_w, q),
+         lambda: tiles.tile_contract_plain(big_a, big_w, q), None, None),
+        ("P1_tile_contract", f"ragged (3,5,2,{k},n) x (5,13,{k},n)",
+         lambda: tiles.tile_contract(rag_a, rag_w, q),
+         lambda: tiles.tile_contract_plain(rag_a, rag_w, q), None, None),
         ("P2_pair_convolve", f"BFV X=1 Yc=16 over q u Bsk ({qb.k} rows), "
          "lazy",
          lambda: tiles.tile_pair_convolve(bfv_a, bfv_w, qb),
@@ -2649,7 +2704,7 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
         check_path("24", f"24 ({scheme}, J route)", ("J_ntt_mxu",), counts,
-                   counter)
+                   counter, absent=())
         if counts["A_ntt"]:
             raise AssertionError(f"A ran on the J route: {counts['A_ntt']}")
         results[scheme] = counts
@@ -2899,7 +2954,7 @@ def phase_ceiling(counter) -> tuple:
             f"{out[f'n{n}']['max_memory_allocated'] / 2 ** 30:.2f} GiB")
     torch.cuda.synchronize()
     counts_all = _kernels.launch_counts()
-    check_path("27", "27", CEILING_PATH, counts_all, counter)
+    check_path("27", "27", CEILING_PATH, counts_all, counter, absent=())
     return counts_all, out, ops_all
 
 
@@ -3029,13 +3084,20 @@ def device_kernels_per_op(fn, reps: int = 5, warmup: int = 3,
 
 
 def check_path(tag: str, phases: str, path, counts: dict,
-               counter: "PlainCallCounter") -> None:
-    """Every kernel of the path launched, and no plain torch on the card."""
+               counter: "PlainCallCounter", absent=A_ROUTE_ABSENT) -> None:
+    """Every kernel of the path launched, no entry point of ``absent``
+    launched since the counts' reset (read now: call right after the
+    window), and no plain torch on the card."""
     log(f"[{tag}] kernel launches in phases {phases}: {counts}")
     missing = [k for k in path if counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path in "
                              f"phases {phases}: {missing}")
+    entries = _kernels.entry_launch_counts()
+    there = {e: entries[e] for e in absent if entries[e]}
+    if there:
+        raise AssertionError(f"entry points launched in phases {phases} "
+                             f"that its route must not launch: {there}")
     log(f"[{tag}] plain-version and u64ops calls on CUDA tensors in phases "
         f"{phases} ({counter.wrapped} functions watched): "
         f"{counter.calls or 0}")
@@ -4192,10 +4254,10 @@ def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def phase_redesign(dev, bfv_ops: dict, per_op: dict) -> dict:
-    """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5:
-    redesign_j, redesign_e, redesign_b, redesign_o1) as redesigned for the
-    H100. A against its plain version, word for word, at every n of
+def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx) -> dict:
+    """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
+    F: redesign_j, redesign_e, redesign_b, redesign_o1, redesign_p1,
+    redesign_f) as redesigned for the H100. A against its plain version, word for word, at every n of
     REDESIGN_NS (one pass over whole rows below 1024, two passes from it
     up) and the shapes of
     REDESIGN_ROWS, forward and inverse, lazy and not, and at n = 32768
@@ -4318,9 +4380,146 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict) -> dict:
     e = redesign_e(dev, rng)
     b = redesign_b(bfv_ops)
     o1 = redesign_o1(dev, rng, per_op)
+    p1 = redesign_p1(app_ctx, rng)
+    f = redesign_f(dev, rng, bfv_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
-            "b": b, "o1": o1}
+            "b": b, "o1": o1, "p1": p1, "f": f}
+
+
+def redesign_p1(app_ctx, rng) -> dict:
+    """Phase 35, kernel P1 (the tiled contraction, csrc/tiles.cu) at the app
+    protocol's conv2d, BIG matmul and matmul shapes (phase 20 holds each to
+    its plain version): its device us a launch (profiler) and a call
+    (graph replay) beside its bound. The bound: the
+    tiles in and the products out once over the memory rate, and 2 I
+    products a word and a Barrett-128 (7) per 63 terms and at the end."""
+    q = app_ctx.first_context_data.ntt
+    k, dev = q.k, app_ctx.device
+    out = {}
+    for tag, X, I, Y in REDESIGN_P1_SHAPES:
+        a = _uniform(rng, q.values, (X, I, 2, k, N), dev)
+        w = _uniform(rng, q.values, (I, Y, k, N), dev)
+        call = lambda: tiles.tile_contract(a, w, q)
+        _, _, each = device_kernels_per_op(
+            call, reps=5, expect={"tile_contract_kernel": 1}, whole=True)
+        words = X * Y * 2 * k * N
+        bound_ms, bound_by = bound(
+            (a.numel() + w.numel() + words) * 8,
+            words * (2 * I + 7 * (-(-I // 63))))
+        r = {"shape": f"({X},{I},2,{k},n) x ({I},{Y},{k},n)",
+             "us_per_launch": each["tile_contract_kernel"][1],
+             "device_us": graph_us(call, calls=5), "bound_ms": bound_ms,
+             "bound_by": bound_by}
+        out[tag] = r
+        log(f"[35] P1 {tag} {r['shape']}: {r['us_per_launch']:.1f} us a "
+            f"launch (profiler), {r['device_us']:.1f} us a call (graph), "
+            f"bound {bound_ms * 1e3:.1f} us ({bound_by}), "
+            f"{r['us_per_launch'] / (bound_ms * 1e3):.2f} times it")
+        del a, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def redesign_f(dev, rng, bfv_ops: dict) -> dict:
+    """Phase 35, kernel F: its digits folded into A's first pass (AF,
+    ``rns_ntt_forward_digits``) word-equal to F's digits then A's forward
+    at REDESIGN_F_SHAPES, the two timed in turns (device us a
+    call, graph replay) with their device us a launch (profiler); then F's
+    divide, which keeps its kernel, at every shape of one run of the BFV
+    headline's mult+relin, rotate_rows(1) and apply_galois_many (recorded
+    with its operands) and at the batched fold's shapes: device us a
+    launch beside its bound (the products and the accumulator in, the
+    result out; 5 products a word)."""
+    fused = {}
+    for tag, n, spec, rows in REDESIGN_F_SHAPES:
+        t = ntt.RnsNttTables.from_moduli(n, _moduli(n, spec), dev,
+                                         use_mxu=False)
+        x = _uniform(rng, t.values[:rows], (rows, n), dev)
+        calls = {"fused": lambda: ntt.rns_ntt_forward_digits(x, t),
+                 "two_launch": lambda: ntt.rns_ntt_forward(
+                     keyswitch.keyswitch_digits(x, t), t)}
+        try:
+            compare("words", calls["fused"](), calls["two_launch"]())
+        except AssertionError as exc:
+            raise AssertionError(f"AF at {tag}: {exc}") from None
+        turns = {name: [] for name in calls}
+        for r in range(4):
+            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                turns[name].append(graph_us(calls[name]))
+        _, _, each_f = device_kernels_per_op(
+            calls["fused"], reps=10, expect={"ntt_pass_kernel": 2},
+            whole=True)
+        _, _, each_t = device_kernels_per_op(
+            calls["two_launch"], reps=10,
+            expect={"keyswitch_digits_kernel": 1, "ntt_pass_kernel": 2},
+            whole=True)
+        lg = n.bit_length() - 1
+        out_rows = rows * t.k
+        bound_ms, bound_by = bound(
+            (rows * n + out_rows * n + 2 * t.k * n) * 8,
+            out_rows * ((n // 2) * lg * 3 + n * 3 + n * 2))
+        r = {"device_us_turns": turns,
+             "fused_us": statistics.median(turns["fused"]),
+             "two_launch_us": statistics.median(turns["two_launch"]),
+             "fused_us_per_launch": each_f["ntt_pass_kernel"][1],
+             "digits_us_per_launch": each_t["keyswitch_digits_kernel"][1],
+             "ntt_us_per_launch": each_t["ntt_pass_kernel"][1],
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        fused[tag] = r
+        log(f"[35] AF {tag}: word-equal to F's digits + A; "
+            f"device us a call in turns (graph): fused {r['fused_us']:.2f}, "
+            f"two-launch {r['two_launch_us']:.2f}; a launch (profiler): "
+            f"fused passes {r['fused_us_per_launch']:.2f}, F's digits "
+            f"{r['digits_us_per_launch']:.2f}, A's passes "
+            f"{r['ntt_us_per_launch']:.2f}; bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+
+    # F's divide at the main path's shapes
+    seen = {}
+    divide = keyswitch.divide_round_last
+
+    def record(x, consts, acc=None, group=None):
+        key = (tuple(x.shape), None if acc is None else tuple(acc.shape),
+               group)
+        seen.setdefault(key, ((x, consts, acc, group), []))[1].append(op)
+        return divide(x, consts, acc, group)
+
+    keyswitch.divide_round_last = record
+    try:
+        for op, fn in bfv_ops.items():
+            fn()
+    finally:
+        keyswitch.divide_round_last = divide
+    torch.cuda.synchronize()
+    first = next(iter(seen.values()))[0]
+    consts = first[1]
+    k = first[0].shape[1] - 1
+    bounds = [int(v) for v in to_numpy(consts[:k])] + [int(to_numpy(
+        consts[5 * k:5 * k + 1])[0])]
+    for m in REDESIGN_FOLD_MS:
+        x = _uniform(rng, bounds, (2 * m, k + 1, N), dev)
+        acc = _uniform(rng, bounds[:k], (m, 1, k, N), dev)
+        seen[(tuple(x.shape), tuple(acc.shape), 2)] = (
+            (x, consts, acc, 2), [f"batched fold of {m}"])
+    divides = {}
+    for (xs, accs, group), (args, ops) in seen.items():
+        x, c, acc, g = args
+        _, _, each = device_kernels_per_op(
+            lambda: divide(x, c, acc, g), reps=10,
+            expect={"divide_round_kernel": 1}, whole=True)
+        words = x.shape[0] * k * N
+        bound_ms, bound_by = bound(_bytes(x) + (0 if acc is None else
+                                                _bytes(acc)) + words * 8,
+                                   words * 5)
+        tag = f"{xs} acc {accs} group {group}"
+        divides[tag] = {"ops": sorted(set(ops)), "calls": len(ops),
+                        "us_per_launch": each["divide_round_kernel"][1],
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[35] F divide {tag} ({', '.join(sorted(set(ops)))}): "
+            f"{divides[tag]['us_per_launch']:.2f} us a launch, bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by})")
+    return {"fused": fused, "divide": divides}
 
 
 def redesign_b(ops: dict) -> dict:
@@ -4742,9 +4941,15 @@ def main() -> None:
     check_path("6", "4-5", BFV_PATH, bfv_counts, counter)
     kg, rlk, _, be, ev, dec = state
     ca, cb, rel, gk = req["ca"], req["cb"], req["rel"], req["gk"]
-    bfv_ops = {"mult_relin": lambda: ev.relinearize(ev.multiply(ca, cb), rlk),
-               "rotate_rows": lambda: ev.rotate_rows(rel, 1, gk),
-               "decrypt": lambda: dec.decrypt(rel)}
+    # bound now: the CKKS and BGV phases below rebind these names, and
+    # phase 35 runs these ops after them
+    bfv_ops = {"mult_relin": lambda ev=ev, ca=ca, cb=cb, rlk=rlk:
+               ev.relinearize(ev.multiply(ca, cb), rlk),
+               "rotate_rows": lambda ev=ev, rel=rel, gk=gk:
+               ev.rotate_rows(rel, 1, gk),
+               "apply_galois_many": lambda ev=ev, rel=rel, gk=gk:
+               ev.apply_galois_many(rel, list(gk.keys), gk),
+               "decrypt": lambda dec=dec, rel=rel: dec.decrypt(rel)}
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
                       seed=rnd.seed_from_uint64(SEED + 2))
     slots = np.arange(N, dtype=np.uint64) % be.plain_modulus
@@ -4879,7 +5084,7 @@ def main() -> None:
     # ---- kernels A and M redesigned: 35, before phase 34 spawns its
     # ranks on the card (after it, the profiler lost the same share of
     # every trace in this process) ----
-    redesign = phase_redesign(ctx.device, bfv_ops, per_op)
+    redesign = phase_redesign(ctx.device, bfv_ops, per_op, app_ctx)
 
     # ---- multi-device (R): 33-34 ----
     shard_results, j_shards = phase_shard_kernels(ctx.device)

@@ -26,13 +26,15 @@ from troy_tpu_torch.utils.rns import make_rns_tool
 pytestmark = pytest.mark.cuda
 
 BITS = {1: [50], 6: [60, 40, 40, 40, 40, 60]}
-BFV_KERNELS = {"A_ntt", "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
-               "E_behz", "F_keyswitch", "K_divide_round", "G_plain_embed",
-               "M_galois"}
-CKKS_KERNELS = {"A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
+# on A's route the key switch's digits run in A's first pass (AF); F's own
+# kernel runs BFV's divide only
+BFV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
+               "D_rns_elementwise", "E_behz", "F_keyswitch", "K_divide_round",
+               "G_plain_embed", "M_galois"}
+CKKS_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                 "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                 "Kp_rescale_ntt", "Kp_keyswitch_ntt"}
-BGV_KERNELS = {"A_ntt", "B_dyadic_mac", "D_rns_elementwise", "F_keyswitch",
+BGV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                "M_galois", "Kp_keyswitch_ntt", "Kp_bgv_ntt",
                "X_exact_convert", "Gp_plain_lift"}
 
@@ -1358,3 +1360,45 @@ def test_sharded_regimes_on_the_card(dev):
                                       want)
     assert all(r["launches"]["R1_shard_modsum"] > 0 for r in ranks)
     assert all(r["launches"]["J_ntt_mxu"] > 0 for r in ranks)
+
+
+@pytest.mark.parametrize("X,I,Y,C", [(1, 64, 52, 2), (1, 8, 16, 2),
+                                     (3, 5, 13, 2), (2, 127, 5, 4),
+                                     (1, 63, 6, 3), (1, 1, 1, 1)])
+@pytest.mark.parametrize("n", [64, 4096])
+def test_tiled_tile_contract_kernel(dev, n, X, I, Y, C):
+    """P1's tiled kernel at ragged y tiles (Y not a multiple of 4), every
+    component count, I across the 63-term fold, and a ring shorter than a
+    block of coefficients (n = 64): the plain version's words, one
+    launch."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [60, 60, 60])][:2]
+    q = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(n + X + I + Y + C)
+    a = _uniform(rng, moduli, (X, I, C), n, dev)
+    w = _uniform(rng, moduli, (I, Y), n, dev)
+    _kernels.reset_launch_counts()
+    got = tiles.tile_contract(a, w, q)
+    assert _kernels.launch_counts()["P1_tile_contract"] == 1
+    _same(got, tiles.tile_contract_plain(a, w, q))
+
+
+@pytest.mark.parametrize("n", [64, 512, 1024, 4096, 16384])
+@pytest.mark.parametrize("bits", [[60, 40, 40, 40, 40, 60], [40, 40, 40]])
+def test_ntt_forward_digits_kernel(dev, n, bits):
+    """AF (F's digits in A's first pass) against F's digits then A's
+    forward and against its plain version, on the target's words and on
+    any u64 words: one AF launch and no F launch."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, bits)]
+    used = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(n + len(bits))
+    target = _uniform(rng, moduli[:-1], (2,), n, dev)
+    words = interop.to_torch(rng.integers(0, 2 ** 64, (3, n),
+                                          dtype=np.uint64), dev)
+    for x in (target, words):
+        _kernels.reset_launch_counts()
+        got = ntt.rns_ntt_forward_digits(x, used)
+        counts = _kernels.launch_counts()
+        assert (counts["AF_ntt_digits"], counts["F_keyswitch"]) == (1, 0)
+        _same(got, ntt.rns_ntt_forward(keyswitch.keyswitch_digits(x, used),
+                                       used))
+        _same(got, ntt.ntt_forward_digits_plain(x, used))

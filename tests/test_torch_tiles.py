@@ -13,8 +13,19 @@ random words below each limb's modulus from numpy seeds:
     alone; BFV: through ``_bfv_lift_ntt`` and ``_pair_grid_multiply``, the
     lift, P2, the inverse NTT and the BEHZ tail), sizes 2 x 2 and 3 x 2;
   * P3 ``pack_group_fold`` against linear.py:237 ``_pack_group_fold_core``
-    at m = 16 and a ragged m = 20 with P = 16, m = 5 with P = 2, and P = 1.
+    at m = 16 and a ragged m = 20 with P = 16, m = 5 with P = 2, and P = 1;
+  * an emulation of P1's tiled kernel (csrc/tiles.cu, its tile sizes and
+    ring depth read from the source): its blocks in the kernel's order,
+    each a limb, a coefficient tile and a tile of outputs y (the ragged
+    last one masked), the inner indices through the ring of cp.async slots
+    and the 128-bit sums folded every FOLD_TERMS terms, against
+    ``tile_contract_plain`` and ``_matmul_tiles_core`` at ragged Y (5, 13,
+    52), I in {1, 63, 64, 127} (across the fold), C in {2, 3, 4} and
+    X in {1, 3}.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +40,7 @@ from troy_tpu_torch import interop
 from troy_tpu_torch.app import linear as tlin
 from troy_tpu_torch.evaluator import _bfv_lift_ntt, _pair_grid_multiply
 from troy_tpu_torch.ops import tiles
+from troy_tpu_torch.ops import u64ops as u
 
 torch.set_num_threads(2)
 
@@ -152,3 +164,94 @@ def test_wrappers_refuse_bad_shapes():
         tiles.tile_pair_convolve(z(1, 5, k, N), z(1, 2, k, N), q)
     with pytest.raises(ValueError):
         tiles.pack_group_fold(z(4, 2, k, N), N + 1, q)
+
+
+def _p1_geometry():
+    """(kTileJ, kTileY, kStages, FOLD_TERMS) as csrc/tiles.cu sets them."""
+    src = (Path(tiles.__file__).resolve().parents[1] / "csrc"
+           / "tiles.cu").read_text()
+    get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                     src).group(1))
+    return get("kTileJ"), get("kTileY"), get("kStages"), get("FOLD_TERMS")
+
+
+def _p1_blocks(a, w, t, tile_j, tile_y, stages, fold_terms):
+    """P1's tiled kernel, block by block in plain torch: block b is (y
+    tile, x, coefficient tile, limb) with the y tile fastest; a thread's
+    words of inner index i land in ring slot i % stages, fetched stages - 1
+    indices ahead; the kTileY x C sums of a coefficient are 128-bit and
+    folded by Barrett-128 every fold_terms terms and at the end; the
+    masked weights of a ragged y tile count as 0 and are not stored."""
+    X, I, C, k, n = a.shape
+    Y = w.shape[1]
+    y_tiles, j_tiles = -(-Y // tile_y), -(-n // tile_j)
+    out = torch.full((X, Y, C, k, n), -1, dtype=torch.int64)
+    for b in range(y_tiles * X * j_tiles * k):
+        yt, r = b % y_tiles, b // y_tiles
+        x, r = r % X, r // X
+        l = r // j_tiles
+        j0 = (r - l * j_tiles) * tile_j
+        j1 = min(n, j0 + tile_j)
+        y0 = yt * tile_y
+        ny = min(tile_y, Y - y0)
+        q, q_lo, q_hi = t.q[l], t.cr_lo[l], t.cr_hi[l]
+        ring = [None] * stages
+
+        def fetch(i):
+            if i < I:
+                wv = torch.zeros((tile_y, j1 - j0), dtype=torch.int64)
+                wv[:ny] = w[i, y0:y0 + ny, l, j0:j1]
+                ring[i % stages] = (i, a[x, i, :, l, j0:j1], wv)
+
+        for i in range(stages - 1):
+            fetch(i)
+        lo = hi = torch.zeros((tile_y, C, j1 - j0), dtype=torch.int64)
+        pending = 0
+        for i in range(I):
+            fetch(i + stages - 1)
+            got_i, av, wv = ring[i % stages]
+            assert got_i == i, "a ring slot was overwritten before its read"
+            plo, phi = u.mul128(wv[:, None], av[None])
+            lo, hi = u.add_u128(lo, hi, plo, phi)
+            pending += 1
+            if pending == fold_terms:
+                lo = u.barrett_reduce_128(lo, hi, q, q_lo, q_hi)
+                hi, pending = torch.zeros_like(lo), 0
+        res = u.barrett_reduce_128(lo, hi, q, q_lo, q_hi)
+        out[x, y0:y0 + ny, :, l, j0:j1] = res[:ny]
+    assert not bool((out == -1).any()), "an output word was never written"
+    return out
+
+
+@pytest.mark.parametrize("X,I,Y,C", [(1, 1, 5, 2), (3, 63, 13, 3),
+                                     (1, 64, 52, 2), (3, 127, 5, 4),
+                                     (1, 127, 13, 2), (3, 64, 52, 3),
+                                     (1, 63, 5, 4), (3, 1, 13, 4)])
+def test_tiled_p1_blocks_match_plain_and_troy_tpu(X, I, Y, C):
+    tcd, jcd = _cds("bgv")
+    rng = np.random.default_rng(SEED + 100 * X + I + Y + C)
+    a = _words(rng, tcd.coeff_values, (X, I, C, tcd.limbs, N))
+    w = _words(rng, tcd.coeff_values, (I, Y, tcd.limbs, N))
+    ta, tw = interop.to_torch(a, "cpu"), interop.to_torch(w, "cpu")
+    tile_j, tile_y, stages, fold_terms = _p1_geometry()
+    got = _p1_blocks(ta, tw, tcd.ntt, tile_j, tile_y, stages, fold_terms)
+    assert torch.equal(got, tiles.tile_contract_plain(ta, tw, tcd.ntt))
+    _equal(got, jlin._matmul_tiles_core(jnp.asarray(a), jnp.asarray(w), jcd,
+                                        False, False))
+
+
+@pytest.mark.parametrize("tile_j,tile_y,stages", [(16, 3, 2), (32, 5, 3)])
+def test_tiled_p1_blocks_over_several_coefficient_tiles(tile_j, tile_y,
+                                                        stages):
+    """The same decomposition with tiles smaller than the ring of n = 64
+    words and other y tiles and ring depths: the words do not depend on
+    the geometry."""
+    tcd, _ = _cds("bgv")
+    rng = np.random.default_rng(SEED + tile_j)
+    a = interop.to_torch(_words(rng, tcd.coeff_values,
+                                (2, 70, 2, tcd.limbs, N)), "cpu")
+    w = interop.to_torch(_words(rng, tcd.coeff_values,
+                                (70, 7, tcd.limbs, N)), "cpu")
+    got = _p1_blocks(a, w, tcd.ntt, tile_j, tile_y, stages,
+                     _p1_geometry()[3])
+    assert torch.equal(got, tiles.tile_contract_plain(a, w, tcd.ntt))

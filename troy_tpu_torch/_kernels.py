@@ -52,6 +52,7 @@ _D = ctypes.c_double
 # C signatures: (argtypes) of each entry point; all return int.
 _SIGNATURES = {
     "troy_ntt": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    "troy_ntt_forward_digits": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     "troy_ntt_blocks": (_L, _I, _I, _P),                # no launch: a query
     "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
@@ -110,6 +111,7 @@ _SIGNATURES = {
 # list, PERF.md section 6).
 KERNELS = {
     "troy_ntt": "A_ntt",
+    "troy_ntt_forward_digits": "AF_ntt_digits",
     "troy_dyadic_mac": "B_dyadic_mac",
     "troy_dyadic_mac_batched": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",
@@ -154,6 +156,7 @@ KERNELS = {
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}
+_entry_launches: Dict[str, int] = {entry: 0 for entry in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 # each entry point's bound ctypes function, and the raw current-stream
 # reader of torch's CUDA build, set when the library loads
@@ -168,9 +171,17 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def entry_launch_counts() -> Dict[str, int]:
+    """Launches of each entry point since the last reset (a kernel's count
+    sums its entry points')."""
+    return dict(_entry_launches)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    for entry in _entry_launches:
+        _entry_launches[entry] = 0
 
 
 def _nvcc() -> str:
@@ -286,3 +297,4 @@ def launch(entry: str, device: int, *args) -> None:
     if status != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {status}")
     _launches[KERNELS[entry]] += 1
+    _entry_launches[entry] += 1

@@ -11,6 +11,9 @@
 // entry points, so each keeps its own launch count.
 //
 //   digits:        out[r, j, i] = x[r, i] mod p_j        (Barrett-64)
+//                  (on kernel J's route and the coefficient-sharded key
+//                  switch; on A's route the digits are reduced in A's
+//                  first pass, csrc/ntt.cu troy_ntt_forward_digits)
 //   divide-round:  last  = x[c, k, i] + floor(p/2) mod p
 //                  out[c, j, i] = (x[c, j, i] - (last mod q_j - floor(p/2)
 //                                 mod q_j)) * p^-1 mod q_j   (+ acc[c, j, i])

@@ -54,6 +54,17 @@
 // for their geometry (line and tile sizes and thread count as constants),
 // so the index arithmetic folds away; other plans run one kernel that
 // reads its geometry at run time.
+//
+// troy_ntt_forward_digits folds the key switch's digits (kernel F's
+// troy_keyswitch_digits, troy_tpu/evaluator.py:179 _switch_key_decompose)
+// into the forward transform: output row r of (rows, n) is the NTT of
+// source row r / k reduced mod q[r % k] (Barrett-64 on the high ratio
+// word, F's arithmetic), so the first pass (the strided one, or the one
+// pass over whole rows) reads the source row and reduces each word as it
+// loads it. The butterflies, twiddles, passes and geometry are A's, so the
+// words are those of F's digits then A's forward; the (k, k+1, n)
+// intermediate and F's launch are gone (at the headline's (5, n) -> (5, 6,
+// n), 3.9 MB written and read again a key switch).
 
 #include "butterfly.cuh"
 
@@ -132,6 +143,12 @@ __device__ __forceinline__ Line line_of(const Geo &g, const Block &b, int l,
         ln.limb = b.limb;
     }
     return ln;
+}
+
+// The first word of the digits' source row of the output row that starts
+// at word `base`: output row r holds source row r / k reduced into limb r % k.
+__device__ __forceinline__ int64_t digit_row(int64_t base, int log_n, int k) {
+    return static_cast<int64_t>(static_cast<int>(base >> log_n) / k) << log_n;
 }
 
 // Shared-memory position of word i of local line l: column-major for the
@@ -214,12 +231,13 @@ __device__ __forceinline__ void run_stage(int s, uint64_t *v_s,
 // 2^kLogLine-word lines, 2^(kLogTile - kLogLine) a block, a thread per 8
 // words; kLogLine = 0: the geometry of `pass`. The second pass runs in
 // place (in == out): each block reads its whole tile before it writes.
-template <bool kInverse, int kMode, int kLogLine>
+template <bool kInverse, int kMode, int kLogLine, bool kDigits>
 __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
                                 int rows, int log_n, int k,
                                 const uint64_t *__restrict__ roots,
                                 const uint64_t *__restrict__ roots_shoup,
                                 const uint64_t *__restrict__ moduli,
+                                const uint64_t *__restrict__ cr_hi,
                                 const uint64_t *__restrict__ inv_degree,
                                 const uint64_t *__restrict__ inv_degree_shoup,
                                 Pass pass, int lazy) {
@@ -247,14 +265,25 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
         tw_s[(2 * l << log_line) + e] = __ldg(roots + g);
         tw_s[((2 * l + 1) << log_line) + e] = __ldg(roots_shoup + g);
     }
+    // the digits' source row of a strided or contiguous block (one row a
+    // block), as an offset from its output row
+    const int64_t shift = kDigits && geo.mode != kRows
+        ? digit_row(blk.row_base, log_n, k) - blk.row_base : 0;
     for (int f = threadIdx.x; f < words; f += geo.threads) {
         const int l = geo.mode == kCols ? f & ((1 << log_lines) - 1)
                                         : f >> log_line;
         const int i = geo.mode == kCols ? f >> log_lines : f & line_mask;
         const Line ln = line_of(geo, blk, l, log_n, rows, k);
         if (ln.limb < 0) continue;
-        v_s[smem_pos(geo, l, i)] =
-            in[ln.base + static_cast<int64_t>(i) * ln.stride];
+        const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
+        if (kDigits) {
+            const int64_t src = geo.mode == kRows
+                ? digit_row(ln.base, log_n, k) + i : at + shift;
+            v_s[smem_pos(geo, l, i)] = barrett_reduce_64(
+                in[src], __ldg(moduli + ln.limb), __ldg(cr_hi + ln.limb));
+        } else {
+            v_s[smem_pos(geo, l, i)] = in[at];
+        }
     }
     __syncthreads();
 
@@ -295,7 +324,7 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
 typedef void (*PassKernel)(uint64_t *, const uint64_t *, int, int, int,
                            const uint64_t *, const uint64_t *,
                            const uint64_t *, const uint64_t *,
-                           const uint64_t *, Pass, int);
+                           const uint64_t *, const uint64_t *, Pass, int);
 
 // The kernel of a pass: compiled for its geometry where one is, else the
 // run-time one.
@@ -304,18 +333,34 @@ PassKernel kernel_for(const Pass &p) {
     if (p.mode != kRows && p.log_line + p.log_lines == kLogTile) {
         const bool cols = p.mode == kCols;
         switch (p.log_line) {
-        case 5: return cols ? ntt_pass_kernel<kInverse, kCols, 5>
-                            : ntt_pass_kernel<kInverse, kChunks, 5>;
-        case 6: return cols ? ntt_pass_kernel<kInverse, kCols, 6>
-                            : ntt_pass_kernel<kInverse, kChunks, 6>;
-        case 7: return cols ? ntt_pass_kernel<kInverse, kCols, 7>
-                            : ntt_pass_kernel<kInverse, kChunks, 7>;
-        case 8: return cols ? ntt_pass_kernel<kInverse, kCols, 8>
-                            : ntt_pass_kernel<kInverse, kChunks, 8>;
+        case 5: return cols ? ntt_pass_kernel<kInverse, kCols, 5, false>
+                            : ntt_pass_kernel<kInverse, kChunks, 5, false>;
+        case 6: return cols ? ntt_pass_kernel<kInverse, kCols, 6, false>
+                            : ntt_pass_kernel<kInverse, kChunks, 6, false>;
+        case 7: return cols ? ntt_pass_kernel<kInverse, kCols, 7, false>
+                            : ntt_pass_kernel<kInverse, kChunks, 7, false>;
+        case 8: return cols ? ntt_pass_kernel<kInverse, kCols, 8, false>
+                            : ntt_pass_kernel<kInverse, kChunks, 8, false>;
         default: break;
         }
     }
-    return ntt_pass_kernel<kInverse, kRows, 0>;
+    return ntt_pass_kernel<kInverse, kRows, 0, false>;
+}
+
+// The forward transform's first pass with the digits' load: the strided
+// pass (or the one pass over whole rows below 2^kSplitLogN), compiled for
+// the same geometries as kernel_for's.
+PassKernel digits_kernel_for(const Pass &p) {
+    if (p.mode == kCols && p.log_line + p.log_lines == kLogTile) {
+        switch (p.log_line) {
+        case 5: return ntt_pass_kernel<false, kCols, 5, true>;
+        case 6: return ntt_pass_kernel<false, kCols, 6, true>;
+        case 7: return ntt_pass_kernel<false, kCols, 7, true>;
+        case 8: return ntt_pass_kernel<false, kCols, 8, true>;
+        default: break;
+        }
+    }
+    return ntt_pass_kernel<false, kRows, 0, true>;
 }
 
 // Shared memory of a pass: its words and twiddles (one table of the
@@ -359,15 +404,13 @@ int threads_for(const Pass &p) {
     return t < 32 ? 32 : t > 512 ? 512 : t;
 }
 
-}  // namespace
-
-// out, in: (rows, 2^log_n); tables: (k, n) roots (inverse roots for
-// inverse=1) and Shoup words; moduli, inv_degree(_shoup): (k,).
-extern "C" int troy_ntt(void *out, const void *in, long long rows, int log_n,
-                        int k, const void *roots, const void *roots_shoup,
-                        const void *moduli, const void *inv_degree,
-                        const void *inv_degree_shoup, int inverse, int lazy,
-                        void *stream) {
+// One transform's launches; with cr_hi (the digits' entry) the first
+// forward pass reads source row r / k of `in` for output row r and reduces
+// each word into the row's prime q[r % k] as it loads it.
+int run(void *out, const void *in, long long rows, int log_n, int k,
+        const void *roots, const void *roots_shoup, const void *moduli,
+        const void *cr_hi, const void *inv_degree,
+        const void *inv_degree_shoup, int inverse, int lazy, void *stream) {
     if (rows < 1 || rows > (1LL << 30) || k < 1 || log_n < 1 || log_n > 24) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -375,8 +418,10 @@ extern "C" int troy_ntt(void *out, const void *in, long long rows, int log_n,
     const int count = plan(rows, log_n, inverse, passes);
     const void *src = in;
     for (int p = 0; p < count; ++p) {
-        const PassKernel kernel = inverse ? kernel_for<true>(passes[p])
-                                          : kernel_for<false>(passes[p]);
+        const PassKernel kernel = cr_hi != nullptr && p == 0
+            ? digits_kernel_for(passes[p])
+            : inverse ? kernel_for<true>(passes[p])
+                      : kernel_for<false>(passes[p]);
         // above the default 48 KiB (n >= 2^23, the run-time kernel): the
         // limit is raised on the current device at each such call
         const size_t smem = smem_bytes(passes[p]);
@@ -393,6 +438,7 @@ extern "C" int troy_ntt(void *out, const void *in, long long rows, int log_n,
             static_cast<const uint64_t *>(roots),
             static_cast<const uint64_t *>(roots_shoup),
             static_cast<const uint64_t *>(moduli),
+            static_cast<const uint64_t *>(cr_hi),
             static_cast<const uint64_t *>(inv_degree),
             static_cast<const uint64_t *>(inv_degree_shoup), passes[p], lazy);
         const cudaError_t err = cudaGetLastError();
@@ -400,6 +446,37 @@ extern "C" int troy_ntt(void *out, const void *in, long long rows, int log_n,
         src = out;
     }
     return 0;
+}
+
+}  // namespace
+
+// out, in: (rows, 2^log_n); tables: (k, n) roots (inverse roots for
+// inverse=1) and Shoup words; moduli, inv_degree(_shoup): (k,).
+extern "C" int troy_ntt(void *out, const void *in, long long rows, int log_n,
+                        int k, const void *roots, const void *roots_shoup,
+                        const void *moduli, const void *inv_degree,
+                        const void *inv_degree_shoup, int inverse, int lazy,
+                        void *stream) {
+    return run(out, in, rows, log_n, k, roots, roots_shoup, moduli, nullptr,
+               inv_degree, inv_degree_shoup, inverse, lazy, stream);
+}
+
+// The key switch's digits and their forward transform in one call (F's
+// digits folded into A's first pass): in (rows / k, 2^log_n) any u64
+// words, out (rows, 2^log_n), row r the forward NTT of source row r / k
+// reduced mod q[r % k] (Barrett-64 with the high ratio words cr_hi: (k,)),
+// fully reduced.
+extern "C" int troy_ntt_forward_digits(void *out, const void *in,
+                                       long long rows, int log_n, int k,
+                                       const void *roots,
+                                       const void *roots_shoup,
+                                       const void *moduli, const void *cr_hi,
+                                       void *stream) {
+    if (cr_hi == nullptr || k < 1 || rows % k != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return run(out, in, rows, log_n, k, roots, roots_shoup, moduli, cr_hi,
+               nullptr, nullptr, 0, 0, stream);
 }
 
 // The blocks of each launch of one troy_ntt call (0 for a pass it does not

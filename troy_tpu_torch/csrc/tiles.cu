@@ -10,11 +10,23 @@
 // folded by Barrett-128 and summed on; the output is fully reduced, the same
 // canonical residue as the JAX chain. What bounds it on the H100: bytes. The
 // weight tiles are the big operand (at the conv2d configuration 64 x 52 tiles
-// of 2 limbs, 872 MB, against 33.5 MB of ciphertext tiles), so one thread
-// owns one (x, y, l, j) and all C ciphertext components: each weight word is
-// read once, and the ciphertext words, re-read for every y, stay in L2.
-// Neighbouring threads take neighbouring coefficients, so every load is
-// coalesced.
+// of 2 limbs, 872 MB, against 33.5 MB of ciphertext tiles: a 278.6 us
+// bound at 3.35 TB/s); the 64 x 128-bit products, about 218 M at conv2d,
+// take well under that on the integer units. Design: a block owns one limb,
+// 128 consecutive coefficients (a thread each), a tile of kTileY = 4
+// consecutive outputs y and one x; a thread keeps the kTileY x C 128-bit
+// sums of its coefficient in registers. Each inner index brings kTileY
+// weight words (read once from HBM, as the one-thread-an-output kernel
+// before it did) and C ciphertext words, which serve all kTileY outputs:
+// the ciphertext is read ceil(Y / kTileY) times in all, not Y times, and
+// the blocks of one ciphertext tile run side by side, so the re-reads hit
+// L2. The words come through a four-slot ring in shared memory by 8-byte
+// cp.async, three inner indices ahead, which keeps enough bytes in flight
+// to stream HBM at its rate; each thread copies and reads only its own
+// words, so the ring needs no barrier. Pointers advance by fixed strides in
+// i; the ragged last y tile (Y = 52, 126) and a short coefficient range
+// are masked in the kernel. The geometry was measured on the H100 against
+// register prefetch and other tile sizes (PERF.md section 6).
 //
 // P2 troy_tile_pair_convolve replaces the per-pair ciphertext convolution of
 // linear.py:133 _matmul_cipher_pairs_core (the dyadic step of
@@ -47,60 +59,124 @@ namespace {
 constexpr int MAX_COMPS = 4;       // ciphertext components a kernel takes
 constexpr int FOLD_TERMS = 63;     // 128-bit terms between Barrett folds
 
-__global__ void tile_contract_kernel(uint64_t *__restrict__ out,
-                                     const uint64_t *__restrict__ a,
-                                     const uint64_t *__restrict__ w,
-                                     int64_t X, int64_t I, int64_t Y, int C,
-                                     int k, int log_n,
-                                     const uint64_t *__restrict__ moduli,
-                                     const uint64_t *__restrict__ cr_lo,
-                                     const uint64_t *__restrict__ cr_hi) {
-    const int64_t n = int64_t(1) << log_n;
-    const int64_t total = (X * Y * k) << log_n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         idx < total; idx += stride) {
-        const int64_t j = idx & (n - 1);
-        int64_t r = idx >> log_n;
-        const int l = static_cast<int>(r % k);
-        r /= k;
-        const int64_t y = r % Y;
-        const int64_t x = r / Y;
-        const uint64_t q = moduli[l], lo = cr_lo[l], hi = cr_hi[l];
-        u128 acc[MAX_COMPS];
+// P1's block: one limb l, kTileJ consecutive coefficients (a thread
+// each), kTileY consecutive outputs y and one x, every component c. The
+// weight and ciphertext words of inner index i go through a ring of
+// kStages slots in shared memory by cp.async; a thread copies and reads
+// only its own coefficient's words, so the ring needs no barrier.
+constexpr int kTileJ = 128;
+constexpr int kTileY = 4;
+constexpr int kStages = 4;
+
+__device__ __forceinline__ void cp_async8(uint64_t *smem,
+                                          const uint64_t *gmem) {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+                 "l"(gmem));
+}
+
+template <int C>
+__device__ __forceinline__ void fold(u128 (&acc)[kTileY][C], uint64_t q,
+                                     uint64_t lo, uint64_t hi) {
 #pragma unroll
-        for (int c = 0; c < MAX_COMPS; ++c) acc[c] = 0;
-        int pending = 0;
-        for (int64_t i = 0; i < I; ++i) {
-            const uint64_t wv = w[(((i * Y + y) * k + l) << log_n) + j];
-            const uint64_t *ai = a + (((x * I + i) * C * k + l) << log_n) + j;
+    for (int t = 0; t < kTileY; ++t) {
 #pragma unroll
-            for (int c = 0; c < MAX_COMPS; ++c) {
-                if (c < C) {
-                    acc[c] += static_cast<u128>(ai[(int64_t(c) * k) << log_n])
-                              * wv;
-                }
+        for (int c = 0; c < C; ++c) {
+            acc[t][c] = barrett_reduce_128(
+                static_cast<uint64_t>(acc[t][c]),
+                static_cast<uint64_t>(acc[t][c] >> 64), q, lo, hi);
+        }
+    }
+}
+
+// Blocks in the order (l, j tile, x, y tile), y tile fastest: the blocks
+// that share a ciphertext tile run side by side and find it in L2.
+template <int C>
+__global__ void __launch_bounds__(kTileJ) tile_contract_kernel(
+        uint64_t *__restrict__ out, const uint64_t *__restrict__ a,
+        const uint64_t *__restrict__ w, int X, int I, int Y, int k,
+        int log_n, int y_tiles, int j_tiles,
+        const uint64_t *__restrict__ moduli,
+        const uint64_t *__restrict__ cr_lo,
+        const uint64_t *__restrict__ cr_hi) {
+    constexpr int kSlot = (kTileY + C) * kTileJ;   // words of one ring slot
+    __shared__ uint64_t ring[kStages * kSlot];
+    int b = blockIdx.x;
+    const int yt = b % y_tiles;
+    b /= y_tiles;
+    const int x = b % X;
+    b /= X;
+    const int l = b / j_tiles;
+    const int64_t j = static_cast<int64_t>(b - l * j_tiles) * kTileJ +
+                      threadIdx.x;
+    if (j >= (int64_t(1) << log_n)) return;
+    const int y0 = yt * kTileY;
+    const int ny = Y - y0 < kTileY ? Y - y0 : kTileY;   // ragged last tile
+    const int64_t row = static_cast<int64_t>(k) << log_n;  // one (k, n)
+    const int64_t at = (static_cast<int64_t>(l) << log_n) + j;
+    // a[x, i, c, l, j] and w[i, y0 + t, l, j] step by fixed strides in i
+    const uint64_t *ap = a + static_cast<int64_t>(x) * I * C * row + at;
+    const uint64_t *wp = w + y0 * row + at;
+    const int64_t a_step = C * row, w_step = Y * row;
+    uint64_t *mine = ring + threadIdx.x;
+
+    // inner index i into slot i % kStages (an empty group past the end,
+    // so every iteration waits for the same number of groups)
+    auto fetch = [&](int i) {
+        if (i < I) {
+            uint64_t *slot = mine + (i % kStages) * kSlot;
+            const uint64_t *wi = wp + i * w_step, *ai = ap + i * a_step;
+#pragma unroll
+            for (int t = 0; t < kTileY; ++t) {
+                if (t < ny) cp_async8(slot + t * kTileJ, wi + t * row);
             }
-            if (++pending == FOLD_TERMS) {
 #pragma unroll
-                for (int c = 0; c < MAX_COMPS; ++c) {
-                    if (c < C) {
-                        acc[c] = barrett_reduce_128(
-                            static_cast<uint64_t>(acc[c]),
-                            static_cast<uint64_t>(acc[c] >> 64), q, lo, hi);
-                    }
-                }
-                pending = 0;
+            for (int c = 0; c < C; ++c) {
+                cp_async8(slot + (kTileY + c) * kTileJ, ai + c * row);
             }
         }
-        uint64_t *o = out + (((x * Y + y) * C * k + l) << log_n) + j;
+        asm volatile("cp.async.commit_group;\n" ::);
+    };
 #pragma unroll
-        for (int c = 0; c < MAX_COMPS; ++c) {
-            if (c < C) {
-                o[(int64_t(c) * k) << log_n] = barrett_reduce_128(
-                    static_cast<uint64_t>(acc[c]),
-                    static_cast<uint64_t>(acc[c] >> 64), q, lo, hi);
+    for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
+    const uint64_t q = moduli[l], lo = cr_lo[l], hi = cr_hi[l];
+    u128 acc[kTileY][C];
+#pragma unroll
+    for (int t = 0; t < kTileY; ++t) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[t][c] = 0;
+    }
+    int pending = 0;
+    for (int i = 0; i < I; ++i) {
+        fetch(i + kStages - 1);
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+        const uint64_t *slot = mine + (i % kStages) * kSlot;
+        uint64_t av[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) av[c] = slot[(kTileY + c) * kTileJ];
+#pragma unroll
+        for (int t = 0; t < kTileY; ++t) {
+            const uint64_t wv = t < ny ? slot[t * kTileJ] : 0;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                acc[t][c] += static_cast<u128>(av[c]) * wv;
+            }
+        }
+        if (++pending == FOLD_TERMS) {
+            fold<C>(acc, q, lo, hi);
+            pending = 0;
+        }
+    }
+    fold<C>(acc, q, lo, hi);
+    uint64_t *o = out + (static_cast<int64_t>(x) * Y + y0) * C * row + at;
+#pragma unroll
+    for (int t = 0; t < kTileY; ++t) {
+        if (t < ny) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                o[(t * C + c) * row] = static_cast<uint64_t>(acc[t][c]);
             }
         }
     }
@@ -184,6 +260,29 @@ __global__ void pack_group_fold_kernel(uint64_t *__restrict__ out,
     }
 }
 
+template <int C>
+int tile_contract(void *out, const void *a, const void *w, long long X,
+                  long long I, long long Y, int k, int log_n,
+                  const void *moduli, const void *cr_lo, const void *cr_hi,
+                  cudaStream_t stream) {
+    const long long y_tiles = (Y + kTileY - 1) / kTileY;
+    const long long j_tiles = ((1LL << log_n) + kTileJ - 1) / kTileJ;
+    const long long blocks = y_tiles * X * j_tiles * k;
+    if (blocks >= (1LL << 31) || I >= (1LL << 31)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    tile_contract_kernel<C><<<static_cast<unsigned>(blocks), kTileJ, 0,
+                              stream>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(a),
+        static_cast<const uint64_t *>(w), static_cast<int>(X),
+        static_cast<int>(I), static_cast<int>(Y), k, log_n,
+        static_cast<int>(y_tiles), static_cast<int>(j_tiles),
+        static_cast<const uint64_t *>(moduli),
+        static_cast<const uint64_t *>(cr_lo),
+        static_cast<const uint64_t *>(cr_hi));
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 // a: (X, I, C, k, n), w: (I, Y, k, n), out: (X, Y, C, k, n), words below q;
@@ -193,18 +292,21 @@ extern "C" int troy_tile_contract(void *out, const void *a, const void *w,
                                   int C, int k, int log_n, const void *moduli,
                                   const void *cr_lo, const void *cr_hi,
                                   void *stream) {
-    if (X < 1 || I < 1 || Y < 1 || C < 1 || C > MAX_COMPS || k < 1) {
+    if (X < 1 || I < 1 || Y < 1 || k < 1) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int threads = 256;
-    tile_contract_kernel<<<grid_blocks((X * Y * k) << log_n, threads),
-                           threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(a),
-        static_cast<const uint64_t *>(w), X, I, Y, C, k, log_n,
-        static_cast<const uint64_t *>(moduli),
-        static_cast<const uint64_t *>(cr_lo),
-        static_cast<const uint64_t *>(cr_hi));
-    TROY_RETURN_LAUNCH_STATUS();
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (C) {
+    case 1: return tile_contract<1>(out, a, w, X, I, Y, k, log_n, moduli,
+                                    cr_lo, cr_hi, s);
+    case 2: return tile_contract<2>(out, a, w, X, I, Y, k, log_n, moduli,
+                                    cr_lo, cr_hi, s);
+    case 3: return tile_contract<3>(out, a, w, X, I, Y, k, log_n, moduli,
+                                    cr_lo, cr_hi, s);
+    case 4: return tile_contract<4>(out, a, w, X, I, Y, k, log_n, moduli,
+                                    cr_lo, cr_hi, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 // a: (X, s1, R, n), w: (Y, s2, R, n), words below 4q; out: (X, Y, s1 + s2

@@ -30,7 +30,7 @@ kernel launch over the whole batch of polynomials and limbs it touches:
     element's pre-permuted key in one B launch, then lands each
     automorphism with one batched M gather; the LWE ops shift, extract and
     assemble on kernel N1, and the pack tree folds pairs on N2 and then
-    key-switches every pair in one batched fold (M, F, A, B, A, the divide)
+    key-switches every pair in one batched fold (M, AF, B, A, the divide)
     per layer, as does each step of the field trace;
     BFV's ``mod_switch_to_next`` divides by the level's last
     prime (kernel K), CKKS's drops it, BGV's subtracts a multiple of t and
@@ -153,9 +153,11 @@ def _switch_key_decompose(target: torch.Tensor, cd: ContextData,
                           limbs: Optional[range] = None) -> torch.Tensor:
     """Stage 1 of the key switch (troy_tpu/evaluator.py:179): the RNS digits
     of targets (..., k, n) in every used prime, transformed: (..., k, used,
-    n), fully reduced; one launch each of F and A for the whole batch.
-    ``limbs``: the target holds only these limbs of the level (a shard of
-    the limb axis, parallel/sharding.py), and only their digits are made.
+    n), fully reduced. On A's route the digits are folded into A's first
+    pass (``rns_ntt_forward_digits``: one A call for the whole batch); on
+    kernel J, one launch of F's digits and J's transform. ``limbs``: the
+    target holds only these limbs of the level (a shard of the limb axis,
+    parallel/sharding.py), and only their digits are made.
 
     An NTT-form target's digits are its inverse transform (A) reduced into
     every used prime and transformed again, k x (k+1) rows: the JAX
@@ -172,9 +174,9 @@ def _switch_key_decompose(target: torch.Tensor, cd: ContextData,
     limbs = range(cd.limbs) if limbs is None else limbs
     if ntt_form:
         target = dntt.rns_ntt_inverse(target, own)
-    digits = dks.keyswitch_digits(target, used)
     if used.mxu is None:
-        return dntt.rns_ntt_forward(digits, used)
+        return dntt.rns_ntt_forward_digits(target, used)
+    digits = dks.keyswitch_digits(target, used)
     groups = {}
     for j, q in enumerate(cd.coeff_values[limbs.start:limbs.stop]):
         groups.setdefault(q.bit_length(), []).append(j)
@@ -311,9 +313,10 @@ def _batched_galois_fold(data: torch.Tensor, elt: int, key: torch.Tensor,
     """One automorphism and key switch over a batch of size-2 ciphertexts
     (troy_tpu/evaluator.py:442): data (m, 2, k, n) -> (m, 2, k, n). One M
     launch permutes every component and writes the c0s and the c1s as two
-    stacks; the key switch of the m c1s is one launch each of F, A, B, A
-    and the divide (F or K'' in the coefficient domain; K' twice and A in
-    the NTT domain), which adds the permuted c0s."""
+    stacks; the key switch of the m c1s is one call each of AF (F's digits
+    in A's first pass; on J, F and J), B, A and the divide (F or K'' in
+    the coefficient domain; K' twice and A in the NTT domain), which adds
+    the permuted c0s."""
     tables = dgalois.batched_tables(cd.n, (elt,), cd.device, not ntt_form)
     permuted = dgalois.permute_batched(data, tables, cd.ntt,
                                        comps_first=True)      # (2, m, k, n)
@@ -328,7 +331,7 @@ def _hoisted_galois_core(data: torch.Tensor, elts: Sequence[int],
                          ntt_form: bool) -> torch.Tensor:
     """Hoisted multi-automorphism of one ciphertext (troy_tpu/evaluator.py
     :463 _hoisted_galois_core): the digits of c1 decomposed and transformed
-    once (F, A); the keys, pre-permuted by each element's inverse
+    once (AF); the keys, pre-permuted by each element's inverse
     automorphism and stacked (k, m, 2, used, n), contracted in one B
     launch; one divide over the m x 2 components that adds the un-permuted
     c0 onto each; one batched M gather that lands every element's
@@ -797,7 +800,7 @@ class Evaluator:
         """Hoisted multi-automorphism (troy_tpu/evaluator.py:1199): c1's
         digits decomposed and transformed once and shared by every
         element's key switch, against keys pre-permuted by the inverse
-        automorphism; one launch each of F, A, B, the divide and M for all
+        automorphism; one call each of AF, B, the divide and M for all
         the elements (``_hoisted_galois_core``). Not word-equal to m
         apply_galois calls; decrypts the same. Below HOIST_MIN_M elements
         it is those calls (the JAX package's dispatch schedule does the

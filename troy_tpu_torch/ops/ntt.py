@@ -359,6 +359,42 @@ def rns_ntt_forward(x: torch.Tensor, t: RnsNttTables, lazy: bool = False,
     return _ntt(x, t, inverse=False, lazy=lazy, x_bound_bits=x_bound_bits)
 
 
+def ntt_forward_digits_plain(x: torch.Tensor,
+                             t: RnsNttTables) -> torch.Tensor:
+    """The plain version of ``rns_ntt_forward_digits``: the key switch's
+    digits (kernel F's plain version), then the forward butterfly
+    network."""
+    from .keyswitch import keyswitch_digits_plain   # keyswitch imports ntt
+    return ntt_forward_plain(keyswitch_digits_plain(x, t), t)
+
+
+def rns_ntt_forward_digits(x: torch.Tensor, t: RnsNttTables) -> torch.Tensor:
+    """The key switch's digits, transformed (kernel F's digits folded into
+    kernel A's first pass, one A call): (..., n) words -> (..., t.k, n),
+    out[..., j, :] the forward NTT of x mod the j-th prime of t. Any u64
+    input words; output fully reduced. A's route only: tables on J
+    raise."""
+    if x.dim() < 1 or x.shape[-1] != t.n:
+        raise ValueError(f"rns_ntt_forward_digits: expected (..., {t.n}), "
+                         f"got {tuple(x.shape)}")
+    if x.dtype != torch.int64:
+        raise TypeError(f"rns_ntt_forward_digits: expected int64 u64 words, "
+                        f"got {x.dtype}")
+    if t.mxu is not None or t.root_powers.shape[-1] != t.n:
+        raise ValueError("rns_ntt_forward_digits: these tables hold no "
+                         "transform on A (kernel J's, or a pointwise view)")
+    if not _kernels.on_cuda(x, t.q):
+        return ntt_forward_digits_plain(x, t)
+    x = x.contiguous()
+    _kernels.check_operand(x, "rns_ntt_forward_digits input")
+    out = torch.empty(x.shape[:-1] + (t.k, t.n), dtype=torch.int64,
+                      device=x.device)
+    _kernels.launch("troy_ntt_forward_digits", out.get_device(), out, x,
+                    out.numel() // t.n, t.log_n, t.k, t.root_powers,
+                    t.root_powers_shoup, t.q, t.cr_hi)
+    return out
+
+
 def rns_ntt_inverse(x: torch.Tensor, t: RnsNttTables,
                     lazy: bool = False) -> torch.Tensor:
     """Inverse NTT of every limb, n^-1 included. Input words below 2q;

@@ -15,7 +15,7 @@ unsharded op in every regime (integer arithmetic is exact):
     them (``interop.shard_range``: ceil(k / w) each, the last ranks fewer
     or none, and a rank with none still joins every collective); the key
     cut on its decomposition axis. The key switch takes each rank's digits
-    through F, A and B into a partial inner product over its own digits,
+    through AF (F's digits in A's first pass) and B into a partial inner product over its own digits,
     all-gathers the partials and sums them with kernel R1
     (ops/shard.py), then divides its own limbs by the special prime. The
     BFV multiply all-gathers the input limbs before the BEHZ lift (E),
@@ -385,7 +385,7 @@ def _limb_switch_key(target: torch.Tensor, key: torch.Tensor,
     """The key switch of targets (m, k_r, n), this rank's limbs, under its
     key rows (k_r, 2, k+1, n), with acc (m, a, k_r, n) added onto the first
     a components: (m, 2, k_r, n) in the target's domain. Each rank's inner
-    product over its own digits (F, A, B), all-gathered and summed (R1),
+    product over its own digits (AF, B), all-gathered and summed (R1),
     then the divide of its own limbs by the special prime (the
     evaluator's, troy_tpu/evaluator.py:290)."""
     cd, used, own = limbs.cd, limbs.used, limbs.own
@@ -512,7 +512,7 @@ def _batched_mult_relin(d1: torch.Tensor, d2: torch.Tensor,
     over the batch: the product (BFV: one lift and one transform of every
     component, E and A; the convolution, B, one launch per output
     component; A and E's tail), then one batched key switch of the m c2s
-    (F, A, B, the divide) adding (c0, c1)."""
+    (AF, B, the divide) adding (c0, c1)."""
     ntt_form = cd.scheme != SchemeType.bfv
     if cd.scheme == SchemeType.bfv:
         tool = cd.rns
