@@ -53,8 +53,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    share of mult+relin's device time;
 7. the CKKS kernels (O1 the FP64 embedding transform, both directions; O2
    the exact rounding into RNS; O3 the CRT composition; K' the NTT-domain
-   divide by the last prime, for the rescale and for the key switch)
-   against their plain versions at the CKKS shapes: O1 within
+   divide by the last prime, for the rescale and for the key switch: its
+   own temps and finish, which J's route runs, and AKp, its temps and
+   finish in A's forward passes, alone and after A's inverse, which A's
+   route runs) against their plain versions at the CKKS shapes: O1 within
    2^-44 max|x| (two FP64 summation orders), O2 and K' word for word, O3
    bit for bit; the same times, bounds and library times as phase 3, and
    the library call's device time (profiler);
@@ -69,12 +71,15 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    rescale decode to a b, its rotate_vector(1) to the rotated slots, its
    complex_conjugate to the conjugates; then the medians of mult+relin,
    rescale_to_next, rotate_vector(1), complex_conjugate, encode and decode;
-10. every CKKS-path kernel was launched by phases 8-9, no plain version or
+10. every CKKS-path kernel was launched by phases 8-9, K''s own temps and
+   finish never (on A's route AKp does their work, so in every window on
+   A's route below), no plain version or
    u64ops arithmetic ran on a CUDA tensor there, and the per-op device
    kernels and device time from the profiler;
 11. the BGV kernels (X the exact conversion q -> t with the inverse
    correction factor 1 and another; K'-BGV the t-corrected NTT-domain
-   divides, the mod switch's temps and finish and the key switch's temps;
+   divides, the mod switch's temps and finish and the key switch's temps,
+   and AKp's BGV entries, alone and after A's inverse;
    G' the plain lift with threshold (t+1)/2, with threshold t and times a
    correction factor) against their plain versions at the BGV shapes, word
    for word, with the times and bounds of phase 3;
@@ -183,8 +188,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    used by the port) and A's time;
 24. troy's timetest BFV mult+relin and CKKS mult+relin+rescale at
    n = 16384 with use_mxu=True, word-equal to the A route on the same
-   ciphertexts and keys, in a count window that must launch J and not A;
-   both routes timed, alternately;
+   ciphertexts and keys, in a count window that must launch J (and for
+   CKKS K''s own temps and finish) and not A or AKp; both routes timed,
+   alternately;
 25. SEAL's 128-bit n = 32768 BFV chain at full width (bfv_default(32768):
    16 primes, 881 bits; t = PlainModulus.batching(32768, 20)), every NTT
    on the default route (A): native host keygen (secret, public, relin,
@@ -256,7 +262,7 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A, M, J, E, O1, O5, P1 and F as redesigned for the H100: A
+35. kernels A, M, J, E, O1, O5, P1, F and K' as redesigned for the H100: A
    against its plain version, word for word, at n = 256 to 16384 (one pass below
    1024, two from it up) and a row mod t, three rows mod t, (5, 6, n) and
    (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
@@ -284,7 +290,11 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    (5,6,16384), (15,16,32768) and (2,3,131072), both timed
    in turns, and F's divide (its own kernel still) at every shape of the
    BFV headline's mult+relin, rotate_rows(1) and apply_galois_many and at
-   the batched fold's, its device us a launch beside its bound. Device us
+   the batched fold's, its device us a launch beside its bound; AKp (K''s
+   and K'-BGV's temps and finish in A's forward) at every shape of one
+   run of the CKKS and BGV headline's mult+relin, rescale or mod switch
+   and rotation, word-equal to K''s temps + A + K''s finish, the two
+   timed in turns, a launch of each beside the bound. Device us
    a call come from CUDA events
    around a CUDA graph of 20 calls (the host's enqueue is longer than
    these kernels), a launch from the profiler.
@@ -300,7 +310,9 @@ apart; J's numbers are those of its n = 16384 shape, every shape under
 O5's those of n = 16384 at 2^40, every shape under "stats_shapes"; R1's
 those of its (4, 1, 2, 6, n) shape; phase 34's regimes under "sharded";
 phase 35's under "redesign", A's share of mult+relin under
-"mult_relin_a")
+"mult_relin_a", and the kernels not yet redesigned ranked by launches
+times their device us a launch over their bound under
+"unredesigned_losses")
 and the
 bounds of the composite ops (M' the NTT-form rotation and the hoisted path
 over 8 elements, L the plain products, Q a device switching key; N the
@@ -487,6 +499,12 @@ KERNELS = {
     "A_ntt": ("troy_tpu_torch/csrc/ntt.cu", "troy_tpu/ops/ntt.py:318"),
     "AF_ntt_digits": ("troy_tpu_torch/csrc/ntt.cu",
                       "troy_tpu/evaluator.py:179"),
+    "AKp_rescale_ntt": ("troy_tpu_torch/csrc/ntt.cu",
+                        "troy_tpu/ops/rns.py:213"),
+    "AKp_keyswitch_ntt": ("troy_tpu_torch/csrc/ntt.cu",
+                          "troy_tpu/evaluator.py:337"),
+    "AKp_bgv_ntt": ("troy_tpu_torch/csrc/ntt.cu",
+                    "troy_tpu/ops/rns.py:246"),
     "B_dyadic_mac": ("troy_tpu_torch/csrc/dyadic_mac.cu",
                      "troy_tpu/ops/ntt.py:428"),
     "C_base_convert": ("troy_tpu_torch/csrc/base_convert.cu",
@@ -542,23 +560,25 @@ KERNELS = {
                         "troy_tpu/parallel/sharding.py:153"),
 }
 # the kernels each path must launch; on A's route the key switch's digits
-# run in A's first pass (AF), F only for BFV's divide
+# run in A's first pass (AF), F only for BFV's divide, and K''s temps and
+# finish in A's forward passes (AKp), K''s own kernels (Kp) only on J's
+# route (phase 24, the coefficient-sharded key switch of phase 34)
 BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
             "D_rns_elementwise", "E_behz", "F_keyswitch", "K_divide_round",
             "G_plain_embed", "M_galois", "I_sampling")
 CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
              "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
-             "Kp_rescale_ntt", "Kp_keyswitch_ntt", "I_sampling")
+             "AKp_rescale_ntt", "AKp_keyswitch_ntt", "I_sampling")
 BGV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-            "M_galois", "Kp_keyswitch_ntt", "Kp_bgv_ntt", "X_exact_convert",
-            "Gp_plain_lift", "I_sampling")
+            "M_galois", "AKp_bgv_ntt", "X_exact_convert", "Gp_plain_lift",
+            "I_sampling")
 PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
-                  "G_plain_embed", "Gp_plain_lift")
+                  "G_plain_embed", "Gp_plain_lift", "AKp_rescale_ntt")
 DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                 "G_plain_embed", "Gp_plain_lift")
 LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
             "A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-            "F_keyswitch")
+            "F_keyswitch", "AKp_keyswitch_ntt", "AKp_bgv_ntt")
 APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
             "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
             "D_rns_elementwise", "E_behz", "F_keyswitch", "Gp_plain_lift",
@@ -569,8 +589,8 @@ LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
                   "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
 LARGE_CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
                    "D_rns_elementwise", "M_galois", "O1_ckks_fft",
-                   "O2_ckks_round", "O3_ckks_compose", "Kp_rescale_ntt",
-                   "Kp_keyswitch_ntt", "I_sampling")
+                   "O2_ckks_round", "O3_ckks_compose", "AKp_rescale_ntt",
+                   "AKp_keyswitch_ntt", "I_sampling")
 # n = 131072 on A (AF), 262144 on J (F's digits)
 CEILING_PATH = ("A_ntt", "AF_ntt_digits", "J_ntt_mxu", "B_dyadic_mac",
                 "C_base_convert", "D_rns_elementwise", "E_behz",
@@ -580,17 +600,24 @@ BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
                "D_rns_elementwise", "E_behz", "F_keyswitch", "G_plain_embed",
                "Gp_plain_lift", "I_sampling", "K_divide_round",
-               "Kp_rescale_ntt", "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois",
+               "AKp_rescale_ntt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
+               "M_galois",
                "X_exact_convert")
-# the limb-sharded key switch on A (AF), the coefficient-sharded one on J
-# (F's digits)
+# the limb-sharded key switch and mod switch on A (AF, AKp), the
+# coefficient-sharded key switch on J (F's digits, Kp)
 SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits", "B_dyadic_mac",
-                "E_behz", "F_keyswitch", "K_divide_round", "Kp_rescale_ntt",
-                "Kp_keyswitch_ntt", "Kp_bgv_ntt", "M_galois", "J_ntt_mxu",
-                "P1_tile_contract", "Gp_plain_lift")
+                "E_behz", "F_keyswitch", "K_divide_round", "AKp_rescale_ntt",
+                "AKp_keyswitch_ntt", "AKp_bgv_ntt", "Kp_keyswitch_ntt",
+                "Kp_bgv_ntt", "M_galois", "J_ntt_mxu", "P1_tile_contract",
+                "Gp_plain_lift")
 # the entry points a window on A's route must not launch: F's separate
-# digits (their work is in AF)
-A_ROUTE_ABSENT = ("troy_keyswitch_digits",)
+# digits (their work is in AF) and K''s temps and finish (in AKp)
+A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_rescale_ntt_temps",
+                  "troy_rescale_ntt_finish", "troy_keyswitch_ntt_temps",
+                  "troy_keyswitch_ntt_finish",
+                  "troy_bgv_mod_switch_ntt_temps",
+                  "troy_bgv_mod_switch_ntt_finish",
+                  "troy_bgv_keyswitch_ntt_temps")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1174,6 +1201,23 @@ def phase_ckks_kernels(ctx) -> dict:
         return (_bytes(last) + rows * (2 if acc is None else 3),
                 2 * N * kk * 4)
 
+    def fused(name, plain):
+        # K''s temps and finish in A's forward (AKp) over the kk limbs
+        x, last, consts, acc, kk = entries[name]
+        t = (q5.slice(0, kk), q5)[name == "ks"]
+        if plain:
+            return lambda: rns.ntt_forward_divide_plain(x, last, t, consts,
+                                                        acc)
+        ent = rns.RESCALE if name == "rs" else rns.KEYSWITCH
+        return lambda: rns.ntt_forward_divide(ent[2], x, last, t, consts,
+                                              acc)
+
+    def fused_work(name):
+        # K''s data and products, with A's twiddles and butterflies
+        nbytes, mul64 = kprime_work(name)
+        kk = entries[name][4]
+        return nbytes + 2 * kk * N * 8, mul64 + ntt_rows_mul64(2 * kk)
+
     checks = [
         ("O1_ckks_fft", "encode (n/2,) slots -> (n,)", "close",
          lambda: embedding.embed_inverse_fft(slots, t),
@@ -1203,16 +1247,30 @@ def phase_ckks_kernels(ctx) -> dict:
         ("Kp_rescale_ntt", f"temps + finish (2,{k},n) -> (2,{k - 1},n)",
          "words", kprime("rs", False), kprime("rs", True), kprime_work("rs"),
          None),
-        ("Kp_rescale_ntt", f"with A: rescale (2,{k},n) -> (2,{k - 1},n)",
+        ("Kp_keyswitch_ntt", f"temps + finish (2,{k + 1},n) onto (c0,c1)",
+         "words", kprime("ks", False), kprime("ks", True), kprime_work("ks"),
+         None),
+        ("AKp_rescale_ntt", f"fused forward (2,{k},n) -> (2,{k - 1},n)",
+         "words", fused("rs", False), fused("rs", True), fused_work("rs"),
+         None),
+        ("AKp_rescale_ntt", f"with A: rescale (2,{k},n) -> (2,{k - 1},n)",
          "words",
          lambda: rns.divide_and_round_q_last_ntt(x_rs, q5,
                                                  data.rescale_consts),
          lambda: rns.divide_and_round_q_last_ntt_plain(x_rs, q5,
                                                        data.rescale_consts),
          None, None),
-        ("Kp_keyswitch_ntt", f"temps + finish (2,{k + 1},n) onto (c0,c1)",
-         "words", kprime("ks", False), kprime("ks", True), kprime_work("ks"),
+        ("AKp_keyswitch_ntt", f"fused forward (2,{k + 1},n) onto (c0,c1)",
+         "words", fused("ks", False), fused("ks", True), fused_work("ks"),
          None),
+        ("AKp_keyswitch_ntt", f"with A: divide (2,{k + 1},n) onto (c0,c1)",
+         "words",
+         lambda: rns.divide_round_last_ntt(x_ks, q5, used.slice(k, k + 1),
+                                           ks_consts, acc_ks),
+         lambda: rns.ntt_forward_divide_plain(
+             x_ks, ntt.ntt_inverse_plain(x_ks[:, k:], used.slice(
+                 k, k + 1))[:, 0], q5, ks_consts, acc_ks),
+         None, None),
     ]
     return run_checks("7", checks)
 
@@ -1393,6 +1451,23 @@ def phase_bgv_kernels(ctx) -> dict:
         return (_bytes(last) + rows * (2 if acc is None else 3),
                 2 * N * (3 + 4 * kk + 2 * kk))
 
+    def bgv_fused(x, last, consts, acc, entries, plain):
+        # K'-BGV's temps and K''s finish in A's forward (AKp)
+        t = q5.slice(0, x.shape[1] - 1)
+        if plain:
+            return lambda: rns.ntt_forward_divide_plain(x, last, t, consts,
+                                                        acc, bgv=True)
+        return lambda: rns.ntt_forward_divide(entries[2], x, last, t, consts,
+                                              acc)
+
+    def bgv_fused_work(x, last, acc):
+        # K'-BGV's data and products (its temps again in every limb's
+        # block: 3 + 4 products a word), with A's twiddles and butterflies
+        kk = x.shape[1] - 1
+        nbytes, _ = bgv_divide_work(x, last, acc)
+        return (nbytes + 2 * kk * N * 8,
+                2 * N * kk * (3 + 4 + 2) + ntt_rows_mul64(2 * kk))
+
     checks = [
         ("X_exact_convert", f"decrypt ({k},n) -> (n), cf^-1 = 1", "words",
          lambda: rns.exact_convert(x_dec, conv),
@@ -1406,14 +1481,24 @@ def phase_bgv_kernels(ctx) -> dict:
          bgv_divide(x_ms, last_ms, ms, None, rns.BGV_MOD_SWITCH, False),
          bgv_divide(x_ms, last_ms, ms, None, rns.BGV_MOD_SWITCH, True),
          bgv_divide_work(x_ms, last_ms, None), None),
-        ("Kp_bgv_ntt", f"with A: mod switch (2,{k},n) -> (2,{k - 1},n)",
-         "words", lambda: rns.mod_t_and_divide_q_last_ntt(x_ms, q5, ms),
-         lambda: rns.mod_t_and_divide_q_last_ntt_plain(x_ms, q5, ms),
-         None, None),
         ("Kp_bgv_ntt", f"key switch temps + K' finish (2,{k + 1},n) onto "
          "(c0,c1)", "words",
          bgv_divide(x_ks, last_ks, ks, acc_ks, rns.BGV_KEYSWITCH, False),
          bgv_divide(x_ks, last_ks, ks, acc_ks, rns.BGV_KEYSWITCH, True),
+         None, None),
+        ("AKp_bgv_ntt", f"mod switch fused forward (2,{k},n) -> "
+         f"(2,{k - 1},n)", "words",
+         bgv_fused(x_ms, last_ms, ms, None, rns.BGV_MOD_SWITCH, False),
+         bgv_fused(x_ms, last_ms, ms, None, rns.BGV_MOD_SWITCH, True),
+         bgv_fused_work(x_ms, last_ms, None), None),
+        ("AKp_bgv_ntt", f"with A: mod switch (2,{k},n) -> (2,{k - 1},n)",
+         "words", lambda: rns.mod_t_and_divide_q_last_ntt(x_ms, q5, ms),
+         lambda: rns.mod_t_and_divide_q_last_ntt_plain(x_ms, q5, ms),
+         None, None),
+        ("AKp_bgv_ntt", f"key switch fused forward (2,{k + 1},n) onto "
+         "(c0,c1)", "words",
+         bgv_fused(x_ks, last_ks, ks, acc_ks, rns.BGV_KEYSWITCH, False),
+         bgv_fused(x_ks, last_ks, ks, acc_ks, rns.BGV_KEYSWITCH, True),
          None, None),
         ("Gp_plain_lift", f"(n) -> ({k},n), threshold (t+1)/2", "words",
          lambda: poly.plain_lift(m, q5, t, half, Q),
@@ -2703,10 +2788,15 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
         got = ops["j"]()
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
-        check_path("24", f"24 ({scheme}, J route)", ("J_ntt_mxu",), counts,
-                   counter, absent=())
-        if counts["A_ntt"]:
-            raise AssertionError(f"A ran on the J route: {counts['A_ntt']}")
+        # CKKS divides on K''s own kernels there
+        path = ("J_ntt_mxu",) + (("Kp_rescale_ntt", "Kp_keyswitch_ntt")
+                                 if scheme == "ckks" else ())
+        check_path("24", f"24 ({scheme}, J route)", path, counts, counter,
+                   absent=())
+        on_a = {k: counts[k] for k in ("A_ntt", "AKp_rescale_ntt",
+                                       "AKp_keyswitch_ntt") if counts[k]}
+        if on_a:
+            raise AssertionError(f"A ran on the J route: {on_a}")
         results[scheme] = counts
         if not torch.equal(got.data, want.data) or got.level != want.level:
             raise AssertionError(f"{scheme}: J route differs from A route")
@@ -2991,26 +3081,33 @@ def _short(key: str) -> str:
 # profiler drops device events that it places at the edges of its window
 # (a whole call, late in a long run), so the first and last traced calls
 # keep clear of them, and what an edge loses is a spin kernel, which is
-# not counted.
+# not counted. A trace taken again waits longer at its end (TRACE_PAD_S
+# times TRACE_PAD_GROWTH per attempt, at most TRACE_PAD_MAX_S): a late
+# run has lost its last call and trailing spins in every one of 6 traces
+# that waited 0.02 s.
 TRACE_PAD_S = 0.02
+TRACE_PAD_GROWTH = 5
+TRACE_PAD_MAX_S = 2.5
 TRACE_EDGE_SPINS = 4
 TRACE_SPIN = "spin_kernel"
 TRACE_ATTEMPTS = 6
 
 
-def _trace_edge() -> None:
-    time.sleep(TRACE_PAD_S)
+def _trace_edge(pad_s: float = TRACE_PAD_S) -> None:
+    time.sleep(pad_s)
     for _ in range(TRACE_EDGE_SPINS):
         torch.cuda._sleep(1000)
     torch.cuda.synchronize()
-    time.sleep(TRACE_PAD_S)
+    time.sleep(pad_s)
 
 
-def _trace(fn, reps: int, warmup: int) -> tuple:
+def _trace(fn, reps: int, warmup: int, end_pad_s: float = TRACE_PAD_S
+           ) -> tuple:
     """({kernel: [launches, device us]} of reps calls of fn in one
     torch.profiler trace, the edges' spin kernels seen). The profiler's
     schedule traces ``warmup`` calls first and drops them: a trace started
-    cold loses the events of its first call."""
+    cold loses the events of its first call. ``end_pad_s``: the idle
+    seconds on each side of the trailing spins."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=warmup, active=reps,
@@ -3021,7 +3118,7 @@ def _trace(fn, reps: int, warmup: int) -> tuple:
             fn()
             torch.cuda.synchronize()
             if i == warmup + reps - 1:
-                _trace_edge()
+                _trace_edge(end_pad_s)
             prof.step()
     device_us = lambda e: getattr(e, "self_device_time_total",
                                   getattr(e, "self_cuda_time_total", 0))
@@ -3067,7 +3164,9 @@ def device_kernels_per_op(fn, reps: int = 5, warmup: int = 3,
     most; then the op fails: no time is read off a trace that lost it."""
     expect = expect or {}
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        each, spins = _trace(fn, reps, warmup)
+        each, spins = _trace(fn, reps, warmup, min(
+            TRACE_PAD_S * TRACE_PAD_GROWTH ** (attempt - 1),
+            TRACE_PAD_MAX_S))
         faults = _trace_faults(each, reps, expect, whole)
         if not faults:
             break
@@ -4254,10 +4353,11 @@ def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx) -> dict:
+def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
+                   divide_ops: dict) -> dict:
     """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
-    F: redesign_j, redesign_e, redesign_b, redesign_o1, redesign_p1,
-    redesign_f) as redesigned for the H100. A against its plain version, word for word, at every n of
+    F, K' and K'-BGV: redesign_j, redesign_e, redesign_b, redesign_o1,
+    redesign_p1, redesign_f, redesign_kp) as redesigned for the H100. A against its plain version, word for word, at every n of
     REDESIGN_NS (one pass over whole rows below 1024, two passes from it
     up) and the shapes of
     REDESIGN_ROWS, forward and inverse, lazy and not, and at n = 32768
@@ -4382,9 +4482,98 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx) -> dict:
     o1 = redesign_o1(dev, rng, per_op)
     p1 = redesign_p1(app_ctx, rng)
     f = redesign_f(dev, rng, bfv_ops)
+    kp = redesign_kp(divide_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
-            "b": b, "o1": o1, "p1": p1, "f": f}
+            "b": b, "o1": o1, "p1": p1, "f": f, "kp": kp}
+
+
+def redesign_kp(ops: dict) -> dict:
+    """Phase 35, K' and K'-BGV folded into A's forward passes (AKp,
+    ``rns.ntt_forward_divide``): every fused forward of one run of each op
+    (the CKKS and BGV headline's mult+relin, rescale or mod switch and
+    rotation) recorded with its operands; at each distinct shape the fused
+    forward word-equal to the unfused composition on K''s own kernels
+    (temps, A's lazy forward, finish), the two timed in turns (device us a
+    call, graph replay) with their device us a launch (profiler), beside
+    the fused op's bound: last, x's k rows and the accumulator in, the
+    result out and A's twiddles once; A's butterfly products, and K''s 4
+    (K'-BGV's 9) products a word."""
+    seen = {}
+    fused = rns.ntt_forward_divide
+
+    def record(entry, x, last, tables, consts, acc=None, group=None):
+        key = (entry, tuple(x.shape),
+               None if acc is None else tuple(acc.shape), group)
+        if key not in seen:
+            seen[key] = ((x.clone(), last.clone(), tables, consts,
+                          None if acc is None else acc.clone(), group), [])
+        seen[key][1].append(op)
+        return fused(entry, x, last, tables, consts, acc, group)
+
+    rns.ntt_forward_divide = record
+    try:
+        for op, fn in ops.items():
+            fn()
+    finally:
+        rns.ntt_forward_divide = fused
+    torch.cuda.synchronize()
+    uses = {use[2]: use for use in (rns.RESCALE, rns.KEYSWITCH,
+                                    rns.BGV_MOD_SWITCH, rns.BGV_KEYSWITCH)}
+    out = {}
+    for (entry, xs, accs, group), (args, names) in seen.items():
+        x, last, t, consts, acc, g = args
+        temps_entry, finish_entry, _ = uses[entry]
+        bgv = temps_entry.startswith("troy_bgv")
+        k, s = t.k, x.shape[0]
+        calls = {
+            "fused": lambda: fused(entry, x, last, t, consts, acc, g),
+            "unfused": lambda: rns._ntt_finish(
+                finish_entry, x, ntt.rns_ntt_forward(
+                    rns._ntt_temps(temps_entry, last, consts), t, lazy=True),
+                consts[:5 * k + 2], acc, g)}
+        tag = f"{entry[len('troy_ntt_forward_'):]} {xs} acc {accs}"
+        try:
+            compare("words", calls["fused"](), calls["unfused"]())
+        except AssertionError as exc:
+            raise AssertionError(f"AKp {tag}: {exc}") from None
+        turns = {name: [] for name in calls}
+        for r in range(4):
+            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                turns[name].append(graph_us(calls[name]))
+        passes = len(ntt.launch_blocks(s * k, t.n))
+        temps_kernel = "bgv_temps_kernel" if bgv else "temps_kernel"
+        _, _, each_f = device_kernels_per_op(
+            calls["fused"], reps=10, expect={"ntt_pass_kernel": passes},
+            whole=True)
+        _, _, each_u = device_kernels_per_op(
+            calls["unfused"], reps=10,
+            expect={temps_kernel: 1, "ntt_pass_kernel": passes,
+                    "finish_kernel": 1}, whole=True)
+        words = s * k * t.n
+        bound_ms, bound_by = bound(
+            _bytes(last) + words * 8 * (2 if acc is None else 3)
+            + 2 * k * t.n * 8,
+            ntt_rows_mul64(s * k) + words * (9 if bgv else 4))
+        r = {"ops": sorted(set(names)), "calls": len(names),
+             "device_us_turns": turns,
+             "fused_us": statistics.median(turns["fused"]),
+             "unfused_us": statistics.median(turns["unfused"]),
+             "fused_us_per_launch": each_f["ntt_pass_kernel"][1],
+             "ntt_us_per_launch": each_u["ntt_pass_kernel"][1],
+             "temps_us_per_launch": each_u[temps_kernel][1],
+             "finish_us_per_launch": each_u["finish_kernel"][1],
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        out[tag] = r
+        log(f"[35] AKp {tag} ({', '.join(r['ops'])}): word-equal to K''s "
+            f"temps + A + finish; device us a call in turns (graph): fused "
+            f"{r['fused_us']:.2f}, unfused {r['unfused_us']:.2f}; a launch "
+            f"(profiler): fused passes {r['fused_us_per_launch']:.2f}, A's "
+            f"passes {r['ntt_us_per_launch']:.2f}, temps "
+            f"{r['temps_us_per_launch']:.2f}, finish "
+            f"{r['finish_us_per_launch']:.2f}; bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+    return out
 
 
 def redesign_p1(app_ctx, rng) -> dict:
@@ -4909,6 +5098,70 @@ def redesign_o1(dev, rng, per_op: dict) -> dict:
     return {"rings": out, "ckks_ops": ops}
 
 
+# the kernels not yet redesigned for the H100 (PERF.md section 6) and
+# their device functions' names in the profiler (F's divide and K share
+# divide_round_kernel; F's counter also counts its digits on J's route)
+UNREDESIGNED = {
+    "C_base_convert": ("base_convert_kernel",),
+    "D_rns_elementwise": ("rns_elementwise_kernel",),
+    "F_keyswitch": ("divide_round_kernel", "keyswitch_digits_kernel"),
+    "G_plain_embed": ("plain_embed_kernel",),
+    "Gp_plain_lift": ("plain_lift_kernel",),
+    "I_sampling": ("uniform_kernel", "small_kernel"),
+    "K_divide_round": ("divide_round_kernel",),
+    "N2_pack_prepare": ("pack_prepare_kernel",),
+    "O3_ckks_compose": ("compose_kernel",),
+    "P2_pair_convolve": ("tile_pair_convolve_kernel",),
+    "P3_group_fold": ("pack_group_fold_kernel",),
+    "X_exact_convert": ("exact_convert_kernel",),
+}
+# the windows and profiled ops of the headline configuration (n = 16384,
+# the shapes each kernel's bound is taken at); P2 and P3 run only in the
+# app protocol, at the shapes of their bounds
+HEADLINE_WINDOWS = ("bfv", "ckks", "bgv", "plain_ops", "default", "lwe")
+OTHER_OPS = ("app_", "seal", "ckks32768", "n131072", "n262144", "shim_")
+
+
+def unredesigned_losses(entries: list, per_op: dict,
+                        kernel_results: dict) -> dict:
+    """Each kernel of UNREDESIGNED: its launches in the headline windows
+    (the app's for P2 and P3) times its device us a launch (the
+    launch-weighted mean over the profiled ops of the same windows) less
+    its bound at its first checked shape, ordered by that product: where
+    the next redesign saves the most."""
+    by_name = {e["name"]: e for e in entries}
+    out = {}
+    for kernel, names in UNREDESIGNED.items():
+        app = kernel in ("P2_pair_convolve", "P3_group_fold")
+        launches = (by_name[kernel]["launches_app"] if app else
+                    sum(by_name[kernel][f"launches_{w}"]
+                        for w in HEADLINE_WINDOWS))
+        n = t = 0.0
+        for op, prof in per_op.items():
+            if op.startswith("app_") != app or (
+                    not app and op.startswith(OTHER_OPS)):
+                continue
+            for name in names:
+                if name in prof["each"]:
+                    count, us = prof["each"][name]
+                    n, t = n + count, t + count * us
+        us = t / n if n else None
+        bound_us = kernel_results[kernel]["bound_ms"] * 1e3
+        out[kernel] = {"launches": launches, "us_per_launch": us,
+                       "bound_us": bound_us,
+                       "lost_ms": None if us is None else
+                       launches * max(0.0, us - bound_us) / 1e3}
+    ranked = sorted(out.items(), key=lambda kv: -(kv[1]["lost_ms"] or 0))
+    for kernel, r in ranked:
+        us = "not profiled" if r["us_per_launch"] is None else \
+            f"{r['us_per_launch']:.2f} us a launch"
+        lost = "" if r["lost_ms"] is None else \
+            f", {r['lost_ms']:.4f} ms over the bound"
+        log(f"[rank] {kernel}: {r['launches']} launches, {us}, bound "
+            f"{r['bound_us']:.3f} us{lost}")
+    return dict(ranked)
+
+
 def a_share(per_op: dict, op: str) -> dict:
     """Kernel A's share of one profiled op's device time (its trace held
     whole, A's launches in it: profile_ops' expect)."""
@@ -4992,6 +5245,13 @@ def main() -> None:
         "ckks_decrypt": lambda: dec.decrypt(creq["rs"]),
     }))
     ckks_parts = (ckks_ctx, ce, ev, dec, ca, creq["a"])
+    # bound now, as bfv_ops: phase 35 records their divides
+    divide_ops = {
+        "ckks_mult_relin": lambda ev=ev, ca=ca, cb=cb, rlk=rlk:
+        ev.relinearize(ev.multiply(ca, cb), rlk),
+        "ckks_rescale": lambda ev=ev, rel=rel: ev.rescale_to_next(rel),
+        "ckks_rotate_vector": lambda ev=ev, rel=rel, gk=gk:
+        ev.rotate_vector(rel, 1, gk)}
 
     # ---- BGV: phases 11-14 ----
     bgv_ctx = P.HeContext(P.EncryptionParameters(
@@ -5017,6 +5277,12 @@ def main() -> None:
         "bgv_encrypt": lambda: breq["enc"].encrypt_symmetric(breq["pt"]),
         "bgv_decrypt": lambda: dec.decrypt(ms),
     }))
+    divide_ops.update({
+        "bgv_mult_relin": lambda ev=ev, ca=ca, cb=cb, rlk=rlk:
+        ev.relinearize(ev.multiply(ca, cb), rlk),
+        "bgv_mod_switch": lambda ev=ev, rel=rel: ev.mod_switch_to_next(rel),
+        "bgv_rotate_rows": lambda ev=ev, rel=rel, gk=gk:
+        ev.rotate_rows(rel, 1, gk)})
     counter.calls.clear()
     _kernels.reset_launch_counts()
     plain = phase_plain_op_requests(
@@ -5084,7 +5350,8 @@ def main() -> None:
     # ---- kernels A and M redesigned: 35, before phase 34 spawns its
     # ranks on the card (after it, the profiler lost the same share of
     # every trace in this process) ----
-    redesign = phase_redesign(ctx.device, bfv_ops, per_op, app_ctx)
+    redesign = phase_redesign(ctx.device, bfv_ops, per_op, app_ctx,
+                              divide_ops)
 
     # ---- multi-device (R): 33-34 ----
     shard_results, j_shards = phase_shard_kernels(ctx.device)
@@ -5119,6 +5386,7 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    losses = unredesigned_losses(entries, per_op, kernel_results)
     composites = composite_bounds(ckks_ctx.first_context_data.limbs)
     composites["Mp_rotation_ntt"].update(
         ms=creq["ckks_rotate_vector_ms"],
@@ -5193,6 +5461,7 @@ def main() -> None:
                     "sharded": sharded, "J_shard_shapes": j_shards,
                     "native_build_s": native.build_seconds,
                     "redesign": redesign, "mult_relin_a": mult_relin_a,
+                    "unredesigned_losses": losses,
                     "per_op": per_op}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -27,16 +27,19 @@ pytestmark = pytest.mark.cuda
 
 BITS = {1: [50], 6: [60, 40, 40, 40, 40, 60]}
 # on A's route the key switch's digits run in A's first pass (AF); F's own
-# kernel runs BFV's divide only
+# kernel runs BFV's divide only; K''s temps and finish run in A's forward
+# passes (AKp), K''s own kernels (Kp) only on J's route
 BFV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
                "D_rns_elementwise", "E_behz", "F_keyswitch", "K_divide_round",
                "G_plain_embed", "M_galois"}
 CKKS_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                 "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
-                "Kp_rescale_ntt", "Kp_keyswitch_ntt"}
+                "AKp_rescale_ntt", "AKp_keyswitch_ntt"}
 BGV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-               "M_galois", "Kp_keyswitch_ntt", "Kp_bgv_ntt",
+               "M_galois", "AKp_bgv_ntt",
                "X_exact_convert", "Gp_plain_lift"}
+# K''s own kernels: on A's route no window launches them
+KP_KERNELS = ("Kp_rescale_ntt", "Kp_keyswitch_ntt", "Kp_bgv_ntt")
 
 
 @pytest.fixture(scope="module")
@@ -441,18 +444,27 @@ def test_embedding_refuses_rings_past_its_lines(dev):
 def test_kprime_kernels(dev):
     """K' for the rescale (p the level's last prime) and for the key switch
     (p the special prime, every accumulator width), each on its own launch
-    count, against the plain versions."""
+    count, against the plain versions: on A's tables A's inverse and the
+    fused forward (AKp), on J's K''s own temps and finish."""
     n = 16384
     moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
     key = ntt.RnsNttTables.from_moduli(n, moduli, dev)
-    data = key.slice(0, 5)
+    key_j = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=True)
+    data, data_j = key.slice(0, 5), key_j.slice(0, 5)
     rng = np.random.default_rng(11)
     x = _uniform(rng, data.values, (2,), n, dev)
     consts = keyswitch.divide_round_consts(data.slice(0, 4), moduli[4])
     _kernels.reset_launch_counts()
     got = rns.divide_and_round_q_last_ntt(x, data, consts)
-    assert _kernels.launch_counts()["Kp_rescale_ntt"] == 2
+    counts = _kernels.launch_counts()
+    assert (counts["A_ntt"], counts["AKp_rescale_ntt"],
+            counts["Kp_rescale_ntt"]) == (1, 1, 0)
     _same(got, rns.divide_and_round_q_last_ntt_plain(x, data, consts))
+    _kernels.reset_launch_counts()
+    got_j = rns.divide_and_round_q_last_ntt(x, data_j, consts)
+    counts = _kernels.launch_counts()
+    assert (counts["Kp_rescale_ntt"], counts["AKp_rescale_ntt"]) == (2, 0)
+    _same(got_j, got)
     used = key.select(keyswitch.used_limbs(5, 6))
     y = _uniform(rng, used.values, (2,), n, dev)
     ks = keyswitch.divide_round_consts(data, moduli[-1])
@@ -465,9 +477,17 @@ def test_kprime_kernels(dev):
         _same(rns._ntt_finish(rns.KEYSWITCH[1], y, temps, ks, acc),
               rns.divide_round_ntt_finish_plain(y, temps, ks, acc))
     _kernels.reset_launch_counts()
-    rns.divide_round_last_ntt(y, data, used.slice(5, 6), ks)
+    got = rns.divide_round_last_ntt(y, data, used.slice(5, 6), ks)
     counts = _kernels.launch_counts()
-    assert counts["Kp_keyswitch_ntt"] == 2 and counts["Kp_rescale_ntt"] == 0
+    assert (counts["A_ntt"], counts["AKp_keyswitch_ntt"]) == (1, 1)
+    assert not any(counts[k] for k in KP_KERNELS), counts
+    used_j = key_j.select(keyswitch.used_limbs(5, 6))
+    _kernels.reset_launch_counts()
+    got_j = rns.divide_round_last_ntt(y, data_j, used_j.slice(5, 6), ks)
+    counts = _kernels.launch_counts()
+    assert (counts["Kp_keyswitch_ntt"], counts["Kp_rescale_ntt"],
+            counts["AKp_keyswitch_ntt"]) == (2, 0, 0)
+    _same(got_j, got)
 
 
 def _ckks_slice(device):
@@ -608,6 +628,7 @@ def test_ckks_slice_on_the_card_gives_the_cpu_words(dev):
     on_card = _ckks_slice(dev)
     counts = _kernels.launch_counts()
     assert all(counts[k] > 0 for k in CKKS_KERNELS), counts
+    assert not any(counts[k] for k in KP_KERNELS), counts
     on_host = _ckks_slice("cpu")
     for stage in ("c1", "rel", "rs", "rot", "conj"):
         np.testing.assert_array_equal(on_card[stage], on_host[stage],
@@ -658,8 +679,17 @@ def test_bgv_divide_kernels(dev, t_bits):
     _kernels.reset_launch_counts()
     got = rns.mod_t_and_divide_q_last_ntt(x, data, ms)
     counts = _kernels.launch_counts()
-    assert counts["Kp_bgv_ntt"] == 2 and counts["Kp_rescale_ntt"] == 0
+    assert (counts["A_ntt"], counts["AKp_bgv_ntt"]) == (1, 1)
+    assert not any(counts[k] for k in KP_KERNELS), counts
     _same(got, rns.mod_t_and_divide_q_last_ntt_plain(x, data, ms))
+    key_j = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=True)
+    data_j = key_j.slice(0, 5)
+    _kernels.reset_launch_counts()
+    got_j = rns.mod_t_and_divide_q_last_ntt(x, data_j, ms)
+    counts = _kernels.launch_counts()
+    assert (counts["Kp_bgv_ntt"], counts["Kp_rescale_ntt"],
+            counts["AKp_bgv_ntt"]) == (2, 0, 0)
+    _same(got_j, got)
     last = _uniform(rng, [moduli[4]], (2,), n, dev)[:, 0]
     _same(rns._ntt_temps(rns.BGV_MOD_SWITCH[0], last, ms),
           rns.bgv_divide_ntt_temps_plain(last, ms))
@@ -678,7 +708,16 @@ def test_bgv_divide_kernels(dev, t_bits):
         got = rns.divide_round_last_ntt(y, data, used.slice(5, 6), ks, acc,
                                         rns.BGV_KEYSWITCH)
         counts = _kernels.launch_counts()
-        assert counts["Kp_bgv_ntt"] == 1 and counts["Kp_keyswitch_ntt"] == 1
+        assert (counts["A_ntt"], counts["AKp_bgv_ntt"]) == (1, 1)
+        assert not any(counts[k] for k in KP_KERNELS), counts
+        used_j = key_j.select(keyswitch.used_limbs(5, 6))
+        _kernels.reset_launch_counts()
+        got_j = rns.divide_round_last_ntt(y, data_j, used_j.slice(5, 6), ks,
+                                          acc, rns.BGV_KEYSWITCH)
+        counts = _kernels.launch_counts()
+        assert (counts["Kp_bgv_ntt"], counts["Kp_keyswitch_ntt"],
+                counts["AKp_bgv_ntt"]) == (1, 1, 0)
+        _same(got_j, got)
         k = 5
         lst = ntt.ntt_inverse_plain(y[:, k:], used.slice(5, 6))[:, 0]
         tp = ntt.ntt_forward_plain(rns.bgv_divide_ntt_temps_plain(lst, ks),
@@ -749,6 +788,7 @@ def test_bgv_slice_on_the_card_gives_the_cpu_words(dev):
     on_card = _bgv_slice(dev)
     counts = _kernels.launch_counts()
     assert all(counts[k] > 0 for k in BGV_KERNELS), counts
+    assert not any(counts[k] for k in KP_KERNELS), counts
     on_host = _bgv_slice("cpu")
     for stage, words in on_host.items():
         np.testing.assert_array_equal(on_card[stage], words, err_msg=stage)
@@ -1402,3 +1442,45 @@ def test_ntt_forward_digits_kernel(dev, n, bits):
         _same(got, ntt.rns_ntt_forward(keyswitch.keyswitch_digits(x, used),
                                        used))
         _same(got, ntt.ntt_forward_digits_plain(x, used))
+
+
+DIVIDE_USES = {"rescale": rns.RESCALE, "keyswitch": rns.KEYSWITCH,
+               "bgv_mod_switch": rns.BGV_MOD_SWITCH,
+               "bgv_keyswitch": rns.BGV_KEYSWITCH}
+
+
+@pytest.mark.parametrize("use", list(DIVIDE_USES))
+@pytest.mark.parametrize("n", [64, 1024, 16384, 32768, 131072, 262144])
+def test_ntt_forward_divide_kernel(dev, n, use):
+    """K' (K'-BGV) in A's forward passes against its plain version (K''s
+    temps, A's lazy forward, K''s finish) with no accumulator, onto (c0,
+    c1) and onto the c0 of each pair of a batch: one launch of its own
+    counter and none of K''s. n = 64: one pass; 1024-32768: both passes on
+    compiled geometries; 131072: a run-time last pass; 262144: both
+    run-time."""
+    entries = DIVIDE_USES[use]
+    bgv = use.startswith("bgv")
+    bits = BITS[6] if n <= 32768 else [55, 55, 60]
+    moduli = [int(m) for m in P.CoeffModulus.create(n, bits)]
+    key = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+    k = key.k - 1
+    t, p = key.slice(0, k), moduli[k]
+    tt = int(P.PlainModulus.batching(n, 20 if n <= 32768 else 30))
+    consts = (keyswitch.bgv_divide_consts(t, p, tt) if bgv
+              else keyswitch.divide_round_consts(t, p))
+    rng = np.random.default_rng(n + len(use))
+    s = 4
+    x = _uniform(rng, moduli, (s,), n, dev)
+    last = _uniform(rng, [p], (s,), n, dev)[:, 0]
+    counter = _kernels.KERNELS[entries[2]]
+    for acc, group in ((None, None),
+                       (_uniform(rng, t.values, (2,), n, dev), None),
+                       (_uniform(rng, t.values, (2, 1), n, dev), 2)):
+        _kernels.reset_launch_counts()
+        got = rns.ntt_forward_divide(entries[2], x, last, t, consts, acc,
+                                     group)
+        counts = _kernels.launch_counts()
+        assert counts[counter] == 1, counts
+        assert not any(counts[kp] for kp in KP_KERNELS), counts
+        _same(got, rns.ntt_forward_divide_plain(x, last, t, consts, acc,
+                                                group, bgv))

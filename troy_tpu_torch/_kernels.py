@@ -40,7 +40,7 @@ SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
            "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu",
            "sharding.cu")
-HEADERS = ("u64.cuh", "butterfly.cuh")
+HEADERS = ("u64.cuh", "butterfly.cuh", "divide_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,10 +49,17 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_ulonglong
 _D = ctypes.c_double
+# K' folded into A's forward (out, last, x, acc, comps, acc_comps, group,
+# acc_groups, k, log_n, roots, roots_shoup, moduli, consts, stream)
+_FUSED_DIVIDE = (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P, _P, _P, _P)
 # C signatures: (argtypes) of each entry point; all return int.
 _SIGNATURES = {
     "troy_ntt": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     "troy_ntt_forward_digits": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
+    "troy_ntt_forward_rescale": _FUSED_DIVIDE,
+    "troy_ntt_forward_keyswitch": _FUSED_DIVIDE,
+    "troy_ntt_forward_bgv_mod_switch": _FUSED_DIVIDE,
+    "troy_ntt_forward_bgv_keyswitch": _FUSED_DIVIDE,
     "troy_ntt_blocks": (_L, _I, _I, _P),                # no launch: a query
     "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
@@ -112,6 +119,10 @@ _SIGNATURES = {
 KERNELS = {
     "troy_ntt": "A_ntt",
     "troy_ntt_forward_digits": "AF_ntt_digits",
+    "troy_ntt_forward_rescale": "AKp_rescale_ntt",
+    "troy_ntt_forward_keyswitch": "AKp_keyswitch_ntt",
+    "troy_ntt_forward_bgv_mod_switch": "AKp_bgv_ntt",
+    "troy_ntt_forward_bgv_keyswitch": "AKp_bgv_ntt",
     "troy_dyadic_mac": "B_dyadic_mac",
     "troy_dyadic_mac_batched": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",

@@ -40,15 +40,19 @@
 // words). Design: one thread per coefficient of one component for the
 // temps (one read of the special row for all k limbs), one per output word
 // for the finish; coalesced; the constants (5k + 2 words, the layout of
-// ops/keyswitch.py divide_round_consts) in shared memory.
+// ops/keyswitch.py divide_round_consts) in shared memory. The per-word
+// arithmetic is divide_round.cuh's, shared with kernel A's fused forward
+// (ntt.cu), which runs the temps in A's first pass and the finish in its
+// last on A's route; these kernels serve J's route (use_mxu, n > 131072,
+// the coefficient-sharded key switch).
 
-#include "u64.cuh"
+#include "divide_round.cuh"
 
 using namespace troy;
 
 namespace {
 
-constexpr int MAX_LIMBS = 64;
+constexpr int MAX_LIMBS = kDivideMaxLimbs;
 constexpr int THREADS = 256;
 
 // last: (comps, n) coefficient form below p; out: (comps, k, n).
@@ -57,41 +61,14 @@ __global__ void temps_kernel(uint64_t *__restrict__ out,
                              int k, int log_n,
                              const uint64_t *__restrict__ consts) {
     __shared__ uint64_t c[5 * MAX_LIMBS + 2];
-    for (int j = threadIdx.x; j < 5 * k + 2; j += blockDim.x) c[j] = consts[j];
-    __syncthreads();
-    const uint64_t *q = c, *ratio = c + k, *half_mod = c + 2 * k;
-    const uint64_t p = c[5 * k], half = c[5 * k + 1];
-    const int64_t n = int64_t(1) << log_n;
-    const int64_t total = comps << log_n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         idx < total; idx += stride) {
-        const int64_t comp = idx >> log_n;
-        const int64_t i = idx & (n - 1);
-        const uint64_t l = add_mod(last[idx], half, p);
-        uint64_t *dst = out + ((comp * k) << log_n) + i;
-        for (int j = 0; j < k; ++j) {
-            dst[static_cast<int64_t>(j) << log_n] =
-                barrett_reduce_64(l, q[j], ratio[j]) + q[j] - half_mod[j];
-        }
+    const DivideLayout L{k};
+    for (int j = threadIdx.x; j < L.words(false); j += blockDim.x) {
+        c[j] = consts[j];
     }
-}
-
-// The BGV temps. consts: K''s 5k + 2 words (q at 0, the high Barrett words
-// at k), then tt, tt's high Barrett word, p^-1 mod tt, its Shoup word, p mod
-// q_j (k) and their Shoup words (k) (ops/keyswitch.py bgv_divide_consts).
-__global__ void bgv_temps_kernel(uint64_t *__restrict__ out,
-                                 const uint64_t *__restrict__ last,
-                                 int64_t comps, int k, int log_n,
-                                 const uint64_t *__restrict__ consts) {
-    __shared__ uint64_t c[7 * MAX_LIMBS + 6];
-    for (int j = threadIdx.x; j < 7 * k + 6; j += blockDim.x) c[j] = consts[j];
     __syncthreads();
-    const uint64_t *q = c, *ratio = c + k;
-    const uint64_t *e = c + 5 * k + 2;
-    const uint64_t tt = e[0], tt_hi = e[1], inv = e[2], inv_shoup = e[3];
-    const uint64_t *pm = e + 4, *pm_shoup = e + 4 + k;
+    const uint64_t *q = c + L.q(), *ratio = c + L.ratio();
+    const uint64_t *half_mod = c + L.half_mod();
+    const uint64_t p = c[L.p()], half = c[L.half()];
     const int64_t n = int64_t(1) << log_n;
     const int64_t total = comps << log_n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -101,15 +78,45 @@ __global__ void bgv_temps_kernel(uint64_t *__restrict__ out,
         const int64_t comp = idx >> log_n;
         const int64_t i = idx & (n - 1);
         const uint64_t l = last[idx];
-        const uint64_t neg_k = mul_mod_shoup(
-            neg_mod(barrett_reduce_64(l, tt, tt_hi), tt), inv, inv_shoup, tt);
         uint64_t *dst = out + ((comp * k) << log_n) + i;
         for (int j = 0; j < k; ++j) {
-            const uint64_t delta = mul_mod_shoup(
-                barrett_reduce_64(neg_k, q[j], ratio[j]), pm[j], pm_shoup[j],
-                q[j]);
             dst[static_cast<int64_t>(j) << log_n] =
-                add_mod(delta, barrett_reduce_64(l, q[j], ratio[j]), q[j]);
+                divide_temp(l, p, half, q[j], ratio[j], half_mod[j]);
+        }
+    }
+}
+
+// The BGV temps. consts: K''s 5k + 2 words, then tt, tt's high Barrett
+// word, p^-1 mod tt, its Shoup word, p mod q_j (k) and their Shoup words
+// (k) (ops/keyswitch.py bgv_divide_consts; DivideLayout).
+__global__ void bgv_temps_kernel(uint64_t *__restrict__ out,
+                                 const uint64_t *__restrict__ last,
+                                 int64_t comps, int k, int log_n,
+                                 const uint64_t *__restrict__ consts) {
+    __shared__ uint64_t c[7 * MAX_LIMBS + 6];
+    const DivideLayout L{k};
+    for (int j = threadIdx.x; j < L.words(true); j += blockDim.x) {
+        c[j] = consts[j];
+    }
+    __syncthreads();
+    const uint64_t *q = c + L.q(), *ratio = c + L.ratio();
+    const uint64_t tt = c[L.tt()], tt_hi = c[L.tt_hi()];
+    const uint64_t inv = c[L.inv_t()], inv_shoup = c[L.inv_t_shoup()];
+    const uint64_t *pm = c + L.pm(), *pm_shoup = c + L.pm_shoup();
+    const int64_t n = int64_t(1) << log_n;
+    const int64_t total = comps << log_n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         idx < total; idx += stride) {
+        const int64_t comp = idx >> log_n;
+        const int64_t i = idx & (n - 1);
+        const uint64_t l = last[idx];
+        const uint64_t neg_k = bgv_neg_k(l, tt, tt_hi, inv, inv_shoup);
+        uint64_t *dst = out + ((comp * k) << log_n) + i;
+        for (int j = 0; j < k; ++j) {
+            dst[static_cast<int64_t>(j) << log_n] =
+                bgv_divide_temp(l, neg_k, q[j], ratio[j], pm[j], pm_shoup[j]);
         }
     }
 }
@@ -126,9 +133,13 @@ __global__ void finish_kernel(uint64_t *__restrict__ out,
                               int64_t acc_groups, int k, int log_n,
                               const uint64_t *__restrict__ consts) {
     __shared__ uint64_t c[5 * MAX_LIMBS + 2];
-    for (int j = threadIdx.x; j < 5 * k + 2; j += blockDim.x) c[j] = consts[j];
+    const DivideLayout L{k};
+    for (int j = threadIdx.x; j < L.words(false); j += blockDim.x) {
+        c[j] = consts[j];
+    }
     __syncthreads();
-    const uint64_t *q = c, *inv = c + 3 * k, *inv_shoup = c + 4 * k;
+    const uint64_t *q = c + L.q(), *inv = c + L.inv();
+    const uint64_t *inv_shoup = c + L.inv_shoup();
     const int64_t n = int64_t(1) << log_n;
     const int64_t total = (comps * k) << log_n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -140,11 +151,11 @@ __global__ void finish_kernel(uint64_t *__restrict__ out,
         const int j = static_cast<int>(row - comp * k);
         const int64_t i = idx & (n - 1);
         const uint64_t xv = x[((row + comp) << log_n) + i];  // row j of k+1
-        uint64_t r = mul_mod_shoup(xv + 4 * q[j] - temps[idx], inv[j],
-                                   inv_shoup[j], q[j]);
-        const int64_t g = comp / group, h = comp - g * group;
-        if (h < acc_comps) {
-            const int64_t arow = (g % acc_groups) * acc_comps + h;
+        uint64_t r = divide_finish(xv, temps[idx], q[j], inv[j], inv_shoup[j]);
+        const int64_t arow = accumulator_row(
+            static_cast<int>(comp), static_cast<int>(group), acc_comps,
+            static_cast<int>(acc_groups));
+        if (arow >= 0) {
             r = add_mod(acc[((arow * k + j) << log_n) + i], r, q[j]);
         }
         out[idx] = r;

@@ -65,8 +65,30 @@
 // words are those of F's digits then A's forward; the (k, k+1, n)
 // intermediate and F's launch are gone (at the headline's (5, n) -> (5, 6,
 // n), 3.9 MB written and read again a key switch).
+//
+// The troy_ntt_forward_{rescale,keyswitch,bgv_mod_switch,bgv_keyswitch}
+// entries fold kernel K' (and K'-BGV) into the forward transform of the
+// divide by the last prime (csrc/divide_round_ntt.cu; troy_tpu/ops/rns.py
+// :213 divide_and_round_q_last_ntt, :246 mod_t_and_divide_q_last_ntt, the
+// NTT-form divide of troy_tpu/evaluator.py:320-351): given last (comps, n),
+// row k's inverse transform, output row r = comp k + j loads word i of
+// last row r / k (the digits' map) and forms K''s temp for limb j as it
+// loads it (K'-BGV's: neg_k first; which one is a run-time flag, uniform
+// over the grid); the last pass (the contiguous one, or the one pass)
+// leaves the butterflies' output lazy and stores (x[comp, j, i] + 4 q_j -
+// v) p^-1 mod q_j plus the accumulator word, reading x and acc at the
+// stored word's index. The per-word arithmetic is divide_round.cuh's,
+// K''s own. A divide on A's route is then A's inverse of row k and this
+// forward: K''s two launches, their wrapper calls and the (comps, k, n)
+// temps written and read again are gone. A strided or contiguous block
+// holds one row, so it reads its limb's constants once into registers.
+// What bounds these passes at n = 16384 is latency (about one block an
+// SM), so the first pass issues all its loads of last before it forms
+// any temp, and the last loads its x and accumulator words before the
+// butterflies.
 
 #include "butterfly.cuh"
+#include "divide_round.cuh"
 
 using namespace troy;
 
@@ -75,8 +97,16 @@ namespace {
 // How a pass maps lines onto a row.
 enum Mode { kRows = 0, kCols = 1, kChunks = 2 };
 
+// What the first forward pass computes from each word it loads: the word
+// itself, the key switch's digit (Barrett-64 into the row's prime), or K''s
+// temp of the divide's last row.
+enum Load { kLoadPlain = 0, kLoadDigits = 1, kLoadDivide = 2 };
+
 constexpr int kLogTile = 10;    // the words a block of the two-pass form
 constexpr int kSplitLogN = 10;  // the least log2(n) that takes two passes
+// the most words of a tile a thread loads or stores (threads_for: 8 or
+// fewer): the divide's passes hold that many words a thread in registers
+constexpr int kWordsPerThread = 8;
 
 struct Pass {
     int mode;
@@ -84,6 +114,32 @@ struct Pass {
     int log_lines;  // lines a block: 2^log_lines
     int finish;     // the last pass: reduce (forward) or n^-1 (inverse)
     unsigned blocks;
+};
+
+// The divide's operands (the fused forward of K'; null otherwise): x
+// (comps, k + 1, n), the accumulator (acc_groups, acc_comps, k, n) or null,
+// the constants in DivideLayout, K'-BGV's temps if bgv.
+struct Divide {
+    const uint64_t *x;
+    const uint64_t *acc;
+    const uint64_t *consts;
+    long long group, acc_groups;
+    int acc_comps;
+    int bgv;
+};
+
+// One limb's constants of the temps (K''s or K'-BGV's fields).
+struct TempConsts {
+    uint64_t q, ratio, half_mod, p, half, pm, pm_shoup, tt, tt_hi, inv_t,
+        inv_t_shoup;
+};
+
+// What the finish of one output row reads: its x row and accumulator row
+// as offsets from the output row's words, and its limb's constants.
+struct FinishRow {
+    int64_t x_off, acc_off;
+    bool acc;
+    uint64_t q, inv, inv_shoup;
 };
 
 // A block's geometry: constants in a kernel compiled for it.
@@ -149,6 +205,73 @@ __device__ __forceinline__ Line line_of(const Geo &g, const Block &b, int l,
 // at word `base`: output row r holds source row r / k reduced into limb r % k.
 __device__ __forceinline__ int64_t digit_row(int64_t base, int log_n, int k) {
     return static_cast<int64_t>(static_cast<int>(base >> log_n) / k) << log_n;
+}
+
+__device__ __forceinline__ TempConsts temp_consts(const Divide &dv, int k,
+                                                  int limb) {
+    const DivideLayout L{k};
+    const uint64_t *c = dv.consts;
+    TempConsts t = {};
+    t.q = __ldg(c + L.q() + limb);
+    t.ratio = __ldg(c + L.ratio() + limb);
+    if (dv.bgv) {
+        t.pm = __ldg(c + L.pm() + limb);
+        t.pm_shoup = __ldg(c + L.pm_shoup() + limb);
+        t.tt = __ldg(c + L.tt());
+        t.tt_hi = __ldg(c + L.tt_hi());
+        t.inv_t = __ldg(c + L.inv_t());
+        t.inv_t_shoup = __ldg(c + L.inv_t_shoup());
+    } else {
+        t.half_mod = __ldg(c + L.half_mod() + limb);
+        t.p = __ldg(c + L.p());
+        t.half = __ldg(c + L.half());
+    }
+    return t;
+}
+
+__device__ __forceinline__ uint64_t temp_word(const TempConsts &t, int bgv,
+                                              uint64_t last) {
+    if (bgv) {
+        return bgv_divide_temp(
+            last, bgv_neg_k(last, t.tt, t.tt_hi, t.inv_t, t.inv_t_shoup),
+            t.q, t.ratio, t.pm, t.pm_shoup);
+    }
+    return divide_temp(last, t.p, t.half, t.q, t.ratio, t.half_mod);
+}
+
+// Output row `row` = comp k + j: x row row + comp, accumulator row
+// accumulator_row(comp) (ops/keyswitch.py's layout), limb j.
+__device__ __forceinline__ FinishRow finish_row(const Divide &dv,
+                                                int64_t row, int k,
+                                                int log_n) {
+    const DivideLayout L{k};
+    // 32-bit quotients: rows < 2^30 (run() refuses more)
+    const int comp = static_cast<int>(row) / k;
+    const int j = static_cast<int>(row) - comp * k;
+    const int64_t arow = accumulator_row(
+        comp, static_cast<int>(dv.group), dv.acc_comps,
+        static_cast<int>(dv.acc_groups));
+    FinishRow f;
+    f.x_off = static_cast<int64_t>(comp) << log_n;
+    f.acc = arow >= 0;
+    f.acc_off = (arow - comp) * k * (int64_t(1) << log_n);  // may be < 0
+    f.q = __ldg(dv.consts + L.q() + j);
+    f.inv = __ldg(dv.consts + L.inv() + j);
+    f.inv_shoup = __ldg(dv.consts + L.inv_shoup() + j);
+    return f;
+}
+
+// Word f of a block's tile: its local line l and its index i in the line
+// (the strided pass walks consecutive columns first, so loads coalesce).
+__device__ __forceinline__ void tile_word(const Geo &g, int f, int &l,
+                                          int &i) {
+    if (g.mode == kCols) {
+        l = f & ((1 << g.log_lines) - 1);
+        i = f >> g.log_lines;
+    } else {
+        l = f >> g.log_line;
+        i = f & ((1 << g.log_line) - 1);
+    }
 }
 
 // Shared-memory position of word i of local line l: column-major for the
@@ -231,7 +354,9 @@ __device__ __forceinline__ void run_stage(int s, uint64_t *v_s,
 // 2^kLogLine-word lines, 2^(kLogTile - kLogLine) a block, a thread per 8
 // words; kLogLine = 0: the geometry of `pass`. The second pass runs in
 // place (in == out): each block reads its whole tile before it writes.
-template <bool kInverse, int kMode, int kLogLine, bool kDigits>
+// kLoad: what the (first forward) pass loads; kFinish: the (last forward)
+// pass stores K''s finish of its lazy words.
+template <bool kInverse, int kMode, int kLogLine, int kLoad, bool kFinish>
 __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
                                 int rows, int log_n, int k,
                                 const uint64_t *__restrict__ roots,
@@ -240,7 +365,7 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
                                 const uint64_t *__restrict__ cr_hi,
                                 const uint64_t *__restrict__ inv_degree,
                                 const uint64_t *__restrict__ inv_degree_shoup,
-                                Pass pass, int lazy) {
+                                Pass pass, int lazy, Divide dv) {
     extern __shared__ uint64_t v_s[];
     const Geo geo = kLogLine > 0
         ? Geo{kMode, kLogLine, kLogTile - kLogLine, 1 << (kLogTile - 3)}
@@ -250,6 +375,30 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
     const int words = 1 << (log_line + log_lines);
     const int line_mask = (1 << log_line) - 1;
     const Block blk = block_of(geo, log_n, k);
+
+    // the finish's x and accumulator words of this thread's words, loaded
+    // first so that their latency passes under the transform's
+    FinishRow fr = {};
+    uint64_t xw[kWordsPerThread] = {}, aw[kWordsPerThread] = {};
+    if constexpr (kFinish) {
+        if (geo.mode != kRows) {
+            fr = finish_row(dv, blk.row_base >> log_n, k, log_n);
+        }
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            const int f = threadIdx.x + w * geo.threads;
+            if (f >= words) break;
+            int l, i;
+            tile_word(geo, f, l, i);
+            const Line ln = line_of(geo, blk, l, log_n, rows, k);
+            if (ln.limb < 0) continue;
+            const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
+            const FinishRow r = geo.mode == kRows
+                ? finish_row(dv, ln.base >> log_n, k, log_n) : fr;
+            xw[w] = __ldg(dv.x + at + r.x_off);
+            if (r.acc) aw[w] = __ldg(dv.acc + at + r.acc_off);
+        }
+    }
 
     // each line's twiddles (entry e = 2^r + b of its round-r table: the
     // global root_powers[o 2^r + b]), copied beside the data
@@ -265,24 +414,60 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
         tw_s[(2 * l << log_line) + e] = __ldg(roots + g);
         tw_s[((2 * l + 1) << log_line) + e] = __ldg(roots_shoup + g);
     }
-    // the digits' source row of a strided or contiguous block (one row a
-    // block), as an offset from its output row
-    const int64_t shift = kDigits && geo.mode != kRows
+    // the source row of the digits' or the temps' loads of a strided or
+    // contiguous block (one row a block), as an offset from its output row
+    const int64_t shift = kLoad != kLoadPlain && geo.mode != kRows
         ? digit_row(blk.row_base, log_n, k) - blk.row_base : 0;
-    for (int f = threadIdx.x; f < words; f += geo.threads) {
-        const int l = geo.mode == kCols ? f & ((1 << log_lines) - 1)
-                                        : f >> log_line;
-        const int i = geo.mode == kCols ? f >> log_lines : f & line_mask;
-        const Line ln = line_of(geo, blk, l, log_n, rows, k);
-        if (ln.limb < 0) continue;
-        const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
-        if (kDigits) {
-            const int64_t src = geo.mode == kRows
-                ? digit_row(ln.base, log_n, k) + i : at + shift;
-            v_s[smem_pos(geo, l, i)] = barrett_reduce_64(
-                in[src], __ldg(moduli + ln.limb), __ldg(cr_hi + ln.limb));
-        } else {
-            v_s[smem_pos(geo, l, i)] = in[at];
+    if constexpr (kLoad == kLoadDivide) {
+        // this thread's words of last first, all in flight together, then
+        // their temps (loaded and reduced in turn, each load waited for:
+        // with 64-bit quotients in the finish, the fused forward took
+        // about 1.4 us longer at n = 16384 on the H100, PERF.md)
+        const TempConsts tc = geo.mode != kRows
+            ? temp_consts(dv, k, blk.limb) : TempConsts{};
+        uint64_t lw[kWordsPerThread];
+        int pos[kWordsPerThread], limb[kWordsPerThread];
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) pos[w] = -1;
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            const int f = threadIdx.x + w * geo.threads;
+            if (f >= words) break;
+            int l, i;
+            tile_word(geo, f, l, i);
+            const Line ln = line_of(geo, blk, l, log_n, rows, k);
+            if (ln.limb < 0) continue;
+            const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
+            lw[w] = __ldg(in + (geo.mode == kRows
+                                    ? digit_row(ln.base, log_n, k) + i
+                                    : at + shift));
+            pos[w] = smem_pos(geo, l, i);
+            limb[w] = ln.limb;
+        }
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            if (pos[w] < 0) continue;
+            const TempConsts t = geo.mode == kRows
+                ? temp_consts(dv, k, limb[w]) : tc;
+            v_s[pos[w]] = temp_word(t, dv.bgv, lw[w]);
+        }
+    } else {
+        for (int f = threadIdx.x; f < words; f += geo.threads) {
+            const int l = geo.mode == kCols ? f & ((1 << log_lines) - 1)
+                                            : f >> log_line;
+            const int i = geo.mode == kCols ? f >> log_lines : f & line_mask;
+            const Line ln = line_of(geo, blk, l, log_n, rows, k);
+            if (ln.limb < 0) continue;
+            const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
+            if (kLoad == kLoadDigits) {
+                const int64_t src = geo.mode == kRows
+                    ? digit_row(ln.base, log_n, k) + i : at + shift;
+                v_s[smem_pos(geo, l, i)] = barrett_reduce_64(
+                    in[src], __ldg(moduli + ln.limb),
+                    __ldg(cr_hi + ln.limb));
+            } else {
+                v_s[smem_pos(geo, l, i)] = in[at];
+            }
         }
     }
     __syncthreads();
@@ -300,12 +485,32 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
         }
     }
 
+    if constexpr (kFinish) {
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            const int f = threadIdx.x + w * geo.threads;
+            if (f >= words) break;
+            int l, i;
+            tile_word(geo, f, l, i);
+            const Line ln = line_of(geo, blk, l, log_n, rows, k);
+            if (ln.limb < 0) continue;
+            const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
+            const FinishRow r = geo.mode == kRows
+                ? finish_row(dv, ln.base >> log_n, k, log_n) : fr;
+            uint64_t x = divide_finish(xw[w], v_s[smem_pos(geo, l, i)], r.q,
+                                       r.inv, r.inv_shoup);
+            if (r.acc) x = add_mod(aw[w], x, r.q);
+            out[at] = x;
+        }
+        return;
+    }
     for (int f = threadIdx.x; f < words; f += geo.threads) {
         const int l = geo.mode == kCols ? f & ((1 << log_lines) - 1)
                                         : f >> log_line;
         const int i = geo.mode == kCols ? f >> log_lines : f & line_mask;
         const Line ln = line_of(geo, blk, l, log_n, rows, k);
         if (ln.limb < 0) continue;
+        const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
         uint64_t x = v_s[smem_pos(geo, l, i)];
         if (pass.finish) {
             const uint64_t q = moduli[ln.limb];
@@ -317,50 +522,70 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
                 x = lazy ? x : reduce_2q(x, q);
             }
         }
-        out[ln.base + static_cast<int64_t>(i) * ln.stride] = x;
+        out[at] = x;
     }
 }
 
 typedef void (*PassKernel)(uint64_t *, const uint64_t *, int, int, int,
                            const uint64_t *, const uint64_t *,
                            const uint64_t *, const uint64_t *,
-                           const uint64_t *, const uint64_t *, Pass, int);
+                           const uint64_t *, const uint64_t *, Pass, int,
+                           Divide);
 
-// The kernel of a pass: compiled for its geometry where one is, else the
-// run-time one.
-template <bool kInverse>
-PassKernel kernel_for(const Pass &p) {
-    if (p.mode != kRows && p.log_line + p.log_lines == kLogTile) {
-        const bool cols = p.mode == kCols;
-        switch (p.log_line) {
-        case 5: return cols ? ntt_pass_kernel<kInverse, kCols, 5, false>
-                            : ntt_pass_kernel<kInverse, kChunks, 5, false>;
-        case 6: return cols ? ntt_pass_kernel<kInverse, kCols, 6, false>
-                            : ntt_pass_kernel<kInverse, kChunks, 6, false>;
-        case 7: return cols ? ntt_pass_kernel<kInverse, kCols, 7, false>
-                            : ntt_pass_kernel<kInverse, kChunks, 7, false>;
-        case 8: return cols ? ntt_pass_kernel<kInverse, kCols, 8, false>
-                            : ntt_pass_kernel<kInverse, kChunks, 8, false>;
-        default: break;
-        }
+// The kernel compiled for the geometry of p (2^kLogTile-word tiles of
+// 2^5-2^8-word lines) in mode kMode, or null.
+template <bool kInverse, int kMode, int kLoad, bool kFinish>
+PassKernel compiled_for(const Pass &p) {
+    if (p.mode != kMode || p.log_line + p.log_lines != kLogTile) {
+        return nullptr;
     }
-    return ntt_pass_kernel<kInverse, kRows, 0, false>;
+    switch (p.log_line) {
+    case 5: return ntt_pass_kernel<kInverse, kMode, 5, kLoad, kFinish>;
+    case 6: return ntt_pass_kernel<kInverse, kMode, 6, kLoad, kFinish>;
+    case 7: return ntt_pass_kernel<kInverse, kMode, 7, kLoad, kFinish>;
+    case 8: return ntt_pass_kernel<kInverse, kMode, 8, kLoad, kFinish>;
+    default: return nullptr;
+    }
 }
 
-// The forward transform's first pass with the digits' load: the strided
-// pass (or the one pass over whole rows below 2^kSplitLogN), compiled for
-// the same geometries as kernel_for's.
-PassKernel digits_kernel_for(const Pass &p) {
-    if (p.mode == kCols && p.log_line + p.log_lines == kLogTile) {
-        switch (p.log_line) {
-        case 5: return ntt_pass_kernel<false, kCols, 5, true>;
-        case 6: return ntt_pass_kernel<false, kCols, 6, true>;
-        case 7: return ntt_pass_kernel<false, kCols, 7, true>;
-        case 8: return ntt_pass_kernel<false, kCols, 8, true>;
-        default: break;
+// The kernel of a pass: compiled for its geometry where one is, else the
+// run-time one. A load other than the plain one is a forward transform's
+// first pass (strided, or the one pass over whole rows), a finish its last
+// (contiguous, or the one pass), so only those modes are compiled for
+// them; a pass that takes both is the one pass (run-time).
+template <bool kInverse, int kLoad, bool kFinish>
+PassKernel kernel_for(const Pass &p) {
+    PassKernel kernel = nullptr;
+    if constexpr (kLoad == kLoadPlain && !kFinish) {
+        kernel = compiled_for<kInverse, kCols, kLoad, kFinish>(p);
+        if (kernel == nullptr) {
+            kernel = compiled_for<kInverse, kChunks, kLoad, kFinish>(p);
         }
+    } else if constexpr (!kFinish) {
+        kernel = compiled_for<kInverse, kCols, kLoad, kFinish>(p);
+    } else if constexpr (kLoad == kLoadPlain) {
+        kernel = compiled_for<kInverse, kChunks, kLoad, kFinish>(p);
     }
-    return ntt_pass_kernel<false, kRows, 0, true>;
+    return kernel != nullptr ? kernel
+                             : ntt_pass_kernel<kInverse, kRows, 0, kLoad,
+                                               kFinish>;
+}
+
+// The kernel of pass p of `count`: A's own, or with the digits' load (cr_hi)
+// or the divide's load and finish (dv) in a forward transform.
+PassKernel pass_kernel(const Pass &pass, int p, int count, int inverse,
+                       const void *cr_hi, const Divide *dv) {
+    const bool first = p == 0, last = p == count - 1;
+    if (inverse) return kernel_for<true, kLoadPlain, false>(pass);
+    if (dv != nullptr) {
+        if (first && last) return kernel_for<false, kLoadDivide, true>(pass);
+        if (first) return kernel_for<false, kLoadDivide, false>(pass);
+        return kernel_for<false, kLoadPlain, true>(pass);
+    }
+    if (cr_hi != nullptr && first) {
+        return kernel_for<false, kLoadDigits, false>(pass);
+    }
+    return kernel_for<false, kLoadPlain, false>(pass);
 }
 
 // Shared memory of a pass: its words and twiddles (one table of the
@@ -406,11 +631,14 @@ int threads_for(const Pass &p) {
 
 // One transform's launches; with cr_hi (the digits' entry) the first
 // forward pass reads source row r / k of `in` for output row r and reduces
-// each word into the row's prime q[r % k] as it loads it.
+// each word into the row's prime q[r % k] as it loads it; with dv (the
+// divide's entries) it forms K''s temp of that word instead, and the last
+// pass stores K''s finish.
 int run(void *out, const void *in, long long rows, int log_n, int k,
         const void *roots, const void *roots_shoup, const void *moduli,
         const void *cr_hi, const void *inv_degree,
-        const void *inv_degree_shoup, int inverse, int lazy, void *stream) {
+        const void *inv_degree_shoup, int inverse, int lazy,
+        const Divide *dv, void *stream) {
     if (rows < 1 || rows > (1LL << 30) || k < 1 || log_n < 1 || log_n > 24) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -418,10 +646,13 @@ int run(void *out, const void *in, long long rows, int log_n, int k,
     const int count = plan(rows, log_n, inverse, passes);
     const void *src = in;
     for (int p = 0; p < count; ++p) {
-        const PassKernel kernel = cr_hi != nullptr && p == 0
-            ? digits_kernel_for(passes[p])
-            : inverse ? kernel_for<true>(passes[p])
-                      : kernel_for<false>(passes[p]);
+        const PassKernel kernel = pass_kernel(passes[p], p, count, inverse,
+                                              cr_hi, dv);
+        if (dv != nullptr &&
+            (1 << (passes[p].log_line + passes[p].log_lines)) >
+                kWordsPerThread * threads_for(passes[p])) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
         // above the default 48 KiB (n >= 2^23, the run-time kernel): the
         // limit is raised on the current device at each such call
         const size_t smem = smem_bytes(passes[p]);
@@ -440,7 +671,8 @@ int run(void *out, const void *in, long long rows, int log_n, int k,
             static_cast<const uint64_t *>(moduli),
             static_cast<const uint64_t *>(cr_hi),
             static_cast<const uint64_t *>(inv_degree),
-            static_cast<const uint64_t *>(inv_degree_shoup), passes[p], lazy);
+            static_cast<const uint64_t *>(inv_degree_shoup), passes[p], lazy,
+            dv != nullptr ? *dv : Divide{});
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
         src = out;
@@ -458,7 +690,7 @@ extern "C" int troy_ntt(void *out, const void *in, long long rows, int log_n,
                         const void *inv_degree_shoup, int inverse, int lazy,
                         void *stream) {
     return run(out, in, rows, log_n, k, roots, roots_shoup, moduli, nullptr,
-               inv_degree, inv_degree_shoup, inverse, lazy, stream);
+               inv_degree, inv_degree_shoup, inverse, lazy, nullptr, stream);
 }
 
 // The key switch's digits and their forward transform in one call (F's
@@ -476,7 +708,80 @@ extern "C" int troy_ntt_forward_digits(void *out, const void *in,
         return static_cast<int>(cudaErrorInvalidValue);
     }
     return run(out, in, rows, log_n, k, roots, roots_shoup, moduli, cr_hi,
-               nullptr, nullptr, 0, 0, stream);
+               nullptr, nullptr, 0, 0, nullptr, stream);
+}
+
+namespace {
+
+// The forward half of a divide by the last prime (K' or K'-BGV folded into
+// A's forward): out (comps, k, n) from last (comps, n), x (comps, k + 1,
+// n) and acc (acc_groups, acc_comps, k, n) or null, over the tables of
+// q_0..q_{k-1}; consts in DivideLayout.
+int divide_forward(void *out, const void *last, const void *x,
+                   const void *acc, long long comps, int acc_comps,
+                   long long group, long long acc_groups, int k, int log_n,
+                   const void *roots, const void *roots_shoup,
+                   const void *moduli, const void *consts, int bgv,
+                   void *stream) {
+    if (k < 1 || k > kDivideMaxLimbs || comps < 1 || x == nullptr ||
+        consts == nullptr || acc_comps < 0 ||
+        (acc_comps > 0 && acc == nullptr) || group < 1 || acc_groups < 1 ||
+        acc_comps > group) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const Divide dv = {static_cast<const uint64_t *>(x),
+                       static_cast<const uint64_t *>(acc),
+                       static_cast<const uint64_t *>(consts), group,
+                       acc_groups, acc_comps, bgv};
+    return run(out, last, comps * k, log_n, k, roots, roots_shoup, moduli,
+               nullptr, nullptr, nullptr, 0, 1, &dv, stream);
+}
+
+}  // namespace
+
+// The four uses of K', each on its own entry (and launch count): the CKKS
+// rescale (p the level's last prime, no accumulator), the NTT-form key
+// switch (p the special prime, accumulator (c0, c1), c0 or a batch's c0s),
+// the BGV mod switch and the BGV key switch (K'-BGV's temps). Arguments
+// as divide_forward's; the tables (k, n) are those of q_0..q_{k-1}.
+extern "C" int troy_ntt_forward_rescale(
+        void *out, const void *last, const void *x, const void *acc,
+        long long comps, int acc_comps, long long group, long long acc_groups,
+        int k, int log_n, const void *roots, const void *roots_shoup,
+        const void *moduli, const void *consts, void *stream) {
+    return divide_forward(out, last, x, acc, comps, acc_comps, group,
+                          acc_groups, k, log_n, roots, roots_shoup, moduli,
+                          consts, 0, stream);
+}
+
+extern "C" int troy_ntt_forward_keyswitch(
+        void *out, const void *last, const void *x, const void *acc,
+        long long comps, int acc_comps, long long group, long long acc_groups,
+        int k, int log_n, const void *roots, const void *roots_shoup,
+        const void *moduli, const void *consts, void *stream) {
+    return divide_forward(out, last, x, acc, comps, acc_comps, group,
+                          acc_groups, k, log_n, roots, roots_shoup, moduli,
+                          consts, 0, stream);
+}
+
+extern "C" int troy_ntt_forward_bgv_mod_switch(
+        void *out, const void *last, const void *x, const void *acc,
+        long long comps, int acc_comps, long long group, long long acc_groups,
+        int k, int log_n, const void *roots, const void *roots_shoup,
+        const void *moduli, const void *consts, void *stream) {
+    return divide_forward(out, last, x, acc, comps, acc_comps, group,
+                          acc_groups, k, log_n, roots, roots_shoup, moduli,
+                          consts, 1, stream);
+}
+
+extern "C" int troy_ntt_forward_bgv_keyswitch(
+        void *out, const void *last, const void *x, const void *acc,
+        long long comps, int acc_comps, long long group, long long acc_groups,
+        int k, int log_n, const void *roots, const void *roots_shoup,
+        const void *moduli, const void *consts, void *stream) {
+    return divide_forward(out, last, x, acc, comps, acc_comps, group,
+                          acc_groups, k, log_n, roots, roots_shoup, moduli,
+                          consts, 1, stream);
 }
 
 // The blocks of each launch of one troy_ntt call (0 for a pass it does not

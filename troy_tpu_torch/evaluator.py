@@ -234,13 +234,14 @@ def _divide_by_special(prods: torch.Tensor, cd: ContextData,
     form, rows over the output limbs then the special prime, divided by the
     special prime -> (s, k_o, n) in the TARGET's domain (``ntt_form``),
     with acc added in the layout of ops/keyswitch.py. CKKS and BGV in the
-    NTT domain: A on the special row, K' (BGV: the t-corrected temps of
-    K'-BGV), A, K'; in the coefficient domain, an inverse A of the
-    products, then F's rounding divide (BFV) or the t-corrected one of K''
-    (BGV). ``limbs``: the output limbs, a run of the level's (a shard of the
-    limb axis, parallel/sharding.py), all of them by default. ``forward``
-    and ``inverse``: the transforms, called as A's; a coefficient-sharded
-    mesh passes kernel J's (parallel/sharding.py)."""
+    NTT domain: A on the special row, then on A's route one A forward with
+    K''s temps and finish in its passes (BGV: the t-corrected temps of
+    K'-BGV), on J's route K', J, K'; in the coefficient domain, an inverse
+    A of the products, then F's rounding divide (BFV) or the t-corrected
+    one of K'' (BGV). ``limbs``: the output limbs, a run of the level's (a
+    shard of the limb axis, parallel/sharding.py), all of them by default.
+    ``forward`` and ``inverse``: the transforms, called as A's; a
+    coefficient-sharded mesh passes kernel J's (parallel/sharding.py)."""
     k = cd.limbs
     used = _used_tables(cd, key_cd)
     p = key_cd.coeff_values[-1]

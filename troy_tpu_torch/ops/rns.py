@@ -7,7 +7,8 @@ csrc/behz.cu: ``behz_lift``, ``behz_tail``), the BFV decrypt rounding
 the t gamma premultiply folded into its constants, then kernel E's gamma
 correction ``behz_decrypt_round``), and the NTT-domain divide by the last
 prime of the CKKS rescale and key switch (kernel K',
-csrc/divide_round_ntt.cu: ``divide_and_round_q_last_ntt``,
+csrc/divide_round_ntt.cu, and on A's route folded into kernel A's forward,
+csrc/ntt.cu ``ntt_forward_divide``: ``divide_and_round_q_last_ntt``,
 ``divide_round_last_ntt``), its BGV members, which first subtract a
 multiple of t that makes the divided row divisible by the prime
 (``mod_t_and_divide_q_last_ntt`` and the BGV key switch's divide, kernel
@@ -432,14 +433,26 @@ def decrypt_scale_and_round(phase: torch.Tensor,
 # K' turns it into per-limb lazy temps, A forward-transforms those, and K'
 # finishes (x - temp) * p^-1 with an optional accumulator
 # (csrc/divide_round_ntt.cu). Constants: ops/keyswitch.divide_round_consts.
+# On A's route the temps and the finish run inside A's forward passes
+# (csrc/ntt.cu, ``ntt_forward_divide``): A inverse, then one fused forward.
+#
+# Each use names its entry points: (K''s temps, K''s finish, the fused
+# forward), so each keeps its own launch counts.
 
-RESCALE = ("troy_rescale_ntt_temps", "troy_rescale_ntt_finish")
-KEYSWITCH = ("troy_keyswitch_ntt_temps", "troy_keyswitch_ntt_finish")
+RESCALE = ("troy_rescale_ntt_temps", "troy_rescale_ntt_finish",
+           "troy_ntt_forward_rescale")
+KEYSWITCH = ("troy_keyswitch_ntt_temps", "troy_keyswitch_ntt_finish",
+             "troy_ntt_forward_keyswitch")
 # K'-BGV: the t-corrected temps; the mod switch has its own finish entry,
 # the key switch shares K''s
 BGV_MOD_SWITCH = ("troy_bgv_mod_switch_ntt_temps",
-                  "troy_bgv_mod_switch_ntt_finish")
-BGV_KEYSWITCH = ("troy_bgv_keyswitch_ntt_temps", "troy_keyswitch_ntt_finish")
+                  "troy_bgv_mod_switch_ntt_finish",
+                  "troy_ntt_forward_bgv_mod_switch")
+BGV_KEYSWITCH = ("troy_bgv_keyswitch_ntt_temps", "troy_keyswitch_ntt_finish",
+                 "troy_ntt_forward_bgv_keyswitch")
+# the entries that take K'-BGV's temps (the key switch's finish is K''s)
+_BGV_ENTRIES = {BGV_MOD_SWITCH[0], BGV_MOD_SWITCH[2], BGV_KEYSWITCH[0],
+                BGV_KEYSWITCH[2]}
 
 
 def _divide_consts(consts: torch.Tensor):
@@ -503,7 +516,7 @@ def _ntt_temps(entry: str, last: torch.Tensor,
                consts: torch.Tensor) -> torch.Tensor:
     if last.dim() != 2:
         raise ValueError(f"{entry}: expected (s, n), got {tuple(last.shape)}")
-    bgv = entry in (BGV_MOD_SWITCH[0], BGV_KEYSWITCH[0])
+    bgv = entry in _BGV_ENTRIES
     if not _kernels.on_cuda(last, consts):
         plain = (bgv_divide_ntt_temps_plain if bgv
                  else divide_round_ntt_temps_plain)
@@ -544,6 +557,68 @@ def _ntt_finish(entry: str, x: torch.Tensor, temps: torch.Tensor,
     return out
 
 
+def ntt_forward_divide_plain(x: torch.Tensor, last: torch.Tensor,
+                             tables: RnsNttTables, consts: torch.Tensor,
+                             acc: Optional[torch.Tensor] = None,
+                             group: Optional[int] = None,
+                             bgv: bool = False) -> torch.Tensor:
+    """The plain version of ``ntt_forward_divide``: K''s temps (K'-BGV's
+    if ``bgv``), A's lazy forward, K''s finish."""
+    temps = (bgv_divide_ntt_temps_plain if bgv
+             else divide_round_ntt_temps_plain)(last, consts)
+    return divide_round_ntt_finish_plain(
+        x, dntt.ntt_forward_plain(temps, tables, lazy=True),
+        consts[:5 * tables.k + 2], acc, group)
+
+
+def ntt_forward_divide(entry: str, x: torch.Tensor, last: torch.Tensor,
+                       tables: RnsNttTables, consts: torch.Tensor,
+                       acc: Optional[torch.Tensor] = None,
+                       group: Optional[int] = None) -> torch.Tensor:
+    """The forward half of the divide on A's route (K''s temps in kernel
+    A's first pass, its finish in A's last: one A call, csrc/ntt.cu): x
+    (s, k+1, n) NTT form, last (s, n) the inverse transform of its row k
+    (below p) -> (s, k, n), the words of K''s temps, A's lazy forward over
+    ``tables`` (q_0..q_{k-1}) and K''s finish, plus acc in the layout of
+    ops/keyswitch.py. ``entry``: one of the fused entries of RESCALE,
+    KEYSWITCH, BGV_MOD_SWITCH, BGV_KEYSWITCH (the BGV ones take
+    ops/keyswitch.bgv_divide_consts). Tables on J, a pointwise view, or
+    more than KEYSWITCH_MAX_LIMBS limbs (the kernel's) raise, on either
+    device."""
+    bgv = entry in _BGV_ENTRIES
+    k, n = tables.k, tables.n
+    if tables.mxu is not None or tables.root_powers.shape[-1] != n:
+        raise ValueError(f"{entry}: these tables hold no transform on A "
+                         "(kernel J's, or a pointwise view)")
+    if x.dim() != 3 or x.shape[1:] != (k + 1, n) or last.dim() != 2 \
+            or last.shape != (x.shape[0], n) \
+            or consts.numel() != (7 * k + 6 if bgv else 5 * k + 2):
+        raise ValueError(f"{entry}: x {tuple(x.shape)}, last "
+                         f"{tuple(last.shape)} and {consts.numel()} constants"
+                         f" do not fit {k} limbs of n = {n}")
+    if k > KEYSWITCH_MAX_LIMBS:
+        raise ValueError(f"{entry}: k = {k} limbs; the kernel takes at most "
+                         f"{KEYSWITCH_MAX_LIMBS}")
+    s = x.shape[0]
+    layout = dks.accumulator_layout(acc, s, k, n, group, entry)
+    operands = [x, last, consts, tables.q] + ([acc] if acc is not None
+                                              else [])
+    if not _kernels.on_cuda(*operands):
+        return ntt_forward_divide_plain(x, last, tables, consts, acc, group,
+                                        bgv)
+    x, last = x.contiguous(), last.contiguous()
+    _kernels.check_operand(x, f"{entry} x")
+    _kernels.check_operand(last, f"{entry} last row")
+    acc, a, group, groups = layout
+    if acc is not None:
+        _kernels.check_operand(acc, f"{entry} accumulator")
+    out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
+    _kernels.launch(entry, out.get_device(), out, last, x, acc, s, a, group,
+                    groups, k, tables.log_n, tables.root_powers,
+                    tables.root_powers_shoup, tables.q, consts)
+    return out
+
+
 def divide_round_last_ntt(x: torch.Tensor, tables: RnsNttTables,
                           last_tables: RnsNttTables, consts: torch.Tensor,
                           acc: Optional[torch.Tensor] = None,
@@ -555,14 +630,20 @@ def divide_round_last_ntt(x: torch.Tensor, tables: RnsNttTables,
     """x (s, k+1, n) NTT form -> (s, k, n) NTT form: rows 0..k-1 (over
     ``tables``) minus the rounded row k (over ``last_tables``, the prime p
     of ``consts``), times p^-1, plus acc in the layout of ops/keyswitch.py.
-    Kernels A, K', A, K'; ``entries`` names K''s entry points
-    (and with them its launch count); with the BGV entries, consts are
-    ops/keyswitch.bgv_divide_consts, whose first 5k + 2 words the finish
-    reads. ``forward`` and ``inverse`` are the transforms, called as A's
-    (x, tables[, lazy]); a coefficient-sharded mesh passes kernel J's
-    (parallel/sharding.py)."""
+    ``entries`` names K''s entry points (and with them its launch counts);
+    with the BGV entries, consts are ops/keyswitch.bgv_divide_consts, whose
+    first 5k + 2 words the finish reads. ``forward`` and ``inverse`` are
+    the transforms, called as A's (x, tables[, lazy]); a
+    coefficient-sharded mesh passes kernel J's (parallel/sharding.py).
+    On A's route (A's transforms over A's tables) kernels A inverse and the
+    fused forward (``ntt_forward_divide``); otherwise A or J inverse, K''s
+    temps, the forward, K''s finish."""
     k = x.shape[1] - 1
     last = inverse(x[:, k:], last_tables)[:, 0]
+    if forward is dntt.rns_ntt_forward and inverse is dntt.rns_ntt_inverse \
+            and tables.mxu is None:
+        return ntt_forward_divide(entries[2], x, last, tables, consts, acc,
+                                  group)
     temps = forward(_ntt_temps(entries[0], last, consts), tables, lazy=True)
     return _ntt_finish(entries[1], x, temps, consts[:5 * k + 2], acc, group)
 
@@ -585,9 +666,7 @@ def divide_and_round_q_last_ntt_plain(x: torch.Tensor, t: RnsNttTables,
     """The rescale on the plain versions of A and K' alone."""
     k = t.k - 1
     last = dntt.ntt_inverse_plain(x[:, k:], t.slice(k, k + 1))[:, 0]
-    temps = dntt.ntt_forward_plain(divide_round_ntt_temps_plain(last, consts),
-                                   t.slice(0, k), lazy=True)
-    return divide_round_ntt_finish_plain(x, temps, consts)
+    return ntt_forward_divide_plain(x, last, t.slice(0, k), consts)
 
 
 def mod_t_and_divide_q_last_ntt(x: torch.Tensor, t: RnsNttTables,
@@ -596,7 +675,8 @@ def mod_t_and_divide_q_last_ntt(x: torch.Tensor, t: RnsNttTables,
     (s, k, n) NTT form over the level's base t -> (s, k-1, n), minus a
     multiple of the plain modulus that makes the last row divisible by the
     last prime, divided by it; consts = bgv_divide_consts(t.slice(0, k-1),
-    that prime, tt). Kernels A, K'-BGV, A, K'-BGV."""
+    that prime, tt). Kernel A's inverse and the fused forward on A's
+    route (``divide_round_last_ntt``)."""
     if x.dim() != 3 or x.shape[1] != t.k or t.k < 2:
         raise ValueError(f"mod_t_and_divide_q_last_ntt: expected (s, {t.k}, "
                          f"n) with at least two limbs, got {tuple(x.shape)}")
@@ -624,9 +704,7 @@ def mod_t_and_divide_q_last_ntt_plain(x: torch.Tensor, t: RnsNttTables,
     """The BGV mod switch on the plain versions of A and K'-BGV alone."""
     k = t.k - 1
     last = dntt.ntt_inverse_plain(x[:, k:], t.slice(k, k + 1))[:, 0]
-    temps = dntt.ntt_forward_plain(bgv_divide_ntt_temps_plain(last, consts),
-                                   t.slice(0, k), lazy=True)
-    return divide_round_ntt_finish_plain(x, temps, consts[:5 * k + 2])
+    return ntt_forward_divide_plain(x, last, t.slice(0, k), consts, bgv=True)
 
 
 # --------------------------------------------------------------------------
