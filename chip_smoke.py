@@ -28,7 +28,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    it where F's digits and A ran), K mod-switch divide-round, G plain
    embedding, M Galois
    gather on its packed tables, signed and unsigned, and M as the batch
-   encoder's slot gather) against its plain PyTorch version on the card,
+   encoder's slot gather; D's fused forms, the zero encryptions' finishes
+   in place and into a batch with c1 copied, the switching-key rows and
+   the balanced add and sub, on random words and on the edge words 0 and
+   q - 1) against its plain PyTorch version on the card,
    at the main path's shapes, word for word (tolerance 0), with both times
    (CUDA events around one call, median of 20: at these sizes mostly the
    host's launch cost), the least time the card could take (bound) and,
@@ -107,10 +110,11 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    1e-4), the same checks for their kernels, and the medians of their
    multiply_plain;
 15. kernel I (device sampling: I1 uniform residues, I2 CBD noise, also
-   times t, I3 ternary, from threefry streams) against its plain versions
-   at the default path's shapes (6 and 5 limbs, one seed and device arrays
-   of 8 and of 5 seeds), word for word, with the times and bounds of
-   phase 3;
+   times t, I3 ternary, from threefry streams, and the one-launch draws of
+   a symmetric zero encryption, e then a, and of a public-key one, u then
+   each e_j) against its plain versions at the default path's shapes (6
+   and 5 limbs, one seed and device arrays of 8 and of 5 seeds), word for
+   word, with the times and bounds of phase 3;
 16. the default encryption path of each scheme at n = 16384, in a count
    window of its own that must launch I, A, B, D, G and G' and run no
    plain torch on the card: keygen, the public key with its seed, encrypt,
@@ -120,7 +124,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    port's own CPU run from the same seeds and plaintext words, every
    ciphertext decrypting to its slots, the public key's seed regenerating
    its c1, the device keys relinearizing and switching right
-   (apply_keyswitching); the medians and the profile of each op;
+   (apply_keyswitching); the medians and the profile of each op; each
+   encryption, public key and device key launching I and D once a call
+   (counters) and no device kernel but the port's (no stack, cat or copy;
+   profiler), no single CBD or ternary draw in the window;
 17. kernel N1 (the negacyclic shift by one amount and by one per row, the
    LWE extract of 256 terms, the assemble times n^-1), N2 (the pack-tree
    prepare), kernel M's batched gathers (16 tables, signed and unsigned;
@@ -294,7 +301,15 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    and K'-BGV's temps and finish in A's forward) at every shape of one
    run of the CKKS and BGV headline's mult+relin, rescale or mod switch
    and rotation, word-equal to K''s temps + A + K''s finish, the two
-   timed in turns, a launch of each beside the bound. Device us
+   timed in turns, a launch of each beside the bound; D and I around the
+   zero encryptions (redesign_zero): each scheme's symmetric, public-key
+   and batched (MANY) encryption, a device switching-key row set, BGV's
+   balanced add and sub and the bare draws of one and of MANY seed pairs,
+   each word-equal to the composition of single D steps, single draws and
+   stacks it replaced, the two timed in turns, with their kernels, copies
+   and I and D launches a call; and the spread of one CKKS and one BGV
+   rotation's profiled device time over 8 traces in this process
+   (op_spread). Device us
    a call come from CUDA events
    around a CUDA graph of 20 calls (the host's enqueue is longer than
    these kernels), a launch from the profiler.
@@ -310,9 +325,10 @@ apart; J's numbers are those of its n = 16384 shape, every shape under
 O5's those of n = 16384 at 2^40, every shape under "stats_shapes"; R1's
 those of its (4, 1, 2, 6, n) shape; phase 34's regimes under "sharded";
 phase 35's under "redesign", A's share of mult+relin under
-"mult_relin_a", and the kernels not yet redesigned ranked by launches
-times their device us a launch over their bound under
-"unredesigned_losses")
+"mult_relin_a", and the kernels of RANKED (those not yet redesigned, and
+D and I) ranked by launches times their device us a launch over their
+bound a launch, both means over the headline windows' profiled ops, each
+launch's bound from its own arguments, under "unredesigned_losses")
 and the
 bounds of the composite ops (M' the NTT-form rotation and the hoisted path
 over 8 elements, L the plain products, Q a device switching key; N the
@@ -330,7 +346,9 @@ over 3.35 TB/s, and its operations over the H100's data-sheet rate for their
 type: 64-bit multiplies, each taken as four 32-bit operations, and I's
 32-bit additions, rotations and xors (80 per threefry block), over the
 67 T/s float32 rate (the card has no faster path for 64-bit integer
-products); for O1, the 5 n log2 n f64 operations of an FFT over the
+products; it issues 64 32-bit integer operations a clock an SM, about a
+quarter of that rate, so I's operation bound is optimistic by about 4);
+for O1, the 5 n log2 n f64 operations of an FFT over the
 67 TFLOP/s FP64 tensor-core peak; for J, as for A, its butterflies' 64-bit
 products (3 each), with the entry reduction and the grid product (5 a
 word); for R1, its w - 1 modular adds a word, each taken as four 32-bit
@@ -354,8 +372,8 @@ import torch
 
 import troy_tpu_torch as P
 import troy_tpu_torch.compat as pytroy
-from troy_tpu_torch import (_kernels, interop, native, prng as rnd, refwire,
-                            rlwe,
+from troy_tpu_torch import (_kernels, encryptor, interop, keygen, native,
+                            prng as rnd, refwire, rlwe,
                             serialization, to_numpy, to_torch)
 from troy_tpu_torch.app import linear
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
@@ -619,6 +637,13 @@ A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_rescale_ntt_temps",
                   "troy_bgv_mod_switch_ntt_finish",
                   "troy_bgv_keyswitch_ntt_temps")
 
+# the single noise draws: every zero encryption draws its noise in the one
+# launch of its fused entry (troy_sample_zero_sym, _asym), so a window of
+# default-path encryptions must not launch these
+SINGLE_NOISE_DRAWS = ("troy_sample_cbd_rns", "troy_sample_ternary_rns")
+ENCRYPT_ABSENT = A_ROUTE_ABSENT + SINGLE_NOISE_DRAWS
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -695,6 +720,14 @@ def _uniform(rng, bounds, shape, device) -> torch.Tensor:
     lead = shape[:-2]
     cols = [rng.integers(0, b, size=lead + (1, shape[-1]), dtype=np.uint64)
             for b in bounds]
+    return to_torch(np.concatenate(cols, axis=-2), device)
+
+
+def _edge(rng, bounds, shape, device) -> torch.Tensor:
+    """Words 0 or bounds[l] - 1 only, for limb l of a (..., k, n) shape."""
+    lead = shape[:-2]
+    cols = [np.where(rng.integers(0, 2, size=lead + (1, shape[-1])), b - 1,
+                     0).astype(np.uint64) for b in bounds]
     return to_torch(np.concatenate(cols, axis=-2), device)
 
 
@@ -918,6 +951,7 @@ def phase_kernels(ctx) -> dict:
         ("D_rns_elementwise", "neg (3,5,n)", lambda: poly.rns_neg(ra, q5),
          lambda: poly.rns_elementwise_plain(poly.NEG, ra, None, q5), None,
          None),
+        *d_fused_checks(rng, q5, q6, dev),
         ("E_behz", f"tail (3,{k}+{nb},n)->(3,{k},n)",
          lambda: rns.behz_tail(e_tail, tool),
          lambda: rns.behz_tail_plain(e_tail, tool),
@@ -984,6 +1018,66 @@ def phase_kernels(ctx) -> dict:
          lambda: slots.index_select(-1, index_map))])
     results["H_batch_slots"] = h["H_batch_slots"]
     return results
+
+
+def d_fused_checks(rng, q5, q6, dev) -> list:
+    """Phase 3's checks of D's fused forms at the headline's shapes, on
+    random words and on the edge words 0 and q - 1: one encryption's finish
+    m - (x + y) in place into its ciphertext (5, n), a batch of MANY into
+    c0 with c1 copied, the public-key finish (2, 5, n) with m on c0, the
+    switching-key rows (5, 6, n) with P w, the balanced add and sub
+    (2, 5, n)."""
+    checks = []
+    for kind, draw in (("random", _uniform), ("edge", _edge)):
+        x5, y5, m5 = (draw(rng, q5.values, (5, N), dev) for _ in range(3))
+        xb, yb, mb, cb = (draw(rng, q5.values, (MANY, 5, N), dev)
+                          for _ in range(4))
+        xa, ya = (draw(rng, q5.values, (2, 5, N), dev) for _ in range(2))
+        xk, yk, ak = (draw(rng, q6.values, (5, 6, N), dev) for _ in range(3))
+        wk = draw(rng, q6.values, (6, N), dev)
+        special = q6.values[-1]
+
+        def batch(xb=xb, yb=yb, mb=mb, cb=cb):
+            ct = torch.empty((MANY, 2, 5, N), dtype=torch.int64, device=dev)
+            poly.zero_sym_finish(xb, yb, q5, mb, out=ct[:, 0], c1=cb)
+            return ct
+
+        checks += [
+            ("D_rns_elementwise", f"zero finish m-(x+y) into c0 (5,n) {kind}",
+             lambda x5=x5, y5=y5, m5=m5: poly.zero_sym_finish(
+                 x5, y5, q5, m5, out=torch.empty(
+                     (2, 5, N), dtype=torch.int64, device=dev)[0]),
+             lambda x5=x5, y5=y5, m5=m5: poly.zero_sym_finish_plain(
+                 x5, y5, q5, m5), None, None),
+            ("D_rns_elementwise", f"zero finish -(x+y) (5,n) {kind}",
+             lambda x5=x5, y5=y5: poly.zero_sym_finish(x5, y5, q5),
+             lambda x5=x5, y5=y5: poly.zero_sym_finish_plain(x5, y5, q5),
+             None, None),
+            ("D_rns_elementwise",
+             f"zero finish ({MANY},5,n) into c0, c1 copied {kind}", batch,
+             lambda xb=xb, yb=yb, mb=mb, cb=cb: torch.stack(
+                 [poly.zero_sym_finish_plain(xb, yb, q5, mb), cb], dim=1),
+             None, None),
+            ("D_rns_elementwise", f"public-key finish (2,5,n) + m {kind}",
+             lambda xa=xa, ya=ya, m5=m5: poly.zero_asym_finish(
+                 xa, ya, q5, m5),
+             lambda xa=xa, ya=ya, m5=m5: poly.zero_asym_finish_plain(
+                 xa, ya, q5, m5), None, None),
+            ("D_rns_elementwise", f"key rows (5,6,n) + P w {kind}",
+             lambda xk=xk, yk=yk, ak=ak, wk=wk: poly.switching_key_rows(
+                 xk, yk, ak, wk, special, q6),
+             lambda xk=xk, yk=yk, ak=ak, wk=wk: torch.stack(
+                 [poly.key_rows_finish_plain(xk, yk, wk, special, q6), ak],
+                 dim=1), None, None)]
+        for subtract in (False, True):
+            checks.append((
+                "D_rns_elementwise",
+                f"balanced {'sub' if subtract else 'add'} (2,5,n) {kind}",
+                lambda xa=xa, ya=ya, s=subtract: poly.balanced_add(
+                    xa, ya, 3, 786431, q5, s),
+                lambda xa=xa, ya=ya, s=subtract: poly.balanced_add_plain(
+                    xa, ya, 3, 786431, q5, s), None, None))
+    return checks
 
 
 def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -1724,26 +1818,67 @@ def phase_sampling_kernels(ctx, t: int) -> dict:
         "ternary": (sampling.sample_ternary_rns,
                     sampling.sample_ternary_rns_plain, ()),
     }
+    seed2 = int(rng.integers(0, 2 ** 64, dtype=np.uint64))
+    e_many, e_rows = draw(MANY), draw(key.k - 1)
+    samplers["zero_sym"] = (
+        lambda a, tab, *scale, e=None: zero_sym_draw(a, e, tab, *scale),
+        lambda a, tab, *scale, e=None: torch.stack(
+            sampling.sample_zero_sym_plain(a, e, tab, *scale)), ())
+    samplers["zero_sym_t"] = (samplers["zero_sym"][0],
+                              samplers["zero_sym"][1], (t,))
+    asym = [seed2, seed, 2 ** 64 - 1]
+    samplers["zero_asym"] = (
+        lambda u, tab, *scale: sampling.sample_zero_asym_rns(
+            u, asym[1:], tab, *scale),
+        lambda u, tab, *scale: sampling.sample_zero_asym_plain(
+            u, asym[1:], tab, *scale), ())
+    samplers["zero_asym_t"] = (samplers["zero_asym"][0],
+                               samplers["zero_asym"][1], (t,))
     cases = [("uniform", seed, key), ("uniform", seed, data),
              ("uniform", many, data), ("uniform", rows, key),
              ("cbd", seed, data), ("cbd_t", seed, data),
              ("cbd_t", many, data), ("cbd", rows, key), ("cbd_t", rows, key),
-             ("ternary", seed, data), ("ternary", seed, key)]
+             ("ternary", seed, data), ("ternary", seed, key),
+             ("zero_sym", seed, data), ("zero_sym_t", seed, data),
+             ("zero_sym", many, data), ("zero_sym_t", many, data),
+             ("zero_sym", rows, key), ("zero_sym_t", rows, key),
+             ("zero_asym", seed, data), ("zero_asym_t", seed, data)]
     checks = []
     for kind, seeds, tab in cases:
         run, plain, extra = samplers[kind]
+        kw = {}
+        if kind.startswith("zero_sym"):       # the e-seeds beside the a's
+            kw["e"] = (seed2 if isinstance(seeds, int)
+                       else e_many if seeds is many else e_rows)
         batch = 1 if isinstance(seeds, int) else seeds.numel()
         lead = "" if isinstance(seeds, int) else f"{batch},"
+        rows_of = {"zero_sym": "2,", "zero_sym_t": "2,", "zero_asym": "3,",
+                   "zero_asym_t": "3,"}.get(kind, "")
         checks.append((
-            "I_sampling", f"{kind} ({lead}{tab.k},n), "
+            "I_sampling", f"{kind} ({rows_of}{lead}{tab.k},n), "
             + ("one seed" if isinstance(seeds, int) else f"{batch} seeds"),
             "words",
-            lambda run=run, seeds=seeds, tab=tab, extra=extra:
-                run(seeds, tab, *extra),
-            lambda plain=plain, seeds=seeds, tab=tab, extra=extra:
-                plain(seeds, tab, *extra),
-            sampling_work(tab.k, batch, kind), None))
+            lambda run=run, seeds=seeds, tab=tab, extra=extra, kw=kw:
+                run(seeds, tab, *extra, **kw),
+            lambda plain=plain, seeds=seeds, tab=tab, extra=extra, kw=kw:
+                plain(seeds, tab, *extra, **kw),
+            sampling_work(tab.k, batch, kind) if kind in SINGLE_DRAWS
+            else None, None))
     return run_checks("15", checks)
+
+
+SINGLE_DRAWS = ("uniform", "cbd", "cbd_t", "ternary")
+
+
+def zero_sym_draw(a_seeds, e_seeds, tab, scale=None) -> torch.Tensor:
+    """Kernel I's symmetric zero-encryption draw into a new (2, [B,] k, n)
+    buffer: e, then a."""
+    lead = () if isinstance(a_seeds, int) else (a_seeds.numel(),)
+    buf = torch.empty((2,) + lead + (tab.k, tab.n), dtype=torch.int64,
+                      device=tab.device)
+    sampling.sample_zero_sym_rns(a_seeds, e_seeds, tab, scale, buf[0],
+                                 buf[1])
+    return buf
 
 
 def encode_requests(ctx) -> tuple:
@@ -1881,7 +2016,8 @@ def phase_default(ctxs: dict, counter) -> tuple:
         runs[name] = (encoder, values, plains, default_path(ctx, plains))
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
-    check_path("16", "16 (default path)", DEFAULT_PATH, counts, counter)
+    check_path("16", "16 (default path)", DEFAULT_PATH, counts, counter,
+               ENCRYPT_ABSENT)
     times, per_op = {}, {}
     for name, ctx in ctxs.items():
         encoder, values, plains, run = runs[name]
@@ -1906,9 +2042,63 @@ def phase_default(ctxs: dict, counter) -> tuple:
         times[name] = {op: cuda_ms(fn) for op, fn in run["ops"].items()}
         log(f"[16] {name} medians over {TIMING_REPS} runs (CUDA events): "
             + ", ".join(f"{k} {v:.4f}" for k, v in times[name].items()))
-        per_op.update(profile_ops("16", {f"{name}_{op}": fn
-                                         for op, fn in run["ops"].items()}))
+        profiled = profile_ops("16", {f"{name}_{op}": fn
+                                      for op, fn in run["ops"].items()})
+        per_op.update(profiled)
+        check_zero_launches(name, run["ops"], profiled)
     return counts, times, per_op
+
+
+# kernel I's and D's launches a call of each default-path op (one each for
+# a whole zero encryption, public key or switching-key row set), and the
+# ops whose trace holds no device kernel but the port's (no stack, cat or
+# contiguous copy)
+ZERO_OP_LAUNCHES = {"public_key": (1, 1), "encrypt": (1, 1),
+                    "encrypt_symmetric": (1, 1), "expand_seed": (1, 0),
+                    f"encrypt_symmetric_many{MANY}": (1, 1),
+                    "relin_key_q": (1, 1), "keyswitch_key_q": (1, 1)}
+NO_COPY_OPS = ("public_key", "encrypt", "encrypt_symmetric", "relin_key_q",
+               "keyswitch_key_q")
+
+
+def own_kernels() -> set:
+    """The names of the port's device functions (csrc's __global__s)."""
+    names = set()
+    for src in _kernels.CSRC.glob("*.cu"):
+        names.update(re.findall(r"__global__[\s\S]{0,200}?\b(\w+_kernel)\s*\(",
+                                src.read_text()))
+    return names
+
+
+def foreign_kernels(each: dict) -> dict:
+    """The device kernels and copies of a profiled op that are none of the
+    port's (torch's stack, cat and copy kernels, device-to-device and
+    device-to-host memcpys); a batched path's upload of its seeds (a host
+    to device memcpy) is not counted."""
+    own = own_kernels()
+    return {k: c for k, (c, _) in each.items()
+            if k not in own and not k.startswith("Memcpy HtoD")}
+
+
+def check_zero_launches(name: str, ops: dict, profiled: dict) -> None:
+    """Each op of ZERO_OP_LAUNCHES launches I and D that many times a call
+    (launch counters), and each of NO_COPY_OPS no kernel but the port's
+    (profiler)."""
+    for op, want in ZERO_OP_LAUNCHES.items():
+        _kernels.reset_launch_counts()
+        ops[op]()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        got = (counts["I_sampling"], counts["D_rns_elementwise"])
+        foreign = foreign_kernels(profiled[f"{name}_{op}"]["each"])
+        log(f"[16] {name} {op}: I {got[0]}, D {got[1]} launches a call; "
+            f"other device kernels and copies a call {foreign or 0}")
+        if got != want:
+            raise AssertionError(f"{name} {op}: I and D launch {got} times "
+                                 f"a call, not {want}")
+        if op in NO_COPY_OPS and foreign:
+            raise AssertionError(f"{name} {op}: device kernels that are "
+                                 f"none of the port's: {foreign}")
 
 
 # --------------------------------------------------------------------------
@@ -3205,17 +3395,79 @@ def check_path(tag: str, phases: str, path, counts: dict,
                              f"{counter.calls}")
 
 
+def launch_work(entry: str, args: tuple) -> tuple:
+    """bound() arguments of one launch, from its arguments: every tensor
+    argument's bytes once (D's c1, read and written beside out, twice),
+    and I's threefry blocks (THREEFRY_OPS 32-bit operations each), its
+    lifts (4 a word), its Barrett-128 (5 products a uniform word) and BGV's
+    Shoup product (2 a noise word). Every other kernel of RANKED is bound
+    by its bytes at its checked shapes (phases 3-20), so its operations
+    are not counted."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    if entry == "troy_rns_elementwise" and len(args) > 11 and isinstance(
+            args[7], torch.Tensor):
+        nbytes += args[7].numel() * 8
+    if not entry.startswith("troy_sample_"):
+        return nbytes, 0
+    uniform = small = scaled = 0            # words of each kind
+    blocks = 0                              # threefry blocks of small draws
+    if entry == "troy_sample_zero_asym":
+        rows, k, log_n = args[2:5]
+        small, blocks = rows * k << log_n, rows << log_n
+        scaled = (rows - 1) * k << log_n if args[6] is not None else 0
+    elif entry == "troy_sample_zero_sym":
+        batch, k, log_n = args[6:9]
+        uniform = small = batch * k << log_n
+        blocks = batch << log_n
+        scaled = small if args[12] is not None else 0
+    else:
+        batch, k, log_n = args[3:6]
+        words = batch * k << log_n
+        if entry == "troy_sample_uniform_rns":
+            uniform = words
+        else:
+            small, blocks = words, batch << log_n
+            scaled = words if entry == "troy_sample_cbd_rns" and \
+                args[7] is not None else 0
+    return (nbytes, uniform * 5 + scaled * 2, 0,
+            (2 * uniform + blocks) * THREEFRY_OPS + small * 4)
+
+
+def launch_bounds(fn) -> dict:
+    """{kernel: [launches, the sum of their bounds in us]} of one call of
+    fn: each launch's bound from its own arguments (``launch_work``)."""
+    seen = {}
+    launch = _kernels.launch
+
+    def record(entry, device, *args):
+        launch(entry, device, *args)
+        ms, _ = bound(*launch_work(entry, args))
+        entry_seen = seen.setdefault(_kernels.KERNELS[entry], [0, 0.0])
+        entry_seen[0] += 1
+        entry_seen[1] += ms * 1e3
+
+    _kernels.launch = record
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _kernels.launch = launch
+    return seen
+
+
 def profile_ops(tag: str, ops: dict, expect: Optional[dict] = None) -> dict:
     """The per-op device kernels and time; ``expect``: {op: the kernels its
     trace must hold whole (device_kernels_per_op)}, and every op's trace
-    holds some device event."""
+    holds some device event; and the bounds of one call's launches
+    (``launch_bounds``)."""
     per_op = {}
     for op, fn in ops.items():
         want = (expect or {}).get(op)
         count, device_ms, each = device_kernels_per_op(
             fn, expect=want, whole=want is not None)
         per_op[op] = {"device_kernels": count, "device_ms": device_ms,
-                      "each": each}
+                      "each": each, "bounds": launch_bounds(fn)}
         log(f"[{tag}] {op}: {count:g} device kernels and copies per op, "
             f"{device_ms:.4f} ms of device time (torch.profiler): "
             + "; ".join(f"{k} x{c:g} at {us:.1f} us"
@@ -4354,7 +4606,7 @@ def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
 
 
 def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
-                   divide_ops: dict) -> dict:
+                   divide_ops: dict, zero_ctxs: dict) -> dict:
     """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
     F, K' and K'-BGV: redesign_j, redesign_e, redesign_b, redesign_o1,
     redesign_p1, redesign_f, redesign_kp) as redesigned for the H100. A against its plain version, word for word, at every n of
@@ -4483,9 +4735,242 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
     p1 = redesign_p1(app_ctx, rng)
     f = redesign_f(dev, rng, bfv_ops)
     kp = redesign_kp(divide_ops)
+    zero = redesign_zero(zero_ctxs)
+    spread = op_spread(divide_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
-            "b": b, "o1": o1, "p1": p1, "f": f, "kp": kp}
+            "b": b, "o1": o1, "p1": p1, "f": f, "kp": kp, "zero": zero,
+            "spread": spread}
+
+
+SPREAD_TRACES = 8
+
+
+def op_spread(ops: dict) -> dict:
+    """Phase 35: how far one op's profiled device time moves within this
+    process, operands unchanged: each op's trace (as phase 10 and 14 take
+    it) taken SPREAD_TRACES times, its device us and A's us a launch; the
+    floor under which a difference between two runs says nothing."""
+    out = {}
+    for op in ("ckks_rotate_vector", "bgv_rotate_rows"):
+        rows = []
+        for _ in range(SPREAD_TRACES):
+            _, ms, each = device_kernels_per_op(
+                ops[op], expect={"ntt_pass_kernel": None}, whole=True)
+            rows.append((ms * 1e3, each["ntt_pass_kernel"][1]))
+        out[op] = rows
+        log(f"[35] spread of {op} over {SPREAD_TRACES} traces in this "
+            f"process: device {min(r[0] for r in rows):.2f}-"
+            f"{max(r[0] for r in rows):.2f} us, A "
+            f"{min(r[1] for r in rows):.2f}-{max(r[1] for r in rows):.2f} "
+            "us a launch")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 35, kernels D and I: the compositions their fused forms replace,
+# on the single D steps and the single draws (the words of the fused
+# forms; the launches, stacks and copies of the path before)
+# --------------------------------------------------------------------------
+
+def composed_zero_sym(a_seeds, e_seeds, sk, cd, ntt_form: bool):
+    """(c0, c1): two draws, B, A, then D's add and negate."""
+    t = cd.ntt
+    a = sampling.sample_uniform_rns(a_seeds, t)
+    e = sampling.sample_cbd_rns(e_seeds, t, rlwe._noise_scale(cd))
+    as_ntt = ntt.dyadic_mac(sk[:cd.limbs].unsqueeze(0), a.unsqueeze(0), t)
+    if ntt_form:
+        return poly.rns_neg(poly.rns_add(as_ntt, ntt.rns_ntt_forward(e, t),
+                                         t), t), a
+    both = ntt.rns_ntt_inverse(torch.stack([as_ntt, a]), t)
+    return poly.rns_neg(poly.rns_add(both[0], e, t), t), both[1]
+
+
+def composed_embed(m, c0, cd):
+    """c0 + the plaintext: G (BFV), D's add (CKKS), G', A and D's add
+    (BGV)."""
+    t = cd.ntt
+    if cd.scheme == P.SchemeType.bfv:
+        return poly.bfv_plain_embed(
+            m, c0, int(cd.plain_modulus), cd.coeff_modulus_mod_plain_modulus,
+            cd.coeff_div_plain_modulus, t)
+    if cd.scheme == P.SchemeType.ckks:
+        return poly.rns_add(c0, m, t)
+    tt = int(cd.plain_modulus)
+    lifted = poly.plain_lift(m, t, tt, tt, cd.total_coeff_modulus)
+    return poly.rns_add(c0, ntt.rns_ntt_forward(lifted, t), t)
+
+
+def composed_encrypt_sym(seeds, m, sk, cd, ntt_form: bool):
+    c0, c1 = composed_zero_sym(seeds[0], seeds[1], sk, cd, ntt_form)
+    return torch.stack([composed_embed(m, c0, cd), c1])
+
+
+def composed_encrypt_many(a_seeds, e_seeds, m, sk, cd, ntt_form: bool):
+    c0, c1 = composed_zero_sym(a_seeds, e_seeds, sk, cd, ntt_form)
+    return torch.stack([composed_embed(m, c0, cd), c1], dim=1)
+
+
+def composed_encrypt_asym(seeds, m, pk, cd, ntt_form: bool):
+    """u's draw and transform, B, one draw per e_j and their stack, A or
+    A's inverse, D's add, the embed and a cat."""
+    t = cd.ntt
+    u_ntt = ntt.rns_ntt_forward(sampling.sample_ternary_rns(seeds[0], t), t)
+    prods = ntt.dyadic_mac(u_ntt.unsqueeze(0), pk.unsqueeze(0), t)
+    e = torch.stack([sampling.sample_cbd_rns(s, t, rlwe._noise_scale(cd))
+                     for s in seeds[1:]])
+    zero = (poly.rns_add(prods, ntt.rns_ntt_forward(e, t), t) if ntt_form
+            else poly.rns_add(ntt.rns_ntt_inverse(prods, t), e, t))
+    return torch.cat([composed_embed(m, zero[0], cd).unsqueeze(0),
+                      zero[1:]])
+
+
+def composed_key_rows(a_seeds, e_seeds, w, sk, key_cd):
+    c0, c1 = composed_zero_sym(a_seeds, e_seeds, sk, key_cd, True)
+    return keygen._add_special_terms(c0, c1, w, key_cd)
+
+
+def composed_balanced_add(x, y, e1, e2, t, subtract: bool):
+    op = poly.rns_sub if subtract else poly.rns_add
+    return op(poly.rns_broadcast_scalar_mul(x, e1, t),
+              poly.rns_broadcast_scalar_mul(y, e2, t), t)
+
+
+def _zero_inputs(ctx, rng):
+    """A secret and public key (host keygen), MANY plaintexts' words and the
+    level of a scheme's encryptions."""
+    kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(DEFAULT_SEED + 35))
+    pk = kg.create_public_key()
+    if ctx.scheme == P.SchemeType.ckks:
+        enc = P.CKKSEncoder(ctx)
+        plains = [enc.encode(rng.uniform(-1, 1, N // 2), CKKS_SCALE)
+                  for _ in range(MANY)]
+        cd = ctx.get_context_data(plains[0].level)
+    else:
+        enc = P.BatchEncoder(ctx)
+        plains = [enc.encode(rng.integers(0, enc.plain_modulus, N,
+                                          dtype=np.uint64))
+                  for _ in range(MANY)]
+        cd = ctx.first_context_data
+    return kg, pk, torch.stack([p.data for p in plains]), cd
+
+
+def _in_turns(fused, composed) -> dict:
+    """Both calls' words compared, their device us a call in turns (graph
+    replay, 4 rounds), their device kernels and copies a call
+    (profiler), I's and D's launches a call (counters)."""
+    compare("words", fused(), composed())
+    calls = {"fused": fused, "composed": composed}
+    turns = {name: [] for name in calls}
+    for r in range(4):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            turns[name].append(graph_us(calls[name]))
+    out = {"device_us_turns": turns}
+    for name, fn in calls.items():
+        _kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        count, device_ms, each = device_kernels_per_op(fn, reps=10,
+                                                       whole=True)
+        out[name] = {"device_us": statistics.median(turns[name]),
+                     "kernels": count, "profiler_us": device_ms * 1e3,
+                     "I": counts["I_sampling"],
+                     "D": counts["D_rns_elementwise"],
+                     "foreign": foreign_kernels(each), "each": each}
+    return out
+
+
+def redesign_zero(ctxs: dict) -> dict:
+    """Phase 35, kernels D and I redesigned around the zero encryptions:
+    each fused path word-equal to the composition it replaces (two draws,
+    the single D steps, the stacks), both timed in turns (graph replay)
+    with their device kernels, copies and I and D launches a call: the
+    symmetric encryption of each scheme, the public-key encryption,
+    encrypt_symmetric_many's batch of MANY, a device switching-key row set
+    (BFV and BGV), BGV's balanced add and sub, and the bare draws at (5, n)
+    and (MANY, 5, n) beside their bounds."""
+    rng = np.random.default_rng(SEED + 36)
+    seed = lambda: int(rng.integers(0, 2 ** 64, dtype=np.uint64))
+    dev_seeds = lambda count: to_torch(rng.integers(
+        0, 2 ** 64, count, dtype=np.uint64), ctxs["bfv"].device)
+    out = {}
+
+    def record(tag, fused, composed, bound_fn=None, want=(1, 1)):
+        """want: the fused path's I and D launches a call."""
+        r = _in_turns(fused, composed)
+        if (r["fused"]["I"], r["fused"]["D"]) != want:
+            raise AssertionError(f"zero {tag}: I and D launch "
+                                 f"{r['fused']['I']}, {r['fused']['D']} "
+                                 f"times a call, not {want}")
+        if bound_fn is not None:
+            b = launch_bounds(bound_fn)["I_sampling"]
+            r["bound_us"] = b[1] / b[0]
+        out[tag] = r
+        f, c = r["fused"], r["composed"]
+        bound = (f", bound {r['bound_us']:.3f} us" if "bound_us" in r
+                 else "")
+        log(f"[35] zero {tag}: word-equal to the composition; device us a "
+            f"call in turns (graph): fused {f['device_us']:.2f}, composed "
+            f"{c['device_us']:.2f}; kernels a call (profiler) {f['kernels']:g}"
+            f" against {c['kernels']:g}, I {f['I']} against {c['I']}, D "
+            f"{f['D']} against {c['D']}, other kernels and copies "
+            f"{f['foreign'] or 0} against {c['foreign'] or 0}{bound}")
+
+    for name, ctx in ctxs.items():
+        kg, pk, m, cd = _zero_inputs(ctx, rng)
+        sk = kg.secret_key.data
+        ntt_form = ctx.scheme != P.SchemeType.bfv
+        pk_k = pk.data[:, :cd.limbs].contiguous()
+        sym = (seed(), seed())
+        record(f"{name} encrypt_symmetric (2,{cd.limbs},n)",
+               lambda: encryptor._encrypt_sym_full(sym, m[0], sk, cd,
+                                                   ntt_form),
+               lambda: composed_encrypt_sym(sym, m[0], sk, cd, ntt_form))
+        asym = (seed(), seed(), seed())
+        record(f"{name} encrypt (2,{cd.limbs},n)",
+               lambda: encryptor._encrypt_asym_full(asym, m[0], pk_k, cd,
+                                                    ntt_form),
+               lambda: composed_encrypt_asym(asym, m[0], pk_k, cd,
+                                             ntt_form))
+        a_seeds, e_seeds = dev_seeds(MANY), dev_seeds(MANY)
+        record(f"{name} encrypt_symmetric_many ({MANY},2,{cd.limbs},n)",
+               lambda: encryptor._encrypt_sym_batch(a_seeds, e_seeds, m, sk,
+                                                    cd, ntt_form),
+               lambda: composed_encrypt_many(a_seeds, e_seeds, m, sk, cd,
+                                             ntt_form))
+        if name in ("bfv", "bgv"):
+            key_cd = ctx.key_context_data
+            d = key_cd.limbs - 1
+            ka, ke = dev_seeds(d), dev_seeds(d)
+            w = kg._sk_power(2)
+            record(f"{name} switching-key rows ({d},2,{key_cd.limbs},n)",
+                   lambda: keygen._kswitch_key_core(ka, ke, w, sk, key_cd),
+                   lambda: composed_key_rows(ka, ke, w, sk, key_cd))
+    bgv_cd = ctxs["bgv"].first_context_data
+    x, y = (_uniform(rng, bgv_cd.ntt.values, (2, bgv_cd.limbs, N),
+                     ctxs["bgv"].device) for _ in range(2))
+    for subtract in (False, True):
+        record(f"bgv balanced {'sub' if subtract else 'add'} (2,5,n)",
+               lambda s=subtract: poly.balanced_add(x, y, 3, 786431,
+                                                    bgv_cd.ntt, s),
+               lambda s=subtract: composed_balanced_add(x, y, 3, 786431,
+                                                        bgv_cd.ntt, s),
+               want=(0, 1))
+    t5 = ctxs["ckks"].first_context_data.ntt
+    one = (seed(), seed())
+    record("I draw (2,5,n), one seed pair",
+           lambda: tuple(zero_sym_draw(one[0], one[1], t5)),
+           lambda: (sampling.sample_cbd_rns(one[1], t5),
+                    sampling.sample_uniform_rns(one[0], t5)),
+           lambda: zero_sym_draw(one[0], one[1], t5), (1, 0))
+    ma, me = dev_seeds(MANY), dev_seeds(MANY)
+    record(f"I draw (2,{MANY},5,n), {MANY} seed pairs",
+           lambda: tuple(zero_sym_draw(ma, me, t5)),
+           lambda: (sampling.sample_cbd_rns(me, t5),
+                    sampling.sample_uniform_rns(ma, t5)),
+           lambda: zero_sym_draw(ma, me, t5), (1, 0))
+    return out
 
 
 def redesign_kp(ops: dict) -> dict:
@@ -5098,57 +5583,73 @@ def redesign_o1(dev, rng, per_op: dict) -> dict:
     return {"rings": out, "ckks_ops": ops}
 
 
-# the kernels not yet redesigned for the H100 (PERF.md section 6) and
-# their device functions' names in the profiler (F's divide and K share
-# divide_round_kernel; F's counter also counts its digits on J's route)
-UNREDESIGNED = {
+# the kernels ranked by their loss (PERF.md section 6): those not yet
+# redesigned for the H100, and D and I, and their device functions' names
+# in the profiler (F's divide and K share divide_round_kernel, O2 and O4
+# round_kernel; F's counter also counts its digits on J's route)
+RANKED = {
     "C_base_convert": ("base_convert_kernel",),
     "D_rns_elementwise": ("rns_elementwise_kernel",),
     "F_keyswitch": ("divide_round_kernel", "keyswitch_digits_kernel"),
     "G_plain_embed": ("plain_embed_kernel",),
     "Gp_plain_lift": ("plain_lift_kernel",),
-    "I_sampling": ("uniform_kernel", "small_kernel"),
+    "I_sampling": ("uniform_kernel", "small_kernel", "zero_sym_kernel",
+                   "zero_asym_kernel"),
     "K_divide_round": ("divide_round_kernel",),
+    "N1_negacyclic": ("shift_kernel", "extract_kernel", "assemble_kernel"),
     "N2_pack_prepare": ("pack_prepare_kernel",),
+    "O2_ckks_round": ("round_kernel",),
     "O3_ckks_compose": ("compose_kernel",),
+    "O4_ckks_encode_stats": ("round_kernel",),
     "P2_pair_convolve": ("tile_pair_convolve_kernel",),
     "P3_group_fold": ("pack_group_fold_kernel",),
+    "Kpp_bgv_coeff": ("bgv_divide_kernel",),
     "X_exact_convert": ("exact_convert_kernel",),
 }
-# the windows and profiled ops of the headline configuration (n = 16384,
-# the shapes each kernel's bound is taken at); P2 and P3 run only in the
-# app protocol, at the shapes of their bounds
+# the windows and profiled ops of the headline configuration (n = 16384);
+# P2 and P3 run only in the app protocol
 HEADLINE_WINDOWS = ("bfv", "ckks", "bgv", "plain_ops", "default", "lwe")
 OTHER_OPS = ("app_", "seal", "ckks32768", "n131072", "n262144", "shim_")
+APP_ONLY = ("P2_pair_convolve", "P3_group_fold")
+
+
+def _ranked_ops(per_op: dict, app: bool):
+    """The profiled ops of the headline windows (the app's for P2, P3)."""
+    for op, prof in per_op.items():
+        if op.startswith("app_") == app and (
+                app or not op.startswith(OTHER_OPS)):
+            yield op, prof
 
 
 def unredesigned_losses(entries: list, per_op: dict,
                         kernel_results: dict) -> dict:
-    """Each kernel of UNREDESIGNED: its launches in the headline windows
-    (the app's for P2 and P3) times its device us a launch (the
-    launch-weighted mean over the profiled ops of the same windows) less
-    its bound at its first checked shape, ordered by that product: where
-    the next redesign saves the most."""
+    """Each kernel of RANKED: its launches in the headline windows (the
+    app's for P2 and P3) times its device us a launch less its bound a
+    launch, both launch-weighted means over the profiled ops of the same
+    windows (the bound of each launch from its own arguments,
+    ``launch_work``), ordered by that product: where the next redesign
+    saves the most. A kernel those ops never launch keeps its bound at its
+    first checked shape."""
     by_name = {e["name"]: e for e in entries}
     out = {}
-    for kernel, names in UNREDESIGNED.items():
-        app = kernel in ("P2_pair_convolve", "P3_group_fold")
+    for kernel, names in RANKED.items():
+        app = kernel in APP_ONLY
         launches = (by_name[kernel]["launches_app"] if app else
                     sum(by_name[kernel][f"launches_{w}"]
                         for w in HEADLINE_WINDOWS))
-        n = t = 0.0
-        for op, prof in per_op.items():
-            if op.startswith("app_") != app or (
-                    not app and op.startswith(OTHER_OPS)):
-                continue
+        n = t = bn = bt = 0.0
+        for op, prof in _ranked_ops(per_op, app):
             for name in names:
                 if name in prof["each"]:
                     count, us = prof["each"][name]
                     n, t = n + count, t + count * us
+            if kernel in prof["bounds"]:
+                calls, bound_us = prof["bounds"][kernel]
+                bn, bt = bn + calls, bt + bound_us
         us = t / n if n else None
-        bound_us = kernel_results[kernel]["bound_ms"] * 1e3
+        bound_us = bt / bn if bn else kernel_results[kernel]["bound_ms"] * 1e3
         out[kernel] = {"launches": launches, "us_per_launch": us,
-                       "bound_us": bound_us,
+                       "bound_us": bound_us, "bound_launches": bn,
                        "lost_ms": None if us is None else
                        launches * max(0.0, us - bound_us) / 1e3}
     ranked = sorted(out.items(), key=lambda kv: -(kv[1]["lost_ms"] or 0))
@@ -5157,8 +5658,10 @@ def unredesigned_losses(entries: list, per_op: dict,
             f"{r['us_per_launch']:.2f} us a launch"
         lost = "" if r["lost_ms"] is None else \
             f", {r['lost_ms']:.4f} ms over the bound"
+        at = (f"over {r['bound_launches']:g} profiled launches"
+              if r["bound_launches"] else "at its first checked shape")
         log(f"[rank] {kernel}: {r['launches']} launches, {us}, bound "
-            f"{r['bound_us']:.3f} us{lost}")
+            f"{r['bound_us']:.3f} us ({at}){lost}")
     return dict(ranked)
 
 
@@ -5191,7 +5694,8 @@ def main() -> None:
     req = phase_requests(ctx, *state)
     torch.cuda.synchronize()
     bfv_counts = _kernels.launch_counts()
-    check_path("6", "4-5", BFV_PATH, bfv_counts, counter)
+    check_path("6", "4-5", BFV_PATH, bfv_counts, counter,
+               ENCRYPT_ABSENT)
     kg, rlk, _, be, ev, dec = state
     ca, cb, rel, gk = req["ca"], req["cb"], req["rel"], req["gk"]
     # bound now: the CKKS and BGV phases below rebind these names, and
@@ -5232,7 +5736,8 @@ def main() -> None:
     creq = phase_ckks_requests(ckks_ctx, *cstate)
     torch.cuda.synchronize()
     ckks_counts = _kernels.launch_counts()
-    check_path("10", "8-9", CKKS_PATH, ckks_counts, counter)
+    check_path("10", "8-9", CKKS_PATH, ckks_counts, counter,
+               ENCRYPT_ABSENT)
     _, rlk, _, ce, ev, dec = cstate
     ca, cb, rel, gk = creq["ca"], creq["cb"], creq["rel"], creq["gk"]
     per_op.update(profile_ops("10", {
@@ -5265,7 +5770,8 @@ def main() -> None:
     breq = phase_bgv_requests(bgv_ctx, *bstate)
     torch.cuda.synchronize()
     bgv_counts = _kernels.launch_counts()
-    check_path("14", "12-13", BGV_PATH, bgv_counts, counter)
+    check_path("14", "12-13", BGV_PATH, bgv_counts, counter,
+               ENCRYPT_ABSENT)
     _, rlk, _, be, ev, dec = bstate
     ca, cb, rel, ms, gk = (breq[k] for k in ("ca", "cb", "rel", "ms", "gk"))
     per_op.update(profile_ops("14", {
@@ -5351,7 +5857,8 @@ def main() -> None:
     # ranks on the card (after it, the profiler lost the same share of
     # every trace in this process) ----
     redesign = phase_redesign(ctx.device, bfv_ops, per_op, app_ctx,
-                              divide_ops)
+                              divide_ops, {"bfv": ctx, "ckks": ckks_ctx,
+                                           "bgv": bgv_ctx})
 
     # ---- multi-device (R): 33-34 ----
     shard_results, j_shards = phase_shard_kernels(ctx.device)

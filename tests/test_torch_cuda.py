@@ -821,6 +821,94 @@ def test_sampling_kernel(dev, limbs, batch, kind):
     _same(got, want)
 
 
+@pytest.mark.parametrize("limbs", [6, 5])
+@pytest.mark.parametrize("batch", [None, 8])
+@pytest.mark.parametrize("scale", [None, 786433])
+def test_sampling_zero_sym_kernel(dev, limbs, batch, scale):
+    """Kernel I's one launch for a symmetric zero encryption (e, then a)
+    against its plain version, at n = 16384, one seed pair and 8."""
+    n = 16384
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])][:limbs]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    if batch is None:
+        a_seeds, e_seeds, lead = 2 ** 64 - 1, 5, ()
+    else:
+        rng = np.random.default_rng(limbs)
+        a_seeds, e_seeds = (interop.to_torch(rng.integers(
+            0, 2 ** 64, batch, dtype=np.uint64), dev) for _ in range(2))
+        lead = (batch,)
+    buf = torch.empty((2,) + lead + (limbs, n), dtype=torch.int64,
+                      device=dev)
+    sampling.sample_zero_sym_rns(a_seeds, e_seeds, tables, scale, buf[0],
+                                 buf[1])
+    e, a = sampling.sample_zero_sym_plain(a_seeds, e_seeds, tables, scale)
+    _same(buf[0], e)
+    _same(buf[1], a)
+
+
+@pytest.mark.parametrize("limbs", [6, 5])
+@pytest.mark.parametrize("scale", [None, 786433])
+def test_sampling_zero_asym_kernel(dev, limbs, scale):
+    """Kernel I's one launch for a public-key zero encryption (u, e_0,
+    e_1) against its plain version at n = 16384."""
+    n = 16384
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])][:limbs]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    seeds = [2 ** 63 + 3, 0, 2 ** 64 - 1]
+    _same(sampling.sample_zero_asym_rns(seeds[0], seeds[1:], tables, scale),
+          sampling.sample_zero_asym_plain(seeds[0], seeds[1:], tables,
+                                          scale))
+
+
+def _edge(rng, moduli, lead, n, dev):
+    """Words 0 or q - 1 only."""
+    cols = [np.where(rng.integers(0, 2, lead + (1, n)), q - 1, 0).astype(
+        np.uint64) for q in moduli]
+    return interop.to_torch(np.concatenate(cols, axis=-2), dev)
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_rns_fused_forms_kernel(dev, edge):
+    """Kernel D's fused forms against their plain versions at n = 16384
+    over six limbs: the zero encryptions' finishes (one ciphertext in
+    place, a batch of 8 into c0 with c1 copied), the switching-key rows of
+    5 and the balanced add and sub."""
+    n = 16384
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(7 + int(edge))
+    words = (lambda lead: _edge(rng, moduli, lead, n, dev)) if edge else \
+        (lambda lead: _uniform(rng, moduli, lead, n, dev))
+    x, y, m = words(()), words(()), words(())
+    for mm in (None, m):
+        ct = torch.stack([words(()), words(())])
+        c1 = ct[1].clone()
+        poly.zero_sym_finish(x, y, t, mm, out=ct[0])
+        _same(ct[0], poly.zero_sym_finish_plain(x, y, t, mm))
+        _same(ct[1], c1)
+    xb, yb, mb, cb = (words((8,)) for _ in range(4))
+    ct = torch.empty((8, 2, 6, n), dtype=torch.int64, device=dev)
+    poly.zero_sym_finish(xb, yb, t, mb, out=ct[:, 0], c1=cb)
+    _same(ct[:, 0], poly.zero_sym_finish_plain(xb, yb, t, mb))
+    _same(ct[:, 1], cb)
+    # in place over x, as the coefficient form's finish runs
+    want = poly.zero_sym_finish_plain(xb, yb, t)
+    poly.zero_sym_finish(xb, yb, t, out=xb)
+    _same(xb, want)
+    xa, ya = words((2,)), words((2,))
+    for mm in (None, m):
+        _same(poly.zero_asym_finish(xa, ya, t, mm),
+              poly.zero_asym_finish_plain(xa, ya, t, mm))
+    xk, yk, ak = words((5,)), words((5,)), words((5,))
+    w = words(())
+    got = poly.switching_key_rows(xk, yk, ak, w, moduli[-1], t)
+    _same(got[:, 0], poly.key_rows_finish_plain(xk, yk, w, moduli[-1], t))
+    _same(got[:, 1], ak)
+    for subtract in (False, True):
+        _same(poly.balanced_add(xa, ya, 3, 786431, t, subtract),
+              poly.balanced_add_plain(xa, ya, 3, 786431, t, subtract))
+
+
 def _default_path(device, scheme):
     """Default (device-sampled) encryption at n = 1024: the public key in
     both forms, encrypt, encrypt_symmetric, save_seed and expand_seed,

@@ -65,7 +65,8 @@ _SIGNATURES = {
     "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
                                 _P, _P),
     "troy_base_convert": (_P, _P, _L, _I, _I, _I, _P, _P),
-    "troy_rns_elementwise": (_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P),
+    "troy_rns_elementwise": (_P, _L, _P, _P, _P, _L, _L, _P, _I, _L, _I, _I,
+                             _P, _P, _P, _P, _P, _P),
     "troy_behz_lift": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
     "troy_behz_tail": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
     "troy_behz_decrypt_round": (_P, _P, _L, _I, _P, _I, _P),
@@ -101,6 +102,9 @@ _SIGNATURES = {
     "troy_sample_uniform_rns": (_P, _P, _U, _L, _I, _I, _P, _P, _P, _P),
     "troy_sample_cbd_rns": (_P, _P, _U, _L, _I, _I, _P, _P, _P, _P),
     "troy_sample_ternary_rns": (_P, _P, _U, _L, _I, _I, _P, _P),
+    "troy_sample_zero_sym": (_P, _P, _P, _U, _P, _U, _L, _I, _I, _P, _P, _P,
+                             _P, _P, _P),
+    "troy_sample_zero_asym": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "troy_negacyclic_shift": (_P, _P, _P, _L, _L, _I, _I, _I, _P, _P),
     "troy_extract_lwe": (_P, _P, _P, _P, _L, _I, _I, _P, _P),
     "troy_assemble_lwe": (_P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P, _P),
@@ -154,6 +158,8 @@ KERNELS = {
     "troy_sample_uniform_rns": "I_sampling",
     "troy_sample_cbd_rns": "I_sampling",
     "troy_sample_ternary_rns": "I_sampling",
+    "troy_sample_zero_sym": "I_sampling",
+    "troy_sample_zero_asym": "I_sampling",
     "troy_negacyclic_shift": "N1_negacyclic",
     "troy_extract_lwe": "N1_negacyclic",
     "troy_assemble_lwe": "N1_negacyclic",

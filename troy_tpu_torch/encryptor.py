@@ -6,10 +6,10 @@ plaintext into c0:
   * BFV: a coefficient-form zero encryption, then c0 + round(Q/t * m)
     (kernel G);
   * CKKS: an NTT-form zero encryption at the plaintext's level, then
-    c0 + m (kernel D);
+    c0 + m, added in the zero encryption's finish (kernel D);
   * BGV (whose zero encryption's noise is t e): an NTT-form zero
     encryption, then c0 + NTT(m mod q_i), the raw residues without a
-    centred lift (kernels G', A, D).
+    centred lift (kernels G', A, then the finish's D).
 
 By default the zero encryption draws its randomness on the device from
 threefry streams (kernel I), the seeds from this encryptor's BLAKE2Xb
@@ -38,29 +38,61 @@ from .ops import poly as dpoly
 def _embed_plain_c0(m: torch.Tensor, c0: torch.Tensor,
                     cd: ContextData) -> torch.Tensor:
     """The scheme's embed of a plaintext into c0 (troy_tpu/encryptor.py:29);
-    m and c0 may carry one leading batch axis."""
+    m and c0 may carry one leading batch axis. The host-sampling path's;
+    the device path adds ``_plain_operand`` in its zero encryption's
+    finish (CKKS, BGV) or runs kernel G in place (BFV)."""
     scheme = cd.scheme
     if scheme == SchemeType.bfv:
         # c0 += round(Q/t * m) (multiplyAddPlainWithScalingVariant)
-        return dpoly.bfv_plain_embed(
-            m, c0, int(cd.plain_modulus), cd.coeff_modulus_mod_plain_modulus,
-            cd.coeff_div_plain_modulus, cd.ntt)
-    if scheme == SchemeType.ckks:
-        return dpoly.rns_add(c0, m, cd.ntt)
-    # BGV: the raw residues; plain_lift with threshold t lifts nothing
+        return _bfv_embed(m, c0, cd)
+    return dpoly.rns_add(c0, _plain_operand(m, cd), cd.ntt)
+
+
+def _bfv_embed(m: torch.Tensor, c0: torch.Tensor, cd: ContextData,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BFV's c0 + round(Q/t m) (kernel G), into ``out`` (may be c0)."""
+    return dpoly.bfv_plain_embed(
+        m, c0, int(cd.plain_modulus), cd.coeff_modulus_mod_plain_modulus,
+        cd.coeff_div_plain_modulus, cd.ntt, out=out)
+
+
+def _plain_operand(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
+    """The NTT-form words an NTT-form encryption adds to c0: CKKS's m;
+    BGV's raw residues (plain_lift with threshold t lifts nothing, kernel
+    G') transformed (A)."""
+    if cd.scheme == SchemeType.ckks:
+        return m
     t = int(cd.plain_modulus)
     lifted = dpoly.plain_lift(m, cd.ntt, t, t, cd.total_coeff_modulus)
-    return dpoly.rns_add(c0, dntt.rns_ntt_forward(lifted, cd.ntt), cd.ntt)
+    return dntt.rns_ntt_forward(lifted, cd.ntt)
 
 
 def _encrypt_sym_full(seeds: Sequence[int], m: torch.Tensor,
                       sk_data: torch.Tensor, cd: ContextData,
                       is_ntt_form: bool) -> torch.Tensor:
     """A whole symmetric encryption sampled on the device: seeds (a, e)
-    (troy_tpu/encryptor.py:52)."""
-    c0, c1 = rlwe._zero_sym_parts(seeds[0], seeds[1], sk_data, cd,
-                                  is_ntt_form)
-    return torch.stack([_embed_plain_c0(m, c0, cd), c1])
+    (troy_tpu/encryptor.py:52). CKKS and BGV add the plaintext in the zero
+    encryption's finish; BFV embeds it into c0 in place (kernel G)."""
+    if is_ntt_form:
+        return rlwe._zero_sym_core(seeds[0], seeds[1], sk_data, cd, True,
+                                   _plain_operand(m, cd))
+    ct = rlwe._zero_sym_core(seeds[0], seeds[1], sk_data, cd, False)
+    _bfv_embed(m, ct[0], cd, out=ct[0])
+    return ct
+
+
+def _encrypt_sym_batch(a_seeds: torch.Tensor, e_seeds: torch.Tensor,
+                       m: torch.Tensor, sk_data: torch.Tensor,
+                       cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
+    """B symmetric encryptions from device arrays of B seed pairs, (B, 2,
+    k, n) (troy_tpu/encryptor.py:113): NTT form in one launch each of I,
+    B, A and D (the finish writes c0 and copies c1 into the batch); BFV's
+    c0s through kernel G, then stacked with the c1s."""
+    if is_ntt_form:
+        return rlwe._zero_sym_core(a_seeds, e_seeds, sk_data, cd, True,
+                                   _plain_operand(m, cd))
+    both = rlwe._zero_sym_coeff(a_seeds, e_seeds, sk_data, cd)
+    return torch.stack([_bfv_embed(m, both[0], cd), both[1]], dim=1)
 
 
 def _embed_into_zero(zero_data: torch.Tensor, m: torch.Tensor,
@@ -75,10 +107,14 @@ def _encrypt_asym_full(seeds: Sequence[int], m: torch.Tensor,
                        pk_data: torch.Tensor, cd: ContextData,
                        is_ntt_form: bool) -> torch.Tensor:
     """A whole asymmetric encryption: seeds (u, e_0, ..., e_{size-1})
-    (troy_tpu/encryptor.py:71)."""
-    zero = rlwe._zero_asym_core(seeds[0], seeds[1:], pk_data, cd,
-                                is_ntt_form)
-    return _embed_into_zero(zero, m, cd)
+    (troy_tpu/encryptor.py:71), the plaintext added as in
+    ``_encrypt_sym_full``."""
+    if is_ntt_form:
+        return rlwe._zero_asym_core(seeds[0], seeds[1:], pk_data, cd, True,
+                                    _plain_operand(m, cd))
+    ct = rlwe._zero_asym_core(seeds[0], seeds[1:], pk_data, cd, False)
+    _bfv_embed(m, ct[0], cd, out=ct[0])
+    return ct
 
 
 class Encryptor:
@@ -128,9 +164,8 @@ class Encryptor:
         seeds, a_seeds, e_seeds = rlwe.sample_zero_sym_batch(
             cd, self._prng, len(plains))
         m = torch.stack([self._plain_words(p, cd) for p in plains])
-        c0, c1 = rlwe._zero_sym_parts(a_seeds, e_seeds, self._sk.data, cd,
-                                      is_ntt)                 # (B, k, n)
-        data = torch.stack([_embed_plain_c0(m, c0, cd), c1], dim=1)
+        data = _encrypt_sym_batch(a_seeds, e_seeds, m, self._sk.data, cd,
+                                  is_ntt)
         scale = plains[0].scale if cd.scheme == SchemeType.ckks else 1.0
         return [Ciphertext(data=data[i], level=cd.chain_index,
                            is_ntt_form=is_ntt, scale=scale,

@@ -36,8 +36,8 @@ kernel launch over the whole batch of polynomials and limbs it touches:
     prime (kernel K), CKKS's drops it, BGV's subtracts a multiple of t and
     divides in the NTT domain (A, K'-BGV) and carries the correction factor
     times q_last^-1 mod t, and ``rescale_to_next`` divides by it in the NTT
-    domain (K'); BGV add and sub first balance unequal correction factors
-    (D's scalar multiply);
+    domain (K'); BGV add and sub of unequal correction factors balance
+    and add in one kernel-D launch (e1 a +- e2 b);
   * a mod-t plaintext enters BFV's add_plain through the plain embedding
     (kernel G) and every multiply_plain, and BGV's add_plain, through the
     plain lift (kernel G') and A; the product with a plaintext is one
@@ -490,19 +490,28 @@ class Evaluator:
                              f"{'sub' if subtract else 'add'}")
         t = cd.ntt
         da, db, cf = a.data, b.data, a.correction_factor
+        s = min(a.size, b.size)
         if cd.scheme == SchemeType.bgv and cf != b.correction_factor:
+            # e1 a +- e2 b in one kernel-D launch; a longer operand's own
+            # components times e1, or +-e2
             cf, e1, e2 = _balance_correction_factors(
                 cf, b.correction_factor, int(cd.plain_modulus))
-            da = dpoly.rns_broadcast_scalar_mul(da, e1, t)
-            db = dpoly.rns_broadcast_scalar_mul(db, e2, t)
-        s = min(a.size, b.size)
-        op = dpoly.rns_sub if subtract else dpoly.rns_add
-        parts = [op(da[:s], db[:s], t)]
-        if a.size > s:
-            parts.append(da[s:])
-        elif b.size > s:
-            parts.append(dpoly.rns_neg(db[s:], t) if subtract else db[s:])
-        return a.replace(data=torch.cat(parts), correction_factor=cf)
+            parts = [dpoly.balanced_add(da[:s], db[:s], e1, e2, t, subtract)]
+            if a.size > s:
+                parts.append(dpoly.rns_broadcast_scalar_mul(da[s:], e1, t))
+            elif b.size > s:
+                parts.append(dpoly.rns_broadcast_scalar_mul(
+                    db[s:], -e2 if subtract else e2, t))
+        else:
+            op = dpoly.rns_sub if subtract else dpoly.rns_add
+            parts = [op(da[:s], db[:s], t)]
+            if a.size > s:
+                parts.append(da[s:])
+            elif b.size > s:
+                parts.append(dpoly.rns_neg(db[s:], t) if subtract
+                             else db[s:])
+        data = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return a.replace(data=data, correction_factor=cf)
 
     def add_many(self, cts: Sequence[Ciphertext]) -> Ciphertext:
         acc = cts[0]

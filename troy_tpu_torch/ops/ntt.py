@@ -428,8 +428,8 @@ def ntt_inverse_limb(x: torch.Tensor, t: RnsNttTables, i: int,
     return ntt_inverse(x, t.limb(i), lazy)
 
 
-def dyadic_mac(a: torch.Tensor, b: torch.Tensor,
-               t: RnsNttTables) -> torch.Tensor:
+def dyadic_mac(a: torch.Tensor, b: torch.Tensor, t: RnsNttTables,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out = sum_j a[j] * b[j] mod q per limb (kernel B).
 
     a: (J, Ra, n) and b: (J, ..., Ra, n), whose rows are (..., k, n)
@@ -437,7 +437,7 @@ def dyadic_mac(a: torch.Tensor, b: torch.Tensor,
     components of the key switch share one decomposed target). The sum must
     fit 128 bits: any words for one term, lazy words below 4q (< 2^63) for
     up to four, reduced words for up to 64. Output (..., Ra, n), fully
-    reduced."""
+    reduced; into ``out`` (contiguous, overlapping no input) if given."""
     if a.shape[0] != b.shape[0] or a.shape[0] < 1 or a.shape[0] > 64:
         raise ValueError(f"dyadic_mac: terms {a.shape[0]} vs {b.shape[0]}")
     if a.shape[1:] != b.shape[b.dim() - a.dim() + 1:]:
@@ -447,7 +447,8 @@ def dyadic_mac(a: torch.Tensor, b: torch.Tensor,
     if not _kernels.on_cuda(a, b, t.q):
         extra = b.dim() - a.dim()
         a_b = a.reshape(a.shape[:1] + (1,) * extra + a.shape[1:])
-        return dyadic_mac_plain(a_b, b, t)
+        res = dyadic_mac_plain(a_b, b, t)
+        return res if out is None else out.copy_(res)
     a = a.contiguous()
     b = b.contiguous()
     _kernels.check_operand(a, "dyadic_mac a")
@@ -455,7 +456,11 @@ def dyadic_mac(a: torch.Tensor, b: torch.Tensor,
     terms = a.shape[0]
     ra = a[0].numel() // t.n
     rb = b[0].numel() // t.n
-    out = torch.empty(b.shape[1:], dtype=torch.int64, device=b.device)
+    if out is None:
+        out = torch.empty(b.shape[1:], dtype=torch.int64, device=b.device)
+    elif out.shape != b.shape[1:]:
+        raise ValueError(f"dyadic_mac: out {tuple(out.shape)}")
+    _kernels.check_operand(out, "dyadic_mac out")
     _kernels.launch("troy_dyadic_mac", out.get_device(), out, a, b, terms, ra,
                     rb, t.log_n, t.k, t.q, t.cr_lo, t.cr_hi)
     return out

@@ -4,7 +4,9 @@ plain lift.
 The port of troy_tpu/ops/poly.py. Arrays are (..., k, n) int64 tensors of
 u64 words, limb-major, with per-limb moduli from the base's RnsNttTables.
 ``rns_add``, ``rns_sub``, ``rns_neg`` and ``rns_scalar_mul`` run on kernel
-D (csrc/rns_elementwise.cu), ``bfv_plain_embed`` on kernel G and
+D (csrc/rns_elementwise.cu), as do its fused forms ``zero_sym_finish``,
+``zero_asym_finish``, ``switching_key_rows`` and ``balanced_add`` (one
+launch each for a chain of those steps), ``bfv_plain_embed`` on kernel G and
 ``plain_lift`` on kernel G' (both csrc/plain_embed.cu), the negacyclic
 shift family ``negacyclic_shift``, ``extract_lwe_many`` and
 ``assemble_lwe`` on kernel N1 and the pack-tree prepare
@@ -26,12 +28,14 @@ from ..interop import to_torch
 from .ntt import RnsNttTables, _check_rows, _col
 
 ADD, SUB, NEG, SCALAR_MUL = 0, 1, 2, 3
+# kernel D's fused forms (csrc/rns_elementwise.cu)
+ZERO_SYM, ZERO_ASYM, KEY_ROWS, BALANCED_ADD, BALANCED_SUB = 4, 5, 6, 7, 8
 
 
 def rns_elementwise_plain(op: int, a: torch.Tensor, b: Optional[torch.Tensor],
                           t: RnsNttTables, w: Optional[torch.Tensor] = None,
                           wq: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of kernel D."""
+    """Plain version of kernel D's add, sub, negate and scalar multiply."""
     L = a.dim() - 2
     q = _col(t.q, L, 1)
     if op == ADD:
@@ -43,12 +47,136 @@ def rns_elementwise_plain(op: int, a: torch.Tensor, b: Optional[torch.Tensor],
     return u.mul_mod_shoup(a, _col(w, L, 1), _col(wq, L, 1), q)
 
 
+def zero_sym_finish_plain(x: torch.Tensor, y: torch.Tensor, t: RnsNttTables,
+                          m: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of D's zero-encryption finish: m - (x + y) mod q_i,
+    the words of neg(add(x, y)) then + m (troy_tpu/rlwe.py:125-131,
+    encryptor.py:29-49)."""
+    q = _col(t.q, x.dim() - 2, 1)
+    z = u.add_mod(x, y, q)
+    return u.neg_mod(z, q) if m is None else u.sub_mod(m, z, q)
+
+
+def zero_asym_finish_plain(x: torch.Tensor, y: torch.Tensor, t: RnsNttTables,
+                           m: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of D's public-key finish: x + y mod q_i per component,
+    + m on the first (troy_tpu/rlwe.py:327-330, encryptor.py:29-49)."""
+    q = _col(t.q, x.dim() - 2, 1)
+    out = u.add_mod(x, y, q)
+    if m is not None:
+        out[0] = u.add_mod(out[0], m, _col(t.q, m.dim() - 2, 1))
+    return out
+
+
+def key_rows_finish_plain(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                          special: int, t: RnsNttTables) -> torch.Tensor:
+    """Plain version of D's switching-key rows: c0 of row j is -(x + y)
+    with P w_j mod q_j added on limb j (troy_tpu/keygen.py:47-54); x, y
+    (decomp, k, n), w (>= decomp, n)."""
+    c0 = zero_sym_finish_plain(x, y, t)
+    p, pq = t.scalar_operand([special] * t.k)
+    for j in range(x.shape[0]):
+        term = u.mul_mod_shoup(w[j], p[j], pq[j], t.q[j])
+        c0[j, j] = u.add_mod(c0[j, j], term, t.q[j])
+    return c0
+
+
+def balanced_add_plain(x: torch.Tensor, y: torch.Tensor, e1: int, e2: int,
+                       t: RnsNttTables, subtract: bool = False
+                       ) -> torch.Tensor:
+    """Plain version of D's balanced add: e1 x +- e2 y mod q_i
+    (troy_tpu/evaluator.py:874-883)."""
+    L = x.dim() - 2
+    q = _col(t.q, L, 1)
+    w1, w1q = t.scalar_operand([e1] * t.k)
+    w2, w2q = t.scalar_operand([e2] * t.k)
+    a = u.mul_mod_shoup(x, _col(w1, L, 1), _col(w1q, L, 1), q)
+    b = u.mul_mod_shoup(y, _col(w2, L, 1), _col(w2q, L, 1), q)
+    return u.sub_mod(a, b, q) if subtract else u.add_mod(a, b, q)
+
+
+def _groups(x: torch.Tensor, t: RnsNttTables, name: str) -> int:
+    _check_rows(x, t, name)
+    return x.numel() // (t.k * t.n)
+
+
+def _group_stride(out: torch.Tensor, t: RnsNttTables, name: str) -> int:
+    """The word stride between out's (k, n) groups, which must be uniform
+    (a 2-D out is one group; a 3-D out any group stride)."""
+    if out.dim() not in (2, 3) or out.stride(-1) != 1 or \
+            out.stride(-2) != t.n:
+        raise ValueError(f"{name}: out {tuple(out.shape)} with strides "
+                         f"{out.stride()} is not (k, n) rows in groups")
+    return out.stride(0) if out.dim() == 3 else t.k * t.n
+
+
+def _c1_view(out: torch.Tensor, t: RnsNttTables) -> torch.Tensor:
+    """The component after each of out's groups (c1 after c0)."""
+    return torch.as_strided(out, out.shape, out.stride(),
+                            out.storage_offset() + t.k * t.n)
+
+
+_NO_CONSTS = (None, None)
+
+
+def _aligned(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Kernel D moves 16 bytes a load and a store: every operand's address
+    a multiple of 16 (a row start of an even n is)."""
+    ptr = 0
+    for v in tensors:
+        if v is not None:
+            ptr |= v.data_ptr()
+    if ptr & 15:
+        raise ValueError(f"{name}: an operand is not 16-byte aligned")
+
+
+def _launch_d(op: int, out: torch.Tensor, out_stride: int, x: torch.Tensor,
+              y: Optional[torch.Tensor], groups: int, t: RnsNttTables,
+              m: Optional[torch.Tensor] = None, m_stride: int = 0,
+              m_groups: int = 0, c1: Optional[torch.Tensor] = None,
+              w1=_NO_CONSTS, w2=_NO_CONSTS) -> None:
+    """One kernel-D launch over ``groups`` (k, n) groups
+    (csrc/rns_elementwise.cu): x, y, m and c1 contiguous, out's groups at
+    ``out_stride`` words; the caller has checked the operands."""
+    if t.n % 2:
+        raise ValueError("rns_elementwise: n is odd")
+    _kernels.launch("troy_rns_elementwise", out.get_device(), out, out_stride,
+                    x, y, m, m_stride, m_groups, c1, op, groups, t.k, t.log_n,
+                    t.q, w1[0], w1[1], w2[0], w2[1])
+
+
+def _check_fused(name: str, out: torch.Tensor, t: RnsNttTables,
+                 *operands: Optional[torch.Tensor],
+                 c1: Optional[torch.Tensor] = None) -> int:
+    """A fused form's operands checked (contiguous int64 CUDA tensors,
+    aligned; out int64 on CUDA, its (k, n) groups at one even stride, with
+    room for c1 after each); returns out's group stride."""
+    for v in operands + (c1,):
+        if v is not None:
+            _kernels.check_operand(v, f"{name} operand")
+    if out.dtype != torch.int64 or not out.is_cuda:
+        raise TypeError(f"{name} out: expected int64 words on CUDA")
+    stride = _group_stride(out, t, name)
+    kn = t.k * t.n
+    if stride % 2:
+        raise ValueError(f"{name}: out's group stride {stride} is odd")
+    if c1 is not None:
+        groups = c1.numel() // kn
+        end = out.storage_offset() + (groups - 1) * stride + 2 * kn
+        if (groups > 1 and stride < 2 * kn) or \
+                end * 8 > out.untyped_storage().nbytes():
+            raise ValueError(f"{name}: no room for c1 after out's groups")
+    _aligned(name, out, c1, *operands)
+    return stride
+
+
 def _elementwise(op: int, a: torch.Tensor, b: Optional[torch.Tensor],
                  t: RnsNttTables, w: Optional[torch.Tensor] = None,
                  wq: Optional[torch.Tensor] = None,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel D; into ``out`` (a contiguous tensor of a's shape that
-    overlaps no input) if given, else into a new tensor."""
+    """Kernel D's add, sub, negate or scalar multiply; into ``out`` (a
+    contiguous tensor of a's shape that overlaps no input) if given, else
+    into a new tensor."""
     _check_rows(a, t, "rns_elementwise")
     if b is not None and b.shape != a.shape:
         raise ValueError(f"rns_elementwise: shapes {tuple(a.shape)} and "
@@ -68,8 +196,9 @@ def _elementwise(op: int, a: torch.Tensor, b: Optional[torch.Tensor],
     if out is None:
         out = torch.empty_like(a)
     _kernels.check_operand(out, "rns_elementwise out")
-    _kernels.launch("troy_rns_elementwise", out.get_device(), out, a, b, op,
-                    a.numel() // t.n, t.log_n, t.k, t.q, w, wq)
+    _aligned("rns_elementwise", a, b, out)
+    kn = t.k * t.n
+    _launch_d(op, out, kn, a, b, a.numel() // kn, t, w1=(w, wq))
     return out
 
 
@@ -102,6 +231,114 @@ def rns_broadcast_scalar_mul(x: torch.Tensor, scalar: int,
                              t: RnsNttTables) -> torch.Tensor:
     """x * s mod q_i for one integer s (reduced per limb)."""
     return rns_scalar_mul(x, [scalar] * t.k, t)
+
+
+def zero_sym_finish(x: torch.Tensor, y: torch.Tensor, t: RnsNttTables,
+                    m: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None,
+                    c1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The symmetric zero encryption's finish, with the plaintext's add:
+    c0 = m - (x + y) mod q_i (m = 0 if None), x = a s and y = e (NTT
+    form, or both in coefficient form), one kernel-D launch. x, y, m:
+    (k, n) or (G, k, n) of reduced words. ``out``: c0's destination of x's
+    shape, a new tensor if None, else any view whose (k, n) groups lie at
+    one stride, such as c0 of a (G, 2, k, n) ciphertext batch, and it may
+    be x itself; ``c1`` (x's shape) is then copied into the component after
+    each c0 (the ciphertext's c1) in the same launch. Returns out."""
+    G = _groups(x, t, "zero_sym_finish")
+    if y.shape != x.shape or (m is not None and m.shape != x.shape) or (
+            c1 is not None and c1.shape != x.shape):
+        raise ValueError("zero_sym_finish: operands differ in shape")
+    if out is None:
+        if c1 is not None:
+            raise ValueError("zero_sym_finish: c1 needs out in a ciphertext")
+        out = torch.empty_like(x)
+    if out.shape != x.shape:
+        raise ValueError(f"zero_sym_finish: out {tuple(out.shape)}")
+    operands = [v for v in (x, y, m, c1, out, t.q) if v is not None]
+    if not _kernels.on_cuda(*operands):
+        out.copy_(zero_sym_finish_plain(x, y, t, m))
+        if c1 is not None:
+            _c1_view(out, t).copy_(c1)
+        return out
+    x, y = x.contiguous(), y.contiguous()
+    m = None if m is None else m.contiguous()
+    c1 = None if c1 is None else c1.contiguous()
+    stride = _check_fused("zero_sym_finish", out, t, x, y, m, c1=c1)
+    _launch_d(ZERO_SYM, out, stride, x, y, G, t, m, t.k * t.n, G, c1)
+    return out
+
+
+def zero_asym_finish(x: torch.Tensor, y: torch.Tensor, t: RnsNttTables,
+                     m: Optional[torch.Tensor] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The public-key zero encryption's finish, with the plaintext's add:
+    c_j = x_j + y_j mod q_i (x = pk_j u, y = e_j), + m on c_0; one kernel-D
+    launch. x, y, out: (size, k, n) (out may be x); m: (k, n) or None."""
+    G = _groups(x, t, "zero_asym_finish")
+    if y.shape != x.shape or x.dim() != 3 or (
+            m is not None and m.shape != x.shape[1:]):
+        raise ValueError("zero_asym_finish: operands do not fit")
+    if out is None:
+        out = torch.empty_like(x)
+    if out.shape != x.shape:
+        raise ValueError(f"zero_asym_finish: out {tuple(out.shape)}")
+    operands = [v for v in (x, y, m, out, t.q) if v is not None]
+    if not _kernels.on_cuda(*operands):
+        return out.copy_(zero_asym_finish_plain(x, y, t, m))
+    x, y = x.contiguous(), y.contiguous()
+    m = None if m is None else m.contiguous()
+    stride = _check_fused("zero_asym_finish", out, t, x, y, m)
+    _launch_d(ZERO_ASYM, out, stride, x, y, G, t, m, 0, 1)
+    return out
+
+
+def switching_key_rows(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor,
+                       w: torch.Tensor, special: int,
+                       t: RnsNttTables) -> torch.Tensor:
+    """The dense switching key (decomp, 2, k, n) from decomp NTT-form zero
+    encryptions' a s (x), e (y) and a (each (decomp, k, n)) and the target
+    w (>= decomp, n), row j over q_j: c0 of row j is P w_j - (x_j + y_j)
+    on limb j and -(x_j + y_j) on the others, c1 is a_j; one kernel-D
+    launch writes the whole key."""
+    G = _groups(x, t, "switching_key_rows")
+    if x.dim() != 3 or y.shape != x.shape or a.shape != x.shape or \
+            w.dim() != 2 or w.shape[0] < G or w.shape[1] != t.n:
+        raise ValueError("switching_key_rows: operands do not fit")
+    key = torch.empty((G, 2, t.k, t.n), dtype=torch.int64, device=x.device)
+    if not _kernels.on_cuda(x, y, a, w, t.q):
+        key[:, 0] = key_rows_finish_plain(x, y, w, special, t)
+        key[:, 1] = a
+        return key
+    x, y, a, w = x.contiguous(), y.contiguous(), a.contiguous(), \
+        w.contiguous()
+    stride = _check_fused("switching_key_rows", key[:, 0], t, x, y, w, c1=a)
+    _launch_d(KEY_ROWS, key[:, 0], stride, x, y, G, t, w, t.n, G, a,
+              w1=t.scalar_operand([special] * t.k))
+    return key
+
+
+def balanced_add(x: torch.Tensor, y: torch.Tensor, e1: int, e2: int,
+                 t: RnsNttTables, subtract: bool = False) -> torch.Tensor:
+    """e1 x +- e2 y mod q_i per limb (BGV's add and sub of two correction
+    factors, brought to one); any words x, y of one shape; one kernel-D
+    launch."""
+    _check_rows(x, t, "balanced_add")
+    if y.shape != x.shape:
+        raise ValueError(f"balanced_add: shapes {tuple(x.shape)} and "
+                         f"{tuple(y.shape)} differ")
+    if not _kernels.on_cuda(x, y, t.q):
+        return balanced_add_plain(x, y, e1, e2, t, subtract)
+    x, y = x.contiguous(), y.contiguous()
+    out = torch.empty_like(x)
+    for v in (x, y):
+        _kernels.check_operand(v, "balanced_add operand")
+    _aligned("balanced_add", x, y)
+    kn = t.k * t.n
+    _launch_d(BALANCED_SUB if subtract else BALANCED_ADD, out, kn, x, y,
+              x.numel() // kn, t, w1=t.scalar_operand([e1] * t.k),
+              w2=t.scalar_operand([e2] * t.k))
+    return out
 
 
 def bfv_multiply_add_plain(m: torch.Tensor, c0: torch.Tensor,
@@ -164,21 +401,29 @@ def _plain_embed_consts(plain_modulus: int, q_mod_t: int,
 
 def bfv_plain_embed(m: torch.Tensor, c0: torch.Tensor, plain_modulus: int,
                     q_mod_t: int, coeff_div_plain: Tuple[int, ...],
-                    t: RnsNttTables, subtract: bool = False) -> torch.Tensor:
+                    t: RnsNttTables, subtract: bool = False,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BFV plain embedding c0 +/- round(Q/t * m) per limb (kernel G).
-    m: (..., n) mod t; c0: (..., k, n) with the same leading axes."""
+    m: (..., n) mod t; c0: (..., k, n) with the same leading axes. Into
+    ``out`` (contiguous, c0's shape; it may be c0 itself: each word is read
+    before it is written) if given."""
     _check_rows(c0, t, "bfv_plain_embed")
     if m.shape != c0.shape[:-2] + c0.shape[-1:]:
         raise ValueError(f"bfv_plain_embed: m {tuple(m.shape)} does not "
                          f"match c0 {tuple(c0.shape)}")
+    if out is not None and out.shape != c0.shape:
+        raise ValueError(f"bfv_plain_embed: out {tuple(out.shape)}")
     consts = _plain_embed_consts(plain_modulus, q_mod_t, coeff_div_plain, t)
     if not _kernels.on_cuda(m, c0, consts):
-        return bfv_multiply_add_plain(m, c0, plain_modulus, q_mod_t,
-                                      coeff_div_plain, t, subtract)
+        res = bfv_multiply_add_plain(m, c0, plain_modulus, q_mod_t,
+                                     coeff_div_plain, t, subtract)
+        return res if out is None else out.copy_(res)
     m, c0 = m.contiguous(), c0.contiguous()
     _kernels.check_operand(m, "bfv_plain_embed m")
     _kernels.check_operand(c0, "bfv_plain_embed c0")
-    out = torch.empty_like(c0)
+    if out is None:
+        out = torch.empty_like(c0)
+    _kernels.check_operand(out, "bfv_plain_embed out")
     _kernels.launch("troy_bfv_plain_embed", out.get_device(), out, m, c0,
                     m.numel() // t.n, t.k, t.log_n, int(subtract), consts)
     return out

@@ -24,6 +24,15 @@ device array of B seeds (the batched zero encryptions: (B, k, n) out):
     for BGV;
   * ``sample_ternary_rns``: (w mod 3) - 1 (draw (n,)), lifted.
 
+And all the randomness of one zero encryption in one launch, the same
+words as those draws one by one from the same seeds:
+
+  * ``sample_zero_sym_rns``: e (CBD, times t for BGV) from the e-seed and a
+    (uniform) from the a-seed, for one seed pair or B of them, written
+    into the caller's tensors (where its ciphertext wants them);
+  * ``sample_zero_asym_rns``: u (ternary) and e_0 .. e_{size-1} (CBD,
+    times t for BGV) from host seeds, (1 + size, k, n).
+
 Each launches kernel I (csrc/sampling.cu) for CUDA tables and runs its
 plain version, an int64 twin on masked 32-bit halves, for CPU tables. Torch
 has no popcount, so the plain CBD counts bits with the SWAR steps, and
@@ -32,7 +41,8 @@ unsigned mod 3 is (hi32 + lo32) mod 3, since 2^32 = 1 mod 3.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import ctypes
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -148,18 +158,49 @@ def sample_ternary_rns_plain(seeds: Seeds, t: RnsNttTables) -> torch.Tensor:
         ternary_plain(random_bits_plain(seeds, t.n, t.device)), t)
 
 
+def sample_zero_sym_plain(a_seeds: Seeds, e_seeds: Seeds, t: RnsNttTables,
+                          scale: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel I's symmetric zero-encryption draw: (e, a),
+    the CBD draw of the e-seeds (times ``scale``) and the uniform draw of
+    the a-seeds (troy_tpu/rlwe.py:119-122)."""
+    return (sample_cbd_rns_plain(e_seeds, t, scale),
+            sample_uniform_rns_plain(a_seeds, t))
+
+
+def sample_zero_asym_plain(u_seed: int, e_seeds: Sequence[int],
+                           t: RnsNttTables, scale: Optional[int] = None
+                           ) -> torch.Tensor:
+    """Plain version of kernel I's public-key zero-encryption draw: u's
+    ternary draw, then each e_j's CBD draw (times ``scale``), (1 + size, k,
+    n) (troy_tpu/rlwe.py:316-324)."""
+    return torch.stack([sample_ternary_rns_plain(u_seed, t)]
+                       + [sample_cbd_rns_plain(s, t, scale) for s in e_seeds])
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
+MAX_BATCH = 65535                    # the launch grid's z extent
+MAX_ASYM_ROWS = 16                   # u and 15 components' e (by value)
+
+
+def _seed_args(seeds: Seeds, entry: str) -> tuple:
+    """(device seeds or None, host seed, batch) of one launch."""
+    if isinstance(seeds, int):
+        return None, seeds, 1
+    _kernels.check_operand(seeds, f"{entry} seeds")
+    if seeds.numel() > MAX_BATCH:
+        raise ValueError(f"{entry}: {seeds.numel()} seeds, at most "
+                         f"{MAX_BATCH} a launch")
+    return seeds, 0, seeds.numel()
+
+
 def _launch(entry: str, seeds: Seeds, t: RnsNttTables, *consts
             ) -> torch.Tensor:
     """One kernel-I launch: (k, n) for a seed, (B, k, n) for B seeds."""
-    if isinstance(seeds, int):
-        ptr, seed, batch = None, seeds, 1
-    else:
-        _kernels.check_operand(seeds, f"{entry} seeds")
-        ptr, seed, batch = seeds, 0, seeds.numel()
+    ptr, seed, batch = _seed_args(seeds, entry)
     out = torch.empty(_draw_shape(seeds, t, t.k), dtype=torch.int64,
                       device=t.device)
     _kernels.launch(entry, out.get_device(), out, ptr, seed, batch, t.k,
@@ -167,11 +208,18 @@ def _launch(entry: str, seeds: Seeds, t: RnsNttTables, *consts
     return out
 
 
+def _check_seed(seed: int) -> None:
+    if not 0 <= seed < 1 << 64:
+        raise ValueError(f"sampling: seed {seed} is not a u64 word")
+
+
 def _on_cuda(seeds: Seeds, t: RnsNttTables) -> bool:
-    """Whether to launch the kernel; the seeds checked."""
+    """Whether to launch the kernel; the seeds checked (a draw of 2 k n
+    words must count below 2^32, the threefry counter's low word)."""
+    if 2 * t.k * t.n >= 1 << 32:
+        raise ValueError(f"sampling: a draw of 2 x {t.k} x {t.n} words")
     if isinstance(seeds, int):
-        if not 0 <= seeds < 1 << 64:
-            raise ValueError(f"sampling: seed {seeds} is not a u64 word")
+        _check_seed(seeds)
         return _kernels.on_cuda(t.q)
     if seeds.dim() != 1:
         raise ValueError(f"sampling: expected (B,) seeds, got "
@@ -203,3 +251,66 @@ def sample_ternary_rns(seeds: Seeds, t: RnsNttTables) -> torch.Tensor:
     if not _on_cuda(seeds, t):
         return sample_ternary_rns_plain(seeds, t)
     return _launch("troy_sample_ternary_rns", seeds, t)
+
+
+def sample_zero_sym_rns(a_seeds: Seeds, e_seeds: Seeds, t: RnsNttTables,
+                        scale: Optional[int], e_out: torch.Tensor,
+                        a_out: torch.Tensor) -> None:
+    """All the randomness of a symmetric zero encryption in one kernel-I
+    launch: e (CBD from the e-seed, times ``scale`` mod q_i if given) into
+    ``e_out`` and a (uniform from the a-seed) into ``a_out``, each (k, n)
+    for one seed pair or (B, k, n) for device arrays of B seeds, contiguous
+    (slices of the caller's ciphertext buffer); the words of
+    ``sample_cbd_rns`` and ``sample_uniform_rns``."""
+    if isinstance(a_seeds, int) != isinstance(e_seeds, int):
+        raise ValueError("sample_zero_sym_rns: a host seed with a device "
+                         "array of seeds")
+    shape = _draw_shape(a_seeds, t, t.k)
+    if tuple(e_out.shape) != shape or tuple(a_out.shape) != shape or (
+            not isinstance(e_seeds, int)
+            and e_seeds.shape != a_seeds.shape):
+        raise ValueError(f"sample_zero_sym_rns: outputs {tuple(e_out.shape)}"
+                         f" and {tuple(a_out.shape)} for draws {shape}")
+    on_cuda = _on_cuda(a_seeds, t)
+    if on_cuda != _on_cuda(e_seeds, t) or on_cuda != _kernels.on_cuda(
+            e_out, a_out, t.q):
+        raise ValueError("sample_zero_sym_rns: seeds, outputs and tables "
+                         "on different devices")
+    if not on_cuda:
+        e, a = sample_zero_sym_plain(a_seeds, e_seeds, t, scale)
+        e_out.copy_(e)
+        a_out.copy_(a)
+        return
+    _kernels.check_operand(e_out, "sample_zero_sym_rns e_out")
+    _kernels.check_operand(a_out, "sample_zero_sym_rns a_out")
+    a_ptr, a_seed, batch = _seed_args(a_seeds, "troy_sample_zero_sym")
+    e_ptr, e_seed, _ = _seed_args(e_seeds, "troy_sample_zero_sym")
+    w, wq = (None, None) if scale is None else t.scalar_operand([scale] * t.k)
+    _kernels.launch("troy_sample_zero_sym", e_out.get_device(), e_out, a_out,
+                    a_ptr, a_seed, e_ptr, e_seed, batch, t.k, t.log_n, t.q,
+                    t.cr_lo, t.cr_hi, w, wq)
+
+
+def sample_zero_asym_rns(u_seed: int, e_seeds: Sequence[int],
+                         t: RnsNttTables, scale: Optional[int] = None
+                         ) -> torch.Tensor:
+    """All the randomness of a public-key zero encryption in one kernel-I
+    launch: (1 + size, k, n), u (ternary, from u_seed) then e_j (CBD, from
+    e_seeds[j], times ``scale`` mod q_i if given); the words of
+    ``sample_ternary_rns`` and ``sample_cbd_rns``. The seeds are host
+    words, passed in the launch's parameters (at most 16 rows)."""
+    seeds = [int(u_seed)] + [int(s) for s in e_seeds]
+    for s in seeds:
+        _check_seed(s)
+    if not 2 <= len(seeds) <= MAX_ASYM_ROWS:
+        raise ValueError(f"sample_zero_asym_rns: {len(seeds) - 1} "
+                         f"components, 1 to {MAX_ASYM_ROWS - 1}")
+    if not _on_cuda(seeds[0], t):
+        return sample_zero_asym_plain(seeds[0], seeds[1:], t, scale)
+    out = torch.empty((len(seeds), t.k, t.n), dtype=torch.int64,
+                      device=t.device)
+    w, wq = (None, None) if scale is None else t.scalar_operand([scale] * t.k)
+    _kernels.launch("troy_sample_zero_asym", out.get_device(), out,
+                    (ctypes.c_ulonglong * len(seeds))(*seeds), len(seeds),
+                    t.k, t.log_n, t.q, w, wq)
+    return out

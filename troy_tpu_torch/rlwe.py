@@ -17,7 +17,7 @@ results are word-equal to troy's C++ host path and to ``troy_tpu``'s.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +49,7 @@ def sample_uniform_rns_dev(seeds: Seeds, cd: ContextData) -> torch.Tensor:
 def sample_cbd_dev(seeds: Seeds, cd: ContextData) -> torch.Tensor:
     """Centred binomial noise lifted into this level's base, (k, n) or
     (B, k, n); times t for BGV (troy_tpu/rlwe.py:71, :90, :121-122)."""
-    scale = int(cd.plain_modulus) if cd.scheme == SchemeType.bgv else None
-    return sampling.sample_cbd_rns(seeds, cd.ntt, scale)
+    return sampling.sample_cbd_rns(seeds, cd.ntt, _noise_scale(cd))
 
 
 def sample_ternary_dev(seeds: Seeds, cd: ContextData) -> torch.Tensor:
@@ -63,32 +62,75 @@ def sample_ternary_dev(seeds: Seeds, cd: ContextData) -> torch.Tensor:
 # symmetric zero encryption
 # --------------------------------------------------------------------------
 
-def _zero_sym_parts(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
-                    cd: ContextData, is_ntt_form: bool
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(c0, c1) = (-(a*s + e), a) with a and e drawn on the device: (k, n)
-    each for one seed pair, (B, k, n) for device arrays of B seeds, one
-    launch per step for the whole batch, the same words as B single draws
-    (troy_tpu/rlwe.py:260 _zero_sym_batch_core). The coefficient form takes
-    both inverse transforms in one launch."""
+def _noise_scale(cd: ContextData):
+    """BGV's t, the factor of every noise draw; None for BFV and CKKS."""
+    return int(cd.plain_modulus) if cd.scheme == SchemeType.bgv else None
+
+
+def _lead(seeds: Seeds) -> tuple:
+    return () if isinstance(seeds, int) else (seeds.numel(),)
+
+
+def _zero_sym_ntt_parts(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
+                        cd: ContextData
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The NTT-form zero encryption's parts, (buf, a s, NTT(e)): one
+    kernel-I launch draws e into buf[0] and a into buf[1] (buf (2, k, n),
+    or (2, B, k, n) for device arrays of B seeds; for one seed pair buf is
+    the ciphertext's layout, c0 over e and c1 = a), then B and A."""
     t = cd.ntt
-    a = sample_uniform_rns_dev(a_seeds, cd)                  # NTT order
-    e = sample_cbd_dev(e_seeds, cd)
-    as_ntt = dntt.dyadic_mac(sk_data[:cd.limbs].unsqueeze(0), a.unsqueeze(0),
-                             t)
-    if is_ntt_form:
-        return dpoly.rns_neg(dpoly.rns_add(as_ntt, dntt.rns_ntt_forward(e, t),
-                                           t), t), a
-    both = dntt.rns_ntt_inverse(torch.stack([as_ntt, a]), t)
-    return dpoly.rns_neg(dpoly.rns_add(both[0], e, t), t), both[1]
+    buf = torch.empty((2,) + _lead(a_seeds) + (cd.limbs, cd.n),
+                      dtype=torch.int64, device=cd.device)
+    sampling.sample_zero_sym_rns(a_seeds, e_seeds, t, _noise_scale(cd),
+                                 buf[0], buf[1])
+    as_ntt = dntt.dyadic_mac(sk_data[:cd.limbs].unsqueeze(0),
+                             buf[1].unsqueeze(0), t)
+    return buf, as_ntt, dntt.rns_ntt_forward(buf[0], t)
 
 
-def _zero_sym_core(a_seed: Seeds, e_seed: Seeds, sk_data: torch.Tensor,
-                   cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
-    """Symmetric zero encryption sampled on the device, (2, k, n)
-    (troy_tpu/rlwe.py:111)."""
-    return torch.stack(_zero_sym_parts(a_seed, e_seed, sk_data, cd,
-                                       is_ntt_form), dim=-3)
+def _zero_sym_coeff(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
+                    cd: ContextData) -> torch.Tensor:
+    """The coefficient-form zero encryption: (2, k, n) (c0, c1), or (2, B,
+    k, n) (the c0s, then the c1s) for B seed pairs. One kernel-I launch
+    draws e and a around a free slot that B fills with a s, so both
+    inverse transforms are one launch on contiguous rows, and the finish
+    writes c0 = -(a s + e) over the transformed a s."""
+    t = cd.ntt
+    buf = torch.empty((3,) + _lead(a_seeds) + (cd.limbs, cd.n),
+                      dtype=torch.int64, device=cd.device)
+    sampling.sample_zero_sym_rns(a_seeds, e_seeds, t, _noise_scale(cd),
+                                 buf[0], buf[2])
+    dntt.dyadic_mac(sk_data[:cd.limbs].unsqueeze(0), buf[2].unsqueeze(0), t,
+                    out=buf[1])
+    both = dntt.rns_ntt_inverse(buf[1:], t)
+    dpoly.zero_sym_finish(both[0], buf[0], t, out=both[0])
+    return both
+
+
+def _zero_sym_core(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
+                   cd: ContextData, is_ntt_form: bool,
+                   m: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Symmetric zero encryption sampled on the device, (2, k, n), or in
+    NTT form (B, 2, k, n) for device arrays of B seed pairs, the same
+    words as B single draws (troy_tpu/rlwe.py:111 _zero_sym_core, :260
+    _zero_sym_batch_core): c = (-(a s + e), a). In NTT form ``m`` (the
+    plaintext's NTT-form words, c0's shape) is added to c0 in the same
+    finish: one launch each of I, B, A and D, and for one seed pair no
+    copy (the draw's buffer is the ciphertext). A batch in coefficient
+    form is ``_zero_sym_coeff``'s."""
+    if not is_ntt_form:
+        if m is not None or not isinstance(a_seeds, int):
+            raise ValueError("_zero_sym_core: one coefficient-form "
+                             "encryption, with no plaintext")
+        return _zero_sym_coeff(a_seeds, e_seeds, sk_data, cd)
+    buf, as_ntt, e_ntt = _zero_sym_ntt_parts(a_seeds, e_seeds, sk_data, cd)
+    if isinstance(a_seeds, int):
+        dpoly.zero_sym_finish(as_ntt, e_ntt, cd.ntt, m, out=buf[0])
+        return buf
+    ct = torch.empty(_lead(a_seeds) + (2, cd.limbs, cd.n), dtype=torch.int64,
+                     device=cd.device)
+    dpoly.zero_sym_finish(as_ntt, e_ntt, cd.ntt, m, out=ct[:, 0], c1=buf[1])
+    return ct
 
 
 def encrypt_zero_symmetric(cd: ContextData, sk: SecretKey,
@@ -143,21 +185,29 @@ def expand_seed(ct: Ciphertext, cd: ContextData) -> Ciphertext:
 
 def _zero_asym_core(u_seed: int, e_seeds: Sequence[int],
                     pk_data: torch.Tensor, cd: ContextData,
-                    is_ntt_form: bool) -> torch.Tensor:
+                    is_ntt_form: bool,
+                    m: Optional[torch.Tensor] = None) -> torch.Tensor:
     """c_j = pk_j u + e_j, j < len(e_seeds), with ternary u and CBD e_j
-    drawn on the device (troy_tpu/rlwe.py:307): (size, k, n). BFV takes
-    the products out of the NTT domain before adding e_j; CKKS and BGV
-    keep NTT form and add NTT(e_j). pk_data: the key's components over at
-    least this level's k limbs."""
+    drawn on the device in one kernel-I launch (troy_tpu/rlwe.py:307):
+    (size, k, n). BFV takes the products out of the NTT domain before
+    adding e_j; CKKS and BGV transform u and every e_j in one launch and
+    add NTT(e_j), and ``m`` (NTT-form words, (k, n)) onto c_0, in the same
+    finish. pk_data: the key's components over at least this level's k
+    limbs."""
     t = cd.ntt
-    k = cd.limbs
-    u_ntt = dntt.rns_ntt_forward(sample_ternary_dev(u_seed, cd), t)
-    pk = pk_data[:len(e_seeds), :k]
-    prods = dntt.dyadic_mac(u_ntt.unsqueeze(0), pk.unsqueeze(0), t)
-    e = torch.stack([sample_cbd_dev(s, cd) for s in e_seeds])
+    draws = sampling.sample_zero_asym_rns(u_seed, e_seeds, t,
+                                          _noise_scale(cd))
+    pk = pk_data[:len(e_seeds), :cd.limbs].unsqueeze(0)
     if is_ntt_form:
-        return dpoly.rns_add(prods, dntt.rns_ntt_forward(e, t), t)
-    return dpoly.rns_add(dntt.rns_ntt_inverse(prods, t), e, t)
+        d = dntt.rns_ntt_forward(draws, t)
+        prods = dntt.dyadic_mac(d[:1], pk, t)
+        return dpoly.zero_asym_finish(prods, d[1:], t, m, out=prods)
+    if m is not None:
+        raise ValueError("_zero_asym_core: the plaintext joins only an "
+                         "NTT-form finish")
+    u_ntt = dntt.rns_ntt_forward(draws[:1], t)
+    prods = dntt.rns_ntt_inverse(dntt.dyadic_mac(u_ntt, pk, t), t)
+    return dpoly.zero_asym_finish(prods, draws[1:], t, out=prods)
 
 
 def encrypt_zero_asymmetric(cd: ContextData, pk: PublicKey,
@@ -196,8 +246,7 @@ def _zero_sym_reference_core(c1_ntt: torch.Tensor, noise: torch.Tensor,
         c1 = dntt.rns_ntt_inverse(c1_ntt, t)
     if t_plain != 1:
         nz = dpoly.rns_broadcast_scalar_mul(nz, t_plain, t)
-    c0 = dpoly.rns_neg(dpoly.rns_add(nz, c0, t), t)
-    return torch.stack([c0, c1])
+    return torch.stack([dpoly.zero_sym_finish(nz, c0, t), c1])
 
 
 def encrypt_zero_symmetric_reference(
