@@ -25,7 +25,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
 3. each BFV-path kernel (A NTT, B dyadic MAC, C base conversion, D RNS
    elementwise, E BEHZ lift/tail/decrypt rounding, F key-switch digits and
    divide-round, AF the digits folded into A's first pass (A's route runs
-   it where F's digits and A ran), K mod-switch divide-round, G plain
+   it where F's digits and A ran), AFi F's divide folded into A's last
+   inverse pass (A's route runs it where A's inverse and F's divide ran),
+   K mod-switch divide-round, G plain
    embedding, M Galois
    gather on its packed tables, signed and unsigned, and M as the batch
    encoder's slot gather; D's fused forms, the zero encryptions' finishes
@@ -47,8 +49,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    median times of multiply+relinearize, rotate_rows(1) and
    mod_switch_to_next (CUDA events);
 6. every BFV-path kernel was launched by phases 4-5 (launch counters), and
-   F's separate digits entry (troy_keyswitch_digits) never: on A's route
-   AF does their work (so in every window on A's route below); no
+   F's separate digits entry (troy_keyswitch_digits) and its divide
+   (troy_keyswitch_divide_round) never: on A's route AF and AFi do their
+   work (so in every window on A's route below); no
    plain version and no u64ops arithmetic ran on a CUDA tensor in phases
    4-5 (call counters); per op (mult+relin, rotate_rows(1), mod switch,
    encrypt, decrypt, encode, decode), the device kernels and the device
@@ -61,7 +64,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    finish in A's forward passes, alone and after A's inverse, which A's
    route runs) against their plain versions at the CKKS shapes: O1 within
    2^-44 max|x| (two FP64 summation orders), O2 and K' word for word, O3
-   bit for bit; the same times, bounds and library times as phase 3, and
+   bit for bit (also at the CRT values around 0 and Q/2 and where its
+   rounded multiple of Q needs the tie correction, and one level down);
+   the same times, bounds and library times as phase 3, and
    the library call's device time (profiler);
 8. the CKKS n = 16384 records chain from troy's C++ code
    (tests/data/ref_ckks_n16384_headline.bin): keygen (sk, relin key row 0,
@@ -269,7 +274,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A, M, J, E, O1, O5, P1, F and K' as redesigned for the H100: A
+35. kernels A, M, J, E, O1, O5, P1, F, K', D, I and O3 as redesigned for
+   the H100: A
    against its plain version, word for word, at n = 256 to 16384 (one pass below
    1024, two from it up) and a row mod t, three rows mod t, (5, 6, n) and
    (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
@@ -295,9 +301,7 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    matmul shapes, its device us a launch and a call beside its bound; AF
    (F's digits in A's first pass) word-equal to F's digits + A at
    (5,6,16384), (15,16,32768) and (2,3,131072), both timed
-   in turns, and F's divide (its own kernel still) at every shape of the
-   BFV headline's mult+relin, rotate_rows(1) and apply_galois_many and at
-   the batched fold's, its device us a launch beside its bound; AKp (K''s
+   in turns; AKp (K''s
    and K'-BGV's temps and finish in A's forward) at every shape of one
    run of the CKKS and BGV headline's mult+relin, rescale or mod switch
    and rotation, word-equal to K''s temps + A + K''s finish, the two
@@ -307,7 +311,17 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    balanced add and sub and the bare draws of one and of MANY seed pairs,
    each word-equal to the composition of single D steps, single draws and
    stacks it replaced, the two timed in turns, with their kernels, copies
-   and I and D launches a call; and the spread of one CKKS and one BGV
+   and I and D launches a call; O3 at every data level of the CKKS
+   headline chain, at n = 32768 with 15 and 16 limbs and at n = 262144,
+   bit-equal to its plain version on random residues and the values
+   around 0, Q/2 and the ties, its device us a call and a launch beside
+   the bound (redesign_o3); AFi (F's divide in A's last inverse pass) at
+   every shape of one run of the BFV headline's mult+relin,
+   rotate_rows(1) and apply_galois_many, each op launching AFi once a key
+   switch and F's divide never, at the batched folds of 8 and 128, SEAL's
+   (2,16,32768) and (2,6,512) (one pass), word-equal to A's inverse + F's
+   divide, the two timed in turns, a launch of each beside the bound
+   (redesign_afi); and the spread of one CKKS and one BGV
    rotation's profiled device time over 8 traces in this process
    (op_spread). Device us
    a call come from CUDA events
@@ -511,6 +525,19 @@ REDESIGN_F_SHAPES = (("(5,6,16384)", 16384, Q_BITS, 5),
                      ("(15,16,32768)", 32768, "bfv_default", 15),
                      ("(2,3,131072)", 131072, CEILING_Q_BITS, 2))
 REDESIGN_FOLD_MS = (8, 128)
+# phase 35 (O3 and F's divide redesigned): O3 at the CKKS window's levels
+# (every data level of the headline chain) and at these: n = 32768 with 15
+# and 16 limbs of CKKS_LARGE_BITS, n = 262144 with the ceiling's data limbs
+# and five headline primes (tag, n, q bits, limbs); AFi at
+# SEAL's n = 32768 relinearize and at n = 512 (the one-pass mode), beside
+# the BFV headline's own key switches and folds
+REDESIGN_O3_SHAPES = (("(15,32768)", 32768, CKKS_LARGE_BITS, 15),
+                      ("(16,32768)", 32768, CKKS_LARGE_BITS, 16),
+                      ("(2,262144)", 262144, CEILING_Q_BITS, 2),
+                      ("(5,262144)", 262144, Q_BITS, 5))
+REDESIGN_AFI_SHAPES = (("SEAL (2,16,32768) onto (c0,c1)", 32768,
+                        "bfv_default", 2),
+                       ("(2,6,512) onto (c0,c1)", 512, Q_BITS, 2))
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -523,6 +550,8 @@ KERNELS = {
                           "troy_tpu/evaluator.py:337"),
     "AKp_bgv_ntt": ("troy_tpu_torch/csrc/ntt.cu",
                     "troy_tpu/ops/rns.py:246"),
+    "AFi_keyswitch_intt": ("troy_tpu_torch/csrc/ntt.cu",
+                           "troy_tpu/evaluator.py:290"),
     "B_dyadic_mac": ("troy_tpu_torch/csrc/dyadic_mac.cu",
                      "troy_tpu/ops/ntt.py:428"),
     "C_base_convert": ("troy_tpu_torch/csrc/base_convert.cu",
@@ -578,12 +607,13 @@ KERNELS = {
                         "troy_tpu/parallel/sharding.py:153"),
 }
 # the kernels each path must launch; on A's route the key switch's digits
-# run in A's first pass (AF), F only for BFV's divide, and K''s temps and
-# finish in A's forward passes (AKp), K''s own kernels (Kp) only on J's
-# route (phase 24, the coefficient-sharded key switch of phase 34)
-BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
-            "D_rns_elementwise", "E_behz", "F_keyswitch", "K_divide_round",
-            "G_plain_embed", "M_galois", "I_sampling")
+# run in A's first pass (AF), BFV's divide in A's last inverse pass (AFi),
+# and K''s temps and finish in A's forward passes (AKp); F's and K''s own
+# kernels (F, Kp) only on J's route (phase 24, n = 262144 in phase 27, the
+# coefficient-sharded key switch of phase 34)
+BFV_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
+            "C_base_convert", "D_rns_elementwise", "E_behz",
+            "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
 CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
              "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
              "AKp_rescale_ntt", "AKp_keyswitch_ntt", "I_sampling")
@@ -596,41 +626,46 @@ DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                 "G_plain_embed", "Gp_plain_lift")
 LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
             "A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-            "F_keyswitch", "AKp_keyswitch_ntt", "AKp_bgv_ntt")
+            "AFi_keyswitch_intt", "AKp_keyswitch_ntt", "AKp_bgv_ntt")
 APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
             "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
-            "D_rns_elementwise", "E_behz", "F_keyswitch", "Gp_plain_lift",
-            "I_sampling", "M_galois", "N1_negacyclic", "Kpp_bgv_coeff",
+            "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
+            "Gp_plain_lift", "I_sampling", "M_galois", "N1_negacyclic",
+            "Kpp_bgv_coeff",
             "X_exact_convert", "O2_ckks_round", "O3_ckks_compose")
 LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
-                  "D_rns_elementwise", "E_behz", "F_keyswitch",
+                  "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
                   "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
 LARGE_CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
                    "D_rns_elementwise", "M_galois", "O1_ckks_fft",
                    "O2_ckks_round", "O3_ckks_compose", "AKp_rescale_ntt",
                    "AKp_keyswitch_ntt", "I_sampling")
-# n = 131072 on A (AF), 262144 on J (F's digits)
-CEILING_PATH = ("A_ntt", "AF_ntt_digits", "J_ntt_mxu", "B_dyadic_mac",
-                "C_base_convert", "D_rns_elementwise", "E_behz",
-                "F_keyswitch", "G_plain_embed", "I_sampling")
+# n = 131072 on A (AF, AFi), 262144 on J (F's digits and divide)
+CEILING_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "J_ntt_mxu",
+                "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
+                "E_behz", "F_keyswitch", "G_plain_embed", "I_sampling")
 BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                "O4_ckks_encode_stats", "O5_ckks_decode_stats", "A_ntt",
                "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
-               "D_rns_elementwise", "E_behz", "F_keyswitch", "G_plain_embed",
+               "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
+               "G_plain_embed",
                "Gp_plain_lift", "I_sampling", "K_divide_round",
                "AKp_rescale_ntt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
                "M_galois",
                "X_exact_convert")
-# the limb-sharded key switch and mod switch on A (AF, AKp), the
-# coefficient-sharded key switch on J (F's digits, Kp)
-SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits", "B_dyadic_mac",
+# the limb-sharded key switch and mod switch on A (AF, AFi, AKp), the
+# coefficient-sharded key switch on J (F's digits and divide, Kp)
+SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits",
+                "AFi_keyswitch_intt", "B_dyadic_mac",
                 "E_behz", "F_keyswitch", "K_divide_round", "AKp_rescale_ntt",
                 "AKp_keyswitch_ntt", "AKp_bgv_ntt", "Kp_keyswitch_ntt",
                 "Kp_bgv_ntt", "M_galois", "J_ntt_mxu", "P1_tile_contract",
                 "Gp_plain_lift")
 # the entry points a window on A's route must not launch: F's separate
-# digits (their work is in AF) and K''s temps and finish (in AKp)
-A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_rescale_ntt_temps",
+# digits (their work is in AF), F's divide (in AFi) and K''s temps and
+# finish (in AKp)
+A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_keyswitch_divide_round",
+                  "troy_rescale_ntt_temps",
                   "troy_rescale_ntt_finish", "troy_keyswitch_ntt_temps",
                   "troy_keyswitch_ntt_finish",
                   "troy_bgv_mod_switch_ntt_temps",
@@ -734,6 +769,18 @@ def _edge(rng, bounds, shape, device) -> torch.Tensor:
 def _full(rng, shape, device) -> torch.Tensor:
     return to_torch(rng.integers(0, 2 ** 64, size=shape, dtype=np.uint64),
                     device)
+
+
+def crt_values(Q: int, rng) -> list:
+    """CRT values (ints) around 0 and Q/2, and ones whose S = sum_j x_j /
+    q_j lies within 2^-40 of a half-integer (frac(S) = (v mod Q) / Q),
+    where O3 corrects its rounded multiple of Q."""
+    h = (Q - 1) // 2
+    near = [h - int(rng.integers(0, 1 << 30)) * (Q >> 72) for _ in range(6)]
+    near += [h + 1 + int(rng.integers(0, 1 << 30)) * (Q >> 72)
+             for _ in range(6)]
+    return [0, 1, -1, 2, -2, 12345, -12345, 1 << 40, -(1 << 40), h, -h,
+            h + 1, Q - 1, Q - 2] + near
 
 
 def _bytes(*tensors) -> int:
@@ -973,6 +1020,24 @@ def phase_kernels(ctx) -> dict:
         ("F_keyswitch", "digits (5,n)->(5,6,n)",
          lambda: keyswitch.keyswitch_digits(f_target, used),
          lambda: keyswitch.keyswitch_digits_plain(f_target, used),
+         None, None),
+        # F's divide in A's last inverse pass, from the NTT-form products:
+        # the products and the accumulator in, the result out, the inverse
+        # twiddles; A's products over 12 rows and F's 5 a word
+        ("AFi_keyswitch_intt", "inverse + divide (2,6,n) onto (c0,c1)",
+         lambda: keyswitch.ntt_inverse_divide_round(f_x, used, f_consts,
+                                                    f_acc),
+         lambda: keyswitch.ntt_inverse_divide_round_plain(f_x, used,
+                                                          f_consts, f_acc),
+         (_bytes(f_x, f_acc, f_acc, used.inv_root_powers,
+                 used.inv_root_powers_shoup),
+          ntt_rows_mul64(12) + 2 * N * 5 * 5), None),
+        ("AFi_keyswitch_intt", "inverse + divide (8,6,n) onto c0 pairs",
+         lambda: keyswitch.ntt_inverse_divide_round(a5[:4].repeat(2, 1, 1),
+                                                    used, f_consts,
+                                                    f_acc[:1, None], 2),
+         lambda: keyswitch.ntt_inverse_divide_round_plain(
+             a5[:4].repeat(2, 1, 1), used, f_consts, f_acc[:1, None], 2),
          None, None),
         # F's digits in A's first pass: the target in once, the transformed
         # digits out once, the twiddles; A's products over 30 rows and a
@@ -1261,6 +1326,14 @@ def phase_ckks_kernels(ctx) -> dict:
     twisted = coeffs * t.twist
     u = cplx(N) * 2.0 ** -7                  # |FFT(V)/n| for |v| <= 1
     res = _uniform(rng, q5.values, (k, N), dev)
+    # O3 at the values around 0 and Q/2 and next to S's half-integers
+    # (csrc/embedding.cu's tie correction), and one level down
+    adv = to_numpy(res).copy()
+    for i, v in enumerate(crt_values(rt.total, rng)):
+        adv[:, i] = [v % qi for qi in q5.values]
+    res_adv = to_torch(adv, dev)
+    rt4 = embedding.make_rns_round_tables(q5.slice(0, k - 1))
+    res4 = res[:k - 1].contiguous()
     # K': the rescale of a (2, 5, n) ciphertext; the key switch's divide of
     # (2, 6, n) products onto (c0, c1)
     x_rs = _uniform(rng, q5.values, (2, k, N), dev)
@@ -1338,6 +1411,14 @@ def phase_ckks_kernels(ctx) -> dict:
          lambda: embedding.compose_centered_plain(res, rt, 2.0 ** -40),
          (_bytes(res) + N * 8, N * k * (2 + 2 * W)),
          None),
+        ("O3_ckks_compose", f"({k},n) values around 0, Q/2 and ties",
+         "bits", lambda: embedding.compose_centered(res_adv, rt, 2.0 ** -40),
+         lambda: embedding.compose_centered_plain(res_adv, rt, 2.0 ** -40),
+         None, None),
+        ("O3_ckks_compose", f"({k - 1},n) one level down", "bits",
+         lambda: embedding.compose_centered(res4, rt4, 2.0 ** -40),
+         lambda: embedding.compose_centered_plain(res4, rt4, 2.0 ** -40),
+         None, None),
         ("Kp_rescale_ntt", f"temps + finish (2,{k},n) -> (2,{k - 1},n)",
          "words", kprime("rs", False), kprime("rs", True), kprime_work("rs"),
          None),
@@ -2978,13 +3059,14 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
         got = ops["j"]()
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
-        # CKKS divides on K''s own kernels there
+        # CKKS divides on K''s own kernels there, BFV on F's
         path = ("J_ntt_mxu",) + (("Kp_rescale_ntt", "Kp_keyswitch_ntt")
-                                 if scheme == "ckks" else ())
+                                 if scheme == "ckks" else ("F_keyswitch",))
         check_path("24", f"24 ({scheme}, J route)", path, counts, counter,
                    absent=())
         on_a = {k: counts[k] for k in ("A_ntt", "AKp_rescale_ntt",
-                                       "AKp_keyswitch_ntt") if counts[k]}
+                                       "AKp_keyswitch_ntt",
+                                       "AFi_keyswitch_intt") if counts[k]}
         if on_a:
             raise AssertionError(f"A ran on the J route: {on_a}")
         results[scheme] = counts
@@ -4608,8 +4690,10 @@ def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
 def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
                    divide_ops: dict, zero_ctxs: dict) -> dict:
     """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
-    F, K' and K'-BGV: redesign_j, redesign_e, redesign_b, redesign_o1,
-    redesign_p1, redesign_f, redesign_kp) as redesigned for the H100. A against its plain version, word for word, at every n of
+    F's digits, K' and K'-BGV, D and I, O3 and F's divide: redesign_j,
+    redesign_e, redesign_b, redesign_o1, redesign_p1, redesign_f,
+    redesign_kp, redesign_zero, redesign_o3, redesign_afi) as redesigned
+    for the H100. A against its plain version, word for word, at every n of
     REDESIGN_NS (one pass over whole rows below 1024, two passes from it
     up) and the shapes of
     REDESIGN_ROWS, forward and inverse, lazy and not, and at n = 32768
@@ -4733,14 +4817,16 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
     b = redesign_b(bfv_ops)
     o1 = redesign_o1(dev, rng, per_op)
     p1 = redesign_p1(app_ctx, rng)
-    f = redesign_f(dev, rng, bfv_ops)
+    f = redesign_f(dev, rng)
     kp = redesign_kp(divide_ops)
     zero = redesign_zero(zero_ctxs)
+    o3 = redesign_o3(dev, rng, zero_ctxs["ckks"])
+    afi = redesign_afi(dev, rng, bfv_ops)
     spread = op_spread(divide_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
             "b": b, "o1": o1, "p1": p1, "f": f, "kp": kp, "zero": zero,
-            "spread": spread}
+            "o3": o3, "afi": afi, "spread": spread}
 
 
 SPREAD_TRACES = 8
@@ -5095,16 +5181,12 @@ def redesign_p1(app_ctx, rng) -> dict:
     return out
 
 
-def redesign_f(dev, rng, bfv_ops: dict) -> dict:
+def redesign_f(dev, rng) -> dict:
     """Phase 35, kernel F: its digits folded into A's first pass (AF,
     ``rns_ntt_forward_digits``) word-equal to F's digits then A's forward
     at REDESIGN_F_SHAPES, the two timed in turns (device us a
-    call, graph replay) with their device us a launch (profiler); then F's
-    divide, which keeps its kernel, at every shape of one run of the BFV
-    headline's mult+relin, rotate_rows(1) and apply_galois_many (recorded
-    with its operands) and at the batched fold's shapes: device us a
-    launch beside its bound (the products and the accumulator in, the
-    result out; 5 products a word)."""
+    call, graph replay) with their device us a launch (profiler). F's
+    divide on A's route is AFi's (redesign_afi)."""
     fused = {}
     for tag, n, spec, rows in REDESIGN_F_SHAPES:
         t = ntt.RnsNttTables.from_moduli(n, _moduli(n, spec), dev,
@@ -5149,51 +5231,167 @@ def redesign_f(dev, rng, bfv_ops: dict) -> dict:
             f"{r['ntt_us_per_launch']:.2f}; bound {bound_ms * 1e3:.2f} us "
             f"({bound_by})")
 
-    # F's divide at the main path's shapes
-    seen = {}
-    divide = keyswitch.divide_round_last
+    return {"fused": fused}
 
-    def record(x, consts, acc=None, group=None):
+
+def redesign_o3(dev, rng, ckks_ctx) -> dict:
+    """Phase 35, kernel O3 (the centred CRT composition: one rounded
+    multiple of Q, the constants in shared memory): at every data level of
+    the CKKS headline chain and at REDESIGN_O3_SHAPES, bit-equal to its
+    plain version on random residues with crt_values in the first
+    coefficients; its device us a call (graph replay) and a launch
+    (profiler) beside its bound: the residues in and the f64 values out
+    once, the accumulator's products (phase 7)."""
+    shapes = []
+    for level in range(ckks_ctx.first_level, ckks_ctx.last_level + 1):
+        t = ckks_ctx.get_context_data(level).ntt
+        shapes.append((f"({t.k},{t.n}) CKKS level {level}", t))
+    for tag, n, spec, k in REDESIGN_O3_SHAPES:
+        shapes.append((tag, ntt.RnsNttTables.from_moduli(
+            n, _moduli(n, spec)[:k], dev, use_mxu=False)))
+    out = {}
+    for tag, t in shapes:
+        rt = embedding.make_rns_round_tables(t)
+        k, n = t.k, t.n
+        words = to_numpy(_uniform(rng, t.values, (k, n), dev))
+        for i, v in enumerate(crt_values(rt.total, rng)):
+            words[:, i] = [v % q for q in t.values]
+        res = to_torch(words, dev)
+        call = lambda: embedding.compose_centered(res, rt, 2.0 ** -40)
+        try:
+            compare("bits", call(), embedding.compose_centered_plain(
+                res, rt, 2.0 ** -40))
+        except AssertionError as exc:
+            raise AssertionError(f"O3 at {tag}: {exc}") from None
+        _, _, each = device_kernels_per_op(
+            call, reps=10, expect={"compose_kernel": 1}, whole=True)
+        bound_ms, bound_by = bound(_bytes(res) + n * 8,
+                                   n * k * (2 + 2 * rt.words))
+        r = {"k": k, "n": n, "words": rt.words, "device_us": graph_us(call),
+             "us_per_launch": each["compose_kernel"][1],
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        out[tag] = r
+        log(f"[35] O3 {tag}, W = {rt.words}: bit-equal to its plain version;"
+            f" {r['device_us']:.2f} us a call (graph), "
+            f"{r['us_per_launch']:.2f} us a launch (profiler); bound "
+            f"{bound_ms * 1e3:.3f} us ({bound_by})")
+    return out
+
+
+def redesign_afi(dev, rng, bfv_ops: dict) -> dict:
+    """Phase 35, AFi (F's divide folded into A's last inverse pass,
+    ``keyswitch.ntt_inverse_divide_round``): every call of one run of the
+    BFV headline's mult+relin, rotate_rows(1) and apply_galois_many
+    recorded with its operands, each op launching AFi once a key switch
+    and F's divide never (entry counters); then at each distinct shape,
+    the batched fold's (REDESIGN_FOLD_MS) and REDESIGN_AFI_SHAPES, AFi
+    word-equal to A's inverse then F's divide, the two timed in turns
+    (device us a call, graph replay) with their device us a launch
+    (profiler), beside the fused call's bound: the products and the
+    accumulator in, the result out and the inverse twiddles once; A's
+    butterfly products and F's 5 a word."""
+    seen, per_op = {}, {}
+    fused = keyswitch.ntt_inverse_divide_round
+
+    def record(x, rows, consts, acc=None, group=None):
         key = (tuple(x.shape), None if acc is None else tuple(acc.shape),
                group)
-        seen.setdefault(key, ((x, consts, acc, group), []))[1].append(op)
-        return divide(x, consts, acc, group)
+        if key not in seen:
+            seen[key] = ((x.clone(), rows, consts,
+                          None if acc is None else acc.clone(), group), [])
+        seen[key][1].append(op)
+        per_op[op] += 1
+        return fused(x, rows, consts, acc, group)
 
-    keyswitch.divide_round_last = record
+    keyswitch.ntt_inverse_divide_round = record
     try:
         for op, fn in bfv_ops.items():
+            per_op[op] = 0
+            _kernels.reset_launch_counts()
             fn()
+            torch.cuda.synchronize()
+            entries = _kernels.entry_launch_counts()
+            got = (entries["troy_ntt_inverse_keyswitch"],
+                   entries["troy_keyswitch_divide_round"])
+            if got != (per_op[op], 0):
+                raise AssertionError(
+                    f"AFi: {op} launched AFi {got[0]} times and F's divide "
+                    f"{got[1]} times in {per_op[op]} key switches")
+            log(f"[35] AFi: {op} launched AFi once in each of its "
+                f"{per_op[op]} key switches, F's divide never")
     finally:
-        keyswitch.divide_round_last = divide
-    torch.cuda.synchronize()
-    first = next(iter(seen.values()))[0]
-    consts = first[1]
-    k = first[0].shape[1] - 1
-    bounds = [int(v) for v in to_numpy(consts[:k])] + [int(to_numpy(
-        consts[5 * k:5 * k + 1])[0])]
+        keyswitch.ntt_inverse_divide_round = fused
+    if not any(per_op.values()):
+        raise AssertionError("AFi: the BFV ops ran no key switch on it")
+    args = next(iter(seen.values()))[0]
+    rows, consts = args[1], args[2]
+    k = rows.k - 1
     for m in REDESIGN_FOLD_MS:
-        x = _uniform(rng, bounds, (2 * m, k + 1, N), dev)
-        acc = _uniform(rng, bounds[:k], (m, 1, k, N), dev)
+        x = _uniform(rng, rows.values, (2 * m, k + 1, N), dev)
+        acc = _uniform(rng, rows.values[:k], (m, 1, k, N), dev)
         seen[(tuple(x.shape), tuple(acc.shape), 2)] = (
-            (x, consts, acc, 2), [f"batched fold of {m}"])
-    divides = {}
+            (x, rows, consts, acc, 2), [f"batched fold of {m}"])
+    for tag, n, spec, s in REDESIGN_AFI_SHAPES:
+        moduli = _moduli(n, spec)
+        t = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+        kk = t.k - 1
+        x = _uniform(rng, moduli, (s, kk + 1, n), dev)
+        acc = _uniform(rng, moduli[:kk], (2, kk, n), dev)
+        seen[(tuple(x.shape), tuple(acc.shape), None)] = (
+            (x, t, keyswitch.divide_round_consts(t.slice(0, kk), moduli[kk]),
+             acc, None), [tag])
+    out = {}
     for (xs, accs, group), (args, ops) in seen.items():
-        x, c, acc, g = args
-        _, _, each = device_kernels_per_op(
-            lambda: divide(x, c, acc, g), reps=10,
-            expect={"divide_round_kernel": 1}, whole=True)
-        words = x.shape[0] * k * N
-        bound_ms, bound_by = bound(_bytes(x) + (0 if acc is None else
-                                                _bytes(acc)) + words * 8,
-                                   words * 5)
+        x, t, c, acc, g = args
+        s, kk, n = x.shape[0], t.k - 1, t.n
+        calls = {"fused": lambda: fused(x, t, c, acc, g),
+                 "composed": lambda: keyswitch.divide_round_last(
+                     ntt.rns_ntt_inverse(x, t), c, acc, g)}
         tag = f"{xs} acc {accs} group {group}"
-        divides[tag] = {"ops": sorted(set(ops)), "calls": len(ops),
-                        "us_per_launch": each["divide_round_kernel"][1],
-                        "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"[35] F divide {tag} ({', '.join(sorted(set(ops)))}): "
-            f"{divides[tag]['us_per_launch']:.2f} us a launch, bound "
-            f"{bound_ms * 1e3:.2f} us ({bound_by})")
-    return {"fused": fused, "divide": divides}
+        try:
+            compare("words", calls["fused"](), calls["composed"]())
+        except AssertionError as exc:
+            raise AssertionError(f"AFi {tag}: {exc}") from None
+        turns = {name: [] for name in calls}
+        for r in range(4):
+            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                turns[name].append(graph_us(calls[name]))
+        passes = len(ntt.launch_blocks(s * t.k, n, True))
+        expect = {"inverse_divide_kernel": 1}
+        if passes > 1:
+            expect["ntt_pass_kernel"] = passes - 1
+        _, _, each_f = device_kernels_per_op(calls["fused"], reps=10,
+                                             expect=expect, whole=True)
+        _, _, each_c = device_kernels_per_op(
+            calls["composed"], reps=10,
+            expect={"ntt_pass_kernel": passes, "divide_round_kernel": 1},
+            whole=True)
+        words = s * kk * n
+        bound_ms, bound_by = bound(
+            _bytes(x) + (0 if acc is None else _bytes(acc)) + words * 8
+            + 2 * t.k * n * 8, ntt_rows_mul64(s * t.k) + words * 5)
+        r = {"ops": sorted(set(ops)), "calls": len(ops),
+             "device_us_turns": turns,
+             "fused_us": statistics.median(turns["fused"]),
+             "composed_us": statistics.median(turns["composed"]),
+             "fused_last_pass_us": each_f["inverse_divide_kernel"][1],
+             "fused_first_pass_us": (each_f["ntt_pass_kernel"][1]
+                                     if passes > 1 else None),
+             "a_us_per_launch": each_c["ntt_pass_kernel"][1],
+             "divide_us_per_launch": each_c["divide_round_kernel"][1],
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        out[tag] = r
+        first = ("" if r["fused_first_pass_us"] is None else
+                 f"first pass {r['fused_first_pass_us']:.2f}, ")
+        log(f"[35] AFi {tag} ({', '.join(r['ops'])}): word-equal to A's "
+            f"inverse + F's divide; device us a call in turns (graph): "
+            f"fused {r['fused_us']:.2f}, composed {r['composed_us']:.2f}; a "
+            f"launch (profiler): fused {first}last pass "
+            f"{r['fused_last_pass_us']:.2f}; A's passes "
+            f"{r['a_us_per_launch']:.2f}, F's divide "
+            f"{r['divide_us_per_launch']:.2f}; bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+    return {"key_switches": per_op, "shapes": out}
 
 
 def redesign_b(ops: dict) -> dict:
@@ -5585,12 +5783,12 @@ def redesign_o1(dev, rng, per_op: dict) -> dict:
 
 # the kernels ranked by their loss (PERF.md section 6): those not yet
 # redesigned for the H100, and D and I, and their device functions' names
-# in the profiler (F's divide and K share divide_round_kernel, O2 and O4
-# round_kernel; F's counter also counts its digits on J's route)
+# in the profiler (O2 and O4 share round_kernel; F's digits and divide run
+# only on J's route, K keeps divide_round_kernel)
 RANKED = {
     "C_base_convert": ("base_convert_kernel",),
     "D_rns_elementwise": ("rns_elementwise_kernel",),
-    "F_keyswitch": ("divide_round_kernel", "keyswitch_digits_kernel"),
+    "F_keyswitch": ("keyswitch_digits_kernel",),
     "G_plain_embed": ("plain_embed_kernel",),
     "Gp_plain_lift": ("plain_lift_kernel",),
     "I_sampling": ("uniform_kernel", "small_kernel", "zero_sym_kernel",
@@ -5599,7 +5797,6 @@ RANKED = {
     "N1_negacyclic": ("shift_kernel", "extract_kernel", "assemble_kernel"),
     "N2_pack_prepare": ("pack_prepare_kernel",),
     "O2_ckks_round": ("round_kernel",),
-    "O3_ckks_compose": ("compose_kernel",),
     "O4_ckks_encode_stats": ("round_kernel",),
     "P2_pair_convolve": ("tile_pair_convolve_kernel",),
     "P3_group_fold": ("pack_group_fold_kernel",),

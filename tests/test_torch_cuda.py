@@ -26,12 +26,13 @@ from troy_tpu_torch.utils.rns import make_rns_tool
 pytestmark = pytest.mark.cuda
 
 BITS = {1: [50], 6: [60, 40, 40, 40, 40, 60]}
-# on A's route the key switch's digits run in A's first pass (AF); F's own
-# kernel runs BFV's divide only; K''s temps and finish run in A's forward
-# passes (AKp), K''s own kernels (Kp) only on J's route
-BFV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
-               "D_rns_elementwise", "E_behz", "F_keyswitch", "K_divide_round",
-               "G_plain_embed", "M_galois"}
+# on A's route the key switch's digits run in A's first pass (AF) and
+# BFV's divide in A's last inverse pass (AFi), so F's own kernel does not
+# run; K''s temps and finish run in A's forward passes (AKp), K''s own
+# kernels (Kp) only on J's route
+BFV_KERNELS = {"A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
+               "C_base_convert", "D_rns_elementwise", "E_behz",
+               "K_divide_round", "G_plain_embed", "M_galois"}
 CKKS_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                 "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                 "AKp_rescale_ntt", "AKp_keyswitch_ntt"}
@@ -1572,3 +1573,105 @@ def test_ntt_forward_divide_kernel(dev, n, use):
         assert not any(counts[kp] for kp in KP_KERNELS), counts
         _same(got, rns.ntt_forward_divide_plain(x, last, t, consts, acc,
                                                 group, bgv))
+
+
+def _crt_values(Q, rng):
+    """CRT values around 0 and Q/2, and ones whose S = sum_j x_j / q_j
+    lies within 2^-40 of a half-integer (frac(S) = (v mod Q) / Q)."""
+    h = (Q - 1) // 2
+    near = [h - int(rng.integers(0, 1 << 30)) * (Q >> 72) for _ in range(6)]
+    near += [h + 1 + int(rng.integers(0, 1 << 30)) * (Q >> 72)
+             for _ in range(6)]
+    return [0, 1, -1, 2, -2, 12345, -12345, 1 << 40, -(1 << 40), h, -h,
+            h + 1, Q - 1, Q - 2] + near
+
+
+@pytest.mark.parametrize("n", [2, 8, 64, 1024, 2048, 16384, 32768, 262144])
+def test_compose_kernel_every_width(dev, n):
+    """O3 bit-equal to its plain version at k = 1, 2, 5, 9 and 16 limbs (W
+    = 2 to 16 words), on random residues with the values around 0 and Q/2
+    and next to S's half-integers in the first coefficients (as many as n
+    holds)."""
+    for bits in ([60], [60, 40], [60, 40, 40, 40, 40], [50] * 9, [60] * 16):
+        q = [int(m) for m in P.CoeffModulus.create(n, bits)]
+        level = ntt.RnsNttTables.from_moduli(n, q, dev)
+        rt = embedding.make_rns_round_tables(level)
+        rng = np.random.default_rng(n + len(bits))
+        res = np.stack([rng.integers(0, qi, n, dtype=np.uint64) for qi in q])
+        for i, v in enumerate(_crt_values(rt.total, rng)[:n]):
+            res[:, i] = [v % qi for qi in q]
+        x = interop.to_torch(res, dev)
+        for inv_scale in (1.0, 2.0 ** -40):
+            got = embedding.compose_centered(x, rt, inv_scale)
+            torch.cuda.synchronize()
+            assert torch.equal(got, embedding.compose_centered_plain(
+                x, rt, inv_scale)), (bits, inv_scale)
+
+
+@pytest.mark.parametrize("s,n", [(2, 64), (2, 512), (2, 1024), (2, 16384),
+                                 (8, 16384), (16, 16384), (2, 32768),
+                                 (2, 131072), (2, 262144)])
+def test_ntt_inverse_divide_kernel(dev, s, n):
+    """AFi (F's divide in A's last inverse pass) against its plain version
+    and against A's inverse then F's divide, with no accumulator, onto (c0,
+    c1), onto c0, onto the c0 of each pair and onto one c0 for all pairs:
+    one AFi launch, none of A's or F's. n = 64, 512: the fused pass alone
+    over whole rows; 1024-131072: a compiled fused pass; 262144: run
+    time."""
+    bits = BITS[6] if n <= 32768 else [55, 55, 60]
+    moduli = [int(m) for m in P.CoeffModulus.create(n, bits)]
+    rows = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+    k = rows.k - 1
+    consts = keyswitch.divide_round_consts(rows.slice(0, k), moduli[k])
+    rng = np.random.default_rng(n + s)
+    x = _uniform(rng, moduli, (s,), n, dev)
+    data = moduli[:k]
+    for acc, group in ((None, None), (_uniform(rng, data, (2,), n, dev), None),
+                       (_uniform(rng, data, (1,), n, dev), None),
+                       (_uniform(rng, data, (s // 2, 1), n, dev), 2),
+                       (_uniform(rng, data, (1, 1), n, dev), 2)):
+        if acc is not None and group is None and acc.shape[0] > s:
+            continue
+        _kernels.reset_launch_counts()
+        got = keyswitch.ntt_inverse_divide_round(x, rows, consts, acc, group)
+        counts = _kernels.launch_counts()
+        assert (counts["AFi_keyswitch_intt"], counts["A_ntt"],
+                counts["F_keyswitch"]) == (1, 0, 0), counts
+        _same(got, keyswitch.ntt_inverse_divide_round_plain(
+            x, rows, consts, acc, group))
+        _same(got, keyswitch.divide_round_last(
+            ntt.rns_ntt_inverse(x, rows), consts, acc, group))
+
+
+def test_bfv_key_switch_launches_afi_not_f(dev):
+    """A BFV mult+relin and rotate_rows on A's route: one AFi launch a key
+    switch, no launch of F's divide (troy_keyswitch_divide_round)."""
+    n = 4096
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, BITS[6])),
+        plain_modulus=P.PlainModulus.batching(n, 20))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=dev)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(9), host_sampling=True)
+    rlk, gk = kg.create_relin_keys(), kg.create_galois_keys(steps=[1])
+    be, ev = P.BatchEncoder(ctx), P.Evaluator(ctx)
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=prng.seed_from_uint64(10))
+    rng = np.random.default_rng(9)
+    a, b = (rng.integers(0, be.plain_modulus, n, dtype=np.uint64)
+            for _ in range(2))
+    ca, cb = enc.encrypt_symmetric(be.encode(a)), enc.encrypt_symmetric(
+        be.encode(b))
+    for op, want in (
+            (lambda: ev.relinearize(ev.multiply(ca, cb), rlk),
+             a.astype(object) * b % be.plain_modulus),
+            (lambda: ev.rotate_rows(ca, 1, gk), None)):
+        _kernels.reset_launch_counts()
+        out = op()
+        torch.cuda.synchronize()
+        counts = _kernels.entry_launch_counts()
+        assert counts["troy_ntt_inverse_keyswitch"] == 1, counts
+        assert counts["troy_keyswitch_divide_round"] == 0, counts
+        if want is not None:
+            got = be.decode(P.Decryptor(ctx, kg.secret_key).decrypt(out))
+            np.testing.assert_array_equal(got.astype(object), want)

@@ -382,6 +382,8 @@ def test_wrappers_run_the_plain_version_only_on_the_cpu():
                  lambda: rns.decrypt_scale_and_round(x, dtool),
                  lambda: keyswitch.keyswitch_digits(meta(n), tables),
                  lambda: keyswitch.divide_round_last(meta(1, 2, n), consts),
+                 lambda: keyswitch.ntt_inverse_divide_round(
+                     meta(1, 2, n), tables, consts),
                  lambda: keyswitch.divide_and_round_q_last(meta(1, 2, n),
                                                            tables),
                  lambda: poly.bfv_plain_embed(meta(n), x, t, 1, (1, 1),

@@ -60,6 +60,8 @@ _SIGNATURES = {
     "troy_ntt_forward_keyswitch": _FUSED_DIVIDE,
     "troy_ntt_forward_bgv_mod_switch": _FUSED_DIVIDE,
     "troy_ntt_forward_bgv_keyswitch": _FUSED_DIVIDE,
+    "troy_ntt_inverse_keyswitch": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I,
+                                   _P, _P, _P, _P, _P, _P, _P),
     "troy_ntt_blocks": (_L, _I, _I, _P),                # no launch: a query
     "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
@@ -127,6 +129,7 @@ KERNELS = {
     "troy_ntt_forward_keyswitch": "AKp_keyswitch_ntt",
     "troy_ntt_forward_bgv_mod_switch": "AKp_bgv_ntt",
     "troy_ntt_forward_bgv_keyswitch": "AKp_bgv_ntt",
+    "troy_ntt_inverse_keyswitch": "AFi_keyswitch_intt",
     "troy_dyadic_mac": "B_dyadic_mac",
     "troy_dyadic_mac_batched": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",

@@ -1,9 +1,12 @@
-// Shared __device__ layer of the divide by the last prime in the NTT domain
-// (kernel K' and K'-BGV): the per-word arithmetic of the temps and the
-// finish, and the layout of their constants and accumulator. K''s own
-// kernels (divide_round_ntt.cu, J's route) and kernel A's fused forward
-// passes (ntt.cu, A's route) both run through these functions, so the two
-// routes give the same words.
+// Shared __device__ layer of the divide by the last prime: in the NTT
+// domain (kernel K' and K'-BGV) the per-word arithmetic of the temps and
+// the finish, in the coefficient domain (kernel F's divide) the rounding
+// divide of one word, and the layout of their constants and accumulator.
+// K''s own kernels (divide_round_ntt.cu, J's route) and kernel A's fused
+// forward passes (ntt.cu, A's route) both run through these functions, as
+// do F's own kernel (keyswitch.cu divide_round_kernel: K, J's route, the
+// coefficient-sharded key switch) and A's fused inverse pass (ntt.cu,
+// AFi), so each pair of routes gives the same words.
 //
 // x (comps, k + 1, n) holds NTT-form rows over q_0..q_{k-1} and, in row k,
 // the prime p to divide by; last = INTT_p(x[c, k]), below p. Then
@@ -84,6 +87,28 @@ __device__ __forceinline__ uint64_t divide_finish(uint64_t x, uint64_t v,
                                                   uint64_t q, uint64_t inv,
                                                   uint64_t inv_shoup) {
     return mul_mod_shoup(x + 4 * q - v, inv, inv_shoup, q);
+}
+
+// F's divide, coefficient domain: x_k, word i of row k (below p), offset
+// by floor(p/2) once for all limbs ...
+__device__ __forceinline__ uint64_t divide_round_last(uint64_t x_k,
+                                                      uint64_t p,
+                                                      uint64_t half) {
+    return add_mod(x_k, half, p);
+}
+
+// ... then word i of row j (x < q): (x - (last mod q - floor(p/2) mod q))
+// p^-1 mod q.
+__device__ __forceinline__ uint64_t divide_round_word(uint64_t x,
+                                                      uint64_t last,
+                                                      uint64_t q,
+                                                      uint64_t ratio,
+                                                      uint64_t half_mod,
+                                                      uint64_t inv,
+                                                      uint64_t inv_shoup) {
+    const uint64_t temp =
+        sub_mod(barrett_reduce_64(last, q, ratio), half_mod, q);
+    return mul_mod_shoup(sub_mod(x, temp, q), inv, inv_shoup, q);
 }
 
 // The accumulator row added onto component `comp`, or -1 for none (32-bit

@@ -19,7 +19,7 @@
 //              fused into the loads and the slot gather into the stores;
 //   O2:        round(Re(u * untwist) * scale) mod q_i for every limb;
 //   O3:        the centred CRT composition of (k, n) residues, as f64, times
-//              1/scale;
+//              1/scale (redesigned for the H100: see below);
 //   O4:        O2, and max |rint(Re(u * untwist) * scale)| over the n
 //              coefficients into one f64 word;
 //   O5:        O1 decode, and max(|Re V[j] - Re V[n-1-j]|, |Im V[j] +
@@ -66,9 +66,33 @@
 // 64 threads). Radix 4 with two columns a block ran the fastest of radix
 // 2, 4 and 8 with one, two and four columns at n = 4096-131072 on the
 // H100. The direct sums this replaces did 33.5 MFLOP over
-// dense (A, A) and (B, B) matrices in 32 blocks a pass. O2 and
-// O3 are one thread per coefficient with k limbs (O3: W 64-bit words of
-// accumulator in registers), bound by their k*n words.
+// dense (A, A) and (B, B) matrices in 32 blocks a pass. O2 is one thread
+// per coefficient with k limbs, bound by its k*n words.
+//
+// O3 moves k*n words in and n out (0.2 us at the CKKS headline's n =
+// 16384, k = 5), so latency bounds it: a launch and one round trip to
+// memory. Its design keeps that round trip the only wait:
+//  - a thread issues all its residue loads (up to kComposeChunk) first,
+//    and the block copies the constants (q, invp, P_j, Q, 1/q_j: at most
+//    10.5 KB) into shared memory while they are in flight (a global load
+//    of each limb's constants after the previous limb's arithmetic cost
+//    about 0.45 us a limb at n = 16384 on the H100, PERF.md);
+//  - one thread a coefficient in 128-thread blocks (one block an SM at
+//    n = 16384): two or four lanes a coefficient joined by warp shuffles
+//    were no faster at n <= 32768 and 1.4-2.9 times slower at 262144;
+//  - the kernel is compiled for each W (2-16), so no word is predicated;
+//  - one multiple of Q instead of k - 1 serial W-word subtracts: with
+//    x_j = r_j invp_j mod q_j, acc = sum_j x_j P_j = S Q for S = sum_j
+//    x_j / q_j, so v = acc - rint(S) Q is the centred value directly
+//    (CKKS coefficients are tiny against Q: S lies next to an integer,
+//    where a floor would be one off for every negative value). S is
+//    summed in f64, which is off by less than 2^-40 for 64 limbs; only
+//    where S is within kComposeTieMargin of a half-integer (|v| near Q/2)
+//    is |v| compared with (Q + 1)/2 and, past it, replaced by Q - |v| of
+//    the other sign.
+// The magnitude is exact either way, so the top-down f64 conversion gives
+// the plain version's bits. tests/test_torch_compose.py emulates these
+// steps on the CPU.
 //
 // Floating point: O2 and O3 must give the plain PyTorch versions' bits, so
 // every f64 step that feeds a rounding is written with __dmul_rn /
@@ -89,6 +113,13 @@ constexpr int MAX_LOG_LINE = 9;  // lines of up to 512 words (n <= 2^18)
 constexpr int THREADS = 256;
 constexpr int MAX_WORDS = 16;    // O3 accumulator words (Q < 2^960)
 constexpr int MAX_LIMBS = 64;
+// O3: residues a thread loads before their arithmetic, threads a block, and
+// the distance from a half-integer below which S's f64 error (under
+// 2^-40 for 64 limbs: a rounding in each conversion, product and sum)
+// could put e on the wrong side, where the exact correction runs
+constexpr int kComposeChunk = 8;
+constexpr int kComposeThreads = 128;
+constexpr double kComposeTieMargin = 0x1p-30;
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
     return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -469,108 +500,153 @@ __global__ void round_kernel(uint64_t *__restrict__ out,
     if (kStats) block_max_to(largest, stat);
 }
 
-// consts: q (k), invp (k), invp Shoup (k), punctured products (k x W
-// words), Q (W words), (Q + 1) / 2 (W words); words little-endian.
+// O3. consts: q (k), invp (k), invp Shoup (k), punctured products P_j
+// (k x W words), Q (W words), (Q + 1) / 2 (W words), then 1/q_j as f64
+// bit patterns (k); words little-endian (ops/embedding.py
+// make_rns_round_tables). One thread a coefficient; W, the accumulator's
+// words, is compiled for (2..16).
+template <int W>
 __global__ void compose_kernel(double *__restrict__ out,
                                const uint64_t *__restrict__ res, int k,
-                               int log_n, int W,
+                               int log_n,
                                const uint64_t *__restrict__ consts,
                                double inv_scale) {
-    extern __shared__ uint64_t c[];
-    const int size = 3 * k + k * W + 2 * W;
-    for (int j = threadIdx.x; j < size; j += blockDim.x) c[j] = consts[j];
-    __syncthreads();
-    const uint64_t *q = c, *invp = c + k, *invp_shoup = c + 2 * k;
-    const uint64_t *punct = c + 3 * k, *q_words = punct + k * W;
-    const uint64_t *qhalf_words = q_words + W;
-    const int64_t n = int64_t(1) << log_n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-         i < n; i += stride) {
-        uint64_t acc[MAX_WORDS];
+    extern __shared__ uint64_t c_s[];
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+    const bool valid = i < (int64_t(1) << log_n);
+    // the first residues, in flight while the block copies the constants
+    // into shared memory (one round trip for both)
+    uint64_t r[kComposeChunk];
 #pragma unroll
-        for (int w = 0; w < MAX_WORDS; ++w) acc[w] = 0;
-        // acc = sum_j (r_j * invp_j mod q_j) * P_j
-        for (int j = 0; j < k; ++j) {
-            const uint64_t x =
-                mul_mod_shoup(res[(static_cast<int64_t>(j) << log_n) + i],
-                              invp[j], invp_shoup[j], q[j]);
+    for (int t = 0; t < kComposeChunk; ++t) {
+        r[t] = valid && t < k
+            ? __ldg(res + (static_cast<int64_t>(t) << log_n) + i) : 0;
+    }
+    for (int x = threadIdx.x; x < 4 * k + k * W + 2 * W; x += blockDim.x) {
+        c_s[x] = __ldg(consts + x);
+    }
+    __syncthreads();
+    if (!valid) return;
+    const uint64_t *q = c_s, *invp = c_s + k, *invp_shoup = c_s + 2 * k,
+                   *punct = c_s + 3 * k;
+    const uint64_t *q_words = punct + k * W, *qhalf_words = q_words + W;
+    const uint64_t *inv_q = qhalf_words + W;
+
+    // acc = sum_j x_j P_j exactly (W words) and S = sum_j x_j / q_j in f64,
+    // x_j = r_j invp_j mod q_j: acc = S Q. A chunk's residues are all
+    // loaded before its arithmetic.
+    uint64_t acc[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[w] = 0;
+    double s = 0.0;
+    for (int c = 0; c < k; c += kComposeChunk) {
+        if (c > 0) {
+#pragma unroll
+            for (int t = 0; t < kComposeChunk; ++t) {
+                r[t] = c + t < k
+                    ? __ldg(res + (static_cast<int64_t>(c + t) << log_n) + i)
+                    : 0;
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < kComposeChunk; ++t) {
+            const int j = c + t;
+            if (j >= k) break;
+            const uint64_t qj = q[j];
+            const uint64_t x = mul_mod_shoup(r[t], invp[j], invp_shoup[j],
+                                             qj);
+            s = __dadd_rn(s, __dmul_rn(__ull2double_rn(x),
+                                       __longlong_as_double(
+                                           static_cast<long long>(inv_q[j]))));
             const uint64_t *pw = punct + j * W;
             uint64_t carry = 0;
 #pragma unroll
-            for (int w = 0; w < MAX_WORDS; ++w) {
-                if (w < W) {
-                    const uint64_t lo = x * pw[w];
-                    const uint64_t hi = __umul64hi(x, pw[w]);
-                    const uint64_t s1 = acc[w] + lo;
-                    const uint64_t c1 = s1 < lo;
-                    const uint64_t s2 = s1 + carry;
-                    const uint64_t c2 = s2 < carry;
-                    acc[w] = s2;
-                    carry = hi + c1 + c2;
-                }
+            for (int w = 0; w < W; ++w) {
+                const uint64_t p = pw[w];
+                const uint64_t lo = x * p;
+                const uint64_t hi = __umul64hi(x, p);
+                const uint64_t s1 = acc[w] + lo;
+                const uint64_t c1 = s1 < lo;
+                const uint64_t s2 = s1 + carry;
+                const uint64_t c2 = s2 < carry;
+                acc[w] = s2;
+                carry = hi + c1 + c2;
             }
         }
-        // reduce mod Q: acc < k Q, so k - 1 conditional subtracts
-        for (int t = 0; t < k - 1; ++t) {
-            uint64_t diff[MAX_WORDS];
-            uint64_t borrow = 0;
-#pragma unroll
-            for (int w = 0; w < MAX_WORDS; ++w) {
-                if (w < W) {
-                    const uint64_t d1 = acc[w] - q_words[w];
-                    const uint64_t b1 = acc[w] < q_words[w];
-                    diff[w] = d1 - borrow;
-                    borrow = b1 + (d1 < borrow);
-                }
-            }
-            if (borrow == 0) {
-#pragma unroll
-                for (int w = 0; w < MAX_WORDS; ++w) {
-                    if (w < W) acc[w] = diff[w];
-                }
-            }
-        }
-        // centre: acc >= (Q + 1) / 2 stands for acc - Q
-        uint64_t borrow = 0;
-#pragma unroll
-        for (int w = 0; w < MAX_WORDS; ++w) {
-            if (w < W) {
-                const uint64_t d1 = acc[w] - qhalf_words[w];
-                const uint64_t b1 = acc[w] < qhalf_words[w];
-                borrow = b1 + (d1 < borrow);
-            }
-        }
-        const bool neg = borrow == 0;
-        if (neg) {
-            borrow = 0;
-#pragma unroll
-            for (int w = 0; w < MAX_WORDS; ++w) {
-                if (w < W) {
-                    const uint64_t d1 = q_words[w] - acc[w];
-                    const uint64_t b1 = q_words[w] < acc[w];
-                    acc[w] = d1 - borrow;
-                    borrow = b1 + (d1 < borrow);
-                }
-            }
-        }
-        // top-down f64 conversion, in the plain version's order
-        double f = 0.0;
-#pragma unroll
-        for (int w = MAX_WORDS - 1; w >= 0; --w) {
-            if (w < W) {
-                const double hi = static_cast<double>(
-                    static_cast<uint32_t>(acc[w] >> 32));
-                const double lo = static_cast<double>(
-                    static_cast<uint32_t>(acc[w]));
-                f = __dadd_rn(__dadd_rn(__dmul_rn(f, 0x1p64),
-                                        __dmul_rn(hi, 0x1p32)),
-                              lo);
-            }
-        }
-        out[i] = __dmul_rn(neg ? -f : f, inv_scale);
     }
+
+    // v = acc - e Q with e the integer nearest S: the centred value, in
+    // two's complement (|v| < Q, so the top word is all sign)
+    const double e_f = rint(s);
+    const uint64_t e = static_cast<uint64_t>(e_f);
+    uint64_t carry = 0, borrow = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        const uint64_t qw = q_words[w];
+        const uint64_t lo = e * qw;
+        const uint64_t m = lo + carry;
+        carry = __umul64hi(e, qw) + (m < lo);
+        const uint64_t d = acc[w] - m;
+        const uint64_t b1 = acc[w] < m;
+        acc[w] = d - borrow;
+        borrow = b1 + (d < borrow);
+    }
+    bool neg = static_cast<int64_t>(acc[W - 1]) < 0;
+    if (neg) {       // |v| = -v
+        uint64_t c = 1;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            acc[w] = ~acc[w] + c;
+            c = c && acc[w] == 0;
+        }
+    }
+    // S within the f64 error of a half-integer: e may be one off, and |v|
+    // then reaches (Q + 1) / 2; Q - |v| of the other sign is the value
+    if (fabs(__dsub_rn(s, e_f)) > 0.5 - kComposeTieMargin) {
+        uint64_t b = 0;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            const uint64_t hw = qhalf_words[w];
+            const uint64_t d1 = acc[w] - hw;
+            b = (acc[w] < hw) + (d1 < b);
+        }
+        if (b == 0) {
+            b = 0;
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+                const uint64_t qw = q_words[w];
+                const uint64_t d1 = qw - acc[w];
+                const uint64_t b1 = qw < acc[w];
+                acc[w] = d1 - b;
+                b = b1 + (d1 < b);
+            }
+            neg = !neg;
+        }
+    }
+    // top-down f64 conversion, in the plain version's order
+    double f = 0.0;
+#pragma unroll
+    for (int w = W - 1; w >= 0; --w) {
+        const double hi = static_cast<double>(
+            static_cast<uint32_t>(acc[w] >> 32));
+        const double lo = static_cast<double>(static_cast<uint32_t>(acc[w]));
+        f = __dadd_rn(__dadd_rn(__dmul_rn(f, 0x1p64), __dmul_rn(hi, 0x1p32)),
+                      lo);
+    }
+    out[i] = __dmul_rn(neg ? -f : f, inv_scale);
+}
+
+template <int W>
+int compose_launch(double *out, const uint64_t *res, int k, int log_n,
+                   const uint64_t *consts, double inv_scale,
+                   cudaStream_t stream) {
+    const unsigned blocks = static_cast<unsigned>(
+        ((1LL << log_n) + kComposeThreads - 1) / kComposeThreads);
+    const size_t smem = sizeof(uint64_t) * (4 * k + k * W + 2 * W);
+    compose_kernel<W><<<blocks, kComposeThreads, smem, stream>>>(
+        out, res, k, log_n, consts, inv_scale);
+    TROY_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
@@ -689,14 +765,22 @@ extern "C" int troy_ckks_round_stats(void *out, void *stat, const void *u,
 extern "C" int troy_ckks_compose(void *out, const void *residues, int k,
                                  int log_n, int W, const void *consts,
                                  double inv_scale, void *stream) {
-    if (k < 1 || k > MAX_LIMBS || W < 1 || W > MAX_WORDS) {
+    if (k < 1 || k > MAX_LIMBS || W < 2 || W > MAX_WORDS) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const size_t smem = static_cast<size_t>(3 * k + k * W + 2 * W) *
-                        sizeof(uint64_t);
-    compose_kernel<<<grid_blocks(1LL << log_n, THREADS), THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<double *>(out), static_cast<const uint64_t *>(residues),
-        k, log_n, W, static_cast<const uint64_t *>(consts), inv_scale);
-    TROY_RETURN_LAUNCH_STATUS();
+    double *o = static_cast<double *>(out);
+    const uint64_t *r = static_cast<const uint64_t *>(residues);
+    const uint64_t *c = static_cast<const uint64_t *>(consts);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (W) {
+#define TROY_COMPOSE_W(w) \
+    case w: return compose_launch<w>(o, r, k, log_n, c, inv_scale, s);
+    TROY_COMPOSE_W(2) TROY_COMPOSE_W(3) TROY_COMPOSE_W(4) TROY_COMPOSE_W(5)
+    TROY_COMPOSE_W(6) TROY_COMPOSE_W(7) TROY_COMPOSE_W(8) TROY_COMPOSE_W(9)
+    TROY_COMPOSE_W(10) TROY_COMPOSE_W(11) TROY_COMPOSE_W(12)
+    TROY_COMPOSE_W(13) TROY_COMPOSE_W(14) TROY_COMPOSE_W(15)
+    TROY_COMPOSE_W(16)
+#undef TROY_COMPOSE_W
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

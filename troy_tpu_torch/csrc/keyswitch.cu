@@ -17,6 +17,10 @@
 //   divide-round:  last  = x[c, k, i] + floor(p/2) mod p
 //                  out[c, j, i] = (x[c, j, i] - (last mod q_j - floor(p/2)
 //                                 mod q_j)) * p^-1 mod q_j   (+ acc[c, j, i])
+//                  (K, J's route and the coefficient-sharded key switch;
+//                  on A's route the key switch's divide runs in A's last
+//                  inverse pass, csrc/ntt.cu troy_ntt_inverse_keyswitch;
+//                  the word arithmetic is divide_round.cuh's, shared)
 //
 // with an optional accumulator: the components come in groups of `group`,
 // and acc[g % acc_groups, h] is added onto component h < acc_comps of
@@ -48,7 +52,7 @@
 // limbs; coalesced across the warp; the constants (5k + 2 words) in shared
 // memory.
 
-#include "u64.cuh"
+#include "divide_round.cuh"
 
 using namespace troy;
 
@@ -120,15 +124,12 @@ __global__ void divide_round_kernel(uint64_t *__restrict__ out,
         const int64_t base = ((comp * k) << log_n) + i;
         const int64_t arow = acc_row(comp, acc_comps, group, acc_groups);
         const uint64_t last =
-            add_mod(src[static_cast<int64_t>(k) << log_n], half, p);
+            divide_round_last(src[static_cast<int64_t>(k) << log_n], p, half);
         for (int j = 0; j < k; ++j) {
             const int64_t at = base + (static_cast<int64_t>(j) << log_n);
-            const uint64_t temp =
-                sub_mod(barrett_reduce_64(last, q[j], ratio[j]), half_mod[j],
-                        q[j]);
-            const uint64_t diff =
-                sub_mod(src[static_cast<int64_t>(j) << log_n], temp, q[j]);
-            uint64_t r = mul_mod_shoup(diff, inv[j], inv_shoup[j], q[j]);
+            uint64_t r = divide_round_word(
+                src[static_cast<int64_t>(j) << log_n], last, q[j], ratio[j],
+                half_mod[j], inv[j], inv_shoup[j]);
             if (arow >= 0) {
                 r = add_mod(acc[((arow * k + j) << log_n) + i], r, q[j]);
             }

@@ -86,6 +86,39 @@
 // SM), so the first pass issues all its loads of last before it forms
 // any temp, and the last loads its x and accumulator words before the
 // butterflies.
+//
+// troy_ntt_inverse_keyswitch (AFi) folds kernel F's divide by the special
+// prime (csrc/keyswitch.cu troy_keyswitch_divide_round; troy_tpu/
+// evaluator.py:290 _switch_key_contract, coefficient domain: BFV) into
+// A's inverse: (comps, k + 1, n) NTT-form products -> (comps, k, n)
+// coefficient form, plus the accumulator. Output word i of row j needs
+// word i of row k (the special prime's) finished, and another block of
+// A's last pass holds it; blocks may not wait on each other (nothing
+// keeps them resident together), so a block of the fused last pass holds
+// one column set of all k + 1 rows of a component (plan_inverse: fewer
+// columns than A's strided pass, so that the grid still fills the card;
+// with very many limbs, groups of output rows, each with its own copy of
+// row k), each tile transformed by its own threads, held line-major
+// (kColLines) so that narrow column sets meet no bank conflicts. Every
+// word the block reads (tiles, twiddles, accumulator, constants) is
+// copied into shared memory by cp.async, all in flight together, with no
+// register holding it. The finish applies n^-1 and reduce_2q as A's last
+// pass does, turns the special tile into F's offset last + floor(p/2) mod
+// p once for all rows, then runs F's word arithmetic (divide_round.cuh,
+// shared with F's kernel) and adds the accumulator word. A's first
+// inverse pass is unchanged. The key switch then takes two launches where
+// A's inverse and F took three, and A's last pass no longer writes the
+// (comps, k + 1, n) coefficient rows for F to read back (at a batched
+// fold of 128, (256, 6, n): 201 MB each way).
+// What bounds it: at (2, 6, n) latency, as for A; at the folds F's
+// arithmetic (about 70 instructions a word, as much as a pass of
+// butterflies) runs inside a pass that already uses the SMs poorly (A's
+// strided pass moves its bytes at about half the memory rate), so the
+// fused pass costs about A's last pass plus F's kernel there. A block
+// per output row with its own copy of row k did twice A's work on the
+// busiest SM at (2, 6, n) and 1.67 times its butterflies at the folds;
+// wider column sets in larger blocks, registers capped by launch bounds,
+// and loads gathered in registers were each slower on the H100 (PERF.md).
 
 #include "butterfly.cuh"
 #include "divide_round.cuh"
@@ -94,8 +127,15 @@ using namespace troy;
 
 namespace {
 
-// How a pass maps lines onto a row.
-enum Mode { kRows = 0, kCols = 1, kChunks = 2 };
+// How a pass maps lines onto a row. kColLines: the strided pass's
+// columns (AFi's narrow column sets), held line-major in shared memory as
+// the contiguous pass holds its chunks, so that a stage's words do not
+// meet in one bank however few the columns.
+enum Mode { kRows = 0, kCols = 1, kChunks = 2, kColLines = 3 };
+
+__host__ __device__ constexpr bool columns(int mode) {
+    return mode == kCols || mode == kColLines;
+}
 
 // What the first forward pass computes from each word it loads: the word
 // itself, the key switch's digit (Barrett-64 into the row's prime), or K''s
@@ -186,7 +226,7 @@ __device__ __forceinline__ Line line_of(const Geo &g, const Block &b, int l,
         ln.stride = 1;
         ln.o = 1;
         ln.limb = row < rows ? row % k : -1;
-    } else if (g.mode == kCols) {
+    } else if (columns(g.mode)) {
         ln.base = b.row_base + b.first + l;
         ln.stride = 1 << (log_n - g.log_line);
         ln.o = 1;
@@ -265,7 +305,7 @@ __device__ __forceinline__ FinishRow finish_row(const Divide &dv,
 // (the strided pass walks consecutive columns first, so loads coalesce).
 __device__ __forceinline__ void tile_word(const Geo &g, int f, int &l,
                                           int &i) {
-    if (g.mode == kCols) {
+    if (columns(g.mode)) {
         l = f & ((1 << g.log_lines) - 1);
         i = f >> g.log_lines;
     } else {
@@ -290,13 +330,14 @@ template <int R, bool kInverse>
 __device__ __forceinline__ void stage(uint64_t *v_s, const uint64_t *tw_s,
                                       const Geo &geo, const Block &blk_info,
                                       int log_n, int rows, int k, int rho0,
-                                      const uint64_t *__restrict__ moduli) {
+                                      const uint64_t *__restrict__ moduli,
+                                      int tid) {
     constexpr int W = 1 << R;
     const int log_line = geo.log_line, log_lines = geo.log_lines;
     const int log_groups = log_line - R;              // groups a line
     const int log_h = log_line - rho0 - R;            // the stage's least gap
     const int items = 1 << (log_groups + log_lines);
-    for (int it = threadIdx.x; it < items; it += geo.threads) {
+    for (int it = tid; it < items; it += geo.threads) {
         int l, g;
         if (geo.mode == kCols) {
             l = it & ((1 << log_lines) - 1);
@@ -309,7 +350,7 @@ __device__ __forceinline__ void stage(uint64_t *v_s, const uint64_t *tw_s,
         if (ln.limb < 0) continue;
         const uint64_t q = moduli[ln.limb];
         const uint64_t *w_tab =
-            tw_s + ((geo.mode == kCols ? 0 : 2 * l) << log_line);
+            tw_s + ((columns(geo.mode) ? 0 : 2 * l) << log_line);
         const uint64_t *wq_tab = w_tab + (1 << log_line);
         const int base = ((g >> log_h) << (log_line - rho0)) |
                          (g & ((1 << log_h) - 1));
@@ -328,24 +369,26 @@ __device__ __forceinline__ void stage(uint64_t *v_s, const uint64_t *tw_s,
 }
 
 // Stage s of the pass's ceil(log_line / 3) (in reverse for the inverse):
-// its rounds as even as they go, three at most.
+// its rounds as even as they go, three at most; tid: the thread's index
+// among the geo.threads that share the tile.
 template <bool kInverse>
 __device__ __forceinline__ void run_stage(int s, uint64_t *v_s,
                                           const uint64_t *tw_s,
                                           const Geo &geo, const Block &blk,
                                           int log_n, int rows, int k,
-                                          const uint64_t *moduli) {
+                                          const uint64_t *moduli,
+                                          int tid = threadIdx.x) {
     int R, rho0;
     stage_plan(s, geo.log_line, kInverse, R, rho0);
     if (R == 3) {
         stage<3, kInverse>(v_s, tw_s, geo, blk, log_n, rows, k, rho0,
-                           moduli);
+                           moduli, tid);
     } else if (R == 2) {
         stage<2, kInverse>(v_s, tw_s, geo, blk, log_n, rows, k, rho0,
-                           moduli);
+                           moduli, tid);
     } else {
         stage<1, kInverse>(v_s, tw_s, geo, blk, log_n, rows, k, rho0,
-                           moduli);
+                           moduli, tid);
     }
     __syncthreads();
 }
@@ -523,6 +566,190 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
             }
         }
         out[at] = x;
+    }
+}
+
+// An 8-byte copy from device to shared memory that does not pass through
+// a register (sm_80+): the copies of a thread are all in flight until
+// cp.async.wait_all.
+__device__ __forceinline__ void cp_async8(uint64_t *smem,
+                                          const uint64_t *gmem) {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+                 "l"(gmem));
+}
+
+// AFi's last pass: a block holds the same column set (2^log_cols
+// columns of 2^log_line words: the strided pass's lines, or one whole row
+// below 2^kSplitLogN) of `group` output rows j0 .. j0 + group - 1 of one
+// component and of its special row k; tile t has 2^log_tile_threads
+// threads, and the block one tile more than the group.
+struct InversePlan {
+    int log_line, log_cols, group, log_tile_threads;
+    unsigned blocks;
+};
+
+// Its caps: the threads and shared memory a block may take unless one
+// output row and the special row alone need more, the blocks a plan
+// should give the card (about one an SM), and the words a thread
+// finishes (a tile's words over the block's threads: below 8).
+constexpr int kInverseThreads = 512;
+constexpr int kInverseSmem = 64 << 10;
+constexpr int kInverseMinBlocks = 128;
+constexpr int kInverseFinishWords = kWordsPerThread;
+// an output row's constants in shared memory: q, n^-1 and its Shoup
+// word, the high Barrett word, floor(p/2) mod q, p^-1 and its Shoup word
+constexpr int kInverseConsts = 7;
+
+// AFi, the last inverse pass with F's divide. Block b of component comp
+// and row group g (j0 = g group) transforms tile t < group: the columns
+// first .. of source row comp (k + 1) + j0 + t (limb j0 + t; none past
+// k - 1) and tile group: those of comp (k + 1) + k (the special prime),
+// each with its tile's threads (stage(), in lock step: one barrier a
+// stage); each applies n^-1 and reduce_2q as A's last pass does. Then
+// every thread finishes its words of the group's tiles: F's rounding
+// divide of tile t's word by the special tile's word at the same place,
+// plus the accumulator word (copied in before the butterflies), stored to
+// output row comp k + j0 + t. kLogLine: 5-8 compiled, 0 run time; the
+// tables are those of the k + 1 primes.
+template <int kLogLine>
+__global__ void inverse_divide_kernel(uint64_t *out, const uint64_t *in,
+                                      int log_n, int k,
+                                      const uint64_t *__restrict__ roots,
+                                      const uint64_t *__restrict__ roots_shoup,
+                                      const uint64_t *__restrict__ moduli,
+                                      const uint64_t *__restrict__ inv_degree,
+                                      const uint64_t *__restrict__
+                                          inv_degree_shoup,
+                                      InversePlan plan, Divide dv) {
+    extern __shared__ uint64_t v_s[];
+    const int log_line = kLogLine > 0 ? kLogLine : plan.log_line;
+    const int log_tt = plan.log_tile_threads;
+    const Geo geo = {kColLines, log_line, plan.log_cols, 1 << log_tt};
+    const int log_words = log_line + plan.log_cols;
+    const int words = 1 << log_words;
+    const int group = plan.group;
+    const int log_sets = log_n - log_words;
+    const int stride_shift = log_n - log_line;
+    const int groups = (k + group - 1) / group;
+    // 32-bit quotients: rows < 2^30 (inverse_divide refuses more)
+    const int set = blockIdx.x & ((1 << log_sets) - 1);
+    const int cg = static_cast<int>(blockIdx.x >> log_sets);
+    const int comp = cg / groups, j0 = (cg - comp * groups) * group;
+    const int first = set << plan.log_cols;
+    const int rows_here = min(group, k - j0);
+    const int tile = threadIdx.x >> log_tt;
+    const int tid = threadIdx.x & ((1 << log_tt) - 1);
+    // the special row's tile is the last; tiles past the rows are idle
+    const int limb = tile == group ? k : tile < rows_here ? j0 + tile : -1;
+    const int tile_size = words + (2 << log_line);
+    uint64_t *tile_s = v_s + tile * tile_size;
+    uint64_t *tw_s = tile_s + words;
+    uint64_t *acc_s = v_s + (group + 1) * tile_size;   // the finish's order
+    uint64_t *c_s = acc_s + (group << log_words);      // kInverseConsts a row
+    const Block blk = {
+        static_cast<int64_t>(comp * (k + 1) + (limb < 0 ? 0 : limb))
+            << log_n, first, limb};
+    const int all_threads = (group + 1) << log_tt;
+    const int finish_words = rows_here << log_words;
+
+    // every word the block reads, copied straight into shared memory and
+    // all in flight together (no register holds them): the tiles' words
+    // and twiddles (one table for a tile's columns: entry e of round r's
+    // table is roots[limb n + e], as in the strided pass), the accumulator
+    // words of each thread's finish, each output row's constants
+    if (limb >= 0) {
+        for (int f = tid; f < words; f += geo.threads) {
+            int l, i;
+            tile_word(geo, f, l, i);
+            cp_async8(tile_s + smem_pos(geo, l, i),
+                      in + blk.row_base + first + l +
+                          (static_cast<int64_t>(i) << stride_shift));
+        }
+        for (int e = tid; e < (1 << log_line); e += geo.threads) {
+            const int64_t g = (static_cast<int64_t>(limb) << log_n) + e;
+            cp_async8(tw_s + e, roots + g);
+            cp_async8(tw_s + (1 << log_line) + e, roots_shoup + g);
+        }
+    }
+    const int arow = accumulator_row(comp, static_cast<int>(dv.group),
+                                     dv.acc_comps,
+                                     static_cast<int>(dv.acc_groups));
+    const uint64_t *acc_rows =
+        arow >= 0 ? dv.acc + ((static_cast<int64_t>(arow) * k + j0)
+                              << log_n) : nullptr;
+    if (acc_rows != nullptr) {
+        for (int F = threadIdx.x; F < finish_words; F += all_threads) {
+            int l, i;
+            tile_word(geo, F & (words - 1), l, i);
+            cp_async8(acc_s + F,
+                      acc_rows + (static_cast<int64_t>(F >> log_words)
+                                  << log_n) + first + l +
+                          (static_cast<int64_t>(i) << stride_shift));
+        }
+    }
+    const DivideLayout L{k};
+    if (threadIdx.x < rows_here) {
+        const int j = j0 + threadIdx.x;
+        uint64_t *c = c_s + threadIdx.x * kInverseConsts;
+        cp_async8(c + 0, moduli + j);
+        cp_async8(c + 1, inv_degree + j);
+        cp_async8(c + 2, inv_degree_shoup + j);
+        cp_async8(c + 3, dv.consts + L.ratio() + j);
+        cp_async8(c + 4, dv.consts + L.half_mod() + j);
+        cp_async8(c + 5, dv.consts + L.inv() + j);
+        cp_async8(c + 6, dv.consts + L.inv_shoup() + j);
+    }
+    // the special prime's constants in registers
+    const uint64_t p = __ldg(moduli + k);
+    const uint64_t np = __ldg(inv_degree + k),
+                   np_shoup = __ldg(inv_degree_shoup + k);
+    const uint64_t half = __ldg(dv.consts + L.half());
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    if (kLogLine > 0) {
+#pragma unroll
+        for (int s = 0; s < (kLogLine + 2) / 3; ++s) {
+            run_stage<true>(s, tile_s, tw_s, geo, blk, log_n, 0, k + 1,
+                            moduli, tid);
+        }
+    } else {
+        for (int s = 0; s < (log_line + 2) / 3; ++s) {
+            run_stage<true>(s, tile_s, tw_s, geo, blk, log_n, 0, k + 1,
+                            moduli, tid);
+        }
+    }
+
+    // the special tile's words, finished once for all its rows: n^-1,
+    // reduce_2q, then the offset of F's divide
+    uint64_t *special = v_s + group * tile_size;
+    for (int f = threadIdx.x; f < words; f += all_threads) {
+        special[f] = divide_round_last(
+            reduce_2q(mul_mod_shoup_lazy(special[f], np, np_shoup, p), p), p,
+            half);
+    }
+    __syncthreads();
+    uint64_t *dst = out + ((static_cast<int64_t>(comp) * k + j0) << log_n) +
+                    first;
+#pragma unroll
+    for (int w = 0; w < kInverseFinishWords; ++w) {
+        const int F = threadIdx.x + w * all_threads;
+        if (F >= finish_words) break;
+        const int t = F >> log_words;
+        int l, i;
+        tile_word(geo, F & (words - 1), l, i);
+        const int pos = smem_pos(geo, l, i);
+        const uint64_t *c = c_s + t * kInverseConsts;
+        const uint64_t q = c[0];
+        const uint64_t x = reduce_2q(
+            mul_mod_shoup_lazy(v_s[t * tile_size + pos], c[1], c[2], q), q);
+        uint64_t r =
+            divide_round_word(x, special[pos], q, c[3], c[4], c[5], c[6]);
+        if (acc_rows != nullptr) r = add_mod(acc_s[F], r, q);
+        dst[(static_cast<int64_t>(t) << log_n) + l +
+            (static_cast<int64_t>(i) << stride_shift)] = r;
     }
 }
 
@@ -737,6 +964,133 @@ int divide_forward(void *out, const void *last, const void *x,
                nullptr, nullptr, nullptr, 0, 1, &dv, stream);
 }
 
+typedef void (*InverseDivideKernel)(uint64_t *, const uint64_t *, int, int,
+                                    const uint64_t *, const uint64_t *,
+                                    const uint64_t *, const uint64_t *,
+                                    const uint64_t *, InversePlan, Divide);
+
+// Shared memory of AFi's last pass: group + 1 tiles of words and twiddles,
+// the group's accumulator words and each output row's constants.
+size_t inverse_smem(const InversePlan &p) {
+    const size_t words = size_t(1) << (p.log_line + p.log_cols);
+    const size_t tile = words + (size_t(2) << p.log_line);
+    return sizeof(uint64_t) * ((p.group + 1) * tile +
+                               p.group * (words + kInverseConsts));
+}
+
+// AFi's last pass over comps components of k output rows: A's strided
+// lines (2^a words, a = log_n / 2) from 2^kSplitLogN, whole rows below.
+// Of the column sets from A's down to 2 columns (16 bytes of a row), those
+// whose tiles let one block hold every output row and the special row
+// within the caps: the widest with kInverseMinBlocks blocks, else the
+// narrowest (the most blocks); if none holds them all, 2 columns and as
+// many rows a block as the caps allow (at least one), row k transformed
+// once a row group.
+InversePlan plan_inverse(long long comps, int k, int log_n) {
+    int log_line = log_n, max_cols = 0;
+    if (log_n >= kSplitLogN) {
+        const int a = log_n / 2, b = log_n - a;
+        log_line = a;
+        max_cols = kLogTile - a < 0 ? 0 : kLogTile - a > b ? b : kLogTile - a;
+    }
+    const int min_cols = max_cols < 1 ? max_cols : 1;
+    InversePlan p = {}, whole = {};
+    for (int c = max_cols; c >= min_cols; --c) {
+        const int log_words = log_line + c;
+        p = {log_line, c, k, log_words > 3 ? log_words - 3 : 0, 0};
+        const int by_threads = (kInverseThreads >> p.log_tile_threads) - 1;
+        while (p.group > 1 && (p.group > by_threads ||
+                               inverse_smem(p) > size_t(kInverseSmem))) {
+            --p.group;
+        }
+        const long long groups = (k + p.group - 1) / p.group;
+        p.blocks = static_cast<unsigned>((comps * groups)
+                                         << (log_n - log_words));
+        if (p.group == k) {
+            if (p.blocks >= kInverseMinBlocks) return p;
+            whole = p;
+        }
+    }
+    return whole.group == k ? whole : p;
+}
+
+// AFi: A's inverse of x (comps, k + 1, n), NTT form, over the tables of
+// the k + 1 primes (row k the special prime p), with F's divide in its
+// last pass: out (comps, k, n), coefficient form, plus acc
+// (acc_groups, acc_comps, k, n) or null in the layout of
+// divide_round_kernel; consts in DivideLayout (5k + 2 words). From
+// 2^kSplitLogN, A's first inverse pass over all rows into scratch (comps,
+// k + 1, n), then the fused strided pass; below, the fused pass alone
+// over whole rows.
+int inverse_divide(void *out, const void *x, void *scratch, const void *acc,
+                   long long comps, int acc_comps, long long group,
+                   long long acc_groups, int k, int log_n, const void *roots,
+                   const void *roots_shoup, const void *moduli,
+                   const void *inv_degree, const void *inv_degree_shoup,
+                   const void *consts, void *stream) {
+    const long long rows = comps * (k + 1);
+    if (k < 1 || k > kDivideMaxLimbs || comps < 1 || rows > (1LL << 30) ||
+        log_n < 1 || log_n > 24 || consts == nullptr || acc_comps < 0 ||
+        (acc_comps > 0 && acc == nullptr) || group < 1 || acc_groups < 1 ||
+        acc_comps > group) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const uint64_t *src = static_cast<const uint64_t *>(x);
+    Pass passes[2];
+    if (plan(rows, log_n, 1, passes) == 2) {
+        if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        const PassKernel first = kernel_for<true, kLoadPlain, false>(
+            passes[0]);
+        const size_t smem = smem_bytes(passes[0]);
+        if (smem > (48 << 10)) {
+            const cudaError_t err = cudaFuncSetAttribute(
+                first, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (err != cudaSuccess) return static_cast<int>(err);
+        }
+        first<<<passes[0].blocks, threads_for(passes[0]), smem, s>>>(
+            static_cast<uint64_t *>(scratch), src, static_cast<int>(rows),
+            log_n, k + 1, static_cast<const uint64_t *>(roots),
+            static_cast<const uint64_t *>(roots_shoup),
+            static_cast<const uint64_t *>(moduli), nullptr,
+            static_cast<const uint64_t *>(inv_degree),
+            static_cast<const uint64_t *>(inv_degree_shoup), passes[0], 1,
+            Divide{});
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        src = static_cast<const uint64_t *>(scratch);
+    }
+    const InversePlan last = plan_inverse(comps, k, log_n);
+    InverseDivideKernel kernel = inverse_divide_kernel<0>;
+    switch (last.log_line) {
+    case 5: kernel = inverse_divide_kernel<5>; break;
+    case 6: kernel = inverse_divide_kernel<6>; break;
+    case 7: kernel = inverse_divide_kernel<7>; break;
+    case 8: kernel = inverse_divide_kernel<8>; break;
+    default: break;
+    }
+    const size_t smem = inverse_smem(last);
+    if (smem > (48 << 10)) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const Divide dv = {nullptr, static_cast<const uint64_t *>(acc),
+                       static_cast<const uint64_t *>(consts), group,
+                       acc_groups, acc_comps, 0};
+    kernel<<<last.blocks, (last.group + 1) << last.log_tile_threads, smem,
+             s>>>(
+        static_cast<uint64_t *>(out), src, log_n, k,
+        static_cast<const uint64_t *>(roots),
+        static_cast<const uint64_t *>(roots_shoup),
+        static_cast<const uint64_t *>(moduli),
+        static_cast<const uint64_t *>(inv_degree),
+        static_cast<const uint64_t *>(inv_degree_shoup), last, dv);
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 // The four uses of K', each on its own entry (and launch count): the CKKS
@@ -782,6 +1136,25 @@ extern "C" int troy_ntt_forward_bgv_keyswitch(
     return divide_forward(out, last, x, acc, comps, acc_comps, group,
                           acc_groups, k, log_n, roots, roots_shoup, moduli,
                           consts, 1, stream);
+}
+
+// The key switch's divide by the special prime in the coefficient domain
+// (BFV), folded into A's inverse (AFi): x (comps, k + 1, n) the NTT-form
+// products over q_0..q_{k-1} and p; scratch (comps, k + 1, n), A's first
+// pass's words from 2^kSplitLogN (unused below); out (comps, k, n) the
+// words of A's inverse then troy_keyswitch_divide_round; acc and its
+// layout as there; the
+// tables (k + 1, n) the inverse roots of those k + 1 primes, with their
+// moduli and n^-1; consts: ops/keyswitch.py divide_round_consts (5k + 2).
+extern "C" int troy_ntt_inverse_keyswitch(
+        void *out, const void *x, void *scratch, const void *acc,
+        long long comps, int acc_comps, long long group, long long acc_groups,
+        int k, int log_n, const void *roots, const void *roots_shoup,
+        const void *moduli, const void *inv_degree,
+        const void *inv_degree_shoup, const void *consts, void *stream) {
+    return inverse_divide(out, x, scratch, acc, comps, acc_comps, group,
+                          acc_groups, k, log_n, roots, roots_shoup, moduli,
+                          inv_degree, inv_degree_shoup, consts, stream);
 }
 
 // The blocks of each launch of one troy_ntt call (0 for a pass it does not

@@ -19,7 +19,8 @@ kernel launch over the whole batch of polynomials and limbs it touches:
     k x (k+1) limbs), takes the 128-bit inner product with the key (one B
     launch for both key components) and
     divides by the special prime with rounding, adding the result onto the
-    ciphertext: in the coefficient domain after an inverse A (F), or in the
+    ciphertext: in the coefficient domain in A's inverse (AFi: F's divide
+    in A's last pass; an inverse, then F, on J's route), or in the
     NTT domain (A on the special row, K', A, K'; for BGV the t-corrected
     temps of K'-BGV);
   * ``apply_galois`` permutes both components (kernel M: signed in the
@@ -236,10 +237,12 @@ def _divide_by_special(prods: torch.Tensor, cd: ContextData,
     with acc added in the layout of ops/keyswitch.py. CKKS and BGV in the
     NTT domain: A on the special row, then on A's route one A forward with
     K''s temps and finish in its passes (BGV: the t-corrected temps of
-    K'-BGV), on J's route K', J, K'; in the coefficient domain, an inverse
-    A of the products, then F's rounding divide (BFV) or the t-corrected
-    one of K'' (BGV). ``limbs``: the output limbs, a run of the level's (a
-    shard of the limb axis, parallel/sharding.py), all of them by default.
+    K'-BGV), on J's route K', J, K'; in the coefficient domain, BFV on
+    A's route one call of AFi (F's rounding divide in A's last inverse
+    pass), otherwise an inverse (A or J) of the products, then F's
+    rounding divide (BFV) or the t-corrected one of K'' (BGV). ``limbs``:
+    the output limbs, a run of the level's (a shard of the limb axis,
+    parallel/sharding.py), all of them by default.
     ``forward`` and ``inverse``: the transforms, called as A's; a
     coefficient-sharded mesh passes kernel J's (parallel/sharding.py)."""
     k = cd.limbs
@@ -262,6 +265,8 @@ def _divide_by_special(prods: torch.Tensor, cd: ContextData,
             prods, tables, used.slice(k, k + 1), consts, acc,
             drns.BGV_KEYSWITCH if bgv else drns.KEYSWITCH, group, forward,
             inverse)
+    if not bgv and used.mxu is None and inverse is dntt.rns_ntt_inverse:
+        return dks.ntt_inverse_divide_round(prods, rows, consts, acc, group)
     divide = dks.bgv_divide_last if bgv else dks.divide_round_last
     return divide(inverse(prods, rows), consts, acc, group)
 

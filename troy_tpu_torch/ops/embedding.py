@@ -37,8 +37,10 @@ each factor as short FFTs in shared memory (length-A over columns, length-B
 over rows) on the tables of ``line_roots``. Each wrapper launches its
 kernel for tensors on CUDA and runs its plain version for tensors on the
 CPU: O1's plain version is the 4-step schedule in torch.complex128 matrix
-products, O2's and O3's are the kernels' steps on the int64 u64ops twin
-and float64 tensors.
+products, O2's is the kernel's steps on the int64 u64ops twin and
+float64 tensors, O3's the JAX package's (the reduction by k - 1
+conditional subtracts, where the kernel subtracts one rounded multiple of
+Q; both give the same words, tests/test_torch_compose.py).
 """
 
 from __future__ import annotations
@@ -176,9 +178,10 @@ class RnsRoundTables:
     (k x E) and their Shoup words (k x E), e < E = max(1, bits(Q) - 52):
     a rounded coefficient |v| < 2^bits(Q) is m 2^e with m < 2^53.
     ``compose_consts``: q (k), invp_i = (Q/q_i)^-1 mod q_i (k), their Shoup
-    words (k), the punctured products Q/q_i (k x W words), Q (W words) and
+    words (k), the punctured products Q/q_i (k x W words), Q (W words),
     (Q + 1)/2 (W words), words little-endian, W = words(Q) + 1 (one for
-    carries)."""
+    carries), then 1/q_i rounded to f64, as bit patterns (k; O3's estimate
+    of the multiple of Q)."""
 
     q_values: Tuple[int, ...]
     round_consts: torch.Tensor
@@ -214,7 +217,8 @@ def make_rns_round_tables(t: RnsNttTables) -> RnsRoundTables:
         compose = (list(qv) + invp
                    + [u.shoup_quotient(w, q) for w, q in zip(invp, qv)]
                    + [x for p in punct for x in _to_words(p, W)]
-                   + _to_words(Q, W) + _to_words((Q + 1) // 2, W))
+                   + _to_words(Q, W) + _to_words((Q + 1) // 2, W)
+                   + [int(np.float64(1 / q).view(np.uint64)) for q in qv])
         t._memo[key] = RnsRoundTables(
             q_values=qv,
             round_consts=words(list(qv) + ratio + pow2 + pow2_shoup),

@@ -11,6 +11,10 @@ The port of the glue of troy_tpu/evaluator.py ``_switch_key_decompose`` and
     rounded quotient of rows 0..k-1 by the prime of row k, optionally
     added onto an accumulator (the key switch's last step, and with it the
     fold onto (c0, c1));
+  * ``ntt_inverse_divide_round``: the key switch's inverse transform and
+    that divide in one call (AFi: F's divide in kernel A's last inverse
+    pass, csrc/ntt.cu), NTT-form products (s, k+1, n) -> (s, k, n), the
+    words of A's inverse then ``divide_round_last``;
   * ``divide_and_round_q_last``: the BFV mod switch, the same divide by the
     level's last prime on its own entry point (kernel K);
   * ``bgv_divide_last``: the BGV divide in the coefficient domain (kernel
@@ -36,6 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import ntt as dntt
 from . import u64ops as u
 from .. import _kernels
 from ..interop import to_torch
@@ -124,6 +129,17 @@ def divide_round_last_plain(x: torch.Tensor, consts: torch.Tensor,
     out = u.mul_mod_shoup(u.sub_mod(x[..., :k, :], temp, q), inv, inv_shoup,
                           q)
     return add_accumulator_plain(out, acc, q, group)
+
+
+def ntt_inverse_divide_round_plain(x: torch.Tensor, rows: RnsNttTables,
+                                   consts: torch.Tensor,
+                                   acc: Optional[torch.Tensor] = None,
+                                   group: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """The plain version of ``ntt_inverse_divide_round``: A's inverse
+    butterfly network over ``rows``, then ``divide_round_last_plain``."""
+    return divide_round_last_plain(dntt.ntt_inverse_plain(x, rows), consts,
+                                   acc, group)
 
 
 def bgv_divide_last_plain(x: torch.Tensor, consts: torch.Tensor,
@@ -231,6 +247,51 @@ def divide_round_last(x: torch.Tensor, consts: torch.Tensor,
     ``divide_round_consts``; the result (s, k, n), with acc added in its
     layout (module docstring)."""
     return _divide("troy_keyswitch_divide_round", x, consts, acc, group)
+
+
+def ntt_inverse_divide_round(x: torch.Tensor, rows: RnsNttTables,
+                             consts: torch.Tensor,
+                             acc: Optional[torch.Tensor] = None,
+                             group: Optional[int] = None) -> torch.Tensor:
+    """The key switch's last step in the coefficient domain on A's route
+    (AFi: kernel F's divide folded into kernel A's last inverse pass, one
+    call, csrc/ntt.cu ``troy_ntt_inverse_keyswitch``): x (s, k+1, n) NTT
+    form over ``rows`` (k data limbs, then the special prime of row k) ->
+    (s, k, n) coefficient form, the words of ``rns_ntt_inverse(x, rows)``
+    then ``divide_round_last(., consts, acc, group)``; consts from
+    ``divide_round_consts`` of the k data limbs and that prime. Tables on
+    J, a pointwise view, or more than MAX_KERNEL_LIMBS data limbs raise, on
+    either device."""
+    entry = "ntt_inverse_divide_round"
+    if rows.mxu is not None or rows.root_powers.shape[-1] != rows.n:
+        raise ValueError(f"{entry}: these tables hold no transform on A "
+                         "(kernel J's, or a pointwise view)")
+    k, n = rows.k - 1, rows.n
+    if x.dim() != 3 or x.shape[1:] != (k + 1, n) or k < 1 \
+            or consts.numel() != 5 * k + 2:
+        raise ValueError(f"{entry}: x {tuple(x.shape)} and "
+                         f"{consts.numel()} constants do not fit {k} limbs "
+                         f"and the special prime at n = {n}")
+    if k > MAX_KERNEL_LIMBS:
+        raise ValueError(f"{entry}: k = {k} limbs; the kernel takes at most "
+                         f"{MAX_KERNEL_LIMBS}")
+    s = x.shape[0]
+    layout = accumulator_layout(acc, s, k, n, group, entry)
+    operands = [x, consts, rows.q] + ([acc] if acc is not None else [])
+    if not _kernels.on_cuda(*operands):
+        return ntt_inverse_divide_round_plain(x, rows, consts, acc, group)
+    x = x.contiguous()
+    _kernels.check_operand(x, f"{entry} input")
+    acc, a, group, groups = layout
+    if acc is not None:
+        _kernels.check_operand(acc, f"{entry} accumulator")
+    scratch = torch.empty_like(x)      # A's first pass (unused below 1024)
+    out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
+    _kernels.launch("troy_ntt_inverse_keyswitch", out.get_device(), out, x,
+                    scratch, acc, s, a, group, groups, k, rows.log_n,
+                    rows.inv_root_powers, rows.inv_root_powers_shoup, rows.q,
+                    rows.inv_degree, rows.inv_degree_shoup, consts)
+    return out
 
 
 def bgv_divide_last(x: torch.Tensor, consts: torch.Tensor,
