@@ -27,7 +27,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    divide-round, AF the digits folded into A's first pass (A's route runs
    it where F's digits and A ran), AFi F's divide folded into A's last
    inverse pass (A's route runs it where A's inverse and F's divide ran),
-   K mod-switch divide-round, G plain
+   ACi C's conversion and E's decrypt rounding folded into A's last
+   inverse pass (A's route decrypts with it), K mod-switch divide-round,
+   G plain
    embedding, M Galois
    gather on its packed tables, signed and unsigned, and M as the batch
    encoder's slot gather; D's fused forms, the zero encryptions' finishes
@@ -50,8 +52,11 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    mod_switch_to_next (CUDA events);
 6. every BFV-path kernel was launched by phases 4-5 (launch counters), and
    F's separate digits entry (troy_keyswitch_digits) and its divide
-   (troy_keyswitch_divide_round) never: on A's route AF and AFi do their
-   work (so in every window on A's route below); no
+   (troy_keyswitch_divide_round) never, nor C (troy_base_convert) or E's
+   decrypt rounding (troy_behz_decrypt_round): on A's route AF, AFi and
+   ACi do their work (so in every window on A's route below, and X's
+   troy_exact_convert, which AXi replaces), one ACi or AXi call a decrypt
+   or decrypt_many (the windows of phases 4-5, 12-13, 14, 18 and 21); no
    plain version and no u64ops arithmetic ran on a CUDA tensor in phases
    4-5 (call counters); per op (mult+relin, rotate_rows(1), mod switch,
    encrypt, decrypt, encode, decode), the device kernels and the device
@@ -85,7 +90,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    u64ops arithmetic ran on a CUDA tensor there, and the per-op device
    kernels and device time from the profiler;
 11. the BGV kernels (X the exact conversion q -> t with the inverse
-   correction factor 1 and another; K'-BGV the t-corrected NTT-domain
+   correction factor 1 and another, and AXi, X in A's last inverse pass,
+   from the NTT-form phase; K'-BGV the t-corrected NTT-domain
    divides, the mod switch's temps and finish and the key switch's temps,
    and AKp's BGV entries, alone and after A's inverse;
    G' the plain lift with threshold (t+1)/2, with threshold t and times a
@@ -183,7 +189,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    events, APP_REPS runs after a warm-up; the host's encode loops and the
    decryption apart from the output gathers);
 22. phase 21's checks in a count window of their own: P1, P2, P3, A, B,
-   C, D, E, F, G', I, M, N1, K'', X, O2 and O3 launched, no plain version
+   ACi, D, E, AF, AFi, G', I, M, N1, K'', AXi, O2 and O3 launched, no
+   standalone C, X or E rounding launch, no plain version
    or u64ops on a CUDA tensor; and the device kernels and time of matmul,
    matmul_cipher, pack_outputs, conv2d, decrypt_many of the conv's 52
    outputs and fetch_ciphertexts_host(to_coeff=True) from the profiler.
@@ -274,11 +281,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A, M, J, E, O1, O5, P1, F, K', D, I and O3 as redesigned for
-   the H100: A
-   against its plain version, word for word, at n = 256 to 16384 (one pass below
-   1024, two from it up) and a row mod t, three rows mod t, (5, 6, n) and
-   (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
+35. kernels A, M, J, E, O1, O5, P1, F, K', D, I, O3, X and C as redesigned
+   for the H100: A against its plain version, word for word, at n = 256
+   to 16384 (one pass below 1024, two from it up) and a row mod t, three
+   rows mod t, (5, 6, n) and (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
    launch and its blocks per launch at those rows (n = 16384) and at
    (5, 6, n) at every n; M's wrapper ms signed, unsigned and batched
    beside index_select / gather, timed in turns in this process, and its
@@ -321,7 +327,17 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    switch and F's divide never, at the batched folds of 8 and 128, SEAL's
    (2,16,32768) and (2,6,512) (one pass), word-equal to A's inverse + F's
    divide, the two timed in turns, a launch of each beside the bound
-   (redesign_afi); and the spread of one CKKS and one BGV
+   (redesign_afi); AXi and ACi (X, and C with E's rounding, in A's last
+   inverse pass) at every shape of the decrypts of the BFV, BGV, plain-op,
+   LWE and app windows, at SEAL's (1,15,32768) and at the ceiling's
+   (1,2,131072) and (1,2,262144), word-equal to A's inverse then X, or C
+   and E's rounding, the two timed in turns, a launch of each beside the
+   bound, a decrypt and a decrypt_many of each scheme launching the fused
+   entry once and X, C and E's rounding never, and one- against
+   two-column blocks at a single decrypt (redesign_decrypt); the
+   standalone X, C and E's rounding at the J-route shapes (1,5,16384) and
+   (1,2,262144) (standalone_decrypt); and the spread of one CKKS and one
+   BGV
    rotation's profiled device time over 8 traces in this process
    (op_spread). Device us
    a call come from CUDA events
@@ -371,6 +387,7 @@ Phase 34's per-rank bound counts the bytes of a rank's own shards (its
 inputs, the key rows it holds, its output) only.
 """
 
+import contextlib
 import json
 import pathlib
 import re
@@ -386,8 +403,8 @@ import torch
 
 import troy_tpu_torch as P
 import troy_tpu_torch.compat as pytroy
-from troy_tpu_torch import (_kernels, encryptor, interop, keygen, native,
-                            prng as rnd, refwire, rlwe,
+from troy_tpu_torch import (_kernels, decryptor, encryptor, interop, keygen,
+                            native, prng as rnd, refwire, rlwe,
                             serialization, to_numpy, to_torch)
 from troy_tpu_torch.app import linear
 from troy_tpu_torch.ops import (embedding, galois, keyswitch, ntt, ntt_mxu,
@@ -552,6 +569,10 @@ KERNELS = {
                     "troy_tpu/ops/rns.py:246"),
     "AFi_keyswitch_intt": ("troy_tpu_torch/csrc/ntt.cu",
                            "troy_tpu/evaluator.py:290"),
+    "AXi_decrypt_intt": ("troy_tpu_torch/csrc/ntt.cu",
+                         "troy_tpu/ops/rns.py:189"),
+    "ACi_decrypt_intt": ("troy_tpu_torch/csrc/ntt.cu",
+                         "troy_tpu/ops/rns.py:169"),
     "B_dyadic_mac": ("troy_tpu_torch/csrc/dyadic_mac.cu",
                      "troy_tpu/ops/ntt.py:428"),
     "C_base_convert": ("troy_tpu_torch/csrc/base_convert.cu",
@@ -608,51 +629,58 @@ KERNELS = {
 }
 # the kernels each path must launch; on A's route the key switch's digits
 # run in A's first pass (AF), BFV's divide in A's last inverse pass (AFi),
-# and K''s temps and finish in A's forward passes (AKp); F's and K''s own
-# kernels (F, Kp) only on J's route (phase 24, n = 262144 in phase 27, the
-# coefficient-sharded key switch of phase 34)
+# K''s temps and finish in A's forward passes (AKp), and the decrypt's
+# conversions in A's last inverse pass (ACi: C and E's rounding; AXi: X);
+# F's and K''s own kernels (F, Kp) only on J's route (phase 24, n = 262144
+# in phase 27, the coefficient-sharded key switch of phase 34), C's and
+# X's with E's rounding there too (n = 262144 in phase 27)
 BFV_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
-            "C_base_convert", "D_rns_elementwise", "E_behz",
+            "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
             "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
 CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
              "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
              "AKp_rescale_ntt", "AKp_keyswitch_ntt", "I_sampling")
 BGV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-            "M_galois", "AKp_bgv_ntt", "X_exact_convert", "Gp_plain_lift",
+            "M_galois", "AKp_bgv_ntt", "AXi_decrypt_intt", "Gp_plain_lift",
             "I_sampling")
 PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
-                  "G_plain_embed", "Gp_plain_lift", "AKp_rescale_ntt")
+                  "G_plain_embed", "Gp_plain_lift", "AKp_rescale_ntt",
+                  "ACi_decrypt_intt")
 DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                 "G_plain_embed", "Gp_plain_lift")
 LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
             "A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-            "AFi_keyswitch_intt", "AKp_keyswitch_ntt", "AKp_bgv_ntt")
+            "AFi_keyswitch_intt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
+            "ACi_decrypt_intt", "AXi_decrypt_intt")
 APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
-            "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
+            "AF_ntt_digits", "B_dyadic_mac", "ACi_decrypt_intt",
             "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
             "Gp_plain_lift", "I_sampling", "M_galois", "N1_negacyclic",
             "Kpp_bgv_coeff",
-            "X_exact_convert", "O2_ckks_round", "O3_ckks_compose")
-LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
-                  "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
+            "AXi_decrypt_intt", "O2_ckks_round", "O3_ckks_compose")
+LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
+                  "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
+                  "AFi_keyswitch_intt",
                   "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
 LARGE_CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
                    "D_rns_elementwise", "M_galois", "O1_ckks_fft",
                    "O2_ckks_round", "O3_ckks_compose", "AKp_rescale_ntt",
                    "AKp_keyswitch_ntt", "I_sampling")
-# n = 131072 on A (AF, AFi), 262144 on J (F's digits and divide)
+# n = 131072 on A (AF, AFi, ACi), 262144 on J (F's digits and divide; C
+# and E's rounding)
 CEILING_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "J_ntt_mxu",
+                "ACi_decrypt_intt",
                 "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
                 "E_behz", "F_keyswitch", "G_plain_embed", "I_sampling")
 BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                "O4_ckks_encode_stats", "O5_ckks_decode_stats", "A_ntt",
-               "AF_ntt_digits", "B_dyadic_mac", "C_base_convert",
+               "AF_ntt_digits", "B_dyadic_mac", "ACi_decrypt_intt",
                "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
                "G_plain_embed",
                "Gp_plain_lift", "I_sampling", "K_divide_round",
                "AKp_rescale_ntt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
                "M_galois",
-               "X_exact_convert")
+               "AXi_decrypt_intt")
 # the limb-sharded key switch and mod switch on A (AF, AFi, AKp), the
 # coefficient-sharded key switch on J (F's digits and divide, Kp)
 SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits",
@@ -662,9 +690,11 @@ SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits",
                 "Kp_bgv_ntt", "M_galois", "J_ntt_mxu", "P1_tile_contract",
                 "Gp_plain_lift")
 # the entry points a window on A's route must not launch: F's separate
-# digits (their work is in AF), F's divide (in AFi) and K''s temps and
-# finish (in AKp)
+# digits (their work is in AF), F's divide (in AFi), K''s temps and
+# finish (in AKp), and the decrypt's X, C and E's rounding (in AXi, ACi)
 A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_keyswitch_divide_round",
+                  "troy_exact_convert", "troy_base_convert",
+                  "troy_behz_decrypt_round",
                   "troy_rescale_ntt_temps",
                   "troy_rescale_ntt_finish", "troy_keyswitch_ntt_temps",
                   "troy_keyswitch_ntt_finish",
@@ -1013,6 +1043,19 @@ def phase_kernels(ctx) -> dict:
          lambda: rns.decrypt_scale_and_round(e_dec, tool),
          lambda: rns.decrypt_scale_and_round_plain(e_dec, tool), None,
          None),
+        # C's conversion and E's rounding in A's last inverse pass, from
+        # the NTT-form phase: the phase in, the words out, the inverse
+        # twiddles; A's products over k rows, C's (7 k + 10) and E's 11 a
+        # coefficient
+        ("ACi_decrypt_intt", f"inverse + C + E ({k},n)->(n)",
+         lambda: rns.ntt_inverse_decrypt_scale_and_round(e_dec, tool),
+         lambda: rns.ntt_inverse_decrypt_scale_and_round_plain(e_dec, tool),
+         (_bytes(e_dec, tool.q.inv_root_powers, tool.q.inv_root_powers_shoup)
+          + N * 8, ntt_rows_mul64(k) + N * (7 * k + 21)), None),
+        ("ACi_decrypt_intt", f"inverse + C + E (3,{k},n)->(3,n)",
+         lambda: rns.ntt_inverse_decrypt_scale_and_round(ra, tool),
+         lambda: rns.ntt_inverse_decrypt_scale_and_round_plain(ra, tool),
+         None, None),
         ("F_keyswitch", "divide-round (2,6,n) onto (c0,c1) -> (2,5,n)",
          lambda: keyswitch.divide_round_last(f_x, f_consts, f_acc),
          lambda: keyswitch.divide_round_last_plain(f_x, f_consts, f_acc),
@@ -1196,6 +1239,61 @@ class PlainCallCounter:
                 self.calls[label] = self.calls.get(label, 0) + 1
             return fn(*args, **kwargs)
         return counted
+
+
+class DecryptRecorder:
+    """The decrypts of the count windows it is installed around
+    (``window``): a plain counter on the decryptor's last step
+    (``decryptor._decrypt_phase``: one call a BFV or BGV decrypt or
+    decrypt_many), which keeps, at the first call of each shape, the
+    level and the inverse correction factor (no copy of the operands,
+    so that the window's timed calls carry one count and one lookup), and
+    the windows that made calls of that shape. The fused calls are read
+    off the entry counters (AXi's and ACi's entries over the window) and
+    must match the counter on A's route. Phase 35's redesign_decrypt
+    replays every recorded shape on fresh words."""
+
+    ENTRIES = {"AXi": "troy_ntt_inverse_decrypt_bgv",
+               "ACi": "troy_ntt_inverse_decrypt_bfv"}
+
+    def __init__(self):
+        self.seen = {"AXi": {}, "ACi": {}}    # shape -> (cd, inv_cf, windows)
+        self.counts = {}                      # window -> calls
+
+    @contextlib.contextmanager
+    def window(self, tag: str):
+        counts = self.counts.setdefault(tag, {"decrypts": 0, "AXi": 0,
+                                              "ACi": 0})
+        last_step = decryptor._decrypt_phase
+        seen = self.seen
+
+        def counted(phase, cd, inv_cf=1):
+            counts["decrypts"] += 1
+            kind = "AXi" if cd.scheme == P.SchemeType.bgv else "ACi"
+            shape = tuple(phase.shape)
+            if shape not in seen[kind]:
+                seen[kind][shape] = (cd, inv_cf, set())
+            seen[kind][shape][2].add(tag)
+            return last_step(phase, cd, inv_cf)
+
+        before = _kernels.entry_launch_counts()
+        decryptor._decrypt_phase = counted
+        try:
+            yield
+        finally:
+            decryptor._decrypt_phase = last_step
+        after = _kernels.entry_launch_counts()
+        for kind, entry in self.ENTRIES.items():
+            counts[kind] += after[entry] - before[entry]
+        log(f"[{tag}] BFV and BGV decrypts on the card in the window: "
+            f"{counts['decrypts']}; ACi calls {counts['ACi']}, AXi calls "
+            f"{counts['AXi']}")
+        if counts["ACi"] + counts["AXi"] != counts["decrypts"]:
+            raise AssertionError(f"{tag}: {counts} - not one fused call a "
+                                 "decrypt on A's route")
+
+
+DECRYPTS = DecryptRecorder()
 
 
 def phase_fixture(ctx) -> tuple:
@@ -1651,6 +1749,19 @@ def phase_bgv_kernels(ctx) -> dict:
         ("X_exact_convert", f"decrypt ({k},n) -> (n), cf^-1 != 1", "words",
          lambda: rns.exact_convert(x_dec, conv, inv_cf),
          lambda: rns.exact_convert_plain(x_dec, conv, inv_cf), None, None),
+        # X in A's last inverse pass, from the NTT-form phase: the phase
+        # in, the words out, the inverse twiddles; A's products over k rows
+        # and X's a coefficient
+        ("AXi_decrypt_intt", f"inverse + X ({k},n) -> (n), cf^-1 != 1",
+         "words", lambda: rns.ntt_inverse_decrypt_mod_t(x_dec, q5, conv,
+                                                        inv_cf),
+         lambda: rns.ntt_inverse_decrypt_mod_t_plain(x_dec, q5, conv, inv_cf),
+         (_bytes(x_dec, q5.inv_root_powers, q5.inv_root_powers_shoup)
+          + N * 8, ntt_rows_mul64(k) + N * (7 * k + 9)), None),
+        ("AXi_decrypt_intt", f"inverse + X (2,{k},n) -> (2,n), cf^-1 = 1",
+         "words", lambda: rns.ntt_inverse_decrypt_mod_t(x_ms, q5, conv),
+         lambda: rns.ntt_inverse_decrypt_mod_t_plain(x_ms, q5, conv),
+         None, None),
         ("Kp_bgv_ntt", f"mod switch temps + finish (2,{k},n) -> "
          f"(2,{k - 1},n)", "words",
          bgv_divide(x_ms, last_ms, ms, None, rns.BGV_MOD_SWITCH, False),
@@ -2525,8 +2636,9 @@ def phase_lwe(ctxs: dict, counter) -> tuple:
             f"card in {schemes[name].keygen_s:.2f} s (kernel Q)")
     counter.calls.clear()
     _kernels.reset_launch_counts()
-    outs = {name: lwe_requests(s) for name, s in schemes.items()}
-    torch.cuda.synchronize()
+    with DECRYPTS.window("lwe"):
+        outs = {name: lwe_requests(s) for name, s in schemes.items()}
+        torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     check_path("19", "18 (hoisted Galois and LWE)", LWE_PATH, counts,
                counter)
@@ -2878,8 +2990,9 @@ def phase_app(bfv_ctx, bgv_ctx, ckks_ctx, counter) -> tuple:
             f"card in {schemes[name].keygen_s:.2f} s (kernel Q)")
     counter.calls.clear()
     _kernels.reset_launch_counts()
-    r = app_requests(schemes["bfv"], schemes["bgv"], schemes["ckks"])
-    torch.cuda.synchronize()
+    with DECRYPTS.window("app"):
+        r = app_requests(schemes["bfv"], schemes["bgv"], schemes["ckks"])
+        torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     check_path("22", "21 (the app protocol)", APP_PATH, counts, counter)
     s = schemes["bfv"]
@@ -3557,10 +3670,10 @@ def profile_ops(tag: str, ops: dict, expect: Optional[dict] = None) -> dict:
     return per_op
 
 
-def ntt_rows_mul64(rows: int) -> int:
+def ntt_rows_mul64(rows: int, n: int = N) -> int:
     """64-bit products of kernel A over ``rows`` rows of n (the phase-3
     count: 3 per butterfly and 3 per word)."""
-    return rows * ((N // 2) * (N.bit_length() - 1) * 3 + N * 3)
+    return rows * ((n // 2) * (n.bit_length() - 1) * 3 + n * 3)
 
 
 def composite_bounds(k: int) -> dict:
@@ -4688,7 +4801,8 @@ def alternating_ms(pairs: dict, rounds: int = 4) -> dict:
 
 
 def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
-                   divide_ops: dict, zero_ctxs: dict) -> dict:
+                   divide_ops: dict, zero_ctxs: dict,
+                   decrypt_ops: dict) -> dict:
     """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
     F's digits, K' and K'-BGV, D and I, O3 and F's divide: redesign_j,
     redesign_e, redesign_b, redesign_o1, redesign_p1, redesign_f,
@@ -4822,11 +4936,17 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
     zero = redesign_zero(zero_ctxs)
     o3 = redesign_o3(dev, rng, zero_ctxs["ckks"])
     afi = redesign_afi(dev, rng, bfv_ops)
+    axi = redesign_decrypt("AXi", dev, rng, decrypt_ops["bgv"])
+    aci = redesign_decrypt("ACi", dev, rng, decrypt_ops["bfv"])
+    standalone = standalone_decrypt(dev, rng)
+    wall = decrypt_wall()
     spread = op_spread(divide_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
             "b": b, "o1": o1, "p1": p1, "f": f, "kp": kp, "zero": zero,
-            "o3": o3, "afi": afi, "spread": spread}
+            "o3": o3, "afi": afi, "axi": axi, "aci": aci,
+            "standalone_decrypt": standalone, "decrypt_wall": wall,
+            "spread": spread}
 
 
 SPREAD_TRACES = 8
@@ -5394,6 +5514,246 @@ def redesign_afi(dev, rng, bfv_ops: dict) -> dict:
     return {"key_switches": per_op, "shapes": out}
 
 
+def _decrypt_level(n: int, moduli: list, t: int, dev) -> tuple:
+    """A's tables of a level's primes, X's converter to t and the BFV
+    tool with t (the decrypt's constants)."""
+    host = rns_util.make_rns_tool(n, tuple(moduli), t)
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+    bsk = ntt.RnsNttTables.from_moduli(n, host.base_Bsk.values, dev,
+                                       use_mxu=False)
+    return (tables, rns.ExactConverter.build(host.conv_q_to_t, dev),
+            rns.DeviceRnsTool.build(host, tables, bsk))
+
+
+def _decrypt_calls(kind: str, x: torch.Tensor, args: tuple):
+    """(fused, composed, the kernels of each a call, bound of the fused
+    call) of one decrypt shape: AXi against A's inverse then X, or ACi
+    against A's inverse then C and E's rounding. The bound: the phase in,
+    the words out and the inverse twiddles once, or A's butterfly products
+    and X's (7 k + 9) or C's and E's (7 k + 21) a coefficient."""
+    tables = args[0] if kind == "AXi" else args[0].q
+    k, n = tables.k, tables.n
+    passes = len(ntt.launch_blocks(x.numel() // n, n, True))
+    fused_kernels = {"inverse_decrypt_kernel": 1}
+    if passes > 1:
+        fused_kernels["ntt_pass_kernel"] = passes - 1
+    if kind == "AXi":
+        conv, inv_cf = args[1], args[2]
+        fused = lambda: rns.ntt_inverse_decrypt_mod_t(x, tables, conv,
+                                                      inv_cf)
+        composed = lambda: rns.decrypt_mod_t(ntt.rns_ntt_inverse(x, tables),
+                                             conv, inv_cf)
+        composed_kernels = {"ntt_pass_kernel": passes,
+                            "exact_convert_kernel": 1}
+        per_coeff = 7 * k + 9
+    else:
+        tool = args[0]
+        fused = lambda: rns.ntt_inverse_decrypt_scale_and_round(x, tool)
+        composed = lambda: rns.decrypt_scale_and_round(
+            ntt.rns_ntt_inverse(x, tables), tool)
+        composed_kernels = {"ntt_pass_kernel": passes,
+                            "base_convert_kernel": 1,
+                            "behz_decrypt_round_kernel": 1}
+        per_coeff = 7 * k + 21
+    comps = x.numel() // (k * n)
+    work = bound(_bytes(x) + comps * n * 8 + 2 * k * n * 8,
+                 ntt_rows_mul64(comps * k, n) + comps * n * per_coeff)
+    return fused, composed, fused_kernels, composed_kernels, work
+
+
+def _turns(calls: dict, rounds: int = 4) -> dict:
+    """Device us a call of each, in turns (graph replay)."""
+    turns = {name: [] for name in calls}
+    for r in range(rounds):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            turns[name].append(graph_us(calls[name]))
+    return turns
+
+
+def redesign_decrypt(kind: str, dev, rng, ops: dict) -> dict:
+    """Phase 35, AXi (X's exact conversion in A's last inverse pass,
+    ``rns.ntt_inverse_decrypt_mod_t``) or ACi (C's conversion and E's
+    rounding there, ``rns.ntt_inverse_decrypt_scale_and_round``): each op
+    of ``ops`` (a decrypt and a decrypt_many of the headline's BGV or BFV)
+    launching the fused entry once and X, C or E's rounding never (entry
+    counters); then at every shape the count windows' decrypts gave
+    (DECRYPTS: the BFV, BGV, plain-op, LWE and app windows; fresh words
+    over the recorded level), at the headline's (3,5,n) and batch of 52
+    at k = 2, at SEAL's (1,15,32768) and at the ceiling's (1,2,131072)
+    and (1,2,262144) on A's tables, the fused call word-equal to the
+    composition (A's inverse, then X, or C and E's rounding), the two
+    timed in turns (graph replay) with their device us a launch
+    (profiler), beside the fused call's bound, and the host us to enqueue
+    each, in turns."""
+    entry = DECRYPTS.ENTRIES[kind]
+    absent = ("troy_exact_convert", "troy_base_convert",
+              "troy_behz_decrypt_round")
+    for op, fn in ops.items():
+        _kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        entries = _kernels.entry_launch_counts()
+        got = (entries[entry], *(entries[e] for e in absent))
+        if got != (1, 0, 0, 0):
+            raise AssertionError(f"{kind}: {op} launched {entry}, X, C and "
+                                 f"E's rounding {got} times, not (1, 0, 0, "
+                                 "0)")
+        log(f"[35] {kind}: {op} launched {entry} once and X, C and E's "
+            "rounding never")
+    if not DECRYPTS.seen[kind]:
+        raise AssertionError(f"{kind}: the windows made no call of it")
+    shapes = {}
+    for shape, (cd, inv_cf, windows) in DECRYPTS.seen[kind].items():
+        x = _uniform(rng, cd.ntt.values, shape, dev)
+        args = ((cd.ntt, cd.exact_to_t, inv_cf) if kind == "AXi"
+                else (cd.rns,))
+        shapes[shape] = ((x,) + args, sorted(windows))
+    for tag, n, spec, k, lead in (
+            ("headline", N, Q_BITS, 5, 3), ("headline", N, Q_BITS, 2, 52),
+            ("SEAL", 32768, "bfv_default", 15, 1),
+            ("ceiling", 131072, CEILING_Q_BITS, 2, 1),
+            ("ceiling", 262144, CEILING_Q_BITS, 2, 1)):
+        if (lead, k, n) in shapes:
+            shapes[(lead, k, n)][1].append(tag)
+            continue
+        t = int(P.PlainModulus.batching(n, 20 if n <= 32768 else 30))
+        tables, conv, tool = _decrypt_level(n, _moduli(n, spec)[:k], t, dev)
+        x = _uniform(rng, tables.values, (lead, k, n), dev)
+        args = (tables, conv, pow(7, -1, t)) if kind == "AXi" else (tool,)
+        shapes[(lead, k, n)] = ((x,) + args, [tag])
+    out = {}
+    for shape, (args, windows) in shapes.items():
+        x, rest = args[0], args[1:]
+        fused, composed, kf, kc, (bound_ms, bound_by) = _decrypt_calls(
+            kind, x, rest)
+        tag = f"{shape} ({', '.join(windows)})"
+        try:
+            compare("words", fused(), composed())
+        except AssertionError as exc:
+            raise AssertionError(f"{kind} {tag}: {exc}") from None
+        turns = _turns({"fused": fused, "composed": composed})
+        host = {"fused": [], "composed": []}
+        for i in range(4):
+            for name in (("fused", "composed") if i % 2 == 0
+                         else ("composed", "fused")):
+                host[name].append(host_us(
+                    fused if name == "fused" else composed, reps=100))
+        _, _, each_f = device_kernels_per_op(fused, reps=10, expect=kf,
+                                             whole=True)
+        _, _, each_c = device_kernels_per_op(composed, reps=10, expect=kc,
+                                             whole=True)
+        r = {"windows": windows, "device_us_turns": turns,
+             "fused_us": statistics.median(turns["fused"]),
+             "composed_us": statistics.median(turns["composed"]),
+             "fused_each": each_f, "composed_each": each_c,
+             "host_us_turns": host,
+             "fused_host_us": statistics.median(host["fused"]),
+             "composed_host_us": statistics.median(host["composed"]),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        out[str(shape)] = r
+        first = ("" if "ntt_pass_kernel" not in each_f else
+                 f"first pass {each_f['ntt_pass_kernel'][1]:.2f}, ")
+        log(f"[35] {kind} {tag}: word-equal to the composition; device us a "
+            f"call in turns (graph): fused {r['fused_us']:.2f}, composed "
+            f"{r['composed_us']:.2f}; a launch (profiler): fused {first}"
+            f"last pass {each_f['inverse_decrypt_kernel'][1]:.2f}; composed "
+            + ", ".join(f"{name} {us:.2f}" for name, (_, us) in each_c.items())
+            + f"; bound {bound_ms * 1e3:.2f} us ({bound_by}); host us to "
+            f"enqueue a call in turns: fused {r['fused_host_us']:.1f}, "
+            f"composed {r['composed_host_us']:.1f}")
+    return {"shapes": out, "windows": DECRYPTS.counts}
+
+
+def standalone_decrypt(dev, rng) -> dict:
+    """Phase 35, the standalone X and C (with E's rounding) that J's route
+    and the levels past the fused pass's caps run, at the J-route shapes:
+    a BGV decrypt at the headline's (1,5,16384) and the ceiling's
+    (1,2,262144), each a coefficient-form phase through X, or C then E's
+    rounding: device us a call (graph replay) and a launch (profiler)
+    beside the bound (the phase in, the words out; X's or C's and E's
+    products). Written on the wrappers that the earlier trees have too, so
+    that it can time those trees' kernels in turns with these."""
+    out = {}
+    for tag, n, bits in (("(1,5,16384)", N, Q_BITS[:5]),
+                         ("(1,2,262144)", 262144, CEILING_Q_BITS[:2])):
+        t = int(P.PlainModulus.batching(n, 20 if n <= 32768 else 30))
+        moduli = [int(m) for m in P.CoeffModulus.create(n, bits)]
+        host = rns_util.make_rns_tool(n, tuple(moduli), t)
+        tables = ntt.RnsNttTables.from_moduli(n, moduli, dev, use_mxu=False)
+        tool = rns.DeviceRnsTool.build(host, tables, ntt.RnsNttTables.
+                                       from_moduli(n, host.base_Bsk.values,
+                                                   dev, use_mxu=False))
+        conv = rns.ExactConverter.build(host.conv_q_to_t, dev)
+        k = len(moduli)
+        x = _uniform(rng, moduli, (1, k, n), dev)
+        tg = rns.fast_convert(x, tool.q_to_t_gamma_scaled)
+        calls = {
+            "X": (lambda: rns.exact_convert(x, conv, 7),
+                  {"exact_convert_kernel": 1}, n * (7 * k + 9)),
+            "C": (lambda: rns.fast_convert(x, tool.q_to_t_gamma_scaled),
+                  {"base_convert_kernel": 1}, n * (7 * k + 10)),
+            "E rounding": (lambda: rns.behz_decrypt_round(tg, tool),
+                           {"behz_decrypt_round_kernel": 1}, n * 11)}
+        for name, (fn, expect, mul64) in calls.items():
+            _, _, each = device_kernels_per_op(fn, reps=10, expect=expect,
+                                               whole=True)
+            result = fn()
+            bound_ms, bound_by = bound(_bytes(x if name != "E rounding"
+                                              else tg, result), mul64)
+            r = {"device_us": graph_us(fn),
+                 "us_per_launch": each[next(iter(expect))][1],
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+            out[f"{name} {tag}"] = r
+            log(f"[35] standalone {name} {tag}: {r['device_us']:.2f} us a "
+                f"call (graph), {r['us_per_launch']:.2f} us a launch "
+                f"(profiler); bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    return out
+
+
+def decrypt_wall(rounds: int = 4) -> dict:
+    """The headline's BFV decrypt of a relinearized product (k = 5) and
+    BGV decrypt of its mod switch (k = 4, correction factor != 1) as a
+    user waits for each: the median of CUDA events around each call
+    (``cuda_ms``, as phase 13 times ``bgv_decrypt``: the host's enqueue
+    included) and the host us to enqueue one (``host_us``), the two ops
+    in turns ``rounds`` times. Written on the package's public API alone,
+    so that it times an earlier tree's package too (PERF.md: the parent
+    and this tree in turns)."""
+    calls = {}
+    for scheme in ("bfv", "bgv"):
+        ctx = P.HeContext(P.EncryptionParameters(
+            scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=N,
+            coeff_modulus=tuple(P.CoeffModulus.create(N, Q_BITS)),
+            plain_modulus=P.PlainModulus.batching(N, 20)))
+        kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(SEED + 40))
+        be, ev = P.BatchEncoder(ctx), P.Evaluator(ctx)
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=rnd.seed_from_uint64(SEED + 41))
+        t = int(be.plain_modulus)
+        a = np.arange(N, dtype=np.uint64) % t
+        ct = enc.encrypt_symmetric(be.encode(a))
+        ct = ev.relinearize(ev.multiply(ct, ct), kg.create_relin_keys())
+        if scheme == "bgv":
+            ct = ev.mod_switch_to_next(ct)
+        dec = P.Decryptor(ctx, kg.secret_key)
+        want = (a.astype(object) ** 2 % t).astype(np.uint64)
+        if not np.array_equal(be.decode(dec.decrypt(ct)), want):
+            raise AssertionError(f"{scheme} decrypt: wrong slots")
+        calls["decrypt" if scheme == "bfv" else "bgv_decrypt"] = (
+            lambda dec=dec, ct=ct: dec.decrypt(ct))
+    turns = {op: {"ms": [], "host_us": []} for op in calls}
+    for r in range(rounds):
+        for op in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            turns[op]["ms"].append(cuda_ms(calls[op]))
+            turns[op]["host_us"].append(host_us(calls[op]))
+    for op, v in turns.items():
+        log(f"[35] {op} as a user waits: {statistics.median(v['ms']):.4f} "
+            f"ms a call (CUDA events, median of {rounds} medians of "
+            f"{TIMING_REPS}: " + ", ".join(f"{x:.4f}" for x in v["ms"])
+            + f"); host enqueue {statistics.median(v['host_us']):.1f} us")
+    return turns
+
+
 def redesign_b(ops: dict) -> dict:
     """Phase 35, kernel B at the main path's shapes: every B call of one
     run of each op (the BFV headline's mult+relin, rotate_rows(1) and
@@ -5784,9 +6144,9 @@ def redesign_o1(dev, rng, per_op: dict) -> dict:
 # the kernels ranked by their loss (PERF.md section 6): those not yet
 # redesigned for the H100, and D and I, and their device functions' names
 # in the profiler (O2 and O4 share round_kernel; F's digits and divide run
-# only on J's route, K keeps divide_round_kernel)
+# only on J's route, K keeps divide_round_kernel; X and C, redesigned into
+# AXi and ACi, only on J's route and past the fused decrypt's limbs)
 RANKED = {
-    "C_base_convert": ("base_convert_kernel",),
     "D_rns_elementwise": ("rns_elementwise_kernel",),
     "F_keyswitch": ("keyswitch_digits_kernel",),
     "G_plain_embed": ("plain_embed_kernel",),
@@ -5801,7 +6161,6 @@ RANKED = {
     "P2_pair_convolve": ("tile_pair_convolve_kernel",),
     "P3_group_fold": ("pack_group_fold_kernel",),
     "Kpp_bgv_coeff": ("bgv_divide_kernel",),
-    "X_exact_convert": ("exact_convert_kernel",),
 }
 # the windows and profiled ops of the headline configuration (n = 16384);
 # P2 and P3 run only in the app protocol
@@ -5887,9 +6246,10 @@ def main() -> None:
     # ---- BFV: phases 4-6 ----
     counter = PlainCallCounter()
     _kernels.reset_launch_counts()
-    state = phase_fixture(ctx)
-    req = phase_requests(ctx, *state)
-    torch.cuda.synchronize()
+    with DECRYPTS.window("bfv"):
+        state = phase_fixture(ctx)
+        req = phase_requests(ctx, *state)
+        torch.cuda.synchronize()
     bfv_counts = _kernels.launch_counts()
     check_path("6", "4-5", BFV_PATH, bfv_counts, counter,
                ENCRYPT_ABSENT)
@@ -5904,6 +6264,10 @@ def main() -> None:
                "apply_galois_many": lambda ev=ev, rel=rel, gk=gk:
                ev.apply_galois_many(rel, list(gk.keys), gk),
                "decrypt": lambda dec=dec, rel=rel: dec.decrypt(rel)}
+    decrypt_ops = {"bfv": {
+        "decrypt": lambda dec=dec, rel=rel: dec.decrypt(rel),
+        "decrypt_many of 3": lambda dec=dec, cts=(rel, ca, cb):
+        dec.decrypt_many(cts)}}
     enc = P.Encryptor(ctx, secret_key=kg.secret_key,
                       seed=rnd.seed_from_uint64(SEED + 2))
     slots = np.arange(N, dtype=np.uint64) % be.plain_modulus
@@ -5963,9 +6327,10 @@ def main() -> None:
     kernel_results.update(phase_bgv_kernels(bgv_ctx))
     counter.calls.clear()
     _kernels.reset_launch_counts()
-    bstate = phase_bgv_records(bgv_ctx)
-    breq = phase_bgv_requests(bgv_ctx, *bstate)
-    torch.cuda.synchronize()
+    with DECRYPTS.window("bgv"):
+        bstate = phase_bgv_records(bgv_ctx)
+        breq = phase_bgv_requests(bgv_ctx, *bstate)
+        torch.cuda.synchronize()
     bgv_counts = _kernels.launch_counts()
     check_path("14", "12-13", BGV_PATH, bgv_counts, counter,
                ENCRYPT_ABSENT)
@@ -5986,12 +6351,18 @@ def main() -> None:
         "bgv_mod_switch": lambda ev=ev, rel=rel: ev.mod_switch_to_next(rel),
         "bgv_rotate_rows": lambda ev=ev, rel=rel, gk=gk:
         ev.rotate_rows(rel, 1, gk)})
+    decrypt_ops["bgv"] = {
+        "decrypt (correction factor != 1)": lambda dec=dec, ms=ms:
+        dec.decrypt(ms),
+        "decrypt_many of 3": lambda dec=dec, cts=(rel, ca, cb):
+        dec.decrypt_many(cts)}
     counter.calls.clear()
     _kernels.reset_launch_counts()
-    plain = phase_plain_op_requests(
-        (ctx, state[3], state[4], state[5], req["ca"],
-         np.random.default_rng(SEED + 14)), ckks_parts)
-    torch.cuda.synchronize()
+    with DECRYPTS.window("plain_ops"):
+        plain = phase_plain_op_requests(
+            (ctx, state[3], state[4], state[5], req["ca"],
+             np.random.default_rng(SEED + 14)), ckks_parts)
+        torch.cuda.synchronize()
     plain_counts = _kernels.launch_counts()
     check_path("14", "14 (plain-op requests)", PLAIN_OPS_PATH, plain_counts,
                counter)
@@ -6055,7 +6426,7 @@ def main() -> None:
     # every trace in this process) ----
     redesign = phase_redesign(ctx.device, bfv_ops, per_op, app_ctx,
                               divide_ops, {"bfv": ctx, "ckks": ckks_ctx,
-                                           "bgv": bgv_ctx})
+                                           "bgv": bgv_ctx}, decrypt_ops)
 
     # ---- multi-device (R): 33-34 ----
     shard_results, j_shards = phase_shard_kernels(ctx.device)

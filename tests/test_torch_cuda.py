@@ -29,16 +29,17 @@ BITS = {1: [50], 6: [60, 40, 40, 40, 40, 60]}
 # on A's route the key switch's digits run in A's first pass (AF) and
 # BFV's divide in A's last inverse pass (AFi), so F's own kernel does not
 # run; K''s temps and finish run in A's forward passes (AKp), K''s own
-# kernels (Kp) only on J's route
+# kernels (Kp) only on J's route; the decrypt's conversions run in A's
+# last inverse pass (ACi: C and E's rounding; AXi: X)
 BFV_KERNELS = {"A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
-               "C_base_convert", "D_rns_elementwise", "E_behz",
+               "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
                "K_divide_round", "G_plain_embed", "M_galois"}
 CKKS_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                 "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                 "AKp_rescale_ntt", "AKp_keyswitch_ntt"}
 BGV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                "M_galois", "AKp_bgv_ntt",
-               "X_exact_convert", "Gp_plain_lift"}
+               "AXi_decrypt_intt", "Gp_plain_lift"}
 # K''s own kernels: on A's route no window launches them
 KP_KERNELS = ("Kp_rescale_ntt", "Kp_keyswitch_ntt", "Kp_bgv_ntt")
 
@@ -1174,7 +1175,7 @@ def test_decrypt_many_launches_do_not_grow_with_the_batch(dev):
             counts[(str(device), b)] = _kernels.launch_counts()
             words[(str(device), b)] = [interop.words(p) for p in out]
     assert counts[(str(dev), 2)] == counts[(str(dev), 8)]
-    assert sum(counts[(str(dev), 8)].values()) == 6   # A, B, D, A, C, E
+    assert sum(counts[(str(dev), 8)].values()) == 4   # A, B, D, ACi
     for b in (2, 8):
         np.testing.assert_array_equal(np.asarray(words[(str(dev), b)]),
                                       np.asarray(words[("cpu", b)]))
@@ -1675,3 +1676,133 @@ def test_bfv_key_switch_launches_afi_not_f(dev):
         if want is not None:
             got = be.decode(P.Decryptor(ctx, kg.secret_key).decrypt(out))
             np.testing.assert_array_equal(got.astype(object), want)
+
+
+# the fused decrypt's shapes (comps, k, n): a decrypt and a batch of three
+# at n = 1024 and 16384, the app's decrypt_many of 52 conv outputs, SEAL's
+# data level at n = 32768, and the caps: the most limbs a block holds at
+# n = 512 (whole rows), 16384 and 131072, and C's 20 at n = 64 (whole
+# rows)
+DECRYPT_SHAPES = [(1, 5, 1024), (3, 5, 1024), (52, 2, 1024), (1, 5, 16384),
+                  (3, 5, 16384), (52, 2, 16384), (1, 15, 32768), (2, 20, 64),
+                  (1, 5, 512), (1, 20, 16384), (1, 10, 131072)]
+
+
+def _decrypt_level(n, k, dev):
+    """The tables of k primes at n, X's converter to a 20-bit t (30-bit
+    above n = 16384) and the BFV tool with that t."""
+    bits = [60] + [40] * (k - 1) if k <= 16 else [36] * k
+    q = tuple(int(m) for m in P.CoeffModulus.create(n, bits))
+    t = int(P.PlainModulus.batching(n, 20 if n <= 16384 else 30))
+    host = make_rns_tool(n, q, t)
+    tables = ntt.RnsNttTables.from_moduli(n, q, dev, use_mxu=False)
+    bsk = ntt.RnsNttTables.from_moduli(n, host.base_Bsk.values, dev,
+                                       use_mxu=False)
+    return (tables, rns.ExactConverter.build(host.conv_q_to_t, dev),
+            rns.DeviceRnsTool.build(host, tables, bsk), t)
+
+
+@pytest.mark.parametrize("s,k,n", DECRYPT_SHAPES)
+def test_ntt_inverse_decrypt_kernels(dev, s, k, n):
+    """AXi and ACi (the decrypt's conversions in A's last inverse pass)
+    against their plain versions and against A's inverse then X, or C and
+    E's rounding (where their kernels take the level: past 17 limbs E's
+    Bsk is past its 20): one launch of the fused entry a call, none of A,
+    X, C or E."""
+    tables, conv, tool, t = _decrypt_level(n, k, dev)
+    rng = np.random.default_rng(n + k + s)
+    x = _uniform(rng, tables.values, (s,), n, dev)
+    want_x = rns.decrypt_mod_t(ntt.rns_ntt_inverse(x, tables), conv, 7)
+    _same(want_x, rns.ntt_inverse_decrypt_mod_t_plain(x, tables, conv, 7))
+    want_c = rns.ntt_inverse_decrypt_scale_and_round_plain(x, tool)
+    if tool.nb + 1 <= rns.MAX_KERNEL_LIMBS:    # E's kernel takes the level
+        _same(want_c, rns.decrypt_scale_and_round(
+            ntt.rns_ntt_inverse(x, tool.q), tool))
+    _kernels.reset_launch_counts()
+    got_x = rns.ntt_inverse_decrypt_mod_t(x, tables, conv, 7)
+    got_c = rns.ntt_inverse_decrypt_scale_and_round(x, tool)
+    counts = _kernels.launch_counts()
+    assert (counts["AXi_decrypt_intt"], counts["ACi_decrypt_intt"],
+            counts["A_ntt"], counts["X_exact_convert"],
+            counts["C_base_convert"], counts["E_behz"]) == (
+                1, 1, 0, 0, 0, 0), counts
+    _same(got_x, want_x)
+    _same(got_c, want_c)
+    for inv_cf in (1, t - 1):
+        _same(rns.ntt_inverse_decrypt_mod_t(x, tables, conv, inv_cf),
+              rns.decrypt_mod_t(ntt.rns_ntt_inverse(x, tables), conv, inv_cf))
+
+
+# (comps, k, log2 n) -> the library's plans of AXi's and ACi's pass (one
+# plan: the same for both), the table that test_torch_inverse_decrypt.py
+# holds its emulation of plan_inverse to: (log2 of a line's words, of a
+# block's columns, rows a block holds, log2 of a tile's threads, blocks)
+DECRYPT_PLANS = {(1, 5, 14): (7, 0, 5, 4, 128), (3, 5, 14): (7, 2, 5, 6, 96),
+                 (52, 2, 14): (7, 2, 2, 6, 1664),
+                 (1, 15, 15): (7, 1, 15, 5, 128),
+                 (1, 21, 14): ((7, 0, 20, 4, 256), (7, 0, 21, 4, 128)),
+                 (1, 5, 9): (9, 0, 5, 6, 1), (1, 6, 9): (9, 0, 5, 6, 2),
+                 (1, 2, 18): (9, 0, 2, 6, 512)}
+
+
+def test_ntt_inverse_decrypt_plans(dev):
+    """troy_ntt_inverse_decrypt_plan answers the table's plans; a level
+    whose k rows one block cannot hold is refused before any launch, and
+    its decrypt takes the composition (rns.decrypt_fused)."""
+    for (comps, k, log_n), plans in DECRYPT_PLANS.items():
+        if not isinstance(plans[0], tuple):
+            plans = (plans, plans)
+        assert tuple(ntt.inverse_decrypt_plan(comps, k, 1 << log_n, bfv)
+                     for bfv in (False, True)) == plans, (comps, k, log_n)
+    tables, conv, tool, _ = _decrypt_level(512, 6, dev)
+    x = torch.zeros((1, 6, 512), dtype=torch.int64, device=dev)
+    _kernels.reset_launch_counts()
+    for fn in (lambda: rns.ntt_inverse_decrypt_mod_t(x, tables, conv),
+               lambda: rns.ntt_inverse_decrypt_scale_and_round(x, tool)):
+        with pytest.raises(ValueError, match="cannot hold 6 limbs"):
+            fn()
+    assert sum(_kernels.launch_counts().values()) == 0
+    assert not rns.decrypt_fused(tables, True)
+    assert not rns.decrypt_fused(tables, False)
+    assert rns.decrypt_fused(tables.slice(0, 5), False)
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "bgv"])
+def test_decrypt_launches_the_fused_entry(dev, scheme):
+    """A decrypt and a decrypt_many of 4 on A's route at n = 4096: one
+    fused call each, no X, C or E rounding launch; the CPU's words."""
+    n = 4096
+    words = {}
+    for device in (dev, "cpu"):
+        parms = P.EncryptionParameters(
+            scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=n,
+            coeff_modulus=tuple(P.CoeffModulus.create(n, BITS[6])),
+            plain_modulus=P.PlainModulus.batching(n, 20))
+        ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                          device=device)
+        kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(41),
+                            host_sampling=True)
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=prng.seed_from_uint64(42))
+        be = P.BatchEncoder(ctx)
+        cts = enc.encrypt_symmetric_many(
+            [be.encode(np.arange(n, dtype=np.uint64) * i % be.plain_modulus)
+             for i in range(4)])
+        dec = P.Decryptor(ctx, kg.secret_key)
+        entry = ("troy_ntt_inverse_decrypt_bfv" if scheme == "bfv"
+                 else "troy_ntt_inverse_decrypt_bgv")
+        out = []
+        for call in (lambda: [dec.decrypt(cts[0])],
+                     lambda: dec.decrypt_many(cts)):
+            _kernels.reset_launch_counts()
+            out += call()
+            if device != "cpu":
+                torch.cuda.synchronize()
+                counts = _kernels.entry_launch_counts()
+                assert counts[entry] == 1, counts
+                assert (counts["troy_exact_convert"],
+                        counts["troy_base_convert"],
+                        counts["troy_behz_decrypt_round"]) == (0, 0, 0)
+        words[str(device)] = [interop.words(p) for p in out]
+    np.testing.assert_array_equal(np.asarray(words[str(dev)]),
+                                  np.asarray(words["cpu"]))

@@ -40,7 +40,7 @@ SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
            "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu",
            "sharding.cu")
-HEADERS = ("u64.cuh", "butterfly.cuh", "divide_round.cuh")
+HEADERS = ("u64.cuh", "butterfly.cuh", "divide_round.cuh", "decrypt.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,7 +62,12 @@ _SIGNATURES = {
     "troy_ntt_forward_bgv_keyswitch": _FUSED_DIVIDE,
     "troy_ntt_inverse_keyswitch": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I,
                                    _P, _P, _P, _P, _P, _P, _P),
+    "troy_ntt_inverse_decrypt_bgv": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P,
+                                     _U, _U, _P),
+    "troy_ntt_inverse_decrypt_bfv": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P,
+                                     _P, _P),
     "troy_ntt_blocks": (_L, _I, _I, _P),                # no launch: a query
+    "troy_ntt_inverse_decrypt_plan": (_L, _I, _I, _I, _P),  # a query too
     "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
                                 _P, _P),
@@ -130,6 +135,8 @@ KERNELS = {
     "troy_ntt_forward_bgv_mod_switch": "AKp_bgv_ntt",
     "troy_ntt_forward_bgv_keyswitch": "AKp_bgv_ntt",
     "troy_ntt_inverse_keyswitch": "AFi_keyswitch_intt",
+    "troy_ntt_inverse_decrypt_bgv": "AXi_decrypt_intt",
+    "troy_ntt_inverse_decrypt_bfv": "ACi_decrypt_intt",
     "troy_dyadic_mac": "B_dyadic_mac",
     "troy_dyadic_mac_batched": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",

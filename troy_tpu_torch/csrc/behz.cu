@@ -49,12 +49,14 @@
 //   Shenoy-Kumaresan correction, stored coalesced.
 // No thread holds a limb array, so several blocks share an SM and the
 // grid is a wave or two deep. The decrypt rounding keeps one thread a
-// coefficient (two words in, one out). The Montgomery step's branch (on
+// coefficient (two words in, one out), its arithmetic decrypt.cuh's,
+// shared with ACi (C and this rounding in kernel A's last inverse pass,
+// ntt.cu), which A's route runs. The Montgomery step's branch (on
 // r >= m~/2, with m~ = 2^32 and wrapping u64 words) and Shenoy-Kumaresan's
 // (on the value alpha > m_sk/2) are selects on values, as in the plain
 // version.
 
-#include "u64.cuh"
+#include "decrypt.cuh"
 
 using namespace troy;
 
@@ -253,11 +255,6 @@ __global__ void behz_decrypt_round_kernel(uint64_t *__restrict__ out,
     extern __shared__ uint64_t shared[];
     load_consts(shared, consts, n_consts);
     __syncthreads();
-    // -Q^-1 mod t and mod gamma with their Shoup words, the high Barrett
-    // word of t, gamma^-1 mod t with its Shoup word, t, gamma
-    const uint64_t *c = shared;
-    const uint64_t t = c[7], gamma = c[8];
-
     const int64_t n = int64_t(1) << log_n;
     const int64_t total = batch << log_n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -267,13 +264,7 @@ __global__ void behz_decrypt_round_kernel(uint64_t *__restrict__ out,
         const int64_t poly = idx >> log_n;
         const int64_t i = idx & (n - 1);
         const uint64_t *src = in + ((poly * 2) << log_n) + i;
-        const uint64_t vt = mul_mod_shoup(src[0], c[0], c[1], t);
-        const uint64_t vg = mul_mod_shoup(src[n], c[2], c[3], gamma);
-        const uint64_t corrected =
-            vg > (gamma >> 1)
-                ? add_mod(vt, barrett_reduce_64(gamma - vg, t, c[4]), t)
-                : sub_mod(vt, barrett_reduce_64(vg, t, c[4]), t);
-        out[idx] = mul_mod_shoup(corrected, c[5], c[6], t);
+        out[idx] = decrypt_round(src[0], src[n], shared);
     }
 }
 
@@ -340,7 +331,9 @@ extern "C" int troy_behz_decrypt_round(void *out, const void *in,
                                        long long batch, int log_n,
                                        const void *consts, int n_consts,
                                        void *stream) {
-    if (n_consts != 9) return static_cast<int>(cudaErrorInvalidValue);
+    if (n_consts != kRoundConsts) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     const int threads = 256;
     behz_decrypt_round_kernel<<<grid_blocks(batch << log_n, threads), threads,
                                 n_consts * sizeof(uint64_t),

@@ -3,81 +3,89 @@
 //
 // Replaces troy_tpu/ops/rns.py:67 exact_convert and :189 decrypt_mod_t, and
 // the multiply by the inverse correction factor after them
-// (troy_tpu/decryptor.py:64-66). Per coefficient of each component, over
-// the k limbs of the phase x:
-//
-//   temp_i = x_i (Q/q_i)^-1 mod q_i                           (Shoup)
-//   alpha  = round(sum_i temp_i / q_i) in Q.64 fixed point: each term is
-//            mulhi(temp_i, w_lo_i) + temp_i w_hi_i with w = floor(2^128/q_i),
-//            summed in 128 bits; alpha = hi + (lo >> 63)
-//   out    = ((sum_i temp_i (Q/q_i mod t)) mod t - (alpha mod t)(Q mod t))
-//            mod t, then times cf^-1 mod t
-//
-// The JAX package's fixed point, not the doubles of troy's C++
-// exactConvertArray, so the words are troy_tpu's; the 128-bit sums carry
-// as in ops/u64ops.add_u128. cf^-1 = 1 leaves the words as they are (a
-// Shoup product by 1 of a reduced word is the word).
+// (troy_tpu/decryptor.py:64-66). The per-coefficient arithmetic (the
+// Q.64 fixed-point alpha, the 128-bit sums, Barrett mod t) is
+// decrypt.cuh's, shared with AXi, the decrypt folded into kernel A's last
+// inverse pass (ntt.cu), which A's route runs; this kernel runs where the
+// phase comes from kernel J (use_mxu) or the fused pass cannot hold the
+// level's limbs.
 //
 // What bounds it on the H100: at n = 16384 and k = 5 the launch (0.8 MB
-// of words in and out). Design: one thread per coefficient, the k limbs
-// read down a column (coalesced across the warp), the 6k + 5 constants in
-// shared memory.
+// of words in and out) and the latency of each coefficient's k loads; at
+// larger n the 64-bit products (about 9 a limb and 15 a coefficient, each
+// several 32-bit multiply-adds).
+// Design: one thread per coefficient in blocks of 128 threads, so that a
+// single decrypt at n = 16384 is 128 blocks over the 132 SMs; a kernel
+// compiled for each limb count up to kMaxCompiled loads all of a
+// coefficient's limbs before any of their arithmetic, down a column
+// (coalesced across the warp), with no guard to run past (a guarded loop
+// unrolled to a fixed bound issued the skipped limbs' instructions too:
+// 1.15 and 1.5 times the previous kernel's time at (1, 5, 16384) and (1,
+// 2, 262144) on the H100); more limbs take the run-time kernel, one limb
+// at a time. The 6k + 5 constants sit in shared memory.
 
-#include "u64.cuh"
+#include "decrypt.cuh"
 
 using namespace troy;
 
 namespace {
 
 constexpr int MAX_LIMBS = 64;
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+// the most limbs a compiled kernel takes (SEAL's n = 32768 data level has
+// 15)
+constexpr int kMaxCompiled = 16;
 
-// consts: q, (Q/q_i)^-1 mod q_i, its Shoup words, floor(2^128/q_i) low and
-// high words, (Q/q_i) mod t (k each); t, floor(2^128/t) low and high words,
-// Q mod t and its Shoup word.
+// kLimbs: the limb count k, compiled (1..kMaxCompiled), or 0 (run time);
+// consts in ExactLayout{k}.
+template <int kLimbs>
 __global__ void exact_convert_kernel(uint64_t *__restrict__ out,
                                      const uint64_t *__restrict__ x,
-                                     int64_t comps, int k, int log_n,
+                                     int64_t comps, int k_run, int log_n,
                                      const uint64_t *__restrict__ consts,
                                      uint64_t inv_cf, uint64_t inv_cf_shoup) {
+    const int k = kLimbs > 0 ? kLimbs : k_run;
     __shared__ uint64_t c[6 * MAX_LIMBS + 5];
-    for (int j = threadIdx.x; j < 6 * k + 5; j += blockDim.x) c[j] = consts[j];
+    for (int j = threadIdx.x; j < ExactLayout{k}.words(); j += blockDim.x) {
+        c[j] = consts[j];
+    }
     __syncthreads();
-    const uint64_t *q = c, *invp = c + k, *invp_shoup = c + 2 * k,
-                   *w_lo = c + 3 * k, *w_hi = c + 4 * k, *mat = c + 5 * k;
-    const uint64_t t = c[6 * k], cr_lo = c[6 * k + 1], cr_hi = c[6 * k + 2],
-                   q_mod = c[6 * k + 3], q_mod_shoup = c[6 * k + 4];
+    const int64_t idx =
+        static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (idx >= comps << log_n) return;
     const int64_t n = int64_t(1) << log_n;
-    const int64_t total = comps << log_n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         idx < total; idx += stride) {
-        const int64_t comp = idx >> log_n;
-        const int64_t i = idx & (n - 1);
-        const uint64_t *src = x + ((comp * k) << log_n) + i;
-        uint64_t frac_lo = 0, frac_hi = 0, acc_lo = 0, acc_hi = 0;
-        for (int j = 0; j < k; ++j) {
-            const uint64_t temp = mul_mod_shoup(
-                src[static_cast<int64_t>(j) << log_n], invp[j], invp_shoup[j],
-                q[j]);
-            uint64_t lo, hi;
-            mul128(temp, w_hi[j], lo, hi);
-            const uint64_t term_lo = mulhi64(temp, w_lo[j]) + lo;
-            const uint64_t term_hi = hi + (term_lo < lo);
-            frac_lo += term_lo;
-            frac_hi += term_hi + (frac_lo < term_lo);
-            mul128(temp, mat[j], lo, hi);
-            acc_lo += lo;
-            acc_hi += hi + (acc_lo < lo);
+    const uint64_t *src =
+        x + (((idx >> log_n) * k) << log_n) + (idx & (n - 1));
+    ExactSum s = {};
+    if constexpr (kLimbs > 0) {
+        uint64_t v[kLimbs];
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) {
+            v[j] = __ldg(src + (static_cast<int64_t>(j) << log_n));
         }
-        const uint64_t alpha = frac_hi + (frac_lo >> 63);   // round half up
-        const uint64_t sum = barrett_reduce_128(acc_lo, acc_hi, t, cr_lo,
-                                                cr_hi);
-        const uint64_t alpha_q = mul_mod_shoup(
-            barrett_reduce_64(alpha, t, cr_hi), q_mod, q_mod_shoup, t);
-        out[idx] = mul_mod_shoup(sub_mod(sum, alpha_q, t), inv_cf,
-                                 inv_cf_shoup, t);
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) exact_add(s, v[j], c, kLimbs, j);
+    } else {
+        for (int j = 0; j < k; ++j) {
+            exact_add(s, __ldg(src + (static_cast<int64_t>(j) << log_n)), c,
+                      k, j);
+        }
+    }
+    out[idx] = exact_finish(s, c, k, inv_cf, inv_cf_shoup);
+}
+
+typedef void (*ExactKernel)(uint64_t *, const uint64_t *, int64_t, int, int,
+                            const uint64_t *, uint64_t, uint64_t);
+
+// The kernel compiled for k limbs (kLimbs down to 1), else the run-time
+// one.
+template <int kLimbs>
+ExactKernel exact_kernel_for(int k) {
+    if constexpr (kLimbs == 0) {
+        return exact_convert_kernel<0>;
+    } else {
+        return k == kLimbs ? exact_convert_kernel<kLimbs>
+                           : exact_kernel_for<kLimbs - 1>(k);
     }
 }
 
@@ -89,9 +97,13 @@ extern "C" int troy_exact_convert(void *out, const void *x, long long comps,
                                   unsigned long long inv_cf,
                                   unsigned long long inv_cf_shoup,
                                   void *stream) {
-    if (k < 1 || k > MAX_LIMBS) return static_cast<int>(cudaErrorInvalidValue);
-    exact_convert_kernel<<<grid_blocks(comps << log_n, THREADS), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    const long long blocks = ((comps << log_n) + THREADS - 1) / THREADS;
+    if (k < 1 || k > MAX_LIMBS || blocks < 1 || blocks > 0x7FFFFFFFLL) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    exact_kernel_for<kMaxCompiled>(k)<<<static_cast<unsigned>(blocks),
+                                        THREADS, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x), comps,
         k, log_n, static_cast<const uint64_t *>(consts), inv_cf,
         inv_cf_shoup);

@@ -119,8 +119,33 @@
 // busiest SM at (2, 6, n) and 1.67 times its butterflies at the folds;
 // wider column sets in larger blocks, registers capped by launch bounds,
 // and loads gathered in registers were each slower on the H100 (PERF.md).
+//
+// troy_ntt_inverse_decrypt_bgv (AXi) and troy_ntt_inverse_decrypt_bfv
+// (ACi) fold the decrypt's last step into A's inverse: kernel X's exact
+// conversion of the phase to t (exact_convert.cu; troy_tpu/ops/rns.py:189
+// decrypt_mod_t), or kernel C's conversion to {t, gamma} and kernel E's
+// gamma rounding (base_convert.cu, behz.cu; :169 decrypt_scale_and_round),
+// (comps, k, n) NTT-form phases -> (comps, n) words mod t. The finish of a
+// coefficient needs its k residues, so AFi's last pass serves again,
+// without the special tile: a block holds one column set of all k rows of
+// a component (plan_inverse: the same rule with caps of its own, one-
+// column sets allowed, so that a single decrypt fills the card),
+// transforms each tile with its own threads, then each thread finishes
+// whole coefficients across the k tiles, two at a time, with decrypt.cuh's
+// arithmetic (shared with the standalone kernels; n^-1 folded into its
+// first Shoup product) and stores one word a coefficient. The decrypt
+// then ends in A's two inverse launches: X's or C's and E's launches are
+// gone, and A's last pass no longer writes the (comps, k, n) coefficient
+// rows for them to read back. A level whose rows one block cannot hold
+// takes A's inverse and the standalone kernels (the decryptor routes by
+// shape before any launch, ops/rns.py decrypt_fused, from the plan that
+// troy_ntt_inverse_decrypt_plan reports).
+// What bounds it: at a single decrypt latency, as for A; with larger
+// batches X's or C's 64-bit products, which cost inside the pass about
+// what they cost in X's or C's own kernel (PERF.md).
 
 #include "butterfly.cuh"
+#include "decrypt.cuh"
 #include "divide_round.cuh"
 
 using namespace troy;
@@ -580,20 +605,32 @@ __device__ __forceinline__ void cp_async8(uint64_t *smem,
                  "l"(gmem));
 }
 
-// AFi's last pass: a block holds the same column set (2^log_cols
-// columns of 2^log_line words: the strided pass's lines, or one whole row
-// below 2^kSplitLogN) of `group` output rows j0 .. j0 + group - 1 of one
-// component and of its special row k; tile t has 2^log_tile_threads
-// threads, and the block one tile more than the group.
+// The fused last inverse passes (AFi's, AXi's, ACi's): a block holds the
+// same column set (2^log_cols columns of 2^log_line words: the strided
+// pass's lines, or one whole row below 2^kSplitLogN) of `group` rows j0 ..
+// j0 + group - 1 of one component and, with `special` (AFi), of its
+// special row k; tile t has 2^log_tile_threads threads, and the block
+// `special` tiles more than the group.
 struct InversePlan {
-    int log_line, log_cols, group, log_tile_threads;
+    int log_line, log_cols, group, log_tile_threads, special;
     unsigned blocks;
 };
 
-// Its caps: the threads and shared memory a block may take unless one
-// output row and the special row alone need more, the blocks a plan
-// should give the card (about one an SM), and the words a thread
-// finishes (a tile's words over the block's threads: below 8).
+// What a fused last pass holds in shared memory beside its group's tiles,
+// and the column sets it may take: `special` tiles more (AFi's special
+// row), each row's accumulator words (a tile's words: AFi's) and
+// row_consts constants, block_consts constants a block; column sets down
+// to 2^min_cols columns, tiles of at most 2^max_log_words words where a
+// narrower set exists, and the blocks a plan should give the card.
+struct InverseNeeds {
+    int special, acc, row_consts, block_consts, min_cols, min_blocks,
+        max_log_words;
+};
+
+// Their caps: the threads and shared memory a block may take unless one
+// row (and the special row) alone need more, the blocks a plan should
+// give the card (about one an SM), and the words a thread finishes in AFi
+// (a tile's words over the block's threads: below 8).
 constexpr int kInverseThreads = 512;
 constexpr int kInverseSmem = 64 << 10;
 constexpr int kInverseMinBlocks = 128;
@@ -601,18 +638,113 @@ constexpr int kInverseFinishWords = kWordsPerThread;
 // an output row's constants in shared memory: q, n^-1 and its Shoup
 // word, the high Barrett word, floor(p/2) mod q, p^-1 and its Shoup word
 constexpr int kInverseConsts = 7;
+// AFi: the special tile, an accumulator tile and kInverseConsts a row;
+// column sets of 2 columns (16 bytes of a row) or more, A's tiles
+constexpr InverseNeeds kAfiNeeds = {1, 1, kInverseConsts, 0, 1,
+                                    kInverseMinBlocks, kLogTile};
+
+// One thread's place in a fused last pass: its block's component, first
+// row j0, rows and column set, its tile and its index in the tile, the
+// tile's source row (limb j0 + tile, k for the special tile, < 0 for an
+// idle tile past the rows), and the geometry stage() reads.
+struct InverseTile {
+    int comp, j0, first, rows_here, tile, tid, limb;
+    int log_words, words, stride_shift, tile_size;
+    Geo geo;
+    Block blk;
+};
+
+__device__ __forceinline__ InverseTile inverse_tile(const InversePlan &plan,
+                                                    int log_line, int log_n,
+                                                    int k) {
+    InverseTile b;
+    const int log_tt = plan.log_tile_threads;
+    const int group = plan.group;
+    b.geo = {kColLines, log_line, plan.log_cols, 1 << log_tt};
+    b.log_words = log_line + plan.log_cols;
+    b.words = 1 << b.log_words;
+    b.stride_shift = log_n - log_line;
+    const int log_sets = log_n - b.log_words;
+    const int groups = (k + group - 1) / group;
+    // 32-bit quotients: rows < 2^30 (the entries refuse more)
+    const int set = blockIdx.x & ((1 << log_sets) - 1);
+    const int cg = static_cast<int>(blockIdx.x >> log_sets);
+    b.comp = cg / groups;
+    b.j0 = (cg - b.comp * groups) * group;
+    b.first = set << plan.log_cols;
+    b.rows_here = min(group, k - b.j0);
+    b.tile = threadIdx.x >> log_tt;
+    b.tid = threadIdx.x & ((1 << log_tt) - 1);
+    b.limb = b.tile == group ? k : b.tile < b.rows_here ? b.j0 + b.tile : -1;
+    b.tile_size = b.words + (2 << log_line);
+    b.blk = {static_cast<int64_t>(b.comp * (k + plan.special) +
+                                  (b.limb < 0 ? 0 : b.limb))
+                 << log_n,
+             b.first, b.limb};
+    return b;
+}
+
+// The thread's words of its tile and the tile's twiddles (one table for
+// the tile's columns: entry e of round r's table is roots[limb n + e], as
+// in the strided pass), copied into shared memory by cp.async, in flight
+// until the caller waits.
+__device__ __forceinline__ void inverse_load(const InverseTile &b,
+                                             uint64_t *v_s,
+                                             const uint64_t *in,
+                                             const uint64_t *roots,
+                                             const uint64_t *roots_shoup,
+                                             int log_n) {
+    if (b.limb < 0) return;
+    uint64_t *tile_s = v_s + b.tile * b.tile_size;
+    uint64_t *tw_s = tile_s + b.words;
+    const int log_line = b.geo.log_line;
+    for (int f = b.tid; f < b.words; f += b.geo.threads) {
+        int l, i;
+        tile_word(b.geo, f, l, i);
+        cp_async8(tile_s + smem_pos(b.geo, l, i),
+                  in + b.blk.row_base + b.first + l +
+                      (static_cast<int64_t>(i) << b.stride_shift));
+    }
+    for (int e = b.tid; e < (1 << log_line); e += b.geo.threads) {
+        const int64_t g = (static_cast<int64_t>(b.limb) << log_n) + e;
+        cp_async8(tw_s + e, roots + g);
+        cp_async8(tw_s + (1 << log_line) + e, roots_shoup + g);
+    }
+}
+
+// The inverse rounds of every tile, each by its own threads (stage(), in
+// lock step: one barrier a stage), lazy; table_rows: the rows of the
+// tables. kLogLine: 5-8 compiled, 0 run time.
+template <int kLogLine>
+__device__ __forceinline__ void inverse_rounds(const InverseTile &b,
+                                               uint64_t *v_s, int log_n,
+                                               int table_rows,
+                                               const uint64_t *moduli) {
+    uint64_t *tile_s = v_s + b.tile * b.tile_size;
+    const uint64_t *tw_s = tile_s + b.words;
+    if (kLogLine > 0) {
+#pragma unroll
+        for (int s = 0; s < (kLogLine + 2) / 3; ++s) {
+            run_stage<true>(s, tile_s, tw_s, b.geo, b.blk, log_n, 0,
+                            table_rows, moduli, b.tid);
+        }
+    } else {
+        for (int s = 0; s < (b.geo.log_line + 2) / 3; ++s) {
+            run_stage<true>(s, tile_s, tw_s, b.geo, b.blk, log_n, 0,
+                            table_rows, moduli, b.tid);
+        }
+    }
+}
 
 // AFi, the last inverse pass with F's divide. Block b of component comp
 // and row group g (j0 = g group) transforms tile t < group: the columns
 // first .. of source row comp (k + 1) + j0 + t (limb j0 + t; none past
-// k - 1) and tile group: those of comp (k + 1) + k (the special prime),
-// each with its tile's threads (stage(), in lock step: one barrier a
-// stage); each applies n^-1 and reduce_2q as A's last pass does. Then
-// every thread finishes its words of the group's tiles: F's rounding
-// divide of tile t's word by the special tile's word at the same place,
-// plus the accumulator word (copied in before the butterflies), stored to
-// output row comp k + j0 + t. kLogLine: 5-8 compiled, 0 run time; the
-// tables are those of the k + 1 primes.
+// k - 1) and tile group: those of comp (k + 1) + k (the special prime);
+// each applies n^-1 and reduce_2q as A's last pass does. Then every
+// thread finishes its words of the group's tiles: F's rounding divide of
+// tile t's word by the special tile's word at the same place, plus the
+// accumulator word (copied in before the butterflies), stored to output
+// row comp k + j0 + t. The tables are those of the k + 1 primes.
 template <int kLogLine>
 __global__ void inverse_divide_kernel(uint64_t *out, const uint64_t *in,
                                       int log_n, int k,
@@ -624,74 +756,37 @@ __global__ void inverse_divide_kernel(uint64_t *out, const uint64_t *in,
                                           inv_degree_shoup,
                                       InversePlan plan, Divide dv) {
     extern __shared__ uint64_t v_s[];
-    const int log_line = kLogLine > 0 ? kLogLine : plan.log_line;
-    const int log_tt = plan.log_tile_threads;
-    const Geo geo = {kColLines, log_line, plan.log_cols, 1 << log_tt};
-    const int log_words = log_line + plan.log_cols;
-    const int words = 1 << log_words;
-    const int group = plan.group;
-    const int log_sets = log_n - log_words;
-    const int stride_shift = log_n - log_line;
-    const int groups = (k + group - 1) / group;
-    // 32-bit quotients: rows < 2^30 (inverse_divide refuses more)
-    const int set = blockIdx.x & ((1 << log_sets) - 1);
-    const int cg = static_cast<int>(blockIdx.x >> log_sets);
-    const int comp = cg / groups, j0 = (cg - comp * groups) * group;
-    const int first = set << plan.log_cols;
-    const int rows_here = min(group, k - j0);
-    const int tile = threadIdx.x >> log_tt;
-    const int tid = threadIdx.x & ((1 << log_tt) - 1);
-    // the special row's tile is the last; tiles past the rows are idle
-    const int limb = tile == group ? k : tile < rows_here ? j0 + tile : -1;
-    const int tile_size = words + (2 << log_line);
-    uint64_t *tile_s = v_s + tile * tile_size;
-    uint64_t *tw_s = tile_s + words;
-    uint64_t *acc_s = v_s + (group + 1) * tile_size;   // the finish's order
+    const InverseTile b = inverse_tile(
+        plan, kLogLine > 0 ? kLogLine : plan.log_line, log_n, k);
+    const int group = plan.group, log_words = b.log_words, words = b.words;
+    uint64_t *acc_s = v_s + (group + 1) * b.tile_size;  // the finish's order
     uint64_t *c_s = acc_s + (group << log_words);      // kInverseConsts a row
-    const Block blk = {
-        static_cast<int64_t>(comp * (k + 1) + (limb < 0 ? 0 : limb))
-            << log_n, first, limb};
-    const int all_threads = (group + 1) << log_tt;
-    const int finish_words = rows_here << log_words;
+    const int finish_words = b.rows_here << log_words;
 
     // every word the block reads, copied straight into shared memory and
     // all in flight together (no register holds them): the tiles' words
-    // and twiddles (one table for a tile's columns: entry e of round r's
-    // table is roots[limb n + e], as in the strided pass), the accumulator
-    // words of each thread's finish, each output row's constants
-    if (limb >= 0) {
-        for (int f = tid; f < words; f += geo.threads) {
-            int l, i;
-            tile_word(geo, f, l, i);
-            cp_async8(tile_s + smem_pos(geo, l, i),
-                      in + blk.row_base + first + l +
-                          (static_cast<int64_t>(i) << stride_shift));
-        }
-        for (int e = tid; e < (1 << log_line); e += geo.threads) {
-            const int64_t g = (static_cast<int64_t>(limb) << log_n) + e;
-            cp_async8(tw_s + e, roots + g);
-            cp_async8(tw_s + (1 << log_line) + e, roots_shoup + g);
-        }
-    }
-    const int arow = accumulator_row(comp, static_cast<int>(dv.group),
+    // and twiddles, the accumulator words of each thread's finish, each
+    // output row's constants
+    inverse_load(b, v_s, in, roots, roots_shoup, log_n);
+    const int arow = accumulator_row(b.comp, static_cast<int>(dv.group),
                                      dv.acc_comps,
                                      static_cast<int>(dv.acc_groups));
     const uint64_t *acc_rows =
-        arow >= 0 ? dv.acc + ((static_cast<int64_t>(arow) * k + j0)
+        arow >= 0 ? dv.acc + ((static_cast<int64_t>(arow) * k + b.j0)
                               << log_n) : nullptr;
     if (acc_rows != nullptr) {
-        for (int F = threadIdx.x; F < finish_words; F += all_threads) {
+        for (int F = threadIdx.x; F < finish_words; F += blockDim.x) {
             int l, i;
-            tile_word(geo, F & (words - 1), l, i);
+            tile_word(b.geo, F & (words - 1), l, i);
             cp_async8(acc_s + F,
                       acc_rows + (static_cast<int64_t>(F >> log_words)
-                                  << log_n) + first + l +
-                          (static_cast<int64_t>(i) << stride_shift));
+                                  << log_n) + b.first + l +
+                          (static_cast<int64_t>(i) << b.stride_shift));
         }
     }
     const DivideLayout L{k};
-    if (threadIdx.x < rows_here) {
-        const int j = j0 + threadIdx.x;
+    if (threadIdx.x < b.rows_here) {
+        const int j = b.j0 + threadIdx.x;
         uint64_t *c = c_s + threadIdx.x * kInverseConsts;
         cp_async8(c + 0, moduli + j);
         cp_async8(c + 1, inv_degree + j);
@@ -709,47 +804,144 @@ __global__ void inverse_divide_kernel(uint64_t *out, const uint64_t *in,
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
 
-    if (kLogLine > 0) {
-#pragma unroll
-        for (int s = 0; s < (kLogLine + 2) / 3; ++s) {
-            run_stage<true>(s, tile_s, tw_s, geo, blk, log_n, 0, k + 1,
-                            moduli, tid);
-        }
-    } else {
-        for (int s = 0; s < (log_line + 2) / 3; ++s) {
-            run_stage<true>(s, tile_s, tw_s, geo, blk, log_n, 0, k + 1,
-                            moduli, tid);
-        }
-    }
+    inverse_rounds<kLogLine>(b, v_s, log_n, k + 1, moduli);
 
     // the special tile's words, finished once for all its rows: n^-1,
     // reduce_2q, then the offset of F's divide
-    uint64_t *special = v_s + group * tile_size;
-    for (int f = threadIdx.x; f < words; f += all_threads) {
+    uint64_t *special = v_s + group * b.tile_size;
+    for (int f = threadIdx.x; f < words; f += blockDim.x) {
         special[f] = divide_round_last(
             reduce_2q(mul_mod_shoup_lazy(special[f], np, np_shoup, p), p), p,
             half);
     }
     __syncthreads();
-    uint64_t *dst = out + ((static_cast<int64_t>(comp) * k + j0) << log_n) +
-                    first;
+    uint64_t *dst = out + ((static_cast<int64_t>(b.comp) * k + b.j0)
+                           << log_n) + b.first;
 #pragma unroll
     for (int w = 0; w < kInverseFinishWords; ++w) {
-        const int F = threadIdx.x + w * all_threads;
+        const int F = threadIdx.x + w * blockDim.x;
         if (F >= finish_words) break;
         const int t = F >> log_words;
         int l, i;
-        tile_word(geo, F & (words - 1), l, i);
-        const int pos = smem_pos(geo, l, i);
+        tile_word(b.geo, F & (words - 1), l, i);
+        const int pos = smem_pos(b.geo, l, i);
         const uint64_t *c = c_s + t * kInverseConsts;
         const uint64_t q = c[0];
         const uint64_t x = reduce_2q(
-            mul_mod_shoup_lazy(v_s[t * tile_size + pos], c[1], c[2], q), q);
+            mul_mod_shoup_lazy(v_s[t * b.tile_size + pos], c[1], c[2], q), q);
         uint64_t r =
             divide_round_word(x, special[pos], q, c[3], c[4], c[5], c[6]);
         if (acc_rows != nullptr) r = add_mod(acc_s[F], r, q);
         dst[(static_cast<int64_t>(t) << log_n) + l +
-            (static_cast<int64_t>(i) << stride_shift)] = r;
+            (static_cast<int64_t>(i) << b.stride_shift)] = r;
+    }
+}
+
+// What AXi's and ACi's last pass computes from a coefficient's k words.
+enum DecryptFinish { kDecryptExact = 0, kDecryptRound = 1 };
+
+// Their blocks' needs beside the tiles (InverseNeeds): X's 6 constants a
+// limb and 5 others (decrypt.cuh ExactLayout); C's 5 a limb (q, the
+// scaled punctured inverse and its Shoup word, M's two entries), C's 6
+// others (ConvertLayout{k, 2}) and E's kRoundConsts; no special tile, no
+// accumulator. One-column sets (a single decrypt at n = 16384: 128 blocks
+// of one column against 64 of two), 96 blocks and tiles of 512 words at
+// most were each the faster on the H100 (PERF.md: (3, 5, 16384) and the
+// batch of 52 at (2, 16384) take 4 columns a block where the rule of AFi
+// gave 2 and 8).
+constexpr InverseNeeds kDecryptNeeds[2] = {
+    {0, 0, 6, 5, 0, 96, 9}, {0, 0, 5, 6 + kRoundConsts, 0, 96, 9}};
+
+// Two coefficients' words mod t from their k lazy words each (v0, v1: the
+// first tile's; the next limb's a tile further), their chains interleaved:
+// X's conversion times cf^-1, or C's conversion and E's rounding. c: the
+// block's constants, n^-1 folded into the punctured inverses, so that the
+// lazy word (below 2q) goes straight into the Shoup product of X's or C's
+// temp, which reduces it as A's n^-1 and reduce_2q would have.
+template <int kFinish>
+__device__ __forceinline__ void decrypt_pair(const uint64_t *v0,
+                                             const uint64_t *v1, int stride,
+                                             const uint64_t *c, int k,
+                                             uint64_t inv_cf,
+                                             uint64_t inv_cf_shoup,
+                                             uint64_t &r0, uint64_t &r1) {
+    if constexpr (kFinish == kDecryptExact) {
+        ExactSum s0 = {}, s1 = {};
+        for (int j = 0; j < k; ++j) {
+            exact_add(s0, v0[j * stride], c, k, j);
+            exact_add(s1, v1[j * stride], c, k, j);
+        }
+        r0 = exact_finish(s0, c, k, inv_cf, inv_cf_shoup);
+        r1 = exact_finish(s1, c, k, inv_cf, inv_cf_shoup);
+    } else {
+        const uint64_t *rc = c + ConvertLayout{k, 2}.words();
+        TGammaSum s0 = {}, s1 = {};
+        for (int j = 0; j < k; ++j) {
+            t_gamma_add(s0, v0[j * stride], c, k, j);
+            t_gamma_add(s1, v1[j * stride], c, k, j);
+        }
+        r0 = t_gamma_round(s0, c, k, rc);
+        r1 = t_gamma_round(s1, c, k, rc);
+    }
+}
+
+// AXi and ACi, the last inverse pass with the decrypt's conversion. Block
+// b of component comp transforms tile t < k, the columns first .. of row
+// comp k + t (limb t), each with its tile's threads. Then every thread
+// finishes whole coefficients across the k tiles, two at a time
+// (decrypt_pair: consts in ExactLayout{k} for kDecryptExact, in
+// ConvertLayout{k, 2} then round_consts' kRoundConsts words for
+// kDecryptRound, copied into shared memory with the tiles), and stores
+// each at its place in output row comp.
+template <int kLogLine, int kFinish>
+__global__ void inverse_decrypt_kernel(uint64_t *out, const uint64_t *in,
+                                       int log_n, int k,
+                                       const uint64_t *__restrict__ roots,
+                                       const uint64_t *__restrict__
+                                           roots_shoup,
+                                       const uint64_t *__restrict__ moduli,
+                                       InversePlan plan,
+                                       const uint64_t *__restrict__ consts,
+                                       const uint64_t *__restrict__
+                                           round_consts,
+                                       uint64_t inv_cf,
+                                       uint64_t inv_cf_shoup) {
+    extern __shared__ uint64_t v_s[];
+    const InverseTile b = inverse_tile(
+        plan, kLogLine > 0 ? kLogLine : plan.log_line, log_n, k);
+    const int conv_words = kFinish == kDecryptExact
+                               ? ExactLayout{k}.words()
+                               : ConvertLayout{k, 2}.words();
+    const int n_consts =
+        conv_words + (kFinish == kDecryptExact ? 0 : kRoundConsts);
+    uint64_t *c_s = v_s + k * b.tile_size;
+    inverse_load(b, v_s, in, roots, roots_shoup, log_n);
+    for (int j = threadIdx.x; j < n_consts; j += blockDim.x) {
+        cp_async8(c_s + j, j < conv_words ? consts + j
+                                          : round_consts + (j - conv_words));
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    inverse_rounds<kLogLine>(b, v_s, log_n, k, moduli);
+
+    // one coefficient a thread left the finish latency-bound: its chain of
+    // dependent 64-bit products, k limbs long, is all a thread has to do
+    uint64_t *dst = out + (static_cast<int64_t>(b.comp) << log_n) + b.first;
+    for (int f0 = threadIdx.x; f0 < b.words; f0 += 2 * blockDim.x) {
+        const int f1 = f0 + static_cast<int>(blockDim.x) < b.words
+                           ? f0 + static_cast<int>(blockDim.x) : f0;
+        int l0, i0, l1, i1;
+        tile_word(b.geo, f0, l0, i0);
+        tile_word(b.geo, f1, l1, i1);
+        uint64_t r0, r1;
+        decrypt_pair<kFinish>(v_s + smem_pos(b.geo, l0, i0),
+                              v_s + smem_pos(b.geo, l1, i1), b.tile_size,
+                              c_s, k, inv_cf, inv_cf_shoup, r0, r1);
+        dst[l0 + (static_cast<int64_t>(i0) << b.stride_shift)] = r0;
+        if (f1 != f0) {
+            dst[l1 + (static_cast<int64_t>(i1) << b.stride_shift)] = r1;
+        }
     }
 }
 
@@ -968,50 +1160,103 @@ typedef void (*InverseDivideKernel)(uint64_t *, const uint64_t *, int, int,
                                     const uint64_t *, const uint64_t *,
                                     const uint64_t *, const uint64_t *,
                                     const uint64_t *, InversePlan, Divide);
+typedef void (*InverseDecryptKernel)(uint64_t *, const uint64_t *, int, int,
+                                     const uint64_t *, const uint64_t *,
+                                     const uint64_t *, InversePlan,
+                                     const uint64_t *, const uint64_t *,
+                                     uint64_t, uint64_t);
 
-// Shared memory of AFi's last pass: group + 1 tiles of words and twiddles,
-// the group's accumulator words and each output row's constants.
-size_t inverse_smem(const InversePlan &p) {
+// Shared memory of a fused last pass: the group's tiles (and the special
+// tile) of words and twiddles, then what `need` adds a row and a block.
+size_t inverse_smem(const InversePlan &p, const InverseNeeds &need) {
     const size_t words = size_t(1) << (p.log_line + p.log_cols);
     const size_t tile = words + (size_t(2) << p.log_line);
-    return sizeof(uint64_t) * ((p.group + 1) * tile +
-                               p.group * (words + kInverseConsts));
+    return sizeof(uint64_t) *
+           ((p.group + need.special) * tile +
+            p.group * ((need.acc ? words : 0) + need.row_consts) +
+            need.block_consts);
 }
 
-// AFi's last pass over comps components of k output rows: A's strided
-// lines (2^a words, a = log_n / 2) from 2^kSplitLogN, whole rows below.
-// Of the column sets from A's down to 2 columns (16 bytes of a row), those
-// whose tiles let one block hold every output row and the special row
-// within the caps: the widest with kInverseMinBlocks blocks, else the
-// narrowest (the most blocks); if none holds them all, 2 columns and as
-// many rows a block as the caps allow (at least one), row k transformed
-// once a row group.
-InversePlan plan_inverse(long long comps, int k, int log_n) {
+// A fused last pass over comps components of k rows (and, with
+// need.special, their special row): A's strided lines (2^a words,
+// a = log_n / 2) from 2^kSplitLogN, whole rows below. Of the column sets
+// from A's (or the widest whose tiles have 2^need.max_log_words words, if
+// a narrower one exists) down to 2^need.min_cols columns, those whose
+// tiles let one block hold every row and the special row within the caps:
+// the widest with need.min_blocks blocks, else the narrowest (the most
+// blocks); if none holds them all, the narrowest and as many rows a block
+// as the caps allow (at least one), the special row transformed once a
+// row group.
+InversePlan plan_inverse(long long comps, int k, int log_n,
+                         const InverseNeeds &need) {
     int log_line = log_n, max_cols = 0;
     if (log_n >= kSplitLogN) {
         const int a = log_n / 2, b = log_n - a;
         log_line = a;
         max_cols = kLogTile - a < 0 ? 0 : kLogTile - a > b ? b : kLogTile - a;
     }
-    const int min_cols = max_cols < 1 ? max_cols : 1;
+    const int lo = max_cols < need.min_cols ? max_cols : need.min_cols;
+    int hi = need.max_log_words - log_line;
+    hi = hi < lo ? lo : hi > max_cols ? max_cols : hi;
     InversePlan p = {}, whole = {};
-    for (int c = max_cols; c >= min_cols; --c) {
+    for (int c = hi; c >= lo; --c) {
         const int log_words = log_line + c;
-        p = {log_line, c, k, log_words > 3 ? log_words - 3 : 0, 0};
-        const int by_threads = (kInverseThreads >> p.log_tile_threads) - 1;
+        p = {log_line, c, k, log_words > 3 ? log_words - 3 : 0, need.special,
+             0};
+        const int by_threads =
+            (kInverseThreads >> p.log_tile_threads) - need.special;
         while (p.group > 1 && (p.group > by_threads ||
-                               inverse_smem(p) > size_t(kInverseSmem))) {
+                               inverse_smem(p, need) > size_t(kInverseSmem))) {
             --p.group;
         }
         const long long groups = (k + p.group - 1) / p.group;
         p.blocks = static_cast<unsigned>((comps * groups)
                                          << (log_n - log_words));
         if (p.group == k) {
-            if (p.blocks >= kInverseMinBlocks) return p;
+            if (p.blocks >= static_cast<unsigned>(need.min_blocks)) return p;
             whole = p;
         }
     }
     return whole.group == k ? whole : p;
+}
+
+// Raises the kernel's dynamic shared memory limit on the current device
+// where it needs more than the default 48 KiB.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+    if (smem <= (48 << 10)) return 0;
+    return static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+}
+
+// A's first inverse pass of a fused inverse over `rows` rows of the
+// tables' `table_rows` limbs, into scratch, where the transform takes two
+// passes (from 2^kSplitLogN); src then points at scratch. Below, nothing:
+// the fused pass transforms whole rows of x.
+int inverse_first_pass(const uint64_t *&src, void *scratch, long long rows,
+                       int log_n, int table_rows, const void *roots,
+                       const void *roots_shoup, const void *moduli,
+                       const void *inv_degree, const void *inv_degree_shoup,
+                       cudaStream_t s) {
+    Pass passes[2];
+    if (plan(rows, log_n, 1, passes) != 2) return 0;
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const PassKernel first = kernel_for<true, kLoadPlain, false>(passes[0]);
+    const size_t smem = smem_bytes(passes[0]);
+    if (int err = allow_smem(first, smem)) return err;
+    first<<<passes[0].blocks, threads_for(passes[0]), smem, s>>>(
+        static_cast<uint64_t *>(scratch), src, static_cast<int>(rows), log_n,
+        table_rows, static_cast<const uint64_t *>(roots),
+        static_cast<const uint64_t *>(roots_shoup),
+        static_cast<const uint64_t *>(moduli), nullptr,
+        static_cast<const uint64_t *>(inv_degree),
+        static_cast<const uint64_t *>(inv_degree_shoup), passes[0], 1,
+        Divide{});
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    src = static_cast<const uint64_t *>(scratch);
+    return 0;
 }
 
 // AFi: A's inverse of x (comps, k + 1, n), NTT form, over the tables of
@@ -1037,31 +1282,12 @@ int inverse_divide(void *out, const void *x, void *scratch, const void *acc,
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const uint64_t *src = static_cast<const uint64_t *>(x);
-    Pass passes[2];
-    if (plan(rows, log_n, 1, passes) == 2) {
-        if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-        const PassKernel first = kernel_for<true, kLoadPlain, false>(
-            passes[0]);
-        const size_t smem = smem_bytes(passes[0]);
-        if (smem > (48 << 10)) {
-            const cudaError_t err = cudaFuncSetAttribute(
-                first, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
-        first<<<passes[0].blocks, threads_for(passes[0]), smem, s>>>(
-            static_cast<uint64_t *>(scratch), src, static_cast<int>(rows),
-            log_n, k + 1, static_cast<const uint64_t *>(roots),
-            static_cast<const uint64_t *>(roots_shoup),
-            static_cast<const uint64_t *>(moduli), nullptr,
-            static_cast<const uint64_t *>(inv_degree),
-            static_cast<const uint64_t *>(inv_degree_shoup), passes[0], 1,
-            Divide{});
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-        src = static_cast<const uint64_t *>(scratch);
+    if (int err = inverse_first_pass(src, scratch, rows, log_n, k + 1, roots,
+                                     roots_shoup, moduli, inv_degree,
+                                     inv_degree_shoup, s)) {
+        return err;
     }
-    const InversePlan last = plan_inverse(comps, k, log_n);
+    const InversePlan last = plan_inverse(comps, k, log_n, kAfiNeeds);
     InverseDivideKernel kernel = inverse_divide_kernel<0>;
     switch (last.log_line) {
     case 5: kernel = inverse_divide_kernel<5>; break;
@@ -1070,24 +1296,77 @@ int inverse_divide(void *out, const void *x, void *scratch, const void *acc,
     case 8: kernel = inverse_divide_kernel<8>; break;
     default: break;
     }
-    const size_t smem = inverse_smem(last);
-    if (smem > (48 << 10)) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    const size_t smem = inverse_smem(last, kAfiNeeds);
+    if (int err = allow_smem(kernel, smem)) return err;
     const Divide dv = {nullptr, static_cast<const uint64_t *>(acc),
                        static_cast<const uint64_t *>(consts), group,
                        acc_groups, acc_comps, 0};
-    kernel<<<last.blocks, (last.group + 1) << last.log_tile_threads, smem,
-             s>>>(
+    kernel<<<last.blocks, (last.group + last.special)
+                              << last.log_tile_threads,
+             smem, s>>>(
         static_cast<uint64_t *>(out), src, log_n, k,
         static_cast<const uint64_t *>(roots),
         static_cast<const uint64_t *>(roots_shoup),
         static_cast<const uint64_t *>(moduli),
         static_cast<const uint64_t *>(inv_degree),
         static_cast<const uint64_t *>(inv_degree_shoup), last, dv);
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
+template <int kFinish>
+InverseDecryptKernel decrypt_kernel_for(int log_line) {
+    switch (log_line) {
+    case 5: return inverse_decrypt_kernel<5, kFinish>;
+    case 6: return inverse_decrypt_kernel<6, kFinish>;
+    case 7: return inverse_decrypt_kernel<7, kFinish>;
+    case 8: return inverse_decrypt_kernel<8, kFinish>;
+    default: return inverse_decrypt_kernel<0, kFinish>;
+    }
+}
+
+// AXi (finish kDecryptExact) and ACi (kDecryptRound): A's inverse of x
+// (comps, k, n), NTT form, over the tables of the level's k primes, with
+// the decrypt's conversion in its last pass: out (comps, n) mod t; consts
+// X's or C's with n^-1 folded into the punctured inverses. From
+// 2^kSplitLogN, A's first inverse pass into scratch (comps, k, n), then
+// the fused strided pass; below, the fused pass alone over whole rows.
+// A shape whose plan cannot hold the k rows in one block is refused
+// before any launch.
+int inverse_decrypt(int finish, void *out, const void *x, void *scratch,
+                    long long comps, int k, int log_n, const void *roots,
+                    const void *roots_shoup, const void *moduli,
+                    const void *consts, const void *round_consts,
+                    unsigned long long inv_cf,
+                    unsigned long long inv_cf_shoup, void *stream) {
+    if (k < 1 || comps < 1 || comps * k > (1LL << 30) || log_n < 1 ||
+        log_n > 24 || consts == nullptr ||
+        (finish == kDecryptRound && round_consts == nullptr)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const InverseNeeds &need = kDecryptNeeds[finish];
+    const InversePlan last = plan_inverse(comps, k, log_n, need);
+    if (last.group != k) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const uint64_t *src = static_cast<const uint64_t *>(x);
+    if (int err = inverse_first_pass(src, scratch, comps * k, log_n, k, roots,
+                                     roots_shoup, moduli, nullptr, nullptr,
+                                     s)) {
+        return err;
+    }
+    const InverseDecryptKernel kernel =
+        finish == kDecryptExact ? decrypt_kernel_for<kDecryptExact>(
+                                      last.log_line)
+                                : decrypt_kernel_for<kDecryptRound>(
+                                      last.log_line);
+    const size_t smem = inverse_smem(last, need);
+    if (int err = allow_smem(kernel, smem)) return err;
+    kernel<<<last.blocks, k << last.log_tile_threads, smem, s>>>(
+        static_cast<uint64_t *>(out), src, log_n, k,
+        static_cast<const uint64_t *>(roots),
+        static_cast<const uint64_t *>(roots_shoup),
+        static_cast<const uint64_t *>(moduli), last,
+        static_cast<const uint64_t *>(consts),
+        static_cast<const uint64_t *>(round_consts), inv_cf, inv_cf_shoup);
     TROY_RETURN_LAUNCH_STATUS();
 }
 
@@ -1155,6 +1434,59 @@ extern "C" int troy_ntt_inverse_keyswitch(
     return inverse_divide(out, x, scratch, acc, comps, acc_comps, group,
                           acc_groups, k, log_n, roots, roots_shoup, moduli,
                           inv_degree, inv_degree_shoup, consts, stream);
+}
+
+// The BGV decrypt folded into A's inverse (AXi): x (comps, k, n) the
+// NTT-form phases over the level's k primes; scratch (comps, k, n), A's
+// first pass's words from 2^kSplitLogN (unused below); out (comps, n) the
+// words of A's inverse then troy_exact_convert times cf^-1; consts:
+// ops/rns.py ExactConverter's 6k + 5 words with n^-1 folded into the
+// punctured inverses and their Shoup words (ops/rns.py
+// fold_inverse_degree); the tables (k, n) the inverse roots of those
+// primes, with their moduli. A shape whose one block cannot hold the k
+// rows (troy_ntt_inverse_decrypt_plan) is refused.
+extern "C" int troy_ntt_inverse_decrypt_bgv(
+        void *out, const void *x, void *scratch, long long comps, int k,
+        int log_n, const void *roots, const void *roots_shoup,
+        const void *moduli, const void *consts, unsigned long long inv_cf,
+        unsigned long long inv_cf_shoup, void *stream) {
+    return inverse_decrypt(kDecryptExact, out, x, scratch, comps, k, log_n,
+                           roots, roots_shoup, moduli, consts, nullptr,
+                           inv_cf, inv_cf_shoup, stream);
+}
+
+// The BFV decrypt folded into A's inverse (ACi): as the BGV entry, out
+// (comps, n) the words of A's inverse then troy_base_convert into {t,
+// gamma} (consts: DeviceRnsTool.q_to_t_gamma_scaled's 5k + 6 words, n^-1
+// folded in as for AXi) and troy_behz_decrypt_round (round_consts:
+// DeviceRnsTool.decrypt_consts).
+extern "C" int troy_ntt_inverse_decrypt_bfv(
+        void *out, const void *x, void *scratch, long long comps, int k,
+        int log_n, const void *roots, const void *roots_shoup,
+        const void *moduli, const void *consts, const void *round_consts,
+        void *stream) {
+    return inverse_decrypt(kDecryptRound, out, x, scratch, comps, k, log_n,
+                           roots, roots_shoup, moduli, consts, round_consts,
+                           1, 1, stream);
+}
+
+// The plan of AXi's (finish 0) or ACi's (finish 1) last pass over comps
+// components of k rows at n = 2^log_n (no launch: a query): plan[0..4]
+// the log2 of a line's words and of a block's columns, the rows a block
+// holds, the log2 of a tile's threads, the blocks. The entries launch
+// only where a block holds the k rows.
+extern "C" int troy_ntt_inverse_decrypt_plan(long long comps, int k,
+                                             int log_n, int finish,
+                                             long long *plan) {
+    if (k < 1 || comps < 1 || log_n < 1 || log_n > 24 || plan == nullptr ||
+        (finish != kDecryptExact && finish != kDecryptRound)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const InversePlan p = plan_inverse(comps, k, log_n, kDecryptNeeds[finish]);
+    const long long fields[5] = {p.log_line, p.log_cols, p.group,
+                                 p.log_tile_threads, p.blocks};
+    for (int i = 0; i < 5; ++i) plan[i] = fields[i];
+    return 0;
 }
 
 // The blocks of each launch of one troy_ntt call (0 for a pass it does not

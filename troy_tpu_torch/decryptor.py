@@ -6,12 +6,16 @@ against cached secret-key powers: every component's forward NTT is one
 kernel-A launch (none for an NTT-form CKKS or BGV ciphertext), the sum of
 products one kernel-B launch and the add of c0 one kernel-D launch. CKKS
 returns that NTT-form phase as the plaintext; BFV takes the inverse NTT
-and the t/Q rounding (decrypt_scale_and_round, kernels C and E); BGV the
-inverse NTT and the exact conversion to t with the inverse correction
-factor fused in (decrypt_mod_t, kernel X). ``decrypt_many`` does each of
-those steps once for a whole batch of ciphertexts, so its launch count does
-not grow with the batch, and copies the results to the host once. The noise
-budget (BFV, BGV) reads the phase back and measures it with host integers.
+and the t/Q rounding (kernels C and E), BGV the inverse NTT and the exact
+conversion to t with the inverse correction factor fused in (kernel X):
+on A's route one call, the conversion inside A's last inverse pass (ACi
+``ntt_inverse_decrypt_scale_and_round``, AXi ``ntt_inverse_decrypt_mod_t``),
+elsewhere (tables on J, or more limbs than one block of that pass holds)
+A's or J's inverse, then ``decrypt_scale_and_round`` or ``decrypt_mod_t``.
+``decrypt_many`` does each of those steps once for a whole batch of
+ciphertexts, so its launch count does not grow with the batch, and copies
+the results to the host once. The noise budget (BFV, BGV) reads the phase
+back and measures it with host integers.
 """
 
 from __future__ import annotations
@@ -62,15 +66,31 @@ def _phase_core(data: torch.Tensor, sk_powers: torch.Tensor,
         _phase_ntt_core(data, sk_powers, cd, is_ntt_form), cd.ntt)
 
 
+def _decrypt_phase(phase: torch.Tensor, cd: ContextData,
+                   inv_cf: int = 1) -> torch.Tensor:
+    """NTT-form phases (..., k, n) to plaintext words mod t, (..., n):
+    BFV's t/Q rounding, BGV's reduction mod t times the inverse correction
+    factor inv_cf. One fused call where ``drns.decrypt_fused`` says so (A's
+    route), else the inverse transform and the standalone conversion."""
+    bfv = cd.scheme != SchemeType.bgv
+    if drns.decrypt_fused(cd.ntt, bfv):
+        if bfv:
+            return drns.ntt_inverse_decrypt_scale_and_round(phase, cd.rns)
+        return drns.ntt_inverse_decrypt_mod_t(phase, cd.ntt, cd.exact_to_t,
+                                              inv_cf)
+    coeff = dntt.rns_ntt_inverse(phase, cd.ntt)
+    if bfv:
+        return drns.decrypt_scale_and_round(coeff, cd.rns)
+    return drns.decrypt_mod_t(coeff, cd.exact_to_t, inv_cf)
+
+
 def _decrypt_core(data: torch.Tensor, sk_powers: torch.Tensor,
                   cd: ContextData, is_ntt_form: bool,
                   inv_cf: int = 1) -> torch.Tensor:
     """BFV or BGV decrypt to plaintext words mod t, (n,); BGV's times the
     inverse correction factor inv_cf."""
-    phase = _phase_core(data, sk_powers, cd, is_ntt_form)
-    if cd.scheme == SchemeType.bgv:
-        return drns.decrypt_mod_t(phase, cd.exact_to_t, inv_cf)
-    return drns.decrypt_scale_and_round(phase, cd.rns)
+    return _decrypt_phase(_phase_ntt_core(data, sk_powers, cd, is_ntt_form),
+                          cd, inv_cf)
 
 
 class Decryptor:
@@ -112,8 +132,8 @@ class Decryptor:
         """Batched decryption (troy_tpu/decryptor.py:124): the ciphertexts,
         which must share size, level, NTT form and (BGV) correction factor,
         go through each step of ``decrypt`` together, one launch per step
-        whatever their number (``_phase_ntt_many``, then one inverse A and
-        one C + E rounding for BFV or one X for BGV), and come to the host
+        whatever their number (``_phase_ntt_many``, then ``_decrypt_phase``:
+        ACi or AXi on A's route), and come to the host
         in one copy: the plaintexts hold CPU tensors. CKKS returns each
         NTT-form phase with its ciphertext's level and scale. One
         ciphertext goes to ``decrypt``."""
@@ -138,16 +158,11 @@ class Decryptor:
             return [Plaintext(data=host[i], level=first.level,
                               is_ntt_form=True, scale=c.scale)
                     for i, c in enumerate(cts)]
-        phase = dntt.rns_ntt_inverse(phase, cd.ntt)
-        if scheme == SchemeType.bgv:
-            inv_cf = 1
-            if first.correction_factor != 1:
-                t = int(cd.plain_modulus)
-                inv_cf = numth.invert_mod(first.correction_factor % t, t)
-            m = drns.decrypt_mod_t(phase, cd.exact_to_t, inv_cf)
-        else:
-            m = drns.decrypt_scale_and_round(phase, cd.rns)
-        host = m.cpu()
+        inv_cf = 1
+        if scheme == SchemeType.bgv and first.correction_factor != 1:
+            t = int(cd.plain_modulus)
+            inv_cf = numth.invert_mod(first.correction_factor % t, t)
+        host = _decrypt_phase(phase, cd, inv_cf).cpu()
         return [Plaintext(data=host[i]) for i in range(len(cts))]
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:

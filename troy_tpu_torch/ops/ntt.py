@@ -347,6 +347,23 @@ def launch_blocks(rows: int, n: int, inverse: bool = False
     return tuple(blocks[:count])
 
 
+def inverse_decrypt_plan(comps: int, k: int, n: int,
+                         bfv: bool) -> Tuple[int, ...]:
+    """The plan of the fused decrypt's last inverse pass (ACi if ``bfv``,
+    else AXi) over ``comps`` components of k rows of n words (the card's
+    library, no launch): (log2 of a line's words, log2 of a block's
+    columns, the rows a block holds, log2 of a tile's threads, blocks).
+    The fused entries launch only where a block holds the k rows."""
+    plan = (ctypes.c_longlong * 5)()
+    _kernels.library()
+    status = _kernels._entries["troy_ntt_inverse_decrypt_plan"](
+        comps, k, n.bit_length() - 1, int(bfv), ctypes.addressof(plan))
+    if status != 0:
+        raise ValueError(f"no fused decrypt plan for {comps} x {k} rows at "
+                         f"n = {n}")
+    return tuple(plan)
+
+
 def rns_ntt_forward(x: torch.Tensor, t: RnsNttTables, lazy: bool = False,
                     x_bound_bits: Optional[int] = None) -> torch.Tensor:
     """Forward NTT of every limb: (..., k, n) -> (..., k, n). Input words

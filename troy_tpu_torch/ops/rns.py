@@ -16,7 +16,11 @@ K'-BGV), the same BGV divide in the coefficient domain
 (``mod_t_and_divide_q_last``, kernel K'', csrc/keyswitch.cu), and the BGV
 decrypt's exact conversion q -> t
 (``exact_convert``, ``decrypt_mod_t``, kernel X, csrc/exact_convert.cu).
-An RNS polynomial is a (..., k, n) int64
+On A's route the decrypt's conversions run inside kernel A's last inverse
+pass instead (``ntt_inverse_decrypt_mod_t``, AXi, and
+``ntt_inverse_decrypt_scale_and_round``, ACi, csrc/ntt.cu; the per-word
+arithmetic of X, C and E's rounding shared through csrc/decrypt.cuh);
+``decrypt_fused`` picks the route. An RNS polynomial is a (..., k, n) int64
 tensor of u64 words; every function here also takes leading batch axes, so
 the components of a ciphertext go through in one call.
 
@@ -802,3 +806,155 @@ def decrypt_mod_t(phase: torch.Tensor, conv: ExactConverter,
     mod t times the inverse correction factor, (..., n) (rns.cpp:1142-1146,
     kernel X)."""
     return exact_convert(phase, conv, inv_cf)[..., 0, :]
+
+
+# --------------------------------------------------------------------------
+# AXi and ACi: the decrypt's last step in kernel A's last inverse pass
+# --------------------------------------------------------------------------
+#
+# On A's route the decrypt's conversion of the coefficient-form phase runs
+# inside A's inverse (csrc/ntt.cu troy_ntt_inverse_decrypt_bgv, _bfv): a
+# block of the last pass holds one column set of all k rows of a component
+# and finishes whole coefficients with X's arithmetic, or C's and E's
+# rounding (csrc/decrypt.cuh). Tables on J, or a level whose k rows one
+# block cannot hold (the library's plan, ``decrypt_plan``), take A's or
+# J's inverse and the standalone kernels instead: ``decrypt_fused`` says
+# which, by shape.
+
+
+def _on_a(tables: RnsNttTables) -> bool:
+    return tables.mxu is None and tables.root_powers.shape[-1] == tables.n
+
+
+def decrypt_plan(tables: RnsNttTables, bfv: bool) -> Optional[tuple]:
+    """The plan of the fused pass (ACi for BFV, else AXi) at the level of
+    ``tables`` on the card: ``ops/ntt.inverse_decrypt_plan`` for one
+    component, asked once a level (whether a block holds the k rows does
+    not depend on the components). None on the CPU, where the plain
+    version takes any number of limbs."""
+    if tables.q.device.type != "cuda":
+        return None
+    key = ("decrypt_plan", bfv)
+    if key not in tables._memo:
+        tables._memo[key] = dntt.inverse_decrypt_plan(1, tables.k, tables.n,
+                                                      bfv)
+    return tables._memo[key]
+
+
+def decrypt_fused(tables: RnsNttTables, bfv: bool) -> bool:
+    """Whether the decrypt over the level's ``tables`` runs fused into A's
+    inverse (ACi for BFV, else AXi): A's tables and, on the card, a plan
+    whose block holds all k rows."""
+    if not _on_a(tables):
+        return False
+    plan = decrypt_plan(tables, bfv)
+    return plan is None or plan[2] == tables.k
+
+
+def fold_inverse_degree(consts: torch.Tensor,
+                        tables: RnsNttTables) -> torch.Tensor:
+    """X's or C's constants (both hold q, the punctured inverses and their
+    Shoup words at 0, k and 2k) with n^-1 mod q_j folded into the punctured
+    inverses: a Shoup product by them turns a lazy word of A's inverse
+    butterflies (below 2q, n^-1 not yet applied) straight into X's or C's
+    temp, fully reduced, as n^-1, reduce_2q and the product by the
+    punctured inverse give it. Made once per (constants, tables)."""
+    key = ("inverse_degree_folded", id(consts))
+    hit = tables._memo.get(key)
+    if hit is None or hit[0] is not consts:
+        k, n = tables.k, tables.n
+        words = [int(v) & u.M64 for v in consts.tolist()]
+        for j, q in enumerate(words[:k]):
+            w = words[k + j] * pow(n, -1, q) % q
+            words[k + j], words[2 * k + j] = w, u.shoup_quotient(w, q)
+        hit = tables._memo[key] = (consts, _words(words, consts.device))
+    return hit[1]
+
+
+def ntt_inverse_decrypt_mod_t_plain(x: torch.Tensor, tables: RnsNttTables,
+                                    conv: ExactConverter,
+                                    inv_cf: int = 1) -> torch.Tensor:
+    """The plain version of ``ntt_inverse_decrypt_mod_t``: A's inverse
+    butterfly network, then X's."""
+    return exact_convert_plain(dntt.ntt_inverse_plain(x, tables), conv,
+                               inv_cf)[..., 0, :]
+
+
+def ntt_inverse_decrypt_scale_and_round_plain(
+        x: torch.Tensor, tool: DeviceRnsTool) -> torch.Tensor:
+    """The plain version of ``ntt_inverse_decrypt_scale_and_round``: A's
+    inverse butterfly network, then C's and E's."""
+    return decrypt_scale_and_round_plain(dntt.ntt_inverse_plain(x, tool.q),
+                                         tool)
+
+
+def _inverse_decrypt(entry: str, name: str, bfv: bool, x: torch.Tensor,
+                     tables: RnsNttTables, conv_k: int, operands,
+                     *consts) -> Optional[torch.Tensor]:
+    """The fused decrypt's checks, then None on the CPU or the launch of
+    ``entry`` with ``consts`` after the tables, the first (X's or C's) with
+    n^-1 folded in."""
+    if not _on_a(tables):
+        raise ValueError(f"{name}: these tables hold no transform on A "
+                         "(kernel J's, or a pointwise view)")
+    k, n = tables.k, tables.n
+    if x.dim() < 2 or tuple(x.shape[-2:]) != (k, n) or conv_k != k:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and constants of "
+                         f"{conv_k} limbs do not fit {k} limbs at n = {n}")
+    plan = decrypt_plan(tables, bfv)
+    if plan is not None and plan[2] != k:
+        raise ValueError(f"{name}: one block of the fused pass cannot hold "
+                         f"{k} limbs at n = {n}")
+    if not _kernels.on_cuda(x, tables.q, *operands):
+        return None
+    x = x.contiguous()
+    _kernels.check_operand(x, f"{name} input")
+    # A's first pass writes its words here where the transform takes two
+    # passes (lines shorter than the row)
+    scratch = torch.empty_like(x) if plan[0] < tables.log_n else None
+    out = torch.empty(x.shape[:-2] + (n,), dtype=torch.int64,
+                      device=x.device)
+    _kernels.launch(entry, out.get_device(), out, x, scratch,
+                    x.numel() // (k * n), k, tables.log_n,
+                    tables.inv_root_powers, tables.inv_root_powers_shoup,
+                    tables.q, fold_inverse_degree(consts[0], tables),
+                    *consts[1:])
+    return out
+
+
+def ntt_inverse_decrypt_mod_t(x: torch.Tensor, tables: RnsNttTables,
+                              conv: ExactConverter,
+                              inv_cf: int = 1) -> torch.Tensor:
+    """The BGV decrypt's last step on A's route (AXi: kernel X folded into
+    kernel A's last inverse pass, one call, csrc/ntt.cu
+    ``troy_ntt_inverse_decrypt_bgv``): NTT-form phases x (..., k, n) over
+    the level's ``tables`` -> (..., n), the words of
+    ``rns_ntt_inverse(x, tables)`` then ``decrypt_mod_t(., conv,
+    inv_cf)``. Tables on J, a pointwise view or a wrong shape raise on
+    either device; more limbs than one block holds (``decrypt_plan``) on
+    the card."""
+    inv_cf %= conv.t
+    out = _inverse_decrypt(
+        "troy_ntt_inverse_decrypt_bgv", "ntt_inverse_decrypt_mod_t", False,
+        x, tables, conv.k, (conv.consts,), conv.consts, inv_cf,
+        u.shoup_quotient(inv_cf, conv.t))
+    return ntt_inverse_decrypt_mod_t_plain(x, tables, conv, inv_cf) \
+        if out is None else out
+
+
+def ntt_inverse_decrypt_scale_and_round(x: torch.Tensor, tool: DeviceRnsTool
+                                        ) -> torch.Tensor:
+    """The BFV decrypt's last step on A's route (ACi: kernel C's
+    conversion to {t, gamma} and kernel E's rounding folded into kernel
+    A's last inverse pass, one call, csrc/ntt.cu
+    ``troy_ntt_inverse_decrypt_bfv``): NTT-form phases x (..., k, n) over
+    the level's tables ``tool.q`` -> (..., n), the words of
+    ``rns_ntt_inverse(x, tool.q)`` then ``decrypt_scale_and_round(.,
+    tool)``. The refusals as ``ntt_inverse_decrypt_mod_t``'s."""
+    conv = tool.q_to_t_gamma_scaled
+    out = _inverse_decrypt(
+        "troy_ntt_inverse_decrypt_bfv", "ntt_inverse_decrypt_scale_and_round",
+        True, x, tool.q, conv.k_in, (conv.consts, tool.decrypt_consts),
+        conv.consts, tool.decrypt_consts)
+    return ntt_inverse_decrypt_scale_and_round_plain(x, tool) \
+        if out is None else out
