@@ -95,8 +95,9 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    divides, the mod switch's temps and finish and the key switch's temps,
    and AKp's BGV entries, alone and after A's inverse;
    G' the plain lift with threshold (t+1)/2, with threshold t and times a
-   correction factor) against their plain versions at the BGV shapes, word
-   for word, with the times and bounds of phase 3;
+   correction factor, and AGp, G''s lift in A's first forward pass, the
+   same three and against G' then A) against their plain versions at the
+   BGV shapes, word for word, with the times and bounds of phase 3;
 12. the BGV n = 16384 records chain from troy's C++ code
    (tests/data/ref_bgv_n16384_headline.bin, seed 2027): keygen (sk, relin
    key row 0, Galois key row 0), the encryptions of the records' slot
@@ -170,7 +171,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    matmul's (1,32,2,2,n) x (32,126,2,n) and a ragged (3,5,2,2,n) x
    (5,13,2,n); P2
    the ciphertext pair grid at X = 1, Yc = 16 over q u Bsk with lazy words
-   and over q; P3 the group fold at m = 16 and a ragged m = 20, P = 16)
+   and over q; P3 the group fold at m = 16 and a ragged m = 20, P = 16;
+   AP2i, P2 in A's first inverse pass, at P2's q u Bsk shape, also against
+   P2 then A's inverse, and at X = 2, Yc = 5 with sizes 3 x 2; AGp at the
+   matmul's (8,16,n) and the conv2d's (64,52,n) weight tiles)
    against their plain versions, word for word, with the times and bounds
    of phase 3 (no PyTorch call computes them: no library time);
 21. troy's app protocol at full width (test/app/linear.cu:575-584, as
@@ -182,17 +186,20 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    and packed; matmul 128x500x1001 with saveTerms; conv2d 1x64x256 56x56
    3x3; each decrypts exactly to the integer oracle mod t, each ciphertext
    grid round-trips Cipher2d.save/load; a packed BGV matmul 64x128x256
-   (t = 2^41, the inputs in coefficient form) exactly, and a CKKS matmul
+   (t = 2^41, the inputs in coefficient form) and a BGV ct x ct matmul
+   64x128x256 (relinearized, on P2's own kernel) exactly, and a CKKS matmul
    64x128x256 (the CKKS configuration above, scale 2^40) within
    CKKS_APP_BOUND; then the medians of each protocol phase in
    linear_bench.py's order, the BIG matmul's and the conv2d's (CUDA
    events, APP_REPS runs after a warm-up; the host's encode loops and the
    decryption apart from the output gathers);
 22. phase 21's checks in a count window of their own: P1, P2, P3, A, B,
-   ACi, D, E, AF, AFi, G', I, M, N1, K'', AXi, O2 and O3 launched, no
-   standalone C, X or E rounding launch, no plain version
-   or u64ops on a CUDA tensor; and the device kernels and time of matmul,
-   matmul_cipher, pack_outputs, conv2d, decrypt_many of the conv's 52
+   ACi, D, E, AF, AFi, AGp, AP2i, AKp, I, M, N1, K'', AXi, O2 and O3
+   launched, no standalone C, X, E rounding or G' launch, no plain version
+   or u64ops on a CUDA tensor; BFV's matmul_cipher launching AP2i and not
+   P2, BGV's P2 and not AP2i (counters); and the device kernels and time
+   of matmul, matmul_cipher (BFV and BGV), pack_outputs, conv2d,
+   decrypt_many of the conv's 52
    outputs and fetch_ciphertexts_host(to_coeff=True) from the profiler.
 23. kernel J (the 4-step NTT's stages as butterflies in shared memory,
    csrc/ntt_mxu.cu) against its plain version (the exact int8 matrix
@@ -206,10 +213,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the plain version's plane products alone (the library yardstick, never
    used by the port) and A's time;
 24. troy's timetest BFV mult+relin and CKKS mult+relin+rescale at
-   n = 16384 with use_mxu=True, word-equal to the A route on the same
-   ciphertexts and keys, in a count window that must launch J (and for
-   CKKS K''s own temps and finish) and not A or AKp; both routes timed,
-   alternately;
+   n = 16384 with use_mxu=True, and a BFV multiply_plain, word-equal to
+   the A route on the same ciphertexts and keys, in a count window that
+   must launch J (for CKKS K''s own temps and finish, for BFV F and G')
+   and not A, AKp or AGp; both routes timed, alternately;
 25. SEAL's 128-bit n = 32768 BFV chain at full width (bfv_default(32768):
    16 primes, 881 bits; t = PlainModulus.batching(32768, 20)), every NTT
    on the default route (A): native host keygen (secret, public, relin,
@@ -281,7 +288,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A, M, J, E, O1, O5, P1, F, K', D, I, O3, X and C as redesigned
+35. kernels A, M, J, E, O1, O5, P1, F, K', D, I, O3, X, C, G' and P2 as
+   redesigned
    for the H100: A against its plain version, word for word, at n = 256
    to 16384 (one pass below 1024, two from it up) and a row mod t, three
    rows mod t, (5, 6, n) and (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
@@ -336,8 +344,15 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    entry once and X, C and E's rounding never, and one- against
    two-column blocks at a single decrypt (redesign_decrypt); the
    standalone X, C and E's rounding at the J-route shapes (1,5,16384) and
-   (1,2,262144) (standalone_decrypt); and the spread of one CKKS and one
-   BGV
+   (1,2,262144) (standalone_decrypt); AGp at the headline's (n) -> (5,n)
+   and the app's weight tiles (8,16,n) and (64,52,n), word-equal to G' then
+   A, timed in turns with that composition and with A alone on the lifted
+   rows (redesign_agp); AP2i at the app's pair grid and at (2,3,6,n) x
+   (5,2,6,n), word-equal to P2 then A's inverse, timed in turns with it
+   and with P2 alone (redesign_ap2i); P2's own kernel at the app's q u Bsk
+   and over-q grids, its device us a call and a launch and its bound's
+   share (standalone_p2, on the wrappers the earlier trees have too); and
+   the spread of one CKKS and one BGV
    rotation's profiled device time over 8 traces in this process
    (op_spread). Device us
    a call come from CUDA events
@@ -555,12 +570,29 @@ REDESIGN_O3_SHAPES = (("(15,32768)", 32768, CKKS_LARGE_BITS, 15),
 REDESIGN_AFI_SHAPES = (("SEAL (2,16,32768) onto (c0,c1)", 32768,
                         "bfv_default", 2),
                        ("(2,6,512) onto (c0,c1)", 512, Q_BITS, 2))
+# phase 35 (G' and P2 redesigned): AGp against G' + A (tag, the context:
+# the BGV headline's first level or the app's, the source rows' leading
+# shape: a plaintext, the matmul's and the conv2d's weight tiles); AP2i
+# against P2 + A's inverse and P2 alone at the app's pair grids (tag, X,
+# Yc, s1, s2: over q u Bsk, lazy words) and P2 over q (tag, X, Yc, over
+# q u Bsk)
+REDESIGN_AGP_SHAPES = (("headline (n)->(5,n)", "bgv", ()),
+                       ("app matmul (8,16,n)->(8,16,2,n)", "app", (8, 16)),
+                       ("app conv (64,52,n)->(64,52,2,n)", "app", (64, 52)))
+REDESIGN_AP2I_SHAPES = (("app (1,2,6,n)x(16,2,6,n)", 1, 16, 2, 2),
+                        ("(2,3,6,n)x(5,2,6,n)", 2, 5, 3, 2))
+REDESIGN_P2_SHAPES = (("q u Bsk (1,2,6,n)x(16,2,6,n)", 1, 16, True),
+                      ("over q (1,2,2,n)x(16,2,2,n)", 1, 16, False))
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
     "A_ntt": ("troy_tpu_torch/csrc/ntt.cu", "troy_tpu/ops/ntt.py:318"),
     "AF_ntt_digits": ("troy_tpu_torch/csrc/ntt.cu",
                       "troy_tpu/evaluator.py:179"),
+    "AGp_ntt_lift": ("troy_tpu_torch/csrc/ntt.cu",
+                     "troy_tpu/evaluator.py:708"),
+    "AP2i_pair_intt": ("troy_tpu_torch/csrc/ntt.cu",
+                       "troy_tpu/app/linear.py:133"),
     "AKp_rescale_ntt": ("troy_tpu_torch/csrc/ntt.cu",
                         "troy_tpu/ops/rns.py:213"),
     "AKp_keyswitch_ntt": ("troy_tpu_torch/csrc/ntt.cu",
@@ -629,11 +661,15 @@ KERNELS = {
 }
 # the kernels each path must launch; on A's route the key switch's digits
 # run in A's first pass (AF), BFV's divide in A's last inverse pass (AFi),
-# K''s temps and finish in A's forward passes (AKp), and the decrypt's
-# conversions in A's last inverse pass (ACi: C and E's rounding; AXi: X);
-# F's and K''s own kernels (F, Kp) only on J's route (phase 24, n = 262144
-# in phase 27, the coefficient-sharded key switch of phase 34), C's and
-# X's with E's rounding there too (n = 262144 in phase 27)
+# K''s temps and finish in A's forward passes (AKp), the decrypt's
+# conversions in A's last inverse pass (ACi: C and E's rounding; AXi: X),
+# the plain lift in A's first forward pass (AGp: G') and BFV's pair
+# convolution in A's first inverse pass (AP2i: P2); F's and K''s own
+# kernels (F, Kp) only on J's route (phase 24, n = 262144 in phase 27, the
+# coefficient-sharded key switch of phase 34), C's and X's with E's
+# rounding there too (n = 262144 in phase 27), G' there too (phase 24's
+# multiply_plain); P2's own kernel for the CKKS and BGV pair grids (the
+# app's BGV ct x ct matmul)
 BFV_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
             "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
             "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
@@ -641,13 +677,13 @@ CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
              "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
              "AKp_rescale_ntt", "AKp_keyswitch_ntt", "I_sampling")
 BGV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-            "M_galois", "AKp_bgv_ntt", "AXi_decrypt_intt", "Gp_plain_lift",
+            "M_galois", "AKp_bgv_ntt", "AXi_decrypt_intt", "AGp_ntt_lift",
             "I_sampling")
 PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
-                  "G_plain_embed", "Gp_plain_lift", "AKp_rescale_ntt",
+                  "G_plain_embed", "AGp_ntt_lift", "AKp_rescale_ntt",
                   "ACi_decrypt_intt")
 DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
-                "G_plain_embed", "Gp_plain_lift")
+                "G_plain_embed", "AGp_ntt_lift")
 LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
             "A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
             "AFi_keyswitch_intt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
@@ -655,7 +691,7 @@ LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
 APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
             "AF_ntt_digits", "B_dyadic_mac", "ACi_decrypt_intt",
             "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
-            "Gp_plain_lift", "I_sampling", "M_galois", "N1_negacyclic",
+            "AGp_ntt_lift", "AP2i_pair_intt", "AKp_bgv_ntt", "I_sampling", "M_galois", "N1_negacyclic",
             "Kpp_bgv_coeff",
             "AXi_decrypt_intt", "O2_ckks_round", "O3_ckks_compose")
 LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
@@ -677,7 +713,7 @@ BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
                "AF_ntt_digits", "B_dyadic_mac", "ACi_decrypt_intt",
                "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
                "G_plain_embed",
-               "Gp_plain_lift", "I_sampling", "K_divide_round",
+               "AGp_ntt_lift", "I_sampling", "K_divide_round",
                "AKp_rescale_ntt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
                "M_galois",
                "AXi_decrypt_intt")
@@ -688,13 +724,14 @@ SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits",
                 "E_behz", "F_keyswitch", "K_divide_round", "AKp_rescale_ntt",
                 "AKp_keyswitch_ntt", "AKp_bgv_ntt", "Kp_keyswitch_ntt",
                 "Kp_bgv_ntt", "M_galois", "J_ntt_mxu", "P1_tile_contract",
-                "Gp_plain_lift")
+                "AGp_ntt_lift")
 # the entry points a window on A's route must not launch: F's separate
 # digits (their work is in AF), F's divide (in AFi), K''s temps and
-# finish (in AKp), and the decrypt's X, C and E's rounding (in AXi, ACi)
+# finish (in AKp), the decrypt's X, C and E's rounding (in AXi, ACi) and
+# G''s lift (in AGp)
 A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_keyswitch_divide_round",
                   "troy_exact_convert", "troy_base_convert",
-                  "troy_behz_decrypt_round",
+                  "troy_behz_decrypt_round", "troy_plain_lift",
                   "troy_rescale_ntt_temps",
                   "troy_rescale_ntt_finish", "troy_keyswitch_ntt_temps",
                   "troy_keyswitch_ntt_finish",
@@ -1796,8 +1833,35 @@ def phase_bgv_kernels(ctx) -> dict:
         ("Gp_plain_lift", f"(n) -> ({k},n), times cf mod t", "words",
          lambda: poly.plain_lift(m, q5, t, half, Q, cf),
          lambda: poly.plain_lift_plain(m, q5, t, half, Q, cf), None, None),
+        # G''s lift in A's first forward pass: m in, the transformed rows
+        # out, the twiddles; A's products and the lift's (2 a word)
+        ("AGp_ntt_lift", f"(n) -> ({k},n), threshold (t+1)/2", "words",
+         lambda: ntt.rns_ntt_forward_lift(m, q5, t, half, Q),
+         lambda: ntt.ntt_forward_lift_plain(m, q5, t, half, Q),
+         lift_work(q5, 1), None),
+        ("AGp_ntt_lift", f"(n) -> ({k},n), threshold t (encrypt)", "words",
+         lambda: ntt.rns_ntt_forward_lift(m, q5, t, t, Q),
+         lambda: ntt.ntt_forward_lift_plain(m, q5, t, t, Q), None, None),
+        ("AGp_ntt_lift", f"(n) -> ({k},n), times cf mod t", "words",
+         lambda: ntt.rns_ntt_forward_lift(m, q5, t, half, Q, cf),
+         lambda: ntt.ntt_forward_lift_plain(m, q5, t, half, Q, cf),
+         None, None),
+        ("AGp_ntt_lift", f"with G' + A: (n) -> ({k},n), times cf mod t",
+         "words", lambda: ntt.rns_ntt_forward_lift(m, q5, t, half, Q, cf),
+         lambda: ntt.rns_ntt_forward(poly.plain_lift(m, q5, t, half, Q, cf),
+                                     q5), None, None),
     ]
     return run_checks("11", checks)
+
+
+def lift_work(t, sources: int) -> tuple:
+    """bound() arguments of one AGp call over ``sources`` rows mod t into
+    t's k limbs: the rows in, the k-limb rows out and the twiddles once;
+    A's butterfly products and the lift's (at most 2 a word: cf's Shoup
+    product, the Barrett)."""
+    k, n = t.k, t.n
+    return ((sources * n + sources * k * n + 2 * k * n) * 8,
+            ntt_rows_mul64(sources * k, n) + 2 * sources * k * n)
 
 
 def bgv_values(t: int):
@@ -2675,10 +2739,11 @@ def tile_work(a: torch.Tensor, w: torch.Tensor, out_words: int,
 
 
 def phase_app_kernels(ctx) -> dict:
-    """Phase 20: P1, P2 and P3 against their plain versions on the card at
-    the app protocol's full-width shapes, word for word (tolerance 0). No
-    PyTorch call computes a modular tile contraction on u64 words: no
-    library time."""
+    """Phase 20: P1, P2, P3, AP2i (P2 in A's first inverse pass) and AGp
+    (G''s lift in A's first forward pass) against their plain versions on
+    the card at the app protocol's full-width shapes, word for word
+    (tolerance 0). No PyTorch call computes a modular tile contraction on
+    u64 words: no library time."""
     rng = np.random.default_rng(SEED + 20)
     dev = ctx.device
     cd = ctx.first_context_data
@@ -2697,6 +2762,12 @@ def phase_app_kernels(ctx) -> dict:
     bfv_w = _uniform(rng, lazy, (16, 2, qb.k, N), dev)
     ntt_a = _uniform(rng, q.values, (1, 2, k, N), dev)
     ntt_w = _uniform(rng, q.values, (16, 2, k, N), dev)
+    bfv_a3 = _uniform(rng, lazy, (2, 3, qb.k, N), dev)
+    bfv_w5 = _uniform(rng, lazy, (5, 2, qb.k, N), dev)
+    tt, Q = int(cd.plain_modulus), cd.total_coeff_modulus
+    half = cd.plain_upper_half_threshold
+    mm_m = to_torch(rng.integers(0, tt, (8, 16, N), dtype=np.uint64), dev)
+    conv_m = to_torch(rng.integers(0, tt, (64, 52, N), dtype=np.uint64), dev)
     fold16 = _uniform(rng, q.values, (16, 2, k, N), dev)
     fold20 = _uniform(rng, q.values, (20, 2, k, N), dev)
     # P1: per output word 2 I products' words and a Barrett-128 (7) per 63
@@ -2734,8 +2805,48 @@ def phase_app_kernels(ctx) -> dict:
         ("P3_group_fold", f"ragged m=20 P=16 (20,2,{k},n)",
          lambda: tiles.pack_group_fold(fold20, 16, q),
          lambda: tiles.pack_group_fold_plain(fold20, 16, q), None, None),
+        # P2 in A's first inverse pass (BFV's grid on A's route)
+        ("AP2i_pair_intt", f"BFV X=1 Yc=16 over q u Bsk ({qb.k} rows), "
+         "lazy",
+         lambda: ntt.rns_ntt_inverse_pair_convolve(bfv_a, bfv_w, qb),
+         lambda: ntt.ntt_inverse_pair_convolve_plain(bfv_a, bfv_w, qb),
+         pair_work(bfv_a, bfv_w, qb), None),
+        ("AP2i_pair_intt", f"with P2 + A: X=1 Yc=16 over q u Bsk",
+         lambda: ntt.rns_ntt_inverse_pair_convolve(bfv_a, bfv_w, qb),
+         lambda: ntt.rns_ntt_inverse(tiles.tile_pair_convolve(bfv_a, bfv_w,
+                                                              qb), qb),
+         None, None),
+        ("AP2i_pair_intt", f"X=2 Yc=5, sizes 3 x 2 over q u Bsk",
+         lambda: ntt.rns_ntt_inverse_pair_convolve(bfv_a3, bfv_w5, qb),
+         lambda: ntt.ntt_inverse_pair_convolve_plain(bfv_a3, bfv_w5, qb),
+         None, None),
+        # G''s lift in A's first pass at the app's weight tiles (phase 11's
+        # headline shape stands for AGp in the JSON line)
+        ("AGp_ntt_lift", f"matmul weights (8,16,n) -> (8,16,{k},n)",
+         lambda: ntt.rns_ntt_forward_lift(mm_m, q, tt, half, Q),
+         lambda: ntt.ntt_forward_lift_plain(mm_m, q, tt, half, Q),
+         lift_work(q, 8 * 16), None),
+        ("AGp_ntt_lift", f"conv weights (64,52,n) -> (64,52,{k},n)",
+         lambda: ntt.rns_ntt_forward_lift(conv_m, q, tt, half, Q),
+         lambda: ntt.ntt_forward_lift_plain(conv_m, q, tt, half, Q), None,
+         None),
     ]
-    return run_checks("20", [(c[0], c[1], "words") + c[2:] for c in checks])
+    out = run_checks("20", [(c[0], c[1], "words") + c[2:] for c in checks])
+    del out["AGp_ntt_lift"]
+    return out
+
+
+def pair_work(a: torch.Tensor, w: torch.Tensor, t) -> tuple:
+    """bound() arguments of one AP2i call: a and w in, the inverse-
+    transformed products out and the inverse twiddles once; P2's products
+    (2 a term) and Barrett-128s (7 an output word) and A's butterfly
+    products over every output row."""
+    X, s1, R, n = a.shape
+    Y, s2 = w.shape[:2]
+    rows = X * Y * (s1 + s2 - 1) * R
+    return ((a.numel() + w.numel() + rows * n + 2 * R * n) * 8,
+            X * Y * R * n * (2 * s1 * s2 + 7 * (s1 + s2 - 1))
+            + ntt_rows_mul64(rows, n))
 
 
 def app_context(scheme) -> "P.HeContext":
@@ -2899,6 +3010,14 @@ def app_requests(bfv: AppScheme, bgv: AppScheme, ckks: AppScheme) -> dict:
                                    h.serialize_outputs(g.ev, g.ctx, yg))
     exact(h.decrypt_outputs(g.dp, g.dec, back_g), matmul_oracle(xg, wg), g.t,
           "BGV matmul 64x128x256 packed")
+    # BGV ct x ct 64 x 128 x 256, inputs and weights encrypted (NTT form):
+    # the pair grid on P2's own kernel, relinearized, decrypted exactly
+    hg = linear.MatmulHelper(64, 128, 256, N, objective=0, pack_lwe=False)
+    xg_c = hg.encrypt_inputs(g.enc, g.ep, xg)
+    wg_c = hg.encode_weights(g.ep, wg).encrypt_symmetric(g.enc)
+    exact(hg.decrypt_outputs(g.dp, g.dec, hg.matmul_cipher(
+        g.ev, xg_c, wg_c).relinearize(g.ev, g.rlk)), matmul_oracle(xg, wg),
+          g.t, "BGV ct x ct matmul 64x128x256")
     # CKKS: 64 x 128 x 256, no packing, scale 2^40
     c = ckks
     hk = linear.MatmulHelper(64, 128, 256, N, objective=0, pack_lwe=False)
@@ -2916,7 +3035,8 @@ def app_requests(bfv: AppScheme, bgv: AppScheme, ckks: AppScheme) -> dict:
     log(f"[21] BFV n = {N}, q = {APP_Q_BITS}, t = 2^41: matmul 64x128x256 "
         "packed (ct x pt and ct x ct relinearized), matmul 128x500x1001 "
         "saveTerms, conv2d 1x64x256 56x56 3x3 decrypt exactly to the "
-        "integer oracle mod t; so does the packed BGV matmul (t = 2^41); "
+        "integer oracle mod t; so do the packed BGV matmul and the BGV ct "
+        "x ct matmul (t = 2^41); "
         f"the CKKS matmul is within {err:.3g} (bound {CKKS_APP_BOUND:g}); "
         "every grid round-trips Cipher2d.save/load; output bytes "
         f"{out['bytes']}")
@@ -2924,7 +3044,8 @@ def app_requests(bfv: AppScheme, bgv: AppScheme, ckks: AppScheme) -> dict:
                blob=blob, back=back, w_ct=w_ct, yc=yc, hb=hb, xb=xb, wb=wb,
                wb_pt=wb_pt, xb_ct=xb_ct, yb=yb, blob_b=blob_b, back_b=back_b,
                hc=hc, xv=xv, wv=wv, wv_pt=wv_pt, xv_ct=xv_ct, yv=yv,
-               blob_v=blob_v, back_v=back_v, conv_flat=conv_flat)
+               blob_v=blob_v, back_v=back_v, conv_flat=conv_flat, hg=hg,
+               xg_c=xg_c, wg_c=wg_c)
     return out
 
 
@@ -2995,7 +3116,24 @@ def phase_app(bfv_ctx, bgv_ctx, ckks_ctx, counter) -> tuple:
         torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     check_path("22", "21 (the app protocol)", APP_PATH, counts, counter)
-    s = schemes["bfv"]
+    s, g = schemes["bfv"], schemes["bgv"]
+    # the pair grid's route: BFV's in A's first inverse pass (AP2i), one
+    # call an inner tile and P2 never; BGV's on P2's own kernel
+    for name, fn, fused in (
+            ("BFV", lambda: r["h"].matmul_cipher(s.ev, r["x_ct"], r["w_ct"]),
+             True),
+            ("BGV", lambda: r["hg"].matmul_cipher(g.ev, r["xg_c"],
+                                                  r["wg_c"]), False)):
+        _kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        c = _kernels.launch_counts()
+        got = (c["AP2i_pair_intt"], c["P2_pair_convolve"])
+        if (got[0] > 0, got[1] > 0) != (fused, not fused):
+            raise AssertionError(f"{name} matmul_cipher launched AP2i and P2 "
+                                 f"{got} times")
+        log(f"[22] {name} matmul_cipher: AP2i {got[0]}, P2 {got[1]} "
+            "launches a call")
     times = app_timings(s, r)
     c = schemes["ckks"]
     coeffs = c.rng.uniform(-1, 1, N)
@@ -3015,6 +3153,8 @@ def phase_app(bfv_ctx, bgv_ctx, ckks_ctx, counter) -> tuple:
         "app_matmul": lambda: h.matmul(ev, r["x_ct"], r["w_pt"]),
         "app_matmul_cipher": lambda: h.matmul_cipher(ev, r["x_ct"],
                                                      r["w_ct"]),
+        "app_bgv_matmul_cipher": lambda: r["hg"].matmul_cipher(
+            g.ev, r["xg_c"], r["wg_c"]),
         "app_pack_outputs": lambda: h.pack_outputs(ev, s.gk, r["y"]),
         "app_conv2d": lambda: hc.conv2d(ev, r["xv_ct"], r["wv_pt"]),
         "app_decrypt_many_conv52": lambda: s.dec.decrypt_many(
@@ -3150,13 +3290,17 @@ def phase_mxu_kernels(dev) -> dict:
 def phase_mxu_headline(parts: dict, counter) -> dict:
     """Phase 24: troy's timetest BFV mult+relin and CKKS
     mult+relin+rescale at n = 16384 on J (use_mxu=True), word-equal to the
-    A route on the same ciphertexts and keys; both routes timed. The J
-    route runs in a count window of its own: J launched, A not, no plain
-    torch on the card."""
+    A route on the same ciphertexts and keys; both routes timed; and a BFV
+    multiply_plain by a mod-t plaintext, whose lift runs on G' there (AGp
+    on A's route), word-equal too. The J route runs in a count window of
+    its own: J launched, A not, no plain torch on the card."""
     out, results, routes = {}, {}, {}
     for scheme, (ctx, ca, cb, rlk) in parts.items():
         ctx_j = P.HeContext(ctx.key_context_data.parms, use_mxu=True)
-        ops = {}
+        ops, plain_ops = {}, {}
+        if scheme == "bfv":
+            be = P.BatchEncoder(ctx)
+            pt = be.encode(np.arange(N, dtype=np.uint64) % be.plain_modulus)
         for route, c in (("a", ctx), ("j", ctx_j)):
             ev = P.Evaluator(c)
             if scheme == "ckks":
@@ -3165,21 +3309,31 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
             else:
                 ops[route] = lambda ev=ev: ev.relinearize(
                     ev.multiply(ca, cb), rlk)
+                plain_ops[route] = lambda ev=ev: ev.multiply_plain(ca, pt)
         want = ops["a"]()
+        want_plain = {r: fn() for r, fn in plain_ops.items() if r == "a"}
         torch.cuda.synchronize()
         counter.calls.clear()
         _kernels.reset_launch_counts()
         got = ops["j"]()
+        got_plain = plain_ops["j"]() if plain_ops else None
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
-        # CKKS divides on K''s own kernels there, BFV on F's
+        if plain_ops and not torch.equal(got_plain.data,
+                                         want_plain["a"].data):
+            raise AssertionError("bfv multiply_plain: J route differs from "
+                                 "A route")
+        # CKKS divides on K''s own kernels there, BFV on F's, and BFV's
+        # plain lift on G'
         path = ("J_ntt_mxu",) + (("Kp_rescale_ntt", "Kp_keyswitch_ntt")
-                                 if scheme == "ckks" else ("F_keyswitch",))
+                                 if scheme == "ckks"
+                                 else ("F_keyswitch", "Gp_plain_lift"))
         check_path("24", f"24 ({scheme}, J route)", path, counts, counter,
                    absent=())
         on_a = {k: counts[k] for k in ("A_ntt", "AKp_rescale_ntt",
                                        "AKp_keyswitch_ntt",
-                                       "AFi_keyswitch_intt") if counts[k]}
+                                       "AFi_keyswitch_intt", "AGp_ntt_lift")
+                if counts[k]}
         if on_a:
             raise AssertionError(f"A ran on the J route: {on_a}")
         results[scheme] = counts
@@ -4940,12 +5094,16 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
     aci = redesign_decrypt("ACi", dev, rng, decrypt_ops["bfv"])
     standalone = standalone_decrypt(dev, rng)
     wall = decrypt_wall()
+    agp = redesign_agp(zero_ctxs["bgv"], app_ctx, rng)
+    ap2i = redesign_ap2i(app_ctx, rng)
+    p2 = standalone_p2(dev, rng)
     spread = op_spread(divide_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
             "b": b, "o1": o1, "p1": p1, "f": f, "kp": kp, "zero": zero,
             "o3": o3, "afi": afi, "axi": axi, "aci": aci,
             "standalone_decrypt": standalone, "decrypt_wall": wall,
+            "agp": agp, "ap2i": ap2i, "standalone_p2": p2,
             "spread": spread}
 
 
@@ -5354,6 +5512,126 @@ def redesign_f(dev, rng) -> dict:
     return {"fused": fused}
 
 
+def _fused_turns(tag: str, fused, composed, kf: dict, kc: dict,
+                 work: tuple, calls: int = 20, extra: Optional[dict] = None
+                 ) -> dict:
+    """One fused call against its composition (and ``extra`` calls): the
+    words compared, device us a call of each in turns (graph replay of
+    ``calls`` calls, 4 rounds), device us a launch (profiler; kf, kc: the
+    kernels of each a call), beside the fused call's bound."""
+    try:
+        compare("words", fused(), composed())
+    except AssertionError as exc:
+        raise AssertionError(f"{tag}: {exc}") from None
+    calls_ = {"fused": fused, "composed": composed, **(extra or {})}
+    turns = _turns(calls_, graph_calls=calls)
+    _, _, each_f = device_kernels_per_op(fused, reps=5, expect=kf,
+                                         whole=True)
+    _, _, each_c = device_kernels_per_op(composed, reps=5, expect=kc,
+                                         whole=True)
+    bound_ms, bound_by = bound(*work)
+    r = {"device_us_turns": turns,
+         **{f"{name}_us": statistics.median(v) for name, v in turns.items()},
+         "fused_each": each_f, "composed_each": each_c,
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[35] {tag}: word-equal to the composition; device us a call in "
+        "turns (graph): " + ", ".join(f"{name} {r[name + '_us']:.2f}"
+                                      for name in calls_)
+        + "; a launch (profiler): fused " + ", ".join(
+            f"{k} {us:.2f}" for k, (_, us) in each_f.items())
+        + "; composed " + ", ".join(f"{k} {us:.2f}"
+                                    for k, (_, us) in each_c.items())
+        + f"; bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    return r
+
+
+def redesign_agp(bgv_ctx, app_ctx, rng) -> dict:
+    """Phase 35, AGp (G''s lift in A's first forward pass,
+    ``ntt.rns_ntt_forward_lift``) at REDESIGN_AGP_SHAPES, word-equal to G'
+    then A's forward, the two timed in turns with A's forward alone on the
+    lifted rows (the difference is the first pass's: AGp's reads the
+    source rows, A's the k-limb rows G' wrote), their device us a launch
+    (profiler) beside AGp's bound."""
+    out = {}
+    for tag, which, lead in REDESIGN_AGP_SHAPES:
+        cd = (bgv_ctx if which == "bgv" else app_ctx).first_context_data
+        t, tt, Q = cd.ntt, int(cd.plain_modulus), cd.total_coeff_modulus
+        half = cd.plain_upper_half_threshold
+        m = to_torch(rng.integers(0, tt, lead + (N,), dtype=np.uint64),
+                     t.device)
+        lifted = poly.plain_lift(m, t, tt, half, Q)
+        big = bool(lead) and lead[0] > 8
+        out[tag] = _fused_turns(
+            f"AGp {tag}", lambda: ntt.rns_ntt_forward_lift(m, t, tt, half,
+                                                           Q),
+            lambda: ntt.rns_ntt_forward(poly.plain_lift(m, t, tt, half, Q),
+                                        t),
+            {"ntt_pass_kernel": 2},
+            {"plain_lift_kernel": 1, "ntt_pass_kernel": 2},
+            lift_work(t, m.numel() // N), calls=5 if big else 20,
+            extra={"A_alone": lambda: ntt.rns_ntt_forward(lifted, t)})
+        del m, lifted
+        torch.cuda.empty_cache()
+    return out
+
+
+def redesign_ap2i(app_ctx, rng) -> dict:
+    """Phase 35, AP2i (P2 in A's first inverse pass,
+    ``ntt.rns_ntt_inverse_pair_convolve``) at REDESIGN_AP2I_SHAPES over
+    q u Bsk with lazy words, word-equal to P2 then A's inverse, the two
+    timed in turns with P2 alone, their device us a launch (profiler)
+    beside AP2i's bound."""
+    qb = app_ctx.first_context_data.rns.q_bsk
+    lazy = [4 * v for v in qb.values]
+    out = {}
+    for tag, X, Y, s1, s2 in REDESIGN_AP2I_SHAPES:
+        a = _uniform(rng, lazy, (X, s1, qb.k, N), app_ctx.device)
+        w = _uniform(rng, lazy, (Y, s2, qb.k, N), app_ctx.device)
+        out[tag] = _fused_turns(
+            f"AP2i {tag}",
+            lambda: ntt.rns_ntt_inverse_pair_convolve(a, w, qb),
+            lambda: ntt.rns_ntt_inverse(tiles.tile_pair_convolve(a, w, qb),
+                                        qb),
+            {"inverse_pair_kernel": 1, "ntt_pass_kernel": 1},
+            {"tile_pair_convolve_kernel": 1, "ntt_pass_kernel": 2},
+            pair_work(a, w, qb),
+            extra={"P2": lambda: tiles.tile_pair_convolve(a, w, qb)})
+    return out
+
+
+def standalone_p2(dev, rng) -> dict:
+    """Phase 35, P2's own kernel (the CKKS and BGV pair grids, J's route)
+    at REDESIGN_P2_SHAPES: device us a call (graph replay) and a launch
+    (profiler) beside the bound (the tiles in, the products out; 2
+    products a term and a Barrett-128 (7) an output word) and the bound's
+    share of the launch. Written on the wrappers that the earlier trees
+    have too, so that it can time those trees' kernel in turns with this
+    one."""
+    cd = app_context(P.SchemeType.bfv).first_context_data
+    out = {}
+    for tag, X, Y, bsk in REDESIGN_P2_SHAPES:
+        t = cd.rns.q_bsk if bsk else cd.ntt
+        bounds = [4 * v for v in t.values] if bsk else list(t.values)
+        a = _uniform(rng, bounds, (X, 2, t.k, N), dev)
+        w = _uniform(rng, bounds, (Y, 2, t.k, N), dev)
+        fn = lambda: tiles.tile_pair_convolve(a, w, t)
+        _, _, each = device_kernels_per_op(
+            fn, reps=10, expect={"tile_pair_convolve_kernel": 1}, whole=True)
+        words = X * Y * 3 * t.k * N
+        bound_ms, bound_by = bound(*tile_work(
+            a, w, words, X * Y * t.k * N * (4 * 2 + 3 * 7)))
+        us = each["tile_pair_convolve_kernel"][1]
+        r = {"device_us": graph_us(fn), "us_per_launch": us,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_share": bound_ms * 1e3 / us}
+        out[tag] = r
+        log(f"[35] standalone P2 {tag}: {r['device_us']:.2f} us a call "
+            f"(graph), {us:.2f} us a launch (profiler); bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by}), "
+            f"{100 * r['bound_share']:.1f} % of the launch")
+    return out
+
+
 def redesign_o3(dev, rng, ckks_ctx) -> dict:
     """Phase 35, kernel O3 (the centred CRT composition: one rounded
     multiple of Q, the constants in shared memory): at every data level of
@@ -5561,12 +5839,13 @@ def _decrypt_calls(kind: str, x: torch.Tensor, args: tuple):
     return fused, composed, fused_kernels, composed_kernels, work
 
 
-def _turns(calls: dict, rounds: int = 4) -> dict:
-    """Device us a call of each, in turns (graph replay)."""
+def _turns(calls: dict, rounds: int = 4, graph_calls: int = 20) -> dict:
+    """Device us a call of each, in turns (graph replay of graph_calls
+    calls)."""
     turns = {name: [] for name in calls}
     for r in range(rounds):
         for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
-            turns[name].append(graph_us(calls[name]))
+            turns[name].append(graph_us(calls[name], calls=graph_calls))
     return turns
 
 
@@ -6150,7 +6429,6 @@ RANKED = {
     "D_rns_elementwise": ("rns_elementwise_kernel",),
     "F_keyswitch": ("keyswitch_digits_kernel",),
     "G_plain_embed": ("plain_embed_kernel",),
-    "Gp_plain_lift": ("plain_lift_kernel",),
     "I_sampling": ("uniform_kernel", "small_kernel", "zero_sym_kernel",
                    "zero_asym_kernel"),
     "K_divide_round": ("divide_round_kernel",),
@@ -6158,19 +6436,23 @@ RANKED = {
     "N2_pack_prepare": ("pack_prepare_kernel",),
     "O2_ckks_round": ("round_kernel",),
     "O4_ckks_encode_stats": ("round_kernel",),
-    "P2_pair_convolve": ("tile_pair_convolve_kernel",),
     "P3_group_fold": ("pack_group_fold_kernel",),
     "Kpp_bgv_coeff": ("bgv_divide_kernel",),
 }
 # the windows and profiled ops of the headline configuration (n = 16384);
-# P2 and P3 run only in the app protocol
+# P3 runs only in the app protocol. Redesigned and out of the ranking: X
+# and C (in AXi and ACi; their own kernels on J's route, n = 262144 in
+# phase 27), G' and P2 (G''s lift in AGp on A's route, G' itself on J's,
+# phase 24's multiply_plain; P2 in AP2i for BFV's pair grid on A's route,
+# P2's own redesigned kernel for the CKKS and BGV grids, phase 21's BGV ct
+# x ct matmul)
 HEADLINE_WINDOWS = ("bfv", "ckks", "bgv", "plain_ops", "default", "lwe")
 OTHER_OPS = ("app_", "seal", "ckks32768", "n131072", "n262144", "shim_")
-APP_ONLY = ("P2_pair_convolve", "P3_group_fold")
+APP_ONLY = ("P3_group_fold",)
 
 
 def _ranked_ops(per_op: dict, app: bool):
-    """The profiled ops of the headline windows (the app's for P2, P3)."""
+    """The profiled ops of the headline windows (the app's for P3)."""
     for op, prof in per_op.items():
         if op.startswith("app_") == app and (
                 app or not op.startswith(OTHER_OPS)):
@@ -6180,7 +6462,7 @@ def _ranked_ops(per_op: dict, app: bool):
 def unredesigned_losses(entries: list, per_op: dict,
                         kernel_results: dict) -> dict:
     """Each kernel of RANKED: its launches in the headline windows (the
-    app's for P2 and P3) times its device us a launch less its bound a
+    app's for P3) times its device us a launch less its bound a
     launch, both launch-weighted means over the profiled ops of the same
     windows (the bound of each launch from its own arguments,
     ``launch_work``), ordered by that product: where the next redesign

@@ -30,7 +30,8 @@ BITS = {1: [50], 6: [60, 40, 40, 40, 40, 60]}
 # BFV's divide in A's last inverse pass (AFi), so F's own kernel does not
 # run; K''s temps and finish run in A's forward passes (AKp), K''s own
 # kernels (Kp) only on J's route; the decrypt's conversions run in A's
-# last inverse pass (ACi: C and E's rounding; AXi: X)
+# last inverse pass (ACi: C and E's rounding; AXi: X); the plain lift in
+# A's first forward pass (AGp: G')
 BFV_KERNELS = {"A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
                "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
                "K_divide_round", "G_plain_embed", "M_galois"}
@@ -39,7 +40,7 @@ CKKS_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                 "AKp_rescale_ntt", "AKp_keyswitch_ntt"}
 BGV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                "M_galois", "AKp_bgv_ntt",
-               "AXi_decrypt_intt", "Gp_plain_lift"}
+               "AXi_decrypt_intt", "AGp_ntt_lift"}
 # K''s own kernels: on A's route no window launches them
 KP_KERNELS = ("Kp_rescale_ntt", "Kp_keyswitch_ntt", "Kp_bgv_ntt")
 
@@ -791,6 +792,7 @@ def test_bgv_slice_on_the_card_gives_the_cpu_words(dev):
     counts = _kernels.launch_counts()
     assert all(counts[k] > 0 for k in BGV_KERNELS), counts
     assert not any(counts[k] for k in KP_KERNELS), counts
+    assert counts["Gp_plain_lift"] == 0, counts
     on_host = _bgv_slice("cpu")
     for stage, words in on_host.items():
         np.testing.assert_array_equal(on_card[stage], words, err_msg=stage)
@@ -1262,7 +1264,9 @@ def test_app_slice_on_the_card_gives_the_cpu_words(dev, scheme):
     if scheme != "ckks":
         assert counts["P3_group_fold"] > 0
     if scheme == "bfv":
-        assert counts["P2_pair_convolve"] > 0
+        # the pair grid's convolution in A's first inverse pass (AP2i)
+        assert counts["AP2i_pair_intt"] > 0
+        assert counts["P2_pair_convolve"] == 0
     on_host = _app_slice("cpu", scheme)
     for stage, words in on_host.items():
         if isinstance(words, bytes):
@@ -1806,3 +1810,79 @@ def test_decrypt_launches_the_fused_entry(dev, scheme):
         words[str(device)] = [interop.words(p) for p in out]
     np.testing.assert_array_equal(np.asarray(words[str(dev)]),
                                   np.asarray(words["cpu"]))
+
+
+# --------------------------------------------------------------------------
+# G' and P2 folded into A's passes (AGp, AP2i); P2's own kernel
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [64, 512, 1024, 16384])
+@pytest.mark.parametrize("t_bits", [20, 59])
+def test_ntt_forward_lift_kernel(dev, n, t_bits):
+    """AGp (G''s lift in A's first pass) against G' then A's forward and
+    against its plain version, with the centred threshold, threshold t and
+    a correction factor, one and three source rows: one AGp launch and no
+    G' launch a call."""
+    bits = [60, 40, 40, 40, 40, 60]
+    moduli = [int(m) for m in P.CoeffModulus.create(n, bits)][:5]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    t = int(P.PlainModulus.batching(max(n, 1024), t_bits))
+    Q = 1
+    for v in moduli:
+        Q *= v
+    rng = np.random.default_rng(n + t_bits)
+    for lead in ((), (3,)):
+        m = interop.to_torch(rng.integers(0, t, size=lead + (n,),
+                                          dtype=np.uint64), dev)
+        for threshold, cf in (((t + 1) >> 1, 1), (t, 1),
+                              ((t + 1) >> 1, 4321)):
+            _kernels.reset_launch_counts()
+            got = ntt.rns_ntt_forward_lift(m, tables, t, threshold, Q, cf)
+            counts = _kernels.launch_counts()
+            assert (counts["AGp_ntt_lift"], counts["Gp_plain_lift"]) == (1, 0)
+            _same(got, ntt.rns_ntt_forward(
+                poly.plain_lift(m, tables, t, threshold, Q, cf), tables))
+            _same(got, ntt.ntt_forward_lift_plain(m, tables, t, threshold, Q,
+                                                  cf))
+
+
+@pytest.mark.parametrize("n", [64, 1024, 16384, 32768])
+@pytest.mark.parametrize("s1,s2", [(2, 2), (1, 3), (4, 4), (3, 2)])
+def test_ntt_inverse_pair_convolve_kernel(dev, n, s1, s2):
+    """AP2i (P2 in A's first inverse pass) against P2 then A's inverse and
+    against its plain version, over q u Bsk with lazy words (4q - 1 among
+    them): one AP2i launch and no P2 launch a call."""
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 60, 60])),
+        plain_modulus=P.Modulus(1 << 41))
+    qb = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                     device=dev).first_context_data.rns.q_bsk
+    rng = np.random.default_rng(n + 10 * s1 + s2)
+    lazy = [4 * v for v in qb.values]
+    a = _uniform(rng, lazy, (2, s1), n, dev)
+    w = _uniform(rng, lazy, (5, s2), n, dev)
+    a[..., :2] = interop.to_torch(np.array(lazy, dtype=np.uint64) - 1,
+                                  dev).reshape(-1, 1)
+    _kernels.reset_launch_counts()
+    got = ntt.rns_ntt_inverse_pair_convolve(a, w, qb)
+    counts = _kernels.launch_counts()
+    assert (counts["AP2i_pair_intt"], counts["P2_pair_convolve"]) == (1, 0)
+    _same(got, ntt.rns_ntt_inverse(tiles.tile_pair_convolve(a, w, qb), qb))
+    _same(got, ntt.ntt_inverse_pair_convolve_plain(a, w, qb))
+
+
+@pytest.mark.parametrize("n", [64, 16384])
+@pytest.mark.parametrize("s1", [1, 2, 3, 4])
+@pytest.mark.parametrize("s2", [1, 2, 3, 4])
+def test_tile_pair_convolve_every_size(dev, n, s1, s2):
+    """P2's kernel, compiled for each (s1, s2), against its plain version
+    over 3 rows, with a ragged last y tile (Y = 6) and X = 2."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [60, 40, 50])]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(n + 4 * s1 + s2)
+    lazy = [4 * v for v in moduli]
+    a = _uniform(rng, lazy, (2, s1), n, dev)
+    w = _uniform(rng, lazy, (6, s2), n, dev)
+    _same(tiles.tile_pair_convolve(a, w, tables),
+          tiles.tile_pair_convolve_plain(a, w, tables))

@@ -40,7 +40,8 @@ SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "embedding.cu", "divide_round_ntt.cu", "exact_convert.cu",
            "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu",
            "sharding.cu")
-HEADERS = ("u64.cuh", "butterfly.cuh", "divide_round.cuh", "decrypt.cuh")
+HEADERS = ("u64.cuh", "butterfly.cuh", "divide_round.cuh", "decrypt.cuh",
+           "plain_lift.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +57,10 @@ _FUSED_DIVIDE = (_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P, _P, _P, _P)
 _SIGNATURES = {
     "troy_ntt": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     "troy_ntt_forward_digits": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
+    "troy_ntt_forward_lift": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _U, _U, _U,
+                              _P),
+    "troy_ntt_inverse_pair_convolve": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P,
+                                       _P, _P, _P, _P, _P, _P, _P),
     "troy_ntt_forward_rescale": _FUSED_DIVIDE,
     "troy_ntt_forward_keyswitch": _FUSED_DIVIDE,
     "troy_ntt_forward_bgv_mod_switch": _FUSED_DIVIDE,
@@ -130,6 +135,8 @@ _SIGNATURES = {
 KERNELS = {
     "troy_ntt": "A_ntt",
     "troy_ntt_forward_digits": "AF_ntt_digits",
+    "troy_ntt_forward_lift": "AGp_ntt_lift",
+    "troy_ntt_inverse_pair_convolve": "AP2i_pair_intt",
     "troy_ntt_forward_rescale": "AKp_rescale_ntt",
     "troy_ntt_forward_keyswitch": "AKp_keyswitch_ntt",
     "troy_ntt_forward_bgv_mod_switch": "AKp_bgv_ntt",

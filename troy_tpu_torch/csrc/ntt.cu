@@ -143,10 +143,47 @@
 // What bounds it: at a single decrypt latency, as for A; with larger
 // batches X's or C's 64-bit products, which cost inside the pass about
 // what they cost in X's or C's own kernel (PERF.md).
+//
+// troy_ntt_forward_lift (AGp) folds kernel G''s plain lift (plain_embed.cu
+// troy_plain_lift; troy_tpu/ops/poly.py:71 plain_lift, with the BGV
+// add_plain's m * cf mod t, troy_tpu/evaluator.py:708 _plain_to_ntt and
+// :767-768, and troy_tpu/encryptor.py:44-48) into the forward transform,
+// as the digits' entry folds F's digits: output row r of (rows, n) is the
+// NTT of source row r / k lifted into q[r % k] as the first pass loads
+// it (plain_lift.cuh's arithmetic, shared with G'). The (..., k, n) lifted
+// rows, written by G' only for A's first pass to read back, and G''s
+// launch are gone. The k output rows of one source row are adjacent in
+// the grid (a strided block holds one row, the blocks of a row are
+// consecutive, output rows r and r + 1 of one source row follow each
+// other), so the source is read from DRAM about once and its k - 1 other
+// reads hit L2: at the app's conv2d, (3328, n) mod t -> (3328, 2, n),
+// 436 MB read where A's first pass read the 872 MB G' wrote.
+//
+// troy_ntt_inverse_pair_convolve (AP2i) folds kernel P2 (tiles.cu
+// troy_tile_pair_convolve; troy_tpu/app/linear.py:133
+// _matmul_cipher_pairs_core, BFV) into A's inverse: a (X, s1, R, n) and
+// w (Y, s2, R, n), NTT-form words below 4q, -> the inverse transform of
+// every pair's convolution, (X, Y, s1 + s2 - 1, R, n), fully reduced. A
+// block of the first inverse pass (A's contiguous lines, half A's tile;
+// below 2^kSplitLogN the one pass, a whole row) holds the same chunks of
+// all s1 + s2 - 1 output rows of one pair and row r: it reads each of the
+// pair's s1 + s2 words at a place once, forms the products as it loads
+// them (up to four terms summed in 128 bits, one Barrett-128: P2's
+// arithmetic, so the words are P2's), then each tile's threads run A's
+// butterflies on it. A's last pass is A's own, in place. P2's launch and
+// its (X, Y, s1 + s2 - 1, R, n) output, written only for A's first pass
+// to read back, are gone: at the app's X = 1, Y = 16, 6 rows, 26.8 MB
+// read where P2 moved 64.5 MB and A's first pass read 37.7 MB. What bounds
+// it there: latency, as for A's passes (which move their bytes at about
+// half the memory rate), so the block keeps its registers to A's own
+// (launch bounds) and its tiles small, for four blocks an SM: with one
+// block an SM (114 registers a thread, A's 1024-word tiles) the fused
+// call was slower than P2 and A's inverse apart on the H100 (PERF.md).
 
 #include "butterfly.cuh"
 #include "decrypt.cuh"
 #include "divide_round.cuh"
+#include "plain_lift.cuh"
 
 using namespace troy;
 
@@ -163,9 +200,11 @@ __host__ __device__ constexpr bool columns(int mode) {
 }
 
 // What the first forward pass computes from each word it loads: the word
-// itself, the key switch's digit (Barrett-64 into the row's prime), or K''s
-// temp of the divide's last row.
-enum Load { kLoadPlain = 0, kLoadDigits = 1, kLoadDivide = 2 };
+// itself, the key switch's digit (Barrett-64 into the row's prime), K''s
+// temp of the divide's last row, or the plain lift of a word mod t into
+// the row's prime (G''s).
+enum Load { kLoadPlain = 0, kLoadDigits = 1, kLoadDivide = 2,
+            kLoadLift = 3 };
 
 constexpr int kLogTile = 10;    // the words a block of the two-pass form
 constexpr int kSplitLogN = 10;  // the least log2(n) that takes two passes
@@ -192,6 +231,27 @@ struct Divide {
     int acc_comps;
     int bgv;
 };
+
+// The plain lift's operands (AGp; null consts otherwise): G''s constants
+// in LiftLayout, the threshold and the correction factor with its Shoup
+// word (cf = 1: none).
+struct Lift {
+    const uint64_t *consts;
+    uint64_t threshold, cf, cf_shoup;
+};
+
+// One limb's constants of the lift: its modulus, high Barrett word and
+// (Q - t) mod q.
+struct LiftRow {
+    uint64_t q, cr_hi, inc;
+};
+
+__device__ __forceinline__ LiftRow lift_row(const Lift &lf,
+                                            const LiftLayout &L, int limb) {
+    return {__ldg(lf.consts + L.q() + limb),
+            __ldg(lf.consts + L.cr_hi() + limb),
+            __ldg(lf.consts + L.inc() + limb)};
+}
 
 // One limb's constants of the temps (K''s or K'-BGV's fields).
 struct TempConsts {
@@ -433,7 +493,7 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
                                 const uint64_t *__restrict__ cr_hi,
                                 const uint64_t *__restrict__ inv_degree,
                                 const uint64_t *__restrict__ inv_degree_shoup,
-                                Pass pass, int lazy, Divide dv) {
+                                Pass pass, int lazy, Divide dv, Lift lf) {
     extern __shared__ uint64_t v_s[];
     const Geo geo = kLogLine > 0
         ? Geo{kMode, kLogLine, kLogTile - kLogLine, 1 << (kLogTile - 3)}
@@ -518,6 +578,41 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
             const TempConsts t = geo.mode == kRows
                 ? temp_consts(dv, k, limb[w]) : tc;
             v_s[pos[w]] = temp_word(t, dv.bgv, lw[w]);
+        }
+    } else if constexpr (kLoad == kLoadLift) {
+        // this thread's source words first, all in flight together, then
+        // their lifts; a strided block's row constants read once
+        const LiftLayout L{k};
+        const uint64_t t = __ldg(lf.consts + L.t());
+        const LiftRow lr = geo.mode != kRows ? lift_row(lf, L, blk.limb)
+                                             : LiftRow{};
+        uint64_t lw[kWordsPerThread];
+        int pos[kWordsPerThread], limb[kWordsPerThread];
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) pos[w] = -1;
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            const int f = threadIdx.x + w * geo.threads;
+            if (f >= words) break;
+            int l, i;
+            tile_word(geo, f, l, i);
+            const Line ln = line_of(geo, blk, l, log_n, rows, k);
+            if (ln.limb < 0) continue;
+            const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
+            lw[w] = __ldg(in + (geo.mode == kRows
+                                    ? digit_row(ln.base, log_n, k) + i
+                                    : at + shift));
+            pos[w] = smem_pos(geo, l, i);
+            limb[w] = ln.limb;
+        }
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            if (pos[w] < 0) continue;
+            const LiftRow r = geo.mode == kRows ? lift_row(lf, L, limb[w])
+                                                : lr;
+            const uint64_t mv = lift_scale(lw[w], t, lf.cf, lf.cf_shoup);
+            v_s[pos[w]] = lift_limb(mv, mv >= lf.threshold, t, r.q, r.cr_hi,
+                                    r.inc);
         }
     } else {
         for (int f = threadIdx.x; f < words; f += geo.threads) {
@@ -945,11 +1040,139 @@ __global__ void inverse_decrypt_kernel(uint64_t *out, const uint64_t *in,
     }
 }
 
+// AP2i's sizes: ciphertext components a side (P2's); the words of a
+// block's tile (half A's 2^kLogTile: with s1 + s2 - 1 tiles a block, the
+// smaller tile keeps more blocks on an SM), and the threads a block may
+// take, which with the registers a thread is held to (launch bounds)
+// keep four blocks an SM.
+constexpr int kPairMaxComps = 4;
+constexpr int kPairLogTile = kLogTile - 1;
+constexpr int kPairThreads = 256;
+constexpr int kPairMinBlocks = 4;
+
+// AP2i's first inverse pass. Block (pair p = x Y + y, chunk set) of row r
+// (blockIdx.y) holds the set's 2^log_lines chunks of 2^log_line words
+// (A's contiguous lines; below 2^kSplitLogN one chunk, the whole row) of
+// output rows (p, m, r), m < s1 + s2 - 1, as tiles side by side in shared
+// memory, and one copy of the chunks' twiddles (the same for every tile).
+// The block's threads form the tiles word by word: a thread loads a[x, i,
+// r] and w[y, i', r] at a word (each once for the block), sums the
+// products of each i + i' = m in 128 bits and reduces the sum by Barrett-
+// 128 (P2's words). Then tile m's threads run A's inverse rounds on it and
+// store it lazy to output row (p, m, r), or, where this is the only pass,
+// with n^-1 and reduce_2q (A's last pass's finish).
+template <int kLogLine>
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
+inverse_pair_kernel(uint64_t *out, const uint64_t *a, const uint64_t *w,
+                    int log_n, int R, int Y, int s1, int s2,
+                    const uint64_t *__restrict__ roots,
+                    const uint64_t *__restrict__ roots_shoup,
+                    const uint64_t *__restrict__ moduli,
+                    const uint64_t *__restrict__ cr_lo,
+                    const uint64_t *__restrict__ cr_hi,
+                    const uint64_t *__restrict__ inv_degree,
+                    const uint64_t *__restrict__ inv_degree_shoup, Pass pass,
+                    int tile_threads) {
+    extern __shared__ uint64_t v_s[];
+    const int log_line = kLogLine > 0 ? kLogLine : pass.log_line;
+    const int log_lines = kLogLine > 0 ? kPairLogTile - kLogLine
+                                       : pass.log_lines;
+    const Geo geo = {kChunks, log_line, log_lines, tile_threads};
+    const int log_words = log_line + log_lines;
+    const int words = 1 << log_words;
+    const int line_mask = (1 << log_line) - 1;
+    const int so = s1 + s2 - 1;
+    const int r = blockIdx.y;
+    const int log_sets = log_n - log_words;
+    const int set = blockIdx.x & ((1 << log_sets) - 1);
+    const int pair = static_cast<int>(blockIdx.x >> log_sets);
+    const int x = pair / Y, y = pair - x * Y;
+    const Block blk = {0, set << log_lines, r};
+    uint64_t *tw_s = v_s + so * words;
+
+    // the chunks' twiddles (entry e = 2^rho + b of line l's round-rho
+    // table: the global root_powers[o 2^rho + b]), as A's contiguous pass
+    for (int f = threadIdx.x; f < words; f += blockDim.x) {
+        const int l = f >> log_line, e = f & line_mask;
+        if (e == 0) continue;
+        const Line ln = line_of(geo, blk, l, log_n, 0, R);
+        const int rho = 31 - __clz(e);
+        const int64_t g = (static_cast<int64_t>(r) << log_n) +
+                          (ln.o << rho) + (e - (1 << rho));
+        tw_s[(2 * l << log_line) + e] = __ldg(roots + g);
+        tw_s[((2 * l + 1) << log_line) + e] = __ldg(roots_shoup + g);
+    }
+
+    // the products at word f of the block's chunks (word pos0 + f of a
+    // row), every term's words loaded once
+    const int64_t comp = static_cast<int64_t>(R) << log_n;
+    const int64_t pos0 = static_cast<int64_t>(set) << log_words;
+    const uint64_t *ap = a + static_cast<int64_t>(x) * s1 * comp +
+                         (static_cast<int64_t>(r) << log_n) + pos0;
+    const uint64_t *wp = w + static_cast<int64_t>(y) * s2 * comp +
+                         (static_cast<int64_t>(r) << log_n) + pos0;
+    const uint64_t q = moduli[r], lo = cr_lo[r], hi = cr_hi[r];
+    for (int f = threadIdx.x; f < words; f += blockDim.x) {
+        uint64_t av[kPairMaxComps], wv[kPairMaxComps];
+#pragma unroll
+        for (int i = 0; i < kPairMaxComps; ++i) {
+            if (i < s1) av[i] = __ldg(ap + i * comp + f);
+            if (i < s2) wv[i] = __ldg(wp + i * comp + f);
+        }
+        const int at = smem_pos(geo, f >> log_line, f & line_mask);
+        // both loops unrolled, so every register index is a constant
+#pragma unroll
+        for (int m = 0; m < 2 * kPairMaxComps - 1; ++m) {
+            if (m < so) {
+                u128 c = 0;
+#pragma unroll
+                for (int i = 0; i < kPairMaxComps; ++i) {
+                    const int i2 = m - i;
+                    if (i2 >= 0 && i2 < kPairMaxComps && i < s1 && i2 < s2) {
+                        c += static_cast<u128>(av[i]) * wv[i2];
+                    }
+                }
+                v_s[m * words + at] = barrett_reduce_128(
+                    static_cast<uint64_t>(c), static_cast<uint64_t>(c >> 64),
+                    q, lo, hi);
+            }
+        }
+    }
+    __syncthreads();
+
+    // A's inverse rounds on each tile, by its own threads (lock step)
+    const int tile = threadIdx.x / tile_threads;
+    const int tid = threadIdx.x - tile * tile_threads;
+    uint64_t *tile_s = v_s + tile * words;
+    if (kLogLine > 0) {
+#pragma unroll
+        for (int st = 0; st < (kLogLine + 2) / 3; ++st) {
+            run_stage<true>(st, tile_s, tw_s, geo, blk, log_n, 0, R, moduli,
+                            tid);
+        }
+    } else {
+        for (int st = 0; st < (log_line + 2) / 3; ++st) {
+            run_stage<true>(st, tile_s, tw_s, geo, blk, log_n, 0, R, moduli,
+                            tid);
+        }
+    }
+    uint64_t *dst = out + ((((static_cast<int64_t>(pair) * so + tile) * R +
+                             r) << log_n) + pos0);
+    for (int f = tid; f < words; f += tile_threads) {
+        uint64_t v = tile_s[smem_pos(geo, f >> log_line, f & line_mask)];
+        if (pass.finish) {
+            v = reduce_2q(mul_mod_shoup_lazy(v, inv_degree[r],
+                                             inv_degree_shoup[r], q), q);
+        }
+        dst[f] = v;
+    }
+}
+
 typedef void (*PassKernel)(uint64_t *, const uint64_t *, int, int, int,
                            const uint64_t *, const uint64_t *,
                            const uint64_t *, const uint64_t *,
                            const uint64_t *, const uint64_t *, Pass, int,
-                           Divide);
+                           Divide, Lift);
 
 // The kernel compiled for the geometry of p (2^kLogTile-word tiles of
 // 2^5-2^8-word lines) in mode kMode, or null.
@@ -990,10 +1213,11 @@ PassKernel kernel_for(const Pass &p) {
                                                kFinish>;
 }
 
-// The kernel of pass p of `count`: A's own, or with the digits' load (cr_hi)
-// or the divide's load and finish (dv) in a forward transform.
+// The kernel of pass p of `count`: A's own, or with the digits' load
+// (cr_hi), the lift's (lf) or the divide's load and finish (dv) in a
+// forward transform.
 PassKernel pass_kernel(const Pass &pass, int p, int count, int inverse,
-                       const void *cr_hi, const Divide *dv) {
+                       const void *cr_hi, const Divide *dv, const Lift *lf) {
     const bool first = p == 0, last = p == count - 1;
     if (inverse) return kernel_for<true, kLoadPlain, false>(pass);
     if (dv != nullptr) {
@@ -1003,6 +1227,9 @@ PassKernel pass_kernel(const Pass &pass, int p, int count, int inverse,
     }
     if (cr_hi != nullptr && first) {
         return kernel_for<false, kLoadDigits, false>(pass);
+    }
+    if (lf != nullptr && first) {
+        return kernel_for<false, kLoadLift, false>(pass);
     }
     return kernel_for<false, kLoadPlain, false>(pass);
 }
@@ -1050,14 +1277,15 @@ int threads_for(const Pass &p) {
 
 // One transform's launches; with cr_hi (the digits' entry) the first
 // forward pass reads source row r / k of `in` for output row r and reduces
-// each word into the row's prime q[r % k] as it loads it; with dv (the
+// each word into the row's prime q[r % k] as it loads it; with lf (the
+// lift's entry) it lifts that word mod t into q[r % k]; with dv (the
 // divide's entries) it forms K''s temp of that word instead, and the last
 // pass stores K''s finish.
 int run(void *out, const void *in, long long rows, int log_n, int k,
         const void *roots, const void *roots_shoup, const void *moduli,
         const void *cr_hi, const void *inv_degree,
         const void *inv_degree_shoup, int inverse, int lazy,
-        const Divide *dv, void *stream) {
+        const Divide *dv, void *stream, const Lift *lf = nullptr) {
     if (rows < 1 || rows > (1LL << 30) || k < 1 || log_n < 1 || log_n > 24) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1066,8 +1294,8 @@ int run(void *out, const void *in, long long rows, int log_n, int k,
     const void *src = in;
     for (int p = 0; p < count; ++p) {
         const PassKernel kernel = pass_kernel(passes[p], p, count, inverse,
-                                              cr_hi, dv);
-        if (dv != nullptr &&
+                                              cr_hi, dv, lf);
+        if ((dv != nullptr || lf != nullptr) &&
             (1 << (passes[p].log_line + passes[p].log_lines)) >
                 kWordsPerThread * threads_for(passes[p])) {
             return static_cast<int>(cudaErrorInvalidValue);
@@ -1091,7 +1319,7 @@ int run(void *out, const void *in, long long rows, int log_n, int k,
             static_cast<const uint64_t *>(cr_hi),
             static_cast<const uint64_t *>(inv_degree),
             static_cast<const uint64_t *>(inv_degree_shoup), passes[p], lazy,
-            dv != nullptr ? *dv : Divide{});
+            dv != nullptr ? *dv : Divide{}, lf != nullptr ? *lf : Lift{});
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
         src = out;
@@ -1128,6 +1356,29 @@ extern "C" int troy_ntt_forward_digits(void *out, const void *in,
     }
     return run(out, in, rows, log_n, k, roots, roots_shoup, moduli, cr_hi,
                nullptr, nullptr, 0, 0, nullptr, stream);
+}
+
+// The plain lift and its forward transform in one call (G''s lift folded
+// into A's first pass, AGp): m (rows / k, 2^log_n) words mod t, out
+// (rows, 2^log_n), row r the forward NTT of source row r / k lifted into
+// q[r % k] (times cf mod t first where cf != 1; centred at the threshold:
+// (t+1)/2 for the plain ops, t for the BGV encrypt's raw residues); consts
+// G''s (ops/poly.py plain_lift_consts, LiftLayout); fully reduced.
+extern "C" int troy_ntt_forward_lift(void *out, const void *m, long long rows,
+                                     int log_n, int k, const void *roots,
+                                     const void *roots_shoup,
+                                     const void *moduli, const void *consts,
+                                     unsigned long long threshold,
+                                     unsigned long long cf,
+                                     unsigned long long cf_shoup,
+                                     void *stream) {
+    if (consts == nullptr || k < 1 || rows % k != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const Lift lf = {static_cast<const uint64_t *>(consts), threshold, cf,
+                     cf_shoup};
+    return run(out, m, rows, log_n, k, roots, roots_shoup, moduli, nullptr,
+               nullptr, nullptr, 0, 0, nullptr, stream, &lf);
 }
 
 namespace {
@@ -1252,7 +1503,7 @@ int inverse_first_pass(const uint64_t *&src, void *scratch, long long rows,
         static_cast<const uint64_t *>(moduli), nullptr,
         static_cast<const uint64_t *>(inv_degree),
         static_cast<const uint64_t *>(inv_degree_shoup), passes[0], 1,
-        Divide{});
+        Divide{}, Lift{});
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = static_cast<const uint64_t *>(scratch);
@@ -1370,6 +1621,94 @@ int inverse_decrypt(int finish, void *out, const void *x, void *scratch,
     TROY_RETURN_LAUNCH_STATUS();
 }
 
+typedef void (*InversePairKernel)(uint64_t *, const uint64_t *,
+                                  const uint64_t *, int, int, int, int, int,
+                                  const uint64_t *, const uint64_t *,
+                                  const uint64_t *, const uint64_t *,
+                                  const uint64_t *, const uint64_t *,
+                                  const uint64_t *, Pass, int);
+
+// AP2i: out (X, Y, s1 + s2 - 1, R, n), the inverse transform over the
+// tables' R rows (q u Bsk) of every pair's convolution of a (X, s1, R, n)
+// and w (Y, s2, R, n). From 2^kSplitLogN, the fused first pass (A's
+// contiguous lines, 2^kPairLogTile-word tiles where the lines allow it)
+// into out, then A's strided last pass in place; below, the fused pass
+// alone over whole rows, with A's finish. A tile has threads_for's
+// threads, halved until the block's tiles fit kPairThreads. A shape whose
+// block would need more shared memory than the card gives one is refused
+// before any launch.
+int inverse_pair(void *out, const void *a, const void *w, long long X,
+                 long long Y, int s1, int s2, int R, int log_n,
+                 const void *roots, const void *roots_shoup,
+                 const void *moduli, const void *cr_lo, const void *cr_hi,
+                 const void *inv_degree, const void *inv_degree_shoup,
+                 void *stream) {
+    if (X < 1 || Y < 1 || s1 < 1 || s2 < 1 || s1 > kPairMaxComps ||
+        s2 > kPairMaxComps || R < 1 || R > 65535 || log_n < 1 ||
+        log_n > 24) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int so = s1 + s2 - 1;
+    const long long rows = X * Y * so * R;
+    if (rows > (1LL << 30) || X * Y > (1LL << 30)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    Pass passes[2];
+    const int count = plan(rows, log_n, 1, passes);
+    Pass first = count == 2 ? passes[0] : Pass{kChunks, log_n, 0, 1, 0};
+    if (count == 2 && first.log_line + first.log_lines > kPairLogTile) {
+        first.log_lines = kPairLogTile > first.log_line
+                              ? kPairLogTile - first.log_line : 0;
+    }
+    const int log_words = first.log_line + first.log_lines;
+    const long long blocks = (X * Y) << (log_n - log_words);
+    int tile_threads = threads_for(first);
+    while (tile_threads * so > kPairThreads && tile_threads > 1) {
+        tile_threads >>= 1;
+    }
+    const size_t smem = sizeof(uint64_t) * (size_t(so + 2) << log_words);
+    if (blocks >= (1LL << 31) || smem > size_t(232448)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    InversePairKernel kernel = inverse_pair_kernel<0>;
+    if (count == 2 && log_words == kPairLogTile) {
+        switch (first.log_line) {
+        case 5: kernel = inverse_pair_kernel<5>; break;
+        case 6: kernel = inverse_pair_kernel<6>; break;
+        case 7: kernel = inverse_pair_kernel<7>; break;
+        case 8: kernel = inverse_pair_kernel<8>; break;
+        default: break;
+        }
+    }
+    if (int err = allow_smem(kernel, smem)) return err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const uint64_t *u_roots = static_cast<const uint64_t *>(roots);
+    const uint64_t *u_shoup = static_cast<const uint64_t *>(roots_shoup);
+    const uint64_t *u_moduli = static_cast<const uint64_t *>(moduli);
+    const uint64_t *u_inv = static_cast<const uint64_t *>(inv_degree);
+    const uint64_t *u_inv_shoup =
+        static_cast<const uint64_t *>(inv_degree_shoup);
+    kernel<<<dim3(static_cast<unsigned>(blocks), R), so * tile_threads,
+             smem, s>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(a),
+        static_cast<const uint64_t *>(w), log_n, R, static_cast<int>(Y),
+        s1, s2, u_roots, u_shoup, u_moduli,
+        static_cast<const uint64_t *>(cr_lo),
+        static_cast<const uint64_t *>(cr_hi), u_inv, u_inv_shoup, first,
+        tile_threads);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || count == 1) return static_cast<int>(err);
+    // A's last pass, its own, in place
+    const PassKernel last = kernel_for<true, kLoadPlain, false>(passes[1]);
+    const size_t last_smem = smem_bytes(passes[1]);
+    if (int e = allow_smem(last, last_smem)) return e;
+    last<<<passes[1].blocks, threads_for(passes[1]), last_smem, s>>>(
+        static_cast<uint64_t *>(out), static_cast<const uint64_t *>(out),
+        static_cast<int>(rows), log_n, R, u_roots, u_shoup, u_moduli, nullptr,
+        u_inv, u_inv_shoup, passes[1], 0, Divide{}, Lift{});
+    TROY_RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 // The four uses of K', each on its own entry (and launch count): the CKKS
@@ -1468,6 +1807,23 @@ extern "C" int troy_ntt_inverse_decrypt_bfv(
     return inverse_decrypt(kDecryptRound, out, x, scratch, comps, k, log_n,
                            roots, roots_shoup, moduli, consts, round_consts,
                            1, 1, stream);
+}
+
+// The BFV ct x ct pair grid's convolution folded into A's inverse (AP2i,
+// kernel P2 in A's first inverse pass): a (X, s1, R, n) and w (Y, s2, R,
+// n) NTT-form words below 4q (sizes at most 4); out (X, Y, s1 + s2 - 1, R,
+// n) the words of troy_tile_pair_convolve then A's inverse, fully reduced;
+// the tables (R, n) the inverse roots of the R rows' primes (q u Bsk) with
+// their Shoup words, moduli, Barrett words (cr_lo, cr_hi) and n^-1.
+extern "C" int troy_ntt_inverse_pair_convolve(
+        void *out, const void *a, const void *w, long long X, long long Y,
+        int s1, int s2, int R, int log_n, const void *roots,
+        const void *roots_shoup, const void *moduli, const void *cr_lo,
+        const void *cr_hi, const void *inv_degree,
+        const void *inv_degree_shoup, void *stream) {
+    return inverse_pair(out, a, w, X, Y, s1, s2, R, log_n, roots,
+                        roots_shoup, moduli, cr_lo, cr_hi, inv_degree,
+                        inv_degree_shoup, stream);
 }
 
 // The plan of AXi's (finish 0) or ACi's (finish 1) last pass over comps

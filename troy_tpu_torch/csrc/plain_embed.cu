@@ -24,9 +24,15 @@
 // (never reached) for the BGV encrypt's raw residues. Output below q_j,
 // ready for kernel A. Bound: the launch (k + 1 rows of words); one thread
 // per coefficient writes its k limbs (coalesced across the warp); the
-// 1 + 3k constants in shared memory.
+// 1 + 3k constants in shared memory. The per-word arithmetic is
+// plain_lift.cuh's, shared with AGp (csrc/ntt.cu troy_ntt_forward_lift),
+// which runs the lift inside A's first forward pass on A's route: this
+// kernel runs where the transforms are J's (n > 131072, use_mxu=True) or
+// the tables hold none (a pointwise view). At the launch floor there
+// (1.8 us a launch at (1, n) -> (5, n) on the H100, PERF.md), it is left
+// as it was.
 
-#include "u64.cuh"
+#include "plain_lift.cuh"
 
 using namespace troy;
 
@@ -82,7 +88,8 @@ __global__ void plain_embed_kernel(uint64_t *__restrict__ out,
     }
 }
 
-// consts: t, then q (k), the high Barrett words (k), (Q - t) mod q (k).
+// consts: t, then q (k), the high Barrett words (k), (Q - t) mod q (k)
+// (LiftLayout).
 __global__ void plain_lift_kernel(uint64_t *__restrict__ out,
                                   const uint64_t *__restrict__ m,
                                   int64_t batch, int k, int log_n,
@@ -90,10 +97,11 @@ __global__ void plain_lift_kernel(uint64_t *__restrict__ out,
                                   uint64_t cf_shoup,
                                   const uint64_t *__restrict__ consts) {
     __shared__ uint64_t c[1 + 3 * MAX_LIMBS];
-    for (int j = threadIdx.x; j < 1 + 3 * k; j += blockDim.x) c[j] = consts[j];
+    const LiftLayout L{k};
+    for (int j = threadIdx.x; j < L.words(); j += blockDim.x) c[j] = consts[j];
     __syncthreads();
-    const uint64_t t = c[0];
-    const uint64_t *q = c + 1, *cr_hi = q + k, *inc = cr_hi + k;
+    const uint64_t t = c[L.t()];
+    const uint64_t *q = c + L.q(), *cr_hi = c + L.cr_hi(), *inc = c + L.inc();
     const int64_t n = int64_t(1) << log_n;
     const int64_t total = batch << log_n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -102,15 +110,12 @@ __global__ void plain_lift_kernel(uint64_t *__restrict__ out,
          idx < total; idx += stride) {
         const int64_t poly = idx >> log_n;
         const int64_t i = idx & (n - 1);
-        uint64_t mv = m[idx];
-        if (cf != 1) mv = mul_mod_shoup(mv, cf, cf_shoup, t);
+        const uint64_t mv = lift_scale(m[idx], t, cf, cf_shoup);
         const bool upper = mv >= threshold;
         const int64_t base = ((poly * k) << log_n) + i;
         for (int j = 0; j < k; ++j) {
-            const uint64_t mj =
-                t <= q[j] ? mv : barrett_reduce_64(mv, q[j], cr_hi[j]);
             out[base + (static_cast<int64_t>(j) << log_n)] =
-                upper ? add_mod(mj, inc[j], q[j]) : mj;
+                lift_limb(mv, upper, t, q[j], cr_hi[j], inc[j]);
         }
     }
 }

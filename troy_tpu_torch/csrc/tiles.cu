@@ -35,9 +35,21 @@
 // mod q_r over R rows, each with its own modulus (q u Bsk for BFV, q for
 // CKKS and BGV). Inputs may be lazy below 4q < 2^63: a product is below
 // 2^126 and at most four terms meet in one output (sizes up to 4), so the
-// sum fits 128 bits before its one Barrett reduction. Bytes bound it too:
-// one thread per (x, y, r, j) loads the s1 + s2 words once into registers
-// and writes all s1 + s2 - 1 outputs.
+// sum fits 128 bits before its one Barrett reduction. Bytes bound it too
+// (at the app's X = 1, Yc = 16 over q u Bsk, 6 rows: 26.8 MB in, 37.7 MB
+// out, 19.25 us at 3.35 TB/s). The first kernel, one thread per (x, y, r,
+// j) in a grid-stride loop with four 64-bit divisions and 8-byte accesses,
+// streamed about 1.5 TB/s (42.8 us there). Design: a 2-D grid (x, a tile
+// of kPairTileY outputs y and a coefficient block on x, the row r on y;
+// shifts and one 32-bit division, no 64-bit one), 128 threads, two
+// coefficients a thread through 16-byte loads and stores; a thread holds
+// its x's s1 words in registers for the whole y tile, issues the tile's
+// w loads together before any product, and writes each output by a
+// streaming store (only a later kernel reads it). s1 and s2 are template
+// parameters (1-4 each), so the convolution unrolls without predicates.
+// On A's route the BFV pair grid runs P2 inside A's first inverse pass
+// instead (csrc/ntt.cu troy_ntt_inverse_pair_convolve, AP2i); this kernel
+// is the route of CKKS and BGV (NTT-form products, no inverse) and of J's.
 //
 // P3 troy_pack_group_fold replaces linear.py:237 _pack_group_fold_core: each
 // group of P traced ciphertexts folded into one with per-member monomial
@@ -182,48 +194,94 @@ __global__ void __launch_bounds__(kTileJ) tile_contract_kernel(
     }
 }
 
-__global__ void tile_pair_convolve_kernel(
+// 16-byte global accesses: a read-only load, a streaming load (a word
+// read once) and a streaming store (a word only a later kernel reads).
+__device__ __forceinline__ ulonglong2 load16(const uint64_t *p) {
+    ulonglong2 v;
+    asm volatile("ld.global.nc.v2.u64 {%0, %1}, [%2];\n"
+                 : "=l"(v.x), "=l"(v.y) : "l"(p));
+    return v;
+}
+
+__device__ __forceinline__ ulonglong2 load16_stream(const uint64_t *p) {
+    ulonglong2 v;
+    asm volatile("ld.global.cs.v2.u64 {%0, %1}, [%2];\n"
+                 : "=l"(v.x), "=l"(v.y) : "l"(p));
+    return v;
+}
+
+__device__ __forceinline__ void store16_stream(uint64_t *p, uint64_t x,
+                                               uint64_t y) {
+    asm volatile("st.global.cs.v2.u64 [%0], {%1, %2};\n" ::"l"(p), "l"(x),
+                 "l"(y)
+                 : "memory");
+}
+
+// P2's block: kPairThreads threads, two consecutive coefficients each, of
+// row r (blockIdx.y), for one x and a tile of kPairTileY consecutive
+// outputs y (blockIdx.x: (x y_tiles + y tile) 2^log_cblocks + coefficient
+// block).
+constexpr int kPairThreads = 128;
+constexpr int kPairTileY = 4;
+
+template <int S1, int S2>
+__global__ void __launch_bounds__(kPairThreads) tile_pair_convolve_kernel(
         uint64_t *__restrict__ out, const uint64_t *__restrict__ a,
-        const uint64_t *__restrict__ w, int64_t X, int64_t Y, int s1, int s2,
-        int R, int log_n, const uint64_t *__restrict__ moduli,
+        const uint64_t *__restrict__ w, int Y, int R, int log_n,
+        int log_cblocks, int y_tiles, const uint64_t *__restrict__ moduli,
         const uint64_t *__restrict__ cr_lo,
         const uint64_t *__restrict__ cr_hi) {
-    const int64_t n = int64_t(1) << log_n;
-    const int64_t total = (X * Y * R) << log_n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    const int so = s1 + s2 - 1;
-    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         idx < total; idx += stride) {
-        const int64_t j = idx & (n - 1);
-        int64_t rr = idx >> log_n;
-        const int r = static_cast<int>(rr % R);
-        rr /= R;
-        const int64_t y = rr % Y;
-        const int64_t x = rr / Y;
-        uint64_t av[MAX_COMPS], wv[MAX_COMPS];
+    constexpr int SO = S1 + S2 - 1;
+    const int cb = blockIdx.x & ((1 << log_cblocks) - 1);
+    const int xt = static_cast<int>(blockIdx.x >> log_cblocks);
+    const int x = xt / y_tiles;
+    const int y0 = (xt - x * y_tiles) * kPairTileY;
+    const int r = blockIdx.y;
+    const int64_t j = (static_cast<int64_t>(cb) * kPairThreads +
+                       threadIdx.x) * 2;
+    if (j >= (int64_t(1) << log_n)) return;
+    const int ny = Y - y0 < kPairTileY ? Y - y0 : kPairTileY;  // ragged
+    const int64_t row = static_cast<int64_t>(R) << log_n;  // a component
+    const int64_t at = (static_cast<int64_t>(r) << log_n) + j;
+    ulonglong2 av[S1];
 #pragma unroll
-        for (int i = 0; i < MAX_COMPS; ++i) {
-            av[i] = i < s1 ? a[(((x * s1 + i) * R + r) << log_n) + j] : 0;
-            wv[i] = i < s2 ? w[(((y * s2 + i) * R + r) << log_n) + j] : 0;
+    for (int i = 0; i < S1; ++i) {
+        av[i] = load16(a + (static_cast<int64_t>(x) * S1 + i) * row + at);
+    }
+    ulonglong2 wv[kPairTileY][S2];
+    const uint64_t *wp = w + static_cast<int64_t>(y0) * S2 * row + at;
+#pragma unroll
+    for (int t = 0; t < kPairTileY; ++t) {
+        if (t < ny) {
+#pragma unroll
+            for (int i = 0; i < S2; ++i) {
+                wv[t][i] = load16_stream(wp + (t * S2 + i) * row);
+            }
         }
-        const uint64_t q = moduli[r], lo = cr_lo[r], hi = cr_hi[r];
-        uint64_t *o = out + ((((x * Y + y) * so) * R + r) << log_n) + j;
-        // both loops unrolled, so every register index is a constant
+    }
+    const uint64_t q = moduli[r], lo = cr_lo[r], hi = cr_hi[r];
+    uint64_t *o = out + (static_cast<int64_t>(x) * Y + y0) * SO * row + at;
 #pragma unroll
-        for (int m = 0; m < 2 * MAX_COMPS - 1; ++m) {
-            if (m < so) {
-                u128 acc = 0;
+    for (int t = 0; t < kPairTileY; ++t) {
+        if (t < ny) {
 #pragma unroll
-                for (int i = 0; i < MAX_COMPS; ++i) {
-                    const int i2 = m - i;
-                    if (i2 >= 0 && i2 < MAX_COMPS && i < s1 && i2 < s2) {
-                        acc += static_cast<u128>(av[i]) * wv[i2];
+            for (int m = 0; m < SO; ++m) {
+                u128 c0 = 0, c1 = 0;
+#pragma unroll
+                for (int i = 0; i < S1; ++i) {
+                    if (m - i >= 0 && m - i < S2) {
+                        c0 += static_cast<u128>(av[i].x) * wv[t][m - i].x;
+                        c1 += static_cast<u128>(av[i].y) * wv[t][m - i].y;
                     }
                 }
-                o[(int64_t(m) * R) << log_n] = barrett_reduce_128(
-                    static_cast<uint64_t>(acc),
-                    static_cast<uint64_t>(acc >> 64), q, lo, hi);
+                store16_stream(
+                    o + (t * SO + m) * row,
+                    barrett_reduce_128(static_cast<uint64_t>(c0),
+                                       static_cast<uint64_t>(c0 >> 64), q,
+                                       lo, hi),
+                    barrett_reduce_128(static_cast<uint64_t>(c1),
+                                       static_cast<uint64_t>(c1 >> 64), q,
+                                       lo, hi));
             }
         }
     }
@@ -310,7 +368,8 @@ extern "C" int troy_tile_contract(void *out, const void *a, const void *w,
 }
 
 // a: (X, s1, R, n), w: (Y, s2, R, n), words below 4q; out: (X, Y, s1 + s2
-// - 1, R, n); moduli, cr_lo, cr_hi: (R,), one modulus per row.
+// - 1, R, n); moduli, cr_lo, cr_hi: (R,), one modulus per row; a, w and
+// out 16-byte aligned.
 extern "C" int troy_tile_pair_convolve(void *out, const void *a,
                                        const void *w, long long X,
                                        long long Y, int s1, int s2, int R,
@@ -318,15 +377,37 @@ extern "C" int troy_tile_pair_convolve(void *out, const void *a,
                                        const void *cr_lo, const void *cr_hi,
                                        void *stream) {
     if (X < 1 || Y < 1 || s1 < 1 || s2 < 1 || s1 > MAX_COMPS ||
-        s2 > MAX_COMPS || R < 1) {
+        s2 > MAX_COMPS || R < 1 || R > 65535 || log_n < 1 ||
+        ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(a) |
+          reinterpret_cast<uintptr_t>(w)) & 15)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int threads = 256;
-    tile_pair_convolve_kernel<<<grid_blocks((X * Y * R) << log_n, threads),
-                                threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+    // coefficient blocks a row: 2 kPairThreads words each, a power of two
+    const int log_block = 1 + 7;  // log2(2 kPairThreads)
+    const int log_cblocks = log_n > log_block ? log_n - log_block : 0;
+    const long long y_tiles = (Y + kPairTileY - 1) / kPairTileY;
+    const long long blocks = (X * y_tiles) << log_cblocks;
+    if (blocks >= (1LL << 31) || X * Y >= (1LL << 31)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    typedef void (*Kernel)(uint64_t *, const uint64_t *, const uint64_t *,
+                           int, int, int, int, int, const uint64_t *,
+                           const uint64_t *, const uint64_t *);
+    static const Kernel kernels[MAX_COMPS][MAX_COMPS] = {
+        {tile_pair_convolve_kernel<1, 1>, tile_pair_convolve_kernel<1, 2>,
+         tile_pair_convolve_kernel<1, 3>, tile_pair_convolve_kernel<1, 4>},
+        {tile_pair_convolve_kernel<2, 1>, tile_pair_convolve_kernel<2, 2>,
+         tile_pair_convolve_kernel<2, 3>, tile_pair_convolve_kernel<2, 4>},
+        {tile_pair_convolve_kernel<3, 1>, tile_pair_convolve_kernel<3, 2>,
+         tile_pair_convolve_kernel<3, 3>, tile_pair_convolve_kernel<3, 4>},
+        {tile_pair_convolve_kernel<4, 1>, tile_pair_convolve_kernel<4, 2>,
+         tile_pair_convolve_kernel<4, 3>, tile_pair_convolve_kernel<4, 4>}};
+    kernels[s1 - 1][s2 - 1]<<<dim3(static_cast<unsigned>(blocks), R),
+                              kPairThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t *>(out), static_cast<const uint64_t *>(a),
-        static_cast<const uint64_t *>(w), X, Y, s1, s2, R, log_n,
+        static_cast<const uint64_t *>(w), static_cast<int>(Y), R, log_n,
+        log_cblocks, static_cast<int>(y_tiles),
         static_cast<const uint64_t *>(moduli),
         static_cast<const uint64_t *>(cr_lo),
         static_cast<const uint64_t *>(cr_hi));

@@ -31,7 +31,6 @@ from .he_types import Ciphertext, Plaintext, PublicKey, SecretKey
 from .params import SchemeType
 from . import prng as rnd
 from . import rlwe
-from .ops import ntt as dntt
 from .ops import poly as dpoly
 
 
@@ -58,13 +57,12 @@ def _bfv_embed(m: torch.Tensor, c0: torch.Tensor, cd: ContextData,
 
 def _plain_operand(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
     """The NTT-form words an NTT-form encryption adds to c0: CKKS's m;
-    BGV's raw residues (plain_lift with threshold t lifts nothing, kernel
-    G') transformed (A)."""
+    BGV's raw residues (the lift with threshold t lifts nothing)
+    transformed: on A's route one call (AGp), on J's G' then J."""
     if cd.scheme == SchemeType.ckks:
         return m
     t = int(cd.plain_modulus)
-    lifted = dpoly.plain_lift(m, cd.ntt, t, t, cd.total_coeff_modulus)
-    return dntt.rns_ntt_forward(lifted, cd.ntt)
+    return dpoly.plain_lift_ntt(m, cd.ntt, t, t, cd.total_coeff_modulus)
 
 
 def _encrypt_sym_full(seeds: Sequence[int], m: torch.Tensor,

@@ -125,14 +125,19 @@ def _pair_grid_multiply(a: torch.Tensor, w: torch.Tensor,
     (X, Yc, s1 + s2 - 1, k, n). CKKS and BGV: NTT-form tiles over q, the
     convolution alone (kernel P2). BFV: tiles already through
     ``_bfv_lift_ntt`` (R = k + |Bsk|), so each tile is lifted and
-    transformed once for the whole grid, not once per pair; then P2, one
-    inverse A over every product and one E tail: the tail runs per product,
+    transformed once for the whole grid, not once per pair; then P2 and
+    one inverse A over every product (on A's route one call: P2 in A's
+    first inverse pass, AP2i) and one E tail: the tail runs per product,
     so the words are ``_bfv_multiply``'s."""
     if cd.scheme != SchemeType.bfv:
         return dtiles.tile_pair_convolve(a, w, cd.ntt)
     tool = cd.rns
-    prod = dtiles.tile_pair_convolve(a, w, tool.q_bsk)
-    return drns.behz_tail(dntt.rns_ntt_inverse(prod, tool.q_bsk), tool)
+    if dntt.on_a_route(tool.q_bsk):
+        coeff = dntt.rns_ntt_inverse_pair_convolve(a, w, tool.q_bsk)
+    else:
+        coeff = dntt.rns_ntt_inverse(
+            dtiles.tile_pair_convolve(a, w, tool.q_bsk), tool.q_bsk)
+    return drns.behz_tail(coeff, tool)
 
 
 def _used_tables(cd: ContextData, key_cd: ContextData) -> dntt.RnsNttTables:
@@ -388,13 +393,13 @@ def _balance_correction_factors(f1: int, f2: int, t: int
 
 def _plain_to_ntt(m: torch.Tensor, cd: ContextData,
                   correction_factor: int = 1) -> torch.Tensor:
-    """A mod-t plaintext (n,) lifted centred to the level's base (kernel
-    G', times cf mod t first when cf != 1) and transformed (A): (k, n)
-    (troy_tpu/evaluator.py:708 _plain_to_ntt)."""
-    lifted = dpoly.plain_lift(m, cd.ntt, int(cd.plain_modulus),
-                              cd.plain_upper_half_threshold,
-                              cd.total_coeff_modulus, correction_factor)
-    return dntt.rns_ntt_forward(lifted, cd.ntt)
+    """A mod-t plaintext (..., n) lifted centred to the level's base (times
+    cf mod t first when cf != 1) and transformed: (..., k, n)
+    (troy_tpu/evaluator.py:708 _plain_to_ntt). On A's route one call (the
+    lift in A's first pass, AGp); on J's kernel G', then J."""
+    return dpoly.plain_lift_ntt(m, cd.ntt, int(cd.plain_modulus),
+                                cd.plain_upper_half_threshold,
+                                cd.total_coeff_modulus, correction_factor)
 
 
 def _multiply_plain_ntt(data: torch.Tensor, plain: torch.Tensor,

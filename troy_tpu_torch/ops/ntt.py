@@ -412,6 +412,112 @@ def rns_ntt_forward_digits(x: torch.Tensor, t: RnsNttTables) -> torch.Tensor:
     return out
 
 
+def on_a_route(t: RnsNttTables) -> bool:
+    """Whether these tables' transforms run on kernel A, whose passes take
+    the fused loads and finishes (AF, AGp, AP2i): not J's, not a pointwise
+    view."""
+    return t.mxu is None and t.root_powers.shape[-1] == t.n
+
+
+def ntt_forward_lift_plain(m: torch.Tensor, t: RnsNttTables,
+                           plain_modulus: int, threshold: int, total_q: int,
+                           correction_factor: int = 1) -> torch.Tensor:
+    """The plain version of ``rns_ntt_forward_lift``: kernel G''s plain
+    version, then the forward butterfly network."""
+    from .poly import plain_lift_plain              # poly imports ntt
+    return ntt_forward_plain(plain_lift_plain(
+        m, t, plain_modulus, threshold, total_q, correction_factor), t)
+
+
+def rns_ntt_forward_lift(m: torch.Tensor, t: RnsNttTables,
+                         plain_modulus: int, threshold: int, total_q: int,
+                         correction_factor: int = 1) -> torch.Tensor:
+    """The plain lift, transformed (kernel G''s lift folded into kernel A's
+    first pass, AGp, one A call): m (..., n) words mod t -> (..., t.k, n),
+    out[..., j, :] the forward NTT of m (times cf mod t first where the
+    correction factor is not 1) lifted centred into the j-th prime of t:
+    coefficients at or above the threshold ((t+1)/2 for the plain ops, t
+    for the BGV encrypt's raw residues) stand for m - t. Fully reduced.
+    A's route only: tables on J, or a pointwise view, raise."""
+    if m.dim() < 1 or m.shape[-1] != t.n:
+        raise ValueError(f"rns_ntt_forward_lift: expected (..., {t.n}), got "
+                         f"{tuple(m.shape)}")
+    if m.dtype != torch.int64:
+        raise TypeError(f"rns_ntt_forward_lift: expected int64 u64 words, "
+                        f"got {m.dtype}")
+    if not on_a_route(t):
+        raise ValueError("rns_ntt_forward_lift: these tables hold no "
+                         "transform on A (kernel J's, or a pointwise view)")
+    from .poly import plain_lift_consts
+    consts = plain_lift_consts(t, plain_modulus, total_q)
+    if not _kernels.on_cuda(m, consts):
+        return ntt_forward_lift_plain(m, t, plain_modulus, threshold,
+                                      total_q, correction_factor)
+    m = m.contiguous()
+    _kernels.check_operand(m, "rns_ntt_forward_lift m")
+    cf = correction_factor % plain_modulus
+    out = torch.empty(m.shape[:-1] + (t.k, t.n), dtype=torch.int64,
+                      device=m.device)
+    _kernels.launch("troy_ntt_forward_lift", out.get_device(), out, m,
+                    out.numel() // t.n, t.log_n, t.k, t.root_powers,
+                    t.root_powers_shoup, t.q, consts, threshold, cf,
+                    u.shoup_quotient(cf, plain_modulus))
+    return out
+
+
+def ntt_inverse_pair_convolve_plain(a: torch.Tensor, w: torch.Tensor,
+                                    t: RnsNttTables) -> torch.Tensor:
+    """The plain version of ``rns_ntt_inverse_pair_convolve``: kernel P2's
+    plain version, then the inverse butterfly network."""
+    from .tiles import tile_pair_convolve_plain     # tiles imports ntt
+    return ntt_inverse_plain(tile_pair_convolve_plain(a, w, t), t)
+
+
+# ciphertext components a side the pair kernels take (P2's, AP2i's)
+PAIR_MAX_COMPS = 4
+
+
+def _check_pair(a: torch.Tensor, w: torch.Tensor, t: RnsNttTables,
+                name: str) -> None:
+    _check_rows(a, t, f"{name} a")
+    _check_rows(w, t, f"{name} w")
+    if a.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"{name}: a {tuple(a.shape)} and w "
+                         f"{tuple(w.shape)}: expected (X, s, R, n) each")
+    if max(a.shape[1], w.shape[1]) > PAIR_MAX_COMPS:
+        raise ValueError(f"{name}: sizes {a.shape[1]} and {w.shape[1]}; at "
+                         f"most {PAIR_MAX_COMPS}")
+
+
+def rns_ntt_inverse_pair_convolve(a: torch.Tensor, w: torch.Tensor,
+                                  t: RnsNttTables) -> torch.Tensor:
+    """The inverse transform of every pair's ciphertext-degree convolution
+    of an X x Yc grid (kernel P2 folded into kernel A's first inverse
+    pass, AP2i, one A call): a (X, s1, R, n) and w (Yc, s2, R, n) in the
+    NTT domain, words below 4q, sizes at most 4; R rows over the moduli of
+    t (q u Bsk: BFV's product grid). Out (X, Yc, s1 + s2 - 1, R, n), the
+    coefficient form of sum_{i + i' = m} a[x, i] * w[y, i'], fully
+    reduced. A's route only: tables on J, or a pointwise view, raise."""
+    _check_pair(a, w, t, "rns_ntt_inverse_pair_convolve")
+    if not on_a_route(t):
+        raise ValueError("rns_ntt_inverse_pair_convolve: these tables hold "
+                         "no transform on A (kernel J's, or a pointwise "
+                         "view)")
+    if not _kernels.on_cuda(a, w, t.q):
+        return ntt_inverse_pair_convolve_plain(a, w, t)
+    X, Y, s1, s2 = a.shape[0], w.shape[0], a.shape[1], w.shape[1]
+    a, w = a.contiguous(), w.contiguous()
+    _kernels.check_operand(a, "rns_ntt_inverse_pair_convolve a")
+    _kernels.check_operand(w, "rns_ntt_inverse_pair_convolve w")
+    out = torch.empty((X, Y, s1 + s2 - 1, t.k, t.n), dtype=torch.int64,
+                      device=a.device)
+    _kernels.launch("troy_ntt_inverse_pair_convolve", out.get_device(), out,
+                    a, w, X, Y, s1, s2, t.k, t.log_n, t.inv_root_powers,
+                    t.inv_root_powers_shoup, t.q, t.cr_lo, t.cr_hi,
+                    t.inv_degree, t.inv_degree_shoup)
+    return out
+
+
 def rns_ntt_inverse(x: torch.Tensor, t: RnsNttTables,
                     lazy: bool = False) -> torch.Tensor:
     """Inverse NTT of every limb, n^-1 included. Input words below 2q;

@@ -7,7 +7,9 @@ u64 words, limb-major, with per-limb moduli from the base's RnsNttTables.
 D (csrc/rns_elementwise.cu), as do its fused forms ``zero_sym_finish``,
 ``zero_asym_finish``, ``switching_key_rows`` and ``balanced_add`` (one
 launch each for a chain of those steps), ``bfv_plain_embed`` on kernel G and
-``plain_lift`` on kernel G' (both csrc/plain_embed.cu), the negacyclic
+``plain_lift`` on kernel G' (both csrc/plain_embed.cu; ``plain_lift_ntt``
+routes a lift and its transform to AGp, G' folded into A's first pass, on
+A's route), the negacyclic
 shift family ``negacyclic_shift``, ``extract_lwe_many`` and
 ``assemble_lwe`` on kernel N1 and the pack-tree prepare
 ``pack_fold_prepare`` on kernel N2 (both csrc/negacyclic.cu) for tensors
@@ -25,7 +27,8 @@ import torch
 from . import u64ops as u
 from .. import _kernels
 from ..interop import to_torch
-from .ntt import RnsNttTables, _check_rows, _col
+from .ntt import (RnsNttTables, _check_rows, _col, on_a_route,
+                  rns_ntt_forward, rns_ntt_forward_lift)
 
 ADD, SUB, NEG, SCALAR_MUL = 0, 1, 2, 3
 # kernel D's fused forms (csrc/rns_elementwise.cu)
@@ -497,6 +500,19 @@ def plain_lift(m: torch.Tensor, t: RnsNttTables, plain_modulus: int,
                     m.numel() // t.n, t.k, t.log_n, plain_upper_half_threshold,
                     cf, u.shoup_quotient(cf, tt), consts)
     return out
+
+
+def plain_lift_ntt(m: torch.Tensor, t: RnsNttTables, plain_modulus: int,
+                   plain_upper_half_threshold: int, total_q: int,
+                   correction_factor: int = 1) -> torch.Tensor:
+    """``plain_lift`` then the forward transform, routed by the tables: on
+    A's route one A call with the lift in its first pass (AGp,
+    ``ntt.rns_ntt_forward_lift``); on J's kernel G', then J."""
+    args = (plain_modulus, plain_upper_half_threshold, total_q,
+            correction_factor)
+    if on_a_route(t):
+        return rns_ntt_forward_lift(m, t, *args)
+    return rns_ntt_forward(plain_lift(m, t, *args), t)
 
 
 # --------------------------------------------------------------------------

@@ -822,10 +822,6 @@ def decrypt_mod_t(phase: torch.Tensor, conv: ExactConverter,
 # which, by shape.
 
 
-def _on_a(tables: RnsNttTables) -> bool:
-    return tables.mxu is None and tables.root_powers.shape[-1] == tables.n
-
-
 def decrypt_plan(tables: RnsNttTables, bfv: bool) -> Optional[tuple]:
     """The plan of the fused pass (ACi for BFV, else AXi) at the level of
     ``tables`` on the card: ``ops/ntt.inverse_decrypt_plan`` for one
@@ -845,7 +841,7 @@ def decrypt_fused(tables: RnsNttTables, bfv: bool) -> bool:
     """Whether the decrypt over the level's ``tables`` runs fused into A's
     inverse (ACi for BFV, else AXi): A's tables and, on the card, a plan
     whose block holds all k rows."""
-    if not _on_a(tables):
+    if not dntt.on_a_route(tables):
         return False
     plan = decrypt_plan(tables, bfv)
     return plan is None or plan[2] == tables.k
@@ -894,7 +890,7 @@ def _inverse_decrypt(entry: str, name: str, bfv: bool, x: torch.Tensor,
     """The fused decrypt's checks, then None on the CPU or the launch of
     ``entry`` with ``consts`` after the tables, the first (X's or C's) with
     n^-1 folded in."""
-    if not _on_a(tables):
+    if not dntt.on_a_route(tables):
         raise ValueError(f"{name}: these tables hold no transform on A "
                          "(kernel J's, or a pointwise view)")
     k, n = tables.k, tables.n

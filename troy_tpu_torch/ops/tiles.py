@@ -6,7 +6,9 @@ The port of the jitted cores of troy_tpu/app/linear.py:
     sum_i a[x, i] w[i, y] in the NTT domain, one launch for every tile;
   * ``tile_pair_convolve`` (P2, linear.py:133 _matmul_cipher_pairs_core):
     the ciphertext-degree convolution of every (x, y) pair of an X x Yc
-    grid of NTT-form tiles, one launch;
+    grid of NTT-form tiles, one launch (CKKS and BGV, and BFV on J's
+    route; on A's route BFV's grid runs P2 inside A's first inverse pass,
+    ops/ntt.py ``rns_ntt_inverse_pair_convolve``);
   * ``pack_group_fold`` (P3, linear.py:237 _pack_group_fold_core): each
     group of P traced ciphertexts folded into one with per-member monomial
     shifts, one launch.
@@ -21,7 +23,7 @@ import torch
 
 from . import u64ops as u
 from .. import _kernels
-from .ntt import RnsNttTables, _check_rows, _col
+from .ntt import RnsNttTables, _check_pair, _check_rows, _col
 from .poly import negacyclic_shift_plain
 
 # Products of reduced words (< 2^61) summed in 128 bits before a reduction.
@@ -106,18 +108,10 @@ def tile_pair_convolve(a: torch.Tensor, w: torch.Tensor,
     NTT domain, words below 4q, sizes at most 4; R rows over the moduli of
     t (q u Bsk for BFV, q for CKKS and BGV). Out (X, Yc, s1 + s2 - 1, R,
     n), fully reduced."""
-    _check_rows(a, t, "tile_pair_convolve a")
-    _check_rows(w, t, "tile_pair_convolve w")
-    if a.dim() != 4 or w.dim() != 4:
-        raise ValueError(f"tile_pair_convolve: a {tuple(a.shape)} and w "
-                         f"{tuple(w.shape)}: expected (X, s, R, n) each")
-    s1, s2 = a.shape[1], w.shape[1]
-    if max(s1, s2) > MAX_COMPS:
-        raise ValueError(f"tile_pair_convolve: sizes {s1} and {s2}; at most "
-                         f"{MAX_COMPS}")
+    _check_pair(a, w, t, "tile_pair_convolve")
     if not _kernels.on_cuda(a, w, t.q):
         return tile_pair_convolve_plain(a, w, t)
-    X, Y = a.shape[0], w.shape[0]
+    X, Y, s1, s2 = a.shape[0], w.shape[0], a.shape[1], w.shape[1]
     a, w = a.contiguous(), w.contiguous()
     _kernels.check_operand(a, "tile_pair_convolve a")
     _kernels.check_operand(w, "tile_pair_convolve w")
