@@ -28,8 +28,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    it where F's digits and A ran), AFi F's divide folded into A's last
    inverse pass (A's route runs it where A's inverse and F's divide ran),
    ACi C's conversion and E's decrypt rounding folded into A's last
-   inverse pass (A's route decrypts with it), K mod-switch divide-round,
-   G plain
+   inverse pass (A's route decrypts with it), K mod-switch divide-round
+   (also at k = 1, odd component counts, 16 and 17 limbs and the rounding's
+   turning words, and F's divide on K's kernel in every accumulator layout
+   of its J route), G plain
    embedding, M Galois
    gather on its packed tables, signed and unsigned, and M as the batch
    encoder's slot gather; D's fused forms, the zero encryptions' finishes
@@ -63,7 +65,12 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    time of each from the torch profiler, one trace per op, and kernel A's
    share of mult+relin's device time;
 7. the CKKS kernels (O1 the FP64 embedding transform, both directions; O2
-   the exact rounding into RNS; O3 the CRT composition; K' the NTT-domain
+   the exact rounding into RNS, and AO2p, O2's rounding folded into A's
+   first forward pass, which A's route encodes with: the slot encode's
+   (n) -> (5,n) at scales 2^40 and 2^100, the polynomial encode's real
+   words, n = 1024 and 512, and against O2 + A; then the slot encode and
+   encode_polynomial on the card word-equal to the port's CPU run, one
+   AO2p call and no O2 each; O3 the CRT composition; K' the NTT-domain
    divide by the last prime, for the rescale and for the key switch: its
    own temps and finish, which J's route runs, and AKp, its temps and
    finish in A's forward passes, alone and after A's inverse, which A's
@@ -213,10 +220,11 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the plain version's plane products alone (the library yardstick, never
    used by the port) and A's time;
 24. troy's timetest BFV mult+relin and CKKS mult+relin+rescale at
-   n = 16384 with use_mxu=True, and a BFV multiply_plain, word-equal to
-   the A route on the same ciphertexts and keys, in a count window that
-   must launch J (for CKKS K''s own temps and finish, for BFV F and G')
-   and not A, AKp or AGp; both routes timed, alternately;
+   n = 16384 with use_mxu=True, a BFV multiply_plain and a CKKS encode and
+   encode_polynomial, word-equal to the A route on the same ciphertexts,
+   keys and values, in a count window that must launch J (for CKKS K''s
+   own temps and finish and O2, for BFV F and G') and not A, AKp, AGp or
+   AO2p; both routes timed, alternately;
 25. SEAL's 128-bit n = 32768 BFV chain at full width (bfv_default(32768):
    16 primes, 881 bits; t = PlainModulus.batching(32768, 20)), every NTT
    on the default route (A): native host keygen (secret, public, relin,
@@ -351,8 +359,14 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    (5,2,6,n), word-equal to P2 then A's inverse, timed in turns with it
    and with P2 alone (redesign_ap2i); P2's own kernel at the app's q u Bsk
    and over-q grids, its device us a call and a launch and its bound's
-   share (standalone_p2, on the wrappers the earlier trees have too); and
-   the spread of one CKKS and one BGV
+   share (standalone_p2, on the wrappers the earlier trees have too); AO2p
+   at the headline's (n) -> (5,n), word-equal to O2 then A (the slot
+   encode) and to the complex copy, O2 and A (the polynomial encode),
+   timed in turns with each and with A alone (redesign_ao2p); K's own
+   kernel at (2,5,n), (2,2,n), SEAL's (2,15,32768) and (2,3,262144),
+   word-equal to its plain version, its device us a call and a launch
+   beside the bound (standalone_k, on the wrappers the earlier trees have
+   too); and the spread of one CKKS and one BGV
    rotation's profiled device time over 8 traces in this process
    (op_spread). Device us
    a call come from CUDA events
@@ -583,6 +597,15 @@ REDESIGN_AP2I_SHAPES = (("app (1,2,6,n)x(16,2,6,n)", 1, 16, 2, 2),
                         ("(2,3,6,n)x(5,2,6,n)", 2, 5, 3, 2))
 REDESIGN_P2_SHAPES = (("q u Bsk (1,2,6,n)x(16,2,6,n)", 1, 16, True),
                       ("over q (1,2,2,n)x(16,2,2,n)", 1, 16, False))
+# phase 35 (O2 and K redesigned): K's own kernel (the BFV mod switch) at
+# the BFV window's level, k = 1, SEAL's n = 32768 first level and the
+# ceiling's ring (tag, n, the level's primes, components)
+STANDALONE_K_SHAPES = (("(2,5,n)->(2,4,n)", N, Q_BITS[:5], 2),
+                       ("(2,2,n)->(2,1,n)", N, Q_BITS[:2], 2),
+                       ("SEAL (2,15,32768)->(2,14,32768)", 32768,
+                        "bfv_default", 2),
+                       ("(2,3,262144)->(2,2,262144)", 262144,
+                        CEILING_Q_BITS, 2))
 
 # name -> (source, the TPU function it replaces)
 KERNELS = {
@@ -593,6 +616,8 @@ KERNELS = {
                      "troy_tpu/evaluator.py:708"),
     "AP2i_pair_intt": ("troy_tpu_torch/csrc/ntt.cu",
                        "troy_tpu/app/linear.py:133"),
+    "AO2p_ntt_round": ("troy_tpu_torch/csrc/ntt.cu",
+                       "troy_tpu/ops/embedding.py:425"),
     "AKp_rescale_ntt": ("troy_tpu_torch/csrc/ntt.cu",
                         "troy_tpu/ops/rns.py:213"),
     "AKp_keyswitch_ntt": ("troy_tpu_torch/csrc/ntt.cu",
@@ -663,18 +688,20 @@ KERNELS = {
 # run in A's first pass (AF), BFV's divide in A's last inverse pass (AFi),
 # K''s temps and finish in A's forward passes (AKp), the decrypt's
 # conversions in A's last inverse pass (ACi: C and E's rounding; AXi: X),
-# the plain lift in A's first forward pass (AGp: G') and BFV's pair
+# the plain lift in A's first forward pass (AGp: G'), the CKKS encodes'
+# rounding in A's first forward pass (AO2p: O2) and BFV's pair
 # convolution in A's first inverse pass (AP2i: P2); F's and K''s own
 # kernels (F, Kp) only on J's route (phase 24, n = 262144 in phase 27, the
 # coefficient-sharded key switch of phase 34), C's and X's with E's
 # rounding there too (n = 262144 in phase 27), G' there too (phase 24's
-# multiply_plain); P2's own kernel for the CKKS and BGV pair grids (the
-# app's BGV ct x ct matmul)
+# multiply_plain), O2 there too (phase 24's CKKS encodes) and as O4's
+# borderline encode (the binder); P2's own kernel for the CKKS and BGV
+# pair grids (the app's BGV ct x ct matmul)
 BFV_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
             "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
             "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
 CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-             "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
+             "M_galois", "O1_ckks_fft", "AO2p_ntt_round", "O3_ckks_compose",
              "AKp_rescale_ntt", "AKp_keyswitch_ntt", "I_sampling")
 BGV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
             "M_galois", "AKp_bgv_ntt", "AXi_decrypt_intt", "AGp_ntt_lift",
@@ -693,14 +720,14 @@ APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
             "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
             "AGp_ntt_lift", "AP2i_pair_intt", "AKp_bgv_ntt", "I_sampling", "M_galois", "N1_negacyclic",
             "Kpp_bgv_coeff",
-            "AXi_decrypt_intt", "O2_ckks_round", "O3_ckks_compose")
+            "AXi_decrypt_intt", "AO2p_ntt_round", "O3_ckks_compose")
 LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
                   "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
                   "AFi_keyswitch_intt",
                   "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
 LARGE_CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
                    "D_rns_elementwise", "M_galois", "O1_ckks_fft",
-                   "O2_ckks_round", "O3_ckks_compose", "AKp_rescale_ntt",
+                   "AO2p_ntt_round", "O3_ckks_compose", "AKp_rescale_ntt",
                    "AKp_keyswitch_ntt", "I_sampling")
 # n = 131072 on A (AF, AFi, ACi), 262144 on J (F's digits and divide; C
 # and E's rounding)
@@ -708,7 +735,7 @@ CEILING_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "J_ntt_mxu",
                 "ACi_decrypt_intt",
                 "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
                 "E_behz", "F_keyswitch", "G_plain_embed", "I_sampling")
-BINDER_PATH = ("O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
+BINDER_PATH = ("O1_ckks_fft", "AO2p_ntt_round", "O3_ckks_compose",
                "O4_ckks_encode_stats", "O5_ckks_decode_stats", "A_ntt",
                "AF_ntt_digits", "B_dyadic_mac", "ACi_decrypt_intt",
                "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
@@ -727,11 +754,12 @@ SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits",
                 "AGp_ntt_lift")
 # the entry points a window on A's route must not launch: F's separate
 # digits (their work is in AF), F's divide (in AFi), K''s temps and
-# finish (in AKp), the decrypt's X, C and E's rounding (in AXi, ACi) and
-# G''s lift (in AGp)
+# finish (in AKp), the decrypt's X, C and E's rounding (in AXi, ACi),
+# G''s lift (in AGp) and O2's rounding (in AO2p; O4 keeps its own entry)
 A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_keyswitch_divide_round",
                   "troy_exact_convert", "troy_base_convert",
                   "troy_behz_decrypt_round", "troy_plain_lift",
+                  "troy_ckks_round",
                   "troy_rescale_ntt_temps",
                   "troy_rescale_ntt_finish", "troy_keyswitch_ntt_temps",
                   "troy_keyswitch_ntt_finish",
@@ -1147,6 +1175,8 @@ def phase_kernels(ctx) -> dict:
          lambda: galois.permute(m_x, n_table),
          lambda: galois.apply_permutation_plain(m_x, perm), None,
          lambda: m_x.index_select(-1, perm)),
+        # after each kernel's first check, which stands in the JSON line
+        *k_checks(rng, dev, q6, v6, f_consts),
     ]
     results = run_checks("3", [(c[0], c[1], "words") + c[2:]
                                for c in checks])
@@ -1163,6 +1193,63 @@ def phase_kernels(ctx) -> dict:
          lambda: slots.index_select(-1, index_map))])
     results["H_batch_slots"] = h["H_batch_slots"]
     return results
+
+
+def k_checks(rng, dev, q6, v6, f_consts) -> list:
+    """Phase 3's checks of K's kernel (``keyswitch.divide_and_round_q_last``
+    and F's divide on J's route, ``keyswitch.divide_round_last``) against
+    its plain version: the mod switch at k = 1, at odd component counts,
+    at 16 and 17 limbs (the last limb group full, then one limb), with the
+    last row at 0,
+    p - 1 and p/2 +- 1 (where the rounding turns) and the data rows at 0
+    and q - 1; F's divide in the accumulator layouts its J route uses:
+    onto c0 alone (a Galois key switch), onto c0 of each pair with one
+    row each (the batched fold) and one row for all (the hoisted path)."""
+    def level(bits):
+        return ntt.RnsNttTables.from_moduli(
+            N, [int(m) for m in P.CoeffModulus.create(N, bits)], dev)
+
+    def mod_switch(tag, t, comps, x=None):
+        x = _uniform(rng, t.values, (comps, t.k, N), dev) if x is None else x
+        consts = keyswitch.divide_round_consts(t.slice(0, t.k - 1),
+                                               t.values[-1])
+        return ("K_divide_round", f"mod switch {tag}",
+                lambda: keyswitch.divide_and_round_q_last(x, t),
+                lambda: keyswitch.divide_round_last_plain(x, consts),
+                None, None)
+
+    q5 = q6.slice(0, 5)
+    edge = _edge(rng, q5.values, (2, 5, N), dev)
+    p = q5.values[-1]
+    turns = [0, p - 1, p // 2 - 1, p // 2, p // 2 + 1]
+    edge[:, 4, :len(turns)] = to_torch(np.array(turns, dtype=np.uint64),
+                                       dev)
+    checks = [mod_switch("(2,5,n) edge words", q5, 2, edge),
+              mod_switch("(2,2,n)->(2,1,n): k = 1", level(Q_BITS[:2]), 2),
+              mod_switch("(3,5,n)->(3,4,n): odd components", q5, 3),
+              mod_switch("(1,5,n)->(1,4,n)", q5, 1),
+              mod_switch("(2,17,n)->(2,16,n): full limb groups",
+                         level([50] * 17), 2),
+              mod_switch("(3,18,n)->(3,17,n): a one-limb group",
+                         level([50] * 18), 3)]
+    v5 = v6[:5]
+    x8 = _uniform(rng, v6, (8, 6, N), dev)
+    acc_c0 = _uniform(rng, v5, (1, 5, N), dev)
+    acc_pairs = _uniform(rng, v5, (4, 1, 5, N), dev)
+    acc_one = _uniform(rng, v5, (1, 1, 5, N), dev)
+    for tag, x, acc, group in (
+            ("(2,6,n) onto c0", x8[:2], acc_c0, None),
+            ("(8,6,n) onto c0 of each pair", x8, acc_pairs, 2),
+            ("(8,6,n) onto c0 of every pair, one row", x8, acc_one, 2),
+            ("(8,6,n), no accumulator", x8, None, None)):
+        checks.append((
+            "F_keyswitch", f"divide-round {tag}",
+            lambda x=x, acc=acc, group=group: keyswitch.divide_round_last(
+                x, f_consts, acc, group),
+            lambda x=x, acc=acc, group=group:
+                keyswitch.divide_round_last_plain(x, f_consts, acc, group),
+            None, None))
+    return checks
 
 
 def d_fused_checks(rng, q5, q6, dev) -> list:
@@ -1582,7 +1669,109 @@ def phase_ckks_kernels(ctx) -> dict:
                  k, k + 1))[:, 0], q5, ks_consts, acc_ks),
          None, None),
     ]
-    return run_checks("7", checks)
+    results = run_checks("7", checks + ao2p_checks(rng, dev, q5, t, rt, u))
+    check_encodes_on_the_cpu(ctx, rng)
+    return results
+
+
+def round_work(t, twisted: bool, scaled_words: int = 0) -> tuple:
+    """bound() arguments of one AO2p call into t's k rows: the source in
+    once (16 bytes a word, 8 without an untwist; the untwist, as for O2,
+    not counted), the k rows out and the twiddles once; A's butterfly
+    products and the rounding's (a Barrett product a word and limb, and
+    the Shoup product by 2^e mod q of the scaled_words with e > 0); its
+    f64 products (3 a word with an untwist, 1 without)."""
+    k, n = t.k, t.n
+    return (n * (16 if twisted else 8) + 3 * k * n * 8,
+            ntt_rows_mul64(k, n) + k * n + 2 * k * scaled_words,
+            n * (3 if twisted else 1))
+
+
+def ao2p_checks(rng, dev, q5, t, rt, u) -> list:
+    """Phase 7's checks of AO2p (O2's rounding in A's first forward pass,
+    ``embedding.rns_ntt_forward_round``) against O2's plain version then
+    A's plain forward, word for word: the slot encode's (n) -> (k,n) with
+    its untwist at scales 2^40 and 2^100 (the exponent path), the
+    polynomial encode's real words without one, at n = 1024 and 512 (two
+    passes and one), and against O2 + A themselves."""
+    k = q5.k
+    coeffs = torch.from_numpy(rng.uniform(-1, 1, N) * 2.0 ** 10).to(dev)
+
+    def pair(uu, untwist, scale, tables, rtt):
+        return (lambda: embedding.rns_ntt_forward_round(uu, untwist, scale,
+                                                        rtt, tables),
+                lambda: embedding.ntt_forward_round_plain(uu, untwist, scale,
+                                                          rtt, tables))
+
+    checks = [
+        ("AO2p_ntt_round", f"(n,) -> ({k},n) untwisted at scale 2^40",
+         "words", *pair(u, t.untwist, CKKS_SCALE, q5, rt),
+         round_work(q5, True), None),
+        ("AO2p_ntt_round", f"(n,) -> ({k},n) untwisted at scale 2^100",
+         "words", *pair(u, t.untwist, 2.0 ** 100, q5, rt), None, None),
+        ("AO2p_ntt_round", f"(n,) f64 -> ({k},n) at scale 2^40", "words",
+         *pair(coeffs, None, CKKS_SCALE, q5, rt), None, None),
+        ("AO2p_ntt_round", f"(n,) f64 -> ({k},n) at scale 2^100", "words",
+         *pair(coeffs, None, 2.0 ** 100, q5, rt), None, None),
+        ("AO2p_ntt_round", f"with O2 + A: (n,) -> ({k},n) at 2^100",
+         "words",
+         lambda: embedding.rns_ntt_forward_round(u, t.untwist, 2.0 ** 100,
+                                                 rt, q5),
+         lambda: ntt.rns_ntt_forward(embedding.untwist_round_to_rns(
+             u, 2.0 ** 100, t, rt), q5), None, None),
+    ]
+    for n in (1024, 512):
+        tn = ntt.RnsNttTables.from_moduli(
+            n, [int(m) for m in P.CoeffModulus.create(n, Q_BITS[:k])], dev)
+        en = embedding.make_embed_tables(n, dev)
+        rtn = embedding.make_rns_round_tables(tn)
+        un = torch.from_numpy((rng.uniform(-1, 1, n)
+                               + 1j * rng.uniform(-1, 1, n)) * 2.0 ** -7
+                              ).to(dev)
+        cn = torch.from_numpy(rng.uniform(-1, 1, n) * 2.0 ** 10).to(dev)
+        checks += [
+            ("AO2p_ntt_round", f"(n,) -> ({k},n) untwisted, n = {n}",
+             "words", *pair(un, en.untwist, CKKS_SCALE, tn, rtn), None,
+             None),
+            ("AO2p_ntt_round", f"(n,) f64 -> ({k},n) at 2^100, n = {n}",
+             "words", *pair(cn, None, 2.0 ** 100, tn, rtn), None, None),
+        ]
+    return checks
+
+
+def check_encodes_on_the_cpu(ctx, rng) -> None:
+    """The CKKS slot encode (O1, then AO2p) and encode_polynomial (AO2p)
+    on the card, word-equal to the port's own CPU run (the plain versions)
+    from the same values, at the first data level and the last (and at
+    scale 2^100 at the first, the exponent path); each card encode one
+    AO2p call and no O2."""
+    cpu = P.HeContext(ctx.key_context_data.parms, device="cpu")
+    enc, enc_cpu = P.CKKSEncoder(ctx), P.CKKSEncoder(cpu)
+    values = rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
+    coeffs = rng.uniform(-1, 1, N) * 2.0 ** 10
+    cases = []
+    for level in (ctx.first_level, ctx.last_level):
+        cases += [(f"encode at level {level}", lambda e, lv=level:
+                   e.encode(values, CKKS_SCALE, lv)),
+                  (f"encode_polynomial at level {level}", lambda e, lv=level:
+                   e.encode_polynomial(coeffs, CKKS_SCALE, lv))]
+    cases.append(("encode_polynomial at scale 2^100", lambda e:
+                  e.encode_polynomial(coeffs, 2.0 ** 100)))
+    for what, fn in cases:
+        before = _kernels.entry_launch_counts()
+        got = fn(enc)
+        torch.cuda.synchronize()
+        after = _kernels.entry_launch_counts()
+        ran = {e: after[e] - before.get(e, 0) for e in (
+            "troy_ntt_forward_round", "troy_ckks_round")}
+        if ran != {"troy_ntt_forward_round": 1, "troy_ckks_round": 0}:
+            raise AssertionError(f"CKKS {what} on the card: {ran}")
+        want = fn(enc_cpu)
+        if not torch.equal(got.data.cpu(), want.data):
+            raise AssertionError(f"CKKS {what}: the card's words differ "
+                                 "from the CPU run's")
+    log(f"[7] CKKS encode and encode_polynomial on the card (one AO2p call "
+        f"each, no O2) word-equal to the CPU run in {len(cases)} cases")
 
 
 def tie_diffs(ctx, got: torch.Tensor, want_words: np.ndarray):
@@ -3290,11 +3479,16 @@ def phase_mxu_kernels(dev) -> dict:
 def phase_mxu_headline(parts: dict, counter) -> dict:
     """Phase 24: troy's timetest BFV mult+relin and CKKS
     mult+relin+rescale at n = 16384 on J (use_mxu=True), word-equal to the
-    A route on the same ciphertexts and keys; both routes timed; and a BFV
+    A route on the same ciphertexts and keys; both routes timed; a BFV
     multiply_plain by a mod-t plaintext, whose lift runs on G' there (AGp
-    on A's route), word-equal too. The J route runs in a count window of
-    its own: J launched, A not, no plain torch on the card."""
+    on A's route), and a CKKS encode and encode_polynomial, whose rounding
+    runs on O2 there (AO2p on A's route), word-equal too. The J route runs
+    in a count window of its own: J launched, A not, no plain torch on the
+    card."""
     out, results, routes = {}, {}, {}
+    rng = np.random.default_rng(SEED + 24)
+    values = rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
+    coeffs = rng.uniform(-1, 1, N)
     for scheme, (ctx, ca, cb, rlk) in parts.items():
         ctx_j = P.HeContext(ctx.key_context_data.parms, use_mxu=True)
         ops, plain_ops = {}, {}
@@ -3306,6 +3500,10 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
             if scheme == "ckks":
                 ops[route] = lambda ev=ev: ev.rescale_to_next(
                     ev.relinearize(ev.multiply(ca, cb), rlk))
+                ce = P.CKKSEncoder(c)
+                plain_ops[route] = lambda ce=ce: (
+                    ce.encode(values, CKKS_SCALE),
+                    ce.encode_polynomial(coeffs, CKKS_SCALE))
             else:
                 ops[route] = lambda ev=ev: ev.relinearize(
                     ev.multiply(ca, cb), rlk)
@@ -3319,20 +3517,25 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
         got_plain = plain_ops["j"]() if plain_ops else None
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
-        if plain_ops and not torch.equal(got_plain.data,
-                                         want_plain["a"].data):
-            raise AssertionError("bfv multiply_plain: J route differs from "
-                                 "A route")
-        # CKKS divides on K''s own kernels there, BFV on F's, and BFV's
-        # plain lift on G'
-        path = ("J_ntt_mxu",) + (("Kp_rescale_ntt", "Kp_keyswitch_ntt")
+        if plain_ops:
+            pairs = zip(*(r if isinstance(r, tuple) else (r,)
+                          for r in (got_plain, want_plain["a"])))
+            what = "encodes" if scheme == "ckks" else "multiply_plain"
+            if not all(torch.equal(g.data, w.data) for g, w in pairs):
+                raise AssertionError(f"{scheme} {what}: J route differs "
+                                     "from A route")
+        # CKKS divides on K''s own kernels there and rounds its encodes on
+        # O2's, BFV divides on F's and lifts its plaintext on G''s
+        path = ("J_ntt_mxu",) + (("Kp_rescale_ntt", "Kp_keyswitch_ntt",
+                                  "O2_ckks_round")
                                  if scheme == "ckks"
                                  else ("F_keyswitch", "Gp_plain_lift"))
         check_path("24", f"24 ({scheme}, J route)", path, counts, counter,
                    absent=())
         on_a = {k: counts[k] for k in ("A_ntt", "AKp_rescale_ntt",
                                        "AKp_keyswitch_ntt",
-                                       "AFi_keyswitch_intt", "AGp_ntt_lift")
+                                       "AFi_keyswitch_intt", "AGp_ntt_lift",
+                                       "AO2p_ntt_round")
                 if counts[k]}
         if on_a:
             raise AssertionError(f"A ran on the J route: {on_a}")
@@ -4958,9 +5161,12 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
                    divide_ops: dict, zero_ctxs: dict,
                    decrypt_ops: dict) -> dict:
     """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
-    F's digits, K' and K'-BGV, D and I, O3 and F's divide: redesign_j,
-    redesign_e, redesign_b, redesign_o1, redesign_p1, redesign_f,
-    redesign_kp, redesign_zero, redesign_o3, redesign_afi) as redesigned
+    F's digits, K' and K'-BGV, D and I, O3 and F's divide, X and C, G' and
+    P2, O2 and K: redesign_j, redesign_e, redesign_b, redesign_o1,
+    redesign_p1, redesign_f, redesign_kp, redesign_zero, redesign_o3,
+    redesign_afi, redesign_decrypt, standalone_decrypt, redesign_agp,
+    redesign_ap2i, standalone_p2, redesign_ao2p, standalone_k) as
+    redesigned
     for the H100. A against its plain version, word for word, at every n of
     REDESIGN_NS (one pass over whole rows below 1024, two passes from it
     up) and the shapes of
@@ -5097,6 +5303,8 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
     agp = redesign_agp(zero_ctxs["bgv"], app_ctx, rng)
     ap2i = redesign_ap2i(app_ctx, rng)
     p2 = standalone_p2(dev, rng)
+    ao2p = redesign_ao2p(zero_ctxs["ckks"], rng)
+    k_alone = standalone_k(dev, rng)
     spread = op_spread(divide_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
@@ -5104,6 +5312,7 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
             "o3": o3, "afi": afi, "axi": axi, "aci": aci,
             "standalone_decrypt": standalone, "decrypt_wall": wall,
             "agp": agp, "ap2i": ap2i, "standalone_p2": p2,
+            "ao2p": ao2p, "standalone_k": k_alone,
             "spread": spread}
 
 
@@ -5571,6 +5780,83 @@ def redesign_agp(bgv_ctx, app_ctx, rng) -> dict:
             lift_work(t, m.numel() // N), calls=5 if big else 20,
             extra={"A_alone": lambda: ntt.rns_ntt_forward(lifted, t)})
         del m, lifted
+        torch.cuda.empty_cache()
+    return out
+
+
+def redesign_ao2p(ckks_ctx, rng) -> dict:
+    """Phase 35, AO2p (O2's rounding in A's first forward pass,
+    ``embedding.rns_ntt_forward_round``) at the CKKS headline's (n) ->
+    (5,n): the slot encode's (an untwist) word-equal to O2 then A's
+    forward, and the polynomial encode's (float64 words, no untwist)
+    word-equal to its old route, the complex copy, O2 with a unit untwist,
+    then A; each timed in turns with its composition and with A alone on
+    the rounded rows, their device us a launch (profiler) beside AO2p's
+    bound."""
+    cd = ckks_ctx.first_context_data
+    t, dev = cd.ntt, ckks_ctx.device
+    emb = embedding.make_embed_tables(N, dev)
+    rt = embedding.make_rns_round_tables(t)
+    u = torch.from_numpy((rng.uniform(-1, 1, N) + 1j * rng.uniform(-1, 1, N))
+                         * 2.0 ** -7).to(dev)
+    c = torch.from_numpy(rng.uniform(-1, 1, N) * 2.0 ** 10).to(dev)
+    rows = embedding.untwist_round_to_rns(u, CKKS_SCALE, emb, rt)
+    out = {"slot (n)->(5,n)": _fused_turns(
+        "AO2p slot encode (n)->(5,n)",
+        lambda: embedding.rns_ntt_forward_round(u, emb.untwist, CKKS_SCALE,
+                                                rt, t),
+        lambda: ntt.rns_ntt_forward(embedding.untwist_round_to_rns(
+            u, CKKS_SCALE, emb, rt), t),
+        {"ntt_pass_kernel": 2}, {"round_kernel": 1, "ntt_pass_kernel": 2},
+        round_work(t, True),
+        extra={"A_alone": lambda: ntt.rns_ntt_forward(rows, t)})}
+    out["polynomial (n)->(5,n)"] = _fused_turns(
+        "AO2p polynomial encode (n)->(5,n)",
+        lambda: embedding.rns_ntt_forward_round(c, None, CKKS_SCALE, rt, t),
+        lambda: ntt.rns_ntt_forward(embedding.round_to_rns(c, CKKS_SCALE,
+                                                           rt), t),
+        {"ntt_pass_kernel": 2}, {"round_kernel": 1, "ntt_pass_kernel": 2},
+        round_work(t, False),
+        extra={"A_alone": lambda: ntt.rns_ntt_forward(rows, t)})
+    return out
+
+
+def standalone_k(dev, rng) -> dict:
+    """Phase 35, K's own kernel (``keyswitch.divide_and_round_q_last``, the
+    BFV mod switch) at STANDALONE_K_SHAPES: word-equal to its plain
+    version, its device us a call (graph replay) and a launch (profiler)
+    beside the bound (x in, the result out; 5 products a word and limb)
+    and the bound's share. Written on the wrappers that the earlier trees
+    have too, so that it times those trees' K in turns with this one."""
+    out = {}
+    for tag, n, spec, comps in STANDALONE_K_SHAPES:
+        moduli = _moduli(n, spec)
+        if spec == "bfv_default":
+            moduli = moduli[:-1]               # the first data level's
+        t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+        k = t.k - 1
+        x = _uniform(rng, t.values, (comps, t.k, n), dev)
+        consts = keyswitch.divide_round_consts(t.slice(0, k), t.values[-1])
+        fn = lambda: keyswitch.divide_and_round_q_last(x, t)
+        try:
+            compare("words", fn(), keyswitch.divide_round_last_plain(
+                x, consts))
+        except AssertionError as exc:
+            raise AssertionError(f"K {tag}: {exc}") from None
+        _, _, each = device_kernels_per_op(
+            fn, reps=10, expect={"divide_round_kernel": 1}, whole=True)
+        us = each["divide_round_kernel"][1]
+        bound_ms, bound_by = bound((comps * (2 * k + 1) * n) * 8,
+                                   comps * k * n * 5)
+        r = {"device_us": graph_us(fn), "us_per_launch": us,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_share": bound_ms * 1e3 / us}
+        out[tag] = r
+        log(f"[35] standalone K {tag}: word-equal to its plain version; "
+            f"{r['device_us']:.2f} us a call (graph), {us:.2f} us a launch "
+            f"(profiler); bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+            f"{100 * r['bound_share']:.1f} % of the launch")
+        del x
         torch.cuda.empty_cache()
     return out
 

@@ -31,12 +31,13 @@ BITS = {1: [50], 6: [60, 40, 40, 40, 40, 60]}
 # run; K''s temps and finish run in A's forward passes (AKp), K''s own
 # kernels (Kp) only on J's route; the decrypt's conversions run in A's
 # last inverse pass (ACi: C and E's rounding; AXi: X); the plain lift in
-# A's first forward pass (AGp: G')
+# A's first forward pass (AGp: G'), and the CKKS encodes' rounding there
+# too (AO2p: O2)
 BFV_KERNELS = {"A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
                "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
                "K_divide_round", "G_plain_embed", "M_galois"}
 CKKS_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
-                "M_galois", "O1_ckks_fft", "O2_ckks_round", "O3_ckks_compose",
+                "M_galois", "O1_ckks_fft", "AO2p_ntt_round", "O3_ckks_compose",
                 "AKp_rescale_ntt", "AKp_keyswitch_ntt"}
 BGV_KERNELS = {"A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
                "M_galois", "AKp_bgv_ntt",
@@ -632,6 +633,7 @@ def test_ckks_slice_on_the_card_gives_the_cpu_words(dev):
     counts = _kernels.launch_counts()
     assert all(counts[k] > 0 for k in CKKS_KERNELS), counts
     assert not any(counts[k] for k in KP_KERNELS), counts
+    assert counts["O2_ckks_round"] == 0, counts
     on_host = _ckks_slice("cpu")
     for stage in ("c1", "rel", "rs", "rot", "conj"):
         np.testing.assert_array_equal(on_card[stage], on_host[stage],
@@ -1886,3 +1888,161 @@ def test_tile_pair_convolve_every_size(dev, n, s1, s2):
     w = _uniform(rng, lazy, (6, s2), n, dev)
     _same(tiles.tile_pair_convolve(a, w, tables),
           tiles.tile_pair_convolve_plain(a, w, tables))
+
+
+@pytest.mark.parametrize("n", [64, 512, 1024, 16384, 32768, 131072])
+@pytest.mark.parametrize("twisted", [True, False])
+def test_ntt_forward_round_kernel(dev, n, twisted):
+    """AO2p (O2's rounding in A's first pass) against O2 then A's forward
+    and against its plain version, with the slot encode's untwist or on
+    real words, at scales 2^40 and 2^100 (the exponent path) and on the
+    ties and zeros: one AO2p launch and no O2 launch a call."""
+    moduli = [int(m) for m in P.CoeffModulus.create(
+        n, [60, 40, 40, 40, 40, 60])][:5]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rt = embedding.make_rns_round_tables(tables)
+    emb = embedding.make_embed_tables(n, dev)
+    rng = np.random.default_rng(n + twisted)
+    if twisted:
+        u = torch.from_numpy((rng.uniform(-1, 1, n)
+                              + 1j * rng.uniform(-1, 1, n)) * 2.0 ** -7
+                             ).to(dev)
+        untwist = emb.untwist
+    else:
+        u = torch.from_numpy(rng.uniform(-1, 1, n) * 2.0 ** 10).to(dev)
+        u[:4] = torch.tensor([0.5, -2.5, 3.5, -0.0], dtype=torch.float64)
+        untwist = None
+    for scale in (2.0 ** 40, 2.0 ** 100, 1.0):
+        _kernels.reset_launch_counts()
+        got = embedding.rns_ntt_forward_round(u, untwist, scale, rt, tables)
+        counts = _kernels.launch_counts()
+        assert (counts["AO2p_ntt_round"], counts["O2_ckks_round"]) == (1, 0)
+        rows = embedding.untwist_round_to_rns(u, scale, emb, rt) if twisted \
+            else embedding.round_to_rns(u, scale, rt)
+        _same(got, ntt.rns_ntt_forward(rows, tables))
+        _same(got, embedding.ntt_forward_round_plain(u, untwist, scale, rt,
+                                                     tables))
+
+
+@pytest.mark.parametrize("use_mxu", [False, True])
+def test_ckks_encodes_route_by_tables(dev, use_mxu):
+    """The slot encode and encode_polynomial on A's route are O1 and one
+    AO2p call, on J's (use_mxu=True) O2 and J; both give the CPU run's
+    words."""
+    n = 4096
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.ckks, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                      use_mxu=use_mxu, device=dev)
+    cpu = P.HeContext(parms, sec_level=P.SecurityLevel.none, device="cpu")
+    rng = np.random.default_rng(7)
+    values = rng.uniform(-1, 1, n // 2) + 1j * rng.uniform(-1, 1, n // 2)
+    coeffs = rng.uniform(-1, 1, n)
+    for fn in (lambda e: e.encode(values, 2.0 ** 40),
+               lambda e: e.encode_polynomial(coeffs, 2.0 ** 40)):
+        _kernels.reset_launch_counts()
+        got = fn(P.CKKSEncoder(ctx))
+        counts = _kernels.launch_counts()
+        want = (0, 1, 1) if use_mxu else (1, 0, 0)
+        assert (counts["AO2p_ntt_round"], counts["O2_ckks_round"],
+                int(counts["J_ntt_mxu"] > 0)) == want, counts
+        _same(got.data, fn(P.CKKSEncoder(cpu)).data)
+
+
+K_SHAPES = [(2, 5, 16384), (2, 2, 16384), (2, 15, 32768), (2, 3, 262144),
+            (1, 2, 64), (3, 6, 2), (3, 17, 1024), (2, 18, 1024),
+            (5, 21, 64), (1, 64, 64)]
+
+
+@pytest.mark.parametrize("s,rows,n", K_SHAPES)
+def test_mod_switch_divide_kernel(dev, s, rows, n):
+    """K (the BFV mod switch's divide by the last prime) against its plain
+    version at phase 35's shapes, at k = 1, at even and odd limb counts
+    (full limb groups of two, and a last group of one) up to 20, with odd
+    component counts and n = 2, with the last row
+    at 0, p - 1 and p/2 +- 1: one K launch a call."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [50] * rows)] \
+        if rows > 6 or n < 1024 \
+        else [int(m) for m in P.CoeffModulus.create(
+            n, [60, 40, 40, 40, 40, 60][:rows])]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(s * rows + n)
+    x = _uniform(rng, moduli, (s,), n, dev)
+    p = moduli[-1]
+    turns = [0, p - 1, p // 2 - 1, p // 2, p // 2 + 1][:n]
+    x[:, -1, :len(turns)] = interop.to_torch(np.array(turns, np.uint64), dev)
+    consts = keyswitch.divide_round_consts(t.slice(0, rows - 1), p)
+    _kernels.reset_launch_counts()
+    got = keyswitch.divide_and_round_q_last(x, t)
+    assert _kernels.launch_counts()["K_divide_round"] == 1
+    _same(got, keyswitch.divide_round_last_plain(x, consts))
+
+
+def _odd_word_view(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x that starts one word past a 16-byte line."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() & 15 == 8
+    return view
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_divide_round_unaligned_operands(dev, with_acc):
+    """K and F's divide on contiguous operands at an odd word offset (off
+    the kernel's 16-byte loads): the wrapper copies them once and gives
+    the plain version's words, one launch a call."""
+    n, k = 4096, 5
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [50] * (k + 1))]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    consts = keyswitch.divide_round_consts(t.slice(0, k), moduli[-1])
+    rng = np.random.default_rng(k + with_acc)
+    x = _uniform(rng, moduli, (2,), n, dev)
+    acc = _uniform(rng, moduli[:k], (2,), n, dev) if with_acc else None
+    want = keyswitch.divide_round_last_plain(x, consts, acc)
+    _kernels.reset_launch_counts()
+    got = keyswitch.divide_round_last(
+        _odd_word_view(x), consts,
+        _odd_word_view(acc) if with_acc else None)
+    assert _kernels.launch_counts()["F_keyswitch"] == 1
+    _same(got, want)
+    if not with_acc:
+        _kernels.reset_launch_counts()
+        _same(keyswitch.divide_and_round_q_last(_odd_word_view(x), t), want)
+        assert _kernels.launch_counts()["K_divide_round"] == 1
+    # the C entry point itself refuses them, and launches nothing
+    _kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="troy_keyswitch_divide_round"):
+        _kernels.launch("troy_keyswitch_divide_round", x.get_device(),
+                        torch.empty_like(want), _odd_word_view(x),
+                        _odd_word_view(acc) if with_acc else None, 2,
+                        2 if with_acc else 0, 2, 1, k, n.bit_length() - 1,
+                        consts)
+    assert _kernels.launch_counts()["F_keyswitch"] == 0
+
+
+@pytest.mark.parametrize("layout", ["c0c1", "c0", "pairs", "one", "none"])
+@pytest.mark.parametrize("k", [5, 16, 17])
+def test_divide_round_accumulator_layouts(dev, layout, k):
+    """F's divide on K's kernel (J's route, the coefficient-sharded key
+    switch) in the accumulator layouts its callers use, against its plain
+    version: onto (c0, c1), onto c0, onto c0 of each pair with a row each
+    (the batched fold) or one row for all (the hoisted path), and none."""
+    n = 4096
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [50] * (k + 1))]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    consts = keyswitch.divide_round_consts(t.slice(0, k), moduli[-1])
+    rng = np.random.default_rng(k)
+    s = 2 if layout in ("c0c1", "c0") else 8
+    x = _uniform(rng, moduli, (s,), n, dev)
+    acc, group = {
+        "c0c1": (_uniform(rng, moduli[:k], (2,), n, dev), None),
+        "c0": (_uniform(rng, moduli[:k], (1,), n, dev), None),
+        "pairs": (_uniform(rng, moduli[:k], (4, 1), n, dev), 2),
+        "one": (_uniform(rng, moduli[:k], (1, 1), n, dev), 2),
+        "none": (None, None)}[layout]
+    _kernels.reset_launch_counts()
+    got = keyswitch.divide_round_last(x, consts, acc, group)
+    assert _kernels.launch_counts()["F_keyswitch"] == 1
+    _same(got, keyswitch.divide_round_last_plain(x, consts, acc, group))

@@ -41,7 +41,7 @@ SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu",
            "sharding.cu")
 HEADERS = ("u64.cuh", "butterfly.cuh", "divide_round.cuh", "decrypt.cuh",
-           "plain_lift.cuh")
+           "plain_lift.cuh", "ckks_round.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "troy_ntt_forward_digits": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     "troy_ntt_forward_lift": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _U, _U, _U,
                               _P),
+    "troy_ntt_forward_round": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I,
+                               _D, _P),
     "troy_ntt_inverse_pair_convolve": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P,
                                        _P, _P, _P, _P, _P, _P, _P),
     "troy_ntt_forward_rescale": _FUSED_DIVIDE,
@@ -136,6 +138,7 @@ KERNELS = {
     "troy_ntt": "A_ntt",
     "troy_ntt_forward_digits": "AF_ntt_digits",
     "troy_ntt_forward_lift": "AGp_ntt_lift",
+    "troy_ntt_forward_round": "AO2p_ntt_round",
     "troy_ntt_inverse_pair_convolve": "AP2i_pair_intt",
     "troy_ntt_forward_rescale": "AKp_rescale_ntt",
     "troy_ntt_forward_keyswitch": "AKp_keyswitch_ntt",

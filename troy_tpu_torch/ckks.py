@@ -146,17 +146,24 @@ class CKKSEncoder:
 
     def _encode_device(self, values: torch.Tensor, scale: float, level: int,
                        cd: ContextData, stats: bool = False):
-        """O1, O2 (with ``stats`` O4) and A on complex slot values on the
-        device: the plaintext, or (plaintext, EncodeStats)."""
+        """O1, then O2's rounding and A's forward transform on complex slot
+        values on the device: one AO2p call (O2 in A's first pass) where
+        the transforms are A's, O2 and A (J) otherwise, and with ``stats``
+        O4 and A. The plaintext, or (plaintext, EncodeStats)."""
         u = emb.embed_inverse_fft(values, self._emb)
         rt = emb.make_rns_round_tables(cd.ntt)
         if stats:
             rns, largest = emb.untwist_round_to_rns_stats(u, scale,
                                                           self._emb, rt)
+            data = dntt.rns_ntt_forward(rns, cd.ntt)
+        elif dntt.on_a_route(cd.ntt):
+            data = emb.rns_ntt_forward_round(u, self._emb.untwist, scale, rt,
+                                             cd.ntt)
         else:
-            rns = emb.untwist_round_to_rns(u, scale, self._emb, rt)
-        plain = Plaintext(data=dntt.rns_ntt_forward(rns, cd.ntt), level=level,
-                          is_ntt_form=True, scale=scale)
+            data = dntt.rns_ntt_forward(
+                emb.untwist_round_to_rns(u, scale, self._emb, rt), cd.ntt)
+        plain = Plaintext(data=data, level=level, is_ntt_form=True,
+                          scale=scale)
         return (plain, EncodeStats(max_abs_small=largest)) if stats \
             else plain
 
@@ -246,10 +253,12 @@ class CKKSEncoder:
         """Real coefficients (at most n) times ``scale``, rounded half to
         even into every prime and transformed: an NTT-form plaintext at
         ``level`` (troy_tpu/ckks.py:269, ckks_cuda.cu:455). On the device
-        kernel O2 (with a unit untwist) and A (troy_tpu/ops/embedding.py:601
-        encode_polynomial_pipeline); O2 rounds exactly at any magnitude,
-        where the JAX package's device encode splits the scale above 2^44
-        (ROADMAP queue 3)."""
+        O2's rounding of the float64 words and A's forward transform
+        (troy_tpu/ops/embedding.py:601 encode_polynomial_pipeline): one
+        AO2p call where the transforms are A's, O2 (with a unit untwist)
+        and J otherwise; the rounding is exact at any magnitude, where the
+        JAX package's device encode splits the scale above 2^44 (ROADMAP
+        queue 3)."""
         level = self._level(level)
         cd = self.context.get_context_data(level)
         coeffs = np.asarray(coeffs, dtype=np.float64)
@@ -266,10 +275,16 @@ class CKKSEncoder:
                                           self.n, cd.coeff_values)
             return Plaintext(data=to_torch(rns, cd.device), level=level,
                              is_ntt_form=True, scale=scale)
-        rns = emb.round_to_rns(torch.from_numpy(scaled).to(cd.device), scale,
-                               emb.make_rns_round_tables(cd.ntt))
-        return Plaintext(data=dntt.rns_ntt_forward(rns, cd.ntt), level=level,
-                         is_ntt_form=True, scale=scale)
+        coeffs_dev = torch.from_numpy(scaled).to(cd.device)
+        rt = emb.make_rns_round_tables(cd.ntt)
+        if dntt.on_a_route(cd.ntt):
+            data = emb.rns_ntt_forward_round(coeffs_dev, None, scale, rt,
+                                             cd.ntt)
+        else:
+            data = dntt.rns_ntt_forward(
+                emb.round_to_rns(coeffs_dev, scale, rt), cd.ntt)
+        return Plaintext(data=data, level=level, is_ntt_form=True,
+                         scale=scale)
 
     def decode(self, plain: Plaintext) -> np.ndarray:
         """Slot values (n/2,) complex128, read back to the host."""

@@ -67,7 +67,12 @@
 // 2, 4 and 8 with one, two and four columns at n = 4096-131072 on the
 // H100. The direct sums this replaces did 33.5 MFLOP over
 // dense (A, A) and (B, B) matrices in 32 blocks a pass. O2 is one thread
-// per coefficient with k limbs, bound by its k*n words.
+// per coefficient with k limbs, bound by its k*n words. Its per-word
+// arithmetic is ckks_round.cuh's, shared with AO2p (ntt.cu
+// troy_ntt_forward_round), which runs the rounding inside kernel A's
+// first forward pass on A's route: O2's own kernel runs where the
+// transforms are J's (n > 131072, use_mxu=True), and as O4 (the
+// statistic) on either route.
 //
 // O3 moves k*n words in and n out (0.2 us at the CKKS headline's n =
 // 16384, k = 5), so latency bounds it: a launch and one round trip to
@@ -96,12 +101,13 @@
 //
 // Floating point: O2 and O3 must give the plain PyTorch versions' bits, so
 // every f64 step that feeds a rounding is written with __dmul_rn /
-// __dadd_rn / __dsub_rn, which nvcc never contracts into a fused
-// multiply-add (it does contract a*b + c by default). O1 is held to
-// 2^-44 max|x| of its plain version and lets nvcc contract; O5 runs O1's
-// decode passes themselves, so its slots are O1's bits.
+// __dadd_rn / __dsub_rn (O2's in ckks_round.cuh), which nvcc never
+// contracts into a fused multiply-add (it does contract a*b + c by
+// default). O1 is held to 2^-44 max|x| of its plain version and lets nvcc
+// contract; O5 runs O1's decode passes themselves, so its slots are O1's
+// bits.
 
-#include "u64.cuh"
+#include "ckks_round.cuh"
 
 using namespace troy;
 
@@ -468,33 +474,22 @@ __global__ void round_kernel(uint64_t *__restrict__ out,
         ratio[j] = consts[k + j];
     }
     __syncthreads();
-    const uint64_t *pow2 = consts + 2 * k;
-    const uint64_t *pow2_shoup = pow2 + static_cast<int64_t>(k) * E;
+    const RoundLayout L{k, E};
     const int64_t n = int64_t(1) << log_n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
     double largest = 0.0;
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
          i < n; i += stride) {
-        const double2 x = u[i];
-        const double2 t = untwist[i];
-        const double re = __dsub_rn(__dmul_rn(x.x, t.x), __dmul_rn(x.y, t.y));
-        const double v = rint(__dmul_rn(re, scale));
-        const bool neg = v < 0.0;
-        const double a = fabs(v);
+        double a;
+        const RoundedWord w =
+            round_split(untwisted_re(u[i], untwist[i]), scale, E, a);
         if (kStats) largest = fmax(largest, a);
-        // a = m * 2^e with m < 2^53 an integer: exact at any magnitude
-        int ex;
-        frexp(a, &ex);
-        int e = ex - 53;
-        e = e < 0 ? 0 : (e > E - 1 ? E - 1 : e);
-        const uint64_t m = static_cast<uint64_t>(ldexp(a, -e));
         for (int j = 0; j < k; ++j) {
-            const int64_t at = static_cast<int64_t>(j) * E + e;
-            uint64_t r = barrett_reduce_64(m, q[j], ratio[j]);
-            r = mul_mod_shoup(r, pow2[at], pow2_shoup[at], q[j]);
+            const int64_t row = static_cast<int64_t>(j) * E;
             out[(static_cast<int64_t>(j) << log_n) + i] =
-                neg ? neg_mod(r, q[j]) : r;
+                round_limb(w, q[j], ratio[j], consts + L.pow2() + row,
+                           consts + L.pow2_shoup() + row);
         }
     }
     if (kStats) block_max_to(largest, stat);

@@ -46,11 +46,31 @@
 // ciphertext's form). Its constants are K'-BGV's
 // (ops/keyswitch.py bgv_divide_consts).
 //
-// What bounds it on the H100: at n = 16384 the launch (under 5 MB of words,
-// a handful of 64-bit products per word). Design: one thread per
-// coefficient of one component, which reads the special row once for all k
-// limbs; coalesced across the warp; the constants (5k + 2 words) in shared
-// memory.
+// What bounds it on the H100: at n = 16384 the launch and one round trip
+// to memory (under 5 MB of words, a handful of 64-bit products per word).
+// The divide (K, F's divide off A's route) is built around that round
+// trip:
+//  - a 3-D grid: coefficient pairs on x, the component on y (a launch
+//    for each 65535), the data limbs in groups of kDivideGroup on z, so no
+//    thread divides by n and the accumulator row is formed once a block,
+//    in 32-bit quotients (and not at all without an accumulator);
+//  - two coefficients a thread through 16-byte loads and streaming stores
+//    (the output is read only by a later op), in blocks of kDivideThreads;
+//  - a thread issues the loads of its group's rows, of row k, of the
+//    accumulator's rows and of its 2 + 5 kDivideGroup constants before
+//    any product (one round trip for all; the constants are the same
+//    words across a block, so they come from L1 after the first warp, and
+//    the block needs no barrier); row k is read by every group of a
+//    component, from L2 after the first.
+// A thread holding all k + 1 rows (a kernel compiled for each k, 128
+// blocks at (2, 5, 16384)), or the block's constants copied into shared
+// memory behind a barrier, were slower at the headline's level and at
+// SEAL's n = 32768 than groups of two limbs reading their own constants,
+// which give the card 3 and 8 times the blocks there, no spilled
+// registers and one kernel for every k (PERF.md). The digits and K'' keep
+// the grid-stride form: one thread per coefficient of one component, which
+// reads the special row once for all k limbs; coalesced across the warp;
+// the constants in shared memory.
 
 #include "divide_round.cuh"
 
@@ -59,6 +79,20 @@ using namespace troy;
 namespace {
 
 constexpr int MAX_LIMBS = 64;
+// the divide's threads a block (two coefficients each; 128 measured
+// against 64 and 256, PERF.md) and the data limbs a thread takes
+constexpr int kDivideThreads = 128;
+constexpr int kDivideGroup = 2;
+constexpr long long kMaxGrid = 65535;
+
+__device__ __forceinline__ ulonglong2 load16(const uint64_t *p) {
+    return __ldg(reinterpret_cast<const ulonglong2 *>(p));
+}
+
+__device__ __forceinline__ void store16_stream(uint64_t *p, uint64_t a,
+                                               uint64_t b) {
+    __stcs(reinterpret_cast<ulonglong2 *>(p), make_ulonglong2(a, b));
+}
 
 __global__ void keyswitch_digits_kernel(uint64_t *__restrict__ out,
                                         const uint64_t *__restrict__ in,
@@ -96,45 +130,71 @@ __device__ __forceinline__ int64_t acc_row(int64_t comp, int acc_comps,
     return h < acc_comps ? (g % acc_groups) * acc_comps + h : -1;
 }
 
-// consts: q (k), cr_hi (k), floor(p/2) mod q (k), p^-1 mod q (k) and its
-// Shoup words (k), then p and floor(p/2).
-__global__ void divide_round_kernel(uint64_t *__restrict__ out,
-                                    const uint64_t *__restrict__ x,
-                                    const uint64_t *__restrict__ acc,
-                                    int64_t comps, int acc_comps,
-                                    int64_t group, int64_t acc_groups, int k,
-                                    int log_n,
-                                    const uint64_t *__restrict__ consts) {
-    __shared__ uint64_t c[5 * MAX_LIMBS + 2];
-    for (int j = threadIdx.x; j < 5 * k + 2; j += blockDim.x) c[j] = consts[j];
-    __syncthreads();
-    const uint64_t *q = c, *ratio = c + k, *half_mod = c + 2 * k;
-    const uint64_t *inv = c + 3 * k, *inv_shoup = c + 4 * k;
-    const uint64_t p = c[5 * k], half = c[5 * k + 1];
-
-    const int64_t n = int64_t(1) << log_n;
-    const int64_t total = comps << log_n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         idx < total; idx += stride) {
-        const int64_t comp = idx >> log_n;
-        const int64_t i = idx & (n - 1);
-        const uint64_t *src = x + ((comp * (k + 1)) << log_n) + i;
-        const int64_t base = ((comp * k) << log_n) + i;
-        const int64_t arow = acc_row(comp, acc_comps, group, acc_groups);
-        const uint64_t last =
-            divide_round_last(src[static_cast<int64_t>(k) << log_n], p, half);
-        for (int j = 0; j < k; ++j) {
-            const int64_t at = base + (static_cast<int64_t>(j) << log_n);
-            uint64_t r = divide_round_word(
-                src[static_cast<int64_t>(j) << log_n], last, q[j], ratio[j],
-                half_mod[j], inv[j], inv_shoup[j]);
-            if (arow >= 0) {
-                r = add_mod(acc[((arow * k + j) << log_n) + i], r, q[j]);
-            }
-            out[at] = r;
+// K and F's divide (consts: q (k), cr_hi (k), floor(p/2) mod q (k), p^-1
+// mod q (k) and its Shoup words (k), then p and floor(p/2); DivideLayout).
+// Block (coefficient pairs blockIdx.x; component comp0 + blockIdx.y; data
+// limbs kDivideGroup blockIdx.z onwards). A thread reads its constants
+// itself (the same words across the block, from L1), in flight with its
+// data.
+__global__ void __launch_bounds__(kDivideThreads)
+divide_round_kernel(uint64_t *__restrict__ out,
+                    const uint64_t *__restrict__ x,
+                    const uint64_t *__restrict__ acc, int comp0,
+                    int acc_comps, int group, int acc_groups, int k,
+                    int log_n, const uint64_t *__restrict__ consts) {
+    const int comp = comp0 + static_cast<int>(blockIdx.y);
+    const int j0 = static_cast<int>(blockIdx.z) * kDivideGroup;
+    const int64_t i =
+        2 * (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x);
+    const int64_t row = int64_t(1) << log_n;
+    if (i >= row) return;
+    const DivideLayout L{k};
+    const uint64_t *src = x + static_cast<int64_t>(comp) * (k + 1) * row + i;
+    const int arow = acc_comps > 0
+        ? accumulator_row(comp, group, acc_comps, acc_groups) : -1;
+    // the group's rows, row k, the accumulator's rows and the constants,
+    // all in flight before any product
+    ulonglong2 xv[kDivideGroup], av[kDivideGroup];
+    uint64_t q[kDivideGroup], ratio[kDivideGroup], half_mod[kDivideGroup],
+        inv[kDivideGroup], inv_shoup[kDivideGroup];
+    const ulonglong2 xk = load16(src + k * row);
+#pragma unroll
+    for (int g = 0; g < kDivideGroup; ++g) {
+        if (j0 + g < k) xv[g] = load16(src + (j0 + g) * row);
+    }
+    if (arow >= 0) {
+        const uint64_t *ap = acc + static_cast<int64_t>(arow) * k * row + i;
+#pragma unroll
+        for (int g = 0; g < kDivideGroup; ++g) {
+            if (j0 + g < k) av[g] = load16(ap + (j0 + g) * row);
         }
+    }
+    const uint64_t p = __ldg(consts + L.p()), half = __ldg(consts + L.half());
+#pragma unroll
+    for (int g = 0; g < kDivideGroup; ++g) {
+        const int j = j0 + g < k ? j0 + g : j0;
+        q[g] = __ldg(consts + L.q() + j);
+        ratio[g] = __ldg(consts + L.ratio() + j);
+        half_mod[g] = __ldg(consts + L.half_mod() + j);
+        inv[g] = __ldg(consts + L.inv() + j);
+        inv_shoup[g] = __ldg(consts + L.inv_shoup() + j);
+    }
+    const uint64_t last0 = divide_round_last(xk.x, p, half);
+    const uint64_t last1 = divide_round_last(xk.y, p, half);
+    uint64_t *dst = out + static_cast<int64_t>(comp) * k * row + i;
+#pragma unroll
+    for (int g = 0; g < kDivideGroup; ++g) {
+        const int j = j0 + g;
+        if (j >= k) break;
+        uint64_t r0 = divide_round_word(xv[g].x, last0, q[g], ratio[g],
+                                        half_mod[g], inv[g], inv_shoup[g]);
+        uint64_t r1 = divide_round_word(xv[g].y, last1, q[g], ratio[g],
+                                        half_mod[g], inv[g], inv_shoup[g]);
+        if (arow >= 0) {
+            r0 = add_mod(av[g].x, r0, q[g]);
+            r1 = add_mod(av[g].y, r1, q[g]);
+        }
+        store16_stream(dst + j * row, r0, r1);
     }
 }
 
@@ -199,21 +259,44 @@ int divide(bool bgv, void *out, const void *x, const void *acc,
         group < 1 || acc_groups < 1 || acc_comps > group) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int threads = 256;
-    const unsigned blocks = grid_blocks(comps << log_n, threads);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (bgv) {
-        bgv_divide_kernel<<<blocks, threads, 0, s>>>(
+        const int threads = 256;
+        bgv_divide_kernel<<<grid_blocks(comps << log_n, threads), threads, 0,
+                            s>>>(
             static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
             static_cast<const uint64_t *>(acc), comps, acc_comps, group,
             acc_groups, k, log_n, static_cast<const uint64_t *>(consts));
-    } else {
-        divide_round_kernel<<<blocks, threads, 0, s>>>(
-            static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
-            static_cast<const uint64_t *>(acc), comps, acc_comps, group,
-            acc_groups, k, log_n, static_cast<const uint64_t *>(consts));
+        TROY_RETURN_LAUNCH_STATUS();
     }
-    TROY_RETURN_LAUNCH_STATUS();
+    // two coefficients a thread: n even, every pointer 16-byte aligned;
+    // components fewer than 2^30 (the 32-bit accumulator rows), 65535 a
+    // launch (the grid's y)
+    if (log_n < 1 || comps < 1 || comps >= (1LL << 30) ||
+        group >= (1LL << 30) || acc_groups >= (1LL << 30)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(x) |
+         reinterpret_cast<uintptr_t>(acc)) & 15) {
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    const long long pairs = 1LL << (log_n - 1);
+    for (long long c0 = 0; c0 < comps; c0 += kMaxGrid) {
+        const long long cy = comps - c0 < kMaxGrid ? comps - c0 : kMaxGrid;
+        const dim3 grid(static_cast<unsigned>((pairs + kDivideThreads - 1) /
+                                              kDivideThreads),
+                        static_cast<unsigned>(cy),
+                        static_cast<unsigned>((k + kDivideGroup - 1) /
+                                              kDivideGroup));
+        divide_round_kernel<<<grid, kDivideThreads, 0, s>>>(
+            static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
+            static_cast<const uint64_t *>(acc), static_cast<int>(c0),
+            acc_comps, static_cast<int>(group), static_cast<int>(acc_groups),
+            k, log_n, static_cast<const uint64_t *>(consts));
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
 }
 
 }  // namespace
@@ -238,7 +321,8 @@ extern "C" int troy_keyswitch_digits(void *out, const void *in,
 // x: (comps, k + 1, 2^log_n) in the coefficient domain, row k the one to
 // divide by; out: (comps, k, 2^log_n); acc: (acc_groups, acc_comps, k,
 // 2^log_n) or NULL with acc_comps = 0, added onto components h <
-// acc_comps of each group of `group` (above); consts: 5k + 2 words.
+// acc_comps of each group of `group` (above); consts: 5k + 2 words. Every
+// pointer 16-byte aligned, n at least 2.
 extern "C" int troy_keyswitch_divide_round(void *out, const void *x,
                                            const void *acc, long long comps,
                                            int acc_comps, long long group,

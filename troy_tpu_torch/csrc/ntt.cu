@@ -179,8 +179,30 @@
 // (launch bounds) and its tiles small, for four blocks an SM: with one
 // block an SM (114 registers a thread, A's 1024-word tiles) the fused
 // call was slower than P2 and A's inverse apart on the H100 (PERF.md).
+//
+// troy_ntt_forward_round (AO2p) folds kernel O2's exact rounding
+// (embedding.cu troy_ckks_round; troy_tpu/ops/embedding.py:425
+// round_to_rns_device, in :589 encode_pipeline and :601
+// encode_polynomial_pipeline) into the forward transform: output row r of
+// (rows, n) is the NTT of rint(Re(u untwist) scale) (the slot encode) or
+// rint(c scale) (the polynomial encode's float64 words, read as they are:
+// no complex copy, no unit untwist) of source row r / k, rounded into
+// q[r % k] as the first pass loads it (ckks_round.cuh's arithmetic,
+// shared with O2). The (k, n) rounded rows, written by O2 only for A's
+// first pass to read back, and O2's launch are gone. As for AGp, the k
+// output rows of the source are adjacent in the grid, so the source is
+// read from DRAM about once: a thread loads all its source words (16
+// bytes each and 16 of the untwist, or 8) before it rounds any; a strided
+// block reads its limb's q, Barrett word and 2^e rows once, and a word
+// reads 2^e mod q only where e > 0 (|v| at or above 2^53). The rounding
+// is a chain of dependent FP64 and 64-bit integer steps a word, which
+// with A's 8 words a thread cost the pass more than its loads; the pass
+// runs twice A's threads (kRoundSpread), 4 words a thread, and rounds
+// every slot with no branch between the words, so that more of the
+// chains run at once (PERF.md).
 
 #include "butterfly.cuh"
+#include "ckks_round.cuh"
 #include "decrypt.cuh"
 #include "divide_round.cuh"
 #include "plain_lift.cuh"
@@ -202,15 +224,20 @@ __host__ __device__ constexpr bool columns(int mode) {
 // What the first forward pass computes from each word it loads: the word
 // itself, the key switch's digit (Barrett-64 into the row's prime), K''s
 // temp of the divide's last row, or the plain lift of a word mod t into
-// the row's prime (G''s).
+// the row's prime (G''s), or the CKKS encode's exact rounding of an f64
+// word into the row's prime (O2's).
 enum Load { kLoadPlain = 0, kLoadDigits = 1, kLoadDivide = 2,
-            kLoadLift = 3 };
+            kLoadLift = 3, kLoadRound = 4 };
 
 constexpr int kLogTile = 10;    // the words a block of the two-pass form
 constexpr int kSplitLogN = 10;  // the least log2(n) that takes two passes
 // the most words of a tile a thread loads or stores (threads_for: 8 or
 // fewer): the divide's passes hold that many words a thread in registers
 constexpr int kWordsPerThread = 8;
+// AO2p's first pass takes this many times A's threads (4 words a thread
+// in a compiled geometry): its rounding is a long chain of FP64 and
+// 64-bit integer steps a word, which more warps hide better (PERF.md)
+constexpr int kRoundSpread = 2;
 
 struct Pass {
     int mode;
@@ -251,6 +278,33 @@ __device__ __forceinline__ LiftRow lift_row(const Lift &lf,
     return {__ldg(lf.consts + L.q() + limb),
             __ldg(lf.consts + L.cr_hi() + limb),
             __ldg(lf.consts + L.inc() + limb)};
+}
+
+// The rounding's operands (AO2p; null consts otherwise): the untwist (n,)
+// complex or null (the source is then real: (rows / k, n) f64, else
+// complex), O2's constants in RoundLayout, its exponent count and the
+// scale.
+struct Round {
+    const double2 *untwist;
+    const uint64_t *consts;
+    int E;
+    double scale;
+};
+
+// One limb's constants of the rounding: its modulus, high Barrett word and
+// rows of 2^e mod q and their Shoup words.
+struct RoundRow {
+    uint64_t q, ratio;
+    const uint64_t *pow2, *pow2_shoup;
+};
+
+__device__ __forceinline__ RoundRow round_row(const Round &rd,
+                                              const RoundLayout &L,
+                                              int limb) {
+    const int64_t row = static_cast<int64_t>(limb) * L.E;
+    return {__ldg(rd.consts + L.q() + limb),
+            __ldg(rd.consts + L.ratio() + limb),
+            rd.consts + L.pow2() + row, rd.consts + L.pow2_shoup() + row};
 }
 
 // One limb's constants of the temps (K''s or K'-BGV's fields).
@@ -493,10 +547,12 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
                                 const uint64_t *__restrict__ cr_hi,
                                 const uint64_t *__restrict__ inv_degree,
                                 const uint64_t *__restrict__ inv_degree_shoup,
-                                Pass pass, int lazy, Divide dv, Lift lf) {
+                                Pass pass, int lazy, Divide dv, Lift lf,
+                                Round rd) {
     extern __shared__ uint64_t v_s[];
     const Geo geo = kLogLine > 0
-        ? Geo{kMode, kLogLine, kLogTile - kLogLine, 1 << (kLogTile - 3)}
+        ? Geo{kMode, kLogLine, kLogTile - kLogLine,
+              (kLoad == kLoadRound ? kRoundSpread : 1) << (kLogTile - 3)}
         : Geo{pass.mode, pass.log_line, pass.log_lines,
               static_cast<int>(blockDim.x)};
     const int log_line = geo.log_line, log_lines = geo.log_lines;
@@ -613,6 +669,55 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
             const uint64_t mv = lift_scale(lw[w], t, lf.cf, lf.cf_shoup);
             v_s[pos[w]] = lift_limb(mv, mv >= lf.threshold, t, r.q, r.cr_hi,
                                     r.inc);
+        }
+    } else if constexpr (kLoad == kLoadRound) {
+        // this thread's source words (and their untwist words; without an
+        // untwist, (1, 0): Re(c 1) = c exactly) first, all in flight
+        // together, then their roundings, every slot rounded (an empty
+        // one a zero) and stored where it holds a word, with no branch
+        // between the words; a strided block's limb constants read once
+        const RoundLayout L{k, rd.E};
+        const RoundRow rr = geo.mode != kRows ? round_row(rd, L, blk.limb)
+                                              : RoundRow{};
+        const int64_t in_row = (int64_t(1) << log_n) - 1;
+        double2 uw[kWordsPerThread], tw[kWordsPerThread];
+        int pos[kWordsPerThread], limb[kWordsPerThread];
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            uw[w] = make_double2(0.0, 0.0);
+            tw[w] = make_double2(1.0, 0.0);
+            pos[w] = -1;
+            limb[w] = 0;
+        }
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            const int f = threadIdx.x + w * geo.threads;
+            if (f >= words) break;
+            int l, i;
+            tile_word(geo, f, l, i);
+            const Line ln = line_of(geo, blk, l, log_n, rows, k);
+            if (ln.limb < 0) continue;
+            const int64_t at = ln.base + static_cast<int64_t>(i) * ln.stride;
+            const int64_t src = geo.mode == kRows
+                ? digit_row(ln.base, log_n, k) + i : at + shift;
+            if (rd.untwist != nullptr) {
+                uw[w] = __ldg(reinterpret_cast<const double2 *>(in) + src);
+                tw[w] = __ldg(rd.untwist + (src & in_row));
+            } else {
+                uw[w].x = __ldg(reinterpret_cast<const double *>(in) + src);
+            }
+            pos[w] = smem_pos(geo, l, i);
+            limb[w] = ln.limb;
+        }
+#pragma unroll
+        for (int w = 0; w < kWordsPerThread; ++w) {
+            const RoundRow r = geo.mode == kRows ? round_row(rd, L, limb[w])
+                                                 : rr;
+            double a;
+            const uint64_t v = round_limb(
+                round_split(untwisted_re(uw[w], tw[w]), rd.scale, rd.E, a),
+                r.q, r.ratio, r.pow2, r.pow2_shoup);
+            if (pos[w] >= 0) v_s[pos[w]] = v;
         }
     } else {
         for (int f = threadIdx.x; f < words; f += geo.threads) {
@@ -1172,7 +1277,7 @@ typedef void (*PassKernel)(uint64_t *, const uint64_t *, int, int, int,
                            const uint64_t *, const uint64_t *,
                            const uint64_t *, const uint64_t *,
                            const uint64_t *, const uint64_t *, Pass, int,
-                           Divide, Lift);
+                           Divide, Lift, Round);
 
 // The kernel compiled for the geometry of p (2^kLogTile-word tiles of
 // 2^5-2^8-word lines) in mode kMode, or null.
@@ -1214,10 +1319,11 @@ PassKernel kernel_for(const Pass &p) {
 }
 
 // The kernel of pass p of `count`: A's own, or with the digits' load
-// (cr_hi), the lift's (lf) or the divide's load and finish (dv) in a
-// forward transform.
+// (cr_hi), the lift's (lf), the rounding's (rd) or the divide's load and
+// finish (dv) in a forward transform.
 PassKernel pass_kernel(const Pass &pass, int p, int count, int inverse,
-                       const void *cr_hi, const Divide *dv, const Lift *lf) {
+                       const void *cr_hi, const Divide *dv, const Lift *lf,
+                       const Round *rd) {
     const bool first = p == 0, last = p == count - 1;
     if (inverse) return kernel_for<true, kLoadPlain, false>(pass);
     if (dv != nullptr) {
@@ -1230,6 +1336,9 @@ PassKernel pass_kernel(const Pass &pass, int p, int count, int inverse,
     }
     if (lf != nullptr && first) {
         return kernel_for<false, kLoadLift, false>(pass);
+    }
+    if (rd != nullptr && first) {
+        return kernel_for<false, kLoadRound, false>(pass);
     }
     return kernel_for<false, kLoadPlain, false>(pass);
 }
@@ -1278,14 +1387,16 @@ int threads_for(const Pass &p) {
 // One transform's launches; with cr_hi (the digits' entry) the first
 // forward pass reads source row r / k of `in` for output row r and reduces
 // each word into the row's prime q[r % k] as it loads it; with lf (the
-// lift's entry) it lifts that word mod t into q[r % k]; with dv (the
+// lift's entry) it lifts that word mod t into q[r % k]; with rd (the
+// rounding's entry) it rounds that f64 word into q[r % k]; with dv (the
 // divide's entries) it forms K''s temp of that word instead, and the last
 // pass stores K''s finish.
 int run(void *out, const void *in, long long rows, int log_n, int k,
         const void *roots, const void *roots_shoup, const void *moduli,
         const void *cr_hi, const void *inv_degree,
         const void *inv_degree_shoup, int inverse, int lazy,
-        const Divide *dv, void *stream, const Lift *lf = nullptr) {
+        const Divide *dv, void *stream, const Lift *lf = nullptr,
+        const Round *rd = nullptr) {
     if (rows < 1 || rows > (1LL << 30) || k < 1 || log_n < 1 || log_n > 24) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1294,12 +1405,17 @@ int run(void *out, const void *in, long long rows, int log_n, int k,
     const void *src = in;
     for (int p = 0; p < count; ++p) {
         const PassKernel kernel = pass_kernel(passes[p], p, count, inverse,
-                                              cr_hi, dv, lf);
-        if ((dv != nullptr || lf != nullptr) &&
+                                              cr_hi, dv, lf, rd);
+        if ((dv != nullptr || lf != nullptr || rd != nullptr) &&
             (1 << (passes[p].log_line + passes[p].log_lines)) >
                 kWordsPerThread * threads_for(passes[p])) {
             return static_cast<int>(cudaErrorInvalidValue);
         }
+        // the rounding's first pass spreads its words over more threads,
+        // up to 512 (registers)
+        const int threads = threads_for(passes[p]) *
+            (rd != nullptr && p == 0 && threads_for(passes[p]) <= 256
+                 ? kRoundSpread : 1);
         // above the default 48 KiB (n >= 2^23, the run-time kernel): the
         // limit is raised on the current device at each such call
         const size_t smem = smem_bytes(passes[p]);
@@ -1309,7 +1425,7 @@ int run(void *out, const void *in, long long rows, int log_n, int k,
                 static_cast<int>(smem));
             if (err != cudaSuccess) return static_cast<int>(err);
         }
-        kernel<<<passes[p].blocks, threads_for(passes[p]), smem,
+        kernel<<<passes[p].blocks, threads, smem,
                  static_cast<cudaStream_t>(stream)>>>(
             static_cast<uint64_t *>(out), static_cast<const uint64_t *>(src),
             static_cast<int>(rows), log_n, k,
@@ -1319,7 +1435,8 @@ int run(void *out, const void *in, long long rows, int log_n, int k,
             static_cast<const uint64_t *>(cr_hi),
             static_cast<const uint64_t *>(inv_degree),
             static_cast<const uint64_t *>(inv_degree_shoup), passes[p], lazy,
-            dv != nullptr ? *dv : Divide{}, lf != nullptr ? *lf : Lift{});
+            dv != nullptr ? *dv : Divide{}, lf != nullptr ? *lf : Lift{},
+            rd != nullptr ? *rd : Round{});
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
         src = out;
@@ -1379,6 +1496,29 @@ extern "C" int troy_ntt_forward_lift(void *out, const void *m, long long rows,
                      cf_shoup};
     return run(out, m, rows, log_n, k, roots, roots_shoup, moduli, nullptr,
                nullptr, nullptr, 0, 0, nullptr, stream, &lf);
+}
+
+// The CKKS encode's exact rounding and its forward transform in one call
+// (O2's rounding folded into A's first pass, AO2p): u (rows / k,
+// 2^log_n) complex (untwist (2^log_n,) complex: the slot encode) or f64
+// (untwist null: the polynomial encode's real coefficients), out (rows,
+// 2^log_n), row r the forward NTT of rint(Re(u untwist) scale), or
+// rint(u scale), of source row r / k in q[r % k]; consts O2's
+// (ops/embedding.py make_rns_round_tables, RoundLayout) with E exponents;
+// fully reduced.
+extern "C" int troy_ntt_forward_round(void *out, const void *u,
+                                      const void *untwist, long long rows,
+                                      int log_n, int k, const void *roots,
+                                      const void *roots_shoup,
+                                      const void *moduli, const void *consts,
+                                      int E, double scale, void *stream) {
+    if (consts == nullptr || k < 1 || E < 1 || rows % k != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const Round rd = {static_cast<const double2 *>(untwist),
+                      static_cast<const uint64_t *>(consts), E, scale};
+    return run(out, u, rows, log_n, k, roots, roots_shoup, moduli, nullptr,
+               nullptr, nullptr, 0, 0, nullptr, stream, nullptr, &rd);
 }
 
 namespace {
@@ -1503,7 +1643,7 @@ int inverse_first_pass(const uint64_t *&src, void *scratch, long long rows,
         static_cast<const uint64_t *>(moduli), nullptr,
         static_cast<const uint64_t *>(inv_degree),
         static_cast<const uint64_t *>(inv_degree_shoup), passes[0], 1,
-        Divide{}, Lift{});
+        Divide{}, Lift{}, Round{});
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = static_cast<const uint64_t *>(scratch);
@@ -1705,7 +1845,7 @@ int inverse_pair(void *out, const void *a, const void *w, long long X,
     last<<<passes[1].blocks, threads_for(passes[1]), last_smem, s>>>(
         static_cast<uint64_t *>(out), static_cast<const uint64_t *>(out),
         static_cast<int>(rows), log_n, R, u_roots, u_shoup, u_moduli, nullptr,
-        u_inv, u_inv_shoup, passes[1], 0, Divide{}, Lift{});
+        u_inv, u_inv_shoup, passes[1], 0, Divide{}, Lift{}, Round{});
     TROY_RETURN_LAUNCH_STATUS();
 }
 

@@ -10,6 +10,10 @@ The port of troy_tpu/ops/embedding.py on kernels O1-O5 (csrc/embedding.cu):
     (n/2,) complex, conj-FFT(c * twist) at the slot orbit;
   * ``untwist_round_to_rns`` (O2): round(Re(u * untwist) * scale) mod every
     q_i, (n,) complex -> (k, n) words, exact at any magnitude;
+  * ``rns_ntt_forward_round`` (AO2p): O2's rounding (or, with no untwist,
+    round(c * scale) of real coefficients) folded into kernel A's first
+    forward pass (csrc/ntt.cu), the words of O2 then the forward NTT in
+    one call: the encodes' route where the transforms are A's;
   * ``compose_centered`` (O3): (k, n) residues -> the centred CRT value as
     f64, times 1/scale;
   * ``untwist_round_to_rns_stats`` (O4): O2's words and max |rint(Re(u *
@@ -48,11 +52,12 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import ntt as dntt
 from . import u64ops as u
 from .. import _kernels
 from ..interop import to_torch
@@ -285,17 +290,20 @@ def _pow2_neg(e: torch.Tensor) -> torch.Tensor:
     return ((1023 - e) << 52).view(F64)
 
 
-def untwist_round_to_rns_plain(u_: torch.Tensor, untwist: torch.Tensor,
-                               scale: float,
+def untwist_round_to_rns_plain(u_: torch.Tensor,
+                               untwist: Optional[torch.Tensor], scale: float,
                                rt: RnsRoundTables) -> torch.Tensor:
-    """The plain version of O2: (n,) complex -> (k, n) words."""
+    """The plain version of O2: (n,) complex -> (k, n) words; with no
+    untwist, (n,) float64 real coefficients rounded as they are (the words
+    of a unit untwist: Re(c * 1) = c)."""
     k, E = len(rt.q_values), rt.exponents
     c = rt.round_consts
     q = c[:k].reshape(k, 1)
     ratio = c[k:2 * k].reshape(k, 1)
     pow2 = c[2 * k:2 * k + k * E].reshape(k, E)
     pow2_shoup = c[2 * k + k * E:].reshape(k, E)
-    re = u_.real * untwist.real - u_.imag * untwist.imag
+    re = u_ if untwist is None \
+        else u_.real * untwist.real - u_.imag * untwist.imag
     v = torch.round(re * scale)                   # half to even
     neg = v < 0
     a = v.abs()
@@ -530,6 +538,63 @@ def _round(u_: torch.Tensor, untwist: torch.Tensor, scale: float,
     _kernels.launch("troy_ckks_round_stats", out.get_device(), out, stat,
                     *args)
     return out, stat
+
+
+def ntt_forward_round_plain(u_: torch.Tensor,
+                            untwist: Optional[torch.Tensor], scale: float,
+                            rt: RnsRoundTables,
+                            tables: RnsNttTables) -> torch.Tensor:
+    """The plain version of ``rns_ntt_forward_round``: O2's plain version,
+    then the forward butterfly network."""
+    return dntt.ntt_forward_plain(
+        untwist_round_to_rns_plain(u_, untwist, scale, rt), tables)
+
+
+def rns_ntt_forward_round(u_: torch.Tensor, untwist: Optional[torch.Tensor],
+                          scale: float, rt: RnsRoundTables,
+                          tables: RnsNttTables) -> torch.Tensor:
+    """The CKKS encode's exact rounding, transformed (kernel O2's rounding
+    folded into kernel A's first forward pass, AO2p, one A call): u (n,)
+    complex128 with its untwist (n,) complex128 (the slot encode), or (n,)
+    float64 with none (the polynomial encode's real coefficients) -> (k,
+    n), row j the forward NTT of round(Re(u * untwist) * scale), or
+    round(u * scale), mod q_j, round half to even, fully reduced: the words
+    of ``untwist_round_to_rns`` (or ``round_to_rns``) then
+    ``rns_ntt_forward``. rt: the round tables of ``tables``' base. A's
+    route only: tables on J, or a pointwise view, raise."""
+    name = "rns_ntt_forward_round"
+    want = F64 if untwist is None else C128
+    if u_.shape != (tables.n,) or (untwist is not None
+                                   and untwist.shape != (tables.n,)):
+        raise ValueError(f"{name}: expected ({tables.n},) operands, got "
+                         f"{tuple(u_.shape)}"
+                         + ("" if untwist is None
+                            else f" and {tuple(untwist.shape)}"))
+    if u_.dtype != want or (untwist is not None and untwist.dtype != C128):
+        raise TypeError(f"{name}: expected {want} words"
+                        + ("" if untwist is None else " and a complex128 "
+                           "untwist") + f", got {u_.dtype}")
+    if not dntt.on_a_route(tables):
+        raise ValueError(f"{name}: these tables hold no transform on A "
+                         "(kernel J's, or a pointwise view)")
+    if tuple(rt.q_values) != tuple(tables.values):
+        raise ValueError(f"{name}: the round tables are not of the base of "
+                         "these tables")
+    operands = [u_, rt.round_consts, tables.q] + (
+        [] if untwist is None else [untwist])
+    if not _kernels.on_cuda(*operands):
+        return ntt_forward_round_plain(u_, untwist, scale, rt, tables)
+    u_ = u_.contiguous()
+    _kernels.check_operand(u_, f"{name} input", want)
+    if untwist is not None:
+        _kernels.check_operand(untwist, f"{name} untwist", C128)
+    out = torch.empty((tables.k, tables.n), dtype=torch.int64,
+                      device=u_.device)
+    _kernels.launch("troy_ntt_forward_round", out.get_device(), out, u_,
+                    untwist, tables.k, tables.log_n, tables.k,
+                    tables.root_powers, tables.root_powers_shoup, tables.q,
+                    rt.round_consts, rt.exponents, float(scale))
+    return out
 
 
 def compose_centered(residues: torch.Tensor, rt: RnsRoundTables,
