@@ -22,7 +22,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    troy_tpu_torch/csrc with nvcc (sm_90a), one nvcc per source, all at
    once, and print the build seconds and each kernel's registers and
    spills (-Xptxas -v);
-3. each BFV-path kernel (A NTT, B dyadic MAC, C base conversion, D RNS
+3. each BFV-path kernel (A NTT, B dyadic MAC (also its convolution over
+   q u Bsk and q, a square, the decrypt's sum with c0 and the powers' level
+   rows in place, decrypt_many's, and the key switch one level down with
+   the key's rows in place), C base conversion, D RNS
    elementwise, E BEHZ lift/tail/decrypt rounding, F key-switch digits and
    divide-round, AF the digits folded into A's first pass (A's route runs
    it where F's digits and A ran), AFi F's divide folded into A's last
@@ -366,7 +369,16 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    kernel at (2,5,n), (2,2,n), SEAL's (2,15,32768) and (2,3,262144),
    word-equal to its plain version, its device us a call and a launch
    beside the bound (standalone_k, on the wrappers the earlier trees have
-   too); and the spread of one CKKS and one BGV
+   too); B at every shape of the three schemes' mult+relin, the BFV and
+   BGV decrypt and decrypt_many, the BFV encrypts, BGV's multiply_plain and
+   a BGV LWE pack of 16, on contexts of its own, each call's device us a
+   launch beside its words' bound, and B's launches and device us in each
+   op (redesign_b, written on the wrappers and ops the earlier trees have
+   too), B at 2 launches a mult+relin and 1, with no D, a decrypt
+   (check_b_launches); K'''s own kernel at the LWE window's folds of 8, 4
+   and 1 pairs and the BGV mod switch's (2,5,n), word-equal to its plain
+   version, its device us beside the bound (standalone_kpp, as
+   standalone_k); and the spread of one CKKS and one BGV
    rotation's profiled device time over 8 traces in this process
    (op_spread). Device us
    a call come from CUDA events
@@ -418,6 +430,7 @@ inputs, the key rows it holds, its output) only.
 
 import contextlib
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -980,6 +993,17 @@ def phase_kernels(ctx) -> dict:
     a1, b1 = (_uniform(rng, lazy5, (1, 2, 5, N), dev) for _ in range(2))
     a5 = _uniform(rng, v6, (5, 6, N), dev)
     b5 = _uniform(rng, v6, (5, 2, 6, N), dev)
+    # B's convolution over q u Bsk (BFV) and q, the decrypt's phase with
+    # c0 in the sum and the powers' level rows read in place, the key
+    # switch one level down (the key's rows read in place)
+    c_a, c_b = (_uniform(rng, [4 * q for q in qb.values], (2, k + nb, N),
+                         dev) for _ in range(2))
+    c_q = _uniform(rng, v5, (2, 2, 5, N), dev)
+    d_pow = _uniform(rng, q6.values, (2, 6, N), dev)
+    d_c = _uniform(rng, v5, (3, 5, N), dev)
+    d_many = _uniform(rng, v5, (3, 3, 5, N), dev)
+    used4 = q6.select(keyswitch.used_limbs(4, key.limbs))
+    ks_t = _uniform(rng, used4.values, (4, 5, N), dev)
     xq = _full(rng, (4, 5, N), dev)
     xb = _full(rng, (3, tool.b_to_q_m_sk.k_in, N), dev)
     ra, rb = (_uniform(rng, v5, (3, 5, N), dev) for _ in range(2))
@@ -1057,6 +1081,33 @@ def phase_kernels(ctx) -> dict:
         ("B_dyadic_mac", "J=1 lazy (2,5,n)",
          lambda: ntt.dyadic_mac(a1, b1, q5),
          lambda: ntt.dyadic_mac_plain(a1, b1, q5), None, None),
+        ("B_dyadic_mac", f"convolve q u Bsk (2,{k + nb},n)^2 lazy",
+         lambda: ntt.dyadic_convolve(c_a, c_b, qb),
+         lambda: ntt.dyadic_convolve_plain(c_a, c_b, qb), None, None),
+        ("B_dyadic_mac", f"square q u Bsk (2,{k + nb},n) lazy",
+         lambda: ntt.dyadic_convolve(c_a, c_a, qb),
+         lambda: ntt.dyadic_convolve_plain(c_a, c_a, qb), None, None),
+        ("B_dyadic_mac", "convolve q (2,5,n)x(2,5,n)",
+         lambda: ntt.dyadic_convolve(c_q[0], c_q[1], q5),
+         lambda: ntt.dyadic_convolve_plain(c_q[0], c_q[1], q5), None,
+         None),
+        ("B_dyadic_mac", "decrypt c0 + c1 s + c2 s^2 (5,n), powers' slice",
+         lambda: ntt.dyadic_mac(d_c[1:], d_pow[:, :5], q5, addend=d_c[0]),
+         lambda: ntt.dyadic_mac_plain(d_c[1:], d_pow[:, :5], q5, d_c[0]),
+         None, None),
+        ("B_dyadic_mac", "decrypt_many of 3 (3,3,5,n), c0s in the sum",
+         lambda: ntt.dyadic_mac_batched(d_pow[:, :5].unsqueeze(1),
+                                        d_many[:, 1:], q5,
+                                        addend=d_many[:, :1]),
+         lambda: ntt.dyadic_mac_plain(
+             d_many[:, 1:].transpose(0, 1).unsqueeze(2),
+             d_pow[:, :5].unsqueeze(1).unsqueeze(1), q5, d_many[:, :1]),
+         None, None),
+        ("B_dyadic_mac", "key switch one level down (4,5,n)x(4,2,6 rows,n)",
+         lambda: ntt.dyadic_mac(ks_t, b5[:4], used4),
+         lambda: ntt.dyadic_mac_plain(ks_t.unsqueeze(1),
+                                      ntt.key_rows_plain(b5[:4], 5), used4),
+         None, None),
         ("C_base_convert", f"q->Bsk (4,5,n)->(4,{nb},n)",
          lambda: rns.fast_convert(xq, tool.q_to_bsk),
          lambda: rns.fast_convert_plain(xq, tool.q_to_bsk),
@@ -3947,14 +3998,38 @@ def check_path(tag: str, phases: str, path, counts: dict,
                              f"{counter.calls}")
 
 
+B_ENTRIES = ("troy_dyadic_mac", "troy_dyadic_convolve")
+
+
+def b_launch_words(entry: str, args: tuple) -> int:
+    """The words one kernel-B launch must move, from its arguments: each
+    term's rows of a read once, of b once for every component (where b
+    has a group pitch, for every group), the addend, the output; the
+    convolution's operands (b none for a square) and output. B reads
+    operands in place, so a tensor argument may hold more than that (a
+    key's level slice)."""
+    if entry == "troy_dyadic_convolve":
+        square, batch, s1, s2, rows, log_n = args[3:9]
+        return (batch * rows << log_n) * (s1 + (0 if square else s2)
+                                          + s1 + s2 - 1)
+    add, terms, comps, groups, rows, log_n = args[3:9]
+    b_groups = groups if args[13] else 1
+    words = (terms * groups + terms * comps * b_groups
+             + comps * groups * (2 if add is not None else 1))
+    return (words * rows) << log_n
+
+
 def launch_work(entry: str, args: tuple) -> tuple:
     """bound() arguments of one launch, from its arguments: every tensor
-    argument's bytes once (D's c1, read and written beside out, twice),
+    argument's bytes once (B's words as ``b_launch_words`` counts them;
+    D's c1, read and written beside out, twice),
     and I's threefry blocks (THREEFRY_OPS 32-bit operations each), its
     lifts (4 a word), its Barrett-128 (5 products a uniform word) and BGV's
     Shoup product (2 a noise word). Every other kernel of RANKED is bound
     by its bytes at its checked shapes (phases 3-20), so its operations
     are not counted."""
+    if entry in B_ENTRIES:
+        return b_launch_words(entry, args) * 8, 0
     nbytes = sum(a.numel() * a.element_size() for a in args
                  if isinstance(a, torch.Tensor))
     if entry == "troy_rns_elementwise" and len(args) > 11 and isinstance(
@@ -5162,11 +5237,11 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
                    decrypt_ops: dict) -> dict:
     """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
     F's digits, K' and K'-BGV, D and I, O3 and F's divide, X and C, G' and
-    P2, O2 and K: redesign_j, redesign_e, redesign_b, redesign_o1,
-    redesign_p1, redesign_f, redesign_kp, redesign_zero, redesign_o3,
-    redesign_afi, redesign_decrypt, standalone_decrypt, redesign_agp,
-    redesign_ap2i, standalone_p2, redesign_ao2p, standalone_k) as
-    redesigned
+    P2, O2 and K, B and K'': redesign_j, redesign_e, redesign_b,
+    redesign_o1, redesign_p1, redesign_f, redesign_kp, redesign_zero,
+    redesign_o3, redesign_afi, redesign_decrypt, standalone_decrypt,
+    redesign_agp, redesign_ap2i, standalone_p2, redesign_ao2p,
+    standalone_k, standalone_kpp) as redesigned
     for the H100. A against its plain version, word for word, at every n of
     REDESIGN_NS (one pass over whole rows below 1024, two passes from it
     up) and the shapes of
@@ -5288,7 +5363,8 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
         f"{k} {v:.1f}" for k, v in host.items()))
     j = redesign_j(dev, rng)
     e = redesign_e(dev, rng)
-    b = redesign_b(bfv_ops)
+    b = redesign_b(dev)
+    check_b_launches(b)
     o1 = redesign_o1(dev, rng, per_op)
     p1 = redesign_p1(app_ctx, rng)
     f = redesign_f(dev, rng)
@@ -5305,6 +5381,7 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
     p2 = standalone_p2(dev, rng)
     ao2p = redesign_ao2p(zero_ctxs["ckks"], rng)
     k_alone = standalone_k(dev, rng)
+    kpp_alone = standalone_kpp(dev, rng)
     spread = op_spread(divide_ops)
     return {"a_checks": checks, "a_shapes": per_shape, "a_per_n": per_n,
             "m_forms": m_forms, "host_enqueue_us": host, "j": j, "e": e,
@@ -5313,6 +5390,7 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
             "standalone_decrypt": standalone, "decrypt_wall": wall,
             "agp": agp, "ap2i": ap2i, "standalone_p2": p2,
             "ao2p": ao2p, "standalone_k": k_alone,
+            "standalone_kpp": kpp_alone,
             "spread": spread}
 
 
@@ -6319,57 +6397,245 @@ def decrypt_wall(rounds: int = 4) -> dict:
     return turns
 
 
-def redesign_b(ops: dict) -> dict:
-    """Phase 35, kernel B at the main path's shapes: every B call of one
-    run of each op (the BFV headline's mult+relin, rotate_rows(1) and
-    decrypt) recorded with its operands, then each distinct shape's device
-    us a launch (profiler) beside its bound: both operands read once (a
-    broadcast operand once), the output written once, two products a term
-    and a Barrett-128 reduction (5) a word."""
-    calls = {}
-    wrapped = {"dyadic_mac": ntt.dyadic_mac,
-               "dyadic_mac_batched": ntt.dyadic_mac_batched}
+B_KERNELS = ("dyadic_mac_kernel", "dyadic_convolve_kernel",
+             "dyadic_convolve_any_kernel")
+B_WRAPPERS = ("dyadic_mac", "dyadic_mac_batched", "dyadic_convolve")
+B_SEED = 2036                        # redesign_b's keys and encryptions
+B_PACK = 16                          # the LWE pack of redesign_b
+
+
+def _b_ops(dev) -> dict:
+    """The ops whose B launches redesign_b reads, on headline contexts of
+    the three schemes made here (keys on the card from B_SEED): each
+    scheme's mult+relin, the BFV and BGV decrypt and decrypt_many of 3,
+    the BFV symmetric and public-key encrypt, BGV's multiply_plain, and a
+    BGV LWE pack of B_PACK (its batched folds)."""
+    ops = {}
+    for i, scheme in enumerate(("bfv", "ckks", "bgv")):
+        ckks = scheme == "ckks"
+        extra = {} if ckks else {
+            "plain_modulus": P.PlainModulus.batching(N, 20)}
+        ctx = P.HeContext(P.EncryptionParameters(
+            scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=N,
+            coeff_modulus=tuple(P.CoeffModulus.create(N, Q_BITS)), **extra),
+            device=dev)
+        kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(B_SEED + 10 * i))
+        rlk, pk = kg.create_relin_keys(), kg.create_public_key()
+        enc = P.Encryptor(ctx, public_key=pk, secret_key=kg.secret_key,
+                          seed=rnd.seed_from_uint64(B_SEED + 10 * i + 1))
+        ev, dec = P.Evaluator(ctx), P.Decryptor(ctx, kg.secret_key)
+        rng = np.random.default_rng(B_SEED + i)
+        if ckks:
+            enc_ = P.CKKSEncoder(ctx)
+            pts = [enc_.encode(rng.uniform(-1, 1, N // 2), CKKS_SCALE)
+                   for _ in range(2)]
+        else:
+            enc_ = P.BatchEncoder(ctx)
+            pts = [enc_.encode(rng.integers(0, enc_.plain_modulus, N,
+                                            dtype=np.uint64))
+                   for _ in range(2)]
+        ca, cb = (enc.encrypt_symmetric(p) for p in pts)
+        ops[f"{scheme}_mult_relin"] = (
+            lambda ev=ev, ca=ca, cb=cb, rlk=rlk:
+            ev.relinearize(ev.multiply(ca, cb), rlk))
+        if scheme == "bfv":
+            ops["bfv_encrypt_symmetric"] = (
+                lambda enc=enc, p=pts[0]: enc.encrypt_symmetric(p))
+            ops["bfv_encrypt"] = lambda enc=enc, p=pts[0]: enc.encrypt(p)
+        if ckks:
+            continue
+        rel = ev.relinearize(ev.multiply(ca, cb), rlk)
+        ops[f"{scheme}_decrypt"] = lambda dec=dec, rel=rel: dec.decrypt(rel)
+        ops[f"{scheme}_decrypt_many3"] = (
+            lambda dec=dec, cts=(rel, ca, cb): dec.decrypt_many(cts))
+        if scheme == "bgv":
+            ops["bgv_multiply_plain"] = (
+                lambda ev=ev, ca=ca, p=pts[1]: ev.multiply_plain(ca, p))
+            gk = kg.create_galois_keys(
+                elts=[(1 << j) + 1 for j in range(1, N.bit_length())])
+            coeffs = ev.transform_from_ntt(ca)
+            lwes = ev.extract_lwe_many(coeffs, list(range(B_PACK)))
+            ops["bgv_pack_lwe16"] = (
+                lambda ev=ev, lwes=lwes, gk=gk:
+                ev.pack_lwe_ciphertexts(lwes, gk))
+    return ops
+
+
+def redesign_b(dev) -> dict:
+    """Phase 35, kernel B at the main path's shapes (``_b_ops``): every
+    call of B's wrappers in one run of each op recorded with its
+    arguments; then each distinct call's device us a launch (profiler,
+    B's device functions) and what else its call ran (the earlier trees'
+    copies), beside its bound: the words the call must move (each term's
+    rows of a read once, b's once for each component, the addend, the
+    output; a square's operand once) over 3.35 TB/s; and each op's B
+    launches, B's device us and the op's device us (profiler). Written on
+    the wrappers and ops the earlier trees have too, so that
+    tools/compare_trees.py b times their B in turns with this tree's."""
+    ops = _b_ops(dev)
+    wrapped = {w: getattr(ntt, w) for w in B_WRAPPERS if hasattr(ntt, w)}
+    calls, op_name = {}, [None]
 
     def recorder(name):
-        def record(*args):
-            shapes = tuple(tuple(a.shape) for a in args[:2])
-            calls.setdefault((name, shapes), (args, []))[1].append(op_name)
-            return wrapped[name](*args)
+        def record(*args, **kw):
+            shapes = (tuple(tuple(a.shape) for a in args[:2]),
+                      tuple(sorted((k, tuple(v.shape)) for k, v in kw.items()
+                                   if isinstance(v, torch.Tensor))))
+            calls.setdefault((name, shapes), (args, kw, set()))[2].add(
+                op_name[0])
+            return wrapped[name](*args, **kw)
         return record
 
     try:
         for name in wrapped:
             setattr(ntt, name, recorder(name))
-        for op_name, fn in ops.items():
+        for op_name[0], fn in ops.items():
             fn()
     finally:
         for name, fn in wrapped.items():
             setattr(ntt, name, fn)
     torch.cuda.synchronize()
-    out = {}
-    for (name, shapes), (args, in_ops) in calls.items():
+    shapes = {}
+    for (name, (arg_shapes, kw_shapes)), (args, kw, in_ops) in calls.items():
         fn = wrapped[name]
-        a, b, t = args
-        _, _, each = device_kernels_per_op(lambda: fn(a, b, t), reps=10,
-                                           expect={"dyadic_mac_kernel": 1},
-                                           whole=True)
-        us = each["dyadic_mac_kernel"][1]
-        if name == "dyadic_mac":
-            terms, words_out = a.shape[0], b[0].numel()
+        _, ms, each = device_kernels_per_op(
+            lambda: fn(*args, **kw), reps=10, expect=None, whole=True)
+        b = {k: v for k, v in each.items() if k in B_KERNELS}
+        launches = sum(c for c, _ in b.values())
+        if not launches:
+            raise AssertionError(f"{name}: no launch of B's device "
+                                 f"functions in its trace: {sorted(each)}")
+        us = sum(c * t for c, t in b.values()) / launches
+        words = b_call_words(name, args, kw)
+        bound_ms, bound_by = bound(words * 8, 0)
+        tag = (f"{name} {' x '.join(str(s) for s in arg_shapes)}"
+               + "".join(f", {k} {v}" for k, v in kw_shapes))
+        shapes[tag] = {
+            "ops": sorted(in_ops), "launches_a_call": launches,
+            "us_per_launch": us, "call_device_us": ms * 1e3,
+            "other_us": ms * 1e3 - launches * us, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms * 1e3 / us}
+        log(f"[35] B {tag} ({', '.join(sorted(in_ops))}): {launches:g} "
+            f"launch(es) of {us:.2f} us, the call {ms * 1e3:.2f} us of "
+            f"device time; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+            f"{100 * bound_ms * 1e3 / us:.1f} % of a launch")
+    per_op = {}
+    for op, fn in ops.items():
+        _kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        _, ms, each = device_kernels_per_op(fn, reps=5, expect=None,
+                                            whole=True)
+        b_us = sum(c * t for k, (c, t) in each.items() if k in B_KERNELS)
+        per_op[op] = {"b_launches": counts["B_dyadic_mac"],
+                      "d_launches": counts["D_rns_elementwise"],
+                      "b_us": b_us, "device_us": ms * 1e3}
+        log(f"[35] B in {op}: {counts['B_dyadic_mac']} launches, "
+            f"{b_us:.2f} us of the op's {ms * 1e3:.2f} us of device time "
+            f"(D {counts['D_rns_elementwise']} launches)")
+    return {"shapes": shapes, "ops": per_op}
+
+
+def b_call_words(name: str, args: tuple, kw: dict) -> int:
+    """The words one call of a B wrapper must move: each term's rows of a
+    once, b's once for each component it is read for, the addend, the
+    output; a square's operand once."""
+    if name == "dyadic_convolve":
+        a, b = args[0], args[1]
+        square = a.data_ptr() == b.data_ptr() and a.shape == b.shape
+        out = a.shape[:-3] + (a.shape[-3] + b.shape[-3] - 1,) + a.shape[-2:]
+        return a.numel() + (0 if square else b.numel()) + math.prod(out)
+    add = kw.get("addend")
+    if name == "dyadic_mac_batched":
+        key, targets = args[0], args[1]
+        k = targets.shape[-2]
+        out = targets.shape[0] * key.shape[1] * k * targets.shape[-1]
+        key_words = key.shape[0] * key.shape[1] * k * key.shape[-1]
+        return (targets.numel() + key_words + out
+                + (add.numel() if add is not None else 0))
+    a, b = args[0], args[1]
+    k = a.shape[-2]
+    out = math.prod(b.shape[1:-2]) * k * a.shape[-1]
+    return (a.numel() + b.shape[0] * out + out
+            + (add.numel() if add is not None else 0))
+
+
+def check_b_launches(b: dict) -> None:
+    """B's launch counts in redesign_b's ops: two a mult+relin (the
+    convolution and the key switch's inner product), one a decrypt with
+    no D launch (c0 in B's sum)."""
+    ops = b["ops"]
+    for scheme in ("bfv", "ckks", "bgv"):
+        got = ops[f"{scheme}_mult_relin"]["b_launches"]
+        if got != 2:
+            raise AssertionError(f"{scheme} mult+relin launches B {got} "
+                                 "times, not 2")
+    for op in ("bfv_decrypt", "bgv_decrypt", "bfv_decrypt_many3",
+               "bgv_decrypt_many3"):
+        if (ops[op]["b_launches"], ops[op]["d_launches"]) != (1, 0):
+            raise AssertionError(f"{op}: B {ops[op]['b_launches']} and D "
+                                 f"{ops[op]['d_launches']} launches, not 1 "
+                                 "and 0")
+    log("[35] B launches twice a mult+relin of each scheme and once a "
+        "decrypt or decrypt_many, with no D launch")
+
+
+# phase 35 (B and K'' redesigned): K'''s own kernel at the LWE window's
+# folds (the coefficient-form BGV key switch of m pairs, onto c0 of each
+# pair) and the BGV mod switch's divide at the headline (tag, m pairs or
+# None for the mod switch)
+STANDALONE_KPP_SHAPES = (("fold of 8 (16,6,n) onto (8,1,5,n)", 8),
+                         ("fold of 4 (8,6,n) onto (4,1,5,n)", 4),
+                         ("fold of 1 (2,6,n) onto (1,1,5,n)", 1),
+                         ("q_last (2,5,n)->(2,4,n)", None))
+
+
+def standalone_kpp(dev, rng) -> dict:
+    """Phase 35, K'''s own kernel (``keyswitch.bgv_divide_last``) at
+    STANDALONE_KPP_SHAPES on the BGV headline's primes: word-equal to its
+    plain version, its device us a call (graph replay) and a launch
+    (profiler) beside the bound (x, the accumulator and the constants
+    read, the result written, over 3.35 TB/s) and the bound's share.
+    Written on the wrappers that the earlier trees have too, so that it
+    times those trees' K'' in turns with this one."""
+    moduli = _moduli(N, Q_BITS)
+    tt = int(P.PlainModulus.batching(N, 20))
+    key = ntt.RnsNttTables.from_moduli(N, moduli, dev)
+    out = {}
+    for tag, m in STANDALONE_KPP_SHAPES:
+        if m is None:
+            level = key.slice(0, 5)
+            consts = keyswitch.bgv_divide_consts(level.slice(0, 4),
+                                                 moduli[4], tt)
+            x, acc, group = _uniform(rng, moduli[:5], (2, 5, N), dev), None, \
+                None
         else:
-            terms = a.shape[0]
-            words_out = b.shape[0] * a.shape[1] * a.shape[2] * a.shape[3]
-        bound_ms, bound_by = bound(_bytes(a, b) + words_out * 8,
-                                   words_out * (2 * terms + 5))
-        tag = f"{name} {shapes[0]} x {shapes[1]}"
-        out[tag] = {"ops": sorted(set(in_ops)), "calls": len(in_ops),
-                    "us_per_launch": us, "bound_ms": bound_ms,
-                    "bound_by": bound_by,
-                    "half_of_bound": us <= 2 * bound_ms * 1e3}
-        log(f"[35] B {tag} ({', '.join(sorted(set(in_ops)))}): {us:.2f} us "
-            f"a launch, bound {bound_ms * 1e3:.2f} us ({bound_by}); "
-            f"{'within' if out[tag]['half_of_bound'] else 'beyond'} twice "
-            "its bound")
+            level = key.slice(0, 5)
+            consts = keyswitch.bgv_divide_consts(level, moduli[-1], tt)
+            x = _uniform(rng, moduli[:5] + moduli[-1:], (2 * m, 6, N), dev)
+            acc, group = _uniform(rng, moduli[:5], (m, 1, 5, N), dev), 2
+        fn = lambda: keyswitch.bgv_divide_last(x, consts, acc, group)
+        try:
+            compare("words", fn(), keyswitch.bgv_divide_last_plain(
+                x, consts, acc, group))
+        except AssertionError as exc:
+            raise AssertionError(f"K'' {tag}: {exc}") from None
+        _, _, each = device_kernels_per_op(
+            fn, reps=10, expect={"bgv_divide_kernel": 1}, whole=True)
+        us = each["bgv_divide_kernel"][1]
+        k = x.shape[1] - 1
+        words = x.numel() + x.shape[0] * k * N + consts.numel() + (
+            acc.numel() if acc is not None else 0)
+        bound_ms, bound_by = bound(words * 8, x.shape[0] * N * (2 + 6 * k))
+        r = {"device_us": graph_us(fn), "us_per_launch": us,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_share": bound_ms * 1e3 / us}
+        out[tag] = r
+        log(f"[35] standalone K'' {tag}: word-equal to its plain version; "
+            f"{r['device_us']:.2f} us a call (graph), {us:.2f} us a launch "
+            f"(profiler); bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+            f"{100 * r['bound_share']:.1f} % of the launch")
     return out
 
 
@@ -6707,11 +6973,14 @@ def redesign_o1(dev, rng, per_op: dict) -> dict:
 
 
 # the kernels ranked by their loss (PERF.md section 6): those not yet
-# redesigned for the H100, and D and I, and their device functions' names
+# redesigned for the H100, and B, D, I, K and K'' (redesigned, and kept
+# in the ranking), and their device functions' names
 # in the profiler (O2 and O4 share round_kernel; F's digits and divide run
 # only on J's route, K keeps divide_round_kernel; X and C, redesigned into
 # AXi and ACi, only on J's route and past the fused decrypt's limbs)
 RANKED = {
+    "B_dyadic_mac": ("dyadic_mac_kernel", "dyadic_convolve_kernel",
+                     "dyadic_convolve_any_kernel"),
     "D_rns_elementwise": ("rns_elementwise_kernel",),
     "F_keyswitch": ("keyswitch_digits_kernel",),
     "G_plain_embed": ("plain_embed_kernel",),

@@ -1179,7 +1179,7 @@ def test_decrypt_many_launches_do_not_grow_with_the_batch(dev):
             counts[(str(device), b)] = _kernels.launch_counts()
             words[(str(device), b)] = [interop.words(p) for p in out]
     assert counts[(str(dev), 2)] == counts[(str(dev), 8)]
-    assert sum(counts[(str(dev), 8)].values()) == 4   # A, B, D, ACi
+    assert sum(counts[(str(dev), 8)].values()) == 3   # A, B (c0 too), ACi
     for b in (2, 8):
         np.testing.assert_array_equal(np.asarray(words[(str(dev), b)]),
                                       np.asarray(words[("cpu", b)]))
@@ -2046,3 +2046,163 @@ def test_divide_round_accumulator_layouts(dev, layout, k):
     got = keyswitch.divide_round_last(x, consts, acc, group)
     assert _kernels.launch_counts()["F_keyswitch"] == 1
     _same(got, keyswitch.divide_round_last_plain(x, consts, acc, group))
+
+
+# --------------------------------------------------------------------------
+# B redesigned: the convolution, strided operands, the addend; K'' on K's
+# design
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [64, 16384])
+@pytest.mark.parametrize("s1,s2,lead", [(2, 2, ()), (2, 3, ()), (3, 3, ()),
+                                        (1, 4, ()), (4, 4, ()), (5, 2, ()),
+                                        (2, 2, (3,)), (3, 2, (2, 2))])
+def test_dyadic_convolve_kernel(dev, n, s1, s2, lead):
+    """The ciphertext product's convolution in one B launch (sizes 1-4 a
+    side compiled, 5 on the loop), lazy words below 4q where at most four
+    terms meet, with leading batch axes, against its plain version."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [60, 40, 40, 60])]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(s1 * 10 + s2 + n)
+    bound = [4 * q for q in moduli] if min(s1, s2) <= 4 else moduli
+    a = _uniform(rng, bound, lead + (s1,), n, dev)
+    b = _uniform(rng, bound, lead + (s2,), n, dev)
+    _kernels.reset_launch_counts()
+    got = ntt.dyadic_convolve(a, b, tables)
+    assert _kernels.launch_counts()["B_dyadic_mac"] == 1
+    _same(got, ntt.dyadic_convolve_plain(a, b, tables))
+    if s1 == s2:
+        _same(ntt.dyadic_convolve(a, a, tables),
+              ntt.dyadic_convolve_plain(a, a, tables))
+    if lead:
+        both = torch.cat([a, b], dim=-3)                 # strided halves
+        _same(ntt.dyadic_convolve(both[..., :s1, :, :], both[..., s1:, :, :],
+                                  tables),
+              ntt.dyadic_convolve_plain(a, b, tables))
+
+
+@pytest.mark.parametrize("n", [64, 16384])
+def test_dyadic_mac_strided_operands_and_addend(dev, n):
+    """B's mac on the operands its callers hand it in place: a key's rows
+    one level down (the level's primes and the special row), the secret
+    key's powers and a public key at a level's rows, a strided addend
+    (the decrypt's c0, each ciphertext's c0 of a batch); lazy one-term
+    products broadcast over components and row groups."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, BITS[6])]
+    full = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rng = np.random.default_rng(n)
+    key = _uniform(rng, moduli, (5, 2), n, dev)
+    for k in (5, 3, 1):
+        used = full.select(keyswitch.used_limbs(k, 6))
+        t_hat = _uniform(rng, used.values, (k,), n, dev)
+        _same(ntt.dyadic_mac(t_hat, key[:k], used),
+              ntt.dyadic_mac_plain(t_hat.unsqueeze(1),
+                                   ntt.key_rows_plain(key[:k], k + 1), used))
+        targets = _uniform(rng, used.values, (4, k), n, dev)
+        _same(ntt.dyadic_mac_batched(key[:k], targets, used),
+              ntt.dyadic_mac_plain(targets.transpose(0, 1).unsqueeze(2),
+                                   ntt.key_rows_plain(key[:k], k + 1)
+                                   .unsqueeze(1), used))
+        level = full.slice(0, k)
+        powers = _uniform(rng, moduli, (2,), n, dev)
+        comps = _uniform(rng, level.values, (3, 3), n, dev)
+        _kernels.reset_launch_counts()
+        got = ntt.dyadic_mac(comps[0, 1:], powers[:, :k], level,
+                             addend=comps[0, 0])
+        assert _kernels.launch_counts()["B_dyadic_mac"] == 1
+        _same(got, ntt.dyadic_mac_plain(comps[0, 1:], powers[:, :k], level,
+                                        comps[0, 0]))
+        _same(ntt.dyadic_mac_batched(powers[:, :k].unsqueeze(1),
+                                     comps[:, 1:], level,
+                                     addend=comps[:, :1]),
+              ntt.dyadic_mac_plain(comps[:, 1:].transpose(0, 1).unsqueeze(2),
+                                   powers[:, :k].unsqueeze(1).unsqueeze(1),
+                                   level, comps[:, :1]))
+        # one lazy term: row groups (2, k), and u over a public key's two
+        # components at the level's rows
+        u = _uniform(rng, [4 * q for q in level.values], (1, 2), n, dev)
+        _same(ntt.dyadic_mac(u, powers[:, :k].unsqueeze(0), level),
+              ntt.dyadic_mac_plain(u, powers[:, :k].unsqueeze(0), level))
+        _same(ntt.dyadic_mac(u[:, 0], powers[:, :k].unsqueeze(0), level),
+              ntt.dyadic_mac_plain(u[:, :1], powers[:, :k].unsqueeze(0),
+                                   level))
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "ckks", "bgv"])
+def test_mult_relin_launches_b_twice(dev, scheme):
+    """A mult+relin launches B twice (the convolution, the key switch's
+    inner product) and a decrypt once with no D launch (c0 in B's sum);
+    the CPU run's words."""
+    n = 4096
+    words = {}
+    for device in (dev, "cpu"):
+        extra = {} if scheme == "ckks" else {
+            "plain_modulus": P.PlainModulus.batching(n, 20)}
+        ctx = P.HeContext(P.EncryptionParameters(
+            scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=n,
+            coeff_modulus=tuple(P.CoeffModulus.create(n, BITS[6])), **extra),
+            sec_level=P.SecurityLevel.none, device=device)
+        kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(51),
+                            host_sampling=True)
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=prng.seed_from_uint64(52), host_sampling=True)
+        rlk = kg.create_relin_keys()
+        ev, dec = P.Evaluator(ctx), P.Decryptor(ctx, kg.secret_key)
+        if scheme == "ckks":
+            encoder = P.CKKSEncoder(ctx)
+            pts = [encoder.encode(np.linspace(-1, 1, n // 2) * (i + 1),
+                                  2.0 ** 40) for i in range(2)]
+        else:
+            encoder = P.BatchEncoder(ctx)
+            pts = [encoder.encode(np.arange(n, dtype=np.uint64) * (i + 1)
+                                  % encoder.plain_modulus) for i in range(2)]
+        ca, cb = (enc.encrypt_symmetric(p) for p in pts)
+        _kernels.reset_launch_counts()
+        rel = ev.relinearize(ev.multiply(ca, cb), rlk)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert _kernels.launch_counts()["B_dyadic_mac"] == 2
+        _kernels.reset_launch_counts()
+        plain = dec.decrypt(rel)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            counts = _kernels.launch_counts()
+            assert (counts["B_dyadic_mac"], counts["D_rns_elementwise"]) \
+                == (1, 0), counts
+        words[str(device)] = (interop.words(rel), interop.words(plain))
+    for got, want in zip(words[str(dev)], words["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [64, 16384])
+@pytest.mark.parametrize("k", [1, 4, 5])
+@pytest.mark.parametrize("layout", ["none", "c0c1", "c0", "pairs", "one"])
+def test_bgv_coeff_divide_kernel_layouts(dev, n, k, layout):
+    """K'' on K's design (limb groups of two, 16-byte loads) in every
+    accumulator layout, with the last row at 0, 1, p - 1 and p/2 +- 1, and
+    on operands at an odd word offset (an aligned copy), one launch a
+    call."""
+    moduli = [int(m) for m in P.CoeffModulus.create(n, [50] * (k + 1))]
+    t = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    tt = int(P.PlainModulus.batching(max(n, 1024), 20))
+    consts = keyswitch.bgv_divide_consts(t.slice(0, k), moduli[-1], tt)
+    rng = np.random.default_rng(n + k)
+    s = 2 if layout in ("none", "c0c1", "c0") else 8
+    x = _uniform(rng, moduli, (s,), n, dev)
+    p = moduli[-1]
+    turns = [0, 1, p - 1, p // 2 - 1, p // 2, p // 2 + 1][:n]
+    x[:, -1, :len(turns)] = interop.to_torch(np.array(turns, np.uint64), dev)
+    acc, group = {
+        "none": (None, None),
+        "c0c1": (_uniform(rng, moduli[:k], (2,), n, dev), None),
+        "c0": (_uniform(rng, moduli[:k], (1,), n, dev), None),
+        "pairs": (_uniform(rng, moduli[:k], (4, 1), n, dev), 2),
+        "one": (_uniform(rng, moduli[:k], (1, 1), n, dev), 2)}[layout]
+    want = keyswitch.bgv_divide_last_plain(x, consts, acc, group)
+    for odd in (False, True):
+        xs = _odd_word_view(x) if odd else x
+        accs = _odd_word_view(acc) if odd and acc is not None else acc
+        _kernels.reset_launch_counts()
+        got = keyswitch.bgv_divide_last(xs, consts, accs, group)
+        assert _kernels.launch_counts()["Kpp_bgv_coeff"] == 1
+        _same(got, want)

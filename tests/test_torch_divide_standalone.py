@@ -190,19 +190,33 @@ def test_divide_refuses_what_the_kernel_cannot_take():
 
 
 @pytest.mark.parametrize("bgv", [False, True])
-def test_unaligned_operand_is_copied_once_for_the_kernel(bgv):
-    """A contiguous operand one word past a 16-byte line: K's and F's
-    divide (16-byte loads) take an aligned copy of the same words, K''s
-    (8-byte loads) the operand itself; an aligned one is never copied."""
+def test_unaligned_operand_is_copied_once_for_the_kernel(bgv, monkeypatch):
+    """A contiguous operand one word past a 16-byte line: every divide (K's
+    and F's, and K''s since it took their 16-byte loads) hands its kernel
+    an aligned copy of the same words; an aligned one goes as it is. The
+    launch is recorded, not run (no card here)."""
+    moduli = [int(v) for v in P.CoeffModulus.create(N, [50, 50, 50])]
+    t = ntt.RnsNttTables.from_moduli(N, moduli, "cpu")
+    consts = (keyswitch.bgv_divide_consts(t.slice(0, 2), moduli[-1], 65537)
+              if bgv else keyswitch.divide_round_consts(t.slice(0, 2),
+                                                        moduli[-1]))
+    divide = keyswitch.bgv_divide_last if bgv else keyswitch.divide_round_last
+    seen = []
+    monkeypatch.setattr(keyswitch._kernels, "on_cuda", lambda *ts: True)
+    monkeypatch.setattr(keyswitch._kernels, "check_operand",
+                        lambda *a, **kw: None)
+    monkeypatch.setattr(keyswitch._kernels, "launch",
+                        lambda entry, dev, out, x, *rest: seen.append(x))
     buf = torch.arange(2 * 3 * N + 1, dtype=torch.int64)
     view = buf[1:].view(2, 3, N)
     assert view.is_contiguous() and view.data_ptr() & 15 == 8
-    got = keyswitch._aligned(view, bgv)
-    assert torch.equal(got, view)
-    assert (got.data_ptr() == view.data_ptr()) == bgv
-    assert got.data_ptr() & 15 == (8 if bgv else 0)
     aligned = torch.zeros(2, 3, N, dtype=torch.int64)
-    assert keyswitch._aligned(aligned, bgv) is aligned
+    divide(view, consts)
+    divide(aligned, consts)
+    got, same = seen
+    assert torch.equal(got, view)
+    assert got.data_ptr() != view.data_ptr() and got.data_ptr() & 15 == 0
+    assert same is aligned
 
 
 def _geometry():

@@ -1,15 +1,31 @@
 """Compare two checkouts of troy_tpu_torch on the GPU: the headline's
-CKKS and BGV mult+relin timed alone, and the kernels' machine code.
+ops and kernels B and K'' timed alone, the kernels' machine code, and a
+run's kernels ranked by their loss.
 
   python3 tools/compare_trees.py ops TAG
       Builds the kernels of the troy_tpu_torch package first on sys.path
       (PYTHONPATH naming a checkout's root selects that checkout; without
-      it, this one) and times the CKKS and BGV mult+relin at chip_smoke.py's
-      headline (n = 16384, primes of 60, 40, 40, 40, 40 and 60 bits, a
-      20-bit t for BGV) with chip_smoke.py's profiler tracing: TRACES
-      traces an op, each giving the op's device us a call and kernel A's
-      us a launch. Prints one line, "OPS TAG {json}". Time two checkouts
-      in turns (a, b, b, a), one process each, on one card.
+      it, this one) and times the BFV, CKKS and BGV mult+relin and the BFV
+      decrypt at chip_smoke.py's headline (n = 16384, primes of 60, 40,
+      40, 40, 40 and 60 bits, a 20-bit t for BFV and BGV) with
+      chip_smoke.py's profiler tracing: TRACES traces an op, each giving
+      the op's device us a call, kernel A's us a launch, and kernel B's
+      launches and device us. Prints one line, "OPS TAG {json}". Time two
+      checkouts in turns (a, b, b, a), one process each, on one card.
+
+  python3 tools/compare_trees.py b TAG
+  python3 tools/compare_trees.py kpp TAG
+      The same package choice; chip_smoke.py's ``redesign_b`` (B at every
+      shape of the headline's mult+relin, decrypt, encrypt and LWE pack,
+      and B's launches and device us in each op) or ``standalone_kpp``
+      (K'' at the LWE window's folds and the BGV mod switch). Prints "B
+      TAG {json}" or "KPP TAG {json}".
+
+  python3 tools/compare_trees.py rank LOG
+      Reads the per-kernel line of a chip_smoke.py run's output (the JSON
+      line before the last in LOG) and ranks its kernels with this
+      checkout's ``unredesigned_losses`` and RANKED: an earlier tree's run
+      ranked as this one ranks, B included. Runs anywhere.
 
   python3 tools/compare_trees.py sass A.sass.gz B.sass.gz
       Compares two gzipped `cuobjdump -sass` listings kernel by kernel,
@@ -45,8 +61,8 @@ def _chip_smoke():
 
 
 def _mult_relin(cs, scheme):
-    """One mult+relin of two fresh encryptions at the headline, as a
-    callable."""
+    """One mult+relin of two fresh encryptions at the headline, and the
+    decrypt of its result, as callables."""
     P, np = cs.P, cs.np
     extra = {} if scheme == P.SchemeType.ckks else {
         "plain_modulus": P.PlainModulus.batching(cs.N, 20)}
@@ -67,7 +83,10 @@ def _mult_relin(cs, scheme):
         pts = [be.encode(rng.integers(0, 1000, cs.N)) for _ in range(2)]
     ca, cb = (enc.encrypt_symmetric(p) for p in pts)
     ev = P.Evaluator(ctx)
-    return lambda: ev.relinearize(ev.multiply(ca, cb), rlk)
+    mult_relin = lambda: ev.relinearize(ev.multiply(ca, cb), rlk)
+    dec = P.Decryptor(ctx, kg.secret_key)
+    rel = mult_relin()
+    return mult_relin, lambda: dec.decrypt(rel)
 
 
 def ops(tag: str) -> None:
@@ -75,23 +94,51 @@ def ops(tag: str) -> None:
     cs.phase_device()
     cs.phase_build()
     out = {"package": str(pathlib.Path(cs.P.__file__).resolve().parent)}
-    for name, scheme in (("ckks_mult_relin", cs.P.SchemeType.ckks),
-                         ("bgv_mult_relin", cs.P.SchemeType.bgv)):
-        fn = _mult_relin(cs, scheme)
+    fns = {}
+    for scheme in (cs.P.SchemeType.bfv, cs.P.SchemeType.ckks,
+                   cs.P.SchemeType.bgv):
+        mult_relin, decrypt = _mult_relin(cs, scheme)
+        fns[f"{scheme.name}_mult_relin"] = mult_relin
+        if scheme == cs.P.SchemeType.bfv:
+            fns["bfv_decrypt"] = decrypt
+    for name, fn in fns.items():
         rows = []
         for _ in range(TRACES):
             _, ms, each = cs.device_kernels_per_op(
                 fn, expect={"ntt_pass_kernel": None}, whole=True)
+            b = [v for k, v in each.items() if k in cs.B_KERNELS]
             rows.append({"device_us": ms * 1e3,
                          "a_us_per_launch": each["ntt_pass_kernel"][1],
-                         "a_launches": each["ntt_pass_kernel"][0]})
-        out[name] = {
-            "traces": rows,
-            "median_device_us": statistics.median(
-                r["device_us"] for r in rows),
-            "median_a_us_per_launch": statistics.median(
-                r["a_us_per_launch"] for r in rows)}
+                         "a_launches": each["ntt_pass_kernel"][0],
+                         "b_launches": sum(c for c, _ in b),
+                         "b_us": sum(c * us for c, us in b)})
+        out[name] = {"traces": rows, **{
+            f"median_{key}": statistics.median(r[key] for r in rows)
+            for key in ("device_us", "a_us_per_launch", "b_us")}}
     print(f"OPS {tag} {json.dumps(out)}", flush=True)
+
+
+def kernel_phase(tag: str, which: str) -> None:
+    """``redesign_b`` or ``standalone_kpp`` of chip_smoke.py on the
+    package first on sys.path."""
+    cs = _chip_smoke()
+    cs.phase_device()
+    cs.phase_build()
+    dev = cs.torch.device("cuda")
+    out = (cs.redesign_b(dev) if which == "b" else cs.standalone_kpp(
+        dev, cs.np.random.default_rng(cs.SEED + 35)))
+    out["package"] = str(pathlib.Path(cs.P.__file__).resolve().parent)
+    print(f"{which.upper()} {tag} {json.dumps(out)}", flush=True)
+
+
+def rank(log_path: str) -> None:
+    cs = _chip_smoke()
+    lines = [ln for ln in pathlib.Path(log_path).read_text().splitlines()
+             if ln.startswith("{")]
+    run = json.loads(lines[-2])
+    results = {e["name"]: e for e in run["kernels"]}
+    losses = cs.unredesigned_losses(run["kernels"], run["per_op"], results)
+    print(f"RANK {json.dumps(losses)}", flush=True)
 
 
 def _listing(path: str) -> dict:
@@ -146,6 +193,10 @@ def sass(a_path: str, b_path: str) -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "ops":
         ops(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] in ("b", "kpp"):
+        kernel_phase(sys.argv[2], sys.argv[1])
+    elif len(sys.argv) == 3 and sys.argv[1] == "rank":
+        rank(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "sass":
         sass(sys.argv[2], sys.argv[3])
     else:

@@ -75,9 +75,10 @@ _SIGNATURES = {
                                      _P, _P),
     "troy_ntt_blocks": (_L, _I, _I, _P),                # no launch: a query
     "troy_ntt_inverse_decrypt_plan": (_L, _I, _I, _I, _P),  # a query too
-    "troy_dyadic_mac": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
-    "troy_dyadic_mac_batched": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P, _P,
-                                _P, _P),
+    "troy_dyadic_mac": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _L, _L, _L, _L,
+                        _L, _I, _L, _L, _L, _L, _P, _P, _P, _P),
+    "troy_dyadic_convolve": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _L, _L, _P,
+                             _P, _P, _P),
     "troy_base_convert": (_P, _P, _L, _I, _I, _I, _P, _P),
     "troy_rns_elementwise": (_P, _L, _P, _P, _P, _L, _L, _P, _I, _L, _I, _I,
                              _P, _P, _P, _P, _P, _P),
@@ -148,7 +149,7 @@ KERNELS = {
     "troy_ntt_inverse_decrypt_bgv": "AXi_decrypt_intt",
     "troy_ntt_inverse_decrypt_bfv": "ACi_decrypt_intt",
     "troy_dyadic_mac": "B_dyadic_mac",
-    "troy_dyadic_mac_batched": "B_dyadic_mac",
+    "troy_dyadic_convolve": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",
     "troy_rns_elementwise": "D_rns_elementwise",
     "troy_behz_lift": "E_behz",

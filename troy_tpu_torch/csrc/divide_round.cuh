@@ -82,6 +82,20 @@ __device__ __forceinline__ uint64_t bgv_divide_temp(uint64_t last,
     return add_mod(delta, barrett_reduce_64(last, q, ratio), q);
 }
 
+// K'''s divide of one word in the coefficient domain (x < q) from last,
+// word i of row k, and bgv_neg_k(last): (x + 2 q - (last mod q) -
+// (neg_k mod q)(p mod q)) p^-1 mod q; the lazy sum stays below 3 q < 2^63,
+// where the Shoup product is exact.
+__device__ __forceinline__ uint64_t bgv_divide_word(
+        uint64_t x, uint64_t last, uint64_t neg_k, uint64_t q, uint64_t ratio,
+        uint64_t pm, uint64_t pm_shoup, uint64_t inv, uint64_t inv_shoup) {
+    const uint64_t delta = mul_mod_shoup(barrett_reduce_64(neg_k, q, ratio),
+                                         pm, pm_shoup, q);
+    return mul_mod_shoup(x + (2 * q - barrett_reduce_64(last, q, ratio) -
+                              delta),
+                         inv, inv_shoup, q);
+}
+
 // The finish of one word: x < q, v the lazy forward transform (< 4 q).
 __device__ __forceinline__ uint64_t divide_finish(uint64_t x, uint64_t v,
                                                   uint64_t q, uint64_t inv,

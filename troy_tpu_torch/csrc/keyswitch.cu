@@ -48,29 +48,35 @@
 //
 // What bounds it on the H100: at n = 16384 the launch and one round trip
 // to memory (under 5 MB of words, a handful of 64-bit products per word).
-// The divide (K, F's divide off A's route) is built around that round
-// trip:
+// The divides (K, F's divide off A's route, and K'') are built around
+// that round trip, one body for both (divide_body):
 //  - a 3-D grid: coefficient pairs on x, the component on y (a launch
-//    for each 65535), the data limbs in groups of kDivideGroup on z, so no
-//    thread divides by n and the accumulator row is formed once a block,
-//    in 32-bit quotients (and not at all without an accumulator);
+//    for each 65535), the data limbs in groups on z (K: kDivideGroup,
+//    K'': kBgvDivideGroup, measured: at the headline's folds of 8 and 4
+//    pairs, groups of three took 12.3 and 7.1 us a launch against 12.9
+//    and 7.4 for groups of two and 12.6 and 7.0 for the grid-stride
+//    form; groups of five 12.0 and 7.1 but 3.4 against 3.1 at one pair),
+//    so no thread divides by n and the accumulator row is formed once a
+//    block, in 32-bit quotients (and not at all without an accumulator);
 //  - two coefficients a thread through 16-byte loads and streaming stores
 //    (the output is read only by a later op), in blocks of kDivideThreads;
 //  - a thread issues the loads of its group's rows, of row k, of the
-//    accumulator's rows and of its 2 + 5 kDivideGroup constants before
-//    any product (one round trip for all; the constants are the same
-//    words across a block, so they come from L1 after the first warp, and
-//    the block needs no barrier); row k is read by every group of a
-//    component, from L2 after the first.
+//    accumulator's rows and of its constants (K: 2 + 5 a limb, K'': 4 +
+//    6 a limb) before any product (one round trip for all; the constants
+//    are the same words across a block, so they come from L1 after the
+//    first warp, and the block needs no barrier); row k is
+//    read by every group of a component, from L2 after the first, and
+//    K'' forms neg_k from it in every group.
 // A thread holding all k + 1 rows (a kernel compiled for each k, 128
 // blocks at (2, 5, 16384)), or the block's constants copied into shared
 // memory behind a barrier, were slower at the headline's level and at
 // SEAL's n = 32768 than groups of two limbs reading their own constants,
 // which give the card 3 and 8 times the blocks there, no spilled
-// registers and one kernel for every k (PERF.md). The digits and K'' keep
-// the grid-stride form: one thread per coefficient of one component, which
-// reads the special row once for all k limbs; coalesced across the warp;
-// the constants in shared memory.
+// registers and one kernel for every k (PERF.md); K'' had the grid-stride
+// form (one thread a coefficient of all k limbs, constants in shared
+// memory, 8-byte accesses) until it took K's. The digits keep it: one
+// thread per coefficient of one component, coalesced across the warp, the
+// constants in shared memory.
 
 #include "divide_round.cuh"
 
@@ -83,6 +89,7 @@ constexpr int MAX_LIMBS = 64;
 // against 64 and 256, PERF.md) and the data limbs a thread takes
 constexpr int kDivideThreads = 128;
 constexpr int kDivideGroup = 2;
+constexpr int kBgvDivideGroup = 3;       // K'''s (PERF.md)
 constexpr long long kMaxGrid = 65535;
 
 __device__ __forceinline__ ulonglong2 load16(const uint64_t *p) {
@@ -122,28 +129,24 @@ __global__ void keyswitch_digits_kernel(uint64_t *__restrict__ out,
     }
 }
 
-// The accumulator row of component comp, or -1 (the layout above).
-__device__ __forceinline__ int64_t acc_row(int64_t comp, int acc_comps,
-                                           int64_t group,
-                                           int64_t acc_groups) {
-    const int64_t g = comp / group, h = comp - g * group;
-    return h < acc_comps ? (g % acc_groups) * acc_comps + h : -1;
-}
-
-// K and F's divide (consts: q (k), cr_hi (k), floor(p/2) mod q (k), p^-1
-// mod q (k) and its Shoup words (k), then p and floor(p/2); DivideLayout).
+// K's and F's divide (kBgv false; consts: q (k), cr_hi (k), floor(p/2)
+// mod q (k), p^-1 mod q (k) and its Shoup words (k), then p and floor(p/2))
+// and K'' (kBgv true; consts: K'-BGV's 7k + 6 words, ops/keyswitch.py
+// bgv_divide_consts: those, then tt, tt's high Barrett word, p^-1 mod tt,
+// its Shoup word, p mod q (k) and its Shoup words (k)); DivideLayout.
 // Block (coefficient pairs blockIdx.x; component comp0 + blockIdx.y; data
 // limbs kDivideGroup blockIdx.z onwards). A thread reads its constants
 // itself (the same words across the block, from L1), in flight with its
-// data.
-__global__ void __launch_bounds__(kDivideThreads)
-divide_round_kernel(uint64_t *__restrict__ out,
-                    const uint64_t *__restrict__ x,
-                    const uint64_t *__restrict__ acc, int comp0,
-                    int acc_comps, int group, int acc_groups, int k,
-                    int log_n, const uint64_t *__restrict__ consts) {
+// data; K'' forms neg_k from the special row in every group (the row from
+// L2 after the first).
+template <bool kBgv, int G>
+__device__ __forceinline__ void divide_body(
+        uint64_t *__restrict__ out, const uint64_t *__restrict__ x,
+        const uint64_t *__restrict__ acc, int comp0, int acc_comps,
+        int group, int acc_groups, int k, int log_n,
+        const uint64_t *__restrict__ consts) {
     const int comp = comp0 + static_cast<int>(blockIdx.y);
-    const int j0 = static_cast<int>(blockIdx.z) * kDivideGroup;
+    const int j0 = static_cast<int>(blockIdx.z) * G;
     const int64_t i =
         2 * (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x);
     const int64_t row = int64_t(1) << log_n;
@@ -154,42 +157,61 @@ divide_round_kernel(uint64_t *__restrict__ out,
         ? accumulator_row(comp, group, acc_comps, acc_groups) : -1;
     // the group's rows, row k, the accumulator's rows and the constants,
     // all in flight before any product
-    ulonglong2 xv[kDivideGroup], av[kDivideGroup];
-    uint64_t q[kDivideGroup], ratio[kDivideGroup], half_mod[kDivideGroup],
-        inv[kDivideGroup], inv_shoup[kDivideGroup];
+    ulonglong2 xv[G], av[G];
+    uint64_t q[G], ratio[G], inv[G],
+        inv_shoup[G], e[G], e_shoup[G];
     const ulonglong2 xk = load16(src + k * row);
 #pragma unroll
-    for (int g = 0; g < kDivideGroup; ++g) {
+    for (int g = 0; g < G; ++g) {
         if (j0 + g < k) xv[g] = load16(src + (j0 + g) * row);
     }
     if (arow >= 0) {
         const uint64_t *ap = acc + static_cast<int64_t>(arow) * k * row + i;
 #pragma unroll
-        for (int g = 0; g < kDivideGroup; ++g) {
+        for (int g = 0; g < G; ++g) {
             if (j0 + g < k) av[g] = load16(ap + (j0 + g) * row);
         }
     }
-    const uint64_t p = __ldg(consts + L.p()), half = __ldg(consts + L.half());
+    // K: p and floor(p/2); K'': tt, its high Barrett word, p^-1 mod tt and
+    // its Shoup word
+    const uint64_t w0 = __ldg(consts + (kBgv ? L.tt() : L.p()));
+    const uint64_t w1 = __ldg(consts + (kBgv ? L.tt_hi() : L.half()));
+    const uint64_t w2 = kBgv ? __ldg(consts + L.inv_t()) : 0;
+    const uint64_t w3 = kBgv ? __ldg(consts + L.inv_t_shoup()) : 0;
 #pragma unroll
-    for (int g = 0; g < kDivideGroup; ++g) {
+    for (int g = 0; g < G; ++g) {
         const int j = j0 + g < k ? j0 + g : j0;
         q[g] = __ldg(consts + L.q() + j);
         ratio[g] = __ldg(consts + L.ratio() + j);
-        half_mod[g] = __ldg(consts + L.half_mod() + j);
         inv[g] = __ldg(consts + L.inv() + j);
         inv_shoup[g] = __ldg(consts + L.inv_shoup() + j);
+        // K: floor(p/2) mod q; K'': p mod q and its Shoup word
+        e[g] = __ldg(consts + (kBgv ? L.pm() : L.half_mod()) + j);
+        e_shoup[g] = kBgv ? __ldg(consts + L.pm_shoup() + j) : 0;
     }
-    const uint64_t last0 = divide_round_last(xk.x, p, half);
-    const uint64_t last1 = divide_round_last(xk.y, p, half);
+    // a coefficient's word of row k: K's last + floor(p/2) mod p, K'''s
+    // neg_k
+    const uint64_t last0 = kBgv ? bgv_neg_k(xk.x, w0, w1, w2, w3)
+                                : divide_round_last(xk.x, w0, w1);
+    const uint64_t last1 = kBgv ? bgv_neg_k(xk.y, w0, w1, w2, w3)
+                                : divide_round_last(xk.y, w0, w1);
     uint64_t *dst = out + static_cast<int64_t>(comp) * k * row + i;
 #pragma unroll
-    for (int g = 0; g < kDivideGroup; ++g) {
+    for (int g = 0; g < G; ++g) {
         const int j = j0 + g;
         if (j >= k) break;
-        uint64_t r0 = divide_round_word(xv[g].x, last0, q[g], ratio[g],
-                                        half_mod[g], inv[g], inv_shoup[g]);
-        uint64_t r1 = divide_round_word(xv[g].y, last1, q[g], ratio[g],
-                                        half_mod[g], inv[g], inv_shoup[g]);
+        uint64_t r0, r1;
+        if (kBgv) {
+            r0 = bgv_divide_word(xv[g].x, xk.x, last0, q[g], ratio[g], e[g],
+                                 e_shoup[g], inv[g], inv_shoup[g]);
+            r1 = bgv_divide_word(xv[g].y, xk.y, last1, q[g], ratio[g], e[g],
+                                 e_shoup[g], inv[g], inv_shoup[g]);
+        } else {
+            r0 = divide_round_word(xv[g].x, last0, q[g], ratio[g], e[g],
+                                   inv[g], inv_shoup[g]);
+            r1 = divide_round_word(xv[g].y, last1, q[g], ratio[g], e[g],
+                                   inv[g], inv_shoup[g]);
+        }
         if (arow >= 0) {
             r0 = add_mod(av[g].x, r0, q[g]);
             r1 = add_mod(av[g].y, r1, q[g]);
@@ -198,97 +220,54 @@ divide_round_kernel(uint64_t *__restrict__ out,
     }
 }
 
-// K''. consts: K'-BGV's 7k + 6 words (ops/keyswitch.py bgv_divide_consts):
-// q (k), cr_hi (k), two unused runs (k each), p^-1 mod q (k) and its Shoup
-// words (k), p, floor(p/2); tt, tt's high Barrett word, p^-1 mod tt, its
-// Shoup word; p mod q (k) and its Shoup words (k).
-__global__ void bgv_divide_kernel(uint64_t *__restrict__ out,
-                                  const uint64_t *__restrict__ x,
-                                  const uint64_t *__restrict__ acc,
-                                  int64_t comps, int acc_comps, int64_t group,
-                                  int64_t acc_groups, int k, int log_n,
-                                  const uint64_t *__restrict__ consts) {
-    __shared__ uint64_t c[7 * MAX_LIMBS + 6];
-    for (int j = threadIdx.x; j < 7 * k + 6; j += blockDim.x) c[j] = consts[j];
-    __syncthreads();
-    const uint64_t *q = c, *ratio = c + k;
-    const uint64_t *inv = c + 3 * k, *inv_shoup = c + 4 * k;
-    const uint64_t *e = c + 5 * k + 2;
-    const uint64_t tt = e[0], tt_hi = e[1], inv_t = e[2], inv_t_shoup = e[3];
-    const uint64_t *pm = e + 4, *pm_shoup = e + 4 + k;
+__global__ void __launch_bounds__(kDivideThreads)
+divide_round_kernel(uint64_t *__restrict__ out,
+                    const uint64_t *__restrict__ x,
+                    const uint64_t *__restrict__ acc, int comp0,
+                    int acc_comps, int group, int acc_groups, int k,
+                    int log_n, const uint64_t *__restrict__ consts) {
+    divide_body<false, kDivideGroup>(out, x, acc, comp0, acc_comps, group,
+                                     acc_groups, k, log_n, consts);
+}
 
-    const int64_t n = int64_t(1) << log_n;
-    const int64_t total = comps << log_n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-         idx < total; idx += stride) {
-        const int64_t comp = idx >> log_n;
-        const int64_t i = idx & (n - 1);
-        const uint64_t *src = x + ((comp * (k + 1)) << log_n) + i;
-        const int64_t base = ((comp * k) << log_n) + i;
-        const int64_t arow = acc_row(comp, acc_comps, group, acc_groups);
-        const uint64_t last = src[static_cast<int64_t>(k) << log_n];
-        const uint64_t neg_k = mul_mod_shoup(
-            neg_mod(barrett_reduce_64(last, tt, tt_hi), tt), inv_t,
-            inv_t_shoup, tt);
-        for (int j = 0; j < k; ++j) {
-            const int64_t at = base + (static_cast<int64_t>(j) << log_n);
-            const uint64_t delta = mul_mod_shoup(
-                barrett_reduce_64(neg_k, q[j], ratio[j]), pm[j], pm_shoup[j],
-                q[j]);
-            // below 3 q_j < 2^63: x < q_j, and both subtrahends below q_j
-            const uint64_t lazy = src[static_cast<int64_t>(j) << log_n] +
-                                  (2 * q[j] -
-                                   barrett_reduce_64(last, q[j], ratio[j]) -
-                                   delta);
-            uint64_t r = mul_mod_shoup(lazy, inv[j], inv_shoup[j], q[j]);
-            if (arow >= 0) {
-                r = add_mod(acc[((arow * k + j) << log_n) + i], r, q[j]);
-            }
-            out[at] = r;
-        }
-    }
+__global__ void __launch_bounds__(kDivideThreads)
+bgv_divide_kernel(uint64_t *__restrict__ out, const uint64_t *__restrict__ x,
+                  const uint64_t *__restrict__ acc, int comp0, int acc_comps,
+                  int group, int acc_groups, int k, int log_n,
+                  const uint64_t *__restrict__ consts) {
+    divide_body<true, kBgvDivideGroup>(out, x, acc, comp0, acc_comps, group,
+                                       acc_groups, k, log_n, consts);
 }
 
 int divide(bool bgv, void *out, const void *x, const void *acc,
            long long comps, int acc_comps, long long group,
            long long acc_groups, int k, int log_n, const void *consts,
            void *stream) {
-    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr) ||
-        group < 1 || acc_groups < 1 || acc_comps > group) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (bgv) {
-        const int threads = 256;
-        bgv_divide_kernel<<<grid_blocks(comps << log_n, threads), threads, 0,
-                            s>>>(
-            static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
-            static_cast<const uint64_t *>(acc), comps, acc_comps, group,
-            acc_groups, k, log_n, static_cast<const uint64_t *>(consts));
-        TROY_RETURN_LAUNCH_STATUS();
-    }
     // two coefficients a thread: n even, every pointer 16-byte aligned;
     // components fewer than 2^30 (the 32-bit accumulator rows), 65535 a
     // launch (the grid's y)
-    if (log_n < 1 || comps < 1 || comps >= (1LL << 30) ||
-        group >= (1LL << 30) || acc_groups >= (1LL << 30)) {
+    if (k < 1 || k > MAX_LIMBS || (acc_comps > 0 && acc == nullptr) ||
+        group < 1 || acc_groups < 1 || acc_comps > group || log_n < 1 ||
+        comps < 1 || comps >= (1LL << 30) || group >= (1LL << 30) ||
+        acc_groups >= (1LL << 30)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(x) |
          reinterpret_cast<uintptr_t>(acc)) & 15) {
         return static_cast<int>(cudaErrorMisalignedAddress);
     }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long pairs = 1LL << (log_n - 1);
+    const int group_size = bgv ? kBgvDivideGroup : kDivideGroup;
     for (long long c0 = 0; c0 < comps; c0 += kMaxGrid) {
         const long long cy = comps - c0 < kMaxGrid ? comps - c0 : kMaxGrid;
         const dim3 grid(static_cast<unsigned>((pairs + kDivideThreads - 1) /
                                               kDivideThreads),
                         static_cast<unsigned>(cy),
-                        static_cast<unsigned>((k + kDivideGroup - 1) /
-                                              kDivideGroup));
-        divide_round_kernel<<<grid, kDivideThreads, 0, s>>>(
+                        static_cast<unsigned>((k + group_size - 1) /
+                                              group_size));
+        const auto kernel = bgv ? &bgv_divide_kernel : &divide_round_kernel;
+        kernel<<<grid, kDivideThreads, 0, s>>>(
             static_cast<uint64_t *>(out), static_cast<const uint64_t *>(x),
             static_cast<const uint64_t *>(acc), static_cast<int>(c0),
             acc_comps, static_cast<int>(group), static_cast<int>(acc_groups),

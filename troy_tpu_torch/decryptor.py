@@ -3,11 +3,12 @@ reduction mod t, and the invariant noise budget.
 
 The port of troy_tpu/decryptor.py. The phase accumulates in the NTT domain
 against cached secret-key powers: every component's forward NTT is one
-kernel-A launch (none for an NTT-form CKKS or BGV ciphertext), the sum of
-products one kernel-B launch and the add of c0 one kernel-D launch. CKKS
-returns that NTT-form phase as the plaintext; BFV takes the inverse NTT
-and the t/Q rounding (kernels C and E), BGV the inverse NTT and the exact
-conversion to t with the inverse correction factor fused in (kernel X):
+kernel-A launch (none for an NTT-form CKKS or BGV ciphertext), and c0 plus
+the sum of products one kernel-B launch, which reads the level's rows of
+the cached powers in place. CKKS returns that NTT-form phase as the
+plaintext; BFV takes the inverse NTT and the t/Q rounding (kernels C and
+E), BGV the inverse NTT and the exact conversion to t with the inverse
+correction factor fused in (kernel X):
 on A's route one call, the conversion inside A's last inverse pass (ACi
 ``ntt_inverse_decrypt_scale_and_round``, AXi ``ntt_inverse_decrypt_mod_t``),
 elsewhere (tables on J, or more limbs than one block of that pass holds)
@@ -31,7 +32,6 @@ from .interop import to_numpy
 from .params import SchemeType
 from .utils import numth
 from .ops import ntt as dntt
-from .ops import poly as dpoly
 from .ops import rns as drns
 
 
@@ -42,21 +42,21 @@ def _phase_ntt_core(data: torch.Tensor, sk_powers: torch.Tensor,
     (size - 1, key_limbs, n), s^1 first."""
     t = cd.ntt
     comps = data if is_ntt_form else dntt.rns_ntt_forward(data, t)
-    powers = sk_powers[:, :cd.limbs].contiguous()
-    return dpoly.rns_add(comps[0], dntt.dyadic_mac(comps[1:], powers, t), t)
+    return dntt.dyadic_mac(comps[1:], sk_powers[:, :cd.limbs], t,
+                           addend=comps[0])
 
 
 def _phase_ntt_many(data: torch.Tensor, sk_powers: torch.Tensor,
                     cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
     """The NTT-form phases of a batch (B, size, k, n) -> (B, k, n)
     (troy_tpu/decryptor.py:71): one A launch over every component (none in
-    NTT form), one B launch for c1 s + c2 s^2 + ... of every ciphertext
-    (the powers read once for the batch) and one D add of the c0s."""
+    NTT form) and one B launch for c0 + c1 s + c2 s^2 + ... of every
+    ciphertext (the powers' level rows read in place)."""
     t = cd.ntt
     comps = data if is_ntt_form else dntt.rns_ntt_forward(data, t)
     powers = sk_powers[:, :cd.limbs].unsqueeze(1)       # (size - 1, 1, k, n)
-    prods = dntt.dyadic_mac_batched(powers, comps[:, 1:], t)[:, 0]
-    return dpoly.rns_add(comps[:, 0], prods, t)
+    return dntt.dyadic_mac_batched(powers, comps[:, 1:], t,
+                                   addend=comps[:, :1])[:, 0]
 
 
 def _phase_core(data: torch.Tensor, sk_powers: torch.Tensor,
@@ -101,6 +101,8 @@ class Decryptor:
         self._sk = secret_key
         # NTT-form powers of s over the key base, s^1 first
         self._sk_powers: Dict[int, torch.Tensor] = {1: secret_key.data}
+        # s^1 .. s^(size - 1) stacked, for each ciphertext size decrypted
+        self._stacked: Dict[int, torch.Tensor] = {}
 
     def _sk_power(self, p: int) -> torch.Tensor:
         if p not in self._sk_powers:
@@ -110,7 +112,12 @@ class Decryptor:
         return self._sk_powers[p]
 
     def _powers(self, ct: Ciphertext) -> torch.Tensor:
-        return torch.stack([self._sk_power(p) for p in range(1, ct.size)])
+        """(size - 1, key_limbs, n), made once for each size: kernel B
+        reads a level's rows of it in place, so a decrypt copies nothing."""
+        if ct.size not in self._stacked:
+            self._stacked[ct.size] = torch.stack(
+                [self._sk_power(p) for p in range(1, ct.size)])
+        return self._stacked[ct.size]
 
     def decrypt(self, ct: Ciphertext) -> Plaintext:
         cd = self.context.get_context_data(ct.level)

@@ -210,10 +210,10 @@ def accumulator_layout(acc: Optional[torch.Tensor], s: int, k: int, n: int,
     return acc.contiguous(), acc.shape[1], group, acc.shape[0]
 
 
-def _aligned(x: torch.Tensor, bgv: bool) -> torch.Tensor:
-    """x, or a copy of it where K's and F's divide would read it off the
-    16-byte alignment of their loads (a view at an odd word offset)."""
-    return x.clone() if not bgv and x.data_ptr() & 15 else x
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where the divides (K, F's, K'') would read it off
+    the 16-byte alignment of their loads (a view at an odd word offset)."""
+    return x.clone() if x.data_ptr() & 15 else x
 
 
 def _divide(entry: str, x: torch.Tensor, consts: torch.Tensor,
@@ -234,14 +234,14 @@ def _divide(entry: str, x: torch.Tensor, consts: torch.Tensor,
         return plain(x, consts, acc, group)
     if k > MAX_KERNEL_LIMBS or n & (n - 1):
         raise ValueError(f"{entry}: k = {k}, n = {n} not supported")
-    if not bgv and n < 2:
-        # K and F's divide move two words a thread, 16 bytes at a time
+    if n < 2:
+        # the divides move two words a thread, 16 bytes at a time
         raise ValueError(f"{entry}: n = {n}: the kernel takes n >= 2")
-    x = _aligned(x.contiguous(), bgv)
+    x = _aligned(x.contiguous())
     _kernels.check_operand(x, f"{entry} input")
     acc, a, group, groups = accumulator_layout(acc, s, k, n, group, entry)
     if acc is not None:
-        acc = _aligned(acc, bgv)
+        acc = _aligned(acc)
         _kernels.check_operand(acc, f"{entry} accumulator")
     out = torch.empty((s, k, n), dtype=torch.int64, device=x.device)
     _kernels.launch(entry, out.get_device(), out, x, acc, s, a, group, groups,

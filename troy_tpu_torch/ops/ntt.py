@@ -32,6 +32,7 @@ caller reduces afterwards, so end results are the same words.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -284,17 +285,45 @@ def ntt_inverse_plain(x: torch.Tensor, t: RnsNttTables,
     return v
 
 
-def dyadic_mac_plain(a: torch.Tensor, b: torch.Tensor,
-                     t: RnsNttTables) -> torch.Tensor:
-    """sum_j a[j] * b[j] mod q per limb, 128-bit sum then Barrett-128.
-    a: (J, ..., k, n) broadcasting against b: (J, ..., k, n)."""
+def key_rows_plain(b: torch.Tensor, k: int) -> torch.Tensor:
+    """The k rows of b (..., kb, n) that kernel B reads: all of them where
+    kb = k, else the first k - 1 and the last (a switching key's rows at a
+    level below the first: the level's primes, then the special prime)."""
+    if b.shape[-2] == k:
+        return b
+    return torch.cat([b[..., :k - 1, :], b[..., -1:, :]], dim=-2)
+
+
+def dyadic_mac_plain(a: torch.Tensor, b: torch.Tensor, t: RnsNttTables,
+                     addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(addend + sum_j a[j] * b[j]) mod q per limb, 128-bit sum then
+    Barrett-128. a: (J, ..., k, n) broadcasting against b: (J, ..., k, n);
+    addend (words below 2^63) broadcasting against the result."""
     lo = hi = None
     for j in range(a.shape[0]):
         plo, phi = u.mul128(a[j], b[j])
         lo, hi = (plo, phi) if lo is None else u.add_u128(lo, hi, plo, phi)
+    if addend is not None:
+        lo, hi = u.add_u128(lo, hi, addend, torch.zeros_like(addend))
     L = lo.dim() - 2
     return u.barrett_reduce_128(lo, hi, _col(t.q, L, 1), _col(t.cr_lo, L, 1),
                                 _col(t.cr_hi, L, 1))
+
+
+def dyadic_convolve_plain(a: torch.Tensor, b: torch.Tensor,
+                          t: RnsNttTables) -> torch.Tensor:
+    """The ciphertext-degree convolution out[..., m] = sum_{i + i' = m}
+    a[..., i] * b[..., i'] mod q per limb: a (..., s1, k, n), b (..., s2, k,
+    n) -> (..., s1 + s2 - 1, k, n), each output component's terms summed
+    in 128 bits (``dyadic_mac_plain``)."""
+    s1, s2 = a.shape[-3], b.shape[-3]
+    a, b = a.movedim(-3, 0), b.movedim(-3, 0)        # components first
+    outs = []
+    for m in range(s1 + s2 - 1):
+        lo, hi = max(0, m - s2 + 1), min(s1, m + 1)      # i in [lo, hi)
+        outs.append(dyadic_mac_plain(a[lo:hi], b[m - hi + 1:m - lo + 1]
+                                     .flip(0), t))
+    return torch.stack(outs, dim=-3)
 
 
 # --------------------------------------------------------------------------
@@ -551,71 +580,201 @@ def ntt_inverse_limb(x: torch.Tensor, t: RnsNttTables, i: int,
     return ntt_inverse(x, t.limb(i), lazy)
 
 
-def dyadic_mac(a: torch.Tensor, b: torch.Tensor, t: RnsNttTables,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out = sum_j a[j] * b[j] mod q per limb (kernel B).
+# the terms one sum of kernel B takes (reduced words; lazy words: four)
+MAC_MAX_TERMS = 64
 
-    a: (J, Ra, n) and b: (J, ..., Ra, n), whose rows are (..., k, n)
-    stacks; a broadcasts over b's extra leading axes (the two key
-    components of the key switch share one decomposed target). The sum must
-    fit 128 bits: any words for one term, lazy words below 4q (< 2^63) for
-    up to four, reduced words for up to 64. Output (..., Ra, n), fully
-    reduced; into ``out`` (contiguous, overlapping no input) if given."""
-    if a.shape[0] != b.shape[0] or a.shape[0] < 1 or a.shape[0] > 64:
-        raise ValueError(f"dyadic_mac: terms {a.shape[0]} vs {b.shape[0]}")
-    if a.shape[1:] != b.shape[b.dim() - a.dim() + 1:]:
-        raise ValueError(f"dyadic_mac: {tuple(a.shape)} does not broadcast "
-                         f"over {tuple(b.shape)}")
-    _check_rows(a, t, "dyadic_mac a")
-    if not _kernels.on_cuda(a, b, t.q):
-        extra = b.dim() - a.dim()
-        a_b = a.reshape(a.shape[:1] + (1,) * extra + a.shape[1:])
-        res = dyadic_mac_plain(a_b, b, t)
-        return res if out is None else out.copy_(res)
-    a = a.contiguous()
-    b = b.contiguous()
-    _kernels.check_operand(a, "dyadic_mac a")
-    _kernels.check_operand(b, "dyadic_mac b")
-    terms = a.shape[0]
-    ra = a[0].numel() // t.n
-    rb = b[0].numel() // t.n
-    if out is None:
-        out = torch.empty(b.shape[1:], dtype=torch.int64, device=b.device)
-    elif out.shape != b.shape[1:]:
-        raise ValueError(f"dyadic_mac: out {tuple(out.shape)}")
-    _kernels.check_operand(out, "dyadic_mac out")
-    _kernels.launch("troy_dyadic_mac", out.get_device(), out, a, b, terms, ra,
-                    rb, t.log_n, t.k, t.q, t.cr_lo, t.cr_hi)
+
+def _run_pitch(x: torch.Tensor, lo: int, hi: int) -> Optional[int]:
+    """The pitch in words of axes lo .. hi - 1 of x read as one axis (0
+    where they hold one element), or None where their strides do not
+    allow it."""
+    count, pitch = 1, 0
+    for d in range(hi - 1, lo - 1, -1):
+        if x.shape[d] == 1:
+            continue
+        if count == 1:
+            pitch = x.stride(d)
+        elif x.stride(d) != pitch * count:
+            return None
+        count *= x.shape[d]
+    return pitch
+
+
+def _in_place(x: torch.Tensor, runs, n: int, name: str):
+    """(x, the pitch of each run of axes (lo, hi), 0 for a run None) as
+    kernel B reads an operand: rows of n contiguous words, each run one
+    axis of even pitch, the address 16-byte aligned. x itself where its
+    strides allow that (a level's slice of a key), else a contiguous
+    copy."""
+    def pitches_of(x):
+        return [0 if r is None else _run_pitch(x, *r) for r in runs]
+
+    pitches = pitches_of(x)
+    if not (x.stride(-1) == 1 and (x.shape[-2] == 1 or x.stride(-2) == n)
+            and x.data_ptr() & 15 == 0
+            and all(p is not None and p % 2 == 0 for p in pitches)):
+        x = x.contiguous()
+        x = x.clone() if x.data_ptr() & 15 else x
+        pitches = pitches_of(x)
+    if x.dtype != torch.int64:
+        raise TypeError(f"{name}: expected int64 u64 words, got {x.dtype}")
+    return x, pitches
+
+
+def _launch_mac(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                addend: Optional[torch.Tensor], t: RnsNttTables, terms: int,
+                comps: int, groups: int, a_runs, b_runs, add_runs,
+                o_pitches: Tuple[int, int], name: str) -> torch.Tensor:
+    """One kernel-B mac launch. runs (``_in_place``): a's (term, group)
+    axes, b's (term, component, group) axes (group None: every group reads
+    the same key), the addend's (component, group) axes."""
+    if t.n < 2:
+        raise ValueError(f"{name}: n = {t.n}: the kernel takes n >= 2")
+    a, (a_term, a_group) = _in_place(a, a_runs, t.n, f"{name} a")
+    b, (b_term, b_comp, b_group) = _in_place(b, b_runs, t.n, f"{name} b")
+    add_comp = add_group = 0
+    if addend is not None:
+        addend, (add_comp, add_group) = _in_place(addend, add_runs, t.n,
+                                                  f"{name} addend")
+    _kernels.check_operand(out, f"{name} out")
+    _kernels.launch("troy_dyadic_mac", out.get_device(), out, a, b, addend,
+                    terms, comps, groups, t.k, t.log_n, a_term, a_group,
+                    b_term, b_comp, b_group, b.shape[-2] - 1, add_comp,
+                    add_group, o_pitches[0], o_pitches[1], t.q, t.cr_lo,
+                    t.cr_hi)
     return out
 
 
+def dyadic_mac(a: torch.Tensor, b: torch.Tensor, t: RnsNttTables,
+               out: Optional[torch.Tensor] = None,
+               addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out = (addend + sum_j a[j] * b[j]) mod q per limb (kernel B, one
+    launch).
+
+    a: (J, ..., k, n) and b: (J, C..., ..., kb, n), whose rows are
+    (..., k, n) stacks; a broadcasts over b's extra leading axes C (the two
+    key components of the key switch share one decomposed target). kb is
+    k, or more: then the rows read are b's first k - 1 and its last (a
+    switching key's rows at a level below the first: the level's primes,
+    then the special prime). The sum must fit 128 bits: any words for one
+    term, lazy words below 4q (< 2^63) for up to four, reduced words for
+    up to 64. The addend (the output's shape, words below 2^63; the
+    decrypt's c0) joins the sum, so the result is the canonical residue of
+    addend + sum, the words of a modular add after it for an addend below
+    q. Output (C..., ..., k, n), fully reduced; into ``out`` (contiguous,
+    overlapping no input) if given. Each operand is read through its
+    strides where its rows are contiguous (a key's level slice), else from
+    a contiguous copy."""
+    if a.shape[0] != b.shape[0] or a.shape[0] < 1 \
+            or a.shape[0] > MAC_MAX_TERMS:
+        raise ValueError(f"dyadic_mac: terms {a.shape[0]} vs {b.shape[0]}")
+    _check_rows(a, t, "dyadic_mac a")
+    extra = b.dim() - a.dim()
+    if extra < 0 or a.shape[1:-2] != b.shape[extra + 1:-2] \
+            or b.shape[-1] != t.n or b.shape[-2] < t.k:
+        raise ValueError(f"dyadic_mac: {tuple(a.shape)} does not broadcast "
+                         f"over {tuple(b.shape)}")
+    shape = b.shape[1:-2] + (t.k, t.n)
+    if addend is not None and addend.shape != shape:
+        raise ValueError(f"dyadic_mac: addend {tuple(addend.shape)}, "
+                         f"expected {tuple(shape)}")
+    if out is not None and out.shape != shape:
+        raise ValueError(f"dyadic_mac: out {tuple(out.shape)}")
+    if not _kernels.on_cuda(a, b, t.q,
+                            *([] if addend is None else [addend])):
+        a_b = a.reshape(a.shape[:1] + (1,) * extra + a.shape[1:])
+        res = dyadic_mac_plain(a_b, key_rows_plain(b, t.k), t, addend)
+        return res if out is None else out.copy_(res)
+    d = a.dim()
+    comps = math.prod(b.shape[1:extra + 1])
+    groups = math.prod(a.shape[1:-2])
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int64, device=b.device)
+    return _launch_mac(out, a, b, addend, t, a.shape[0], comps, groups,
+                       [(0, 1), (1, d - 2)],
+                       [(0, 1), (1, extra + 1), (extra + 1, b.dim() - 2)],
+                       [(0, extra), (extra, addend.dim() - 2)]
+                       if addend is not None else None,
+                       (groups * t.k * t.n, t.k * t.n), "dyadic_mac")
+
+
 def dyadic_mac_batched(key: torch.Tensor, targets: torch.Tensor,
-                       t: RnsNttTables) -> torch.Tensor:
+                       t: RnsNttTables,
+                       addend: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """The key switch's inner product of m targets under one key (kernel
-    B, one launch): out[i, c] = sum_j targets[i, j] * key[j, c] mod q per
-    limb. key: (J, C, k, n), targets: (m, J, k, n), both below 4q with
-    J <= 4, or reduced; out (m, C, k, n), fully reduced. The key is read
-    once for the whole batch and each target once per component."""
+    B, one launch): out[i, c] = (addend[i, c] + sum_j targets[i, j] *
+    key[j, c]) mod q per limb. key: (J, C, kb, n) with kb = k or more (the
+    rows read as ``dyadic_mac`` reads b's), targets: (m, J, k, n), both
+    below 4q with J <= 4, or reduced; addend (m, C, k, n) or None (the
+    c0s of ``decrypt_many``'s phases); out (m, C, k, n), fully reduced.
+    The key is read once for every two components of a target; operands
+    through their strides as ``dyadic_mac`` reads them."""
     if key.dim() != 4 or targets.dim() != 4 \
             or key.shape[0] != targets.shape[1] \
-            or key.shape[2:] != targets.shape[2:]:
+            or targets.shape[1] > MAC_MAX_TERMS \
+            or key.shape[2] < targets.shape[2] \
+            or key.shape[3] != targets.shape[3]:
         raise ValueError(f"dyadic_mac_batched: key {tuple(key.shape)} and "
                          f"targets {tuple(targets.shape)} do not fit")
-    _check_rows(key, t, "dyadic_mac_batched key")
     _check_rows(targets, t, "dyadic_mac_batched targets")
-    if not _kernels.on_cuda(key, targets, t.q):
+    m, comps = targets.shape[0], key.shape[1]
+    shape = (m, comps, t.k, t.n)
+    if addend is not None and addend.shape != shape:
+        raise ValueError(f"dyadic_mac_batched: addend "
+                         f"{tuple(addend.shape)}, expected {shape}")
+    if not _kernels.on_cuda(key, targets, t.q,
+                            *([] if addend is None else [addend])):
         return dyadic_mac_plain(targets.transpose(0, 1).unsqueeze(2),
-                                key.unsqueeze(1), t)
-    key, targets = key.contiguous(), targets.contiguous()
-    _kernels.check_operand(key, "dyadic_mac_batched key")
-    _kernels.check_operand(targets, "dyadic_mac_batched targets")
-    m, terms = targets.shape[:2]
-    comps = key.shape[1]
-    out = torch.empty((m, comps, t.k, t.n), dtype=torch.int64,
-                      device=key.device)
-    _kernels.launch("troy_dyadic_mac_batched", out.get_device(), out, key,
-                    targets, terms, comps * t.k, m * comps * t.k, t.k, t.log_n,
-                    t.k, t.q, t.cr_lo, t.cr_hi)
+                                key_rows_plain(key, t.k).unsqueeze(1), t,
+                                addend)
+    out = torch.empty(shape, dtype=torch.int64, device=key.device)
+    return _launch_mac(out, targets, key, addend, t, key.shape[0], comps, m,
+                       [(1, 2), (0, 1)], [(0, 1), (1, 2), None],
+                       [(1, 2), (0, 1)], (t.k * t.n, comps * t.k * t.n),
+                       "dyadic_mac_batched")
+
+
+def dyadic_convolve(a: torch.Tensor, b: torch.Tensor,
+                    t: RnsNttTables) -> torch.Tensor:
+    """The ciphertext-degree convolution of NTT-domain components (kernel
+    B, one launch for every output component): out[..., m] = sum_{i + i'
+    = m} a[..., i] * b[..., i'] mod q per limb. a (..., s1, k, n) and b
+    (..., s2, k, n) with the same leading (batch) axes; b may be a (a
+    square: its words read once). The sums fit 128 bits for lazy words
+    below 4q where min(s1, s2) <= 4, for reduced words up to 64. Out
+    (..., s1 + s2 - 1, k, n), fully reduced."""
+    _check_rows(a, t, "dyadic_convolve a")
+    _check_rows(b, t, "dyadic_convolve b")
+    if a.dim() < 3 or b.dim() != a.dim() or a.shape[:-3] != b.shape[:-3] \
+            or min(a.shape[-3], b.shape[-3]) > MAC_MAX_TERMS:
+        raise ValueError(f"dyadic_convolve: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} do not fit")
+    if not _kernels.on_cuda(a, b, t.q):
+        return dyadic_convolve_plain(a, b, t)
+    if t.n < 2:
+        raise ValueError(f"dyadic_convolve: n = {t.n}: the kernel takes "
+                         "n >= 2")
+    s1, s2, d = a.shape[-3], b.shape[-3], a.dim()
+    square = (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+              and a.stride() == b.stride())
+    row = t.k * t.n                         # a component's pitch
+
+    def operand(x, name):
+        x, (batch, comp) = _in_place(x, [(0, d - 3), (d - 3, d - 2)], t.n,
+                                     name)
+        if comp not in (0, row):
+            x = x.contiguous()
+            batch = _run_pitch(x, 0, d - 3)
+        return x, batch
+
+    a, a_batch = operand(a, "dyadic_convolve a")
+    b, b_batch = (a, a_batch) if square else operand(b, "dyadic_convolve b")
+    out = torch.empty(a.shape[:-3] + (s1 + s2 - 1, t.k, t.n),
+                      dtype=torch.int64, device=a.device)
+    _kernels.launch("troy_dyadic_convolve", out.get_device(), out, a, b,
+                    int(square), math.prod(a.shape[:-3]), s1, s2, t.k,
+                    t.log_n, a_batch, b_batch, t.q, t.cr_lo, t.cr_hi)
     return out
 
 
