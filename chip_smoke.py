@@ -34,8 +34,11 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    inverse pass (A's route decrypts with it), K mod-switch divide-round
    (also at k = 1, odd component counts, 16 and 17 limbs and the rounding's
    turning words, and F's divide on K's kernel in every accumulator layout
-   of its J route), G plain
-   embedding, M Galois
+   of its J route), G the plain embedding on D's grid (m (n) onto c0
+   (5, n), a batch of 8, add_plain's and sub_plain's new ciphertext with
+   c1 copied), DG D's zero-encryption finish with it (BFV's: symmetric
+   into c0, a batch of 8 into c0 with c1 copied, public key), both also on
+   the edge words (m at 0, t - 1, (t - 1)/2, (t + 1)/2), M Galois
    gather on its packed tables, signed and unsigned, and M as the batch
    encoder's slot gather; D's fused forms, the zero encryptions' finishes
    in place and into a batch with c1 copied, the switching-key rows and
@@ -138,7 +141,7 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    and 5 limbs, one seed and device arrays of 8 and of 5 seeds), word for
    word, with the times and bounds of phase 3;
 16. the default encryption path of each scheme at n = 16384, in a count
-   window of its own that must launch I, A, B, D, G and G' and run no
+   window of its own that must launch I, A, B, D, DG and AGp and run no
    plain torch on the card: keygen, the public key with its seed, encrypt,
    encrypt_symmetric, save_seed and expand_seed, encrypt_symmetric_many(8),
    and an external secret key's public key, relin key and key-switching
@@ -147,9 +150,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    ciphertext decrypting to its slots, the public key's seed regenerating
    its c1, the device keys relinearizing and switching right
    (apply_keyswitching); the medians and the profile of each op; each
-   encryption, public key and device key launching I and D once a call
-   (counters) and no device kernel but the port's (no stack, cat or copy;
-   profiler), no single CBD or ternary draw in the window;
+   encryption, public key and device key launching I and its finish once
+   a call (D; for a BFV encryption DG, and no G) (counters) and no device
+   kernel but the port's (no stack, cat or copy; profiler), no single CBD
+   or ternary draw in the window;
 17. kernel N1 (the negacyclic shift by one amount and by one per row, the
    LWE extract of 256 terms, the assemble times n^-1), N2 (the pack-tree
    prepare), kernel M's batched gathers (16 tables, signed and unsigned;
@@ -223,11 +227,12 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the plain version's plane products alone (the library yardstick, never
    used by the port) and A's time;
 24. troy's timetest BFV mult+relin and CKKS mult+relin+rescale at
-   n = 16384 with use_mxu=True, a BFV multiply_plain and a CKKS encode and
-   encode_polynomial, word-equal to the A route on the same ciphertexts,
-   keys and values, in a count window that must launch J (for CKKS K''s
-   own temps and finish and O2, for BFV F and G') and not A, AKp, AGp or
-   AO2p; both routes timed, alternately;
+   n = 16384 with use_mxu=True, a BFV multiply_plain and a CKKS encode,
+   encode_polynomial and encode_with_stats, word-equal to the A route on
+   the same ciphertexts, keys and values (the statistic bit-equal), in a
+   count window that must launch J (for CKKS K''s own temps and finish, O2
+   and O4, for BFV F and G') and not A, AKp, AGp, AO2p or AO4p; both
+   routes timed, alternately;
 25. SEAL's 128-bit n = 32768 BFV chain at full width (bfv_default(32768):
    16 primes, 881 bits; t = PlainModulus.batching(32768, 20)), every NTT
    on the default route (A): native host keygen (secret, public, relin,
@@ -254,7 +259,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    {60,40,40,40,40,60}, scales 2^40 and 2^55) and n = 32768 (the 16-prime
    chain, 2^40), at the first data level: O4 (the encode statistic, max
    |rint(c s)|) writes O2's words and a statistic bit-equal to the plain
-   version's; O5 (the decode residual, max(|Re V[j] - Re V[n-1-j]|, |Im
+   version's; AO4p (O4's statistic in A's forward passes, AO2p's rounding:
+   the encode_with_stats of A's route) writes AO2p's words and O4's
+   statistic, bit for bit, and its plain version's; O5 (the decode
+   residual, max(|Re V[j] - Re V[n-1-j]|, |Im
    V[j] + Im V[n-1-j]|)) writes O1's slots bit for bit, both residuals in
    [0, 1e-8] and the kernel's within 2^-44 max|v| of the plain version's;
    with phase 3's times, device us a launch and bound, and torch.fft.fft's
@@ -269,8 +277,10 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    (8192, (60,40,40,60), 2^40), every result decrypted and checked; a
    borderline CKKS encode at scale 2^45 (one slot at 4Q/scale: accepted by
    the exact check on O4's statistic) and one too large (raises); and
-   decode_max_error (O5) of a fresh product; the window must launch O1-O5,
-   A-G, G', I, K, K', K'-BGV, M and X, with no plain torch on the card;
+   decode_max_error (O5) of a fresh product; the window must launch
+   BINDER_PATH's kernels (O1, AO2p, O3, AO4p for the encode statistic,
+   O5, A, G for BFV's add_plain, DG for its encryptions, ...), with no
+   plain torch on the card;
    the shim ops' device kernels and time from the profiler;
 31. troy's raw-struct wire (refwire.py) at n = 16384 (BFV): the bytes of
    seeded keys, a public-key ciphertext, a seed-compressed one (saved
@@ -299,8 +309,8 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    the card in any rank, and every kernel of the sharded path launched in
    the window of every rank of every run. These numbers are ranks sharing
    one H100 over gloo's host staging, not multi-card scaling;
-35. kernels A, M, J, E, O1, O5, P1, F, K', D, I, O3, X, C, G' and P2 as
-   redesigned
+35. kernels A, M, J, E, O1, O5, P1, F, K', D, I, O3, X, C, G', P2, O2,
+   K, B, K'', G (and DG) and O4 (AO4p) as redesigned
    for the H100: A against its plain version, word for word, at n = 256
    to 16384 (one pass below 1024, two from it up) and a row mod t, three
    rows mod t, (5, 6, n) and (4, 11, n), forward and inverse, lazy and not; A's device us a call and a
@@ -369,8 +379,14 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    kernel at (2,5,n), (2,2,n), SEAL's (2,15,32768) and (2,3,262144),
    word-equal to its plain version, its device us a call and a launch
    beside the bound (standalone_k, on the wrappers the earlier trees have
-   too); B at every shape of the three schemes' mult+relin, the BFV and
-   BGV decrypt and decrypt_many, the BFV encrypts, BGV's multiply_plain and
+   too); DG's symmetric finish at (5,n), into a batch of MANY and its
+   public-key finish, word-equal to D's finish then G, the two timed in
+   turns, and G on D's grid at (n) onto (5,n), a batch of MANY and
+   add_plain's ciphertext, in turns with D's add (redesign_embed); AO4p at
+   the headline's (n) -> (5,n), word-equal (the statistic bit for bit) to
+   O4 then A's forward, timed in turns with it and with AO2p
+   (redesign_ao4p); B at every shape of the three schemes' mult+relin, the
+   BFV and BGV decrypt and decrypt_many, the BFV encrypts, BGV's multiply_plain and
    a BGV LWE pack of 16, on contexts of its own, each call's device us a
    launch beside its words' bound, and B's launches and device us in each
    op (redesign_b, written on the wrappers and ops the earlier trees have
@@ -392,8 +408,8 @@ app protocol of phase 21, the J route of phase 24, phases 25, 26 and
 27, the binder window of phase 30 and the sharded window of phase 34
 (summed over its ranks and runs), each counted from 0, also given
 apart; J's numbers are those of its n = 16384 shape, every shape under
-"J_shapes" and its per-shard stages under "J_shard_shapes"; O4's and
-O5's those of n = 16384 at 2^40, every shape under "stats_shapes"; R1's
+"J_shapes" and its per-shard stages under "J_shard_shapes"; O4's, AO4p's
+and O5's those of n = 16384 at 2^40, every shape under "stats_shapes"; R1's
 those of its (4, 1, 2, 6, n) shape; phase 34's regimes under "sharded";
 phase 35's under "redesign", A's share of mult+relin under
 "mult_relin_a", and the kernels of RANKED (those not yet redesigned, and
@@ -654,7 +670,9 @@ KERNELS = {
                     "troy_tpu/evaluator.py:179"),
     "K_divide_round": ("troy_tpu_torch/csrc/keyswitch.cu",
                        "troy_tpu/ops/rns.py:194"),
-    "G_plain_embed": ("troy_tpu_torch/csrc/plain_embed.cu",
+    "G_plain_embed": ("troy_tpu_torch/csrc/rns_elementwise.cu",
+                      "troy_tpu/ops/poly.py:98"),
+    "DG_zero_embed": ("troy_tpu_torch/csrc/rns_elementwise.cu",
                       "troy_tpu/ops/poly.py:98"),
     "M_galois": ("troy_tpu_torch/csrc/galois.cu",
                  "troy_tpu/evaluator.py:785"),
@@ -692,6 +710,8 @@ KERNELS = {
                   "troy_tpu/ops/ntt_mxu.py:263"),
     "O4_ckks_encode_stats": ("troy_tpu_torch/csrc/embedding.cu",
                              "troy_tpu/ops/embedding.py:611"),
+    "AO4p_ntt_round_stats": ("troy_tpu_torch/csrc/ntt.cu",
+                             "troy_tpu/ops/embedding.py:611"),
     "O5_ckks_decode_stats": ("troy_tpu_torch/csrc/embedding.cu",
                              "troy_tpu/ops/embedding.py:637"),
     "R1_shard_modsum": ("troy_tpu_torch/csrc/sharding.cu",
@@ -703,16 +723,20 @@ KERNELS = {
 # conversions in A's last inverse pass (ACi: C and E's rounding; AXi: X),
 # the plain lift in A's first forward pass (AGp: G'), the CKKS encodes'
 # rounding in A's first forward pass (AO2p: O2) and BFV's pair
-# convolution in A's first inverse pass (AP2i: P2); F's and K''s own
+# convolution in A's first inverse pass (AP2i: P2), and the encode's
+# statistic too (AO4p: O4); BFV's zero-encryption finish with its plain
+# embedding on D's grid (DG: D's finish and G), G for add_plain and the
+# host-sampled encrypt; F's and K''s own
 # kernels (F, Kp) only on J's route (phase 24, n = 262144 in phase 27, the
 # coefficient-sharded key switch of phase 34), C's and X's with E's
 # rounding there too (n = 262144 in phase 27), G' there too (phase 24's
-# multiply_plain), O2 there too (phase 24's CKKS encodes) and as O4's
-# borderline encode (the binder); P2's own kernel for the CKKS and BGV
+# multiply_plain), O2 there too (phase 24's CKKS encodes), O4 there too
+# (phase 24's encode_with_stats); P2's own kernel for the CKKS and BGV
 # pair grids (the app's BGV ct x ct matmul)
 BFV_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "B_dyadic_mac",
             "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
-            "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
+            "K_divide_round", "G_plain_embed", "DG_zero_embed", "M_galois",
+            "I_sampling")
 CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
              "M_galois", "O1_ckks_fft", "AO2p_ntt_round", "O3_ckks_compose",
              "AKp_rescale_ntt", "AKp_keyswitch_ntt", "I_sampling")
@@ -723,7 +747,7 @@ PLAIN_OPS_PATH = ("A_ntt", "B_dyadic_mac", "D_rns_elementwise",
                   "G_plain_embed", "AGp_ntt_lift", "AKp_rescale_ntt",
                   "ACi_decrypt_intt")
 DEFAULT_PATH = ("I_sampling", "A_ntt", "B_dyadic_mac", "D_rns_elementwise",
-                "G_plain_embed", "AGp_ntt_lift")
+                "DG_zero_embed", "AGp_ntt_lift")
 LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
             "A_ntt", "AF_ntt_digits", "B_dyadic_mac", "D_rns_elementwise",
             "AFi_keyswitch_intt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
@@ -731,13 +755,15 @@ LWE_PATH = ("N1_negacyclic", "N2_pack_prepare", "Kpp_bgv_coeff", "M_galois",
 APP_PATH = ("P1_tile_contract", "P2_pair_convolve", "P3_group_fold", "A_ntt",
             "AF_ntt_digits", "B_dyadic_mac", "ACi_decrypt_intt",
             "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
-            "AGp_ntt_lift", "AP2i_pair_intt", "AKp_bgv_ntt", "I_sampling", "M_galois", "N1_negacyclic",
+            "AGp_ntt_lift", "AP2i_pair_intt", "AKp_bgv_ntt", "I_sampling",
+            "DG_zero_embed", "M_galois", "N1_negacyclic",
             "Kpp_bgv_coeff",
             "AXi_decrypt_intt", "AO2p_ntt_round", "O3_ckks_compose")
+# BFV alone (its encryptions finish on DG: no D launch there)
 LARGE_BFV_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
-                  "ACi_decrypt_intt", "D_rns_elementwise", "E_behz",
+                  "ACi_decrypt_intt", "E_behz",
                   "AFi_keyswitch_intt",
-                  "K_divide_round", "G_plain_embed", "M_galois", "I_sampling")
+                  "K_divide_round", "DG_zero_embed", "M_galois", "I_sampling")
 LARGE_CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
                    "D_rns_elementwise", "M_galois", "O1_ckks_fft",
                    "AO2p_ntt_round", "O3_ckks_compose", "AKp_rescale_ntt",
@@ -746,13 +772,13 @@ LARGE_CKKS_PATH = ("A_ntt", "AF_ntt_digits", "B_dyadic_mac",
 # and E's rounding)
 CEILING_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt", "J_ntt_mxu",
                 "ACi_decrypt_intt",
-                "B_dyadic_mac", "C_base_convert", "D_rns_elementwise",
-                "E_behz", "F_keyswitch", "G_plain_embed", "I_sampling")
+                "B_dyadic_mac", "C_base_convert", "E_behz", "F_keyswitch",
+                "DG_zero_embed", "I_sampling")
 BINDER_PATH = ("O1_ckks_fft", "AO2p_ntt_round", "O3_ckks_compose",
-               "O4_ckks_encode_stats", "O5_ckks_decode_stats", "A_ntt",
+               "AO4p_ntt_round_stats", "O5_ckks_decode_stats", "A_ntt",
                "AF_ntt_digits", "B_dyadic_mac", "ACi_decrypt_intt",
                "D_rns_elementwise", "E_behz", "AFi_keyswitch_intt",
-               "G_plain_embed",
+               "G_plain_embed", "DG_zero_embed",
                "AGp_ntt_lift", "I_sampling", "K_divide_round",
                "AKp_rescale_ntt", "AKp_keyswitch_ntt", "AKp_bgv_ntt",
                "M_galois",
@@ -768,11 +794,11 @@ SHARDED_PATH = ("R1_shard_modsum", "A_ntt", "AF_ntt_digits",
 # the entry points a window on A's route must not launch: F's separate
 # digits (their work is in AF), F's divide (in AFi), K''s temps and
 # finish (in AKp), the decrypt's X, C and E's rounding (in AXi, ACi),
-# G''s lift (in AGp) and O2's rounding (in AO2p; O4 keeps its own entry)
+# G''s lift (in AGp), O2's rounding (in AO2p) and O4's (in AO4p)
 A_ROUTE_ABSENT = ("troy_keyswitch_digits", "troy_keyswitch_divide_round",
                   "troy_exact_convert", "troy_base_convert",
                   "troy_behz_decrypt_round", "troy_plain_lift",
-                  "troy_ckks_round",
+                  "troy_ckks_round", "troy_ckks_round_stats",
                   "troy_rescale_ntt_temps",
                   "troy_rescale_ntt_finish", "troy_keyswitch_ntt_temps",
                   "troy_keyswitch_ntt_finish",
@@ -1022,13 +1048,6 @@ def phase_kernels(ctx) -> dict:
     f_consts = keyswitch.divide_round_consts(q5, v6[-1])
     k_x = _uniform(rng, v5, (2, 5, N), dev)
     k_consts = keyswitch.divide_round_consts(q5.slice(0, 4), v5[-1])
-    # G: m (n) mod t onto c0 (5, n)
-    t_plain = int(data.plain_modulus)
-    g_m = to_torch(rng.integers(0, t_plain, N, dtype=np.uint64), dev)
-    g_c0 = _uniform(rng, v5, (5, N), dev)
-    g_args = (t_plain, data.coeff_modulus_mod_plain_modulus,
-              data.coeff_div_plain_modulus, q5)
-    g_consts = poly._plain_embed_consts(*g_args)
     # M: (2, 5, n), the rotation by one step, both forms
     elt = 3
     src, keep = galois.coeff_permutation(N, elt, dev)
@@ -1213,10 +1232,7 @@ def phase_kernels(ctx) -> dict:
          lambda: keyswitch.divide_and_round_q_last(k_x, q5),
          lambda: keyswitch.divide_round_last_plain(k_x, k_consts),
          (_bytes(k_x) + 2 * 4 * N * 8, 2 * N * 4 * 5), None),
-        ("G_plain_embed", "m (n) onto c0 (5,n)",
-         lambda: poly.bfv_plain_embed(g_m, g_c0, *g_args),
-         lambda: poly.bfv_multiply_add_plain(g_m, g_c0, *g_args),
-         (_bytes(g_m, g_c0, g_c0, g_consts), N * (8 + 5 * 5)), None),
+        *embed_checks(rng, data, q5, dev),
         ("M_galois", "signed gather (2,5,n), elt 3",
          lambda: galois.permute(m_x, c_table, q5),
          lambda: galois.apply_permutation_signed_plain(m_x, src, keep, q5),
@@ -1301,6 +1317,94 @@ def k_checks(rng, dev, q6, v6, f_consts) -> list:
                 keyswitch.divide_round_last_plain(x, f_consts, acc, group),
             None, None))
     return checks
+
+
+def embed_work(t, groups: int, words_in: int, words_out: int) -> tuple:
+    """bound() arguments of a G or DG launch over ``groups`` (k, n) groups
+    of t's base: words_in and words_out (k, n) rows a group in and out
+    (operands, copies), the m rows and the constants once; a coefficient's
+    fix once (10 products: the 128-bit product, the Barrett-128, the odd
+    inverse) and each limb's term (5: Shoup and Barrett-64)."""
+    k, n = t.k, t.n
+    return ((groups * ((words_in + words_out) * k + 1) * n
+             + 7 + 4 * k) * 8,
+            groups * n * (10 + 5 * k))
+
+
+def embed_inputs(rng, data, q5, dev, lead):
+    """m (lead, n) mod t with the edge words 0, t - 1, (t - 1)/2 and
+    (t + 1)/2 first, and the embedding's arguments at the headline's data
+    level."""
+    tt = int(data.plain_modulus)
+    m = rng.integers(0, tt, lead + (N,), dtype=np.uint64)
+    m[..., :4] = [0, tt - 1, (tt - 1) // 2, (tt + 1) // 2]
+    return to_torch(m, dev), rlwe.bfv_embed_args(data) + (q5,)
+
+
+def embed_checks(rng, data, q5, dev) -> list:
+    """Phase 3's checks of G (the plain embedding on D's grid) and DG (D's
+    zero-encryption finish with it) against their plain versions, word for
+    word, on random words and on the edge words (m at 0, t - 1, (t - 1)/2,
+    (t + 1)/2; the operands at 0 and q - 1): G at m (n) onto c0 (5, n) (the
+    JSON line's), a batch of MANY, add_plain's new ciphertext with c1
+    copied, the subtract; DG's symmetric finish into c0 of a ciphertext
+    (5, n), a batch of MANY into c0 with c1 copied, and the public-key
+    finish (2, 5, n) with the embedding on c0."""
+    g_checks, dg_checks = [], []
+
+    def into_batch(xb, yb, mb, c1b, args, out):
+        poly.zero_sym_embed(xb, yb, mb, *args, out=out[:, 0], c1=c1b)
+        return out
+
+    for kind, draw in (("random", _uniform), ("edge", _edge)):
+        m1, args = embed_inputs(rng, data, q5, dev, ())
+        mb, _ = embed_inputs(rng, data, q5, dev, (MANY,))
+        c0 = draw(rng, q5.values, (5, N), dev)
+        cb, xb, yb, c1b = (draw(rng, q5.values, (MANY, 5, N), dev)
+                           for _ in range(4))
+        ct = draw(rng, q5.values, (2, 5, N), dev)
+        out1 = torch.empty((2, 5, N), dtype=torch.int64, device=dev)
+        outb = torch.empty((MANY, 2, 5, N), dtype=torch.int64, device=dev)
+        g_checks += [
+            ("G_plain_embed", f"m (n) onto c0 (5,n) {kind}",
+             lambda m1=m1, c0=c0: poly.bfv_plain_embed(m1, c0, *args),
+             lambda m1=m1, c0=c0: poly.bfv_multiply_add_plain(m1, c0, *args),
+             embed_work(q5, 1, 1, 1) if kind == "random" else None, None),
+            ("G_plain_embed", f"m ({MANY},n) onto c0 ({MANY},5,n) {kind}",
+             lambda mb=mb, cb=cb: poly.bfv_plain_embed(mb, cb, *args),
+             lambda mb=mb, cb=cb: poly.bfv_multiply_add_plain(mb, cb, *args),
+             None, None),
+            ("G_plain_embed", f"add_plain (2,5,n), c1 copied {kind}",
+             lambda m1=m1, ct=ct: poly.bfv_plain_embed_c0(ct, m1, *args),
+             lambda m1=m1, ct=ct: torch.cat([poly.bfv_multiply_add_plain(
+                 m1, ct[0], *args).unsqueeze(0), ct[1:]]), None, None),
+            ("G_plain_embed", f"sub_plain (2,5,n), c1 copied {kind}",
+             lambda m1=m1, ct=ct: poly.bfv_plain_embed_c0(ct, m1, *args,
+                                                          subtract=True),
+             lambda m1=m1, ct=ct: torch.cat([poly.bfv_multiply_add_plain(
+                 m1, ct[0], *args, subtract=True).unsqueeze(0), ct[1:]]),
+             None, None)]
+        x, y = ct[0], c0
+        dg_checks += [
+            ("DG_zero_embed", f"symmetric finish into c0 (5,n) {kind}",
+             lambda m1=m1, x=x, y=y, o=out1: poly.zero_sym_embed(
+                 x, y, m1, *args, out=o[0]),
+             lambda m1=m1, x=x, y=y: poly.zero_sym_embed_plain(x, y, m1,
+                                                               *args),
+             embed_work(q5, 1, 2, 1) if kind == "random" else None, None),
+            ("DG_zero_embed",
+             f"symmetric finish ({MANY},5,n) into c0, c1 copied {kind}",
+             lambda mb=mb, xb=xb, yb=yb, c1b=c1b, o=outb, a=args:
+                 into_batch(xb, yb, mb, c1b, a, o),
+             lambda mb=mb, xb=xb, yb=yb, c1b=c1b: torch.stack(
+                 [poly.zero_sym_embed_plain(xb, yb, mb, *args), c1b], dim=1),
+             None, None),
+            ("DG_zero_embed", f"public-key finish (2,5,n), m on c0 {kind}",
+             lambda m1=m1, ct=ct, xb=xb: poly.zero_asym_embed(
+                 ct, xb[:2], m1, *args),
+             lambda m1=m1, ct=ct, xb=xb: poly.zero_asym_embed_plain(
+                 ct, xb[:2], m1, *args), None, None)]
+    return g_checks + dg_checks
 
 
 def d_fused_checks(rng, q5, q6, dev) -> list:
@@ -2545,14 +2649,16 @@ def phase_default(ctxs: dict, counter) -> tuple:
     return counts, times, per_op
 
 
-# kernel I's and D's launches a call of each default-path op (one each for
-# a whole zero encryption, public key or switching-key row set), and the
-# ops whose trace holds no device kernel but the port's (no stack, cat or
-# contiguous copy)
+# kernel I's and the finish's (D's, or DG's for a BFV encryption)
+# launches a call of each default-path op (one each for a whole zero
+# encryption, public key or switching-key row set), the BFV encryptions
+# whose finish is DG's (with no G launch), and the ops whose trace holds
+# no device kernel but the port's (no stack, cat or contiguous copy)
 ZERO_OP_LAUNCHES = {"public_key": (1, 1), "encrypt": (1, 1),
                     "encrypt_symmetric": (1, 1), "expand_seed": (1, 0),
                     f"encrypt_symmetric_many{MANY}": (1, 1),
                     "relin_key_q": (1, 1), "keyswitch_key_q": (1, 1)}
+BFV_EMBED_OPS = ("encrypt", "encrypt_symmetric", f"encrypt_symmetric_many{MANY}")
 NO_COPY_OPS = ("public_key", "encrypt", "encrypt_symmetric", "relin_key_q",
                "keyswitch_key_q")
 
@@ -2577,21 +2683,28 @@ def foreign_kernels(each: dict) -> dict:
 
 
 def check_zero_launches(name: str, ops: dict, profiled: dict) -> None:
-    """Each op of ZERO_OP_LAUNCHES launches I and D that many times a call
-    (launch counters), and each of NO_COPY_OPS no kernel but the port's
-    (profiler)."""
+    """Each op of ZERO_OP_LAUNCHES launches I and its finish (D, or DG)
+    that many times a call (launch counters), a BFV encryption (BFV_EMBED_
+    OPS) DG once and G never, and each of NO_COPY_OPS no kernel but the
+    port's (profiler)."""
     for op, want in ZERO_OP_LAUNCHES.items():
         _kernels.reset_launch_counts()
         ops[op]()
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
-        got = (counts["I_sampling"], counts["D_rns_elementwise"])
+        dg, g = counts["DG_zero_embed"], counts["G_plain_embed"]
+        got = (counts["I_sampling"], counts["D_rns_elementwise"] + dg)
         foreign = foreign_kernels(profiled[f"{name}_{op}"]["each"])
-        log(f"[16] {name} {op}: I {got[0]}, D {got[1]} launches a call; "
-            f"other device kernels and copies a call {foreign or 0}")
+        log(f"[16] {name} {op}: I {got[0]}, D {got[1] - dg}, DG {dg}, G {g} "
+            f"launches a call; other device kernels and copies a call "
+            f"{foreign or 0}")
         if got != want:
-            raise AssertionError(f"{name} {op}: I and D launch {got} times "
-                                 f"a call, not {want}")
+            raise AssertionError(f"{name} {op}: I and the finish launch "
+                                 f"{got} times a call, not {want}")
+        embeds = name == "bfv" and op in BFV_EMBED_OPS
+        if (dg, g) != ((1, 0) if embeds else (0, 0)):
+            raise AssertionError(f"{name} {op}: DG and G launch {dg}, {g} "
+                                 "times a call")
         if op in NO_COPY_OPS and foreign:
             raise AssertionError(f"{name} {op}: device kernels that are "
                                  f"none of the port's: {foreign}")
@@ -3533,9 +3646,10 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
     A route on the same ciphertexts and keys; both routes timed; a BFV
     multiply_plain by a mod-t plaintext, whose lift runs on G' there (AGp
     on A's route), and a CKKS encode and encode_polynomial, whose rounding
-    runs on O2 there (AO2p on A's route), word-equal too. The J route runs
-    in a count window of its own: J launched, A not, no plain torch on the
-    card."""
+    runs on O2 there (AO2p on A's route), and an encode_with_stats, whose
+    rounding and statistic run on O4 there (AO4p on A's route), word-equal
+    too, the statistic bit-equal. The J route runs in a count window of its
+    own: J launched, A not, no plain torch on the card."""
     out, results, routes = {}, {}, {}
     rng = np.random.default_rng(SEED + 24)
     values = rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
@@ -3554,7 +3668,8 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
                 ce = P.CKKSEncoder(c)
                 plain_ops[route] = lambda ce=ce: (
                     ce.encode(values, CKKS_SCALE),
-                    ce.encode_polynomial(coeffs, CKKS_SCALE))
+                    ce.encode_polynomial(coeffs, CKKS_SCALE),
+                    *ce.encode_with_stats(values, CKKS_SCALE))
             else:
                 ops[route] = lambda ev=ev: ev.relinearize(
                     ev.multiply(ca, cb), rlk)
@@ -3572,13 +3687,14 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
             pairs = zip(*(r if isinstance(r, tuple) else (r,)
                           for r in (got_plain, want_plain["a"])))
             what = "encodes" if scheme == "ckks" else "multiply_plain"
-            if not all(torch.equal(g.data, w.data) for g, w in pairs):
+            if not all(_same_result(g, w) for g, w in pairs):
                 raise AssertionError(f"{scheme} {what}: J route differs "
                                      "from A route")
         # CKKS divides on K''s own kernels there and rounds its encodes on
-        # O2's, BFV divides on F's and lifts its plaintext on G''s
+        # O2's (with the statistic on O4's), BFV divides on F's and lifts
+        # its plaintext on G''s
         path = ("J_ntt_mxu",) + (("Kp_rescale_ntt", "Kp_keyswitch_ntt",
-                                  "O2_ckks_round")
+                                  "O2_ckks_round", "O4_ckks_encode_stats")
                                  if scheme == "ckks"
                                  else ("F_keyswitch", "Gp_plain_lift"))
         check_path("24", f"24 ({scheme}, J route)", path, counts, counter,
@@ -3586,7 +3702,8 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
         on_a = {k: counts[k] for k in ("A_ntt", "AKp_rescale_ntt",
                                        "AKp_keyswitch_ntt",
                                        "AFi_keyswitch_intt", "AGp_ntt_lift",
-                                       "AO2p_ntt_round")
+                                       "AO2p_ntt_round",
+                                       "AO4p_ntt_round_stats")
                 if counts[k]}
         if on_a:
             raise AssertionError(f"A ran on the J route: {on_a}")
@@ -3609,6 +3726,15 @@ def phase_mxu_headline(parts: dict, counter) -> dict:
     total = {k: sum(c.get(k, 0) for c in results.values())
              for k in _kernels.launch_counts()}
     return out, total
+
+
+def _same_result(got, want) -> bool:
+    """Two routes' results equal: a plaintext's words, or an encode's
+    statistic (EncodeStats) bit for bit."""
+    if hasattr(got, "max_abs_small"):
+        return bool(got.max_abs_small.view(torch.int64)
+                    == want.max_abs_small.view(torch.int64))
+    return torch.equal(got.data, want.data)
 
 
 def _op_times(ops: dict, reps: int) -> dict:
@@ -4022,9 +4148,9 @@ def b_launch_words(entry: str, args: tuple) -> int:
 def launch_work(entry: str, args: tuple) -> tuple:
     """bound() arguments of one launch, from its arguments: every tensor
     argument's bytes once (B's words as ``b_launch_words`` counts them;
-    D's c1, read and written beside out, twice),
-    and I's threefry blocks (THREEFRY_OPS 32-bit operations each), its
-    lifts (4 a word), its Barrett-128 (5 products a uniform word) and BGV's
+    D's, DG's and G's c1, read and written beside out, twice), and I's
+    threefry blocks (THREEFRY_OPS 32-bit operations each), its lifts (4 a
+    word), its Barrett-128 (5 products a uniform word) and BGV's
     Shoup product (2 a noise word). Every other kernel of RANKED is bound
     by its bytes at its checked shapes (phases 3-20), so its operations
     are not counted."""
@@ -4035,6 +4161,9 @@ def launch_work(entry: str, args: tuple) -> tuple:
     if entry == "troy_rns_elementwise" and len(args) > 11 and isinstance(
             args[7], torch.Tensor):
         nbytes += args[7].numel() * 8
+    copied = {"troy_rns_zero_embed": 6, "troy_bfv_plain_embed": 5}.get(entry)
+    if copied is not None and isinstance(args[copied], torch.Tensor):
+        nbytes += args[copied].numel() * 8
     if not entry.startswith("troy_sample_"):
         return nbytes, 0
     uniform = small = scaled = 0            # words of each kind
@@ -4198,9 +4327,12 @@ def slice7_bounds(k: int, k_app: int) -> dict:
 # --------------------------------------------------------------------------
 
 def phase_stats_kernels(dev) -> tuple:
-    """Phase 29: O4 and O5 against their plain versions at every
+    """Phase 29: O4, AO4p and O5 against their plain versions at every
     STATS_SHAPES shape: O4's words equal to O2's and its statistic
-    bit-equal to the plain version's on the same u; O5, on O5_INPUTS
+    bit-equal to the plain version's on the same u; AO4p's (O4's statistic
+    in A's forward passes, the encode_with_stats of A's route) words equal
+    to AO2p's and its plain version's, its statistic bit-equal to O4's and
+    its plain version's; O5, on O5_INPUTS
     coefficient vectors (so that a reduction over part of the slots
     shows): its slots bit-equal to O1's (embed_forward) on the same
     coefficients, slots and partners within O1_TOLERANCE of the plain
@@ -4216,8 +4348,8 @@ def phase_stats_kernels(dev) -> tuple:
         moduli = _moduli(n, bits)
         k = len(moduli) - 1                         # the first data level
         t = embedding.make_embed_tables(n, dev)
-        rt = embedding.make_rns_round_tables(
-            ntt.RnsNttTables.from_moduli(n, moduli[:k], dev))
+        tabs = ntt.RnsNttTables.from_moduli(n, moduli[:k], dev)
+        rt = embedding.make_rns_round_tables(tabs)
         vals = torch.from_numpy(rng.uniform(-1, 1, n // 2)
                                 + 1j * rng.uniform(-1, 1, n // 2)).to(dev)
         u = embedding.embed_inverse_fft(vals, t)
@@ -4227,22 +4359,32 @@ def phase_stats_kernels(dev) -> tuple:
         o4_plain = lambda: (
             embedding.untwist_round_to_rns_plain(u, t.untwist, scale, rt),
             embedding.round_stats_plain(u, t.untwist, scale))
+        ao4p = lambda: embedding.rns_ntt_forward_round_stats(
+            u, t.untwist, scale, rt, tabs)
+        ao4p_plain = lambda: embedding.ntt_forward_round_stats_plain(
+            u, t.untwist, scale, rt, tabs)
         o5 = lambda: embedding.embed_forward_stats(coeffs, t)
         o5_plain = lambda: embedding.embed_forward_stats_plain(coeffs, t)
         (words, stat), (pwords, pstat) = o4(), o4_plain()
+        (fwords, fstat), (fpwords, fpstat) = ao4p(), ao4p_plain()
         o2 = embedding.untwist_round_to_rns(u, scale, t, rt)
         torch.cuda.synchronize()
         try:
             compare("words", words, o2)
             compare("words", words, pwords)
             compare("bits", stat, pstat)
+            compare("words", fwords, embedding.rns_ntt_forward_round(
+                u, t.untwist, scale, rt, tabs))
+            compare("words", fwords, fpwords)
+            compare("bits", fstat, fpstat)
+            compare("bits", fstat, stat)
             # the first input is timed below; the others are raw
             # coefficients in (-1, 1)
             o5_checks = [check_o5(c, t) for c in [coeffs] + [
                 torch.from_numpy(rng.uniform(-1, 1, n)).to(dev)
                 for _ in range(O5_INPUTS - 1)]]
         except AssertionError as exc:
-            raise AssertionError(f"O4/O5 {tag}: {exc}") from None
+            raise AssertionError(f"O4/AO4p/O5 {tag}: {exc}") from None
         _, e, pe = o5_checks[0]
         slot_err = max(c[0] for c in o5_checks)
         library_ms = cuda_ms(lambda: torch.fft.fft(u))
@@ -4256,6 +4398,8 @@ def phase_stats_kernels(dev) -> tuple:
         for name, run, plain, work, err_ in (
                 ("O4_ckks_encode_stats", o4, o4_plain,
                  (_bytes(u) + k * n * 8 + 8, n * k * 4), 0),
+                ("AO4p_ntt_round_stats", ao4p, ao4p_plain,
+                 (lambda w: (w[0] + 8,) + w[1:])(round_work(tabs, True)), 0),
                 ("O5_ckks_decode_stats", o5, o5_plain,
                  (_bytes(coeffs) + 2 * (n // 2 * 16) + 8, 0,
                   fft_ops + 3 * (n // 2)),
@@ -4278,15 +4422,20 @@ def phase_stats_kernels(dev) -> tuple:
                 f"{plain_ms:.4f} ms, torch.fft.fft {library_ms:.4f} ms "
                 f"({library_device_us:.2f} us of device time, profiler)")
             if name not in results:
+                # no PyTorch call rounds into RNS and transforms (AO4p);
+                # the FFT is O4's and O5's transform yardstick
                 results[name] = {"max_abs_err": err_, "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                                  "bound_by": bound_by,
-                                 "library_ms": library_ms}
+                                 "library_ms": None if name.startswith("AO4p")
+                                 else library_ms}
             else:
                 results[name]["max_abs_err"] = max(
                     results[name]["max_abs_err"], err_)
         log(f"[29] {tag}: O4 words equal to O2's and the plain version's, "
-            f"statistic {float(stat):.17g} bit-equal; O5 on {O5_INPUTS} "
+            f"statistic {float(stat):.17g} bit-equal; AO4p words equal to "
+            f"AO2p's and the plain version's, statistic bit-equal to O4's "
+            f"and the plain version's; O5 on {O5_INPUTS} "
             f"inputs: slots bit-equal to O1's, slots and partners within "
             f"{slot_err:.3g} of the plain version's, statistic bit-equal to "
             f"the residual of its own slots and partners; residuals "
@@ -5237,11 +5386,12 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
                    decrypt_ops: dict) -> dict:
     """Phase 35: kernels A and M (then J, E, B's shapes, O1 and O5, P1 and
     F's digits, K' and K'-BGV, D and I, O3 and F's divide, X and C, G' and
-    P2, O2 and K, B and K'': redesign_j, redesign_e, redesign_b,
+    P2, O2 and K, B and K'', G and O4: redesign_j, redesign_e, redesign_b,
     redesign_o1, redesign_p1, redesign_f, redesign_kp, redesign_zero,
     redesign_o3, redesign_afi, redesign_decrypt, standalone_decrypt,
     redesign_agp, redesign_ap2i, standalone_p2, redesign_ao2p,
-    standalone_k, standalone_kpp) as redesigned
+    redesign_embed, redesign_ao4p, standalone_k, standalone_kpp) as
+    redesigned
     for the H100. A against its plain version, word for word, at every n of
     REDESIGN_NS (one pass over whole rows below 1024, two passes from it
     up) and the shapes of
@@ -5380,6 +5530,8 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
     ap2i = redesign_ap2i(app_ctx, rng)
     p2 = standalone_p2(dev, rng)
     ao2p = redesign_ao2p(zero_ctxs["ckks"], rng)
+    embed = redesign_embed(zero_ctxs["bfv"], rng)
+    ao4p = redesign_ao4p(zero_ctxs["ckks"], rng)
     k_alone = standalone_k(dev, rng)
     kpp_alone = standalone_kpp(dev, rng)
     spread = op_spread(divide_ops)
@@ -5389,7 +5541,8 @@ def phase_redesign(dev, bfv_ops: dict, per_op: dict, app_ctx,
             "o3": o3, "afi": afi, "axi": axi, "aci": aci,
             "standalone_decrypt": standalone, "decrypt_wall": wall,
             "agp": agp, "ap2i": ap2i, "standalone_p2": p2,
-            "ao2p": ao2p, "standalone_k": k_alone,
+            "ao2p": ao2p, "embed": embed, "ao4p": ao4p,
+            "standalone_k": k_alone,
             "standalone_kpp": kpp_alone,
             "spread": spread}
 
@@ -5509,7 +5662,7 @@ def _zero_inputs(ctx, rng):
 def _in_turns(fused, composed) -> dict:
     """Both calls' words compared, their device us a call in turns (graph
     replay, 4 rounds), their device kernels and copies a call
-    (profiler), I's and D's launches a call (counters)."""
+    (profiler), I's, D's, DG's and G's launches a call (counters)."""
     compare("words", fused(), composed())
     calls = {"fused": fused, "composed": composed}
     turns = {name: [] for name in calls}
@@ -5528,6 +5681,8 @@ def _in_turns(fused, composed) -> dict:
                      "kernels": count, "profiler_us": device_ms * 1e3,
                      "I": counts["I_sampling"],
                      "D": counts["D_rns_elementwise"],
+                     "DG": counts.get("DG_zero_embed", 0),
+                     "G": counts["G_plain_embed"],
                      "foreign": foreign_kernels(each), "each": each}
     return out
 
@@ -5547,13 +5702,18 @@ def redesign_zero(ctxs: dict) -> dict:
         0, 2 ** 64, count, dtype=np.uint64), ctxs["bfv"].device)
     out = {}
 
-    def record(tag, fused, composed, bound_fn=None, want=(1, 1)):
-        """want: the fused path's I and D launches a call."""
+    def record(tag, fused, composed, bound_fn=None, want=(1, 1),
+               embeds=False):
+        """want: the fused path's I and finish (D, or DG) launches a call;
+        embeds: a BFV encryption, whose finish is DG's, with no G."""
         r = _in_turns(fused, composed)
-        if (r["fused"]["I"], r["fused"]["D"]) != want:
-            raise AssertionError(f"zero {tag}: I and D launch "
-                                 f"{r['fused']['I']}, {r['fused']['D']} "
-                                 f"times a call, not {want}")
+        f = r["fused"]
+        if (f["I"], f["D"] + f["DG"]) != want or \
+                (f["DG"], f["G"]) != ((1, 0) if embeds else (0, 0)):
+            raise AssertionError(f"zero {tag}: I, D, DG and G launch "
+                                 f"{f['I']}, {f['D']}, {f['DG']}, {f['G']} "
+                                 f"times a call, not {want} and "
+                                 f"{'one DG' if embeds else 'no DG'}")
         if bound_fn is not None:
             b = launch_bounds(bound_fn)["I_sampling"]
             r["bound_us"] = b[1] / b[0]
@@ -5565,7 +5725,8 @@ def redesign_zero(ctxs: dict) -> dict:
             f"call in turns (graph): fused {f['device_us']:.2f}, composed "
             f"{c['device_us']:.2f}; kernels a call (profiler) {f['kernels']:g}"
             f" against {c['kernels']:g}, I {f['I']} against {c['I']}, D "
-            f"{f['D']} against {c['D']}, other kernels and copies "
+            f"{f['D']} against {c['D']}, DG {f['DG']} against {c['DG']}, G "
+            f"{f['G']} against {c['G']}, other kernels and copies "
             f"{f['foreign'] or 0} against {c['foreign'] or 0}{bound}")
 
     for name, ctx in ctxs.items():
@@ -5577,19 +5738,22 @@ def redesign_zero(ctxs: dict) -> dict:
         record(f"{name} encrypt_symmetric (2,{cd.limbs},n)",
                lambda: encryptor._encrypt_sym_full(sym, m[0], sk, cd,
                                                    ntt_form),
-               lambda: composed_encrypt_sym(sym, m[0], sk, cd, ntt_form))
+               lambda: composed_encrypt_sym(sym, m[0], sk, cd, ntt_form),
+               embeds=not ntt_form)
         asym = (seed(), seed(), seed())
         record(f"{name} encrypt (2,{cd.limbs},n)",
                lambda: encryptor._encrypt_asym_full(asym, m[0], pk_k, cd,
                                                     ntt_form),
                lambda: composed_encrypt_asym(asym, m[0], pk_k, cd,
-                                             ntt_form))
+                                             ntt_form),
+               embeds=not ntt_form)
         a_seeds, e_seeds = dev_seeds(MANY), dev_seeds(MANY)
         record(f"{name} encrypt_symmetric_many ({MANY},2,{cd.limbs},n)",
                lambda: encryptor._encrypt_sym_batch(a_seeds, e_seeds, m, sk,
                                                     cd, ntt_form),
                lambda: composed_encrypt_many(a_seeds, e_seeds, m, sk, cd,
-                                             ntt_form))
+                                             ntt_form),
+               embeds=not ntt_form)
         if name in ("bfv", "bgv"):
             key_cd = ctx.key_context_data
             d = key_cd.limbs - 1
@@ -5897,6 +6061,130 @@ def redesign_ao2p(ckks_ctx, rng) -> dict:
         round_work(t, False),
         extra={"A_alone": lambda: ntt.rns_ntt_forward(rows, t)})
     return out
+
+
+def _bits(result: tuple) -> tuple:
+    """(words, a 0-d float64 statistic) with the statistic as its int64
+    bit pattern (a view), for a word-for-word comparison."""
+    return result[0], result[1].view(torch.int64)
+
+
+def redesign_embed(bfv_ctx, rng) -> dict:
+    """Phase 35, G and DG redesigned (the BFV plain embedding on D's grid,
+    and folded into D's zero-encryption finish): DG's symmetric finish at
+    (5, n), a batch of MANY into c0 with c1 copied and the public-key
+    finish (2, 5, n), each word-equal to D's finish then G, the two timed
+    in turns (graph); G at m (n) onto c0 (5, n), a batch of MANY and
+    add_plain's new ciphertext (2, 5, n) with c1 copied, each word-equal to
+    its plain version, timed in turns with D's add at (5, n) (the launch
+    floor); device us a launch (profiler) beside the bounds."""
+    data = bfv_ctx.first_context_data
+    q5, dev = data.ntt, bfv_ctx.device
+    m1, args = embed_inputs(rng, data, q5, dev, ())
+    mb, _ = embed_inputs(rng, data, q5, dev, (MANY,))
+    x, y = (_uniform(rng, q5.values, (5, N), dev) for _ in range(2))
+    xb, yb, c1b = (_uniform(rng, q5.values, (MANY, 5, N), dev)
+                   for _ in range(3))
+    ct = _uniform(rng, q5.values, (2, 5, N), dev)
+    one = torch.empty((2, 5, N), dtype=torch.int64, device=dev)
+    batch = torch.empty((MANY, 2, 5, N), dtype=torch.int64, device=dev)
+
+    def batch_finish():
+        poly.zero_sym_embed(xb, yb, mb, *args, out=batch[:, 0], c1=c1b)
+        return batch
+
+    def batch_composed():
+        c0 = poly.bfv_plain_embed(mb, poly.zero_sym_finish(xb, yb, q5),
+                                  *args)
+        return torch.stack([c0, c1b], dim=1)
+
+    def asym_composed():
+        c = poly.zero_asym_finish(ct, xb[:2], q5)
+        c[0] = poly.bfv_plain_embed(m1, c[0], *args)
+        return c
+
+    dg_k = {"zero_embed_kernel": 1}
+    out = {"DG symmetric (5,n)": _fused_turns(
+        "DG symmetric finish (5,n) into c0",
+        lambda: poly.zero_sym_embed(x, y, m1, *args, out=one[0]),
+        lambda: poly.bfv_plain_embed(m1, poly.zero_sym_finish(x, y, q5),
+                                     *args),
+        dg_k, {"rns_elementwise_kernel": 1, "plain_embed_kernel": 1},
+        embed_work(q5, 1, 2, 1))}
+    out[f"DG symmetric ({MANY},5,n)"] = _fused_turns(
+        f"DG symmetric finish ({MANY},5,n) into c0, c1 copied",
+        batch_finish, batch_composed, dg_k,
+        {"rns_elementwise_kernel": 1, "plain_embed_kernel": 1},
+        embed_work(q5, MANY, 3, 2))
+    out["DG public key (2,5,n)"] = _fused_turns(
+        "DG public-key finish (2,5,n)",
+        lambda: poly.zero_asym_embed(ct, xb[:2], m1, *args), asym_composed,
+        dg_k, {"rns_elementwise_kernel": 1, "plain_embed_kernel": 1},
+        embed_work(q5, 2, 2, 1))
+    for tag, run, plain, work in (
+            ("G m (n) onto c0 (5,n)",
+             lambda: poly.bfv_plain_embed(m1, x, *args),
+             lambda: poly.bfv_multiply_add_plain(m1, x, *args),
+             embed_work(q5, 1, 1, 1)),
+            (f"G m ({MANY},n) onto c0 ({MANY},5,n)",
+             lambda: poly.bfv_plain_embed(mb, xb, *args),
+             lambda: poly.bfv_multiply_add_plain(mb, xb, *args),
+             embed_work(q5, MANY, 1, 1)),
+            ("G add_plain (2,5,n), c1 copied",
+             lambda: poly.bfv_plain_embed_c0(ct, m1, *args),
+             lambda: torch.cat([poly.bfv_multiply_add_plain(
+                 m1, ct[0], *args).unsqueeze(0), ct[1:]]),
+             embed_work(q5, 1, 2, 2))):
+        try:
+            compare("words", run(), plain())
+        except AssertionError as exc:
+            raise AssertionError(f"{tag}: {exc}") from None
+        turns = _turns({"G": run, "D add (5,n)": lambda: poly.rns_add(
+            x, y, q5)})
+        _, _, each = device_kernels_per_op(
+            run, reps=10, expect={"plain_embed_kernel": 1}, whole=True)
+        bound_ms, bound_by = bound(*work)
+        out[tag] = {"device_us_turns": turns,
+                    "G_us": statistics.median(turns["G"]),
+                    "D_add_us": statistics.median(turns["D add (5,n)"]),
+                    "us_per_launch": each["plain_embed_kernel"][1],
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[35] {tag}: word-equal to its plain version; device us a call "
+            f"in turns (graph): G {out[tag]['G_us']:.2f}, D's add (5,n) "
+            f"{out[tag]['D_add_us']:.2f}; a launch (profiler) "
+            f"{out[tag]['us_per_launch']:.2f}; bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+    return out
+
+
+def redesign_ao4p(ckks_ctx, rng) -> dict:
+    """Phase 35, AO4p (O4's statistic with AO2p's rounding in A's forward
+    passes, ``embedding.rns_ntt_forward_round_stats``) at the CKKS
+    headline's (n) -> (5,n): word-equal, the statistic bit for bit, to O4
+    (its memset and launch) then A's forward, timed in turns with that
+    composition and with AO2p (no statistic), their device us a launch
+    (profiler) beside the bound."""
+    cd = ckks_ctx.first_context_data
+    t, dev = cd.ntt, ckks_ctx.device
+    emb = embedding.make_embed_tables(N, dev)
+    rt = embedding.make_rns_round_tables(t)
+    u = torch.from_numpy((rng.uniform(-1, 1, N) + 1j * rng.uniform(-1, 1, N))
+                         * 2.0 ** -7).to(dev)
+
+    def composed():
+        words, stat = embedding.untwist_round_to_rns_stats(u, CKKS_SCALE,
+                                                           emb, rt)
+        return _bits((ntt.rns_ntt_forward(words, t), stat))
+
+    work = round_work(t, True)
+    return {"slot (n)->(5,n)": _fused_turns(
+        "AO4p encode_with_stats (n)->(5,n)",
+        lambda: _bits(embedding.rns_ntt_forward_round_stats(
+            u, emb.untwist, CKKS_SCALE, rt, t)), composed,
+        {"ntt_pass_kernel": 2}, {"round_kernel": 1, "ntt_pass_kernel": 2},
+        (work[0] + 8,) + work[1:],
+        extra={"AO2p": lambda: embedding.rns_ntt_forward_round(
+            u, emb.untwist, CKKS_SCALE, rt, t)})}
 
 
 def standalone_k(dev, rng) -> dict:
@@ -6973,15 +7261,19 @@ def redesign_o1(dev, rng, per_op: dict) -> dict:
 
 
 # the kernels ranked by their loss (PERF.md section 6): those not yet
-# redesigned for the H100, and B, D, I, K and K'' (redesigned, and kept
-# in the ranking), and their device functions' names
-# in the profiler (O2 and O4 share round_kernel; F's digits and divide run
-# only on J's route, K keeps divide_round_kernel; X and C, redesigned into
-# AXi and ACi, only on J's route and past the fused decrypt's limbs)
+# redesigned for the H100 (none since G and O4), and B, D, DG, G, I, K,
+# K'' and O4 (redesigned, and kept in the ranking), and their device
+# functions' names in the profiler (O2 and O4 share round_kernel, and run
+# only on J's route, O2's and O4's work in AO2p and AO4p on A's; G's is
+# plain_embed_kernel on D's grid, DG's zero_embed_kernel; F's digits and
+# divide run only on J's route, K keeps divide_round_kernel; X and C,
+# redesigned into AXi and ACi, only on J's route and past the fused
+# decrypt's limbs)
 RANKED = {
     "B_dyadic_mac": ("dyadic_mac_kernel", "dyadic_convolve_kernel",
                      "dyadic_convolve_any_kernel"),
     "D_rns_elementwise": ("rns_elementwise_kernel",),
+    "DG_zero_embed": ("zero_embed_kernel",),
     "F_keyswitch": ("keyswitch_digits_kernel",),
     "G_plain_embed": ("plain_embed_kernel",),
     "I_sampling": ("uniform_kernel", "small_kernel", "zero_sym_kernel",
@@ -6994,6 +7286,11 @@ RANKED = {
     "P3_group_fold": ("pack_group_fold_kernel",),
     "Kpp_bgv_coeff": ("bgv_divide_kernel",),
 }
+# the ranked kernels redesigned for the H100 (DG is G's fold into D's
+# finish); the others of RANKED were never redesigned
+REDESIGNED = ("B_dyadic_mac", "D_rns_elementwise", "DG_zero_embed",
+              "F_keyswitch", "G_plain_embed", "I_sampling", "K_divide_round",
+              "Kpp_bgv_coeff", "O2_ckks_round", "O4_ckks_encode_stats")
 # the windows and profiled ops of the headline configuration (n = 16384);
 # P3 runs only in the app protocol. Redesigned and out of the ranking: X
 # and C (in AXi and ACi; their own kernels on J's route, n = 262144 in
@@ -7041,7 +7338,8 @@ def unredesigned_losses(entries: list, per_op: dict,
                 bn, bt = bn + calls, bt + bound_us
         us = t / n if n else None
         bound_us = bt / bn if bn else kernel_results[kernel]["bound_ms"] * 1e3
-        out[kernel] = {"launches": launches, "us_per_launch": us,
+        out[kernel] = {"redesigned": kernel in REDESIGNED,
+                       "launches": launches, "us_per_launch": us,
                        "bound_us": bound_us, "bound_launches": bn,
                        "lost_ms": None if us is None else
                        launches * max(0.0, us - bound_us) / 1e3}
@@ -7053,7 +7351,8 @@ def unredesigned_losses(entries: list, per_op: dict,
             f", {r['lost_ms']:.4f} ms over the bound"
         at = (f"over {r['bound_launches']:g} profiled launches"
               if r["bound_launches"] else "at its first checked shape")
-        log(f"[rank] {kernel}: {r['launches']} launches, {us}, bound "
+        done = " (redesigned)" if r["redesigned"] else " (not redesigned)"
+        log(f"[rank] {kernel}{done}: {r['launches']} launches, {us}, bound "
             f"{r['bound_us']:.3f} us ({at}){lost}")
     return dict(ranked)
 

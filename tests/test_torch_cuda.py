@@ -581,8 +581,8 @@ def test_ckks_statistics_kernels(dev, n):
 
 def test_ckks_device_surface_on_the_card(dev):
     """encode_with_stats, the borderline encode, encode_device,
-    decode_device_with_stats and decode_max_error on the card: O4 and O5
-    launched; on each device encode_with_stats and encode_device give
+    decode_device_with_stats and decode_max_error on the card: AO4p (O4's
+    statistic in A's forward passes) and O5 launched; on each device encode_with_stats and encode_device give
     encode's words; across devices the statistic's bit count and the
     decoded values agree (O1's two summation orders can move a tie, so the
     words are not compared across devices)."""
@@ -609,7 +609,9 @@ def test_ckks_device_surface_on_the_card(dev):
         re, im, err = ce.decode_device_with_stats(plain)
         counts = _kernels.launch_counts()
         if where is dev:
-            assert counts["O4_ckks_encode_stats"] == 2, counts
+            # on A's route the statistic comes from AO4p, O4 off it
+            assert (counts["AO4p_ntt_round_stats"],
+                    counts["O4_ckks_encode_stats"]) == (2, 0), counts
             assert counts["O5_ckks_decode_stats"] == 1, counts
         assert ce.decode_max_error(plain) == float(err) <= 1e-8
         words = interop.words(ce.encode(vals, 2.0 ** 40))
@@ -2206,3 +2208,215 @@ def test_bgv_coeff_divide_kernel_layouts(dev, n, k, layout):
         got = keyswitch.bgv_divide_last(xs, consts, accs, group)
         assert _kernels.launch_counts()["Kpp_bgv_coeff"] == 1
         _same(got, want)
+
+
+# --------------------------------------------------------------------------
+# DG and G on D's grid, AO4p
+# --------------------------------------------------------------------------
+
+EMBED_T = {"t786433": 786433, "t20": 20, "t59": 59, "t2^41": 1 << 41}
+
+
+def _embed_level(n, bits, t_name, dev):
+    moduli = [int(m) for m in P.CoeffModulus.create(n, bits)]
+    t = EMBED_T[t_name]
+    t = t if t > 64 else int(P.PlainModulus.batching(1024, t))
+    Q = 1
+    for q in moduli:
+        Q *= q
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    return tables, (t, Q % t, tuple((Q // t) % q for q in moduli))
+
+
+def _embed_plain(rng, t, lead, n, dev):
+    m = rng.integers(0, t, lead + (n,), dtype=np.uint64)
+    edge = [0, t - 1, (t - 1) // 2, (t + 1) // 2][:n]
+    m[..., :len(edge)] = edge
+    return interop.to_torch(m, dev)
+
+
+@pytest.mark.parametrize("n,bits", [(2, [60]), (1024, [60]),
+                                    (16384, [60, 40, 40, 40, 40, 60])])
+@pytest.mark.parametrize("t_name", list(EMBED_T))
+def test_zero_embed_kernel(dev, n, bits, t_name):
+    """DG's symmetric finish (one encryption in place, a batch of 3 into
+    c0 with c1 copied) and public-key finish, with the edge words of m and
+    of the operands, against their plain versions: one DG launch, no D or
+    G launch, a call."""
+    tables, args = _embed_level(n, bits, t_name, dev)
+    rng = np.random.default_rng(n + len(bits))
+    x, y, c1 = (_edge(rng, tables.values, (3,), n, dev) for _ in range(3))
+    m = _embed_plain(rng, args[0], (3,), n, dev)
+    calls = {
+        "one": (lambda: poly.zero_sym_embed(
+            x[0].clone(), y[0], m[0], *args, tables, out=None),
+                lambda: poly.zero_sym_embed_plain(x[0], y[0], m[0], *args,
+                                                  tables)),
+        "batch": (lambda: _into_batch(x, y, m, c1, args, tables),
+                  lambda: torch.stack([poly.zero_sym_embed_plain(
+                      x, y, m, *args, tables), c1], dim=1)),
+        "public": (lambda: poly.zero_asym_embed(x[:2], y[:2], m[0], *args,
+                                                tables),
+                   lambda: poly.zero_asym_embed_plain(x[:2], y[:2], m[0],
+                                                      *args, tables))}
+    for name, (run, plain) in calls.items():
+        _kernels.reset_launch_counts()
+        got = run()
+        counts = _kernels.launch_counts()
+        assert (counts["DG_zero_embed"], counts["D_rns_elementwise"],
+                counts["G_plain_embed"]) == (1, 0, 0), (name, counts)
+        _same(got, plain())
+    inplace = x[0].clone()
+    poly.zero_sym_embed(inplace, y[0], m[0], *args, tables, out=inplace)
+    _same(inplace, poly.zero_sym_embed_plain(x[0], y[0], m[0], *args,
+                                             tables))
+
+
+def _into_batch(x, y, m, c1, args, tables):
+    ct = torch.empty((x.shape[0], 2) + x.shape[1:], dtype=torch.int64,
+                     device=x.device)
+    poly.zero_sym_embed(x, y, m, *args, tables, out=ct[:, 0], c1=c1)
+    return ct
+
+
+@pytest.mark.parametrize("n,bits", [(2, [60]), (1024, [60]),
+                                    (16384, [60, 40, 40, 40, 40, 60])])
+@pytest.mark.parametrize("t_name", list(EMBED_T))
+@pytest.mark.parametrize("subtract", [False, True])
+def test_plain_embed_kernel_on_d_grid(dev, n, bits, t_name, subtract):
+    """G on D's grid: m (n) onto c0 (k, n), a batch of 8, and into a new
+    ciphertext of 3 components with c1 and c2 copied (add_plain's form),
+    with the edge words, against the plain version: one G launch a call."""
+    tables, args = _embed_level(n, bits, t_name, dev)
+    rng = np.random.default_rng(7 * n + len(bits))
+    c0 = _edge(rng, tables.values, (8,), n, dev)
+    m = _embed_plain(rng, args[0], (8,), n, dev)
+    data = _edge(rng, tables.values, (3,), n, dev)
+    calls = {
+        "one": (lambda: poly.bfv_plain_embed(m[0], c0[0], *args, tables,
+                                             subtract),
+                lambda: poly.bfv_multiply_add_plain(m[0], c0[0], *args,
+                                                    tables, subtract)),
+        "batch": (lambda: poly.bfv_plain_embed(m, c0, *args, tables,
+                                               subtract),
+                  lambda: poly.bfv_multiply_add_plain(m, c0, *args, tables,
+                                                      subtract)),
+        "ciphertext": (lambda: poly.bfv_plain_embed_c0(data, m[0], *args,
+                                                       tables, subtract),
+                       lambda: torch.cat([poly.bfv_multiply_add_plain(
+                           m[0], data[0], *args, tables,
+                           subtract).unsqueeze(0), data[1:]]))}
+    for name, (run, plain) in calls.items():
+        _kernels.reset_launch_counts()
+        got = run()
+        counts = _kernels.launch_counts()
+        assert counts["G_plain_embed"] == 1 and sum(counts.values()) == 1, \
+            (name, counts)
+        _same(got, plain())
+
+
+@pytest.mark.parametrize("scheme", ["bfv", "ckks", "bgv"])
+def test_add_plain_is_one_launch(dev, scheme):
+    """add_plain and sub_plain: one G (BFV) or D (CKKS, BGV after its lift)
+    launch writes c0 and copies c1, and the words are the CPU run's."""
+    words = {}
+    for device in (dev, "cpu"):
+        n = 1024
+        extra = {} if scheme == "ckks" else {
+            "plain_modulus": P.PlainModulus.batching(n, 20)}
+        parms = P.EncryptionParameters(
+            scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=n,
+            coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])),
+            **extra)
+        ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none,
+                          device=device)
+        kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(31))
+        enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                          seed=prng.seed_from_uint64(32))
+        rng = np.random.default_rng(31)
+        if scheme == "ckks":
+            pt = P.CKKSEncoder(ctx).encode(rng.uniform(-1, 1, n // 2),
+                                           2.0 ** 40)
+        else:
+            pt = P.BatchEncoder(ctx).encode(rng.integers(
+                0, int(parms.plain_modulus), n, dtype=np.uint64))
+        ct = enc.encrypt_symmetric(pt)
+        ev = P.Evaluator(ctx)
+        out = []
+        for subtract in (False, True):
+            _kernels.reset_launch_counts()
+            r = ev.sub_plain(ct, pt) if subtract else ev.add_plain(ct, pt)
+            counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+            if device is dev:
+                want = {"G_plain_embed": 1} if scheme == "bfv" else (
+                    {"D_rns_elementwise": 1} if scheme == "ckks" else
+                    {"D_rns_elementwise": 1, "AGp_ntt_lift": 1})
+                assert counts == want, counts
+            out.append(interop.words(r))
+        words[str(device)] = out
+    for got, want in zip(words[str(dev)], words["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_bfv_encryptions_launch_dg_not_g(dev):
+    """A BFV encrypt, encrypt_symmetric and encrypt_symmetric_many(3) on
+    A's route: I, A, B, A's inverse and one DG each; no D and no G."""
+    n = 1024
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 40, 40, 60])),
+        plain_modulus=P.PlainModulus.batching(n, 20))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=dev)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(41))
+    enc = P.Encryptor(ctx, kg.create_public_key(), kg.secret_key,
+                      seed=prng.seed_from_uint64(42))
+    pt = P.BatchEncoder(ctx).encode(np.arange(n, dtype=np.uint64))
+    for op in (lambda: enc.encrypt(pt), lambda: enc.encrypt_symmetric(pt),
+               lambda: enc.encrypt_symmetric_many([pt] * 3)):
+        _kernels.reset_launch_counts()
+        op()
+        counts = _kernels.launch_counts()
+        assert (counts["DG_zero_embed"], counts["D_rns_elementwise"],
+                counts["G_plain_embed"], counts["I_sampling"]) == \
+            (1, 0, 0, 1), counts
+
+
+@pytest.mark.parametrize("n", [64, 512, 1024, 2048, 16384, 32768, 131072])
+@pytest.mark.parametrize("twisted", [True, False])
+def test_ntt_forward_round_stats_kernel(dev, n, twisted):
+    """AO4p against AO2p's words and O4's statistic (and their plain
+    versions), bit for bit, with the untwist and on real words, at scales
+    2^40, 2^55 and 2^100 and on the ties and zeros: one AO4p launch a call
+    and no O4, no memset."""
+    moduli = [int(m) for m in P.CoeffModulus.create(
+        n, [60, 40, 40, 40, 40, 60])][:5]
+    tables = ntt.RnsNttTables.from_moduli(n, moduli, dev)
+    rt = embedding.make_rns_round_tables(tables)
+    emb = embedding.make_embed_tables(n, dev)
+    rng = np.random.default_rng(3 * n + twisted)
+    if twisted:
+        u = torch.from_numpy((rng.uniform(-1, 1, n)
+                              + 1j * rng.uniform(-1, 1, n)) * 2.0 ** -7
+                             ).to(dev)
+        untwist = emb.untwist
+    else:
+        u = torch.from_numpy(rng.uniform(-1, 1, n) * 2.0 ** 10).to(dev)
+        u[:4] = torch.tensor([0.5, -2.5, 3.5, -0.0], dtype=torch.float64)
+        untwist = None
+    for scale in (2.0 ** 40, 2.0 ** 55, 2.0 ** 100, 1.0):
+        _kernels.reset_launch_counts()
+        words, stat = embedding.rns_ntt_forward_round_stats(
+            u, untwist, scale, rt, tables)
+        counts = _kernels.launch_counts()
+        assert (counts["AO4p_ntt_round_stats"],
+                counts["O4_ckks_encode_stats"]) == (1, 0), counts
+        _same(words, embedding.rns_ntt_forward_round(u, untwist, scale, rt,
+                                                     tables))
+        want_words, want_stat = embedding.ntt_forward_round_stats_plain(
+            u, untwist, scale, rt, tables)
+        _same(words, want_words)
+        assert int(stat.view(torch.int64)) == \
+            int(want_stat.view(torch.int64))
+        if twisted:
+            _, o4 = embedding.untwist_round_to_rns_stats(u, scale, emb, rt)
+            assert int(stat.view(torch.int64)) == int(o4.view(torch.int64))

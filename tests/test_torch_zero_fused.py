@@ -316,14 +316,19 @@ def test_bgv_add_sub_unequal_factors_word_equal(ctxs, sizes, subtract):
 
 D_WRAPPERS = ("_elementwise", "zero_sym_finish", "zero_asym_finish",
               "switching_key_rows", "balanced_add")
+# BFV's finishes with the plain embedding (kernel DG) and the embedding
+# alone (kernel G)
+DG_WRAPPERS = ("zero_sym_embed", "zero_asym_embed")
+G_WRAPPERS = ("bfv_plain_embed",)
 I_WRAPPERS = ("sample_uniform_rns", "sample_cbd_rns", "sample_ternary_rns",
               "sample_zero_sym_rns", "sample_zero_asym_rns")
 
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Counts of the D and I wrappers' calls (one launch each on a card)."""
-    seen = {"D": 0, "I": 0}
+    """Counts of the D and I wrappers' calls (one launch each on a card):
+    (I, D) of one call of fn; ``calls.seen`` holds DG's and G's too."""
+    seen = {"D": 0, "I": 0, "DG": 0, "G": 0}
 
     def counted(kernel, fn):
         def wrapper(*args, **kwargs):
@@ -331,33 +336,43 @@ def calls(monkeypatch):
             return fn(*args, **kwargs)
         return wrapper
 
-    for name in D_WRAPPERS:
-        monkeypatch.setattr(poly, name, counted("D", getattr(poly, name)))
+    for kernel, names in (("D", D_WRAPPERS), ("DG", DG_WRAPPERS),
+                          ("G", G_WRAPPERS)):
+        for name in names:
+            monkeypatch.setattr(poly, name,
+                                counted(kernel, getattr(poly, name)))
     for name in I_WRAPPERS:
         monkeypatch.setattr(sampling, name,
                             counted("I", getattr(sampling, name)))
 
     def take(fn):
-        seen["D"] = seen["I"] = 0
+        for kernel in seen:
+            seen[kernel] = 0
         fn()
         return seen["I"], seen["D"]
+    take.seen = seen
     return take
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_launches_per_op(ctxs, calls, scheme):
     """I and D per op: symmetric and public-key encryption and a device
-    switching-key row set one each; BGV's add at unequal factors one D;
-    expand_seed's single draw one I."""
+    switching-key row set one each (a BFV encryption's finish is DG's, with
+    its plain embedding: one DG and no G); BGV's add at unequal factors one
+    D; expand_seed's single draw one I."""
     ctx = ctxs[scheme][P]
     _, plains = _plains(scheme, ctxs[scheme][J])
     kg = P.KeyGenerator(ctx, seed=tprng.seed_from_uint64(SEED))
     enc = P.Encryptor(ctx, kg.create_public_key(), kg.secret_key,
                       seed=tprng.seed_from_uint64(SEED + 1))
     ext = P.KeyGenerator(ctx, kg.secret_key, tprng.seed_from_uint64(SEED + 2))
-    assert calls(lambda: enc.encrypt_symmetric(plains[0])) == (1, 1)
-    assert calls(lambda: enc.encrypt(plains[0])) == (1, 1)
-    assert calls(lambda: enc.encrypt_symmetric_many(plains)) == (1, 1)
+    bfv = scheme == "bfv"
+    for op in (lambda: enc.encrypt_symmetric(plains[0]),
+               lambda: enc.encrypt(plains[0]),
+               lambda: enc.encrypt_symmetric_many(plains)):
+        assert calls(op) == ((1, 0) if bfv else (1, 1))
+        assert (calls.seen["DG"], calls.seen["G"]) == ((1, 0) if bfv
+                                                       else (0, 0))
     assert calls(lambda: ext.create_keyswitch_key(kg.secret_key)) == (1, 1)
     ss = enc.encrypt_symmetric(plains[0], save_seed=True)
     assert calls(lambda: rlwe.expand_seed(ss, ctx.first_context_data)) == \

@@ -1,6 +1,6 @@
 """Compare two checkouts of troy_tpu_torch on the GPU: the headline's
-ops and kernels B and K'' timed alone, the kernels' machine code, and a
-run's kernels ranked by their loss.
+ops and kernels B, K'', G and O4 timed alone, the kernels' machine code,
+and a run's kernels ranked by their loss.
 
   python3 tools/compare_trees.py ops TAG
       Builds the kernels of the troy_tpu_torch package first on sys.path
@@ -20,6 +20,21 @@ run's kernels ranked by their loss.
       and B's launches and device us in each op) or ``standalone_kpp``
       (K'' at the LWE window's folds and the BGV mod switch). Prints "B
       TAG {json}" or "KPP TAG {json}".
+
+  python3 tools/compare_trees.py g TAG
+  python3 tools/compare_trees.py o4 TAG
+      The same package choice, on the public API and the wrappers that
+      both trees have. g: kernel G (ops/poly.py bfv_plain_embed) at m (n)
+      onto c0 (5, n) and at a batch of 8, device us a call (a CUDA graph of
+      20 calls, TRACES replays) and a launch (profiler); the three BFV
+      encrypts (encrypt, encrypt_symmetric, encrypt_symmetric_many(8)) and
+      BFV add_plain, device us a call (profiler, TRACES traces) and each
+      one's launches of D, DG and G. o4: the CKKS encode's rounding with
+      its statistic at (n) -> (5, n), AO4p where the tree has it, else O4
+      (with its memset) then A's forward, device us a call (graph) and a
+      launch (profiler), and encode_with_stats's device us a call
+      (profiler). Prints "G TAG {json}" or "O4 TAG {json}". Time two
+      checkouts in turns (a, b, b, a), one process each.
 
   python3 tools/compare_trees.py rank LOG
       Reads the per-kernel line of a chip_smoke.py run's output (the JSON
@@ -131,6 +146,115 @@ def kernel_phase(tag: str, which: str) -> None:
     print(f"{which.upper()} {tag} {json.dumps(out)}", flush=True)
 
 
+def _headline(cs, scheme):
+    P = cs.P
+    extra = {} if scheme == P.SchemeType.ckks else {
+        "plain_modulus": P.PlainModulus.batching(cs.N, 20)}
+    return P.HeContext(P.EncryptionParameters(
+        scheme=scheme, poly_modulus_degree=cs.N,
+        coeff_modulus=tuple(P.CoeffModulus.create(cs.N, cs.Q_BITS)), **extra))
+
+
+def _graph(cs, fn) -> list:
+    return [cs.graph_us(fn) for _ in range(TRACES)]
+
+
+def _profiled(cs, fn, kernels=()) -> dict:
+    """Device us a call (profiler) over TRACES traces, and each of
+    ``kernels``' us a launch."""
+    rows = [cs.device_kernels_per_op(fn, reps=5) for _ in range(TRACES)]
+    out = {"device_us": [r[1] * 1e3 for r in rows]}
+    for k in kernels:
+        out[f"{k}_us"] = [r[2][k][1] for r in rows if k in r[2]]
+    return out
+
+
+def _launches(cs, fn) -> dict:
+    cs._kernels.reset_launch_counts()
+    fn()
+    cs.torch.cuda.synchronize()
+    counts = cs._kernels.launch_counts()
+    return {k: counts.get(k, 0) for k in ("D_rns_elementwise",
+                                          "DG_zero_embed", "G_plain_embed",
+                                          "I_sampling")}
+
+
+def g_mode(tag: str) -> None:
+    cs = _chip_smoke()
+    cs.phase_device()
+    cs.phase_build()
+    P, np, torch, poly = cs.P, cs.np, cs.torch, cs.poly
+    ctx = _headline(cs, P.SchemeType.bfv)
+    data = ctx.first_context_data
+    q5, dev = data.ntt, ctx.device
+    rng = np.random.default_rng(22)
+    tt = int(data.plain_modulus)
+    args = (tt, data.coeff_modulus_mod_plain_modulus,
+            data.coeff_div_plain_modulus, q5)
+    m1, mb = (cs.to_torch(rng.integers(0, tt, lead + (cs.N,),
+                                       dtype=np.uint64), dev)
+              for lead in ((), (8,)))
+    c0 = cs._uniform(rng, q5.values, (5, cs.N), dev)
+    cb = cs._uniform(rng, q5.values, (8, 5, cs.N), dev)
+    out = {"package": str(pathlib.Path(P.__file__).resolve().parent)}
+    for name, fn in (("G (n)->(5,n)",
+                      lambda: poly.bfv_plain_embed(m1, c0, *args)),
+                     ("G (8,n)->(8,5,n)",
+                      lambda: poly.bfv_plain_embed(mb, cb, *args))):
+        out[name] = {"graph_us": _graph(cs, fn),
+                     **_profiled(cs, fn, ("plain_embed_kernel",))}
+    kg = P.KeyGenerator(ctx, seed=cs.rnd.seed_from_uint64(22))
+    enc = P.Encryptor(ctx, kg.create_public_key(), kg.secret_key,
+                      seed=cs.rnd.seed_from_uint64(23))
+    pt = P.BatchEncoder(ctx).encode(rng.integers(0, tt, cs.N,
+                                                 dtype=np.uint64))
+    ct = enc.encrypt_symmetric(pt)
+    ev = P.Evaluator(ctx)
+    for name, fn in (("encrypt", lambda: enc.encrypt(pt)),
+                     ("encrypt_symmetric", lambda: enc.encrypt_symmetric(pt)),
+                     ("encrypt_symmetric_many8",
+                      lambda: enc.encrypt_symmetric_many([pt] * 8)),
+                     ("add_plain", lambda: ev.add_plain(ct, pt))):
+        out[name] = {"launches": _launches(cs, fn),
+                     **_profiled(cs, fn, ("plain_embed_kernel",
+                                          "zero_embed_kernel",
+                                          "rns_elementwise_kernel"))}
+    print(f"G {tag} {json.dumps(out)}", flush=True)
+
+
+def o4_mode(tag: str) -> None:
+    cs = _chip_smoke()
+    cs.phase_device()
+    cs.phase_build()
+    P, np, torch, emb, ntt = cs.P, cs.np, cs.torch, cs.embedding, cs.ntt
+    ctx = _headline(cs, P.SchemeType.ckks)
+    t = ctx.first_context_data.ntt
+    tables = emb.make_embed_tables(cs.N, ctx.device)
+    rt = emb.make_rns_round_tables(t)
+    rng = np.random.default_rng(23)
+    values = rng.uniform(-1, 1, cs.N // 2) + 1j * rng.uniform(-1, 1,
+                                                             cs.N // 2)
+    u = emb.embed_inverse_fft(torch.from_numpy(values).to(ctx.device),
+                              tables)
+    if hasattr(emb, "rns_ntt_forward_round_stats"):
+        fn = lambda: emb.rns_ntt_forward_round_stats(
+            u, tables.untwist, cs.CKKS_SCALE, rt, t)
+    else:
+        def fn():
+            words, stat = emb.untwist_round_to_rns_stats(u, cs.CKKS_SCALE,
+                                                         tables, rt)
+            return ntt.rns_ntt_forward(words, t), stat
+    words, stat = fn()
+    ce = P.CKKSEncoder(ctx)
+    out = {"package": str(pathlib.Path(P.__file__).resolve().parent),
+           "statistic": float(stat),
+           "round (n)->(5,n)": {"graph_us": _graph(cs, fn), **_profiled(
+               cs, fn, ("ntt_pass_kernel", "round_kernel"))},
+           "encode_with_stats": _profiled(
+               cs, lambda: ce.encode_with_stats(values, cs.CKKS_SCALE))}
+    print(f"O4 {tag} {json.dumps(out)}", flush=True)
+
+
 def rank(log_path: str) -> None:
     cs = _chip_smoke()
     lines = [ln for ln in pathlib.Path(log_path).read_text().splitlines()
@@ -195,6 +319,10 @@ if __name__ == "__main__":
         ops(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] in ("b", "kpp"):
         kernel_phase(sys.argv[2], sys.argv[1])
+    elif len(sys.argv) == 3 and sys.argv[1] == "g":
+        g_mode(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "o4":
+        o4_mode(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "rank":
         rank(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "sass":

@@ -41,7 +41,7 @@ SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
            "sampling.cu", "negacyclic.cu", "tiles.cu", "ntt_mxu.cu",
            "sharding.cu")
 HEADERS = ("u64.cuh", "butterfly.cuh", "divide_round.cuh", "decrypt.cuh",
-           "plain_lift.cuh", "ckks_round.cuh")
+           "plain_lift.cuh", "ckks_round.cuh", "plain_embed.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,6 +61,8 @@ _SIGNATURES = {
                               _P),
     "troy_ntt_forward_round": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I,
                                _D, _P),
+    "troy_ntt_forward_round_stats": (_P, _P, _P, _L, _P, _P, _L, _I, _I, _P,
+                                     _P, _P, _P, _I, _D, _P),
     "troy_ntt_inverse_pair_convolve": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P,
                                        _P, _P, _P, _P, _P, _P, _P),
     "troy_ntt_forward_rescale": _FUSED_DIVIDE,
@@ -91,7 +93,10 @@ _SIGNATURES = {
     "troy_mod_switch_divide_round": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _P,
                                      _P),
     "troy_bgv_divide_coeff": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P),
-    "troy_bfv_plain_embed": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
+    "troy_rns_zero_embed": (_P, _L, _P, _P, _P, _L, _P, _I, _L, _I, _I, _P,
+                            _P),
+    "troy_bfv_plain_embed": (_P, _L, _P, _P, _L, _P, _L, _I, _I, _L, _I, _I,
+                             _P, _P),
     "troy_galois_permute": (_P, _P, _P, _L, _I, _I, _P, _P),
     "troy_galois_permute_batched": (_P, _P, _P, _L, _I, _I, _P, _L, _I, _P),
     "troy_ckks_fft_encode": (_P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _D, _P),
@@ -140,6 +145,7 @@ KERNELS = {
     "troy_ntt_forward_digits": "AF_ntt_digits",
     "troy_ntt_forward_lift": "AGp_ntt_lift",
     "troy_ntt_forward_round": "AO2p_ntt_round",
+    "troy_ntt_forward_round_stats": "AO4p_ntt_round_stats",
     "troy_ntt_inverse_pair_convolve": "AP2i_pair_intt",
     "troy_ntt_forward_rescale": "AKp_rescale_ntt",
     "troy_ntt_forward_keyswitch": "AKp_keyswitch_ntt",
@@ -152,6 +158,7 @@ KERNELS = {
     "troy_dyadic_convolve": "B_dyadic_mac",
     "troy_base_convert": "C_base_convert",
     "troy_rns_elementwise": "D_rns_elementwise",
+    "troy_rns_zero_embed": "DG_zero_embed",
     "troy_behz_lift": "E_behz",
     "troy_behz_tail": "E_behz",
     "troy_behz_decrypt_round": "E_behz",

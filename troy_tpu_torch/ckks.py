@@ -10,8 +10,10 @@ On the context's device, encode is kernel O1 (the FP64 transform with the
 slot scatter fused in), O2 (untwist, scale, round, reduce into every prime)
 and A (the NTT); decode is A (inverse NTT), O3 (the centred CRT composition
 times 1/scale) and O1 (the transform with the twist and the slot gather
-fused in). ``encode_with_stats`` runs O4 in O2's place, which also reduces
-the largest rounded coefficient (troy's gMaxReal) to a device scalar; an
+fused in); where the transforms are A's, O2's rounding runs in A's first
+pass (AO2p). ``encode_with_stats`` runs AO4p in AO2p's place (O4 in O2's
+off A's route), which also reduces the largest rounded coefficient
+(troy's gMaxReal) to a device scalar; an
 ``encode`` whose host bound scale * max|v| reaches Q/2 runs it and reads it
 back, troy's exact magnitude check. ``decode_device_with_stats`` runs O5 in
 O1's place, which also reduces the conjugate-symmetry residual of the
@@ -68,8 +70,8 @@ class EncodeStats:
 
     ``max_abs_small`` is a 0-d float64 tensor on the context's device (or a
     float); the properties read it back. The port rounds at the full scale
-    (kernel O4), so its exponent is 0 where the JAX package splits the
-    scale."""
+    (kernels AO4p and O4), so its exponent is 0 where the JAX package
+    splits the scale."""
 
     max_abs_small: object
     exponent: int = 0
@@ -148,11 +150,15 @@ class CKKSEncoder:
                        cd: ContextData, stats: bool = False):
         """O1, then O2's rounding and A's forward transform on complex slot
         values on the device: one AO2p call (O2 in A's first pass) where
-        the transforms are A's, O2 and A (J) otherwise, and with ``stats``
-        O4 and A. The plaintext, or (plaintext, EncodeStats)."""
+        the transforms are A's, O2 and J otherwise; with ``stats`` one AO4p
+        call (AO2p with O4's statistic) where the transforms are A's, O4
+        and J otherwise. The plaintext, or (plaintext, EncodeStats)."""
         u = emb.embed_inverse_fft(values, self._emb)
         rt = emb.make_rns_round_tables(cd.ntt)
-        if stats:
+        if stats and dntt.on_a_route(cd.ntt):
+            data, largest = emb.rns_ntt_forward_round_stats(
+                u, self._emb.untwist, scale, rt, cd.ntt)
+        elif stats:
             rns, largest = emb.untwist_round_to_rns_stats(u, scale,
                                                           self._emb, rt)
             data = dntt.rns_ntt_forward(rns, cd.ntt)
@@ -229,10 +235,10 @@ class CKKSEncoder:
                           scale: float, level: Optional[int] = None
                           ) -> Tuple[Plaintext, EncodeStats]:
         """``encode`` and the largest |coefficient| it rounded
-        (troy_tpu/ckks.py:187): O1, O4 and A, the statistic a device scalar
-        that stays there until a property of the EncodeStats reads it. No
-        magnitude check: this is what the check reads. ``host=True``: the
-        host oracle's coefficients."""
+        (troy_tpu/ckks.py:187): O1 and AO4p (O4 and J off A's route), the
+        statistic a device scalar that stays there until a property of the
+        EncodeStats reads it. No magnitude check: this is what the check
+        reads. ``host=True``: the host oracle's coefficients."""
         level = self._level(level)
         cd = self.context.get_context_data(level)
         values = np.asarray(values, dtype=np.complex128)

@@ -200,6 +200,22 @@
 // runs twice A's threads (kRoundSpread), 4 words a thread, and rounds
 // every slot with no branch between the words, so that more of the
 // chains run at once (PERF.md).
+//
+// troy_ntt_forward_round_stats (AO4p) is AO2p with kernel O4's statistic
+// (embedding.cu troy_ckks_round_stats; troy_tpu/ops/embedding.py:611
+// encode_stats_pipeline, the encode's exact magnitude check of
+// troy_tpu/ckks.py:134-149 and :187): max |rint(Re(u untwist) scale)|,
+// the largest rounded coefficient, as an f64 bit pattern. A slot rounds
+// to the same value in every limb, so only the first pass's blocks of
+// row 0 (limb 0 of the one source row) reduce it: each writes its block
+// maximum into a small buffer, and the last pass's first block, which
+// the stream orders after them, reduces the buffer into the statistic.
+// Below 2^kSplitLogN the one pass's first block holds all of row 0 and
+// writes it. O4's memset, its launch and A's forward after it become
+// AO2p's two launches; a maximum is exact in any order, so the word is
+// O4's bit for bit. AO2p's own instances are left as they were: the
+// statistic is a load mode of its own (kLoadRoundStats, and
+// kLoadPlainReduce for the last pass).
 
 #include "butterfly.cuh"
 #include "ckks_round.cuh"
@@ -225,9 +241,18 @@ __host__ __device__ constexpr bool columns(int mode) {
 // itself, the key switch's digit (Barrett-64 into the row's prime), K''s
 // temp of the divide's last row, or the plain lift of a word mod t into
 // the row's prime (G''s), or the CKKS encode's exact rounding of an f64
-// word into the row's prime (O2's).
+// word into the row's prime (O2's), also reducing the largest rounded
+// |value| of the rows of limb 0 into a block maximum (AO4p's first pass,
+// O4's statistic). kLoadPlainReduce is AO4p's last pass: A's plain load,
+// and its first block reduces the first pass's block maxima into the
+// statistic.
 enum Load { kLoadPlain = 0, kLoadDigits = 1, kLoadDivide = 2,
-            kLoadLift = 3, kLoadRound = 4 };
+            kLoadLift = 3, kLoadRound = 4, kLoadRoundStats = 5,
+            kLoadPlainReduce = 6 };
+
+__host__ __device__ constexpr bool rounds(int load) {
+    return load == kLoadRound || load == kLoadRoundStats;
+}
 
 constexpr int kLogTile = 10;    // the words a block of the two-pass form
 constexpr int kSplitLogN = 10;  // the least log2(n) that takes two passes
@@ -283,13 +308,36 @@ __device__ __forceinline__ LiftRow lift_row(const Lift &lf,
 // The rounding's operands (AO2p; null consts otherwise): the untwist (n,)
 // complex or null (the source is then real: (rows / k, n) f64, else
 // complex), O2's constants in RoundLayout, its exponent count and the
-// scale.
+// scale; AO4p's statistic (null otherwise) as an f64 bit pattern, and the
+// first pass's block maxima (maxima_count of them) that its last pass
+// reduces into it.
 struct Round {
     const double2 *untwist;
     const uint64_t *consts;
     int E;
     double scale;
+    unsigned long long *stat, *maxima;
+    int maxima_count;
 };
+
+// The largest v of a warp's lanes, in every lane.
+__device__ __forceinline__ double warp_max(double v) {
+    for (int off = 16; off > 0; off >>= 1) {
+        v = fmax(v, __shfl_xor_sync(0xffffffffu, v, off));
+    }
+    return v;
+}
+
+// AO4p's first pass: each warp's largest rounded |value|, in shared memory
+// that only the instances calling this hold.
+__device__ __forceinline__ double *warp_maxima() {
+    __shared__ double maxima[32];
+    return maxima;
+}
+
+__device__ __forceinline__ unsigned long long f64_bits(double v) {
+    return static_cast<unsigned long long>(__double_as_longlong(v));
+}
 
 // One limb's constants of the rounding: its modulus, high Barrett word and
 // rows of 2^e mod q and their Shoup words.
@@ -552,13 +600,32 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
     extern __shared__ uint64_t v_s[];
     const Geo geo = kLogLine > 0
         ? Geo{kMode, kLogLine, kLogTile - kLogLine,
-              (kLoad == kLoadRound ? kRoundSpread : 1) << (kLogTile - 3)}
+              (rounds(kLoad) ? kRoundSpread : 1) << (kLogTile - 3)}
         : Geo{pass.mode, pass.log_line, pass.log_lines,
               static_cast<int>(blockDim.x)};
     const int log_line = geo.log_line, log_lines = geo.log_lines;
     const int words = 1 << (log_line + log_lines);
     const int line_mask = (1 << log_line) - 1;
     const Block blk = block_of(geo, log_n, k);
+
+    // AO4p's last pass: the first block's first warp loads the first
+    // pass's block maxima now and reduces them into the statistic at the
+    // end (a maximum of non-negative f64 values, exact in any order); no
+    // other thread waits for it
+    double stat_v = 0.0;
+    if constexpr (kLoad == kLoadPlainReduce) {
+        if (blockIdx.x == 0 && threadIdx.x < 32) {
+            for (int b = threadIdx.x; b < rd.maxima_count; b += 32) {
+                stat_v = fmax(stat_v, __longlong_as_double(
+                                          static_cast<long long>(
+                                              rd.maxima[b])));
+            }
+        }
+    }
+    // AO4p's first pass: the blocks of limb 0 (the one pass over whole
+    // rows: block 0, which holds row 0) reduce the statistic's maxima
+    const bool stat_block = kLoad == kLoadRoundStats &&
+        (geo.mode == kRows ? blockIdx.x == 0 : blk.limb == 0);
 
     // the finish's x and accumulator words of this thread's words, loaded
     // first so that their latency passes under the transform's
@@ -600,7 +667,8 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
     }
     // the source row of the digits' or the temps' loads of a strided or
     // contiguous block (one row a block), as an offset from its output row
-    const int64_t shift = kLoad != kLoadPlain && geo.mode != kRows
+    const int64_t shift =
+        kLoad != kLoadPlain && kLoad != kLoadPlainReduce && geo.mode != kRows
         ? digit_row(blk.row_base, log_n, k) - blk.row_base : 0;
     if constexpr (kLoad == kLoadDivide) {
         // this thread's words of last first, all in flight together, then
@@ -670,12 +738,13 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
             v_s[pos[w]] = lift_limb(mv, mv >= lf.threshold, t, r.q, r.cr_hi,
                                     r.inc);
         }
-    } else if constexpr (kLoad == kLoadRound) {
+    } else if constexpr (rounds(kLoad)) {
         // this thread's source words (and their untwist words; without an
         // untwist, (1, 0): Re(c 1) = c exactly) first, all in flight
         // together, then their roundings, every slot rounded (an empty
         // one a zero) and stored where it holds a word, with no branch
-        // between the words; a strided block's limb constants read once
+        // between the words; a strided block's limb constants read once;
+        // AO4p's warps reduce their largest |rounded value|
         const RoundLayout L{k, rd.E};
         const RoundRow rr = geo.mode != kRows ? round_row(rd, L, blk.limb)
                                               : RoundRow{};
@@ -709,6 +778,7 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
             pos[w] = smem_pos(geo, l, i);
             limb[w] = ln.limb;
         }
+        double largest = 0.0;
 #pragma unroll
         for (int w = 0; w < kWordsPerThread; ++w) {
             const RoundRow r = geo.mode == kRows ? round_row(rd, L, limb[w])
@@ -718,6 +788,15 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
                 round_split(untwisted_re(uw[w], tw[w]), rd.scale, rd.E, a),
                 r.q, r.ratio, r.pow2, r.pow2_shoup);
             if (pos[w] >= 0) v_s[pos[w]] = v;
+            if constexpr (kLoad == kLoadRoundStats) {
+                if (limb[w] == 0) largest = fmax(largest, a);
+            }
+        }
+        if constexpr (kLoad == kLoadRoundStats) {
+            largest = warp_max(largest);
+            if ((threadIdx.x & 31) == 0) {
+                warp_maxima()[threadIdx.x >> 5] = largest;
+            }
         }
     } else {
         for (int f = threadIdx.x; f < words; f += geo.threads) {
@@ -739,6 +818,18 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
         }
     }
     __syncthreads();
+    if constexpr (kLoad == kLoadRoundStats) {
+        // a block of limb 0 writes its maximum (the one pass: the
+        // statistic)
+        if (stat_block && threadIdx.x == 0) {
+            double v = 0.0;
+            for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+                v = fmax(v, warp_maxima()[w]);
+            }
+            *(geo.mode == kRows ? rd.stat : rd.maxima + blockIdx.x) =
+                f64_bits(v);
+        }
+    }
 
     if (kLogLine > 0) {
 #pragma unroll
@@ -791,6 +882,12 @@ __global__ void ntt_pass_kernel(uint64_t *out, const uint64_t *in,
             }
         }
         out[at] = x;
+    }
+    if constexpr (kLoad == kLoadPlainReduce) {
+        if (blockIdx.x == 0 && threadIdx.x < 32) {
+            stat_v = warp_max(stat_v);
+            if (threadIdx.x == 0) *rd.stat = f64_bits(stat_v);
+        }
     }
 }
 
@@ -1308,6 +1405,8 @@ PassKernel kernel_for(const Pass &p) {
         if (kernel == nullptr) {
             kernel = compiled_for<kInverse, kChunks, kLoad, kFinish>(p);
         }
+    } else if constexpr (kLoad == kLoadPlainReduce) {
+        kernel = compiled_for<kInverse, kChunks, kLoad, kFinish>(p);
     } else if constexpr (!kFinish) {
         kernel = compiled_for<kInverse, kCols, kLoad, kFinish>(p);
     } else if constexpr (kLoad == kLoadPlain) {
@@ -1319,8 +1418,9 @@ PassKernel kernel_for(const Pass &p) {
 }
 
 // The kernel of pass p of `count`: A's own, or with the digits' load
-// (cr_hi), the lift's (lf), the rounding's (rd) or the divide's load and
-// finish (dv) in a forward transform.
+// (cr_hi), the lift's (lf), the rounding's (rd; with its statistic, the
+// last pass's reduction too) or the divide's load and finish (dv) in a
+// forward transform.
 PassKernel pass_kernel(const Pass &pass, int p, int count, int inverse,
                        const void *cr_hi, const Divide *dv, const Lift *lf,
                        const Round *rd) {
@@ -1336,6 +1436,10 @@ PassKernel pass_kernel(const Pass &pass, int p, int count, int inverse,
     }
     if (lf != nullptr && first) {
         return kernel_for<false, kLoadLift, false>(pass);
+    }
+    if (rd != nullptr && rd->stat != nullptr) {
+        return first ? kernel_for<false, kLoadRoundStats, false>(pass)
+                     : kernel_for<false, kLoadPlainReduce, false>(pass);
     }
     if (rd != nullptr && first) {
         return kernel_for<false, kLoadRound, false>(pass);
@@ -1516,7 +1620,39 @@ extern "C" int troy_ntt_forward_round(void *out, const void *u,
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const Round rd = {static_cast<const double2 *>(untwist),
-                      static_cast<const uint64_t *>(consts), E, scale};
+                      static_cast<const uint64_t *>(consts), E, scale,
+                      nullptr, nullptr, 0};
+    return run(out, u, rows, log_n, k, roots, roots_shoup, moduli, nullptr,
+               nullptr, nullptr, 0, 0, nullptr, stream, nullptr, &rd);
+}
+
+// AO2p with O4's statistic (AO4p): the same words from one source row
+// (rows = k), and max |rint(Re(u untwist) scale)| (or |rint(u scale)|) as
+// an f64 bit pattern at stat. From 2^kSplitLogN the first pass's blocks of
+// row 0 write their maxima into `maxima` (room for maxima_room words:
+// 2^log_n / 2^kLogTile suffice), which the last pass's first block
+// reduces; below, the one pass's first block (which holds row 0) writes
+// the statistic. No memset and no third launch.
+extern "C" int troy_ntt_forward_round_stats(
+        void *out, void *stat, void *maxima, long long maxima_room,
+        const void *u, const void *untwist, long long rows, int log_n, int k,
+        const void *roots, const void *roots_shoup, const void *moduli,
+        const void *consts, int E, double scale, void *stream) {
+    if (consts == nullptr || stat == nullptr || k < 1 || E < 1 ||
+        rows != k || log_n < 1 || log_n > 24) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    Pass passes[2];
+    const int count = plan(rows, log_n, 0, passes);
+    const long long per_row = count == 2 ? passes[0].blocks / rows : 0;
+    if (per_row > maxima_room || (per_row > 0 && maxima == nullptr)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const Round rd = {static_cast<const double2 *>(untwist),
+                      static_cast<const uint64_t *>(consts), E, scale,
+                      static_cast<unsigned long long *>(stat),
+                      static_cast<unsigned long long *>(maxima),
+                      static_cast<int>(per_row)};
     return run(out, u, rows, log_n, k, roots, roots_shoup, moduli, nullptr,
                nullptr, nullptr, 0, 0, nullptr, stream, nullptr, &rd);
 }

@@ -3,8 +3,9 @@ of BFV, CKKS and BGV plaintexts.
 
 The port of troy_tpu/encryptor.py. A zero encryption (rlwe.py) takes the
 plaintext into c0:
-  * BFV: a coefficient-form zero encryption, then c0 + round(Q/t * m)
-    (kernel G);
+  * BFV: a coefficient-form zero encryption whose finish adds round(Q/t *
+    m) (kernel DG, the embedding on D's grid; kernel G on the
+    host-sampling path);
   * CKKS: an NTT-form zero encryption at the plaintext's level, then
     c0 + m, added in the zero encryption's finish (kernel D);
   * BGV (whose zero encryption's noise is t e): an NTT-form zero
@@ -34,27 +35,6 @@ from . import rlwe
 from .ops import poly as dpoly
 
 
-def _embed_plain_c0(m: torch.Tensor, c0: torch.Tensor,
-                    cd: ContextData) -> torch.Tensor:
-    """The scheme's embed of a plaintext into c0 (troy_tpu/encryptor.py:29);
-    m and c0 may carry one leading batch axis. The host-sampling path's;
-    the device path adds ``_plain_operand`` in its zero encryption's
-    finish (CKKS, BGV) or runs kernel G in place (BFV)."""
-    scheme = cd.scheme
-    if scheme == SchemeType.bfv:
-        # c0 += round(Q/t * m) (multiplyAddPlainWithScalingVariant)
-        return _bfv_embed(m, c0, cd)
-    return dpoly.rns_add(c0, _plain_operand(m, cd), cd.ntt)
-
-
-def _bfv_embed(m: torch.Tensor, c0: torch.Tensor, cd: ContextData,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """BFV's c0 + round(Q/t m) (kernel G), into ``out`` (may be c0)."""
-    return dpoly.bfv_plain_embed(
-        m, c0, int(cd.plain_modulus), cd.coeff_modulus_mod_plain_modulus,
-        cd.coeff_div_plain_modulus, cd.ntt, out=out)
-
-
 def _plain_operand(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
     """The NTT-form words an NTT-form encryption adds to c0: CKKS's m;
     BGV's raw residues (the lift with threshold t lifts nothing)
@@ -65,40 +45,44 @@ def _plain_operand(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
     return dpoly.plain_lift_ntt(m, cd.ntt, t, t, cd.total_coeff_modulus)
 
 
+def _finish_operand(m: torch.Tensor, cd: ContextData,
+                    is_ntt_form: bool) -> torch.Tensor:
+    """What the zero encryption's finish takes into c0: the NTT-form words
+    (CKKS, BGV), or BFV's words mod t, which DG embeds."""
+    return _plain_operand(m, cd) if is_ntt_form else m
+
+
 def _encrypt_sym_full(seeds: Sequence[int], m: torch.Tensor,
                       sk_data: torch.Tensor, cd: ContextData,
                       is_ntt_form: bool) -> torch.Tensor:
     """A whole symmetric encryption sampled on the device: seeds (a, e)
-    (troy_tpu/encryptor.py:52). CKKS and BGV add the plaintext in the zero
-    encryption's finish; BFV embeds it into c0 in place (kernel G)."""
-    if is_ntt_form:
-        return rlwe._zero_sym_core(seeds[0], seeds[1], sk_data, cd, True,
-                                   _plain_operand(m, cd))
-    ct = rlwe._zero_sym_core(seeds[0], seeds[1], sk_data, cd, False)
-    _bfv_embed(m, ct[0], cd, out=ct[0])
-    return ct
+    (troy_tpu/encryptor.py:52), the plaintext added in the zero
+    encryption's finish (D; BFV's embedding on DG)."""
+    return rlwe._zero_sym_core(seeds[0], seeds[1], sk_data, cd, is_ntt_form,
+                               _finish_operand(m, cd, is_ntt_form))
 
 
 def _encrypt_sym_batch(a_seeds: torch.Tensor, e_seeds: torch.Tensor,
                        m: torch.Tensor, sk_data: torch.Tensor,
                        cd: ContextData, is_ntt_form: bool) -> torch.Tensor:
     """B symmetric encryptions from device arrays of B seed pairs, (B, 2,
-    k, n) (troy_tpu/encryptor.py:113): NTT form in one launch each of I,
-    B, A and D (the finish writes c0 and copies c1 into the batch); BFV's
-    c0s through kernel G, then stacked with the c1s."""
-    if is_ntt_form:
-        return rlwe._zero_sym_core(a_seeds, e_seeds, sk_data, cd, True,
-                                   _plain_operand(m, cd))
-    both = rlwe._zero_sym_coeff(a_seeds, e_seeds, sk_data, cd)
-    return torch.stack([_bfv_embed(m, both[0], cd), both[1]], dim=1)
+    k, n) (troy_tpu/encryptor.py:113): one launch each of I, B, A and D
+    (BFV: DG), the finish writing each c0 and copying each c1 into the
+    batch."""
+    return rlwe._zero_sym_core(a_seeds, e_seeds, sk_data, cd, is_ntt_form,
+                               _finish_operand(m, cd, is_ntt_form))
 
 
 def _embed_into_zero(zero_data: torch.Tensor, m: torch.Tensor,
                      cd: ContextData) -> torch.Tensor:
-    """The plaintext embedded into a zero encryption's c0
-    (troy_tpu/encryptor.py:63)."""
-    return torch.cat([_embed_plain_c0(m, zero_data[0], cd).unsqueeze(0),
-                      zero_data[1:]])
+    """The plaintext embedded into a zero encryption's c0, a new ciphertext
+    (troy_tpu/encryptor.py:29, :63): BFV's c0 + round(Q/t * m) on kernel G,
+    the others' c0 + the NTT-form words on D, each one launch that copies
+    c1 too. The host-sampling path's."""
+    if cd.scheme == SchemeType.bfv:
+        return dpoly.bfv_plain_embed_c0(zero_data, m, *rlwe.bfv_embed_args(cd),
+                                        cd.ntt)
+    return dpoly.rns_add_c0(zero_data, _plain_operand(m, cd), cd.ntt)
 
 
 def _encrypt_asym_full(seeds: Sequence[int], m: torch.Tensor,
@@ -107,12 +91,9 @@ def _encrypt_asym_full(seeds: Sequence[int], m: torch.Tensor,
     """A whole asymmetric encryption: seeds (u, e_0, ..., e_{size-1})
     (troy_tpu/encryptor.py:71), the plaintext added as in
     ``_encrypt_sym_full``."""
-    if is_ntt_form:
-        return rlwe._zero_asym_core(seeds[0], seeds[1:], pk_data, cd, True,
-                                    _plain_operand(m, cd))
-    ct = rlwe._zero_asym_core(seeds[0], seeds[1:], pk_data, cd, False)
-    _bfv_embed(m, ct[0], cd, out=ct[0])
-    return ct
+    return rlwe._zero_asym_core(seeds[0], seeds[1:], pk_data, cd,
+                                is_ntt_form,
+                                _finish_operand(m, cd, is_ntt_form))
 
 
 class Encryptor:

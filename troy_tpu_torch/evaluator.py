@@ -59,6 +59,7 @@ from .context import ContextData, HeContext
 from .he_types import (Ciphertext, GaloisKeys, KSwitchKeys, LWECiphertext,
                        Plaintext, RelinKeys)
 from .params import SchemeType
+from . import rlwe
 from .ops import galois as dgalois
 from .ops import keyswitch as dks
 from .ops import ntt as dntt
@@ -672,34 +673,30 @@ class Evaluator:
                   subtract: bool = False) -> Ciphertext:
         """c0 +/- the plaintext: BFV round(Q/t m) (kernel G); CKKS an
         NTT-form plaintext at the ciphertext's level and scale (D); BGV the
-        centred lift of m cf mod t, transformed (G', A, D)
-        (troy_tpu/evaluator.py:1070-1097)."""
+        centred lift of m cf mod t, transformed (AGp, or G' and J; then D)
+        (troy_tpu/evaluator.py:1070-1097). The new ciphertext's c0 is
+        written and its c1 copied by that one G or D launch."""
         cd = self._ntt_scheme(ct, "add_plain")
         data = ct.data
         if cd.scheme == SchemeType.bfv:
             if plain.is_ntt_form:
                 raise ValueError("BFV add_plain expects a mod-t plaintext")
-            c0 = dpoly.bfv_plain_embed(
-                _pad(plain.data, cd.n), data[0], int(cd.plain_modulus),
-                cd.coeff_modulus_mod_plain_modulus,
-                cd.coeff_div_plain_modulus, cd.ntt, subtract)
+            return ct.replace(data=dpoly.bfv_plain_embed_c0(
+                data, _pad(plain.data, cd.n), *rlwe.bfv_embed_args(cd),
+                cd.ntt, subtract))
+        if cd.scheme == SchemeType.ckks:
+            if not plain.is_ntt_form or plain.level != ct.level:
+                raise ValueError("CKKS plain must be NTT form at the "
+                                 "ciphertext's level")
+            if not _scales_close(ct.scale, plain.scale):
+                raise ValueError("CKKS scales mismatch in add_plain")
+            m = plain.data
         else:
-            if cd.scheme == SchemeType.ckks:
-                if not plain.is_ntt_form or plain.level != ct.level:
-                    raise ValueError("CKKS plain must be NTT form at the "
-                                     "ciphertext's level")
-                if not _scales_close(ct.scale, plain.scale):
-                    raise ValueError("CKKS scales mismatch in add_plain")
-                m = plain.data
-            else:
-                if plain.is_ntt_form:
-                    raise ValueError("BGV add_plain expects a mod-t "
-                                     "plaintext")
-                m = _plain_to_ntt(_pad(plain.data, cd.n), cd,
-                                  ct.correction_factor)
-            op = dpoly.rns_sub if subtract else dpoly.rns_add
-            c0 = op(data[0], m, cd.ntt)
-        return ct.replace(data=torch.cat([c0.unsqueeze(0), data[1:]]))
+            if plain.is_ntt_form:
+                raise ValueError("BGV add_plain expects a mod-t plaintext")
+            m = _plain_to_ntt(_pad(plain.data, cd.n), cd,
+                              ct.correction_factor)
+        return ct.replace(data=dpoly.rns_add_c0(data, m, cd.ntt, subtract))
 
     def sub_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
         return self.add_plain(ct, plain, subtract=True)

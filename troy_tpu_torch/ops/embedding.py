@@ -14,6 +14,10 @@ The port of troy_tpu/ops/embedding.py on kernels O1-O5 (csrc/embedding.cu):
     round(c * scale) of real coefficients) folded into kernel A's first
     forward pass (csrc/ntt.cu), the words of O2 then the forward NTT in
     one call: the encodes' route where the transforms are A's;
+  * ``rns_ntt_forward_round_stats`` (AO4p): AO2p's words and O4's
+    statistic in the same two launches (the first pass's blocks of one
+    limb reduce their largest rounded |value|, the last pass's first
+    block the statistic): ``encode_with_stats`` on A's route;
   * ``compose_centered`` (O3): (k, n) residues -> the centred CRT value as
     f64, times 1/scale;
   * ``untwist_round_to_rns_stats`` (O4): O2's words and max |rint(Re(u *
@@ -315,11 +319,13 @@ def untwist_round_to_rns_plain(u_: torch.Tensor,
     return torch.where(neg, u.neg_mod(r, q), r)
 
 
-def round_stats_plain(u_: torch.Tensor, untwist: torch.Tensor,
+def round_stats_plain(u_: torch.Tensor, untwist: Optional[torch.Tensor],
                       scale: float) -> torch.Tensor:
     """The statistic of O4 in plain PyTorch: max |rint(Re(u * untwist) *
-    scale)| as a 0-d float64 tensor, from O2's own rounded values."""
-    re = u_.real * untwist.real - u_.imag * untwist.imag
+    scale)| (with no untwist, max |rint(u * scale)| of real words) as a 0-d
+    float64 tensor, from O2's own rounded values."""
+    re = u_ if untwist is None \
+        else u_.real * untwist.real - u_.imag * untwist.imag
     return torch.round(re * scale).abs().max()
 
 
@@ -550,19 +556,21 @@ def ntt_forward_round_plain(u_: torch.Tensor,
         untwist_round_to_rns_plain(u_, untwist, scale, rt), tables)
 
 
-def rns_ntt_forward_round(u_: torch.Tensor, untwist: Optional[torch.Tensor],
-                          scale: float, rt: RnsRoundTables,
-                          tables: RnsNttTables) -> torch.Tensor:
-    """The CKKS encode's exact rounding, transformed (kernel O2's rounding
-    folded into kernel A's first forward pass, AO2p, one A call): u (n,)
-    complex128 with its untwist (n,) complex128 (the slot encode), or (n,)
-    float64 with none (the polynomial encode's real coefficients) -> (k,
-    n), row j the forward NTT of round(Re(u * untwist) * scale), or
-    round(u * scale), mod q_j, round half to even, fully reduced: the words
-    of ``untwist_round_to_rns`` (or ``round_to_rns``) then
-    ``rns_ntt_forward``. rt: the round tables of ``tables``' base. A's
-    route only: tables on J, or a pointwise view, raise."""
-    name = "rns_ntt_forward_round"
+def ntt_forward_round_stats_plain(u_: torch.Tensor,
+                                  untwist: Optional[torch.Tensor],
+                                  scale: float, rt: RnsRoundTables,
+                                  tables: RnsNttTables):
+    """The plain version of ``rns_ntt_forward_round_stats``: AO2p's plain
+    version and O4's statistic's."""
+    return (ntt_forward_round_plain(u_, untwist, scale, rt, tables),
+            round_stats_plain(u_, untwist, scale))
+
+
+def _check_round_operands(name: str, u_: torch.Tensor,
+                          untwist: Optional[torch.Tensor],
+                          rt: RnsRoundTables, tables: RnsNttTables) -> None:
+    """AO2p's and AO4p's operands: (n,) words, complex with a complex
+    untwist or float64 with none, on A's route, rt of tables' base."""
     want = F64 if untwist is None else C128
     if u_.shape != (tables.n,) or (untwist is not None
                                    and untwist.shape != (tables.n,)):
@@ -580,12 +588,28 @@ def rns_ntt_forward_round(u_: torch.Tensor, untwist: Optional[torch.Tensor],
     if tuple(rt.q_values) != tuple(tables.values):
         raise ValueError(f"{name}: the round tables are not of the base of "
                          "these tables")
+
+
+def rns_ntt_forward_round(u_: torch.Tensor, untwist: Optional[torch.Tensor],
+                          scale: float, rt: RnsRoundTables,
+                          tables: RnsNttTables) -> torch.Tensor:
+    """The CKKS encode's exact rounding, transformed (kernel O2's rounding
+    folded into kernel A's first forward pass, AO2p, one A call): u (n,)
+    complex128 with its untwist (n,) complex128 (the slot encode), or (n,)
+    float64 with none (the polynomial encode's real coefficients) -> (k,
+    n), row j the forward NTT of round(Re(u * untwist) * scale), or
+    round(u * scale), mod q_j, round half to even, fully reduced: the words
+    of ``untwist_round_to_rns`` (or ``round_to_rns``) then
+    ``rns_ntt_forward``. rt: the round tables of ``tables``' base. A's
+    route only: tables on J, or a pointwise view, raise."""
+    name = "rns_ntt_forward_round"
+    _check_round_operands(name, u_, untwist, rt, tables)
     operands = [u_, rt.round_consts, tables.q] + (
         [] if untwist is None else [untwist])
     if not _kernels.on_cuda(*operands):
         return ntt_forward_round_plain(u_, untwist, scale, rt, tables)
     u_ = u_.contiguous()
-    _kernels.check_operand(u_, f"{name} input", want)
+    _kernels.check_operand(u_, f"{name} input", u_.dtype)
     if untwist is not None:
         _kernels.check_operand(untwist, f"{name} untwist", C128)
     out = torch.empty((tables.k, tables.n), dtype=torch.int64,
@@ -595,6 +619,39 @@ def rns_ntt_forward_round(u_: torch.Tensor, untwist: Optional[torch.Tensor],
                     tables.root_powers, tables.root_powers_shoup, tables.q,
                     rt.round_consts, rt.exponents, float(scale))
     return out
+
+
+def rns_ntt_forward_round_stats(u_: torch.Tensor,
+                                untwist: Optional[torch.Tensor],
+                                scale: float, rt: RnsRoundTables,
+                                tables: RnsNttTables):
+    """``rns_ntt_forward_round`` and O4's statistic in the same two
+    launches (AO4p): (words (k, n), max |rint(Re(u * untwist) * scale)|
+    (or |rint(u * scale)|) as a 0-d float64 tensor on u's device). The
+    statistic is bit-equal to O4's (a maximum, exact in any order), the
+    words to AO2p's. A's route only, as ``rns_ntt_forward_round``."""
+    name = "rns_ntt_forward_round_stats"
+    _check_round_operands(name, u_, untwist, rt, tables)
+    operands = [u_, rt.round_consts, tables.q] + (
+        [] if untwist is None else [untwist])
+    if not _kernels.on_cuda(*operands):
+        return ntt_forward_round_stats_plain(u_, untwist, scale, rt, tables)
+    u_ = u_.contiguous()
+    _kernels.check_operand(u_, f"{name} input", u_.dtype)
+    if untwist is not None:
+        _kernels.check_operand(untwist, f"{name} untwist", C128)
+    out = torch.empty((tables.k, tables.n), dtype=torch.int64,
+                      device=u_.device)
+    stat = torch.empty((), dtype=F64, device=u_.device)
+    # the first pass's block maxima: at most one a 2^10-word tile of a row
+    maxima = torch.empty(max(1, tables.n >> 10), dtype=torch.int64,
+                         device=u_.device)
+    _kernels.launch("troy_ntt_forward_round_stats", out.get_device(), out,
+                    stat, maxima, maxima.numel(), u_, untwist, tables.k,
+                    tables.log_n, tables.k, tables.root_powers,
+                    tables.root_powers_shoup, tables.q, rt.round_consts,
+                    rt.exponents, float(scale))
+    return out, stat
 
 
 def compose_centered(residues: torch.Tensor, rt: RnsRoundTables,

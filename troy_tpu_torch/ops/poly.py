@@ -5,11 +5,13 @@ The port of troy_tpu/ops/poly.py. Arrays are (..., k, n) int64 tensors of
 u64 words, limb-major, with per-limb moduli from the base's RnsNttTables.
 ``rns_add``, ``rns_sub``, ``rns_neg`` and ``rns_scalar_mul`` run on kernel
 D (csrc/rns_elementwise.cu), as do its fused forms ``zero_sym_finish``,
-``zero_asym_finish``, ``switching_key_rows`` and ``balanced_add`` (one
-launch each for a chain of those steps), ``bfv_plain_embed`` on kernel G and
-``plain_lift`` on kernel G' (both csrc/plain_embed.cu; ``plain_lift_ntt``
-routes a lift and its transform to AGp, G' folded into A's first pass, on
-A's route), the negacyclic
+``zero_asym_finish``, ``switching_key_rows``, ``balanced_add`` and
+``rns_add_c0`` (one launch each for a chain of those steps),
+``zero_sym_embed`` and ``zero_asym_embed`` on DG (BFV's finishes with the
+plain embedding, on D's grid) and ``bfv_plain_embed`` on kernel G (on D's
+grid too, csrc/rns_elementwise.cu), ``plain_lift`` on kernel G'
+(csrc/plain_embed.cu; ``plain_lift_ntt`` routes a lift and its transform
+to AGp, G' folded into A's first pass, on A's route), the negacyclic
 shift family ``negacyclic_shift``, ``extract_lwe_many`` and
 ``assemble_lwe`` on kernel N1 and the pack-tree prepare
 ``pack_fold_prepare`` on kernel N2 (both csrc/negacyclic.cu) for tensors
@@ -113,10 +115,12 @@ def _group_stride(out: torch.Tensor, t: RnsNttTables, name: str) -> int:
     return out.stride(0) if out.dim() == 3 else t.k * t.n
 
 
-def _c1_view(out: torch.Tensor, t: RnsNttTables) -> torch.Tensor:
-    """The component after each of out's groups (c1 after c0)."""
+def _c1_view(out: torch.Tensor, t: RnsNttTables,
+             component: int = 1) -> torch.Tensor:
+    """The component ``component`` places after each of out's groups (c1
+    after c0)."""
     return torch.as_strided(out, out.shape, out.stride(),
-                            out.storage_offset() + t.k * t.n)
+                            out.storage_offset() + component * t.k * t.n)
 
 
 _NO_CONSTS = (None, None)
@@ -150,10 +154,11 @@ def _launch_d(op: int, out: torch.Tensor, out_stride: int, x: torch.Tensor,
 
 def _check_fused(name: str, out: torch.Tensor, t: RnsNttTables,
                  *operands: Optional[torch.Tensor],
-                 c1: Optional[torch.Tensor] = None) -> int:
+                 c1: Optional[torch.Tensor] = None, copies: int = 1) -> int:
     """A fused form's operands checked (contiguous int64 CUDA tensors,
     aligned; out int64 on CUDA, its (k, n) groups at one even stride, with
-    room for c1 after each); returns out's group stride."""
+    room for c1's ``copies`` components after each); returns out's group
+    stride."""
     for v in operands + (c1,):
         if v is not None:
             _kernels.check_operand(v, f"{name} operand")
@@ -164,9 +169,10 @@ def _check_fused(name: str, out: torch.Tensor, t: RnsNttTables,
     if stride % 2:
         raise ValueError(f"{name}: out's group stride {stride} is odd")
     if c1 is not None:
-        groups = c1.numel() // kn
-        end = out.storage_offset() + (groups - 1) * stride + 2 * kn
-        if (groups > 1 and stride < 2 * kn) or \
+        groups = c1.numel() // (kn * copies)
+        span = (1 + copies) * kn
+        end = out.storage_offset() + (groups - 1) * stride + span
+        if (groups > 1 and stride < span) or \
                 end * 8 > out.untyped_storage().nbytes():
             raise ValueError(f"{name}: no room for c1 after out's groups")
     _aligned(name, out, c1, *operands)
@@ -344,6 +350,32 @@ def balanced_add(x: torch.Tensor, y: torch.Tensor, e1: int, e2: int,
     return out
 
 
+def rns_add_c0(data: torch.Tensor, m: torch.Tensor, t: RnsNttTables,
+               subtract: bool = False) -> torch.Tensor:
+    """A new ciphertext: data (size, k, n) with the words m (k, n) added to
+    (subtracted from) its c0 mod q_i and its other components copied; one
+    kernel-D launch writes c0 and copies c1 (a copy for any component after
+    c1): the NTT-form add_plain of CKKS and BGV."""
+    _check_rows(data, t, "rns_add_c0")
+    if data.dim() != 3 or m.shape != data.shape[1:]:
+        raise ValueError(f"rns_add_c0: data {tuple(data.shape)} and m "
+                         f"{tuple(m.shape)} do not fit")
+    out = torch.empty_like(data)
+    if not _kernels.on_cuda(data, m, t.q):
+        out[0] = rns_elementwise_plain(SUB if subtract else ADD, data[0], m,
+                                       t)
+        out[1:] = data[1:]
+        return out
+    data, m = data.contiguous(), m.contiguous()
+    c1 = data[1] if data.shape[0] > 1 else None
+    _check_fused("rns_add_c0", out[0], t, data, m, c1=c1)
+    _launch_d(SUB if subtract else ADD, out[0], t.k * t.n, data[0], m, 1, t,
+              c1=c1)
+    if data.shape[0] > 2:
+        out[2:] = data[2:]
+    return out
+
+
 def bfv_multiply_add_plain(m: torch.Tensor, c0: torch.Tensor,
                            plain_modulus: int, q_mod_t: int,
                            coeff_div_plain: Tuple[int, ...],
@@ -383,52 +415,184 @@ def bfv_multiply_add_plain(m: torch.Tensor, c0: torch.Tensor,
     return u.sub_mod(c0, term, q) if subtract else u.add_mod(c0, term, q)
 
 
+def zero_sym_embed_plain(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+                         plain_modulus: int, q_mod_t: int,
+                         coeff_div_plain: Tuple[int, ...],
+                         t: RnsNttTables) -> torch.Tensor:
+    """The plain version of DG's symmetric finish: D's finish -(x + y),
+    then G's c0 + round(Q m / t) (troy_tpu/rlwe.py:125-131, then
+    troy_tpu/ops/poly.py:98 as troy_tpu/encryptor.py:29 adds it). x, y:
+    (..., k, n); m: (..., n) mod t."""
+    return bfv_multiply_add_plain(m, zero_sym_finish_plain(x, y, t),
+                                  plain_modulus, q_mod_t, coeff_div_plain, t)
+
+
+def zero_asym_embed_plain(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+                          plain_modulus: int, q_mod_t: int,
+                          coeff_div_plain: Tuple[int, ...],
+                          t: RnsNttTables) -> torch.Tensor:
+    """The plain version of DG's public-key finish: D's x + y per
+    component, then G's round(Q m / t) onto the first (troy_tpu/rlwe.py:
+    327-330, then troy_tpu/ops/poly.py:98). x, y: (size, k, n); m: (n,)."""
+    out = zero_asym_finish_plain(x, y, t)
+    out[0] = bfv_multiply_add_plain(m, out[0], plain_modulus, q_mod_t,
+                                    coeff_div_plain, t)
+    return out
+
+
 def _plain_embed_consts(plain_modulus: int, q_mod_t: int,
                         coeff_div_plain: Tuple[int, ...],
                         t: RnsNttTables) -> torch.Tensor:
-    """Kernel G's constants (csrc/plain_embed.cu), once per tables and
+    """G's and DG's constants (csrc/plain_embed.cuh EmbedLayout): t,
+    (t+1)/2, Q mod t and its Shoup word mod t, then per limb q, the high
+    Barrett word, floor(Q/t) mod q and its Shoup word; once per tables and
     scalars."""
     key = ("plain_embed", plain_modulus, q_mod_t, tuple(coeff_div_plain))
     if key not in t._memo:
         tt = plain_modulus
-        ratio = (1 << 128) // tt
-        s = (tt & -tt).bit_length() - 1
         d = [c % q for c, q in zip(coeff_div_plain, t.values)]
-        words = ([tt, (tt + 1) >> 1, ratio & u.M64, ratio >> 64, s,
-                  pow(tt >> s, -1, 1 << 64), q_mod_t] + list(t.values)
+        words = ([tt, (tt + 1) >> 1, q_mod_t % tt,
+                  u.shoup_quotient(q_mod_t % tt, tt)] + list(t.values)
                  + [((1 << 128) // q) >> 64 for q in t.values] + d
                  + [u.shoup_quotient(w, q) for w, q in zip(d, t.values)])
         t._memo[key] = to_torch(np.array(words, dtype=np.uint64), t.device)
     return t._memo[key]
 
 
+def _check_embed_m(name: str, m: torch.Tensor, shape: tuple) -> None:
+    if m.dtype != torch.int64 or tuple(m.shape) != shape:
+        raise ValueError(f"{name}: m {tuple(m.shape)} {m.dtype}, expected "
+                         f"{shape} int64 words")
+
+
+def zero_sym_embed(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+                   plain_modulus: int, q_mod_t: int,
+                   coeff_div_plain: Tuple[int, ...], t: RnsNttTables,
+                   out: Optional[torch.Tensor] = None,
+                   c1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BFV's symmetric zero-encryption finish with its plaintext (DG, one
+    launch on D's grid): c0 = round(Q m / t) - (x + y) mod q_i, the words of
+    D's finish -(x + y) then G's add. x = a s, y = e in coefficient form,
+    (k, n) or (G, k, n); m (n,) or (G, n) mod t. ``out`` and ``c1`` as for
+    ``zero_sym_finish`` (out may be x; c1 copied into the component after
+    each c0). Returns out."""
+    G = _groups(x, t, "zero_sym_embed")
+    if y.shape != x.shape or (c1 is not None and c1.shape != x.shape):
+        raise ValueError("zero_sym_embed: operands differ in shape")
+    _check_embed_m("zero_sym_embed", m, tuple(x.shape[:-2]) + (t.n,))
+    if out is None:
+        if c1 is not None:
+            raise ValueError("zero_sym_embed: c1 needs out in a ciphertext")
+        out = torch.empty_like(x)
+    if out.shape != x.shape:
+        raise ValueError(f"zero_sym_embed: out {tuple(out.shape)}")
+    args = (plain_modulus, q_mod_t, coeff_div_plain)
+    consts = _plain_embed_consts(*args, t)
+    operands = [v for v in (x, y, m, c1, out, consts) if v is not None]
+    if not _kernels.on_cuda(*operands):
+        out.copy_(zero_sym_embed_plain(x, y, m, *args, t))
+        if c1 is not None:
+            _c1_view(out, t).copy_(c1)
+        return out
+    x, y, m = x.contiguous(), y.contiguous(), m.contiguous()
+    c1 = None if c1 is None else c1.contiguous()
+    stride = _check_fused("zero_sym_embed", out, t, x, y, m, c1=c1)
+    _kernels.launch("troy_rns_zero_embed", out.get_device(), out, stride, x,
+                    y, m, t.n, c1, 0, G, t.k, t.log_n, consts)
+    return out
+
+
+def zero_asym_embed(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+                    plain_modulus: int, q_mod_t: int,
+                    coeff_div_plain: Tuple[int, ...], t: RnsNttTables,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BFV's public-key zero-encryption finish with its plaintext (DG, one
+    launch on D's grid): c_j = x_j + y_j mod q_i (x = pk_j u, y = e_j, in
+    coefficient form), + round(Q m / t) on c_0. x, y, out: (size, k, n)
+    (out may be x); m: (n,) mod t."""
+    G = _groups(x, t, "zero_asym_embed")
+    if y.shape != x.shape or x.dim() != 3:
+        raise ValueError("zero_asym_embed: operands do not fit")
+    _check_embed_m("zero_asym_embed", m, (t.n,))
+    if out is None:
+        out = torch.empty_like(x)
+    if out.shape != x.shape:
+        raise ValueError(f"zero_asym_embed: out {tuple(out.shape)}")
+    args = (plain_modulus, q_mod_t, coeff_div_plain)
+    consts = _plain_embed_consts(*args, t)
+    if not _kernels.on_cuda(x, y, m, out, consts):
+        return out.copy_(zero_asym_embed_plain(x, y, m, *args, t))
+    x, y, m = x.contiguous(), y.contiguous(), m.contiguous()
+    stride = _check_fused("zero_asym_embed", out, t, x, y, m)
+    _kernels.launch("troy_rns_zero_embed", out.get_device(), out, stride, x,
+                    y, m, 0, None, 1, G, t.k, t.log_n, consts)
+    return out
+
+
 def bfv_plain_embed(m: torch.Tensor, c0: torch.Tensor, plain_modulus: int,
                     q_mod_t: int, coeff_div_plain: Tuple[int, ...],
                     t: RnsNttTables, subtract: bool = False,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """BFV plain embedding c0 +/- round(Q/t * m) per limb (kernel G).
-    m: (..., n) mod t; c0: (..., k, n) with the same leading axes. Into
-    ``out`` (contiguous, c0's shape; it may be c0 itself: each word is read
-    before it is written) if given."""
+                    out: Optional[torch.Tensor] = None,
+                    c1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BFV plain embedding c0 +/- round(Q/t * m) per limb (kernel G, one
+    launch on D's grid). m: (..., n) mod t; c0: (..., k, n) with the same
+    leading axes, G groups. ``out``: c0's shape, a new tensor if None, else
+    any view whose (k, n) groups lie at one stride, such as c0 of a new
+    ciphertext, and it may be c0 itself; ``c1`` (G, s, k, n), or (s, k, n)
+    for one group: the s components copied after each of out's groups in
+    the same launch (a ciphertext's c1, c2, ...). Returns out."""
     _check_rows(c0, t, "bfv_plain_embed")
     if m.shape != c0.shape[:-2] + c0.shape[-1:]:
         raise ValueError(f"bfv_plain_embed: m {tuple(m.shape)} does not "
                          f"match c0 {tuple(c0.shape)}")
-    if out is not None and out.shape != c0.shape:
-        raise ValueError(f"bfv_plain_embed: out {tuple(out.shape)}")
-    consts = _plain_embed_consts(plain_modulus, q_mod_t, coeff_div_plain, t)
-    if not _kernels.on_cuda(m, c0, consts):
-        res = bfv_multiply_add_plain(m, c0, plain_modulus, q_mod_t,
-                                     coeff_div_plain, t, subtract)
-        return res if out is None else out.copy_(res)
-    m, c0 = m.contiguous(), c0.contiguous()
-    _kernels.check_operand(m, "bfv_plain_embed m")
-    _kernels.check_operand(c0, "bfv_plain_embed c0")
     if out is None:
+        if c1 is not None:
+            raise ValueError("bfv_plain_embed: c1 needs out in a ciphertext")
         out = torch.empty_like(c0)
-    _kernels.check_operand(out, "bfv_plain_embed out")
-    _kernels.launch("troy_bfv_plain_embed", out.get_device(), out, m, c0,
-                    m.numel() // t.n, t.k, t.log_n, int(subtract), consts)
+    if out.shape != c0.shape:
+        raise ValueError(f"bfv_plain_embed: out {tuple(out.shape)}")
+    kn = t.k * t.n
+    G = c0.numel() // kn
+    copies = 0 if c1 is None else c1.numel() // (G * kn)
+    if c1 is not None and (copies < 1 or c1.numel() != G * copies * kn or
+                           c1.shape[-2:] != c0.shape[-2:]):
+        raise ValueError(f"bfv_plain_embed: c1 {tuple(c1.shape)} is not "
+                         f"{G} group(s) of components")
+    args = (plain_modulus, q_mod_t, coeff_div_plain)
+    consts = _plain_embed_consts(*args, t)
+    operands = [v for v in (m, c0, c1, out, consts) if v is not None]
+    if not _kernels.on_cuda(*operands):
+        out.copy_(bfv_multiply_add_plain(m, c0, *args, t, subtract))
+        if c1 is not None:
+            parts = c1.reshape((G, copies) + c1.shape[-2:])
+            for j in range(copies):
+                _c1_view(out, t, j + 1).copy_(
+                    parts[:, j].reshape(out.shape))
+        return out
+    m, c0 = m.contiguous(), c0.contiguous()
+    c1 = None if c1 is None else c1.contiguous()
+    stride = _check_fused("bfv_plain_embed", out, t, m, c0, c1=c1,
+                          copies=max(copies, 1))
+    _kernels.launch("troy_bfv_plain_embed", out.get_device(), out, stride,
+                    c0, m, t.n, c1, copies * kn, copies, int(subtract), G,
+                    t.k, t.log_n, consts)
+    return out
+
+
+def bfv_plain_embed_c0(data: torch.Tensor, m: torch.Tensor,
+                       plain_modulus: int, q_mod_t: int,
+                       coeff_div_plain: Tuple[int, ...], t: RnsNttTables,
+                       subtract: bool = False) -> torch.Tensor:
+    """A new ciphertext: data (size, k, n) with round(Q m / t) added to
+    (subtracted from) its c0 and its other components copied, one kernel-G
+    launch: BFV's add_plain and sub_plain, the host-sampled encrypt's
+    embed."""
+    if data.dim() != 3:
+        raise ValueError(f"bfv_plain_embed_c0: data {tuple(data.shape)}")
+    out = torch.empty_like(data)
+    bfv_plain_embed(m, data[0], plain_modulus, q_mod_t, coeff_div_plain, t,
+                    subtract, out=out[0],
+                    c1=data[1:] if data.shape[0] > 1 else None)
     return out
 
 

@@ -67,6 +67,13 @@ def _noise_scale(cd: ContextData):
     return int(cd.plain_modulus) if cd.scheme == SchemeType.bgv else None
 
 
+def bfv_embed_args(cd: ContextData) -> tuple:
+    """(t, Q mod t, floor(Q/t) mod q_i): BFV's plain embedding of this
+    level (ops/poly.py bfv_plain_embed)."""
+    return (int(cd.plain_modulus), cd.coeff_modulus_mod_plain_modulus,
+            cd.coeff_div_plain_modulus)
+
+
 def _lead(seeds: Seeds) -> tuple:
     return () if isinstance(seeds, int) else (seeds.numel(),)
 
@@ -89,12 +96,16 @@ def _zero_sym_ntt_parts(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
 
 
 def _zero_sym_coeff(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
-                    cd: ContextData) -> torch.Tensor:
+                    cd: ContextData,
+                    m: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The coefficient-form zero encryption: (2, k, n) (c0, c1), or (2, B,
     k, n) (the c0s, then the c1s) for B seed pairs. One kernel-I launch
     draws e and a around a free slot that B fills with a s, so both
     inverse transforms are one launch on contiguous rows, and the finish
-    writes c0 = -(a s + e) over the transformed a s."""
+    writes c0 = -(a s + e) over the transformed a s. With BFV's plaintexts
+    ``m`` ((n,), or (B, n) mod t) the finish is DG's, c0 = round(Q m / t) -
+    (a s + e), and B seed pairs give (B, 2, k, n): the finish writes each
+    c0 and copies each c1 into the ciphertexts."""
     t = cd.ntt
     buf = torch.empty((3,) + _lead(a_seeds) + (cd.limbs, cd.n),
                       dtype=torch.int64, device=cd.device)
@@ -103,26 +114,40 @@ def _zero_sym_coeff(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
     dntt.dyadic_mac(sk_data[:cd.limbs].unsqueeze(0), buf[2].unsqueeze(0), t,
                     out=buf[1])
     both = dntt.rns_ntt_inverse(buf[1:], t)
-    dpoly.zero_sym_finish(both[0], buf[0], t, out=both[0])
-    return both
+    if m is None:
+        dpoly.zero_sym_finish(both[0], buf[0], t, out=both[0])
+        return both
+    args = bfv_embed_args(cd)
+    if isinstance(a_seeds, int):
+        dpoly.zero_sym_embed(both[0], buf[0], m, *args, t, out=both[0])
+        return both
+    ct = torch.empty(_lead(a_seeds) + (2, cd.limbs, cd.n), dtype=torch.int64,
+                     device=cd.device)
+    dpoly.zero_sym_embed(both[0], buf[0], m, *args, t, out=ct[:, 0],
+                         c1=both[1])
+    return ct
 
 
 def _zero_sym_core(a_seeds: Seeds, e_seeds: Seeds, sk_data: torch.Tensor,
                    cd: ContextData, is_ntt_form: bool,
                    m: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Symmetric zero encryption sampled on the device, (2, k, n), or in
-    NTT form (B, 2, k, n) for device arrays of B seed pairs, the same
-    words as B single draws (troy_tpu/rlwe.py:111 _zero_sym_core, :260
-    _zero_sym_batch_core): c = (-(a s + e), a). In NTT form ``m`` (the
-    plaintext's NTT-form words, c0's shape) is added to c0 in the same
-    finish: one launch each of I, B, A and D, and for one seed pair no
-    copy (the draw's buffer is the ciphertext). A batch in coefficient
-    form is ``_zero_sym_coeff``'s."""
+    """Symmetric zero encryption sampled on the device, (2, k, n), or
+    (B, 2, k, n) for device arrays of B seed pairs, the same words as B
+    single draws (troy_tpu/rlwe.py:111 _zero_sym_core, :260
+    _zero_sym_batch_core): c = (-(a s + e), a). ``m``, the plaintext, joins
+    c0 in the same finish: in NTT form its NTT-form words (c0's shape),
+    added by D; in coefficient form (BFV) its words mod t ((n,), or (B, n)),
+    embedded as round(Q m / t) by DG. One launch each of I, B, A and D (or
+    DG), and for one seed pair no copy (the draw's buffer is the
+    ciphertext). A coefficient-form batch needs its plaintexts."""
     if not is_ntt_form:
-        if m is not None or not isinstance(a_seeds, int):
-            raise ValueError("_zero_sym_core: one coefficient-form "
-                             "encryption, with no plaintext")
-        return _zero_sym_coeff(a_seeds, e_seeds, sk_data, cd)
+        if m is not None and cd.scheme != SchemeType.bfv:
+            raise ValueError("_zero_sym_core: a coefficient-form plaintext "
+                             "is BFV's")
+        if m is None and not isinstance(a_seeds, int):
+            raise ValueError("_zero_sym_core: a coefficient-form batch "
+                             "needs its plaintexts")
+        return _zero_sym_coeff(a_seeds, e_seeds, sk_data, cd, m)
     buf, as_ntt, e_ntt = _zero_sym_ntt_parts(a_seeds, e_seeds, sk_data, cd)
     if isinstance(a_seeds, int):
         dpoly.zero_sym_finish(as_ntt, e_ntt, cd.ntt, m, out=buf[0])
@@ -190,10 +215,11 @@ def _zero_asym_core(u_seed: int, e_seeds: Sequence[int],
     """c_j = pk_j u + e_j, j < len(e_seeds), with ternary u and CBD e_j
     drawn on the device in one kernel-I launch (troy_tpu/rlwe.py:307):
     (size, k, n). BFV takes the products out of the NTT domain before
-    adding e_j; CKKS and BGV transform u and every e_j in one launch and
-    add NTT(e_j), and ``m`` (NTT-form words, (k, n)) onto c_0, in the same
-    finish. pk_data: the key's components over at least this level's k
-    limbs."""
+    adding e_j, and ``m`` (its words mod t, (n,)) joins c_0 as round(Q m /
+    t) in the same finish (DG); CKKS and BGV transform u and every e_j in
+    one launch and add NTT(e_j), and ``m`` (NTT-form words, (k, n)) onto
+    c_0, in the same finish (D). pk_data: the key's components over at
+    least this level's k limbs."""
     t = cd.ntt
     draws = sampling.sample_zero_asym_rns(u_seed, e_seeds, t,
                                           _noise_scale(cd))
@@ -202,12 +228,15 @@ def _zero_asym_core(u_seed: int, e_seeds: Sequence[int],
         d = dntt.rns_ntt_forward(draws, t)
         prods = dntt.dyadic_mac(d[:1], pk, t)
         return dpoly.zero_asym_finish(prods, d[1:], t, m, out=prods)
-    if m is not None:
-        raise ValueError("_zero_asym_core: the plaintext joins only an "
-                         "NTT-form finish")
+    if m is not None and cd.scheme != SchemeType.bfv:
+        raise ValueError("_zero_asym_core: a coefficient-form plaintext is "
+                         "BFV's")
     u_ntt = dntt.rns_ntt_forward(draws[:1], t)
     prods = dntt.rns_ntt_inverse(dntt.dyadic_mac(u_ntt, pk, t), t)
-    return dpoly.zero_asym_finish(prods, draws[1:], t, out=prods)
+    if m is None:
+        return dpoly.zero_asym_finish(prods, draws[1:], t, out=prods)
+    return dpoly.zero_asym_embed(prods, draws[1:], m, *bfv_embed_args(cd), t,
+                                 out=prods)
 
 
 def encrypt_zero_asymmetric(cd: ContextData, pk: PublicKey,
