@@ -13,8 +13,11 @@ BFV chain, a 16-prime CKKS chain at n = 32768, and BFV
 at n = 131072 and 262144; troy's own Python entry point, its pybind11
 binder's scripts (binder/test.py, binder/timetest.py) through the port's
 binder API, with its raw wire; and the multi-device regimes on
-torch.distributed in ranks sharing the card. Phases, in order (35 runs
-between 32 and 33); any failure raises and the script exits non-zero without a result line:
+torch.distributed in ranks sharing the card; and the port's oracle suites
+(troy's C++ fixtures, the fuzz sequences, the narrow BEHZ base, CKKS
+precision against depth). Phases, in order (36, then 35, run between 32
+and 33); any failure raises and the script exits non-zero without a
+result line:
 
 1. device: require CUDA; print the card, its power limit, torch and CUDA;
 2. build the native host runtime (troy_tpu_torch/native, g++; the run
@@ -399,14 +402,35 @@ between 32 and 33); any failure raises and the script exits non-zero without a r
    (op_spread). Device us
    a call come from CUDA events
    around a CUDA graph of 20 calls (the host's enqueue is longer than
-   these kernels), a launch from the profiler.
+   these kernels), a launch from the profiler;
+36. the oracle suites on the card, each part in a count window of its
+   own with one line of its cases and launches: a. every case of
+   tools/troy_vectors_torch.py that runs ops (troy's C++ fixtures at
+   n = 64 and 4096: BFV, BGV and CKKS ops on troy's keys and
+   ciphertexts, the encoders, seeded keys and host-sampled encryptions,
+   the noise budget, the CKKS rotation and conjugation, BFV at t = 2^41,
+   the RNS tool's composites: E's lift, ACi, the decrypt scaling and K),
+   word for word against troy's words; b. tools/fuzz_torch.py's BFV, BGV
+   and CKKS sequences at n = 64 and BFV on J's route at n = 2048 (seed
+   0), the polynomial sequences at t = 2^41 and a non-batching t, and the
+   other ops, against their plaintext models and decrypt_many after every
+   step; c. BFV at n = 16384 with Bsk primes of 40 and 48 bits: multiply,
+   relinearize, decrypt and decrypt_many word-equal to the port's CPU run
+   from the same seeds and decrypting to a b, with E's and ACi's
+   launches; d. tools/ckks_precision_torch.py's chain at the headline:
+   fed the CPU run's plaintext words, every stage's ciphertext equal to
+   the CPU run's, and with the card's own encode every row's precision
+   within 0.1 bit of the CPU's (the rows printed); no plain torch on the
+   card in any part, every kernel of SUITES_PATH launched; then each
+   part's card work once more in a profiler trace: its device seconds.
 
 The line before last is a JSON object with one entry per kernel (its
 launches: phases 4-5, phases 8-9, phases 12-13, the plain-op requests of
 phase 14, the default path of phase 16, the LWE path of phase 18, the
 app protocol of phase 21, the J route of phase 24, phases 25, 26 and
-27, the binder window of phase 30 and the sharded window of phase 34
-(summed over its ranks and runs), each counted from 0, also given
+27, the binder window of phase 30, the sharded window of phase 34
+(summed over its ranks and runs) and the suites of phase 36 (summed over
+its parts), each counted from 0, also given
 apart; J's numbers are those of its n = 16384 shape, every shape under
 "J_shapes" and its per-shard stages under "J_shard_shapes"; O4's, AO4p's
 and O5's those of n = 16384 at 2^40, every shape under "stats_shapes"; R1's
@@ -7269,6 +7293,213 @@ def redesign_o1(dev, rng, per_op: dict) -> dict:
 # divide run only on J's route, K keeps divide_round_kernel; X and C,
 # redesigned into AXi and ACi, only on J's route and past the fused
 # decrypt's limbs)
+# ---- phase 36: the oracle suites on the card ----
+
+# tools/ (no package) holds the suites' cases, shared with the CPU tests
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
+NARROW_BITS = (40, 48)               # phase 36c's Bsk widths
+NARROW_SEED = 2037                   # phase 36c's keys and encryptions
+PRECISION_BITS_TOLERANCE = 0.1       # phase 36d: the card's rows, in bits
+# the kernels the suites launch: n = 64 and 4096 at 30-, 40-, 50- and
+# 60-bit primes on A's route (its one pass), J's route at n = 2048 (F's
+# digits and divide, G'), the RNS tool's standalone decrypt scaling (C,
+# E's rounding) beside ACi, and the headline's BFV and CKKS chains
+SUITES_PATH = ("A_ntt", "AF_ntt_digits", "AFi_keyswitch_intt",
+               "B_dyadic_mac", "ACi_decrypt_intt", "AXi_decrypt_intt",
+               "C_base_convert", "D_rns_elementwise", "E_behz",
+               "K_divide_round", "G_plain_embed", "DG_zero_embed",
+               "M_galois", "I_sampling", "O1_ckks_fft", "AO2p_ntt_round",
+               "O3_ckks_compose", "AKp_rescale_ntt", "AKp_keyswitch_ntt",
+               "AKp_bgv_ntt", "AGp_ntt_lift", "J_ntt_mxu", "F_keyswitch",
+               "Gp_plain_lift")
+
+
+def suite_fixtures(dev) -> dict:
+    """36a: every case of tools/troy_vectors_torch.py that runs ops, on the
+    card, word for word against troy's words."""
+    import troy_vectors_torch as tv
+    return {case.__name__: tv.verify(case(str(dev))) for case in tv.CASES}
+
+
+def suite_fuzz(dev) -> dict:
+    """36b: tools/fuzz_torch.py's sequences on the card, one seed each:
+    the steps each checked against its model and decrypt_many."""
+    import fuzz_torch as fz
+    d = str(dev)
+    out = {f"{s.name} seed 0": fz.bfv_bgv_sequence(s, 0, d)
+           for s in (P.SchemeType.bfv, P.SchemeType.bgv)}
+    out["ckks seed 0"] = fz.ckks_sequence(0, d)
+    out["bfv on J, n = 2048"] = fz.mxu_sequence(d)
+    out["t = 2^41"] = fz.polynomial_sequence(1 << 41, [60, 60, 60], 0, d)
+    out["non-batching t"] = fz.polynomial_sequence((1 << 20) - 3,
+                                                   [40, 40, 40], 0, d)
+    for s in (P.SchemeType.bfv, P.SchemeType.bgv, P.SchemeType.ckks):
+        out[f"{s.name} other ops"] = fz.other_ops(s, d)
+    return out
+
+
+def narrow_base_run(bits: int, dev) -> dict:
+    """36c: BFV at the headline (n = 16384, q = {60,40,40,40,40,60},
+    t = 786433) with Bsk primes of ``bits`` bits: multiply, relinearize,
+    decrypt and decrypt_many from seeded keys and encryptions; the words
+    of each step and the decoded slots."""
+    ctx = P.HeContext(P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=N,
+        coeff_modulus=tuple(P.CoeffModulus.create(N, Q_BITS)),
+        plain_modulus=P.PlainModulus.batching(N, 20)),
+        internal_prime_bits=bits, device=dev)
+    kg = P.KeyGenerator(ctx, seed=rnd.seed_from_uint64(NARROW_SEED))
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=rnd.seed_from_uint64(NARROW_SEED + 1))
+    be, ev = P.BatchEncoder(ctx), P.Evaluator(ctx)
+    dec = P.Decryptor(ctx, kg.secret_key)
+    t = be.plain_modulus
+    rng = np.random.default_rng(NARROW_SEED + bits)
+    a = rng.integers(0, t, N, dtype=np.uint64)
+    b = rng.integers(0, t, N, dtype=np.uint64)
+    ca, cb = (enc.encrypt_symmetric(be.encode(v)) for v in (a, b))
+    prod = ev.multiply(ca, cb)
+    rel = ev.relinearize(prod, kg.create_relin_keys())
+    pt = dec.decrypt(rel)
+    many = dec.decrypt_many([rel, ca, cb])
+    return {"bsk": ctx.first_context_data.rns_tool.base_Bsk.values,
+            "t": t, "a": a, "b": b,
+            "words": {"prod": interop.words(prod), "rel": interop.words(rel),
+                      "decrypt": interop.words(pt),
+                      **{f"decrypt_many {i}": interop.words(p)
+                         for i, p in enumerate(many)}},
+            "slots": [be.decode(p) for p in (pt, *many)]}
+
+
+def suite_narrow_base(dev) -> dict:
+    """36c: each width on the card word-equal to the plain versions' run
+    on the CPU at the same seeds, the Bsk primes of that width, the product
+    decoding to a b mod t and decrypt_many to decrypt's words; E's and
+    ACi's launches on the card at each width."""
+    out = {}
+    for bits in NARROW_BITS:
+        before = _kernels.launch_counts()
+        card = narrow_base_run(bits, dev)
+        torch.cuda.synchronize()
+        counts = {k: c - before[k]
+                  for k, c in _kernels.launch_counts().items()}
+        want = narrow_base_run(bits, "cpu")
+        if any(p.bit_length() != bits for p in card["bsk"]) \
+                or card["bsk"] != want["bsk"]:
+            raise AssertionError(f"Bsk at {bits} bits: {card['bsk']} "
+                                 f"(CPU {want['bsk']})")
+        for step, words in want["words"].items():
+            if not np.array_equal(card["words"][step], words):
+                raise AssertionError(f"{bits}-bit Bsk: {step} on the card "
+                                     "differs from the CPU run")
+        t, a, b = card["t"], card["a"], card["b"]
+        product = (a.astype(object) * b.astype(object) % t).astype(np.uint64)
+        for got, model in zip(card["slots"], (product, product, a, b)):
+            if not np.array_equal(got, model):
+                raise AssertionError(f"{bits}-bit Bsk: a decryption on the "
+                                     "card is not its slots' model")
+        out[bits] = {"E_behz": counts.get("E_behz", 0),
+                     "ACi_decrypt_intt": counts.get("ACi_decrypt_intt", 0)}
+        if not all(out[bits].values()):
+            raise AssertionError(f"{bits}-bit Bsk: E or ACi never launched: "
+                                 f"{counts}")
+    return out
+
+
+def suite_precision(dev) -> dict:
+    """36d: tools/ckks_precision_torch.py's chain at the headline on the
+    card. Fed the CPU run's plaintext words, every stage's ciphertext on
+    the card equals the CPU run's word for word (O1's FFT may round an
+    encoded word the other way, so the card's own encode is not held to
+    words); with its own encode and decode, every row within
+    PRECISION_BITS_TOLERANCE bits of the CPU run's."""
+    import ckks_precision_torch as cp
+    cpu_words, card_words = {}, {}
+    cpu_rows, _ = cp.run(device="cpu", record=cpu_words)
+    cp.run(device=dev, plaintexts=cpu_words, record=card_words)
+    differ = [k for k in cpu_words
+              if not np.array_equal(cpu_words[k], card_words[k])]
+    if differ:
+        raise AssertionError(f"the CKKS chain on the card differs from the "
+                             f"CPU run's at {differ}")
+    rows, meta = cp.run(device=dev)
+    for r, w in zip(rows, cpu_rows):
+        if (r["stage"], r["level"]) != (w["stage"], w["level"]) or abs(
+                r["precision_bits"] - w["precision_bits"]) \
+                > PRECISION_BITS_TOLERANCE:
+            raise AssertionError(f"CKKS precision on the card: {r} against "
+                                 f"the CPU's {w}")
+    if len(rows) != len(cpu_rows):
+        raise AssertionError("CKKS precision: the card's rows are not the "
+                             "CPU's")
+    log(cp.table(rows, meta))
+    return {"words_checked": len(cpu_words), "rows": rows,
+            "cpu_bits": [w["precision_bits"] for w in cpu_rows]}
+
+
+def phase_suites(dev, counter) -> tuple:
+    """Phase 36: the port's oracle suites on the card (the CPU tests
+    tests/test_torch_*vectors*.py, *fuzz*.py, internal_base.py and
+    ckks_precision.py run them through the plain versions), each part in
+    a count window of its own: a. troy's C++ fixtures, word for word; b.
+    the fuzz sequences against their models; c. the narrow BEHZ base at
+    the headline; d. CKKS precision against depth. No plain torch on the
+    card in any part; every kernel of SUITES_PATH launched. Then each
+    part's card work once more in a profiler trace for its device
+    seconds. (launch counts of the phase, results)"""
+    import ckks_precision_torch as cp
+    t_phase = time.perf_counter()
+    counter.calls.clear()
+    parts = {"a": ("fixtures", lambda: suite_fixtures(dev)),
+             "b": ("fuzz", lambda: suite_fuzz(dev)),
+             "c": ("narrow base", lambda: suite_narrow_base(dev)),
+             "d": ("ckks precision", lambda: suite_precision(dev))}
+    total, results = {}, {}
+    for part, (what, fn) in parts.items():
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c for k, c in _kernels.launch_counts().items() if c}
+        for kernel, c in counts.items():
+            total[kernel] = total.get(kernel, 0) + c
+        results[part] = {"result": result, "wall_s": wall}
+        if part == "a":
+            said = (f"{len(result)} cases, {sum(result.values())} checks "
+                    "word-equal to troy's words on the card")
+        elif part == "b":
+            said = (f"{len(result)} sequences, steps checked against their "
+                    f"models and decrypt_many: {result}")
+        elif part == "c":
+            said = (f"BFV n = {N} at Bsk widths {list(result)} word-equal "
+                    f"to the CPU run, decrypting to a b; launches {result}")
+        else:
+            said = (f"{result['words_checked']} plaintexts and "
+                    f"ciphertexts word-equal to the CPU run's, precision bits "
+                    f"{[r['precision_bits'] for r in result['rows']]} "
+                    f"(CPU {result['cpu_bits']})")
+        log(f"[36{part}] {what}: {said}; {wall:.1f} s; kernel launches "
+            f"{counts}")
+    # the device seconds of each part's card work (the CPU references
+    # left out), traced once more
+    card_work = {
+        "a": parts["a"][1], "b": parts["b"][1],
+        "c": lambda: [narrow_base_run(bits, dev) for bits in NARROW_BITS],
+        "d": lambda: cp.run(device=dev)}
+    device_s = {}
+    for part, fn in card_work.items():
+        each, _ = _trace(fn, reps=1, warmup=0)
+        device_s[part] = sum(us for _, us in each.values()) / 1e6
+        results[part]["device_s"] = device_s[part]
+    check_path("36", "36", SUITES_PATH, total, counter, absent=())
+    wall = time.perf_counter() - t_phase
+    log(f"[36] suites on the card: {wall:.1f} s in all; device seconds "
+        f"(profiler, one more run of each part's card work) "
+        + ", ".join(f"{p} {s:.4f}" for p, s in device_s.items()))
+    return total, {**results, "wall_s": wall}
+
+
 RANKED = {
     "B_dyadic_mac": ("dyadic_mac_kernel", "dyadic_convolve_kernel",
                      "dyadic_convolve_any_kernel"),
@@ -7557,6 +7788,9 @@ def main() -> None:
     wire = phase_wire(ctx.device)
     stats_ms = phase_stats_medians(ckks_ctx, alice)
 
+    # ---- the oracle suites on the card: 36 ----
+    suites_counts, suites = phase_suites(ctx.device, counter)
+
     # ---- kernels A and M redesigned: 35, before phase 34 spawns its
     # ranks on the card (after it, the profiler lost the same share of
     # every trace in this process) ----
@@ -7574,7 +7808,7 @@ def main() -> None:
     windows = (bfv_counts, ckks_counts, bgv_counts, plain_counts,
                default_counts, lwe_counts, app_counts, mxu16_counts,
                seal_counts, ckks32_counts, ceiling_counts, binder_counts,
-               sharded_counts)
+               sharded_counts, suites_counts)
     for kernel, (source, replaces) in KERNELS.items():
         r = kernel_results[kernel]
         launches = [c.get(kernel, 0) for c in windows]
@@ -7593,6 +7827,7 @@ def main() -> None:
                         "launches_ceiling": launches[10],
                         "launches_binder": launches[11],
                         "launches_sharded": launches[12],
+                        "launches_suites": launches[13],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -7670,6 +7905,7 @@ def main() -> None:
                     "stats_shapes": stats_shapes, "binder": binder,
                     "wire": wire, "stats_ms": stats_ms,
                     "sharded": sharded, "J_shard_shapes": j_shards,
+                    "suites": suites,
                     "native_build_s": native.build_seconds,
                     "redesign": redesign, "mult_relin_a": mult_relin_a,
                     "unredesigned_losses": losses,

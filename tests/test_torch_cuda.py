@@ -1187,6 +1187,41 @@ def test_decrypt_many_launches_do_not_grow_with_the_batch(dev):
                                       np.asarray(words[("cpu", b)]))
 
 
+@pytest.mark.parametrize("scheme", ["bfv", "ckks"])
+def test_decode_of_decrypt_many_plaintexts(dev, scheme):
+    """decrypt_many returns plaintexts on the host; the encoders of a
+    context on the card decode them as they decode decrypt's (they raised
+    on the two devices before; chip_smoke.py's phase 36c decodes them)."""
+    n = 64
+    ckks = scheme == "ckks"
+    extra = {} if ckks else {"plain_modulus": P.PlainModulus.batching(n, 17)}
+    parms = P.EncryptionParameters(
+        scheme=getattr(P.SchemeType, scheme), poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [50, 40, 50])), **extra)
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=dev)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(33))
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=prng.seed_from_uint64(34))
+    dec = P.Decryptor(ctx, kg.secret_key)
+    coder = P.CKKSEncoder(ctx) if ckks else P.BatchEncoder(ctx)
+    values = [np.linspace(-1, 1, n // 2) * (i + 1) for i in range(2)] \
+        if ckks else [np.arange(n, dtype=np.uint64) * (i + 1) for i in
+                      range(2)]
+    cts = [enc.encrypt_symmetric(coder.encode(v, 2.0 ** 30) if ckks
+                                 else coder.encode(v)) for v in values]
+    many = dec.decrypt_many(cts)
+    assert all(not p.data.is_cuda for p in many)
+    for ct, p in zip(cts, many):
+        one = dec.decrypt(ct)
+        np.testing.assert_array_equal(coder.decode(p), coder.decode(one))
+        if ckks:
+            for a, b in zip(coder.decode_device(p), coder.decode_device(one)):
+                assert torch.equal(a, b)
+        else:
+            np.testing.assert_array_equal(coder.decode_signed(p),
+                                          coder.decode_signed(one))
+
+
 def _app_slice(device, scheme):
     """The app protocol at n = 4096 on one device: words, bytes and the
     decrypted results per stage."""

@@ -290,6 +290,45 @@ def test_port_imports_no_jax():
     assert "no-jax flow ok" in proc.stdout
 
 
+# The port-side tools that the CPU suites and chip_smoke.py's phase 36
+# share, in a fresh interpreter in which importing jax, flax or troy_tpu
+# raises: the CKKS precision chain (at n = 64 here), a fixture case and a
+# fuzz sequence.
+TOOLS_FLOW = textwrap.dedent("""
+    import sys
+    repo = sys.argv[1]
+    sys.path[:0] = [repo, f"{repo}/tools"]
+    FORBIDDEN = ("jax", "jaxlib", "flax", "troy_tpu")
+
+    class _NoJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in FORBIDDEN:
+                raise ImportError(f"a tool imported {name}")
+            return None
+
+    sys.meta_path.insert(0, _NoJax())
+    import ckks_precision_torch
+    import fuzz_torch
+    import troy_vectors_torch as tv
+    rows, meta = ckks_precision_torch.run(n=64, trials=1, device="cpu")
+    assert meta["depth"] == 3 and len(rows) == 8, rows
+    assert min(r["precision_bits"] for r in rows) > 15, rows
+    assert tv.verify(tv.behz_multiply("cpu")) == 1
+    assert fuzz_torch.ckks_sequence(0, "cpu") >= 1
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+    assert not loaded, loaded
+    print("no-jax tools ok")
+""")
+
+
+def test_tools_import_no_jax():
+    proc = subprocess.run([sys.executable, "-I", "-c", TOOLS_FLOW,
+                           str(REPO)], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "no-jax tools ok" in proc.stdout
+
+
 def test_cuda_context_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

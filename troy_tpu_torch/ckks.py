@@ -307,8 +307,9 @@ class CKKSEncoder:
     def _decode_coeffs(self, plain: Plaintext,
                        cd: ContextData) -> torch.Tensor:
         """A (inverse) and O3: the centred coefficients times 1/scale, (n,)
-        float64 on the device."""
-        residues = dntt.rns_ntt_inverse(plain.data, cd.ntt)
+        float64 on the device (a plaintext held on the host, as
+        ``Decryptor.decrypt_many`` returns them, moved there first)."""
+        residues = dntt.rns_ntt_inverse(plain.data.to(cd.device), cd.ntt)
         return emb.compose_centered(residues,
                                     emb.make_rns_round_tables(cd.ntt),
                                     1.0 / plain.scale)

@@ -86,11 +86,13 @@ class BatchEncoder:
         return self.encode((values % self.plain_modulus).astype(np.uint64))
 
     def decode(self, plain: Plaintext) -> np.ndarray:
-        """Coefficient plaintext -> unsigned slot values (numpy u64)."""
+        """Coefficient plaintext -> unsigned slot values (numpy u64). A
+        plaintext held on the host (as ``Decryptor.decrypt_many`` returns
+        them) is moved to the context's device first."""
         if plain.is_ntt_form:
             raise ValueError("cannot decode an NTT-form plaintext")
         self._require_batching()
-        data = plain.data
+        data = plain.data.to(self.context.device)
         if data.shape[-1] < self.n:
             data = torch.nn.functional.pad(data, (0, self.n - data.shape[-1]))
         return to_numpy(_decode_core(data, self._index_map, self._tables))
