@@ -33,6 +33,8 @@ from typing import Dict, Optional
 
 import torch
 
+from .utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "troy_tpu_torch"
 SOURCES = ("ntt.cu", "dyadic_mac.cu", "base_convert.cu", "rns_elementwise.cu",
@@ -202,6 +204,8 @@ KERNELS = {
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS.values()}
 _entry_launches: Dict[str, int] = {entry: 0 for entry in KERNELS}
+# host ns of each entry point's launches while recording is on
+_entry_ns: Dict[str, int] = {entry: 0 for entry in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 # each entry point's bound ctypes function, and the raw current-stream
 # reader of torch's CUDA build, set when the library loads
@@ -222,11 +226,20 @@ def entry_launch_counts() -> Dict[str, int]:
     return dict(_entry_launches)
 
 
+def launch_host_ns() -> Dict[str, int]:
+    """Host nanoseconds of each entry point's launches made while recording
+    was on (``utils.profiling``), since the last reset: from ``launch``'s
+    entry, the arguments' conversion included, to the C call's return."""
+    return dict(_entry_ns)
+
+
 def reset_launch_counts() -> None:
+    """Clear the launch counts and ``launch_host_ns``."""
     for name in _launches:
         _launches[name] = 0
     for entry in _entry_launches:
         _entry_launches[entry] = 0
+        _entry_ns[entry] = 0
 
 
 def _nvcc() -> str:
@@ -289,6 +302,7 @@ def build() -> Path:
     return path
 
 
+@profiling.spanned("kernels_load")
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use; binds every entry
     point into ``_entries``."""
@@ -336,9 +350,14 @@ def launch(entry: str, device: int, *args) -> None:
     pointers, None as NULL."""
     if _lib is None:
         library()
+    timed = profiling.active
+    if timed:
+        t0 = time.perf_counter_ns()
     status = _entries[entry](
         *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
         _raw_stream(device))
+    if timed:
+        _entry_ns[entry] += time.perf_counter_ns() - t0
     if status != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {status}")
     _launches[KERNELS[entry]] += 1

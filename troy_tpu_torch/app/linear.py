@@ -53,6 +53,7 @@ from ..ops import poly as dpoly
 from ..ops import tiles as dtiles
 from ..params import SchemeType
 from ..utils import numth
+from ..utils import profiling
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -80,10 +81,16 @@ def _matmul_tiles_core(ct_tiles: torch.Tensor, pt_tiles: torch.Tensor,
     when pt_mod_t (lifted and transformed here, G' and A), else (I, Y, k, n)
     in NTT form. ct_coeff: the tiles come (and leave) in coefficient form
     (BFV, coefficient-form BGV), transformed here (A)."""
-    ct_ntt = dntt.rns_ntt_forward(ct_tiles, cd.ntt) if ct_coeff else ct_tiles
-    w_ntt = _plain_to_ntt(_pad(pt_tiles, cd.n), cd) if pt_mod_t else pt_tiles
-    acc = dtiles.tile_contract(ct_ntt, w_ntt, cd.ntt)
-    return dntt.rns_ntt_inverse(acc, cd.ntt) if ct_coeff else acc
+    with profiling.span("tiles_cipher_ntt"):
+        ct_ntt = dntt.rns_ntt_forward(ct_tiles, cd.ntt) if ct_coeff \
+            else ct_tiles
+    with profiling.span("tiles_plain_ntt"):
+        w_ntt = _plain_to_ntt(_pad(pt_tiles, cd.n), cd) if pt_mod_t \
+            else pt_tiles
+    with profiling.span("tiles_contract"):
+        acc = dtiles.tile_contract(ct_ntt, w_ntt, cd.ntt)
+    with profiling.span("tiles_inverse_ntt"):
+        return dntt.rns_ntt_inverse(acc, cd.ntt) if ct_coeff else acc
 
 
 def _matmul_cipher_tiles_core(a_tiles: torch.Tensor, w_tiles: torch.Tensor,
@@ -123,8 +130,10 @@ def _run_cipher_contraction(ev: Evaluator, a2d: "Cipher2d", w2d: "Cipher2d",
     if w0.level != template.level:
         raise ValueError("ciphertext level mismatch")
     cd = ev.context.get_context_data(template.level)
-    out = _matmul_cipher_tiles_core(_stack_grid(a2d.data, transpose=True),
-                                    _stack_grid(w2d.data, transpose_w), cd)
+    with profiling.span("tiles_stack"):
+        a_tiles = _stack_grid(a2d.data, transpose=True)
+        w_tiles = _stack_grid(w2d.data, transpose_w)
+    out = _matmul_cipher_tiles_core(a_tiles, w_tiles, cd)
     scale = template.scale * w0.scale \
         if cd.scheme == SchemeType.ckks else template.scale
     corr = template.correction_factor * w0.correction_factor \
@@ -149,13 +158,17 @@ def _run_tile_contraction(ev: Evaluator, ct2d: "Cipher2d", pt2d: "Plain2d",
         raise ValueError("NTT-form plaintext level mismatch")
     cd = ev.context.get_context_data(template.level)
     grid = ct2d.data if rows is None else ct2d.data[rows.start:rows.stop]
-    out = _matmul_tiles_core(_stack_grid(grid, transpose_ct),
-                             _stack_grid(pt2d.data, transpose_pt), cd,
+    with profiling.span("tiles_stack"):
+        ct_tiles = _stack_grid(grid, transpose_ct)
+        pt_tiles = _stack_grid(pt2d.data, transpose_pt)
+    out = _matmul_tiles_core(ct_tiles, pt_tiles, cd,
                              not template.is_ntt_form, not pt0.is_ntt_form)
-    if transpose_out:
-        out = out.transpose(0, 1).contiguous()
-    scale = template.scale * pt0.scale if pt0.is_ntt_form else template.scale
-    return _grid(template, out, scale=scale)
+    with profiling.span("tiles_unpack"):
+        if transpose_out:
+            out = out.transpose(0, 1).contiguous()
+        scale = template.scale * pt0.scale if pt0.is_ntt_form \
+            else template.scale
+        return _grid(template, out, scale=scale)
 
 
 def _pack_outputs_core(ev: Evaluator, data: torch.Tensor, steps,
@@ -371,6 +384,7 @@ class MatmulHelper:
                         self.input_block)
 
     # ---- encoders (LinearHelper.cuh:309-401) ----
+    @profiling.spanned("encode")
     def encode_weights(self, encode_poly: Callable[[np.ndarray], Plaintext],
                        weights: np.ndarray) -> Plain2d:
         """weights: (input_dims, output_dims). Blocks hold reversed input
@@ -392,6 +406,7 @@ class MatmulHelper:
             rows.append(row)
         return Plain2d(rows)
 
+    @profiling.spanned("encode")
     def encode_inputs(self, encode_poly: Callable[[np.ndarray], Plaintext],
                       inputs: np.ndarray) -> Plain2d:
         """inputs: (batch_size, input_dims)."""
@@ -418,12 +433,14 @@ class MatmulHelper:
                                   inputs).encrypt_symmetric(encryptor)
 
     # ---- the matmul itself (LinearHelper.cuh:403-479) ----
+    @profiling.spanned("matmul")
     def matmul(self, ev: Evaluator, a: Cipher2d, w: Plain2d) -> Cipher2d:
         """out[b, j] = sum_i a[b, i] (*) w[i, j], every tile in one
         contraction (LinearHelper.cuh:403-427)."""
         return _run_tile_contraction(ev, a, w, transpose_ct=False,
                                      transpose_pt=False, transpose_out=False)
 
+    @profiling.spanned("matmul_cipher")
     def matmul_cipher(self, ev: Evaluator, a: Cipher2d,
                       w: Cipher2d) -> Cipher2d:
         """ct x ct matmul (LinearHelper.cuh:429): size-3 outputs
@@ -514,6 +531,7 @@ class MatmulHelper:
                          for _ in range(cols)] for _ in range(rows)])
 
     # ---- LWE-trace packing (LinearHelper.cuh:592-650 packOutputs) ----
+    @profiling.spanned("pack_outputs")
     def pack_outputs(self, ev: Evaluator, auto_keys: GaloisKeys,
                      cipher: Cipher2d) -> Cipher2d:
         """Every group of input_block output ciphertexts packed into one:
@@ -641,6 +659,7 @@ class Conv2dHelper:
         sw = ceil_div(self.image_width - kw, self.block_width - kw)
         return ceil_div(self.batch_size, self.block_batch) * sh * sw
 
+    @profiling.spanned("encode")
     def encode_weights(self, encode_poly, weights: np.ndarray) -> Plain2d:
         """weights: (out_channels, in_channels, kh, kw), each kernel flipped
         into its reversed-channel block (LinearHelper.cuh:866-903)."""
@@ -678,6 +697,7 @@ class Conv2dHelper:
                     yield (lb, ub, si, sj, min(si + bh, self.image_height),
                            min(sj + bw, self.image_width))
 
+    @profiling.spanned("encode")
     def encode_inputs(self, encode_poly, inputs: np.ndarray) -> Plain2d:
         """inputs: (batch, in_channels, H, W) (LinearHelper.cuh:918-966)."""
         inputs = np.asarray(inputs)
@@ -704,6 +724,7 @@ class Conv2dHelper:
         return self.encode_inputs(encode_poly,
                                   inputs).encrypt_symmetric(encryptor)
 
+    @profiling.spanned("conv2d")
     def conv2d(self, ev: Evaluator, a: Cipher2d, w: Plain2d) -> Cipher2d:
         """out[b, oc] = sum_i a[b, i] (*) w[oc, i]: one contraction over
         every (batch x out-channel group x in-channel) tile

@@ -32,6 +32,7 @@ from .ops.keyswitch import bgv_divide_consts, divide_round_consts
 from .ops.ntt import NttTables, RnsNttTables
 from .ops.poly import plain_lift_consts
 from .ops.rns import DeviceRnsTool, ExactConverter
+from .utils import profiling
 
 
 @dataclass(eq=False)
@@ -172,6 +173,7 @@ class HeContext:
     False, kernel A at any n; None, A up to ops/ntt.py's MAX_KERNEL_N
     (131072) and J above. Both give the same words."""
 
+    @profiling.spanned("context")
     def __init__(self, parms: EncryptionParameters,
                  expand_mod_chain: bool = True,
                  sec_level: SecurityLevel = SecurityLevel.tc128,

@@ -24,6 +24,7 @@ from .interop import to_numpy, to_torch
 from .ops import galois as dgalois
 from .ops import ntt as dntt
 from .utils import numth
+from .utils import profiling
 
 
 class BatchEncoder:
@@ -66,6 +67,7 @@ class BatchEncoder:
             raise ValueError("SIMD batching requires plain_modulus = 1 "
                              "mod 2N; use encode_polynomial instead")
 
+    @profiling.spanned("encode")
     def encode(self, values: Union[Sequence[int], np.ndarray]) -> Plaintext:
         """Unsigned slot values (mod t) -> coefficient plaintext."""
         self._require_batching()
@@ -79,6 +81,7 @@ class BatchEncoder:
             to_torch(values, self.context.device), self._inverse_map,
             self._tables))
 
+    @profiling.spanned("encode")
     def encode_signed(self, values: Union[Sequence[int], np.ndarray]
                       ) -> Plaintext:
         """Signed slot values, taken mod t."""
@@ -104,6 +107,7 @@ class BatchEncoder:
         t = self.plain_modulus
         return np.where(vals >= (t + 1) // 2, vals - t, vals)
 
+    @profiling.spanned("encode")
     def encode_polynomial(self, values: Union[Sequence[int], np.ndarray]
                           ) -> Plaintext:
         """Coefficients (mod t, at most n) -> coefficient plaintext."""

@@ -33,6 +33,7 @@ from .params import SchemeType
 from . import prng as rnd
 from . import rlwe
 from .ops import poly as dpoly
+from .utils import profiling
 
 
 def _plain_operand(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
@@ -114,10 +115,12 @@ class Encryptor:
         self._pk_levels: Dict[int, torch.Tensor] = {}
 
     # ---- public API (encryptor.h:123-394) ----
+    @profiling.spanned("encrypt")
     def encrypt(self, plain: Plaintext) -> Ciphertext:
         """Public-key encryption."""
         return self._encrypt_internal(plain, asymmetric=True, save_seed=False)
 
+    @profiling.spanned("encrypt")
     def encrypt_symmetric(self, plain: Plaintext,
                           save_seed: bool = False) -> Ciphertext:
         """Secret-key encryption; with save_seed the ciphertext's ``seed``
@@ -125,6 +128,7 @@ class Encryptor:
         return self._encrypt_internal(plain, asymmetric=False,
                                       save_seed=save_seed)
 
+    @profiling.spanned("encrypt")
     def encrypt_symmetric_many(self, plains: Sequence[Plaintext],
                                save_seed: bool = False) -> List[Ciphertext]:
         """Symmetric encryption of several plaintexts of one form and level
@@ -151,6 +155,7 @@ class Encryptor:
                            seed=seeds[i] if save_seed else 0)
                 for i in range(len(plains))]
 
+    @profiling.spanned("encrypt")
     def encrypt_zero(self, level: Optional[int] = None,
                      asymmetric: bool = True,
                      save_seed: bool = False) -> Ciphertext:

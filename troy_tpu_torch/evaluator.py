@@ -68,6 +68,7 @@ from .ops import rns as drns
 from .ops import tiles as dtiles
 from .utils import galois as galois_util
 from .utils import numth
+from .utils import profiling
 
 def _scales_close(a: float, b: float) -> bool:
     return abs(a - b) <= max(abs(a), abs(b)) * 1e-9
@@ -93,11 +94,14 @@ def _bfv_multiply(d1: torch.Tensor, d2: Optional[torch.Tensor],
     fully."""
     tool = cd.rns
     s1 = d1.shape[0]
-    both = d1 if d2 is None else torch.cat([d1, d2])    # every component
-    rows_ntt = _bfv_lift_ntt(both, cd)
+    with profiling.span("bfv_lift_ntt"):
+        both = d1 if d2 is None else torch.cat([d1, d2])  # every component
+        rows_ntt = _bfv_lift_ntt(both, cd)
     b = rows_ntt if d2 is None else rows_ntt[s1:]
-    prod = _dyadic_convolution(rows_ntt[:s1], b, tool.q_bsk)
-    return drns.behz_tail(dntt.rns_ntt_inverse(prod, tool.q_bsk), tool)
+    with profiling.span("bfv_convolve"):
+        prod = _dyadic_convolution(rows_ntt[:s1], b, tool.q_bsk)
+    with profiling.span("bfv_tail"):
+        return drns.behz_tail(dntt.rns_ntt_inverse(prod, tool.q_bsk), tool)
 
 
 def _bfv_lift_ntt(d: torch.Tensor, cd: ContextData) -> torch.Tensor:
@@ -286,9 +290,12 @@ def _switch_key_core(target: torch.Tensor, key: torch.Tensor,
     key (decomp, 2, key_limbs, n), NTT form: (2, k, n) in the target's
     domain, with acc (a, k, n), a <= 2, added onto its first a
     components."""
-    return _switch_key_contract(
-        _switch_key_decompose(target, cd, key_cd, ntt_form), key, cd, key_cd,
-        ntt_form, acc)
+    with profiling.span("keyswitch"):
+        with profiling.span("keyswitch_decompose"):
+            t_hat = _switch_key_decompose(target, cd, key_cd, ntt_form)
+        with profiling.span("keyswitch_contract"):
+            return _switch_key_contract(t_hat, key, cd, key_cd, ntt_form,
+                                        acc)
 
 
 def _relinearize_core(data: torch.Tensor, keys, cd: ContextData,
@@ -531,6 +538,7 @@ class Evaluator:
             acc = self.add(acc, c)
         return acc
 
+    @profiling.spanned("multiply")
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         self._check_same(a, b)
         return self._multiply(a, b)
@@ -594,6 +602,7 @@ class Evaluator:
                                 acc=ct.data[:1], ntt_form=ct.is_ntt_form)
         return ct.replace(data=data)
 
+    @profiling.spanned("relinearize")
     def relinearize(self, ct: Ciphertext,
                     relin_keys: RelinKeys) -> Ciphertext:
         """Reduce the ciphertext size back to 2 (evaluator_cuda.cu:703)."""

@@ -34,6 +34,7 @@ from .ops import ntt as dntt
 from .ops import poly as dpoly
 from .utils import galois as galois_util
 from .utils import host_ntt as hntt
+from .utils import profiling
 from .utils.ntt_tables import make_ntt_tables
 
 
@@ -83,6 +84,7 @@ class KeyGenerator:
     another from a single stream: on the host for a generated key, from
     device threefry streams (kernel I) for an external one."""
 
+    @profiling.spanned("keygen")
     def __init__(self, context: HeContext,
                  secret_key: Optional[SecretKey] = None,
                  seed: Optional[bytes] = None,
@@ -121,6 +123,7 @@ class KeyGenerator:
     def secret_key(self) -> SecretKey:
         return self._secret_key
 
+    @profiling.spanned("keygen")
     def create_public_key(self, save_seed: bool = False) -> PublicKey:
         """An NTT-form zero encryption at the key level
         (keygenerator.cpp generatePk): the reference's replay with
@@ -200,6 +203,7 @@ class KeyGenerator:
         return _kswitch_key_core(a_seeds, e_seeds, w_ntt,
                                  self._secret_key.data, key_cd)
 
+    @profiling.spanned("keygen")
     def create_relin_keys(self, count: int = 1) -> RelinKeys:
         """Keys switching s^p -> s for p = 2 .. count+1
         (keygenerator.cpp:122)."""
@@ -210,6 +214,7 @@ class KeyGenerator:
         return RelinKeys(keys={p: self._generate_one_kswitch_key(power(p))
                                for p in range(2, count + 2)})
 
+    @profiling.spanned("keygen")
     def create_galois_keys(self, steps: Optional[Sequence[int]] = None,
                            elts: Optional[Sequence[int]] = None
                            ) -> GaloisKeys:
@@ -241,6 +246,7 @@ class KeyGenerator:
             keys[int(elt)] = self._generate_one_kswitch_key(rotated)
         return GaloisKeys(keys=keys)
 
+    @profiling.spanned("keygen")
     def create_automorphism_keys(self) -> GaloisKeys:
         """Galois keys for every element 2^i + 1, the set the LWE packing
         and field trace use (keygenerator_cuda.cuh:288)."""
@@ -248,6 +254,7 @@ class KeyGenerator:
         return self.create_galois_keys(
             elts=[(1 << i) + 1 for i in range(1, log_n + 1)])
 
+    @profiling.spanned("keygen")
     def create_keyswitch_key(self, old_sk: SecretKey) -> KSwitchKeys:
         """The key switching old_sk's ciphertexts to this generator's key,
         as keys[1] (keygenerator.h createKeySwitchingKey); made on the
