@@ -161,15 +161,38 @@ CASES = [(scheme, name) for name, (schemes, _, _) in FLOWS.items()
          for scheme in schemes]
 
 
+# a Plain2d kept in prepared form is held over this many contractions
+REUSE_CALLS = 3
+
+
+def _ct_pt(s, out, plain, op, reuse):
+    """The ct x pt product op(plain()). With ``reuse`` (the port), op runs
+    REUSE_CALLS times on one Plain2d, then once on each of REUSE_CALLS
+    fresh ones: each call's words in out["reused"] and out["fresh"], the
+    prepared-grid counts of the two runs in out["counts"]."""
+    if not reuse:
+        return op(plain())
+    pt = plain()
+    tlin.reset_prepared_counts()
+    ys = [op(pt) for _ in range(REUSE_CALLS)]
+    out["reused"] = [s.grid_words(y) for y in ys]
+    out["counts"] = [tlin.prepared_counts()]
+    tlin.reset_prepared_counts()
+    out["fresh"] = [s.grid_words(op(plain())) for _ in range(REUSE_CALLS)]
+    out["counts"].append(tlin.prepared_counts())
+    return ys[0]
+
+
 def _matmul(s, enc, rng, dims, pack, cipher=False, relin=False,
-            reverse=False, objective=0, serialize=False):
+            reverse=False, objective=0, serialize=False, reuse=False):
     B, I, O = dims
     x, w = s.values(rng, (B, I)), s.values(rng, (I, O))
     h = s.lin.MatmulHelper(B, I, O, s.n, objective=objective, pack_lwe=pack)
     out = {"blocks": (h.batch_block, h.input_block, h.output_block)}
     if reverse:
         w_ct = h.encode_weights(s.ep, w).encrypt_symmetric(enc)
-        y = h.matmul_reverse(s.ev, h.encode_inputs(s.ep, x), w_ct)
+        y = _ct_pt(s, out, lambda: h.encode_inputs(s.ep, x),
+                   lambda pt: h.matmul_reverse(s.ev, pt, w_ct), reuse)
     elif cipher:
         w_ct = h.encode_weights(s.ep, w).encrypt(enc)
         y = h.matmul_cipher(s.ev, h.encrypt_inputs(enc, s.ep, x), w_ct)
@@ -177,8 +200,9 @@ def _matmul(s, enc, rng, dims, pack, cipher=False, relin=False,
             out["product_size3"] = s.grid_words(y)
             y = y.relinearize(s.ev, s.rlk)
     else:
-        y = h.matmul(s.ev, h.encrypt_inputs(enc, s.ep, x),
-                     h.encode_weights(s.ep, w))
+        x_ct = h.encrypt_inputs(enc, s.ep, x)
+        y = _ct_pt(s, out, lambda: h.encode_weights(s.ep, w),
+                   lambda pt: h.matmul(s.ev, x_ct, pt), reuse)
     out["product"] = s.grid_words(y)
     if pack:
         y = h.pack_outputs(s.ev, s.ak, y)
@@ -198,7 +222,7 @@ def _matmul(s, enc, rng, dims, pack, cipher=False, relin=False,
 
 
 def _conv(s, enc, rng, dims, cipher=False, reverse=False, objective=0,
-          serialize=False, high=None):
+          serialize=False, high=None, reuse=False):
     B, H, W, KH, KW, CI, CO = dims
     x = s.values(rng, (B, CI, H, W), high)
     w = s.values(rng, (CO, CI, KH, KW), high)
@@ -207,14 +231,16 @@ def _conv(s, enc, rng, dims, cipher=False, reverse=False, objective=0,
                       h.block_in_channels, h.block_out_channels)}
     if reverse:
         w_ct = h.encode_weights(s.ep, w).encrypt_symmetric(enc)
-        y = h.conv2d_reverse(s.ev, h.encode_inputs(s.ep, x), w_ct)
+        y = _ct_pt(s, out, lambda: h.encode_inputs(s.ep, x),
+                   lambda pt: h.conv2d_reverse(s.ev, pt, w_ct), reuse)
     elif cipher:
         w_ct = h.encode_weights(s.ep, w).encrypt_symmetric(enc)
         x_ct = h.encode_inputs(s.ep, x).encrypt_symmetric(enc)
         y = h.conv2d_cipher(s.ev, x_ct, w_ct)
     else:
-        y = h.conv2d(s.ev, h.encrypt_inputs(enc, s.ep, x),
-                     h.encode_weights(s.ep, w))
+        x_ct = h.encrypt_inputs(enc, s.ep, x)
+        y = _ct_pt(s, out, lambda: h.encode_weights(s.ep, w),
+                   lambda pt: h.conv2d(s.ev, x_ct, pt), reuse)
     out["product"] = s.grid_words(y)
     out["saved"] = y.save(s.ctx)
     if serialize:
@@ -240,16 +266,16 @@ def _side(mod, scheme):
     return _SIDES[key]
 
 
-def _run(mod, scheme, name):
-    key = (mod.__name__, scheme, name)
+def _run(mod, scheme, name, reuse=False):
+    key = (mod.__name__, scheme, name, reuse)
     if key not in _RUNS:
         s = _side(mod, scheme)
         _, kind, kw = FLOWS[name]
         index = list(FLOWS).index(name)
         enc = s.encryptor(SEED + 100 + index)
         rng = np.random.default_rng(SEED + index)
-        _RUNS[key] = (_matmul if kind == "matmul" else _conv)(s, enc, rng,
-                                                               **kw)
+        _RUNS[key] = (_matmul if kind == "matmul" else _conv)(
+            s, enc, rng, reuse=reuse, **kw)
     return _RUNS[key]
 
 
@@ -288,6 +314,116 @@ def test_flow_words_equal_troy_tpu(scheme, name):
         np.testing.assert_array_equal(got.astype(object) % t,
                                       ref["decrypted"].astype(object) % t)
         np.testing.assert_array_equal(got.astype(object) % t, expect)
+
+
+# the ct x pt flows, in every scheme (BGV's reverse flows too)
+REUSE_CASES = [(scheme, name) for name in ("matmul", "matmul_reverse",
+                                           "conv2d", "conv2d_reverse")
+               for scheme in ("bfv", "bgv", "ckks")]
+
+
+@pytest.mark.parametrize("scheme,name", REUSE_CASES)
+def test_reused_plain2d_words_equal_fresh_and_troy_tpu(scheme, name):
+    """One Plain2d contracted REUSE_CALLS times builds its prepared grid
+    once and then hits; each call's words equal troy_tpu's and those of a
+    fresh Plain2d each time, which builds every time."""
+    port, ref = _run(P, scheme, name, reuse=True), _run(J, scheme, name)
+    for i, words in enumerate(port["reused"] + port["fresh"]):
+        _same_grids(words, ref["product"], f"call {i}")
+    assert port["counts"] == [{"builds": 1, "hits": REUSE_CALLS - 1},
+                              {"builds": REUSE_CALLS, "hits": 0}]
+
+
+def _grids(s, seed: int, X: int, I: int, Y: int):
+    """A ciphertext grid (X, I) and a plaintext grid (I, Y) of random
+    tiles, encoded and encrypted as the helpers do."""
+    rng = np.random.default_rng(seed)
+    poly = lambda: s.ep(s.values(rng, (s.n,)))
+    ct2d = tlin.Plain2d([[poly() for _ in range(I)] for _ in range(X)]
+                        ).encrypt_symmetric(s.encryptor(seed))
+    return ct2d, tlin.Plain2d([[poly() for _ in range(Y)] for _ in range(I)])
+
+
+def _contract(s, ct2d, pt2d, transpose_pt=False):
+    return s.grid_words(tlin._run_tile_contraction(
+        s.ev, ct2d, pt2d, False, transpose_pt, False))
+
+
+def _fresh(pt2d):
+    """The same tiles in a Plain2d that keeps nothing yet."""
+    return tlin.Plain2d([list(row) for row in pt2d.data])
+
+
+def _differ(a, b) -> bool:
+    return any((x != y).any() for ra, rb in zip(a, b)
+               for x, y in zip(ra, rb))
+
+
+@pytest.mark.parametrize("change", ["tile", "layout", "level"])
+@pytest.mark.parametrize("scheme", ["bfv", "bgv", "ckks"])
+def test_prepared_grid_rebuilt_when_its_use_changes(scheme, change):
+    """A Plain2d's kept grid serves only the tiles, layout and level it
+    was built for: a new Plaintext in one tile, the other layout or
+    another level rebuilds it (one entry, so going back rebuilds again),
+    each answer equal to a fresh Plain2d's; a CKKS Plain2d (NTT form)
+    at another level than the ciphertexts' still raises."""
+    s = _side(P, scheme)
+    ct2d, pt2d = _grids(s, SEED - 8, 2, 3, 3)
+    tlin.reset_prepared_counts()
+    first = _contract(s, ct2d, pt2d)
+    _same_grids(first, _contract(s, ct2d, _fresh(pt2d)), "first")
+    if change == "tile":
+        pt2d.data[1][2] = s.ep(s.values(np.random.default_rng(SEED - 9),
+                                        (s.n,)))
+        got = _contract(s, ct2d, pt2d)
+        _same_grids(got, _contract(s, ct2d, _fresh(pt2d)), "new tile")
+        assert _differ(got, first)
+        builds = 4
+    elif change == "layout":
+        got = _contract(s, ct2d, pt2d, transpose_pt=True)
+        _same_grids(got, _contract(s, ct2d, _fresh(pt2d), True),
+                    "transposed")
+        assert _differ(got, first)
+        _same_grids(_contract(s, ct2d, pt2d), first, "back")
+        got, builds = first, 5
+    elif scheme == "ckks":
+        low = ct2d.mod_switch_to_next(s.ev)
+        for grid in (pt2d, _fresh(pt2d)):
+            with pytest.raises(ValueError,
+                               match="NTT-form plaintext level mismatch"):
+                _contract(s, low, grid)
+        got, builds = first, 2
+    else:
+        low = ct2d.mod_switch_to_next(s.ev)
+        got = _contract(s, low, pt2d)
+        _same_grids(got, _contract(s, low, _fresh(pt2d)), "lower level")
+        _same_grids(_contract(s, ct2d, pt2d), first, "back")
+        got, builds = first, 5
+    _same_grids(_contract(s, ct2d, pt2d), got, "hit")
+    assert tlin.prepared_counts() == {"builds": builds, "hits": 1}
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("scheme", ["bfv", "bgv", "ckks"])
+def test_sharded_app_matmul_on_a_reused_plain2d(scheme, world):
+    """sharded_app_matmul's ranks (each its own batch-block rows, no
+    collective), twice over one Plain2d: the ranks' rows, in order, equal
+    the whole grid's contraction on a fresh Plain2d; one build, the
+    other calls hit (``rows`` is not part of the key)."""
+    from troy_tpu_torch.parallel import sharding as sh
+    s = _side(P, scheme)
+    ct2d, pt2d = _grids(s, SEED - 10, 5, 2, 3)
+    want = _contract(s, ct2d, _fresh(pt2d))
+    tlin.reset_prepared_counts()
+    for _ in range(2):
+        got = []
+        for r in range(world):
+            mesh = sh.Mesh({"dp": sh.Axis(None, tuple(range(world)), r)},
+                           torch.device("cpu"), "gloo")
+            got += s.grid_words(sh.sharded_app_matmul(s.ev, mesh, ct2d,
+                                                      pt2d))
+        _same_grids(got, want, f"{world} ranks")
+    assert tlin.prepared_counts() == {"builds": 1, "hits": 2 * world - 1}
 
 
 def test_bgv_pack_outputs_decrypts_to_the_oracle():

@@ -1315,6 +1315,59 @@ def test_app_slice_on_the_card_gives_the_cpu_words(dev, scheme):
                                           np.asarray(words), err_msg=stage)
 
 
+def test_reused_plain2d_conv2d_lifts_and_stacks_its_weights_once(
+        dev, monkeypatch):
+    """The second conv2d of one Plain2d on the card launches no AGp
+    (``troy_ntt_forward_lift``, the weights' lift and transform) and
+    stacks no weight tile: the first call's prepared grid serves it; every
+    other launch is the first call's, and so are the words."""
+    from troy_tpu_torch.app import linear
+    n = 4096
+    parms = P.EncryptionParameters(
+        scheme=P.SchemeType.bfv, poly_modulus_degree=n,
+        coeff_modulus=tuple(P.CoeffModulus.create(n, [60, 60, 60])),
+        plain_modulus=P.Modulus(1 << 41))
+    ctx = P.HeContext(parms, sec_level=P.SecurityLevel.none, device=dev)
+    kg = P.KeyGenerator(ctx, seed=prng.seed_from_uint64(51))
+    enc = P.Encryptor(ctx, secret_key=kg.secret_key,
+                      seed=prng.seed_from_uint64(52))
+    ev, ep = P.Evaluator(ctx), P.BatchEncoder(ctx).encode_polynomial
+    rng = np.random.default_rng(51)
+    h = linear.Conv2dHelper(1, 10, 10, 3, 3, 4, 6, n, objective=0)
+    x = h.encrypt_inputs(enc, ep, rng.integers(0, 256, (1, 4, 10, 10),
+                                               dtype=np.uint64))
+    w = h.encode_weights(ep, rng.integers(0, 256, (6, 4, 3, 3),
+                                          dtype=np.uint64))
+    weight_tiles = {id(p.data) for row in w.data for p in row}
+    stacks, stack = [], torch.stack
+
+    def counted_stack(tensors, *args, **kwargs):
+        stacks.append(any(id(t) in weight_tiles for t in tensors))
+        return stack(tensors, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "stack", counted_stack)
+    calls = []
+    for _ in range(2):
+        stacks.clear()
+        _kernels.reset_launch_counts()
+        linear.reset_prepared_counts()
+        y = h.conv2d(ev, x, w)
+        torch.cuda.synchronize()
+        calls.append((_kernels.entry_launch_counts(), sum(stacks),
+                      linear.prepared_counts(),
+                      [interop.words(c) for row in y.data for c in row]))
+    (first, first_stacks, first_use, first_words), \
+        (second, second_stacks, second_use, second_words) = calls
+    assert first["troy_ntt_forward_lift"] == 1 and first_stacks == 1
+    assert second["troy_ntt_forward_lift"] == 0 and second_stacks == 0
+    assert first_use == {"builds": 1, "hits": 0}
+    assert second_use == {"builds": 0, "hits": 1}
+    assert dict(first, troy_ntt_forward_lift=0) == second
+    assert second["troy_tile_contract"] == 1
+    np.testing.assert_array_equal(np.asarray(second_words),
+                                  np.asarray(first_words))
+
+
 # --------------------------------------------------------------------------
 # kernel J (the int8 tensor-core 4-step NTT) and the large-ring caps
 # --------------------------------------------------------------------------

@@ -382,6 +382,32 @@ def test_request_spans_nest_and_change_no_word(kind):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kind", sorted(SPANS))
+def test_prepared_grids_in_the_tiny_cells(kind):
+    """conv2d's weights, encoded at set-up, build their prepared grid at
+    the first request, the only one to open ``tiles_plain_ntt`` and a
+    second ``tiles_stack``, and every later request hits; mul_relin
+    contracts nothing, so its share reads None."""
+    from troy_tpu_torch.app import linear
+    cell, s, st, reqs = _tiny_scheme(kind, 2**41 + 5)
+    linear.reset_prepared_counts()
+    profiling.enable()
+    for i, req in enumerate(reqs[:3]):
+        profiling.request(i)
+        cell.kind.issue(s, st, req, h.Stages(False))
+    got = profiling.spans()
+    profiling.disable()
+    reading = hs.prepared_reading(linear.prepared_counts())
+    if kind == "mul_relin":
+        assert reading == {"builds": 0, "hits": 0, "hit_share": None}
+        return
+    assert reading == {"builds": 1, "hits": 2,
+                       "hit_share": pytest.approx(2 / 3)}
+    assert [x.request for x in got if x.name == "tiles_plain_ntt"] == [0]
+    assert [x.request for x in got if x.name == "tiles_stack"] == [0, 0, 1,
+                                                                   2]
+
+
 def _fake_trace(h_, tr, cell, s, issue, reqs, inflight, kernels):
     device = [("ntt_pass_kernel<1>", 10.0 * i, 10.0 * i + 8.0)
               for i in range(len(reqs))]

@@ -28,6 +28,11 @@ of its rate, at least 16 requests). Over that sub-window's requests:
   launch matched to the op by correlation id), and the longest idle gaps,
   each named by the innermost host range that covers it.
 
+Beside them, the app layer's prepared plaintext grids
+(``troy_tpu_torch.app.linear.prepared_counts``): builds, hits and the hit
+share over set-up (warm-up included), over the closed loop's timed
+requests, and over the whole run.
+
 It prints the readings as one JSON line and writes them to ``--out``.
 Nothing of this runs in the benchmark's own runs, which keep recording off.
 """
@@ -92,6 +97,13 @@ def host_per_request(recorded, requests: int) -> dict:
         own[s.name] += s.self_ns
     return {k: {"ms": total[k] * 1e-6 / requests,
                 "self_ms": own[k] * 1e-6 / requests} for k in total}
+
+
+def prepared_reading(counts: dict) -> dict:
+    """Builds, hits and the hit share (None with no contraction) of
+    prepared plaintext grids, from ``prepared_counts()``."""
+    uses = counts["builds"] + counts["hits"]
+    return dict(counts, hit_share=counts["hits"] / uses if uses else None)
 
 
 # ---- readings from a profile (synthetic lists in the tests) ----
@@ -319,6 +331,7 @@ def run(workload: str, seed: int, seconds: float, passes: int) -> dict:
     t_torch = time.perf_counter()
     from hebench import harness as h, run as hrun
     from hebench.reference import bfv
+    from troy_tpu_torch.app import linear
     from troy_tpu_torch.utils import profiling
     kernels = hrun._program(ROOT)
     cell = h.Cell.load(workload)
@@ -362,9 +375,12 @@ def run(workload: str, seed: int, seconds: float, passes: int) -> dict:
                            "scheme_and_kind_setup": t_warm - t_scheme,
                            "warm_up": t_end - t_warm})
     profiling.clear()
+    prepared = {"setup": linear.prepared_counts()}
+    linear.reset_prepared_counts()
 
     win = h.closed_loop(issue, reqs, inflight, seconds,
                         h.Stages(False, torch.cuda.Event), first=wl["warm"])
+    prepared["timed"] = linear.prepared_counts()
     rate = win["count"] / (win["end"] - win["start"])
     r = max(hrun.TRACE_MIN_REQUESTS, round(rate * hrun.TRACE_WINDOW_S))
     sub = reqs[win["next"]:win["next"] + r]
@@ -373,6 +389,9 @@ def run(workload: str, seed: int, seconds: float, passes: int) -> dict:
            "host_enqueue_ms": 1e3 * statistics.fmean(win["enqueue_s"]),
            "window": span_window(h, issue, sub, inflight, passes, kernels),
            "trace": span_trace(h, cell, s, issue, sub, inflight, kernels)}
+    prepared["run"] = {k: v + prepared["setup"][k]
+                       for k, v in linear.prepared_counts().items()}
+    out["prepared"] = {k: prepared_reading(v) for k, v in prepared.items()}
     out["card"] = torch.cuda.get_device_name(0)
     gc.unfreeze()
     return out

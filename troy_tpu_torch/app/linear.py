@@ -12,9 +12,12 @@ The device work of a whole grid of tiles runs as a few launches, whatever
 the grid's size:
   * ct x pt (``matmul``, ``matmul_reverse``, ``conv2d``,
     ``conv2d_reverse``): the ciphertext tiles' forward NTT (BFV; CKKS and
-    BGV tiles arrive in NTT form) and the mod-t weight tiles' lift and NTT
-    (G', A) each one launch, the contraction one launch of kernel P1, the
-    inverse NTT one launch;
+    BGV tiles arrive in NTT form) one launch, the contraction one launch of
+    kernel P1, the inverse NTT one launch. The plaintext grid is stacked,
+    and its mod-t tiles lifted and transformed (AGp: G' in A's first pass),
+    on a Plain2d's first contraction only: the result is kept on the
+    Plain2d (``_prepared_plain``), so weights encoded once and used for
+    every request cost their stack and transform once;
   * ct x ct (``matmul_cipher``, ``conv2d_cipher``): BFV lifts and
     transforms every tile once (E, A); per inner index, one P2 launch over
     the X x Yc pair grid (BFV: then one inverse A and one E tail over every
@@ -25,8 +28,9 @@ the grid's size:
 The JAX package's per-dispatch caps (``_MAX_*_PER_DISPATCH``) bounded its
 compiler's program size and the v5e's 15.75 GB plan; the split was
 word-neutral, and the largest configuration here (the conv2d of troy's
-benchmark: 872 MB of NTT-form weight tiles at n = 16384) is far inside the
-H100's 80 GB, so the port does not split.
+benchmark: 872 MB of NTT-form weight tiles at n = 16384, kept beside the
+436 MB of mod-t tiles) is far inside the H100's 80 GB, so the port does
+not split.
 
 Decryption and the wire go through ``Decryptor.decrypt_many`` and the
 serialization module, one device->host copy per output sweep.
@@ -34,8 +38,9 @@ serialization module, one device->host copy per output sweep.
 
 from __future__ import annotations
 
+import itertools
 import struct as _struct
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,6 +77,14 @@ def _stack_grid(grid, transpose: bool = False) -> torch.Tensor:
     return torch.stack(flat).reshape((rows, cols) + flat[0].shape)
 
 
+def _lift_plain_tiles(pt_tiles: torch.Tensor,
+                      cd: ContextData) -> torch.Tensor:
+    """Mod-t plaintext tiles (..., n or fewer) padded, lifted to the
+    level's base and transformed (AGp): (..., k, n)."""
+    with profiling.span("tiles_plain_ntt"):
+        return _plain_to_ntt(_pad(pt_tiles, cd.n), cd)
+
+
 def _matmul_tiles_core(ct_tiles: torch.Tensor, pt_tiles: torch.Tensor,
                        cd: ContextData, ct_coeff: bool,
                        pt_mod_t: bool) -> torch.Tensor:
@@ -84,13 +97,68 @@ def _matmul_tiles_core(ct_tiles: torch.Tensor, pt_tiles: torch.Tensor,
     with profiling.span("tiles_cipher_ntt"):
         ct_ntt = dntt.rns_ntt_forward(ct_tiles, cd.ntt) if ct_coeff \
             else ct_tiles
-    with profiling.span("tiles_plain_ntt"):
-        w_ntt = _plain_to_ntt(_pad(pt_tiles, cd.n), cd) if pt_mod_t \
-            else pt_tiles
+    w_ntt = _lift_plain_tiles(pt_tiles, cd) if pt_mod_t else pt_tiles
     with profiling.span("tiles_contract"):
         acc = dtiles.tile_contract(ct_ntt, w_ntt, cd.ntt)
     with profiling.span("tiles_inverse_ntt"):
         return dntt.rns_ntt_inverse(acc, cd.ntt) if ct_coeff else acc
+
+
+# builds and hits of prepared plaintext grids (``_prepared_plain``), always
+# counted, as the kernel binding counts its launches
+_prepared_count = {"builds": 0, "hits": 0}
+
+
+def prepared_counts() -> Dict[str, int]:
+    """How many contractions built a Plain2d's prepared grid ("builds")
+    and how many found it kept ("hits"), since the last reset."""
+    return dict(_prepared_count)
+
+
+def reset_prepared_counts() -> None:
+    _prepared_count["builds"] = _prepared_count["hits"] = 0
+
+
+class _Prepared(NamedTuple):
+    """A Plain2d's kept grid (``_prepared_plain``) and what it was built
+    from."""
+    cd: ContextData
+    key: tuple
+    tiles: tuple
+    ids: tuple
+    tensor: torch.Tensor
+
+
+def _prepared_plain(pt2d: "Plain2d", cd: ContextData,
+                    transpose: bool) -> torch.Tensor:
+    """The plaintext grid as the contraction takes it: stacked (rows, cols,
+    ...), or (cols, rows, ...) with ``transpose``, and mod-t tiles lifted
+    and transformed at ``cd``'s level (``_lift_plain_tiles``); NTT-form
+    tiles are stacked only. Built on the Plain2d's first contraction and
+    kept on it, one entry a Plain2d, keyed by the level's ContextData
+    (which fixes the device, ``cd.device``), the layout and the grid's row
+    lengths; a hit also needs every tile to be the Plaintext object the
+    entry was built from (Plaintext is frozen, so the same object holds
+    the same tensor), else the entry is rebuilt
+    (``Evaluator._prepermuted_key``'s check). The entry holds the tiles it
+    was built from, so no live object can take one of their ids."""
+    grid = pt2d.data
+    key = (transpose, tuple(map(len, grid)))
+    ids = tuple(map(id, itertools.chain.from_iterable(grid)))
+    kept = pt2d._prepared
+    if kept is not None and kept.cd is cd and kept.key == key \
+            and kept.ids == ids:
+        _prepared_count["hits"] += 1
+        return kept.tensor
+    pt2d._prepared = None               # the old tensor's memory goes first
+    tiles = tuple(itertools.chain.from_iterable(grid))
+    with profiling.span("tiles_stack"):
+        tensor = _stack_grid(grid, transpose)
+    if not tiles[0].is_ntt_form:
+        tensor = _lift_plain_tiles(tensor, cd)
+    pt2d._prepared = _Prepared(cd, key, tiles, ids, tensor)
+    _prepared_count["builds"] += 1
+    return tensor
 
 
 def _matmul_cipher_tiles_core(a_tiles: torch.Tensor, w_tiles: torch.Tensor,
@@ -145,8 +213,9 @@ def _run_tile_contraction(ev: Evaluator, ct2d: "Cipher2d", pt2d: "Plain2d",
                           transpose_ct: bool, transpose_pt: bool,
                           transpose_out: bool,
                           rows: Optional[range] = None) -> "Cipher2d":
-    """Stack a ciphertext grid and a plaintext grid, contract on the device
-    and unpack (troy_tpu/app/linear.py:196). The outputs take the plain's
+    """Stack a ciphertext grid, take the plaintext grid's prepared form
+    (``_prepared_plain``), contract on the device and unpack
+    (troy_tpu/app/linear.py:196). The outputs take the plain's
     scale only when it is in NTT form. ``rows``: contract only these rows
     of the untransposed ciphertext grid, the batch-block tiles of one rank
     (parallel/sharding.py sharded_app_matmul, the JAX package's
@@ -160,9 +229,9 @@ def _run_tile_contraction(ev: Evaluator, ct2d: "Cipher2d", pt2d: "Plain2d",
     grid = ct2d.data if rows is None else ct2d.data[rows.start:rows.stop]
     with profiling.span("tiles_stack"):
         ct_tiles = _stack_grid(grid, transpose_ct)
-        pt_tiles = _stack_grid(pt2d.data, transpose_pt)
+    pt_tiles = _prepared_plain(pt2d, cd, transpose_pt)
     out = _matmul_tiles_core(ct_tiles, pt_tiles, cd,
-                             not template.is_ntt_form, not pt0.is_ntt_form)
+                             not template.is_ntt_form, False)
     with profiling.span("tiles_unpack"):
         if transpose_out:
             out = out.transpose(0, 1).contiguous()
@@ -205,10 +274,13 @@ def _with_lengths(blobs) -> bytes:
 
 
 class Plain2d:
-    """(LinearHelper.cuh:21)"""
+    """(LinearHelper.cuh:21). A contraction keeps the grid's prepared form
+    on it (``_prepared_plain``): a tile replaced in ``data`` is seen at the
+    next contraction; a tile's tensor changed in place is not."""
 
     def __init__(self, data: Optional[List[List[Plaintext]]] = None):
         self.data: List[List[Plaintext]] = data if data is not None else []
+        self._prepared = None
 
     def __getitem__(self, i):
         return self.data[i]
