@@ -382,6 +382,104 @@ def test_request_spans_nest_and_change_no_word(kind):
             assert torch.equal(a, b)
 
 
+# the ct x ct matmul cell's request (tests/test_hebench_matmul_cipher.py's
+# tiny cell: 4 product ciphertexts, 2 trace steps); a keyswitch span's
+# parent is relinearize or galois_fold
+MATMUL_SPANS = {"matmul_cipher": None, "tiles_stack": "matmul_cipher",
+                "tiles_cipher_lift": "matmul_cipher",
+                "tiles_pair_multiply": "matmul_cipher",
+                "relinearize": None, "keyswitch_decompose": "keyswitch",
+                "keyswitch_contract": "keyswitch", "pack_outputs": None,
+                "pack_prepare": "pack_outputs", "field_trace": "pack_outputs",
+                "galois_fold": "field_trace",
+                "pack_group_fold": "pack_outputs"}
+
+
+def _tiny_matmul(seed):
+    from test_hebench_matmul_cipher import tiny_cell
+    from hebench.reference import bfv
+    cell = tiny_cell()
+    seeds = h.Seeds(seed)
+    secret = bfv.ternary_secret(seeds.secret, cell.cfg["poly_modulus_degree"])
+    data = cell.ref.inputs(cell.cfg, cell.wl, seeds.inputs)
+    reqs = cell.ref.draw(cell.wl, seeds.draws, 4)
+    s = h.Scheme(cell.cfg, cell.wl, seeds, secret, "cpu")
+    return cell, s, cell.kind.setup(s, cell.wl, data), reqs
+
+
+def test_matmul_cipher_spans_and_keyswitch_counts():
+    """A request of the ct x ct cell: the tile spans under matmul_cipher,
+    the pack's under pack_outputs, each trace step one galois_fold under
+    field_trace holding exactly one keyswitch, and no keyswitch inside
+    another; ``keyswitch_counts()`` reads 4 relinearizations of one
+    polynomial and 2 folds of 4. Recording changes no word; off, nothing
+    is recorded or counted."""
+    from troy_tpu_torch import evaluator
+    cell, s, st, reqs = _tiny_matmul(2**42 + 7)
+    plain = cell.kind.kept(cell.kind.issue(s, st, reqs[0], h.Stages(False)))
+    assert profiling.spans() == [] and evaluator.keyswitch_counts() == {}
+    profiling.enable()
+    profiling.request(0)
+    got_words = cell.kind.kept(cell.kind.issue(s, st, reqs[0],
+                                               h.Stages(False)))
+    profiling.disable()
+    got = profiling.spans()
+    names = [x.name for x in got]
+    assert set(names) == set(MATMUL_SPANS) | {"keyswitch"}
+    for x in got:
+        parent = got[x.parent].name if x.parent >= 0 else None
+        if x.name == "keyswitch":
+            assert parent in ("relinearize", "galois_fold")
+        else:
+            assert parent == MATMUL_SPANS[x.name], x.name
+    assert names.count("relinearize") == 4 and names.count("galois_fold") == 2
+    assert names.count("field_trace") == 1
+    for i, x in enumerate(got):
+        if x.name == "galois_fold":
+            kids = [y.name for y in got if y.parent == i]
+            assert kids == ["keyswitch"]
+        if x.name == "keyswitch":
+            p = x.parent
+            while p >= 0:
+                assert got[p].name != "keyswitch"
+                p = got[p].parent
+    assert names.count("keyswitch") == 6
+    assert evaluator.keyswitch_counts() == {
+        "relinearize": {"calls": 4, "polys": 4},
+        "galois_fold": {"calls": 2, "polys": 8}}
+    for a, b in zip(plain, got_words):
+        assert torch.equal(a, b)
+    profiling.clear()
+    assert evaluator.keyswitch_counts() == {}
+    cell.kind.issue(s, st, reqs[1], h.Stages(False))
+    assert profiling.spans() == [] and evaluator.keyswitch_counts() == {}
+
+
+def test_keyswitch_counts_of_the_other_callers():
+    """A multiply and relinearize counts one switch of one polynomial; a
+    field trace of one ciphertext, one fold of one a step; a hoisted
+    rotation of 2 elements one call of 2 polynomials; apply_galois and
+    apply_keyswitching one each."""
+    from troy_tpu_torch import evaluator
+    cell, s, st, reqs = _tiny_matmul(2**43 + 1)
+    ct = st["inputs"][0].data[0][0]
+    profiling.enable()
+    s.ev.relinearize(s.ev.multiply(ct, ct), st["rlk"])
+    s.ev.field_trace(ct, st["gk"], 5)
+    s.ev.apply_galois_many(ct, [3, 5], st["gk"])
+    s.ev.apply_galois(ct, 3, st["gk"])
+    s.ev.apply_keyswitching(ct, s.keygen.create_keyswitch_key(
+        s.keygen.secret_key))
+    profiling.disable()
+    assert evaluator.keyswitch_counts() == {
+        "relinearize": {"calls": 1, "polys": 1},
+        "galois_fold": {"calls": 3, "polys": 3},
+        "apply_galois_many": {"calls": 1, "polys": 2},
+        "apply_galois": {"calls": 1, "polys": 1},
+        "apply_keyswitching": {"calls": 1, "polys": 1}}
+    assert [x.name for x in profiling.spans()].count("keyswitch") == 7
+
+
 @pytest.mark.parametrize("kind", sorted(SPANS))
 def test_prepared_grids_in_the_tiny_cells(kind):
     """conv2d's weights, encoded at set-up, build their prepared grid at
@@ -462,5 +560,23 @@ def test_span_window_on_the_cpu():
     assert set(out["spans"]) == set(SPANS["mul_relin"])
     assert out["launches_per_req"] == 0
     assert out["binding_host_us_per_launch"] == 0
+    assert out["keyswitch_per_req"] == {"relinearize": {"calls": 1.0,
+                                                         "polys": 1.0}}
     assert 0 < out["span_cost_ns"]["off"] < out["span_cost_ns"]["on"]
+    assert not profiling.active and profiling.spans() == []
+
+
+def test_span_window_reads_the_matmul_cipher_cell():
+    """The span sub-window of the tiny ct x ct cell: its new spans, and
+    4 relinearizations and 2 trace folds of 4 polynomials a request."""
+    cell, s, st, reqs = _tiny_matmul(2**36 + 5)
+
+    def issue(req, stages):
+        return cell.kind.issue(s, st, req, stages)
+
+    out = hs.span_window(h, issue, reqs[:2], 2, 2, _kernels, h.HostEvent)
+    assert set(out["spans"]) == set(MATMUL_SPANS) | {"keyswitch"}
+    assert out["keyswitch_per_req"] == {
+        "galois_fold": {"calls": 2.0, "polys": 8.0},
+        "relinearize": {"calls": 4.0, "polys": 4.0}}
     assert not profiling.active and profiling.spans() == []

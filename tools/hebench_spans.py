@@ -31,7 +31,11 @@ of its rate, at least 16 requests). Over that sub-window's requests:
 Beside them, the app layer's prepared plaintext grids
 (``troy_tpu_torch.app.linear.prepared_counts``): builds, hits and the hit
 share over set-up (warm-up included), over the closed loop's timed
-requests, and over the whole run.
+requests, and over the whole run; and the evaluator's key switches
+(``troy_tpu_torch.evaluator.keyswitch_counts``, counted while recording
+is on): calls and polynomials switched by caller (``relinearize``,
+``galois_fold``, ...) over set-up and per request of the span
+sub-window's "on" passes.
 
 It prints the readings as one JSON line and writes them to ``--out``.
 Nothing of this runs in the benchmark's own runs, which keep recording off.
@@ -97,6 +101,20 @@ def host_per_request(recorded, requests: int) -> dict:
         own[s.name] += s.self_ns
     return {k: {"ms": total[k] * 1e-6 / requests,
                 "self_ms": own[k] * 1e-6 / requests} for k in total}
+
+
+def keyswitch_per_request(passes: list, requests: int) -> dict:
+    """Calls and polynomials of each caller's key switches per request,
+    from one ``keyswitch_counts()`` reading a pass over ``requests``
+    requests in all."""
+    out = {}
+    for counts in passes:
+        for k, v in counts.items():
+            o = out.setdefault(k, {"calls": 0, "polys": 0})
+            o["calls"] += v["calls"]
+            o["polys"] += v["polys"]
+    return {k: {c: x / requests for c, x in v.items()}
+            for k, v in sorted(out.items())}
 
 
 def prepared_reading(counts: dict) -> dict:
@@ -260,6 +278,7 @@ def span_window(h, issue, reqs, inflight, passes, kernels,
                 event=None) -> dict:
     """The span sub-window of ``reqs`` (module docstring); ``event``: the
     CUDA event type by default."""
+    from troy_tpu_torch import evaluator
     from troy_tpu_torch.utils import profiling
     event = event or h.event_type(True)
     ids = itertools.count()
@@ -272,7 +291,7 @@ def span_window(h, issue, reqs, inflight, passes, kernels,
         return h.closed_loop(issue_id, reqs, inflight, math.inf,
                              h.Stages(False, event), stop=len(reqs))
 
-    off_ms, on_ms, recorded = [], [], []
+    off_ms, on_ms, recorded, switched = [], [], [], []
     launches = launch_ns = 0
     loop()
     for _ in range(passes):
@@ -283,6 +302,7 @@ def span_window(h, issue, reqs, inflight, passes, kernels,
         on_ms.append(1e3 * statistics.fmean(loop()["enqueue_s"]))
         profiling.disable()
         recorded += profiling.spans()
+        switched.append(evaluator.keyswitch_counts())
         launches += sum(kernels.entry_launch_counts().values())
         launch_ns += sum(kernels.launch_host_ns().values())
         profiling.clear()
@@ -295,6 +315,8 @@ def span_window(h, issue, reqs, inflight, passes, kernels,
             "binding_host_us_per_launch": launch_ns * 1e-3 / max(1,
                                                                  launches),
             "launches_per_req": launches / (passes * len(reqs)),
+            "keyswitch_per_req": keyswitch_per_request(
+                switched, passes * len(reqs)),
             "spans": host_per_request(recorded, passes * len(reqs))}
 
 
@@ -331,6 +353,7 @@ def run(workload: str, seed: int, seconds: float, passes: int) -> dict:
     t_torch = time.perf_counter()
     from hebench import harness as h, run as hrun
     from hebench.reference import bfv
+    from troy_tpu_torch import evaluator
     from troy_tpu_torch.app import linear
     from troy_tpu_torch.utils import profiling
     kernels = hrun._program(ROOT)
@@ -367,6 +390,7 @@ def run(workload: str, seed: int, seconds: float, passes: int) -> dict:
     t_end = time.perf_counter()
     profiling.disable()
     setup = setup_readings(profiling.spans(), t_end - T_START)
+    setup["keyswitch"] = evaluator.keyswitch_counts()
     setup.update(setup_s=t_end - T_START,
                  phases_s={"import_torch": t_torch - T_START,
                            "import_harness_and_program": t_ref - t_torch,

@@ -167,19 +167,22 @@ def _matmul_cipher_tiles_core(a_tiles: torch.Tensor, w_tiles: torch.Tensor,
     sum_i mult(a[x, i], w[i, y]), each product as the evaluator's multiply
     gives it, summed in the JAX package's order. a_tiles (I, X, s1, k, n),
     the inner index first; w_tiles (I, Yc, s2, k, n). BFV lifts and
-    transforms every tile once (``_bfv_lift_ntt``); each inner index is
-    one ``_pair_grid_multiply`` and one D add."""
+    transforms every tile once (``_bfv_lift_ntt``, span
+    ``tiles_cipher_lift``); each inner index is one ``_pair_grid_multiply``
+    and one D add (span ``tiles_pair_multiply``, over all of them)."""
     I, X = a_tiles.shape[:2]
     a_rows, w_rows = a_tiles, w_tiles
     if cd.scheme == SchemeType.bfv:
-        rows = _bfv_lift_ntt(torch.cat([a_tiles.flatten(0, 1),
-                                        w_tiles.flatten(0, 1)]), cd)
+        with profiling.span("tiles_cipher_lift"):
+            rows = _bfv_lift_ntt(torch.cat([a_tiles.flatten(0, 1),
+                                            w_tiles.flatten(0, 1)]), cd)
         a_rows = rows[:I * X].unflatten(0, (I, X))
         w_rows = rows[I * X:].unflatten(0, (I, w_tiles.shape[1]))
     acc = None
-    for i in range(I):
-        prod = _pair_grid_multiply(a_rows[i], w_rows[i], cd)
-        acc = prod if acc is None else dpoly.rns_add(acc, prod, cd.ntt)
+    with profiling.span("tiles_pair_multiply"):
+        for i in range(I):
+            prod = _pair_grid_multiply(a_rows[i], w_rows[i], cd)
+            acc = prod if acc is None else dpoly.rns_add(acc, prod, cd.ntt)
     return acc
 
 
@@ -249,15 +252,18 @@ def _pack_outputs_core(ev: Evaluator, data: torch.Tensor, steps,
     launch; troy_tpu/evaluator.py:624 fuses it into the trace), the field
     trace (one batched fold and one D add per step) and the fold of each
     group of pack_slots traces into one (kernel P3): (ceil(m / pack_slots),
-    2, k, n)."""
-    if pre_shift:
-        data = dpoly.negacyclic_shift(data, pre_shift, cd.ntt)
-    if mul:
-        data = dpoly.rns_scalar_mul(
-            data, [numth.invert_mod(cd.n, q) * mul % q
-                   for q in cd.coeff_values], cd.ntt)
+    2, k, n). Spans: ``pack_prepare`` (the shift and the scale), the
+    trace's ``field_trace`` and ``pack_group_fold``."""
+    with profiling.span("pack_prepare"):
+        if pre_shift:
+            data = dpoly.negacyclic_shift(data, pre_shift, cd.ntt)
+        if mul:
+            data = dpoly.rns_scalar_mul(
+                data, [numth.invert_mod(cd.n, q) * mul % q
+                       for q in cd.coeff_values], cd.ntt)
     data = ev._trace(data, steps, cd, ntt_domain)
-    return dtiles.pack_group_fold(data, pack_slots, cd.ntt)
+    with profiling.span("pack_group_fold"):
+        return dtiles.pack_group_fold(data, pack_slots, cd.ntt)
 
 
 def _blobs(raw: bytes):

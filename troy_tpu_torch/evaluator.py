@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -285,17 +285,35 @@ def _divide_by_special(prods: torch.Tensor, cd: ContextData,
 def _switch_key_core(target: torch.Tensor, key: torch.Tensor,
                      cd: ContextData, key_cd: ContextData,
                      acc: Optional[torch.Tensor] = None,
-                     ntt_form: bool = False) -> torch.Tensor:
+                     ntt_form: bool = False, group: Optional[int] = None,
+                     caller: str = "switch_key") -> torch.Tensor:
     """The key switch (evaluator_cuda.cu:1163-1362) of a target (k, n) under
     key (decomp, 2, key_limbs, n), NTT form: (2, k, n) in the target's
     domain, with acc (a, k, n), a <= 2, added onto its first a
-    components."""
+    components; or of the batched shapes of ``_switch_key_contract``
+    (acc in its layout, ``group``), (m, 2, k, n). Every key switch of the
+    evaluator runs here, in one ``keyswitch`` span, counted under
+    ``caller`` with the polynomials switched (``keyswitch_counts``)."""
     with profiling.span("keyswitch"):
         with profiling.span("keyswitch_decompose"):
             t_hat = _switch_key_decompose(target, cd, key_cd, ntt_form)
         with profiling.span("keyswitch_contract"):
-            return _switch_key_contract(t_hat, key, cd, key_cd, ntt_form,
-                                        acc)
+            out = _switch_key_contract(t_hat, key, cd, key_cd, ntt_form,
+                                       acc, group)
+    if profiling.active:
+        profiling.count("keyswitch", caller,
+                        out.shape[0] if out.dim() == 4 else 1)
+    return out
+
+
+def keyswitch_counts() -> Dict[str, Dict[str, int]]:
+    """The key switches counted while recording was on
+    (``utils/profiling.py``), by caller (``relinearize``, ``galois_fold``,
+    ``apply_galois``, ``apply_galois_many``, ``apply_keyswitching``, ...):
+    calls and polynomials switched, since the recorder's last ``clear()``.
+    A batched fold of m ciphertexts is one call of m polynomials."""
+    return {k: {"calls": c, "polys": p}
+            for k, (c, p) in profiling.counts("keyswitch").items()}
 
 
 def _relinearize_core(data: torch.Tensor, keys, cd: ContextData,
@@ -305,7 +323,7 @@ def _relinearize_core(data: torch.Tensor, keys, cd: ContextData,
     c01 = data[:2]
     for i, key in enumerate(keys):
         c01 = _switch_key_core(data[2 + i], key, cd, key_cd, acc=c01,
-                               ntt_form=ntt_form)
+                               ntt_form=ntt_form, caller="relinearize")
     return c01
 
 
@@ -324,7 +342,7 @@ def _apply_galois_core(data: torch.Tensor, elt: int, key: torch.Tensor,
         permuted = dgalois.permute(
             data, dgalois.coeff_table(cd.n, elt, cd.device), cd.ntt)
     return _switch_key_core(permuted[1], key, cd, key_cd, acc=permuted[:1],
-                            ntt_form=ntt_form)
+                            ntt_form=ntt_form, caller="apply_galois")
 
 
 def _batched_galois_fold(data: torch.Tensor, elt: int, key: torch.Tensor,
@@ -336,13 +354,16 @@ def _batched_galois_fold(data: torch.Tensor, elt: int, key: torch.Tensor,
     stacks; the key switch of the m c1s is one call each of AF (F's digits
     in A's first pass; on J, F and J), B, A and the divide (F or K'' in
     the coefficient domain; K' twice and A in the NTT domain), which adds
-    the permuted c0s."""
-    tables = dgalois.batched_tables(cd.n, (elt,), cd.device, not ntt_form)
-    permuted = dgalois.permute_batched(data, tables, cd.ntt,
-                                       comps_first=True)      # (2, m, k, n)
-    t_hat = _switch_key_decompose(permuted[1], cd, key_cd, ntt_form)
-    return _switch_key_contract(t_hat, key, cd, key_cd, ntt_form,
-                                acc=permuted[0].unsqueeze(1), group=2)
+    the permuted c0s. One ``galois_fold`` span."""
+    with profiling.span("galois_fold"):
+        tables = dgalois.batched_tables(cd.n, (elt,), cd.device,
+                                        not ntt_form)
+        permuted = dgalois.permute_batched(data, tables, cd.ntt,
+                                           comps_first=True)  # (2, m, k, n)
+        return _switch_key_core(permuted[1], key, cd, key_cd,
+                                acc=permuted[0].unsqueeze(1),
+                                ntt_form=ntt_form, group=2,
+                                caller="galois_fold")
 
 
 def _hoisted_galois_core(data: torch.Tensor, elts: Sequence[int],
@@ -360,9 +381,9 @@ def _hoisted_galois_core(data: torch.Tensor, elts: Sequence[int],
     rounding representatives: NOT word-equal to the sequential path (the
     words of the JAX package's hoisted path instead); decryption agrees.
     data (2, k, n) -> (m, 2, k, n)."""
-    t_hat = _switch_key_decompose(data[1], cd, key_cd, ntt_form)
-    out = _switch_key_contract(t_hat, keys_pp, cd, key_cd, ntt_form,
-                               acc=data[:1].unsqueeze(0), group=2)
+    out = _switch_key_core(data[1], keys_pp, cd, key_cd,
+                           acc=data[:1].unsqueeze(0), ntt_form=ntt_form,
+                           group=2, caller="apply_galois_many")
     tables = dgalois.batched_tables(cd.n, tuple(elts), cd.device,
                                     not ntt_form)
     return dgalois.permute_batched(out, tables, cd.ntt)
@@ -599,7 +620,8 @@ class Evaluator:
         cd = self._ntt_scheme(ct, "apply_keyswitching")
         data = _switch_key_core(ct.data[1], kswitch_keys.keys[1], cd,
                                 self.context.key_context_data,
-                                acc=ct.data[:1], ntt_form=ct.is_ntt_form)
+                                acc=ct.data[:1], ntt_form=ct.is_ntt_form,
+                                caller="apply_keyswitching")
         return ct.replace(data=data)
 
     @profiling.spanned("relinearize")
@@ -1006,10 +1028,13 @@ class Evaluator:
 
     def _trace(self, data: torch.Tensor, steps, cd: ContextData,
                ntt_form: bool) -> torch.Tensor:
+        """The trace steps over a batch (m, 2, k, n): one batched fold and
+        one D add a step, in one ``field_trace`` span."""
         key_cd = self.context.key_context_data
-        for elt, key in steps:
-            data = dpoly.rns_add(data, _batched_galois_fold(
-                data, elt, key, cd, key_cd, ntt_form), cd.ntt)
+        with profiling.span("field_trace"):
+            for elt, key in steps:
+                data = dpoly.rns_add(data, _batched_galois_fold(
+                    data, elt, key, cd, key_cd, ntt_form), cd.ntt)
         return data
 
     def pack_lwe_ciphertexts(self, lwes: Sequence[LWECiphertext],

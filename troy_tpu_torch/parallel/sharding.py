@@ -521,9 +521,9 @@ def _batched_mult_relin(d1: torch.Tensor, d2: torch.Tensor,
             rows[:, :2], rows[:, 2:], tool.q_bsk), tool.q_bsk), tool)
     else:
         prod = ev_mod._dyadic_convolution(d1, d2, cd.ntt)
-    t_hat = ev_mod._switch_key_decompose(prod[:, 2], cd, key_cd, ntt_form)
-    return ev_mod._switch_key_contract(t_hat, key, cd, key_cd, ntt_form,
-                                       acc=prod[:, :2], group=2)
+    return ev_mod._switch_key_core(prod[:, 2], key, cd, key_cd,
+                                   acc=prod[:, :2], ntt_form=ntt_form,
+                                   group=2, caller="batched_mult_relin")
 
 
 def batched_multiply_relin(context: HeContext, relin_keys: RelinKeys,

@@ -41,7 +41,10 @@ the device work an unrecorded one does. One thread records at a time.
         ...                              # request, self_ns
 
 While recording, the kernel binding also adds the host time of each launch
-to its entry point's total (``_kernels.launch_host_ns``).
+to its entry point's total (``_kernels.launch_host_ns``), and the program
+counts its steps by caller with ``count(group, key, items)``: read with
+``counts(group)`` (the evaluator's ``keyswitch_counts()``), forgotten by
+``clear()``.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import contextlib
 import functools
 import os
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,6 +64,8 @@ active = False
 _records: List[list] = []
 _open: List[list] = []
 _request: Optional[int] = None
+# counters kept while recording: {group: {key: [calls, items]}}
+_counts: Dict[str, Dict[str, List[int]]] = {}
 
 
 class _Totals:
@@ -198,6 +203,21 @@ def spanned(name: str):
     return wrap
 
 
+def count(group: str, key: str, items: int = 1) -> None:
+    """One call of ``key`` in ``group``, over ``items`` items; counted only
+    while recording is on."""
+    if active:
+        c = _counts.setdefault(group, {}).setdefault(key, [0, 0])
+        c[0] += 1
+        c[1] += items
+
+
+def counts(group: str) -> Dict[str, Tuple[int, int]]:
+    """(calls, items) of each key of ``group`` counted since the last
+    ``clear()``."""
+    return {k: (c[0], c[1]) for k, c in _counts.get(group, {}).items()}
+
+
 def enable() -> None:
     """Turn recording on; the spans recorded so far are kept."""
     global active
@@ -216,11 +236,12 @@ def request(i: Optional[int]) -> None:
 
 
 def clear() -> None:
-    """Forget the recorded spans and the request id; spans open now finish
-    unrecorded."""
+    """Forget the recorded spans, the counts and the request id; spans open
+    now finish unrecorded."""
     global _request
     _records.clear()
     _open.clear()
+    _counts.clear()
     _request = None
 
 
